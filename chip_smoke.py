@@ -2,12 +2,16 @@
 """Smoke run of the PyTorch/CUDA port (`evosoro_tpu_torch`) on one card.
 
 Builds the hand-written CUDA kernels from `evosoro_tpu_torch/ops/csrc`,
-holds each kernel against its plain PyTorch version, drives the port's main
-path (two generations of the examples/basic.py evolution experiment, whose
-evaluation goes through the fused rollout kernel K1 with its in-kernel
-contact pass K2) and measures the bench.py throughput workload. Every phase
-prints one JSON line; any failure raises and exits non-zero. The last line
-is {"ok": true, "device": {...}}. Imports nothing of JAX.
+holds each kernel against its plain PyTorch version, and drives the port's
+main paths: two generations of the examples/basic.py evolution experiment
+(evaluation through the fused rollout kernel K1 with its in-kernel contact
+pass K2), and the sampling-MPC benchmark of tools/bench_mpc.py (a cold CEM
+solve and a closed receding-horizon loop through K1's control-knot channel).
+It measures the card's FP32 rate with the fma_peak micro-kernel, sets each
+kernel's time beside the least time the card could take, and measures the
+bench.py throughput workload. Every phase prints one JSON line; any failure
+raises and exits non-zero. The last line is {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -28,6 +32,14 @@ K2_REL_TOL = 1e-4
 # 100-step drift band of ONCHIP_PARITY.json for chaotic dynamic scenarios
 # (tests/test_onchip_parity_artifact.py CHAOTIC_BOUND)
 DRIFT_BOUND_M = 5e-5
+# fma_peak against its plain version, which rounds once a step as a fused
+# multiply-add does: 4 float32 ulps on the sum, at a chain length that moves
+# the result by a thousand times that, and most sums equal bit for bit
+FMA_CHECK_ITERS = 4096
+FMA_RTOL = 2.0 ** -21
+FMA_EQUAL_SHARE = 0.999
+# a reading above the published FP32 rate by more than this is a wrong count
+PEAK_SLACK = 1.05
 
 
 def emit(obj):
@@ -58,7 +70,11 @@ def phase_build():
     ptxas = {name: [ln.strip() for ln in build.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln]
              for name in build.SIGNATURES}
-    emit(dict(phase="build", seconds=secs, ptxas=ptxas))
+    # fused multiply-adds in each library's machine code: the rollout
+    # kernels are built without contraction, fma_peak names the instruction
+    ffma = {name: build.sass_count(name, "FFMA") for name in build.SIGNATURES}
+    emit(dict(phase="build", seconds=secs, ptxas=ptxas, sass_ffma=ffma))
+    assert ffma["fma_peak"] >= 16, ffma
 
 
 def _event_ms(torch, fn, reps):
@@ -96,11 +112,14 @@ def _k2_case(torch, fr, label, pos, scale, a1):
     rel = err / fmax
     ms = _event_ms(torch, lambda: fr.pair_contact_forces(pos, scale, a1), 20)
     plain_ms = _event_ms(torch, lambda: fr.pair_contact_forces_plain(pos, scale, a1), 5)
+    from evosoro_tpu_torch import roofline
+
     rec = dict(phase="k2_vs_plain", workload=label, shape=list(pos.shape),
                table_shape=list(a1.shape), max_abs_err=err, max_abs_force=fmax,
                rel_err=rel, tol=K2_REL_TOL,
                active_voxels=int(((f_p.abs().sum(1)) > 0).sum()),
-               ms=ms, plain_ms=plain_ms)
+               ms=ms, plain_ms=plain_ms,
+               **roofline.bound(*roofline.k2_work(pos, scale, a1)))
     emit(rec)
     assert rel <= K2_REL_TOL, rec
     return rec
@@ -154,8 +173,12 @@ def _compare(torch, fr, out_k, st_k, out_p, st_p):
     return ok and same_small, errs
 
 
-def _k1_cases(torch, fr, label, args, kw, batch, coll, steps_list, time_at=None):
-    """K1 against its plain version on one input; returns the records."""
+def _k1_cases(torch, fr, label, args, kw, batch, coll, steps_list, time_at=None,
+              phase="k1_vs_plain", **extra):
+    """K1 against its plain version on one input (`kw` may carry controls);
+    returns the records, with `extra` in each."""
+    from evosoro_tpu_torch import roofline
+
     recs = []
     for steps in steps_list:
         before = fr.FUSED_ROLLOUT_LAUNCHES
@@ -165,8 +188,8 @@ def _k1_cases(torch, fr, label, args, kw, batch, coll, steps_list, time_at=None)
         out_p, st_p = fr.fused_rollout_plain(*args, num_steps=steps, **kw)
         torch.cuda.synchronize()
         ok, errs = _compare(torch, fr, out_k, st_k, out_p, st_p)
-        rec = dict(phase="k1_vs_plain", workload=label, batch=batch, steps=steps,
-                   collision=coll, **errs)
+        rec = dict(phase=phase, workload=label, batch=batch, steps=steps,
+                   collision=coll, **extra, **errs)
         if steps == 100:
             # beyond the step-level tolerances: drift against the band
             rec.update(drift_bound_m=DRIFT_BOUND_M)
@@ -176,6 +199,8 @@ def _k1_cases(torch, fr, label, args, kw, batch, coll, steps_list, time_at=None)
                 torch, lambda: fr.fused_call(*args, num_steps=steps, **kw), 5)
             rec["plain_ms"] = _event_ms(
                 torch, lambda: fr.fused_rollout_plain(*args, num_steps=steps, **kw), 1)
+            rec.update(roofline.bound(*roofline.k1_work(
+                *args, st_k, kw.get("control_packed"))))
         rec["ok"] = ok
         emit(rec)
         assert ok, rec
@@ -214,16 +239,253 @@ def phase_k1(torch):
     return recs
 
 
+def _controls(torch, np, batch, knots, voxels, seed):
+    """Controls (B, K, V), uniform in ±0.05 and different for every robot."""
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(-0.05, 0.05, size=(batch, knots, voxels)).astype(np.float32)
+    return torch.as_tensor(u, device="cuda")
+
+
+def _knot_workloads(collisions=(False, True)):
+    """(label, args, kw, collision) of the bench 10^3 design (8 robots, one
+    shared body) and of the evaluator's batch (16 x 6^3, a body per robot)."""
+    from evosoro_tpu_torch.bench import evaluator_workload, packed_workload
+
+    for coll in collisions:
+        args, kw, _ = packed_workload(8, collision=coll, device="cuda")
+        yield "bench 10^3, shared body", args, kw, coll
+        args, kw = evaluator_workload(collision=coll, device="cuda")
+        yield "evaluator batch 6^3, a body per robot", args, kw, coll
+
+
+def phase_k1_knots(torch, np):
+    """K1's control-knot channel against the plain version: K in {1, 4},
+    1/25/100 steps, contact off and on, on both workloads. Then the guard in
+    the data: with only robot 1's knots non-zero every other robot must come
+    out of the launch as it does with no knots at all, bit for bit."""
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    recs = []
+    for label, args, kw, coll in _knot_workloads():
+        B, _, V = args[0].shape
+        for K in (1, 4):
+            u = _controls(torch, np, B, K, V, seed=K)
+            recs += _k1_cases(torch, fr, label, args,
+                              dict(kw, control_packed=u, n_knots=K), B, coll,
+                              (1, 25, 100), phase="k1_knots_vs_plain", knots=K)
+        u = _controls(torch, np, B, 4, V, seed=9)
+        u[torch.arange(B, device="cuda") != 1] = 0.0
+        one, one_st = fr.fused_call(*args, num_steps=25, control_packed=u,
+                                    n_knots=4, **kw)
+        none, none_st = fr.fused_call(*args, num_steps=25, **kw)
+        others = torch.arange(B, device="cuda") != 1
+        rec = dict(phase="k1_knots_one_robot", workload=label, collision=coll,
+                   others_equal=bool(torch.equal(one[others], none[others])
+                                     and torch.equal(one_st[others], none_st[others])),
+                   robot_1_moved=float((one[1] - none[1]).abs().max()))
+        emit(rec)
+        assert rec["others_equal"] and rec["robot_1_moved"] > 0, rec
+    return recs
+
+
+def phase_k1_segmented(torch, np):
+    """Three segmented K1 launches of 8 steps (seg_base 0, 8, 16 of 24 steps,
+    4 knots) against one 24-step launch, bit for bit, and against the plain
+    version at K1's tolerances."""
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    for label, args, kw, coll in _knot_workloads():
+        state, body, stats, table = args
+        B, _, V = state.shape
+        ckw = dict(kw, control_packed=_controls(torch, np, B, 4, V, seed=3), n_knots=4)
+        whole, whole_st = fr.fused_call(*args, num_steps=24, **ckw)
+        seg_kw = dict(ckw, flags=dict(kw["flags"], segmented=True), total_steps=24)
+        before = fr.FUSED_ROLLOUT_KNOT_LAUNCHES
+        st, ss = state, stats
+        for base in (0, 8, 16):
+            st, ss = fr.fused_call(st, body, ss, table, num_steps=8,
+                                   seg_base=base, **seg_kw)
+        torch.cuda.synchronize()
+        assert fr.FUSED_ROLLOUT_KNOT_LAUNCHES == before + 3
+        st_p, ss_p = state, stats
+        for base in (0, 8, 16):
+            st_p, ss_p = fr.fused_rollout_plain(st_p, body, ss_p, table, num_steps=8,
+                                                seg_base=base, **seg_kw)
+        ok, errs = _compare(torch, fr, st, ss, st_p, ss_p)
+        rec = dict(phase="k1_segmented", workload=label, collision=coll,
+                   chain_equals_whole=bool(torch.equal(st, whole)
+                                           and torch.equal(ss, whole_st)),
+                   max_abs_diff=float((st - whole).abs().max()),
+                   vs_plain=errs, ok=ok)
+        emit(rec)
+        assert rec["chain_equals_whole"] and ok, rec
+
+
+def phase_fp32_peak(torch):
+    """fma_peak against its plain version, then the card's measured FP32
+    multiply-add rate through `roofline.measure_fp32_peak`, with the
+    launches of that measurement counted."""
+    from evosoro_tpu_torch import roofline
+
+    n = torch.cuda.get_device_properties(0).multi_processor_count * 2048
+    x = torch.rand(n, device="cuda") + 0.5
+    iters = FMA_CHECK_ITERS
+    before = roofline.FMA_PEAK_LAUNCHES
+    out = roofline.fma_chains(x, iters)
+    torch.cuda.synchronize()
+    assert roofline.FMA_PEAK_LAUNCHES == before + 1
+    ref = roofline.fma_chains_plain(x, iters)
+
+    def rel_to_ref(t):
+        return float(((t - ref).abs() / ref.abs()).max())
+
+    err = float((out - ref).abs().max())
+    rel = rel_to_ref(out)
+    check = dict(
+        iters=iters, bit_equal_share=float((out == ref).float().mean()),
+        # what the check can see: the whole loop's effect, and 16 steps fewer
+        loop_effect_rel=rel_to_ref(roofline.fma_chains(x, 0)),
+        rel_err_16_steps_short=rel_to_ref(roofline.fma_chains(x, iters - 16)))
+    # the row of the kernels line: both timed on one input at 512 iterations
+    ms = _event_ms(torch, lambda: roofline.fma_chains(x, 512), 20)
+    plain_ms = _event_ms(torch, lambda: roofline.fma_chains_plain(x, 512), 1)
+    row = dict(max_abs_err=err, rel_err=rel, tol=FMA_RTOL, **check, ms=ms,
+               plain_ms=plain_ms,
+               ms_of="%d threads x 16 chains x 512 steps" % n,
+               **roofline.bound(*roofline.fma_work(n, 512)))
+    roofline.FMA_PEAK_LAUNCHES = 0
+    peak = roofline.measure_fp32_peak()
+    launches = roofline.FMA_PEAK_LAUNCHES
+    rec = dict(phase="fp32_peak", threads=n, **row, peak=peak,
+               published_flops_per_s=roofline.H100_FP32_FLOPS,
+               share_of_published=peak["flops_per_s"] / roofline.H100_FP32_FLOPS,
+               launches=launches)
+    emit(rec)
+    assert rel <= FMA_RTOL and check["bit_equal_share"] >= FMA_EQUAL_SHARE, rec
+    assert check["loop_effect_rel"] >= 100 * FMA_RTOL, rec
+    assert check["rel_err_16_steps_short"] > FMA_RTOL, rec
+    assert launches > 0, rec
+    assert peak["flops_per_s"] <= PEAK_SLACK * roofline.H100_FP32_FLOPS, rec
+    return dict(row, launches=launches, peak_flops_per_s=peak["flops_per_s"])
+
+
+def phase_mpc(torch, np):
+    """The sampling-MPC path at the bench_mpc width: one cold
+    `cem_optimize_fused` solve (6 x 128 candidates x 200 steps on the 10^3
+    design, 8 knots), 4 closed-loop segments through
+    `make_fused_mpc_closed_loop`, K1 with knots alone against its plain
+    version at the solve's shape and on the closed loop's plan and execute
+    launches, and one CEM iteration through the eager rollout for the plain
+    path's time."""
+    import math
+    import time
+
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.control import (CEMConfig, cem_optimize,
+                                           make_fused_mpc_closed_loop)
+    from evosoro_tpu_torch.control.shooting import plan_inputs
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    # K1 with knots at the shape a solve launches it, against the plain version
+    body, sim, env, dt = bench.mpc_workload(device="cuda")
+    runner = fr.FusedBatchRunner(body, sim, env, batch=128, num_steps=200,
+                                 num_knots=8, dt=dt)
+    args = (runner.state_packed, runner.body_packed, runner.stats, None)
+    kw = dict(runner.call_kwargs, control_packed=_controls(torch, np, 128, 8, 1000, 5))
+    kw.pop("num_steps")
+    knot_rec = _k1_cases(torch, fr, "MPC solve launch: 128 x 10^3, 8 knots", args,
+                         kw, 128, False, (200,), time_at=200,
+                         phase="k1_knots_vs_plain", knots=8)[0]
+    # what the knot channel costs
+    no_knots = dict(kw, control_packed=None, n_knots=0)
+    times = dict(solve_launch_without_knots_ms=_event_ms(
+        torch, lambda: fr.fused_call(*args, num_steps=200, **no_knots), 5))
+
+    # the closed loop's two launches, on what the loop itself hands K1 after
+    # an executed segment: the plan (32 candidates from the true state, CoM
+    # capture reset, 200 steps, 8 knots) and the execution (ONE robot, its
+    # carried stats row, 100 steps, 4 knots, the knot clock restarted)
+    run, aux = make_fused_mpc_closed_loop(
+        body, sim, env, 200, 8, exec_knots=4,
+        config=CEMConfig(num_iters=1, pop_size=32), dt=dt, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    state, stats, _ = run(gen, 1, aux["state"], aux["stats"],
+                          torch.zeros(aux["shape"], device="cuda"),
+                          torch.full(aux["shape"], 0.02, device="cuda"))
+    assert state.shape[0] == stats.shape[0] == 1 and float(stats[0, fr._S_TIME]) > 0
+    runner = aux["runner"]
+    plan_state, plan_stats = plan_inputs(state, stats, aux["P"])
+    loop_recs = []
+    for label, a, lkw, batch, k in (
+            ("MPC plan launch: 32 x 10^3 from the true state, 8 knots",
+             (plan_state, runner.body_packed, plan_stats, runner.collision_packed),
+             aux["plan_kwargs"], aux["P"], 8),
+            ("MPC execute launch: 1 x 10^3, the true state, 4 knots",
+             (state, runner.body_packed, stats, runner.collision_packed),
+             aux["exec_kwargs"], 1, 4)):
+        lkw = dict(lkw, control_packed=_controls(torch, np, batch, k, 1000, 6))
+        steps = lkw.pop("num_steps")
+        assert lkw["n_knots"] == k and a[0].shape[0] == batch
+        loop_recs += _k1_cases(torch, fr, label, a, lkw, batch, False, (steps,),
+                               time_at=steps, phase="k1_knots_vs_plain", knots=k)
+    times.update(plan_launch_ms=loop_recs[0]["ms"],
+                 execute_launch_ms=loop_recs[1]["ms"])
+    emit(dict(phase="mpc", what="K1 launch times at the MPC shapes",
+              solve_launch_ms=knot_rec["ms"], **times))
+
+    fr.FUSED_ROLLOUT_LAUNCHES = 0
+    fr.FUSED_ROLLOUT_KNOT_LAUNCHES = 0
+    fr.PAIR_CONTACT_LAUNCHES = 0
+    rec = bench.mpc(device="cuda", segments=4)
+    launches = dict(fused_rollout=fr.FUSED_ROLLOUT_LAUNCHES,
+                    fused_rollout_with_knots=fr.FUSED_ROLLOUT_KNOT_LAUNCHES,
+                    pair_contact=fr.PAIR_CONTACT_LAUNCHES)
+    solve, closed = rec["solve"], rec["closed_loop"]
+    k1_ms = knot_rec["ms"]
+    solve.update(k1_ms_per_launch=k1_ms,
+                 k1_share=solve["k1_launches_per_solve"] * k1_ms / solve["ms_per_solve"])
+    emit(dict(phase="mpc", what="cold solve", **solve))
+    emit(dict(phase="mpc", what="closed loop", **closed))
+    emit(dict(phase="mpc_launches", **launches))
+    trace = solve["best_cost_trace"]
+    assert all(math.isfinite(c) for c in trace), solve
+    assert all(b <= a for a, b in zip(trace, trace[1:])), solve
+    assert solve["max_abs_u"] <= solve["u_clip"] + 1e-7, solve
+    assert solve["best_cost"] < 1e9, solve
+    assert solve["k1_launches_per_solve"] == solve["num_iters"] == 6, solve
+    assert abs(closed["final_time"] - closed["expected_time"]) \
+        <= 1e-5 * closed["expected_time"], closed
+    assert all(math.isfinite(c) and c < 1e9 for c in closed["planned_costs"]), closed
+    assert not closed["diverged"] and closed["executed_norm_dist"] > 0, closed
+    assert closed["k1_launches"] == 4 * (1 + 1), closed
+    assert launches["fused_rollout_with_knots"] == launches["fused_rollout"] > 0
+
+    # the plain path: one CEM iteration through the eager rollout
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, info = cem_optimize(gen, body, sim, env, 200, 8,
+                           CEMConfig(num_iters=1, pop_size=8), dt=dt, device="cuda")
+    best = float(info["best_cost"])
+    emit(dict(phase="mpc", what="one cem_optimize iteration, eager rollout",
+              pop_size=8, steps=200, seconds=time.perf_counter() - t0,
+              best_cost=best))
+    assert math.isfinite(best) and best < 1e9
+    return launches, knot_rec, loop_recs
+
+
 def phase_evolution(torch):
     from evosoro_tpu_torch.bench import evolution
     from evosoro_tpu_torch.ops import fused_rollout as fr
 
     fr.FUSED_ROLLOUT_LAUNCHES = 0
     fr.FUSED_ROLLOUT_CONTACT_LAUNCHES = 0
+    fr.FUSED_ROLLOUT_KNOT_LAUNCHES = 0
     fr.PAIR_CONTACT_LAUNCHES = 0
     records = evolution(gens=2, pop_size=15, device="cuda")
     launches = dict(fused_rollout=fr.FUSED_ROLLOUT_LAUNCHES,
                     fused_rollout_with_contact=fr.FUSED_ROLLOUT_CONTACT_LAUNCHES,
+                    fused_rollout_with_knots=fr.FUSED_ROLLOUT_KNOT_LAUNCHES,
                     pair_contact=fr.PAIR_CONTACT_LAUNCHES)
     import math
 
@@ -272,14 +534,35 @@ def main():
     phase_build()
     k2 = phase_k2(torch, np)
     k1 = phase_k1(torch)
+    knots = phase_k1_knots(torch, np)
+    phase_k1_segmented(torch, np)
+    fma = phase_fp32_peak(torch)
     launches = phase_evolution(torch)
+    mpc_launches, knot_timed, loop_recs = phase_mpc(torch, np)
     phase_throughput(torch, card)
     k1_timed = next(r for r in k1 if "ms" in r)
+    knots += [knot_timed, *loop_recs]
+
+    def at_measured_peak(rec):
+        """A record's bound with the FP32 rate fma_peak measured in this run."""
+        from evosoro_tpu_torch import roofline
+
+        return roofline.bound(rec["flops"], rec["bytes"],
+                              fp32_flops=fma["peak_flops_per_s"])["bound_ms"]
+
+    def bound_keys(rec):
+        return dict(bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+                    bound_ms_at_measured_peak=at_measured_peak(rec),
+                    library_ms=None)
+
     emit(dict(kernels=[
         dict(name="fused_rollout (K1)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fused_rollout.cu",
              replaces="evosoro_tpu/ops/fused_rollout.py:777",
-             launches=launches["fused_rollout"],
+             launches=launches["fused_rollout"] + mpc_launches["fused_rollout"],
+             launches_evolution=launches["fused_rollout"],
+             launches_mpc=mpc_launches["fused_rollout"],
+             **bound_keys(k1_timed),
              max_abs_err=max(r["pos"] for r in k1),
              err_of=("pos (m), evaluator batch %d x 6^3, 1/25/100 steps, "
                      "contact off and on, as packed and with dt/stop/IniCM per robot"
@@ -290,13 +573,36 @@ def main():
         dict(name="pair_contact_forces (K2)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/pair_contact.cu",
              replaces="evosoro_tpu/ops/fused_rollout.py:672",
-             launches=launches["pair_contact"],
+             launches=launches["pair_contact"] + mpc_launches["pair_contact"],
              runs_inside="fused_rollout (K1)",
+             **bound_keys(k2),
              k1_launches_with_contact=launches["fused_rollout_with_contact"],
              max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
              err_of="force (N), own launch, %s %s, table %s"
              % (k2["workload"], k2["shape"], k2["table_shape"]),
              ms_of="own launch, same input"),
+        dict(name="K1 control knots + segments (B3)", route="cuda",
+             source="evosoro_tpu_torch/ops/csrc/fused_rollout.cu",
+             replaces="evosoro_tpu/ops/fused_rollout.py:1710",
+             launches=mpc_launches["fused_rollout_with_knots"],
+             launches_evolution=launches["fused_rollout_with_knots"],
+             **bound_keys(knot_timed),
+             max_abs_err=max(r["pos"] for r in knots),
+             err_of=("pos (m), bench 8 x 10^3 and evaluator batch 16 x 6^3, "
+                     "K 1 and 4, 1/25/100 steps, contact off and on; the "
+                     "solve's launch, 128 x 10^3, 8 knots, 200 steps; and the "
+                     "closed loop's plan (32 x 200 steps, 8 knots) and execute "
+                     "(1 x 100 steps, 4 knots) launches after a segment"),
+             ms=knot_timed["ms"], plain_ms=knot_timed["plain_ms"],
+             ms_of="one launch of a cold solve: 128 x 10^3, 8 knots, 200 steps"),
+        dict(name="fma_peak (B9)", route="cuda",
+             source="evosoro_tpu_torch/ops/csrc/fma_peak.cu",
+             replaces="tools/roofline.py:137",
+             launches=fma["launches"], launches_of="roofline.measure_fp32_peak",
+             **bound_keys(fma),
+             max_abs_err=fma["max_abs_err"], err_of="sum of 16 chains after %d steps" % fma["iters"],
+             ms=fma["ms"], plain_ms=fma["plain_ms"], ms_of=fma["ms_of"],
+             measured_fp32_flops_per_s=fma["peak_flops_per_s"]),
     ]))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -14,6 +14,7 @@ from evosoro_tpu_torch.core import (  # noqa: F401
     EnvParams,
     Material,
     MaterialPalette,
+    RolloutResult,
     SimParams,
     SimState,
     VoxelBody,
@@ -24,6 +25,7 @@ from evosoro_tpu_torch.core import (  # noqa: F401
     init_state,
     num_steps_for,
     palette_from_list,
+    rollout,
     sim_step,
 )
 from evosoro_tpu_torch.core.constants import (  # noqa: F401

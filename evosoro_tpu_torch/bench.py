@@ -1,6 +1,6 @@
 """Benchmarks of the port on one card.
 
-Two workloads, both from the JAX package's own benchmarks:
+Three workloads, all from the JAX package's own benchmarks:
 
 - throughput: the root `bench.py` workload on the port: B concurrent 10³
   robots (`default_rng(0)`, material ids 1..4, random phase offsets) with
@@ -9,10 +9,16 @@ Two workloads, both from the JAX package's own benchmarks:
   second;
 - evolution: the `examples/basic.py` experiment (CPPN material tree, AFPO
   Pareto optimization of NormFinalDist vs age) at the `EVOBENCH.json`
-  "basic" configuration: pop 15, 6³, 5 s of sim time, self-collision on.
+  "basic" configuration: pop 15, 6³, 5 s of sim time, self-collision on;
+- mpc: the `tools/bench_mpc.py` workload: one cold CEM solve over the 10³
+  bench design (6 iterations x 128 candidates x 200 steps, 8 knots) through
+  `cem_optimize_fused`, then a closed receding-horizon loop through
+  `make_fused_mpc_closed_loop` (warm replans of 1 x 32 candidates, 4 of 8
+  knots executed a segment).
 
 Run:  python -m evosoro_tpu_torch.bench [--batch 1024] [--steps 200]
-      [--gens 2]   (needs a CUDA device; prints one JSON line per result)
+      [--gens 2] [--segments 4]
+      (needs a CUDA device; prints one JSON line per result)
 """
 
 from __future__ import annotations
@@ -29,6 +35,13 @@ from functools import partial
 import numpy as np
 import torch
 
+from evosoro_tpu_torch import roofline
+from evosoro_tpu_torch.control.shooting import (
+    CEMConfig,
+    cem_optimize_fused,
+    make_fused_cem_solver,
+    make_fused_mpc_closed_loop,
+)
 from evosoro_tpu_torch.core.collision import build_collision_system
 from evosoro_tpu_torch.core.materials import build_body, calc_max_dt, palette_from_list
 from evosoro_tpu_torch.core.rollout import init_state
@@ -129,13 +142,118 @@ def time_call(fn, groups=4, reps=3):
 def throughput(batch=1024, steps=200, collision=False, plain=False,
                groups=4, reps=3, device="cuda"):
     """Voxel-steps per second of one fused-rollout call on the bench
-    workload; `plain` times K1's plain version on the same tensors."""
+    workload, beside the least time the card could take for it
+    (`roofline.bound`); `plain` times K1's plain version on the same
+    tensors."""
     args, kw, n_occ = packed_workload(batch, collision=collision, device=device)
     call = fr.fused_rollout_plain if plain else fr.fused_call
     ms = time_call(lambda: call(*args, num_steps=steps, **kw), groups, reps)
+    _, stats_out = call(*args, num_steps=steps, **kw)
+    least = roofline.bound(*roofline.k1_work(*args, stats_out))
     return dict(batch=batch, steps=steps, collision=collision,
                 impl="plain" if plain else "K1", ms=ms,
-                voxel_steps_per_s=n_occ * batch * steps / (ms * 1e-3))
+                voxel_steps_per_s=n_occ * batch * steps / (ms * 1e-3),
+                bound_ms=least["bound_ms"], bound_by=least["bound_by"])
+
+
+# ---------------------------------------------------------------------------
+# Sampling MPC (tools/bench_mpc.py)
+# ---------------------------------------------------------------------------
+
+
+def mpc_workload(n=10, seed=0, device="cuda"):
+    """(body, sim, env, dt) of the MPC benchmark: the bench design with
+    actuation and the CoM capture from time 0."""
+    _, body = bench_body(n, seed=seed, device=device)
+    sim = SimParams(init_cm_time=0.0)
+    return body, sim, EnvParams(), float(calc_max_dt(body) * sim.dt_frac)
+
+
+def _timed_ms(fn, device):
+    """(result, milliseconds, clock) of one call: CUDA events on the card,
+    the host's clock on the CPU (a rehearsal's time, not a device time)."""
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, 1e3 * (time.perf_counter() - t0), "host clock, cpu"
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b), "cuda events"
+
+
+def mpc(device="cuda", n=10, plan_steps=200, knots=8, num_iters=6, pop_size=128,
+        warm_iters=1, warm_pop=32, exec_knots=4, segments=4, reps=3, seed=0):
+    """The MPC benchmark on `device`. Returns a dict with two records:
+    `solve` (the cold CEM solve: cost traces, K1 launches per solve,
+    milliseconds per solve over `reps` solves on a prepared runner, solves
+    per second) and `closed_loop` (`segments` plan-and-execute segments:
+    planned costs, K1 launches, milliseconds per segment, executed NormDist
+    and the real-time factor, executed seconds per second of `clock`)."""
+    body, sim, env, dt = mpc_workload(n, seed, device)
+    cfg = CEMConfig(num_iters=num_iters, pop_size=pop_size)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    # one-off API path: packs the body, runs the solve, returns the plan
+    k1 = fr.FUSED_ROLLOUT_LAUNCHES
+    u, info = cem_optimize_fused(gen, body, sim, env, num_steps=plan_steps,
+                                 num_knots=knots, config=cfg, dt=dt, device=device)
+    launches = fr.FUSED_ROLLOUT_LAUNCHES - k1
+
+    # the receding-horizon pattern: runner and solver built once
+    runner = fr.FusedBatchRunner(body, sim, env, batch=pop_size,
+                                 num_steps=plan_steps, num_knots=knots, dt=dt)
+    solve = make_fused_cem_solver(runner, knots, runner.grid_shape, cfg)
+    packed = (runner.state_packed, runner.body_packed, runner.stats,
+              runner.collision_packed)
+    shape = (knots,) + runner.grid_shape
+    mean0 = torch.zeros(shape, dtype=torch.float32, device=device)
+    std0 = torch.full(shape, cfg.init_std, dtype=torch.float32, device=device)
+    solve(gen, packed, mean0, std0)
+    _, ms, clock = _timed_ms(
+        lambda: [solve(gen, packed, mean0, std0) for _ in range(reps)], device)
+    solve_ms = ms / reps
+    solve_rec = dict(
+        n=n, plan_steps=plan_steps, knots=knots, num_iters=num_iters,
+        pop_size=pop_size, rollouts_per_solve=num_iters * pop_size,
+        k1_launches_per_solve=launches, ms_per_solve=solve_ms, clock=clock,
+        solves_per_s=1e3 / solve_ms, horizon_s=plan_steps * dt,
+        realtime_factor=plan_steps * dt / (solve_ms * 1e-3),
+        best_cost=info["best_cost"],
+        best_cost_trace=info["best_cost_trace"].tolist(),
+        mean_cost_trace=info["mean_cost_trace"].tolist(),
+        max_abs_u=float(u.abs().max()), u_clip=cfg.u_clip)
+
+    cfg_w = CEMConfig(num_iters=warm_iters, pop_size=warm_pop,
+                      init_std=cfg.init_std)
+    run, aux = make_fused_mpc_closed_loop(
+        body, sim, env, plan_steps, knots, exec_knots=exec_knots, config=cfg_w,
+        dt=dt, device=device)
+    args = (aux["state"], aux["stats"], u.to(torch.float32), std0)
+    run(gen, 1, *args)  # warm-up
+    k1 = fr.FUSED_ROLLOUT_LAUNCHES
+    (state, stats, costs), ms, clock = _timed_ms(
+        lambda: run(gen, segments, *args), device)
+    seg_ms = ms / segments
+    exec_s = aux["exec_steps"] * dt
+    disp = torch.linalg.norm(aux["cm_xy"](state, stats)
+                             - aux["cm_xy"](aux["state"], aux["stats"]))
+    closed_rec = dict(
+        warm_iters=warm_iters, warm_pop=warm_pop, exec_knots=exec_knots,
+        exec_steps=aux["exec_steps"], segments=segments,
+        k1_launches=fr.FUSED_ROLLOUT_LAUNCHES - k1, ms_per_segment=seg_ms,
+        clock=clock, exec_horizon_s=exec_s,
+        realtime_factor=exec_s / (seg_ms * 1e-3),
+        planned_costs=costs.tolist(),
+        executed_norm_dist=float(disp) / body.nominal_size,
+        final_time=float(stats[0, fr._S_TIME]),
+        expected_time=segments * aux["exec_steps"] * dt,
+        diverged=bool((stats[:, fr._S_DIV] > 0.5).any()))
+    return dict(solve=solve_rec, closed_loop=closed_rec)
 
 
 # ---------------------------------------------------------------------------
@@ -256,6 +374,7 @@ def main():
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--coll-steps", type=int, default=20)
     ap.add_argument("--gens", type=int, default=2)
+    ap.add_argument("--segments", type=int, default=4)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("the port's benchmark needs a CUDA device")
@@ -266,6 +385,8 @@ def main():
     for rec in evolution(gens=args.gens):
         rec.pop("fitnesses")
         print(json.dumps(dict(rec, card=card)), flush=True)
+    for name, rec in mpc(segments=args.segments).items():
+        print(json.dumps(dict(rec, workload="mpc " + name, card=card)), flush=True)
 
 
 if __name__ == "__main__":

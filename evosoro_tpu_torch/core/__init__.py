@@ -12,9 +12,12 @@ from evosoro_tpu_torch.core.materials import (  # noqa: F401
     palette_from_list,
 )
 from evosoro_tpu_torch.core.rollout import (  # noqa: F401
+    RolloutResult,
     center_of_mass,
     init_state,
     num_steps_for,
+    rollout,
+    total_volume,
 )
 from evosoro_tpu_torch.core.step import sim_step  # noqa: F401
 from evosoro_tpu_torch.core.types import (  # noqa: F401

@@ -115,7 +115,7 @@ def _from_nbrv(a, d):
 
 
 def _check_envelope(state: SimState, body: VoxelBody, sim: SimParams,
-                    env: EnvParams, control_offset, dt_reduce):
+                    env: EnvParams, dt_reduce):
     """Raise NotImplementedError for every feature outside the port's step."""
     refused = [
         ("volume effects", sim.volume_effects_enabled),
@@ -131,7 +131,6 @@ def _check_envelope(state: SimState, body: VoxelBody, sim: SimParams,
         ("devo (final phase offset)", body.using_final_phase_offset),
         ("devo (final temp amp damp)", body.using_final_temp_amp_damp),
         ("ballistic devo", state.devo is not None),
-        ("MPC control offset", control_offset is not None),
         ("dt reduction across shards", dt_reduce is not None),
     ]
     for name, on in refused:
@@ -441,9 +440,11 @@ def sim_step(
 
     `state` may carry a leading batch shape; `body` is either one design
     (broadcast) or a batch of designs of the same shape. `dt` and the env
-    scalars may be floats or tensors of the batch shape.
+    scalars may be floats or tensors of the batch shape. `control_offset`
+    is the MPC actuation channel: a (..., X, Y, Z) scale modulation, in
+    fractions of the nominal size, added after the actuation clamps.
     """
-    _check_envelope(state, body, sim, env, control_offset, dt_reduce)
+    _check_envelope(state, body, sim, env, dt_reduce)
     t = state.time
     occ = body.occ
     occf = occ[..., None]
@@ -516,6 +517,11 @@ def sim_step(
 
     # ---- actuation (reference: :224-341) ----
     new_scale = _scale_update(state, body, sim, env, t)
+    if control_offset is not None:
+        # MPC direct actuation channel: additive scale modulation
+        ctrl_off = torch.as_tensor(control_offset, dtype=new_scale.dtype,
+                                   device=new_scale.device)
+        new_scale = new_scale + torch.where(occ, ctrl_off * L, 0.0)
 
     # ---- kinetic energy and strain-energy bookkeeping ----
     vel_new = linmom * body.mass_inv[..., None]

@@ -19,6 +19,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import torch
+
 # DOF bit flags (reference: VX_FRegion.h:32-42)
 DOF_X, DOF_Y, DOF_Z, DOF_TX, DOF_TY, DOF_TZ = 1, 2, 4, 8, 16, 32
 DOF_ALL = 63
@@ -35,6 +37,13 @@ class _Replace:
 
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)
+
+    def to(self, device):
+        """A copy with every tensor field on `device`."""
+        moved = {f.name: getattr(self, f.name).to(device)
+                 for f in dataclasses.fields(self)
+                 if torch.is_tensor(getattr(self, f.name))}
+        return dataclasses.replace(self, **moved)
 
 
 @dataclasses.dataclass

@@ -24,6 +24,7 @@ import torch
 from evosoro_tpu_torch.core.materials import build_body, calc_max_dt, palette_from_list
 from evosoro_tpu_torch.core.rollout import init_state
 from evosoro_tpu_torch.core.types import evosoro_default_palette
+from evosoro_tpu_torch.device import resolve_device
 from evosoro_tpu_torch.ops import fused_rollout as fr
 
 # phenotype-map tags -> build_body kwargs (reference: VX_Object.h:183-258)
@@ -56,11 +57,6 @@ LAST_DISPATCH_TIMING: dict = {}
 
 _DEVO_KEYS = ("initial_voxel_size", "final_voxel_size", "growth_time",
               "start_growth_time")
-
-
-def default_device() -> torch.device:
-    """The card when there is one, else the CPU (where the plain versions run)."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 def _phenotype_fields(ind, env):
@@ -152,7 +148,7 @@ def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
     so a batch is ONE launch. Returns `fn(structures, voxel_fields,
     env_batch, stop_time, collision_packed=None)` -> dict of numpy metrics;
     `collision_packed` is the (B, V, V) float32 pair-table batch."""
-    device = torch.device(device) if device is not None else default_device()
+    device = resolve_device(device)
     V = int(np.prod(grid_shape))
     scalars = fr.kernel_scalars(lattice_dim, sim_params, env_flags_src)
     flags = dict(
@@ -237,11 +233,12 @@ def evaluate_all(
     device=None,
 ):
     """Evaluate every unevaluated individual in `pop` in batched launches
-    on `device` (default: the card if there is one, else the CPU).
-    Signature-compatible with the reference's evaluate_all
+    on `device`: the card when none is named (without a card that raises;
+    `device="cpu"` asks for the plain versions). Signature-compatible with the reference's evaluate_all
     (tools/evaluation.py:18); `max_eval_time` / `time_to_try_again` are the
     reference's subprocess retry timers and are unused, as in the JAX
     package."""
+    device = resolve_device(device)
     start = time.time()
     from evosoro_tpu_torch.evo.logging import PrintLog
 

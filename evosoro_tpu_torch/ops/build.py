@@ -36,7 +36,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "pair_contact": ("pair_contact_forces", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "fused_rollout": ("fused_rollout", [
-        _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P]),
+        _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P]),
+    "fma_peak": ("fma_peak", [_P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _P]),
 }
 
 _libs: dict = {}
@@ -91,6 +92,18 @@ def build_log(name: str) -> str:
     """nvcc's output (ptxas registers, shared memory and spills) of a build."""
     p = _lib_path(name).with_suffix(".log")
     return p.read_text() if p.exists() else ""
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """How many `opcode` instructions the built library's machine code
+    holds (`cuobjdump -sass`, a part of the CUDA toolkit)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        raise RuntimeError("cuobjdump not found: counting instructions needs "
+                           "the CUDA toolkit")
+    out = subprocess.run([tool, "-sass", str(_lib_path(name))],
+                         capture_output=True, text=True, check=True, timeout=300)
+    return sum(1 for ln in out.stdout.splitlines() if f" {opcode}" in ln)
 
 
 def library(name: str):

@@ -5,7 +5,16 @@
 // linear materials, floor with Coulomb friction and the sticky floor,
 // gravity, thermal actuation with the mid-life freeze, and self-collision
 // through the dense pair pass of pair_contact.cuh (K2). The host wrapper
-// refuses every other feature flag.
+// refuses every other feature flag. It also carries that kernel's MPC
+// control-knot channel and segmented mode (:1061, :1119, :1710-1719): step i
+// of a launch is global step step_base + i of a rollout whose knot clock
+// runs over knot_steps steps; the robot's controls (B, K, V) modulate each
+// occupied voxel's scale by u * L after the actuation clamps, with the knot
+// min(global step * K / knot_steps, K - 1). The TPU kernel holds the K knot
+// rows in on-chip memory and blends them with a one-hot sum; here the
+// block computes the knot once a step and each voxel's thread loads its
+// value from device memory (the controls of a CEM population stay in L2),
+// so the channel costs no shared memory. With K = 0 nothing else changes.
 //
 // Each step computes what core/step.py:sim_step computes, in the same
 // order of operations: three beam-bond passes (small/large-angle
@@ -14,7 +23,7 @@
 // angular integration with the quaternion update and its identity snap,
 // and the actuation scale update with its clamps. Around it run the
 // rollout's bookkeeping of the TPU kernel: the IniCM capture from the
-// previous step's positions (seeded at step 0), the strain > 100
+// previous step's positions (seeded at global step 0), the strain > 100
 // divergence latch and the per-robot stop-time freeze.
 //
 // Layout: the packed channel-major tensors of the host side, with V = X*Y*Z
@@ -240,8 +249,10 @@ __device__ F3 block_sum3(F3 v, float* red) {
 __global__ void __launch_bounds__(MAX_THREADS)
 fused_rollout_kernel(float* state_all, const float* __restrict__ body_all,
                      int body_batched, float* stats_all,
-                     const float* __restrict__ a1_all, int a1_batched, int X,
-                     int Y, int Z, int num_steps, Params p, int flags) {
+                     const float* __restrict__ a1_all, int a1_batched,
+                     const float* __restrict__ ctrl_all, int n_knots,
+                     int knot_steps, int step_base, int X, int Y, int Z,
+                     int num_steps, Params p, int flags) {
     extern __shared__ float sh[];
     __shared__ float red[3 * (MAX_THREADS / 32)];
     __shared__ int divflag[2];
@@ -282,9 +293,10 @@ fused_rollout_kernel(float* state_all, const float* __restrict__ body_all,
 #define BCH(k) (bo + (size_t)(k) * V)
 
     for (int i = 0; i < num_steps; ++i) {
+        const int i_glob = step_base + i;
         // ---- rollout bookkeeping from the previous step's positions ----
         const bool capture = !capt && (t > init_cm);
-        const bool take = capture || (i == 0 && !capt);
+        const bool take = capture || (i_glob == 0 && !capt);
         if (take) {
             F3 part = {0.f, 0.f, 0.f};
             for (int v = threadIdx.x; v < V; v += T) {
@@ -298,6 +310,14 @@ fused_rollout_kernel(float* state_all, const float* __restrict__ body_all,
         }
         capt = capt || capture;
         if (div || t >= stop_t) break;  // frozen: nothing changes any more
+
+        // this step's control knot: a row of the robot's (K, V) controls
+        const float* cu = nullptr;
+        if (n_knots > 0) {
+            const long long k = (long long)i_glob * n_knots / knot_steps;
+            const int knot = k < n_knots - 1 ? (int)k : n_knots - 1;
+            cu = ctrl_all + ((size_t)b * n_knots + knot) * V;
+        }
 
         // ---- phase A: bond pass (+ staging for the pair pass) ----
         if (coll) {
@@ -454,6 +474,8 @@ fused_rollout_kernel(float* state_all, const float* __restrict__ body_all,
         // ---- phase B: per-voxel force sum and integration ----
         for (int v = threadIdx.x; v < V; v += T) {
             const bool occ = BCH(B_OCC)[v] > 0.5f;
+            // loaded first, so the load is in flight during the force sum
+            const float u_knot = cu ? __ldg(cu + v) : 0.f;
             const int coord[3] = {v / (Y * Z), (v / Z) % Y, v % Z};
             const float mass = BCH(B_MASS)[v];
             const float minv = BCH(B_MASS_INV)[v];
@@ -576,7 +598,11 @@ fused_rollout_kernel(float* state_all, const float* __restrict__ body_all,
             SCH(S_QUAT + 2)[v] = qn.y; SCH(S_QUAT + 3)[v] = qn.z;
             SCH(S_LIN)[v] = lin.x; SCH(S_LIN + 1)[v] = lin.y; SCH(S_LIN + 2)[v] = lin.z;
             SCH(S_ANG)[v] = ang.x; SCH(S_ANG + 1)[v] = ang.y; SCH(S_ANG + 2)[v] = ang.z;
-            SCH(S_SCALE)[v] = occ ? curr : nom;
+            float new_scale = occ ? curr : nom;
+            // MPC channel, after the clamps: the product and the sum round
+            // separately, as core/step.py's control_offset does
+            if (cu) new_scale = new_scale + (occ ? u_knot * nom : 0.f);
+            SCH(S_SCALE)[v] = new_scale;
         }
         if (threadIdx.x == 0) divflag[(i + 1) & 1] = 0;
         t = t + dt;
@@ -598,8 +624,10 @@ fused_rollout_kernel(float* state_all, const float* __restrict__ body_all,
 
 extern "C" int fused_rollout(float* state, const float* body, int body_batched,
                              float* stats, const float* a1, int a1_batched,
-                             int B, int X, int Y, int Z, int num_steps,
-                             const float* params, int flags, void* stream) {
+                             const float* ctrl, int n_knots, int knot_steps,
+                             int step_base, int B, int X, int Y, int Z,
+                             int num_steps, const float* params, int flags,
+                             void* stream) {
     Params p;
     memcpy(&p, params, sizeof(float) * N_PARAMS);
     const int V = X * Y * Z;
@@ -612,7 +640,7 @@ extern "C" int fused_rollout(float* state, const float* body, int body_batched,
         if (e != cudaSuccess) return (int)e;
     }
     fused_rollout_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-        state, body, body_batched, stats, a1, a1_batched, X, Y, Z, num_steps,
-        p, flags);
+        state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots,
+        knot_steps, step_base, X, Y, Z, num_steps, p, flags);
     return (int)cudaGetLastError();
 }

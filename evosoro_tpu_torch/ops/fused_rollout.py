@@ -6,7 +6,9 @@ The port of `evosoro_tpu/ops/fused_rollout.py`. The TPU kernel there
 Hopper take its place on the evolution loop's envelope:
 
 - K1 (`fused_call`, `csrc/fused_rollout.cu`): the forward multi-step
-  rollout, one block per robot, the step loop inside the kernel;
+  rollout, one block per robot, the step loop inside the kernel, with the
+  MPC control-knot channel and the segmented mode (a launch that advances
+  `num_steps` of a longer rollout from a global step offset);
 - K2 (`pair_contact_forces`, `csrc/pair_contact.cu`): the dense
   self-contact pass, a device routine of K1 that also has its own launch.
 
@@ -169,7 +171,9 @@ _SMEM_BYTES = 232448  # a block's shared memory on Hopper
 
 
 def _flat(a, lead):
-    """(*lead, X, Y, Z) -> (*lead, V) x-major flatten."""
+    """(*lead, X, Y, Z) -> (*lead, V) x-major flatten; controls
+    (B, K, X, Y, Z) become (B, K, V). The port's layout has no lane
+    padding."""
     return a.reshape(tuple(lead) + (-1,))
 
 
@@ -450,10 +454,10 @@ _K1_REFUSED = ("volume", "fluid", "fluid_mesh", "nonlinear", "mdl_data",
                "plasticity", "equilibrium", "max_vel", "bc", "needle",
                "falling", "ndbv", "window", "ballistic", "use_init_size",
                "use_final_size", "use_growth_t", "use_final_phase",
-               "use_final_ad", "segmented", "collision_compact")
+               "use_final_ad", "collision_compact")
 
 
-def check_envelope(flags: dict, scalars: dict, n_knots: int = 0):
+def check_envelope(flags: dict, scalars: dict):
     """Raise NotImplementedError for any flag outside K1's envelope (for
     CPU and CUDA tensors alike, before anything runs)."""
     for k in _K1_REFUSED:
@@ -465,9 +469,6 @@ def check_envelope(flags: dict, scalars: dict, n_knots: int = 0):
     if scalars.get("sources"):
         raise NotImplementedError("fused rollout: environmental sources are "
                                   "not ported yet")
-    if n_knots:
-        raise NotImplementedError("fused rollout: MPC control knots are not "
-                                  "ported yet")
 
 
 def supports(body: VoxelBody, sim: SimParams, env: EnvParams) -> bool:
@@ -564,6 +565,8 @@ def pair_contact_forces(pos, scale, a1):
 FUSED_ROLLOUT_LAUNCHES = 0
 # K1 launches that ran the contact pass (K2's device routine) in their steps
 FUSED_ROLLOUT_CONTACT_LAUNCHES = 0
+# K1 launches that ran the control-knot channel or the segmented mode
+FUSED_ROLLOUT_KNOT_LAUNCHES = 0
 
 
 def _k1_params(scalars: dict, prec: Precision) -> np.ndarray:
@@ -640,16 +643,36 @@ def _unpack_body(body_packed, grid_shape, L) -> VoxelBody:
     )
 
 
+def _knot_clock(flags, num_steps, n_knots, control_packed, seg_base, total_steps):
+    """(first global step, steps of the knot clock) of a launch, after
+    checking that the knot and segment arguments agree."""
+    if bool(n_knots) != (control_packed is not None):
+        raise ValueError("n_knots and the controls disagree")
+    segmented = bool(flags.get("segmented"))
+    if segmented != (seg_base is not None):
+        raise ValueError("flags['segmented'] and seg_base disagree")
+    if segmented and total_steps is None:
+        raise ValueError("the segmented mode needs total_steps")
+    knot_steps = int(total_steps if total_steps is not None else num_steps)
+    if n_knots and knot_steps <= 0:
+        raise ValueError("the knot clock needs a positive step count")
+    return (int(seg_base) if segmented else 0), knot_steps
+
+
 def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
-                        *, num_steps, grid_shape, scalars, flags,
-                        prec: Precision = DEFAULT_PRECISION):
+                        *, control_packed=None, seg_base=None, num_steps,
+                        grid_shape, scalars, flags, n_knots: int = 0,
+                        total_steps=None, prec: Precision = DEFAULT_PRECISION):
     """Plain version of K1 on the same packed tensors: unpack, loop the
     eager `core.step.sim_step`, keep the stats row's bookkeeping as the
-    kernel does (IniCM capture with the step-0 seed, divergence latch,
-    stop-time freeze) and repack. Returns (state_out, stats_out)."""
+    kernel does (IniCM capture with the seed at global step 0, divergence
+    latch, stop-time freeze), select each step's control knot by the global
+    step, and repack. Returns (state_out, stats_out)."""
     from evosoro_tpu_torch.core.step import freeze_where, sim_step
 
     check_envelope(flags, scalars)
+    seg0, knot_steps = _knot_clock(flags, num_steps, n_knots, control_packed,
+                                   seg_base, total_steps)
     X, Y, Z = grid_shape
     B = state_packed.shape[0]
     L = scalars["L"]
@@ -698,13 +721,18 @@ def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
     )
     mass = body.mass
     for i in range(num_steps):
+        i_glob = seg0 + i
         cm = (state.pos * mass[..., None]).flatten(-4, -2).sum(-2) * inv_m[:, None]
         capture = ~capt & (state.time > init_cm)
-        take = capture | ((i == 0) & ~capt)
+        take = capture | ((i_glob == 0) & ~capt)
         ini = torch.where(take[:, None], cm, ini)
         capt = capt | capture
         frozen = state.diverged | (state.time >= stop_t)
-        new = sim_step(state, body, sim, env, dt, prec)
+        ctrl = None
+        if n_knots:
+            knot = min(i_glob * n_knots // knot_steps, n_knots - 1)
+            ctrl = control_packed[:, knot].reshape(B, X, Y, Z)
+        new = sim_step(state, body, sim, env, dt, prec, control_offset=ctrl)
         state = freeze_where(frozen, state, new)
 
     out_state = pack_state(state, state_packed.dtype)
@@ -719,16 +747,24 @@ def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
 
 
 def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
-               num_steps: int, grid_shape, scalars: dict, flags: dict,
-               n_knots: int = 0, prec: Precision = DEFAULT_PRECISION):
+               control_packed=None, seg_base=None, num_steps: int, grid_shape,
+               scalars: dict, flags: dict, n_knots: int = 0, total_steps=None,
+               prec: Precision = DEFAULT_PRECISION):
     """K1 wrapper, the counterpart of the JAX package's `_fused_call`.
 
-    state (B, C_S, V), body (B or 1, C_B, V), stats (B, C_STAT) and the
-    optional pair table (B or 1, V, V), all float32 on one device. Returns
-    (state_out, stats_out). CUDA tensors launch K1; CPU tensors run
-    `fused_rollout_plain`. Flags outside the envelope raise first.
+    state (B, C_S, V), body (B or 1, C_B, V), stats (B, C_STAT), the
+    optional pair table (B or 1, V, V) and the optional controls
+    (B, n_knots, V), all float32 on one device. Step i of the launch is the
+    global step `seg_base + i` (`seg_base` an int, given exactly when
+    flags["segmented"] is set); its knot is
+    `min(global step * n_knots // knot_steps, n_knots - 1)` with
+    `knot_steps = total_steps or num_steps`. Returns (state_out, stats_out).
+    CUDA tensors launch K1; CPU tensors run `fused_rollout_plain`. Flags
+    outside the envelope raise first.
     """
-    check_envelope(flags, scalars, n_knots)
+    check_envelope(flags, scalars)
+    seg0, knot_steps = _knot_clock(flags, num_steps, n_knots, control_packed,
+                                   seg_base, total_steps)
     X, Y, Z = grid_shape
     V = X * Y * Z
     B = state_packed.shape[0]
@@ -742,22 +778,27 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
                  or tuple(collision_packed.shape[1:]) != (V, V)):
         raise ValueError(f"pair table must be (B or 1, {V}, {V}), got "
                          f"{tuple(collision_packed.shape)}")
+    if n_knots:
+        shapes.append(("controls", control_packed, (B, int(n_knots), V)))
     for name, t, shp in shapes:
         if tuple(t.shape) != shp:
             raise ValueError(f"{name} must be {shp}, got {tuple(t.shape)}")
     tensors = [("state", state_packed), ("body", body_packed), ("stats", stats)]
     if coll:
         tensors.append(("pair table", collision_packed))
+    if n_knots:
+        tensors.append(("controls", control_packed))
     for name, t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != state_packed.device:
             raise ValueError(f"{name} is on {t.device}, state on {state_packed.device}")
-    kw = dict(num_steps=num_steps, grid_shape=grid_shape, scalars=scalars,
-              flags=flags, prec=prec)
     if state_packed.device.type == "cpu":
-        return fused_rollout_plain(state_packed, body_packed, stats,
-                                   collision_packed, **kw)
+        return fused_rollout_plain(
+            state_packed, body_packed, stats, collision_packed,
+            control_packed=control_packed, seg_base=seg_base,
+            num_steps=num_steps, grid_shape=grid_shape, scalars=scalars,
+            flags=flags, n_knots=n_knots, total_steps=total_steps, prec=prec)
     if state_packed.device.type != "cuda":
         raise ValueError(f"unsupported device {state_packed.device}")
     for name, t in tensors:
@@ -778,21 +819,27 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
                 int(body_packed.shape[0] == B and B > 1), stats_out.data_ptr(),
                 collision_packed.data_ptr() if coll else None,
                 int(coll and collision_packed.shape[0] == B and B > 1),
-                B, X, Y, Z, int(num_steps),
+                control_packed.data_ptr() if n_knots else None, int(n_knots),
+                knot_steps, seg0, B, X, Y, Z, int(num_steps),
                 params.ctypes.data_as(ctypes.c_void_p), bits, stream)
     build.check(rc, "fused_rollout")
     global FUSED_ROLLOUT_LAUNCHES, FUSED_ROLLOUT_CONTACT_LAUNCHES
+    global FUSED_ROLLOUT_KNOT_LAUNCHES
     FUSED_ROLLOUT_LAUNCHES += 1
     if coll:
         FUSED_ROLLOUT_CONTACT_LAUNCHES += 1
+    if n_knots or flags.get("segmented"):
+        FUSED_ROLLOUT_KNOT_LAUNCHES += 1
     return state_out, stats_out
 
 
 def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
                   env: EnvParams, num_steps: int, dt, stop_time=None,
-                  prec: Precision = DEFAULT_PRECISION, stats=None):
+                  prec: Precision = DEFAULT_PRECISION, stats=None,
+                  control_sequence=None):
     """Advance a batched SimState by `num_steps` through `fused_call` for one
-    shared design. Returns (new_state, FastRolloutStats)."""
+    shared design; `control_sequence` is the optional (B, K, X, Y, Z) MPC
+    knot channel. Returns (new_state, FastRolloutStats)."""
     if not supports(body, sim, env):
         raise NotImplementedError(
             "configuration outside the fused rollout's envelope "
@@ -810,11 +857,74 @@ def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
         stats = make_stats(body, B, dt, sim, env, stop_time)
     flags = dict(kernel_env_flags(sim, env), **body_flags(body),
                  collision=collision_packed is not None)
+    n_knots, control_packed = 0, None
+    if control_sequence is not None:
+        n_knots = control_sequence.shape[1]
+        control_packed = _flat(control_sequence.to(torch.float32),
+                               (B, n_knots)).contiguous()
     out_state, out_stats = fused_call(
-        state_packed, body_packed, stats, collision_packed, num_steps=num_steps,
+        state_packed, body_packed, stats, collision_packed,
+        control_packed=control_packed, num_steps=num_steps,
         grid_shape=(X, Y, Z), scalars=kernel_scalars(body.nominal_size, sim, env),
-        flags=flags, prec=prec)
+        flags=flags, n_knots=n_knots, prec=prec)
     outs = stats_to_outputs(out_stats)
     new_state = unpack_state(out_state, state, (X, Y, Z)).replace(
         time=outs.time.to(state.time.dtype), diverged=outs.diverged)
     return new_state, outs
+
+
+class FusedBatchRunner:
+    """Reusable packed-batch rollout launcher for solver loops (CEM, MPC).
+
+    Packs one design's state, body, stats and pair table once, on the body's
+    device; each `run(controls)` is one K1 launch over the candidate batch.
+    Controls are (B, K, X, Y, Z) scale-modulation knots (the eager step's
+    `control_offset` channel). `call_kwargs` are the launch's keyword
+    arguments, for solvers that call `fused_call` on the packed fields
+    themselves."""
+
+    def __init__(self, body: VoxelBody, sim: SimParams, env: EnvParams,
+                 batch: int, num_steps: int, num_knots: int, dt=None,
+                 state: SimState | None = None, stop_time=None,
+                 prec: Precision = DEFAULT_PRECISION):
+        from evosoro_tpu_torch.core.materials import calc_max_dt
+        from evosoro_tpu_torch.core.rollout import init_state
+
+        if not supports(body, sim, env):
+            raise NotImplementedError(
+                "configuration outside the fused rollout's envelope "
+                "(ops.fused_rollout.supports)")
+        if dt is None:
+            dt = calc_max_dt(body) * sim.dt_frac
+        if state is None:
+            state = init_state(body)
+        X, Y, Z = body.occ.shape[-3:]
+        self.grid_shape = (X, Y, Z)
+        self.L = body.nominal_size
+        self.num_steps = num_steps
+        self.num_knots = num_knots
+        self.batch = batch
+        self.state_packed = pack_state_single(state)[None].expand(
+            batch, -1, -1).contiguous()
+        self.body_packed = pack_body(body)
+        self.collision_packed = None
+        if sim.self_collisions_enabled and body.collision is not None:
+            self.collision_packed = torch.as_tensor(
+                pack_collision(body.collision, self.grid_shape),
+                device=self.state_packed.device)[None]
+        self.stats = make_stats(body, batch, dt, sim, env, stop_time)
+        self.call_kwargs = dict(
+            num_steps=num_steps, grid_shape=self.grid_shape,
+            scalars=kernel_scalars(body.nominal_size, sim, env),
+            flags=dict(kernel_env_flags(sim, env), **body_flags(body),
+                       collision=self.collision_packed is not None),
+            n_knots=num_knots, prec=prec)
+
+    def run(self, controls):
+        """controls (B, K, X, Y, Z) -> `packed_metrics` of every candidate."""
+        ctrl = _flat(controls.to(torch.float32),
+                     (self.batch, self.num_knots)).contiguous()
+        out_state, out_stats = fused_call(
+            self.state_packed, self.body_packed, self.stats,
+            self.collision_packed, control_packed=ctrl, **self.call_kwargs)
+        return packed_metrics(out_state, self.body_packed, out_stats, self.L)

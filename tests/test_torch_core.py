@@ -232,9 +232,11 @@ def test_sim_step_refuses_features_outside_envelope():
 
 def test_import_leaves_jax_out():
     code = ("import sys, evosoro_tpu_torch, evosoro_tpu_torch.evo.algorithms, "
-            "evosoro_tpu_torch.bench, evosoro_tpu_torch.convert; "
+            "evosoro_tpu_torch.bench, evosoro_tpu_torch.convert, "
+            "evosoro_tpu_torch.control, evosoro_tpu_torch.control.shooting, "
+            "evosoro_tpu_torch.roofline, evosoro_tpu_torch.device; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'evosoro_tpu')]; print(bad); "
+            "('jax', 'jaxlib', 'flax', 'optax', 'evosoro_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)

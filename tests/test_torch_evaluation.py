@@ -94,6 +94,26 @@ def test_evaluate_all_matches_jax(monkeypatch):
     np.testing.assert_allclose(fit_p, fit_j, rtol=5e-3, atol=1e-5)
 
 
+def test_evaluate_all_without_a_device_argument_needs_the_card(monkeypatch):
+    """`device=None` means the card. Without one `evaluate_all` raises and
+    names `device="cpu"`, instead of evaluating through the plain versions
+    unasked; nobody gets a fitness."""
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card")
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    monkeypatch.setattr(fr, "fused_rollout_plain", None)
+    pop = _population(Genotype, Phenotype, Population, CPPN, ObjectiveDict,
+                      make_material_tree)
+    before = [ind.fitness for ind in pop]
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        evaluation.evaluate_all(Sim(simulation_time=0.01), Env(), pop)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        evaluation.evaluator_batch(Sim(simulation_time=0.01), Env(), list(pop))
+    assert [ind.fitness for ind in pop] == before
+    assert not hasattr(evaluation, "default_device")
+
+
 def test_evaluator_batch_packs_each_design_in_its_row():
     """What the evaluator hands the fused rollout: row i holds design i's own
     body, pair table, dt and stop time; pad rows repeat row 0."""
