@@ -5,8 +5,10 @@ Builds the hand-written CUDA kernels from `evosoro_tpu_torch/ops/csrc`,
 holds each kernel against its plain PyTorch version, and drives the port's
 main paths: two generations of the examples/basic.py evolution experiment
 (evaluation through the fused rollout kernel K1 with its in-kernel contact
-pass K2), and the sampling-MPC benchmark of tools/bench_mpc.py (a cold CEM
-solve and a closed receding-horizon loop through K1's control-knot channel).
+pass K2), the sampling-MPC benchmark of tools/bench_mpc.py (a cold CEM
+solve and a closed receding-horizon loop through K1's control-knot channel),
+and its gradient-MPC part (FusedSQPSolver: K1 segments forward, the
+reverse-mode segment kernel B4 backward).
 It measures the card's FP32 rate with the fma_peak micro-kernel, sets each
 kernel's time beside the least time the card could take, and measures the
 bench.py throughput workload. Every phase prints one JSON line; any failure
@@ -40,6 +42,11 @@ FMA_RTOL = 2.0 ** -21
 FMA_EQUAL_SHARE = 0.999
 # a reading above the published FP32 rate by more than this is a wrong count
 PEAK_SLACK = 1.05
+# B4 against autograd through the plain version: every channel group's
+# largest error over that group's largest plain value. The two sum the same
+# float32 terms in different orders over 25 steps; tests/test_fused_diff.py
+# allows the TPU kernel 5e-3 against BPTT
+B4_REL_TOL = 2e-3
 
 
 def emit(obj):
@@ -375,8 +382,8 @@ def phase_mpc(torch, np):
     design, 8 knots), 4 closed-loop segments through
     `make_fused_mpc_closed_loop`, K1 with knots alone against its plain
     version at the solve's shape and on the closed loop's plan and execute
-    launches, and one CEM iteration through the eager rollout for the plain
-    path's time."""
+    launches, and one CEM iteration through the eager rollout (50 of the 200
+    steps) to show the plain path runs on the card."""
     import math
     import time
 
@@ -464,14 +471,218 @@ def phase_mpc(torch, np):
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, info = cem_optimize(gen, body, sim, env, 200, 8,
+    _, info = cem_optimize(gen, body, sim, env, 50, 8,
                            CEMConfig(num_iters=1, pop_size=8), dt=dt, device="cuda")
     best = float(info["best_cost"])
     emit(dict(phase="mpc", what="one cem_optimize iteration, eager rollout",
-              pop_size=8, steps=200, seconds=time.perf_counter() - t0,
-              best_cost=best))
+              pop_size=8, steps=50, steps_cut_from=200,
+              seconds=time.perf_counter() - t0, best_cost=best))
     assert math.isfinite(best) and best < 1e9
     return launches, knot_rec, loop_recs
+
+
+# channel groups of the state cotangent (ops/fused_rollout.py channel map)
+_COT_GROUPS = dict(pos=(0, 3), quat=(3, 7), linmom=(7, 10), angmom=(10, 13),
+                   scale=(13, 14), last_pos2=(17, 26), last_angle1=(26, 35),
+                   last_angle2=(35, 44), max_strain=(44, 47))
+
+
+def _b4_errors(torch, got, ref):
+    """Per group: largest |got - ref| over the group's largest |ref| (the
+    absolute error where the plain group is all zero), for the state
+    cotangent's groups and the controls' cotangent. Returns (worst, dict)."""
+    (cs_k, cu_k), (cs_p, cu_p) = got, ref
+    rel = {}
+    for name, (a, b) in _COT_GROUPS.items():
+        top = float(cs_p[:, a:b].abs().max())
+        err = float((cs_k[:, a:b] - cs_p[:, a:b]).abs().max())
+        rel[name] = err / top if top > 0 else err
+    top = float(cu_p.abs().max())
+    rel["controls"] = float((cu_k - cu_p).abs().max()) / top if top > 0 else \
+        float((cu_k - cu_p).abs().max())
+    return max(rel.values()), rel
+
+
+def _b4_case(torch, np, fr, label, state, body, stats, ctrl, seg_base, kw, seed,
+             zero_cot=False, timed=False):
+    """B4 against `fused_bwd_plain` on one input, with the two guards in the
+    data: a launch one step short and the controls' cotangent moved to the
+    neighbouring knot must both fail the comparison."""
+    from evosoro_tpu_torch import roofline
+
+    B, _, V = state.shape
+    rng = np.random.default_rng(seed)
+    cot = rng.standard_normal((B, fr.C_S, V)).astype(np.float32)
+    cot[:, fr._TSAVG:] = 0.0
+    cot = torch.as_tensor(cot, device="cuda")
+    if zero_cot:
+        cot.zero_()
+    before = fr.FUSED_BWD_LAUNCHES
+    got = fr.fused_bwd_call(state, body, stats, ctrl, seg_base, cot, **kw)
+    torch.cuda.synchronize()
+    assert fr.FUSED_BWD_LAUNCHES == before + 1
+    ref = fr.fused_bwd_plain(state, body, stats, ctrl, seg_base, cot, **kw)
+    torch.cuda.synchronize()
+    worst, rel = _b4_errors(torch, got, ref)
+    finite = all(bool(torch.isfinite(t).all()) for t in (*got, *ref))
+    rec = dict(phase="b4_vs_plain", workload=label, batch=B, steps=kw["num_steps"],
+               seg_base=seg_base, knots=kw["n_knots"], body_per_robot=body.shape[0] > 1,
+               floor=bool(kw["flags"]["floor"]), gravity=bool(kw["flags"]["gravity"]),
+               rel_err=rel, worst_rel_err=worst, tol=B4_REL_TOL, finite=finite,
+               max_abs_err=float((got[1] - ref[1]).abs().max()),
+               max_abs_cot_ctrl=float(ref[1].abs().max()),
+               max_abs_cot_state=float(ref[0].abs().max()),
+               tail_channels_zero=bool((got[0][:, fr._TSAVG:] == 0).all()
+                                       and (got[0][:, fr._SMALL:fr._SMALL + 3] == 0).all()))
+    ok = finite and worst <= B4_REL_TOL and rec["tail_channels_zero"]
+    if zero_cot:
+        rec["all_zero"] = bool((got[0] == 0).all() and (got[1] == 0).all())
+        ok = ok and rec["all_zero"]
+    else:
+        assert rec["max_abs_cot_ctrl"] > 0, rec
+        short = fr.fused_bwd_call(state, body, stats, ctrl, seg_base, cot,
+                                  **dict(kw, num_steps=kw["num_steps"] - 1))
+        rec["guard_one_step_short"] = _b4_errors(torch, short, ref)[0]
+        moved = (got[0], torch.roll(got[1], 1, dims=1))
+        rec["guard_neighbouring_knot"] = _b4_errors(torch, moved, ref)[0]
+        ok = ok and rec["guard_one_step_short"] > B4_REL_TOL \
+            and rec["guard_neighbouring_knot"] > B4_REL_TOL
+    if timed:
+        rec["ms"] = _event_ms(torch, lambda: fr.fused_bwd_call(
+            state, body, stats, ctrl, seg_base, cot, **kw), 5)
+        rec["plain_ms"] = _event_ms(torch, lambda: fr.fused_bwd_plain(
+            state, body, stats, ctrl, seg_base, cot, **kw), 1)
+        rec["k1_ms"] = _event_ms(torch, lambda: fr.fused_call(
+            state, body, stats, None, control_packed=ctrl, seg_base=seg_base, **kw), 5)
+        _, st_end = fr.fused_call(state, body, stats, None, control_packed=ctrl,
+                                  seg_base=seg_base, **kw)
+        steps = torch.round((st_end[:, fr._S_TIME] - stats[:, fr._S_TIME])
+                            / stats[:, fr._S_DT])
+        rec["steps_taken"] = steps.tolist()
+        rec.update(roofline.bound(*roofline.b4_work(state, body, stats, ctrl, steps)))
+    rec["ok"] = ok
+    emit(rec)
+    assert ok, rec
+    return rec
+
+
+def phase_b4(torch, np):
+    """B4 against `fused_bwd_plain` (torch autograd through the plain
+    version) with a random cotangent on every carried channel: the SQP
+    solver's launch (8 x 10^3, 25 steps of a 200-step clock, 8 knots) from
+    rest at seg_base 0 and from the state K1 reaches at seg_base 75 under
+    random controls, without floor and gravity (the SQP workload) and with
+    them (the default env); a batch with a body per robot (4 x 6^3 of the
+    evaluator's designs, contact off); and an all-zero cotangent. Returns
+    the records; the timed one is the SQP launch at seg_base 75."""
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.core.rollout import init_state
+    from evosoro_tpu_torch.core.types import EnvParams
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    recs = []
+    body, sim, _, dt = bench.mpc_workload(device="cuda")
+    B, K, S, total = 8, 8, 25, 200
+    body_packed = fr.pack_body(body)
+    state0 = fr.pack_state_single(init_state(body))[None].expand(B, -1, -1).contiguous()
+    grid = tuple(body.occ.shape)
+    ctrl = _controls(torch, np, B, K, body.occ.numel(), seed=11)
+    for env in (EnvParams(gravity_enabled=False, floor_enabled=False), EnvParams()):
+        stats0 = fr.make_stats(body, B, dt, sim, env)
+        kw = dict(num_steps=S, grid_shape=grid,
+                  scalars=fr.kernel_scalars(body.nominal_size, sim, env),
+                  flags=dict(fr.kernel_env_flags(sim, env), **fr.body_flags(body),
+                             collision=False, segmented=True),
+                  n_knots=K, total_steps=total)
+        off = not env.floor_enabled
+        label = "SQP launch %d x %d^3, " % (B, grid[0]) + ("no floor, no gravity" if off
+                                           else "floor and gravity")
+        recs.append(_b4_case(torch, np, fr, label + ", from rest", state0, body_packed,
+                             stats0, ctrl, 0, kw, seed=1))
+        st75, ss75 = fr.fused_call(state0, body_packed, stats0, None, control_packed=ctrl,
+                                   seg_base=0, **dict(kw, num_steps=75))
+        recs.append(_b4_case(torch, np, fr, label + ", 75 steps in", st75, body_packed,
+                             ss75, ctrl, 75, kw, seed=2, timed=off))
+        if off:
+            recs.append(_b4_case(torch, np, fr, label + ", zero cotangent", st75,
+                                 body_packed, ss75, ctrl, 75, kw, seed=3, zero_cot=True))
+
+    (state, bodies, stats, _), ekw = bench.evaluator_workload(collision=False,
+                                                              device="cuda")
+    state, bodies, stats = (t[:4].contiguous() for t in (state, bodies, stats))
+    kw = dict(ekw, num_steps=25, flags=dict(ekw["flags"], segmented=True),
+              n_knots=4, total_steps=100)
+    ctrl = _controls(torch, np, 4, 4, state.shape[2], seed=12)
+    st25, ss25 = fr.fused_call(state, bodies, stats, None, control_packed=ctrl,
+                               seg_base=0, **kw)
+    recs.append(_b4_case(torch, np, fr, "evaluator designs 4 x 6^3, a body per robot",
+                         st25, bodies, ss25, ctrl, 25, kw, seed=4))
+    return recs
+
+
+def phase_sqp(torch, b4_timed):
+    """The gradient-MPC path at the bench_mpc width: `bench.sqp` (a cold
+    `FusedSQPSolver.solve` and three re-plans on the 10^3 design, 200 steps
+    in 8 segments, 8 knots, 4 iterations), then the plain path on the card
+    at a cut depth: one `sqp_optimize` iteration through the eager rollout
+    (20 steps, 2 CG iterations) and two `grad_optimize` iterations at 25
+    steps."""
+    import math
+    import time
+
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.control import SQPConfig, grad_optimize, sqp_optimize
+    from evosoro_tpu_torch.core.types import EnvParams
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    fr.FUSED_ROLLOUT_LAUNCHES = 0
+    fr.FUSED_ROLLOUT_KNOT_LAUNCHES = 0
+    fr.FUSED_BWD_LAUNCHES = 0
+    rec = bench.sqp(device="cuda")
+    launches = dict(fused_rollout=fr.FUSED_ROLLOUT_LAUNCHES,
+                    fused_rollout_with_knots=fr.FUSED_ROLLOUT_KNOT_LAUNCHES,
+                    fused_bwd=fr.FUSED_BWD_LAUNCHES)
+    k1_ms, b4_ms = b4_timed["k1_ms"], b4_timed["ms"]
+    rec.update(k1_ms_per_launch=k1_ms, b4_ms_per_launch=b4_ms,
+               k1_share=rec["k1_launches_per_solve"] * k1_ms / rec["ms_per_solve"],
+               b4_share=rec["b4_launches_per_solve"] * b4_ms / rec["ms_per_solve"])
+    emit(dict(phase="sqp", what="FusedSQPSolver: cold solve and re-plans", **rec))
+    emit(dict(phase="sqp_launches", **launches))
+    trace = rec["cost_trace"]
+    assert all(math.isfinite(c) for c in trace + rec["replan_final_costs"]), rec
+    assert math.isfinite(rec["final_cost"]) and any(rec["accepted_trace"]), rec
+    assert rec["best_cost"] <= trace[0] and rec["final_cost"] < trace[0], rec
+    assert rec["max_abs_u"] <= rec["u_clip"] + 1e-7, rec
+    n_it, n_res = rec["num_iters"], rec["n_res"]
+    assert rec["k1_launches_per_solve"] == (2 * n_it + 1) * n_res == 72, rec
+    assert rec["b4_launches_per_solve"] == n_it * n_res == 32, rec
+    assert launches["fused_rollout"] == launches["fused_rollout_with_knots"] == 4 * 72
+    assert launches["fused_bwd"] == 4 * 32, launches
+
+    # the plain path on the card, cut in depth: 20 and 25 steps of the 200
+    body, sim, _, dt = bench.mpc_workload(device="cuda")
+    env = EnvParams(gravity_enabled=False, floor_enabled=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, info = sqp_optimize(body, sim, env, 20, 8, target=0.4,
+                           config=SQPConfig(num_iters=1, cg_iters=2, n_res=8),
+                           dt=dt, device="cuda")
+    costs = info["cost_trace"].tolist() + [float(info["final_cost"])]
+    emit(dict(phase="sqp", what="one sqp_optimize iteration, eager rollout, "
+              "forward- and reverse-mode products", steps=20, steps_cut_from=200,
+              cg_iters=2, seconds=time.perf_counter() - t0, costs=costs,
+              accepted=info["accepted_trace"].tolist()))
+    assert all(math.isfinite(c) for c in costs) and costs[-1] <= costs[0], costs
+    t0 = time.perf_counter()
+    u0 = torch.full((8,) + tuple(body.occ.shape), 0.01, device="cuda")
+    _, info = grad_optimize(body, sim, EnvParams(), 25, 8, num_iters=2, lr=1e-3,
+                            dt=dt, init_u=u0, device="cuda")
+    costs = info["cost_trace"].tolist()
+    emit(dict(phase="sqp", what="two grad_optimize iterations, eager rollout",
+              steps=25, steps_cut_from=200, seconds=time.perf_counter() - t0,
+              costs=costs))
+    assert all(math.isfinite(c) for c in costs), costs
+    return launches
 
 
 def phase_evolution(torch):
@@ -539,6 +750,9 @@ def main():
     fma = phase_fp32_peak(torch)
     launches = phase_evolution(torch)
     mpc_launches, knot_timed, loop_recs = phase_mpc(torch, np)
+    b4 = phase_b4(torch, np)
+    b4_timed = next(r for r in b4 if "ms" in r)
+    sqp_launches = phase_sqp(torch, b4_timed)
     phase_throughput(torch, card)
     k1_timed = next(r for r in k1 if "ms" in r)
     knots += [knot_timed, *loop_recs]
@@ -559,9 +773,11 @@ def main():
         dict(name="fused_rollout (K1)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fused_rollout.cu",
              replaces="evosoro_tpu/ops/fused_rollout.py:777",
-             launches=launches["fused_rollout"] + mpc_launches["fused_rollout"],
+             launches=launches["fused_rollout"] + mpc_launches["fused_rollout"]
+             + sqp_launches["fused_rollout"],
              launches_evolution=launches["fused_rollout"],
              launches_mpc=mpc_launches["fused_rollout"],
+             launches_sqp=sqp_launches["fused_rollout"],
              **bound_keys(k1_timed),
              max_abs_err=max(r["pos"] for r in k1),
              err_of=("pos (m), evaluator batch %d x 6^3, 1/25/100 steps, "
@@ -584,8 +800,10 @@ def main():
         dict(name="K1 control knots + segments (B3)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fused_rollout.cu",
              replaces="evosoro_tpu/ops/fused_rollout.py:1710",
-             launches=mpc_launches["fused_rollout_with_knots"],
+             launches=mpc_launches["fused_rollout_with_knots"]
+             + sqp_launches["fused_rollout_with_knots"],
              launches_evolution=launches["fused_rollout_with_knots"],
+             launches_sqp=sqp_launches["fused_rollout_with_knots"],
              **bound_keys(knot_timed),
              max_abs_err=max(r["pos"] for r in knots),
              err_of=("pos (m), bench 8 x 10^3 and evaluator batch 16 x 6^3, "
@@ -595,6 +813,21 @@ def main():
                      "(1 x 100 steps, 4 knots) launches after a segment"),
              ms=knot_timed["ms"], plain_ms=knot_timed["plain_ms"],
              ms_of="one launch of a cold solve: 128 x 10^3, 8 knots, 200 steps"),
+        dict(name="fused_rollout_bwd (B4)", route="cuda",
+             source="evosoro_tpu_torch/ops/csrc/fused_rollout_bwd.cu",
+             replaces="evosoro_tpu/ops/fused_rollout.py:2745",
+             launches=sqp_launches["fused_bwd"],
+             **bound_keys(b4_timed),
+             max_abs_err=max(r["max_abs_err"] for r in b4),
+             worst_rel_err=max(r["worst_rel_err"] for r in b4),
+             err_of=("cotangent of the controls, against autograd through the "
+                     "plain version: the SQP launch 8 x 10^3 x 25 steps, 8 knots, "
+                     "from rest and 75 steps in, floor and gravity off and on; "
+                     "4 x 6^3 with a body per robot; a zero cotangent. "
+                     "worst_rel_err: every channel group of both cotangents over "
+                     "the group's largest plain value"),
+             ms=b4_timed["ms"], plain_ms=b4_timed["plain_ms"],
+             ms_of="one launch of a solve: 8 x 10^3, 25 steps at seg_base 75, 8 knots"),
         dict(name="fma_peak (B9)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fma_peak.cu",
              replaces="tools/roofline.py:137",

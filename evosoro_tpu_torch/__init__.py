@@ -6,6 +6,13 @@ imports torch and never jax; the JAX package is the reference the tests hold
 it against. On an NVIDIA Hopper card the rollout runs through hand-written
 CUDA kernels (`ops/csrc`); on CPU tensors the same entry points run their
 plain PyTorch versions.
+
+Ported so far: the evolution loop's evaluation (`evo`), sampling MPC
+(`control.shooting`) and gradient MPC (`control.grad_optimize`,
+`control.sqp`, `ops.fused_diff`), whose fused solver differentiates the
+rollout with the reverse-mode segment kernel inside
+`ops.fused_rollout.diff_envelope_ok`: the fused kernel's envelope without
+self-collision.
 """
 
 __version__ = "0.1.0"

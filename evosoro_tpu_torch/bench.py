@@ -1,6 +1,6 @@
 """Benchmarks of the port on one card.
 
-Three workloads, all from the JAX package's own benchmarks:
+Four workloads, all from the JAX package's own benchmarks:
 
 - throughput: the root `bench.py` workload on the port: B concurrent 10³
   robots (`default_rng(0)`, material ids 1..4, random phase offsets) with
@@ -14,7 +14,12 @@ Three workloads, all from the JAX package's own benchmarks:
   bench design (6 iterations x 128 candidates x 200 steps, 8 knots) through
   `cem_optimize_fused`, then a closed receding-horizon loop through
   `make_fused_mpc_closed_loop` (warm replans of 1 x 32 candidates, 4 of 8
-  knots executed a segment).
+  knots executed a segment);
+- sqp: the gradient-MPC part of `tools/bench_mpc.py`: `FusedSQPSolver` on
+  the same design without floor and gravity, 200 plan steps in 8 segments,
+  8 knots, 4 Gauss-Newton iterations: one cold solve and re-plans from its
+  result with moving targets, through K1 forward and the reverse-mode
+  segment kernel B4 backward.
 
 Run:  python -m evosoro_tpu_torch.bench [--batch 1024] [--steps 200]
       [--gens 2] [--segments 4]
@@ -42,6 +47,7 @@ from evosoro_tpu_torch.control.shooting import (
     make_fused_cem_solver,
     make_fused_mpc_closed_loop,
 )
+from evosoro_tpu_torch.control.sqp import FusedSQPSolver, SQPConfig
 from evosoro_tpu_torch.core.collision import build_collision_system
 from evosoro_tpu_torch.core.materials import build_body, calc_max_dt, palette_from_list
 from evosoro_tpu_torch.core.rollout import init_state
@@ -257,6 +263,49 @@ def mpc(device="cuda", n=10, plan_steps=200, knots=8, num_iters=6, pop_size=128,
 
 
 # ---------------------------------------------------------------------------
+# Gradient MPC (tools/bench_mpc.py, the SQP part)
+# ---------------------------------------------------------------------------
+
+
+def sqp(device="cuda", n=10, plan_steps=200, knots=8, n_res=8, num_iters=4,
+        cg_iters=5, replans=3, seed=0):
+    """The fused-SQP benchmark on `device`: one cold `FusedSQPSolver.solve`
+    (target 0.4 lattice units of CoM-y travel) and `replans` warm re-plans
+    from its result with targets `0.4 + 0.01 r`, without floor and gravity
+    as in `tools/bench_mpc.py`. Returns the cold solve's cost traces and
+    launch counts, and milliseconds per re-plan."""
+    body, sim, _, dt = mpc_workload(n, seed, device)
+    env = EnvParams(gravity_enabled=False, floor_enabled=False)
+    cfg = SQPConfig(num_iters=num_iters, cg_iters=cg_iters, n_res=n_res)
+    solver = FusedSQPSolver(body, sim, env, plan_steps, knots, config=cfg,
+                            dt=dt, n_res=n_res, device=device)
+    k1, b4 = fr.FUSED_ROLLOUT_LAUNCHES, fr.FUSED_BWD_LAUNCHES
+    (u, info), cold_ms, clock = _timed_ms(lambda: solver.solve(target=0.4), device)
+    k1, b4 = fr.FUSED_ROLLOUT_LAUNCHES - k1, fr.FUSED_BWD_LAUNCHES - b4
+
+    def replan():
+        v, out = u, []
+        for r in range(replans):
+            v, inf = solver.solve(target=0.4 + 0.01 * r, init_u=v)
+            out.append(inf["final_cost"])
+        return torch.stack(out)
+
+    replan_costs, ms, _ = _timed_ms(replan, device)
+    solve_ms = ms / max(replans, 1)
+    return dict(
+        n=n, plan_steps=plan_steps, knots=knots, n_res=n_res,
+        num_iters=num_iters, seg_steps=solver.seg_steps,
+        k1_launches_per_solve=k1, b4_launches_per_solve=b4,
+        cold_solve_ms=cold_ms, ms_per_solve=solve_ms, clock=clock,
+        solves_per_s=1e3 / solve_ms, horizon_s=plan_steps * dt,
+        cost_trace=info["cost_trace"].tolist(),
+        accepted_trace=info["accepted_trace"].tolist(),
+        best_cost=float(info["best_cost"]), final_cost=float(info["final_cost"]),
+        lm_lambda=float(info["lm_lambda"]), replan_final_costs=replan_costs.tolist(),
+        max_abs_u=float(u.abs().max()), u_clip=cfg.u_clip)
+
+
+# ---------------------------------------------------------------------------
 # The examples/basic.py experiment
 # ---------------------------------------------------------------------------
 
@@ -387,6 +436,7 @@ def main():
         print(json.dumps(dict(rec, card=card)), flush=True)
     for name, rec in mpc(segments=args.segments).items():
         print(json.dumps(dict(rec, workload="mpc " + name, card=card)), flush=True)
+    print(json.dumps(dict(sqp(), workload="sqp fused", card=card)), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,13 @@
 """Shooting-method optimizers over the rollout actuation channel.
 
-The port of `evosoro_tpu.control.shooting` without its gradient solver. The
-decision variable is a control sequence `u` of shape (K, X, Y, Z): knot k
+The port of `evosoro_tpu.control.shooting`. The decision variable is a control sequence `u` of shape (K, X, Y, Z): knot k
 modulates every voxel's scale (a fraction of the nominal size) during steps
 [k·S/K, (k+1)·S/K). Candidate batches are a leading batch dimension of the
 rollout, so one card evaluates a whole population per solver iteration.
 
-Two paths, as in the JAX package: `cem_optimize` and `mpc_run` go through
-the eager `core.rollout.rollout` (any feature of the eager step, any cost);
+Two paths, as in the JAX package: `cem_optimize`, `grad_optimize` and
+`mpc_run` go through the eager `core.rollout.rollout` (any feature of the
+eager step, any cost; `grad_optimize` differentiates it with torch autograd);
 `cem_optimize_fused` and `make_fused_mpc_closed_loop` go through the fused
 rollout kernel K1 with its control-knot channel. Where JAX takes a PRNG key
 these take a `torch.Generator` on the device they run on. The device is the
@@ -159,6 +159,48 @@ def cem_optimize(
         config)
     return final.best_u, _info(final.best_cost, best_trace, mean_trace,
                                final.mean, final.std)
+
+
+def grad_optimize(
+    body: VoxelBody,
+    sim: SimParams,
+    env: EnvParams,
+    num_steps: int,
+    num_knots: int,
+    num_iters: int = 50,
+    lr: float = 1e-3,
+    state0: SimState | None = None,
+    dt=None,
+    cost_fn: Callable = locomotion_cost,
+    init_u=None,
+    device=None,
+):
+    """First-order shooting: Adam on the rollout cost by backpropagation
+    through time (torch autograd through the eager `rollout`; `torch.optim.Adam`
+    at its defaults b1 0.9, b2 0.999, eps 1e-8, which are `optax.adam`'s).
+    Contact nonsmoothness can make this landscape rough: CEM is the robust
+    default, this is the refinement pass. Returns (u, info) with the cost
+    before each update in `cost_trace`."""
+    device = resolve_device(device)
+    body = body.to(device)
+    state0 = init_state(body) if state0 is None else state0.to(device)
+    shape = (num_knots,) + tuple(body.occ.shape[-3:])
+    dtype = body.nom_pos.dtype
+    u = (torch.zeros(shape, dtype=dtype, device=device) if init_u is None
+         else torch.as_tensor(init_u, dtype=dtype, device=device).clone())
+    u.requires_grad_(True)
+    opt = torch.optim.Adam([u], lr=lr)
+    costs = []
+    for _ in range(num_iters):
+        opt.zero_grad()
+        with torch.enable_grad():
+            c = cost_fn(rollout(body, sim, env, num_steps=num_steps, dt=dt,
+                                state=state0, control_sequence=u))
+        c.backward()
+        opt.step()
+        costs.append(c.detach())
+    cs = torch.stack(costs)
+    return u.detach(), dict(cost_trace=cs, final_cost=cs[-1])
 
 
 def _fused_costs(packed, call_kwargs, L, us):

@@ -3,7 +3,8 @@
 Each source is compiled by `nvcc` into its own shared library with a plain
 C interface, loaded with ctypes. Nothing is built at import: a library is
 built at first use into `evosoro_tpu_torch/_build/` (listed in .gitignore),
-named by a hash of the sources so an edited kernel is rebuilt. `build_all`
+named by a hash of every file under `csrc/` (sources and the headers they
+include), so an edit to a kernel or to a shared header rebuilds it. `build_all`
 starts one nvcc per source at once.
 
 Flags: `-gencode arch=compute_90a,code=sm_90a -O3`, no `--use_fast_math`
@@ -37,6 +38,8 @@ SIGNATURES = {
     "pair_contact": ("pair_contact_forces", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "fused_rollout": ("fused_rollout", [
         _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P]),
+    "fused_rollout_bwd": ("fused_rollout_bwd", [
+        _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P]),
     "fma_peak": ("fma_peak", [_P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _P]),
 }
 

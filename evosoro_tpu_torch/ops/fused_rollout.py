@@ -2,18 +2,23 @@
 
 The port of `evosoro_tpu/ops/fused_rollout.py`. The TPU kernel there
 (`_make_kernel`, launched by `_fused_call`) advances B robots for
-`num_steps` with the state held on chip; here two CUDA kernels written for
+`num_steps` with the state held on chip; here three CUDA kernels written for
 Hopper take its place on the evolution loop's envelope:
 
 - K1 (`fused_call`, `csrc/fused_rollout.cu`): the forward multi-step
   rollout, one block per robot, the step loop inside the kernel, with the
   MPC control-knot channel and the segmented mode (a launch that advances
   `num_steps` of a longer rollout from a global step offset);
+- B4 (`fused_bwd_call`, `csrc/fused_rollout_bwd.cu`): the reverse-mode
+  segment, the adjoint of K1's step written by hand, which pulls a
+  segment's end-state cotangent back to its start state and the control
+  knots (the JAX package's `_fused_bwd_call`);
 - K2 (`pair_contact_forces`, `csrc/pair_contact.cu`): the dense
   self-contact pass, a device routine of K1 that also has its own launch.
 
 Each wrapper takes its kernel for CUDA tensors and its plain PyTorch
-version (`fused_rollout_plain`, `pair_contact_forces_plain`) for CPU
+version (`fused_rollout_plain`, `pair_contact_forces_plain`,
+`fused_bwd_plain`) for CPU
 tensors. There is no fallback: a build failure, a launch failure or a
 feature outside the envelope on a CUDA tensor raises.
 
@@ -831,6 +836,140 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
     if n_knots or flags.get("segmented"):
         FUSED_ROLLOUT_KNOT_LAUNCHES += 1
     return state_out, stats_out
+
+
+# ---------------------------------------------------------------------------
+# B4: reverse-mode segment
+# ---------------------------------------------------------------------------
+
+FUSED_BWD_LAUNCHES = 0
+
+# channels [0, _TSAVG) carry the rollout and its cotangent; B4's tape holds
+# them plus one channel of static-friction decisions (csrc: NT)
+_B4_TAPE_CHANNELS = _TSAVG + 1
+# flags outside the reverse-mode kernel's envelope (the JAX package's
+# `_diff_envelope_ok`); the rest of `check_envelope` applies as well
+_DIFF_REFUSED = ("volume", "equilibrium", "plasticity", "needle", "falling",
+                 "ndbv", "window", "ballistic", "collision", "mdl_data", "bc")
+
+
+def diff_envelope_ok(flags, scalars) -> bool:
+    """True when the reverse-mode segment kernel covers the launch: the MPC
+    control envelope, without collision, volume effects, plasticity,
+    sources, fitness features, devo or BC regions."""
+    f, sc = dict(flags), dict(scalars)
+    return (not any(f.get(k) for k in _DIFF_REFUSED)
+            and len(sc.get("sources", ())) == 0)
+
+
+def _check_bwd(flags, scalars, n_knots, seg_base, total_steps):
+    check_envelope(flags, scalars)
+    if not diff_envelope_ok(flags, scalars):
+        raise NotImplementedError(
+            "reverse-mode segment: configuration outside the differentiable "
+            "envelope (ops.fused_rollout.diff_envelope_ok)")
+    if not n_knots:
+        raise ValueError("reverse-mode segment: needs control knots (n_knots > 0)")
+    if not flags.get("segmented") or seg_base is None or total_steps is None:
+        raise ValueError("reverse-mode segment: needs flags['segmented'], "
+                         "seg_base and total_steps")
+
+
+def fused_bwd_plain(state_packed, body_packed, stats, control_packed, seg_base,
+                    cot_state, *, num_steps, grid_shape, scalars, flags,
+                    n_knots: int, total_steps,
+                    prec: Precision = DEFAULT_PRECISION):
+    """Plain version of B4: `torch.autograd.grad` of `fused_rollout_plain`
+    with respect to the packed start state and the controls, seeded with
+    the END state's cotangent. Returns (cot_state_in, cot_ctrl); channels
+    `_TSAVG..C_S` of the first are zero."""
+    _check_bwd(flags, scalars, n_knots, seg_base, total_steps)
+    sp = state_packed.detach().clone().requires_grad_(True)
+    cp = control_packed.detach().clone().requires_grad_(True)
+    cot = cot_state.detach().clone()
+    cot[:, _TSAVG:] = 0.0  # channels the rollout only copies through
+    with torch.enable_grad():
+        out_state, _ = fused_rollout_plain(
+            sp, body_packed, stats, None, control_packed=cp, seg_base=seg_base,
+            num_steps=num_steps, grid_shape=grid_shape, scalars=scalars,
+            flags=flags, n_knots=n_knots, total_steps=total_steps, prec=prec)
+        g_state, g_ctrl = torch.autograd.grad(
+            out_state, (sp, cp), grad_outputs=cot, allow_unused=True)
+    if g_state is None:
+        g_state = torch.zeros_like(sp)
+    if g_ctrl is None:
+        g_ctrl = torch.zeros_like(cp)
+    return g_state, g_ctrl
+
+
+def fused_bwd_call(state_packed, body_packed, stats, control_packed, seg_base,
+                   cot_state, *, num_steps: int, grid_shape, scalars: dict,
+                   flags: dict, n_knots: int, total_steps,
+                   prec: Precision = DEFAULT_PRECISION):
+    """B4 wrapper, the counterpart of the JAX package's `_fused_bwd_call`:
+    pull `cot_state`, the cotangent of a segment's END state, back through
+    the `num_steps` steps that `fused_call(seg_base=, total_steps=)` takes
+    from `state_packed`.
+
+    state and cot_state (B, C_S, V), body (B or 1, C_B, V), stats
+    (B, C_STAT), controls (B, n_knots, V), all float32 on one device.
+    Returns (cot_state_in (B, C_S, V), channels `_TSAVG..C_S` zero;
+    cot_ctrl (B, n_knots, V)). CUDA tensors launch B4; CPU tensors run
+    `fused_bwd_plain`. Flags outside `diff_envelope_ok` raise first."""
+    _check_bwd(flags, scalars, n_knots, seg_base, total_steps)
+    seg0, knot_steps = _knot_clock(flags, num_steps, n_knots, control_packed,
+                                   seg_base, total_steps)
+    X, Y, Z = grid_shape
+    V = X * Y * Z
+    B = state_packed.shape[0]
+    if tuple(body_packed.shape[1:]) != (C_B, V) or body_packed.shape[0] not in (1, B):
+        raise ValueError(f"body must be (B or 1, {C_B}, {V}), got {tuple(body_packed.shape)}")
+    tensors = [("state", state_packed, (B, C_S, V)), ("body", body_packed, None),
+               ("stats", stats, (B, C_STAT)),
+               ("controls", control_packed, (B, int(n_knots), V)),
+               ("cot_state", cot_state, (B, C_S, V))]
+    for name, t, shp in tensors:
+        if shp is not None and tuple(t.shape) != shp:
+            raise ValueError(f"{name} must be {shp}, got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != state_packed.device:
+            raise ValueError(f"{name} is on {t.device}, state on {state_packed.device}")
+    kw = dict(num_steps=num_steps, grid_shape=grid_shape, scalars=scalars,
+              flags=flags, n_knots=n_knots, total_steps=total_steps, prec=prec)
+    if state_packed.device.type == "cpu":
+        return fused_bwd_plain(state_packed, body_packed, stats, control_packed,
+                               seg_base, cot_state, **kw)
+    if state_packed.device.type != "cuda":
+        raise ValueError(f"unsupported device {state_packed.device}")
+    for name, t, _ in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if _K1_SMEM_FLOATS * 4 * V > _SMEM_BYTES:
+        raise ValueError(f"V={V} voxels overflow B4's shared memory "
+                         f"({_K1_SMEM_FLOATS * 4 * V} > {_SMEM_BYTES} bytes)")
+    bits = sum(b for k, b in _K1_FLAG_BITS.items() if flags.get(k))
+    params = _k1_params(scalars, prec)
+    S = int(num_steps)
+    dev = state_packed.device
+    # scratch of the launch: the forward recompute's tape and step clocks
+    tape = torch.empty((B, S + 1, _B4_TAPE_CHANNELS, V), dtype=torch.float32, device=dev)
+    tape_t = torch.empty((B, max(S, 1)), dtype=torch.float32, device=dev)
+    cot = cot_state.clone()  # pulled back in place
+    cot_ctrl = torch.zeros_like(control_packed)
+    fn = build.library("fused_rollout_bwd")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(state_packed.data_ptr(), body_packed.data_ptr(),
+                int(body_packed.shape[0] == B and B > 1), stats.data_ptr(),
+                control_packed.data_ptr(), int(n_knots), knot_steps, seg0,
+                B, X, Y, Z, S, params.ctypes.data_as(ctypes.c_void_p), bits,
+                tape.data_ptr(), tape_t.data_ptr(), cot.data_ptr(),
+                cot_ctrl.data_ptr(), stream)
+    build.check(rc, "fused_rollout_bwd")
+    global FUSED_BWD_LAUNCHES
+    FUSED_BWD_LAUNCHES += 1
+    return cot, cot_ctrl
 
 
 def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,

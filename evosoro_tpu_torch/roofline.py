@@ -6,12 +6,17 @@ the JAX tool's `measure_vpu_peak`) and returns the card's measured FP32
 rate. Beside it, the least time the card could take for a launch of each
 kernel (`bound`): the larger of its operations over the FP32 peak and its
 compulsory bytes over the memory rate, from counts of the work the launch's
-inputs need (`k1_work`, `k2_work`, `fma_work`).
+inputs need (`k1_work`, `b4_work`, `k2_work`, `fma_work`).
 
 The step's operation count is static: 2187.028 per occupied voxel and step, the
 `flop_count` of ROOFLINE.json (a jaxpr walk of the JAX package's `sim_step`
 on the 10³ bench body that counts every elementwise operation, comparison
 and select once and does not fuse multiply-adds). It is a count, not a time.
+The adjoint's count comes from the same walk: 2640.005 per occupied voxel
+and step is what the jaxpr of `jax.vjp` of that step (with the control
+offset, forward pass and pullback together: 4829.033) holds beyond the
+forward step itself (2189.028 with the control offset);
+`tests/test_torch_roofline.py` repeats the walk.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ H100_FP32_FLOPS = 67e12
 H100_HBM_BYTES_PER_S = 3.35e12
 
 STEP_FLOPS_PER_VOXEL = 2187.028
+ADJOINT_FLOPS_PER_VOXEL = 2640.005
 # pair_contact.cuh: operations for every nonzero table entry (difference,
 # distance, rsqrt, overlap test), and more for a pair that touches
 PAIR_FLOPS_TESTED = 14
@@ -154,6 +160,28 @@ def k1_work(state, body, stats, table, stats_out, controls=None):
         nbytes += 4.0 * table.numel()
     if controls is not None:
         nbytes += 4.0 * controls.numel()
+    return flops, nbytes
+
+
+def b4_work(state, body, stats, controls, steps):
+    """(flops, bytes) that one B4 launch on these packed tensors needs.
+
+    `steps` (B,) are the steps each robot's segment really took (a frozen
+    robot's skipped steps are the identity). Operations: for every occupied
+    voxel and step the forward recompute (`STEP_FLOPS_PER_VOXEL`) and the
+    adjoint of the step (`ADJOINT_FLOPS_PER_VOXEL`). Bytes: what the
+    function must move, whatever the kernel keeps in its tape: the start
+    state's carried channels and the end state's cotangent in, the start
+    state's cotangent out, the body channels the step reads, the stats rows,
+    the controls in and their cotangent out."""
+    B, _, V = state.shape
+    steps = torch.as_tensor(steps, dtype=torch.float32, device=state.device)
+    occupied = (body[:, fr._B_OCC, :] > 0.5).sum(1).to(steps.dtype)  # (B or 1,)
+    flops = float((occupied * steps).sum()) * (
+        STEP_FLOPS_PER_VOXEL + ADJOINT_FLOPS_PER_VOXEL)
+    nbytes = 4.0 * (3 * B * K1_STATE_CHANNELS * V
+                    + body.shape[0] * K1_BODY_CHANNELS * V
+                    + stats.numel() + 2 * controls.numel())
     return flops, nbytes
 
 

@@ -1,6 +1,5 @@
 """The port's sampling MPC (`evosoro_tpu_torch.control`): the counterparts
-of tests/test_control.py (without `grad_optimize`, which is not ported) and
-tests/test_fused_cem.py, plus one CEM update held against the JAX package's
+of tests/test_control.py and tests/test_fused_cem.py, plus one CEM update held against the JAX package's
 with the same candidates and costs fed to both.
 
 The solvers draw their noise from a `torch.Generator`, the JAX ones from a
@@ -28,6 +27,8 @@ from evosoro_tpu_torch.control import (
     cem_optimize,
     cem_optimize_fused,
     cem_update,
+    grad_optimize,
+    locomotion_cost,
     make_fused_cem_solver,
     make_fused_mpc_closed_loop,
     mpc_run,
@@ -262,3 +263,42 @@ def test_entry_points_need_the_card_unless_cpu_is_asked(entry, monkeypatch):
             mpc_run(_gen(), MPCController(body, sim, env, 1e-4, 4, 2), 1)
     with pytest.raises(TypeError):
         cem_optimize_fused(None, body, sim, env, 4, 2, device="cpu")
+
+
+def test_grad_optimize_runs_and_descends():
+    """Twin of tests/test_control.py::test_grad_optimize_runs_and_descends."""
+    body = _body()
+    sim = SimParams(stop_condition_value=0.02, init_cm_time=0.0)
+    env = EnvParams(temp_enabled=False)
+    dt = calc_max_dt(body) * sim.dt_frac
+    u, info = grad_optimize(body, sim, env, num_steps=25, num_knots=2,
+                            num_iters=5, lr=5e-3, dt=dt, device="cpu")
+    cs = info["cost_trace"].numpy()
+    assert tuple(u.shape) == (2, 3, 3, 2) and not u.requires_grad
+    assert np.all(np.isfinite(cs))
+    assert cs[-1] <= cs[0] + 1e-9
+    assert float(info["final_cost"]) == float(cs[-1])
+
+
+def test_grad_optimize_first_update_is_optax_adams():
+    """One `grad_optimize` iteration moves `u` by `optax.adam`'s first
+    update on the same gradient (torch autograd's, handed to optax): the
+    same b1, b2, eps and bias correction. Float32, rtol 1e-6."""
+    import optax
+
+    body = _body()
+    sim = SimParams(stop_condition_value=0.02, init_cm_time=0.0)
+    env = EnvParams(temp_enabled=False)
+    dt = calc_max_dt(body) * sim.dt_frac
+    u0 = np.random.default_rng(5).uniform(-0.02, 0.02, size=(2, 3, 3, 2)).astype(np.float32)
+    lr = 5e-3
+    u1, _ = grad_optimize(body, sim, env, num_steps=10, num_knots=2, num_iters=1,
+                          lr=lr, dt=dt, init_u=u0, device="cpu")
+    u = torch.as_tensor(u0).requires_grad_(True)
+    cost = locomotion_cost(rollout(body, sim, env, num_steps=10, dt=dt,
+                                   control_sequence=u))
+    (g,) = torch.autograd.grad(cost, u)
+    assert float(g.abs().max()) > 0
+    opt = optax.adam(lr)
+    updates, _ = opt.update(jnp.asarray(g.numpy()), opt.init(jnp.asarray(u0)))
+    np.testing.assert_allclose(u1.numpy() - u0, np.asarray(updates), rtol=1e-6, atol=1e-12)

@@ -234,6 +234,7 @@ def test_import_leaves_jax_out():
     code = ("import sys, evosoro_tpu_torch, evosoro_tpu_torch.evo.algorithms, "
             "evosoro_tpu_torch.bench, evosoro_tpu_torch.convert, "
             "evosoro_tpu_torch.control, evosoro_tpu_torch.control.shooting, "
+            "evosoro_tpu_torch.control.sqp, evosoro_tpu_torch.ops.fused_diff, "
             "evosoro_tpu_torch.roofline, evosoro_tpu_torch.device; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'evosoro_tpu')]; print(bad); "

@@ -135,3 +135,78 @@ def test_fma_peak_matches_plain_on_the_card():
     assert ((short - ref).abs() / ref.abs()).max() > 2.0 ** -21
     peak = roofline.measure_fp32_peak(iters=4096)
     assert 0 < peak["flops_per_s"] <= 1.05 * roofline.H100_FP32_FLOPS
+
+
+@pytest.mark.cuda
+def test_reverse_mode_segment_matches_plain_on_the_card():
+    """B4 against `fused_bwd_plain` (torch autograd through the plain
+    version) with a random cotangent on every carried channel, on the bench
+    design (6^3, a shared body, without and with floor and gravity) and on
+    the evaluator's designs (a body per robot), from rest and from the state
+    a segment in: every channel group within 2e-3 of the group's largest
+    plain value; a zero cotangent gives zeros; and `DiffRollout`'s gradient
+    of the last boundary's CoM-y equals the plain path's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; the CUDA kernels have no CPU mode")
+    from evosoro_tpu_torch.bench import evaluator_workload, mpc_workload
+    from evosoro_tpu_torch.core.rollout import init_state
+    from evosoro_tpu_torch.core.types import EnvParams
+    from evosoro_tpu_torch.ops.fused_diff import DiffRollout
+
+    groups = dict(pos=(0, 3), quat=(3, 7), linmom=(7, 10), angmom=(10, 13),
+                  scale=(13, 14), memory=(17, 44), max_strain=(44, 47))
+
+    def check(state, body, stats, ctrl, base, kw, seed):
+        g = torch.Generator().manual_seed(seed)
+        cot = torch.randn(state.shape, generator=g).cuda()
+        cot[:, fr._TSAVG:] = 0.0
+        before = fr.FUSED_BWD_LAUNCHES
+        cs_k, cu_k = fr.fused_bwd_call(state, body, stats, ctrl, base, cot, **kw)
+        assert fr.FUSED_BWD_LAUNCHES == before + 1
+        cs_p, cu_p = fr.fused_bwd_plain(state, body, stats, ctrl, base, cot, **kw)
+        for a, b in groups.values():
+            top = cs_p[:, a:b].abs().max()
+            assert (cs_k[:, a:b] - cs_p[:, a:b]).abs().max() <= 2e-3 * top
+        assert (cu_k - cu_p).abs().max() <= 2e-3 * cu_p.abs().max() > 0
+        assert bool((cs_k[:, fr._TSAVG:] == 0).all())
+        zs, zu = fr.fused_bwd_call(state, body, stats, ctrl, base,
+                                   torch.zeros_like(cot), **kw)
+        assert bool((zs == 0).all()) and bool((zu == 0).all())
+
+    body, sim, _, dt = mpc_workload(n=6, device="cuda")
+    B, K, S, total = 4, 4, 10, 40
+    for env in (EnvParams(gravity_enabled=False, floor_enabled=False), EnvParams()):
+        state = fr.pack_state_single(init_state(body))[None].expand(B, -1, -1).contiguous()
+        stats = fr.make_stats(body, B, dt, sim, env)
+        kw = dict(num_steps=S, grid_shape=(6, 6, 6),
+                  scalars=fr.kernel_scalars(body.nominal_size, sim, env),
+                  flags=dict(fr.kernel_env_flags(sim, env), **fr.body_flags(body),
+                             collision=False, segmented=True),
+                  n_knots=K, total_steps=total)
+        ctrl = _controls(B, K, 216, 7)
+        check(state, fr.pack_body(body), stats, ctrl, 0, kw, 1)
+        mid, mid_stats = fr.fused_call(state, fr.pack_body(body), stats, None,
+                                       control_packed=ctrl, seg_base=0,
+                                       **dict(kw, num_steps=20))
+        check(mid, fr.pack_body(body), mid_stats, ctrl, 20, kw, 2)
+
+    (state, bodies, stats, _), ekw = evaluator_workload(collision=False, device="cuda")
+    state, bodies, stats = (t[:4].contiguous() for t in (state, bodies, stats))
+    kw = dict(ekw, num_steps=10, flags=dict(ekw["flags"], segmented=True),
+              n_knots=4, total_steps=40)
+    ctrl = _controls(4, 4, state.shape[2], 8)
+    mid, mid_stats = fr.fused_call(state, bodies, stats, None, control_packed=ctrl,
+                                   seg_base=0, **kw)
+    check(mid, bodies, mid_stats, ctrl, 10, kw, 3)
+
+    # through the autograd.Function: card against the plain path on the CPU
+    grads = []
+    for dev in ("cuda", "cpu"):
+        b, sm, _, step = mpc_workload(n=6, device=dev)
+        dr = DiffRollout(b, sm, EnvParams(), num_steps=24, num_knots=4, dt=step,
+                         batch=2, n_segs=3)
+        sp = fr.pack_state_single(init_state(b))[None].expand(2, -1, -1).contiguous()
+        u = _controls(2, 4, 216, 9).to(dev).requires_grad_(True)
+        cms, _, _ = dr(sp, dr.stats0, u)
+        grads.append(torch.autograd.grad(cms[-1].sum(), u)[0].cpu())
+    assert (grads[0] - grads[1]).abs().max() <= 5e-3 * grads[1].abs().max() > 0

@@ -135,3 +135,69 @@ def test_k2_work_counts_tested_and_touching_pairs():
     assert nbytes == 4.0 * (9 + 3 + 9 + 9)
     f = fr.pair_contact_forces(pos, scale, a1)
     assert int((f.abs().sum(1) > 0).sum()) == 2
+
+
+def test_b4_work_counts_recompute_and_adjoint_of_the_steps_taken():
+    B, V, K = 3, 8, 2
+    state = torch.zeros(B, fr.C_S, V)
+    body = torch.zeros(1, fr.C_B, V)
+    body[0, fr._B_OCC, :6] = 1.0
+    stats = torch.zeros(B, fr.C_STAT)
+    ctrl = torch.zeros(B, K, V)
+    flops, nbytes = roofline.b4_work(state, body, stats, ctrl, [5, 5, 2])  # the third froze
+    per = roofline.STEP_FLOPS_PER_VOXEL + roofline.ADJOINT_FLOPS_PER_VOXEL
+    np.testing.assert_allclose(flops, 12 * 6 * per)
+    # start state and end cotangent in, start cotangent out; body; stats;
+    # controls in and their cotangent out; never the tape
+    assert nbytes == 4.0 * (3 * B * 47 * V + 69 * V + B * fr.C_STAT + 2 * B * K * V)
+    bodies = torch.zeros(B, fr.C_B, V)
+    for b, n_occ in enumerate((8, 4, 2)):
+        bodies[b, fr._B_OCC, :n_occ] = 1.0
+    flops2, _ = roofline.b4_work(state, bodies, stats, ctrl, torch.tensor([5, 5, 2]))
+    np.testing.assert_allclose(flops2, (5 * 8 + 5 * 4 + 2 * 2) * per)
+    assert roofline.bound(flops, nbytes)["bound_by"] == "operations"
+
+
+def test_adjoint_operation_count_is_the_jaxpr_walk_of_the_steps_vjp():
+    """`ADJOINT_FLOPS_PER_VOXEL` is a count, and this is where it comes
+    from: `tools/roofline.py`'s jaxpr walk over `jax.vjp` of the JAX
+    package's `sim_step` with the control offset on the 10^3 bench body
+    (forward pass and pullback), less the same walk over the forward step."""
+    import jax
+    import jax.numpy as jnp
+
+    from evosoro_tpu.core.materials import build_body, calc_max_dt, palette_from_list
+    from evosoro_tpu.core.rollout import init_state
+    from evosoro_tpu.core.step import sim_step
+    from evosoro_tpu.core.types import EnvParams, SimParams, evosoro_default_palette
+    from tools.roofline import _count_jaxpr
+
+    n = 10
+    rng = np.random.default_rng(0)
+    structure = rng.integers(1, 5, size=(n, n, n)).astype(np.int32)
+    phase = rng.uniform(-1, 1, size=(n, n, n))
+    body = build_body(structure, palette_from_list(evosoro_default_palette()),
+                      phase_offset=phase)
+    sim, env = SimParams(), EnvParams()
+    dt = float(calc_max_dt(body)) * float(sim.dt_frac)
+    state = init_state(body)
+    u = jnp.zeros((n, n, n), state.pos.dtype)
+
+    def step(s, c):
+        return sim_step(s, body, sim, env, dt, control_offset=c)
+
+    def total(jaxpr):
+        counts = {"ew": 0, "trans": 0, "red": 0, "dot": 0}
+        _count_jaxpr(jaxpr.jaxpr, counts)
+        return sum(counts.values())
+
+    out = jax.eval_shape(step, state, u)
+    cot = jax.tree_util.tree_map(
+        lambda x: jnp.zeros(x.shape, x.dtype) if jnp.issubdtype(x.dtype, jnp.floating)
+        else np.zeros(x.shape, jax.dtypes.float0), out)
+    forward = total(jax.make_jaxpr(step)(state, u))
+    both = total(jax.make_jaxpr(lambda s, c, ct: jax.vjp(step, s, c)[1](ct))(state, u, cot))
+    np.testing.assert_allclose((forward - 2 * n ** 3) / n ** 3,
+                               roofline.STEP_FLOPS_PER_VOXEL, rtol=1e-9)
+    np.testing.assert_allclose((both - forward) / n ** 3,
+                               roofline.ADJOINT_FLOPS_PER_VOXEL, rtol=1e-9)
