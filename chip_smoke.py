@@ -3,9 +3,11 @@
 
 Builds the hand-written CUDA kernels from `evosoro_tpu_torch/ops/csrc`,
 holds each kernel against its plain PyTorch version, and drives the port's
-main paths: two generations of the examples/basic.py evolution experiment
-(evaluation through the fused rollout kernel K1 with its in-kernel contact
-pass K2), the sampling-MPC benchmark of tools/bench_mpc.py (a cold CEM
+main paths: two generations each of the evolution experiments of
+examples/basic.py, swimming_basic.py and growth.py (evaluation through the
+fused rollout kernel K1 with its in-kernel contact pass K2, in water with
+the facet drag on the deformed surface mesh, and with the development
+ramps), the sampling-MPC benchmark of tools/bench_mpc.py (a cold CEM
 solve and a closed receding-horizon loop through K1's control-knot channel),
 and its gradient-MPC part (FusedSQPSolver: K1 segments forward, the
 reverse-mode segment kernel B4 backward).
@@ -16,10 +18,19 @@ raises and exits non-zero. The last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 
 Run from the repository root:  python3 chip_smoke.py
+
+Every comparison of K1 (land variant, knots, segments) and of B4 also prints
+the SHA-256 of the kernel's output. `python3 chip_smoke.py --land` runs only
+those phases and a timing of the land path's three launches, and ends with
+one JSON object of the digests and times: copied into a checkout of another
+commit (the mode uses only names the port has had since B4 came) and run
+there in the same call, it tells whether the two commits compute the same
+bits on the land path, and lets their times be read in turns.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import sys
@@ -29,6 +40,21 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # tolerances of tests/test_fused_rollout.py:63-78 (fused kernel vs eager step)
 TOL = dict(pos=(2e-5, 1e-9), quat=(2e-5, 1e-7), linmom=(1e-4, 1e-10),
            scale=(1e-6, 0.0), time=(1e-6, 0.0))
+# the facet drag against its gather/scatter plain version: the tolerances of
+# tests/test_fused_rollout.py:766-774 between the JAX package's kernel and
+# its jnp step (the 12 facet terms and the 8 corners of a vertex are summed
+# in another order, and index_add_ on the card sums with atomics), with the
+# land step's quat group and its rtol for linmom: at 200 x the experiment's
+# drag the two part by 9.3e-6 in momenta up to 0.37 (H100, first runs of
+# this script with the facet drag), five times under the atol
+MESH_TOL = dict(pos=(2e-5, 1e-8), quat=(2e-5, 1e-7), linmom=(1e-4, 5e-5),
+                scale=(1e-6, 0.0), time=(1e-6, 0.0))
+# what a guard must show: the effect it looks for (another drag model, no
+# drag) is at least this many times the kernel's own error
+GUARD_RATIO = 20.0
+# the drag coefficient at which drag weighs as much as elasticity, so that
+# a wrong drag fails the stated tolerances outright (200 x the experiment's)
+STRONG_DRAG = 1.5e5
 # K2: the pair sums run in another order than torch.sum
 K2_REL_TOL = 1e-4
 # 100-step drift band of ONCHIP_PARITY.json for chaotic dynamic scenarios
@@ -53,6 +79,20 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+# case -> SHA-256 (first 16 hex digits) of a kernel's output tensors, for
+# holding two commits against each other (`--land`)
+DIGESTS = {}
+
+
+def _digest(key, *tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    assert key not in DIGESTS, key
+    DIGESTS[key] = h.hexdigest()[:16]
+    return DIGESTS[key]
+
+
 def phase_device(torch):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels run "
@@ -74,8 +114,11 @@ def phase_build():
     from evosoro_tpu_torch.ops import build
 
     secs = build.build_all()
-    ptxas = {name: [ln.strip() for ln in build.build_log(name).splitlines()
-                    if "registers" in ln or "spill" in ln]
+    # each kernel's name (a variant of the step is a template instance, the
+    # number after `ILi` in its mangled name), registers and spills
+    ptxas = {name: [ln.strip().replace("ptxas info    : ", "")
+                    for ln in build.build_log(name).splitlines()
+                    if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
              for name in build.SIGNATURES}
     # fused multiply-adds in each library's machine code: the rollout
     # kernels are built without contraction, fma_peak names the instruction
@@ -155,7 +198,7 @@ def phase_k2(torch, np):
                     state[:, fr._SCALE].contiguous(), table)
 
 
-def _compare(torch, fr, out_k, st_k, out_p, st_p):
+def _compare(torch, fr, out_k, st_k, out_p, st_p, tol=TOL, need_small=True):
     def ch(x, a, b):
         return x[:, a:b, :]
 
@@ -164,24 +207,28 @@ def _compare(torch, fr, out_k, st_k, out_p, st_p):
                              quat=(fr._QUAT, fr._QUAT + 4),
                              linmom=(fr._LIN, fr._LIN + 3),
                              scale=(fr._SCALE, fr._SCALE + 1)).items():
-        rtol, atol = TOL[name]
         k, p = ch(out_k, a, b), ch(out_p, a, b)
         d = (k - p).abs()
         errs[name] = float(d.max())
-        ok &= bool((d <= atol + rtol * p.abs()).all())
+        if name in tol:  # a group the tolerance does not name is reported only
+            rtol, atol = tol[name]
+            ok &= bool((d <= atol + rtol * p.abs()).all())
     tk, tp = st_k[:, fr._S_TIME], st_p[:, fr._S_TIME]
     errs["time"] = float((tk - tp).abs().max())
-    ok &= bool(((tk - tp).abs() <= TOL["time"][0] * tp.abs()).all())
+    ok &= bool(((tk - tp).abs() <= tol["time"][0] * tp.abs()).all())
     same_small = bool(torch.equal(ch(out_k, fr._SMALL, fr._SMALL + 3),
                                   ch(out_p, fr._SMALL, fr._SMALL + 3)))
     errs["small_angle_equal"] = same_small
     errs["ini_cm"] = float((st_k[:, fr._S_INICM:fr._S_INICM + 3]
                             - st_p[:, fr._S_INICM:fr._S_INICM + 3]).abs().max())
-    return ok and same_small, errs
+    # every channel the rollout carries, bit for bit
+    errs["state_bit_equal"] = bool(torch.equal(out_k[:, :fr._TSAVG], out_p[:, :fr._TSAVG]))
+    return ok and (same_small or not need_small), errs
 
 
 def _k1_cases(torch, fr, label, args, kw, batch, coll, steps_list, time_at=None,
-              phase="k1_vs_plain", **extra):
+              phase="k1_vs_plain", tol=TOL, need_small=True, drift_only=True,
+              **extra):
     """K1 against its plain version on one input (`kw` may carry controls);
     returns the records, with `extra` in each."""
     from evosoro_tpu_torch import roofline
@@ -194,20 +241,24 @@ def _k1_cases(torch, fr, label, args, kw, batch, coll, steps_list, time_at=None,
         assert fr.FUSED_ROLLOUT_LAUNCHES == before + 1
         out_p, st_p = fr.fused_rollout_plain(*args, num_steps=steps, **kw)
         torch.cuda.synchronize()
-        ok, errs = _compare(torch, fr, out_k, st_k, out_p, st_p)
+        ok, errs = _compare(torch, fr, out_k, st_k, out_p, st_p, tol, need_small)
         rec = dict(phase=phase, workload=label, batch=batch, steps=steps,
                    collision=coll, **extra, **errs)
+        rec["sha256"] = _digest("/".join(
+            [phase, label, f"coll={coll}", f"steps={steps}",
+             *(f"{k}={v}" for k, v in extra.items())]), out_k, st_k)
         if steps == 100:
             # beyond the step-level tolerances: drift against the band
             rec.update(drift_bound_m=DRIFT_BOUND_M)
-            ok = errs["pos"] <= DRIFT_BOUND_M
+            ok = (ok or drift_only) and errs["pos"] <= DRIFT_BOUND_M
         if steps == time_at:
             rec["ms"] = _event_ms(
                 torch, lambda: fr.fused_call(*args, num_steps=steps, **kw), 5)
             rec["plain_ms"] = _event_ms(
                 torch, lambda: fr.fused_rollout_plain(*args, num_steps=steps, **kw), 1)
-            rec.update(roofline.bound(*roofline.k1_work(
-                *args, st_k, kw.get("control_packed"))))
+            rec.update(roofline.bound(*roofline.launch_work(
+                *args, st_k, kw.get("control_packed"), flags=kw["flags"],
+                grid_shape=kw["grid_shape"])))
         rec["ok"] = ok
         emit(rec)
         assert ok, rec
@@ -215,7 +266,7 @@ def _k1_cases(torch, fr, label, args, kw, batch, coll, steps_list, time_at=None,
     return recs
 
 
-def phase_k1(torch):
+def phase_k1(torch, timed=True):
     """K1 on the bench.py 10^3 design (8 identical robots, shared body and
     table) and on the evaluator's own batch: 15 random 6^3 designs padded to
     16, a body and pair table per robot; once as the evaluator packs it and
@@ -242,7 +293,175 @@ def phase_k1(torch):
                      + ("dt, stop and IniCM time per robot" if stagger else "as packed"))
             recs += _k1_cases(torch, fr, label, args, kw, args[0].shape[0], coll,
                               (1, 25, 100),
-                              time_at=25 if coll and not stagger else None)
+                              time_at=25 if timed and coll and not stagger else None)
+    return recs
+
+
+def _with_drag(args, coefficient):
+    """The launch's tensors with every robot's drag coefficient replaced."""
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    stats = args[2].clone()
+    stats[:, fr._S_DRAGC] = coefficient
+    return (args[0], args[1], stats, args[3])
+
+
+def _fluid_guards(torch, fr, label, model, args, kw, steps=100):
+    """What the comparison can see: the other drag model on the same grid
+    (where the grid has the shell both need) and a launch without drag, each
+    against this model's plain version, beside the kernel's own error
+    (largest momentum difference). At the experiment's drag coefficient a
+    100-step swim moves the momenta by about as much as two float32 paths
+    part anyway, so those numbers are reported; at `STRONG_DRAG` the kernel
+    must still agree with its plain version, and both guards must fail the
+    stated tolerances and stand `GUARD_RATIO` times above the kernel's
+    error."""
+    tol = MESH_TOL if model == "mesh" else TOL
+    X, Y, Z = kw["grid_shape"]
+    shelled = fr.has_corner_shell(args[1][:, fr._B_OCC].reshape(-1, X, Y, Z) > 0.5)
+    other = dict(kw, flags=dict(kw["flags"], fluid_mesh=model != "mesh"))
+
+    def lin_diff(a, b):
+        return float((a[:, fr._LIN:fr._LIN + 3] - b[:, fr._LIN:fr._LIN + 3]).abs().max())
+
+    rec = dict(phase="k1_fluid_guards", workload=label, model=model, steps=steps,
+               ratio_needed=GUARD_RATIO, other_model_run=shelled)
+    for name, cargs in (("experiment_drag", args), ("strong_drag", _with_drag(args, STRONG_DRAG))):
+        out_k, st_k = fr.fused_call(*cargs, num_steps=steps, **kw)
+        out_p, st_p = fr.fused_rollout_plain(*cargs, num_steps=steps, **kw)
+        out_0, st_0 = fr.fused_call(*_with_drag(cargs, 0.0), num_steps=steps, **kw)
+        torch.cuda.synchronize()
+        # small_angle is held at the experiment's drag for both models
+        ok, errs = _compare(torch, fr, out_k, st_k, out_p, st_p, tol,
+                            model != "mesh" or name == "experiment_drag")
+        err = lin_diff(out_k, out_p)
+        sub = dict(kernel_vs_plain_ok=ok, kernel_linmom_err=err,
+                   kernel_quat_err=errs["quat"],
+                   small_angle_equal=errs["small_angle_equal"],
+                   largest_linmom=float(out_p[:, fr._LIN:fr._LIN + 3].abs().max()),
+                   no_drag_effect=lin_diff(out_0, out_p),
+                   no_drag_passes=_compare(torch, fr, out_0, st_0, out_p, st_p, tol, False)[0])
+        effects = [sub["no_drag_effect"]]
+        if shelled:
+            out_o, st_o = fr.fused_call(*cargs, num_steps=steps, **other)
+            sub.update(other_model_effect=lin_diff(out_o, out_p),
+                       other_model_passes=_compare(torch, fr, out_o, st_o, out_p, st_p,
+                                                   tol, False)[0])
+            effects.append(sub["other_model_effect"])
+        sub["guards_seen"] = min(effects) >= GUARD_RATIO * max(err, 1e-12)
+        rec[name] = sub
+    strong = rec["strong_drag"]
+    rec["ok"] = bool(rec["experiment_drag"]["kernel_vs_plain_ok"]
+                     and strong["kernel_vs_plain_ok"] and strong["guards_seen"]
+                     and not strong["no_drag_passes"]
+                     and not strong.get("other_model_passes", False))
+    emit(rec)
+    assert rec["ok"], rec
+    return rec
+
+
+def phase_k1_fluid(torch):
+    """K1's fluid variants against the plain version (the eager step with
+    `_fluid_drag`, or with `mesh_drag_forces` over gather tables): the bench
+    design in its shell (8 x 11^3, a shared body) and the swimming
+    experiment's own batch (16 x 6^3 for the face model, 16 x 7^3 with the
+    shell for the mesh model; a body, pair table and dt per robot, IniCM
+    times staggered so the robots actuate), contact off and on, at 1, 25 and
+    100 steps; with contact on also 100 steps at `STRONG_DRAG`; then the
+    guards. Returns the records by model; the timed one is the mesh model on
+    the evaluator's batch, 25 steps, contact on."""
+    from evosoro_tpu_torch.bench import evaluator_workload, packed_workload
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    recs = dict(face=[], mesh=[])
+    for model in ("face", "mesh"):
+        tol = MESH_TOL if model == "mesh" else TOL
+        opts = dict(phase="k1_fluid_vs_plain", tol=tol, drift_only=False, model=model)
+        # drag as strong as elasticity, with the pair pass in the step: the
+        # facet drag's sums part in the last bits there, so small_angle is
+        # reported and the other groups are held
+        strong = dict(opts, need_small=model != "mesh", drag=STRONG_DRAG)
+        before = fr.FUSED_ROLLOUT_FLUID_LAUNCHES, fr.FUSED_ROLLOUT_MESH_LAUNCHES
+        for coll in (False, True):
+            args, kw, _ = packed_workload(8, collision=coll, device="cuda", fluid=model)
+            assert kw["grid_shape"] == (11, 11, 11) and kw["flags"]["fluid"]
+            assert kw["flags"]["fluid_mesh"] == (model == "mesh")
+            label = "bench 10^3 in its 11^3 shell, shared body"
+            recs[model] += _k1_cases(torch, fr, label, args, kw, 8, coll,
+                                     (1, 25, 100), **opts)
+            if coll:
+                recs[model] += _k1_cases(torch, fr, label, _with_drag(args, STRONG_DRAG),
+                                         kw, 8, coll, (100,), **strong)
+            else:
+                _fluid_guards(torch, fr, label, model, args, kw)
+            args, kw = evaluator_workload(
+                collision=coll, stagger=True, device="cuda", experiment="swimming",
+                drag_model="mesh" if model == "mesh" else "voxel_face")
+            grid = kw["grid_shape"]
+            assert grid == ((7, 7, 7) if model == "mesh" else (6, 6, 6)), grid
+            assert args[1].shape[0] == args[0].shape[0] > 1  # a body per robot
+            label = "swimming evaluator batch %d x %d^3, a body per robot" % (
+                args[0].shape[0], grid[0])
+            recs[model] += _k1_cases(
+                torch, fr, label, args, kw, args[0].shape[0], coll, (1, 25, 100),
+                time_at=25 if coll and model == "mesh" else None, **opts)
+            if coll:
+                recs[model] += _k1_cases(torch, fr, label, _with_drag(args, STRONG_DRAG),
+                                         kw, args[0].shape[0], coll, (100,), **strong)
+            else:
+                _fluid_guards(torch, fr, label, model, args, kw)
+        assert fr.FUSED_ROLLOUT_FLUID_LAUNCHES > before[0]
+        assert fr.FUSED_ROLLOUT_MESH_LAUNCHES > before[1]  # the guards launch both
+    return recs
+
+
+def phase_k1_devo(torch):
+    """K1's development variant against the plain version: the bench design
+    with random initial and final sizes, growth windows, final phase offsets
+    and amplitude dampings (8 x 10^3, IniCM time at step 30; without and
+    with a mid-life freeze of 20 steps), and the growth experiment's own
+    batch (16 x 5x5x4, sizes and windows from `devo_params_from_vxa`, a body
+    per robot), contact off and on, at 1, 25 and 100 steps. Guard: the same
+    tensors with the development flags cleared must fail the comparison.
+    Returns the records; the timed one is the evaluator's batch, 25 steps,
+    contact on."""
+    from evosoro_tpu_torch.bench import evaluator_workload, packed_workload
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    recs = []
+    opts = dict(phase="k1_devo_vs_plain", drift_only=False)
+    before = fr.FUSED_ROLLOUT_DEVO_LAUNCHES
+
+    def guard(label, args, kw):
+        land = dict(kw, flags=dict(kw["flags"], **{k: False for k in fr._K1_DEVO_FLAGS}))
+        out_l, st_l = fr.fused_call(*args, num_steps=100, **land)
+        out_p, st_p = fr.fused_rollout_plain(*args, num_steps=100, **kw)
+        passes, errs = _compare(torch, fr, out_l, st_l, out_p, st_p)
+        rec = dict(phase="k1_devo_guard", workload=label, steps=100,
+                   flags_cleared_passes=passes, scale_diff=errs["scale"],
+                   grown_by=float((out_p[:, fr._SCALE] - 0.01).abs().max()))
+        emit(rec)
+        assert not passes and rec["grown_by"] > 1e-4, rec
+
+    for freeze in (False, True):
+        args, kw, _ = packed_workload(8, device="cuda", devo=True, freeze=freeze)
+        assert all(kw["flags"][k] for k in fr._K1_DEVO_FLAGS)
+        assert kw["flags"]["freeze_on"] == freeze
+        label = "bench 10^3 with growth fields" + (", mid-life freeze" if freeze else "")
+        recs += _k1_cases(torch, fr, label, args, kw, 8, False, (1, 25, 100),
+                          freeze=freeze, **opts)
+        guard(label, args, kw)
+    for coll in (False, True):
+        args, kw = evaluator_workload(collision=coll, stagger=True, device="cuda",
+                                      experiment="growth")
+        assert kw["grid_shape"] == (5, 5, 4) and kw["flags"]["use_final_size"]
+        assert args[1].shape[0] == args[0].shape[0] > 1
+        label = "growth evaluator batch %d x 5x5x4, a body per robot" % args[0].shape[0]
+        recs += _k1_cases(torch, fr, label, args, kw, args[0].shape[0], coll,
+                          (1, 25, 100), time_at=25 if coll else None, **opts)
+        if not coll:
+            guard(label, args, kw)
+    assert fr.FUSED_ROLLOUT_DEVO_LAUNCHES > before
     return recs
 
 
@@ -323,7 +542,8 @@ def phase_k1_segmented(torch, np):
                    chain_equals_whole=bool(torch.equal(st, whole)
                                            and torch.equal(ss, whole_st)),
                    max_abs_diff=float((st - whole).abs().max()),
-                   vs_plain=errs, ok=ok)
+                   vs_plain=errs, ok=ok,
+                   sha256=_digest(f"k1_segmented/{label}/coll={coll}", st, ss))
         emit(rec)
         assert rec["chain_equals_whole"] and ok, rec
 
@@ -529,6 +749,7 @@ def _b4_case(torch, np, fr, label, state, body, stats, ctrl, seg_base, kw, seed,
                seg_base=seg_base, knots=kw["n_knots"], body_per_robot=body.shape[0] > 1,
                floor=bool(kw["flags"]["floor"]), gravity=bool(kw["flags"]["gravity"]),
                rel_err=rel, worst_rel_err=worst, tol=B4_REL_TOL, finite=finite,
+               sha256=_digest("b4/" + label, *got),
                max_abs_err=float((got[1] - ref[1]).abs().max()),
                max_abs_cot_ctrl=float(ref[1].abs().max()),
                max_abs_cot_state=float(ref[0].abs().max()),
@@ -686,35 +907,55 @@ def phase_sqp(torch, b4_timed):
 
 
 def phase_evolution(torch):
+    """Two generations each of the basic, swimming and growth experiments,
+    uncut, population 15, through `evaluate_all` on the card. Returns the
+    launch counts by experiment."""
+    import math
+
     from evosoro_tpu_torch.bench import evolution
     from evosoro_tpu_torch.ops import fused_rollout as fr
 
-    fr.FUSED_ROLLOUT_LAUNCHES = 0
-    fr.FUSED_ROLLOUT_CONTACT_LAUNCHES = 0
-    fr.FUSED_ROLLOUT_KNOT_LAUNCHES = 0
-    fr.PAIR_CONTACT_LAUNCHES = 0
-    records = evolution(gens=2, pop_size=15, device="cuda")
-    launches = dict(fused_rollout=fr.FUSED_ROLLOUT_LAUNCHES,
-                    fused_rollout_with_contact=fr.FUSED_ROLLOUT_CONTACT_LAUNCHES,
-                    fused_rollout_with_knots=fr.FUSED_ROLLOUT_KNOT_LAUNCHES,
-                    pair_contact=fr.PAIR_CONTACT_LAUNCHES)
-    import math
-
-    for r in records:
-        fits = r.pop("fitnesses")
-        # invalid and diverged designs get the objective's worst value, -10e6
-        valid = [f for f in fits if f > -1e6]
-        r.update(phase="evolution", n_evaluated_valid=len(valid),
-                 all_finite=all(math.isfinite(f) for f in fits))
-        emit(r)
-        assert r["k1_launches"] > 0, r
-        assert r["all_finite"], r
-        assert valid, "every design was invalid or diverged"
-    # K2's routine runs inside K1's launches; its own kernel is not on the path
-    assert launches["fused_rollout"] > 0, launches
-    assert launches["fused_rollout_with_contact"] > 0, launches
-    emit(dict(phase="evolution_launches", **launches))
-    return launches
+    counters = dict(fused_rollout="FUSED_ROLLOUT_LAUNCHES",
+                    fused_rollout_with_contact="FUSED_ROLLOUT_CONTACT_LAUNCHES",
+                    fused_rollout_with_knots="FUSED_ROLLOUT_KNOT_LAUNCHES",
+                    fused_rollout_fluid="FUSED_ROLLOUT_FLUID_LAUNCHES",
+                    fused_rollout_mesh="FUSED_ROLLOUT_MESH_LAUNCHES",
+                    fused_rollout_devo="FUSED_ROLLOUT_DEVO_LAUNCHES",
+                    pair_contact="PAIR_CONTACT_LAUNCHES")
+    all_launches = {}
+    for experiment in ("basic", "swimming", "growth"):
+        for name in counters.values():
+            setattr(fr, name, 0)
+        records = evolution(gens=2, pop_size=15, device="cuda", experiment=experiment)
+        launches = {k: getattr(fr, name) for k, name in counters.items()}
+        for r in records:
+            fits = r.pop("fitnesses")
+            # invalid and diverged designs get the objective's worst value, -10e6
+            valid = [f for f in fits if f > -1e6]
+            r.update(phase="evolution", experiment=experiment,
+                     n_evaluated_valid=len(valid),
+                     all_finite=all(math.isfinite(f) for f in fits))
+            emit(r)
+            assert r["k1_launches"] > 0, r
+            assert r["all_finite"], r
+            assert valid, "every design was invalid or diverged"
+            if experiment == "swimming":
+                assert r["k1_fluid_launches"] == r["k1_launches"], r
+            if experiment == "growth":
+                assert r["k1_devo_launches"] == r["k1_launches"], r
+        # K2's routine runs inside K1's launches; its own kernel is not on the path
+        assert launches["fused_rollout"] > 0, launches
+        assert launches["fused_rollout_with_contact"] > 0, launches
+        if experiment == "swimming":  # the default drag model is the facet drag
+            assert launches["fused_rollout_mesh"] == launches["fused_rollout_fluid"] \
+                == launches["fused_rollout"], launches
+        elif experiment == "growth":
+            assert launches["fused_rollout_devo"] == launches["fused_rollout"], launches
+        else:
+            assert launches["fused_rollout_fluid"] == launches["fused_rollout_devo"] == 0
+        emit(dict(phase="evolution_launches", experiment=experiment, **launches))
+        all_launches[experiment] = launches
+    return all_launches
 
 
 def phase_throughput(torch, card):
@@ -727,10 +968,30 @@ def phase_throughput(torch, card):
         k1_coll=throughput(batch=1024, steps=20, collision=True, groups=2, reps=2),
         plain_coll=throughput(batch=1024, steps=5, collision=True, plain=True,
                               groups=1, reps=1),
+        k1_fluid_mesh=throughput(batch=1024, steps=200, fluid="mesh", groups=3, reps=2),
+        k1_fluid_face=throughput(batch=1024, steps=200, fluid="face", groups=3, reps=2),
     )
     for r in recs.values():
         emit(dict(phase="throughput", card=card, **r))
     return recs
+
+
+def phase_land(torch, np, card):
+    """The land path alone, for holding two commits against each other on one
+    card: K1 (as packed and staggered, with knots, in segments) and B4
+    against their plain versions as in the full run, the digest of every
+    kernel output, and the times of K1 on 1024 x 10^3 x 200 steps (best of 4
+    groups of 3) and of the SQP solver's K1 segment and B4 launch (8 x 10^3 x
+    25 steps, 8 knots; mean of 5). Ends with one JSON object of all of it."""
+    from evosoro_tpu_torch.bench import throughput
+
+    phase_k1(torch, timed=False)
+    phase_k1_knots(torch, np)
+    phase_k1_segmented(torch, np)
+    b4_timed = next(r for r in phase_b4(torch, np) if "ms" in r)
+    k1_ms = [throughput(batch=1024, steps=200, groups=4, reps=3)["ms"] for _ in range(2)]
+    emit(dict(land=dict(card=card, digests=DIGESTS, k1_1024x10_3x200_ms=k1_ms,
+                        k1_segment_ms=b4_timed["k1_ms"], b4_segment_ms=b4_timed["ms"])))
 
 
 def main():
@@ -743,18 +1004,26 @@ def main():
 
     card = phase_device(torch)
     phase_build()
+    if sys.argv[1:] == ["--land"]:
+        return phase_land(torch, np, card)
     k2 = phase_k2(torch, np)
     k1 = phase_k1(torch)
     knots = phase_k1_knots(torch, np)
     phase_k1_segmented(torch, np)
+    fluid = phase_k1_fluid(torch)
+    devo = phase_k1_devo(torch)
     fma = phase_fp32_peak(torch)
-    launches = phase_evolution(torch)
+    evo_launches = phase_evolution(torch)
+    launches = evo_launches["basic"]
+    swim, grow = evo_launches["swimming"], evo_launches["growth"]
     mpc_launches, knot_timed, loop_recs = phase_mpc(torch, np)
     b4 = phase_b4(torch, np)
     b4_timed = next(r for r in b4 if "ms" in r)
     sqp_launches = phase_sqp(torch, b4_timed)
     phase_throughput(torch, card)
     k1_timed = next(r for r in k1 if "ms" in r)
+    fluid_timed = next(r for r in fluid["mesh"] if "ms" in r)
+    devo_timed = next(r for r in devo if "ms" in r)
     knots += [knot_timed, *loop_recs]
 
     def at_measured_peak(rec):
@@ -773,9 +1042,12 @@ def main():
         dict(name="fused_rollout (K1)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fused_rollout.cu",
              replaces="evosoro_tpu/ops/fused_rollout.py:777",
-             launches=launches["fused_rollout"] + mpc_launches["fused_rollout"]
+             launches=launches["fused_rollout"] + swim["fused_rollout"]
+             + grow["fused_rollout"] + mpc_launches["fused_rollout"]
              + sqp_launches["fused_rollout"],
              launches_evolution=launches["fused_rollout"],
+             launches_swimming=swim["fused_rollout"],
+             launches_growth=grow["fused_rollout"],
              launches_mpc=mpc_launches["fused_rollout"],
              launches_sqp=sqp_launches["fused_rollout"],
              **bound_keys(k1_timed),
@@ -792,7 +1064,8 @@ def main():
              launches=launches["pair_contact"] + mpc_launches["pair_contact"],
              runs_inside="fused_rollout (K1)",
              **bound_keys(k2),
-             k1_launches_with_contact=launches["fused_rollout_with_contact"],
+             k1_launches_with_contact=launches["fused_rollout_with_contact"]
+             + swim["fused_rollout_with_contact"] + grow["fused_rollout_with_contact"],
              max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
              err_of="force (N), own launch, %s %s, table %s"
              % (k2["workload"], k2["shape"], k2["table_shape"]),
@@ -828,6 +1101,40 @@ def main():
                      "the group's largest plain value"),
              ms=b4_timed["ms"], plain_ms=b4_timed["plain_ms"],
              ms_of="one launch of a solve: 8 x 10^3, 25 steps at seg_base 75, 8 knots"),
+        dict(name="K1 fluid branches (B7)", route="cuda",
+             source="evosoro_tpu_torch/ops/csrc/fused_rollout_common.cuh",
+             replaces="evosoro_tpu/ops/fused_rollout.py:1373",
+             launches=swim["fused_rollout_fluid"],
+             launches_of="two generations of the swimming experiment, every "
+             "launch with the facet drag (%d)" % swim["fused_rollout_mesh"],
+             **bound_keys(fluid_timed),
+             max_abs_err=max(r["pos"] for r in fluid["mesh"] + fluid["face"]),
+             max_abs_err_mesh=max(r["pos"] for r in fluid["mesh"]),
+             max_abs_err_face=max(r["pos"] for r in fluid["face"]),
+             face_state_bit_equal=all(r["state_bit_equal"] for r in fluid["face"]),
+             err_of=("pos (m) against the plain version, both drag models: bench "
+                     "8 x 11^3 and the swimming evaluator batch (16 x 6^3 face, "
+                     "16 x 7^3 mesh, a body per robot), 1/25/100 steps, contact "
+                     "off and on"),
+             ms=fluid_timed["ms"], plain_ms=fluid_timed["plain_ms"],
+             ms_of="swimming evaluator batch %d x 7^3, facet drag, 25 steps, "
+             "contact on" % fluid_timed["batch"]),
+        dict(name="K1 growth ramps (B8a)", route="cuda",
+             source="evosoro_tpu_torch/ops/csrc/fused_rollout_common.cuh",
+             replaces="evosoro_tpu/ops/fused_rollout.py:1628",
+             launches=grow["fused_rollout_devo"],
+             launches_of="two generations of the growth experiment",
+             **bound_keys(devo_timed),
+             max_abs_err=max(r["pos"] for r in devo),
+             max_abs_scale_err=max(r["scale"] for r in devo),
+             state_bit_equal=all(r["state_bit_equal"] for r in devo),
+             err_of=("pos (m) against the plain version: bench 8 x 10^3 with "
+                     "random growth fields, without and with the mid-life freeze, "
+                     "and the growth evaluator batch 16 x 5x5x4, 1/25/100 steps, "
+                     "contact off and on"),
+             ms=devo_timed["ms"], plain_ms=devo_timed["plain_ms"],
+             ms_of="growth evaluator batch %d x 5x5x4, 25 steps, contact on"
+             % devo_timed["batch"]),
         dict(name="fma_peak (B9)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fma_peak.cu",
              replaces="tools/roofline.py:137",

@@ -7,7 +7,8 @@ it against. On an NVIDIA Hopper card the rollout runs through hand-written
 CUDA kernels (`ops/csrc`); on CPU tensors the same entry points run their
 plain PyTorch versions.
 
-Ported so far: the evolution loop's evaluation (`evo`), sampling MPC
+Ported so far: the evolution loop's evaluation (`evo`) on land, in water
+(`envs.drag`) and with development, sampling MPC
 (`control.shooting`) and gradient MPC (`control.grad_optimize`,
 `control.sqp`, `ops.fused_diff`), whose fused solver differentiates the
 rollout with the reverse-mode segment kernel inside

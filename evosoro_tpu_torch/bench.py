@@ -1,6 +1,6 @@
 """Benchmarks of the port on one card.
 
-Four workloads, all from the JAX package's own benchmarks:
+Four workloads, all from the JAX package's own benchmarks and examples:
 
 - throughput: the root `bench.py` workload on the port: B concurrent 10³
   robots (`default_rng(0)`, material ids 1..4, random phase offsets) with
@@ -10,6 +10,10 @@ Four workloads, all from the JAX package's own benchmarks:
 - evolution: the `examples/basic.py` experiment (CPPN material tree, AFPO
   Pareto optimization of NormFinalDist vs age) at the `EVOBENCH.json`
   "basic" configuration: pop 15, 6³, 5 s of sim time, self-collision on;
+  and, uncut, `examples/swimming_basic.py` (the same genome in water: 6³,
+  5 s, drag coefficient 750, facet drag on the deformed mesh) and
+  `examples/growth.py` (5×5×4 all-muscle bodies whose initial and final
+  voxel sizes evolve: 10 s, dt_frac 0.5, growth amplitude 0.8);
 - mpc: the `tools/bench_mpc.py` workload: one cold CEM solve over the 10³
   bench design (6 iterations x 128 candidates x 200 steps, 8 knots) through
   `cem_optimize_fused`, then a closed receding-horizon loop through
@@ -22,7 +26,7 @@ Four workloads, all from the JAX package's own benchmarks:
   segment kernel B4 backward.
 
 Run:  python -m evosoro_tpu_torch.bench [--batch 1024] [--steps 200]
-      [--gens 2] [--segments 4]
+      [--gens 2] [--segments 4] [--experiments basic swimming growth]
       (needs a CUDA device; prints one JSON line per result)
 """
 
@@ -58,7 +62,11 @@ from evosoro_tpu_torch.evo.base import Env, ObjectiveDict, Sim
 from evosoro_tpu_torch.evo.networks import CPPN
 from evosoro_tpu_torch.evo.softbot import Genotype, Phenotype, Population
 from evosoro_tpu_torch.ops import fused_rollout as fr
-from evosoro_tpu_torch.utils.functional import count_occurrences
+from evosoro_tpu_torch.utils.functional import (
+    count_negative,
+    count_occurrences,
+    count_positive,
+)
 from evosoro_tpu_torch.utils.phenotype_mappers import make_material_tree
 
 
@@ -70,24 +78,83 @@ def card_info() -> str:
     return out.stdout.strip()
 
 
-def bench_body(n=10, seed=0, device="cpu"):
-    """The bench.py design: an n³ block of material ids 1..4 with random
-    phase offsets, built from `default_rng(seed)`."""
+def bench_design(n=10, seed=0):
+    """(structure, phase offsets) of the bench.py design: an n³ block of
+    material ids 1..4 with random phase offsets, from `default_rng(seed)`."""
     rng = np.random.default_rng(seed)
     structure = rng.integers(1, 5, size=(n, n, n)).astype(np.int32)
-    phase = rng.uniform(-1, 1, size=(n, n, n))
+    return structure, rng.uniform(-1, 1, size=(n, n, n))
+
+
+def bench_body(n=10, seed=0, device="cpu"):
+    """The bench.py design and its body on `device`."""
+    structure, phase = bench_design(n, seed)
     palette = palette_from_list(evosoro_default_palette())
     body = build_body(structure, palette, phase_offset=phase, device=device)
     return structure, body
 
 
-def packed_workload(batch, n=10, collision=False, device="cuda"):
+AGGREGATE_DRAG_COEF = 0.5 * 1.5 * 1000.0  # examples/swimming_basic.py
+
+
+def growth_fields(shape, dt, seed=0):
+    """Random development fields for a body of `shape`, in units of the
+    step `dt` so that a launch of 100 steps crosses every ramp: initial and
+    final sizes in 0.6-1.4 L, growth starting within 50 steps and lasting
+    10-100, final phase offsets and amplitude dampings."""
+    rng = np.random.default_rng(seed)
+
+    def u(lo, hi):
+        return rng.uniform(lo, hi, size=shape)
+
+    return dict(initial_voxel_size=u(0.006, 0.014), final_voxel_size=u(0.006, 0.014),
+                growth_time=u(10 * dt, 100 * dt), start_growth_time=u(0, 50 * dt),
+                final_phase_offset=u(-1, 1), temp_amp_damp=u(0.5, 1.0),
+                final_temp_amp_damp=u(0.2, 1.0))
+
+
+def packed_workload(batch, n=10, collision=False, device="cuda", fluid=None,
+                    devo=False, freeze=False):
     """Packed (state, body, stats, pair table) of `batch` copies of the
-    bench design at rest, plus the launch's keyword arguments."""
-    structure, body = bench_body(n, device=device)
+    bench design at rest, plus the launch's keyword arguments.
+
+    `fluid="face"` or `"mesh"` puts the design in water (drag coefficient
+    750, actuation from time 0) with the voxel-face or the facet drag model,
+    on a grid that carries the one-cell shell the mesh model needs, (n+1)³,
+    for both, so the two models walk the same cells. `devo` gives
+    the design random development fields (`growth_fields`) under a growth
+    amplitude of 0.8, with IniCM time at 30 steps and, with `freeze`, a
+    mid-life freeze of 20 steps around step 85."""
+    structure, phase = bench_design(n)
+    palette = palette_from_list(evosoro_default_palette())
+    body = build_body(structure, palette, phase_offset=phase, device=device)
     sim = SimParams(self_collisions_enabled=collision)
     env = EnvParams()
     dt = calc_max_dt(body) * sim.dt_frac
+    if fluid is not None:
+        if fluid not in ("face", "mesh"):
+            raise ValueError(f"fluid must be 'face', 'mesh' or None, got {fluid!r}")
+        sim = SimParams(self_collisions_enabled=collision, init_cm_time=0.0)
+        env = EnvParams(fluid_environment=True, gravity_enabled=False,
+                        floor_enabled=False,
+                        aggregate_drag_coefficient=AGGREGATE_DRAG_COEF)
+        shell = ((0, 1), (0, 1), (0, 1))
+        structure = np.pad(structure, shell)
+        body = build_body(structure, palette, phase_offset=np.pad(phase, shell),
+                          device=device)
+        if fluid == "mesh":
+            from evosoro_tpu_torch.envs.drag import attach_mesh_drag
+
+            body = attach_mesh_drag(body)
+    elif devo:
+        step = float(dt)
+        sim = SimParams(self_collisions_enabled=collision, init_cm_time=30 * step,
+                        stop_condition_value=200 * step, min_temp_fact=0.4,
+                        mid_life_freeze_time=20 * step if freeze else 0.0)
+        env = EnvParams(growth_amplitude=0.8)
+        body = build_body(structure, palette, phase_offset=phase, device=device,
+                          **growth_fields((n, n, n), step))
+    grid = tuple(body.occ.shape)
     state = fr.pack_state_single(init_state(body))
     state = state[None].expand(batch, -1, -1).contiguous()
     body_packed = fr.pack_body(body)
@@ -95,26 +162,26 @@ def packed_workload(batch, n=10, collision=False, device="cuda"):
     table = None
     if collision:
         cs = build_collision_system(structure, body.e_mod.cpu().numpy(), 0.01)
-        table = torch.as_tensor(fr.pack_collision(cs, (n, n, n)), device=device)[None]
-    kw = dict(grid_shape=(n, n, n),
+        table = torch.as_tensor(fr.pack_collision(cs, grid), device=device)[None]
+    kw = dict(grid_shape=grid,
               scalars=fr.kernel_scalars(body.nominal_size, sim, env),
-              flags=dict(fr.kernel_env_flags(sim, env), **fr.body_flags(body),
-                         collision=collision))
+              flags=fr.launch_flags(body, sim, env, collision=collision))
     return (state, body_packed, stats, table), kw, int(body.occ.sum())
 
 
 def evaluator_workload(pop_size=15, collision=True, stagger=False, seed=1,
-                       device="cuda"):
+                       device="cuda", experiment="basic", drag_model="mesh"):
     """The packed (state, body, stats, pair table) that the evolution
-    evaluator gives K1 for the first generation of the basic experiment:
-    `pop_size` random 6³ designs, each with its own body, pair table and dt,
-    padded up the batch ladder. Designs of one step bucket mostly share a
+    evaluator gives K1 for the first generation of an experiment (`basic`,
+    `swimming` with `drag_model`, or `growth`): `pop_size` random designs,
+    each with its own body, pair table and dt, padded up the batch ladder. Designs of one step bucket mostly share a
     dt, so `stagger` gives each robot its own dt (up to 25 % below its
     stable one) and moves its stop time and IniCM time to its own step
     within the first 100, so the freeze and the capture land on different
     steps per robot. Returns (args, launch keywords without num_steps)."""
-    sim, env, pop = basic_experiment(pop_size=pop_size, seed=seed)
+    sim, env, pop = EXPERIMENTS[experiment](pop_size=pop_size, seed=seed)
     sim.self_collisions_enabled = collision
+    env.drag_model = drag_model
     fn, inputs = evaluation.evaluator_batch(sim, env, list(pop), device=device)
     state, body, stats, table = fn.pack(*inputs)
     if stagger:
@@ -146,17 +213,21 @@ def time_call(fn, groups=4, reps=3):
 
 
 def throughput(batch=1024, steps=200, collision=False, plain=False,
-               groups=4, reps=3, device="cuda"):
+               groups=4, reps=3, device="cuda", fluid=None):
     """Voxel-steps per second of one fused-rollout call on the bench
     workload, beside the least time the card could take for it
     (`roofline.bound`); `plain` times K1's plain version on the same
-    tensors."""
-    args, kw, n_occ = packed_workload(batch, collision=collision, device=device)
+    tensors. `fluid="mesh"` or `"face"` runs the design in water
+    (`packed_workload`)."""
+    args, kw, n_occ = packed_workload(batch, collision=collision, device=device,
+                                      fluid=fluid)
     call = fr.fused_rollout_plain if plain else fr.fused_call
     ms = time_call(lambda: call(*args, num_steps=steps, **kw), groups, reps)
     _, stats_out = call(*args, num_steps=steps, **kw)
-    least = roofline.bound(*roofline.k1_work(*args, stats_out))
-    return dict(batch=batch, steps=steps, collision=collision,
+    least = roofline.bound(*roofline.launch_work(
+        *args, stats_out, flags=kw["flags"], grid_shape=kw["grid_shape"]))
+    return dict(batch=batch, steps=steps, collision=collision, fluid=fluid,
+                grid=list(kw["grid_shape"]),
                 impl="plain" if plain else "K1", ms=ms,
                 voxel_steps_per_s=n_occ * batch * steps / (ms * 1e-3),
                 bound_ms=least["bound_ms"], bound_by=least["bound_by"])
@@ -306,7 +377,7 @@ def sqp(device="cuda", n=10, plan_steps=200, knots=8, n_res=8, num_iters=4,
 
 
 # ---------------------------------------------------------------------------
-# The examples/basic.py experiment
+# The experiments of examples/: basic.py, swimming_basic.py, growth.py
 # ---------------------------------------------------------------------------
 
 BASIC_IND_SIZE = (6, 6, 6)  # examples/basic.py IND_SIZE
@@ -376,6 +447,75 @@ def basic_experiment(pop_size=15, sim_time=5.0, init_time=1.0, dt_frac=0.9,
     return sim, env, pop
 
 
+def swimming_experiment(pop_size=15, sim_time=5.0, init_time=1.0, dt_frac=0.9,
+                        seed=1, drag_model="mesh"):
+    """(sim, env, pop) of examples/swimming_basic.py on the port: the basic
+    genome and validity rule in a fluid environment (no gravity, no floor,
+    aggregate drag coefficient 0.5·1.5·1000), fitness
+    normAbsoluteDisplacement. `drag_model`: "mesh" (facet drag on the
+    deformed surface mesh, the default) or "voxel_face"."""
+    random.seed(seed)
+    np.random.seed(seed)
+    sim = Sim(dt_frac=dt_frac, simulation_time=sim_time,
+              fitness_eval_init_time=init_time)
+    env = Env(sticky_floor=0, time_between_traces=0, drag_model=drag_model)
+    env.add_param("fluid_environment", 1, "<FluidEnvironment>")
+    env.add_param("aggregate_drag_coefficient", AGGREGATE_DRAG_COEF,
+                  "<AggregateDragCoefficient>")
+    objectives = ObjectiveDict()
+    objectives.add_objective(name="fitness", maximize=True,
+                             tag="<normAbsoluteDisplacement>")
+    objectives.add_objective(name="age", maximize=False, tag=None)
+    objectives.add_objective(name="num_voxels", maximize=False, tag=None,
+                             node_func=np.count_nonzero,
+                             output_node_name="material")
+    objectives.add_objective(name="energy", maximize=False, tag=None,
+                             node_func=partial(count_occurrences, keys=[3, 4]),
+                             output_node_name="material")
+    pop = Population(objectives, BasicGenotype, BasicPhenotype, pop_size=pop_size)
+    return sim, env, pop
+
+
+GROWTH_IND_SIZE = (5, 5, 4)  # examples/growth.py IND_SIZE
+
+
+class GrowthGenotype(Genotype):
+    """Two CPPNs: per-voxel <InitialVoxelSize> and <FinalVoxelSize>
+    (examples/growth.py MyGenotype)."""
+
+    def __init__(self):
+        super().__init__(orig_size_xyz=GROWTH_IND_SIZE)
+        stats = [np.median, np.mean, np.std, count_negative, count_positive]
+        self.add_network(CPPN(output_node_names=["initial_size"]))
+        self.to_phenotype_mapping.add_map(
+            name="initial_size", tag="<InitialVoxelSize>", logging_stats=stats)
+        self.add_network(CPPN(output_node_names=["final_size"]))
+        self.to_phenotype_mapping.add_map(
+            name="final_size", tag="<FinalVoxelSize>", logging_stats=stats)
+
+
+def growth_experiment(pop_size=15, sim_time=10.0, init_time=0.5, dt_frac=0.5,
+                      seed=1):
+    """(sim, env, pop) of examples/growth.py on the port: a fixed all-muscle
+    5×5×4 body whose per-voxel initial and final sizes are CPPN outputs,
+    min_temp_fact 0.4, growth amplitude 0.8, fitness NormFinalDist."""
+    random.seed(seed)
+    np.random.seed(seed)
+    sim = Sim(dt_frac=dt_frac, simulation_time=sim_time, min_temp_fact=0.4,
+              fitness_eval_init_time=init_time)
+    env = Env()
+    env.add_param("growth_amplitude", 0.8, "<GrowthAmplitude>")
+    objectives = ObjectiveDict()
+    objectives.add_objective(name="fitness", maximize=True, tag="<NormFinalDist>")
+    objectives.add_objective(name="age", maximize=False, tag=None)
+    pop = Population(objectives, GrowthGenotype, Phenotype, pop_size=pop_size)
+    return sim, env, pop
+
+
+EXPERIMENTS = dict(basic=basic_experiment, swimming=swimming_experiment,
+                   growth=growth_experiment)
+
+
 class RecordedEvaluation:
     """`evaluate_all` on one device that keeps a record per generation:
     evaluation seconds and their split (host prep, packing, launches), step
@@ -388,6 +528,8 @@ class RecordedEvaluation:
 
     def __call__(self, sim, env, pop, *args, **kwargs):
         k1_before = fr.FUSED_ROLLOUT_LAUNCHES
+        fluid_before = fr.FUSED_ROLLOUT_FLUID_LAUNCHES
+        devo_before = fr.FUSED_ROLLOUT_DEVO_LAUNCHES
         t0 = time.time()
         out = evaluation.evaluate_all(sim, env, pop, *args, device=self.device,
                                       **kwargs)
@@ -400,20 +542,25 @@ class RecordedEvaluation:
             **{k: evaluation.LAST_DISPATCH_TIMING.get(k, 0.0)
                for k in ("host_prep_s", "pack_s", "launch_s")},
             k1_launches=fr.FUSED_ROLLOUT_LAUNCHES - k1_before,
+            k1_fluid_launches=fr.FUSED_ROLLOUT_FLUID_LAUNCHES - fluid_before,
+            k1_devo_launches=fr.FUSED_ROLLOUT_DEVO_LAUNCHES - devo_before,
             best_norm_final_dist=max(fits), fitnesses=fits))
         return out
 
 
-def evolution(gens=2, pop_size=15, device="cuda", directory=None, **experiment):
-    """Run `gens` generations of the basic experiment on `device`; returns
-    the per-generation records of `RecordedEvaluation`."""
-    sim, env, pop = basic_experiment(pop_size=pop_size, **experiment)
+def evolution(gens=2, pop_size=15, device="cuda", directory=None,
+              experiment="basic", **settings):
+    """Run `gens` generations of an experiment (`basic`, `swimming` or
+    `growth`; `settings` go to its constructor) on `device`; returns the
+    per-generation records of `RecordedEvaluation`."""
+    sim, env, pop = EXPERIMENTS[experiment](pop_size=pop_size, **settings)
     recorder = RecordedEvaluation(device)
     with tempfile.TemporaryDirectory() as tmp:
         opt = ParetoOptimization(sim, env, pop, evaluation_func=recorder)
         opt.run(max_hours_runtime=1, max_gens=gens - 1, num_random_individuals=1,
-                directory=directory or os.path.join(tmp, "basic"), name="Basic",
-                checkpoint_every=100, save_vxa_every=100)
+                directory=directory or os.path.join(tmp, experiment),
+                name=experiment.capitalize(), checkpoint_every=100,
+                save_vxa_every=100)
     return recorder.records
 
 
@@ -424,16 +571,20 @@ def main():
     ap.add_argument("--coll-steps", type=int, default=20)
     ap.add_argument("--gens", type=int, default=2)
     ap.add_argument("--segments", type=int, default=4)
+    ap.add_argument("--experiments", nargs="*", default=list(EXPERIMENTS),
+                    choices=list(EXPERIMENTS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("the port's benchmark needs a CUDA device")
     card = card_info()
-    for kw in (dict(steps=args.steps), dict(steps=args.coll_steps, collision=True)):
+    for kw in (dict(steps=args.steps), dict(steps=args.coll_steps, collision=True),
+               dict(steps=args.steps, fluid="mesh"), dict(steps=args.steps, fluid="face")):
         rec = throughput(batch=args.batch, **kw)
         print(json.dumps(dict(rec, card=card)), flush=True)
-    for rec in evolution(gens=args.gens):
-        rec.pop("fitnesses")
-        print(json.dumps(dict(rec, card=card)), flush=True)
+    for name in args.experiments:
+        for rec in evolution(gens=args.gens, experiment=name):
+            rec.pop("fitnesses")
+            print(json.dumps(dict(rec, experiment=name, card=card)), flush=True)
     for name, rec in mpc(segments=args.segments).items():
         print(json.dumps(dict(rec, workload="mpc " + name, card=card)), flush=True)
     print(json.dumps(dict(sqp(), workload="sqp fused", card=card)), flush=True)

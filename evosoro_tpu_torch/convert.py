@@ -4,7 +4,9 @@ The inputs are `evosoro_tpu` structs whose array leaves are numpy arrays
 (for example `jax.tree_util.tree_map(np.asarray, body)`); this module never
 imports JAX. Floating arrays become `dtype` tensors on `device`, boolean and
 integer arrays keep their kind, Python scalars and static flags stay as they
-are. The tests use it to start both packages from the same body and state.
+are; a body's collision and mesh-drag tables and its development fields
+come across with it. The tests use it to start both packages from the same
+body and state.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from evosoro_tpu_torch.core.collision import CollisionSystem
 from evosoro_tpu_torch.core.types import EnvParams, SimParams, SimState, VoxelBody
+from evosoro_tpu_torch.envs.drag import MeshDragSystem, mesh_from_tables
 
 
 def _tensor(v, device, dtype):
@@ -39,6 +42,8 @@ def _convert(cls, src, device, dtype, scalars=()):
             out[f.name] = v
         elif f.name == "collision":
             out[f.name] = collision_from_numpy(v)
+        elif f.name == "mesh_drag":
+            out[f.name] = mesh_drag_from_numpy(v, device, dtype)
         else:
             out[f.name] = _tensor(v, device, dtype)
     return cls(**out)
@@ -62,6 +67,13 @@ def collision_from_numpy(colsys) -> CollisionSystem:
         pair_a1=np.asarray(colsys.pair_a1),
         allowed=np.asarray(colsys.allowed),
     )
+
+
+def mesh_drag_from_numpy(sys, device="cpu", dtype=torch.float32) -> MeshDragSystem:
+    """A JAX `MeshDragSystem` as this port's (tensors on `device`)."""
+    return mesh_from_tables({f.name: np.asarray(getattr(sys, f.name))
+                             for f in dataclasses.fields(MeshDragSystem)},
+                            device=device, dtype=dtype)
 
 
 def _params(cls, src):

@@ -9,6 +9,7 @@ from evosoro_tpu_torch.core.collision import (  # noqa: F401
 from evosoro_tpu_torch.core.materials import (  # noqa: F401
     build_body,
     calc_max_dt,
+    devo_params_from_vxa,
     palette_from_list,
 )
 from evosoro_tpu_torch.core.rollout import (  # noqa: F401

@@ -4,8 +4,8 @@ Replicates the derived quantities of the reference engine:
 - per-voxel mass/inertia/damping factors (reference: VX_Voxel.cpp:95-128)
 - per-bond composite moduli and beam constants (reference: VX_Bond.cpp:65-173)
 - stability timestep (reference: VX_Sim.cpp:1693-1727 CalcMaxDt)
-
-`devo_params_from_vxa` of `evosoro_tpu.core.materials` is not ported yet.
+- the import-time transforms of a genome's development outputs
+  (reference: VX_Sim.cpp:878-965, `devo_params_from_vxa`)
 """
 
 from __future__ import annotations
@@ -330,6 +330,87 @@ def build_body(
         using_start_growth_time=start_growth_time is not None,
         **ss_fields,
     )
+
+
+def devo_params_from_vxa(raw: dict, sim, env, nominal_size, structure) -> dict:
+    """Apply the reference's import-time devo transforms (reference:
+    VX_Sim.cpp:878-965 ResetSimulation), on the host in numpy.
+
+    The VXA's per-voxel devo arrays hold normalized genome outputs
+    (sigmoids in [-1,1]/[0,1]); the engine maps them to physical sizes and
+    absolute times at import:
+
+    - InitialVoxelSize/FinalVoxelSize: size = max(1 + growth_amplitude·raw,
+      min_temp_fact) · nominal_size; absent initial -> nominal; absent final
+      -> initial (no growth).
+    - StartGrowthTime: raw·(onset_bound − init_cm_time) + init_cm_time,
+      capped at onset_bound − min_growth_time; absent -> init_cm_time when
+      any size/growth output is evolved else "never" (stop − freeze).
+    - GrowthTime: raw·(termination_bound − start − freeze), floored at
+      min_growth_time; absent -> full window when a final size is evolved.
+
+    onset/termination bounds are the parent's lifetime when the env marks
+    them relative (reference: VX_Sim.cpp:888-889), else the stop condition.
+
+    `raw` keys (lowercase): initialvoxelsize, finalvoxelsize, growthtime,
+    startgrowthtime, with values (X,Y,Z) arrays or None. Returns kwargs for
+    `build_body` (actual sizes [m] / times [s]), omitting absent outputs.
+    """
+    raw_init = raw.get("initialvoxelsize")
+    raw_final = raw.get("finalvoxelsize")
+    raw_growth = raw.get("growthtime")
+    raw_start = raw.get("startgrowthtime")
+    if all(a is None for a in (raw_init, raw_final, raw_growth, raw_start)):
+        return {}
+
+    stop = float(sim.stop_condition_value)
+    init_cm = float(sim.init_cm_time)
+    freeze = float(sim.mid_life_freeze_time)
+    parent = float(getattr(sim, "parent_lifetime", 0.0)) or stop
+    # the bounds are float32 voxel members in the reference
+    # (VXS_Voxel.h:102-103 onsetBound/terminationBound): quantize to match
+    onset_bound = float(np.float32(parent if env.onset_relative else stop))
+    term_bound = float(np.float32(parent if env.termination_relative else stop))
+    gamp = float(env.growth_amplitude)
+    min_tf = float(sim.min_temp_fact)
+    min_gt = float(env.min_growth_time)
+    L = float(nominal_size)
+    shape = np.asarray(structure).shape
+
+    if raw_init is not None:
+        init_size = np.maximum(1.0 + gamp * np.asarray(raw_init), min_tf) * L
+    else:
+        init_size = np.full(shape, L)
+    if raw_final is not None:
+        final_size = np.maximum(1.0 + gamp * np.asarray(raw_final), min_tf) * L
+    else:
+        final_size = init_size
+
+    if raw_start is not None:
+        start = np.asarray(raw_start) * (onset_bound - init_cm) + init_cm
+        start = np.minimum(start, onset_bound - min_gt)
+    elif raw_final is not None or raw_growth is not None:
+        start = np.full(shape, init_cm)
+    else:
+        start = np.full(shape, stop - freeze)
+    # startGrowthTime is stored float32 before growthTime reads it back
+    # (reference: VXS_Voxel.h:97, VX_Sim.cpp:958-974)
+    start = np.float64(np.float32(start))
+
+    if raw_growth is not None:
+        growth = np.asarray(raw_growth) * (term_bound - start - freeze)
+        growth = np.maximum(growth, min_gt)
+    elif raw_final is not None:
+        growth = term_bound - start - freeze
+    else:
+        growth = np.full(shape, min_gt)
+
+    out = {"start_growth_time": start, "growth_time": growth}
+    if raw_init is not None:
+        out["initial_voxel_size"] = init_size
+    if raw_final is not None or raw_init is not None:
+        out["final_voxel_size"] = final_size
+    return out
 
 
 def calc_max_dt(body: VoxelBody, volume_effects: bool = False) -> torch.Tensor:

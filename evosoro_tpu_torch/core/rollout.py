@@ -4,7 +4,8 @@ The port of `evosoro_tpu.core.rollout`: `init_state`, `center_of_mass`,
 `num_steps_for`, and `rollout` with its `RolloutResult` fitness surface
 (reference: VX_SimGA.cpp:25-203) on the port's envelope. Where the JAX
 package `vmap`s `rollout`, this one takes leading batch dimensions on the
-state and the controls, as `sim_step` does. Sources, needle-in-haystack,
+state and the controls, as `sim_step` does; fluid environments and development bodies run as the
+step runs them. Sources, needle-in-haystack,
 the fall-over latch, NormDistByVol, speed windows, ballistic devo and the
 stop conditions other than max-sim-time are not ported yet and raise.
 """

@@ -12,8 +12,12 @@ This is the port's own CPU reference and the plain version of the fused
 rollout kernel. It covers the evolution loop's envelope: linear materials,
 beam bonds with small/large-angle hysteresis and bond damping, slow
 damping, self-collision, gravity, floor contact with Coulomb friction and
-the sticky floor, Euler and angular integration, and thermal actuation with
-the mid-life freeze. Every other feature raises NotImplementedError.
+the sticky floor, Euler and angular integration, thermal actuation with
+the mid-life freeze, the fluid environment of the land_water fork (facet
+drag on the deformed surface mesh, or the voxel-face approximation, and its
+simpler actuation) and linear development (prenatal and growth ramps, final
+phase offset and amplitude damping, size-capped actuation). Every other
+feature raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -122,14 +126,8 @@ def _check_envelope(state: SimState, body: VoxelBody, sim: SimParams,
         ("plasticity", sim.plasticity_enabled),
         ("equilibrium mode", sim.equilibrium_mode),
         ("max-velocity clamp", sim.max_velocity_enabled),
-        ("fluid environment", env.fluid_environment),
         ("limited floor", env.floor_limited),
         ("nonlinear materials", not body.all_linear),
-        ("devo (initial voxel size)", body.using_initial_voxel_size),
-        ("devo (final voxel size)", body.using_final_voxel_size),
-        ("devo (growth time)", body.using_growth_time),
-        ("devo (final phase offset)", body.using_final_phase_offset),
-        ("devo (final temp amp damp)", body.using_final_temp_amp_damp),
         ("ballistic devo", state.devo is not None),
         ("dt reduction across shards", dt_reduce is not None),
     ]
@@ -211,6 +209,9 @@ def _bond_axis_forces(d, state: SimState, body: VoxelBody, sim: SimParams,
     near_equal = torch.abs(E1 - E2) <= 0.0005 * torch.abs(s_sum)
     hom = bd(body.bond_homogeneous) | near_equal
     stress = torch.where(hom, 0.5 * s_sum * strain, E * strain)
+    # per-side strains: the linear fixed point of the stress equalization
+    sv1 = torch.where(hom, strain, 2.0 * _safe_div(E2, s_sum) * strain)
+    sv2 = torch.where(hom, strain, 2.0 * _safe_div(E1, s_sum) * strain)
     max_strain = torch.maximum(bd(state.max_strain), strain)
     strain_offset = bd(state.strain_offset)
 
@@ -312,6 +313,8 @@ def _bond_axis_forces(d, state: SimState, body: VoxelBody, sim: SimParams,
     return dict(
         f1=f1, f2=f2, m1=m1, m2=m2,
         strain_energy=strain_energy,
+        sv1=torch.where(mask, sv1, 0.0),
+        sv2=torch.where(mask, sv2, 0.0),
         strain=torch.where(mask, strain, 0.0),
         small_angle=torch.where(mask, small, sa_prev),
         last_pos2=torch.where(maskf, new_last_pos2, 0.0),
@@ -382,21 +385,76 @@ def _floor_effect(state, body, sim: SimParams, env: EnvParams, vel,
 # ---------------------------------------------------------------------------
 
 def _scale_update(state, body, sim: SimParams, env: EnvParams, t):
-    """New per-voxel scale: thermal actuation with the mid-life freeze and
-    the reference's rate clamps (devo terms are outside the envelope)."""
+    """New per-voxel scale: thermal actuation with the mid-life freeze, the
+    static development ramps and the reference's rate clamps, or the fluid
+    environment's simpler actuation (ballistic devo is outside the
+    envelope)."""
     nom = torch.full_like(state.scale, body.nominal_size)
+    tv = _vox(t)
+
+    if env.fluid_environment:
+        # the land_water fork's simpler actuation: no devo machinery, no
+        # amp-damp, no rate-limited clamps; a hard floor at the #define'd
+        # MIN_TEMP_FACTOR=0.1 (reference: land_water VXS_Voxel.cpp:210-236,
+        # VX_Sim.h:31). Gated on temp_enabled alone.
+        if env.temp_enabled:
+            amp_q = _vox(_f32(env.temp_amplitude, nom))
+            period_q = _vox(_f32(env.temp_period, nom))
+            ctrl = amp_q * torch.sin(
+                2.0 * REF_PI_FLOAT * (_safe_div(tv, period_q) + body.phase_offset)
+            ) * body.cte
+            temp_fact = 1.0 + torch.where(
+                (tv >= _vox(sim.init_cm_time)) & (_vox(env.temp_period) != 0),
+                ctrl, 0.0)
+        else:
+            temp_fact = torch.ones_like(nom)
+        temp_fact = torch.clamp(temp_fact, min=0.1)
+        return torch.where(body.occ, temp_fact * nom, nom)
+
     max_scale = (1.0 + _vox(env.growth_amplitude)) * nom
     min_scale = _vox(sim.min_temp_fact) * nom
     last = state.last_scale
-    tv = _vox(t)
+    devo_size = body.using_initial_voxel_size or body.using_final_voxel_size
+
+    # prenatal linear development ramp (reference: VXS_Voxel.cpp:237-238)
+    prenatal = dev_temp_fact = None
+    if body.using_initial_voxel_size:
+        init_cm = _vox(torch.as_tensor(sim.init_cm_time, dtype=nom.dtype,
+                                       device=nom.device))
+        c = torch.where(tv >= 0.5 * init_cm, 1.0, _safe_div(2.0 * tv, init_cm))
+        prenatal = c * (_safe_div(body.initial_voxel_size, nom) - 1.0)
+
+    # postnatal development (reference: :263-289)
+    dev_phase = dev_ampdamp = None
+    if body.using_growth_time or body.using_final_voxel_size:
+        # mid-life development freeze (reference: :242-265): FrozenTimeAdj =
+        # clamp(t - FreezeStart, 0, FreezeTime) pauses the effective
+        # development clock inside the freeze window
+        freeze = sim.mid_life_freeze_time
+        middle = 0.5 * (sim.stop_condition_value - sim.init_cm_time)
+        frozen_adj = torch.clamp(tv - _vox(middle - 0.5 * freeze), 0.0, freeze)
+        start, growth = body.start_growth_time, body.growth_time
+        growing = (tv >= start) & (growth > 0)
+        eff_t = torch.minimum(tv, start + growth + freeze) - frozen_adj
+        k = torch.where(growing, _safe_div(eff_t - start, growth), 0.0)
+        if body.using_final_voxel_size:
+            dev_temp_fact = k * (
+                _safe_div(body.final_voxel_size, body.initial_voxel_size) - 1.0)
+        if body.using_final_phase_offset:
+            dev_phase = k * (body.final_phase_offset - body.phase_offset)
+        if body.using_final_temp_amp_damp:
+            dev_ampdamp = k * (body.final_temp_amp_damp - body.temp_amp_damp)
 
     if env.temp_enabled:
+        phase = body.phase_offset if dev_phase is None else body.phase_offset + dev_phase
+        amp_damp = body.temp_amp_damp if dev_ampdamp is None \
+            else body.temp_amp_damp + dev_ampdamp
         amp_q = _vox(_f32(env.temp_amplitude, nom))
         period_q = _vox(_f32(env.temp_period, nom))
         t_over_period = _safe_div(tv, period_q)
         ctrl = (
-            body.temp_amp_damp
-            * (amp_q * torch.sin(2.0 * REF_PI_FLOAT * (t_over_period + body.phase_offset)))
+            amp_damp
+            * (amp_q * torch.sin(2.0 * REF_PI_FLOAT * (t_over_period + phase)))
             * body.cte
         )
         ctrl = torch.where(
@@ -416,10 +474,55 @@ def _scale_update(state, body, sim: SimParams, env: EnvParams, t):
     else:
         ctrl = torch.zeros_like(nom)
 
-    curr = ctrl * nom + nom
+    # the size development has reached: (1 + prenatal)(1 + dev_temp_fact) L
+    grown = nom
+    if devo_size:
+        grow_fact = torch.ones_like(nom)
+        if prenatal is not None:
+            grow_fact = grow_fact * (1.0 + prenatal)
+        if dev_temp_fact is not None:
+            grow_fact = grow_fact * (1.0 + dev_temp_fact)
+        grown = grow_fact * nom
+        # size-capped actuation for devo bodies (reference: :308-320)
+        gamp = _vox(torch.as_tensor(env.growth_amplitude, dtype=nom.dtype,
+                                    device=nom.device))
+        orig_sig = _safe_div(_safe_div(grown, nom) - 1.0, gamp)
+        pos_sig = (orig_sig + 1.0) * 0.5
+        capped = torch.clamp(pos_sig, max=0.5)
+        ctrl = ctrl * capped * 2.0
+
+    curr = ctrl * nom + grown
     curr = torch.where((curr < last) & (curr < min_scale), last, curr)
     curr = torch.where((curr > last) & (curr > max_scale), last, curr)
     return torch.where(body.occ, curr, nom)
+
+
+# ---------------------------------------------------------------------------
+# Fluid drag, voxel-face model
+# ---------------------------------------------------------------------------
+
+def _fluid_drag(state, body, env: EnvParams, vel):
+    """Per-exposed-face quadratic drag, the voxel-level analog of the
+    land_water facet drag (reference: land_water VX_Sim.cpp:1516-1600).
+
+    Each of a voxel's 6 faces that has no bonded neighbour is an exposed
+    surface patch of area scale²; drag = -C·A·|v_n|·v_n per face along the
+    face normal, accumulated onto the voxel. It matches the facet model up
+    to the deformed-mesh vs axis-aligned-face approximation."""
+    area = state.scale * state.scale
+    c_area = _vox(env.aggregate_drag_coefficient) * area
+    comps = []
+    for d in range(3):
+        has_pos = body.bond_mask[..., d, :, :, :]
+        has_neg = _from_nbr(has_pos, d)
+        drag_d = torch.zeros_like(area)
+        for sign, exposed in ((1.0, body.occ & ~has_pos), (-1.0, body.occ & ~has_neg)):
+            vn = sign * vel[..., d]  # velocity along the outward normal
+            # only forward-facing faces see drag
+            mag = torch.where(exposed & (vn > 0), c_area * vn * vn, 0.0)
+            drag_d = drag_d + (-sign) * mag
+        comps.append(drag_d)
+    return torch.stack(comps, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -471,13 +574,40 @@ def sim_step(
     if sim.self_collisions_enabled and body.collision is not None:
         total_force = total_force + _collision(state, body)
 
-    if env.gravity_enabled:
+    # a fluid environment is neutrally buoyant and has no floor (land_water
+    # VX_Environment.cpp:190-191)
+    if env.gravity_enabled and not env.fluid_environment:
         gz = torch.zeros_like(total_force)
         gz[..., 2] = body.mass * _vox(env.grav_acc)
         total_force = total_force + gz
 
+    if env.fluid_environment:
+        if body.mesh_drag is not None:
+            # facet drag on the deformed surface mesh. The mesh corners come
+            # from the per-direction bond strains written THIS step by the
+            # bond pass (land_water VXS_Voxel.cpp:474-475): the reference's
+            # Integrate runs bonds, then voxels.
+            from evosoro_tpu_torch.envs.drag import mesh_drag_forces
+
+            masks = [body.bond_mask[..., d, :, :, :] for d in range(3)]
+            strain_pos = torch.stack([
+                torch.where(masks[d], bonds[d]["sv1"], 0.0) for d in range(3)
+            ], dim=-4)
+            strain_neg = torch.stack([
+                torch.where(_from_nbr(masks[d], d),
+                            _from_nbr(bonds[d]["sv2"], d), 0.0)
+                for d in range(3)
+            ], dim=-4)
+            total_force = total_force + mesh_drag_forces(
+                state.pos, state.quat, state.scale, state.linmom,
+                body.mass_inv, body.mesh_drag, env.aggregate_drag_coefficient,
+                strain_pos=strain_pos, strain_neg=strain_neg,
+                nominal_size=body.nominal_size)
+        else:
+            total_force = total_force + _fluid_drag(state, body, env, vel)
+
     linmom = state.linmom
-    if env.floor_enabled:
+    if env.floor_enabled and not env.fluid_environment:
         floor_force, static_flag, linmom, vel = _floor_effect(
             state, body, sim, env, vel, total_force, dt)
         total_force = total_force + floor_force

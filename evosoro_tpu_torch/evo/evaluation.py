@@ -8,9 +8,15 @@ generation. On a CUDA device that launch is the K1 kernel
 Divergence masks replace crash recovery; the md5 dedup cache and the
 objective assignment are kept (evaluation.py:72-81, 160-177).
 
+Fluid environments run the facet drag on the deformed surface mesh by
+default (`Env(drag_model="mesh")`: the grid gains the one-cell corner shell
+the kernel's stencil needs) or the voxel-face model
+(`drag_model="voxel_face"`); devo genomes go through
+`devo_params_from_vxa` into the kernel's development ramps.
+
 Not ported yet: the jnp-scan fallback evaluator (`make_batched_evaluator`),
-the multi-device sharding, fluid drag, volume effects, devo genomes and the
-fitness features beyond NormFinalDist / finalDistY.
+the multi-device sharding, volume effects, ballistic devo and the fitness
+features beyond NormFinalDist / finalDistY.
 """
 
 from __future__ import annotations
@@ -21,7 +27,12 @@ import time
 import numpy as np
 import torch
 
-from evosoro_tpu_torch.core.materials import build_body, calc_max_dt, palette_from_list
+from evosoro_tpu_torch.core.materials import (
+    build_body,
+    calc_max_dt,
+    devo_params_from_vxa,
+    palette_from_list,
+)
 from evosoro_tpu_torch.core.rollout import init_state
 from evosoro_tpu_torch.core.types import evosoro_default_palette
 from evosoro_tpu_torch.device import resolve_device
@@ -142,12 +153,14 @@ def _ladder_steps(n: int) -> int:
 
 def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
                          lattice_dim, sim_params, env_flags_src,
-                         with_collision=False, device=None):
+                         with_collision=False, fluid_mesh=False, device=None):
     """Batched evaluation through the fused rollout (`ops.fused_rollout`):
     per-individual bodies, envs, dt and stop time ride per-robot channels,
-    so a batch is ONE launch. Returns `fn(structures, voxel_fields,
-    env_batch, stop_time, collision_packed=None)` -> dict of numpy metrics;
-    `collision_packed` is the (B, V, V) float32 pair-table batch."""
+    so a batch is ONE launch. `fluid_mesh`: the facet drag on the deformed
+    mesh; the caller pads the grid with the one-cell corner shell. Returns
+    `fn(structures, voxel_fields, env_batch, stop_time,
+    collision_packed=None)` -> dict of numpy metrics; `collision_packed` is
+    the (B, V, V) float32 pair-table batch."""
     device = resolve_device(device)
     V = int(np.prod(grid_shape))
     scalars = fr.kernel_scalars(lattice_dim, sim_params, env_flags_src)
@@ -156,13 +169,14 @@ def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
         nonlinear=bool((palette.mat_model >= 2).any()),
         mdl_data=palette.ss_strain is not None,
         bc=False,
-        fluid_mesh=False,
+        fluid_mesh=bool(fluid_mesh),
         use_init_size="initial_voxel_size" in field_names,
         use_final_size="final_voxel_size" in field_names,
         use_growth_t="growth_time" in field_names,
         use_final_phase="final_phase_offset" in field_names,
         use_final_ad="final_temp_amp_damp" in field_names,
-        ballistic=False,
+        ballistic=bool(int(env_flags_src.num_trace_steps_in_window) > 0
+                       and "final_voxel_size" in field_names),
         collision=bool(with_collision),
     )
     fr.check_envelope(flags, scalars)
@@ -180,6 +194,8 @@ def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
 
     def pack(structures, voxel_fields, env_batch, stop_time,
              collision_packed=None):
+        if fr.facet_drag(flags) and not fr.has_corner_shell(np.asarray(structures) > 0):
+            raise ValueError(fr.NO_SHELL)
         packed = [
             pack_one(structures[i], {k: v[i] for k, v in voxel_fields.items()},
                      env_batch[i], stop_time)
@@ -203,6 +219,8 @@ def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
                                  collision_packed)
         t1 = time.time()
         out_state, out_stats = fr.fused_call(sp, bp, rows, col, **launch_kw)
+        # (the fall-over penalty, which reads the grid's height less the
+        # shell layer, comes with the fitness features still to port)
         m = fr.packed_metrics(out_state, bp, out_stats, lattice_dim)
         out = {k: v.cpu().numpy() for k, v in m.items()}  # waits for the device
         # the host waits on the launch, so launch_s is the device's busy time
@@ -289,6 +307,8 @@ def _batch_fields(sim, env, inds):
     """Per-individual build_body fields, EnvParams and ladder step counts."""
     grid = inds[0].genotype.orig_size_xyz
     sim_params = sim.to_sim_params()
+    if sim_params.volume_effects_enabled:
+        raise NotImplementedError("volume effects are not ported yet")
     all_fields = []
     all_env = []
     for ind in inds:
@@ -311,11 +331,17 @@ def _batch_fields(sim, env, inds):
                         0, env.actuation_variance
                     )
             fields["cte_scale"] = scale
+        env_params = this_env.to_env_params()
         if any(k in fields for k in _DEVO_KEYS):
-            raise NotImplementedError(
-                "devo genomes need devo_params_from_vxa, which is not ported yet")
+            # the genome's devo outputs are normalized sigmoids; the engine
+            # maps them to physical sizes and absolute times at import
+            # (reference: VX_Sim.cpp:878-965)
+            raw = {k.replace("_", ""): fields.pop(k, None) for k in _DEVO_KEYS}
+            fields.update(devo_params_from_vxa(
+                raw, sim_params, env_params, env.lattice_dimension,
+                fields["structure"]))
         all_fields.append(fields)
-        all_env.append(this_env.to_env_params())
+        all_env.append(env_params)
 
     palette = palette_from_list(_experiment_palette(env))
     palette_np = {
@@ -323,10 +349,6 @@ def _batch_fields(sim, env, inds):
         "density": palette.density.numpy().astype(np.float64),
     }
     L = env.lattice_dimension
-    if sim_params.volume_effects_enabled:
-        raise NotImplementedError("volume effects are not ported yet")
-    if all_env[0].fluid_environment:
-        raise NotImplementedError("fluid environments are not ported yet")
     stop_time = float(sim.simulation_time)
 
     def _steps_for(f):
@@ -364,7 +386,24 @@ def _launch_inputs(sim, env, grid, all_fields, all_env, num_steps, batch_pad,
                 voxel_fields[k][i] = f[k]
     for i in range(B, Bp):
         structures[i] = structures[0]
+        for k in field_names:
+            voxel_fields[k][i] = voxel_fields[k][0]
     env_batch = all_env + [all_env[0]] * (Bp - B)
+
+    # fluid environments: the default drag model is the facet drag on the
+    # deformed surface mesh (land_water VX_Sim.cpp:1516-1600);
+    # `Env(drag_model="voxel_face")` opts into the voxel-face approximation
+    use_mesh_drag = bool(all_env[0].fluid_environment) \
+        and getattr(env, "drag_model", "mesh") == "mesh"
+    if use_mesh_drag:
+        # corner-shell padding: the kernel computes the facets as a stencil
+        # over corner-lattice points, which needs one empty layer at the
+        # +X/+Y/+Z faces (ops.fused_rollout.supports). Padded before the
+        # pair tables are built, so flat indices agree.
+        shell = ((0, 0), (0, 1), (0, 1), (0, 1))
+        structures = np.pad(structures, shell)
+        voxel_fields = {k: np.pad(v, shell) for k, v in voxel_fields.items()}
+        grid = tuple(g + 1 for g in grid)
 
     # self-collision: every reference experiment defaults SelfColEnabled=1
     # (base.py:24); the static tables are host-built per design and packed
@@ -391,7 +430,8 @@ def _launch_inputs(sim, env, grid, all_fields, all_env, num_steps, batch_pad,
 
     fn = make_fused_evaluator(
         palette, tuple(grid), num_steps, tuple(field_names), L, sim_params,
-        all_env[0], with_collision=with_collision, device=device)
+        all_env[0], with_collision=with_collision, fluid_mesh=use_mesh_drag,
+        device=device)
     inputs = (structures, voxel_fields, env_batch, float(sim.simulation_time),
               collision_packed)
     return fn, inputs, Bp

@@ -4,8 +4,11 @@
 // as launched by _fused_call, restricted to the evolution loop's envelope:
 // linear materials, floor with Coulomb friction and the sticky floor,
 // gravity, thermal actuation with the mid-life freeze, and self-collision
-// through the dense pair pass of pair_contact.cuh (K2). The host wrapper
-// refuses every other feature flag. It also carries that kernel's MPC
+// through the dense pair pass of pair_contact.cuh (K2); beside it the fluid
+// environment (facet drag on the deformed surface mesh, voxel-face drag,
+// the land_water actuation) and the linear development ramps, each a
+// variant of the step compiled on its own (fused_rollout_common.cuh). The
+// host wrapper refuses every other feature flag. It also carries that kernel's MPC
 // control-knot channel and segmented mode (:1061, :1119, :1710-1719): step i
 // of a launch is global step step_base + i of a rollout whose knot clock
 // runs over knot_steps steps; the robot's controls (B, K, V) modulate each
@@ -63,13 +66,14 @@
 // which the reverse-mode segment kernel (fused_rollout_bwd.cu) shares.
 #include "fused_rollout_common.cuh"
 
+template <int VARIANT>
 __global__ void __launch_bounds__(MAX_THREADS)
 fused_rollout_kernel(float* state_all, const float* __restrict__ body_all,
                      int body_batched, float* stats_all,
                      const float* __restrict__ a1_all, int a1_batched,
                      const float* __restrict__ ctrl_all, int n_knots,
                      int knot_steps, int step_base, int X, int Y, int Z,
-                     int num_steps, Params p, int flags) {
+                     int num_steps, Params p, int flags, float* scratch_all) {
     extern __shared__ float sh[];
     const int V = X * Y * Z;
     const int b = blockIdx.x;
@@ -78,10 +82,11 @@ fused_rollout_kernel(float* state_all, const float* __restrict__ body_all,
     float* stat = stats_all + (size_t)b * C_STAT;
     const float* a1 = a1_all ? a1_all + (a1_batched ? (size_t)b * V * V : 0) : nullptr;
     const float* cu = n_knots > 0 ? ctrl_all + (size_t)b * n_knots * V : nullptr;
+    float* scr = scratch_all ? scratch_all + (size_t)b * 6 * V : nullptr;
 
     Robot r = load_robot(stat);
-    rollout_steps(st, 0, bo, a1, cu, n_knots, knot_steps, step_base, X, Y, Z,
-                  num_steps, p, flags, r, nullptr, sh);
+    rollout_steps<VARIANT>(st, 0, bo, a1, cu, n_knots, knot_steps, step_base, X, Y, Z,
+                           num_steps, p, flags, r, nullptr, sh, scr);
 
     if (threadIdx.x == 0) {
         stat[ST_TIME] = r.t;
@@ -93,25 +98,49 @@ fused_rollout_kernel(float* state_all, const float* __restrict__ body_all,
     }
 }
 
-extern "C" int fused_rollout(float* state, const float* body, int body_batched,
-                             float* stats, const float* a1, int a1_batched,
-                             const float* ctrl, int n_knots, int knot_steps,
-                             int step_base, int B, int X, int Y, int Z,
-                             int num_steps, const float* params, int flags,
-                             void* stream) {
-    Params p;
-    memcpy(&p, params, sizeof(float) * N_PARAMS);
+template <int VARIANT>
+static int launch_variant(float* state, const float* body, int body_batched,
+                          float* stats, const float* a1, int a1_batched,
+                          const float* ctrl, int n_knots, int knot_steps,
+                          int step_base, int B, int X, int Y, int Z, int num_steps,
+                          const Params& p, int flags, float* scratch,
+                          cudaStream_t stream) {
     const int V = X * Y * Z;
     const int threads = V >= MAX_THREADS ? MAX_THREADS : ((V + 31) / 32) * 32;
     const size_t smem = (size_t)(BF + ((flags & F_COLL) ? 7 : 0)) * V * sizeof(float);
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
-            fused_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            fused_rollout_kernel<VARIANT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    fused_rollout_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+    fused_rollout_kernel<VARIANT><<<B, threads, smem, stream>>>(
         state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots,
-        knot_steps, step_base, X, Y, Z, num_steps, p, flags);
+        knot_steps, step_base, X, Y, Z, num_steps, p, flags, scratch);
     return (int)cudaGetLastError();
+}
+
+// scratch: (B, 6, V) floats of device memory, needed by the facet-drag
+// variant alone (flags F_FLUID | F_FLUID_MESH), else null
+extern "C" int fused_rollout(float* state, const float* body, int body_batched,
+                             float* stats, const float* a1, int a1_batched,
+                             const float* ctrl, int n_knots, int knot_steps,
+                             int step_base, int B, int X, int Y, int Z,
+                             int num_steps, const float* params, int flags,
+                             float* scratch, void* stream) {
+    Params p;
+    memcpy(&p, params, sizeof(float) * N_PARAMS);
+    const int variant = variant_of(flags);
+    if (variant == V_FLUID_MESH && scratch == nullptr) return (int)cudaErrorInvalidValue;
+#define LAUNCH(VARIANT)                                                              \
+    launch_variant<VARIANT>(state, body, body_batched, stats, a1, a1_batched, ctrl, \
+                            n_knots, knot_steps, step_base, B, X, Y, Z, num_steps,  \
+                            p, flags, scratch, (cudaStream_t)stream)
+    switch (variant) {
+        case V_FLUID_FACE: return LAUNCH(V_FLUID_FACE);
+        case V_FLUID_MESH: return LAUNCH(V_FLUID_MESH);
+        case V_DEVO: return LAUNCH(V_DEVO);
+        default: return LAUNCH(V_LAND);
+    }
+#undef LAUNCH
 }

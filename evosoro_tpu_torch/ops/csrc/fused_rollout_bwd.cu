@@ -308,8 +308,9 @@ __device__ inline void reverse_segment(const float* st0, const float* bo, const 
     __syncthreads();
     Robot r = load_robot(stat);
     const float dt = r.dt, dt_inv = r.dt_inv;
-    const int n_done = rollout_steps(tape, slot, bo, nullptr, cu_robot, n_knots, knot_steps,
-                                     step_base, X, Y, Z, num_steps, p, flags, r, tape_t, sh);
+    const int n_done = rollout_steps<V_LAND>(tape, slot, bo, nullptr, cu_robot, n_knots,
+                                             knot_steps, step_base, X, Y, Z, num_steps, p,
+                                             flags, r, tape_t, sh, nullptr);
 
     float* ctf = sh;           // [3][V] cotangent of each voxel's force sum
     float* ctm = sh + 3 * V;   // [3][V] ... and of its moment sum

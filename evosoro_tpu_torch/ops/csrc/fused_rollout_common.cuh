@@ -8,6 +8,36 @@
 // stride of 0, so the state is updated in place as before; B4 passes a tape
 // in device memory, so the forward recompute of a segment leaves the state
 // every step started from, which is what the reverse sweep needs.
+//
+// rollout_steps is a template over the step's variant, so that the land
+// step's machine code carries none of the others' registers:
+//   V_LAND        the evolution loop's envelope on land (K1 as before, B4);
+//   V_FLUID_FACE  a fluid environment with the voxel-face drag model;
+//   V_FLUID_MESH  a fluid environment with facet drag on the deformed
+//                 surface mesh, a corner-lattice stencil (below);
+//   V_DEVO        land with the linear development ramps.
+// Both fluid variants take the land_water actuation in place of the land
+// one. They replace evosoro_tpu/ops/fused_rollout.py, _make_kernel:
+// 1023-1058 and 1373-1451 (facet drag), 1452-1469 (voxel-face drag),
+// 1610-1625 (actuation), 1628-1705 (development ramps).
+//
+// The facet drag (land_water VX_Sim.cpp:1516-1600) on this card: the TPU
+// kernel rotates whole lane rows to bring neighbours together; here a
+// neighbour is an indexed read. The vertex of the surface mesh at a cell's
+// min corner is the mean of the coincident corners of the up to 8 occupied
+// voxels around it; a voxel's 12 facets on its exposed faces read the 8
+// vertices at its own cell and the 7 cells in +X, +Y, +Z, which is why the
+// grid carries an empty shell layer there. Per step the variant adds one
+// barrier: after the bond pass each cell's thread sums its voxel's forces
+// (phase B1), computes its vertex from the neighbours' poses and strains,
+// and parks both in slots of the bond buffer that only that cell's voxel
+// reads (its own f1 of directions 0 and 1), so no shared memory is added
+// and a 10^3 body in its 11^3 shell still fits with contact on; after the
+// barrier the voxel reads its 8 vertices, sums its facets in place (it owns
+// them: no scatter, no atomics) and integrates (phase B2). The per-side
+// bond strains the corners need go through 6 floats a voxel of scratch in
+// device memory, written in the bond pass. Bound by the same latency as
+// the land step: one more barrier, and 8 corner rotations a cell.
 #pragma once
 #include <cuda_runtime.h>
 #include <string.h>
@@ -75,6 +105,14 @@
 #define ST_GRAV 12
 #define ST_MINTF 13
 #define ST_GAMP 14
+#define ST_DRAGC 15
+// development channels of the body
+#define B_INIT_SIZE 72
+#define B_FINAL_SIZE 73
+#define B_GROWTH_T 74
+#define B_START_GT 75
+#define B_FINAL_PHASE 76
+#define B_FINAL_AD 77
 
 // feature flags (host: ops/fused_rollout.py _K1_FLAG_BITS)
 #define F_FLOOR 1
@@ -83,6 +121,26 @@
 #define F_TEMP 8
 #define F_FREEZE 16
 #define F_COLL 32
+#define F_TEMP_ENABLED 64
+#define F_FLUID 128
+#define F_FLUID_MESH 256
+#define F_USE_INIT 512
+#define F_USE_FINAL 1024
+#define F_USE_GT 2048
+#define F_USE_FPHASE 4096
+#define F_USE_FAD 8192
+#define F_DEVO (F_USE_INIT | F_USE_FINAL | F_USE_GT | F_USE_FPHASE | F_USE_FAD)
+
+// variants of the step (template parameter of rollout_steps)
+#define V_LAND 0
+#define V_FLUID_FACE 1
+#define V_FLUID_MESH 2
+#define V_DEVO 3
+
+__host__ __device__ inline int variant_of(int flags) {
+    if (flags & F_FLUID) return (flags & F_FLUID_MESH) ? V_FLUID_MESH : V_FLUID_FACE;
+    return (flags & F_DEVO) ? V_DEVO : V_LAND;
+}
 
 #define MAX_THREADS 256
 #define BF 36  // shared floats per voxel for the bond forces
@@ -92,9 +150,9 @@
 struct Params {
     float L, cs_area, neg_slow, ten_slow, bondz, hbondz, col_damp;
     float sa_w, sish_w, sa_bend, hyst_bend, sa_ext, hyst_ext, sl_thresh;
-    float sa_rad, anti, near_eq, sc_value, half_freeze, two_pi_f;
+    float sa_rad, anti, near_eq, sc_value, half_freeze, two_pi_f, freeze;
 };
-#define N_PARAMS 20
+#define N_PARAMS 21
 
 struct Q { float w, x, y, z; };
 struct F3 { float x, y, z; };
@@ -332,6 +390,43 @@ __device__ inline Bond bond_forward(const float* si, const float* bd, int v, int
 #undef SIN
 }
 
+// A voxel's force and moment sums before gravity, drag and the floor, as
+// phase B of rollout_steps takes them (the facet-drag variant sums them a
+// barrier earlier, in phase B1): slow damping, its own side of its three
+// bonds and the far side of the three bonds below it (VXS_Voxel.cpp:482-651,
+// :653-675), then the contact force.
+// bf: [36][V] bond forces of the step; fc: [3][V] contact forces, read only
+// with `coll`. The sums leave through references and `coll` stays a flag:
+// with output pointers and a null `fc` nvcc 12.8 allots the land step 112
+// registers where it had 120, and the step ran 1.4 % slower on an H100.
+__device__ __forceinline__ void force_sum(const float* bf, const float* fc, bool coll, int v,
+                                          const int coord[3], const int strides[3], int V,
+                                          const F3& vel, float tsm, const Params& p, F3& tf,
+                                          F3& tm) {
+    tf = {p.neg_slow * vel.x * tsm, p.neg_slow * vel.y * tsm, p.neg_slow * vel.z * tsm};
+    tm = {0.f, 0.f, 0.f};
+    for (int d = 0; d < 3; ++d) {
+        const float* own = bf + (size_t)d * 12 * V + v;
+        F3 f2n = {0.f, 0.f, 0.f}, m2n = {0.f, 0.f, 0.f};
+        if (coord[d] > 0) {
+            const float* nb = bf + (size_t)d * 12 * V + (v - strides[d]);
+            f2n = {nb[(size_t)6 * V], nb[(size_t)7 * V], nb[(size_t)8 * V]};
+            m2n = {nb[(size_t)9 * V], nb[(size_t)10 * V], nb[(size_t)11 * V]};
+        }
+        tf.x = tf.x + own[0] + f2n.x;
+        tf.y = tf.y + own[(size_t)V] + f2n.y;
+        tf.z = tf.z + own[(size_t)2 * V] + f2n.z;
+        tm.x = tm.x - own[(size_t)3 * V] - m2n.x;
+        tm.y = tm.y - own[(size_t)4 * V] - m2n.y;
+        tm.z = tm.z - own[(size_t)5 * V] - m2n.z;
+    }
+    if (coll) {
+        tf.x = tf.x + fc[v];
+        tf.y = tf.y + fc[V + v];
+        tf.z = tf.z + fc[2 * V + v];
+    }
+}
+
 // What a voxel's floor contact decides from the state it starts a step
 // with (VXS_Voxel.cpp:677-758); the static-friction test also needs the
 // force sum, so it is not here.
@@ -389,6 +484,183 @@ __device__ __forceinline__ float actuation_scale(float t, float scale, float amp
     return curr;
 }
 
+// The thermal control term of a voxel (VXS_Voxel.cpp:292-305) with the
+// FreezeInitialized window, as actuation_scale computes it
+__device__ __forceinline__ float thermal_ctrl(float t, float ampdamp, float phase,
+                                              float cte, float tamp, float tper,
+                                              float init_cm, const Params& p, int flags) {
+    float ctrl = 0.f;
+    if (flags & F_TEMP) {
+        const float t_over_period = sdiv(t, tper);
+        ctrl = ampdamp * (tamp * sinf(p.two_pi_f * (t_over_period + phase))) * cte;
+        if (!(t >= init_cm && tper != 0.f)) ctrl = 0.f;
+        if (flags & F_FREEZE) {
+            const float middle = 0.5f * (p.sc_value - init_cm);
+            const float fs = middle - p.half_freeze;
+            if (t > fs && t < middle + p.half_freeze && t < fs + init_cm) ctrl = 0.f;
+        }
+    }
+    return ctrl;
+}
+
+// The scale of an occupied voxel of a development body after the two
+// clamps (VXS_Voxel.cpp:224-341): prenatal ramp, growth ramp with the
+// mid-life freeze of its clock, final phase offset and amplitude damping,
+// size-capped actuation. dv: the body's development channels at this voxel
+// (initial size, final size, growth time, start of growth, final phase,
+// final damping).
+__device__ __forceinline__ float development_scale(float t, float scale, float ampdamp,
+                                                   float phase, float cte,
+                                                   const float dv[6], float tamp,
+                                                   float tper, float init_cm, float min_tf,
+                                                   float gamp, const Params& p, int flags) {
+    const float nom = p.L;
+    float prenatal = 0.f, dev_temp_fact = 0.f;
+    if (flags & F_USE_INIT) {  // prenatal linear ramp (:237-238)
+        const float c = t >= 0.5f * init_cm ? 1.f : sdiv(2.f * t, init_cm);
+        prenatal = c * (sdiv(dv[0], nom) - 1.f);
+    }
+    if (flags & (F_USE_GT | F_USE_FINAL)) {  // postnatal development (:263-289)
+        // FrozenTimeAdj pauses the development clock inside the freeze window
+        const float middle = 0.5f * (p.sc_value - init_cm);
+        const float frozen_adj = fminf(fmaxf(t - (middle - p.half_freeze), 0.f), p.freeze);
+        const float start = dv[3], growth = dv[2];
+        const bool growing = t >= start && growth > 0.f;
+        const float eff_t = fminf(t, start + growth + p.freeze) - frozen_adj;
+        const float k = growing ? sdiv(eff_t - start, growth) : 0.f;
+        if (flags & F_USE_FINAL) dev_temp_fact = k * (sdiv(dv[1], dv[0]) - 1.f);
+        if (flags & F_USE_FPHASE) phase = phase + k * (dv[4] - phase);
+        if (flags & F_USE_FAD) ampdamp = ampdamp + k * (dv[5] - ampdamp);
+    }
+    float ctrl = thermal_ctrl(t, ampdamp, phase, cte, tamp, tper, init_cm, p, flags);
+    float grown = nom;
+    if (flags & (F_USE_INIT | F_USE_FINAL)) {
+        float grow_fact = 1.f;
+        if (flags & F_USE_INIT) grow_fact = grow_fact * (1.f + prenatal);
+        if (flags & F_USE_FINAL) grow_fact = grow_fact * (1.f + dev_temp_fact);
+        grown = grow_fact * nom;
+        // size-capped actuation (:308-320)
+        const float orig_sig = sdiv(sdiv(grown, nom) - 1.f, gamp);
+        const float pos_sig = (orig_sig + 1.f) * 0.5f;
+        ctrl = ctrl * fminf(pos_sig, 0.5f) * 2.f;
+    }
+    float curr = ctrl * nom + grown;
+    if (curr < scale && curr < min_tf * nom) curr = scale;
+    if (curr > scale && curr > (1.f + gamp) * nom) curr = scale;
+    return curr;
+}
+
+// The land_water fork's actuation of an occupied voxel in a fluid: no
+// development, no amplitude damping, no rate clamps, a hard floor at 0.1
+// (land_water VXS_Voxel.cpp:210-236); gated on temp_enabled alone.
+__device__ __forceinline__ float fluid_scale(float t, float phase, float cte, float tamp,
+                                             float tper, float init_cm, const Params& p,
+                                             int flags) {
+    float temp_fact = 1.f;
+    if (flags & F_TEMP_ENABLED) {
+        const float ctrl = tamp * sinf(p.two_pi_f * (sdiv(t, tper) + phase)) * cte;
+        temp_fact = 1.f + ((t >= init_cm && tper != 0.f) ? ctrl : 0.f);
+    }
+    return fmaxf(temp_fact, 0.1f) * p.L;
+}
+
+__device__ __forceinline__ F3 qrot(Q q, F3 f) {
+    const float tw = f.x * q.x + f.y * q.y + f.z * q.z;
+    const float tx = f.x * q.w - f.y * q.z + f.z * q.y;
+    const float ty = f.x * q.z + f.y * q.w - f.z * q.x;
+    const float tz = -f.x * q.y + f.y * q.x + f.z * q.w;
+    return {q.w * tx + q.x * tw + q.y * tz - q.z * ty,
+            q.w * ty - q.x * tz + q.y * tw + q.z * tx,
+            q.w * tz + q.x * ty - q.y * tx + q.z * tw};
+}
+
+// The surface-mesh vertex at the min corner of cell (cx, cy, cz): the mean
+// of the coincident corners pos + R (+-L/2 (1 + strain)) of the occupied
+// voxels at that cell and its seven -X, -Y, -Z neighbours (GetCurVLoc,
+// VX_MeshUtil.cpp:368-421). si: the robot's state; occ: its occupancy
+// channel; scr: the bond pass's strains, [d][V] sv1 then [3 + d][V] sv2.
+__device__ inline F3 mesh_vertex(const float* si, const float* occ, const float* scr,
+                                 int cx, int cy, int cz, int Y, int Z, int V, float half_l) {
+    const int c3[3] = {cx, cy, cz};
+    const int strides[3] = {Y * Z, Z, 1};
+    const int cell = (cx * Y + cy) * Z + cz;
+    F3 acc = {0.f, 0.f, 0.f};
+    float wsum = 0.f;
+    for (int k = 7; k >= 0; --k) {  // the order of the gather tables' slots
+        const int e[3] = {(k >> 2) & 1, (k >> 1) & 1, k & 1};
+        if (c3[0] < e[0] || c3[1] < e[1] || c3[2] < e[2]) continue;
+        const int u = cell - (e[0] * strides[0] + e[1] * strides[1] + e[2] * strides[2]);
+        if (!(occ[u] > 0.5f)) continue;
+        float off[3];
+        for (int a = 0; a < 3; ++a) {
+            // the corner looks along +a from voxel u when e[a] is 1: the
+            // strain of u's own bond; else the far side of the bond below u
+            const int ua = c3[a] - e[a];
+            const float strain = e[a] ? scr[(size_t)a * V + u]
+                                      : (ua > 0 ? scr[(size_t)(3 + a) * V + u - strides[a]] : 0.f);
+            off[a] = (e[a] ? half_l : -half_l) * (1.f + strain);
+        }
+        const Q qu = {si[(size_t)S_QUAT * V + u], si[(size_t)(S_QUAT + 1) * V + u],
+                      si[(size_t)(S_QUAT + 2) * V + u], si[(size_t)(S_QUAT + 3) * V + u]};
+        const F3 rw = qrot(qu, {off[0], off[1], off[2]});
+        acc.x += si[(size_t)S_POS * V + u] + rw.x;
+        acc.y += si[(size_t)(S_POS + 1) * V + u] + rw.y;
+        acc.z += si[(size_t)(S_POS + 2) * V + u] + rw.z;
+        wsum += 1.f;
+    }
+    const float w = fmaxf(wsum, 1.f);
+    return {acc.x / w, acc.y / w, acc.z / w};
+}
+
+// The facet drag on voxel v (occupied, inside the shell): for each exposed
+// face two triangles over the 8 vertices around it, each -C A v_n^2 n on
+// the voxel's own velocity where the facet faces forward (VX_Sim.cpp:
+// 1524-1581). vert: [3][V] vertex field in shared memory; winding as
+// envs/drag.py _FACES.
+__device__ inline F3 facet_drag(const float* vert, const float* occ, int v,
+                                const int coord[3], int X, int Y, int Z, F3 vel,
+                                float dragc) {
+    const int V = X * Y * Z;
+    const int dims[3] = {X, Y, Z};
+    const int strides[3] = {Y * Z, Z, 1};
+    F3 vt[8];
+    for (int k = 0; k < 8; ++k) {
+        const int c = v + ((k >> 2) & 1) * strides[0] + ((k >> 1) & 1) * strides[1] + (k & 1);
+        vt[k] = {vert[c], vert[V + c], vert[2 * V + c]};
+    }
+    // corner index k = 4 cx + 2 cy + cz
+    const int quads[6][4] = {{4, 6, 7, 5}, {0, 1, 3, 2}, {2, 3, 7, 6},
+                             {0, 4, 5, 1}, {1, 5, 7, 3}, {0, 2, 6, 4}};
+    F3 sum = {0.f, 0.f, 0.f};
+    for (int f = 0; f < 6; ++f) {
+        const int a = f >> 1;
+        const bool plus = !(f & 1);
+        const bool has_nbr = plus ? (coord[a] + 1 < dims[a] && occ[v + strides[a]] > 0.5f)
+                                  : (coord[a] > 0 && occ[v - strides[a]] > 0.5f);
+        if (has_nbr) continue;
+        for (int tri = 0; tri < 2; ++tri) {
+            const F3 pa = vt[quads[f][0]];
+            const F3 pb = vt[quads[f][1 + tri]];
+            const F3 pc = vt[quads[f][2 + tri]];
+            const F3 e1 = {pb.x - pa.x, pb.y - pa.y, pb.z - pa.z};
+            const F3 e2 = {pc.x - pa.x, pc.y - pa.y, pc.z - pa.z};
+            const float nx = e1.y * e2.z - e1.z * e2.y;
+            const float ny = e1.z * e2.x - e1.x * e2.z;
+            const float nz = e1.x * e2.y - e1.y * e2.x;
+            const float n_len = sqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-30f));
+            const float area = 0.5f * n_len;
+            const float hx = nx / n_len, hy = ny / n_len, hz = nz / n_len;
+            const float vn = vel.x * hx + vel.y * hy + vel.z * hz;
+            if (!(vn > 0.f)) continue;  // forward-facing facets only
+            const float mag = dragc * area * vn * vn;
+            sum.x += -mag * hx;
+            sum.y += -mag * hy;
+            sum.z += -mag * hz;
+        }
+    }
+    return sum;
+}
+
 // The knot of global step i_glob: min(i_glob * K / knot_steps, K - 1)
 __device__ __forceinline__ int knot_of(int i_glob, int n_knots, int knot_steps) {
     const long long k = (long long)i_glob * n_knots / knot_steps;
@@ -397,7 +669,7 @@ __device__ __forceinline__ int knot_of(int i_glob, int n_knots, int knot_steps) 
 
 // The per-robot scalars of a launch, read from its stats row
 struct Robot {
-    float t, dt, dt_inv, inv_m, stop_t, tamp, tper, init_cm, grav, min_tf, gamp;
+    float t, dt, dt_inv, inv_m, stop_t, tamp, tper, init_cm, grav, min_tf, gamp, dragc;
     F3 ini;
     bool div, capt;
 };
@@ -417,6 +689,7 @@ __device__ __forceinline__ Robot load_robot(const float* stat) {
     r.grav = stat[ST_GRAV];
     r.min_tf = stat[ST_MINTF];
     r.gamp = stat[ST_GAMP];
+    r.dragc = stat[ST_DRAGC];
     r.dt_inv = sdiv(1.f, r.dt);
     return r;
 }
@@ -430,12 +703,14 @@ __device__ __forceinline__ Robot load_robot(const float* stat) {
 // is frozen (diverged, or past its stop time) leaves the loop, and the
 // steps it skips change nothing.
 //
-// sh: BF * V floats of shared memory (+ 7 * V with collision).
+// sh: BF * V floats of shared memory (+ 7 * V with collision). scr: the
+// robot's 6 * V floats of scratch in device memory (V_FLUID_MESH only).
+template <int VARIANT>
 __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* bo,
                                     const float* a1, const float* cu_robot, int n_knots,
                                     int knot_steps, int step_base, int X, int Y, int Z,
                                     int num_steps, const Params& p, int flags, Robot& r,
-                                    float* tape_t, float* sh) {
+                                    float* tape_t, float* sh, float* scr) {
     __shared__ float red[3 * (MAX_THREADS / 32)];
     __shared__ int divflag[2];
 
@@ -514,6 +789,10 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
                 float* la1p = SOUT(S_LA1 + 3 * d) + v;
                 float* la2p = SOUT(S_LA2 + 3 * d) + v;
                 if (!(bd[(size_t)D_MASK * V] > 0.5f)) {
+                    if (VARIANT == V_FLUID_MESH) {
+                        scr[(size_t)d * V + v] = 0.f;
+                        scr[(size_t)(3 + d) * V + v] = 0.f;
+                    }
                     for (int k = 0; k < 12; ++k) out[(size_t)k * V] = 0.f;
                     for (int c = 0; c < 3; ++c) {
                         lp2p[(size_t)c * V] = 0.f;
@@ -527,6 +806,18 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
                 const Bond bn = bond_forward(si, bd, v, v + strides[d], d, V, p, dt, dt_inv);
                 SOUT(S_MAXS + d)[v] = fmaxf(SCH(S_MAXS + d)[v], bn.strain);
                 if (fabsf(bn.strain) > 100.f) diverging = 1;
+                if (VARIANT == V_FLUID_MESH) {
+                    // per-side strains, the linear fixed point of the stress
+                    // equalization (VXS_BondInternal.cpp:237-253)
+                    const float E1 = bd[(size_t)D_E1 * V], E2 = bd[(size_t)D_E2 * V];
+                    const float s_sum = E1 + E2;
+                    const bool hom = (bd[(size_t)D_HOM * V] > 0.5f) ||
+                                     fabsf(E1 - E2) <= p.near_eq * fabsf(s_sum);
+                    scr[(size_t)d * V + v] =
+                        hom ? bn.strain : 2.f * sdiv(E2, s_sum) * bn.strain;
+                    scr[(size_t)(3 + d) * V + v] =
+                        hom ? bn.strain : 2.f * sdiv(E1, s_sum) * bn.strain;
+                }
 
                 // back to the world frame (:159-170)
                 const F3 f1 = to_orig(d, qrot_inv(bn.totrot, bn.f1));
@@ -556,6 +847,28 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
         __syncthreads();
         const bool div_now = divflag[i & 1] != 0;
 
+        // ---- phase B1 (facet drag only): each cell's thread sums its
+        // voxel's forces and computes the mesh vertex at the cell's min
+        // corner; both wait in slots only this cell's voxel reads ----
+        if (VARIANT == V_FLUID_MESH) {
+            for (int v = threadIdx.x; v < V; v += T) {
+                const int coord[3] = {v / (Y * Z), (v / Z) % Y, v % Z};
+                const float minv = BCH(B_MASS_INV)[v];
+                const float tsm = BCH(B_2SQ_MEXS)[v];
+                const F3 vel = {SCH(S_LIN)[v] * minv, SCH(S_LIN + 1)[v] * minv,
+                                SCH(S_LIN + 2)[v] * minv};
+                F3 tf, tm;
+                force_sum(bf, fc, coll, v, coord, strides, V, vel, tsm, p, tf, tm);
+                const F3 vx = mesh_vertex(si, BCH(B_OCC), scr, coord[0], coord[1], coord[2],
+                                          Y, Z, V, 0.5f * p.L);
+                float* own = bf + v;
+                own[0] = tf.x; own[(size_t)V] = tf.y; own[(size_t)2 * V] = tf.z;
+                own[(size_t)3 * V] = tm.x; own[(size_t)4 * V] = tm.y; own[(size_t)5 * V] = tm.z;
+                own[(size_t)12 * V] = vx.x; own[(size_t)13 * V] = vx.y; own[(size_t)14 * V] = vx.z;
+            }
+            __syncthreads();
+        }
+
         // ---- phase B: per-voxel force sum and integration ----
         for (int v = threadIdx.x; v < V; v += T) {
             const bool occ = BCH(B_OCC)[v] > 0.5f;
@@ -567,29 +880,42 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
             const float tsm = BCH(B_2SQ_MEXS)[v];
             F3 lin = {SCH(S_LIN)[v], SCH(S_LIN + 1)[v], SCH(S_LIN + 2)[v]};
             F3 vel = {lin.x * minv, lin.y * minv, lin.z * minv};
-            F3 tf = {p.neg_slow * vel.x * tsm, p.neg_slow * vel.y * tsm, p.neg_slow * vel.z * tsm};
-            F3 tm = {0.f, 0.f, 0.f};
-            for (int d = 0; d < 3; ++d) {
-                const float* own = bf + (size_t)d * 12 * V + v;
-                F3 f2n = {0.f, 0.f, 0.f}, m2n = {0.f, 0.f, 0.f};
-                if (coord[d] > 0) {
-                    const float* nb = bf + (size_t)d * 12 * V + (v - strides[d]);
-                    f2n = {nb[(size_t)6 * V], nb[(size_t)7 * V], nb[(size_t)8 * V]};
-                    m2n = {nb[(size_t)9 * V], nb[(size_t)10 * V], nb[(size_t)11 * V]};
-                }
-                tf.x = tf.x + own[0] + f2n.x;
-                tf.y = tf.y + own[(size_t)V] + f2n.y;
-                tf.z = tf.z + own[(size_t)2 * V] + f2n.z;
-                tm.x = tm.x - own[(size_t)3 * V] - m2n.x;
-                tm.y = tm.y - own[(size_t)4 * V] - m2n.y;
-                tm.z = tm.z - own[(size_t)5 * V] - m2n.z;
-            }
-            if (coll) {
-                tf.x = tf.x + fc[v];
-                tf.y = tf.y + fc[V + v];
-                tf.z = tf.z + fc[2 * V + v];
+            F3 tf, tm;
+            if (VARIANT == V_FLUID_MESH) {  // summed in phase B1
+                const float* own = bf + v;
+                tf = {own[0], own[(size_t)V], own[(size_t)2 * V]};
+                tm = {own[(size_t)3 * V], own[(size_t)4 * V], own[(size_t)5 * V]};
+            } else {
+                force_sum(bf, fc, coll, v, coord, strides, V, vel, tsm, p, tf, tm);
             }
             if (flags & F_GRAVITY) tf.z = tf.z + mass * grav;
+
+            if (VARIANT == V_FLUID_MESH) {
+                // facets of the exposed faces; a voxel on the grid's last
+                // layer has no cells for its far vertices (the host refuses it)
+                if (occ && coord[0] + 1 < X && coord[1] + 1 < Y && coord[2] + 1 < Z) {
+                    const F3 dr = facet_drag(bf + (size_t)12 * V, BCH(B_OCC), v, coord,
+                                             X, Y, Z, vel, r.dragc);
+                    tf = {tf.x + dr.x, tf.y + dr.y, tf.z + dr.z};
+                }
+            } else if (VARIANT == V_FLUID_FACE) {
+                // voxel-face quadratic drag on exposed forward-facing faces
+                // (core/step.py _fluid_drag)
+                const float sc0 = SCH(S_SCALE)[v];
+                const float ca = r.dragc * (sc0 * sc0);
+                float* tfc[3] = {&tf.x, &tf.y, &tf.z};
+                const float velc[3] = {vel.x, vel.y, vel.z};
+                for (int d = 0; d < 3; ++d) {
+                    const float* mk = bo + (size_t)(B_DIR + d * B_PER_DIR + D_MASK) * V;
+                    const bool m_pos = mk[v] > 0.5f;
+                    const bool m_neg = coord[d] > 0 && mk[v - strides[d]] > 0.5f;
+                    const float vd = velc[d];
+                    float drag = 0.f;
+                    drag = drag + -((occ && !m_pos && vd > 0.f) ? ca * vd * vd : 0.f);
+                    drag = drag + ((occ && !m_neg && -vd > 0.f) ? ca * -vd * -vd : 0.f);
+                    *tfc[d] = *tfc[d] + drag;
+                }
+            }
 
             const float scale = SCH(S_SCALE)[v];
             F3 pos = {SCH(S_POS)[v], SCH(S_POS + 1)[v], SCH(S_POS + 2)[v]};
@@ -654,10 +980,23 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
             }
 
             // actuation scale update (VXS_Voxel.cpp:224-341)
-            bool kept_last;
-            const float curr = actuation_scale(
-                t, scale, BCH(B_AMPDAMP)[v], BCH(B_PHASE)[v], BCH(B_CTE)[v], r.tamp,
-                r.tper, init_cm, r.min_tf, r.gamp, p, flags, &kept_last);
+            float curr;
+            if (VARIANT == V_FLUID_FACE || VARIANT == V_FLUID_MESH) {
+                curr = fluid_scale(t, BCH(B_PHASE)[v], BCH(B_CTE)[v], r.tamp, r.tper,
+                                   init_cm, p, flags);
+            } else if (VARIANT == V_DEVO) {
+                const float dv[6] = {BCH(B_INIT_SIZE)[v], BCH(B_FINAL_SIZE)[v],
+                                     BCH(B_GROWTH_T)[v], BCH(B_START_GT)[v],
+                                     BCH(B_FINAL_PHASE)[v], BCH(B_FINAL_AD)[v]};
+                curr = development_scale(t, scale, BCH(B_AMPDAMP)[v], BCH(B_PHASE)[v],
+                                         BCH(B_CTE)[v], dv, r.tamp, r.tper, init_cm,
+                                         r.min_tf, r.gamp, p, flags);
+            } else {
+                bool kept_last;
+                curr = actuation_scale(
+                    t, scale, BCH(B_AMPDAMP)[v], BCH(B_PHASE)[v], BCH(B_CTE)[v], r.tamp,
+                    r.tper, init_cm, r.min_tf, r.gamp, p, flags, &kept_last);
+            }
             const float nom = p.L;
 
             SOUT(S_POS)[v] = pos.x; SOUT(S_POS + 1)[v] = pos.y; SOUT(S_POS + 2)[v] = pos.z;

@@ -8,7 +8,10 @@ Hopper take its place on the evolution loop's envelope:
 - K1 (`fused_call`, `csrc/fused_rollout.cu`): the forward multi-step
   rollout, one block per robot, the step loop inside the kernel, with the
   MPC control-knot channel and the segmented mode (a launch that advances
-  `num_steps` of a longer rollout from a global step offset);
+  `num_steps` of a longer rollout from a global step offset), the fluid
+  environment's branches (facet drag on the deformed surface mesh as a
+  corner-lattice stencil, voxel-face drag, the land_water actuation) and
+  the linear development ramps, each compiled as its own variant;
 - B4 (`fused_bwd_call`, `csrc/fused_rollout_bwd.cu`): the reverse-mode
   segment, the adjoint of K1's step written by hand, which pulls a
   segment's end-state cotangent back to its start state and the control
@@ -164,9 +167,15 @@ _PER_DIR_FIELDS = [
     ("d_b3i1", _D_DB3I1), ("d_b3i2", _D_DB3I2),
 ]
 
-# shared floats a voxel K1 needs (csrc/fused_rollout.cu: BF, + staging)
+# shared floats a voxel K1 needs (csrc/fused_rollout.cu: BF, + staging); the
+# fluid-mesh variant works inside the same 36 (its vertex field and the
+# force sums it carries across its extra barrier live in slots of the bond
+# buffer that only the voxel itself reads)
 _K1_SMEM_FLOATS = 36
 _K1_SMEM_FLOATS_COLL = 43
+# per-voxel floats of device-memory scratch a fluid-mesh launch needs: the
+# per-side strains sv1, sv2 of the three bonds a voxel owns
+_K1_MESH_SCRATCH = 6
 _SMEM_BYTES = 232448  # a block's shared memory on Hopper
 
 
@@ -451,15 +460,48 @@ def body_flags(body: VoxelBody) -> dict:
     )
 
 
-# flags K1 implements, as the bits csrc/fused_rollout.cu reads
+def facet_drag(flags: dict) -> bool:
+    """True when a launch with these flags runs the facet drag: the body
+    carries mesh tables and the environment is a fluid (on land the tables
+    are inert)."""
+    return bool(flags.get("fluid") and flags.get("fluid_mesh"))
+
+
+def launch_flags(body: VoxelBody, sim: SimParams, env: EnvParams, **extra) -> dict:
+    """The flags of a launch for one design: `kernel_env_flags`, the
+    body-derived flags and `extra` (collision, segmented). A body that
+    would run the facet drag without the corner shell raises here, where the
+    launch is put together, so that `fused_call` need not look at the body
+    again on every launch."""
+    flags = dict(kernel_env_flags(sim, env), **body_flags(body), **extra)
+    if facet_drag(flags) and not has_corner_shell(body.occ):
+        raise ValueError(NO_SHELL)
+    return flags
+
+
+# flags K1 implements, as the bits csrc/fused_rollout_common.cuh reads
 _K1_FLAG_BITS = dict(floor=1, sticky=2, gravity=4, temp=8, freeze_on=16,
-                     collision=32)
+                     collision=32, temp_enabled=64, fluid=128, fluid_mesh=256,
+                     use_init_size=512, use_final_size=1024, use_growth_t=2048,
+                     use_final_phase=4096, use_final_ad=8192)
+_K1_DEVO_FLAGS = ("use_init_size", "use_final_size", "use_growth_t",
+                  "use_final_phase", "use_final_ad")
 # flags outside the envelope; each must be off
-_K1_REFUSED = ("volume", "fluid", "fluid_mesh", "nonlinear", "mdl_data",
+_K1_REFUSED = ("volume", "nonlinear", "mdl_data",
                "plasticity", "equilibrium", "max_vel", "bc", "needle",
-               "falling", "ndbv", "window", "ballistic", "use_init_size",
-               "use_final_size", "use_growth_t", "use_final_phase",
-               "use_final_ad", "collision_compact")
+               "falling", "ndbv", "window", "ballistic", "collision_compact")
+
+
+def _flag_bits(flags: dict) -> int:
+    """The launch's feature bits. The facet drag runs only in a fluid; in a
+    fluid the development ramps are inert (the land_water actuation
+    bypasses them), so their bits stay off."""
+    on = {k for k in _K1_FLAG_BITS if flags.get(k)}
+    if not facet_drag(flags):
+        on.discard("fluid_mesh")
+    if "fluid" in on:
+        on.difference_update(_K1_DEVO_FLAGS)
+    return sum(_K1_FLAG_BITS[k] for k in on)
 
 
 def check_envelope(flags: dict, scalars: dict):
@@ -468,7 +510,8 @@ def check_envelope(flags: dict, scalars: dict):
     for k in _K1_REFUSED:
         if flags.get(k):
             raise NotImplementedError(f"fused rollout: '{k}' is not ported yet")
-    if flags.get("temp_enabled") and not flags.get("temp"):
+    # a fluid's actuation is gated on temp_enabled alone
+    if flags.get("temp_enabled") and not flags.get("temp") and not flags.get("fluid"):
         raise NotImplementedError("fused rollout: a fixed (non-varying) "
                                   "temperature is not ported yet")
     if scalars.get("sources"):
@@ -476,13 +519,28 @@ def check_envelope(flags: dict, scalars: dict):
                                   "not ported yet")
 
 
+NO_SHELL = ("facet drag needs an empty layer on the grid's +X, +Y and +Z "
+            "faces (ops.fused_rollout.supports)")
+
+
+def has_corner_shell(occ) -> bool:
+    """True when no voxel of `occ` (..., X, Y, Z; a tensor or a numpy array)
+    lies on the grid's last +X, +Y or +Z layer: the facet-drag stencil keeps
+    the vertex at a voxel's min corner in that voxel's cell, so every corner
+    of an occupied voxel needs a cell of its own."""
+    return not bool(occ[..., -1, :, :].any() or occ[..., :, -1, :].any()
+                    or occ[..., :, :, -1].any())
+
+
 def supports(body: VoxelBody, sim: SimParams, env: EnvParams) -> bool:
     """True when (body, sim, env) is inside K1's envelope and its shared
-    memory holds the body."""
-    flags = dict(kernel_env_flags(sim, env), **body_flags(body))
+    memory holds the body. A fluid body with mesh-drag tables needs an empty
+    layer on its +X, +Y and +Z faces (pad the structure by one; the
+    evaluator does)."""
     try:
+        flags = launch_flags(body, sim, env)  # raises without the shell
         check_envelope(flags, {"sources": () if env.sources is None else (1,)})
-    except NotImplementedError:
+    except (NotImplementedError, ValueError):
         return False
     if env.floor_limited:
         return False
@@ -572,6 +630,11 @@ FUSED_ROLLOUT_LAUNCHES = 0
 FUSED_ROLLOUT_CONTACT_LAUNCHES = 0
 # K1 launches that ran the control-knot channel or the segmented mode
 FUSED_ROLLOUT_KNOT_LAUNCHES = 0
+# K1 launches of the fluid variants (voxel-face or facet drag), of the
+# facet-drag variant alone, and of the development variant
+FUSED_ROLLOUT_FLUID_LAUNCHES = 0
+FUSED_ROLLOUT_MESH_LAUNCHES = 0
+FUSED_ROLLOUT_DEVO_LAUNCHES = 0
 
 
 def _k1_params(scalars: dict, prec: Precision) -> np.ndarray:
@@ -599,13 +662,16 @@ def _k1_params(scalars: dict, prec: Precision) -> np.ndarray:
         scalars["sc_value"],
         0.5 * scalars["freeze"],
         2.0 * REF_PI_FLOAT,
+        scalars["freeze"],
     ]
     return np.asarray(vals, dtype=np.float32)
 
 
-def _unpack_body(body_packed, grid_shape, L) -> VoxelBody:
+def _unpack_body(body_packed, grid_shape, L, flags=None) -> VoxelBody:
     """The VoxelBody fields the eager step reads, from packed channels
-    (shared bodies come back unbatched)."""
+    (shared bodies come back unbatched); `flags` carry the development
+    switches the packed channels do not."""
+    flags = flags or {}
     X, Y, Z = grid_shape
     bp = body_packed[0] if body_packed.shape[0] == 1 else body_packed
     lead = tuple(bp.shape[:-2])
@@ -635,10 +701,15 @@ def _unpack_body(body_packed, grid_shape, L) -> VoxelBody:
         poisson=g(_B_POISSON), cte=g(_B_CTE), u_static=g(_B_US),
         u_dynamic=g(_B_UD), lin_stiffness=g(_B_LIN_STIFF),
         two_sq_mexs=g(_B_2SQ_MEXS), two_sq_iexsss=g(_B_2SQ_IEXSSS),
-        phase_offset=g(_B_PHASE), final_phase_offset=zeros,
-        temp_amp_damp=g(_B_AMPDAMP), final_temp_amp_damp=zeros,
-        initial_voxel_size=zeros, final_voxel_size=zeros, growth_time=zeros,
-        start_growth_time=zeros,
+        phase_offset=g(_B_PHASE), final_phase_offset=g(_B_FINAL_PHASE),
+        temp_amp_damp=g(_B_AMPDAMP), final_temp_amp_damp=g(_B_FINAL_AD),
+        initial_voxel_size=g(_B_INIT_SIZE), final_voxel_size=g(_B_FINAL_SIZE),
+        growth_time=g(_B_GROWTH_T), start_growth_time=g(_B_START_GT),
+        using_initial_voxel_size=bool(flags.get("use_init_size")),
+        using_final_voxel_size=bool(flags.get("use_final_size")),
+        using_growth_time=bool(flags.get("use_growth_t")),
+        using_final_phase_offset=bool(flags.get("use_final_phase")),
+        using_final_temp_amp_damp=bool(flags.get("use_final_ad")),
         dof_fixed=torch.zeros(lead + (X, Y, Z), dtype=torch.int32, device=dev),
         external_force=zeros[..., None].expand(lead + (X, Y, Z, 3)),
         external_disp=zeros[..., None].expand(lead + (X, Y, Z, 3)),
@@ -681,7 +752,16 @@ def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
     X, Y, Z = grid_shape
     B = state_packed.shape[0]
     L = scalars["L"]
-    body = _unpack_body(body_packed, grid_shape, L)
+    body = _unpack_body(body_packed, grid_shape, L, flags)
+    if facet_drag(flags):
+        # the gather/scatter form of the facet drag, from tables built on
+        # the host out of each body's occupancy
+        from evosoro_tpu_torch.envs.drag import build_mesh_drag, build_mesh_drag_batch
+
+        occ = body.occ.cpu().numpy()
+        kw = dict(device=state_packed.device, dtype=state_packed.dtype)
+        body = body.replace(mesh_drag=build_mesh_drag(occ, **kw) if occ.ndim == 3
+                            else build_mesh_drag_batch(occ, **kw))
     if collision_packed is not None:
         body = body.replace(collision=collision_packed[0]
                             if collision_packed.shape[0] == 1 else collision_packed)
@@ -719,10 +799,13 @@ def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
     env = EnvParams(
         grav_acc=st[:, _S_GRAV], temp_amplitude=st[:, _S_TAMP],
         temp_period=st[:, _S_TPER], growth_amplitude=st[:, _S_GAMP],
+        aggregate_drag_coefficient=st[:, _S_DRAGC],
         gravity_enabled=bool(flags.get("gravity")),
         floor_enabled=bool(flags.get("floor")),
         sticky_floor=bool(flags.get("sticky")),
-        temp_enabled=bool(flags.get("temp")),
+        temp_enabled=bool(flags.get("temp_enabled") if flags.get("fluid")
+                          else flags.get("temp")),
+        fluid_environment=bool(flags.get("fluid")),
     )
     mass = body.mass
     for i in range(num_steps):
@@ -765,7 +848,9 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
     `min(global step * n_knots // knot_steps, n_knots - 1)` with
     `knot_steps = total_steps or num_steps`. Returns (state_out, stats_out).
     CUDA tensors launch K1; CPU tensors run `fused_rollout_plain`. Flags
-    outside the envelope raise first.
+    outside the envelope raise first. With the facet drag the grid must
+    carry the corner shell (`has_corner_shell`): `launch_flags` and the
+    evaluator check it once, where the launch is put together.
     """
     check_envelope(flags, scalars)
     seg0, knot_steps = _knot_clock(flags, num_steps, n_knots, control_packed,
@@ -813,10 +898,14 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
     if per * 4 * V > _SMEM_BYTES:
         raise ValueError(f"V={V} voxels overflow K1's shared memory "
                          f"({per * 4 * V} > {_SMEM_BYTES} bytes)")
-    bits = sum(b for k, b in _K1_FLAG_BITS.items() if flags.get(k))
+    bits = _flag_bits(flags)
+    mesh = bool(bits & _K1_FLAG_BITS["fluid_mesh"])
     params = _k1_params(scalars, prec)
     state_out = state_packed.clone()
     stats_out = stats.clone()
+    # the facet-drag variant leaves each bond's per-side strains here
+    scratch = torch.empty((B, _K1_MESH_SCRATCH, V), dtype=torch.float32,
+                          device=state_packed.device) if mesh else None
     fn = build.library("fused_rollout")
     with torch.cuda.device(state_packed.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -826,11 +915,19 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
                 int(coll and collision_packed.shape[0] == B and B > 1),
                 control_packed.data_ptr() if n_knots else None, int(n_knots),
                 knot_steps, seg0, B, X, Y, Z, int(num_steps),
-                params.ctypes.data_as(ctypes.c_void_p), bits, stream)
+                params.ctypes.data_as(ctypes.c_void_p), bits,
+                scratch.data_ptr() if mesh else None, stream)
     build.check(rc, "fused_rollout")
     global FUSED_ROLLOUT_LAUNCHES, FUSED_ROLLOUT_CONTACT_LAUNCHES
-    global FUSED_ROLLOUT_KNOT_LAUNCHES
+    global FUSED_ROLLOUT_KNOT_LAUNCHES, FUSED_ROLLOUT_FLUID_LAUNCHES
+    global FUSED_ROLLOUT_MESH_LAUNCHES, FUSED_ROLLOUT_DEVO_LAUNCHES
     FUSED_ROLLOUT_LAUNCHES += 1
+    if bits & _K1_FLAG_BITS["fluid"]:
+        FUSED_ROLLOUT_FLUID_LAUNCHES += 1
+    if mesh:
+        FUSED_ROLLOUT_MESH_LAUNCHES += 1
+    if any(bits & _K1_FLAG_BITS[k] for k in _K1_DEVO_FLAGS):
+        FUSED_ROLLOUT_DEVO_LAUNCHES += 1
     if coll:
         FUSED_ROLLOUT_CONTACT_LAUNCHES += 1
     if n_knots or flags.get("segmented"):
@@ -850,13 +947,14 @@ _B4_TAPE_CHANNELS = _TSAVG + 1
 # flags outside the reverse-mode kernel's envelope (the JAX package's
 # `_diff_envelope_ok`); the rest of `check_envelope` applies as well
 _DIFF_REFUSED = ("volume", "equilibrium", "plasticity", "needle", "falling",
-                 "ndbv", "window", "ballistic", "collision", "mdl_data", "bc")
+                 "ndbv", "window", "ballistic", "collision", "mdl_data", "bc",
+                 "fluid", "fluid_mesh") + _K1_DEVO_FLAGS
 
 
 def diff_envelope_ok(flags, scalars) -> bool:
     """True when the reverse-mode segment kernel covers the launch: the MPC
     control envelope, without collision, volume effects, plasticity,
-    sources, fitness features, devo or BC regions."""
+    sources, fitness features, a fluid environment, devo or BC regions."""
     f, sc = dict(flags), dict(scalars)
     return (not any(f.get(k) for k in _DIFF_REFUSED)
             and len(sc.get("sources", ())) == 0)
@@ -948,7 +1046,7 @@ def fused_bwd_call(state_packed, body_packed, stats, control_packed, seg_base,
     if _K1_SMEM_FLOATS * 4 * V > _SMEM_BYTES:
         raise ValueError(f"V={V} voxels overflow B4's shared memory "
                          f"({_K1_SMEM_FLOATS * 4 * V} > {_SMEM_BYTES} bytes)")
-    bits = sum(b for k, b in _K1_FLAG_BITS.items() if flags.get(k))
+    bits = _flag_bits(flags)
     params = _k1_params(scalars, prec)
     S = int(num_steps)
     dev = state_packed.device
@@ -994,8 +1092,7 @@ def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
             device=state_packed.device)[None]
     if stats is None:
         stats = make_stats(body, B, dt, sim, env, stop_time)
-    flags = dict(kernel_env_flags(sim, env), **body_flags(body),
-                 collision=collision_packed is not None)
+    flags = launch_flags(body, sim, env, collision=collision_packed is not None)
     n_knots, control_packed = 0, None
     if control_sequence is not None:
         n_knots = control_sequence.shape[1]
@@ -1055,8 +1152,8 @@ class FusedBatchRunner:
         self.call_kwargs = dict(
             num_steps=num_steps, grid_shape=self.grid_shape,
             scalars=kernel_scalars(body.nominal_size, sim, env),
-            flags=dict(kernel_env_flags(sim, env), **body_flags(body),
-                       collision=self.collision_packed is not None),
+            flags=launch_flags(body, sim, env,
+                               collision=self.collision_packed is not None),
             n_knots=num_knots, prec=prec)
 
     def run(self, controls):

@@ -6,7 +6,8 @@ the JAX tool's `measure_vpu_peak`) and returns the card's measured FP32
 rate. Beside it, the least time the card could take for a launch of each
 kernel (`bound`): the larger of its operations over the FP32 peak and its
 compulsory bytes over the memory rate, from counts of the work the launch's
-inputs need (`k1_work`, `b4_work`, `k2_work`, `fma_work`).
+inputs need (`k1_work`, `b7_work`, `b8_work`, `b4_work`, `k2_work`,
+`fma_work`; `launch_work` picks K1's by the launch's flags).
 
 The step's operation count is static: 2187.028 per occupied voxel and step, the
 `flop_count` of ROOFLINE.json (a jaxpr walk of the JAX package's `sim_step`
@@ -17,6 +18,19 @@ and step is what the jaxpr of `jax.vjp` of that step (with the control
 offset, forward pass and pullback together: 4829.033) holds beyond the
 forward step itself (2189.028 with the control offset);
 `tests/test_torch_roofline.py` repeats the walk.
+
+The fluid and development steps are counted by the same walk on the same
+body: 2176.022 for the step in water with the voxel-face drag, 2218.032 for
+the land step with the growth experiment's development fields (initial and
+final size, growth time and its start). The facet-drag step's count depends
+on the body's surface: over three 10³ bodies with different surfaces the
+walk of the JAX step with its gather tables is exactly 2124.023 per grid
+voxel + 48 per surface triangle + 612 per surface vertex, and a fourth body
+confirms it. Those tables pad every vertex to 8 corner slots and multiply the
+padding by zero; a walk with the tables cut to 4 and to 2 slots splits the
+612 into 76 per slot and 4 per vertex. A vertex of a surface has 1 to 7
+occupied voxels around it, and only those corners need rotating, so the bound
+counts 76 for each of them (`mesh_counts`), not for each slot.
 """
 
 from __future__ import annotations
@@ -34,6 +48,13 @@ H100_HBM_BYTES_PER_S = 3.35e12
 
 STEP_FLOPS_PER_VOXEL = 2187.028
 ADJOINT_FLOPS_PER_VOXEL = 2640.005
+FLUID_FACE_STEP_FLOPS_PER_VOXEL = 2176.022
+FLUID_MESH_STEP_FLOPS_PER_VOXEL = 2124.023  # the step in water without a drag model
+MESH_FLOPS_PER_TRIANGLE = 48.0
+MESH_FLOPS_PER_CORNER = 76.0  # one occupied voxel's corner at a vertex
+MESH_FLOPS_PER_VERTEX = 4.0
+MESH_TABLE_SLOTS = 8  # corner slots a vertex of the gather tables is padded to
+DEVO_STEP_FLOPS_PER_VOXEL = 2218.032
 # pair_contact.cuh: operations for every nonzero table entry (difference,
 # distance, rsqrt, overlap test), and more for a pair that touches
 PAIR_FLOPS_TESTED = 14
@@ -42,6 +63,7 @@ PAIR_FLOPS_TOUCHING = 8
 # (state 0..46; body: 12 per voxel and 19 per direction)
 K1_STATE_CHANNELS = 47
 K1_BODY_CHANNELS = 12 + 3 * 19
+K1_DEVO_BODY_CHANNELS = 6  # sizes, growth window, final phase and damping
 
 CHAINS = 16
 FMA_A = float(np.float32(1.0000001))
@@ -136,7 +158,47 @@ def bound(flops: float, nbytes: float, fp32_flops: float = H100_FP32_FLOPS,
                 flops=flops, bytes=nbytes)
 
 
-def k1_work(state, body, stats, table, stats_out, controls=None):
+def steps_taken(stats, stats_out):
+    """(B,) steps each robot of a launch advanced, from its clock."""
+    dt = stats[:, fr._S_DT]
+    return torch.round((stats_out[:, fr._S_TIME] - stats[:, fr._S_TIME]) / dt)
+
+
+def mesh_counts(occ):
+    """(triangles (B,), vertices (B,), corners (B,)) of the surface meshes of
+    the bodies `occ` (B, X, Y, Z) bool: two triangles for every face of an
+    occupied voxel without a neighbour, the corner-lattice points those faces
+    touch, and the occupied voxels around those points, each of which gives
+    the vertex one corner to average (the tables of
+    `envs.drag.build_mesh_drag`: rows of `vert_vox`, and its live slots)."""
+    B, X, Y, Z = occ.shape
+    padded = torch.nn.functional.pad(occ, (1, 1, 1, 1, 1, 1))
+    # occupied voxels around every corner-lattice point
+    around = sum(padded[:, a:a + X + 1, b:b + Y + 1, c:c + Z + 1].to(torch.int64)
+                 for a in (0, 1) for b in (0, 1) for c in (0, 1))
+    corner = torch.zeros((B, X + 1, Y + 1, Z + 1), dtype=torch.bool, device=occ.device)
+    tris = torch.zeros(B, dtype=torch.int64, device=occ.device)
+    dims = (X, Y, Z)
+    for axis in range(3):
+        for sign in (1, -1):
+            sl = [slice(None)] + [slice(1, d + 1) for d in dims]
+            sl[1 + axis] = slice(1 + sign, dims[axis] + 1 + sign)
+            exposed = occ & ~padded[tuple(sl)]
+            tris += 2 * exposed.flatten(1).sum(1)
+            others = [a for a in range(3) if a != axis]
+            for da in (0, 1):
+                for db in (0, 1):
+                    at = [slice(None)] + [slice(0, d) for d in dims]
+                    at[1 + axis] = slice((sign + 1) // 2, dims[axis] + (sign + 1) // 2)
+                    at[1 + others[0]] = slice(da, dims[others[0]] + da)
+                    at[1 + others[1]] = slice(db, dims[others[1]] + db)
+                    corner[tuple(at)] |= exposed
+    return tris, corner.flatten(1).sum(1), (around * corner).flatten(1).sum(1)
+
+
+def k1_work(state, body, stats, table, stats_out, controls=None,
+            flops_per_voxel=STEP_FLOPS_PER_VOXEL, extra_body_channels=0,
+            flops_per_step=None):
     """(flops, bytes) that one K1 launch on these packed tensors needs.
 
     Steps are counted per robot from the time it advanced (a frozen robot
@@ -147,12 +209,13 @@ def k1_work(state, body, stats, table, stats_out, controls=None):
     the state channels the step uses in and out, the body channels it
     reads, the stats rows in and out, the pair table and the controls."""
     B, _, V = state.shape
-    dt = stats[:, fr._S_DT]
-    steps = torch.round((stats_out[:, fr._S_TIME] - stats[:, fr._S_TIME]) / dt)
+    steps = steps_taken(stats, stats_out)
     occupied = (body[:, fr._B_OCC, :] > 0.5).sum(1).to(steps.dtype)  # (B or 1,)
-    flops = float((occupied * steps).sum()) * STEP_FLOPS_PER_VOXEL
+    flops = float((occupied * steps).sum()) * flops_per_voxel
+    if flops_per_step is not None:  # (B or 1,) more operations a step
+        flops += float((flops_per_step.to(steps.dtype) * steps).sum())
     nbytes = 4.0 * (2 * B * K1_STATE_CHANNELS * V
-                    + body.shape[0] * K1_BODY_CHANNELS * V
+                    + body.shape[0] * (K1_BODY_CHANNELS + extra_body_channels) * V
                     + 2 * stats.numel())
     if table is not None:
         nnz = (table != 0).flatten(1).sum(1).to(steps.dtype)  # (B or 1,)
@@ -161,6 +224,51 @@ def k1_work(state, body, stats, table, stats_out, controls=None):
     if controls is not None:
         nbytes += 4.0 * controls.numel()
     return flops, nbytes
+
+
+def b7_work(state, body, stats, table, stats_out, grid_shape, mesh=True):
+    """(flops, bytes) of one K1 launch in a fluid environment. With the
+    voxel-face model every occupied voxel and step takes
+    `FLUID_FACE_STEP_FLOPS_PER_VOXEL`; with the facet drag (`mesh`) the step
+    takes `FLUID_MESH_STEP_FLOPS_PER_VOXEL` and the robot's surface mesh
+    `MESH_FLOPS_PER_TRIANGLE`, `MESH_FLOPS_PER_VERTEX` and
+    `MESH_FLOPS_PER_CORNER` for each of its triangles, its vertices and the
+    occupied corners that meet in them (`mesh_counts` of the robot's own
+    body). Bytes as `k1_work`: the strains' scratch is the kernel's own
+    business."""
+    if not mesh:
+        return k1_work(state, body, stats, table, stats_out,
+                       flops_per_voxel=FLUID_FACE_STEP_FLOPS_PER_VOXEL)
+    X, Y, Z = grid_shape
+    tris, verts, corners = mesh_counts(
+        body[:, fr._B_OCC, :].reshape(-1, X, Y, Z) > 0.5)
+    per_step = (MESH_FLOPS_PER_TRIANGLE * tris + MESH_FLOPS_PER_VERTEX * verts
+                + MESH_FLOPS_PER_CORNER * corners)
+    return k1_work(state, body, stats, table, stats_out,
+                   flops_per_voxel=FLUID_MESH_STEP_FLOPS_PER_VOXEL,
+                   flops_per_step=per_step)
+
+
+def b8_work(state, body, stats, table, stats_out):
+    """(flops, bytes) of one K1 launch on development bodies: the land
+    step with the growth ramps, `DEVO_STEP_FLOPS_PER_VOXEL` per occupied
+    voxel and step, and the body's six development channels more to read."""
+    return k1_work(state, body, stats, table, stats_out,
+                   flops_per_voxel=DEVO_STEP_FLOPS_PER_VOXEL,
+                   extra_body_channels=K1_DEVO_BODY_CHANNELS)
+
+
+def launch_work(state, body, stats, table, stats_out, controls=None, *,
+                flags, grid_shape):
+    """(flops, bytes) of one K1 launch, counted for the variant of the step
+    its flags select: `b7_work` in a fluid, `b8_work` with development
+    fields, else `k1_work`."""
+    if flags.get("fluid"):
+        return b7_work(state, body, stats, table, stats_out, grid_shape,
+                       mesh=bool(flags.get("fluid_mesh")))
+    if any(flags.get(k) for k in fr._K1_DEVO_FLAGS):
+        return b8_work(state, body, stats, table, stats_out)
+    return k1_work(state, body, stats, table, stats_out, controls)
 
 
 def b4_work(state, body, stats, controls, steps):

@@ -3,6 +3,7 @@
 #include <cmath>
 #include <cstddef>
 #define __device__
+#define __host__
 #define __global__
 #define __forceinline__ inline
 #define __shared__ static

@@ -68,7 +68,7 @@ def host_lib(tmp_path_factory):
 def _launch_args(state, body, kw):
     X, Y, Z = kw["grid_shape"]
     B = state.shape[0]
-    bits = sum(b for k, b in fr._K1_FLAG_BITS.items() if kw["flags"].get(k))
+    bits = fr._flag_bits(kw["flags"])
     params = fr._k1_params(kw["scalars"], fr.DEFAULT_PRECISION)
     return B, X, Y, Z, bits, params, int(body.shape[0] == B and B > 1)
 

@@ -225,9 +225,13 @@ def test_sim_step_refuses_features_outside_envelope():
     for sim, env in ((SimParams(volume_effects_enabled=True), EnvParams()),
                      (SimParams(plasticity_enabled=True), EnvParams()),
                      (SimParams(max_velocity_enabled=True), EnvParams()),
-                     (SimParams(), EnvParams(fluid_environment=True))):
+                     (SimParams(equilibrium_mode=True), EnvParams()),
+                     (SimParams(), EnvParams(floor_limited=True))):
         with pytest.raises(NotImplementedError):
             sim_step(state, body, sim, env, 1e-5)
+    # a fluid environment and development fields are inside the envelope
+    fluid = sim_step(state, body, SimParams(), EnvParams(fluid_environment=True), 1e-5)
+    assert bool(torch.isfinite(fluid.pos).all())
 
 
 def test_import_leaves_jax_out():
@@ -235,7 +239,8 @@ def test_import_leaves_jax_out():
             "evosoro_tpu_torch.bench, evosoro_tpu_torch.convert, "
             "evosoro_tpu_torch.control, evosoro_tpu_torch.control.shooting, "
             "evosoro_tpu_torch.control.sqp, evosoro_tpu_torch.ops.fused_diff, "
-            "evosoro_tpu_torch.roofline, evosoro_tpu_torch.device; "
+            "evosoro_tpu_torch.roofline, evosoro_tpu_torch.device, "
+            "evosoro_tpu_torch.envs, evosoro_tpu_torch.envs.drag; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'evosoro_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

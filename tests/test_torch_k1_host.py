@@ -1,0 +1,166 @@
+"""K1's fluid and development variants, checked without a card.
+
+`ops/csrc/fused_rollout_common.cuh` compiled for the host by g++
+(`tests/cuda_host/`: one thread a block, barriers as no-ops; the fixture of
+tests/test_torch_b4_host.py) runs the step loop in the variant the launch's
+flags select: voxel-face drag, facet drag on the deformed mesh (the
+corner-lattice stencil), the land_water actuation, the development ramps.
+Each is held against `fused_rollout_plain` over the eager step, whose facet
+drag is the gather/scatter formulation of `envs/drag.py`: an independent
+statement of the same function. This checks arithmetic and indexing, not
+barriers or the thread mapping: those are held on the card
+(tests/test_torch_kernels_cuda.py, chip_smoke.py).
+
+Tolerance: every channel group within 1e-4 of the group's largest plain
+value over 40 steps, as tests/test_torch_b4_host.py holds the land step
+(g++'s libm is not torch's; the facet sums run in another order). Each case
+also shows what the check can see: the other drag model, a zero drag
+coefficient and cleared development flags land far outside it.
+"""
+
+import numpy as np
+import pytest
+import torch
+from test_torch_b4_host import GROUPS, host_forward, host_lib  # noqa: F401
+
+from evosoro_tpu_torch import bench
+from evosoro_tpu_torch.ops import fused_rollout as fr
+
+torch.set_num_threads(1)
+REL_TOL = 1e-4
+STEPS = 40
+
+
+def _worst(got, ref, skip=()):
+    """Largest error of any carried channel group (but those in `skip`)
+    over the group's largest plain value."""
+    worst = 0.0
+    for name, (a, b) in list(GROUPS.items())[:-1]:
+        if name in skip:
+            continue
+        top = float(ref[:, a:b].abs().max())
+        err = float((got[:, a:b] - ref[:, a:b]).abs().max())
+        worst = max(worst, err / top if top > 0 else err)
+    return worst
+
+
+def _host(lib, args, kw, steps=STEPS):
+    state, body, stats, _ = args
+    ctrl = torch.zeros((state.shape[0], 1, state.shape[2]))
+    return host_forward(lib, state, body, stats, ctrl, 0,
+                        dict(kw, num_steps=steps, n_knots=0, total_steps=steps))
+
+
+def _punch_holes(args, kw, seed=5):
+    """The bench design with a few voxels taken out, so the mesh has inner
+    faces, vertices with fewer than 8 voxels and bonds that end in nothing."""
+    from evosoro_tpu_torch.core import (build_body, calc_max_dt, evosoro_default_palette,
+                                        init_state, palette_from_list)
+    from evosoro_tpu_torch.envs.drag import attach_mesh_drag
+
+    state, body, stats, _ = args
+    X, Y, Z = kw["grid_shape"]
+    rng = np.random.default_rng(seed)
+    mat = body[0, fr._B_MAT].reshape(X, Y, Z).numpy().astype(np.int32)
+    holes = rng.random(mat.shape) < 0.2
+    holes[0, 0, 0] = False
+    mat = np.where(holes, 0, mat)
+    new = build_body(mat, palette_from_list(evosoro_default_palette()),
+                     phase_offset=body[0, fr._B_PHASE].reshape(X, Y, Z).numpy())
+    if kw["flags"]["fluid_mesh"]:
+        new = attach_mesh_drag(new)
+    B = state.shape[0]
+    st = fr.pack_state_single(init_state(new))[None].expand(B, -1, -1).contiguous()
+    stats = stats.clone()
+    stats[:, fr._S_DT] = float(calc_max_dt(new)) * 0.9
+    stats[:, fr._S_INV_MASS] = 1.0 / float(new.mass.sum())
+    return (st, fr.pack_body(new), stats, None), kw
+
+
+@pytest.mark.parametrize("model,holes", [("face", False), ("face", True),
+                                         ("mesh", False), ("mesh", True)])
+def test_host_compiled_fluid_step_matches_plain(host_lib, model, holes):  # noqa: F811
+    """At the swimming experiment's drag coefficient (750) the drag moves a
+    voxel by about as much as g++'s libm moves it against torch's, so the
+    step is also held at 200 times that coefficient, where drag weighs as
+    much as elasticity: there the other drag model and a launch without
+    drag land two orders outside the tolerance."""
+    args, kw, _ = bench.packed_workload(3, n=4, device="cpu", fluid=model)
+    if holes:
+        args, kw = _punch_holes(args, kw)
+    assert kw["flags"]["fluid"] and kw["flags"]["fluid_mesh"] == (model == "mesh")
+    state, body, stats, _ = args
+    for coefficient in (bench.AGGREGATE_DRAG_COEF, 200 * bench.AGGREGATE_DRAG_COEF):
+        stats = stats.clone()
+        stats[:, fr._S_DRAGC] = coefficient
+        args = (state, body, stats, None)
+        out_h, st_h = _host(host_lib, args, kw)
+        out_p, st_p = fr.fused_call(*args, num_steps=STEPS, **kw)
+        assert float(out_p[:, fr._LIN:fr._LIN + 3].abs().max()) > 0  # it swims
+        assert _worst(out_h, out_p) <= REL_TOL
+        torch.testing.assert_close(st_h[:, :fr._S_STOP], st_p[:, :fr._S_STOP],
+                                   rtol=1e-6, atol=1e-9)
+    no_drag = stats.clone()
+    no_drag[:, fr._S_DRAGC] = 0.0
+    out_0, _ = _host(host_lib, (state, body, no_drag, None), kw)
+    assert _worst(out_0, out_p) > 100 * REL_TOL
+    # the other drag model on the same shelled grid
+    other = dict(kw, flags=dict(kw["flags"], fluid_mesh=model != "mesh"))
+    assert _worst(_host(host_lib, args, other)[0], out_p) > 100 * REL_TOL
+
+
+def test_host_compiled_fluid_step_on_the_evaluators_batch(host_lib):  # noqa: F811
+    """The swimming experiment's own batch (6³ designs in their 7³ shell, a
+    body and dt per robot, IniCM times staggered so robots start actuating
+    on different steps), contact off: the emulation has no pair pass."""
+    args, kw = bench.evaluator_workload(pop_size=3, collision=False, stagger=True,
+                                        device="cpu", experiment="swimming")
+    assert kw["grid_shape"] == (7, 7, 7) and kw["flags"]["fluid_mesh"]
+    assert args[1].shape[0] == args[0].shape[0] == 8
+    out_h, _ = _host(host_lib, args, kw, steps=30)
+    out_p, _ = fr.fused_call(*args, num_steps=30, **kw)
+    assert float(out_p[:, fr._LIN:fr._LIN + 3].abs().max()) > 0
+    assert _worst(out_h, out_p) <= REL_TOL
+
+
+@pytest.mark.parametrize("freeze", [False, True])
+def test_host_compiled_development_step_matches_plain(host_lib, freeze):  # noqa: F811
+    """Random initial and final sizes, growth windows, final phase offsets
+    and amplitude dampings; IniCM time at step 30 of 100, so the prenatal
+    ramp, its end, the growth ramp and (with `freeze`) the frozen clock and
+    the actuation pause are all inside the launch."""
+    args, kw, _ = bench.packed_workload(3, n=4, device="cpu", devo=True, freeze=freeze)
+    flags = kw["flags"]
+    assert all(flags[k] for k in fr._K1_DEVO_FLAGS) and flags["freeze_on"] == freeze
+    out_h, st_h = _host(host_lib, args, kw, steps=100)
+    out_p, st_p = fr.fused_call(*args, num_steps=100, **kw)
+    scale = out_p[:, fr._SCALE]
+    assert float((scale - 0.01).abs().max()) > 1e-3  # the bodies grew
+    assert _worst(out_h, out_p) <= REL_TOL
+    torch.testing.assert_close(st_h[:, :fr._S_STOP], st_p[:, :fr._S_STOP],
+                               rtol=1e-6, atol=1e-9)
+    # cleared development flags: the land step on the same tensors differs
+    land = dict(kw, flags=dict(flags, **{k: False for k in fr._K1_DEVO_FLAGS}))
+    assert _worst(_host(host_lib, args, land, steps=100)[0], out_p) > 100 * REL_TOL
+
+
+def test_host_compiled_development_step_on_the_evaluators_batch(host_lib):  # noqa: F811
+    """The growth experiment's own batch: 5×5×4 bodies, sizes and growth
+    windows from `devo_params_from_vxa`, a body per robot. These all-muscle
+    blocks barely rotate, so their rotation vectors and angular momenta are
+    small beside the rounding noise of the two libms: the rotational groups
+    are held at 2e-3, the scale (the ramps' own output) bit for bit."""
+    args, kw = bench.evaluator_workload(pop_size=3, collision=False, stagger=True,
+                                        device="cpu", experiment="growth")
+    assert kw["grid_shape"] == (5, 5, 4)
+    assert kw["flags"]["use_init_size"] and kw["flags"]["use_final_size"]
+    out_h, _ = _host(host_lib, args, kw, steps=100)
+    out_p, _ = fr.fused_call(*args, num_steps=100, **kw)
+    assert float((out_p[:, fr._SCALE] - 0.01).abs().max()) > 1e-4
+    rotational = ("quat", "angmom", "last_angle1", "last_angle2")
+    assert _worst(out_h, out_p, skip=rotational) <= REL_TOL
+    for name in rotational:
+        a, b = GROUPS[name]
+        assert float((out_h[:, a:b] - out_p[:, a:b]).abs().max()) \
+            <= 2e-3 * float(out_p[:, a:b].abs().max())
+    assert torch.equal(out_h[:, fr._SCALE], out_p[:, fr._SCALE])

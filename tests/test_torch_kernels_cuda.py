@@ -210,3 +210,97 @@ def test_reverse_mode_segment_matches_plain_on_the_card():
         cms, _, _ = dr(sp, dr.stats0, u)
         grads.append(torch.autograd.grad(cms[-1].sum(), u)[0].cpu())
     assert (grads[0] - grads[1]).abs().max() <= 5e-3 * grads[1].abs().max() > 0
+
+
+def _groups_within(out_k, out_p, tol):
+    """Every named channel group of the packed state within its (rtol, atol)."""
+    for name, (a, b) in dict(pos=(fr._POS, fr._POS + 3), quat=(fr._QUAT, fr._QUAT + 4),
+                             linmom=(fr._LIN, fr._LIN + 3),
+                             scale=(fr._SCALE, fr._SCALE + 1)).items():
+        rtol, atol = tol[name]
+        torch.testing.assert_close(out_k[:, a:b], out_p[:, a:b], rtol=rtol, atol=atol,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_fluid_variants_match_plain_on_the_card():
+    """K1's voxel-face and facet-drag variants against the plain version
+    (the eager step with `_fluid_drag`, or `mesh_drag_forces` over gather
+    tables) on the bench design in its shell and on the swimming
+    experiment's own batch, contact off and on, at the experiment's drag
+    coefficient and at 200 times it, where drag weighs as much as
+    elasticity. The face model shares the land step's tolerances; the facet
+    drag sums its terms in another order than the gather tables do and is
+    held at the JAX package's own tolerances between its kernel and its jnp
+    step (tests/test_fused_rollout.py:766-774) for pos and scale, at the land
+    step's for quat, and at rtol 1e-4, atol 5e-5 for linmom (the two part by
+    9.3e-6 at the high coefficient on an H100). A launch without drag and
+    the other model on the same grid must fail them at the high coefficient.
+    Two block sizes are covered: 256 threads (1331 and 343 cells) and, with a
+    3^3 design in its 4^3 shell, 64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; the CUDA kernels have no CPU mode")
+    from evosoro_tpu_torch.bench import evaluator_workload, packed_workload
+
+    face_tol = dict(pos=(2e-5, 1e-9), quat=(2e-5, 1e-7), linmom=(1e-4, 1e-10),
+                    scale=(1e-6, 0.0))
+    mesh_tol = dict(pos=(2e-5, 1e-8), quat=(2e-5, 1e-7), linmom=(1e-4, 5e-5),
+                    scale=(1e-6, 0.0))
+    for model, tol in (("face", face_tol), ("mesh", mesh_tol)):
+        for coll in (False, True):
+            workloads = [
+                packed_workload(8, n=10, collision=coll, device="cuda", fluid=model)[:2],
+                packed_workload(8, n=3, collision=coll, device="cuda", fluid=model)[:2],
+                evaluator_workload(collision=coll, stagger=True, device="cuda",
+                                   experiment="swimming",
+                                   drag_model="mesh" if model == "mesh" else "voxel_face")]
+            for args, kw in workloads:
+                for coefficient in (750.0, 1.5e5):
+                    stats = args[2].clone()
+                    stats[:, fr._S_DRAGC] = coefficient
+                    cargs = (args[0], args[1], stats, args[3])
+                    before = fr.FUSED_ROLLOUT_FLUID_LAUNCHES
+                    out_k, st_k = fr.fused_call(*cargs, num_steps=100, **kw)
+                    assert fr.FUSED_ROLLOUT_FLUID_LAUNCHES == before + 1
+                    out_p, st_p = fr.fused_rollout_plain(*cargs, num_steps=100, **kw)
+                    _groups_within(out_k, out_p, tol)
+                    torch.testing.assert_close(st_k, st_p, rtol=1e-5, atol=1e-7)
+                calm = stats.clone()
+                calm[:, fr._S_DRAGC] = 0.0
+                out_0, _ = fr.fused_call(args[0], args[1], calm, args[3],
+                                         num_steps=100, **kw)
+                with pytest.raises(AssertionError):
+                    _groups_within(out_0, out_p, tol)
+                X, Y, Z = kw["grid_shape"]
+                if fr.has_corner_shell(args[1][:, fr._B_OCC].reshape(-1, X, Y, Z) > 0.5):
+                    other = dict(kw, flags=dict(kw["flags"], fluid_mesh=model != "mesh"))
+                    out_o, _ = fr.fused_call(*cargs, num_steps=100, **other)
+                    with pytest.raises(AssertionError):
+                        _groups_within(out_o, out_p, tol)
+
+
+@pytest.mark.cuda
+def test_development_variant_matches_plain_on_the_card():
+    """K1's development variant against the plain version, at the land
+    step's tolerances: random growth fields on the bench design (without and
+    with the mid-life freeze) and the growth experiment's own batch, contact
+    off and on; the land variant on the same tensors must differ."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; the CUDA kernels have no CPU mode")
+    from evosoro_tpu_torch.bench import evaluator_workload, packed_workload
+
+    workloads = [packed_workload(8, n=6, device="cuda", devo=True, freeze=f)[:2]
+                 for f in (False, True)]
+    workloads += [evaluator_workload(collision=coll, stagger=True, device="cuda",
+                                     experiment="growth") for coll in (False, True)]
+    for args, kw in workloads:
+        for steps in (25, 100):
+            before = fr.FUSED_ROLLOUT_DEVO_LAUNCHES
+            out_k, st_k = fr.fused_call(*args, num_steps=steps, **kw)
+            assert fr.FUSED_ROLLOUT_DEVO_LAUNCHES == before + 1
+            out_p, st_p = fr.fused_rollout_plain(*args, num_steps=steps, **kw)
+            torch.testing.assert_close(out_k, out_p, rtol=2e-5, atol=1e-7)
+            torch.testing.assert_close(st_k, st_p, rtol=1e-5, atol=1e-7)
+        land = dict(kw, flags=dict(kw["flags"], **{k: False for k in fr._K1_DEVO_FLAGS}))
+        out_l, _ = fr.fused_call(*args, num_steps=100, **land)
+        assert float((out_l[:, fr._SCALE] - out_p[:, fr._SCALE]).abs().max()) > 1e-4

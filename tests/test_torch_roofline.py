@@ -201,3 +201,156 @@ def test_adjoint_operation_count_is_the_jaxpr_walk_of_the_steps_vjp():
                                roofline.STEP_FLOPS_PER_VOXEL, rtol=1e-9)
     np.testing.assert_allclose((both - forward) / n ** 3,
                                roofline.ADJOINT_FLOPS_PER_VOXEL, rtol=1e-9)
+
+
+def test_mesh_counts_equal_the_gather_tables():
+    """Triangles, vertices and live corner slots counted from the occupancy
+    with tensor ops against the tables `build_mesh_drag` makes on the host."""
+    from evosoro_tpu_torch.envs.drag import mesh_tables
+
+    rng = np.random.default_rng(0)
+    structures = rng.integers(0, 3, size=(5, 4, 5, 3))
+    counts = roofline.mesh_counts(torch.as_tensor(structures > 0))
+    for s, t, v, c in zip(structures, *(x.tolist() for x in counts)):
+        tables = mesh_tables(s)
+        assert t == int(tables["tri_mask"].sum()) and v == tables["vert_vox"].shape[0]
+        assert c == int(tables["vert_w"].sum())
+    # a solid 10^3 block: 8 corner vertices of 1 voxel, 12 x 9 on edges of 2,
+    # 6 x 81 on faces of 4: 2168 live slots where the padded tables hold 4816
+    solid = torch.ones((1, 10, 10, 10), dtype=torch.bool)
+    assert [int(x) for x in roofline.mesh_counts(solid)] == [1200, 602, 2168]
+
+
+def test_fluid_and_development_work_follow_the_launchs_flags():
+    B, V, grid = 2, 27, (3, 3, 3)
+    state = torch.zeros(B, fr.C_S, V)
+    body = torch.zeros(1, fr.C_B, V)
+    occ = torch.zeros(grid)
+    # a 2^3 block in its shell: 48 triangles, 26 vertices, 8 + 12 x 2 + 6 x 4 corners
+    occ[:2, :2, :2] = 1.0
+    body[0, fr._B_OCC] = occ.flatten()
+    stats = torch.zeros(B, fr.C_STAT)
+    stats[:, fr._S_DT] = 0.5
+    out = stats.clone()
+    out[:, fr._S_TIME] = torch.tensor([5.0, 2.0])  # 10 and 4 steps
+    args = (state, body, stats, None, out)
+    base = 4.0 * (2 * B * 47 * V + 69 * V + 2 * B * fr.C_STAT)
+    land = dict(fluid=False)
+    assert roofline.launch_work(*args, flags=land, grid_shape=grid) == \
+        roofline.k1_work(*args)
+    flops, nbytes = roofline.launch_work(*args, flags=dict(fluid=True), grid_shape=grid)
+    np.testing.assert_allclose(flops, 14 * 8 * roofline.FLUID_FACE_STEP_FLOPS_PER_VOXEL)
+    assert nbytes == base
+    flops, nbytes = roofline.launch_work(*args, flags=dict(fluid=True, fluid_mesh=True),
+                                         grid_shape=grid)
+    np.testing.assert_allclose(
+        flops, 14 * (8 * roofline.FLUID_MESH_STEP_FLOPS_PER_VOXEL
+                     + 48 * roofline.MESH_FLOPS_PER_TRIANGLE
+                     + 26 * roofline.MESH_FLOPS_PER_VERTEX
+                     + 56 * roofline.MESH_FLOPS_PER_CORNER))
+    assert nbytes == base  # the strains' scratch is not compulsory traffic
+    flops, nbytes = roofline.launch_work(*args, flags=dict(use_final_size=True),
+                                         grid_shape=grid)
+    np.testing.assert_allclose(flops, 14 * 8 * roofline.DEVO_STEP_FLOPS_PER_VOXEL)
+    assert nbytes == base + 4.0 * 6 * V
+    assert roofline.b8_work(*args) == (flops, nbytes)
+
+
+def test_fluid_and_development_operation_counts_are_jaxpr_walks():
+    """Where `FLUID_FACE_STEP_FLOPS_PER_VOXEL`, `DEVO_STEP_FLOPS_PER_VOXEL`
+    and the facet-drag step's three constants come from: `tools/roofline.py`'s
+    jaxpr walk over the JAX package's `sim_step` on the 10^3 bench body, in
+    water without and with mesh tables, and with the growth experiment's
+    development fields. The facet-drag step's count is linear in the grid's
+    voxels, the mesh's triangles and its vertices: three bodies with different
+    surfaces fix the three constants, a fourth confirms them. The JAX tables
+    pad every vertex to 8 corner slots (`vert_w` 0 on the padding), so the
+    vertex constant is 8 slots and a rest: a walk of `mesh_drag_forces` with
+    the tables cut to 4 and to 2 slots gives the slot's share, which the bound
+    counts once for every LIVE slot (`vert_w.sum()`), and what is left is
+    counted once a vertex."""
+    import jax
+
+    from evosoro_tpu.core.materials import build_body, calc_max_dt, palette_from_list
+    from evosoro_tpu.core.rollout import init_state
+    from evosoro_tpu.core.step import sim_step
+    from evosoro_tpu.core.types import SimParams, evosoro_default_palette
+    from evosoro_tpu.envs import aquatic, growth_env
+    from evosoro_tpu.envs.drag import attach_mesh_drag, mesh_drag_forces
+    from tools.roofline import _count_jaxpr
+
+    n = 10
+    rng = np.random.default_rng(0)
+    structure = rng.integers(1, 5, size=(n, n, n)).astype(np.int32)
+    phase = rng.uniform(-1, 1, size=(n, n, n))
+    palette = palette_from_list(evosoro_default_palette())
+
+    def total(body, sim, env):
+        dt = float(calc_max_dt(body)) * float(sim.dt_frac)
+        jaxpr = jax.make_jaxpr(lambda s: sim_step(s, body, sim, env, dt))(init_state(body))
+        counts = {"ew": 0, "trans": 0, "red": 0, "dot": 0}
+        _count_jaxpr(jaxpr.jaxpr, counts)
+        return sum(counts.values())
+
+    body = build_body(structure, palette, phase_offset=phase)
+    np.testing.assert_allclose(total(body, SimParams(), aquatic()) / n ** 3,
+                               roofline.FLUID_FACE_STEP_FLOPS_PER_VOXEL, rtol=1e-9)
+
+    def u(lo, hi):
+        return rng.uniform(lo, hi, size=(n, n, n))
+
+    grower = build_body(structure, palette, phase_offset=phase,
+                        initial_voxel_size=u(0.006, 0.014),
+                        final_voxel_size=u(0.006, 0.014), growth_time=u(1, 2),
+                        start_growth_time=u(0, 1))
+    np.testing.assert_allclose(
+        total(grower, SimParams(min_temp_fact=0.4), growth_env()) / n ** 3,
+        roofline.DEVO_STEP_FLOPS_PER_VOXEL, rtol=1e-9)
+
+    rows = []
+    cuts = (None, (slice(2, 5), slice(2, 9), slice(9, 10)),
+            (slice(4, 6), slice(4, 6), slice(4, 6)),
+            (slice(0, 10), slice(3, 4), slice(3, 4)))
+    for cut in cuts:
+        s = structure.copy()
+        if cut is not None:
+            s[cut] = 0
+        swimmer = attach_mesh_drag(build_body(s, palette, phase_offset=phase))
+        tris, verts, corners = roofline.mesh_counts(torch.as_tensor(s > 0)[None])
+        assert int(tris) == int(np.asarray(swimmer.mesh_drag.tri_mask).sum())
+        assert int(verts) == swimmer.mesh_drag.vert_vox.shape[0]
+        assert int(corners) == int(np.asarray(swimmer.mesh_drag.vert_w).sum())
+        rows.append(([n ** 3, int(tris), int(verts)],
+                     total(swimmer, SimParams(), aquatic())))
+    fit = np.linalg.solve(np.array([r[0] for r in rows[:3]], float),
+                          np.array([r[1] for r in rows[:3]], float))
+    np.testing.assert_allclose(
+        fit, [roofline.FLUID_MESH_STEP_FLOPS_PER_VOXEL, roofline.MESH_FLOPS_PER_TRIANGLE,
+              roofline.MESH_TABLE_SLOTS * roofline.MESH_FLOPS_PER_CORNER
+              + roofline.MESH_FLOPS_PER_VERTEX], rtol=1e-9)
+    np.testing.assert_allclose(np.dot(rows[3][0], fit), rows[3][1], rtol=1e-12)
+
+    # the slot's share of the vertex constant: the drag alone on the last
+    # swimmer, its tables cut to fewer slots
+    tables = swimmer.mesh_drag
+    assert tables.vert_vox.shape[1] == roofline.MESH_TABLE_SLOTS
+    shape = s.shape
+
+    def drag_total(slots):
+        cut = tables.replace(vert_vox=tables.vert_vox[:, :slots],
+                             vert_sign=tables.vert_sign[:, :slots],
+                             vert_w=tables.vert_w[:, :slots])
+        z = np.zeros
+        jaxpr = jax.make_jaxpr(lambda pos, quat, lin, sp, sn: mesh_drag_forces(
+            pos, quat, np.ones(shape), lin, np.ones(shape), cut, 750.0, strain_pos=sp,
+            strain_neg=sn, nominal_size=0.01))(
+                z(shape + (3,)), z(shape + (4,)), z(shape + (3,)), z((3,) + shape),
+                z((3,) + shape))
+        counts = {"ew": 0, "trans": 0, "red": 0, "dot": 0}
+        _count_jaxpr(jaxpr.jaxpr, counts)
+        return sum(counts.values())
+
+    n_verts = tables.vert_vox.shape[0]
+    per_slot = (drag_total(8) - drag_total(4)) / (4 * n_verts)
+    assert per_slot == (drag_total(4) - drag_total(2)) / (2 * n_verts)
+    assert per_slot == roofline.MESH_FLOPS_PER_CORNER
