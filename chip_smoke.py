@@ -7,7 +7,10 @@ main paths: two generations each of the evolution experiments of
 examples/basic.py, swimming_basic.py and growth.py (evaluation through the
 fused rollout kernel K1 with its in-kernel contact pass K2, in water with
 the facet drag on the deformed surface mesh, and with the development
-ramps), the sampling-MPC benchmark of tools/bench_mpc.py (a cold CEM
+ramps) and of their feature twins (basic with NormDistByVol, the fall-over
+latch, speed windows and a light source; growth with ballistic
+development, both through K1's feature instance), the sampling-MPC
+benchmark of tools/bench_mpc.py (a cold CEM
 solve and a closed receding-horizon loop through K1's control-knot channel),
 and its gradient-MPC part (FusedSQPSolver: K1 segments forward, the
 reverse-mode segment kernel B4 backward).
@@ -26,6 +29,11 @@ one JSON object of the digests and times: copied into a checkout of another
 commit (the mode uses only names the port has had since B4 came) and run
 there in the same call, it tells whether the two commits compute the same
 bits on the land path, and lets their times be read in turns.
+
+`python3 chip_smoke.py --features` runs K1's fitness features alone: the
+comparisons and guards of `phase_k1_features`, the cost of the bookkeeping
+on 1024 x 10^3 x 200 steps, and two generations each of the two feature
+experiments.
 """
 
 from __future__ import annotations
@@ -463,6 +471,247 @@ def phase_k1_devo(torch):
             guard(label, args, kw)
     assert fr.FUSED_ROLLOUT_DEVO_LAUNCHES > before
     return recs
+
+
+# K1's fitness features against the plain version (`phase_k1_features`).
+# Counters, latches and the channels made of minima and of sums taken one
+# robot-scalar at a time: equal. The sums over voxels (CoM y and volume of
+# a trace sample, so NormDistByVol and the window distances; the needle's
+# position): rtol 1e-5 and 1e-6 lattice units, since K1 and torch add the
+# voxels in other orders. Ballistic development's channels 56-59: rtol 1e-6.
+FEAT_EXACT = dict(trace_count=(35, 36), trace_time=(36, 37), window_count=(39, 40),
+                  window_time=(40, 41), fell=(29, 30), needle_captured=(44, 45),
+                  eol_captured=(46, 47), eol_y=(45, 46), source_min=(22, 25),
+                  source_sum=(25, 28), source_count=(28, 29))
+FEAT_SUMS = dict(norm_dist=(32, 33), regime=(33, 34), frozen=(34, 35),
+                 window_last=(37, 38), window_prev=(38, 39), needle=(41, 44))
+FEAT_RTOL, FEAT_ATOL = 1e-5, 1e-6
+DEVO_RTOL = 1e-6
+# which channel groups each feature's guard must move
+FEAT_GUARDS = dict(needle=("needle", "needle_captured"), falling=("fell",),
+                   ndbv=("norm_dist",), window=("window_last", "window_count"),
+                   sources=("source_min", "source_sum", "source_count"))
+
+
+def _feat_compare(torch, st_k, st_p):
+    """Per channel group of the stats rows: (passes, largest difference)."""
+    out = {}
+    for name, (a, b) in FEAT_EXACT.items():
+        d = (st_k[:, a:b] - st_p[:, a:b]).abs()
+        out[name] = (bool(torch.equal(st_k[:, a:b], st_p[:, a:b])), float(d.max()))
+    for name, (a, b) in FEAT_SUMS.items():
+        d = (st_k[:, a:b] - st_p[:, a:b]).abs()
+        out[name] = (bool((d <= FEAT_ATOL + FEAT_RTOL * st_p[:, a:b].abs()).all()),
+                     float(d.max()))
+    return out
+
+
+def _line_workload(torch, fr, V):
+    """One robot, a row of V muscle voxels with its pair table, contact and
+    the needle and fall-over features on: the packed launch arguments."""
+    import numpy as np
+
+    from evosoro_tpu_torch.core import (build_body, calc_max_dt, evosoro_default_palette,
+                                        init_state, palette_from_list)
+    from evosoro_tpu_torch.core.collision import build_collision_system
+    from evosoro_tpu_torch.core.types import EnvParams, SimParams
+
+    structure = np.full((V, 1, 1), 3, dtype=np.int32)
+    body = build_body(structure, palette_from_list(evosoro_default_palette()), device="cuda")
+    sim = SimParams(self_collisions_enabled=True)
+    env = EnvParams(needle_in_haystack=True, falling_prohibited=True)
+    table = torch.as_tensor(fr.pack_collision(build_collision_system(
+        structure, body.e_mod.cpu().numpy(), 0.01), (V, 1, 1)), device="cuda")[None]
+    args = (fr.pack_state_single(init_state(body))[None].contiguous(), fr.pack_body(body),
+            fr.make_stats(body, 1, calc_max_dt(body) * 0.9, sim, env), table)
+    return args, dict(grid_shape=(V, 1, 1), scalars=fr.kernel_scalars(0.01, sim, env),
+                      flags=fr.launch_flags(body, sim, env, collision=True))
+
+
+def phase_k1_features(torch):
+    """K1's feature instance against the plain version, on the evaluator's
+    own batch (`bench.feature_workload`: 16 x 6^3, a body, pair table and dt
+    per robot, contact on, mat-6 feet and a mat-7 needle in the designs,
+    half the robots falling over): NormDistByVol with the mid-life freeze's
+    window and the afterlife regime, the fall-over latch, the needle,
+    windows of 4 trace steps with 3 sources (one oscillating) and of 12 with
+    1, at 1 and 240 steps (a trace every 6 steps: 38 traces, 10 and 4
+    windows). Then ballistic development on the growth batch
+    (`bench.ballistic_workload`, contact on, 240 steps), the facet-drag variant's feature
+    instance on the swimming batch (100 steps) and the shared-memory ceiling.
+    Guards: each feature's bit off must fail its channels. Then each
+    branch's launch time and the bookkeeping's cost on 1024 x 10^3 x 200
+    steps. Returns (the comparison records, the timed records)."""
+    from evosoro_tpu_torch import roofline
+    from evosoro_tpu_torch.bench import (ballistic_workload, evaluator_workload,
+                                         feature_workload, packed_workload, time_call,
+                                         with_features)
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    before = fr.FUSED_ROLLOUT_FEATURE_LAUNCHES
+    recs = []
+    for n_win, n_src in ((4, 3), (12, 1)):
+        args, kw = feature_workload(n_win=n_win, n_src=n_src, device="cuda")
+        B = args[0].shape[0]
+        for steps in (1, 240):
+            out_k, st_k = fr.fused_call(*args, num_steps=steps, **kw)
+            out_p, st_p = fr.fused_rollout_plain(*args, num_steps=steps, **kw)
+            torch.cuda.synchronize()
+            ok, errs = _compare(torch, fr, out_k, st_k, out_p, st_p)
+            groups = _feat_compare(torch, st_k, st_p)
+            rec = dict(phase="k1_features_vs_plain", workload="evaluator batch %d x 6^3, "
+                       "contact on, features" % B, n_win=n_win, n_src=n_src, steps=steps,
+                       **errs, **{k: v[1] for k, v in groups.items()},
+                       groups_failing=[k for k, v in groups.items() if not v[0]],
+                       robots_fallen=int((st_p[:, fr._S_FELL] > 0.5).sum()),
+                       traces_max=float(st_p[:, fr._S_NTR].max()),
+                       windows_max=float(st_p[:, fr._S_WCNT].max()))
+            rec["sha256"] = _digest("k1_features/n_win=%d/n_src=%d/steps=%d"
+                                    % (n_win, n_src, steps), out_k, st_k)
+            if steps == 240:
+                assert rec["robots_fallen"] > 0 and rec["traces_max"] >= 6 and rec["windows_max"] >= 2, rec
+                for name in ("regime", "frozen"):
+                    a, b = FEAT_SUMS[name]
+                    assert float(st_p[:, a:b].abs().max()) > 0, (name, rec)
+                if n_win == 4:
+                    for name, flag in (("needle", "needle"), ("falling", "falling"),
+                                       ("ndbv", "ndbv"), ("window", "window"),
+                                       ("sources", None)):
+                        if flag == "window":
+                            off = dict(kw, flags=dict(kw["flags"], window=False, n_win=0))
+                        elif flag is None:
+                            off = dict(kw, scalars=dict(kw["scalars"], sources=()))
+                        else:
+                            off = dict(kw, flags=dict(kw["flags"], **{flag: False}))
+                        _, st_g = fr.fused_call(*args, num_steps=steps, **off)
+                        g = _feat_compare(torch, st_g, st_p)
+                        moved = {k: g[k][1] for k in FEAT_GUARDS[name]}
+                        rec[f"guard_{name}"] = moved
+                        assert all(not g[k][0] for k in FEAT_GUARDS[name]), (name, moved)
+            rec["ok"] = ok and not rec["groups_failing"]
+            emit(rec)
+            assert rec["ok"], rec
+            recs.append(rec)
+
+    # ballistic development on the growth batch, contact on as the
+    # ballistic experiment runs it
+    args, kw = ballistic_workload(device="cuda")
+    assert args[3] is not None and kw["flags"]["collision"]
+    steps = 240
+    b0 = fr.FUSED_ROLLOUT_BALLISTIC_LAUNCHES
+    out_k, st_k = fr.fused_call(*args, num_steps=steps, **kw)
+    out_p, st_p = fr.fused_rollout_plain(*args, num_steps=steps, **kw)
+    off = dict(kw, flags=dict(kw["flags"], ballistic=False))
+    out_0, _ = fr.fused_call(*args, num_steps=steps, **off)
+    torch.cuda.synchronize()
+    assert fr.FUSED_ROLLOUT_BALLISTIC_LAUNCHES == b0 + 1
+    ok, errs = _compare(torch, fr, out_k, st_k, out_p, st_p)
+    dd = slice(fr._DEVO_DYN, fr._DEVO_DYN + 4)
+    d_devo = (out_k[:, dd] - out_p[:, dd]).abs()
+    devo_ok = bool((d_devo <= DEVO_RTOL * out_p[:, dd].abs()).all())
+    rebased = ((out_p[:, dd] - args[0][:, dd]).abs().flatten(1).amax(1) > 0)
+    groups = _feat_compare(torch, st_k, st_p)
+    d_off = (out_0[:, dd] - out_p[:, dd]).abs()
+    rec = dict(phase="k1_ballistic_vs_plain", workload="growth evaluator batch %d x 5x5x4, "
+               "contact on" % args[0].shape[0], steps=steps, **errs, devo_err=float(d_devo.max()),
+               robots_rebased=int(rebased.sum()),
+               windows_max=float(st_p[:, fr._S_WCNT].max()),
+               without_ballistic_devo_diff=float(d_off.max()),
+               without_ballistic_passes=bool((d_off <= DEVO_RTOL * out_p[:, dd].abs()).all()),
+               groups_failing=[k for k in ("window_last", "window_prev", "window_count",
+                                           "trace_count") if not groups[k][0]])
+    rec["sha256"] = _digest("k1_ballistic/steps=%d" % steps, out_k, st_k)
+    rec["ok"] = (ok and devo_ok and rec["robots_rebased"] > 0 and not rec["groups_failing"]
+                 and not rec["without_ballistic_passes"])
+    emit(rec)
+    assert rec["ok"], rec
+    recs.append(rec)
+
+    # the feature instance of the facet-drag variant: the swimming batch in
+    # its shell, contact on, the needle, NormDistByVol, windows of 4 and 2
+    # sources; the facet sums part in the last bits (MESH_TOL)
+    (st_w, bo_w, sa_w, tb_w), kw_w = evaluator_workload(
+        collision=True, stagger=True, device="cuda", experiment="swimming")
+    kw_w = with_features(kw_w, sa_w, n_win=4, n_src=2, freeze=False)
+    args_w = (st_w, bo_w, sa_w, tb_w)
+    out_k, st_k = fr.fused_call(*args_w, num_steps=100, **kw_w)
+    out_p, st_p = fr.fused_rollout_plain(*args_w, num_steps=100, **kw_w)
+    torch.cuda.synchronize()
+    ok, errs = _compare(torch, fr, out_k, st_k, out_p, st_p, MESH_TOL)
+    groups = _feat_compare(torch, st_k, st_p)
+    failing = [k for k in ("trace_count", "window_count", "needle_captured", "source_count",
+                           "norm_dist", "window_last", "needle") if not groups[k][0]]
+    rec = dict(phase="k1_features_in_water", workload="swimming evaluator batch 16 x 7^3, "
+               "facet drag, contact on", steps=100, **errs,
+               **{k: groups[k][1] for k in ("norm_dist", "window_last", "source_min")},
+               groups_failing=failing, traces_max=float(st_p[:, fr._S_NTR].max()),
+               ok=ok and not failing)
+    emit(rec)
+    assert rec["ok"] and rec["traces_max"] >= 3, rec
+
+    # the shared-memory ceiling with contact: a 1350-cell body launches the
+    # feature instance (its static shared memory is the largest), 1351 is
+    # refused on the host
+    rec = dict(phase="k1_ceiling", launched=[], refused=[])
+    for V in (1350, 1351):
+        a, k = _line_workload(torch, fr, V)
+        try:
+            fr.fused_call(*a, num_steps=1, **k)
+            torch.cuda.synchronize()
+            rec["launched"].append(V)
+        except ValueError:
+            rec["refused"].append(V)
+    emit(rec)
+    assert rec["launched"] == [1350] and rec["refused"] == [1351], rec
+
+    # each branch's launch, timed at 25 steps: the trace, needle and
+    # fall-over bookkeeping without sources (B8c), the sources alone (B8d),
+    # ballistic development (B8b)
+    timed = {}
+    args_c, kw_c = feature_workload(n_win=4, n_src=0, device="cuda")
+    args_d, kw_d = feature_workload(n_win=0, n_src=3, device="cuda", needle=False,
+                                    falling=False, ndbv=False)
+    for name, (a, k) in dict(b8c=(args_c, kw_c), b8d=(args_d, kw_d),
+                             b8b=(args, kw)).items():
+        rec = dict(phase="k1_feature_branch_time", branch=name, batch=a[0].shape[0],
+                   steps=25, ms=_event_ms(torch, lambda: fr.fused_call(*a, num_steps=25, **k), 5),
+                   plain_ms=_event_ms(torch, lambda: fr.fused_rollout_plain(
+                       *a, num_steps=25, **k), 1))
+        _, st25 = fr.fused_call(*a, num_steps=25, **k)
+        rec.update(roofline.bound(*roofline.launch_work(
+            *a, st25, flags=k["flags"], grid_shape=k["grid_shape"], scalars=k["scalars"])))
+        emit(rec)
+        timed[name] = rec
+
+    # the bookkeeping's cost: 1024 x 10^3 x 200 steps, every feature on
+    # (NormDistByVol, windows of 12, the latch, the needle, 3 sources)
+    # beside none, in turns
+    args, kw, _ = packed_workload(1024, device="cuda")
+    stats = args[2].clone()
+    stats[:, fr._S_INITCM] = 10 * stats[:, fr._S_DT]
+    args = (args[0], args[1], stats, args[3])
+    feat = with_features(kw, stats, n_win=12, n_src=3, freeze=False)
+
+    def run(k):
+        return lambda: fr.fused_call(*args, num_steps=200, **k)
+
+    t_none, t_feat = [], []
+    for k, acc in ((kw, t_none), (feat, t_feat), (feat, t_feat), (kw, t_none)):
+        acc.append(time_call(run(k), groups=2, reps=3))
+    _, st_f = run(feat)()
+    work = [roofline.b8c_work(args[1], stats, st_f, feat["flags"]),
+            roofline.b8d_work(args[1], stats, st_f, 3)]
+    fb = roofline.bound(sum(w[0] for w in work), sum(w[1] for w in work))
+    rec = dict(phase="k1_features_cost", workload="bench 1024 x 10^3 x 200 steps",
+               ms_without=min(t_none), ms_with=min(t_feat),
+               ms_without_all=t_none, ms_with_all=t_feat,
+               added_ms=min(t_feat) - min(t_none),
+               feature_bound_ms=fb["bound_ms"], feature_bound_by=fb["bound_by"],
+               share_of_feature_bound=fb["bound_ms"] / max(min(t_feat) - min(t_none), 1e-9))
+    emit(rec)
+    timed["cost"] = rec
+    assert fr.FUSED_ROLLOUT_FEATURE_LAUNCHES > before
+    return recs, timed
 
 
 def _controls(torch, np, batch, knots, voxels, seed):
@@ -906,10 +1155,13 @@ def phase_sqp(torch, b4_timed):
     return launches
 
 
-def phase_evolution(torch):
-    """Two generations each of the basic, swimming and growth experiments,
-    uncut, population 15, through `evaluate_all` on the card. Returns the
-    launch counts by experiment."""
+def phase_evolution(torch, experiments=("basic", "swimming", "growth", "features",
+                                         "ballistic")):
+    """Two generations each of the basic, swimming and growth experiments and
+    of their feature twins (basic with NormDistByVol, the fall-over latch,
+    speed windows and a source; growth with ballistic development), uncut,
+    population 15, through `evaluate_all` on the card. Returns the launch
+    counts by experiment."""
     import math
 
     from evosoro_tpu_torch.bench import evolution
@@ -921,9 +1173,12 @@ def phase_evolution(torch):
                     fused_rollout_fluid="FUSED_ROLLOUT_FLUID_LAUNCHES",
                     fused_rollout_mesh="FUSED_ROLLOUT_MESH_LAUNCHES",
                     fused_rollout_devo="FUSED_ROLLOUT_DEVO_LAUNCHES",
+                    fused_rollout_features="FUSED_ROLLOUT_FEATURE_LAUNCHES",
+                    fused_rollout_sources="FUSED_ROLLOUT_SOURCE_LAUNCHES",
+                    fused_rollout_ballistic="FUSED_ROLLOUT_BALLISTIC_LAUNCHES",
                     pair_contact="PAIR_CONTACT_LAUNCHES")
     all_launches = {}
-    for experiment in ("basic", "swimming", "growth"):
+    for experiment in experiments:
         for name in counters.values():
             setattr(fr, name, 0)
         records = evolution(gens=2, pop_size=15, device="cuda", experiment=experiment)
@@ -941,18 +1196,26 @@ def phase_evolution(torch):
             assert valid, "every design was invalid or diverged"
             if experiment == "swimming":
                 assert r["k1_fluid_launches"] == r["k1_launches"], r
-            if experiment == "growth":
+            if experiment in ("growth", "ballistic"):
                 assert r["k1_devo_launches"] == r["k1_launches"], r
+            # no generation of a feature twin ran the plain version
+            if experiment in ("features", "ballistic"):
+                assert r["k1_feature_launches"] == r["k1_launches"], r
+            if experiment == "ballistic":
+                assert r["k1_ballistic_launches"] == r["k1_launches"], r
         # K2's routine runs inside K1's launches; its own kernel is not on the path
         assert launches["fused_rollout"] > 0, launches
         assert launches["fused_rollout_with_contact"] > 0, launches
         if experiment == "swimming":  # the default drag model is the facet drag
             assert launches["fused_rollout_mesh"] == launches["fused_rollout_fluid"] \
                 == launches["fused_rollout"], launches
-        elif experiment == "growth":
+        elif experiment in ("growth", "ballistic"):
             assert launches["fused_rollout_devo"] == launches["fused_rollout"], launches
         else:
             assert launches["fused_rollout_fluid"] == launches["fused_rollout_devo"] == 0
+        features = experiment in ("features", "ballistic")
+        assert (launches["fused_rollout_features"] == launches["fused_rollout"]) == features
+        assert (launches["fused_rollout_ballistic"] > 0) == (experiment == "ballistic")
         emit(dict(phase="evolution_launches", experiment=experiment, **launches))
         all_launches[experiment] = launches
     return all_launches
@@ -1006,16 +1269,26 @@ def main():
     phase_build()
     if sys.argv[1:] == ["--land"]:
         return phase_land(torch, np, card)
+    if sys.argv[1:] == ["--features"]:
+        phase_k1_features(torch)
+        phase_evolution(torch, ("features", "ballistic"))
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return None
     k2 = phase_k2(torch, np)
     k1 = phase_k1(torch)
     knots = phase_k1_knots(torch, np)
     phase_k1_segmented(torch, np)
     fluid = phase_k1_fluid(torch)
     devo = phase_k1_devo(torch)
+    feat_recs, feat_timed = phase_k1_features(torch)
     fma = phase_fp32_peak(torch)
     evo_launches = phase_evolution(torch)
     launches = evo_launches["basic"]
     swim, grow = evo_launches["swimming"], evo_launches["growth"]
+    featx, balx = evo_launches["features"], evo_launches["ballistic"]
     mpc_launches, knot_timed, loop_recs = phase_mpc(torch, np)
     b4 = phase_b4(torch, np)
     b4_timed = next(r for r in b4 if "ms" in r)
@@ -1043,11 +1316,13 @@ def main():
              source="evosoro_tpu_torch/ops/csrc/fused_rollout.cu",
              replaces="evosoro_tpu/ops/fused_rollout.py:777",
              launches=launches["fused_rollout"] + swim["fused_rollout"]
-             + grow["fused_rollout"] + mpc_launches["fused_rollout"]
-             + sqp_launches["fused_rollout"],
+             + grow["fused_rollout"] + featx["fused_rollout"] + balx["fused_rollout"]
+             + mpc_launches["fused_rollout"] + sqp_launches["fused_rollout"],
              launches_evolution=launches["fused_rollout"],
              launches_swimming=swim["fused_rollout"],
              launches_growth=grow["fused_rollout"],
+             launches_features=featx["fused_rollout"],
+             launches_ballistic=balx["fused_rollout"],
              launches_mpc=mpc_launches["fused_rollout"],
              launches_sqp=sqp_launches["fused_rollout"],
              **bound_keys(k1_timed),
@@ -1135,6 +1410,46 @@ def main():
              ms=devo_timed["ms"], plain_ms=devo_timed["plain_ms"],
              ms_of="growth evaluator batch %d x 5x5x4, 25 steps, contact on"
              % devo_timed["batch"]),
+        dict(name="K1 trace sampling, NormDistByVol, windows, needle, fall-over (B8c)",
+             route="cuda",
+             source="evosoro_tpu_torch/ops/csrc/fused_rollout_common.cuh",
+             replaces="evosoro_tpu/ops/fused_rollout.py:1752",
+             launches=featx["fused_rollout_features"] + balx["fused_rollout_features"],
+             launches_of="two generations each of the features and ballistic "
+             "experiments, every launch with the features",
+             **bound_keys(feat_timed["b8c"]),
+             max_abs_err=max(max(r.get(k, 0.0) for k in FEAT_SUMS) for r in feat_recs
+                             if r["phase"] == "k1_features_vs_plain"),
+             err_of=("NormDistByVol, regime and frozen sums, window distances, needle "
+                     "position (lattice units; m for the needle) against the plain "
+                     "version: evaluator batch 16 x 6^3, contact on, windows of 4 and "
+                     "12, 1 and 240 steps; counters, latches and minima equal"),
+             ms=feat_timed["b8c"]["ms"], plain_ms=feat_timed["b8c"]["plain_ms"],
+             ms_of="evaluator batch 16 x 6^3, 25 steps, contact on, every feature "
+             "but sources", added_ms_1024x10_3x200=feat_timed["cost"]["added_ms"]),
+        dict(name="K1 environmental sources (B8d)", route="cuda",
+             source="evosoro_tpu_torch/ops/csrc/fused_rollout_common.cuh",
+             replaces="evosoro_tpu/ops/fused_rollout.py:1078",
+             launches=featx["fused_rollout_sources"],
+             launches_of="two generations of the features experiment (one source)",
+             **bound_keys(feat_timed["b8d"]),
+             max_abs_err=max(max(r.get(k, 0.0) for k in ("source_min", "source_sum"))
+                             for r in feat_recs if r["phase"] == "k1_features_vs_plain"),
+             err_of="source minima and history sums (lattice units), 1 and 3 sources",
+             ms=feat_timed["b8d"]["ms"], plain_ms=feat_timed["b8d"]["plain_ms"],
+             ms_of="evaluator batch 16 x 6^3, 25 steps, contact on, 3 sources"),
+        dict(name="K1 ballistic development (B8b)", route="cuda",
+             source="evosoro_tpu_torch/ops/csrc/fused_rollout_common.cuh",
+             replaces="evosoro_tpu/ops/fused_rollout.py:1721",
+             launches=balx["fused_rollout_ballistic"],
+             launches_of="two generations of the ballistic experiment",
+             **bound_keys(feat_timed["b8b"]),
+             max_abs_err=next(r["devo_err"] for r in feat_recs
+                              if r["phase"] == "k1_ballistic_vs_plain"),
+             err_of="devo channels 56-59 (m, s), growth batch 16 x 5x5x4, contact on, "
+             "240 steps",
+             ms=feat_timed["b8b"]["ms"], plain_ms=feat_timed["b8b"]["plain_ms"],
+             ms_of="growth evaluator batch 16 x 5x5x4, 25 steps, contact on, windows of 4"),
         dict(name="fma_peak (B9)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fma_peak.cu",
              replaces="tools/roofline.py:137",

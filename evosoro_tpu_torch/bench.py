@@ -194,6 +194,94 @@ def evaluator_workload(pop_size=15, collision=True, stagger=False, seed=1,
     return (state, body, stats, table), kw
 
 
+# the sources of the feature workloads, in lattice units of a 6^3 body: one
+# swinging along x at 40 Hz, two fixed
+FEATURE_SOURCES = (
+    dict(pos=(0.05, 0.01, 0.01), amp=(0.02, 0.0, 0.0), freq=(40.0, 0.0, 0.0), enabled=True),
+    dict(pos=(0.01, 0.08, 0.01), enabled=True),
+    dict(pos=(0.0, 0.0, 0.1), enabled=True),
+)
+
+
+def with_features(kw, stats, n_win=4, n_src=3, freeze=True, **flags):
+    """Launch keywords `kw` with the fitness features on: NormDistByVol
+    (with the mid-life freeze's window), the fall-over latch, the needle,
+    speed windows of `n_win` trace steps and the first `n_src` of
+    FEATURE_SOURCES; `flags` override any. Times in steps of the batch's
+    largest dt: a trace every 6 steps, the lifetime's end at step 100, a
+    freeze window of 40 steps around step 60."""
+    from evosoro_tpu_torch.envs.sources import make_sources
+
+    step = float(stats[:, fr._S_DT].max())
+    sources = make_sources(list(FEATURE_SOURCES[:n_src]))
+    scalars = dict(kw["scalars"], tb=6 * step, sc_value=100 * step,
+                   freeze=40 * step if freeze else 0.0, freeze_middle=60 * step,
+                   sources=fr._source_statics(EnvParams(sources=sources)))
+    fl = dict(kw["flags"], needle=True, falling=True, ndbv=True, window=n_win > 0,
+              n_win=n_win, freeze_on=freeze)
+    fl.update(flags)
+    return dict(kw, scalars=scalars, flags=fl)
+
+
+def feature_workload(n_win=4, n_src=3, collision=True, device="cuda", pop_size=15, **flags):
+    """The evaluator's batch of the basic experiment (`evaluator_workload`:
+    a body, pair table and dt per robot) made to exercise every fitness
+    feature (`with_features`, with `flags` over it): a mat-7 needle in each
+    design, and mat-6
+    feet on the whole bottom layer of every other robot (those fall over
+    once they actuate) and on one voxel of the rest. IniCM times at steps
+    10-14; robots 1, 5, 9, ... stop at steps 153-195 (their end-of-life Y
+    is captured then), the rest run on.
+    Returns (args, launch keywords without num_steps)."""
+    (state, body, stats, table), kw = evaluator_workload(
+        pop_size=pop_size, collision=collision, device=device)
+    B = state.shape[0]
+    X, Y, Z = kw["grid_shape"]
+    body = body.clone()
+    occ = body[:, fr._B_OCC] > 0.5
+    bottom = (torch.arange(X * Y * Z, device=body.device) % Z) == 0
+    for b in range(B):
+        cells = torch.nonzero(occ[b]).flatten()
+        feet = cells[bottom[cells]] if b % 2 == 0 else cells[:1]
+        body[b, fr._B_MAT, feet] = 6.0
+        body[b, fr._B_MAT, cells[-1]] = 7.0
+    stats = stats.clone()
+    i = torch.arange(B, device=stats.device, dtype=stats.dtype)
+    dt = stats[:, fr._S_DT]
+    stats[:, fr._S_INITCM] = dt * (10 + i % 5)
+    stats[:, fr._S_STOP] = torch.where(i % 4 == 1, dt * (150 + 3 * i), stats[:, fr._S_STOP])
+    return (state, body, stats, table), with_features(kw, stats, n_win, n_src, **flags)
+
+
+def ballistic_workload(device="cuda", pop_size=15, collision=True, trace_steps=8,
+                       slowdown=1.0):
+    """The growth experiment's evaluator batch (a body, pair table and dt
+    per robot; contact on unless `collision` is false, as the ballistic
+    experiment runs it) under speed windows of 4 trace steps with ballistic
+    development: IniCM and the start of growth at step 10, a trace every
+    `trace_steps` steps, and with `slowdown` 1 every decrease of the
+    windowed speed halts development
+    (threshold -0.5, as tests/test_devo_ballistic.py; with 0 the rebase
+    keeps the final size). The state carries the development fields in
+    channels 56-59 as `init_state(ballistic_devo=True)` packs them. Returns
+    (args, launch keywords without num_steps)."""
+    (state, body, stats, table), kw = evaluator_workload(
+        pop_size=pop_size, collision=collision, device=device, experiment="growth")
+    step = float(stats[:, fr._S_DT].max())
+    stats = stats.clone()
+    stats[:, fr._S_INITCM] = 10 * stats[:, fr._S_DT]
+    body = body.clone()
+    body[:, fr._B_START_GT] = torch.where(body[:, fr._B_OCC] > 0.5,
+                                          10 * stats[:, fr._S_DT, None], 0.0)
+    state = state.clone()
+    for k, ch in enumerate((fr._B_INIT_SIZE, fr._B_FINAL_SIZE, fr._B_GROWTH_T, fr._B_START_GT)):
+        state[:, fr._DEVO_DYN + k] = body[:, ch]
+    scalars = dict(kw["scalars"], tb=trace_steps * step, min_growth_t=0.0, max_slow=-0.5,
+                   bal_slow=slowdown)
+    flags = dict(kw["flags"], window=True, n_win=4, ballistic=True)
+    return (state, body, stats, table), dict(kw, scalars=scalars, flags=flags)
+
+
 def time_call(fn, groups=4, reps=3):
     """Best per-call milliseconds over `groups` groups of `reps` calls,
     timed with CUDA events after one warm-up call."""
@@ -512,8 +600,44 @@ def growth_experiment(pop_size=15, sim_time=10.0, init_time=0.5, dt_frac=0.5,
     return sim, env, pop
 
 
+# the oscillating light source of the features experiment: 20 lattice
+# units ahead of the 6^3 body in +X, swinging 5 units in y at 0.5 Hz
+FEATURE_SOURCE = dict(pos=(0.2, 0.03, 0.03), amp=(0.0, 0.05, 0.0), freq=(0.0, 0.5, 0.0),
+                      enabled=True)
+
+
+def features_experiment(pop_size=15, sim_time=5.0, init_time=1.0, dt_frac=0.9,
+                        seed=1):
+    """(sim, env, pop) of examples/basic.py with the fitness features the
+    reference's Env carries switched on: NormDistByVol, the fall-over latch,
+    speed windows of 4 trace steps (a trace every 0.01 s) and one oscillating
+    light source (FEATURE_SOURCE); fitness NormFinalDist, which NormDistByVol
+    turns into the volume-normalized trace sum."""
+    from evosoro_tpu_torch.envs.sources import make_sources
+
+    sim, env, pop = basic_experiment(pop_size=pop_size, sim_time=sim_time,
+                                     init_time=init_time, dt_frac=dt_frac, seed=seed)
+    env.add_param("norm_dist_by_vol", 1, "<NormDistByVol>")
+    env.add_param("falling_prohibited", 1, "<FallingProhibited>")
+    env.add_param("num_trace_steps_in_window", 4, "<NumTraceStepsInWindow>")
+    env.sources = make_sources([FEATURE_SOURCE])
+    return sim, env, pop
+
+
+def ballistic_experiment(pop_size=15, sim_time=10.0, init_time=0.5, dt_frac=0.5,
+                         seed=1):
+    """(sim, env, pop) of examples/growth.py with speed windows of 4 trace
+    steps (a trace every 0.01 s): the evolved final sizes then develop
+    ballistically, rebased every step from the windowed speeds."""
+    sim, env, pop = growth_experiment(pop_size=pop_size, sim_time=sim_time,
+                                      init_time=init_time, dt_frac=dt_frac, seed=seed)
+    env.add_param("num_trace_steps_in_window", 4, "<NumTraceStepsInWindow>")
+    return sim, env, pop
+
+
 EXPERIMENTS = dict(basic=basic_experiment, swimming=swimming_experiment,
-                   growth=growth_experiment)
+                   growth=growth_experiment, features=features_experiment,
+                   ballistic=ballistic_experiment)
 
 
 class RecordedEvaluation:
@@ -530,6 +654,8 @@ class RecordedEvaluation:
         k1_before = fr.FUSED_ROLLOUT_LAUNCHES
         fluid_before = fr.FUSED_ROLLOUT_FLUID_LAUNCHES
         devo_before = fr.FUSED_ROLLOUT_DEVO_LAUNCHES
+        feature_before = fr.FUSED_ROLLOUT_FEATURE_LAUNCHES
+        ballistic_before = fr.FUSED_ROLLOUT_BALLISTIC_LAUNCHES
         t0 = time.time()
         out = evaluation.evaluate_all(sim, env, pop, *args, device=self.device,
                                       **kwargs)
@@ -544,15 +670,18 @@ class RecordedEvaluation:
             k1_launches=fr.FUSED_ROLLOUT_LAUNCHES - k1_before,
             k1_fluid_launches=fr.FUSED_ROLLOUT_FLUID_LAUNCHES - fluid_before,
             k1_devo_launches=fr.FUSED_ROLLOUT_DEVO_LAUNCHES - devo_before,
+            k1_feature_launches=fr.FUSED_ROLLOUT_FEATURE_LAUNCHES - feature_before,
+            k1_ballistic_launches=fr.FUSED_ROLLOUT_BALLISTIC_LAUNCHES - ballistic_before,
             best_norm_final_dist=max(fits), fitnesses=fits))
         return out
 
 
 def evolution(gens=2, pop_size=15, device="cuda", directory=None,
               experiment="basic", **settings):
-    """Run `gens` generations of an experiment (`basic`, `swimming` or
-    `growth`; `settings` go to its constructor) on `device`; returns the
-    per-generation records of `RecordedEvaluation`."""
+    """Run `gens` generations of an experiment (a name of EXPERIMENTS:
+    `basic`, `swimming`, `growth`, `features` or `ballistic`; `settings` go
+    to its constructor) on `device`; returns the per-generation records of
+    `RecordedEvaluation`."""
     sim, env, pop = EXPERIMENTS[experiment](pop_size=pop_size, **settings)
     recorder = RecordedEvaluation(device)
     with tempfile.TemporaryDirectory() as tmp:

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from evosoro_tpu_torch.core.collision import CollisionSystem
-from evosoro_tpu_torch.core.types import EnvParams, SimParams, SimState, VoxelBody
+from evosoro_tpu_torch.core.types import DevoState, EnvParams, SimParams, SimState, VoxelBody
 from evosoro_tpu_torch.envs.drag import MeshDragSystem, mesh_from_tables
 
 
@@ -44,6 +44,8 @@ def _convert(cls, src, device, dtype, scalars=()):
             out[f.name] = collision_from_numpy(v)
         elif f.name == "mesh_drag":
             out[f.name] = mesh_drag_from_numpy(v, device, dtype)
+        elif f.name == "devo":
+            out[f.name] = _convert(DevoState, v, device, dtype)
         else:
             out[f.name] = _tensor(v, device, dtype)
     return cls(**out)
@@ -92,6 +94,17 @@ def sim_params_from_jax(sim) -> SimParams:
 
 
 def env_params_from_jax(env) -> EnvParams:
+    """A JAX `EnvParams` as this port's; its sources come across as float64
+    tensors."""
+    sources = None
     if env.sources is not None:
-        raise NotImplementedError("environmental sources are not ported yet")
-    return _params(EnvParams, env)
+        from evosoro_tpu_torch.envs.sources import EnvSources
+
+        s = env.sources
+        sources = EnvSources(
+            base_pos=torch.as_tensor(np.asarray(s.base_pos, np.float64)),
+            amp=torch.as_tensor(np.asarray(s.amp, np.float64)),
+            freq=torch.as_tensor(np.asarray(s.freq, np.float64)),
+            enabled=torch.as_tensor(np.asarray(s.enabled, bool)),
+            source_type=torch.as_tensor(np.asarray(s.source_type, np.int32)))
+    return _params(EnvParams, env.replace(sources=None)).replace(sources=sources)

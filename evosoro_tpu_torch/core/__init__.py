@@ -22,6 +22,7 @@ from evosoro_tpu_torch.core.rollout import (  # noqa: F401
 )
 from evosoro_tpu_torch.core.step import sim_step  # noqa: F401
 from evosoro_tpu_torch.core.types import (  # noqa: F401
+    DevoState,
     EnvParams,
     Material,
     MaterialPalette,

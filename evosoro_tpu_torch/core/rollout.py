@@ -5,9 +5,11 @@ The port of `evosoro_tpu.core.rollout`: `init_state`, `center_of_mass`,
 (reference: VX_SimGA.cpp:25-203) on the port's envelope. Where the JAX
 package `vmap`s `rollout`, this one takes leading batch dimensions on the
 state and the controls, as `sim_step` does; fluid environments and development bodies run as the
-step runs them. Sources, needle-in-haystack,
-the fall-over latch, NormDistByVol, speed windows, ballistic devo and the
-stop conditions other than max-sim-time are not ported yet and raise.
+step runs them. The fitness features run as in the JAX package:
+environmental sources, needle-in-haystack, the fall-over latch,
+NormDistByVol over the CoM/volume trace, the trailing window distance and
+the speed windows of ballistic development. The stop conditions other than
+max-sim-time are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from evosoro_tpu_torch.core import quaternion as q
 from evosoro_tpu_torch.core.constants import DEFAULT_PRECISION, Precision
 from evosoro_tpu_torch.core.materials import calc_max_dt
 from evosoro_tpu_torch.core.step import freeze_where, sim_step
-from evosoro_tpu_torch.core.types import EnvParams, SimParams, SimState, VoxelBody
+from evosoro_tpu_torch.core.types import DevoState, EnvParams, SimParams, SimState, VoxelBody
 
 _BIG = 1e5  # reference sentinel for "min over voxels" scans (VX_Sim.cpp:2603)
 
@@ -30,11 +32,14 @@ _BIG = 1e5  # reference sentinel for "min over voxels" scans (VX_Sim.cpp:2603)
 def init_state(body: VoxelBody, dtype=None, volume_effects: bool = False,
                ballistic_devo: bool = False) -> SimState:
     """Initial rest state of one robot (reference: VXS_Voxel.cpp:95-134
-    ResetVoxel), on the body's device."""
-    if volume_effects or ballistic_devo:
+    ResetVoxel), on the body's device.
+
+    `ballistic_devo`: carry the dynamic DevoState, so that velocity-adjusted
+    development can rebase the per-voxel development fields every step
+    (reference: VXS_Voxel.cpp:342-381; see types.DevoState)."""
+    if volume_effects:
         raise NotImplementedError(
-            "init_state: volume-effects and ballistic-devo carries are not "
-            "ported yet")
+            "init_state: the volume-effects carry is not ported yet")
     X, Y, Z = body.occ.shape[-3:]
     dtype = dtype or body.nom_pos.dtype
     dev = body.nom_pos.device
@@ -43,7 +48,22 @@ def init_state(body: VoxelBody, dtype=None, volume_effects: bool = False,
     def z(*shape):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
+    devo = None
+    if ballistic_devo:
+        def f(a):
+            return torch.as_tensor(a, device=dev).to(dtype).expand(X, Y, Z).clone()
+
+        devo = DevoState(
+            initial_voxel_size=f(body.initial_voxel_size),
+            final_voxel_size=f(body.final_voxel_size),
+            original_final_voxel_size=f(body.final_voxel_size),
+            growth_time=f(body.growth_time),
+            start_growth_time=f(body.start_growth_time),
+            win_prev=z(), win_last=z(),
+            win_count=torch.zeros((), dtype=torch.int32, device=dev),
+        )
     return SimState(
+        devo=devo,
         pos=body.nom_pos.to(dtype).clone(),
         quat=q.quat_identity((X, Y, Z), dtype=dtype, device=dev),
         linmom=z(X, Y, Z, 3),
@@ -116,6 +136,28 @@ def _posterior_y(state: SimState, body: VoxelBody):
     return torch.where(valid, y, _BIG).flatten(-3).amin(-1)
 
 
+def _needle_pos(state: SimState, body: VoxelBody):
+    """Position (..., 3) of the material-7 "needle" voxel (reference:
+    VX_Sim.cpp:2715-2727 GetNeedlePosition; designs carry at most one, so a
+    masked mean is exact); zeros without one."""
+    is_needle = (body.mat == 7)[..., None]
+    n = (body.mat == 7).flatten(-3).sum(-1).clamp(min=1)
+    num = torch.where(is_needle, state.pos, 0.0).flatten(-4, -2).sum(-2)
+    return num / n[..., None]
+
+
+def _norm_dist_by_vol(cm_y, vols, mask, L, exponent):
+    """Σ Δy/L / ((V_i + V_{i-1})/2)^exp over the trace intervals (last axis)
+    whose two ends are in `mask` (reference: VX_SimGA.cpp:58-117; the
+    reference keeps separate per-regime trace lists, so intervals that cross
+    a regime boundary are left out here, as in the JAX package)."""
+    dy = (cm_y[..., 1:] - cm_y[..., :-1]) / L
+    avg_v = 0.5 * (vols[..., 1:] + vols[..., :-1])
+    m = mask[..., 1:] & mask[..., :-1]
+    safe_v = torch.where(avg_v > 0, avg_v, 1.0)
+    return torch.where(m, dy / safe_v ** exponent, 0.0).sum(-1)
+
+
 def _safe_norm2(x, y):
     """sqrt(x² + y²) with the JAX package's double `where` around the root."""
     dsq = x * x + y * y
@@ -126,7 +168,7 @@ def _safe_norm2(x, y):
 class RolloutResult:
     """Outputs of one rollout, or of a batch of them: the counterpart of
     the reference fitness XML (VX_SimGA.cpp:140-203 WriteResultFile). The
-    fields of features that are not ported keep their off-values."""
+    fields of features that are off keep their off-values."""
 
     final_state: SimState
     ini_cm: Any  # CoM captured when t first exceeds init_cm_time
@@ -162,11 +204,15 @@ def _expand_state(state: SimState, batch_shape, init_batch) -> SimState:
     if tuple(init_batch) == tuple(batch_shape):
         return state
     nb = len(init_batch)
-    out = {}
-    for f in dataclasses.fields(SimState):
-        v = getattr(state, f.name)
-        if torch.is_tensor(v):
-            out[f.name] = v.expand(tuple(batch_shape) + tuple(v.shape[nb:]))
+
+    def expand(v):
+        return v.expand(tuple(batch_shape) + tuple(v.shape[nb:]))
+
+    out = {f.name: expand(getattr(state, f.name)) for f in dataclasses.fields(SimState)
+           if torch.is_tensor(getattr(state, f.name))}
+    if state.devo is not None:
+        out["devo"] = state.devo.replace(**{f.name: expand(getattr(state.devo, f.name))
+                                            for f in dataclasses.fields(DevoState)})
     return state.replace(**out)
 
 
@@ -189,28 +235,22 @@ def rollout(
     modulation; knot k is active for steps [k*S/K, (k+1)*S/K), the MPC
     actuation channel. Its leading dimensions are the batch; a state
     without them is broadcast. `trace_every > 0` records the CoM, the robot
-    volume and the time every that many steps. `stop_time`: optional
-    per-rollout SC_MAX_SIM_TIME value (a float or a tensor of the batch
-    shape); once a rollout's time passes it, its state freezes.
+    volume and the time every that many steps; NormDistByVol records them
+    every step when `trace_every` is 0. `stop_time`: optional per-rollout
+    SC_MAX_SIM_TIME value (a float or a tensor of the batch shape); once a
+    rollout's time passes it, its state freezes, as it does once the
+    fall-over latch trips. A state that carries a DevoState runs ballistic
+    development under the environment's speed windows.
     """
-    refused = [
-        ("environmental sources", env.sources is not None),
-        ("needle in haystack", env.needle_in_haystack),
-        ("the fall-over latch", env.falling_prohibited),
-        ("NormDistByVol", env.norm_dist_by_vol),
-        ("speed windows", int(env.num_trace_steps_in_window) > 0),
-        ("stop conditions other than max sim time",
-         stop_condition_type is not None),
-    ]
-    for name, on in refused:
-        if on:
-            raise NotImplementedError(f"rollout: {name} is not ported yet")
+    if stop_condition_type is not None:
+        raise NotImplementedError(
+            "rollout: stop conditions other than max sim time are not ported yet")
+    n_win = int(env.num_trace_steps_in_window)
     if dt is None:
         dt = calc_max_dt(body, sim.volume_effects_enabled) * sim.dt_frac
     if state is None:
-        state = init_state(body, volume_effects=sim.volume_effects_enabled)
-    if state.devo is not None:
-        raise NotImplementedError("rollout: ballistic devo is not ported yet")
+        state = init_state(body, volume_effects=sim.volume_effects_enabled,
+                           ballistic_devo=n_win > 0 and body.using_final_voxel_size)
 
     batch = tuple(state.time.shape)
     n_knots = 0
@@ -229,18 +269,56 @@ def rollout(
     dtype, dev = state.pos.dtype, state.pos.device
     if stop_time is not None:
         stop_time = torch.as_tensor(stop_time, dtype=dtype, device=dev)
+    want_trace = trace_every > 0 or env.norm_dist_by_vol
+    # ballistic development runs when the state carries a DevoState and the
+    # environment defines speed windows (reference: NumTimeStepsInWindow > 0)
+    ballistic = state.devo is not None and n_win > 0
+    tb = env.time_between_traces
+    nexp = env.normalization_exponent
 
     def false():
         return torch.zeros(batch, dtype=torch.bool, device=dev)
 
+    def filled(shape, v, dt_=dtype):
+        return torch.full(batch + shape, v, dtype=dt_, device=dev)
+
     ini_cm = center_of_mass(state, body)
     cm_initialized = false()
-    eol_y = torch.zeros(batch, dtype=dtype, device=dev)
+    eol_y = filled((), 0.0)
     eol_captured = false()
+    fell = false()
+    ini_needle = _needle_pos(state, body).expand(batch + (3,))
+    needle_init = false()
+    if ballistic:
+        # windowed speed traces (reference: VX_Sim.cpp:1600-1606 WindowTrace)
+        buf_y, buf_v = filled((n_win,), 0.0), filled((n_win,), 0.0)
+        n_traces = filled((), 0, torch.int32)
+        last_trace_t, last_win_t = filled((), -1.0), filled((), -1.0)
+    if env.sources is not None:
+        from evosoro_tpu_torch.envs.sources import (
+            UPDATE_SOURCES_HIST_EVERY,
+            min_distances,
+            source_positions,
+        )
+
+        n_src = env.sources.num_sources
+        src_min, src_sum = filled((n_src,), -1.0), filled((n_src,), 0.0)
+        src_count = filled((), 0, torch.int32)
     stride = max(trace_every, 1)
     cms, vols, times = [], [], []
 
     for i in range(num_steps):
+        # environmental sources: distances at the top of the step from the
+        # previous step's positions (reference: VX_Sim.cpp:1060
+        # updateSourcesInformation runs before Integrate), with a history
+        # sample every UPDATE_SOURCES_HIST_EVERY steps
+        if env.sources is not None:
+            tau = torch.clamp(state.time - sim.init_cm_time, min=0.0)
+            src_min = min_distances(source_positions(env.sources, tau), state,
+                                    body).to(dtype)
+            if i % UPDATE_SOURCES_HIST_EVERY == 0:
+                src_sum = src_sum + src_min
+                src_count = src_count + 1
         # IniCM capture at the top of TimeStep once CurTime has passed
         # InitCmTime (reference: VX_Sim.cpp:1064-1075), from the previous
         # step's positions
@@ -254,23 +332,69 @@ def rollout(
         eol_y = torch.where(eol_cap, _posterior_y(state, body), eol_y)
         eol_captured = eol_captured | eol_cap
 
+        # needle initial position (reference: VX_Sim.cpp:1084-1088)
+        if env.needle_in_haystack:
+            ncap = ~needle_init & (state.time > sim.init_cm_time)
+            ini_needle = torch.where(ncap[..., None], _needle_pos(state, body), ini_needle)
+            needle_init = needle_init | ncap
+
+        # fall-over latch: more material-6 feet than non-feet touching the
+        # floor ends the sim (reference: VX_Sim.cpp:1412-1419)
+        if env.falling_prohibited:
+            n_all, n_feet = _touch_counts(state, body)
+            fell = fell | ((state.time > sim.init_cm_time) & (n_feet > n_all - n_feet))
+
         ctrl = None
         if n_knots:
             knot = min(i * n_knots // num_steps, n_knots - 1)
             ctrl = control_sequence[..., knot, :, :, :]
 
-        if trace_every > 0 and i % stride == 0:
+        if want_trace and i % stride == 0:
             cms.append(cm_now)
             vols.append(total_volume(state, body).expand(batch))
             times.append(state.time)
 
         new_state = sim_step(state, body, sim, env, dt, prec, control_offset=ctrl)
-        if stop_time is not None:
-            new_state = freeze_where(state.time >= stop_time, state, new_state)
+
+        # windowed speed traces for ballistic development: a window every
+        # NumTimeStepsInWindow trace intervals once past InitCmTime
+        # (reference: UpdateStats, VX_Sim.cpp:1600-1606)
+        if ballistic:
+            t_new = new_state.time
+            trace_due = (t_new > sim.init_cm_time) & (
+                (n_traces == 0) | (last_trace_t + tb <= t_new))
+            cm_new = center_of_mass(new_state, body)
+            vol_new = total_volume(new_state, body).expand(batch)
+            due = trace_due[..., None]
+            buf_y = torch.where(due, torch.cat([buf_y[..., 1:], cm_new[..., 1:2]], -1), buf_y)
+            buf_v = torch.where(due, torch.cat([buf_v[..., 1:], vol_new[..., None]], -1), buf_v)
+            n_traces = n_traces + trace_due.to(torch.int32)
+            last_trace_t = torch.where(trace_due, t_new, last_trace_t)
+
+            win_due = (t_new > sim.init_cm_time) & (
+                (last_win_t < 0) | (last_win_t + n_win * tb <= t_new))
+            dy = (buf_y[..., 1:] - buf_y[..., :-1]) / body.nominal_size
+            avg_v = 0.5 * (buf_v[..., 1:] + buf_v[..., :-1])
+            pair_ok = torch.arange(n_win - 1, device=dev) >= (
+                n_win - torch.clamp(n_traces, max=n_win))[..., None]
+            safe_v = torch.where(avg_v > 0, avg_v, 1.0)
+            wdist = torch.where(pair_ok, dy / safe_v ** nexp, 0.0).sum(-1)
+            devo = new_state.devo
+            new_state = new_state.replace(devo=devo.replace(
+                win_prev=torch.where(win_due, devo.win_last, devo.win_prev),
+                win_last=torch.where(win_due, wdist, devo.win_last),
+                win_count=devo.win_count + win_due.to(torch.int32)))
+            last_win_t = torch.where(win_due, t_new, last_win_t)
+
+        if env.falling_prohibited or stop_time is not None:
+            stopped = fell
+            if stop_time is not None:
+                stopped = stopped | (state.time >= stop_time)
+            new_state = freeze_where(stopped, state, new_state)
         state = new_state
 
     cm_trace = vol_trace = trace_times = None
-    if trace_every > 0:
+    if want_trace:
         cm_trace = torch.stack(cms, dim=nb)
         vol_trace = torch.stack(vols, dim=nb)
         trace_times = torch.stack(times, dim=nb)
@@ -295,12 +419,65 @@ def rollout(
 
     n_all, n_feet = _touch_counts(final, body)
 
+    # volume-normalized distances over the trace (reference:
+    # VX_SimGA.cpp:58-117); plain |ΔCoM| when NormDistByVol is off
     zero = torch.zeros_like(final_dist)
+    norm_final_dist = final_dist
+    norm_frozen_dist = zero
     # the reference subtracts the raw-metres posterior Y from the
     # L-normalized posterior distance (VX_SimGA.cpp:39 normRegimeDist)
     norm_regime_dist = posterior_dist - eol_y
+    if env.norm_dist_by_vol:
+        cm_y = cm_trace[..., 1]
+        every = torch.ones_like(trace_times, dtype=torch.bool)
+        norm_final_dist = _norm_dist_by_vol(cm_y, vol_trace, every, L, nexp)
+        regime = trace_times > sim.stop_condition_value
+        norm_regime_dist = _norm_dist_by_vol(cm_y, vol_trace, regime, L, nexp)
+        # frozen window mask (reference: VX_Sim.cpp:1090-1104)
+        middle = 0.5 * (sim.stop_condition_value - sim.init_cm_time)
+        fs = middle - 0.5 * sim.mid_life_freeze_time + sim.init_cm_time
+        fe = middle + 0.5 * sim.mid_life_freeze_time
+        frozen = (trace_times > fs) & (trace_times < fe)
+        norm_frozen_dist = _norm_dist_by_vol(cm_y, vol_trace, frozen, L, nexp)
+
+    # fixed trailing window distance (reference: VX_Sim.cpp:2745-2784)
+    norm_window_dist = zero
+    if n_win > 0 and want_trace:
+        w = min(n_win, int(cm_trace.shape[nb]))
+        norm_window_dist = _norm_dist_by_vol(
+            cm_trace[..., -w:, 1], vol_trace[..., -w:],
+            torch.ones(w, dtype=torch.bool, device=dev), L, nexp)
+
+    # needle-in-haystack (reference: VX_SimGA.cpp:45-55)
+    push_dist = zero
+    found_needle = torch.zeros(batch, dtype=torch.int32, device=dev)
+    if env.needle_in_haystack:
+        nd = _needle_pos(final, body)[..., :2] - ini_needle[..., :2]
+        push_dist = _safe_norm2(nd[..., 0], nd[..., 1]) / L
+        found_needle = ((nd[..., 0] ** 2 + nd[..., 1] ** 2) > 0).to(torch.int32)
+
+    # fall-over zeroing (reference: VX_SimGA.cpp:115-126; the penalty
+    # subtracts the workspace Z dimension in voxel counts, GetVZDim)
+    fall_adj_post_y = eol_y
+    if env.falling_prohibited:
+        Z = body.occ.shape[-1]
+        fall_adj_post_y = torch.where(fell, eol_y - Z, eol_y)
+        norm_final_dist = torch.where(fell, 0.0, norm_final_dist)
+        norm_regime_dist = torch.where(fell, 0.0, norm_regime_dist)
+        norm_frozen_dist = torch.where(fell, 0.0, norm_frozen_dist)
+
+    # the reported headline fitness subtracts the frozen-window distance
+    # (reference: VX_SimGA.cpp:145 "NormFinalDist" element)
+    norm_final_dist = norm_final_dist - norm_frozen_dist
     # diverged rollouts score worst (evosoro: tools/evaluation.py:107-110)
-    norm_final_dist = torch.where(final.diverged, 0.0, final_dist)
+    norm_final_dist = torch.where(final.diverged, 0.0, norm_final_dist)
+
+    source_min_dist = source_avg_min_dist = None
+    if env.sources is not None:
+        source_min_dist = src_min
+        source_avg_min_dist = torch.where(
+            src_count[..., None] > 0,
+            src_sum / torch.clamp(src_count, min=1)[..., None], -1.0)
 
     return RolloutResult(
         final_state=final,
@@ -310,22 +487,24 @@ def rollout(
         final_dist=final_dist,
         final_dist_y=final_dist_y,
         norm_regime_dist=norm_regime_dist,
-        norm_frozen_dist=zero,
+        norm_frozen_dist=norm_frozen_dist,
         anterior_dist=anterior_dist,
         posterior_dist=posterior_dist,
         anterior_y=anterior_y,
         posterior_y=posterior_y,
         end_of_life_posterior_y=eol_y,
-        fall_adj_post_y=eol_y,
-        fell_over=false(),
+        fall_adj_post_y=fall_adj_post_y,
+        fell_over=fell,
         num_touching_floor=n_all,
         num_non_feet_touching_floor=n_feet,
         lifetime=final.time - sim.afterlife_time,
-        found_needle=torch.zeros(batch, dtype=torch.int32, device=dev),
-        push_dist=zero,
-        norm_window_dist=zero,
+        found_needle=found_needle,
+        push_dist=push_dist,
+        norm_window_dist=norm_window_dist,
         diverged=final.diverged,
         cm_trace=cm_trace,
         vol_trace=vol_trace,
         trace_times=trace_times,
+        source_min_dist=source_min_dist,
+        source_avg_min_dist=source_avg_min_dist,
     )

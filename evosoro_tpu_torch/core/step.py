@@ -15,9 +15,10 @@ damping, self-collision, gravity, floor contact with Coulomb friction and
 the sticky floor, Euler and angular integration, thermal actuation with
 the mid-life freeze, the fluid environment of the land_water fork (facet
 drag on the deformed surface mesh, or the voxel-face approximation, and its
-simpler actuation) and linear development (prenatal and growth ramps, final
-phase offset and amplitude damping, size-capped actuation). Every other
-feature raises NotImplementedError.
+simpler actuation) and development (prenatal and growth ramps, final
+phase offset and amplitude damping, size-capped actuation, and the
+ballistic rebase of a state's DevoState from its speed windows). Every
+other feature raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -128,7 +129,6 @@ def _check_envelope(state: SimState, body: VoxelBody, sim: SimParams,
         ("max-velocity clamp", sim.max_velocity_enabled),
         ("limited floor", env.floor_limited),
         ("nonlinear materials", not body.all_linear),
-        ("ballistic devo", state.devo is not None),
         ("dt reduction across shards", dt_reduce is not None),
     ]
     for name, on in refused:
@@ -385,10 +385,10 @@ def _floor_effect(state, body, sim: SimParams, env: EnvParams, vel,
 # ---------------------------------------------------------------------------
 
 def _scale_update(state, body, sim: SimParams, env: EnvParams, t):
-    """New per-voxel scale: thermal actuation with the mid-life freeze, the
-    static development ramps and the reference's rate clamps, or the fluid
-    environment's simpler actuation (ballistic devo is outside the
-    envelope)."""
+    """(new per-voxel scale, new DevoState): thermal actuation with the
+    mid-life freeze, the development ramps and the reference's rate clamps,
+    with the ballistic rebase of `state.devo` when it is set; or the fluid
+    environment's simpler actuation, which leaves `state.devo` as it is."""
     nom = torch.full_like(state.scale, body.nominal_size)
     tv = _vox(t)
 
@@ -409,12 +409,18 @@ def _scale_update(state, body, sim: SimParams, env: EnvParams, t):
         else:
             temp_fact = torch.ones_like(nom)
         temp_fact = torch.clamp(temp_fact, min=0.1)
-        return torch.where(body.occ, temp_fact * nom, nom)
+        return torch.where(body.occ, temp_fact * nom, nom), state.devo
 
     max_scale = (1.0 + _vox(env.growth_amplitude)) * nom
     min_scale = _vox(sim.min_temp_fact) * nom
     last = state.last_scale
     devo_size = body.using_initial_voxel_size or body.using_final_voxel_size
+    # the development fields come from the dynamic DevoState under ballistic
+    # development, else from the body
+    devo = state.devo
+    src = body if devo is None else devo
+    initial_size, final_size = src.initial_voxel_size, src.final_voxel_size
+    start, growth = src.start_growth_time, src.growth_time
 
     # prenatal linear development ramp (reference: VXS_Voxel.cpp:237-238)
     prenatal = dev_temp_fact = None
@@ -422,7 +428,7 @@ def _scale_update(state, body, sim: SimParams, env: EnvParams, t):
         init_cm = _vox(torch.as_tensor(sim.init_cm_time, dtype=nom.dtype,
                                        device=nom.device))
         c = torch.where(tv >= 0.5 * init_cm, 1.0, _safe_div(2.0 * tv, init_cm))
-        prenatal = c * (_safe_div(body.initial_voxel_size, nom) - 1.0)
+        prenatal = c * (_safe_div(initial_size, nom) - 1.0)
 
     # postnatal development (reference: :263-289)
     dev_phase = dev_ampdamp = None
@@ -433,13 +439,11 @@ def _scale_update(state, body, sim: SimParams, env: EnvParams, t):
         freeze = sim.mid_life_freeze_time
         middle = 0.5 * (sim.stop_condition_value - sim.init_cm_time)
         frozen_adj = torch.clamp(tv - _vox(middle - 0.5 * freeze), 0.0, freeze)
-        start, growth = body.start_growth_time, body.growth_time
         growing = (tv >= start) & (growth > 0)
         eff_t = torch.minimum(tv, start + growth + freeze) - frozen_adj
         k = torch.where(growing, _safe_div(eff_t - start, growth), 0.0)
         if body.using_final_voxel_size:
-            dev_temp_fact = k * (
-                _safe_div(body.final_voxel_size, body.initial_voxel_size) - 1.0)
+            dev_temp_fact = k * (_safe_div(final_size, initial_size) - 1.0)
         if body.using_final_phase_offset:
             dev_phase = k * (body.final_phase_offset - body.phase_offset)
         if body.using_final_temp_amp_damp:
@@ -494,7 +498,48 @@ def _scale_update(state, body, sim: SimParams, env: EnvParams, t):
     curr = ctrl * nom + grown
     curr = torch.where((curr < last) & (curr < min_scale), last, curr)
     curr = torch.where((curr > last) & (curr > max_scale), last, curr)
-    return torch.where(body.occ, curr, nom)
+    new_scale = torch.where(body.occ, curr, nom)
+    if devo is None:
+        return new_scale, None
+    return new_scale, _ballistic_rebase(devo, sim, env, tv, grown, nom)
+
+
+def _ballistic_rebase(devo, sim: SimParams, env: EnvParams, tv, cur_size, nom):
+    """Ballistic velocity-adjusted development (reference:
+    VXS_Voxel.cpp:342-381): once two speed windows exist, every step rebases
+    development at the current size `cur_size`; if the windowed speed fell
+    by more than MaxSlowdownPermitted, the final size is pulled toward the
+    current size by BallisticSlowdownFact."""
+    time_in_window = int(env.num_trace_steps_in_window) * env.time_between_traces
+    ready = (_vox(devo.win_count) >= 2) & (
+        tv >= _vox(sim.init_cm_time + 2.0 * time_in_window))
+    apply = ready & (tv >= devo.start_growth_time + env.min_growth_time)
+
+    this_speed, last_speed = _vox(devo.win_last), _vox(devo.win_prev)
+    ratio = _safe_div(this_speed, torch.where(last_speed != 0, last_speed, 1.0))
+    decreasing = ((last_speed > 0) & (this_speed < last_speed)
+                  & (ratio < 1.0 - env.max_slowdown_permitted))
+    adj = 1.0 - decreasing.to(nom.dtype) * env.ballistic_slowdown_fact
+    suggested = cur_size + (devo.final_voxel_size - cur_size) * adj
+    orig = devo.original_final_voxel_size
+    # monotonicity and original-bound clamps (reference: :367-377)
+    up = orig > cur_size
+    sugg_up = torch.minimum(suggested, orig)
+    fin_up = torch.where(sugg_up >= cur_size, sugg_up, cur_size)
+    sugg_dn = torch.maximum(suggested, orig)
+    fin_dn = torch.where(sugg_dn <= cur_size, sugg_dn, cur_size)
+    reb_final = torch.where(up, fin_up, fin_dn)
+    reb_growth = torch.clamp(devo.growth_time - (tv - devo.start_growth_time), min=0.0)
+
+    def q(x):  # the reference stores these fields as float32
+        return x.to(torch.float32).to(nom.dtype)
+
+    return devo.replace(
+        initial_voxel_size=torch.where(apply, q(cur_size), devo.initial_voxel_size),
+        final_voxel_size=torch.where(apply, q(reb_final), devo.final_voxel_size),
+        growth_time=torch.where(apply, q(reb_growth), devo.growth_time),
+        start_growth_time=torch.where(apply, q(tv.expand_as(nom)), devo.start_growth_time),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -645,8 +690,8 @@ def sim_step(
     linmom = torch.where(occf, linmom, 0.0)
     angmom = torch.where(occf, angmom, 0.0)
 
-    # ---- actuation (reference: :224-341) ----
-    new_scale = _scale_update(state, body, sim, env, t)
+    # ---- actuation and development (reference: :224-381) ----
+    new_scale, new_devo = _scale_update(state, body, sim, env, t)
     if control_offset is not None:
         # MPC direct actuation channel: additive scale modulation
         ctrl_off = torch.as_tensor(control_offset, dtype=new_scale.dtype,
@@ -681,6 +726,7 @@ def sim_step(
         strain_offset=torch.stack([b["strain_offset"] for b in bonds], dim=-4),
         time=t + dt,
         diverged=diverged_now,
+        devo=new_devo,
         ke_history=ke_history,
         total_strain_e=total_strain_e,
         max_vox_vel=max_vox_vel,
@@ -690,21 +736,35 @@ def sim_step(
     return freeze_where(state.diverged, state, new_state)
 
 
-def freeze_where(frozen, old: SimState, new: SimState) -> SimState:
-    """Per robot, `old` where `frozen` (a tensor of the batch shape), else
-    `new`; fields that are None stay None."""
+def _select(frozen, old, new, fields):
+    """{field: old where `frozen` else new} over `fields`; a field that is
+    None on either side takes `new`'s value."""
     nb = frozen.dim()
     out = {}
-    for f in ("pos", "quat", "linmom", "angmom", "scale", "last_scale",
-              "small_angle", "last_pos2", "last_angle1", "last_angle2",
-              "max_strain", "strain_offset", "time", "diverged", "ke_history",
-              "total_strain_e", "max_vox_vel"):
+    for f in fields:
         a, b = getattr(old, f), getattr(new, f)
         if a is None or b is None:
             out[f] = b
             continue
         fz = frozen.reshape(frozen.shape + (1,) * (b.dim() - nb))
         out[f] = torch.where(fz, a, b)
+    return out
+
+
+_DEVO_FIELDS = ("initial_voxel_size", "final_voxel_size", "original_final_voxel_size",
+                "growth_time", "start_growth_time", "win_prev", "win_last", "win_count")
+
+
+def freeze_where(frozen, old: SimState, new: SimState) -> SimState:
+    """Per robot, `old` where `frozen` (a tensor of the batch shape), else
+    `new`; fields that are None stay None."""
+    out = _select(frozen, old, new, (
+        "pos", "quat", "linmom", "angmom", "scale", "last_scale",
+        "small_angle", "last_pos2", "last_angle1", "last_angle2",
+        "max_strain", "strain_offset", "time", "diverged", "ke_history",
+        "total_strain_e", "max_vox_vel"))
+    if old.devo is not None and new.devo is not None:
+        out["devo"] = new.devo.replace(**_select(frozen, old.devo, new.devo, _DEVO_FIELDS))
     return new.replace(**out)
 
 

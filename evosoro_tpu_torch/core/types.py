@@ -353,13 +353,44 @@ class VoxelBody(_Replace):
 
 
 @dataclasses.dataclass
+class DevoState(_Replace):
+    """Dynamic development state for ballistic (velocity-adjusted)
+    development (reference: VXS_Voxel.cpp:342-381).
+
+    With speed windows on (NumTimeStepsInWindow > 0) the reference rebases
+    each voxel's development every step once two speed windows exist:
+    initialVoxelSize/finalVoxelSize/growthTime/startGrowthTime become
+    per-voxel state, pulled toward the current size whenever the robot's
+    windowed speed drops by more than MaxSlowdownPermitted. The rollout
+    keeps the windowed speeds (win_prev/win_last) from its CoM/volume trace;
+    `sim_step` applies the rebase. Per-voxel fields are (..., X, Y, Z), the
+    window scalars have the batch shape.
+
+    A deliberate divergence, as in the JAX package: the reference reads
+    ``WindowTrace[WindowTrace.size()]`` (VXS_Voxel.cpp:352), one past the
+    end of the vector; this implements the evident intent (the last two
+    completed windows).
+    """
+
+    initial_voxel_size: Any  # [m]
+    final_voxel_size: Any  # [m]
+    original_final_voxel_size: Any  # [m], the monotonicity bound
+    growth_time: Any  # [s]
+    start_growth_time: Any  # [s]
+    win_prev: Any  # previous completed window's normalized distance
+    win_last: Any  # last completed window's normalized distance
+    win_count: Any  # int32, completed windows so far
+
+
+@dataclasses.dataclass
 class SimState(_Replace):
     """Dynamic state of one rollout, or of a batch of them.
 
     Mirrors CVXS_Voxel state (VXS_Voxel.h) + CVXS_Bond damping memory
     (VX_Bond.h _LastPos2/_LastAngle1/_LastAngle2) + the plasticity
-    high-water marks. The volume-effects and ballistic-devo carries of the
-    JAX package are outside this port's envelope and stay None.
+    high-water marks, and the ballistic-development carry `devo`. The
+    volume-effects carries of the JAX package are outside this port's
+    envelope and stay None.
     """
 
     pos: Any

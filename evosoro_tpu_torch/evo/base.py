@@ -170,6 +170,9 @@ class Env(VoxCadParams):
             sticky_floor=bool(self.sticky_floor),
             fluid_environment=bool(self.fluid_environment),
             lattice_dim=self.lattice_dimension,
+            # environmental sources (envs.sources.make_sources), set like
+            # the other add_param() attributes
+            sources=g("sources", None),
         )
 
 

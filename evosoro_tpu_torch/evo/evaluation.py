@@ -12,11 +12,14 @@ Fluid environments run the facet drag on the deformed surface mesh by
 default (`Env(drag_model="mesh")`: the grid gains the one-cell corner shell
 the kernel's stencil needs) or the voxel-face model
 (`drag_model="voxel_face"`); devo genomes go through
-`devo_params_from_vxa` into the kernel's development ramps.
+`devo_params_from_vxa` into the kernel's development ramps. The fitness
+features the environment switches on (NormDistByVol, the fall-over latch,
+needle-in-haystack, speed windows, with ballistic development when a final
+size is evolved under them, environmental sources) run inside the same
+launch, and their result tags map onto `packed_metrics`.
 
-Not ported yet: the jnp-scan fallback evaluator (`make_batched_evaluator`),
-the multi-device sharding, volume effects, ballistic devo and the fitness
-features beyond NormFinalDist / finalDistY.
+Not ported yet: the jnp-scan fallback evaluator (`make_batched_evaluator`)
+and the tags only it fills, the multi-device sharding, volume effects.
 """
 
 from __future__ import annotations
@@ -52,14 +55,24 @@ _TAG_TO_FIELD = {
     "<Stiffness>": "stiffness",
 }
 
-# result-XML tags -> packed_metrics keys (reference: VX_SimGA.cpp:140-203);
-# the JAX package's other fitness tags need the features not ported yet
+# result-XML tags -> packed_metrics keys (reference: VX_SimGA.cpp:140-203).
+# The JAX package's other eight tags (<FinalDist>, <AnteriorDist>,
+# <PosteriorDist>, <AnteriorY>, <PosteriorY>, <NumTouchingFloor>,
+# <NumNonFeetTouchingFloor>, <Lifetime>) are filled only by its eager
+# evaluator, not ported yet: they raise by name
 _OBJECTIVE_TAG_TO_RESULT = {
     "<NormFinalDist>": "norm_final_dist",
     "<normAbsoluteDistance>": "norm_final_dist",
     "<normAbsoluteDisplacement>": "norm_final_dist",
     "<finalDistY>": "final_dist_y",
     "<normDistY>": "final_dist_y",
+    "<NormRegimeDist>": "norm_regime_dist",
+    "<NormFrozenDist>": "norm_frozen_dist",
+    "<EndOfLifePosteriorY>": "end_of_life_posterior_y",
+    "<FallAdjPostY>": "fall_adj_post_y",
+    "<FoundNeedleInHaystack>": "found_needle",
+    "<PushDist>": "push_dist",
+    "<WindowDist>": "norm_window_dist",
 }
 
 # phase timing of the most recent _dispatch_batch (host prep vs device time,
@@ -157,7 +170,9 @@ def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
     """Batched evaluation through the fused rollout (`ops.fused_rollout`):
     per-individual bodies, envs, dt and stop time ride per-robot channels,
     so a batch is ONE launch. `fluid_mesh`: the facet drag on the deformed
-    mesh; the caller pads the grid with the one-cell corner shell. Returns
+    mesh; the caller pads the grid with the one-cell corner shell. Speed
+    windows over an evolved final size run ballistic development, each
+    robot's state carrying its DevoState. Returns
     `fn(structures, voxel_fields, env_batch, stop_time,
     collision_packed=None)` -> dict of numpy metrics; `collision_packed` is
     the (B, V, V) float32 pair-table batch."""
@@ -187,7 +202,7 @@ def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
         body = build_body(structure, palette, lattice_dim=lattice_dim,
                           **voxel_fields)
         dt = calc_max_dt(body) * dt_frac
-        sp = fr.pack_state_single(init_state(body))
+        sp = fr.pack_state_single(init_state(body, ballistic_devo=flags["ballistic"]))
         bp = fr.pack_body(body)[0]
         row = fr.make_stats(body, 1, dt, sim_params, env1, stop_time)[0]
         return sp, bp, row
@@ -219,9 +234,12 @@ def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
                                  collision_packed)
         t1 = time.time()
         out_state, out_stats = fr.fused_call(sp, bp, rows, col, **launch_kw)
-        # (the fall-over penalty, which reads the grid's height less the
-        # shell layer, comes with the fitness features still to port)
-        m = fr.packed_metrics(out_state, bp, out_stats, lattice_dim)
+        m = fr.packed_metrics(
+            out_state, bp, out_stats, lattice_dim, ndbv=flags["ndbv"],
+            falling=flags["falling"], needle=flags["needle"], window=flags["window"],
+            # the fall-over penalty uses the workspace's height: less the
+            # corner shell's layer when the grid carries it
+            grid_z=grid_shape[2] - (1 if fluid_mesh else 0))
         out = {k: v.cpu().numpy() for k, v in m.items()}  # waits for the device
         # the host waits on the launch, so launch_s is the device's busy time
         # plus one small copy back

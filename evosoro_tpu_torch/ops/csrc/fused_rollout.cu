@@ -53,7 +53,8 @@
 // loads and barriers within a block sets the time, not the bytes. With
 // collision on, the pair pass (pair_contact.cuh) walks each table row with
 // one dependent load a lane per iteration and dominates the step. Shared
-// memory caps V at ~1600 voxels (~1350 with collision). Keeping the state
+// memory caps V at 1613 cells (1612 in the feature instance, whose window
+// ring takes 96 bytes), 1350 with collision. Keeping the state
 // resident on chip across steps and more warps per SM are the levers.
 //
 // Numerics: built with -fmad=false and without fast math, so every multiply
@@ -64,16 +65,23 @@
 //
 // The step loop itself (rollout_steps) lives in fused_rollout_common.cuh,
 // which the reverse-mode segment kernel (fused_rollout_bwd.cu) shares.
+//
+// The fitness features (sources, needle, fall-over latch, NormDistByVol,
+// speed windows, ballistic development; the JAX kernel's :912-946,
+// :1001-1169, :1721-1837) compile into a second instance of each variant,
+// launched when a feature bit or a source is on; their carry rides stats
+// channels 22-46 and the window ring starts empty in every launch.
 #include "fused_rollout_common.cuh"
 
-template <int VARIANT>
+template <int VARIANT, bool FEAT>
 __global__ void __launch_bounds__(MAX_THREADS)
 fused_rollout_kernel(float* state_all, const float* __restrict__ body_all,
                      int body_batched, float* stats_all,
                      const float* __restrict__ a1_all, int a1_batched,
                      const float* __restrict__ ctrl_all, int n_knots,
                      int knot_steps, int step_base, int X, int Y, int Z,
-                     int num_steps, Params p, int flags, float* scratch_all) {
+                     int num_steps, Params p, int flags, float* scratch_all,
+                     FeatParams fp) {
     extern __shared__ float sh[];
     const int V = X * Y * Z;
     const int b = blockIdx.x;
@@ -85,8 +93,15 @@ fused_rollout_kernel(float* state_all, const float* __restrict__ body_all,
     float* scr = scratch_all ? scratch_all + (size_t)b * 6 * V : nullptr;
 
     Robot r = load_robot(stat);
-    rollout_steps<VARIANT>(st, 0, bo, a1, cu, n_knots, knot_steps, step_base, X, Y, Z,
-                           num_steps, p, flags, r, nullptr, sh, scr);
+    if constexpr (FEAT) {
+        Feat fe = load_feat(stat);
+        rollout_steps<VARIANT, true>(st, 0, bo, a1, cu, n_knots, knot_steps, step_base, X, Y,
+                                     Z, num_steps, p, flags, r, nullptr, sh, scr, &fe, &fp);
+        if (threadIdx.x == 0) store_feat(stat, fe, fp, flags);
+    } else {
+        rollout_steps<VARIANT>(st, 0, bo, a1, cu, n_knots, knot_steps, step_base, X, Y, Z,
+                               num_steps, p, flags, r, nullptr, sh, scr);
+    }
 
     if (threadIdx.x == 0) {
         stat[ST_TIME] = r.t;
@@ -98,44 +113,56 @@ fused_rollout_kernel(float* state_all, const float* __restrict__ body_all,
     }
 }
 
-template <int VARIANT>
+template <int VARIANT, bool FEAT>
 static int launch_variant(float* state, const float* body, int body_batched,
                           float* stats, const float* a1, int a1_batched,
                           const float* ctrl, int n_knots, int knot_steps,
                           int step_base, int B, int X, int Y, int Z, int num_steps,
                           const Params& p, int flags, float* scratch,
-                          cudaStream_t stream) {
+                          const FeatParams& fp, cudaStream_t stream) {
     const int V = X * Y * Z;
     const int threads = V >= MAX_THREADS ? MAX_THREADS : ((V + 31) / 32) * 32;
     const size_t smem = (size_t)(BF + ((flags & F_COLL) ? 7 : 0)) * V * sizeof(float);
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
-            fused_rollout_kernel<VARIANT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            fused_rollout_kernel<VARIANT, FEAT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    fused_rollout_kernel<VARIANT><<<B, threads, smem, stream>>>(
+    fused_rollout_kernel<VARIANT, FEAT><<<B, threads, smem, stream>>>(
         state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots,
-        knot_steps, step_base, X, Y, Z, num_steps, p, flags, scratch);
+        knot_steps, step_base, X, Y, Z, num_steps, p, flags, scratch, fp);
     return (int)cudaGetLastError();
 }
 
 // scratch: (B, 6, V) floats of device memory, needed by the facet-drag
-// variant alone (flags F_FLUID | F_FLUID_MESH), else null
+// variant alone (flags F_FLUID | F_FLUID_MESH), else null. fparams: the
+// features' N_FEAT_PARAMS constants (ops/fused_rollout.py _feat_params).
 extern "C" int fused_rollout(float* state, const float* body, int body_batched,
                              float* stats, const float* a1, int a1_batched,
                              const float* ctrl, int n_knots, int knot_steps,
                              int step_base, int B, int X, int Y, int Z,
                              int num_steps, const float* params, int flags,
-                             float* scratch, void* stream) {
+                             float* scratch, const float* fparams, void* stream) {
     Params p;
     memcpy(&p, params, sizeof(float) * N_PARAMS);
+    const FeatParams fp = feat_params_from(fparams);
     const int variant = variant_of(flags);
     if (variant == V_FLUID_MESH && scratch == nullptr) return (int)cudaErrorInvalidValue;
-#define LAUNCH(VARIANT)                                                              \
-    launch_variant<VARIANT>(state, body, body_batched, stats, a1, a1_batched, ctrl, \
-                            n_knots, knot_steps, step_base, B, X, Y, Z, num_steps,  \
-                            p, flags, scratch, (cudaStream_t)stream)
+    // the ballistic rebase lives in the development variant
+    if ((flags & F_BALLISTIC) && variant != V_DEVO) return (int)cudaErrorInvalidValue;
+    if (fp.n_src < 0 || fp.n_src > MAX_SRC || fp.n_win < 0 || fp.n_win > MAX_WIN)
+        return (int)cudaErrorInvalidValue;
+    const bool feat = (flags & F_FEAT) || fp.n_src > 0;
+#define LAUNCH(VARIANT)                                                                   \
+    (feat ? launch_variant<VARIANT, true>(state, body, body_batched, stats, a1, a1_batched, \
+                                          ctrl, n_knots, knot_steps, step_base, B, X, Y, Z,  \
+                                          num_steps, p, flags, scratch, fp,                  \
+                                          (cudaStream_t)stream)                              \
+          : launch_variant<VARIANT, false>(state, body, body_batched, stats, a1,             \
+                                           a1_batched, ctrl, n_knots, knot_steps, step_base, \
+                                           B, X, Y, Z, num_steps, p, flags, scratch, fp,     \
+                                           (cudaStream_t)stream))
     switch (variant) {
         case V_FLUID_FACE: return LAUNCH(V_FLUID_FACE);
         case V_FLUID_MESH: return LAUNCH(V_FLUID_MESH);

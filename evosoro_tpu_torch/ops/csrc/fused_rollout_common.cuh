@@ -38,6 +38,26 @@
 // bond strains the corners need go through 6 floats a voxel of scratch in
 // device memory, written in the bond pass. Bound by the same latency as
 // the land step: one more barrier, and 8 corner rotations a cell.
+//
+// The fitness features are a second template parameter, FEAT, which a launch
+// sets when any feature bit or an environmental source is on; with FEAT
+// false the step compiles to what it was without them. They replace
+// _make_kernel:912-946 and 1001-1169 (sources, end-of-life posterior Y,
+// needle capture, fall-over latch), 1721-1750 (ballistic rebase of the
+// development fields in state channels 56-59, variant V_DEVO only) and
+// 1752-1837 (trace sampling, NormDistByVol sums, window ring and window
+// distance). Every per-robot quantity is block-uniform (a robot is a block):
+// each thread keeps the same copy of the carry (struct Feat), reductions hand
+// every thread the same sum or minimum, and the window ring (<= 12 samples of
+// CoM y and volume) lives in shared memory, written by thread 0 and zeroed at
+// the start of every launch (single-call rollouts, as in the JAX kernel). The
+// trace sample is taken only on steps where it is due, the end-of-life and
+// needle reductions only on their capturing steps. A robot that freezes
+// (diverged, past its stop time, fallen over) leaves the loop as before, but
+// the JAX kernel still integrates the steps it throws away and its trace
+// takes one sample from the first of them: that step runs once more without
+// writing the state ("dry"), and the sources' history samples of the steps
+// left are added on leaving.
 #pragma once
 #include <cuda_runtime.h>
 #include <string.h>
@@ -113,6 +133,16 @@
 #define B_START_GT 75
 #define B_FINAL_PHASE 76
 #define B_FINAL_AD 77
+#define B_MAT 84  // material id (mat-5 obstacles, mat-6 feet, mat-7 needle)
+// ballistic development: the dynamic initial size, final size, growth time
+// and start of growth, in state channels 56-59
+#define S_DEVO_DYN 56
+// stats channels of the features: per-source minimum distance, history sums
+// and count; then fall latch, previous trace sample, NormDistByVol sums,
+// trace count and time, window distances, count and time, needle, end-of-life
+// posterior Y (ops/fused_rollout.py _S_SRC.._S_EOLCAP)
+#define ST_SRC 22
+#define ST_FEAT 29
 
 // feature flags (host: ops/fused_rollout.py _K1_FLAG_BITS)
 #define F_FLOOR 1
@@ -130,6 +160,15 @@
 #define F_USE_FPHASE 4096
 #define F_USE_FAD 8192
 #define F_DEVO (F_USE_INIT | F_USE_FINAL | F_USE_GT | F_USE_FPHASE | F_USE_FAD)
+#define F_NEEDLE 16384
+#define F_FALLING 32768
+#define F_NDBV 65536
+#define F_WINDOW 131072
+#define F_BALLISTIC 262144
+#define F_TRACE (F_NDBV | F_WINDOW | F_BALLISTIC)
+#define F_FEAT (F_NEEDLE | F_FALLING | F_TRACE)
+#define MAX_WIN 12  // window ring slots (ops/fused_rollout.py MAX_KERNEL_WINDOW)
+#define MAX_SRC 3
 
 // variants of the step (template parameter of rollout_steps)
 #define V_LAND 0
@@ -254,6 +293,37 @@ __device__ inline F3 block_sum3(F3 v, float* red) {
     }
     __syncthreads();
     return s;
+}
+
+#ifdef EVOSORO_HOST_EMULATION
+__device__ __forceinline__ float warp_min(float v) { return v; }  // one thread a block
+#else
+__device__ __forceinline__ float warp_min(float v) {
+    for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
+#endif
+
+// block-wide minimum of three per-thread values, the same in every thread
+__device__ inline F3 block_min3(F3 v, float* red) {
+    v.x = warp_min(v.x);
+    v.y = warp_min(v.y);
+    v.z = warp_min(v.z);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) {
+        red[3 * warp] = v.x;
+        red[3 * warp + 1] = v.y;
+        red[3 * warp + 2] = v.z;
+    }
+    __syncthreads();
+    F3 m = {red[0], red[1], red[2]};
+    for (int w = 1; w < (int)((blockDim.x + 31) >> 5); ++w) {
+        m.x = fminf(m.x, red[3 * w]);
+        m.y = fminf(m.y, red[3 * w + 1]);
+        m.z = fminf(m.z, red[3 * w + 2]);
+    }
+    __syncthreads();
+    return m;
 }
 
 // One bond (v, d) in its own frame: everything core/step.py's
@@ -550,6 +620,32 @@ __device__ __forceinline__ float development_scale(float t, float scale, float a
     return curr;
 }
 
+// The size development has reached at a voxel, grow_fact * L: what
+// development_scale computes on its way (the ballistic rebase starts from it)
+__device__ __forceinline__ float development_grown(float t, const float dv[6], float init_cm,
+                                                   const Params& p, int flags) {
+    const float nom = p.L;
+    float prenatal = 0.f, dev_temp_fact = 0.f;
+    if (flags & F_USE_INIT) {
+        const float c = t >= 0.5f * init_cm ? 1.f : sdiv(2.f * t, init_cm);
+        prenatal = c * (sdiv(dv[0], nom) - 1.f);
+    }
+    if (flags & (F_USE_GT | F_USE_FINAL)) {
+        const float middle = 0.5f * (p.sc_value - init_cm);
+        const float frozen_adj = fminf(fmaxf(t - (middle - p.half_freeze), 0.f), p.freeze);
+        const float start = dv[3], growth = dv[2];
+        const bool growing = t >= start && growth > 0.f;
+        const float eff_t = fminf(t, start + growth + p.freeze) - frozen_adj;
+        const float k = growing ? sdiv(eff_t - start, growth) : 0.f;
+        if (flags & F_USE_FINAL) dev_temp_fact = k * (sdiv(dv[1], dv[0]) - 1.f);
+    }
+    if (!(flags & (F_USE_INIT | F_USE_FINAL))) return nom;
+    float grow_fact = 1.f;
+    if (flags & F_USE_INIT) grow_fact = grow_fact * (1.f + prenatal);
+    if (flags & F_USE_FINAL) grow_fact = grow_fact * (1.f + dev_temp_fact);
+    return grow_fact * nom;
+}
+
 // The land_water fork's actuation of an occupied voxel in a fluid: no
 // development, no amplitude damping, no rate clamps, a hard floor at 0.1
 // (land_water VXS_Voxel.cpp:210-236); gated on temp_enabled alone.
@@ -694,6 +790,264 @@ __device__ __forceinline__ Robot load_robot(const float* stat) {
     return r;
 }
 
+// The launch constants of the features, each the float32 rounding of the
+// double the JAX kernel's Python expression gives (ops/fused_rollout.py
+// _feat_params)
+struct FeatParams {
+    float inv_l;         // 1 / L
+    float tb;            // time between traces
+    float nexp;          // normalization exponent
+    float fs_off;        // middle - freeze / 2: the frozen window opens at fs_off + init_cm
+    float fe;            // middle + freeze / 2: ... and closes here
+    float win_span;      // n_win * tb
+    float two_win;       // 2 * n_win * tb
+    float min_growth_t;  // ballistic rebase: min growth time,
+    float keep_ratio;    // 1 - max slowdown permitted,
+    float bal_slow;      // ballistic slowdown factor
+    float src[MAX_SRC][9];  // base xyz, amplitude xyz, 2 pi frequency xyz
+    int n_win, n_src, nexp_is_one;
+};
+#define N_FEAT_FLOATS (10 + 9 * MAX_SRC)
+#define N_FEAT_PARAMS (N_FEAT_FLOATS + 3)
+
+// the constants from the host's float array (the counts as floats at its end)
+__host__ __device__ inline FeatParams feat_params_from(const float* a) {
+    FeatParams f;
+    memcpy(&f, a, sizeof(float) * N_FEAT_FLOATS);
+    f.n_win = (int)a[N_FEAT_FLOATS];
+    f.n_src = (int)a[N_FEAT_FLOATS + 1];
+    f.nexp_is_one = (int)a[N_FEAT_FLOATS + 2];
+    return f;
+}
+
+// A robot's feature carry: stats channels 22-46 in their order
+struct Feat {
+    float smin[MAX_SRC], ssum[MAX_SRC], scnt;  // per-source min distance, history sums, count
+    float fell, pcmy, pvol, nd, ndrg, ndfz, ntr, lasttr, wlast, wprev, wcnt, lastwin;
+    float needle[3], ncap, eoly, eolcap;
+};
+static_assert(sizeof(Feat) == 25 * sizeof(float), "Feat mirrors stats channels 22-46");
+
+__device__ inline Feat load_feat(const float* stat) {
+    Feat f;
+    memcpy(&f, stat + ST_SRC, sizeof(Feat));
+    return f;
+}
+
+// the channels the JAX kernel writes: the sources' when it tracks any, the
+// rest when a feature bit is on
+__device__ inline void store_feat(float* stat, const Feat& f, const FeatParams& fp, int flags) {
+    for (int k = 0; k < fp.n_src; ++k) {
+        stat[ST_SRC + k] = f.smin[k];
+        stat[ST_SRC + 3 + k] = f.ssum[k];
+    }
+    if (fp.n_src > 0) stat[ST_SRC + 6] = f.scnt;
+    if (flags & F_FEAT) memcpy(stat + ST_FEAT, &f.fell, sizeof(float) * (sizeof(Feat) / sizeof(float) - 7));
+}
+
+// the window ring: MAX_WIN samples of CoM y, then MAX_WIN of volume
+__device__ inline float* feat_ring() {
+    __shared__ float ring[2 * MAX_WIN];
+    return ring;
+}
+
+// dy / ((v1 + v2) / 2)^nexp (VX_SimGA.cpp:58-117)
+__device__ __forceinline__ float vol_norm(float dy, float v1, float v2, const FeatParams& fp) {
+    const float avg = 0.5f * (v1 + v2);
+    const float safe = avg > 0.f ? avg : 1.f;
+    return fp.nexp_is_one ? dy / safe : dy / powf(safe, fp.nexp);
+}
+
+// The features' bookkeeping at the top of step i, from the state it starts
+// from, in the JAX kernel's order: source distances (VX_Sim.cpp:2527-2558,
+// a history sample every 50 steps), end-of-life posterior Y (:1078-1082),
+// the needle's position at actuation onset (:1084-1088), the fall-over
+// latch (:1412-1419). Returns the latch.
+__device__ inline bool feat_top(Feat& fe, const FeatParams& fp, const Params& p,
+                                const float* si, const float* bo, int V, int i, int i_glob,
+                                float t, float stop_t, float init_cm, int flags, float* red) {
+    const int T = blockDim.x;
+    const float* px = si + (size_t)S_POS * V;
+    const float* py = px + V;
+    const float* pz = py + V;
+    const float* occ = bo + (size_t)B_OCC * V;
+    const float* mat = bo + (size_t)B_MAT * V;
+    if (fp.n_src > 0) {
+        // positions oscillate from actuation onset; distances in lattice units
+        const float tau = fmaxf(t - init_cm, 0.f);
+        F3 sp[MAX_SRC];
+        float m[MAX_SRC];
+#pragma unroll
+        for (int k = 0; k < MAX_SRC; ++k) {
+            const float* c = fp.src[k];
+            sp[k] = {0.f, 0.f, 0.f};
+            if (k < fp.n_src)
+                sp[k] = {c[0] + c[3] * sinf(c[6] * tau), c[1] + c[4] * sinf(c[7] * tau),
+                         c[2] + c[5] * sinf(c[8] * tau)};
+            m[k] = 3.4e38f;
+        }
+        for (int v = threadIdx.x; v < V; v += T) {
+            if (!(occ[v] > 0.5f)) continue;
+#pragma unroll
+            for (int k = 0; k < MAX_SRC; ++k) {
+                if (k >= fp.n_src) break;
+                const float dx = px[v] - sp[k].x, dy = py[v] - sp[k].y, dz = pz[v] - sp[k].z;
+                m[k] = fminf(m[k], dx * dx + dy * dy + dz * dz);
+            }
+        }
+        const F3 mn = block_min3({m[0], m[1], m[2]}, red);
+        const float mk[MAX_SRC] = {mn.x, mn.y, mn.z};
+        const bool hist = i % 50 == 0;  // UPDATE_SOURCES_HIST_EVERY
+#pragma unroll
+        for (int k = 0; k < MAX_SRC; ++k) {
+            if (k >= fp.n_src) break;
+            fe.smin[k] = sqrtf(mk[k]) / p.L;
+            if (hist) fe.ssum[k] = fe.ssum[k] + fe.smin[k];
+        }
+        if (hist) fe.scnt = fe.scnt + 1.f;
+    }
+    if (!(flags & F_FEAT)) return false;
+    if (fe.eolcap < 0.5f && t >= stop_t) {
+        // min voxel y over non-obstacle voxels, lattice units
+        float m = 3.4e38f;
+        for (int v = threadIdx.x; v < V; v += T)
+            if (occ[v] > 0.5f && fabsf(mat[v] - 5.f) > 0.5f) m = fminf(m, py[v] * fp.inv_l);
+        fe.eoly = block_min3({m, m, m}, red).x;
+        fe.eolcap = 1.f;
+    }
+    if (flags & F_NEEDLE) {
+        const bool ncapb = fe.ncap < 0.5f && t > init_cm;
+        if (ncapb || (i_glob == 0 && fe.ncap < 0.5f)) {
+            // masked mean over the mat-7 voxels
+            F3 part = {0.f, 0.f, 0.f};
+            float n7 = 0.f;
+            for (int v = threadIdx.x; v < V; v += T) {
+                const float is7 = fabsf(mat[v] - 7.f) < 0.5f ? 1.f : 0.f;
+                part.x += is7 * px[v];
+                part.y += is7 * py[v];
+                part.z += is7 * pz[v];
+                n7 += is7;
+            }
+            const F3 s = block_sum3(part, red);
+            const float n = fmaxf(block_sum3({n7, 0.f, 0.f}, red).x, 1.f);
+            fe.needle[0] = s.x / n;
+            fe.needle[1] = s.y / n;
+            fe.needle[2] = s.z / n;
+        }
+        if (ncapb) fe.ncap = 1.f;
+    }
+    if ((flags & F_FALLING) && t > init_cm) {
+        // more mat-6 feet than other voxels touching the floor
+        const float* scale = si + (size_t)S_SCALE * V;
+        F3 cnt = {0.f, 0.f, 0.f};
+        for (int v = threadIdx.x; v < V; v += T) {
+            if (!(0.5f * scale[v] - pz[v] > 0.f && occ[v] > 0.5f)) continue;
+            cnt.x += 1.f;
+            if (fabsf(mat[v] - 6.f) < 0.5f) cnt.y += 1.f;
+        }
+        const F3 c = block_sum3(cnt, red);
+        if (c.y > c.x - c.y) fe.fell = 1.f;
+    }
+    return (flags & F_FALLING) && fe.fell > 0.5f;
+}
+
+// A trace sample is due after the step that ends at t_new (VX_Sim.cpp:
+// 1600-1606): past InitCmTime, and the first or tb after the last one
+__device__ __forceinline__ bool feat_trace_due(const Feat& fe, const FeatParams& fp,
+                                               float t_new, float init_cm) {
+    return t_new > init_cm && (fe.ntr < 0.5f || fe.lasttr + fp.tb <= t_new);
+}
+
+// The trace bookkeeping after the step that ends at t_new, whose CoM y and
+// volume are (cmy, vol) when a sample is `due`: NormDistByVol sums over the
+// whole life, the afterlife regime and the frozen window, the ring, and the
+// window distance at each window boundary (VX_Sim.cpp:2745-2784). Every
+// thread of the block runs it.
+__device__ inline void feat_trace(Feat& fe, const FeatParams& fp, const Params& p, float t_new,
+                                  bool due, float cmy, float vol, float init_cm, int flags) {
+    float* ring = feat_ring();
+    if ((flags & F_NDBV) && due && fe.ntr > 0.5f) {
+        const float term = vol_norm((cmy - fe.pcmy) * fp.inv_l, vol, fe.pvol, fp);
+        fe.nd = fe.nd + term;
+        // both samples past the lifetime's end
+        if (t_new > p.sc_value && fe.lasttr > p.sc_value) fe.ndrg = fe.ndrg + term;
+        if (flags & F_FREEZE) {
+            const float fs = fp.fs_off + init_cm;
+            if (t_new > fs && t_new < fp.fe && fe.lasttr > fs && fe.lasttr < fp.fe)
+                fe.ndfz = fe.ndfz + term;
+        }
+    }
+    if (fp.n_win > 0 && due) {
+        if (threadIdx.x == 0) {
+            for (int k = 0; k + 1 < fp.n_win; ++k) {
+                ring[k] = ring[k + 1];
+                ring[MAX_WIN + k] = ring[MAX_WIN + k + 1];
+            }
+            ring[fp.n_win - 1] = cmy;
+            ring[MAX_WIN + fp.n_win - 1] = vol;
+        }
+        __syncthreads();
+    }
+    if (due) {
+        fe.ntr = fe.ntr + 1.f;
+        fe.lasttr = t_new;
+        fe.pcmy = cmy;
+        fe.pvol = vol;
+    }
+    if (fp.n_win > 0 && t_new > init_cm &&
+        (fe.lastwin < -0.5f || fe.lastwin + fp.win_span <= t_new)) {
+        const float valid = fminf(fe.ntr, (float)fp.n_win);
+        float wd = 0.f;
+        for (int k = 0; k + 1 < fp.n_win; ++k)
+            if (valid >= (float)(fp.n_win - k))
+                wd = wd + vol_norm((ring[k + 1] - ring[k]) * fp.inv_l, ring[MAX_WIN + k + 1],
+                                   ring[MAX_WIN + k], fp);
+        fe.wprev = fe.wlast;
+        fe.wlast = wd;
+        fe.wcnt = fe.wcnt + 1.f;
+        fe.lastwin = t_new;
+    }
+}
+
+// The source history samples of the steps after step i that a frozen robot
+// skips (its distances no longer change)
+__device__ inline void feat_tail(Feat& fe, const FeatParams& fp, int i, int num_steps) {
+    if (fp.n_src == 0) return;
+    for (int j = (i / 50 + 1) * 50; j < num_steps; j += 50) {
+        for (int k = 0; k < fp.n_src; ++k) fe.ssum[k] = fe.ssum[k] + fe.smin[k];
+        fe.scnt = fe.scnt + 1.f;
+    }
+}
+
+// Ballistic development (VXS_Voxel.cpp:342-381): once two speed windows
+// exist, rebase a voxel's development fields dv (initial size, final size,
+// growth time, start of growth) at its current size `cur`, pulling the
+// final size toward it when the windowed speed fell by more than the
+// permitted slowdown; `orig`: the body's final size, the bound.
+__device__ inline void ballistic_rebase(float t, const float dv[6], float orig, float cur,
+                                        const Feat& fe, const FeatParams& fp, float init_cm,
+                                        float out[4]) {
+    const bool ready = fe.wcnt >= 1.5f && t >= init_cm + fp.two_win;
+    const bool apply = ready && t >= dv[3] + fp.min_growth_t;
+    const float this_s = fe.wlast, last_s = fe.wprev;
+    const float ratio = sdiv(this_s, last_s != 0.f ? last_s : 1.f);
+    const bool decreasing = last_s > 0.f && this_s < last_s && ratio < fp.keep_ratio;
+    const float adj = 1.f - (decreasing ? fp.bal_slow : 0.f);
+    const float suggested = cur + (dv[1] - cur) * adj;
+    float fin;
+    if (orig > cur) {
+        const float s = fminf(suggested, orig);
+        fin = s >= cur ? s : cur;
+    } else {
+        const float s = fmaxf(suggested, orig);
+        fin = s <= cur ? s : cur;
+    }
+    out[0] = apply ? cur : dv[0];
+    out[1] = apply ? fin : dv[1];
+    out[2] = apply ? fmaxf(dv[2] - (t - dv[3]), 0.f) : dv[2];
+    out[3] = apply ? t : dv[3];
+}
+
 // The step loop of one robot, run by its whole block. Step i reads the
 // state at st + i * slot_stride and writes st + (i + 1) * slot_stride
 // (slot_stride 0: in place). r carries time, divergence latch, IniCM and the
@@ -705,12 +1059,15 @@ __device__ __forceinline__ Robot load_robot(const float* stat) {
 //
 // sh: BF * V floats of shared memory (+ 7 * V with collision). scr: the
 // robot's 6 * V floats of scratch in device memory (V_FLUID_MESH only).
-template <int VARIANT>
+// FEAT: the fitness features run, on the carry fe with the constants fp
+// (K1 only: slot_stride 0).
+template <int VARIANT, bool FEAT = false>
 __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* bo,
                                     const float* a1, const float* cu_robot, int n_knots,
                                     int knot_steps, int step_base, int X, int Y, int Z,
                                     int num_steps, const Params& p, int flags, Robot& r,
-                                    float* tape_t, float* sh, float* scr) {
+                                    float* tape_t, float* sh, float* scr,
+                                    Feat* fe = nullptr, const FeatParams* fp = nullptr) {
     __shared__ float red[3 * (MAX_THREADS / 32)];
     __shared__ int divflag[2];
 
@@ -734,6 +1091,9 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
     const float dt_inv = r.dt_inv;
 
     if (threadIdx.x < 2) divflag[threadIdx.x] = 0;
+    if constexpr (FEAT) {
+        for (int k = threadIdx.x; k < 2 * MAX_WIN; k += blockDim.x) feat_ring()[k] = 0.f;
+    }
     __syncthreads();
 
 #define SCH(k) (si + (size_t)(k) * V)
@@ -761,7 +1121,26 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
             ini = {s.x * inv_m, s.y * inv_m, s.z * inv_m};
         }
         capt = capt || capture;
-        if (div || t >= stop_t) break;  // frozen: nothing changes any more
+        // with the features, a frozen robot's last step runs "dry": it writes
+        // no state, only the trace sample the JAX kernel takes from it
+        bool dry = false;
+        bool sample = false;  // a trace sample is due after this step
+        if constexpr (FEAT) {
+            const bool fell = feat_top(*fe, *fp, p, si, bo, V, i, i_glob, t, stop_t, init_cm,
+                                       flags, red);
+            if (flags & F_TRACE) sample = feat_trace_due(*fe, *fp, t + dt, init_cm);
+            if (div || t >= stop_t || fell) {
+                if (!sample) {
+                    if (flags & F_TRACE)
+                        feat_trace(*fe, *fp, p, t + dt, false, 0.f, 0.f, init_cm, flags);
+                    feat_tail(*fe, *fp, i, num_steps);
+                    break;
+                }
+                dry = true;
+            }
+        } else {
+            if (div || t >= stop_t) break;  // frozen: nothing changes any more
+        }
         if (tape_t && threadIdx.x == 0) tape_t[i] = t;
 
         // this step's control knot: a row of the robot's (K, V) controls
@@ -794,6 +1173,7 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
                         scr[(size_t)(3 + d) * V + v] = 0.f;
                     }
                     for (int k = 0; k < 12; ++k) out[(size_t)k * V] = 0.f;
+                    if (dry) continue;
                     for (int c = 0; c < 3; ++c) {
                         lp2p[(size_t)c * V] = 0.f;
                         la1p[(size_t)c * V] = 0.f;
@@ -804,7 +1184,7 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
                     continue;
                 }
                 const Bond bn = bond_forward(si, bd, v, v + strides[d], d, V, p, dt, dt_inv);
-                SOUT(S_MAXS + d)[v] = fmaxf(SCH(S_MAXS + d)[v], bn.strain);
+                if (!dry) SOUT(S_MAXS + d)[v] = fmaxf(SCH(S_MAXS + d)[v], bn.strain);
                 if (fabsf(bn.strain) > 100.f) diverging = 1;
                 if (VARIANT == V_FLUID_MESH) {
                     // per-side strains, the linear fixed point of the stress
@@ -828,6 +1208,7 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
                 out[(size_t)3 * V] = m1.x; out[(size_t)4 * V] = m1.y; out[(size_t)5 * V] = m1.z;
                 out[(size_t)6 * V] = f2.x; out[(size_t)7 * V] = f2.y; out[(size_t)8 * V] = f2.z;
                 out[(size_t)9 * V] = m2.x; out[(size_t)10 * V] = m2.y; out[(size_t)11 * V] = m2.z;
+                if (dry) continue;
 
                 // the damping memory goes stale for one step on a hysteresis
                 // transition (AddDampForces is skipped, :344-347)
@@ -870,6 +1251,7 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
         }
 
         // ---- phase B: per-voxel force sum and integration ----
+        F3 tr = {0.f, 0.f, 0.f};  // (features) this thread's CoM-y and volume sums
         for (int v = threadIdx.x; v < V; v += T) {
             const bool occ = BCH(B_OCC)[v] > 0.5f;
             // loaded first, so the load is in flight during the force sum
@@ -985,12 +1367,33 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
                 curr = fluid_scale(t, BCH(B_PHASE)[v], BCH(B_CTE)[v], r.tamp, r.tper,
                                    init_cm, p, flags);
             } else if (VARIANT == V_DEVO) {
-                const float dv[6] = {BCH(B_INIT_SIZE)[v], BCH(B_FINAL_SIZE)[v],
-                                     BCH(B_GROWTH_T)[v], BCH(B_START_GT)[v],
-                                     BCH(B_FINAL_PHASE)[v], BCH(B_FINAL_AD)[v]};
-                curr = development_scale(t, scale, BCH(B_AMPDAMP)[v], BCH(B_PHASE)[v],
-                                         BCH(B_CTE)[v], dv, r.tamp, r.tper, init_cm,
-                                         r.min_tf, r.gamp, p, flags);
+                if constexpr (FEAT) {
+                    // under ballistic development the state carries the fields
+                    const bool bal = (flags & F_BALLISTIC) != 0;
+                    float dv[6] = {BCH(B_INIT_SIZE)[v], BCH(B_FINAL_SIZE)[v],
+                                   BCH(B_GROWTH_T)[v], BCH(B_START_GT)[v],
+                                   BCH(B_FINAL_PHASE)[v], BCH(B_FINAL_AD)[v]};
+                    if (bal)
+                        for (int k = 0; k < 4; ++k) dv[k] = SCH(S_DEVO_DYN + k)[v];
+                    curr = development_scale(t, scale, BCH(B_AMPDAMP)[v], BCH(B_PHASE)[v],
+                                             BCH(B_CTE)[v], dv, r.tamp, r.tper, init_cm,
+                                             r.min_tf, r.gamp, p, flags);
+                    if (bal) {
+                        float nd[4];
+                        ballistic_rebase(t, dv, BCH(B_FINAL_SIZE)[v],
+                                         development_grown(t, dv, init_cm, p, flags), *fe, *fp,
+                                         init_cm, nd);
+                        if (!dry)
+                            for (int k = 0; k < 4; ++k) SOUT(S_DEVO_DYN + k)[v] = nd[k];
+                    }
+                } else {
+                    const float dv[6] = {BCH(B_INIT_SIZE)[v], BCH(B_FINAL_SIZE)[v],
+                                         BCH(B_GROWTH_T)[v], BCH(B_START_GT)[v],
+                                         BCH(B_FINAL_PHASE)[v], BCH(B_FINAL_AD)[v]};
+                    curr = development_scale(t, scale, BCH(B_AMPDAMP)[v], BCH(B_PHASE)[v],
+                                             BCH(B_CTE)[v], dv, r.tamp, r.tper, init_cm,
+                                             r.min_tf, r.gamp, p, flags);
+                }
             } else {
                 bool kept_last;
                 curr = actuation_scale(
@@ -999,16 +1402,43 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
             }
             const float nom = p.L;
 
-            SOUT(S_POS)[v] = pos.x; SOUT(S_POS + 1)[v] = pos.y; SOUT(S_POS + 2)[v] = pos.z;
-            SOUT(S_QUAT)[v] = qn.w; SOUT(S_QUAT + 1)[v] = qn.x;
-            SOUT(S_QUAT + 2)[v] = qn.y; SOUT(S_QUAT + 3)[v] = qn.z;
-            SOUT(S_LIN)[v] = lin.x; SOUT(S_LIN + 1)[v] = lin.y; SOUT(S_LIN + 2)[v] = lin.z;
-            SOUT(S_ANG)[v] = ang.x; SOUT(S_ANG + 1)[v] = ang.y; SOUT(S_ANG + 2)[v] = ang.z;
+            if (!dry) {
+                SOUT(S_POS)[v] = pos.x; SOUT(S_POS + 1)[v] = pos.y; SOUT(S_POS + 2)[v] = pos.z;
+                SOUT(S_QUAT)[v] = qn.w; SOUT(S_QUAT + 1)[v] = qn.x;
+                SOUT(S_QUAT + 2)[v] = qn.y; SOUT(S_QUAT + 3)[v] = qn.z;
+                SOUT(S_LIN)[v] = lin.x; SOUT(S_LIN + 1)[v] = lin.y; SOUT(S_LIN + 2)[v] = lin.z;
+                SOUT(S_ANG)[v] = ang.x; SOUT(S_ANG + 1)[v] = ang.y; SOUT(S_ANG + 2)[v] = ang.z;
+            }
             float new_scale = occ ? curr : nom;
             // MPC channel, after the clamps: the product and the sum round
             // separately, as core/step.py's control_offset does
             if (cu) new_scale = new_scale + (occ ? u_knot * nom : 0.f);
+            if constexpr (FEAT) {
+                if (sample) {  // the new state's CoM y (times the mass) and volume
+                    tr.x += pos.y * mass;
+                    if (occ) {
+                        const float srel = new_scale * fp->inv_l;
+                        tr.y += srel * srel * srel;
+                    }
+                }
+                if (dry) continue;
+            }
             SOUT(S_SCALE)[v] = new_scale;
+        }
+        if constexpr (FEAT) {
+            if (flags & F_TRACE) {
+                float cmy = 0.f, vol = 0.f;
+                if (sample) {
+                    const F3 s = block_sum3(tr, red);
+                    cmy = s.x * inv_m;
+                    vol = s.y;
+                }
+                feat_trace(*fe, *fp, p, t + dt, sample, cmy, vol, init_cm, flags);
+            }
+            if (dry) {
+                feat_tail(*fe, *fp, i, num_steps);
+                break;
+            }
         }
         if (threadIdx.x == 0) divflag[(i + 1) & 1] = 0;
         t = t + dt;

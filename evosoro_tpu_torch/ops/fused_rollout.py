@@ -11,7 +11,10 @@ Hopper take its place on the evolution loop's envelope:
   `num_steps` of a longer rollout from a global step offset), the fluid
   environment's branches (facet drag on the deformed surface mesh as a
   corner-lattice stencil, voxel-face drag, the land_water actuation) and
-  the linear development ramps, each compiled as its own variant;
+  the linear development ramps, each compiled as its own variant, and
+  the fitness features (environmental sources, needle-in-haystack, the
+  fall-over latch, NormDistByVol, speed windows and ballistic development),
+  compiled as a second instance of each variant;
 - B4 (`fused_bwd_call`, `csrc/fused_rollout_bwd.cu`): the reverse-mode
   segment, the adjoint of K1's step written by hand, which pulls a
   segment's end-state cotangent back to its start state and the control
@@ -46,7 +49,8 @@ from evosoro_tpu_torch.core.constants import (
     SA_BOND_EXT_PERC,
     Precision,
 )
-from evosoro_tpu_torch.core.types import EnvParams, SimParams, SimState, VoxelBody
+from evosoro_tpu_torch.core.types import DevoState, EnvParams, SimParams, SimState, VoxelBody
+from evosoro_tpu_torch.envs.sources import REF_PI_VEC3D
 from evosoro_tpu_torch.ops import build
 
 # ---------------------------------------------------------------------------
@@ -67,7 +71,9 @@ _MAXS = 44  # 44..46
 _TSAVG = 47  # 47..49 volume-effects carry (not ported)
 _CSAVG = 50  # 50..52
 _SOFF = 53  # 53..55 plastic strain offset (not ported)
-_DEVO_DYN = 56  # ballistic devo fields (not ported)
+# ballistic development's per-voxel fields, rebased every step
+# (VXS_Voxel.cpp:342-381): initial size, final size, growth time, start
+_DEVO_DYN = 56  # 56..59
 C_S = 64
 
 # body channels
@@ -176,7 +182,19 @@ _K1_SMEM_FLOATS_COLL = 43
 # per-voxel floats of device-memory scratch a fluid-mesh launch needs: the
 # per-side strains sv1, sv2 of the three bonds a voxel owns
 _K1_MESH_SCRATCH = 6
-_SMEM_BYTES = 232448  # a block's shared memory on Hopper
+_SMEM_BYTES = 232448  # a block's shared memory on Hopper, static and dynamic
+# K1's static shared memory as ptxas reports it: 112 bytes (the block
+# reductions' scratch and the divergence flags), 208 in the feature instance
+# (the window ring); the dynamic part gets what is left. Ceilings: 1350
+# cells with contact, 1612 without (the instance without features fits one
+# more, 1613)
+_K1_STATIC_SMEM = 208
+
+
+def k1_fits(V: int, collision: bool) -> bool:
+    """True when K1's shared memory holds a body of V grid cells."""
+    per = _K1_SMEM_FLOATS_COLL if collision else _K1_SMEM_FLOATS
+    return per * 4 * V + _K1_STATIC_SMEM <= _SMEM_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -215,15 +233,30 @@ def pack_state(state: SimState, dtype=torch.float32):
     if state.strain_offset is not None:
         for d in range(3):
             chans[_SOFF + d] = f(state.strain_offset[:, d])
+    if state.devo is not None:
+        for k, name in enumerate(_DEVO_DYN_FIELDS):
+            chans[_DEVO_DYN + k] = f(getattr(state.devo, name).expand_as(state.scale))
     return torch.stack(chans, dim=1).contiguous()
+
+
+_DEVO_DYN_FIELDS = ("initial_voxel_size", "final_voxel_size", "growth_time",
+                    "start_growth_time")
+
+
+def _add_batch(v):
+    """A tensor, or each tensor of a DevoState, with a leading batch of one."""
+    if v is None:
+        return None
+    if isinstance(v, DevoState):
+        return v.replace(**{f.name: _add_batch(getattr(v, f.name))
+                            for f in dataclasses.fields(DevoState)})
+    return v[None]
 
 
 def pack_state_single(state: SimState, dtype=torch.float32):
     """Unbatched SimState -> (C_S, V)."""
-    batched = SimState(**{
-        f.name: (None if getattr(state, f.name) is None
-                 else getattr(state, f.name)[None])
-        for f in dataclasses.fields(SimState)})
+    batched = SimState(**{f.name: _add_batch(getattr(state, f.name))
+                          for f in dataclasses.fields(SimState)})
     return pack_state(batched, dtype)[0]
 
 
@@ -240,7 +273,12 @@ def unpack_state(packed, template: SimState, grid_shape) -> SimState:
         return torch.stack([g(base + c) for c in range(n)], dim=-1)
 
     scale = g(_SCALE)
+    extra = {}
+    if template.devo is not None:
+        extra["devo"] = template.devo.replace(**{
+            name: g(_DEVO_DYN + k) for k, name in enumerate(_DEVO_DYN_FIELDS)})
     return template.replace(
+        **extra,
         pos=vec(_POS), quat=vec(_QUAT, 4), linmom=vec(_LIN), angmom=vec(_ANG),
         scale=scale, last_scale=scale,
         small_angle=torch.stack([g(_SMALL + d) > 0.5 for d in range(3)], dim=1),
@@ -336,12 +374,24 @@ def make_stats(body: VoxelBody, batch: int, dt, sim: SimParams, env: EnvParams,
 
 @dataclasses.dataclass
 class FastRolloutStats:
-    """Per-rollout outputs of the fused rollout."""
+    """Per-rollout outputs of the fused rollout; the feature channels are
+    zeros unless their feature is on."""
 
     time: Any  # (B,)
     diverged: Any  # (B,) bool
     ini_cm: Any  # (B, 3)
     cm_captured: Any  # (B,) bool
+    source_min_dist: Any = None  # (B, n_src) final min distances
+    source_avg_min_dist: Any = None  # (B, n_src) history means
+    fell_over: Any = None  # (B,) bool fall-over latch
+    norm_dist_by_vol: Any = None  # (B,) whole-life sum of dy/L/vol^exp
+    norm_regime_dist_by_vol: Any = None  # (B,) afterlife sum
+    norm_frozen_dist_by_vol: Any = None  # (B,) frozen-window sum
+    norm_window_dist: Any = None  # (B,) last completed window distance
+    win_prev_dist: Any = None  # (B,) previous completed window
+    win_count: Any = None  # (B,)
+    ini_needle: Any = None  # (B, 3) initial needle position
+    end_of_life_posterior_y: Any = None  # (B,) lattice units
 
 
 def stats_to_outputs(stats) -> FastRolloutStats:
@@ -350,12 +400,26 @@ def stats_to_outputs(stats) -> FastRolloutStats:
         diverged=stats[:, _S_DIV] > 0.5,
         ini_cm=stats[:, _S_INICM:_S_INICM + 3],
         cm_captured=stats[:, _S_CAPT] > 0.5,
+        fell_over=stats[:, _S_FELL] > 0.5,
+        norm_dist_by_vol=stats[:, _S_ND],
+        norm_regime_dist_by_vol=stats[:, _S_NDRG],
+        norm_frozen_dist_by_vol=stats[:, _S_NDFZ],
+        norm_window_dist=stats[:, _S_WLAST],
+        win_prev_dist=stats[:, _S_WPREV],
+        win_count=stats[:, _S_WCNT],
+        ini_needle=stats[:, _S_NEEDLE:_S_NEEDLE + 3],
+        end_of_life_posterior_y=stats[:, _S_EOLY],
     )
 
 
-def packed_metrics(out_state, body_packed, out_stats, L):
+def packed_metrics(out_state, body_packed, out_stats, L, *, ndbv=False,
+                   falling=False, needle=False, window=False, grid_z=0):
     """Locomotion fitness straight off the packed outputs: NormFinalDist =
-    |ΔCoM_xy|/L (reference: VX_SimGA.cpp:36), 0 for diverged rollouts."""
+    |ΔCoM_xy|/L (reference: VX_SimGA.cpp:36), 0 for diverged rollouts; with
+    the feature keywords also the NormDistByVol family (VX_SimGA.cpp:58-117),
+    the fall-over zeroing and FallAdjPostY with the workspace height `grid_z`
+    (VX_SimGA.cpp:115-126), the needle's push distance (VX_SimGA.cpp:45-55)
+    and the last completed window distance."""
     mass = body_packed[:, _B_MASS, :]
     inv_m = out_stats[:, _S_INV_MASS:_S_INV_MASS + 1]
     final_cm = torch.cat([
@@ -366,13 +430,50 @@ def packed_metrics(out_state, body_packed, out_stats, L):
     dsq = (delta * delta).sum(-1)
     dist = torch.where(dsq > 0, torch.sqrt(torch.where(dsq > 0, dsq, 1.0)), 0.0) / L
     diverged = out_stats[:, _S_DIV] > 0.5
+
+    zero = torch.zeros_like(dist)
+    norm_final_dist, norm_regime_dist, norm_frozen_dist = dist, zero, zero
+    if ndbv:
+        norm_final_dist = out_stats[:, _S_ND]
+        norm_regime_dist = out_stats[:, _S_NDRG]
+        norm_frozen_dist = out_stats[:, _S_NDFZ]
+    eoly = out_stats[:, _S_EOLY]
+    fall_adj_post_y = eoly
+    if falling:
+        fell = out_stats[:, _S_FELL] > 0.5
+        fall_adj_post_y = torch.where(fell, eoly - grid_z, eoly)
+        norm_final_dist = torch.where(fell, 0.0, norm_final_dist)
+        norm_regime_dist = torch.where(fell, 0.0, norm_regime_dist)
+        norm_frozen_dist = torch.where(fell, 0.0, norm_frozen_dist)
+    # the headline fitness subtracts the frozen-window distance
+    # (VX_SimGA.cpp:145; zero when NormDistByVol is off)
+    norm_final_dist = norm_final_dist - norm_frozen_dist
+
+    push_dist, found_needle = zero, zero
+    if needle:
+        is7 = torch.where((body_packed[:, _B_MAT, :] - 7.0).abs() < 0.5, 1.0, 0.0)
+        n7 = torch.clamp(is7.sum(1), min=1.0)
+        nd = [(is7 * out_state[:, _POS + c, :]).sum(1) / n7 - out_stats[:, _S_NEEDLE + c]
+              for c in range(2)]
+        ndsq = nd[0] * nd[0] + nd[1] * nd[1]
+        push_dist = torch.where(ndsq > 0, torch.sqrt(torch.where(ndsq > 0, ndsq, 1.0)),
+                                0.0) / L
+        found_needle = (ndsq > 0).to(dist.dtype)
+
     return dict(
-        norm_final_dist=torch.where(diverged, 0.0, dist),
+        norm_final_dist=torch.where(diverged, 0.0, norm_final_dist),
         final_dist_y=delta[:, 1] / L,
         diverged=diverged,
         final_cm=final_cm,
         ini_cm=ini_cm,
         final_time=out_stats[:, _S_TIME],
+        norm_regime_dist=norm_regime_dist,
+        norm_frozen_dist=norm_frozen_dist,
+        fall_adj_post_y=fall_adj_post_y,
+        end_of_life_posterior_y=eoly,
+        push_dist=push_dist,
+        found_needle=found_needle,
+        norm_window_dist=out_stats[:, _S_WLAST],
     )
 
 
@@ -392,11 +493,25 @@ def locomotion_fitness(state: SimState, body: VoxelBody, outs: FastRolloutStats)
 # ---------------------------------------------------------------------------
 
 
+def _source_statics(env: EnvParams):
+    """The enabled sources' (base xyz, amplitude xyz, frequency xyz) as
+    9-tuples of Python floats: design-time constants of a launch."""
+    if env.sources is None:
+        return ()
+    s = env.sources
+    rows = []
+    for k in range(s.num_sources):
+        if not bool(s.enabled[k]):
+            continue
+        rows.append(tuple(float(v) for v in (*s.base_pos[k].tolist(), *s.amp[k].tolist(),
+                                             *s.freq[k].tolist())))
+    return tuple(rows)
+
+
 def kernel_scalars(L, sim: SimParams, env: EnvParams) -> dict:
     """The design-time float constants of a launch (the JAX package's
-    `kernel_scalars`, same keys)."""
-    if env.sources is not None:
-        raise NotImplementedError("environmental sources are not ported yet")
+    `kernel_scalars`, same keys). `sc_value` is the lifetime's end, the
+    afterlife regime's boundary; a robot's stop time rides its stats row."""
     return dict(
         L=float(L),
         slow_damping_z=float(sim.slow_damping_z),
@@ -407,7 +522,7 @@ def kernel_scalars(L, sim: SimParams, env: EnvParams) -> dict:
         freeze_middle=0.5 * (float(sim.stop_condition_value)
                              - float(sim.init_cm_time)),
         max_vel_limit=float(sim.max_vox_vel_limit),
-        sources=(),
+        sources=_source_statics(env),
         sc_value=float(sim.stop_condition_value),
         tb=float(env.time_between_traces),
         nexp=float(env.normalization_exponent),
@@ -442,7 +557,8 @@ def kernel_env_flags(sim: SimParams, env: EnvParams) -> dict:
 
 
 def body_flags(body: VoxelBody) -> dict:
-    """The body-derived flags the JAX host side adds to `kernel_env_flags`."""
+    """The body-derived flags the JAX host side adds to `kernel_env_flags`
+    (`ballistic` follows the state: callers that carry a DevoState set it)."""
     has_bc = bool((body.dof_fixed != 0).any() or (body.external_force != 0).any()
                   or (body.external_disp != 0).any()
                   or (body.external_tdisp != 0).any())
@@ -473,7 +589,7 @@ def launch_flags(body: VoxelBody, sim: SimParams, env: EnvParams, **extra) -> di
     would run the facet drag without the corner shell raises here, where the
     launch is put together, so that `fused_call` need not look at the body
     again on every launch."""
-    flags = dict(kernel_env_flags(sim, env), **body_flags(body), **extra)
+    flags = {**kernel_env_flags(sim, env), **body_flags(body), **extra}
     if facet_drag(flags) and not has_corner_shell(body.occ):
         raise ValueError(NO_SHELL)
     return flags
@@ -483,13 +599,20 @@ def launch_flags(body: VoxelBody, sim: SimParams, env: EnvParams, **extra) -> di
 _K1_FLAG_BITS = dict(floor=1, sticky=2, gravity=4, temp=8, freeze_on=16,
                      collision=32, temp_enabled=64, fluid=128, fluid_mesh=256,
                      use_init_size=512, use_final_size=1024, use_growth_t=2048,
-                     use_final_phase=4096, use_final_ad=8192)
+                     use_final_phase=4096, use_final_ad=8192, needle=16384,
+                     falling=32768, ndbv=65536, window=131072, ballistic=262144)
 _K1_DEVO_FLAGS = ("use_init_size", "use_final_size", "use_growth_t",
                   "use_final_phase", "use_final_ad")
+# the fitness features: a launch with any of them (or a source) runs K1's
+# feature instance; those that sample the CoM/volume trace
+_K1_FEATURE_FLAGS = ("needle", "falling", "ndbv", "window", "ballistic")
+_K1_TRACE_FLAGS = ("ndbv", "window", "ballistic")
 # flags outside the envelope; each must be off
 _K1_REFUSED = ("volume", "nonlinear", "mdl_data",
-               "plasticity", "equilibrium", "max_vel", "bc", "needle",
-               "falling", "ndbv", "window", "ballistic", "collision_compact")
+               "plasticity", "equilibrium", "max_vel", "bc", "collision_compact")
+# trace-sample ring slots K1 carries per robot, and the sources it tracks
+MAX_KERNEL_WINDOW = 12
+MAX_KERNEL_SOURCES = 3
 
 
 def _flag_bits(flags: dict) -> int:
@@ -514,9 +637,21 @@ def check_envelope(flags: dict, scalars: dict):
     if flags.get("temp_enabled") and not flags.get("temp") and not flags.get("fluid"):
         raise NotImplementedError("fused rollout: a fixed (non-varying) "
                                   "temperature is not ported yet")
-    if scalars.get("sources"):
-        raise NotImplementedError("fused rollout: environmental sources are "
-                                  "not ported yet")
+    # the ballistic rebase runs on the land development ramps; in a fluid the
+    # JAX kernel rebases from ramps its actuation ignores, while its eager
+    # step does not rebase at all
+    if flags.get("ballistic") and (flags.get("fluid") or not flags.get("use_final_size")):
+        raise NotImplementedError("fused rollout: 'ballistic' development runs on "
+                                  "land with an evolved final size only")
+    if len(scalars.get("sources", ())) > MAX_KERNEL_SOURCES:
+        raise NotImplementedError(f"fused rollout: more than {MAX_KERNEL_SOURCES} "
+                                  "environmental sources")
+    n_win = int(flags.get("n_win", 0) or 0)
+    if bool(flags.get("window")) != (n_win > 0) or n_win > MAX_KERNEL_WINDOW:
+        raise ValueError(f"fused rollout: 'window' needs 1-{MAX_KERNEL_WINDOW} "
+                         f"trace steps in a window, got n_win={n_win}")
+    if any(flags.get(k) for k in _K1_TRACE_FLAGS) and not scalars.get("tb", 0) > 0:
+        raise ValueError("fused rollout: the trace features need time_between_traces > 0")
 
 
 NO_SHELL = ("facet drag needs an empty layer on the grid's +X, +Y and +Z "
@@ -536,17 +671,21 @@ def supports(body: VoxelBody, sim: SimParams, env: EnvParams) -> bool:
     """True when (body, sim, env) is inside K1's envelope and its shared
     memory holds the body. A fluid body with mesh-drag tables needs an empty
     layer on its +X, +Y and +Z faces (pad the structure by one; the
-    evaluator does)."""
+    evaluator does). The features: at most MAX_KERNEL_SOURCES sources, at
+    most MAX_KERNEL_WINDOW trace steps in a window, and a positive time
+    between traces for windows and NormDistByVol (the JAX package's rule,
+    which counts disabled sources too)."""
+    if env.sources is not None and env.sources.num_sources > MAX_KERNEL_SOURCES:
+        return False
     try:
         flags = launch_flags(body, sim, env)  # raises without the shell
-        check_envelope(flags, {"sources": () if env.sources is None else (1,)})
+        check_envelope(flags, kernel_scalars(body.nominal_size, sim, env))
     except (NotImplementedError, ValueError):
         return False
     if env.floor_limited:
         return False
     V = int(np.prod(body.occ.shape[-3:]))
-    per = _K1_SMEM_FLOATS_COLL if sim.self_collisions_enabled else _K1_SMEM_FLOATS
-    return per * 4 * V <= _SMEM_BYTES
+    return k1_fits(V, bool(sim.self_collisions_enabled))
 
 
 # ---------------------------------------------------------------------------
@@ -635,6 +774,11 @@ FUSED_ROLLOUT_KNOT_LAUNCHES = 0
 FUSED_ROLLOUT_FLUID_LAUNCHES = 0
 FUSED_ROLLOUT_MESH_LAUNCHES = 0
 FUSED_ROLLOUT_DEVO_LAUNCHES = 0
+# K1 launches that ran the fitness features or tracked sources (the feature
+# instance), those of them with ballistic development, those with sources
+FUSED_ROLLOUT_FEATURE_LAUNCHES = 0
+FUSED_ROLLOUT_BALLISTIC_LAUNCHES = 0
+FUSED_ROLLOUT_SOURCE_LAUNCHES = 0
 
 
 def _k1_params(scalars: dict, prec: Precision) -> np.ndarray:
@@ -664,6 +808,24 @@ def _k1_params(scalars: dict, prec: Precision) -> np.ndarray:
         2.0 * REF_PI_FLOAT,
         scalars["freeze"],
     ]
+    return np.asarray(vals, dtype=np.float32)
+
+
+def _feat_params(scalars: dict, flags: dict) -> np.ndarray:
+    """The features' constants of a launch (csrc FeatParams, N_FEAT_PARAMS
+    floats): each the float32 rounding of the double the JAX kernel's Python
+    expression gives, then the counts."""
+    n_win = int(flags.get("n_win", 0) or 0)
+    tb = scalars["tb"]
+    mid, freeze = scalars["freeze_middle"], scalars["freeze"]
+    src = np.zeros((MAX_KERNEL_SOURCES, 9))
+    for k, (bx, by, bz, ax, ay, az, fx, fy, fz) in enumerate(scalars.get("sources", ())):
+        src[k] = (bx, by, bz, ax, ay, az, _TWO_PI_VEC3D * fx, _TWO_PI_VEC3D * fy,
+                  _TWO_PI_VEC3D * fz)
+    vals = [1.0 / scalars["L"], tb, scalars["nexp"], mid - 0.5 * freeze, mid + 0.5 * freeze,
+            n_win * tb, 2.0 * (n_win * tb), scalars["min_growth_t"],
+            1.0 - scalars["max_slow"], scalars["bal_slow"], *src.ravel(),
+            n_win, len(scalars.get("sources", ())), float(scalars["nexp"]) == 1.0]
     return np.asarray(vals, dtype=np.float32)
 
 
@@ -735,6 +897,148 @@ def _knot_clock(flags, num_steps, n_knots, control_packed, seg_base, total_steps
     return (int(seg_base) if segmented else 0), knot_steps
 
 
+# 2 pi with Vec3D's truncated pi, as the JAX kernel writes it
+_TWO_PI_VEC3D = 2.0 * REF_PI_VEC3D
+
+
+class _PlainFeatures:
+    """The plain version's feature carry: stats channels 22-46 as (B,)
+    tensors and the window ring, kept in the JAX kernel's order of
+    operations (_make_kernel:1078-1169 at the top of a step, 1752-1837
+    after it)."""
+
+    def __init__(self, stats, body_packed, scalars, flags):
+        self.c = {k: stats[:, k].clone() for k in range(_S_SRC, _S_EOLCAP + 1)}
+        self.flags, self.sc = flags, scalars
+        self.src = scalars.get("sources", ())
+        self.n_win = int(flags.get("n_win", 0) or 0)
+        self.feat = any(flags.get(k) for k in _K1_FEATURE_FLAGS)
+        self.trace = any(flags.get(k) for k in _K1_TRACE_FLAGS)
+        self.occ = body_packed[:, _B_OCC] > 0.5
+        self.mat = body_packed[:, _B_MAT]
+        self.mass = body_packed[:, _B_MASS]
+        self.inv_l = 1.0 / scalars["L"]
+        zero = torch.zeros_like(stats[:, 0])
+        self.ring_y = [zero] * self.n_win
+        self.ring_v = [zero] * self.n_win
+
+    def _vol_norm(self, dy, v1, v2):
+        avg = 0.5 * (v1 + v2)
+        safe = torch.where(avg > 0, avg, 1.0)
+        nexp = float(self.sc["nexp"])
+        return dy / safe if nexp == 1.0 else dy / safe ** nexp
+
+    def top(self, i, i_glob, state, init_cm, stop_t):
+        """Sources, end-of-life posterior Y, needle, fall-over latch from the
+        state step i starts from; returns the latch (B,) bool."""
+        c, L, t = self.c, self.sc["L"], state.time
+        pos = state.pos.flatten(-4, -2)  # (B, V, 3)
+        if self.src:
+            tau = torch.clamp(t - init_cm, min=0.0)
+            hist = i % 50 == 0  # UPDATE_SOURCES_HIST_EVERY
+            for k, (bx, by, bz, ax, ay, az, fx, fy, fz) in enumerate(self.src):
+                sp = [b + a * torch.sin((_TWO_PI_VEC3D * f) * tau)
+                      for b, a, f in ((bx, ax, fx), (by, ay, fy), (bz, az, fz))]
+                d = [pos[..., a] - sp[a][:, None] for a in range(3)]
+                d2 = torch.where(self.occ, d[0] * d[0] + d[1] * d[1] + d[2] * d[2], 3.4e38)
+                # a true division: by a Python number the card multiplies by
+                # its reciprocal, which K1 and the JAX kernel do not
+                dmin = torch.sqrt(d2.amin(-1))
+                c[_S_SRC + k] = dmin / torch.full_like(dmin, L)
+                if hist:
+                    c[_S_SRC + 3 + k] = c[_S_SRC + 3 + k] + c[_S_SRC + k]
+            if hist:
+                c[_S_SRC + 6] = c[_S_SRC + 6] + 1.0
+        if not self.feat:
+            return torch.zeros_like(t, dtype=torch.bool)
+        valid = self.occ & ((self.mat - 5.0).abs() > 0.5)
+        py = torch.where(valid, pos[..., 1] * self.inv_l, 3.4e38).amin(-1)
+        ecap = (c[_S_EOLCAP] < 0.5) & (t >= stop_t)
+        c[_S_EOLY] = torch.where(ecap, py, c[_S_EOLY])
+        c[_S_EOLCAP] = torch.where(ecap, 1.0, c[_S_EOLCAP])
+        if self.flags.get("needle"):
+            is7 = torch.where((self.mat - 7.0).abs() < 0.5, 1.0, 0.0)
+            n7 = torch.clamp(is7.sum(-1), min=1.0)
+            ncapb = (c[_S_NCAP] < 0.5) & (t > init_cm)
+            take = ncapb | ((i_glob == 0) & (c[_S_NCAP] < 0.5))
+            for a in range(3):
+                npos = (is7 * pos[..., a]).sum(-1) / n7
+                c[_S_NEEDLE + a] = torch.where(take, npos, c[_S_NEEDLE + a])
+            c[_S_NCAP] = torch.where(ncapb, 1.0, c[_S_NCAP])
+        if self.flags.get("falling"):
+            touch = (0.5 * state.scale.flatten(-3) - pos[..., 2] > 0.0) & self.occ
+            n_all = torch.where(touch, 1.0, 0.0).sum(-1)
+            feet = touch & ((self.mat - 6.0).abs() < 0.5)
+            n_feet = torch.where(feet, 1.0, 0.0).sum(-1)
+            c[_S_FELL] = torch.maximum(c[_S_FELL], torch.where(
+                (t > init_cm) & (n_feet > n_all - n_feet), 1.0, 0.0))
+            return c[_S_FELL] > 0.5
+        return torch.zeros_like(t, dtype=torch.bool)
+
+    def after(self, t_new, new, init_cm, inv_m):
+        """The trace bookkeeping after a step that ends at t_new with the
+        (raw, not yet frozen) state `new`."""
+        if not self.trace:
+            return
+        c, sc = self.c, self.sc
+        cmy = (new.pos[..., 1].flatten(-3) * self.mass).sum(-1) * inv_m
+        srel = new.scale.flatten(-3) * self.inv_l
+        vol = torch.where(self.occ, srel * srel * srel, 0.0).sum(-1)
+        due = (t_new > init_cm) & ((c[_S_NTR] < 0.5) | (c[_S_LASTTR] + sc["tb"] <= t_new))
+        if self.flags.get("ndbv"):
+            addt = due & (c[_S_NTR] > 0.5)
+            term = self._vol_norm((cmy - c[_S_PCMY]) * self.inv_l, vol, c[_S_PVOL])
+            c[_S_ND] = c[_S_ND] + torch.where(addt, term, 0.0)
+            scv = sc["sc_value"]
+            reg = (t_new > scv) & (c[_S_LASTTR] > scv)
+            c[_S_NDRG] = c[_S_NDRG] + torch.where(addt & reg, term, 0.0)
+            if self.flags.get("freeze_on"):
+                # the frozen window (core/rollout.py's mask; the missing
+                # init_cm offset of its end is the reference's own)
+                mid, fr_len = sc["freeze_middle"], sc["freeze"]
+                fs, fe = (mid - 0.5 * fr_len) + init_cm, mid + 0.5 * fr_len
+
+                def in_w(tt):
+                    return (tt > fs) & (tt < fe)
+
+                c[_S_NDFZ] = c[_S_NDFZ] + torch.where(
+                    addt & in_w(t_new) & in_w(c[_S_LASTTR]), term, 0.0)
+        n = self.n_win
+        if n:
+            self.ring_y = [torch.where(due, a, b)
+                           for a, b in zip(self.ring_y[1:] + [cmy], self.ring_y)]
+            self.ring_v = [torch.where(due, a, b)
+                           for a, b in zip(self.ring_v[1:] + [vol], self.ring_v)]
+        c[_S_NTR] = c[_S_NTR] + torch.where(due, 1.0, 0.0)
+        c[_S_LASTTR] = torch.where(due, t_new, c[_S_LASTTR])
+        c[_S_PCMY] = torch.where(due, cmy, c[_S_PCMY])
+        c[_S_PVOL] = torch.where(due, vol, c[_S_PVOL])
+        if n:
+            win_due = (t_new > init_cm) & (
+                (c[_S_LASTWIN] < -0.5) | (c[_S_LASTWIN] + n * sc["tb"] <= t_new))
+            valid = torch.clamp(c[_S_NTR], max=float(n))
+            wd = torch.zeros_like(t_new)
+            for k in range(n - 1):
+                dyk = (self.ring_y[k + 1] - self.ring_y[k]) * self.inv_l
+                tk = self._vol_norm(dyk, self.ring_v[k + 1], self.ring_v[k])
+                wd = wd + torch.where(valid >= float(n - k), tk, 0.0)
+            c[_S_WPREV] = torch.where(win_due, c[_S_WLAST], c[_S_WPREV])
+            c[_S_WLAST] = torch.where(win_due, wd, c[_S_WLAST])
+            c[_S_WCNT] = c[_S_WCNT] + torch.where(win_due, 1.0, 0.0)
+            c[_S_LASTWIN] = torch.where(win_due, t_new, c[_S_LASTWIN])
+
+    def store(self, out_stats):
+        """Write the channels the kernel writes."""
+        for k in range(len(self.src)):
+            out_stats[:, _S_SRC + k] = self.c[_S_SRC + k]
+            out_stats[:, _S_SRC + 3 + k] = self.c[_S_SRC + 3 + k]
+        if self.src:
+            out_stats[:, _S_SRC + 6] = self.c[_S_SRC + 6]
+        if self.feat:
+            for k in range(_S_FELL, _S_EOLCAP + 1):
+                out_stats[:, k] = self.c[k]
+
+
 def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
                         *, control_packed=None, seg_base=None, num_steps,
                         grid_shape, scalars, flags, n_knots: int = 0,
@@ -742,8 +1046,9 @@ def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
     """Plain version of K1 on the same packed tensors: unpack, loop the
     eager `core.step.sim_step`, keep the stats row's bookkeeping as the
     kernel does (IniCM capture with the seed at global step 0, divergence
-    latch, stop-time freeze), select each step's control knot by the global
-    step, and repack. Returns (state_out, stats_out)."""
+    latch, stop-time freeze, the features' carry), select each step's
+    control knot by the global step, and repack. Returns (state_out,
+    stats_out)."""
     from evosoro_tpu_torch.core.step import freeze_where, sim_step
 
     check_envelope(flags, scalars)
@@ -806,7 +1111,22 @@ def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
         temp_enabled=bool(flags.get("temp_enabled") if flags.get("fluid")
                           else flags.get("temp")),
         fluid_environment=bool(flags.get("fluid")),
+        num_trace_steps_in_window=int(flags.get("n_win", 0) or 0),
+        time_between_traces=scalars["tb"],
+        normalization_exponent=scalars["nexp"],
+        min_growth_time=scalars["min_growth_t"],
+        ballistic_slowdown_fact=scalars["bal_slow"],
+        max_slowdown_permitted=scalars["max_slow"],
     )
+    feats = _PlainFeatures(stats, body_packed, scalars, flags)
+    ballistic = bool(flags.get("ballistic"))
+    if ballistic:
+        # the rebased development fields ride state channels 56-59
+        state = state.replace(devo=DevoState(
+            **{name: state_packed[:, _DEVO_DYN + k].reshape(B, X, Y, Z)
+               for k, name in enumerate(_DEVO_DYN_FIELDS)},
+            original_final_voxel_size=body.final_voxel_size.expand(B, X, Y, Z),
+            win_prev=None, win_last=None, win_count=None))
     mass = body.mass
     for i in range(num_steps):
         i_glob = seg0 + i
@@ -815,12 +1135,24 @@ def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
         take = capture | ((i_glob == 0) & ~capt)
         ini = torch.where(take[:, None], cm, ini)
         capt = capt | capture
-        frozen = state.diverged | (state.time >= stop_t)
+        fell = feats.top(i, i_glob, state, init_cm, stop_t)
+        frozen = state.diverged | (state.time >= stop_t) | fell
         ctrl = None
         if n_knots:
             knot = min(i_glob * n_knots // knot_steps, n_knots - 1)
             ctrl = control_packed[:, knot].reshape(B, X, Y, Z)
-        new = sim_step(state, body, sim, env, dt, prec, control_offset=ctrl)
+        if ballistic:
+            c = feats.c
+            state = state.replace(devo=state.devo.replace(
+                win_prev=c[_S_WPREV], win_last=c[_S_WLAST], win_count=c[_S_WCNT]))
+        if feats.trace:
+            # the trace samples the step a frozen robot throws away, as the
+            # JAX kernel does: integrate it without the divergence freeze
+            new = sim_step(state.replace(diverged=torch.zeros_like(state.diverged)), body,
+                           sim, env, dt, prec, control_offset=ctrl)
+            feats.after(state.time + dt, new, init_cm, inv_m)
+        else:
+            new = sim_step(state, body, sim, env, dt, prec, control_offset=ctrl)
         state = freeze_where(frozen, state, new)
 
     out_state = pack_state(state, state_packed.dtype)
@@ -829,8 +1161,11 @@ def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
     out_stats[:, _S_DIV] = state.diverged.to(stats.dtype)
     out_stats[:, _S_INICM:_S_INICM + 3] = ini
     out_stats[:, _S_CAPT] = capt.to(stats.dtype)
+    feats.store(out_stats)
     # channels the kernel never writes keep their input values
-    out_state[:, _TSAVG:] = state_packed[:, _TSAVG:]
+    out_state[:, _TSAVG:_DEVO_DYN] = state_packed[:, _TSAVG:_DEVO_DYN]
+    if not ballistic:
+        out_state[:, _DEVO_DYN:] = state_packed[:, _DEVO_DYN:]
     return out_state, out_stats
 
 
@@ -851,6 +1186,12 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
     outside the envelope raise first. With the facet drag the grid must
     carry the corner shell (`has_corner_shell`): `launch_flags` and the
     evaluator check it once, where the launch is put together.
+
+    The features' carry rides stats channels 22-46 in and out, but the
+    speed-window ring of trace samples starts empty in every launch, as in
+    the JAX kernel: the windows are those of a rollout made in one launch
+    (the evaluator's), not of one split into segments. Under ballistic
+    development state channels 56-59 carry the rebased fields.
     """
     check_envelope(flags, scalars)
     seg0, knot_steps = _knot_clock(flags, num_steps, n_knots, control_packed,
@@ -894,13 +1235,12 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
     for name, t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    per = _K1_SMEM_FLOATS_COLL if coll else _K1_SMEM_FLOATS
-    if per * 4 * V > _SMEM_BYTES:
-        raise ValueError(f"V={V} voxels overflow K1's shared memory "
-                         f"({per * 4 * V} > {_SMEM_BYTES} bytes)")
+    if not k1_fits(V, coll):
+        raise ValueError(f"V={V} voxels overflow K1's shared memory ({_SMEM_BYTES} bytes)")
     bits = _flag_bits(flags)
     mesh = bool(bits & _K1_FLAG_BITS["fluid_mesh"])
     params = _k1_params(scalars, prec)
+    fparams = _feat_params(scalars, flags)
     state_out = state_packed.clone()
     stats_out = stats.clone()
     # the facet-drag variant leaves each bond's per-side strains here
@@ -916,12 +1256,21 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
                 control_packed.data_ptr() if n_knots else None, int(n_knots),
                 knot_steps, seg0, B, X, Y, Z, int(num_steps),
                 params.ctypes.data_as(ctypes.c_void_p), bits,
-                scratch.data_ptr() if mesh else None, stream)
+                scratch.data_ptr() if mesh else None,
+                fparams.ctypes.data_as(ctypes.c_void_p), stream)
     build.check(rc, "fused_rollout")
     global FUSED_ROLLOUT_LAUNCHES, FUSED_ROLLOUT_CONTACT_LAUNCHES
     global FUSED_ROLLOUT_KNOT_LAUNCHES, FUSED_ROLLOUT_FLUID_LAUNCHES
     global FUSED_ROLLOUT_MESH_LAUNCHES, FUSED_ROLLOUT_DEVO_LAUNCHES
+    global FUSED_ROLLOUT_FEATURE_LAUNCHES, FUSED_ROLLOUT_BALLISTIC_LAUNCHES
+    global FUSED_ROLLOUT_SOURCE_LAUNCHES
     FUSED_ROLLOUT_LAUNCHES += 1
+    if any(flags.get(k) for k in _K1_FEATURE_FLAGS) or scalars.get("sources"):
+        FUSED_ROLLOUT_FEATURE_LAUNCHES += 1
+    if scalars.get("sources"):
+        FUSED_ROLLOUT_SOURCE_LAUNCHES += 1
+    if flags.get("ballistic"):
+        FUSED_ROLLOUT_BALLISTIC_LAUNCHES += 1
     if bits & _K1_FLAG_BITS["fluid"]:
         FUSED_ROLLOUT_FLUID_LAUNCHES += 1
     if mesh:
@@ -961,11 +1310,11 @@ def diff_envelope_ok(flags, scalars) -> bool:
 
 
 def _check_bwd(flags, scalars, n_knots, seg_base, total_steps):
-    check_envelope(flags, scalars)
     if not diff_envelope_ok(flags, scalars):
         raise NotImplementedError(
             "reverse-mode segment: configuration outside the differentiable "
             "envelope (ops.fused_rollout.diff_envelope_ok)")
+    check_envelope(flags, scalars)
     if not n_knots:
         raise ValueError("reverse-mode segment: needs control knots (n_knots > 0)")
     if not flags.get("segmented") or seg_base is None or total_steps is None:
@@ -1076,7 +1425,10 @@ def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
                   control_sequence=None):
     """Advance a batched SimState by `num_steps` through `fused_call` for one
     shared design; `control_sequence` is the optional (B, K, X, Y, Z) MPC
-    knot channel. Returns (new_state, FastRolloutStats)."""
+    knot channel. A state that carries a DevoState runs ballistic
+    development under the environment's speed windows. Returns (new_state,
+    FastRolloutStats), with the sources' distances when the environment
+    has sources."""
     if not supports(body, sim, env):
         raise NotImplementedError(
             "configuration outside the fused rollout's envelope "
@@ -1092,7 +1444,8 @@ def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
             device=state_packed.device)[None]
     if stats is None:
         stats = make_stats(body, B, dt, sim, env, stop_time)
-    flags = launch_flags(body, sim, env, collision=collision_packed is not None)
+    flags = launch_flags(body, sim, env, collision=collision_packed is not None,
+                         ballistic=_ballistic(state, env))
     n_knots, control_packed = 0, None
     if control_sequence is not None:
         n_knots = control_sequence.shape[1]
@@ -1106,7 +1459,27 @@ def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
     outs = stats_to_outputs(out_stats)
     new_state = unpack_state(out_state, state, (X, Y, Z)).replace(
         time=outs.time.to(state.time.dtype), diverged=outs.diverged)
+    n_src = len(kernel_scalars(body.nominal_size, sim, env)["sources"])
+    if n_src:
+        cnt = out_stats[:, _S_SRC + 6:_S_SRC + 7]
+        outs = dataclasses.replace(
+            outs, source_min_dist=out_stats[:, _S_SRC:_S_SRC + n_src],
+            source_avg_min_dist=torch.where(
+                cnt > 0, out_stats[:, _S_SRC + 3:_S_SRC + 3 + n_src]
+                / torch.where(cnt > 0, cnt, 1.0), -1.0))
+    if new_state.devo is not None:
+        dtype = state.devo.win_last.dtype
+        new_state = new_state.replace(devo=new_state.devo.replace(
+            win_last=out_stats[:, _S_WLAST].to(dtype),
+            win_prev=out_stats[:, _S_WPREV].to(dtype),
+            win_count=out_stats[:, _S_WCNT].to(torch.int32)))
     return new_state, outs
+
+
+def _ballistic(state: SimState, env: EnvParams) -> bool:
+    """Ballistic development runs when the state carries a DevoState and the
+    environment defines speed windows (the JAX package's rule)."""
+    return state.devo is not None and int(env.num_trace_steps_in_window) > 0
 
 
 class FusedBatchRunner:
@@ -1153,7 +1526,8 @@ class FusedBatchRunner:
             num_steps=num_steps, grid_shape=self.grid_shape,
             scalars=kernel_scalars(body.nominal_size, sim, env),
             flags=launch_flags(body, sim, env,
-                               collision=self.collision_packed is not None),
+                               collision=self.collision_packed is not None,
+                               ballistic=_ballistic(state, env)),
             n_knots=num_knots, prec=prec)
 
     def run(self, controls):

@@ -31,6 +31,17 @@ padding by zero; a walk with the tables cut to 4 and to 2 slots splits the
 612 into 76 per slot and 4 per vertex. A vertex of a surface has 1 to 7
 occupied voxels around it, and only those corners need rotating, so the bound
 counts 76 for each of them (`mesh_counts`), not for each slot.
+
+The fitness features are counted by walks of the JAX package's functions
+that compute them, on the same body, per grid voxel: a trace sample (CoM and
+volume, `center_of_mass` and `total_volume`) 11.004, the fall-over latch's
+touch counts (`_touch_counts`) 8, the end-of-life posterior Y (`_posterior_y`)
+4, the needle's position (`_needle_pos`) 5.004, one source's distances
+(`min_distances` of `source_positions`) 10.017, and the ballistic rebase
+18.013 (its `sim_step` with a DevoState less without). Each counts where the
+launch's data needs it (`b8c_work`, `b8d_work`, `b8b_work`): a sample for
+every trace the robot took, the latch on every step past its InitCmTime, a
+capture once, the sources and the rebase on every step.
 """
 
 from __future__ import annotations
@@ -55,6 +66,13 @@ MESH_FLOPS_PER_CORNER = 76.0  # one occupied voxel's corner at a vertex
 MESH_FLOPS_PER_VERTEX = 4.0
 MESH_TABLE_SLOTS = 8  # corner slots a vertex of the gather tables is padded to
 DEVO_STEP_FLOPS_PER_VOXEL = 2218.032
+# the fitness features, per occupied voxel (module docstring)
+TRACE_SAMPLE_FLOPS_PER_VOXEL = 11.004
+FALL_LATCH_FLOPS_PER_VOXEL = 8.0
+EOL_POSTERIOR_FLOPS_PER_VOXEL = 4.0
+NEEDLE_FLOPS_PER_VOXEL = 5.004
+SOURCE_FLOPS_PER_VOXEL = 10.017  # one source, one step
+BALLISTIC_FLOPS_PER_VOXEL = 18.013  # one step
 # pair_contact.cuh: operations for every nonzero table entry (difference,
 # distance, rsqrt, overlap test), and more for a pair that touches
 PAIR_FLOPS_TESTED = 14
@@ -259,16 +277,77 @@ def b8_work(state, body, stats, table, stats_out):
 
 
 def launch_work(state, body, stats, table, stats_out, controls=None, *,
-                flags, grid_shape):
+                flags, grid_shape, scalars=None):
     """(flops, bytes) of one K1 launch, counted for the variant of the step
     its flags select: `b7_work` in a fluid, `b8_work` with development
-    fields, else `k1_work`."""
+    fields, else `k1_work`; and the fitness features' work on top
+    (`b8b_work`, `b8c_work`, `b8d_work` with the sources of `scalars`)."""
     if flags.get("fluid"):
-        return b7_work(state, body, stats, table, stats_out, grid_shape,
+        work = b7_work(state, body, stats, table, stats_out, grid_shape,
                        mesh=bool(flags.get("fluid_mesh")))
-    if any(flags.get(k) for k in fr._K1_DEVO_FLAGS):
-        return b8_work(state, body, stats, table, stats_out)
-    return k1_work(state, body, stats, table, stats_out, controls)
+    elif any(flags.get(k) for k in fr._K1_DEVO_FLAGS):
+        work = b8_work(state, body, stats, table, stats_out)
+    else:
+        work = k1_work(state, body, stats, table, stats_out, controls)
+    parts = [work]
+    if any(flags.get(k) for k in fr._K1_FEATURE_FLAGS):
+        parts.append(b8c_work(body, stats, stats_out, flags))
+    if flags.get("ballistic"):
+        parts.append(b8b_work(body, stats, stats_out))
+    n_src = len((scalars or {}).get("sources", ()))
+    if n_src:
+        parts.append(b8d_work(body, stats, stats_out, n_src))
+    return sum(p[0] for p in parts), sum(p[1] for p in parts)
+
+
+def _feature_counts(body, stats, stats_out):
+    """(occupied voxels (B or 1,), steps (B,), steps past InitCmTime (B,))
+    of a launch."""
+    steps = steps_taken(stats, stats_out)
+    occupied = (body[:, fr._B_OCC, :] > 0.5).sum(1).to(steps.dtype)
+    dt = stats[:, fr._S_DT]
+    before = torch.clamp(torch.ceil((stats[:, fr._S_INITCM] - stats[:, fr._S_TIME]) / dt),
+                         min=0.0)
+    return occupied, steps, torch.clamp(steps - before, min=0.0)
+
+
+def b8c_work(body, stats, stats_out, flags):
+    """(flops, bytes) the trace, needle, fall-over and end-of-life
+    bookkeeping add to one K1 launch: a trace sample for every sample each
+    robot took (its trace count's rise), the latch's counts on every step
+    past its InitCmTime, the end-of-life and needle reductions for each
+    capture. Bytes: the feature channels of the stats rows in and out."""
+    occupied, steps, after = _feature_counts(body, stats, stats_out)
+    samples = stats_out[:, fr._S_NTR] - stats[:, fr._S_NTR]
+    per = samples * TRACE_SAMPLE_FLOPS_PER_VOXEL
+    if flags.get("falling"):
+        per = per + after * FALL_LATCH_FLOPS_PER_VOXEL
+    if any(flags.get(k) for k in fr._K1_FEATURE_FLAGS):
+        per = per + (stats_out[:, fr._S_EOLCAP] - stats[:, fr._S_EOLCAP]) \
+            * EOL_POSTERIOR_FLOPS_PER_VOXEL
+    if flags.get("needle"):
+        captures = (stats_out[:, fr._S_NCAP] - stats[:, fr._S_NCAP]) + (steps > 0).to(steps.dtype)
+        per = per + captures * NEEDLE_FLOPS_PER_VOXEL
+    n_feat = fr._S_EOLCAP + 1 - fr._S_FELL
+    return float((occupied * per).sum()), 4.0 * 2 * stats.shape[0] * n_feat
+
+
+def b8d_work(body, stats, stats_out, n_src):
+    """(flops, bytes) of tracking `n_src` sources in one K1 launch: every
+    occupied voxel's distance to each source on every step; bytes, the
+    sources' stats channels in and out."""
+    occupied, steps, _ = _feature_counts(body, stats, stats_out)
+    flops = float((occupied * steps).sum()) * SOURCE_FLOPS_PER_VOXEL * n_src
+    return flops, 4.0 * 2 * stats.shape[0] * (2 * n_src + 1)
+
+
+def b8b_work(body, stats, stats_out):
+    """(flops, bytes) of the ballistic rebase in one K1 launch: every
+    occupied voxel on every step, and its four development channels read
+    and written."""
+    occupied, steps, _ = _feature_counts(body, stats, stats_out)
+    return (float((occupied * steps).sum()) * BALLISTIC_FLOPS_PER_VOXEL,
+            4.0 * 2 * 4 * stats.shape[0] * body.shape[-1])
 
 
 def b4_work(state, body, stats, controls, steps):

@@ -9,34 +9,45 @@
 #include <vector>
 
 #include "fused_rollout_bwd.cu"
-template <int VARIANT>
+template <int VARIANT, bool FEAT>
 static void emu_fwd_variant(float* state, const float* body, int body_batched, float* stats,
                             const float* ctrl, int n_knots, int knot_steps, int step_base,
                             int B, int X, int Y, int Z, int num_steps, const Params& p,
-                            int flags) {
+                            int flags, const FeatParams& fp) {
     const int V = X * Y * Z;
     std::vector<float> sh((size_t)(BF + 7) * V), scr((size_t)6 * V);
     for (int b = 0; b < B; ++b) {
         float* stat = stats + (size_t)b * C_STAT;
         Robot r = load_robot(stat);
-        rollout_steps<VARIANT>(
+        Feat fe = load_feat(stat);
+        rollout_steps<VARIANT, FEAT>(
             state + (size_t)b * C_S * V, 0, body + (body_batched ? (size_t)b * C_B * V : 0),
             nullptr,
             n_knots ? ctrl + (size_t)b * n_knots * V : nullptr, n_knots, knot_steps, step_base,
-            X, Y, Z, num_steps, p, flags, r, nullptr, sh.data(), scr.data());
+            X, Y, Z, num_steps, p, flags, r, nullptr, sh.data(), scr.data(), &fe, &fp);
+        if (FEAT) store_feat(stat, fe, fp, flags);
         stat[ST_TIME] = r.t; stat[ST_DIV] = r.div ? 1.f : 0.f;
         stat[ST_INICM] = r.ini.x; stat[ST_INICM + 1] = r.ini.y; stat[ST_INICM + 2] = r.ini.z;
         stat[ST_CAPT] = r.capt ? 1.f : 0.f;
     }
 }
-// K1's step loop in place, in the variant the flags select, without the
-// pair pass (its warp-wide row walk needs 32 lanes)
+// K1's step loop in place, in the variant the flags select (with the
+// features when a feature bit or a source is on), without the pair pass
+// (its warp-wide row walk needs 32 lanes)
 extern "C" void emu_fwd(float* state, const float* body, int body_batched, float* stats,
                         const float* ctrl, int n_knots, int knot_steps, int step_base, int B,
-                        int X, int Y, int Z, int num_steps, const float* params, int flags) {
+                        int X, int Y, int Z, int num_steps, const float* params, int flags,
+                        const float* fparams) {
     Params p; memcpy(&p, params, sizeof(float) * N_PARAMS);
-#define RUN(VARIANT) emu_fwd_variant<VARIANT>(state, body, body_batched, stats, ctrl, n_knots, \
-                                              knot_steps, step_base, B, X, Y, Z, num_steps, p, flags)
+    const FeatParams fp = feat_params_from(fparams);
+    const bool feat = (flags & F_FEAT) || fp.n_src > 0;
+#define RUN(VARIANT)                                                                         \
+    (feat ? emu_fwd_variant<VARIANT, true>(state, body, body_batched, stats, ctrl, n_knots, \
+                                           knot_steps, step_base, B, X, Y, Z, num_steps, p, \
+                                           flags, fp)                                       \
+          : emu_fwd_variant<VARIANT, false>(state, body, body_batched, stats, ctrl, n_knots, \
+                                            knot_steps, step_base, B, X, Y, Z, num_steps, p, \
+                                            flags, fp))
     switch (variant_of(flags)) {
         case V_FLUID_FACE: RUN(V_FLUID_FACE); break;
         case V_FLUID_MESH: RUN(V_FLUID_MESH); break;

@@ -60,7 +60,7 @@ def host_lib(tmp_path_factory):
     r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-4000:]
     lib = ctypes.CDLL(str(out))
-    lib.emu_fwd.argtypes = [_P, _P, _I, _P, _P] + [_I] * 8 + [_P, _I]
+    lib.emu_fwd.argtypes = [_P, _P, _I, _P, _P] + [_I] * 8 + [_P, _I, _P]
     lib.emu_bwd.argtypes = [_P, _P, _I, _P, _P] + [_I] * 8 + [_P, _I, _P, _P, _P, _P]
     return lib
 
@@ -75,10 +75,11 @@ def _launch_args(state, body, kw):
 
 def host_forward(lib, state, body, stats, ctrl, seg_base, kw):
     B, X, Y, Z, bits, params, batched = _launch_args(state, body, kw)
+    fparams = fr._feat_params(kw["scalars"], kw["flags"])
     st, sa = state.clone(), stats.clone()
     lib.emu_fwd(st.data_ptr(), body.data_ptr(), batched, sa.data_ptr(), ctrl.data_ptr(),
                 kw["n_knots"], kw["total_steps"], seg_base, B, X, Y, Z,
-                kw["num_steps"], params.ctypes.data, bits)
+                kw["num_steps"], params.ctypes.data, bits, fparams.ctypes.data)
     return st, sa
 
 

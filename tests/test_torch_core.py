@@ -240,7 +240,8 @@ def test_import_leaves_jax_out():
             "evosoro_tpu_torch.control, evosoro_tpu_torch.control.shooting, "
             "evosoro_tpu_torch.control.sqp, evosoro_tpu_torch.ops.fused_diff, "
             "evosoro_tpu_torch.roofline, evosoro_tpu_torch.device, "
-            "evosoro_tpu_torch.envs, evosoro_tpu_torch.envs.drag; "
+            "evosoro_tpu_torch.envs, evosoro_tpu_torch.envs.drag, "
+            "evosoro_tpu_torch.envs.sources; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'evosoro_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

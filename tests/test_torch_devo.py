@@ -168,11 +168,104 @@ def test_fused_devo_rollout_matches_jax_kernel():
 
 def test_ballistic_devo_and_fluid_devo_keep_their_rules():
     """In a fluid the development flags are inert (the land_water actuation
-    bypasses them); ballistic development still raises by name."""
+    bypasses them); ballistic development runs on land with an evolved
+    final size and raises by name elsewhere (in a fluid the JAX kernel
+    rebases from ramps its actuation ignores, its eager step not at all)."""
     flags = dict(fluid=True, use_init_size=True, use_final_size=True, temp_enabled=True)
     assert fr._flag_bits(flags) == fr._K1_FLAG_BITS["fluid"] | fr._K1_FLAG_BITS["temp_enabled"]
     assert fr._flag_bits(dict(flags, fluid=False)) & fr._K1_FLAG_BITS["use_init_size"]
     with pytest.raises(NotImplementedError, match="ballistic"):
         fr.check_envelope(dict(ballistic=True), {})
+    with pytest.raises(NotImplementedError, match="ballistic"):
+        fr.check_envelope(dict(flags, ballistic=True, window=True, n_win=4), {"tb": 0.01})
+    land = dict(use_final_size=True, ballistic=True, window=True, n_win=4, temp=True,
+                temp_enabled=True)
+    fr.check_envelope(land, {"tb": 0.01})
+    assert fr._flag_bits(land) & fr._K1_FLAG_BITS["ballistic"]
     assert not fr.diff_envelope_ok(dict(use_final_size=True), {})
     assert not fr.diff_envelope_ok(dict(fluid=True), {})
+
+
+def _growing_walker(dtype=torch.float64):
+    """tests/test_devo_ballistic.py's growing walker: a 3x3x2 block, muscle
+    below and tissue above, growing from L to 1.4 L over 0.15 s from 0.02 s."""
+    from evosoro_tpu_torch.core import build_body, evosoro_default_palette, palette_from_list
+
+    rng = np.random.default_rng(11)
+    structure = np.zeros((3, 3, 2), dtype=np.int32)
+    structure[:, :, 0] = 3
+    structure[:, :, 1] = 1
+    phase = rng.uniform(-1, 1, size=structure.shape) * (structure > 0)
+    L = 0.01
+    shape = structure.shape
+    return build_body(structure, palette_from_list(evosoro_default_palette()),
+                      lattice_dim=L, phase_offset=phase, dtype=dtype,
+                      initial_voxel_size=np.full(shape, L),
+                      final_voxel_size=np.full(shape, 1.4 * L),
+                      growth_time=np.full(shape, 0.15),
+                      start_growth_time=np.full(shape, 0.02))
+
+
+def _ballistic_run(slowdown, max_slow, stop=0.1):
+    """The walker in tests/test_devo_ballistic.py's setting (windows of 4
+    traces, a trace every 5 ms, from 0.02 s, to `stop`), on the port's eager
+    rollout in float64."""
+    from evosoro_tpu_torch.core import calc_max_dt, num_steps_for, rollout
+
+    body = _growing_walker()
+    sim = SimParams(stop_condition_value=stop, init_cm_time=0.02)
+    env = EnvParams(growth_amplitude=0.5, num_trace_steps_in_window=4,
+                    time_between_traces=0.005, norm_dist_by_vol=True,
+                    ballistic_slowdown_fact=slowdown, max_slowdown_permitted=max_slow,
+                    min_growth_time=0.0)
+    dt = float(calc_max_dt(body)) * float(sim.dt_frac)
+    return body, rollout(body, sim, env, num_steps_for(body, sim, dt=dt), dt=dt)
+
+
+def test_windows_accumulate_and_rebase_applies():
+    """With every decrease of the windowed speed halting development
+    (slowdown factor 1, threshold -0.5), the rebase rewrites the start of
+    growth to a sim time and pulls some final size below the target (by
+    0.1 s here; the JAX test runs 0.2 s)."""
+    body, res = _ballistic_run(1.0, -0.5)
+    devo = res.final_state.devo
+    assert devo is not None and int(devo.win_count) >= 2
+    assert torch.isfinite(res.final_state.pos).all()
+    occ = body.occ
+    assert (devo.start_growth_time[occ] > 0.02).all()
+    assert (devo.final_voxel_size[occ] < 1.4 * 0.01 - 1e-9).any()
+
+
+def test_zero_slowdown_fact_keeps_the_target():
+    """BallisticSlowdownFact 0: the rebase keeps the final size (float32
+    storage aside) while it moves the start of growth."""
+    body, res = _ballistic_run(0.0, 0.1, stop=0.08)
+    devo = res.final_state.devo
+    np.testing.assert_allclose(devo.final_voxel_size[body.occ].numpy(), 1.4 * 0.01,
+                               rtol=1e-6)
+    assert (devo.start_growth_time[body.occ] > 0.02).all()
+
+
+def test_ballistic_state_follows_jax():
+    """The JAX package's rule: `init_state(ballistic_devo=True)` carries a
+    DevoState seeded from the body's fields (the final size also as the
+    bound), none without it, and `rollout` makes one exactly when windows
+    run over an evolved final size. (Its fields against JAX's after a
+    rollout: tests/test_torch_features.py.)"""
+    from evosoro_tpu_torch.core import init_state, rollout
+
+    body = _growing_walker()
+    devo = init_state(body, ballistic_devo=True).devo
+    for f, src in (("initial_voxel_size", "initial_voxel_size"),
+                   ("final_voxel_size", "final_voxel_size"),
+                   ("original_final_voxel_size", "final_voxel_size"),
+                   ("growth_time", "growth_time"), ("start_growth_time", "start_growth_time")):
+        assert torch.equal(getattr(devo, f), getattr(body, src)), f
+    assert int(devo.win_count) == 0 and float(devo.win_last) == float(devo.win_prev) == 0.0
+    assert init_state(body).devo is None
+    sim = SimParams(stop_condition_value=0.05, init_cm_time=0.02)
+    res = rollout(body, sim, EnvParams(growth_amplitude=0.5), 3, dt=1e-5)
+    assert res.final_state.devo is None
+    res = rollout(body, sim, EnvParams(growth_amplitude=0.5, num_trace_steps_in_window=4), 3,
+                  dt=1e-5)
+    assert res.final_state.devo is not None

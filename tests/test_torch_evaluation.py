@@ -41,8 +41,11 @@ IND_SIZE = (4, 4, 4)
 
 
 def _population(Genotype_, Phenotype_, Population_, CPPN_, Objectives_,
-                material_tree, seed=11, tag="<NormFinalDist>"):
-    """The examples/basic.py material-tree genome at 4³, pop 4."""
+                material_tree, seed=11, tag="<NormFinalDist>", tissues=("1", "2"),
+                muscles=("3", "4"), more_tags=()):
+    """The examples/basic.py material-tree genome at 4³, pop 4; `tissues`
+    and `muscles` are its tissue and muscle materials, `more_tags`
+    objectives of their own."""
 
     class _Genotype(Genotype_):
         def __init__(self):
@@ -59,22 +62,25 @@ def _population(Genotype_, Phenotype_, Population_, CPPN_, Objectives_,
                                     requirement=True, material_if_true=None,
                                     material_if_false=None)
             m.add_output_dependency(name="tissueType", dependency_name="muscleOrTissue",
-                                    requirement=False, material_if_true="1",
-                                    material_if_false="2")
+                                    requirement=False, material_if_true=tissues[0],
+                                    material_if_false=tissues[1])
             m.add_output_dependency(name="muscleType", dependency_name="muscleOrTissue",
-                                    requirement=True, material_if_true="3",
-                                    material_if_false="4")
+                                    requirement=True, material_if_true=muscles[0],
+                                    material_if_false=muscles[1])
 
     class _Phenotype(Phenotype_):
         def is_valid(self):
             state = self.genotype.to_phenotype_mapping["material"]["state"]
-            return np.sum(state > 0) >= 4 and np.sum((state == 3) | (state == 4)) >= 2
+            return np.sum(state > 0) >= 4 and np.sum(np.isin(state, muscles_i)) >= 2
 
+    muscles_i = [int(m) for m in muscles]
     random.seed(seed)
     np.random.seed(seed)
     objectives = Objectives_()
     objectives.add_objective(name="fitness", maximize=True, tag=tag)
     objectives.add_objective(name="age", maximize=False, tag=None)
+    for k, more in enumerate(more_tags):
+        objectives.add_objective(name=f"tag{k}", maximize=True, tag=more)
     return Population_(objectives, _Genotype, _Phenotype, pop_size=4)
 
 
@@ -292,8 +298,9 @@ def test_evaluator_batch_packs_each_design_in_its_row():
 
 @pytest.mark.parametrize("what", ["devo", "objective"])
 def test_dispatch_refuses_unported_genomes(what):
-    """Ballistic development (a final size evolved under speed windows) and
-    fitness tags beyond NormFinalDist / finalDistY still raise, by name."""
+    """Ballistic development in a fluid (a final size evolved under speed
+    windows, in water) and the tags that only the JAX package's eager
+    evaluator fills still raise, by name."""
     pop = _population(Genotype, Phenotype, Population, CPPN, ObjectiveDict,
                       make_material_tree,
                       tag="<PosteriorY>" if what == "objective" else "<NormFinalDist>")
@@ -306,9 +313,95 @@ def test_dispatch_refuses_unported_genomes(what):
             ind.genotype.express()
         env.add_param("num_trace_steps_in_window", 4, "<NumTraceStepsInWindow>")
         env.time_between_traces = 0.01
+        _water(env)
     with pytest.raises(NotImplementedError,
                        match="ballistic|window" if what == "devo" else "objective tag"):
         evaluation.evaluate_all(Sim(simulation_time=0.01), env, pop, device="cpu")
+
+
+# the seven tags of the fitness features beside NormFinalDist (which
+# NormDistByVol turns into the trace sum): 12 tags with the five of before
+_FEATURE_TAGS = ("<NormRegimeDist>", "<NormFrozenDist>", "<EndOfLifePosteriorY>",
+                 "<FallAdjPostY>", "<FoundNeedleInHaystack>", "<PushDist>", "<WindowDist>")
+# filled only by the JAX package's eager evaluator, not ported yet
+_EAGER_ONLY_TAGS = ("<FinalDist>", "<AnteriorDist>", "<PosteriorDist>", "<AnteriorY>",
+                    "<PosteriorY>", "<NumTouchingFloor>", "<NumNonFeetTouchingFloor>",
+                    "<Lifetime>")
+
+
+def _features_env(cls):
+    """NormDistByVol, the fall-over latch, the needle and windows of 4 trace
+    steps, a trace every 0.0015 s (about 2.6 steps of a 4³ design): 19
+    traces, 4 windows; actuation at 40 Hz (some 40 steps a period), so that
+    the robots move within the launch."""
+    env = cls(time_between_traces=0.0015, frequency=40.0, temp_amp=64.0)
+    for name, tag in (("norm_dist_by_vol", "<NormDistByVol>"),
+                      ("falling_prohibited", "<FallingProhibited>"),
+                      ("needle_in_haystack", "<NeedleInHaystack>")):
+        env.add_param(name, 1, tag)
+    env.add_param("num_trace_steps_in_window", 4, "<NumTraceStepsInWindow>")
+    return env
+
+
+def test_feature_tags_match_jax(monkeypatch):
+    """The port maps 12 objective tags: a population with mat-7 needles
+    among its tissues and mat-6 feet among its muscles, scored on
+    NormFinalDist and on the seven feature tags at once, through both
+    `evaluate_all`s, the JAX package's on its fused kernel in interpret mode
+    (its eager path samples the trace on another clock); contact off. Both
+    step ladders are cut to one 64-step launch, since each interpreted step
+    costs JAX's kernel a fraction of a second: 0.032 s (55 steps of 5.8e-4
+    s), IniCM at 0.004 s, a mid-life freeze of 0.01 s. The tag map is
+    JAX's for each of the 12 tags. Every tag at the rtol 5e-3 of the other
+    experiment cases, with an atol of 5e-3 of its column's largest value:
+    the plain version runs float32, JAX's kernel FMA-contracted, and
+    NormDistByVol sums signed steps whose rounding follows their size, not
+    the sum's. The walking robots' distances stand far above that atol."""
+    assert len(evaluation._OBJECTIVE_TAG_TO_RESULT) == 12
+    for tag, name in evaluation._OBJECTIVE_TAG_TO_RESULT.items():
+        assert j_evaluation._OBJECTIVE_TAG_TO_RESULT[tag] == name, tag
+    monkeypatch.setenv("EVOSORO_TPU_FUSED_EVAL", "1")
+    for mod in (evaluation, j_evaluation):
+        monkeypatch.setattr(mod, "_ladder_steps", lambda n: 64)
+    sim_kw = dict(dt_frac=0.9, simulation_time=0.032, fitness_eval_init_time=0.004,
+                  mid_life_freeze_time=0.01, self_collisions_enabled=False)
+    # seed 4: one design with a needle and five feet among tissue and
+    # counter-phased muscle, one with 15 needles, two all muscle
+    kw = dict(seed=4, tissues=("1", "7"), muscles=("4", "6"), more_tags=_FEATURE_TAGS)
+    pop_j = _population(JGenotype, JPhenotype, JPopulation, JCPPN, JObjectives,
+                        j_material_tree, **kw)
+    j_evaluation.evaluate_all(JSimC(**sim_kw), _features_env(JEnvC), pop_j)
+    pop_p = _population(Genotype, Phenotype, Population, CPPN, ObjectiveDict,
+                        make_material_tree, **kw)
+    evaluation.evaluate_all(Sim(**sim_kw), _features_env(Env), pop_p, device="cpu")
+    assert [i.md5 for i in pop_p] == [i.md5 for i in pop_j]
+    names = ["fitness"] + [f"tag{k}" for k in range(len(_FEATURE_TAGS))]
+    got = np.array([[getattr(i, n) for n in names] for i in pop_p])
+    want = np.array([[getattr(i, n) for n in names] for i in pop_j])
+    assert np.isfinite(got).all()
+    top = np.abs(want).max(axis=0)
+    for k, name in enumerate(["<NormFinalDist>"] + list(_FEATURE_TAGS)):
+        np.testing.assert_allclose(got[:, k], want[:, k], rtol=5e-3, atol=5e-3 * top[k],
+                                   err_msg=name)
+    # the robots walk (NormDistByVol, the frozen window's and the windows'
+    # distances, divided by volumes of up to 64 voxels, reach 1e-6 to 4e-4),
+    # a needle was pushed, every robot's end-of-life Y was captured
+    for tag in ("<NormFinalDist>", "<NormFrozenDist>", "<PushDist>", "<WindowDist>"):
+        assert top[(["<NormFinalDist>"] + list(_FEATURE_TAGS)).index(tag)] > 1e-6, tag
+    assert (got[:, 1 + _FEATURE_TAGS.index("<FoundNeedleInHaystack>")] > 0.5).any()
+    assert (got[:, 1 + _FEATURE_TAGS.index("<EndOfLifePosteriorY>")] > 0).all()
+
+
+@pytest.mark.parametrize("tag", _EAGER_ONLY_TAGS)
+def test_eager_only_tags_raise_by_name(tag):
+    """The eight tags only the JAX package's eager evaluator fills raise,
+    naming the tag, before anything is evaluated."""
+    pop = _population(Genotype, Phenotype, Population, CPPN, ObjectiveDict,
+                      make_material_tree, tag=tag)
+    with pytest.raises(NotImplementedError, match=tag):
+        evaluation.evaluate_all(Sim(simulation_time=0.01), Env(), pop, device="cpu")
+    assert tag in j_evaluation._OBJECTIVE_TAG_TO_RESULT
+    assert tag not in evaluation._OBJECTIVE_TAG_TO_RESULT
 
 
 def test_step_ladders_match_jax():

@@ -204,3 +204,42 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_libs", {})
     with pytest.raises(RuntimeError, match="nvcc"):
         build.library("fused_rollout")
+
+
+@pytest.mark.parametrize("case", ["ballistic_in_water", "four_sources", "window_13",
+                                  "window_flag_without_slots", "no_time_between_traces"])
+def test_feature_envelope_rules(case):
+    """What the feature instance does not take raises by name before
+    anything runs: ballistic development outside the land development
+    variant, more than 3 sources, more than 12 window slots, a window flag
+    that disagrees with its slot count, trace features without a time
+    between traces."""
+    flags = dict(temp=True, temp_enabled=True)
+    scalars = dict(tb=0.01, sources=())
+    err = ValueError
+    if case == "ballistic_in_water":
+        flags.update(fluid=True, use_final_size=True, ballistic=True, window=True, n_win=4)
+        err = NotImplementedError
+    elif case == "four_sources":
+        scalars["sources"] = ((0.0,) * 9,) * 4
+        err = NotImplementedError
+    elif case == "window_13":
+        flags.update(window=True, n_win=13)
+    elif case == "window_flag_without_slots":
+        flags.update(window=True, n_win=0)
+    else:
+        flags.update(ndbv=True)
+        scalars["tb"] = 0.0
+    with pytest.raises(err):
+        fr.check_envelope(flags, scalars)
+
+
+def test_shared_memory_ceiling_counts_the_static_part():
+    """K1's dynamic shared memory gets what its static part (reduction
+    scratch, divergence flags, the feature instance's window ring: 208
+    bytes by ptxas's count) leaves of a block's 232448: 1350 cells with
+    contact (43 floats a cell), 1612 without (36); one more cell each is
+    refused on the host."""
+    assert fr.k1_fits(1350, True) and not fr.k1_fits(1351, True)
+    assert fr.k1_fits(1612, False) and not fr.k1_fits(1613, False)
+    assert fr.k1_fits(11 ** 3, True)  # the largest body a card reading exists for

@@ -164,3 +164,104 @@ def test_host_compiled_development_step_on_the_evaluators_batch(host_lib):  # no
         assert float((out_h[:, a:b] - out_p[:, a:b]).abs().max()) \
             <= 2e-3 * float(out_p[:, a:b].abs().max())
     assert torch.equal(out_h[:, fr._SCALE], out_p[:, fr._SCALE])
+
+
+# the feature channels the comparison holds exactly (counters, latches,
+# times, minima; the state is held by `_worst`) and those it holds at the
+# group tolerance (sums over voxels, in another order here than torch's;
+# sums of source minima inherit the positions' libm differences)
+_FEAT_EXACT = (fr._S_NTR, fr._S_LASTTR, fr._S_WCNT, fr._S_LASTWIN, fr._S_FELL, fr._S_NCAP,
+               fr._S_EOLCAP, fr._S_SRC + 6)
+_FEAT_SUMS = (fr._S_ND, fr._S_NDRG, fr._S_NDFZ, fr._S_WLAST, fr._S_WPREV, fr._S_EOLY,
+              fr._S_NEEDLE, fr._S_NEEDLE + 1, fr._S_NEEDLE + 2, fr._S_SRC, fr._S_SRC + 1,
+              fr._S_SRC + 2, fr._S_SRC + 3, fr._S_SRC + 4, fr._S_SRC + 5)
+
+
+@pytest.mark.parametrize("n_win,n_src", [(4, 3), (12, 1)])
+def test_host_compiled_features_match_plain(host_lib, n_win, n_src):  # noqa: F811
+    """K1's feature instance (`bench.feature_workload`: the evaluator's
+    batch with a needle and feet in each design, half the robots falling
+    over at once and leaving the loop with one dry step, NormDistByVol with
+    the frozen window, windows of `n_win`, `n_src` sources) against the
+    plain version over 45 steps (5 traces), contact off: the state at the group
+    tolerance (the rotational groups, which the two libms move apart faster
+    on these actuated designs, at 2e-3 as on the growth batch above),
+    counters and latches equal, the feature sums within 1e-6 lattice units
+    (the robots that stand still sum rounding noise) and 1e-4 of their
+    largest value. A launch with the features off leaves their channels as
+    they were."""
+    args, kw = bench.feature_workload(n_win=n_win, n_src=n_src, collision=False,
+                                      device="cpu", pop_size=3)
+    out_h, st_h = _host(host_lib, args, kw, steps=45)
+    out_p, st_p = fr.fused_call(*args, num_steps=45, **kw)
+    rotational = ("quat", "angmom", "last_angle1", "last_angle2")
+    assert _worst(out_h, out_p, skip=rotational) <= REL_TOL
+    for name in rotational:
+        a, b = GROUPS[name]
+        assert float((out_h[:, a:b] - out_p[:, a:b]).abs().max()) \
+            <= 2e-3 * float(out_p[:, a:b].abs().max())
+    assert float((st_p[:, fr._S_FELL] > 0.5).sum()) > 0 and float(st_p[:, fr._S_NTR].max()) >= 5
+    for ch in _FEAT_EXACT:
+        assert torch.equal(st_h[:, ch], st_p[:, ch]), ch
+    for ch in _FEAT_SUMS:
+        top = float(st_p[:, ch].abs().max())
+        assert float((st_h[:, ch] - st_p[:, ch]).abs().max()) <= 1e-6 + REL_TOL * top, ch
+    plain = dict(kw, flags={k: v for k, v in kw["flags"].items()
+                            if k not in fr._K1_FEATURE_FLAGS},
+                 scalars=dict(kw["scalars"], sources=()))
+    _, st_0 = _host(host_lib, args, plain, steps=45)
+    assert torch.equal(st_0[:, fr._S_SRC:], args[2][:, fr._S_SRC:])
+
+
+@pytest.mark.parametrize("slowdown", [0.0, 1.0])
+def test_host_compiled_ballistic_matches_plain(host_lib, slowdown):  # noqa: F811
+    """Ballistic development on the growth batch (`bench.ballistic_workload`,
+    contact off: the emulation has no pair pass; a trace every 2 steps, 60
+    steps: every robot rebases from step ~36).
+    With slowdown 0 the rebase keeps each final size, so no decision hangs
+    on a comparison of two window distances and the devo channels agree bit
+    for bit; with 1 every decrease of the windowed speed halts development,
+    and a window distance that g++'s libm moves by an ulp against torch's
+    can flip a robot's decision, so only the robots whose windows agree to
+    1e-3 are held, and there are some."""
+    args, kw = bench.ballistic_workload(device="cpu", pop_size=3, collision=False,
+                                        trace_steps=2, slowdown=slowdown)
+    out_h, st_h = _host(host_lib, args, kw, steps=60)
+    out_p, st_p = fr.fused_call(*args, num_steps=60, **kw)
+    dd = slice(fr._DEVO_DYN, fr._DEVO_DYN + 4)
+    assert float((out_p[:, dd] - args[0][:, dd]).abs().max()) > 0  # rebased
+    assert torch.equal(st_h[:, fr._S_WCNT], st_p[:, fr._S_WCNT])
+    if slowdown == 0.0:
+        assert torch.equal(out_h[:, dd], out_p[:, dd])
+        assert _worst(out_h, out_p, skip=("quat", "angmom", "last_angle1", "last_angle2")) \
+            <= REL_TOL
+        return
+    same = ((st_h[:, fr._S_WLAST] - st_p[:, fr._S_WLAST]).abs()
+            <= 1e-3 * st_p[:, fr._S_WLAST].abs()) & \
+        ((st_h[:, fr._S_WPREV] - st_p[:, fr._S_WPREV]).abs()
+         <= 1e-3 * st_p[:, fr._S_WPREV].abs())
+    assert bool(same.any())
+    torch.testing.assert_close(out_h[same][:, dd], out_p[same][:, dd], rtol=1e-5, atol=0.0)
+
+
+def test_host_compiled_features_in_water_match_plain(host_lib):  # noqa: F811
+    """The feature instance of the facet-drag variant (the swimming
+    experiment's batch in its 7^3 shell, a body per robot) with the needle,
+    NormDistByVol, windows of 4 and 2 sources (the fall-over latch counts no
+    floor in water): the state at the group tolerance with the rotational
+    groups at 2e-3, as above; counters equal."""
+    (state, body, stats, table), kw = bench.evaluator_workload(
+        pop_size=3, collision=False, stagger=True, device="cpu", experiment="swimming")
+    kw = bench.with_features(kw, stats, n_win=4, n_src=2, freeze=False)
+    args = (state, body, stats, None)
+    out_h, st_h = _host(host_lib, args, kw, steps=40)
+    out_p, st_p = fr.fused_call(*args, num_steps=40, **kw)
+    rotational = ("quat", "angmom", "last_angle1", "last_angle2")
+    assert _worst(out_h, out_p, skip=rotational) <= REL_TOL
+    for name in rotational:
+        a, b = GROUPS[name]
+        assert float((out_h[:, a:b] - out_p[:, a:b]).abs().max()) \
+            <= 2e-3 * float(out_p[:, a:b].abs().max())
+    for ch in (fr._S_NTR, fr._S_WCNT, fr._S_NCAP, fr._S_SRC + 6):
+        assert torch.equal(st_h[:, ch], st_p[:, ch]), ch
+    assert float(st_p[:, fr._S_NTR].max()) >= 3

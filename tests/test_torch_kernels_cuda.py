@@ -304,3 +304,39 @@ def test_development_variant_matches_plain_on_the_card():
         land = dict(kw, flags=dict(kw["flags"], **{k: False for k in fr._K1_DEVO_FLAGS}))
         out_l, _ = fr.fused_call(*args, num_steps=100, **land)
         assert float((out_l[:, fr._SCALE] - out_p[:, fr._SCALE]).abs().max()) > 1e-4
+
+
+@pytest.mark.cuda
+def test_feature_instance_matches_plain_on_the_card():
+    """K1's fitness features against the plain version (the workloads and
+    tolerances of chip_smoke.py's phase_k1_features, at 60 steps): the
+    state at the land step's tolerances, counters, latches and minima
+    equal, the sums over voxels at rtol 1e-5 / atol 1e-6 lattice units;
+    ballistic development's channels on the growth batch with contact on,
+    as the ballistic experiment runs it, at rtol 1e-6, and some robot
+    rebased."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; the CUDA kernels have no CPU mode")
+    from evosoro_tpu_torch.bench import ballistic_workload, feature_workload
+
+    exact = (fr._S_NTR, fr._S_LASTTR, fr._S_WCNT, fr._S_LASTWIN, fr._S_FELL, fr._S_NCAP,
+             fr._S_EOLCAP, fr._S_EOLY, fr._S_SRC + 6)
+    for n_win, n_src in ((4, 3), (12, 1)):
+        args, kw = feature_workload(n_win=n_win, n_src=n_src, device="cuda")
+        before = fr.FUSED_ROLLOUT_FEATURE_LAUNCHES
+        out_k, st_k = fr.fused_call(*args, num_steps=60, **kw)
+        assert fr.FUSED_ROLLOUT_FEATURE_LAUNCHES == before + 1
+        out_p, st_p = fr.fused_rollout_plain(*args, num_steps=60, **kw)
+        torch.testing.assert_close(out_k[:, :fr._TSAVG], out_p[:, :fr._TSAVG],
+                                   rtol=2e-5, atol=1e-7)
+        for ch in exact:
+            assert torch.equal(st_k[:, ch], st_p[:, ch]), ch
+        torch.testing.assert_close(st_k[:, fr._S_SRC:fr._S_EOLCAP + 1],
+                                   st_p[:, fr._S_SRC:fr._S_EOLCAP + 1], rtol=1e-5, atol=1e-6)
+    args, kw = ballistic_workload(device="cuda")
+    out_k, st_k = fr.fused_call(*args, num_steps=200, **kw)
+    out_p, st_p = fr.fused_rollout_plain(*args, num_steps=200, **kw)
+    dd = slice(fr._DEVO_DYN, fr._DEVO_DYN + 4)
+    torch.testing.assert_close(out_k[:, dd], out_p[:, dd], rtol=1e-6, atol=0.0)
+    assert float((out_p[:, dd] - args[0][:, dd]).abs().max()) > 0
+    assert torch.equal(st_k[:, fr._S_WCNT], st_p[:, fr._S_WCNT])

@@ -185,22 +185,13 @@ def test_rollout_batches_state_and_body_shapes():
     assert torch.equal(c.final_state.pos[0], c.final_state.pos[2])
 
 
-@pytest.mark.parametrize("what", ["needle", "falling", "ndbv", "window",
-                                  "stop_condition", "volume", "control_shape"])
+@pytest.mark.parametrize("what", ["stop_condition", "volume", "control_shape"])
 def test_rollout_refuses_what_is_not_ported(what):
     jb, dt, u = _design()
     body = _port(jb)
     sim, env, kw = SimParams(), EnvParams(), {}
     err = NotImplementedError
-    if what == "needle":
-        env = EnvParams(needle_in_haystack=True)
-    elif what == "falling":
-        env = EnvParams(falling_prohibited=True)
-    elif what == "ndbv":
-        env = EnvParams(norm_dist_by_vol=True)
-    elif what == "window":
-        env = EnvParams(num_trace_steps_in_window=4)
-    elif what == "stop_condition":
+    if what == "stop_condition":
         kw = dict(stop_condition_type=1)
     elif what == "volume":
         sim = SimParams(volume_effects_enabled=True)

@@ -354,3 +354,98 @@ def test_fluid_and_development_operation_counts_are_jaxpr_walks():
     per_slot = (drag_total(8) - drag_total(4)) / (4 * n_verts)
     assert per_slot == (drag_total(4) - drag_total(2)) / (2 * n_verts)
     assert per_slot == roofline.MESH_FLOPS_PER_CORNER
+
+
+def test_feature_operation_counts_are_jaxpr_walks():
+    """Where the features' counts come from: `tools/roofline.py`'s jaxpr
+    walk over the JAX package's functions that compute them, on the 10^3
+    bench body, per grid voxel: a trace sample, the fall-over latch's touch
+    counts, the end-of-life posterior Y, the needle, one source's distances,
+    and the ballistic rebase (its `sim_step` with a DevoState less without)."""
+    import jax
+    import jax.numpy as jnp
+
+    from evosoro_tpu.core.materials import build_body, calc_max_dt, palette_from_list
+    from evosoro_tpu.core.rollout import (_needle_pos, _posterior_y, _touch_counts,
+                                          center_of_mass, init_state, total_volume)
+    from evosoro_tpu.core.step import sim_step
+    from evosoro_tpu.core.types import EnvParams, SimParams, evosoro_default_palette
+    from evosoro_tpu.envs.sources import make_sources, min_distances, source_positions
+    from tools.roofline import _count_jaxpr
+
+    n = 10
+    rng = np.random.default_rng(0)
+    structure = rng.integers(1, 5, size=(n, n, n)).astype(np.int32)
+    phase = rng.uniform(-1, 1, size=(n, n, n))
+    palette = palette_from_list(evosoro_default_palette())
+
+    def walk(f, *args):
+        counts = {"ew": 0, "trans": 0, "red": 0, "dot": 0}
+        _count_jaxpr(jax.make_jaxpr(f)(*args).jaxpr, counts)
+        return sum(counts.values()) / n ** 3
+
+    def u(lo, hi):
+        return rng.uniform(lo, hi, size=(n, n, n))
+
+    # one body with development fields serves every walk: the features'
+    # counts do not read those fields
+    body = build_body(structure, palette, phase_offset=phase,
+                      initial_voxel_size=u(0.006, 0.014), final_voxel_size=u(0.006, 0.014),
+                      growth_time=u(0.01, 0.1), start_growth_time=u(0, 0.05))
+    st = init_state(body)
+    src = make_sources([dict(pos=(0.1, 0.01, 0.01), amp=(0.02, 0, 0), freq=(3.0, 0, 0),
+                             enabled=True)])
+    for got, want in (
+            (walk(lambda s: (center_of_mass(s, body)[1], total_volume(s, body)), st),
+             roofline.TRACE_SAMPLE_FLOPS_PER_VOXEL),
+            (walk(lambda s: _touch_counts(s, body), st), roofline.FALL_LATCH_FLOPS_PER_VOXEL),
+            (walk(lambda s: _posterior_y(s, body), st), roofline.EOL_POSTERIOR_FLOPS_PER_VOXEL),
+            (walk(lambda s: _needle_pos(s, body), st), roofline.NEEDLE_FLOPS_PER_VOXEL),
+            (walk(lambda s, t: min_distances(source_positions(src, t), s, body), st,
+                  jnp.asarray(0.1)), roofline.SOURCE_FLOPS_PER_VOXEL)):
+        np.testing.assert_allclose(got, want, rtol=1e-9)
+
+    dev = body
+    sim, env = SimParams(), EnvParams(growth_amplitude=0.8, num_trace_steps_in_window=4)
+    dt = float(calc_max_dt(dev)) * 0.9
+    # the step without the DevoState is DEVO_STEP_FLOPS_PER_VOXEL (the walk
+    # of test_fluid_and_development_operation_counts_are_jaxpr_walks)
+    ballistic = walk(lambda s: sim_step(s, dev, sim, env, dt),
+                     init_state(dev, ballistic_devo=True))
+    np.testing.assert_allclose(ballistic - roofline.DEVO_STEP_FLOPS_PER_VOXEL,
+                               roofline.BALLISTIC_FLOPS_PER_VOXEL, rtol=1e-9)
+
+
+def test_feature_work_follows_the_launch():
+    """The features' work on top of the step's: a sample for each trace a
+    robot took, the latch on every step past its IniCM time, a capture
+    once; sources on every step; the rebase on every step."""
+    B, V = 2, 8
+    state = torch.zeros(B, fr.C_S, V)
+    body = torch.zeros(1, fr.C_B, V)
+    body[0, fr._B_OCC, :5] = 1.0
+    stats = torch.zeros(B, fr.C_STAT)
+    stats[:, fr._S_DT] = 1.0
+    stats[:, fr._S_INITCM] = torch.tensor([3.0, 20.0])  # the second never gets there
+    out = stats.clone()
+    out[:, fr._S_TIME] = 10.0
+    out[:, fr._S_NTR] = torch.tensor([4.0, 0.0])
+    out[:, fr._S_EOLCAP] = torch.tensor([1.0, 0.0])
+    flags = dict(falling=True, ndbv=True)
+    flops, nbytes = roofline.b8c_work(body, stats, out, flags)
+    per = (4 * roofline.TRACE_SAMPLE_FLOPS_PER_VOXEL + 7 * roofline.FALL_LATCH_FLOPS_PER_VOXEL
+           + roofline.EOL_POSTERIOR_FLOPS_PER_VOXEL)
+    np.testing.assert_allclose(flops, 5 * per)
+    assert nbytes == 4.0 * 2 * B * 18
+    np.testing.assert_allclose(roofline.b8d_work(body, stats, out, 3)[0],
+                               2 * 10 * 5 * 3 * roofline.SOURCE_FLOPS_PER_VOXEL)
+    np.testing.assert_allclose(roofline.b8b_work(body, stats, out)[0],
+                               2 * 10 * 5 * roofline.BALLISTIC_FLOPS_PER_VOXEL)
+    base = roofline.launch_work(state, body, stats, None, out, flags=dict(use_final_size=True),
+                                grid_shape=(2, 2, 2))
+    both = roofline.launch_work(state, body, stats, None, out,
+                                flags=dict(flags, use_final_size=True, ballistic=True),
+                                grid_shape=(2, 2, 2), scalars=dict(sources=((0.0,) * 9,)))
+    np.testing.assert_allclose(
+        both[0] - base[0], flops + roofline.b8b_work(body, stats, out)[0]
+        + roofline.b8d_work(body, stats, out, 1)[0])
