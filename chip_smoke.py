@@ -34,6 +34,12 @@ bits on the land path, and lets their times be read in turns.
 comparisons and guards of `phase_k1_features`, the cost of the bookkeeping
 on 1024 x 10^3 x 200 steps, and two generations each of the two feature
 experiments.
+
+`python3 chip_smoke.py --materials` runs Voxelyze's material, solver and
+boundary options and the surface-compacted contact pass alone: the replay
+path of the four fixture .vxa files and the cantilever (`phase_replay`),
+the comparisons and guards of `phase_k1_materials` with the costs of B5 and
+B6 on 1024 x 10^3, and two generations of the materials experiment.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import hashlib
 import json
 import os
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -83,7 +90,12 @@ PEAK_SLACK = 1.05
 B4_REL_TOL = 2e-3
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    if "phase" in obj:  # seconds since the start, to read where the run's time goes
+        obj = dict(obj, elapsed_s=round(time.perf_counter() - T0, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -714,6 +726,315 @@ def phase_k1_features(torch):
     return recs, timed
 
 
+# the JAX package's tolerances between its kernel and its jnp step for the
+# material instance's branches (tests/test_fused_rollout.py:381-682); a
+# launch with several branches on is held at the strictest of theirs
+MAT_TOL = dict(
+    nonlinear=dict(pos=(2e-4, 5e-8), time=(1e-6, 0.0)),
+    plasticity=dict(pos=(2e-4, 2e-8), time=(1e-6, 0.0)),
+    max_vel=dict(pos=(5e-5, 1e-8), time=(1e-6, 0.0)),
+    bc=dict(pos=(2e-5, 1e-9), linmom=(1e-3, 1e-10), time=(1e-6, 0.0)),
+    equilibrium=dict(pos=(2e-5, 1e-8), linmom=(1e-3, 1e-10), time=(1e-6, 0.0)),
+)
+SOFF_RTOL = 1e-4  # plasticity's strain offset
+KE_RTOL = 1e-3  # equilibrium mode's kinetic-energy ring
+
+
+def _strictest(*names):
+    out = {}
+    for n in names:
+        for k, (r, a) in MAT_TOL[n].items():
+            out[k] = (min(r, out[k][0]), min(a, out[k][1])) if k in out else (r, a)
+    return out
+
+
+def _mat_case(torch, fr, label, args, kw, steps, tol, guards, extra_check=None,
+              time_steps=None, **info):
+    """K1's material instance against its plain version on one input, with
+    guards: each (name, launch keywords[, tensors]) is the same launch with
+    a branch's bit off, which must fail `tol`; with `time_steps`, a launch of that many
+    steps timed beside its plain version and its bound. Returns the record."""
+    from evosoro_tpu_torch import roofline
+
+    before = fr.FUSED_ROLLOUT_MATERIAL_LAUNCHES
+    out_k, st_k = fr.fused_call(*args, num_steps=steps, **kw)
+    torch.cuda.synchronize()
+    assert fr.FUSED_ROLLOUT_MATERIAL_LAUNCHES == before + 1
+    out_p, st_p = fr.fused_rollout_plain(*args, num_steps=steps, **kw)
+    torch.cuda.synchronize()
+    ok, errs = _compare(torch, fr, out_k, st_k, out_p, st_p, tol)
+    rec = dict(phase="k1_materials_vs_plain", workload=label, batch=args[0].shape[0],
+               steps=steps, tol=tol, **info, **errs)
+    for name, gkw, *gargs in guards:
+        # a guard passes only if every check of the case passes on it
+        out_g, st_g = fr.fused_call(*(gargs[0] if gargs else args), num_steps=steps, **gkw)
+        g_ok, g_errs = _compare(torch, fr, out_g, st_g, out_p, st_p, tol, need_small=False)
+        if extra_check is not None:
+            g_ok &= extra_check({}, out_g, st_g, out_p, st_p)
+        rec[f"guard_{name}_pos"] = g_errs["pos"]
+        rec[f"guard_{name}_passes"] = g_ok
+        ok &= not g_ok
+    if extra_check is not None:
+        ok &= extra_check(rec, out_k, st_k, out_p, st_p)
+    rec["sha256"] = _digest("k1_materials/%s/steps=%d" % (label, steps), out_k, st_k)
+    if time_steps:
+        n = time_steps
+        rec["timed_steps"] = n
+        rec["ms"] = _event_ms(torch, lambda: fr.fused_call(*args, num_steps=n, **kw), 5)
+        rec["plain_ms"] = _event_ms(
+            torch, lambda: fr.fused_rollout_plain(*args, num_steps=n, **kw), 1)
+        _, st_n = fr.fused_call(*args, num_steps=n, **kw)
+        ss = kw.get("ss_packed")
+        rec.update(roofline.bound(*roofline.launch_work(
+            *args, st_n, flags=kw["flags"], grid_shape=kw["grid_shape"],
+            scalars=kw["scalars"], n_pts=0 if ss is None else (ss.shape[1] - 3) // 2)))
+    rec["ok"] = ok
+    emit(rec)
+    assert ok, rec
+    return rec
+
+
+def _compact_case(torch, np, fr, label, a_c, kw_c, a_d, kw_d, time_steps=None):
+    """K1's compact contact pass against its plain version and against the
+    dense pass, on launches `a_c` (compact table) and `a_d` (dense table)
+    of one design whose lattice is shrunk about its centre so that far
+    surface voxels touch: one step (its momenta carry the contact forces
+    times dt, and the launches differ only in the order of the pair sums),
+    held to K2's rule max |df| <= 1e-4 max |f|; contact off must fail.
+    Returns the record, with the dense comparison under `dense_vs_compact`."""
+    state = a_c[0].clone()
+    state[:, fr._POS:fr._POS + 3] = _contact_positions(
+        torch, np, state[:, fr._POS:fr._POS + 3], 0.5)
+    a_c, a_d = (state,) + a_c[1:], (state,) + a_d[1:]
+    before = fr.FUSED_ROLLOUT_COMPACT_LAUNCHES
+    lin = slice(fr._LIN, fr._LIN + 3)
+
+    def force_check(rec, out_k, st_k, out_p, st_p):
+        top = float(out_p[:, lin].abs().max())
+        rec["momentum_rel_err"] = float((out_k[:, lin] - out_p[:, lin]).abs().max()) / top
+        return rec["momentum_rel_err"] <= K2_REL_TOL
+
+    no_lin = {k: v for k, v in TOL.items() if k != "linmom"}
+    rec = _mat_case(torch, fr, label, a_c, kw_c, 1, no_lin,
+                    [("contact", dict(kw_c, flags=dict(kw_c["flags"], collision=False,
+                                                       collision_compact=False)),
+                      a_c[:3] + (None,))],
+                    force_check, time_steps=time_steps, surface_voxels=a_c[3].shape[-1])
+    assert fr.FUSED_ROLLOUT_COMPACT_LAUNCHES > before
+    out_c, st_c = fr.fused_call(*a_c, num_steps=1, **kw_c)
+    out_d, st_d = fr.fused_call(*a_d, num_steps=1, **kw_d)
+    ok, errs = _compare(torch, fr, out_c, st_c, out_d, st_d, no_lin)
+    rec_cd = dict(phase="compact_vs_dense_k1", workload=label, steps=1, **errs)
+    ok &= force_check(rec_cd, out_c, st_c, out_d, st_d)
+    rec_cd["ok"] = ok
+    emit(rec_cd)
+    assert ok, rec_cd
+    return dict(rec, dense_vs_compact=rec_cd)
+
+
+def phase_k1_materials(torch, np, replays):
+    """K1's material instance (Voxelyze's material, solver and boundary
+    options, and the surface-compacted contact pass) against its plain
+    version: (a) the evaluator's batch of the materials experiment
+    (bilinear muscle, MDL_DATA tissue, 16 x 6^3, a body, table and dt per
+    robot, contact on) with plasticity and the max-velocity clamp, 25 and
+    100 steps, and with every fitness feature; (b) equilibrium mode on the
+    bench design, 8 x 10^3 x 500 steps, in which the zeroing fires; (c) the
+    hand-written 10^3 cantilever read with `load_vxa`, whose pinned face
+    stays at its nominal place bit for bit; (d) the four fixture .vxa files
+    as `phase_replay` replayed them whole, dense and compact (`replays`, its
+    records), whose fitnesses must agree at K2's tolerance, and on each
+    design's lattice shrunk into contact K1's compact pass held against its
+    plain version and the dense pass (`_compact_case`), then the same on the
+    bench design, timed; then B5's and B6's times on 1024 x 10^3. Guards:
+    each branch's bit off fails its tolerance. Returns the records by
+    name."""
+    import tempfile
+
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    recs = {}
+    # (a)
+    args, kw = bench.materials_workload(device="cuda")
+    off = lambda **f: dict(kw, flags=dict(kw["flags"], **f))  # noqa: E731
+    soff = slice(fr._SOFF, fr._SOFF + 3)
+
+    def soff_check(rec, out_k, st_k, out_p, st_p):
+        d = (out_k[:, soff] - out_p[:, soff]).abs()
+        rec["strain_offset_err"] = float(d.max())
+        rec["strain_offset_max"] = float(out_p[:, soff].abs().max())
+        return bool((d <= 1e-7 + SOFF_RTOL * out_p[:, soff].abs()).all()) \
+            and rec["strain_offset_max"] > 0
+
+    tol_a = _strictest("nonlinear", "plasticity", "max_vel")
+    recs["a"] = [_mat_case(torch, fr, "materials evaluator batch 6^3, contact on", args, kw,
+                           steps, tol_a,
+                           [("nonlinear", dict(off(nonlinear=False, mdl_data=False),
+                                               ss_packed=None)),
+                            ("plasticity", off(plasticity=False)),
+                            ("max_vel", off(max_vel=False))],
+                           soff_check, time_steps=25 if steps == 25 else None)
+                 for steps in (25, 100)]
+    fkw = bench.with_features(kw, args[2], n_win=4, n_src=1)
+    recs["a_features"] = _mat_case(
+        torch, fr, "materials evaluator batch 6^3, contact on, features", args, fkw, 100,
+        tol_a, [("plasticity", dict(fkw, flags=dict(fkw["flags"], plasticity=False)))],
+        soff_check)
+
+    # (b)
+    args, kw, _ = bench.packed_workload(8, device="cuda", equilibrium=True)
+    ke = slice(fr._S_KE, fr._S_KE + 6)
+
+    def energy(out):  # the robots' kinetic energy, 0.5 sum(p^2 / m + L^2 / I)
+        b = args[1][0]
+        lin = (out[:, fr._LIN:fr._LIN + 3] ** 2).sum(1) * b[fr._B_MASS_INV]
+        ang = (out[:, fr._ANG:fr._ANG + 3] ** 2).sum(1) * b[fr._B_INERTIA_INV]
+        return 0.5 * (lin + ang).sum(1)
+
+    def ke_check(rec, out_k, st_k, out_p, st_p):
+        d = (st_k[:, ke] - st_p[:, ke]).abs()
+        rec["ke_err"] = float(d.max())
+        rec["ke_ring"] = st_p[0, ke].tolist()
+        rec["energy_j"] = float(energy(out_k).max())
+        return bool((d <= KE_RTOL * st_p[:, ke].abs()).all())
+
+    # without the mode the same launch keeps its energy: the zeroing fired
+    off_b = dict(kw, flags=dict(kw["flags"], equilibrium=False),
+                 scalars=fr.equilibrium_scalars(kw["scalars"]))
+    rec = _mat_case(torch, fr, "bench 8 x 10^3, equilibrium mode", args, kw, 500,
+                    MAT_TOL["equilibrium"], [("equilibrium", off_b)], ke_check, time_steps=25)
+    out_free, _ = fr.fused_call(*args, num_steps=500, **off_b)
+    free = float(energy(out_free).min())
+    emit(dict(phase="equilibrium_zeroing", energy_with_mode_j=rec["energy_j"],
+              energy_without_mode_j=free))
+    assert rec["energy_j"] < 0.1 * free, (rec["energy_j"], free)
+    recs["b"] = dict(rec, energy_without_mode_j=free)
+
+    # (c)
+    with tempfile.TemporaryDirectory() as tmp:
+        args, kw, body = bench.cantilever_workload(os.path.join(tmp, "cantilever.vxa"),
+                                                   batch=2, device="cuda")
+    pinned = ((body.dof_fixed == 63) & body.occ).flatten()
+    nom = (body.nom_pos + body.external_disp).reshape(-1, 3).T
+
+    def pinned_check(rec, out_k, st_k, out_p, st_p):
+        rec["pinned_voxels"] = int(pinned.sum())
+        rec["pinned_exact"] = all(torch.equal(o[:, :3][:, :, pinned],
+                                              nom[:, pinned].expand(2, -1, -1))
+                                  for o in (out_k, out_p))
+        tip = (torch.arange(pinned.numel(), device=pinned.device)
+               // (body.occ.shape[1] * body.occ.shape[2])) == body.occ.shape[0] - 1
+        rec["tip_sag_m"] = float((nom[2, tip] - out_k[:, 2][:, tip]).mean())
+        return rec["pinned_exact"] and rec["tip_sag_m"] > 0
+
+    recs["c"] = _mat_case(torch, fr, "cantilever 10^3 (load_vxa)", args, kw, 200,
+                          MAT_TOL["bc"], [("bc", dict(kw, flags=dict(kw["flags"], bc=False),
+                                                      bc_packed=None))], pinned_check,
+                          time_steps=25)
+
+    # (d) the fixtures replayed whole, dense and compact (`phase_replay`'s run)
+    recs["d"] = []
+    for path in bench.fixture_paths():
+        name = os.path.basename(path)
+        dense, compact = [r for r in replays if r["file"] == name]
+        assert not dense["compact"] and compact["compact"], (dense, compact)
+        fit_rel = abs(dense["fitness"] - compact["fitness"]) / max(abs(dense["fitness"]), 1e-30)
+        a_d, kw_d = bench.replay_launch(path, batch=1, device="cuda")
+        a_c, kw_c = bench.replay_launch(path, batch=1, device="cuda", compact=True)
+        # the compact pass's plain version against the dense pass (K2's own
+        # launch) on the design's lattice shrunk about its centre, where far
+        # surface voxels touch
+        pos = _contact_positions(torch, np, a_d[0][:, fr._POS:fr._POS + 3], 0.4)
+        scale = a_d[0][:, fr._SCALE].contiguous()
+        f_d = fr.pair_contact_forces(pos, scale, a_d[3])
+        f_c = fr.pair_contact_forces_compact_plain(pos, scale, a_c[3])
+        fmax = float(f_d.abs().max())
+        rel = float((f_d - f_c).abs().max()) / max(fmax, 1e-30)
+        # K1's compact pass at this design's shapes against its plain
+        # version and the dense pass
+        k1 = _compact_case(torch, np, fr, "fixture %s shrunk into contact, compact contact"
+                           % name, a_c, kw_c, a_d, kw_d)
+        rec = dict(phase="replay", file=name, steps=dense["steps"],
+                   fitness_dense=dense["fitness"], fitness_compact=compact["fitness"],
+                   fitness_rel_diff=fit_rel, fitness_in_file_name=dense["fitness_in_name"],
+                   seconds_dense=dense["seconds"], seconds_compact=compact["seconds"],
+                   surface_voxels=dense["surface_voxels"], voxels=dense["voxels"],
+                   contact_force_max=fmax, compact_vs_dense_rel=rel,
+                   k1_momentum_rel_err=k1["momentum_rel_err"],
+                   k1_momentum_rel_err_vs_dense=k1["dense_vs_compact"]["momentum_rel_err"],
+                   tol=K2_REL_TOL)
+        ok = (fmax > 0 and rel <= K2_REL_TOL and fit_rel <= K2_REL_TOL
+              and not dense["diverged"] and not compact["diverged"]
+              and all(np.isfinite([dense["fitness"], compact["fitness"]])))
+        rec["ok"] = ok
+        emit(rec)
+        assert ok, rec
+        recs["d"].append(rec)
+    # the same on the bench 10^3 design (488 surface voxels), 4 robots,
+    # timed at 25 steps from the same state
+    a_c, kw_c, _ = bench.packed_workload(4, collision=True, compact=True, device="cuda")
+    a_d, kw_d, _ = bench.packed_workload(4, collision=True, device="cuda")
+    recs["b5"] = _compact_case(torch, np, fr, "bench 4 x 10^3 shrunk into contact, "
+                               "compact contact", a_c, kw_c, a_d, kw_d, time_steps=25)
+
+    # B5 against the dense pass on 1024 x 10^3 x 20 with contact, and B6's
+    # cost on 1024 x 10^3 x 200 against the land instance, in turns
+    t_dense, t_compact = [], []
+    for compact, acc in ((False, t_dense), (True, t_compact), (True, t_compact),
+                         (False, t_dense)):
+        acc.append(bench.throughput(batch=1024, steps=20, collision=True, compact=compact,
+                                    groups=2, reps=2))
+    t_land, t_mat = [], []
+    for mat, acc in ((False, t_land), (True, t_mat), (True, t_mat), (False, t_land)):
+        acc.append(bench.throughput(batch=1024, steps=200, materials=mat, groups=2, reps=3))
+    best = lambda rs: min(rs, key=lambda r: r["ms"])  # noqa: E731
+    rec = dict(phase="materials_cost",
+               b5_dense_ms=[r["ms"] for r in t_dense], b5_compact_ms=[r["ms"] for r in t_compact],
+               b5_compact_over_dense=best(t_compact)["ms"] / best(t_dense)["ms"],
+               b5_compact_bound_ms=best(t_compact)["bound_ms"],
+               b6_land_ms=[r["ms"] for r in t_land], b6_materials_ms=[r["ms"] for r in t_mat],
+               b6_added_ms=best(t_mat)["ms"] - best(t_land)["ms"],
+               b6_materials_bound_ms=best(t_mat)["bound_ms"],
+               b6_materials_bound_by=best(t_mat)["bound_by"])
+    emit(rec)
+    recs["cost"] = rec
+    return recs
+
+
+def phase_replay(torch):
+    """The replay path as a user drives it: `load_vxa` -> `fused_rollout`
+    -> `locomotion_fitness`, the four fixtures (dense and with the compact
+    switch) and the hand-written cantilever (with the max-velocity clamp,
+    and in equilibrium mode). Every count is set to 0 just before and read
+    just after; each material branch must have launched. Returns the counts
+    and the records (`bench.replay`'s, less the final state)."""
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    counters = dict(fused_rollout="FUSED_ROLLOUT_LAUNCHES",
+                    material="FUSED_ROLLOUT_MATERIAL_LAUNCHES",
+                    nonlinear="FUSED_ROLLOUT_NONLINEAR_LAUNCHES",
+                    solver="FUSED_ROLLOUT_SOLVER_LAUNCHES",
+                    bc="FUSED_ROLLOUT_BC_LAUNCHES",
+                    compact="FUSED_ROLLOUT_COMPACT_LAUNCHES",
+                    contact="FUSED_ROLLOUT_CONTACT_LAUNCHES")
+    for name in counters.values():
+        setattr(fr, name, 0)
+    import math
+
+    recs = bench.replay_workload(device="cuda")
+    launches = {k: getattr(fr, name) for k, name in counters.items()}
+    for r in recs:
+        r.pop("final_state")
+        emit(dict(r, phase="replay_path"))
+        assert math.isfinite(r["fitness"]) and not r["diverged"], r
+    emit(dict(phase="replay_launches", **launches))
+    assert launches["fused_rollout"] == len(recs) == 10, launches
+    assert launches["compact"] == 4 and launches["bc"] == 2 and launches["solver"] == 2, launches
+    return launches, recs
+
+
 def _controls(torch, np, batch, knots, voxels, seed):
     """Controls (B, K, V), uniform in ±0.05 and different for every robot."""
     rng = np.random.default_rng(seed)
@@ -1156,7 +1477,7 @@ def phase_sqp(torch, b4_timed):
 
 
 def phase_evolution(torch, experiments=("basic", "swimming", "growth", "features",
-                                         "ballistic")):
+                                         "ballistic", "materials")):
     """Two generations each of the basic, swimming and growth experiments and
     of their feature twins (basic with NormDistByVol, the fall-over latch,
     speed windows and a source; growth with ballistic development), uncut,
@@ -1176,6 +1497,8 @@ def phase_evolution(torch, experiments=("basic", "swimming", "growth", "features
                     fused_rollout_features="FUSED_ROLLOUT_FEATURE_LAUNCHES",
                     fused_rollout_sources="FUSED_ROLLOUT_SOURCE_LAUNCHES",
                     fused_rollout_ballistic="FUSED_ROLLOUT_BALLISTIC_LAUNCHES",
+                    fused_rollout_material="FUSED_ROLLOUT_MATERIAL_LAUNCHES",
+                    fused_rollout_nonlinear="FUSED_ROLLOUT_NONLINEAR_LAUNCHES",
                     pair_contact="PAIR_CONTACT_LAUNCHES")
     all_launches = {}
     for experiment in experiments:
@@ -1203,6 +1526,9 @@ def phase_evolution(torch, experiments=("basic", "swimming", "growth", "features
                 assert r["k1_feature_launches"] == r["k1_launches"], r
             if experiment == "ballistic":
                 assert r["k1_ballistic_launches"] == r["k1_launches"], r
+            # every launch of the custom palette took the material instance
+            if experiment == "materials":
+                assert r["k1_material_launches"] == r["k1_launches"], r
         # K2's routine runs inside K1's launches; its own kernel is not on the path
         assert launches["fused_rollout"] > 0, launches
         assert launches["fused_rollout_with_contact"] > 0, launches
@@ -1216,6 +1542,9 @@ def phase_evolution(torch, experiments=("basic", "swimming", "growth", "features
         features = experiment in ("features", "ballistic")
         assert (launches["fused_rollout_features"] == launches["fused_rollout"]) == features
         assert (launches["fused_rollout_ballistic"] > 0) == (experiment == "ballistic")
+        materials = experiment == "materials"
+        assert (launches["fused_rollout_material"] == launches["fused_rollout"]) == materials
+        assert (launches["fused_rollout_nonlinear"] > 0) == materials
         emit(dict(phase="evolution_launches", experiment=experiment, **launches))
         all_launches[experiment] = launches
     return all_launches
@@ -1269,9 +1598,13 @@ def main():
     phase_build()
     if sys.argv[1:] == ["--land"]:
         return phase_land(torch, np, card)
-    if sys.argv[1:] == ["--features"]:
-        phase_k1_features(torch)
-        phase_evolution(torch, ("features", "ballistic"))
+    if sys.argv[1:] in (["--features"], ["--materials"]):
+        if sys.argv[1:] == ["--features"]:
+            phase_k1_features(torch)
+            phase_evolution(torch, ("features", "ballistic"))
+        else:
+            phase_k1_materials(torch, np, phase_replay(torch)[1])
+            phase_evolution(torch, ("materials",))
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -1284,11 +1617,14 @@ def main():
     fluid = phase_k1_fluid(torch)
     devo = phase_k1_devo(torch)
     feat_recs, feat_timed = phase_k1_features(torch)
+    replay, replays = phase_replay(torch)
+    mats = phase_k1_materials(torch, np, replays)
     fma = phase_fp32_peak(torch)
     evo_launches = phase_evolution(torch)
     launches = evo_launches["basic"]
     swim, grow = evo_launches["swimming"], evo_launches["growth"]
     featx, balx = evo_launches["features"], evo_launches["ballistic"]
+    matx = evo_launches["materials"]
     mpc_launches, knot_timed, loop_recs = phase_mpc(torch, np)
     b4 = phase_b4(torch, np)
     b4_timed = next(r for r in b4 if "ms" in r)
@@ -1317,12 +1653,15 @@ def main():
              replaces="evosoro_tpu/ops/fused_rollout.py:777",
              launches=launches["fused_rollout"] + swim["fused_rollout"]
              + grow["fused_rollout"] + featx["fused_rollout"] + balx["fused_rollout"]
+             + matx["fused_rollout"] + replay["fused_rollout"]
              + mpc_launches["fused_rollout"] + sqp_launches["fused_rollout"],
              launches_evolution=launches["fused_rollout"],
              launches_swimming=swim["fused_rollout"],
              launches_growth=grow["fused_rollout"],
              launches_features=featx["fused_rollout"],
              launches_ballistic=balx["fused_rollout"],
+             launches_materials=matx["fused_rollout"],
+             launches_replay=replay["fused_rollout"],
              launches_mpc=mpc_launches["fused_rollout"],
              launches_sqp=sqp_launches["fused_rollout"],
              **bound_keys(k1_timed),
@@ -1450,6 +1789,67 @@ def main():
              "240 steps",
              ms=feat_timed["b8b"]["ms"], plain_ms=feat_timed["b8b"]["plain_ms"],
              ms_of="growth evaluator batch 16 x 5x5x4, 25 steps, contact on, windows of 4"),
+        dict(name="K1 surface-compacted contact pass (B5)", route="cuda",
+             source="evosoro_tpu_torch/ops/csrc/pair_contact.cuh",
+             replaces="evosoro_tpu/ops/fused_rollout.py:734",
+             launches=replay["compact"],
+             launches_of="the replay path: the four fixtures with the compact switch",
+             **bound_keys(mats["b5"]),
+             max_abs_err=mats["b5"]["linmom"],
+             momentum_rel_err=max([mats["b5"]["momentum_rel_err"]]
+                                  + [r["k1_momentum_rel_err"] for r in mats["d"]]),
+             momentum_rel_err_vs_dense=max(
+                 [mats["b5"]["dense_vs_compact"]["momentum_rel_err"]]
+                 + [r["k1_momentum_rel_err_vs_dense"] for r in mats["d"]]),
+             max_rel_force_err_vs_dense=max(r["compact_vs_dense_rel"] for r in mats["d"]),
+             err_of=("momentum (kg m/s) of K1 with the compact pass against its plain "
+                     "version, bench 4 x 10^3 shrunk into contact, 1 step; the relative "
+                     "momentum errors against the plain version and the dense K1 also "
+                     "over each fixture's lattice shrunk into contact; and the compact "
+                     "plain pass against the dense K2 there (max|df| / max|f|)"),
+             ms=mats["b5"]["ms"], plain_ms=mats["b5"]["plain_ms"],
+             ms_of="K1 launch with the compact pass, bench 4 x 10^3 shrunk into "
+             "contact, 25 steps",
+             compact_over_dense_1024x10_3x20=mats["cost"]["b5_compact_over_dense"],
+             compact_ms_1024x10_3x20=mats["cost"]["b5_compact_ms"],
+             dense_ms_1024x10_3x20=mats["cost"]["b5_dense_ms"]),
+        dict(name="K1 max-velocity clamp and equilibrium mode (B6a)", route="cuda",
+             source="evosoro_tpu_torch/ops/csrc/fused_rollout_common.cuh",
+             replaces="evosoro_tpu/ops/fused_rollout.py:1519",
+             launches=replay["solver"],
+             launches_of="the replay path: the cantilever with the clamp and in "
+             "equilibrium mode",
+             **bound_keys(mats["b"]),
+             max_abs_err=max(max(r["pos"] for r in mats["a"]), mats["b"]["pos"]),
+             err_of=("pos (m) against the plain version: the materials batch with the "
+                     "clamp, 25/100 steps; bench 8 x 10^3 in equilibrium mode, 500 steps"),
+             ms=mats["b"]["ms"], plain_ms=mats["b"]["plain_ms"],
+             ms_of="bench 8 x 10^3, equilibrium mode, 25 steps"),
+        dict(name="K1 BC regions (B6b)", route="cuda",
+             source="evosoro_tpu_torch/ops/csrc/fused_rollout_common.cuh",
+             replaces="evosoro_tpu/ops/fused_rollout.py:966",
+             launches=replay["bc"],
+             launches_of="the replay path: the cantilever .vxa twice",
+             **bound_keys(mats["c"]),
+             max_abs_err=mats["c"]["pos"], pinned_exact=mats["c"]["pinned_exact"],
+             err_of="pos (m) against the plain version, cantilever 2 x 10^3, 200 steps",
+             ms=mats["c"]["ms"], plain_ms=mats["c"]["plain_ms"],
+             ms_of="cantilever 2 x 10^3, 25 steps"),
+        dict(name="K1 bilinear and MDL_DATA stress, plasticity (B6c)", route="cuda",
+             source="evosoro_tpu_torch/ops/csrc/fused_rollout_common.cuh",
+             replaces="evosoro_tpu/ops/fused_rollout.py:372",
+             launches=matx["fused_rollout_nonlinear"],
+             launches_of="two generations of the materials experiment",
+             **bound_keys(mats["a"][0]),
+             max_abs_err=max(r["pos"] for r in mats["a"] + [mats["a_features"]]),
+             max_strain_offset_err=max(r["strain_offset_err"]
+                                       for r in mats["a"] + [mats["a_features"]]),
+             err_of=("pos (m) against the plain version: the materials evaluator batch "
+                     "16 x 6^3 with plasticity and the clamp, contact on, 25/100 steps, "
+                     "and with the features, 100 steps"),
+             ms=mats["a"][0]["ms"], plain_ms=mats["a"][0]["plain_ms"],
+             ms_of="materials evaluator batch 16 x 6^3, 25 steps, contact on",
+             added_ms_1024x10_3x200=mats["cost"]["b6_added_ms"]),
         dict(name="fma_peak (B9)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fma_peak.cu",
              replaces="tools/roofline.py:137",

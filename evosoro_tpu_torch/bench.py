@@ -23,16 +23,26 @@ Four workloads, all from the JAX package's own benchmarks and examples:
   the same design without floor and gravity, 200 plan steps in 8 segments,
   8 knots, 4 Gauss-Newton iterations: one cold solve and re-plans from its
   result with moving targets, through K1 forward and the reverse-mode
-  segment kernel B4 backward.
+  segment kernel B4 backward;
+- replay: the four designs an evosoro run archived in
+  `basic_data/bestSoFar/fitOnly/` (6³, collision on, 5 s), each read with
+  `load_vxa` and replayed whole through `fused_rollout`, with the dense and
+  with the surface-compacted contact pass (`EVOSORO_TPU_COLL_COMPACT=1`),
+  as handing the file to Voxelyze does;
+- materials: basic's experiment on a custom palette (`Env(materials=...)`:
+  bilinear muscle that yields at 2 % strain, MDL_DATA fat of 5 points), and
+  the throughput workload on that palette with plasticity and the
+  max-velocity clamp on.
 
 Run:  python -m evosoro_tpu_torch.bench [--batch 1024] [--steps 200]
-      [--gens 2] [--segments 4] [--experiments basic swimming growth]
+      [--gens 2] [--segments 4] [--experiments basic swimming growth materials]
       (needs a CUDA device; prints one JSON line per result)
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 import random
@@ -54,8 +64,17 @@ from evosoro_tpu_torch.control.shooting import (
 from evosoro_tpu_torch.control.sqp import FusedSQPSolver, SQPConfig
 from evosoro_tpu_torch.core.collision import build_collision_system
 from evosoro_tpu_torch.core.materials import build_body, calc_max_dt, palette_from_list
-from evosoro_tpu_torch.core.rollout import init_state
-from evosoro_tpu_torch.core.types import EnvParams, SimParams, evosoro_default_palette
+from evosoro_tpu_torch.core.rollout import init_state, num_steps_for
+from evosoro_tpu_torch.core.types import (
+    DOF_ALL,
+    DOF_Y,
+    MDL_BILINEAR,
+    MDL_DATA,
+    EnvParams,
+    Material,
+    SimParams,
+    evosoro_default_palette,
+)
 from evosoro_tpu_torch.evo import evaluation
 from evosoro_tpu_torch.evo.algorithms import ParetoOptimization
 from evosoro_tpu_torch.evo.base import Env, ObjectiveDict, Sim
@@ -97,6 +116,25 @@ def bench_body(n=10, seed=0, device="cpu"):
 AGGREGATE_DRAG_COEF = 0.5 * 1.5 * 1000.0  # examples/swimming_basic.py
 
 
+def materials_palette():
+    """evosoro's 7-material palette with nonlinear materials in place of
+    the linear ones, the material-model experiments `Env(materials=...)`
+    runs: the muscles (3, 4) bilinear, yielding at 2 % strain to a tenth of
+    their stiffness; the soft tissue (1) MDL_DATA, 5 points of a curve that
+    softens with strain (initial modulus 5e6, the palette's fat)."""
+    mats = evosoro_default_palette()
+    for k in (2, 3):
+        m = mats[k]
+        mats[k] = Material(m.id, m.name, m.elastic_mod, cte=m.cte, rgba=m.rgba,
+                           mat_model=MDL_BILINEAR, yield_stress=0.02 * m.elastic_mod,
+                           plastic_mod=0.1 * m.elastic_mod)
+    fat = mats[0]
+    mats[0] = Material(fat.id, fat.name, cte=fat.cte, rgba=fat.rgba, mat_model=MDL_DATA,
+                       ss_strain=(0.0, 0.01, 0.02, 0.05, 0.1),
+                       ss_stress=(0.0, 5e4, 9e4, 1.6e5, 2.2e5))
+    return mats
+
+
 def growth_fields(shape, dt, seed=0):
     """Random development fields for a body of `shape`, in units of the
     step `dt` so that a launch of 100 steps crosses every ramp: initial and
@@ -114,9 +152,15 @@ def growth_fields(shape, dt, seed=0):
 
 
 def packed_workload(batch, n=10, collision=False, device="cuda", fluid=None,
-                    devo=False, freeze=False):
+                    devo=False, freeze=False, materials=False, equilibrium=False,
+                    compact=False):
     """Packed (state, body, stats, pair table) of `batch` copies of the
     bench design at rest, plus the launch's keyword arguments.
+
+    `materials` puts the design on `materials_palette` with plasticity and
+    the max-velocity clamp on (its MDL_DATA tables ride the keywords);
+    `equilibrium` runs it in equilibrium mode; `compact` gives the contact
+    pass the surface-compacted table.
 
     `fluid="face"` or `"mesh"` puts the design in water (drag coefficient
     750, actuation from time 0) with the voxel-face or the facet drag model,
@@ -126,9 +170,11 @@ def packed_workload(batch, n=10, collision=False, device="cuda", fluid=None,
     amplitude of 0.8, with IniCM time at 30 steps and, with `freeze`, a
     mid-life freeze of 20 steps around step 85."""
     structure, phase = bench_design(n)
-    palette = palette_from_list(evosoro_default_palette())
+    palette = palette_from_list(materials_palette() if materials
+                                else evosoro_default_palette())
     body = build_body(structure, palette, phase_offset=phase, device=device)
-    sim = SimParams(self_collisions_enabled=collision)
+    sim = SimParams(self_collisions_enabled=collision, plasticity_enabled=materials,
+                    max_velocity_enabled=materials, equilibrium_mode=equilibrium)
     env = EnvParams()
     dt = calc_max_dt(body) * sim.dt_frac
     if fluid is not None:
@@ -162,10 +208,14 @@ def packed_workload(batch, n=10, collision=False, device="cuda", fluid=None,
     table = None
     if collision:
         cs = build_collision_system(structure, body.e_mod.cpu().numpy(), 0.01)
-        table = torch.as_tensor(fr.pack_collision(cs, grid), device=device)[None]
+        pack = fr.pack_collision_compact if compact else fr.pack_collision
+        table = torch.as_tensor(pack(cs, grid), device=device)[None]
     kw = dict(grid_shape=grid,
               scalars=fr.kernel_scalars(body.nominal_size, sim, env),
-              flags=fr.launch_flags(body, sim, env, collision=collision))
+              flags=fr.launch_flags(body, sim, env, collision=collision,
+                                    collision_compact=collision and compact))
+    if materials:
+        kw["ss_packed"] = fr.pack_ss_tables(body).to(device)
     return (state, body_packed, stats, table), kw, int(body.occ.sum())
 
 
@@ -183,7 +233,7 @@ def evaluator_workload(pop_size=15, collision=True, stagger=False, seed=1,
     sim.self_collisions_enabled = collision
     env.drag_model = drag_model
     fn, inputs = evaluation.evaluator_batch(sim, env, list(pop), device=device)
-    state, body, stats, table = fn.pack(*inputs)
+    state, body, stats, table, ss = fn.pack(*inputs)
     if stagger:
         i = torch.arange(stats.shape[0], device=stats.device, dtype=stats.dtype)
         dt = stats[:, fr._S_DT] * (1.0 - i / (4 * stats.shape[0]))
@@ -191,6 +241,8 @@ def evaluator_workload(pop_size=15, collision=True, stagger=False, seed=1,
         stats[:, fr._S_STOP] = dt * ((i * 37) % 97 + 3.5)
         stats[:, fr._S_INITCM] = dt * ((i * 53) % 89 + 0.5)
     kw = {k: v for k, v in fn.launch_kw.items() if k != "num_steps"}
+    if ss is not None:
+        kw["ss_packed"] = ss
     return (state, body, stats, table), kw
 
 
@@ -282,6 +334,214 @@ def ballistic_workload(device="cuda", pop_size=15, collision=True, trace_steps=8
     return (state, body, stats, table), dict(kw, scalars=scalars, flags=flags)
 
 
+# ---------------------------------------------------------------------------
+# Replaying .vxa files, as Voxelyze does with a file it is handed
+# ---------------------------------------------------------------------------
+
+FIXTURE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "basic_data", "bestSoFar", "fitOnly")
+
+
+def fixture_paths():
+    """The four designs an evosoro run archived beside the repository, the
+    fitness the reference engine gave each in its file name."""
+    return sorted(glob.glob(os.path.join(FIXTURE_DIR, "*.vxa")))
+
+
+def replay_setup(path, device="cuda"):
+    """(body, sim, env, dt, steps) of a .vxa file as Voxelyze runs it:
+    `load_vxa`, the document's body with its collision tables when the file
+    turns self-collision on, its dt and the steps of its stop time."""
+    from evosoro_tpu_torch.io.vxa import load_vxa
+
+    doc = load_vxa(path)
+    body = doc.build_body(device=device)
+    if doc.sim.self_collisions_enabled:
+        body = body.replace(collision=build_collision_system(
+            doc.structure, body.e_mod.cpu().numpy(), body.nominal_size,
+            collision_horizon=float(doc.sim.collision_horizon)))
+    dt = float(calc_max_dt(body)) * float(doc.sim.dt_frac)
+    return body, doc.sim, doc.env, dt, num_steps_for(body, doc.sim, dt), doc
+
+
+def _fitness_in_name(path):
+    name = os.path.basename(path)
+    return float(name.split("--fit_")[1].split("--")[0]) if "--fit_" in name else None
+
+
+def replay(path, device="cuda", compact=False):
+    """Replay one .vxa file whole through `fused_rollout` (one robot, the
+    file's stop time) and `locomotion_fitness`; `compact` sets the
+    surface-compacted contact switch for the launch. Returns a record: the
+    fitness beside the one in the file's name (the reference engine's, for
+    information), the steps and the launch's time on the host clock."""
+    body, sim, env, dt, steps, doc = replay_setup(path, device)
+    state = init_state(body)
+    state = state.replace(**{f: getattr(state, f)[None] for f in (
+        "pos", "quat", "linmom", "angmom", "scale", "last_scale", "small_angle",
+        "last_pos2", "last_angle1", "last_angle2", "max_strain", "strain_offset",
+        "time", "diverged", "ke_history", "total_strain_e", "max_vox_vel")})
+    before = os.environ.get("EVOSORO_TPU_COLL_COMPACT")
+    os.environ["EVOSORO_TPU_COLL_COMPACT"] = "1" if compact else "0"
+    try:
+        t0 = time.perf_counter()
+        new_state, outs = fr.fused_rollout(
+            state, body, sim, env, steps, dt, stop_time=float(sim.stop_condition_value),
+            stop_condition_type=doc.stop_condition_type)
+        fit = fr.locomotion_fitness(new_state, body, outs)
+        fit = float(fit[0])  # waits for the device
+        secs = time.perf_counter() - t0
+    finally:
+        if before is None:
+            os.environ.pop("EVOSORO_TPU_COLL_COMPACT")
+        else:
+            os.environ["EVOSORO_TPU_COLL_COMPACT"] = before
+    return dict(file=os.path.basename(path), compact=compact, steps=steps, dt=dt,
+                bc=bool(doc.bcs), max_vel=bool(sim.max_velocity_enabled),
+                fitness=fit, fitness_in_name=_fitness_in_name(path),
+                diverged=bool(outs.diverged[0]), seconds=secs,
+                surface_voxels=int(np.asarray(body.collision.surf_mask).sum())
+                if body.collision is not None else 0,
+                voxels=int(body.occ.sum()), final_state=new_state)
+
+
+def replay_workload(device="cuda"):
+    """Every fixture (`fixture_paths`) replayed whole, once with the dense
+    and once with the surface-compacted contact pass, then the hand-written
+    cantilever (`write_cantilever_vxa`, into a temporary directory) with the
+    max-velocity clamp and in equilibrium mode: a record each (`replay`)."""
+    recs = [replay(p, device, compact) for p in fixture_paths()
+            for compact in (False, True)]
+    with tempfile.TemporaryDirectory() as tmp:
+        for equilibrium in (False, True):
+            path = write_cantilever_vxa(os.path.join(tmp, "cantilever.vxa"),
+                                        max_vel=not equilibrium, equilibrium=equilibrium)
+            recs.append(dict(replay(path, device), equilibrium=equilibrium))
+    return recs
+
+
+def replay_launch(path, batch=1, device="cuda", compact=False):
+    """The packed K1 launch of a .vxa file's design (`replay_setup`),
+    `batch` copies of its rest state, the pair table dense or
+    surface-compacted: (args, launch keywords without num_steps)."""
+    body, sim, env, dt, _, _ = replay_setup(path, device)
+    grid = tuple(body.occ.shape)
+    st = fr.pack_state_single(init_state(body))
+    st = st[None].expand(batch, -1, -1).contiguous()
+    pack = fr.pack_collision_compact if compact else fr.pack_collision
+    table = torch.as_tensor(pack(body.collision, grid), device=device)[None]
+    stats = fr.make_stats(body, batch, dt, sim, env, float(sim.stop_condition_value))
+    kw = dict(grid_shape=grid, scalars=fr.kernel_scalars(body.nominal_size, sim, env),
+              flags=fr.launch_flags(body, sim, env, collision=True,
+                                    collision_compact=compact))
+    return (st, fr.pack_body(body), stats, table), kw
+
+
+CANTILEVER_VXA = """<?xml version="1.0" encoding="ISO-8859-1"?>
+<VXA Version="1.0">
+<Simulator>
+<Integration><DtFrac>0.9</DtFrac></Integration>
+<Damping><BondDampingZ>1.0</BondDampingZ><ColDampingZ>0.8</ColDampingZ>
+<SlowDampingZ>0.01</SlowDampingZ></Damping>
+<Features><MaxVelLimitEnabled>{max_vel}</MaxVelLimitEnabled>
+<MaxVoxVelLimit>0.01</MaxVoxVelLimit></Features>
+<StopCondition><StopConditionType>2</StopConditionType>
+<StopConditionValue>0.5</StopConditionValue><InitCmTime>0.0</InitCmTime></StopCondition>
+<EquilibriumMode><EquilibriumModeEnabled>{equilibrium}</EquilibriumModeEnabled>
+</EquilibriumMode>
+</Simulator>
+<Environment>
+<Boundary_Conditions>
+<NumBCs>3</NumBCs>
+<FRegion><PrimType>0</PrimType><X>0</X><Y>0</Y><Z>0</Z><dX>0</dX><dY>1</dY><dZ>1</dZ>
+<DofFixed>{dof_all}</DofFixed></FRegion>
+<FRegion><PrimType>0</PrimType><X>1</X><Y>0</Y><Z>0</Z><dX>0</dX><dY>1</dY><dZ>1</dZ>
+<DofFixed>0</DofFixed><ForceX>0</ForceX><ForceY>0</ForceY><ForceZ>-2.0</ForceZ></FRegion>
+<FRegion><PrimType>0</PrimType><X>0.5</X><Y>0</Y><Z>0</Z><dX>0</dX><dY>1</dY><dZ>1</dZ>
+<DofFixed>{dof_y}</DofFixed><DisplaceY>0.002</DisplaceY></FRegion>
+</Boundary_Conditions>
+<Gravity><GravEnabled>1</GravEnabled><GravAcc>-9.81</GravAcc><FloorEnabled>0</FloorEnabled>
+</Gravity>
+<Thermal><TempEnabled>0</TempEnabled><VaryTempEnabled>0</VaryTempEnabled></Thermal>
+</Environment>
+<VXC Version="0.93">
+<Lattice><Lattice_Dim>0.01</Lattice_Dim></Lattice>
+<Palette>
+<Material ID="1"><MatType>0</MatType><Name>Soft</Name>
+<Mechanical><MatModel>0</MatModel><Elastic_Mod>5000000</Elastic_Mod><Density>1000000</Density>
+<Poissons_Ratio>0.35</Poissons_Ratio><CTE>0</CTE><uStatic>1</uStatic><uDynamic>0.5</uDynamic>
+</Mechanical></Material>
+</Palette>
+<Structure Compression="ASCII_READABLE">
+<X_Voxels>{n}</X_Voxels><Y_Voxels>{n}</Y_Voxels><Z_Voxels>{n}</Z_Voxels>
+<Data>
+{layers}
+</Data>
+</Structure>
+</VXC>
+</VXA>
+"""
+
+
+def write_cantilever_vxa(path, n=10, max_vel=True, equilibrium=False):
+    """A hand-written .vxa of an n³ cantilever: a solid block, its x = 0
+    face pinned in every degree of freedom, a region of 2 N in -z on its
+    far face (split over the face's voxels) and a second region at
+    mid-length whose y translation is held 2 mm from its nominal place;
+    gravity on, no floor, no actuation, 0.5 s; the max-velocity clamp at
+    0.01 lattice units a step, or equilibrium mode, which finds a
+    structure's static deflection (and turns the clamp off)."""
+    layer = "<Layer><![CDATA[" + "1" * (n * n) + "]]></Layer>"
+    with open(path, "w") as f:
+        f.write(CANTILEVER_VXA.format(dof_all=DOF_ALL, dof_y=DOF_Y, n=n, max_vel=int(max_vel),
+                                      equilibrium=int(equilibrium),
+                                      layers="\n".join([layer] * n)))
+    return path
+
+
+# the max-velocity clamp of the material workloads: 1e-3 lattice units a
+# step (1e-5 m at 0.01 m), which an actuated 6^3 design reaches
+MATERIALS_MAX_VEL = 1e-3
+
+
+def materials_workload(pop_size=15, collision=True, device="cuda", seed=1):
+    """The evaluator's batch of the materials experiment (a body, MDL_DATA
+    tables, pair table and dt per robot: bilinear muscle, MDL_DATA tissue)
+    with the two solver options a .vxa can switch on beside it: plasticity
+    and the max-velocity clamp (`MATERIALS_MAX_VEL`); actuation starts at
+    step 5, so a launch of tens of steps strains the muscles past their
+    yield point and the tissue along its curve. Returns (args, launch
+    keywords without num_steps)."""
+    (state, body, stats, table), kw = evaluator_workload(
+        pop_size=pop_size, collision=collision, device=device, experiment="materials",
+        seed=seed)
+    stats = stats.clone()
+    stats[:, fr._S_INITCM] = 5 * stats[:, fr._S_DT]
+    return (state, body, stats, table), dict(
+        kw, flags=dict(kw["flags"], plasticity=True, max_vel=True),
+        scalars=dict(kw["scalars"], max_vel_limit=MATERIALS_MAX_VEL))
+
+
+def cantilever_workload(path, batch=2, n=10, device="cuda"):
+    """The launch of the hand-written cantilever (`write_cantilever_vxa`
+    at `path`, without the clamp) read back with `load_vxa`: `batch` robots
+    at rest, the BC channels in the keywords. Returns (args, launch
+    keywords without num_steps, body)."""
+    from evosoro_tpu_torch.io.vxa import load_vxa
+
+    write_cantilever_vxa(path, n=n, max_vel=False)
+    doc = load_vxa(path)
+    body = doc.build_body(device=device)
+    dt = float(calc_max_dt(body)) * float(doc.sim.dt_frac)
+    state = fr.pack_state_single(init_state(body))[None].expand(batch, -1, -1).contiguous()
+    stats = fr.make_stats(body, batch, dt, doc.sim, doc.env)
+    kw = dict(grid_shape=tuple(body.occ.shape),
+              scalars=fr.kernel_scalars(body.nominal_size, doc.sim, doc.env),
+              flags=fr.launch_flags(body, doc.sim, doc.env, collision=False),
+              bc_packed=fr.pack_bc_tables(body).to(device))
+    return (state, fr.pack_body(body), stats, None), kw, body
+
+
 def time_call(fn, groups=4, reps=3):
     """Best per-call milliseconds over `groups` groups of `reps` calls,
     timed with CUDA events after one warm-up call."""
@@ -301,21 +561,26 @@ def time_call(fn, groups=4, reps=3):
 
 
 def throughput(batch=1024, steps=200, collision=False, plain=False,
-               groups=4, reps=3, device="cuda", fluid=None):
+               groups=4, reps=3, device="cuda", fluid=None, materials=False,
+               compact=False):
     """Voxel-steps per second of one fused-rollout call on the bench
     workload, beside the least time the card could take for it
     (`roofline.bound`); `plain` times K1's plain version on the same
-    tensors. `fluid="mesh"` or `"face"` runs the design in water
+    tensors. `fluid="mesh"` or `"face"` runs the design in water,
+    `materials` on `materials_palette` with plasticity and the max-velocity
+    clamp, `compact` with the surface-compacted contact pass
     (`packed_workload`)."""
     args, kw, n_occ = packed_workload(batch, collision=collision, device=device,
-                                      fluid=fluid)
+                                      fluid=fluid, materials=materials, compact=compact)
     call = fr.fused_rollout_plain if plain else fr.fused_call
     ms = time_call(lambda: call(*args, num_steps=steps, **kw), groups, reps)
     _, stats_out = call(*args, num_steps=steps, **kw)
+    ss = kw.get("ss_packed")
     least = roofline.bound(*roofline.launch_work(
-        *args, stats_out, flags=kw["flags"], grid_shape=kw["grid_shape"]))
+        *args, stats_out, flags=kw["flags"], grid_shape=kw["grid_shape"],
+        n_pts=0 if ss is None else (ss.shape[1] - 3) // 2))
     return dict(batch=batch, steps=steps, collision=collision, fluid=fluid,
-                grid=list(kw["grid_shape"]),
+                materials=materials, compact=compact, grid=list(kw["grid_shape"]),
                 impl="plain" if plain else "K1", ms=ms,
                 voxel_steps_per_s=n_occ * batch * steps / (ms * 1e-3),
                 bound_ms=least["bound_ms"], bound_by=least["bound_by"])
@@ -635,9 +900,21 @@ def ballistic_experiment(pop_size=15, sim_time=10.0, init_time=0.5, dt_frac=0.5,
     return sim, env, pop
 
 
+def materials_experiment(pop_size=15, sim_time=5.0, init_time=1.0, dt_frac=0.9,
+                         seed=1):
+    """(sim, env, pop) of examples/basic.py on a custom palette, evosoro's
+    hook for material-model experiments (`Env(materials=...)`): the
+    muscles bilinear, yielding at 2 % strain, the soft tissue MDL_DATA of 5
+    points (`materials_palette`); fitness NormFinalDist."""
+    sim, env, pop = basic_experiment(pop_size=pop_size, sim_time=sim_time,
+                                     init_time=init_time, dt_frac=dt_frac, seed=seed)
+    env.materials = materials_palette()
+    return sim, env, pop
+
+
 EXPERIMENTS = dict(basic=basic_experiment, swimming=swimming_experiment,
                    growth=growth_experiment, features=features_experiment,
-                   ballistic=ballistic_experiment)
+                   ballistic=ballistic_experiment, materials=materials_experiment)
 
 
 class RecordedEvaluation:
@@ -656,6 +933,7 @@ class RecordedEvaluation:
         devo_before = fr.FUSED_ROLLOUT_DEVO_LAUNCHES
         feature_before = fr.FUSED_ROLLOUT_FEATURE_LAUNCHES
         ballistic_before = fr.FUSED_ROLLOUT_BALLISTIC_LAUNCHES
+        material_before = fr.FUSED_ROLLOUT_MATERIAL_LAUNCHES
         t0 = time.time()
         out = evaluation.evaluate_all(sim, env, pop, *args, device=self.device,
                                       **kwargs)
@@ -672,6 +950,7 @@ class RecordedEvaluation:
             k1_devo_launches=fr.FUSED_ROLLOUT_DEVO_LAUNCHES - devo_before,
             k1_feature_launches=fr.FUSED_ROLLOUT_FEATURE_LAUNCHES - feature_before,
             k1_ballistic_launches=fr.FUSED_ROLLOUT_BALLISTIC_LAUNCHES - ballistic_before,
+            k1_material_launches=fr.FUSED_ROLLOUT_MATERIAL_LAUNCHES - material_before,
             best_norm_final_dist=max(fits), fitnesses=fits))
         return out
 
@@ -679,9 +958,9 @@ class RecordedEvaluation:
 def evolution(gens=2, pop_size=15, device="cuda", directory=None,
               experiment="basic", **settings):
     """Run `gens` generations of an experiment (a name of EXPERIMENTS:
-    `basic`, `swimming`, `growth`, `features` or `ballistic`; `settings` go
-    to its constructor) on `device`; returns the per-generation records of
-    `RecordedEvaluation`."""
+    `basic`, `swimming`, `growth`, `features`, `ballistic` or `materials`;
+    `settings` go to its constructor) on `device`; returns the
+    per-generation records of `RecordedEvaluation`."""
     sim, env, pop = EXPERIMENTS[experiment](pop_size=pop_size, **settings)
     recorder = RecordedEvaluation(device)
     with tempfile.TemporaryDirectory() as tmp:
@@ -707,9 +986,13 @@ def main():
         raise SystemExit("the port's benchmark needs a CUDA device")
     card = card_info()
     for kw in (dict(steps=args.steps), dict(steps=args.coll_steps, collision=True),
-               dict(steps=args.steps, fluid="mesh"), dict(steps=args.steps, fluid="face")):
+               dict(steps=args.steps, fluid="mesh"), dict(steps=args.steps, fluid="face"),
+               dict(steps=args.steps, materials=True)):
         rec = throughput(batch=args.batch, **kw)
         print(json.dumps(dict(rec, card=card)), flush=True)
+    for rec in replay_workload():
+        rec.pop("final_state")
+        print(json.dumps(dict(rec, workload="replay", card=card)), flush=True)
     for name in args.experiments:
         for rec in evolution(gens=args.gens, experiment=name):
             rec.pop("fitnesses")

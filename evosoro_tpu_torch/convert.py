@@ -4,9 +4,11 @@ The inputs are `evosoro_tpu` structs whose array leaves are numpy arrays
 (for example `jax.tree_util.tree_map(np.asarray, body)`); this module never
 imports JAX. Floating arrays become `dtype` tensors on `device`, boolean and
 integer arrays keep their kind, Python scalars and static flags stay as they
-are; a body's collision and mesh-drag tables and its development fields
-come across with it. The tests use it to start both packages from the same
-body and state.
+are; a body's collision and mesh-drag tables, its development fields, its
+MDL_DATA tables (`ss_*_vox`) and boundary conditions (`dof_fixed`,
+`external_*`) come across with it, and a state's plastic strain offset and
+kinetic-energy ring with the state. The tests use it to start both
+packages from the same body and state.
 """
 
 from __future__ import annotations

@@ -8,8 +8,9 @@ state and the controls, as `sim_step` does; fluid environments and development b
 step runs them. The fitness features run as in the JAX package:
 environmental sources, needle-in-haystack, the fall-over latch,
 NormDistByVol over the CoM/volume trace, the trailing window distance and
-the speed windows of ballistic development. The stop conditions other than
-max-sim-time are not ported yet and raise.
+the speed windows of ballistic development, and the reference's stop
+conditions (`stop_condition_type`, VX_Sim.cpp:1398-1510), as the JAX
+package's eager rollout runs them.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Any
 import torch
 
 from evosoro_tpu_torch.core import quaternion as q
+from evosoro_tpu_torch.core import types as _types
 from evosoro_tpu_torch.core.constants import DEFAULT_PRECISION, Precision
 from evosoro_tpu_torch.core.materials import calc_max_dt
 from evosoro_tpu_torch.core.step import freeze_where, sim_step
@@ -241,10 +243,21 @@ def rollout(
     rollout's time passes it, its state freezes, as it does once the
     fall-over latch trips. A state that carries a DevoState runs ballistic
     development under the environment's speed windows.
+
+    `stop_condition_type`: one of types.SC_* (reference: VX_Enums.h:55-65,
+    StopConditionMet VX_Sim.cpp:1398-1510). The loop always runs its
+    `num_steps`; a met stop condition freezes the rollout's state (time
+    included, so Lifetime reports the stop time). The quiescence conditions
+    (SC_CONST_MAXENERGY, SC_MIN_KE, SC_MIN_MAXMOVE*) keep the reference's
+    HISTORY_SIZE-deep check sampled every HISTORY_SIZE / 10 steps, the ring
+    anchored at multiples of that step count rather than sliding every step;
+    SC_POINTING_ERR keeps its max-sim-time part (the pointing error needs
+    tip-voxel wiring the reference's command line never sets up), as in the
+    JAX package. None is SC_MAX_SIM_TIME through `stop_time` / `num_steps`.
     """
-    if stop_condition_type is not None:
-        raise NotImplementedError(
-            "rollout: stop conditions other than max sim time are not ported yet")
+    if stop_condition_type is not None and stop_condition_type not in range(
+            _types.SC_NONE, _types.SC_POINTING_ERR + 1):
+        raise ValueError(f"rollout: unknown stop_condition_type {stop_condition_type}")
     n_win = int(env.num_trace_steps_in_window)
     if dt is None:
         dt = calc_max_dt(body, sim.volume_effects_enabled) * sim.dt_frac
@@ -306,6 +319,14 @@ def rollout(
         src_count = filled((), 0, torch.int32)
     stride = max(trace_every, 1)
     cms, vols, times = [], [], []
+    sc = stop_condition_type
+    history_scs = (_types.SC_CONST_MAXENERGY, _types.SC_MIN_KE, _types.SC_MIN_MAXMOVE,
+                   _types.SC_MIN_MAXMOVE_MAX_SIM_TIME)
+    if sc in history_scs:
+        # downsampled history rings (reference: VX_Sim.cpp:1685-1687)
+        num_jump = _types.HISTORY_SIZE // 10
+        ring_ke, ring_tote, ring_move = (filled((10,), -1.0) for _ in range(3))
+        n_vox_inv = 1.0 / torch.clamp(body.occ.flatten(-3).sum(-1), min=1).to(dtype)
 
     for i in range(num_steps):
         # environmental sources: distances at the top of the step from the
@@ -386,10 +407,48 @@ def rollout(
                 win_count=devo.win_count + win_due.to(torch.int32)))
             last_win_t = torch.where(win_due, t_new, last_win_t)
 
-        if env.falling_prohibited or stop_time is not None:
+        if env.falling_prohibited or stop_time is not None or sc is not None:
             stopped = fell
             if stop_time is not None:
                 stopped = stopped | (state.time >= stop_time)
+            if sc is not None:
+                # stop conditions beyond max sim time, checked before each
+                # step and gated on CurTime > InitCmTime (reference:
+                # VX_Sim.cpp:1398-1510 StopConditionMet)
+                met = false()
+                scv = sim.stop_condition_value
+                if sc == _types.SC_MAX_TIME_STEPS:
+                    met = met | (i > int(float(scv) + 0.5))
+                elif sc == _types.SC_TEMP_CYCLES:
+                    met = state.time > env.temp_period * scv
+                elif sc == _types.SC_POINTING_ERR:
+                    met = state.time > scv
+                elif sc in history_scs:
+                    cur_ke = state.ke_history[..., 0]
+                    cur_tote = cur_ke + state.total_strain_e
+                    cur_move = state.max_vox_vel * dt
+                    if sc == _types.SC_MIN_KE:
+                        ok = (ring_ke >= 0) & (ring_ke * n_vox_inv[..., None] <= 0.001 * scv)
+                        met = ok.all(-1) & (cur_ke * n_vox_inv <= 0.001 * scv)
+                    elif sc == _types.SC_CONST_MAXENERGY:
+                        ok = (ring_tote >= 0) & ((ring_tote - cur_tote[..., None]).abs()
+                                                 * n_vox_inv[..., None] <= 0.001 * scv)
+                        met = ok.all(-1)
+                    elif sc == _types.SC_MIN_MAXMOVE:
+                        ok = (ring_move >= 0) & (ring_move <= 0.001 * scv)
+                        met = ok.all(-1) & (cur_move <= 0.001 * scv)
+                    else:  # SC_MIN_MAXMOVE_MAX_SIM_TIME
+                        thr = _types.MOTION_FLOOR_THR
+                        ok = (ring_move >= 0) & (ring_move <= thr)
+                        met = (state.time > scv) | (ok.all(-1) & (cur_move <= thr))
+                    if i % num_jump == 0:  # push the history rings
+                        def push(ring, cur):
+                            return torch.cat([cur.expand(batch)[..., None], ring[..., :-1]], -1)
+
+                        ring_ke = push(ring_ke, cur_ke)
+                        ring_tote = push(ring_tote, cur_tote)
+                        ring_move = push(ring_move, cur_move)
+                stopped = stopped | ((state.time > sim.init_cm_time) & met)
             new_state = freeze_where(stopped, state, new_state)
         state = new_state
 

@@ -9,16 +9,20 @@ neighbour contributions by shifted reads. Every branch of the reference is
 a `torch.where` selection, as in the JAX step.
 
 This is the port's own CPU reference and the plain version of the fused
-rollout kernel. It covers the evolution loop's envelope: linear materials,
-beam bonds with small/large-angle hysteresis and bond damping, slow
-damping, self-collision, gravity, floor contact with Coulomb friction and
-the sticky floor, Euler and angular integration, thermal actuation with
-the mid-life freeze, the fluid environment of the land_water fork (facet
-drag on the deformed surface mesh, or the voxel-face approximation, and its
-simpler actuation) and development (prenatal and growth ramps, final
-phase offset and amplitude damping, size-capped actuation, and the
-ballistic rebase of a state's DevoState from its speed windows). Every
-other feature raises NotImplementedError.
+rollout kernel. It covers: linear, bilinear and MDL_DATA materials (the
+per-side stress with the reference's stress-equalization loop) with
+plasticity's max-strain memory, beam bonds with small/large-angle
+hysteresis and bond damping, slow damping, self-collision, gravity, floor
+contact with Coulomb friction and the sticky floor, boundary-condition
+regions (external forces, fixed and prescribed degrees of freedom), Euler
+and angular integration with the max-velocity clamp, equilibrium mode,
+thermal actuation with the mid-life freeze, the fluid environment of the
+land_water fork (facet drag on the deformed surface mesh, or the
+voxel-face approximation, and its simpler actuation) and development
+(prenatal and growth ramps, final phase offset and amplitude damping,
+size-capped actuation, and the ballistic rebase of a state's DevoState
+from its speed windows). Volume effects and the limited floor raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,7 +39,20 @@ from evosoro_tpu_torch.core.constants import (
     SA_BOND_EXT_PERC,
     Precision,
 )
-from evosoro_tpu_torch.core.types import EnvParams, SimParams, SimState, VoxelBody
+from evosoro_tpu_torch.core.types import (
+    DOF_TX,
+    DOF_TY,
+    DOF_TZ,
+    DOF_X,
+    DOF_Y,
+    DOF_Z,
+    MDL_BILINEAR,
+    MDL_DATA,
+    EnvParams,
+    SimParams,
+    SimState,
+    VoxelBody,
+)
 
 
 def _safe_div(a, b):
@@ -119,25 +136,84 @@ def _from_nbrv(a, d):
     return torch.roll(a, 1, dims=d - 4)
 
 
-def _check_envelope(state: SimState, body: VoxelBody, sim: SimParams,
-                    env: EnvParams, dt_reduce):
+def _check_envelope(sim: SimParams, env: EnvParams, dt_reduce):
     """Raise NotImplementedError for every feature outside the port's step."""
     refused = [
         ("volume effects", sim.volume_effects_enabled),
-        ("plasticity", sim.plasticity_enabled),
-        ("equilibrium mode", sim.equilibrium_mode),
-        ("max-velocity clamp", sim.max_velocity_enabled),
         ("limited floor", env.floor_limited),
-        ("nonlinear materials", not body.all_linear),
         ("dt reduction across shards", dt_reduce is not None),
     ]
     for name, on in refused:
         if on:
             raise NotImplementedError(f"sim_step: {name} is not ported yet")
-    if bool((body.dof_fixed != 0).any()) or bool((body.external_force != 0).any()) \
-            or bool((body.external_disp != 0).any()) \
-            or bool((body.external_tdisp != 0).any()):
-        raise NotImplementedError("sim_step: BC regions are not ported yet")
+
+
+def has_bc(body: VoxelBody) -> bool:
+    """True when the body carries boundary conditions: a fixed degree of
+    freedom, an external force or a prescribed displacement or rotation."""
+    return bool((body.dof_fixed != 0).any() or (body.external_force != 0).any()
+                or (body.external_disp != 0).any() or (body.external_tdisp != 0).any())
+
+
+def _vox_mat_stress(strain, e_mod, mat_model, plastic_mod, yield_stress, ss=None):
+    """Material-model stress at a strain (reference: VX_Object.cpp:1472-1535
+    GetModelStress). MDL_LINEAR / MDL_LINEAR_FAIL are the linear curve
+    (failure only sets bookkeeping flags); MDL_BILINEAR kinks at the yield
+    point; MDL_DATA interpolates the material's stress-strain point table
+    (`ss`: the per-voxel tables the body carries, None when no palette entry
+    is MDL_DATA)."""
+    linear = e_mod * strain
+    yield_strain = _safe_div(yield_stress, e_mod)
+    bilinear = torch.where(strain > yield_strain,
+                           yield_stress + plastic_mod * (strain - yield_strain), linear)
+    out = torch.where(mat_model == MDL_BILINEAR, bilinear, linear)
+    if ss is not None:
+        xs, ys = ss["xs"], ss["ys"]  # (..., P)
+        P = xs.shape[-1]
+        # first segment i with xs[i+1] > strain; padded entries are +1e30 so
+        # they never count, and strain < 0 lands in segment 0: the linear
+        # extrapolation of the first segment (reference: VX_Object.cpp:1505-1517)
+        seg = (xs[..., 1:P - 1] <= strain[..., None]).sum(-1)
+        hit = seg[..., None] == torch.arange(P - 1, device=strain.device)
+
+        def pick(a):  # the segment's entry, exactly
+            return torch.where(hit, a, 0.0).sum(-1)
+
+        x1, x2 = pick(xs[..., :-1]), pick(xs[..., 1:])
+        y1, y2 = pick(ys[..., :-1]), pick(ys[..., 1:])
+        interp = y1 + _safe_div(strain - x1, x2 - x1) * (y2 - y1)
+        past = ss["last_stress"] + ss["last_slope"] * (strain - ss["fail"])
+        data = torch.where(strain < ss["fail"], interp, past)
+        out = torch.where(mat_model == MDL_DATA, data, out)
+    return out
+
+
+def _nonlinear_stress(d, strain, body: VoxelBody):
+    """(stress, sv1, sv2) of a bond between voxels of any material model:
+    the per-side stress with the reference's 3-iteration stress-equalization
+    loop (reference: VXS_BondInternal.cpp:237-253)."""
+    side1 = (body.e_mod, body.mat_model_vox, body.plastic_mod, body.yield_stress)
+    side2 = tuple(_nbr(a, d) for a in side1)
+    ss1 = ss2 = None
+    if body.ss_strain_vox is not None:
+        ss1 = dict(xs=body.ss_strain_vox, ys=body.ss_stress_vox,
+                   fail=body.ss_fail_strain_vox, last_stress=body.ss_last_stress_vox,
+                   last_slope=body.ss_last_slope_vox)
+        ss2 = {k: _nbrv(v, d) if k in ("xs", "ys") else _nbr(v, d) for k, v in ss1.items()}
+    sv1 = sv2 = strain
+    s1 = _vox_mat_stress(sv1, *side1, ss=ss1)
+    s2 = _vox_mat_stress(sv2, *side2, ss=ss2)
+    for _ in range(3):
+        ssum = s1 + s2
+        converged = torch.abs(s1 - s2) <= 0.0005 * torch.abs(ssum)
+        sv1 = torch.where(converged, sv1, 2.0 * _safe_div(s2, ssum) * sv1)
+        sv2 = torch.where(converged, sv2, 2.0 * _safe_div(s1, ssum) * sv2)
+        s1 = _vox_mat_stress(sv1, *side1, ss=ss1)
+        s2 = _vox_mat_stress(sv2, *side2, ss=ss2)
+    hom = body.bond_homogeneous[..., d, :, :, :]
+    stress_hom = _vox_mat_stress(strain, *side1, ss=ss1)
+    stress = torch.where(hom, stress_hom, 0.5 * (s1 + s2))
+    return stress, torch.where(hom, strain, sv1), torch.where(hom, strain, sv2)
 
 
 # ---------------------------------------------------------------------------
@@ -200,20 +276,35 @@ def _bond_axis_forces(d, state: SimState, body: VoxelBody, sim: SimParams,
     _a2 = torch.where(sm, a2_small, a2_large)
     totrot = torch.where(sm, totrot_small, totrot_large)
 
-    # axial strain & linear two-material stress (reference: :189-307); for
-    # linear materials the stress-equalization fixed point is exact after
-    # one iteration and the entry tolerance reduces to a modulus test
+    # axial strain & two-material stress (reference: :189-307); for linear
+    # materials the stress-equalization fixed point is exact after one
+    # iteration and the entry tolerance reduces to a modulus test
     strain = _safe_div(_pos2[..., 0], L)
-    E1, E2, E = bd(body.bond_e1), bd(body.bond_e2), bd(body.bond_e)
-    s_sum = E1 + E2
-    near_equal = torch.abs(E1 - E2) <= 0.0005 * torch.abs(s_sum)
-    hom = bd(body.bond_homogeneous) | near_equal
-    stress = torch.where(hom, 0.5 * s_sum * strain, E * strain)
-    # per-side strains: the linear fixed point of the stress equalization
-    sv1 = torch.where(hom, strain, 2.0 * _safe_div(E2, s_sum) * strain)
-    sv2 = torch.where(hom, strain, 2.0 * _safe_div(E1, s_sum) * strain)
-    max_strain = torch.maximum(bd(state.max_strain), strain)
-    strain_offset = bd(state.strain_offset)
+    E = bd(body.bond_e)
+    if body.all_linear:
+        E1, E2 = bd(body.bond_e1), bd(body.bond_e2)
+        s_sum = E1 + E2
+        near_equal = torch.abs(E1 - E2) <= 0.0005 * torch.abs(s_sum)
+        hom = bd(body.bond_homogeneous) | near_equal
+        stress = torch.where(hom, 0.5 * s_sum * strain, E * strain)
+        # per-side strains: the linear fixed point of the stress equalization
+        sv1 = torch.where(hom, strain, 2.0 * _safe_div(E2, s_sum) * strain)
+        sv2 = torch.where(hom, strain, 2.0 * _safe_div(E1, s_sum) * strain)
+    else:
+        stress, sv1, sv2 = _nonlinear_stress(d, strain, body)
+
+    if sim.plasticity_enabled:
+        # plastic high-water memory (reference: VXS_BondInternal.cpp:193-207):
+        # new-territory strains follow the material curve; inside it the
+        # stress unloads linearly from the strain offset
+        new_territory = strain >= bd(state.max_strain)
+        stress = torch.where(new_territory, stress, E * (strain - bd(state.strain_offset)))
+        max_strain = torch.maximum(bd(state.max_strain), strain)
+        strain_offset = torch.where(new_territory, max_strain - _safe_div(stress, E),
+                                    bd(state.strain_offset))
+    else:
+        max_strain = torch.maximum(bd(state.max_strain), strain)
+        strain_offset = bd(state.strain_offset)
 
     # beam forces/moments in the bond frame (reference: :122-154)
     a2c, b1, b2, b3 = bd(body.bond_a2), bd(body.bond_b1), bd(body.bond_b2), bd(body.bond_b3)
@@ -592,7 +683,13 @@ def sim_step(
     is the MPC actuation channel: a (..., X, Y, Z) scale modulation, in
     fractions of the nominal size, added after the actuation clamps.
     """
-    _check_envelope(state, body, sim, env, dt_reduce)
+    _check_envelope(sim, env, dt_reduce)
+    # equilibrium mode overrides the damping configuration for the whole run
+    # (reference: EnableEquilibriumMode, VX_Sim.cpp:1351-1372: BondDampingZ
+    # 0.1, SlowDampingZ 0, the max-velocity clamp off)
+    if sim.equilibrium_mode:
+        sim = sim.replace(bond_damping_z=0.1, slow_damping_z=0.0,
+                          max_velocity_enabled=False)
     t = state.time
     occ = body.occ
     occf = occ[..., None]
@@ -625,6 +722,9 @@ def sim_step(
         gz = torch.zeros_like(total_force)
         gz[..., 2] = body.mass * _vox(env.grav_acc)
         total_force = total_force + gz
+    # boundary conditions apply whether or not a region is set, as in the
+    # JAX step: zeros and cleared bits leave the state as it is
+    total_force = total_force + body.external_force
 
     if env.fluid_environment:
         if body.mesh_drag is not None:
@@ -665,12 +765,26 @@ def sim_step(
     # ---- linear integration (reference: VXS_Voxel.cpp:181-197) ----
     linmom = linmom + total_force * _vec(dt)
     disp = linmom * (_vec(dt) * body.mass_inv[..., None])
+    if sim.max_velocity_enabled:
+        # per-step displacement clamp (reference: VXS_Voxel.cpp:188-192)
+        dmag = _safe_norm(*disp.unbind(-1))[..., None]
+        max_disp = torch.full_like(dmag, sim.max_vox_vel_limit * body.nominal_size)
+        disp = disp * torch.where(dmag > max_disp,
+                                  max_disp / torch.where(dmag > 0, dmag, 1.0), 1.0)
     pos = state.pos + disp
+    # fixed translational DOFs sit at their prescribed place (:195-197)
+    fixed = torch.stack([(body.dof_fixed & bit) != 0 for bit in (DOF_X, DOF_Y, DOF_Z)],
+                        dim=-1)
+    pos = torch.where(fixed, body.nom_pos + body.external_disp, pos)
+    linmom = torch.where(fixed, 0.0, linmom)
 
     # ---- moments (reference: VXS_Voxel.cpp:653-675 CalcTotalMoment) ----
     total_moment = torch.zeros_like(state.angmom)
     for d in range(3):
         total_moment = total_moment - bonds[d]["m1"] - _from_nbrv(bonds[d]["m2"], d)
+    rot = torch.stack([(body.dof_fixed & bit) != 0 for bit in (DOF_TX, DOF_TY, DOF_TZ)],
+                      dim=-1)
+    total_moment = torch.where(rot, 0.0, total_moment)
     total_moment = torch.where(occf, total_moment, 0.0)
 
     angmom = state.angmom + total_moment * _vec(dt)
@@ -685,6 +799,16 @@ def sim_step(
         state.quat)
     quat = q.quat_normalize_fast(state.quat + spin * _vec(dt))
 
+    # all-rotation-fixed voxels hold the prescribed orientation (reference:
+    # :218-221); fully fixed voxels their pose (:174-179)
+    rot_all = DOF_TX | DOF_TY | DOF_TZ
+    rot_fixed = ((body.dof_fixed & rot_all) == rot_all)[..., None]
+    quat = torch.where(rot_fixed, q.quat_from_rotation_vector(body.external_tdisp), quat)
+    angmom = torch.where(rot_fixed, 0.0, angmom)
+    all_fixed = ((body.dof_fixed & 63) == 63)[..., None]
+    pos = torch.where(all_fixed, body.nom_pos + body.external_disp, pos)
+    linmom = torch.where(all_fixed, 0.0, linmom)
+
     # keep empty cells inert
     pos = torch.where(occf, pos, body.nom_pos)
     linmom = torch.where(occf, linmom, 0.0)
@@ -698,7 +822,16 @@ def sim_step(
                                    device=new_scale.device)
         new_scale = new_scale + torch.where(occ, ctrl_off * L, 0.0)
 
-    # ---- kinetic energy and strain-energy bookkeeping ----
+    # ---- kinetic energy bookkeeping and equilibrium mode ----
+    # the reference's KineticEDecreasing test reads the ring BEFORE this
+    # step's KE is pushed, and ZeroAllMotion also clears the per-voxel
+    # energy, so the value pushed is the energy after the zeroing
+    # (reference: VX_Sim.cpp:1148-1155)
+    if sim.equilibrium_mode:
+        h = state.ke_history
+        decreasing = _vec(h[..., 0] + h[..., 1] + h[..., 2] < h[..., 3] + h[..., 4] + h[..., 5])
+        linmom = torch.where(decreasing, 0.0, linmom)
+        angmom = torch.where(decreasing, 0.0, angmom)
     vel_new = linmom * body.mass_inv[..., None]
     angvel_new = angmom * body.inertia_inv[..., None]
     ke = 0.5 * (
@@ -770,14 +903,22 @@ def freeze_where(frozen, old: SimState, new: SimState) -> SimState:
 
 def _collision(state: SimState, body: VoxelBody):
     """Contact forces from the body's collision tables: a CollisionSystem
-    (one design), or the dense (..., V, V) pair table of the fused path."""
+    (one design), or the fused path's dense (..., V, V) pair table or its
+    surface-compacted table (`ops.fused_rollout.CompactTable`)."""
     if isinstance(body.collision, CollisionSystem):
         return collision_forces(state.pos, state.scale, body.collision)
-    from evosoro_tpu_torch.ops.fused_rollout import pair_contact_forces_plain
+    from evosoro_tpu_torch.ops.fused_rollout import (
+        CompactTable,
+        pair_contact_forces_compact_plain,
+        pair_contact_forces_plain,
+    )
 
     shp = state.pos.shape
     pos = state.pos.flatten(-4, -2).transpose(-1, -2)  # (..., 3, V)
     scale = state.scale.flatten(-3)
-    f = pair_contact_forces_plain(pos, scale, body.collision)
+    if isinstance(body.collision, CompactTable):
+        f = pair_contact_forces_compact_plain(pos, scale, body.collision.table)
+    else:
+        f = pair_contact_forces_plain(pos, scale, body.collision)
     return f.transpose(-1, -2).reshape(shp)
 

@@ -31,6 +31,16 @@ MDL_LINEAR, MDL_LINEAR_FAIL, MDL_BILINEAR, MDL_DATA = 0, 1, 2, 3
 # Failure models (reference: VX_Object.h FailModel enum)
 FM_MAXSTRESS, FM_MAXSTRAIN = 0, 1
 
+# Stop conditions (reference: VX_Enums.h:55-65 StopCondition)
+(SC_NONE, SC_MAX_TIME_STEPS, SC_MAX_SIM_TIME, SC_TEMP_CYCLES,
+ SC_CONST_MAXENERGY, SC_MIN_KE, SC_MIN_MAXMOVE,
+ SC_MIN_MAXMOVE_MAX_SIM_TIME, SC_POINTING_ERR) = range(9)
+
+# history depth of the quiescence stop conditions (reference: VX_Sim.h:40);
+# their checks sample every HISTORY_SIZE / 10 steps
+HISTORY_SIZE = 10000
+MOTION_FLOOR_THR = 5e-8  # reference: VX_Sim.cpp:35
+
 
 class _Replace:
     """`x.replace(field=value)`, the flax-struct idiom the JAX package uses."""
@@ -89,6 +99,21 @@ class SimParams(_Replace):
     plasticity_enabled: bool = False
     equilibrium_mode: bool = False
     collision_horizon: Any = 2.0
+
+
+@dataclasses.dataclass
+class NeuralNetParams(_Replace):
+    """The dormant `<NeuralNet>` environment block: the reference parses
+    its seven tags (VX_Environment.cpp:197-206) and never reads them, so a
+    VXA round trip carries them and nothing else does."""
+
+    updates_per_temp_cycle: float = 0.0
+    touch_sensors_enabled: bool = False
+    proprioception_sensors_enabled: bool = False
+    pacemaker_sensors_enabled: bool = False
+    num_hidden_neurons_per_layer: int = 0
+    num_hidden_layers: int = 0
+    output_smoothing: float = 0.0
 
 
 @dataclasses.dataclass

@@ -2,9 +2,9 @@
 
 The port of `evosoro_tpu.envs`: each preset is a constructor of `EnvParams`
 (reference: examples/basic.py:134, growth.py:98-99,
-swimming_basic.py:135-138). The circular limited floor (`limited_floor`) and
-the boundary-condition region helpers (`regions.py`) are not ported yet:
-they come with the step's BC-region and limited-floor branches.
+swimming_basic.py:135-138). The boundary-condition region helpers are in
+`regions.py`. The circular limited floor (`limited_floor`) is not ported
+yet: the eager step refuses it.
 """
 
 from __future__ import annotations

@@ -16,7 +16,10 @@ the kernel's stencil needs) or the voxel-face model
 features the environment switches on (NormDistByVol, the fall-over latch,
 needle-in-haystack, speed windows, with ballistic development when a final
 size is evolved under them, environmental sources) run inside the same
-launch, and their result tags map onto `packed_metrics`.
+launch, and their result tags map onto `packed_metrics`. A custom palette
+(`Env(materials=[...])`) with bilinear or MDL_DATA materials runs K1's
+nonlinear stress, each individual's MDL_DATA tables streamed beside its
+body; equilibrium mode takes its damping override.
 
 Not ported yet: the jnp-scan fallback evaluator (`make_batched_evaluator`)
 and the tags only it fills, the multi-device sharding, volume effects.
@@ -175,14 +178,17 @@ def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
     robot's state carrying its DevoState. Returns
     `fn(structures, voxel_fields, env_batch, stop_time,
     collision_packed=None)` -> dict of numpy metrics; `collision_packed` is
-    the (B, V, V) float32 pair-table batch."""
+    the (B, V, V) float32 pair-table batch. Bilinear and MDL_DATA palettes
+    run the nonlinear stress, with each robot's MDL_DATA tables (B, 2P + 3,
+    V) streamed beside its body."""
     device = resolve_device(device)
     V = int(np.prod(grid_shape))
+    has_mdl = palette.ss_strain is not None
     scalars = fr.kernel_scalars(lattice_dim, sim_params, env_flags_src)
     flags = dict(
         fr.kernel_env_flags(sim_params, env_flags_src),
         nonlinear=bool((palette.mat_model >= 2).any()),
-        mdl_data=palette.ss_strain is not None,
+        mdl_data=has_mdl,
         bc=False,
         fluid_mesh=bool(fluid_mesh),
         use_init_size="initial_voxel_size" in field_names,
@@ -205,10 +211,10 @@ def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
         sp = fr.pack_state_single(init_state(body, ballistic_devo=flags["ballistic"]))
         bp = fr.pack_body(body)[0]
         row = fr.make_stats(body, 1, dt, sim_params, env1, stop_time)[0]
-        return sp, bp, row
+        ss = fr.pack_ss_tables(body)[0] if has_mdl else None
+        return sp, bp, row, ss
 
-    def pack(structures, voxel_fields, env_batch, stop_time,
-             collision_packed=None):
+    def pack(structures, voxel_fields, env_batch, stop_time, collision_packed=None):
         if fr.facet_drag(flags) and not fr.has_corner_shell(np.asarray(structures) > 0):
             raise ValueError(fr.NO_SHELL)
         packed = [
@@ -216,13 +222,14 @@ def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
                      env_batch[i], stop_time)
             for i in range(len(structures))
         ]
-        sp, bp, rows = (torch.stack(x).to(device) for x in zip(*packed))
+        sp, bp, rows = (torch.stack(x).to(device) for x in list(zip(*packed))[:3])
+        ss = torch.stack([p[3] for p in packed]).to(device) if has_mdl else None
         col = None
         if with_collision:
             col = torch.as_tensor(collision_packed, device=device)
             if tuple(col.shape[1:]) != (V, V):
                 raise ValueError(f"pair tables must be (B, {V}, {V})")
-        return sp, bp, rows, col
+        return sp, bp, rows, col, ss
 
     launch_kw = dict(num_steps=num_steps, grid_shape=tuple(grid_shape),
                      scalars=scalars, flags=flags)
@@ -230,10 +237,10 @@ def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
     def fn(structures, voxel_fields, env_batch, stop_time,
            collision_packed=None):
         t0 = time.time()
-        sp, bp, rows, col = pack(structures, voxel_fields, env_batch, stop_time,
-                                 collision_packed)
+        sp, bp, rows, col, ss = pack(structures, voxel_fields, env_batch, stop_time,
+                                     collision_packed)
         t1 = time.time()
-        out_state, out_stats = fr.fused_call(sp, bp, rows, col, **launch_kw)
+        out_state, out_stats = fr.fused_call(sp, bp, rows, col, ss_packed=ss, **launch_kw)
         m = fr.packed_metrics(
             out_state, bp, out_stats, lattice_dim, ndbv=flags["ndbv"],
             falling=flags["falling"], needle=flags["needle"], window=flags["window"],
@@ -247,8 +254,9 @@ def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
         LAST_DISPATCH_TIMING["launch_s"] = time.time() - t1
         return out
 
-    # the packed tensors and keywords of the launch, for holding the kernel
-    # against its plain version on exactly what the evaluator gives it
+    # the packed tensors (state, body, stats, pair table, MDL_DATA tables or
+    # None) and keywords of the launch, for holding the kernel against its
+    # plain version on exactly what the evaluator gives it
     fn.pack = pack
     fn.launch_kw = launch_kw
     return fn
@@ -459,7 +467,8 @@ def evaluator_batch(sim, env, inds, batch_pad=8, device=None):
     """The fused evaluator and its host inputs for one launch over `inds`,
     made as `_dispatch_batch` makes them (at the largest step count of
     `inds`): (fn, inputs) with fn(*inputs) -> metrics; `fn.pack(*inputs)`
-    gives the launch's packed tensors and `fn.launch_kw` its keywords."""
+    gives the launch's packed tensors (state, body, stats, pair table,
+    MDL_DATA tables) and `fn.launch_kw` its keywords."""
     all_fields, all_env, per_steps = _batch_fields(sim, env, inds)
     fn, inputs, _ = _launch_inputs(sim, env, inds[0].genotype.orig_size_xyz,
                                    all_fields, all_env, max(per_steps),

@@ -71,6 +71,20 @@
 // :1001-1169, :1721-1837) compile into a second instance of each variant,
 // launched when a feature bit or a source is on; their carry rides stats
 // channels 22-46 and the window ring starts empty in every launch.
+//
+// Voxelyze's material, solver and boundary options (nonlinear and MDL_DATA
+// stress, plasticity, the max-velocity clamp, equilibrium mode, BC regions)
+// and the surface-compacted contact pass compile into a kernel of their own,
+// fused_rollout_mat_kernel: the land variant's step with the third template
+// parameter MAT, with and without the features (the JAX kernel's
+// :372-404, :513-573, :907-910, :966-998, :1369-1371, :1519-1605, :734-774),
+// launched when any of them is on: the MDL_DATA tables (B or 1, 2P + 3, V)
+// and the BC channels (B or 1, 15, V) are read from device memory per voxel,
+// the kinetic-energy ring rides stats channels 16-21 and the strain offset
+// state channels 53-55. The host refuses them in water and with
+// development. Bound as the land step: the stress-equalization loop adds
+// 9 material-curve evaluations a bond (each a few loads of the point table
+// with MDL_DATA), the ring one block reduction a step.
 #include "fused_rollout_common.cuh"
 
 template <int VARIANT, bool FEAT>
@@ -135,15 +149,100 @@ static int launch_variant(float* state, const float* body, int body_batched,
     return (int)cudaGetLastError();
 }
 
+// The material instance: the land variant with MAT, with and without the
+// features. Beside the land kernel's inputs it takes the robot's MDL_DATA
+// tables and BC channels (MatArgs), and its pair table may be the compact
+// (S + 1, S) one.
+template <bool FEAT>
+__global__ void __launch_bounds__(MAX_THREADS)
+fused_rollout_mat_kernel(float* state_all, const float* __restrict__ body_all,
+                         int body_batched, float* stats_all,
+                         const float* __restrict__ a1_all, int a1_batched,
+                         const float* __restrict__ ctrl_all, int n_knots,
+                         int knot_steps, int step_base, int X, int Y, int Z,
+                         int num_steps, Params p, int flags, FeatParams fp, MatArgs ma,
+                         int ss_batched, int bc_batched) {
+    extern __shared__ float sh[];
+    const int V = X * Y * Z;
+    const int b = blockIdx.x;
+    float* st = state_all + (size_t)b * C_S * V;
+    const float* bo = body_all + (body_batched ? (size_t)b * C_B * V : 0);
+    float* stat = stats_all + (size_t)b * C_STAT;
+    const size_t tab = ma.n_surf > 0 ? (size_t)(ma.n_surf + 1) * ma.n_surf : (size_t)V * V;
+    const float* a1 = a1_all ? a1_all + (a1_batched ? (size_t)b * tab : 0) : nullptr;
+    const float* cu = n_knots > 0 ? ctrl_all + (size_t)b * n_knots * V : nullptr;
+    ma.bo = bo;
+    if (ma.ss) ma.ss += ss_batched ? (size_t)b * (2 * ma.n_pts + 3) * V : 0;
+    if (ma.bc) ma.bc += bc_batched ? (size_t)b * 15 * V : 0;
+    float ke[6];
+    for (int k = 0; k < 6; ++k) ke[k] = stat[ST_KE + k];
+
+    Robot r = load_robot(stat);
+    if constexpr (FEAT) {
+        Feat fe = load_feat(stat);
+        rollout_steps<V_LAND, true, true>(st, 0, bo, a1, cu, n_knots, knot_steps, step_base,
+                                          X, Y, Z, num_steps, p, flags, r, nullptr, sh,
+                                          nullptr, &fe, &fp, &ma, ke);
+        if (threadIdx.x == 0) store_feat(stat, fe, fp, flags);
+    } else {
+        rollout_steps<V_LAND, false, true>(st, 0, bo, a1, cu, n_knots, knot_steps, step_base,
+                                           X, Y, Z, num_steps, p, flags, r, nullptr, sh,
+                                           nullptr, nullptr, nullptr, &ma, ke);
+    }
+
+    if (threadIdx.x == 0) {
+        if (flags & F_EQUIL)
+            for (int k = 0; k < 6; ++k) stat[ST_KE + k] = ke[k];
+        stat[ST_TIME] = r.t;
+        stat[ST_DIV] = r.div ? 1.f : 0.f;
+        stat[ST_INICM] = r.ini.x;
+        stat[ST_INICM + 1] = r.ini.y;
+        stat[ST_INICM + 2] = r.ini.z;
+        stat[ST_CAPT] = r.capt ? 1.f : 0.f;
+    }
+}
+
+template <bool FEAT>
+static int launch_mat(float* state, const float* body, int body_batched, float* stats,
+                      const float* a1, int a1_batched, const float* ctrl, int n_knots,
+                      int knot_steps, int step_base, int B, int X, int Y, int Z,
+                      int num_steps, const Params& p, int flags, const FeatParams& fp,
+                      const MatArgs& ma, int ss_batched, int bc_batched,
+                      cudaStream_t stream) {
+    const int V = X * Y * Z;
+    const int threads = V >= MAX_THREADS ? MAX_THREADS : ((V + 31) / 32) * 32;
+    // the compact contact pass stages the S surface voxels in place of V
+    const size_t coll_floats = !(flags & F_COLL) ? 0
+                               : ma.n_surf > 0   ? (size_t)3 * V + 4 * ma.n_surf
+                                                 : (size_t)7 * V;
+    const size_t smem = ((size_t)BF * V + coll_floats) * sizeof(float);
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(fused_rollout_mat_kernel<FEAT>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    fused_rollout_mat_kernel<FEAT><<<B, threads, smem, stream>>>(
+        state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots, knot_steps,
+        step_base, X, Y, Z, num_steps, p, flags, fp, ma, ss_batched, bc_batched);
+    return (int)cudaGetLastError();
+}
+
 // scratch: (B, 6, V) floats of device memory, needed by the facet-drag
 // variant alone (flags F_FLUID | F_FLUID_MESH), else null. fparams: the
 // features' N_FEAT_PARAMS constants (ops/fused_rollout.py _feat_params).
+// The material instance's inputs: ss, the MDL_DATA tables (B or 1, 2P + 3,
+// V) with n_pts = P, or null; bc, the BC channels (B or 1, 15, V), or null;
+// n_surf, the surface count of a compact pair table (S + 1, S), or 0;
+// mparams, its float constants (ops/fused_rollout.py _mat_params).
 extern "C" int fused_rollout(float* state, const float* body, int body_batched,
                              float* stats, const float* a1, int a1_batched,
                              const float* ctrl, int n_knots, int knot_steps,
                              int step_base, int B, int X, int Y, int Z,
                              int num_steps, const float* params, int flags,
-                             float* scratch, const float* fparams, void* stream) {
+                             float* scratch, const float* fparams, const float* ss,
+                             int ss_batched, int n_pts, const float* bc, int bc_batched,
+                             int n_surf, const float* mparams, void* stream) {
     Params p;
     memcpy(&p, params, sizeof(float) * N_PARAMS);
     const FeatParams fp = feat_params_from(fparams);
@@ -154,6 +253,24 @@ extern "C" int fused_rollout(float* state, const float* body, int body_batched,
     if (fp.n_src < 0 || fp.n_src > MAX_SRC || fp.n_win < 0 || fp.n_win > MAX_WIN)
         return (int)cudaErrorInvalidValue;
     const bool feat = (flags & F_FEAT) || fp.n_src > 0;
+    const bool mat = (flags & F_MAT) != 0;
+    // the material instance is the land variant's, and needs its tables
+    if (mat && (variant != V_LAND || ((flags & F_MDL) && (ss == nullptr || n_pts < 2)) ||
+                ((flags & F_BC) && bc == nullptr) ||
+                ((flags & F_COMPACT) && (!(flags & F_COLL) || n_surf <= 0))))
+        return (int)cudaErrorInvalidValue;
+    const MatArgs ma = {nullptr, (flags & F_MDL) ? ss : nullptr, (flags & F_BC) ? bc : nullptr,
+                        n_pts, (flags & F_COMPACT) ? n_surf : 0, mparams[0]};
+    if (mat) {
+        return feat ? launch_mat<true>(state, body, body_batched, stats, a1, a1_batched, ctrl,
+                                       n_knots, knot_steps, step_base, B, X, Y, Z, num_steps,
+                                       p, flags, fp, ma, ss_batched, bc_batched,
+                                       (cudaStream_t)stream)
+                    : launch_mat<false>(state, body, body_batched, stats, a1, a1_batched,
+                                        ctrl, n_knots, knot_steps, step_base, B, X, Y, Z,
+                                        num_steps, p, flags, fp, ma, ss_batched, bc_batched,
+                                        (cudaStream_t)stream);
+    }
 #define LAUNCH(VARIANT)                                                                   \
     (feat ? launch_variant<VARIANT, true>(state, body, body_batched, stats, a1, a1_batched, \
                                           ctrl, n_knots, knot_steps, step_base, B, X, Y, Z,  \

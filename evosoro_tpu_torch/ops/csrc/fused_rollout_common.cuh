@@ -58,6 +58,24 @@
 // takes one sample from the first of them: that step runs once more without
 // writing the state ("dry"), and the sources' history samples of the steps
 // left are added on leaving.
+//
+// Voxelyze's material, solver and boundary options are a third template
+// parameter, MAT, of rollout_steps, instantiated for the land variant with
+// and without the features in a kernel of its own (fused_rollout.cu,
+// fused_rollout_mat_kernel) that a launch takes when any of them is on;
+// with MAT false the step compiles to what it was without them. They replace _make_kernel:372-404
+// (_vox_mat_stress_k), 513-541 and 559-573 (_bond_dir's nonlinear stress
+// with the 3-iteration stress equalization and plasticity's max-strain
+// memory and strain offset, state channels 53-55), 1519-1530 (the
+// max-velocity clamp), 907-910 and 1589-1605 (equilibrium mode's
+// kinetic-energy ring in stats channels 16-21 and the momentum zeroing),
+// 966-998, 1369-1371, 1534-1542, 1556-1561, 1575-1583 (BC regions: the
+// external force, pinned translations at the nominal position plus the
+// prescribed displacement, fixed rotations, the prescribed orientation), and
+// 734-774 (the surface-compacted contact pass, pair_contact.cuh). The
+// MDL_DATA tables and the BC channels stay in device memory and are read
+// per voxel where a bond or a voxel needs them; the kinetic energy is one
+// more block reduction a step, through block_sum3's scratch.
 #pragma once
 #include <cuda_runtime.h>
 #include <string.h>
@@ -79,6 +97,7 @@
 #define S_LA2 35
 #define S_MAXS 44
 #define S_DIFF 47  // channels [0, S_DIFF) carry the rollout; the rest are unused here
+#define S_SOFF 53  // plastic strain offset per bond direction (material instance)
 #define B_OCC 0
 #define B_MASS 1
 #define B_MASS_INV 2
@@ -126,6 +145,7 @@
 #define ST_MINTF 13
 #define ST_GAMP 14
 #define ST_DRAGC 15
+#define ST_KE 16  // equilibrium mode's kinetic-energy ring, 6 slots
 // development channels of the body
 #define B_INIT_SIZE 72
 #define B_FINAL_SIZE 73
@@ -133,6 +153,11 @@
 #define B_START_GT 75
 #define B_FINAL_PHASE 76
 #define B_FINAL_AD 77
+// material model channels of the body (the material instance's stress)
+#define B_EMOD 78
+#define B_MATMODEL 81
+#define B_PLASTIC 82
+#define B_YIELD 83
 #define B_MAT 84  // material id (mat-5 obstacles, mat-6 feet, mat-7 needle)
 // ballistic development: the dynamic initial size, final size, growth time
 // and start of growth, in state channels 56-59
@@ -167,6 +192,14 @@
 #define F_BALLISTIC 262144
 #define F_TRACE (F_NDBV | F_WINDOW | F_BALLISTIC)
 #define F_FEAT (F_NEEDLE | F_FALLING | F_TRACE)
+#define F_NONLINEAR (1 << 19)
+#define F_MDL (1 << 20)
+#define F_PLASTIC (1 << 21)
+#define F_EQUIL (1 << 22)
+#define F_MAXVEL (1 << 23)
+#define F_BC (1 << 24)
+#define F_COMPACT (1 << 25)
+#define F_MAT (F_NONLINEAR | F_MDL | F_PLASTIC | F_EQUIL | F_MAXVEL | F_BC | F_COMPACT)
 #define MAX_WIN 12  // window ring slots (ops/fused_rollout.py MAX_KERNEL_WINDOW)
 #define MAX_SRC 3
 
@@ -326,6 +359,75 @@ __device__ inline F3 block_min3(F3 v, float* red) {
     return m;
 }
 
+// The material instance's inputs of one robot (ops/fused_rollout.py
+// fused_call): its body, its MDL_DATA tables (2P + 3 channels: P strains, P
+// stresses, fail strain, last stress, last slope) and BC channels (6 DOF
+// bits, external force, prescribed displacement, prescribed rotation
+// vector), the surface count of the compact contact pass and the clamp.
+struct MatArgs {
+    const float* bo;  // (C_B, V)
+    const float* ss;  // (2P + 3, V), or null
+    const float* bc;  // (15, V), or null
+    int n_pts, n_surf;
+    float max_disp;   // max_vox_vel_limit * L
+};
+
+// Material-model stress at a strain (VX_Object.cpp:1472-1535
+// GetModelStress; core/step.py _vox_mat_stress): linear, bilinear with the
+// yield kink, or the MDL_DATA point table's segment, read from device
+// memory at this voxel (ss: the table's first channel at the voxel).
+__device__ __forceinline__ float vox_mat_stress(float strain, float e, float mm, float pm,
+                                                float ys, const float* ss, int P, int V) {
+    const float linear = e * strain;
+    const float ystrain = sdiv(ys, e);
+    const float bilinear = strain > ystrain ? ys + pm * (strain - ystrain) : linear;
+    float out = mm == 2.f ? bilinear : linear;  // MDL_BILINEAR
+    if (ss != nullptr && mm == 3.f) {           // MDL_DATA
+        // the first segment whose upper point lies past the strain
+        int seg = 0;
+        for (int k = 1; k < P - 1; ++k) seg += ss[(size_t)k * V] <= strain ? 1 : 0;
+        const float x1 = ss[(size_t)seg * V], x2 = ss[(size_t)(seg + 1) * V];
+        const float y1 = ss[(size_t)(P + seg) * V], y2 = ss[(size_t)(P + seg + 1) * V];
+        const float fail = ss[(size_t)(2 * P) * V];
+        const float interp = y1 + sdiv(strain - x1, x2 - x1) * (y2 - y1);
+        const float past = ss[(size_t)(2 * P + 1) * V] + ss[(size_t)(2 * P + 2) * V] * (strain - fail);
+        out = strain < fail ? interp : past;
+    }
+    return out;
+}
+
+// The axial stress of bond (v, n) between voxels of any material model:
+// the per-side stress with the reference's 3-iteration stress-equalization
+// loop (VXS_BondInternal.cpp:237-253), or one side's curve on a homogeneous
+// bond.
+__device__ inline float nonlinear_stress(const MatArgs& ma, int v, int n, int V, float strain,
+                                         bool hom, const Params& p) {
+    const float* bo = ma.bo;
+    const float e1 = bo[(size_t)B_EMOD * V + v], e2 = bo[(size_t)B_EMOD * V + n];
+    const float mm1 = bo[(size_t)B_MATMODEL * V + v], mm2 = bo[(size_t)B_MATMODEL * V + n];
+    const float pm1 = bo[(size_t)B_PLASTIC * V + v], pm2 = bo[(size_t)B_PLASTIC * V + n];
+    const float ys1 = bo[(size_t)B_YIELD * V + v], ys2 = bo[(size_t)B_YIELD * V + n];
+    const float* ss1 = ma.ss ? ma.ss + v : nullptr;
+    const float* ss2 = ma.ss ? ma.ss + n : nullptr;
+    const int P = ma.n_pts;
+    if (hom) return vox_mat_stress(strain, e1, mm1, pm1, ys1, ss1, P, V);
+    float sv1 = strain, sv2 = strain;
+    float s1 = vox_mat_stress(sv1, e1, mm1, pm1, ys1, ss1, P, V);
+    float s2 = vox_mat_stress(sv2, e2, mm2, pm2, ys2, ss2, P, V);
+    for (int it = 0; it < 3; ++it) {
+        const float ssum = s1 + s2;
+        if (!(fabsf(s1 - s2) <= p.near_eq * fabsf(ssum))) {
+            const float n1 = 2.f * sdiv(s2, ssum) * sv1;
+            const float n2 = 2.f * sdiv(s1, ssum) * sv2;
+            sv1 = n1;
+            sv2 = n2;
+        }
+        s1 = vox_mat_stress(sv1, e1, mm1, pm1, ys1, ss1, P, V);
+        s2 = vox_mat_stress(sv2, e2, mm2, pm2, ys2, ss2, P, V);
+    }
+    return 0.5f * (s1 + s2);
+}
+
 // One bond (v, d) in its own frame: everything core/step.py's
 // _bond_axis_forces computes before the rotation back to the world frame.
 // The reverse sweep reads the intermediates; the forward pass only the
@@ -342,10 +444,15 @@ struct Bond {
 };
 
 // si: the robot's state slot; bd: body channel D_MASK of direction d at
-// voxel v; n = v + stride_d.
+// voxel v; n = v + stride_d. MAT (the material instance): the stress comes
+// from the material models with `flags & F_NONLINEAR`, and with
+// `flags & F_PLASTIC` from plasticity's memory, whose new strain offset
+// goes to *soff.
+template <bool MAT = false>
 __device__ inline Bond bond_forward(const float* si, const float* bd, int v, int n,
                                     int d, int V, const Params& p, float dt,
-                                    float dt_inv) {
+                                    float dt_inv, const MatArgs* ma = nullptr, int flags = 0,
+                                    float* soff = nullptr) {
 #define SIN(k) (si + (size_t)(k) * V)
     Bond o;
     const F3 p1 = {SIN(S_POS + 0)[v], SIN(S_POS + 1)[v], SIN(S_POS + 2)[v]};
@@ -403,7 +510,20 @@ __device__ inline Bond bond_forward(const float* si, const float* bd, int v, int
     const bool near_equal = fabsf(E1 - E2) <= p.near_eq * fabsf(s_sum);
     const bool hom = (bd[(size_t)D_HOM * V] > 0.5f) || near_equal;
     o.stiff = hom ? 0.5f * s_sum : E;
-    const float stress = o.stiff * strain;
+    float stress = o.stiff * strain;
+    if constexpr (MAT) {
+        if (flags & F_NONLINEAR)  // no near-equal widening on this path
+            stress = nonlinear_stress(*ma, v, n, V, strain, bd[(size_t)D_HOM * V] > 0.5f, p);
+        if (flags & F_PLASTIC) {
+            // new-territory strains follow the curve; inside it the stress
+            // unloads linearly from the strain offset (:193-207)
+            const float so = SIN(S_SOFF + d)[v];
+            const float ms = SIN(S_MAXS + d)[v];
+            const bool fresh = strain >= ms;
+            if (!fresh) stress = E * (strain - so);
+            *soff = fresh ? fmaxf(ms, strain) - sdiv(stress, E) : so;
+        }
+    }
     o.strain = strain;
 
     // beam forces/moments, bond frame (:122-154)
@@ -1060,23 +1180,29 @@ __device__ inline void ballistic_rebase(float t, const float dv[6], float orig, 
 // sh: BF * V floats of shared memory (+ 7 * V with collision). scr: the
 // robot's 6 * V floats of scratch in device memory (V_FLUID_MESH only).
 // FEAT: the fitness features run, on the carry fe with the constants fp
-// (K1 only: slot_stride 0).
-template <int VARIANT, bool FEAT = false>
+// (K1 only: slot_stride 0). MAT: the material instance (K1's land variant
+// only) with the inputs ma and the kinetic-energy ring ke (6 floats, the
+// same in every thread); with F_COMPACT, a1 is the compact table (S + 1, S)
+// and sp holds the S surface voxels' positions and scales.
+template <int VARIANT, bool FEAT = false, bool MAT = false>
 __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* bo,
                                     const float* a1, const float* cu_robot, int n_knots,
                                     int knot_steps, int step_base, int X, int Y, int Z,
                                     int num_steps, const Params& p, int flags, Robot& r,
                                     float* tape_t, float* sh, float* scr,
-                                    Feat* fe = nullptr, const FeatParams* fp = nullptr) {
+                                    Feat* fe = nullptr, const FeatParams* fp = nullptr,
+                                    const MatArgs* ma = nullptr, float* ke = nullptr) {
     __shared__ float red[3 * (MAX_THREADS / 32)];
     __shared__ int divflag[2];
 
     const int V = X * Y * Z;
     const int T = blockDim.x;
     const bool coll = (flags & F_COLL) != 0;
+    const bool compact = MAT && (flags & F_COMPACT);
+    const int S = compact ? ma->n_surf : V;  // staged contact entries
     float* bf = sh;                       // [36][V] bond forces
-    float* sp = sh + BF * V;              // [4][V] staged pos/scale
-    float* fc = sp + 4 * V;               // [3][V] contact forces
+    float* sp = sh + BF * V;              // [4][S] staged pos/scale
+    float* fc = sp + 4 * S;               // [3][V] contact forces
     const int strides[3] = {Y * Z, Z, 1};
 
     float t = r.t;
@@ -1143,13 +1269,35 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
         }
         if (tape_t && threadIdx.x == 0) tape_t[i] = t;
 
+        // equilibrium mode: the ring's test before this step's energy is
+        // pushed (VX_Sim.cpp:1148-1155)
+        bool zero_motion = false;
+        if constexpr (MAT)
+            zero_motion = (flags & F_EQUIL) && ke[0] + ke[1] + ke[2] < ke[3] + ke[4] + ke[5];
+
         // this step's control knot: a row of the robot's (K, V) controls
         const float* cu = nullptr;
         if (n_knots > 0)
             cu = cu_robot + (size_t)knot_of(i_glob, n_knots, knot_steps) * V;
 
         // ---- phase A: bond pass (+ staging for the pair pass) ----
-        if (coll) {
+        if (compact) {
+            // the surface voxels through the index row; the others feel none
+            for (int v = threadIdx.x; v < V; v += T) {
+                fc[v] = 0.f;
+                fc[V + v] = 0.f;
+                fc[2 * V + v] = 0.f;
+            }
+            for (int k = threadIdx.x; k < S; k += T) {
+                const int u = (int)a1[k];
+                sp[k] = SCH(S_POS + 0)[u];
+                sp[S + k] = SCH(S_POS + 1)[u];
+                sp[2 * S + k] = SCH(S_POS + 2)[u];
+                sp[3 * S + k] = SCH(S_SCALE)[u];
+            }
+            __syncthreads();
+            pair_contact_compact_block(sp, a1 + S, a1, S, fc, V);
+        } else if (coll) {
             for (int v = threadIdx.x; v < V; v += T) {
                 sp[v] = SCH(S_POS + 0)[v];
                 sp[V + v] = SCH(S_POS + 1)[v];
@@ -1180,10 +1328,16 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
                         la2p[(size_t)c * V] = 0.f;
                     }
                     SOUT(S_MAXS + d)[v] = 0.f;
+                    if constexpr (MAT)
+                        if (flags & F_PLASTIC) SOUT(S_SOFF + d)[v] = 0.f;
                     if (slot_stride) SOUT(S_SMALL + d)[v] = SCH(S_SMALL + d)[v];
                     continue;
                 }
-                const Bond bn = bond_forward(si, bd, v, v + strides[d], d, V, p, dt, dt_inv);
+                float soff = 0.f;
+                const Bond bn = bond_forward<MAT>(si, bd, v, v + strides[d], d, V, p, dt, dt_inv,
+                                                  ma, flags, &soff);
+                if constexpr (MAT)
+                    if ((flags & F_PLASTIC) && !dry) SOUT(S_SOFF + d)[v] = soff;
                 if (!dry) SOUT(S_MAXS + d)[v] = fmaxf(SCH(S_MAXS + d)[v], bn.strain);
                 if (fabsf(bn.strain) > 100.f) diverging = 1;
                 if (VARIANT == V_FLUID_MESH) {
@@ -1252,6 +1406,7 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
 
         // ---- phase B: per-voxel force sum and integration ----
         F3 tr = {0.f, 0.f, 0.f};  // (features) this thread's CoM-y and volume sums
+        float ke_part = 0.f;      // (equilibrium mode) this thread's kinetic energy
         for (int v = threadIdx.x; v < V; v += T) {
             const bool occ = BCH(B_OCC)[v] > 0.5f;
             // loaded first, so the load is in flight during the force sum
@@ -1271,6 +1426,14 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
                 force_sum(bf, fc, coll, v, coord, strides, V, vel, tsm, p, tf, tm);
             }
             if (flags & F_GRAVITY) tf.z = tf.z + mass * grav;
+            const float* bcv = nullptr;  // (BC regions) this voxel's 15 channels
+            if constexpr (MAT) {
+                if (flags & F_BC) {
+                    bcv = ma->bc + v;
+                    tf = {tf.x + bcv[(size_t)6 * V], tf.y + bcv[(size_t)7 * V],
+                          tf.z + bcv[(size_t)8 * V]};
+                }
+            }
 
             if (VARIANT == V_FLUID_MESH) {
                 // facets of the exposed faces; a voxel on the grid's last
@@ -1337,7 +1500,40 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
             // Euler step (VXS_Voxel.cpp:181-197)
             lin = {lin.x + tf.x * dt, lin.y + tf.y * dt, lin.z + tf.z * dt};
             const float dtm = dt * minv;
-            pos = {pos.x + lin.x * dtm, pos.y + lin.y * dtm, pos.z + lin.z * dtm};
+            if constexpr (MAT) {
+                F3 dp = {lin.x * dtm, lin.y * dtm, lin.z * dtm};
+                if (flags & F_MAXVEL) {  // the per-step displacement clamp (:188-192)
+                    const float sq = dp.x * dp.x + dp.y * dp.y + dp.z * dp.z;
+                    const float dmag = sq > 0.f ? sqrtf(sq) : 0.f;
+                    if (dmag > ma->max_disp) {
+                        const float back = ma->max_disp / dmag;
+                        dp = {dp.x * back, dp.y * back, dp.z * back};
+                    }
+                }
+                pos = {pos.x + dp.x, pos.y + dp.y, pos.z + dp.z};
+                if (bcv) {  // fixed translations sit at their prescribed place (:195-197)
+                    const float nom3[3] = {((float)coord[0] + 0.5f) * p.L,
+                                           ((float)coord[1] + 0.5f) * p.L,
+                                           ((float)coord[2] + 0.5f) * p.L};
+                    float* pc[3] = {&pos.x, &pos.y, &pos.z};
+                    float* lc[3] = {&lin.x, &lin.y, &lin.z};
+                    for (int c = 0; c < 3; ++c) {
+                        if (!(bcv[(size_t)c * V] > 0.5f)) continue;
+                        *pc[c] = nom3[c] + bcv[(size_t)(9 + c) * V];
+                        *lc[c] = 0.f;
+                    }
+                }
+            } else {
+                pos = {pos.x + lin.x * dtm, pos.y + lin.y * dtm, pos.z + lin.z * dtm};
+            }
+
+            if constexpr (MAT) {
+                if (bcv) {  // fixed rotations feel no moment
+                    if (bcv[(size_t)3 * V] > 0.5f) tm.x = 0.f;
+                    if (bcv[(size_t)4 * V] > 0.5f) tm.y = 0.f;
+                    if (bcv[(size_t)5 * V] > 0.5f) tm.z = 0.f;
+                }
+            }
 
             // angular integration and quaternion update (:202-215)
             const float iinv = BCH(B_INERTIA_INV)[v];
@@ -1354,11 +1550,45 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
             qn = {qn.w * li, qn.x * li, qn.y * li, qn.z * li};
             if (qn.w >= 1.f) qn = {1.f, 0.f, 0.f, 0.f};
 
+            if constexpr (MAT) {
+                if (bcv && bcv[(size_t)3 * V] > 0.5f && bcv[(size_t)4 * V] > 0.5f &&
+                    bcv[(size_t)5 * V] > 0.5f) {
+                    // all rotations fixed: the prescribed orientation
+                    // (:218-221), quat_from_rotation_vector
+                    const F3 rv = {bcv[(size_t)12 * V], bcv[(size_t)13 * V], bcv[(size_t)14 * V]};
+                    const float a2 = rv.x * rv.x + rv.y * rv.y + rv.z * rv.z;
+                    if (a2 > 0.f) {
+                        const float ang_r = sqrtf(a2);
+                        const float half = 0.5f * ang_r;
+                        const float sn = sinf(half);
+                        qn = {cosf(half), rv.x / ang_r * sn, rv.y / ang_r * sn, rv.z / ang_r * sn};
+                    } else {
+                        qn = {1.f, 0.5f * rv.x, 0.5f * rv.y, 0.5f * rv.z};
+                    }
+                    ang = {0.f, 0.f, 0.f};
+                }
+            }
+
             if (!occ) {  // keep empty cells inert
                 pos = {((float)coord[0] + 0.5f) * p.L, ((float)coord[1] + 0.5f) * p.L,
                        ((float)coord[2] + 0.5f) * p.L};
                 lin = {0.f, 0.f, 0.f};
                 ang = {0.f, 0.f, 0.f};
+            }
+            if constexpr (MAT) {
+                if (flags & F_EQUIL) {
+                    // ZeroAllMotion, then this voxel's share of the energy
+                    // pushed (core/step.py's order of operations)
+                    if (zero_motion) {
+                        lin = {0.f, 0.f, 0.f};
+                        ang = {0.f, 0.f, 0.f};
+                    }
+                    const F3 vn = {lin.x * minv, lin.y * minv, lin.z * minv};
+                    const F3 wn = {ang.x * iinv, ang.y * iinv, ang.z * iinv};
+                    const float inertia = iinv != 0.f ? 1.f / iinv : 0.f;
+                    ke_part += 0.5f * (mass * (vn.x * vn.x + vn.y * vn.y + vn.z * vn.z) +
+                                       inertia * (wn.x * wn.x + wn.y * wn.y + wn.z * wn.z));
+                }
             }
 
             // actuation scale update (VXS_Voxel.cpp:224-341)
@@ -1438,6 +1668,13 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
             if (dry) {
                 feat_tail(*fe, *fp, i, num_steps);
                 break;
+            }
+        }
+        if constexpr (MAT) {
+            if (flags & F_EQUIL) {  // push the step's energy onto the ring
+                const float e = block_sum3({ke_part, 0.f, 0.f}, red).x;
+                for (int k = 5; k > 0; --k) ke[k] = ke[k - 1];
+                ke[0] = e;
             }
         }
         if (threadIdx.x == 0) divflag[(i + 1) & 1] = 0;

@@ -13,6 +13,14 @@
 // memory are coalesced and follow the table's own [i, j] order. Pairs with
 // a1 == 0 are skipped (they contribute exactly 0 in the plain version). A
 // warp shuffle reduces the three sums and lane 0 writes -sum.
+//
+// The surface-compacted pass (pair_contact_compact_block) replaces
+// _pair_contact_forces_compact: the same field over the S surface voxels
+// only, an (S, S) table in place of (V, V). On the TPU the gather and the
+// scatter are one-hot matrix products; here the caller stages the S entries
+// through the table's index row (an indexed load each) and each warp's lane
+// 0 writes its row's force to the owning voxel (the indices are distinct,
+// so nothing collides).
 #pragma once
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -62,6 +70,53 @@ __device__ inline void pair_contact_block(const float* sp,
             out[i] = -fx;
             out[out_stride + i] = -fy;
             out[2 * out_stride + i] = -fz;
+        }
+    }
+}
+
+// sp: shared [4*S] = x[S], y[S], z[S], s[S] of the surface voxels; a1s: the
+// robot's S x S compact table, row-major; idx: its index row (S voxel
+// indices as floats); out[c * out_stride + idx[i]] receives force
+// component c on surface voxel i.
+__device__ inline void pair_contact_compact_block(const float* sp,
+                                                  const float* __restrict__ a1s,
+                                                  const float* __restrict__ idx, int S,
+                                                  float* out, int out_stride) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    const float* px = sp;
+    const float* py = sp + S;
+    const float* pz = sp + 2 * S;
+    const float* ps = sp + 3 * S;
+    for (int i = warp; i < S; i += nwarps) {
+        const float xi = px[i], yi = py[i], zi = pz[i], si = ps[i];
+        const float* row = a1s + (size_t)i * S;
+        float fx = 0.f, fy = 0.f, fz = 0.f;
+        for (int j = lane; j < S; j += 32) {
+            const float a = row[j];
+            if (a == 0.f) continue;
+            const float dx = px[j] - xi;
+            const float dy = py[j] - yi;
+            const float dz = pz[j] - zi;
+            const float d2 = dx * dx + dy * dy + dz * dz;
+            const float inv = rsqrtf(fmaxf(d2, 1e-30f));
+            const float tt = (0.75f * (si + ps[j])) * inv;
+            if (tt > 1.f) {
+                const float mag = a * (tt - 1.f);
+                fx += mag * dx;
+                fy += mag * dy;
+                fz += mag * dz;
+            }
+        }
+        fx = warp_sum(fx);
+        fy = warp_sum(fy);
+        fz = warp_sum(fz);
+        if (lane == 0) {
+            const int u = (int)idx[i];
+            out[u] = -fx;
+            out[out_stride + u] = -fy;
+            out[2 * out_stride + u] = -fz;
         }
     }
 }

@@ -14,7 +14,11 @@ Hopper take its place on the evolution loop's envelope:
   the linear development ramps, each compiled as its own variant, and
   the fitness features (environmental sources, needle-in-haystack, the
   fall-over latch, NormDistByVol, speed windows and ballistic development),
-  compiled as a second instance of each variant;
+  compiled as a second instance of each variant, and Voxelyze's material,
+  solver and boundary options on land (bilinear and MDL_DATA stress with
+  the stress-equalization loop, plasticity, the max-velocity clamp,
+  equilibrium mode, boundary-condition regions) with the surface-compacted
+  contact pass, compiled as a third instance of the land variant;
 - B4 (`fused_bwd_call`, `csrc/fused_rollout_bwd.cu`): the reverse-mode
   segment, the adjoint of K1's step written by hand, which pulls a
   segment's end-state cotangent back to its start state and the control
@@ -24,7 +28,7 @@ Hopper take its place on the evolution loop's envelope:
 
 Each wrapper takes its kernel for CUDA tensors and its plain PyTorch
 version (`fused_rollout_plain`, `pair_contact_forces_plain`,
-`fused_bwd_plain`) for CPU
+`pair_contact_forces_compact_plain`, `fused_bwd_plain`) for CPU
 tensors. There is no fallback: a build failure, a launch failure or a
 feature outside the envelope on a CUDA tensor raises.
 
@@ -70,7 +74,7 @@ _LA2 = 35  # 35..43
 _MAXS = 44  # 44..46
 _TSAVG = 47  # 47..49 volume-effects carry (not ported)
 _CSAVG = 50  # 50..52
-_SOFF = 53  # 53..55 plastic strain offset (not ported)
+_SOFF = 53  # 53..55 plastic strain offset
 # ballistic development's per-voxel fields, rebased every step
 # (VXS_Voxel.cpp:342-381): initial size, final size, growth time, start
 _DEVO_DYN = 56  # 56..59
@@ -191,10 +195,15 @@ _SMEM_BYTES = 232448  # a block's shared memory on Hopper, static and dynamic
 _K1_STATIC_SMEM = 208
 
 
-def k1_fits(V: int, collision: bool) -> bool:
-    """True when K1's shared memory holds a body of V grid cells."""
-    per = _K1_SMEM_FLOATS_COLL if collision else _K1_SMEM_FLOATS
-    return per * 4 * V + _K1_STATIC_SMEM <= _SMEM_BYTES
+def k1_fits(V: int, collision: bool, n_surf=None) -> bool:
+    """True when K1's shared memory holds a body of V grid cells; with
+    `n_surf`, the surface-compacted contact pass, which stages the S surface
+    voxels' positions and scales (4 floats each) in place of all V."""
+    if collision and n_surf is not None:
+        floats = (_K1_SMEM_FLOATS + 3) * V + 4 * int(n_surf)
+    else:
+        floats = (_K1_SMEM_FLOATS_COLL if collision else _K1_SMEM_FLOATS) * V
+    return floats * 4 + _K1_STATIC_SMEM <= _SMEM_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +283,8 @@ def unpack_state(packed, template: SimState, grid_shape) -> SimState:
 
     scale = g(_SCALE)
     extra = {}
+    if template.strain_offset is not None:
+        extra["strain_offset"] = torch.stack([g(_SOFF + d) for d in range(3)], dim=1)
     if template.devo is not None:
         extra["devo"] = template.devo.replace(**{
             name: g(_DEVO_DYN + k) for k, name in enumerate(_DEVO_DYN_FIELDS)})
@@ -344,6 +355,56 @@ def pack_collision(colsys, grid_shape):
     dense[np.ix_(fl, fl)] = np.asarray(colsys.pair_a1)[
         np.ix_(live, live)].astype(np.float32)
     return dense
+
+
+def pack_collision_compact(colsys, grid_shape):
+    """CollisionSystem -> the surface-compacted (S + 1, S) float32 numpy
+    table of K1's compact contact pass, S the live surface voxels: row 0
+    their flat x-major voxel indices (exact in float32 below 2^24), rows 1..S
+    their pair-stiffness table (the JAX package's `pack_collision_compact`
+    stacks a one-hot (Vp, Sp) gather matrix on the same table instead)."""
+    X, Y, Z = grid_shape
+    sidx = np.asarray(colsys.surf_idx)
+    smask = np.asarray(colsys.surf_mask).astype(bool)
+    live = np.nonzero(smask)[0]
+    flat = sidx[live, 0] * (Y * Z) + sidx[live, 1] * Z + sidx[live, 2]
+    out = np.zeros((len(live) + 1, len(live)), np.float32)
+    out[0] = flat
+    out[1:] = np.asarray(colsys.pair_a1)[np.ix_(live, live)]
+    return out
+
+
+def pack_ss_tables(body: VoxelBody, dtype=torch.float32):
+    """MDL_DATA per-voxel stress-strain tables -> (1, 2P+3, V), or (B, 2P+3,
+    V) for a batch of bodies, in the JAX package's channel order (xs_0..
+    xs_{P-1}, ys_0..ys_{P-1}, fail strain, last stress, last slope). Given
+    to K1 only when a palette entry is MDL_DATA."""
+    lead = tuple(body.occ.shape[:-3])
+    P = body.ss_strain_vox.shape[-1]
+    f = lambda a: _flat(a, lead).to(dtype)  # noqa: E731
+    chans = [f(body.ss_strain_vox[..., k]) for k in range(P)]
+    chans += [f(body.ss_stress_vox[..., k]) for k in range(P)]
+    chans += [f(body.ss_fail_strain_vox), f(body.ss_last_stress_vox),
+              f(body.ss_last_slope_vox)]
+    out = torch.stack(chans, dim=-2)
+    return (out if lead else out[None]).contiguous()
+
+
+def pack_bc_tables(body: VoxelBody, dtype=torch.float32):
+    """Boundary-condition channels -> (1, 15, V), or (B, 15, V) for a batch
+    of bodies, in the JAX package's order: the 6 DOF-fixed bits (X, Y, Z,
+    TX, TY, TZ), the external force, the prescribed displacement and the
+    prescribed rotation vector (reference regions: VX_FRegion.h DOF masks;
+    applied in VXS_Voxel EulerStep)."""
+    lead = tuple(body.occ.shape[:-3])
+    f = lambda a: _flat(a, lead).to(dtype)  # noqa: E731
+    dof = body.dof_fixed.expand(body.occ.shape)
+    chans = [f((dof >> k) & 1) for k in range(6)]
+    for field in (body.external_force, body.external_disp, body.external_tdisp):
+        field = field.expand(body.occ.shape + (3,))
+        chans += [f(field[..., c]) for c in range(3)]
+    out = torch.stack(chans, dim=-2)
+    return (out if lead else out[None]).contiguous()
 
 
 def make_stats(body: VoxelBody, batch: int, dt, sim: SimParams, env: EnvParams,
@@ -559,13 +620,12 @@ def kernel_env_flags(sim: SimParams, env: EnvParams) -> dict:
 def body_flags(body: VoxelBody) -> dict:
     """The body-derived flags the JAX host side adds to `kernel_env_flags`
     (`ballistic` follows the state: callers that carry a DevoState set it)."""
-    has_bc = bool((body.dof_fixed != 0).any() or (body.external_force != 0).any()
-                  or (body.external_disp != 0).any()
-                  or (body.external_tdisp != 0).any())
+    from evosoro_tpu_torch.core.step import has_bc
+
     return dict(
         nonlinear=not bool(body.all_linear),
         mdl_data=body.ss_strain_vox is not None,
-        bc=has_bc,
+        bc=has_bc(body),
         fluid_mesh=body.mesh_drag is not None,
         use_init_size=bool(body.using_initial_voxel_size),
         use_final_size=bool(body.using_final_voxel_size),
@@ -600,16 +660,23 @@ _K1_FLAG_BITS = dict(floor=1, sticky=2, gravity=4, temp=8, freeze_on=16,
                      collision=32, temp_enabled=64, fluid=128, fluid_mesh=256,
                      use_init_size=512, use_final_size=1024, use_growth_t=2048,
                      use_final_phase=4096, use_final_ad=8192, needle=16384,
-                     falling=32768, ndbv=65536, window=131072, ballistic=262144)
+                     falling=32768, ndbv=65536, window=131072, ballistic=262144,
+                     nonlinear=1 << 19, mdl_data=1 << 20, plasticity=1 << 21,
+                     equilibrium=1 << 22, max_vel=1 << 23, bc=1 << 24,
+                     collision_compact=1 << 25)
 _K1_DEVO_FLAGS = ("use_init_size", "use_final_size", "use_growth_t",
                   "use_final_phase", "use_final_ad")
 # the fitness features: a launch with any of them (or a source) runs K1's
 # feature instance; those that sample the CoM/volume trace
 _K1_FEATURE_FLAGS = ("needle", "falling", "ndbv", "window", "ballistic")
 _K1_TRACE_FLAGS = ("ndbv", "window", "ballistic")
+# Voxelyze's material, solver and boundary options and the compact contact
+# pass: a launch with any of them runs K1's material instance, which the
+# land variant has (with and without the features)
+_K1_MAT_FLAGS = ("nonlinear", "mdl_data", "plasticity", "equilibrium", "max_vel", "bc",
+                 "collision_compact")
 # flags outside the envelope; each must be off
-_K1_REFUSED = ("volume", "nonlinear", "mdl_data",
-               "plasticity", "equilibrium", "max_vel", "bc", "collision_compact")
+_K1_REFUSED = ("volume",)
 # trace-sample ring slots K1 carries per robot, and the sources it tracks
 MAX_KERNEL_WINDOW = 12
 MAX_KERNEL_SOURCES = 3
@@ -622,6 +689,8 @@ def _flag_bits(flags: dict) -> int:
     on = {k for k in _K1_FLAG_BITS if flags.get(k)}
     if not facet_drag(flags):
         on.discard("fluid_mesh")
+    if "equilibrium" in on:  # the mode turns the clamp off (VX_Sim.cpp:1351-1372)
+        on.discard("max_vel")
     if "fluid" in on:
         on.difference_update(_K1_DEVO_FLAGS)
     return sum(_K1_FLAG_BITS[k] for k in on)
@@ -633,6 +702,13 @@ def check_envelope(flags: dict, scalars: dict):
     for k in _K1_REFUSED:
         if flags.get(k):
             raise NotImplementedError(f"fused rollout: '{k}' is not ported yet")
+    # the material instance is the land variant's: in water or with
+    # development these options raise by name (ROADMAP.md B.6)
+    if flags.get("fluid") or any(flags.get(k) for k in _K1_DEVO_FLAGS):
+        for k in _K1_MAT_FLAGS:
+            if flags.get(k):
+                raise NotImplementedError(
+                    f"fused rollout: '{k}' runs on land without development only")
     # a fluid's actuation is gated on temp_enabled alone
     if flags.get("temp_enabled") and not flags.get("temp") and not flags.get("fluid"):
         raise NotImplementedError("fused rollout: a fixed (non-varying) "
@@ -761,6 +837,47 @@ def pair_contact_forces(pos, scale, a1):
 
 
 # ---------------------------------------------------------------------------
+# B5: surface-compacted pair contact (a routine of K1)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CompactTable:
+    """A body's surface-compacted pair table, (1 or B, S + 1, S)
+    (`pack_collision_compact`), as the eager step's `body.collision`."""
+
+    table: Any
+
+
+def pair_contact_forces_compact_plain(pos, scale, table):
+    """Plain version of K1's compact contact pass (the JAX package's
+    `_pair_contact_forces_compact`): gather the S surface voxels' positions
+    and scales through the index row of `table`, evaluate the (S, S) pair
+    field `mag = a1 (0.75 (s_i + s_j) / dist - 1)` where positive, and scatter
+    `-sum_j mag (p_j - p_i)` back to the voxels. pos (..., 3, V), scale
+    (..., V), table (..., S + 1, S) or (S + 1, S) -> forces (..., 3, V)."""
+    lead = pos.shape[:-2]
+    V = pos.shape[-1]
+    p = pos.reshape(-1, 3, V)
+    sc = scale.reshape(-1, V)
+    tab = table.reshape((-1,) + tuple(table.shape[-2:]))
+    tab = tab.expand(p.shape[0], -1, -1) if tab.shape[0] == 1 else tab
+    idx = tab[:, 0, :].long()  # (n, S)
+    a1 = tab[:, 1:, :]
+    ps = torch.gather(p, 2, idx[:, None, :].expand(-1, 3, -1))  # (n, 3, S)
+    ss = torch.gather(sc, 1, idx)
+    diff = ps[:, :, None, :] - ps[:, :, :, None]  # [c, i, j] = p_j - p_i
+    dist2 = diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1] + diff[:, 2] * diff[:, 2]
+    inv = torch.rsqrt(torch.clamp(dist2, min=1e-30))
+    tt = 0.75 * (ss[:, :, None] + ss[:, None, :]) * inv
+    mag = torch.where(tt > 1.0, a1 * (tt - 1.0), 0.0)
+    fs = -(mag[:, None] * diff).sum(-1)  # (n, 3, S)
+    out = torch.zeros_like(p)
+    out.scatter_(2, idx[:, None, :].expand(-1, 3, -1), fs)
+    return out.reshape(lead + (3, V))
+
+
+# ---------------------------------------------------------------------------
 # K1: fused forward rollout
 # ---------------------------------------------------------------------------
 
@@ -779,6 +896,15 @@ FUSED_ROLLOUT_DEVO_LAUNCHES = 0
 FUSED_ROLLOUT_FEATURE_LAUNCHES = 0
 FUSED_ROLLOUT_BALLISTIC_LAUNCHES = 0
 FUSED_ROLLOUT_SOURCE_LAUNCHES = 0
+# K1 launches of the material instance, and those of them with the
+# material models (nonlinear stress, MDL_DATA tables, plasticity: B6c), the
+# solver options (max-velocity clamp, equilibrium mode: B6a), BC regions
+# (B6b) and the surface-compacted contact pass (B5)
+FUSED_ROLLOUT_MATERIAL_LAUNCHES = 0
+FUSED_ROLLOUT_NONLINEAR_LAUNCHES = 0
+FUSED_ROLLOUT_SOLVER_LAUNCHES = 0
+FUSED_ROLLOUT_BC_LAUNCHES = 0
+FUSED_ROLLOUT_COMPACT_LAUNCHES = 0
 
 
 def _k1_params(scalars: dict, prec: Precision) -> np.ndarray:
@@ -809,6 +935,19 @@ def _k1_params(scalars: dict, prec: Precision) -> np.ndarray:
         scalars["freeze"],
     ]
     return np.asarray(vals, dtype=np.float32)
+
+
+def equilibrium_scalars(scalars: dict) -> dict:
+    """A launch's scalars under equilibrium mode's damping override
+    (reference: EnableEquilibriumMode, VX_Sim.cpp:1351-1372)."""
+    return dict(scalars, bond_damping_z=0.1, slow_damping_z=0.0)
+
+
+def _mat_params(scalars: dict) -> np.ndarray:
+    """The material instance's float constants (csrc MatArgs): the
+    max-velocity clamp's largest displacement a step, max_vox_vel_limit * L
+    rounded from the double product as the plain version's tensor of it."""
+    return np.asarray([scalars["max_vel_limit"] * scalars["L"]], dtype=np.float32)
 
 
 def _feat_params(scalars: dict, flags: dict) -> np.ndarray:
@@ -852,6 +991,10 @@ def _unpack_body(body_packed, grid_shape, L, flags=None) -> VoxelBody:
     nom_pos = (torch.stack([ix, iy, iz], dim=-1).to(dt) + 0.5) * Lt
     inertia_inv = g(_B_INERTIA_INV)
     zeros = torch.zeros(lead + (X, Y, Z), dtype=dt, device=dev)
+    # the material fields ride channels the land step does not read
+    mat = dict(mat_temp_phase=g(_B_MTPHASE), mat_model_vox=g(_B_MATMODEL),
+               plastic_mod=g(_B_PLASTIC), yield_stress=g(_B_YIELD),
+               all_linear=not flags.get("nonlinear"))
     kw = {name: per_dir(off, bool if name in ("bond_mask", "bond_homogeneous") else None)
           for name, off in _PER_DIR_FIELDS}
     return VoxelBody(
@@ -876,9 +1019,33 @@ def _unpack_body(body_packed, grid_shape, L, flags=None) -> VoxelBody:
         external_force=zeros[..., None].expand(lead + (X, Y, Z, 3)),
         external_disp=zeros[..., None].expand(lead + (X, Y, Z, 3)),
         external_tdisp=zeros[..., None].expand(lead + (X, Y, Z, 3)),
-        bond_e=kw["bond_e"], bond_a1=kw["bond_e"] * Lt, **{
+        bond_e=kw["bond_e"], bond_a1=kw["bond_e"] * Lt, **mat, **{
             k: v for k, v in kw.items() if k != "bond_e"},
     )
+
+
+def _with_tables(body: VoxelBody, grid_shape, ss_packed, bc_packed) -> VoxelBody:
+    """`body` with the MDL_DATA tables and the BC channels of a launch."""
+    X, Y, Z = grid_shape
+
+    def g(t, k):
+        t = t[0] if t.shape[0] == 1 else t
+        return t[..., k, :].reshape(tuple(t.shape[:-2]) + (X, Y, Z))
+
+    if ss_packed is not None:
+        P = (ss_packed.shape[1] - 3) // 2
+        body = body.replace(
+            ss_strain_vox=torch.stack([g(ss_packed, k) for k in range(P)], dim=-1),
+            ss_stress_vox=torch.stack([g(ss_packed, P + k) for k in range(P)], dim=-1),
+            ss_fail_strain_vox=g(ss_packed, 2 * P), ss_last_stress_vox=g(ss_packed, 2 * P + 1),
+            ss_last_slope_vox=g(ss_packed, 2 * P + 2))
+    if bc_packed is not None:
+        dof = sum((g(bc_packed, k) > 0.5).to(torch.int32) << k for k in range(6))
+        body = body.replace(dof_fixed=dof, **{
+            name: torch.stack([g(bc_packed, base + c) for c in range(3)], dim=-1)
+            for name, base in (("external_force", 6), ("external_disp", 9),
+                               ("external_tdisp", 12))})
+    return body
 
 
 def _knot_clock(flags, num_steps, n_knots, control_packed, seg_base, total_steps):
@@ -1042,13 +1209,14 @@ class _PlainFeatures:
 def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
                         *, control_packed=None, seg_base=None, num_steps,
                         grid_shape, scalars, flags, n_knots: int = 0,
-                        total_steps=None, prec: Precision = DEFAULT_PRECISION):
+                        total_steps=None, prec: Precision = DEFAULT_PRECISION,
+                        ss_packed=None, bc_packed=None):
     """Plain version of K1 on the same packed tensors: unpack, loop the
     eager `core.step.sim_step`, keep the stats row's bookkeeping as the
     kernel does (IniCM capture with the seed at global step 0, divergence
-    latch, stop-time freeze, the features' carry), select each step's
-    control knot by the global step, and repack. Returns (state_out,
-    stats_out)."""
+    latch, stop-time freeze, the features' carry, the kinetic-energy ring of
+    equilibrium mode), select each step's control knot by the global step,
+    and repack. Returns (state_out, stats_out)."""
     from evosoro_tpu_torch.core.step import freeze_where, sim_step
 
     check_envelope(flags, scalars)
@@ -1067,11 +1235,13 @@ def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
         kw = dict(device=state_packed.device, dtype=state_packed.dtype)
         body = body.replace(mesh_drag=build_mesh_drag(occ, **kw) if occ.ndim == 3
                             else build_mesh_drag_batch(occ, **kw))
+    body = _with_tables(body, grid_shape, ss_packed, bc_packed)
     if collision_packed is not None:
-        body = body.replace(collision=collision_packed[0]
-                            if collision_packed.shape[0] == 1 else collision_packed)
-    # unpack_state fills every packed field; the rest of the template is the
-    # zero plastic offset (plasticity is outside the envelope) and the dtype
+        table = collision_packed[0] if collision_packed.shape[0] == 1 else collision_packed
+        body = body.replace(collision=CompactTable(table) if flags.get("collision_compact")
+                            else table)
+    # unpack_state fills every packed field, the plastic strain offset
+    # included; the rest of the template gives the dtype
     zero = torch.zeros((B, 3, X, Y, Z), dtype=state_packed.dtype,
                        device=state_packed.device)
     template = SimState(**{f.name: None for f in dataclasses.fields(SimState)})
@@ -1087,9 +1257,9 @@ def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
     inv_m = st[:, _S_INV_MASS]
     stop_t = st[:, _S_STOP]
     init_cm = st[:, _S_INITCM]
-    state = state.replace(
-        time=t, diverged=div,
-        ke_history=torch.full((B, 6), -1.0, dtype=t.dtype, device=t.device))
+    equilibrium = bool(flags.get("equilibrium"))
+    state = state.replace(time=t, diverged=div,
+                          ke_history=st[:, _S_KE:_S_KE + 6].clone())
 
     sim = SimParams(
         bond_damping_z=scalars["bond_damping_z"],
@@ -1099,7 +1269,11 @@ def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
         init_cm_time=init_cm,
         min_temp_fact=st[:, _S_MINTF],
         mid_life_freeze_time=scalars["freeze"],
+        max_vox_vel_limit=scalars["max_vel_limit"],
         self_collisions_enabled=bool(flags.get("collision")),
+        plasticity_enabled=bool(flags.get("plasticity")),
+        max_velocity_enabled=bool(flags.get("max_vel")),
+        equilibrium_mode=equilibrium,
     )
     env = EnvParams(
         grav_acc=st[:, _S_GRAV], temp_amplitude=st[:, _S_TAMP],
@@ -1161,9 +1335,12 @@ def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
     out_stats[:, _S_DIV] = state.diverged.to(stats.dtype)
     out_stats[:, _S_INICM:_S_INICM + 3] = ini
     out_stats[:, _S_CAPT] = capt.to(stats.dtype)
+    if equilibrium:
+        out_stats[:, _S_KE:_S_KE + 6] = state.ke_history
     feats.store(out_stats)
     # channels the kernel never writes keep their input values
-    out_state[:, _TSAVG:_DEVO_DYN] = state_packed[:, _TSAVG:_DEVO_DYN]
+    keep_to = _SOFF if flags.get("plasticity") else _DEVO_DYN
+    out_state[:, _TSAVG:keep_to] = state_packed[:, _TSAVG:keep_to]
     if not ballistic:
         out_state[:, _DEVO_DYN:] = state_packed[:, _DEVO_DYN:]
     return out_state, out_stats
@@ -1172,12 +1349,19 @@ def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
 def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
                control_packed=None, seg_base=None, num_steps: int, grid_shape,
                scalars: dict, flags: dict, n_knots: int = 0, total_steps=None,
-               prec: Precision = DEFAULT_PRECISION):
+               prec: Precision = DEFAULT_PRECISION, ss_packed=None, bc_packed=None):
     """K1 wrapper, the counterpart of the JAX package's `_fused_call`.
 
     state (B, C_S, V), body (B or 1, C_B, V), stats (B, C_STAT), the
-    optional pair table (B or 1, V, V) and the optional controls
-    (B, n_knots, V), all float32 on one device. Step i of the launch is the
+    optional pair table (B or 1, V, V), or (B or 1, S + 1, S) compacted
+    with flags["collision_compact"] (`pack_collision_compact`), the
+    optional controls (B, n_knots, V), and with flags["mdl_data"] the
+    MDL_DATA tables (B or 1, 2P + 3, V) (`pack_ss_tables`), with flags["bc"]
+    the BC channels (B or 1, 15, V) (`pack_bc_tables`), all float32 on one
+    device. Under flags["equilibrium"] the launch takes the mode's damping
+    override (`equilibrium_scalars`) and the kinetic-energy ring rides
+    stats channels 16-21; with plasticity the strain offset rides state
+    channels 53-55. Step i of the launch is the
     global step `seg_base + i` (`seg_base` an int, given exactly when
     flags["segmented"] is set); its knot is
     `min(global step * n_knots // knot_steps, n_knots - 1)` with
@@ -1194,21 +1378,42 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
     development state channels 56-59 carry the rebased fields.
     """
     check_envelope(flags, scalars)
+    if flags.get("equilibrium"):
+        scalars = equilibrium_scalars(scalars)
     seg0, knot_steps = _knot_clock(flags, num_steps, n_knots, control_packed,
                                    seg_base, total_steps)
     X, Y, Z = grid_shape
     V = X * Y * Z
     B = state_packed.shape[0]
     coll = bool(flags.get("collision"))
+    compact = bool(flags.get("collision_compact"))
     if coll != (collision_packed is not None):
         raise ValueError("flags['collision'] and the pair table disagree")
+    if compact and not coll:
+        raise ValueError("flags['collision_compact'] needs flags['collision']")
+    for flag, t in (("mdl_data", ss_packed), ("bc", bc_packed)):
+        if bool(flags.get(flag)) != (t is not None):
+            raise ValueError(f"flags['{flag}'] and its tables disagree")
     shapes = [("state", state_packed, (B, C_S, V)), ("stats", stats, (B, C_STAT))]
     if tuple(body_packed.shape[1:]) != (C_B, V) or body_packed.shape[0] not in (1, B):
         raise ValueError(f"body must be (B or 1, {C_B}, {V}), got {tuple(body_packed.shape)}")
+    n_surf = collision_packed.shape[-1] if compact else None
+    table_shape = (n_surf + 1, n_surf) if compact else (V, V)
     if coll and (collision_packed.dim() != 3 or collision_packed.shape[0] not in (1, B)
-                 or tuple(collision_packed.shape[1:]) != (V, V)):
-        raise ValueError(f"pair table must be (B or 1, {V}, {V}), got "
-                         f"{tuple(collision_packed.shape)}")
+                 or tuple(collision_packed.shape[1:]) != table_shape):
+        raise ValueError(f"pair table must be (B or 1, {table_shape[0]}, {table_shape[1]}), "
+                         f"got {tuple(collision_packed.shape)}")
+    n_pts = 0
+    if ss_packed is not None:
+        n_pts = (ss_packed.shape[1] - 3) // 2
+        if ss_packed.dim() != 3 or ss_packed.shape[0] not in (1, B) or n_pts < 2 \
+                or tuple(ss_packed.shape[1:]) != (2 * n_pts + 3, V):
+            raise ValueError(f"MDL_DATA tables must be (B or 1, 2P + 3, {V}), P >= 2, got "
+                             f"{tuple(ss_packed.shape)}")
+    if bc_packed is not None and (bc_packed.dim() != 3 or bc_packed.shape[0] not in (1, B)
+                                  or tuple(bc_packed.shape[1:]) != (15, V)):
+        raise ValueError(f"BC channels must be (B or 1, 15, {V}), got "
+                         f"{tuple(bc_packed.shape)}")
     if n_knots:
         shapes.append(("controls", control_packed, (B, int(n_knots), V)))
     for name, t, shp in shapes:
@@ -1219,6 +1424,9 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
         tensors.append(("pair table", collision_packed))
     if n_knots:
         tensors.append(("controls", control_packed))
+    for name, t in (("MDL_DATA tables", ss_packed), ("BC channels", bc_packed)):
+        if t is not None:
+            tensors.append((name, t))
     for name, t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -1229,18 +1437,20 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
             state_packed, body_packed, stats, collision_packed,
             control_packed=control_packed, seg_base=seg_base,
             num_steps=num_steps, grid_shape=grid_shape, scalars=scalars,
-            flags=flags, n_knots=n_knots, total_steps=total_steps, prec=prec)
+            flags=flags, n_knots=n_knots, total_steps=total_steps, prec=prec,
+            ss_packed=ss_packed, bc_packed=bc_packed)
     if state_packed.device.type != "cuda":
         raise ValueError(f"unsupported device {state_packed.device}")
     for name, t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not k1_fits(V, coll):
+    if not k1_fits(V, coll, n_surf):
         raise ValueError(f"V={V} voxels overflow K1's shared memory ({_SMEM_BYTES} bytes)")
     bits = _flag_bits(flags)
     mesh = bool(bits & _K1_FLAG_BITS["fluid_mesh"])
     params = _k1_params(scalars, prec)
     fparams = _feat_params(scalars, flags)
+    mparams = _mat_params(scalars)
     state_out = state_packed.clone()
     stats_out = stats.clone()
     # the facet-drag variant leaves each bond's per-side strains here
@@ -1257,14 +1467,31 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
                 knot_steps, seg0, B, X, Y, Z, int(num_steps),
                 params.ctypes.data_as(ctypes.c_void_p), bits,
                 scratch.data_ptr() if mesh else None,
-                fparams.ctypes.data_as(ctypes.c_void_p), stream)
+                fparams.ctypes.data_as(ctypes.c_void_p),
+                ss_packed.data_ptr() if n_pts else None,
+                int(n_pts > 0 and ss_packed.shape[0] == B and B > 1), n_pts,
+                bc_packed.data_ptr() if bc_packed is not None else None,
+                int(bc_packed is not None and bc_packed.shape[0] == B and B > 1),
+                int(n_surf or 0), mparams.ctypes.data_as(ctypes.c_void_p), stream)
     build.check(rc, "fused_rollout")
     global FUSED_ROLLOUT_LAUNCHES, FUSED_ROLLOUT_CONTACT_LAUNCHES
     global FUSED_ROLLOUT_KNOT_LAUNCHES, FUSED_ROLLOUT_FLUID_LAUNCHES
     global FUSED_ROLLOUT_MESH_LAUNCHES, FUSED_ROLLOUT_DEVO_LAUNCHES
     global FUSED_ROLLOUT_FEATURE_LAUNCHES, FUSED_ROLLOUT_BALLISTIC_LAUNCHES
-    global FUSED_ROLLOUT_SOURCE_LAUNCHES
+    global FUSED_ROLLOUT_SOURCE_LAUNCHES, FUSED_ROLLOUT_MATERIAL_LAUNCHES
+    global FUSED_ROLLOUT_NONLINEAR_LAUNCHES, FUSED_ROLLOUT_SOLVER_LAUNCHES
+    global FUSED_ROLLOUT_BC_LAUNCHES, FUSED_ROLLOUT_COMPACT_LAUNCHES
     FUSED_ROLLOUT_LAUNCHES += 1
+    if any(bits & _K1_FLAG_BITS[k] for k in _K1_MAT_FLAGS):
+        FUSED_ROLLOUT_MATERIAL_LAUNCHES += 1
+    if any(bits & _K1_FLAG_BITS[k] for k in ("nonlinear", "mdl_data", "plasticity")):
+        FUSED_ROLLOUT_NONLINEAR_LAUNCHES += 1
+    if any(bits & _K1_FLAG_BITS[k] for k in ("max_vel", "equilibrium")):
+        FUSED_ROLLOUT_SOLVER_LAUNCHES += 1
+    if bits & _K1_FLAG_BITS["bc"]:
+        FUSED_ROLLOUT_BC_LAUNCHES += 1
+    if compact:
+        FUSED_ROLLOUT_COMPACT_LAUNCHES += 1
     if any(flags.get(k) for k in _K1_FEATURE_FLAGS) or scalars.get("sources"):
         FUSED_ROLLOUT_FEATURE_LAUNCHES += 1
     if scalars.get("sources"):
@@ -1297,13 +1524,16 @@ _B4_TAPE_CHANNELS = _TSAVG + 1
 # `_diff_envelope_ok`); the rest of `check_envelope` applies as well
 _DIFF_REFUSED = ("volume", "equilibrium", "plasticity", "needle", "falling",
                  "ndbv", "window", "ballistic", "collision", "mdl_data", "bc",
-                 "fluid", "fluid_mesh") + _K1_DEVO_FLAGS
+                 "fluid", "fluid_mesh") + _K1_DEVO_FLAGS + (
+                     "nonlinear", "max_vel", "collision_compact")
 
 
 def diff_envelope_ok(flags, scalars) -> bool:
     """True when the reverse-mode segment kernel covers the launch: the MPC
-    control envelope, without collision, volume effects, plasticity,
-    sources, fitness features, a fluid environment, devo or BC regions."""
+    control envelope, without collision, volume effects, sources, fitness
+    features, a fluid environment, devo, or the material instance's options
+    (nonlinear materials, plasticity, the max-velocity clamp, equilibrium
+    mode, BC regions)."""
     f, sc = dict(flags), dict(scalars)
     return (not any(f.get(k) for k in _DIFF_REFUSED)
             and len(sc.get("sources", ())) == 0)
@@ -1422,13 +1652,29 @@ def fused_bwd_call(state_packed, body_packed, stats, control_packed, seg_base,
 def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
                   env: EnvParams, num_steps: int, dt, stop_time=None,
                   prec: Precision = DEFAULT_PRECISION, stats=None,
-                  control_sequence=None):
+                  control_sequence=None, stop_condition_type=None):
     """Advance a batched SimState by `num_steps` through `fused_call` for one
     shared design; `control_sequence` is the optional (B, K, X, Y, Z) MPC
     knot channel. A state that carries a DevoState runs ballistic
-    development under the environment's speed windows. Returns (new_state,
-    FastRolloutStats), with the sources' distances when the environment
-    has sources."""
+    development under the environment's speed windows; the body's MDL_DATA
+    tables and BC regions ride along, equilibrium mode takes its damping
+    override and its kinetic-energy ring from `state.ke_history`. With
+    `EVOSORO_TPU_COLL_COMPACT=1` in the environment the contact pass runs
+    surface-compacted (as the JAX package's switch, but whenever the surface
+    has fewer voxels than the grid: S < V, where the JAX package compares
+    counts padded to 128 lanes). The stop condition is max sim time (through
+    `stop_time`): the other types run on the eager rollout only
+    (`core.rollout`). Returns (new_state, FastRolloutStats), with the
+    sources' distances when the environment has sources."""
+    import os
+
+    from evosoro_tpu_torch.core.step import has_bc
+    from evosoro_tpu_torch.core.types import SC_MAX_SIM_TIME
+
+    if stop_condition_type not in (None, SC_MAX_SIM_TIME):
+        raise NotImplementedError(
+            f"fused rollout: stop condition type {stop_condition_type} runs on the "
+            "eager rollout only (core.rollout.rollout)")
     if not supports(body, sim, env):
         raise NotImplementedError(
             "configuration outside the fused rollout's envelope "
@@ -1437,15 +1683,22 @@ def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
     B = state.scale.shape[0]
     state_packed = pack_state(state)
     body_packed = pack_body(body)
-    collision_packed = None
+    dev = state_packed.device
+    collision_packed, compact = None, False
     if sim.self_collisions_enabled and body.collision is not None:
-        collision_packed = torch.as_tensor(
-            pack_collision(body.collision, (X, Y, Z)),
-            device=state_packed.device)[None]
+        n_surf = int(np.asarray(body.collision.surf_mask).sum())
+        compact = os.environ.get("EVOSORO_TPU_COLL_COMPACT") == "1" and n_surf < X * Y * Z
+        pack = pack_collision_compact if compact else pack_collision
+        collision_packed = torch.as_tensor(pack(body.collision, (X, Y, Z)), device=dev)[None]
+    ss_packed = pack_ss_tables(body).to(dev) if body.ss_strain_vox is not None else None
+    bc_packed = pack_bc_tables(body).to(dev) if has_bc(body) else None
     if stats is None:
         stats = make_stats(body, B, dt, sim, env, stop_time)
+    if sim.equilibrium_mode and state.ke_history is not None:
+        stats = stats.clone()
+        stats[:, _S_KE:_S_KE + 6] = state.ke_history.to(stats.dtype)
     flags = launch_flags(body, sim, env, collision=collision_packed is not None,
-                         ballistic=_ballistic(state, env))
+                         collision_compact=compact, ballistic=_ballistic(state, env))
     n_knots, control_packed = 0, None
     if control_sequence is not None:
         n_knots = control_sequence.shape[1]
@@ -1455,10 +1708,13 @@ def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
         state_packed, body_packed, stats, collision_packed,
         control_packed=control_packed, num_steps=num_steps,
         grid_shape=(X, Y, Z), scalars=kernel_scalars(body.nominal_size, sim, env),
-        flags=flags, n_knots=n_knots, prec=prec)
+        flags=flags, n_knots=n_knots, prec=prec, ss_packed=ss_packed, bc_packed=bc_packed)
     outs = stats_to_outputs(out_stats)
     new_state = unpack_state(out_state, state, (X, Y, Z)).replace(
         time=outs.time.to(state.time.dtype), diverged=outs.diverged)
+    if sim.equilibrium_mode:
+        new_state = new_state.replace(
+            ke_history=out_stats[:, _S_KE:_S_KE + 6].to(state.ke_history.dtype))
     n_src = len(kernel_scalars(body.nominal_size, sim, env)["sources"])
     if n_src:
         cnt = out_stats[:, _S_SRC + 6:_S_SRC + 7]
@@ -1522,13 +1778,18 @@ class FusedBatchRunner:
                 pack_collision(body.collision, self.grid_shape),
                 device=self.state_packed.device)[None]
         self.stats = make_stats(body, batch, dt, sim, env, stop_time)
+        from evosoro_tpu_torch.core.step import has_bc
+
+        dev = self.state_packed.device
         self.call_kwargs = dict(
             num_steps=num_steps, grid_shape=self.grid_shape,
             scalars=kernel_scalars(body.nominal_size, sim, env),
             flags=launch_flags(body, sim, env,
                                collision=self.collision_packed is not None,
                                ballistic=_ballistic(state, env)),
-            n_knots=num_knots, prec=prec)
+            n_knots=num_knots, prec=prec,
+            ss_packed=pack_ss_tables(body).to(dev) if body.ss_strain_vox is not None else None,
+            bc_packed=pack_bc_tables(body).to(dev) if has_bc(body) else None)
 
     def run(self, controls):
         """controls (B, K, X, Y, Z) -> `packed_metrics` of every candidate."""

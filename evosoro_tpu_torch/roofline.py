@@ -7,7 +7,8 @@ rate. Beside it, the least time the card could take for a launch of each
 kernel (`bound`): the larger of its operations over the FP32 peak and its
 compulsory bytes over the memory rate, from counts of the work the launch's
 inputs need (`k1_work`, `b7_work`, `b8_work`, `b4_work`, `k2_work`,
-`fma_work`; `launch_work` picks K1's by the launch's flags).
+`b5_work`, `b6_work`, `fma_work`; `launch_work` picks K1's by the launch's
+flags).
 
 The step's operation count is static: 2187.028 per occupied voxel and step, the
 `flop_count` of ROOFLINE.json (a jaxpr walk of the JAX package's `sim_step`
@@ -42,6 +43,29 @@ touch counts (`_touch_counts`) 8, the end-of-life posterior Y (`_posterior_y`)
 launch's data needs it (`b8c_work`, `b8d_work`, `b8b_work`): a sample for
 every trace the robot took, the latch on every step past its InitCmTime, a
 capture once, the sources and the rebase on every step.
+
+The material instance (`b6_work`) is counted by the same walk of the JAX
+step on the same body with each option on, beyond the land step, per
+occupied voxel and step: the nonlinear stress with the stress-equalization
+loop 294 (a bilinear palette), plasticity 18, the max-velocity clamp 14 and
+1 a robot, equilibrium mode 5 a robot (the ring's test); the JAX step
+applies its BC arrays whether or not a region is set, so the land count
+holds them and BC regions add none. The MDL_DATA lookup is counted as the
+kernel does it, not as the walk (whose one-hot select over every point of
+the table adds 270 a point and voxel: the TPU's way to index): a curve
+evaluation at a voxel with an MDL_DATA material walks the table's P - 2
+inner points with a compare and an add each (`MDL_FLOPS_PER_POINT`) and
+interpolates (`MDL_FLOPS_PER_LOOKUP`: the segment's slope and value, the
+line past failure, the test and the select); a homogeneous bond evaluates
+its curve once, any other bond each side's four times (the first stress and
+the three equalization rounds), counted from the launch's bonds
+(`mdl_lookups`). The surface-compacted contact pass (`b5_work`) is the dense
+pass's field over the S surface voxels: a walk of
+`_pair_contact_forces_compact` on (S, S) beside one of `_pair_contact_forces`
+on an S-voxel grid gives the same count, the one-hot gather and scatter
+products aside (on this card an index load, no operation), and the kernel
+runs K2's loop body; so the bound charges `PAIR_FLOPS_TESTED` for every
+nonzero entry of the compact table, as `k1_work` does for the dense one.
 """
 
 from __future__ import annotations
@@ -73,6 +97,17 @@ EOL_POSTERIOR_FLOPS_PER_VOXEL = 4.0
 NEEDLE_FLOPS_PER_VOXEL = 5.004
 SOURCE_FLOPS_PER_VOXEL = 10.017  # one source, one step
 BALLISTIC_FLOPS_PER_VOXEL = 18.013  # one step
+# the material instance, per occupied voxel and step (module docstring)
+NONLINEAR_FLOPS_PER_VOXEL = 294.0
+# one MDL_DATA curve evaluation: each inner point of the table, and the rest
+MDL_FLOPS_PER_POINT = 2.0
+MDL_FLOPS_PER_LOOKUP = 13.0
+PLASTIC_FLOPS_PER_VOXEL = 18.0
+MAX_VEL_FLOPS_PER_VOXEL = 14.0
+MAX_VEL_FLOPS_PER_STEP = 1.0  # a robot
+EQUILIBRIUM_FLOPS_PER_STEP = 5.0  # a robot
+BC_CHANNELS = 15
+MATERIAL_BODY_CHANNELS = 4  # Young's modulus, model, plastic modulus, yield stress
 # pair_contact.cuh: operations for every nonzero table entry (difference,
 # distance, rsqrt, overlap test), and more for a pair that touches
 PAIR_FLOPS_TESTED = 14
@@ -276,13 +311,82 @@ def b8_work(state, body, stats, table, stats_out):
                    extra_body_channels=K1_DEVO_BODY_CHANNELS)
 
 
+def b5_work(table, stats, stats_out):
+    """(flops, bytes) of the surface-compacted contact pass in one K1
+    launch: `PAIR_FLOPS_TESTED` for every nonzero entry of each robot's
+    compact table (B or 1, S + 1, S) on every step the robot took (touching
+    pairs do a few more, not counted, as in `k1_work`); bytes, the table."""
+    steps = steps_taken(stats, stats_out)
+    nnz = (table[:, 1:] != 0).flatten(1).sum(1).to(steps.dtype)  # (B or 1,)
+    return float((nnz * steps).sum()) * PAIR_FLOPS_TESTED, 4.0 * table.numel()
+
+
+def mdl_lookups(body, grid_shape):
+    """(B or 1,) MDL_DATA curve evaluations a step of the bodies `body`
+    (B or 1, C_B, V) on `grid_shape`: for every bond, its first voxel's
+    once if the bond is homogeneous, else four times at each voxel of the
+    bond that has an MDL_DATA material (module docstring)."""
+    X, Y, Z = grid_shape
+    mdl = body[:, fr._B_MATMODEL, :] == 3.0  # MDL_DATA
+    count = torch.zeros(body.shape[0], dtype=torch.float64, device=body.device)
+    for d, stride in enumerate((Y * Z, Z, 1)):
+        ch = fr._B_DIR + d * fr._B_PER_DIR
+        bond = body[:, ch + fr._D_MASK, :] > 0.5
+        hom = body[:, ch + fr._D_HOM, :] > 0.5
+        # a bond's second voxel lies `stride` further; a bond never wraps
+        other = torch.roll(mdl, -stride, dims=1)
+        n = torch.where(hom, mdl.double(), 4.0 * (mdl.double() + other.double()))
+        count += (n * bond).sum(1)
+    return count
+
+
+def b6_work(body, stats, stats_out, flags, grid_shape, n_pts=0):
+    """(flops, bytes) the material instance's options add to one K1 launch
+    (module docstring): for every occupied voxel and step the nonlinear
+    stress, plasticity and the max-velocity clamp; the MDL_DATA tables' curve
+    evaluations (`mdl_lookups`, each walking `n_pts` points) every step; a
+    robot's share of the clamp and of equilibrium mode's ring every step; BC
+    regions add none (module docstring). Bytes: the material channels of
+    the body, the MDL_DATA tables and the BC channels read, the strain
+    offset's three state channels read and written."""
+    occupied, steps, _ = _feature_counts(body, stats, stats_out)
+    per_voxel, per_step = 0.0, 0.0
+    if flags.get("nonlinear"):
+        per_voxel += NONLINEAR_FLOPS_PER_VOXEL
+    if flags.get("mdl_data") and n_pts:
+        per_step = per_step + mdl_lookups(body, grid_shape).to(steps.dtype) * (
+            MDL_FLOPS_PER_LOOKUP + MDL_FLOPS_PER_POINT * (n_pts - 2))
+    if flags.get("plasticity"):
+        per_voxel += PLASTIC_FLOPS_PER_VOXEL
+    if flags.get("equilibrium"):
+        per_step += EQUILIBRIUM_FLOPS_PER_STEP
+    elif flags.get("max_vel"):  # the mode turns the clamp off
+        per_voxel += MAX_VEL_FLOPS_PER_VOXEL
+        per_step += MAX_VEL_FLOPS_PER_STEP
+    flops = float(((occupied * per_voxel + per_step) * steps).sum())
+    V, Bb, B = body.shape[-1], body.shape[0], stats.shape[0]
+    channels = MATERIAL_BODY_CHANNELS if flags.get("nonlinear") else 0
+    channels += (2 * n_pts + 3) if flags.get("mdl_data") else 0
+    channels += BC_CHANNELS if flags.get("bc") else 0
+    nbytes = 4.0 * Bb * channels * V
+    if flags.get("plasticity"):
+        nbytes += 4.0 * 2 * 3 * B * V
+    return flops, nbytes
+
+
 def launch_work(state, body, stats, table, stats_out, controls=None, *,
-                flags, grid_shape, scalars=None):
+                flags, grid_shape, scalars=None, n_pts=0):
     """(flops, bytes) of one K1 launch, counted for the variant of the step
     its flags select: `b7_work` in a fluid, `b8_work` with development
-    fields, else `k1_work`; and the fitness features' work on top
-    (`b8b_work`, `b8c_work`, `b8d_work` with the sources of `scalars`)."""
-    if flags.get("fluid"):
+    fields, else `k1_work` (with the compact contact pass `b5_work` in
+    place of the dense one); and the fitness features' and the material
+    instance's work on top (`b8b_work`, `b8c_work`, `b8d_work` with the
+    sources of `scalars`; `b6_work` with `n_pts` MDL_DATA points)."""
+    if flags.get("collision_compact"):
+        work = k1_work(state, body, stats, None, stats_out, controls)
+        b5 = b5_work(table, stats, stats_out)
+        work = (work[0] + b5[0], work[1] + b5[1])
+    elif flags.get("fluid"):
         work = b7_work(state, body, stats, table, stats_out, grid_shape,
                        mesh=bool(flags.get("fluid_mesh")))
     elif any(flags.get(k) for k in fr._K1_DEVO_FLAGS):
@@ -297,6 +401,8 @@ def launch_work(state, body, stats, table, stats_out, controls=None, *,
     n_src = len((scalars or {}).get("sources", ()))
     if n_src:
         parts.append(b8d_work(body, stats, stats_out, n_src))
+    if any(flags.get(k) for k in fr._K1_MAT_FLAGS if k != "collision_compact"):
+        parts.append(b6_work(body, stats, stats_out, flags, grid_shape, n_pts))
     return sum(p[0] for p in parts), sum(p[1] for p in parts)
 
 

@@ -4,7 +4,8 @@
 // after the other. tests/test_torch_b4_host.py and test_torch_k1_host.py
 // build this with g++ and hold it against the plain PyTorch versions, so the
 // hand-written adjoint and the step's fluid and development variants are
-// checked where there is no card.
+// checked where there is no card; and K1's material instance
+// (test_torch_materials.py).
 #define EVOSORO_HOST_EMULATION
 #include <vector>
 
@@ -55,6 +56,46 @@ extern "C" void emu_fwd(float* state, const float* body, int body_batched, float
         default: RUN(V_LAND);
     }
 #undef RUN
+}
+// K1's material instance (the land variant, with the features when a
+// feature bit or a source is on), without the pair pass: ss, the MDL_DATA
+// tables (B or 1, 2P + 3, V) or null; bc, the BC channels (B or 1, 15, V)
+// or null; mparams, the clamp's largest displacement a step
+extern "C" void emu_fwd_mat(float* state, const float* body, int body_batched, float* stats,
+                            int B, int X, int Y, int Z, int num_steps, const float* params,
+                            int flags, const float* fparams, const float* ss, int ss_batched,
+                            int n_pts, const float* bc, int bc_batched, const float* mparams) {
+    Params p; memcpy(&p, params, sizeof(float) * N_PARAMS);
+    const FeatParams fp = feat_params_from(fparams);
+    const bool feat = (flags & F_FEAT) || fp.n_src > 0;
+    const int V = X * Y * Z;
+    std::vector<float> sh((size_t)(BF + 7) * V), scr((size_t)6 * V);
+    for (int b = 0; b < B; ++b) {
+        float* stat = stats + (size_t)b * C_STAT;
+        const float* bo = body + (body_batched ? (size_t)b * C_B * V : 0);
+        MatArgs ma = {bo, ss ? ss + (ss_batched ? (size_t)b * (2 * n_pts + 3) * V : 0) : nullptr,
+                      bc ? bc + (bc_batched ? (size_t)b * 15 * V : 0) : nullptr, n_pts, 0,
+                      mparams[0]};
+        float ke[6];
+        for (int k = 0; k < 6; ++k) ke[k] = stat[ST_KE + k];
+        Robot r = load_robot(stat);
+        Feat fe = load_feat(stat);
+        float* st = state + (size_t)b * C_S * V;
+        if (feat)
+            rollout_steps<V_LAND, true, true>(st, 0, bo, nullptr, nullptr, 0, 1, 0, X, Y, Z,
+                                              num_steps, p, flags, r, nullptr, sh.data(),
+                                              scr.data(), &fe, &fp, &ma, ke);
+        else
+            rollout_steps<V_LAND, false, true>(st, 0, bo, nullptr, nullptr, 0, 1, 0, X, Y, Z,
+                                               num_steps, p, flags, r, nullptr, sh.data(),
+                                               scr.data(), nullptr, nullptr, &ma, ke);
+        if (feat) store_feat(stat, fe, fp, flags);
+        if (flags & F_EQUIL)
+            for (int k = 0; k < 6; ++k) stat[ST_KE + k] = ke[k];
+        stat[ST_TIME] = r.t; stat[ST_DIV] = r.div ? 1.f : 0.f;
+        stat[ST_INICM] = r.ini.x; stat[ST_INICM + 1] = r.ini.y; stat[ST_INICM + 2] = r.ini.z;
+        stat[ST_CAPT] = r.capt ? 1.f : 0.f;
+    }
 }
 extern "C" void emu_bwd(const float* state, const float* body, int body_batched,
                         const float* stats, const float* ctrl, int n_knots, int knot_steps,

@@ -223,15 +223,16 @@ def test_sim_step_refuses_features_outside_envelope():
 
     state = init_state(body)
     for sim, env in ((SimParams(volume_effects_enabled=True), EnvParams()),
-                     (SimParams(plasticity_enabled=True), EnvParams()),
-                     (SimParams(max_velocity_enabled=True), EnvParams()),
-                     (SimParams(equilibrium_mode=True), EnvParams()),
                      (SimParams(), EnvParams(floor_limited=True))):
         with pytest.raises(NotImplementedError):
             sim_step(state, body, sim, env, 1e-5)
-    # a fluid environment and development fields are inside the envelope
+    # a fluid environment, development fields, plasticity, the max-velocity
+    # clamp and equilibrium mode are inside the envelope
     fluid = sim_step(state, body, SimParams(), EnvParams(fluid_environment=True), 1e-5)
     assert bool(torch.isfinite(fluid.pos).all())
+    for sim in (SimParams(plasticity_enabled=True), SimParams(max_velocity_enabled=True),
+                SimParams(equilibrium_mode=True)):
+        assert bool(torch.isfinite(sim_step(state, body, sim, EnvParams(), 1e-5).pos).all())
 
 
 def test_import_leaves_jax_out():
@@ -241,10 +242,26 @@ def test_import_leaves_jax_out():
             "evosoro_tpu_torch.control.sqp, evosoro_tpu_torch.ops.fused_diff, "
             "evosoro_tpu_torch.roofline, evosoro_tpu_torch.device, "
             "evosoro_tpu_torch.envs, evosoro_tpu_torch.envs.drag, "
-            "evosoro_tpu_torch.envs.sources; "
+            "evosoro_tpu_torch.envs.sources, evosoro_tpu_torch.envs.regions, "
+            "evosoro_tpu_torch.io, evosoro_tpu_torch.io.vxa; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'evosoro_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_vxa_build_body_needs_the_card_unless_cpu_is_asked():
+    """`VXADocument.build_body()` with no device goes through
+    `device.resolve_device`, as the other entry points: the card, and
+    without one it raises."""
+    from evosoro_tpu_torch.io.vxa import load_vxa
+
+    path = next((REPO / "basic_data" / "bestSoFar" / "fitOnly").glob("*.vxa"))
+    doc = load_vxa(str(path))
+    assert doc.build_body(device="cpu").occ.device.type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        doc.build_body()

@@ -275,8 +275,9 @@ def test_evaluator_batch_packs_each_design_in_its_row():
                       make_material_tree)
     sim = Sim(dt_frac=0.9, simulation_time=0.01)
     fn, inputs = evaluation.evaluator_batch(sim, Env(), list(pop), device="cpu")
-    state, body, stats, table = fn.pack(*inputs)
+    state, body, stats, table, ss = fn.pack(*inputs)
     structures = inputs[0]
+    assert ss is None  # the default palette has no MDL_DATA tables
     assert state.shape == (8, fr.C_S, 64) and body.shape == (8, fr.C_B, 64)
     assert stats.shape == (8, fr.C_STAT) and table.shape == (8, 64, 64)
     assert fn.launch_kw["flags"]["collision"] and fn.launch_kw["num_steps"] == 256

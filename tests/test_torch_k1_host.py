@@ -18,12 +18,15 @@ also shows what the check can see: the other drag model, a zero drag
 coefficient and cleared development flags land far outside it.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 from test_torch_b4_host import GROUPS, host_forward, host_lib  # noqa: F401
 
 from evosoro_tpu_torch import bench
+from evosoro_tpu_torch.core import types as pt
 from evosoro_tpu_torch.ops import fused_rollout as fr
 
 torch.set_num_threads(1)
@@ -265,3 +268,114 @@ def test_host_compiled_features_in_water_match_plain(host_lib):  # noqa: F811
     for ch in (fr._S_NTR, fr._S_WCNT, fr._S_NCAP, fr._S_SRC + 6):
         assert torch.equal(st_h[:, ch], st_p[:, ch]), ch
     assert float(st_p[:, fr._S_NTR].max()) >= 3
+
+
+# K1's material instance (the land variant with Voxelyze's material, solver
+# and boundary options), built by g++ as above and held against the plain
+# version; the state at the group tolerance with the rotational groups at
+# 2e-3 (the two libms), and plasticity's strain offset, state channels
+# 53-55, at the group tolerance
+_SOFF_GROUP = (fr._SOFF, fr._SOFF + 3)
+
+
+def _host_mat(lib, args, kw, steps):
+    lib.emu_fwd_mat.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    state, body, stats, _ = args
+    B, X, Y, Z = state.shape[0], *kw["grid_shape"]
+    flags = kw["flags"]
+    scalars = fr.equilibrium_scalars(kw["scalars"]) if flags.get("equilibrium") \
+        else kw["scalars"]
+    params = fr._k1_params(scalars, fr.DEFAULT_PRECISION)
+    fparams = fr._feat_params(kw["scalars"], flags)
+    mparams = fr._mat_params(kw["scalars"])
+    ss, bc = kw.get("ss_packed"), kw.get("bc_packed")
+    st, sa = state.clone(), stats.clone()
+    lib.emu_fwd_mat(st.data_ptr(), body.data_ptr(), int(body.shape[0] == B and B > 1),
+                    sa.data_ptr(), B, X, Y, Z, steps, params.ctypes.data,
+                    fr._flag_bits(flags), fparams.ctypes.data,
+                    ss.data_ptr() if ss is not None else None,
+                    int(ss is not None and ss.shape[0] == B and B > 1),
+                    (ss.shape[1] - 3) // 2 if ss is not None else 0,
+                    bc.data_ptr() if bc is not None else None,
+                    int(bc is not None and bc.shape[0] == B and B > 1), mparams.ctypes.data)
+    return st, sa
+
+
+def _mat_worst(out_h, out_p):
+    rotational = ("quat", "angmom", "last_angle1", "last_angle2")
+    worst = _worst(out_h, out_p, skip=rotational)
+    for name in rotational:
+        a, b = GROUPS[name]
+        top = float(out_p[:, a:b].abs().max())
+        worst = max(worst, float((out_h[:, a:b] - out_p[:, a:b]).abs().max()) / top / 20
+                    if top > 0 else 0.0)
+    a, b = _SOFF_GROUP
+    top = float(out_p[:, a:b].abs().max())
+    if top > 0:
+        worst = max(worst, float((out_h[:, a:b] - out_p[:, a:b]).abs().max()) / top)
+    return worst
+
+
+def _equilibrium_moving(B=3, n=4, seed=2):
+    """The bench design (n^3) in equilibrium mode, free of floor and
+    gravity, starting with random momenta: its energy falls and the mode's
+    zeroing fires within the first steps."""
+    args, kw, _ = bench.packed_workload(B, n=n, device="cpu", equilibrium=True)
+    state, body, stats, table = args
+    state = state.clone()
+    rng = np.random.default_rng(seed)
+    occ = body[0, fr._B_OCC] > 0.5
+    lin = torch.as_tensor(rng.normal(0, 1e-3, size=(B, 3, n ** 3)), dtype=torch.float32)
+    state[:, fr._LIN:fr._LIN + 3] = torch.where(occ, lin, 0.0)
+    flags = dict(kw["flags"], gravity=False, floor=False, temp=False, temp_enabled=False)
+    return (state, body, stats, table), dict(kw, flags=flags)
+
+
+@pytest.mark.parametrize("case", ["materials", "equilibrium", "cantilever", "features"])
+def test_host_compiled_material_instance_matches_plain(host_lib, case, tmp_path):  # noqa: F811
+    """The materials experiment's own batch (bilinear muscle, MDL_DATA tissue,
+    a body and MDL_DATA table per robot) with plasticity and the max-velocity
+    clamp, contact off (the emulation has no pair pass); the same with every
+    fitness feature (the material instance's feature instance); equilibrium
+    mode on a moving body, held where the ring decides; the hand-written
+    cantilever read with `load_vxa`, whose pinned face stays at its nominal
+    place bit for bit. A guard each: the branch's bit cleared (or the
+    cantilever's BC channels dropped) lands far outside the tolerance."""
+    steps = 40
+    if case in ("materials", "features"):
+        args, kw = bench.materials_workload(pop_size=3, collision=False, device="cpu")
+        if case == "features":
+            kw = bench.with_features(kw, args[2], n_win=4, n_src=1, freeze=False)
+        guard = dict(kw, flags=dict(kw["flags"], nonlinear=False, mdl_data=False),
+                     ss_packed=None)
+    elif case == "equilibrium":
+        args, kw = _equilibrium_moving()
+        guard = dict(kw, flags=dict(kw["flags"], equilibrium=False))
+    else:
+        args, kw, body = bench.cantilever_workload(str(tmp_path / "cantilever.vxa"),
+                                                   batch=2, n=4, device="cpu")
+        guard = dict(kw, flags=dict(kw["flags"], bc=False), bc_packed=None)
+    out_h, st_h = _host_mat(host_lib, args, kw, steps)
+    out_p, st_p = fr.fused_call(*args, num_steps=steps, **kw)
+    assert _mat_worst(out_h, out_p) <= REL_TOL
+    torch.testing.assert_close(st_h[:, :fr._S_STOP], st_p[:, :fr._S_STOP], rtol=1e-6, atol=1e-9)
+    out_g, _ = _host_mat(host_lib, args, guard, steps)
+    assert _mat_worst(out_g, out_p) > 100 * REL_TOL
+    if case == "materials":
+        assert float(out_p[:, fr._SOFF:fr._SOFF + 3].abs().max()) > 0  # plastic
+    if case == "features":
+        assert torch.equal(st_h[:, fr._S_NTR], st_p[:, fr._S_NTR])
+        assert float(st_p[:, fr._S_NTR].max()) >= 1
+    if case == "equilibrium":
+        ke = slice(fr._S_KE, fr._S_KE + 6)
+        torch.testing.assert_close(st_h[:, ke], st_p[:, ke], rtol=1e-3, atol=0.0)
+    if case == "cantilever":
+        occ = body.occ.flatten()
+        pinned = ((body.dof_fixed == pt.DOF_ALL).flatten()) & occ
+        nom = body.nom_pos.reshape(-1, 3).T + body.external_disp.reshape(-1, 3).T
+        for out in (out_h, out_p):
+            assert torch.equal(out[:, fr._POS:fr._POS + 3][:, :, pinned],
+                               nom[:, pinned].expand(2, -1, -1))

@@ -340,3 +340,95 @@ def test_feature_instance_matches_plain_on_the_card():
     torch.testing.assert_close(out_k[:, dd], out_p[:, dd], rtol=1e-6, atol=0.0)
     assert float((out_p[:, dd] - args[0][:, dd]).abs().max()) > 0
     assert torch.equal(st_k[:, fr._S_WCNT], st_p[:, fr._S_WCNT])
+
+
+@pytest.mark.cuda
+def test_material_instance_matches_plain_on_the_card(tmp_path):
+    """K1's material instance against its plain version at the JAX package's
+    tolerances for these branches (tests/test_fused_rollout.py:381-682):
+    the materials experiment's batch (bilinear muscle, MDL_DATA tissue,
+    plasticity, the max-velocity clamp, contact on), 100 steps; equilibrium
+    mode on a moving 6^3 bench design, 60 steps (the zeroing fires);
+    the hand-written cantilever, whose pinned face stays put bit for bit;
+    the compact contact pass from a lattice shrunk into contact, one step,
+    by K2's rule. A guard each: the branch's bit cleared fails."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; the CUDA kernels have no CPU mode")
+    from evosoro_tpu_torch import bench
+
+    pos, lin = slice(fr._POS, fr._POS + 3), slice(fr._LIN, fr._LIN + 3)
+    soff, ke = slice(fr._SOFF, fr._SOFF + 3), slice(fr._S_KE, fr._S_KE + 6)
+
+    def close(a, b, rtol, atol):
+        return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+    def run(args, kw, steps, **flags):
+        gkw = dict(kw, flags=dict(kw["flags"], **flags))
+        if flags.get("mdl_data") is False:
+            gkw["ss_packed"] = None
+        if flags.get("bc") is False:
+            gkw["bc_packed"] = None
+        if flags.get("collision") is False:
+            args = args[:3] + (None,)
+        return fr.fused_call(*args, num_steps=steps, **gkw)
+
+    def plain(args, kw, steps):
+        before = fr.FUSED_ROLLOUT_MATERIAL_LAUNCHES
+        out_k, st_k = fr.fused_call(*args, num_steps=steps, **kw)
+        torch.cuda.synchronize()
+        assert fr.FUSED_ROLLOUT_MATERIAL_LAUNCHES == before + 1
+        return out_k, st_k, *fr.fused_rollout_plain(*args, num_steps=steps, **kw)
+
+    args, kw = bench.materials_workload(device="cuda")
+    out_k, _, out_p, _ = plain(args, kw, 100)
+    assert close(out_k[:, pos], out_p[:, pos], 5e-5, 1e-8)
+    assert close(out_k[:, soff], out_p[:, soff], 1e-4, 1e-7)
+    assert float(out_p[:, soff].abs().max()) > 0
+    for flags in (dict(nonlinear=False, mdl_data=False), dict(max_vel=False)):
+        assert not close(run(args, kw, 100, **flags)[0][:, pos], out_p[:, pos], 5e-5, 1e-8)
+    assert not close(run(args, kw, 100, plasticity=False)[0][:, soff], out_p[:, soff],
+                     1e-4, 1e-7)
+
+    # a moving body free of floor and gravity: its energy falls and the
+    # mode zeroes it within the launch
+    args, kw, _ = bench.packed_workload(2, n=6, device="cuda", equilibrium=True)
+    state = args[0].clone()
+    g = torch.Generator().manual_seed(2)
+    occ = args[1][0, fr._B_OCC] > 0.5
+    state[:, lin] = torch.where(occ, 1e-3 * torch.randn((2, 3, 216), generator=g).cuda(), 0.0)
+    args = (state,) + args[1:]
+    kw = dict(kw, flags=dict(kw["flags"], gravity=False, floor=False, temp=False,
+                             temp_enabled=False))
+    out_k, st_k, out_p, st_p = plain(args, kw, 60)
+    assert close(out_k[:, pos], out_p[:, pos], 2e-5, 1e-8)
+    assert close(out_k[:, lin], out_p[:, lin], 1e-3, 1e-10)
+    assert close(st_k[:, ke], st_p[:, ke], 1e-3, 0.0)
+    off = dict(kw, scalars=fr.equilibrium_scalars(kw["scalars"]))
+    assert not close(run(args, off, 60, equilibrium=False)[0][:, lin], out_p[:, lin],
+                     1e-3, 1e-10)
+
+    args, kw, body = bench.cantilever_workload(str(tmp_path / "cantilever.vxa"), batch=2,
+                                               device="cuda")
+    out_k, _, out_p, _ = plain(args, kw, 100)
+    assert close(out_k[:, pos], out_p[:, pos], 2e-5, 1e-9)
+    assert close(out_k[:, lin], out_p[:, lin], 1e-3, 1e-10)
+    pinned = ((body.dof_fixed == 63) & body.occ).flatten()
+    nom = (body.nom_pos + body.external_disp).reshape(-1, 3).T
+    assert torch.equal(out_k[:, pos][:, :, pinned], nom[:, pinned].expand(2, -1, -1))
+    assert not close(run(args, kw, 100, bc=False)[0][:, pos], out_p[:, pos], 2e-5, 1e-9)
+
+    args, kw, _ = bench.packed_workload(4, collision=True, compact=True, device="cuda")
+    state = args[0].clone()
+    nom = state[:, pos]
+    centre = nom.mean(-1, keepdim=True)
+    g = torch.Generator().manual_seed(0)
+    state[:, pos] = centre + 0.5 * (nom - centre) + 5e-4 * torch.randn(
+        nom.shape, generator=g).cuda()
+    args = (state,) + args[1:]
+    before = fr.FUSED_ROLLOUT_COMPACT_LAUNCHES
+    out_k, _, out_p, _ = plain(args, kw, 1)
+    assert fr.FUSED_ROLLOUT_COMPACT_LAUNCHES == before + 1
+    top = float(out_p[:, lin].abs().max())
+    assert float((out_k[:, lin] - out_p[:, lin]).abs().max()) <= 1e-4 * top
+    no_contact = run(args, kw, 1, collision=False, collision_compact=False)[0]
+    assert float((no_contact[:, lin] - out_p[:, lin]).abs().max()) > 1e-2 * top

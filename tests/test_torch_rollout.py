@@ -191,8 +191,8 @@ def test_rollout_refuses_what_is_not_ported(what):
     body = _port(jb)
     sim, env, kw = SimParams(), EnvParams(), {}
     err = NotImplementedError
-    if what == "stop_condition":
-        kw = dict(stop_condition_type=1)
+    if what == "stop_condition":  # the SC_* enum ends at 8
+        kw, err = dict(stop_condition_type=9), ValueError
     elif what == "volume":
         sim = SimParams(volume_effects_enabled=True)
     else:

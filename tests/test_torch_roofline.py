@@ -449,3 +449,113 @@ def test_feature_work_follows_the_launch():
     np.testing.assert_allclose(
         both[0] - base[0], flops + roofline.b8b_work(body, stats, out)[0]
         + roofline.b8d_work(body, stats, out, 1)[0])
+
+
+def test_material_and_compact_operation_counts_are_jaxpr_walks():
+    """Where the material instance's and the compact contact pass's counts
+    come from: `tools/roofline.py`'s jaxpr walk of the JAX package's
+    `sim_step` on the 10^3 bench body with each option on, beyond the land
+    step (bilinear stress with plasticity; the clamp with BC regions, which
+    the land count already holds; equilibrium mode); and the compact
+    contact pass's walk, the one-hot products aside, equal to the dense
+    pass's on a grid of the surface's size, whose pairs K2's counts charge
+    (14 tested, 8 more touching, and 3 a voxel for the sums' signs)."""
+    import jax
+    import jax.numpy as jnp
+
+    import evosoro_tpu.core.types as jt
+    from evosoro_tpu.core.materials import build_body, calc_max_dt, palette_from_list
+    from evosoro_tpu.core.rollout import init_state
+    from evosoro_tpu.core.step import sim_step
+    from evosoro_tpu.ops.fused_rollout import _pair_contact_forces, _pair_contact_forces_compact
+    from tools.roofline import _count_jaxpr
+
+    n = 10
+    rng = np.random.default_rng(0)
+    structure = rng.integers(1, 5, size=(n, n, n)).astype(np.int32)
+    phase = rng.uniform(-1, 1, size=(n, n, n))
+
+    def walk(jaxpr):
+        counts = {"ew": 0, "trans": 0, "red": 0, "dot": 0}
+        _count_jaxpr(jaxpr.jaxpr, counts)
+        return counts
+
+    def per_voxel(mats=None, sim=None, **kw):
+        body = build_body(structure, palette_from_list(mats or jt.evosoro_default_palette()),
+                          phase_offset=phase, **kw)
+        sim = sim or jt.SimParams()
+        dt = float(calc_max_dt(body)) * 0.9
+        c = walk(jax.make_jaxpr(lambda s: sim_step(s, body, sim, jt.EnvParams(), dt))(
+            init_state(body)))
+        return sum(c.values()) / n ** 3 - roofline.STEP_FLOPS_PER_VOXEL
+
+    mats = list(jt.evosoro_default_palette())
+    mats[2] = jt.Material(3, "m", 5e6, cte=0.01, mat_model=jt.MDL_BILINEAR,
+                          yield_stress=1e5, plastic_mod=1e6)
+
+    np.testing.assert_allclose(per_voxel(), 0.0, atol=1e-9)
+    np.testing.assert_allclose(per_voxel(mats, jt.SimParams(plasticity_enabled=True)),
+                               roofline.NONLINEAR_FLOPS_PER_VOXEL
+                               + roofline.PLASTIC_FLOPS_PER_VOXEL, rtol=1e-9)
+    dof = np.zeros((n, n, n), np.int32)
+    dof[0] = jt.DOF_ALL
+    np.testing.assert_allclose(
+        per_voxel(sim=jt.SimParams(max_velocity_enabled=True), dof_fixed=dof),
+        roofline.MAX_VEL_FLOPS_PER_VOXEL + roofline.MAX_VEL_FLOPS_PER_STEP / n ** 3,
+        rtol=1e-9)
+    np.testing.assert_allclose(per_voxel(sim=jt.SimParams(equilibrium_mode=True)),
+                               roofline.EQUILIBRIUM_FLOPS_PER_STEP / n ** 3, rtol=1e-9)
+
+    Vp, Sp = 256, 128
+    c = walk(jax.make_jaxpr(lambda p0, p1, p2, s, pk: _pair_contact_forces_compact(
+        (p0, p1, p2), s, pk, Vp, jnp.float32))(
+        *(jnp.zeros((1, Vp)) for _ in range(4)), jnp.zeros((Vp + Sp, Sp))))
+    d = walk(jax.make_jaxpr(lambda p0, p1, p2, s, a: _pair_contact_forces(
+        (p0, p1, p2), s, a, jnp.float32))(
+        *(jnp.zeros((1, Sp)) for _ in range(4)), jnp.zeros((Sp, Sp))))
+    compact = c["ew"] + c["trans"] + c["red"]
+    assert compact == d["ew"] + d["trans"] + d["red"] and d["dot"] == 0
+    assert compact == ((roofline.PAIR_FLOPS_TESTED + roofline.PAIR_FLOPS_TOUCHING) * Sp * Sp
+                       + 3 * Sp)
+
+
+def test_material_and_compact_work_follow_the_launch():
+    B, V = 2, 8
+    state = torch.zeros(B, fr.C_S, V)
+    body = torch.zeros(1, fr.C_B, V)
+    body[0, fr._B_OCC, :6] = 1.0
+    stats = torch.zeros(B, fr.C_STAT)
+    stats[:, fr._S_DT] = 0.5
+    out = stats.clone()
+    out[:, fr._S_TIME] = torch.tensor([5.0, 2.0])  # 10 and 4 steps
+    args = (state, body, stats, None, out)
+    base = roofline.k1_work(*args)
+    # on the 2^3 grid (strides 4, 2, 1): voxels 0 and 4 MDL_DATA, voxel 1
+    # linear; bond 0-4 homogeneous (one curve evaluation), bond 0-1 not
+    # (four at voxel 0, none at the linear voxel 1), bond 2-3 between two
+    # linear voxels (none)
+    body[0, fr._B_MATMODEL, [0, 4]] = 3.0
+    for v, d, hom in ((0, 0, 1.0), (0, 2, 0.0), (2, 2, 0.0)):
+        body[0, fr._B_DIR + d * fr._B_PER_DIR + fr._D_MASK, v] = 1.0
+        body[0, fr._B_DIR + d * fr._B_PER_DIR + fr._D_HOM, v] = hom
+    assert roofline.mdl_lookups(body, (2, 2, 2)).tolist() == [5.0]
+    flags = dict(nonlinear=True, mdl_data=True, plasticity=True, max_vel=True, bc=True)
+    flops, nbytes = roofline.launch_work(*args, flags=flags, grid_shape=(2, 2, 2), n_pts=5)
+    per = (roofline.NONLINEAR_FLOPS_PER_VOXEL + roofline.PLASTIC_FLOPS_PER_VOXEL
+           + roofline.MAX_VEL_FLOPS_PER_VOXEL)
+    lookups = 5 * (roofline.MDL_FLOPS_PER_LOOKUP + 3 * roofline.MDL_FLOPS_PER_POINT)
+    np.testing.assert_allclose(flops - base[0],
+                               14 * (6 * per + lookups + roofline.MAX_VEL_FLOPS_PER_STEP))
+    assert nbytes - base[1] == 4.0 * ((4 + 13 + 15) * V + 2 * 3 * B * V)
+    # equilibrium mode turns the clamp off
+    eq, _ = roofline.b6_work(body, stats, out, dict(equilibrium=True, max_vel=True), (2, 2, 2))
+    assert eq == 14 * roofline.EQUILIBRIUM_FLOPS_PER_STEP
+    # the compact pass in place of the dense one: its nonzero entries and surface
+    table = torch.zeros(1, 4, 3)
+    table[0, 0] = torch.tensor([0.0, 2.0, 5.0])
+    table[0, 1, 1] = table[0, 2, 0] = 1.0
+    flops, nbytes = roofline.launch_work(state, body, stats, table, out,
+                                         flags=dict(collision=True, collision_compact=True),
+                                         grid_shape=(2, 2, 2))
+    np.testing.assert_allclose(flops - base[0], 14 * 2 * roofline.PAIR_FLOPS_TESTED)
+    assert nbytes - base[1] == 4.0 * 12
