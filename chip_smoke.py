@@ -40,6 +40,13 @@ boundary options and the surface-compacted contact pass alone: the replay
 path of the four fixture .vxa files and the cantilever (`phase_replay`),
 the comparisons and guards of `phase_k1_materials` with the costs of B5 and
 B6 on 1024 x 10^3, and two generations of the materials experiment.
+
+`python3 chip_smoke.py --volume` runs volume effects alone
+(`phase_k1_volume`): K1's volume instance against its plain version with
+its three guards, the volume replay of an archived design and of the
+cantilever, two generations of the volume experiment, a cold CEM solve
+with volume effects and the volume throughput in turns with the land and
+material instances.
 """
 
 from __future__ import annotations
@@ -83,6 +90,14 @@ FMA_RTOL = 2.0 ** -21
 FMA_EQUAL_SHARE = 0.999
 # a reading above the published FP32 rate by more than this is a wrong count
 PEAK_SLACK = 1.05
+# volume effects against their plain version: the tolerances of
+# tests/test_fused_rollout.py:284-327 (the JAX kernel against its jnp step):
+# positions, scales, the coupling carry's side means (transverse sums,
+# cross-sections), and the dt and time of the stats row
+VOL_TOL = dict(pos=(2e-4, 2e-8), scale=(1e-5, 0.0), time=(1e-6, 0.0))
+VOL_TS = (2e-3, 1e-6)
+VOL_CS = (1e-4, 0.0)
+VOL_DT_RTOL = 1e-6
 # B4 against autograd through the plain version: every channel group's
 # largest error over that group's largest plain value. The two sum the same
 # float32 terms in different orders over 25 steps; tests/test_fused_diff.py
@@ -147,8 +162,12 @@ def phase_build():
     assert ffma["fma_peak"] >= 16, ffma
 
 
-def _event_ms(torch, fn, reps):
-    fn()
+def _event_ms(torch, fn, reps, warm=True):
+    """Milliseconds a call of `fn` takes on the card, over `reps` calls after
+    one warm-up call; a plain version, which has nothing to warm, is timed
+    without it (`warm=False`)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -259,7 +278,10 @@ def _k1_cases(torch, fr, label, args, kw, batch, coll, steps_list, time_at=None,
         out_k, st_k = fr.fused_call(*args, num_steps=steps, **kw)
         torch.cuda.synchronize()
         assert fr.FUSED_ROLLOUT_LAUNCHES == before + 1
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
         out_p, st_p = fr.fused_rollout_plain(*args, num_steps=steps, **kw)
+        b.record()
         torch.cuda.synchronize()
         ok, errs = _compare(torch, fr, out_k, st_k, out_p, st_p, tol, need_small)
         rec = dict(phase=phase, workload=label, batch=batch, steps=steps,
@@ -274,8 +296,7 @@ def _k1_cases(torch, fr, label, args, kw, batch, coll, steps_list, time_at=None,
         if steps == time_at:
             rec["ms"] = _event_ms(
                 torch, lambda: fr.fused_call(*args, num_steps=steps, **kw), 5)
-            rec["plain_ms"] = _event_ms(
-                torch, lambda: fr.fused_rollout_plain(*args, num_steps=steps, **kw), 1)
+            rec["plain_ms"] = a.elapsed_time(b)  # the comparison's own call
             rec.update(roofline.bound(*roofline.launch_work(
                 *args, st_k, kw.get("control_packed"), flags=kw["flags"],
                 grid_shape=kw["grid_shape"])))
@@ -688,7 +709,7 @@ def phase_k1_features(torch):
         rec = dict(phase="k1_feature_branch_time", branch=name, batch=a[0].shape[0],
                    steps=25, ms=_event_ms(torch, lambda: fr.fused_call(*a, num_steps=25, **k), 5),
                    plain_ms=_event_ms(torch, lambda: fr.fused_rollout_plain(
-                       *a, num_steps=25, **k), 1))
+                       *a, num_steps=25, **k), 1, warm=False))
         _, st25 = fr.fused_call(*a, num_steps=25, **k)
         rec.update(roofline.bound(*roofline.launch_work(
             *a, st25, flags=k["flags"], grid_shape=k["grid_shape"], scalars=k["scalars"])))
@@ -782,7 +803,7 @@ def _mat_case(torch, fr, label, args, kw, steps, tol, guards, extra_check=None,
         rec["timed_steps"] = n
         rec["ms"] = _event_ms(torch, lambda: fr.fused_call(*args, num_steps=n, **kw), 5)
         rec["plain_ms"] = _event_ms(
-            torch, lambda: fr.fused_rollout_plain(*args, num_steps=n, **kw), 1)
+            torch, lambda: fr.fused_rollout_plain(*args, num_steps=n, **kw), 1, warm=False)
         _, st_n = fr.fused_call(*args, num_steps=n, **kw)
         ss = kw.get("ss_packed")
         rec.update(roofline.bound(*roofline.launch_work(
@@ -839,7 +860,8 @@ def phase_k1_materials(torch, np, replays):
     (bilinear muscle, MDL_DATA tissue, 16 x 6^3, a body, table and dt per
     robot, contact on) with plasticity and the max-velocity clamp, 25 and
     100 steps, and with every fitness feature; (b) equilibrium mode on the
-    bench design, 8 x 10^3 x 500 steps, in which the zeroing fires; (c) the
+    bench design, 8 x 10^3, held over steps 400-500, in which the zeroing
+    fires (at step 478); (c) the
     hand-written 10^3 cantilever read with `load_vxa`, whose pinned face
     stays at its nominal place bit for bit; (d) the four fixture .vxa files
     as `phase_replay` replayed them whole, dense and compact (`replays`, its
@@ -899,11 +921,16 @@ def phase_k1_materials(torch, np, replays):
         rec["energy_j"] = float(energy(out_k).max())
         return bool((d <= KE_RTOL * st_p[:, ke].abs()).all())
 
-    # without the mode the same launch keeps its energy: the zeroing fired
+    # without the mode the same launch keeps its energy: the zeroing fired.
+    # The design falls from rest, and its energy first falls at step 478
+    # (the plain version on the CPU): the kernel alone takes it to step 400,
+    # and the comparison runs the 100 steps after, over the zeroing
     off_b = dict(kw, flags=dict(kw["flags"], equilibrium=False),
                  scalars=fr.equilibrium_scalars(kw["scalars"]))
-    rec = _mat_case(torch, fr, "bench 8 x 10^3, equilibrium mode", args, kw, 500,
-                    MAT_TOL["equilibrium"], [("equilibrium", off_b)], ke_check, time_steps=25)
+    st400, ss400 = fr.fused_call(*args, num_steps=400, **kw)
+    rec = _mat_case(torch, fr, "bench 8 x 10^3, equilibrium mode, steps 400-500",
+                    (st400, args[1], ss400, args[3]), kw, 100, MAT_TOL["equilibrium"],
+                    [("equilibrium", off_b)], ke_check, time_steps=25)
     out_free, _ = fr.fused_call(*args, num_steps=500, **off_b)
     free = float(energy(out_free).min())
     emit(dict(phase="equilibrium_zeroing", energy_with_mode_j=rec["energy_j"],
@@ -1002,6 +1029,281 @@ def phase_k1_materials(torch, np, replays):
     return recs
 
 
+def _vol_check(torch, fr, out_k, st_k, out_p, st_p, tol=VOL_TOL):
+    """(ok, errs): `_compare` at `tol`, the coupling carry's side means
+    (state channels 47-52) and the stats row's dt."""
+    ok, errs = _compare(torch, fr, out_k, st_k, out_p, st_p, tol, need_small=False)
+    for name, lo, (rtol, atol) in (("ts", fr._TSAVG, VOL_TS), ("cs", fr._CSAVG, VOL_CS)):
+        k, p = out_k[:, lo:lo + 3], out_p[:, lo:lo + 3]
+        d = (k - p).abs()
+        errs[name] = float(d.max())
+        errs[name + "_ok"] = bool((d <= atol + rtol * p.abs()).all())
+        ok &= errs[name + "_ok"]
+    ddt = (st_k[:, fr._S_DT] - st_p[:, fr._S_DT]).abs()
+    errs["dt"] = float(ddt.max())
+    errs["dt_ok"] = bool((ddt <= VOL_DT_RTOL * st_p[:, fr._S_DT].abs()).all())
+    errs["time_ok"] = bool(((st_k[:, fr._S_TIME] - st_p[:, fr._S_TIME]).abs()
+                            <= tol["time"][0] * st_p[:, fr._S_TIME].abs()).all())
+    errs["pos_ok"] = bool(((out_k[:, :3] - out_p[:, :3]).abs()
+                           <= tol["pos"][1] + tol["pos"][0] * out_p[:, :3].abs()).all())
+    ok &= errs["dt_ok"]
+    errs["carry_bit_equal"] = bool(torch.equal(out_k[:, fr._TSAVG:fr._SOFF],
+                                               out_p[:, fr._TSAVG:fr._SOFF]))
+    errs["stats_bit_equal"] = bool(torch.equal(st_k, st_p))
+    return ok, errs
+
+
+def _vol_case(torch, fr, label, args, kw, steps, guards=(), extra_check=None,
+              time_steps=None, **info):
+    """K1's volume instance against its plain version on one input. Each
+    guard (name, check, patch) is a plain version with a defect (a function
+    of core/step.py replaced) that the kernel's output must fail on the
+    named check (`_vol_check`'s "ts_ok"/"cs_ok", "dt_ok"/"time_ok" or
+    "pos_ok"); with `time_steps` the kernel and its plain version are timed
+    at that many steps beside the bound. Returns the record."""
+    from unittest import mock
+
+    from evosoro_tpu_torch import roofline
+    from evosoro_tpu_torch.core import step as step_mod
+
+    before = fr.FUSED_ROLLOUT_VOLUME_LAUNCHES
+    out_k, st_k = fr.fused_call(*args, num_steps=steps, **kw)
+    torch.cuda.synchronize()
+    assert fr.FUSED_ROLLOUT_VOLUME_LAUNCHES == before + 1
+    out_p, st_p = fr.fused_rollout_plain(*args, num_steps=steps, **kw)
+    torch.cuda.synchronize()
+    ok, errs = _vol_check(torch, fr, out_k, st_k, out_p, st_p)
+    rec = dict(phase="k1_volume_vs_plain", workload=label, batch=args[0].shape[0],
+               steps=steps, tol=dict(VOL_TOL, ts=VOL_TS, cs=VOL_CS, dt=VOL_DT_RTOL),
+               **info, **errs)
+    for name, checks, (fn_name, fn) in guards:
+        with mock.patch.object(step_mod, fn_name, fn):
+            out_g, st_g = fr.fused_rollout_plain(*args, num_steps=steps, **kw)
+        _, g_errs = _vol_check(torch, fr, out_k, st_k, out_g, st_g)
+        caught = not all(g_errs[c] for c in checks)
+        rec[f"guard_{name}"] = {c: g_errs[c] for c in checks}
+        rec[f"guard_{name}_caught"] = caught
+        ok &= caught
+    if extra_check is not None:
+        ok &= extra_check(rec, out_k, st_k, out_p, st_p)
+    rec["sha256"] = _digest("k1_volume/%s/steps=%d" % (label, steps), out_k, st_k)
+    if time_steps:
+        n = time_steps
+        rec["timed_steps"] = n
+        rec["ms"] = _event_ms(torch, lambda: fr.fused_call(*args, num_steps=n, **kw), 5)
+        rec["plain_ms"] = _event_ms(
+            torch, lambda: fr.fused_rollout_plain(*args, num_steps=n, **kw), 1, warm=False)
+        _, st_n = fr.fused_call(*args, num_steps=n, **kw)
+        rec.update(roofline.bound(*roofline.launch_work(
+            *args, st_n, kw.get("control_packed"), flags=kw["flags"],
+            grid_shape=kw["grid_shape"], scalars=kw["scalars"], num_steps=n)))
+    rec["ok"] = ok
+    emit(rec)
+    assert ok, rec
+    return rec
+
+
+def _vol_guards(torch):
+    """The three defects the checks must see, as replacements of the plain
+    version's functions: the coupling carry held at (0, L²), the dt kept
+    at the carried one, the thermal term dropped."""
+    def fixed_carry(bonds, body):
+        z = torch.stack([b["strain"] for b in bonds], dim=-4)
+        ts = torch.stack([torch.zeros_like(z)] * 2, dim=-5)
+        return ts, torch.full_like(ts, body.nominal_size * body.nominal_size)
+
+    return [("carry_fixed", ("ts_ok", "cs_ok"), ("_volume_effects_coupling", fixed_carry)),
+            ("constant_dt", ("dt_ok", "time_ok"),
+             ("_volume_dt", lambda state, body, sim, bonds, L, dt: dt)),
+            ("thermal_dropped", ("pos_ok",),
+             ("_thermal_stress", lambda d, state, body, env: 0.0))]
+
+
+def phase_k1_volume(torch, np, replays=None):
+    """Volume effects (B6d): K1's volume instance against its plain version
+    on (a) the JAX package's volume parity design, 8 x 4^3 from rest with
+    actuation from time 0, 1/25/100 steps, and with 4 control knots; the
+    three guards on 25 steps from a quarter of the temperature period; (b) the evaluator's batch of the volume
+    experiment (16 x 6^3, a body, pair table and dt per robot, contact on),
+    25 and 100 steps, timed at 25; (c) the same with every fitness feature
+    (the volume instance's feature instance) and each robot's stop time on
+    its own step, 100 steps; (d) the 10^3 cantilever with volume effects
+    read with `load_vxa`, 100 steps, its pinned face exact; (e) the bench
+    10^3 design with thermal actuation, 8 x 25 steps, and with 8 knots.
+    Each checks the coupling carry, the stats dt and the time. Then, each
+    with the counts set to 0 just before and read just after: the volume replay of an archived design and of the cantilever
+    (with the fitness of the design's replay without volume effects beside
+    it: `replays`, `phase_replay`'s records, or a replay made here); two
+    generations of the volume experiment; a cold CEM solve with volume
+    effects (6 x 128 x 200 steps on the 10^3 bench design, 8 knots), then
+    (f) robots 0-7 of its first launch against the plain version, 25 steps;
+    and
+    the throughput of 1024 x 10^3 x 200 steps in turns with the land and
+    material instances. Returns the records by name."""
+    import math
+    import tempfile
+
+    from evosoro_tpu_torch import bench, roofline
+    from evosoro_tpu_torch.control import CEMConfig, cem_optimize_fused
+    from evosoro_tpu_torch.core import EnvParams, SimParams
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    recs = {}
+    # (a)
+    args, kw = bench.volume_scenario_workload(8, device="cuda")
+    recs["a"] = [_vol_case(torch, fr, "volume design 8 x 4^3", args, kw, steps)
+                 for steps in (1, 25, 100)]
+    # the guards, from the clock at a quarter of the temperature period, where
+    # the thermal term is at its crest (from rest it starts at sin 0)
+    stats = args[2].clone()
+    stats[:, fr._S_TIME] = 0.25 * stats[:, fr._S_TPER]
+    recs["a_guards"] = _vol_case(torch, fr, "volume design 8 x 4^3 from a quarter period",
+                                 (args[0], args[1], stats, None), kw, 25, _vol_guards(torch))
+    u = _controls(torch, np, 8, 4, args[0].shape[-1], seed=7)
+    recs["a_knots"] = _vol_case(torch, fr, "volume design 8 x 4^3, 4 knots", args,
+                                dict(kw, control_packed=u, n_knots=4), 25, knots=4)
+    # (b), (c)
+    args, kw = bench.volume_workload(device="cuda")
+    recs["b"] = [_vol_case(torch, fr, "volume evaluator batch 6^3, contact on", args, kw,
+                           steps, time_steps=25 if steps == 25 else None)
+                 for steps in (25, 100)]
+    args, fkw = bench.volume_workload(device="cuda", features=True)
+    recs["c"] = _vol_case(torch, fr, "volume evaluator batch 6^3, contact on, features",
+                          args, fkw, 100)
+    # (d)
+    with tempfile.TemporaryDirectory() as tmp:
+        args, kw, body = bench.cantilever_workload(os.path.join(tmp, "cantilever.vxa"),
+                                                   batch=2, device="cuda", volume=True)
+    assert kw["flags"]["volume"] and kw["flags"]["bc"]
+    pinned = ((body.dof_fixed == 63) & body.occ).flatten()
+    nom = (body.nom_pos + body.external_disp).reshape(-1, 3).T
+
+    def pinned_check(rec, out_k, st_k, out_p, st_p):
+        rec["pinned_exact"] = all(torch.equal(o[:, :3][:, :, pinned],
+                                              nom[:, pinned].expand(2, -1, -1))
+                                  for o in (out_k, out_p))
+        return rec["pinned_exact"]
+
+    recs["d"] = _vol_case(torch, fr, "cantilever 10^3 with volume effects (load_vxa)", args,
+                          kw, 100, extra_check=pinned_check)
+    # (e) the bench 10^3 design with volume effects and thermal actuation, as
+    # the throughput's launch runs it (a thread owns several voxels) and with
+    # 8 control knots over 25 steps (a knot every 3 steps)
+    args, kw, _ = bench.packed_workload(8, device="cuda", volume=True)
+    recs["e"] = _vol_case(torch, fr, "bench 8 x 10^3 with volume effects", args, kw, 25)
+    u = _controls(torch, np, 8, 8, args[0].shape[-1], seed=11)
+    recs["e_knots"] = _vol_case(torch, fr, "bench 8 x 10^3 with volume effects, 8 knots",
+                                args, dict(kw, control_packed=u, n_knots=8), 25, knots=8)
+
+    def count(names):
+        return {k: getattr(fr, n) for k, n in names.items()}
+
+    counters = dict(fused_rollout="FUSED_ROLLOUT_LAUNCHES",
+                    volume="FUSED_ROLLOUT_VOLUME_LAUNCHES",
+                    knots="FUSED_ROLLOUT_KNOT_LAUNCHES",
+                    contact="FUSED_ROLLOUT_CONTACT_LAUNCHES",
+                    bc="FUSED_ROLLOUT_BC_LAUNCHES")
+
+    # the volume replay, beside the replay without volume effects
+    for name in counters.values():
+        setattr(fr, name, 0)
+    vol_recs = bench.volume_replay_workload(device="cuda")
+    recs["replay_launches"] = count(counters)
+    fixture = os.path.basename(bench.fixture_paths()[0])
+    plain_fit = next((r["fitness"] for r in replays or () if r["file"] == fixture
+                      and not r["compact"]), None)
+    if plain_fit is None:
+        r0 = bench.replay(bench.fixture_paths()[0], device="cuda")
+        plain_fit = r0["fitness"]
+    for r in vol_recs:
+        r.pop("final_state")
+        r.update(phase="volume_replay", fitness_without_volume=plain_fit
+                 if r["file"] == "fixture_volume.vxa" else None, fixture=fixture)
+        r["ok"] = (r["volume"] and math.isfinite(r["fitness"]) and not r["diverged"]
+                   and r["final_t"] >= 0.999 * r["stop_time"])
+        emit(r)
+        assert r["ok"], r
+    recs["replay"] = vol_recs
+    emit(dict(phase="volume_replay_launches", **recs["replay_launches"]))
+    # a replay short of its stop time is made again, 1.5 times as long
+    assert recs["replay_launches"]["volume"] == recs["replay_launches"]["fused_rollout"] \
+        == sum(r["launches"] for r in vol_recs) >= 2, recs["replay_launches"]
+
+    # two generations of the volume experiment
+    recs["evolution"] = phase_evolution(torch, ("volume",))["volume"]
+
+    # a cold CEM solve with volume effects
+    body, _, env, _ = bench.mpc_workload(device="cuda")
+    sim = SimParams(init_cm_time=0.0, volume_effects_enabled=True)
+    for name in counters.values():
+        setattr(fr, name, 0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    first = []  # the solve's first launch, kept to hold a slice of it below
+    real_call = fr.fused_call
+
+    def keep_first(*a, **k):
+        if not first:
+            first.append(([t.clone() if t is not None else None for t in a], dict(k)))
+        return real_call(*a, **k)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fr.fused_call = keep_first
+    try:
+        _, info = cem_optimize_fused(gen, body, sim, EnvParams(), num_steps=200, num_knots=8,
+                                     config=CEMConfig(num_iters=6, pop_size=128),
+                                     device="cuda")
+    finally:
+        fr.fused_call = real_call
+    secs = time.perf_counter() - t0
+    launches = count(counters)
+    trace = [float(c) for c in info["best_cost_trace"]]
+    rec = dict(phase="volume_mpc", what="cold cem_optimize_fused solve, volume effects",
+               pop_size=128, num_iters=6, steps=200, num_knots=8, seconds=secs,
+               best_cost=float(info["best_cost"]), best_cost_trace=trace, **launches)
+    rec["ok"] = (launches["volume"] == launches["knots"] == launches["fused_rollout"] == 6
+                 and all(math.isfinite(c) for c in trace) and rec["best_cost"] < 1e9)
+    emit(rec)
+    assert rec["ok"], rec
+    recs["mpc_launches"] = launches
+    # (f) the solve's own first launch (128 x 10^3, 8 knots over 200 steps),
+    # robots 0-7, its first 25 steps
+    a, k = first[0]
+    n = a[0].shape[0]
+    sl = tuple(t[:8].contiguous() if t is not None and t.shape[0] == n else t for t in a)
+    k = {key: (v[:8].contiguous() if torch.is_tensor(v) and v.shape[0] == n else v)
+         for key, v in k.items() if key != "num_steps"}
+    assert k["n_knots"] == 8 and k["flags"]["volume"], k["flags"]
+    recs["f"] = _vol_case(torch, fr, "cold CEM solve's first launch, robots 0-7 of %d" % n,
+                          sl, k, 25, knots=8)
+
+    # the volume throughput, in turns with the land and material instances
+    runs = dict(land=[], materials=[], volume=[])
+    for kind in ("land", "materials", "volume", "volume", "materials", "land"):
+        runs[kind].append(bench.throughput(batch=1024, steps=200, groups=2, reps=3,
+                                           materials=kind == "materials",
+                                           volume=kind == "volume"))
+    best = {k: min(v, key=lambda r: r["ms"]) for k, v in runs.items()}
+    vol = best["volume"]
+    args, kw, _ = bench.packed_workload(1024, device="cuda", volume=True)
+    _, st_out = fr.fused_call(*args, num_steps=200, **kw)
+    b6d = roofline.bound(*roofline.b6d_work(
+        args[0], args[1], roofline.volume_clock(args[2], st_out, 200), st_out, kw["flags"]))
+    rec = dict(phase="volume_cost", **{f"{k}_ms": [r["ms"] for r in v] for k, v in runs.items()},
+               volume_bound_ms=vol["bound_ms"], volume_bound_by=vol["bound_by"],
+               volume_share_of_bound=vol["bound_ms"] / vol["ms"],
+               volume_voxel_steps_per_s=vol["voxel_steps_per_s"],
+               b6d_added_ms=vol["ms"] - best["land"]["ms"],
+               b6d_bound_ms=b6d["bound_ms"], b6d_bound_by=b6d["bound_by"],
+               b6d_share_of_bound=(b6d["bound_ms"] / (vol["ms"] - best["land"]["ms"])
+                                   if vol["ms"] > best["land"]["ms"] else None),
+               volume_over_land=vol["ms"] / best["land"]["ms"],
+               volume_over_materials=vol["ms"] / best["materials"]["ms"])
+    emit(rec)
+    recs["cost"] = rec
+    return recs
+
+
 def phase_replay(torch):
     """The replay path as a user drives it: `load_vxa` -> `fused_rollout`
     -> `locomotion_fitness`, the four fixtures (dense and with the compact
@@ -1054,11 +1356,13 @@ def _knot_workloads(collisions=(False, True)):
         yield "evaluator batch 6^3, a body per robot", args, kw, coll
 
 
-def phase_k1_knots(torch, np):
+def phase_k1_knots(torch, np, steps_list=(1, 25, 100)):
     """K1's control-knot channel against the plain version: K in {1, 4},
-    1/25/100 steps, contact off and on, on both workloads. Then the guard in
-    the data: with only robot 1's knots non-zero every other robot must come
-    out of the launch as it does with no knots at all, bit for bit."""
+    at `steps_list` (the full run takes 1 and 25 steps: at 25 the 4 knots
+    change every 6 steps; `--land` keeps 100 too), contact off and on, on
+    both workloads. Then the guard in the data: with only robot 1's knots
+    non-zero every other robot must come out of the launch as it does with
+    no knots at all, bit for bit."""
     from evosoro_tpu_torch.ops import fused_rollout as fr
 
     recs = []
@@ -1068,7 +1372,7 @@ def phase_k1_knots(torch, np):
             u = _controls(torch, np, B, K, V, seed=K)
             recs += _k1_cases(torch, fr, label, args,
                               dict(kw, control_packed=u, n_knots=K), B, coll,
-                              (1, 25, 100), phase="k1_knots_vs_plain", knots=K)
+                              steps_list, phase="k1_knots_vs_plain", knots=K)
         u = _controls(torch, np, B, 4, V, seed=9)
         u[torch.arange(B, device="cuda") != 1] = 0.0
         one, one_st = fr.fused_call(*args, num_steps=25, control_packed=u,
@@ -1342,7 +1646,7 @@ def _b4_case(torch, np, fr, label, state, body, stats, ctrl, seg_base, kw, seed,
         rec["ms"] = _event_ms(torch, lambda: fr.fused_bwd_call(
             state, body, stats, ctrl, seg_base, cot, **kw), 5)
         rec["plain_ms"] = _event_ms(torch, lambda: fr.fused_bwd_plain(
-            state, body, stats, ctrl, seg_base, cot, **kw), 1)
+            state, body, stats, ctrl, seg_base, cot, **kw), 1, warm=False)
         rec["k1_ms"] = _event_ms(torch, lambda: fr.fused_call(
             state, body, stats, None, control_packed=ctrl, seg_base=seg_base, **kw), 5)
         _, st_end = fr.fused_call(state, body, stats, None, control_packed=ctrl,
@@ -1480,9 +1784,11 @@ def phase_evolution(torch, experiments=("basic", "swimming", "growth", "features
                                          "ballistic", "materials")):
     """Two generations each of the basic, swimming and growth experiments and
     of their feature twins (basic with NormDistByVol, the fall-over latch,
-    speed windows and a source; growth with ballistic development), uncut,
-    population 15, through `evaluate_all` on the card. Returns the launch
-    counts by experiment."""
+    speed windows and a source; growth with ballistic development), of the
+    materials experiment and of the volume experiment (basic with volume
+    effects; each generation records whether a launch was made again for a
+    robot short of its stop time), uncut, population 15, through
+    `evaluate_all` on the card. Returns the launch counts by experiment."""
     import math
 
     from evosoro_tpu_torch.bench import evolution
@@ -1499,6 +1805,7 @@ def phase_evolution(torch, experiments=("basic", "swimming", "growth", "features
                     fused_rollout_ballistic="FUSED_ROLLOUT_BALLISTIC_LAUNCHES",
                     fused_rollout_material="FUSED_ROLLOUT_MATERIAL_LAUNCHES",
                     fused_rollout_nonlinear="FUSED_ROLLOUT_NONLINEAR_LAUNCHES",
+                    fused_rollout_volume="FUSED_ROLLOUT_VOLUME_LAUNCHES",
                     pair_contact="PAIR_CONTACT_LAUNCHES")
     all_launches = {}
     for experiment in experiments:
@@ -1526,9 +1833,12 @@ def phase_evolution(torch, experiments=("basic", "swimming", "growth", "features
                 assert r["k1_feature_launches"] == r["k1_launches"], r
             if experiment == "ballistic":
                 assert r["k1_ballistic_launches"] == r["k1_launches"], r
-            # every launch of the custom palette took the material instance
+            # every launch of the custom palette took the material instance,
+            # every launch of the volume experiment the volume instance
             if experiment == "materials":
                 assert r["k1_material_launches"] == r["k1_launches"], r
+            if experiment == "volume":
+                assert r["k1_volume_launches"] == r["k1_launches"], r
         # K2's routine runs inside K1's launches; its own kernel is not on the path
         assert launches["fused_rollout"] > 0, launches
         assert launches["fused_rollout_with_contact"] > 0, launches
@@ -1542,9 +1852,11 @@ def phase_evolution(torch, experiments=("basic", "swimming", "growth", "features
         features = experiment in ("features", "ballistic")
         assert (launches["fused_rollout_features"] == launches["fused_rollout"]) == features
         assert (launches["fused_rollout_ballistic"] > 0) == (experiment == "ballistic")
-        materials = experiment == "materials"
+        materials = experiment in ("materials", "volume")
         assert (launches["fused_rollout_material"] == launches["fused_rollout"]) == materials
-        assert (launches["fused_rollout_nonlinear"] > 0) == materials
+        assert (launches["fused_rollout_nonlinear"] > 0) == (experiment == "materials")
+        assert (launches["fused_rollout_volume"] == launches["fused_rollout"]) \
+            == (experiment == "volume")
         emit(dict(phase="evolution_launches", experiment=experiment, **launches))
         all_launches[experiment] = launches
     return all_launches
@@ -1568,13 +1880,41 @@ def phase_throughput(torch, card):
     return recs
 
 
+def _material_digests(torch):
+    """The digests of K1's material instance without volume effects, kernel
+    only: the materials evaluator batch with plasticity and the clamp (100
+    steps, and with the features), the cantilever read with `load_vxa` (200
+    steps) and the bench design in equilibrium mode (8 x 10^3, 100 steps).
+    Uses only names the port has had since the material instance came."""
+    import tempfile
+
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    args, kw = bench.materials_workload(device="cuda")
+    cases = [("materials evaluator batch", args, kw, 100),
+             ("materials evaluator batch, features", args,
+              bench.with_features(kw, args[2], n_win=4, n_src=1), 100)]
+    with tempfile.TemporaryDirectory() as tmp:
+        a, k, _ = bench.cantilever_workload(os.path.join(tmp, "cantilever.vxa"), batch=2,
+                                            device="cuda")
+    cases.append(("cantilever 10^3", a, k, 200))
+    a, k, _ = bench.packed_workload(8, device="cuda", equilibrium=True)
+    cases.append(("bench 8 x 10^3, equilibrium mode", a, k, 100))
+    for label, a, k, steps in cases:
+        out, st = fr.fused_call(*a, num_steps=steps, **k)
+        _digest("k1_material_instance/%s/steps=%d" % (label, steps), out, st)
+
+
 def phase_land(torch, np, card):
     """The land path alone, for holding two commits against each other on one
     card: K1 (as packed and staggered, with knots, in segments) and B4
     against their plain versions as in the full run, the digest of every
     kernel output, and the times of K1 on 1024 x 10^3 x 200 steps (best of 4
     groups of 3) and of the SQP solver's K1 segment and B4 launch (8 x 10^3 x
-    25 steps, 8 knots; mean of 5). Ends with one JSON object of all of it."""
+    25 steps, 8 knots; mean of 5); then the material instance without volume
+    effects: the digests of `_material_digests` and its time on 1024 x 10^3
+    x 200 steps. Ends with one JSON object of all of it."""
     from evosoro_tpu_torch.bench import throughput
 
     phase_k1(torch, timed=False)
@@ -1582,8 +1922,15 @@ def phase_land(torch, np, card):
     phase_k1_segmented(torch, np)
     b4_timed = next(r for r in phase_b4(torch, np) if "ms" in r)
     k1_ms = [throughput(batch=1024, steps=200, groups=4, reps=3)["ms"] for _ in range(2)]
-    emit(dict(land=dict(card=card, digests=DIGESTS, k1_1024x10_3x200_ms=k1_ms,
-                        k1_segment_ms=b4_timed["k1_ms"], b4_segment_ms=b4_timed["ms"])))
+    land = dict(DIGESTS)
+    DIGESTS.clear()
+    _material_digests(torch)
+    mat_ms = [throughput(batch=1024, steps=200, materials=True, groups=4, reps=3)["ms"]
+              for _ in range(2)]
+    emit(dict(land=dict(card=card, digests=land, k1_1024x10_3x200_ms=k1_ms,
+                        k1_segment_ms=b4_timed["k1_ms"], b4_segment_ms=b4_timed["ms"],
+                        material_digests=DIGESTS,
+                        materials_1024x10_3x200_ms=mat_ms)))
 
 
 def main():
@@ -1598,10 +1945,12 @@ def main():
     phase_build()
     if sys.argv[1:] == ["--land"]:
         return phase_land(torch, np, card)
-    if sys.argv[1:] in (["--features"], ["--materials"]):
+    if sys.argv[1:] in (["--features"], ["--materials"], ["--volume"]):
         if sys.argv[1:] == ["--features"]:
             phase_k1_features(torch)
             phase_evolution(torch, ("features", "ballistic"))
+        elif sys.argv[1:] == ["--volume"]:
+            phase_k1_volume(torch, np)
         else:
             phase_k1_materials(torch, np, phase_replay(torch)[1])
             phase_evolution(torch, ("materials",))
@@ -1612,13 +1961,14 @@ def main():
         return None
     k2 = phase_k2(torch, np)
     k1 = phase_k1(torch)
-    knots = phase_k1_knots(torch, np)
+    knots = phase_k1_knots(torch, np, (1, 25))
     phase_k1_segmented(torch, np)
     fluid = phase_k1_fluid(torch)
     devo = phase_k1_devo(torch)
     feat_recs, feat_timed = phase_k1_features(torch)
     replay, replays = phase_replay(torch)
     mats = phase_k1_materials(torch, np, replays)
+    vol = phase_k1_volume(torch, np, replays)
     fma = phase_fp32_peak(torch)
     evo_launches = phase_evolution(torch)
     launches = evo_launches["basic"]
@@ -1631,6 +1981,8 @@ def main():
     sqp_launches = phase_sqp(torch, b4_timed)
     phase_throughput(torch, card)
     k1_timed = next(r for r in k1 if "ms" in r)
+    vol_cases = vol["a"] + [vol["a_guards"], vol["a_knots"]] + vol["b"] + [
+        vol[k] for k in ("c", "d", "e", "e_knots", "f")]
     fluid_timed = next(r for r in fluid["mesh"] if "ms" in r)
     devo_timed = next(r for r in devo if "ms" in r)
     knots += [knot_timed, *loop_recs]
@@ -1654,7 +2006,9 @@ def main():
              launches=launches["fused_rollout"] + swim["fused_rollout"]
              + grow["fused_rollout"] + featx["fused_rollout"] + balx["fused_rollout"]
              + matx["fused_rollout"] + replay["fused_rollout"]
-             + mpc_launches["fused_rollout"] + sqp_launches["fused_rollout"],
+             + mpc_launches["fused_rollout"] + sqp_launches["fused_rollout"]
+             + vol["replay_launches"]["fused_rollout"] + vol["evolution"]["fused_rollout"]
+             + vol["mpc_launches"]["fused_rollout"],
              launches_evolution=launches["fused_rollout"],
              launches_swimming=swim["fused_rollout"],
              launches_growth=grow["fused_rollout"],
@@ -1664,6 +2018,8 @@ def main():
              launches_replay=replay["fused_rollout"],
              launches_mpc=mpc_launches["fused_rollout"],
              launches_sqp=sqp_launches["fused_rollout"],
+             launches_volume=vol["replay_launches"]["fused_rollout"]
+             + vol["evolution"]["fused_rollout"] + vol["mpc_launches"]["fused_rollout"],
              **bound_keys(k1_timed),
              max_abs_err=max(r["pos"] for r in k1),
              err_of=("pos (m), evaluator batch %d x 6^3, 1/25/100 steps, "
@@ -1694,7 +2050,7 @@ def main():
              **bound_keys(knot_timed),
              max_abs_err=max(r["pos"] for r in knots),
              err_of=("pos (m), bench 8 x 10^3 and evaluator batch 16 x 6^3, "
-                     "K 1 and 4, 1/25/100 steps, contact off and on; the "
+                     "K 1 and 4, 1/25 steps, contact off and on; the "
                      "solve's launch, 128 x 10^3, 8 knots, 200 steps; and the "
                      "closed loop's plan (32 x 200 steps, 8 knots) and execute "
                      "(1 x 100 steps, 4 knots) launches after a segment"),
@@ -1822,7 +2178,8 @@ def main():
              **bound_keys(mats["b"]),
              max_abs_err=max(max(r["pos"] for r in mats["a"]), mats["b"]["pos"]),
              err_of=("pos (m) against the plain version: the materials batch with the "
-                     "clamp, 25/100 steps; bench 8 x 10^3 in equilibrium mode, 500 steps"),
+                     "clamp, 25/100 steps; bench 8 x 10^3 in equilibrium mode, steps "
+                     "400-500 (the zeroing fires at step 478)"),
              ms=mats["b"]["ms"], plain_ms=mats["b"]["plain_ms"],
              ms_of="bench 8 x 10^3, equilibrium mode, 25 steps"),
         dict(name="K1 BC regions (B6b)", route="cuda",
@@ -1850,6 +2207,36 @@ def main():
              ms=mats["a"][0]["ms"], plain_ms=mats["a"][0]["plain_ms"],
              ms_of="materials evaluator batch 16 x 6^3, 25 steps, contact on",
              added_ms_1024x10_3x200=mats["cost"]["b6_added_ms"]),
+        dict(name="K1 volume effects (B6d)", route="cuda",
+             source="evosoro_tpu_torch/ops/csrc/fused_rollout.cu",
+             replaces="evosoro_tpu/ops/fused_rollout.py:1178",
+             launches=vol["replay_launches"]["volume"] + vol["evolution"]["fused_rollout_volume"]
+             + vol["mpc_launches"]["volume"],
+             launches_replay=vol["replay_launches"]["volume"],
+             launches_evolution=vol["evolution"]["fused_rollout_volume"],
+             launches_mpc=vol["mpc_launches"]["volume"],
+             launches_of="the volume replay (an archived design and the cantilever), two "
+             "generations of the volume experiment, a cold CEM solve with volume effects",
+             **bound_keys(vol["b"][0]),
+             max_abs_err=max(r["pos"] for r in vol_cases),
+             max_ts_err=max(r["ts"] for r in vol_cases),
+             max_cs_err=max(r["cs"] for r in vol_cases),
+             max_dt_err=max(r["dt"] for r in vol_cases),
+             carry_bit_equal=all(r["carry_bit_equal"] for r in vol_cases),
+             err_of=("pos (m) against the plain version: the volume design 8 x 4^3, "
+                     "1/25/100 steps and with 4 knots; the volume evaluator batch 16 x "
+                     "6^3, contact on, 25/100 steps and with the features (each robot "
+                     "stopping on its own step); the cantilever 10^3 with volume effects, "
+                     "100 steps; the bench 8 x 10^3 with thermal actuation, 25 steps, and "
+                     "with 8 knots; the cold CEM solve's first launch (128 x 10^3, 8 "
+                     "knots), robots 0-7, 25 steps; beside it the coupling carry (state "
+                     "channels 47-52) and the stats dt"),
+             ms=vol["b"][0]["ms"], plain_ms=vol["b"][0]["plain_ms"],
+             ms_of="volume evaluator batch 16 x 6^3, 25 steps, contact on",
+             ms_1024x10_3x200=vol["cost"]["volume_ms"],
+             added_ms_1024x10_3x200=vol["cost"]["b6d_added_ms"],
+             bound_ms_1024x10_3x200=vol["cost"]["volume_bound_ms"],
+             share_of_bound_1024x10_3x200=vol["cost"]["volume_share_of_bound"]),
         dict(name="fma_peak (B9)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fma_peak.cu",
              replaces="tools/roofline.py:137",

@@ -32,7 +32,11 @@ Four workloads, all from the JAX package's own benchmarks and examples:
 - materials: basic's experiment on a custom palette (`Env(materials=...)`:
   bilinear muscle that yields at 2 % strain, MDL_DATA fat of 5 points), and
   the throughput workload on that palette with plasticity and the
-  max-velocity clamp on.
+  max-velocity clamp on;
+- volume: basic's experiment through a `Sim` whose `to_sim_params` turns on
+  Voxelyze's VolumeEffectsEnabled (`VolumeSim`), the throughput workload
+  with volume effects, and the replay of an archived design written back
+  with the flag set.
 
 Run:  python -m evosoro_tpu_torch.bench [--batch 1024] [--steps 200]
       [--gens 2] [--segments 4] [--experiments basic swimming growth materials]
@@ -42,6 +46,7 @@ Run:  python -m evosoro_tpu_torch.bench [--batch 1024] [--steps 200]
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import glob
 import json
 import os
@@ -64,7 +69,7 @@ from evosoro_tpu_torch.control.shooting import (
 from evosoro_tpu_torch.control.sqp import FusedSQPSolver, SQPConfig
 from evosoro_tpu_torch.core.collision import build_collision_system
 from evosoro_tpu_torch.core.materials import build_body, calc_max_dt, palette_from_list
-from evosoro_tpu_torch.core.rollout import init_state, num_steps_for
+from evosoro_tpu_torch.core.rollout import init_state, num_steps_for, relaunch_until_stop
 from evosoro_tpu_torch.core.types import (
     DOF_ALL,
     DOF_Y,
@@ -153,9 +158,13 @@ def growth_fields(shape, dt, seed=0):
 
 def packed_workload(batch, n=10, collision=False, device="cuda", fluid=None,
                     devo=False, freeze=False, materials=False, equilibrium=False,
-                    compact=False):
+                    compact=False, volume=False):
     """Packed (state, body, stats, pair table) of `batch` copies of the
     bench design at rest, plus the launch's keyword arguments.
+
+    `volume` turns on volume effects (the state carries the coupling carry,
+    the stats row the dt of `calc_max_dt(volume_effects=True)`), with the
+    thermal actuation of `EnvParams()` as the thermal stress's clock.
 
     `materials` puts the design on `materials_palette` with plasticity and
     the max-velocity clamp on (its MDL_DATA tables ride the keywords);
@@ -174,9 +183,10 @@ def packed_workload(batch, n=10, collision=False, device="cuda", fluid=None,
                                 else evosoro_default_palette())
     body = build_body(structure, palette, phase_offset=phase, device=device)
     sim = SimParams(self_collisions_enabled=collision, plasticity_enabled=materials,
-                    max_velocity_enabled=materials, equilibrium_mode=equilibrium)
+                    max_velocity_enabled=materials, equilibrium_mode=equilibrium,
+                    volume_effects_enabled=volume)
     env = EnvParams()
-    dt = calc_max_dt(body) * sim.dt_frac
+    dt = calc_max_dt(body, volume) * sim.dt_frac
     if fluid is not None:
         if fluid not in ("face", "mesh"):
             raise ValueError(f"fluid must be 'face', 'mesh' or None, got {fluid!r}")
@@ -201,7 +211,7 @@ def packed_workload(batch, n=10, collision=False, device="cuda", fluid=None,
         body = build_body(structure, palette, phase_offset=phase, device=device,
                           **growth_fields((n, n, n), step))
     grid = tuple(body.occ.shape)
-    state = fr.pack_state_single(init_state(body))
+    state = fr.pack_state_single(init_state(body, volume_effects=volume))
     state = state[None].expand(batch, -1, -1).contiguous()
     body_packed = fr.pack_body(body)
     stats = fr.make_stats(body, batch, dt, sim, env)
@@ -217,6 +227,27 @@ def packed_workload(batch, n=10, collision=False, device="cuda", fluid=None,
     if materials:
         kw["ss_packed"] = fr.pack_ss_tables(body).to(device)
     return (state, body_packed, stats, table), kw, int(body.occ.sum())
+
+
+def volume_scenario_workload(batch=8, n=4, seed=0, device="cuda"):
+    """The volume-effects design of the JAX package's on-chip parity run
+    (tools/onchip_parity.py `_scenario_volume`): an n³ block of materials
+    1..4 with random phase offsets (`bench_design`), actuation and the CoM
+    capture from time 0 under a temperature amplitude of 10; `batch` robots
+    at rest with the coupling carry, the first bond pass at the volume
+    effects' rest dt. Returns (args, launch keywords without num_steps)."""
+    structure, phase = bench_design(n, seed)
+    body = build_body(structure, palette_from_list(evosoro_default_palette()),
+                      phase_offset=phase, device=device)
+    sim = SimParams(volume_effects_enabled=True, init_cm_time=0.0)
+    env = EnvParams(temp_amplitude=10.0)
+    dt = calc_max_dt(body, True) * sim.dt_frac
+    state = fr.pack_state_single(init_state(body, volume_effects=True))
+    state = state[None].expand(batch, -1, -1).contiguous()
+    kw = dict(grid_shape=tuple(body.occ.shape),
+              scalars=fr.kernel_scalars(body.nominal_size, sim, env),
+              flags=fr.launch_flags(body, sim, env, collision=False))
+    return (state, fr.pack_body(body), fr.make_stats(body, batch, dt, sim, env), None), kw
 
 
 def evaluator_workload(pop_size=15, collision=True, stagger=False, seed=1,
@@ -360,7 +391,7 @@ def replay_setup(path, device="cuda"):
         body = body.replace(collision=build_collision_system(
             doc.structure, body.e_mod.cpu().numpy(), body.nominal_size,
             collision_horizon=float(doc.sim.collision_horizon)))
-    dt = float(calc_max_dt(body)) * float(doc.sim.dt_frac)
+    dt = float(calc_max_dt(body, doc.sim.volume_effects_enabled)) * float(doc.sim.dt_frac)
     return body, doc.sim, doc.env, dt, num_steps_for(body, doc.sim, dt), doc
 
 
@@ -372,22 +403,39 @@ def _fitness_in_name(path):
 def replay(path, device="cuda", compact=False):
     """Replay one .vxa file whole through `fused_rollout` (one robot, the
     file's stop time) and `locomotion_fitness`; `compact` sets the
-    surface-compacted contact switch for the launch. Returns a record: the
-    fitness beside the one in the file's name (the reference engine's, for
-    information), the steps and the launch's time on the host clock."""
+    surface-compacted contact switch for the launch. Under volume effects
+    the step count is padded by 15 % (`num_steps_for`), and a replay that
+    ends short of the stop time is made again longer, as the evaluator does
+    (`relaunch_until_stop`; `short` is 1 if it still ends short). Returns a
+    record: the fitness beside the one in the file's name (the reference
+    engine's, for information), the steps and the launches' time on the
+    host clock."""
     body, sim, env, dt, steps, doc = replay_setup(path, device)
-    state = init_state(body)
-    state = state.replace(**{f: getattr(state, f)[None] for f in (
-        "pos", "quat", "linmom", "angmom", "scale", "last_scale", "small_angle",
-        "last_pos2", "last_angle1", "last_angle2", "max_strain", "strain_offset",
-        "time", "diverged", "ke_history", "total_strain_e", "max_vox_vel")})
+    state = init_state(body, volume_effects=sim.volume_effects_enabled)
+    state = state.replace(**{f.name: getattr(state, f.name)[None]
+                             for f in dataclasses.fields(state)
+                             if torch.is_tensor(getattr(state, f.name))})
     before = os.environ.get("EVOSORO_TPU_COLL_COMPACT")
     os.environ["EVOSORO_TPU_COLL_COMPACT"] = "1" if compact else "0"
+    stop = float(sim.stop_condition_value)
+
+    def run(n):
+        return fr.fused_rollout(state, body, sim, env, n, dt, stop_time=stop,
+                                stop_condition_type=doc.stop_condition_type)
+
+    def short(result):
+        outs = result[1]
+        return (~outs.diverged & (outs.time < 0.999 * stop)).cpu().numpy()
+
     try:
         t0 = time.perf_counter()
-        new_state, outs = fr.fused_rollout(
-            state, body, sim, env, steps, dt, stop_time=float(sim.stop_condition_value),
-            stop_condition_type=doc.stop_condition_type)
+        n_short = 0
+        if sim.volume_effects_enabled:
+            (new_state, outs), steps, relaunches, still_short = relaunch_until_stop(
+                run, steps, short)
+            n_short = int(still_short.sum())
+        else:
+            (new_state, outs), relaunches = run(steps), 0
         fit = fr.locomotion_fitness(new_state, body, outs)
         fit = float(fit[0])  # waits for the device
         secs = time.perf_counter() - t0
@@ -398,6 +446,9 @@ def replay(path, device="cuda", compact=False):
             os.environ["EVOSORO_TPU_COLL_COMPACT"] = before
     return dict(file=os.path.basename(path), compact=compact, steps=steps, dt=dt,
                 bc=bool(doc.bcs), max_vel=bool(sim.max_velocity_enabled),
+                volume=bool(sim.volume_effects_enabled), final_t=float(outs.time[0]),
+                stop_time=stop, launches=relaunches + 1, short=n_short,
+                dt_final=float(new_state.cur_dt[0]) if new_state.cur_dt is not None else dt,
                 fitness=fit, fitness_in_name=_fitness_in_name(path),
                 diverged=bool(outs.diverged[0]), seconds=secs,
                 surface_voxels=int(np.asarray(body.collision.surf_mask).sum())
@@ -426,7 +477,7 @@ def replay_launch(path, batch=1, device="cuda", compact=False):
     surface-compacted: (args, launch keywords without num_steps)."""
     body, sim, env, dt, _, _ = replay_setup(path, device)
     grid = tuple(body.occ.shape)
-    st = fr.pack_state_single(init_state(body))
+    st = fr.pack_state_single(init_state(body, volume_effects=sim.volume_effects_enabled))
     st = st[None].expand(batch, -1, -1).contiguous()
     pack = fr.pack_collision_compact if compact else fr.pack_collision
     table = torch.as_tensor(pack(body.collision, grid), device=device)[None]
@@ -444,7 +495,8 @@ CANTILEVER_VXA = """<?xml version="1.0" encoding="ISO-8859-1"?>
 <Damping><BondDampingZ>1.0</BondDampingZ><ColDampingZ>0.8</ColDampingZ>
 <SlowDampingZ>0.01</SlowDampingZ></Damping>
 <Features><MaxVelLimitEnabled>{max_vel}</MaxVelLimitEnabled>
-<MaxVoxVelLimit>0.01</MaxVoxVelLimit></Features>
+<MaxVoxVelLimit>0.01</MaxVoxVelLimit>
+<VolumeEffectsEnabled>{volume}</VolumeEffectsEnabled></Features>
 <StopCondition><StopConditionType>2</StopConditionType>
 <StopConditionValue>0.5</StopConditionValue><InitCmTime>0.0</InitCmTime></StopCondition>
 <EquilibriumMode><EquilibriumModeEnabled>{equilibrium}</EquilibriumModeEnabled>
@@ -483,20 +535,49 @@ CANTILEVER_VXA = """<?xml version="1.0" encoding="ISO-8859-1"?>
 """
 
 
-def write_cantilever_vxa(path, n=10, max_vel=True, equilibrium=False):
+def write_cantilever_vxa(path, n=10, max_vel=True, equilibrium=False, volume=False):
     """A hand-written .vxa of an n³ cantilever: a solid block, its x = 0
     face pinned in every degree of freedom, a region of 2 N in -z on its
     far face (split over the face's voxels) and a second region at
     mid-length whose y translation is held 2 mm from its nominal place;
     gravity on, no floor, no actuation, 0.5 s; the max-velocity clamp at
     0.01 lattice units a step, or equilibrium mode, which finds a
-    structure's static deflection (and turns the clamp off)."""
+    structure's static deflection (and turns the clamp off); `volume` sets
+    VolumeEffectsEnabled."""
     layer = "<Layer><![CDATA[" + "1" * (n * n) + "]]></Layer>"
     with open(path, "w") as f:
         f.write(CANTILEVER_VXA.format(dof_all=DOF_ALL, dof_y=DOF_Y, n=n, max_vel=int(max_vel),
-                                      equilibrium=int(equilibrium),
+                                      equilibrium=int(equilibrium), volume=int(volume),
                                       layers="\n".join([layer] * n)))
     return path
+
+
+def write_volume_vxa(src, dst, stop_time=None):
+    """The design of the .vxa file `src` (an archived fixture) written back
+    to `dst` with `write_vxa`, as the file Voxelyze would be handed, with
+    VolumeEffectsEnabled set (and the StopConditionValue `stop_time`, when
+    given)."""
+    from evosoro_tpu_torch.io.vxa import load_vxa, write_vxa
+
+    doc = load_vxa(src)
+    sim = doc.sim.replace(volume_effects_enabled=True)
+    if stop_time is not None:
+        sim = sim.replace(stop_condition_value=float(stop_time))
+    write_vxa(dst, doc.structure, doc.materials, sim=sim, env=doc.env,
+              voxel_arrays=doc.voxel_arrays, stop_condition_type=doc.stop_condition_type,
+              lattice_dim=doc.lattice_dim)
+    return dst
+
+
+def volume_replay_workload(device="cuda"):
+    """The first fixture written back with volume effects
+    (`write_volume_vxa`) and the cantilever with them (`write_cantilever_vxa`
+    without the clamp), each replayed whole (`replay`): a record each."""
+    with tempfile.TemporaryDirectory() as tmp:
+        fixture = write_volume_vxa(fixture_paths()[0], os.path.join(tmp, "fixture_volume.vxa"))
+        cantilever = write_cantilever_vxa(os.path.join(tmp, "cantilever_volume.vxa"),
+                                          max_vel=False, volume=True)
+        return [replay(fixture, device), replay(cantilever, device)]
 
 
 # the max-velocity clamp of the material workloads: 1e-3 lattice units a
@@ -522,18 +603,42 @@ def materials_workload(pop_size=15, collision=True, device="cuda", seed=1):
         scalars=dict(kw["scalars"], max_vel_limit=MATERIALS_MAX_VEL))
 
 
-def cantilever_workload(path, batch=2, n=10, device="cuda"):
+def volume_workload(pop_size=15, collision=True, device="cuda", seed=1, features=False):
+    """The evaluator's batch of the volume experiment (`volume_experiment`:
+    a body, pair table, dt and coupling carry per robot) with actuation from
+    step 5, so a launch of tens of steps is past its onset; with `features`
+    every fitness feature (`with_features`, one source, the freeze window
+    of 40 steps around step 60), which runs the volume instance's feature
+    instance, and each robot's stop time on its own step within the first
+    100 (as `evaluator_workload(stagger=True)`), so each robot freezes
+    within the launch and its last step runs dry on its own recomputed dt.
+    Returns (args, launch keywords without num_steps)."""
+    (state, body, stats, table), kw = evaluator_workload(
+        pop_size=pop_size, collision=collision, device=device, experiment="volume",
+        seed=seed)
+    stats = stats.clone()
+    stats[:, fr._S_INITCM] = 5 * stats[:, fr._S_DT]
+    if features:
+        i = torch.arange(stats.shape[0], device=stats.device, dtype=stats.dtype)
+        stats[:, fr._S_STOP] = stats[:, fr._S_DT] * ((i * 37) % 97 + 3.5)
+        kw = with_features(kw, stats, n_win=4, n_src=1)
+    return (state, body, stats, table), kw
+
+
+def cantilever_workload(path, batch=2, n=10, device="cuda", volume=False):
     """The launch of the hand-written cantilever (`write_cantilever_vxa`
-    at `path`, without the clamp) read back with `load_vxa`: `batch` robots
-    at rest, the BC channels in the keywords. Returns (args, launch
-    keywords without num_steps, body)."""
+    at `path`, without the clamp, with volume effects when `volume`) read
+    back with `load_vxa`: `batch` robots at rest, the BC channels in the
+    keywords. Returns (args, launch keywords without num_steps, body)."""
     from evosoro_tpu_torch.io.vxa import load_vxa
 
-    write_cantilever_vxa(path, n=n, max_vel=False)
+    write_cantilever_vxa(path, n=n, max_vel=False, volume=volume)
     doc = load_vxa(path)
     body = doc.build_body(device=device)
-    dt = float(calc_max_dt(body)) * float(doc.sim.dt_frac)
-    state = fr.pack_state_single(init_state(body))[None].expand(batch, -1, -1).contiguous()
+    vol = doc.sim.volume_effects_enabled
+    dt = float(calc_max_dt(body, vol)) * float(doc.sim.dt_frac)
+    state = fr.pack_state_single(init_state(body, volume_effects=vol))[None].expand(
+        batch, -1, -1).contiguous()
     stats = fr.make_stats(body, batch, dt, doc.sim, doc.env)
     kw = dict(grid_shape=tuple(body.occ.shape),
               scalars=fr.kernel_scalars(body.nominal_size, doc.sim, doc.env),
@@ -562,25 +667,27 @@ def time_call(fn, groups=4, reps=3):
 
 def throughput(batch=1024, steps=200, collision=False, plain=False,
                groups=4, reps=3, device="cuda", fluid=None, materials=False,
-               compact=False):
+               compact=False, volume=False):
     """Voxel-steps per second of one fused-rollout call on the bench
     workload, beside the least time the card could take for it
     (`roofline.bound`); `plain` times K1's plain version on the same
     tensors. `fluid="mesh"` or `"face"` runs the design in water,
     `materials` on `materials_palette` with plasticity and the max-velocity
-    clamp, `compact` with the surface-compacted contact pass
-    (`packed_workload`)."""
+    clamp, `compact` with the surface-compacted contact pass, `volume` with
+    volume effects (`packed_workload`)."""
     args, kw, n_occ = packed_workload(batch, collision=collision, device=device,
-                                      fluid=fluid, materials=materials, compact=compact)
+                                      fluid=fluid, materials=materials, compact=compact,
+                                      volume=volume)
     call = fr.fused_rollout_plain if plain else fr.fused_call
     ms = time_call(lambda: call(*args, num_steps=steps, **kw), groups, reps)
     _, stats_out = call(*args, num_steps=steps, **kw)
     ss = kw.get("ss_packed")
     least = roofline.bound(*roofline.launch_work(
         *args, stats_out, flags=kw["flags"], grid_shape=kw["grid_shape"],
-        n_pts=0 if ss is None else (ss.shape[1] - 3) // 2))
+        n_pts=0 if ss is None else (ss.shape[1] - 3) // 2, num_steps=steps))
     return dict(batch=batch, steps=steps, collision=collision, fluid=fluid,
-                materials=materials, compact=compact, grid=list(kw["grid_shape"]),
+                materials=materials, compact=compact, volume=volume,
+                grid=list(kw["grid_shape"]),
                 impl="plain" if plain else "K1", ms=ms,
                 voxel_steps_per_s=n_occ * batch * steps / (ms * 1e-3),
                 bound_ms=least["bound_ms"], bound_by=least["bound_by"])
@@ -912,15 +1019,39 @@ def materials_experiment(pop_size=15, sim_time=5.0, init_time=1.0, dt_frac=0.9,
     return sim, env, pop
 
 
+class VolumeSim(Sim):
+    """A `Sim` whose SimParams turn on Voxelyze's VolumeEffectsEnabled: the
+    stock `to_sim_params` sets no volume flag, in either package, so a
+    caller reaches volume effects in the evolution loop this way."""
+
+    def to_sim_params(self) -> SimParams:
+        return super().to_sim_params().replace(volume_effects_enabled=True)
+
+
+def volume_experiment(pop_size=15, sim_time=5.0, init_time=1.0, dt_frac=0.9, seed=1):
+    """(sim, env, pop) of examples/basic.py with volume effects on
+    (`VolumeSim`): the Poisson-coupled bond stress with the thermal term of
+    the actuation's temperature, a dt recomputed every step; fitness
+    NormFinalDist."""
+    _, env, pop = basic_experiment(pop_size=pop_size, sim_time=sim_time,
+                                   init_time=init_time, dt_frac=dt_frac, seed=seed)
+    sim = VolumeSim(dt_frac=dt_frac, simulation_time=sim_time,
+                    fitness_eval_init_time=init_time)
+    return sim, env, pop
+
+
 EXPERIMENTS = dict(basic=basic_experiment, swimming=swimming_experiment,
                    growth=growth_experiment, features=features_experiment,
-                   ballistic=ballistic_experiment, materials=materials_experiment)
+                   ballistic=ballistic_experiment, materials=materials_experiment,
+                   volume=volume_experiment)
 
 
 class RecordedEvaluation:
     """`evaluate_all` on one device that keeps a record per generation:
     evaluation seconds and their split (host prep, packing, launches), step
-    buckets, K1 launches, the best NormFinalDist and every evaluated
+    buckets, K1 launches, the launches made again under volume effects and
+    the robots still short of their stop time after the last (their count,
+    final times and fitness), the best NormFinalDist and every evaluated
     fitness. Picklable, so checkpoints can hold it."""
 
     def __init__(self, device):
@@ -934,6 +1065,7 @@ class RecordedEvaluation:
         feature_before = fr.FUSED_ROLLOUT_FEATURE_LAUNCHES
         ballistic_before = fr.FUSED_ROLLOUT_BALLISTIC_LAUNCHES
         material_before = fr.FUSED_ROLLOUT_MATERIAL_LAUNCHES
+        volume_before = fr.FUSED_ROLLOUT_VOLUME_LAUNCHES
         t0 = time.time()
         out = evaluation.evaluate_all(sim, env, pop, *args, device=self.device,
                                       **kwargs)
@@ -951,6 +1083,15 @@ class RecordedEvaluation:
             k1_feature_launches=fr.FUSED_ROLLOUT_FEATURE_LAUNCHES - feature_before,
             k1_ballistic_launches=fr.FUSED_ROLLOUT_BALLISTIC_LAUNCHES - ballistic_before,
             k1_material_launches=fr.FUSED_ROLLOUT_MATERIAL_LAUNCHES - material_before,
+            k1_volume_launches=fr.FUSED_ROLLOUT_VOLUME_LAUNCHES - volume_before,
+            redispatches=evaluation.LAST_DISPATCH_TIMING.get("redispatches", 0),
+            short_after_redispatch=evaluation.LAST_DISPATCH_TIMING.get(
+                "short_after_redispatch", 0),
+            short_final_times=list(evaluation.LAST_DISPATCH_TIMING.get(
+                "short_final_times", [])),
+            short_fitnesses=[float(ind.fitness) for ind in pop
+                             if ind.id in evaluation.LAST_DISPATCH_TIMING.get(
+                                 "short_ids", ())],
             best_norm_final_dist=max(fits), fitnesses=fits))
         return out
 
@@ -958,7 +1099,8 @@ class RecordedEvaluation:
 def evolution(gens=2, pop_size=15, device="cuda", directory=None,
               experiment="basic", **settings):
     """Run `gens` generations of an experiment (a name of EXPERIMENTS:
-    `basic`, `swimming`, `growth`, `features`, `ballistic` or `materials`;
+    `basic`, `swimming`, `growth`, `features`, `ballistic`, `materials` or
+    `volume`;
     `settings` go to its constructor) on `device`; returns the
     per-generation records of `RecordedEvaluation`."""
     sim, env, pop = EXPERIMENTS[experiment](pop_size=pop_size, **settings)
@@ -987,10 +1129,10 @@ def main():
     card = card_info()
     for kw in (dict(steps=args.steps), dict(steps=args.coll_steps, collision=True),
                dict(steps=args.steps, fluid="mesh"), dict(steps=args.steps, fluid="face"),
-               dict(steps=args.steps, materials=True)):
+               dict(steps=args.steps, materials=True), dict(steps=args.steps, volume=True)):
         rec = throughput(batch=args.batch, **kw)
         print(json.dumps(dict(rec, card=card)), flush=True)
-    for rec in replay_workload():
+    for rec in replay_workload() + volume_replay_workload():
         rec.pop("final_state")
         print(json.dumps(dict(rec, workload="replay", card=card)), flush=True)
     for name in args.experiments:

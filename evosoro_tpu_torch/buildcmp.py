@@ -1,0 +1,93 @@
+"""Hold this checkout's K1 library against another checkout's, on the card.
+
+    python -m evosoro_tpu_torch.buildcmp OTHER_CHECKOUT
+
+Builds `fused_rollout` in both trees (`ops/build.py`), compares the machine
+code of every kernel function the two libraries hold (`cuobjdump -sass`,
+addresses stripped), then times the material instance on 1024 x 10^3 x 200
+steps through each library in one process, in turns on the same tensors
+(other, this, this, other, three times; `bench.time_call` each), and checks
+that both give the same bits. A process's own layout moves a launch's time
+by up to ~1 % from one process to the next, so two libraries are timed in
+one. The other tree's launcher may lack trailing arguments that this one
+adds before the stream; they are dropped for it. Prints one JSON object.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import importlib.util
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+_BUILD = ("from evosoro_tpu_torch.ops import build; build.build_all(('fused_rollout',)); "
+          "print(build._lib_path('fused_rollout'))")
+
+
+def _sass(lib: str) -> dict:
+    """{kernel function: (instructions, sha256 of the SASS)} of a library."""
+    out = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", lib],
+                         capture_output=True, text=True, check=True).stdout
+    funcs, cur = {}, None
+    for ln in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+        elif cur is not None and "/*" in ln:
+            cur.append(re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln).split(";")[0].strip())
+    return {k: (len(v), hashlib.sha256("\n".join(v).encode()).hexdigest()[:12])
+            for k, v in funcs.items()}
+
+
+def main(other: str) -> dict:
+    import torch
+
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.ops import build
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    here = Path(__file__).resolve().parents[1]
+    libs = {}
+    for name, root in (("this", here), ("other", Path(other).resolve())):
+        r = subprocess.run([sys.executable, "-c", _BUILD], cwd=root, capture_output=True,
+                           text=True, check=True)
+        libs[name] = r.stdout.strip().splitlines()[-1]
+    sass = {k: _sass(v) for k, v in libs.items()}
+    shared = sorted(set(sass["this"]) & set(sass["other"]))
+    rec = dict(libraries=libs, kernels_compared=len(shared),
+               kernels_differing=[k for k in shared if sass["this"][k] != sass["other"][k]],
+               kernels_only_here=sorted(set(sass["this"]) - set(sass["other"])),
+               kernels_only_there=sorted(set(sass["other"]) - set(sass["this"])))
+
+    # the other tree's launcher signature, from its own build.py
+    spec = importlib.util.spec_from_file_location(
+        "other_build", Path(other) / "evosoro_tpu_torch" / "ops" / "build.py")
+    other_build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other_build)
+    argtypes = other_build.SIGNATURES["fused_rollout"][1]
+    ofn = ctypes.CDLL(libs["other"]).fused_rollout
+    ofn.argtypes, ofn.restype = argtypes, ctypes.c_int
+    n = len(argtypes)
+    calls = {"this": build.library("fused_rollout"),
+             "other": lambda *a: ofn(*a[:n - 1], a[-1])}
+    args, kw, _ = bench.packed_workload(1024, device="cuda", materials=True)
+    times, outs = {"other": [], "this": []}, {}
+    for name in ("other", "this", "this", "other") * 3:
+        build._libs["fused_rollout"] = (None, calls[name])
+        times[name].append(bench.time_call(
+            lambda: fr.fused_call(*args, num_steps=200, **kw), 2, 3))
+        outs.setdefault(name, fr.fused_call(*args, num_steps=200, **kw))
+    build._libs.pop("fused_rollout")
+    rec.update(card=bench.card_info(), material_1024x10_3x200_ms=times,
+               outputs_bit_equal=all(torch.equal(a, b)
+                                     for a, b in zip(outs["this"], outs["other"])))
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+if __name__ == "__main__":
+    main(sys.argv[1])

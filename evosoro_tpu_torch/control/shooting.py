@@ -143,7 +143,8 @@ def cem_optimize(
     device = resolve_device(device)
     _check_generator(generator, device)
     body = body.to(device)
-    state0 = init_state(body) if state0 is None else state0.to(device)
+    state0 = (init_state(body, volume_effects=sim.volume_effects_enabled)
+              if state0 is None else state0.to(device))
     shape = (num_knots,) + tuple(body.occ.shape[-3:])
     dtype = body.nom_pos.dtype
     mean0 = (torch.zeros(shape, dtype=dtype, device=device) if init_mean is None
@@ -183,7 +184,8 @@ def grad_optimize(
     before each update in `cost_trace`."""
     device = resolve_device(device)
     body = body.to(device)
-    state0 = init_state(body) if state0 is None else state0.to(device)
+    state0 = (init_state(body, volume_effects=sim.volume_effects_enabled)
+              if state0 is None else state0.to(device))
     shape = (num_knots,) + tuple(body.occ.shape[-3:])
     dtype = body.nom_pos.dtype
     u = (torch.zeros(shape, dtype=dtype, device=device) if init_u is None
@@ -399,7 +401,7 @@ def mpc_run(generator, controller: MPCController, total_segments: int,
     ek = controller.execute_knots
     exec_steps = steps_per_knot * ek
 
-    state = init_state(body)
+    state = init_state(body, volume_effects=sim.volume_effects_enabled)
     warm = None
     executed, costs = [], []
     for _ in range(total_segments):

@@ -130,7 +130,8 @@ def sqp_optimize(
     device = resolve_device(device)
     body = body.to(device)
     X, Y, Z = body.occ.shape
-    state0 = init_state(body) if state0 is None else state0.to(device)
+    state0 = (init_state(body, volume_effects=sim.volume_effects_enabled)
+              if state0 is None else state0.to(device))
     dtype = body.nom_pos.dtype
     u = (torch.zeros((num_knots, X, Y, Z), dtype=dtype, device=device)
          if init_u is None else torch.as_tensor(init_u, dtype=dtype, device=device))
@@ -220,9 +221,10 @@ class FusedSQPSolver:
         device = resolve_device(device)
         body = body.to(device)
         X, Y, Z = body.occ.shape
-        state0 = init_state(body) if state0 is None else state0.to(device)
+        state0 = (init_state(body, volume_effects=sim.volume_effects_enabled)
+                  if state0 is None else state0.to(device))
         if dt is None:
-            dt = calc_max_dt(body) * sim.dt_frac
+            dt = calc_max_dt(body, sim.volume_effects_enabled) * sim.dt_frac
         batch = int(n_res)
         self._dr = DiffRollout(body, sim, env, num_steps=num_steps,
                                num_knots=num_knots, dt=dt, batch=batch,

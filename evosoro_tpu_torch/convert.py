@@ -6,8 +6,9 @@ imports JAX. Floating arrays become `dtype` tensors on `device`, boolean and
 integer arrays keep their kind, Python scalars and static flags stay as they
 are; a body's collision and mesh-drag tables, its development fields, its
 MDL_DATA tables (`ss_*_vox`) and boundary conditions (`dof_fixed`,
-`external_*`) come across with it, and a state's plastic strain offset and
-kinetic-energy ring with the state. The tests use it to start both
+`external_*`) come across with it, and a state's plastic strain offset,
+kinetic-energy ring and volume-effects carry (`ts_sum`, `cs_area`,
+`cur_dt`) with the state. The tests use it to start both
 packages from the same body and state.
 """
 

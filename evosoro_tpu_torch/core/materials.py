@@ -192,10 +192,9 @@ def build_body(
     bond_e1 = torch.stack(be1)
     bond_e2 = torch.stack(be2)
 
-    # composite Poisson 2*u1*u2/(u1+u2) (reference: VX_Bond.cpp:91-92)
     u1 = poisson.expand(3, X, Y, Z)
     u2 = torch.stack([_nbr(poisson, d) for d in range(3)])
-    bond_u = torch.where(u1 + u2 != 0, 2.0 * _safe_div(u1 * u2, u1 + u2), 0.0)
+    bond_u, bond_eh = poisson_bond_fields(bond_e1, bond_e2, u1, u2)
 
     # beam geometry for a cubic section (reference: VX_Bond.cpp:123-141)
     # L**k as jax's integer_pow computes it (binary powering)
@@ -206,15 +205,6 @@ def build_body(
     I = L4 / 12.0  # noqa: E741
     J = L4 / 6.0
     G_over_E = 1.0 / (2.0 * (1.0 + bond_u))
-
-    def _side_eh(e, u):
-        denom = (1.0 - 2.0 * u) * (1.0 + u)
-        return torch.where(denom != 0, _safe_div(e, denom), e)
-
-    e1h = _side_eh(bond_e1, u1)
-    e2h = _side_eh(bond_e2, u2)
-    bond_eh = torch.where(
-        e1h + e2h != 0, 2.0 * _safe_div(e1h * e2h, e1h + e2h), 0.0)
     bond_a1 = bond_e * A / L
     bond_a2 = bond_e * G_over_E * J / L
     bond_b1 = 12.0 * bond_e * I / L3
@@ -411,6 +401,23 @@ def devo_params_from_vxa(raw: dict, sim, env, nominal_size, structure) -> dict:
     if raw_final is not None or raw_init is not None:
         out["final_voxel_size"] = final_size
     return out
+
+
+def poisson_bond_fields(e1, e2, u1, u2):
+    """(bond_u, bond_eh) of bonds whose sides have moduli e1, e2 (zero off
+    the bond mask) and Poisson ratios u1, u2: the composite Poisson ratio
+    2 u1 u2 / (u1 + u2) (reference: VX_Bond.cpp:91-92) and the volume-effects
+    modulus, the harmonic mean of each side's E / ((1 - 2u)(1 + u)) (the
+    reference's live UpdateConstants path, VX_Bond.cpp:90-97)."""
+    bond_u = torch.where(u1 + u2 != 0, 2.0 * _safe_div(u1 * u2, u1 + u2), 0.0)
+
+    def side_eh(e, u):
+        denom = (1.0 - 2.0 * u) * (1.0 + u)
+        return torch.where(denom != 0, _safe_div(e, denom), e)
+
+    e1h, e2h = side_eh(e1, u1), side_eh(e2, u2)
+    bond_eh = torch.where(e1h + e2h != 0, 2.0 * _safe_div(e1h * e2h, e1h + e2h), 0.0)
+    return bond_u, bond_eh
 
 
 def calc_max_dt(body: VoxelBody, volume_effects: bool = False) -> torch.Tensor:

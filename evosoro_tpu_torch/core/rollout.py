@@ -10,7 +10,8 @@ environmental sources, needle-in-haystack, the fall-over latch,
 NormDistByVol over the CoM/volume trace, the trailing window distance and
 the speed windows of ballistic development, and the reference's stop
 conditions (`stop_condition_type`, VX_Sim.cpp:1398-1510), as the JAX
-package's eager rollout runs them.
+package's eager rollout runs them. Under volume effects each step advances
+the time by the dt it recomputed.
 """
 
 from __future__ import annotations
@@ -36,12 +37,14 @@ def init_state(body: VoxelBody, dtype=None, volume_effects: bool = False,
     """Initial rest state of one robot (reference: VXS_Voxel.cpp:95-134
     ResetVoxel), on the body's device.
 
+    `volume_effects`: carry the Poisson coupling's per-side transverse
+    strain sums (zeros) and cross-sections (L²) (reference:
+    VXS_Voxel.cpp:543-632) and the per-step dt (0: the first bond pass
+    takes the caller's dt; VX_Sim.cpp:1792-1794).
+
     `ballistic_devo`: carry the dynamic DevoState, so that velocity-adjusted
     development can rebase the per-voxel development fields every step
     (reference: VXS_Voxel.cpp:342-381; see types.DevoState)."""
-    if volume_effects:
-        raise NotImplementedError(
-            "init_state: the volume-effects carry is not ported yet")
     X, Y, Z = body.occ.shape[-3:]
     dtype = dtype or body.nom_pos.dtype
     dev = body.nom_pos.device
@@ -50,6 +53,12 @@ def init_state(body: VoxelBody, dtype=None, volume_effects: bool = False,
     def z(*shape):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
+    vol = {}
+    if volume_effects:
+        L2 = body.nominal_size * body.nominal_size
+        vol = dict(ts_sum=z(2, 3, X, Y, Z),
+                   cs_area=torch.full((2, 3, X, Y, Z), L2, dtype=dtype, device=dev),
+                   cur_dt=z())
     devo = None
     if ballistic_devo:
         def f(a):
@@ -65,6 +74,7 @@ def init_state(body: VoxelBody, dtype=None, volume_effects: bool = False,
             win_count=torch.zeros((), dtype=torch.int32, device=dev),
         )
     return SimState(
+        **vol,
         devo=devo,
         pos=body.nom_pos.to(dtype).clone(),
         quat=q.quat_identity((X, Y, Z), dtype=dtype, device=dev),
@@ -106,6 +116,28 @@ def num_steps_for(body: VoxelBody, sim: SimParams, dt=None) -> int:
     if sim.volume_effects_enabled:
         steps = int(math.ceil(steps * 1.15))
     return steps
+
+
+def relaunch_until_stop(run, num_steps: int, short, on_relaunch=None):
+    """Under volume effects the dt the step recomputes can shrink past the
+    15 % pad of `num_steps_for`: `run(num_steps)`, and while `short(result)`
+    (a bool array, one entry a rollout) holds anywhere, run again from the
+    start 1.5 times as long, at most twice (the JAX package's evaluator; the
+    reference loops until its stop condition, VX_Sim.cpp main loop).
+    `on_relaunch(n_short, num_steps)` is called before each relaunch.
+    Returns (result, num_steps, relaunches, still_short), the last the
+    mask of the rollouts still short after the last launch."""
+    result = run(num_steps)
+    relaunches = 0
+    still_short = short(result)
+    while still_short.any() and relaunches < 2:
+        num_steps = int(math.ceil(num_steps * 1.5))
+        if on_relaunch is not None:
+            on_relaunch(int(still_short.sum()), num_steps)
+        result = run(num_steps)
+        relaunches += 1
+        still_short = short(result)
+    return result, num_steps, relaunches, still_short
 
 
 def total_volume(state: SimState, body: VoxelBody):

@@ -21,8 +21,9 @@ land_water fork (facet drag on the deformed surface mesh, or the
 voxel-face approximation, and its simpler actuation) and development
 (prenatal and growth ramps, final phase offset and amplitude damping,
 size-capped actuation, and the ballistic rebase of a state's DevoState
-from its speed windows). Volume effects and the limited floor raise
-NotImplementedError.
+from its speed windows) and volume effects (the Poisson-coupled bond
+stress with its thermal term, the per-step dt and the voxel pass's
+transverse coupling). The limited floor raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from evosoro_tpu_torch.core.constants import (
     DEFAULT_PRECISION,
     DIVERGENCE_STRAIN,
     HYSTERESIS_FACTOR,
+    REF_PI_DOUBLE,
     REF_PI_FLOAT,
     SA_BOND_EXT_PERC,
     Precision,
@@ -139,7 +141,6 @@ def _from_nbrv(a, d):
 def _check_envelope(sim: SimParams, env: EnvParams, dt_reduce):
     """Raise NotImplementedError for every feature outside the port's step."""
     refused = [
-        ("volume effects", sim.volume_effects_enabled),
         ("limited floor", env.floor_limited),
         ("dt reduction across shards", dt_reduce is not None),
     ]
@@ -216,13 +217,100 @@ def _nonlinear_stress(d, strain, body: VoxelBody):
     return stress, torch.where(hom, strain, sv1), torch.where(hom, strain, sv2)
 
 
+def _thermal_stress(d, state: SimState, body: VoxelBody, env: EnvParams):
+    """The thermal stress volume effects take off a bond of direction d:
+    the mean of its sides' E CTE dT / (1 - 2u), each side's dT from its
+    material's temperature sinusoid at the step's start, or the amplitude
+    when the temperature does not vary (reference:
+    VXS_BondInternal.cpp:284-298, VX_Environment.cpp:442-461)."""
+    if env.vary_temp_enabled:
+        t = _vox(state.time)
+        period = _vox(torch.as_tensor(env.temp_period, dtype=t.dtype, device=t.device))
+        # the float-truncated pi of VX_Environment.cpp:451
+        w = 2.0 * REF_PI_FLOAT * t * _safe_div(torch.ones_like(period), period)
+        amp = _vox(env.temp_amplitude)
+        dT1 = torch.where(period != 0, amp * torch.sin(w + body.mat_temp_phase), 0.0)
+        dT2 = torch.where(period != 0, amp * torch.sin(w + _nbr(body.mat_temp_phase, d)), 0.0)
+    else:
+        dT1 = dT2 = _vox(env.temp_amplitude)
+    s1t = _safe_div(body.e_mod * body.cte * dT1, 1.0 - 2.0 * body.poisson)
+    s2t = _safe_div(_nbr(body.e_mod, d) * _nbr(body.cte, d) * dT2,
+                    1.0 - 2.0 * _nbr(body.poisson, d))
+    return 0.5 * (s1t + s2t)
+
+
+def _volume_dt(state: SimState, body: VoxelBody, sim: SimParams, bonds, L, dt):
+    """The dt volume effects recompute after the bond pass, per robot:
+    DtFrac / (2 pi max sqrt(k_eff / m)) over its bonds, k_eff = Eh (CS1 +
+    CS2) / (2 (e L + L)) with this step's strain and the carried sections
+    (VXS_Bond.h:34, VX_Sim.cpp:1792-1794); `dt` where no bond is stiff."""
+    cs_sum = state.cs_area[..., 0, :, :, :, :] + state.cs_area[..., 1, :, :, :, :]
+    strains = torch.stack([b["strain"] for b in bonds], dim=-4)
+    eff_k = body.bond_eh * cs_sum / (2.0 * (strains * L + L))
+    m1 = body.mass.unsqueeze(-4)
+    m2 = torch.stack([_nbr(body.mass, d) for d in range(3)], dim=-4)
+    f2 = torch.maximum(torch.where(body.bond_mask, _safe_div(eff_k, m1), 0.0),
+                       torch.where(body.bond_mask, _safe_div(eff_k, m2), 0.0))
+    max_freq = torch.sqrt(f2.flatten(-4).amax(-1))
+    frac = torch.full_like(max_freq, sim.dt_frac)
+    return torch.where(max_freq > 0, frac / (2.0 * REF_PI_DOUBLE * max_freq), dt)
+
+
+def _volume_effects_coupling(bonds, body: VoxelBody):
+    """The voxel pass's Poisson coupling (reference: VXS_Voxel.cpp:543-632).
+
+    From this step's per-direction bond strains, each voxel's strain along
+    each axis (its two bonds' mean; a constrained axis counts as bonded on
+    both sides), the exclusive (Tx, Ty, Tz) case table's transverse
+    contraction pow(1+e, -mu) - 1 on the free axes, and from those each
+    bond side's transverse strain sum and cross-section for the next step.
+    Returns (ts_sum, cs_area), each (..., 2, 3, X, Y, Z)."""
+    mu = body.poisson
+    L2 = body.nominal_size * body.nominal_size
+    masks = [body.bond_mask[..., d, :, :, :] for d in range(3)]
+    T, axis_strain = [], []
+    for a, bit in enumerate((DOF_X, DOF_Y, DOF_Z)):
+        pd, nd = masks[a], _from_nbr(masks[a], a)
+        sp, sn = bonds[a]["sv1"], _from_nbr(bonds[a]["sv2"], a)
+        constrained = ((body.dof_fixed & bit) != 0) | (body.external_force[..., a] != 0)
+        T.append((pd & nd) | ((pd | nd) & constrained))
+        s = torch.where(pd & nd, 0.5 * (sp + sn),
+                        torch.where(pd, sp, torch.where(nd, sn, 0.0)))
+        axis_strain.append(torch.where(T[a], s, 0.0))
+
+    def pw(s):  # transverse contraction; 1 + e > 0 keeps pow finite
+        return torch.pow(torch.clamp(1.0 + s, min=1e-6), -mu) - 1.0
+
+    tx, ty, tz = T
+    c0x, c0y, c0z = axis_strain
+    # the exclusive (Tx, Ty, Tz) case table (reference: :586-594)
+    cx = torch.where(~tx & ty & tz, pw(c0y + c0z), torch.where(
+        ~tx & ~ty & tz, pw(c0z), torch.where(~tx & ty & ~tz, pw(c0y), c0x)))
+    cy = torch.where(tx & ~ty & tz, pw(c0x + c0z), torch.where(
+        ~tx & ~ty & tz, pw(c0z), torch.where(tx & ~ty & ~tz, pw(c0x), c0y)))
+    cz = torch.where(tx & ty & ~tz, pw(c0x + c0y), torch.where(
+        ~tx & ty & ~tz, pw(c0y), torch.where(tx & ~ty & ~tz, pw(c0x), c0z)))
+    # each bond axis's transverse sum and area from the two other axes
+    # (reference: :601-620; AXIS_Z takes y + x)
+    ts_ax = [cy + cz, cx + cz, cy + cx]
+    cs_ax = [(1.0 + cy) * (1.0 + cz) * L2, (1.0 + cx) * (1.0 + cz) * L2,
+             (1.0 + cy) * (1.0 + cx) * L2]
+    ts1 = torch.stack([torch.where(masks[d], ts_ax[d], 0.0) for d in range(3)], dim=-4)
+    ts2 = torch.stack([torch.where(masks[d], _nbr(ts_ax[d], d), 0.0) for d in range(3)],
+                      dim=-4)
+    cs1 = torch.stack([torch.where(masks[d], cs_ax[d], L2) for d in range(3)], dim=-4)
+    cs2 = torch.stack([torch.where(masks[d], _nbr(cs_ax[d], d), L2) for d in range(3)],
+                      dim=-4)
+    return torch.stack([ts1, ts2], dim=-5), torch.stack([cs1, cs2], dim=-5)
+
+
 # ---------------------------------------------------------------------------
 # Bond forces (reference: VXS_BondInternal.cpp:56-187 CalcLinForce
 #              + 189-307 UpdateBondStrain + 310-346 AddDampForces)
 # ---------------------------------------------------------------------------
 
 def _bond_axis_forces(d, state: SimState, body: VoxelBody, sim: SimParams,
-                      dt, L, prec: Precision):
+                      env: EnvParams, dt, L, prec: Precision):
     mask = body.bond_mask[..., d, :, :, :]
     maskf = mask[..., None]
     bd = lambda f: f[..., d, :, :, :]  # noqa: E731
@@ -235,7 +323,11 @@ def _bond_axis_forces(d, state: SimState, body: VoxelBody, sim: SimParams,
     ang1_rel = q.quat_rotate_inv(q1, rel)
     new_ang2 = q.quat_multiply(q.quat_conjugate(q1), q2)
 
-    nom_dist = (state.scale + _nbr(state.scale, d)) * 0.5
+    vol = sim.volume_effects_enabled
+    if vol:  # the rest length is the nominal lattice (VXS_Bond.cpp)
+        nom_dist = L.expand_as(state.scale)
+    else:
+        nom_dist = (state.scale + _nbr(state.scale, d)) * 0.5
 
     rx, ry, rz = ang1_rel.unbind(-1)
     small_turn = _safe_div(torch.abs(rz) + torch.abs(ry), rx)
@@ -281,7 +373,16 @@ def _bond_axis_forces(d, state: SimState, body: VoxelBody, sim: SimParams,
     # iteration and the entry tolerance reduces to a modulus test
     strain = _safe_div(_pos2[..., 0], L)
     E = bd(body.bond_e)
-    if body.all_linear:
+    if vol:
+        # Poisson-coupled stress s = Eh(1-u)e + Eh u (TS1+TS2)/2 from the
+        # transverse strain sums the voxel pass wrote last step (reference:
+        # VXS_BondInternal.cpp:200-222); the per-side strains of a
+        # heterogeneous bond stay at their initial 0 (VXS_Bond.cpp:66-67)
+        u, eh = bd(body.bond_u), bd(body.bond_eh)
+        ts_avg = 0.5 * (state.ts_sum[..., 0, d, :, :, :] + state.ts_sum[..., 1, d, :, :, :])
+        stress = eh * (1.0 - u) * strain + eh * u * ts_avg
+        sv1 = sv2 = torch.where(bd(body.bond_homogeneous), strain, 0.0)
+    elif body.all_linear:
         E1, E2 = bd(body.bond_e1), bd(body.bond_e2)
         s_sum = E1 + E2
         near_equal = torch.abs(E1 - E2) <= 0.0005 * torch.abs(s_sum)
@@ -306,9 +407,15 @@ def _bond_axis_forces(d, state: SimState, body: VoxelBody, sim: SimParams,
         max_strain = torch.maximum(bd(state.max_strain), strain)
         strain_offset = bd(state.strain_offset)
 
+    if vol and env.temp_enabled:
+        stress = stress - _thermal_stress(d, state, body, env)
+
     # beam forces/moments in the bond frame (reference: :122-154)
     a2c, b1, b2, b3 = bd(body.bond_a2), bd(body.bond_b1), bd(body.bond_b2), bd(body.bond_b3)
-    cs_area = L * L  # CSArea1 = CSArea2 = NominalSize² without volume effects
+    if vol:  # F_axial = s (CSArea1 + CSArea2)/2 (reference: :127)
+        cs_area = 0.5 * (state.cs_area[..., 0, d, :, :, :] + state.cs_area[..., 1, d, :, :, :])
+    else:
+        cs_area = L * L  # CSArea1 = CSArea2 = NominalSize² without volume effects
     p2y, p2z = _pos2[..., 1], _pos2[..., 2]
     a1x, a1y, a1z = _a1.unbind(-1)
     a2x, a2y, a2z = _a2.unbind(-1)
@@ -696,10 +803,26 @@ def sim_step(
     dt = torch.as_tensor(dt, dtype=state.pos.dtype, device=state.pos.device)
     L = torch.tensor(body.nominal_size, dtype=state.pos.dtype,
                      device=state.pos.device)
+    vol = sim.volume_effects_enabled
+    if vol and (state.ts_sum is None or state.cs_area is None):
+        raise ValueError("volume effects enabled but the state has no coupling carry; "
+                         "create it with init_state(body, volume_effects=True)")
+    if vol and state.cur_dt is not None:
+        # the bond damping pass reads the PREVIOUS step's dt (the reference
+        # updates its dt after UpdateBond, VX_Sim.cpp:1792-1795); 0 means
+        # the caller's dt
+        dt = torch.where(state.cur_dt > 0, state.cur_dt, dt)
 
     # ---- bond pass (3 lattice directions) ----
-    bonds = [_bond_axis_forces(d, state, body, sim, dt, L, prec)
+    bonds = [_bond_axis_forces(d, state, body, sim, env, dt, L, prec)
              for d in range(3)]
+
+    new_ts_sum = new_cs_area = None
+    if vol:
+        # everything from the Euler step on uses the recomputed dt, and the
+        # voxel pass's coupling gives the next step's carry
+        dt = _volume_dt(state, body, sim, bonds, L, dt)
+        new_ts_sum, new_cs_area = _volume_effects_coupling(bonds, body)
 
     diverged_now = state.diverged
     for d in range(3):
@@ -788,9 +911,12 @@ def sim_step(
     total_moment = torch.where(occf, total_moment, 0.0)
 
     angmom = state.angmom + total_moment * _vec(dt)
-    ang_fact = 1.0 - 10.0 * sim.slow_damping_z * body.inertia_inv \
-        * body.two_sq_iexsss * _vox(dt)
-    angmom = angmom * ang_fact[..., None]
+    if vol:  # fixed angular damping (reference: VXS_Voxel.cpp:204)
+        angmom = angmom / torch.full_like(angmom, 1.01)
+    else:
+        ang_fact = 1.0 - 10.0 * sim.slow_damping_z * body.inertia_inv \
+            * body.two_sq_iexsss * _vox(dt)
+        angmom = angmom * ang_fact[..., None]
 
     # quaternion integration (reference: :210-215)
     ang_vel = angmom * body.inertia_inv[..., None]
@@ -859,6 +985,9 @@ def sim_step(
         strain_offset=torch.stack([b["strain_offset"] for b in bonds], dim=-4),
         time=t + dt,
         diverged=diverged_now,
+        ts_sum=new_ts_sum,
+        cs_area=new_cs_area,
+        cur_dt=dt.expand_as(t).clone() if vol and state.cur_dt is not None else None,
         devo=new_devo,
         ke_history=ke_history,
         total_strain_e=total_strain_e,
@@ -895,7 +1024,7 @@ def freeze_where(frozen, old: SimState, new: SimState) -> SimState:
         "pos", "quat", "linmom", "angmom", "scale", "last_scale",
         "small_angle", "last_pos2", "last_angle1", "last_angle2",
         "max_strain", "strain_offset", "time", "diverged", "ke_history",
-        "total_strain_e", "max_vox_vel"))
+        "total_strain_e", "max_vox_vel", "ts_sum", "cs_area", "cur_dt"))
     if old.devo is not None and new.devo is not None:
         out["devo"] = new.devo.replace(**_select(frozen, old.devo, new.devo, _DEVO_FIELDS))
     return new.replace(**out)

@@ -413,9 +413,11 @@ class SimState(_Replace):
 
     Mirrors CVXS_Voxel state (VXS_Voxel.h) + CVXS_Bond damping memory
     (VX_Bond.h _LastPos2/_LastAngle1/_LastAngle2) + the plasticity
-    high-water marks, and the ballistic-development carry `devo`. The
-    volume-effects carries of the JAX package are outside this port's
-    envelope and stay None.
+    high-water marks, and the ballistic-development carry `devo`. Under
+    volume effects `ts_sum` and `cs_area` (..., 2, 3, X, Y, Z) carry each
+    bond side's transverse strain sum and cross-section for the next step's
+    stress (VXS_Voxel.cpp:543-632) and `cur_dt` (batch-shaped) the dt the
+    last step recomputed; without them they stay None.
     """
 
     pos: Any

@@ -19,10 +19,15 @@ size is evolved under them, environmental sources) run inside the same
 launch, and their result tags map onto `packed_metrics`. A custom palette
 (`Env(materials=[...])`) with bilinear or MDL_DATA materials runs K1's
 nonlinear stress, each individual's MDL_DATA tables streamed beside its
-body; equilibrium mode takes its damping override.
+body; equilibrium mode takes its damping override. A `Sim` whose
+`to_sim_params` turns volume effects on runs K1's volume instance, each
+robot carrying its coupling carry and its own recomputed dt; the step
+counts are padded by 15 % and a launch is made again, at most twice and
+1.5 times as long, while a live robot ends short of the stop time (the JAX
+package's rule).
 
 Not ported yet: the jnp-scan fallback evaluator (`make_batched_evaluator`)
-and the tags only it fills, the multi-device sharding, volume effects.
+and the tags only it fills, the multi-device sharding.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from evosoro_tpu_torch.core.materials import (
     devo_params_from_vxa,
     palette_from_list,
 )
-from evosoro_tpu_torch.core.rollout import init_state
+from evosoro_tpu_torch.core.rollout import init_state, relaunch_until_stop
 from evosoro_tpu_torch.core.types import evosoro_default_palette
 from evosoro_tpu_torch.device import resolve_device
 from evosoro_tpu_torch.ops import fused_rollout as fr
@@ -108,15 +113,19 @@ def _phenotype_fields(ind, env):
     return fields, env_overrides
 
 
-def _np_max_dt(structure, stiffness, palette_np):
+def _np_max_dt(structure, stiffness, palette_np, volume_effects=False):
     """Host-side CalcMaxDt (reference: VX_Sim.cpp:1693-1727) for the step
     count before launch: the max bond k/m in units of 1/L² (the caller
-    applies the L² and 2π factors). Volume effects, whose bound uses
-    E/((1-2u)(1+u)), are not ported yet."""
+    applies the L² and 2π factors). With `volume_effects` the bond stiffness
+    is Eh = E/((1-2u)(1+u)), the rest value of GetEffectiveStiffness
+    (VXS_Bond.h:34)."""
     occ = structure > 0
     e = palette_np["elastic_mod"][structure]
     if stiffness is not None:
         e = np.where((stiffness > 0) & occ, stiffness, e)
+    if volume_effects:
+        u = palette_np["poisson"][structure]
+        e = e / np.maximum((1.0 - 2.0 * u) * (1.0 + u), 1e-12)
     rho = palette_np["density"][structure]
     max_f2 = 0.0
     for d in range(3):
@@ -177,13 +186,15 @@ def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
     windows over an evolved final size run ballistic development, each
     robot's state carrying its DevoState. Returns
     `fn(structures, voxel_fields, env_batch, stop_time,
-    collision_packed=None)` -> dict of numpy metrics; `collision_packed` is
-    the (B, V, V) float32 pair-table batch. Bilinear and MDL_DATA palettes
+    collision_packed=None, num_steps=None)` -> dict of numpy metrics;
+    `collision_packed` is the (B, V, V) float32 pair-table batch and
+    `num_steps` overrides the launch's step count. Bilinear and MDL_DATA palettes
     run the nonlinear stress, with each robot's MDL_DATA tables (B, 2P + 3,
     V) streamed beside its body."""
     device = resolve_device(device)
     V = int(np.prod(grid_shape))
     has_mdl = palette.ss_strain is not None
+    vol = bool(sim_params.volume_effects_enabled)
     scalars = fr.kernel_scalars(lattice_dim, sim_params, env_flags_src)
     flags = dict(
         fr.kernel_env_flags(sim_params, env_flags_src),
@@ -207,8 +218,9 @@ def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
         # bodies are built on the host and copied to the device once per batch
         body = build_body(structure, palette, lattice_dim=lattice_dim,
                           **voxel_fields)
-        dt = calc_max_dt(body) * dt_frac
-        sp = fr.pack_state_single(init_state(body, ballistic_devo=flags["ballistic"]))
+        dt = calc_max_dt(body, vol) * dt_frac
+        sp = fr.pack_state_single(init_state(body, volume_effects=vol,
+                                             ballistic_devo=flags["ballistic"]))
         bp = fr.pack_body(body)[0]
         row = fr.make_stats(body, 1, dt, sim_params, env1, stop_time)[0]
         ss = fr.pack_ss_tables(body)[0] if has_mdl else None
@@ -235,12 +247,13 @@ def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
                      scalars=scalars, flags=flags)
 
     def fn(structures, voxel_fields, env_batch, stop_time,
-           collision_packed=None):
+           collision_packed=None, num_steps=None):
         t0 = time.time()
         sp, bp, rows, col, ss = pack(structures, voxel_fields, env_batch, stop_time,
                                      collision_packed)
         t1 = time.time()
-        out_state, out_stats = fr.fused_call(sp, bp, rows, col, ss_packed=ss, **launch_kw)
+        kw = launch_kw if num_steps is None else dict(launch_kw, num_steps=num_steps)
+        out_state, out_stats = fr.fused_call(sp, bp, rows, col, ss_packed=ss, **kw)
         m = fr.packed_metrics(
             out_state, bp, out_stats, lattice_dim, ndbv=flags["ndbv"],
             falling=flags["falling"], needle=flags["needle"], window=flags["window"],
@@ -333,8 +346,6 @@ def _batch_fields(sim, env, inds):
     """Per-individual build_body fields, EnvParams and ladder step counts."""
     grid = inds[0].genotype.orig_size_xyz
     sim_params = sim.to_sim_params()
-    if sim_params.volume_effects_enabled:
-        raise NotImplementedError("volume effects are not ported yet")
     all_fields = []
     all_env = []
     for ind in inds:
@@ -373,18 +384,25 @@ def _batch_fields(sim, env, inds):
     palette_np = {
         "elastic_mod": palette.elastic_mod.numpy().astype(np.float64),
         "density": palette.density.numpy().astype(np.float64),
+        "poisson": palette.poisson.numpy().astype(np.float64),
     }
     L = env.lattice_dimension
+    vol_on = bool(sim_params.volume_effects_enabled)
     stop_time = float(sim.simulation_time)
 
     def _steps_for(f):
         # per-design step count: CalcMaxDt is design-dependent
         # (reference: VX_Sim.cpp:1693-1727)
-        f2 = _np_max_dt(f["structure"], f.get("stiffness"), palette_np)
+        f2 = _np_max_dt(f["structure"], f.get("stiffness"), palette_np,
+                        volume_effects=vol_on)
         freq = np.sqrt(f2 / (L * L))
         mdt = ((1.0 / (2 * np.pi * freq)) * sim.dt_frac
                if freq > 0 else 1e-4)
-        return _ladder_steps(int(np.ceil(stop_time / mdt)) + 1)
+        s = int(np.ceil(stop_time / mdt)) + 1
+        if vol_on:
+            # the dt recomputed in every step shrinks under compression
+            s = int(np.ceil(s * 1.15))
+        return _ladder_steps(s)
 
     return all_fields, all_env, [_steps_for(f) for f in all_fields]
 
@@ -495,15 +513,17 @@ def _dispatch_batch(sim, env, pop, inds, print_log, batch_pad=8, device=None,
         # mutant (small dt -> 10x the steps) doesn't make the whole
         # generation ride its step count
         merged = dict(host_prep_s=0.0, pack_s=0.0, launch_s=0.0, device_s=0.0,
-                      batch=0, batch_padded=0,
+                      batch=0, batch_padded=0, redispatches=0,
+                      short_after_redispatch=0, short_final_times=[], short_ids=[],
                       num_steps=max(per_steps), buckets=[])
         for bval in buckets:
             group = [ind for ind, s in zip(inds, per_steps) if s == bval]
             _dispatch_batch(sim, env, pop, group, print_log,
                             batch_pad=batch_pad, device=device, _bucketed=True)
             for k in ("host_prep_s", "pack_s", "launch_s", "device_s", "batch",
-                      "batch_padded"):
-                merged[k] += _tm.get(k, 0)
+                      "batch_padded", "redispatches", "short_after_redispatch",
+                      "short_final_times", "short_ids"):
+                merged[k] += _tm.get(k, type(merged[k])())
             merged["buckets"].append(dict(num_steps=bval, batch=len(group)))
         _tm.clear()
         _tm.update(merged)
@@ -516,7 +536,28 @@ def _dispatch_batch(sim, env, pop, inds, print_log, batch_pad=8, device=None,
                                     device)
     _tm["host_prep_s"] = time.time() - _t0  # fields, step counts, pair tables
     _td = time.time()
-    results = fn(*inputs)
+    if sim.to_sim_params().volume_effects_enabled:
+        # the dt shrinks under compression: a live rollout short of the stop
+        # time launches the batch again, longer (core.rollout)
+        stop_time = float(sim.simulation_time)
+
+        def log(n_short, steps):
+            print_log.message(
+                "{} rollouts truncated before stop time under dynamic dt; "
+                "re-dispatching with scan length {}".format(n_short, steps))
+
+        results, num_steps, _tm["redispatches"], short = relaunch_until_stop(
+            lambda n: fn(*inputs, num_steps=n), num_steps,
+            lambda r: ~r["diverged"][:B] & (r["final_time"][:B] < stop_time * 0.999),
+            log)
+    else:
+        results = fn(*inputs)
+        _tm["redispatches"], short = 0, np.zeros(B, dtype=bool)
+    # the rollouts that still end short are scored as they are, as in the
+    # JAX package: their count, final times and ids are recorded
+    _tm["short_after_redispatch"] = int(short.sum())
+    _tm["short_final_times"] = [float(t) for t in results["final_time"][:B][short]]
+    _tm["short_ids"] = [inds[i].id for i in np.flatnonzero(short)]
     _tm["device_s"] = time.time() - _td  # pack_s + launch_s
     _tm["batch"] = B
     _tm["batch_padded"] = int(Bp)

@@ -85,6 +85,19 @@
 // development. Bound as the land step: the stress-equalization loop adds
 // 9 material-curve evaluations a bond (each a few loads of the point table
 // with MDL_DATA), the ring one block reduction a step.
+//
+// Volume effects (B6d: the JAX kernel's :1178-1322 and _bond_dir's vol_ctx
+// path :440-506, :577) compile into a kernel of their own,
+// fused_rollout_vol_kernel: the material instance's step with VOL, with and
+// without the features, so every other instance keeps its machine code.
+// Per robot it takes a (9, V) scratch in device memory for the coupling's
+// two neighbour exchanges (each bond's strain to the voxel pass, each
+// voxel's transverse sums and sections back to the bond owners) and the
+// stats row's dt as the carried dt (in: the first bond pass's, out: the
+// last step's); the coupling carry rides state channels 47-52. Bound as
+// the land step, with per step one block max (the dt), one more barrier
+// (the voxel pass) and a pow for each free axis of a voxel; its block max
+// reuses the reductions' shared scratch.
 #include "fused_rollout_common.cuh"
 
 template <int VARIANT, bool FEAT>
@@ -228,6 +241,86 @@ static int launch_mat(float* state, const float* body, int body_batched, float* 
     return (int)cudaGetLastError();
 }
 
+// The material instance's kernel with VOL. Beside its inputs it takes the
+// volume constants and the (B, 9, V) scratch (VolArgs), and it writes the
+// last step's dt to the stats row.
+template <bool FEAT>
+__global__ void __launch_bounds__(MAX_THREADS)
+fused_rollout_vol_kernel(float* state_all, const float* __restrict__ body_all,
+                         int body_batched, float* stats_all,
+                         const float* __restrict__ a1_all, int a1_batched,
+                         const float* __restrict__ ctrl_all, int n_knots,
+                         int knot_steps, int step_base, int X, int Y, int Z,
+                         int num_steps, Params p, int flags, FeatParams fp, MatArgs ma,
+                         int ss_batched, int bc_batched, VolArgs va) {
+    extern __shared__ float sh[];
+    const int V = X * Y * Z;
+    const int b = blockIdx.x;
+    float* st = state_all + (size_t)b * C_S * V;
+    const float* bo = body_all + (body_batched ? (size_t)b * C_B * V : 0);
+    float* stat = stats_all + (size_t)b * C_STAT;
+    const size_t tab = ma.n_surf > 0 ? (size_t)(ma.n_surf + 1) * ma.n_surf : (size_t)V * V;
+    const float* a1 = a1_all ? a1_all + (a1_batched ? (size_t)b * tab : 0) : nullptr;
+    const float* cu = n_knots > 0 ? ctrl_all + (size_t)b * n_knots * V : nullptr;
+    ma.bo = bo;
+    if (ma.ss) ma.ss += ss_batched ? (size_t)b * (2 * ma.n_pts + 3) * V : 0;
+    if (ma.bc) ma.bc += bc_batched ? (size_t)b * 15 * V : 0;
+    va.scr += (size_t)b * VOL_SCR * V;
+    float ke[6];
+    for (int k = 0; k < 6; ++k) ke[k] = stat[ST_KE + k];
+
+    Robot r = load_robot(stat);
+    if constexpr (FEAT) {
+        Feat fe = load_feat(stat);
+        rollout_steps<V_LAND, true, true, true>(st, 0, bo, a1, cu, n_knots, knot_steps,
+                                                step_base, X, Y, Z, num_steps, p, flags, r,
+                                                nullptr, sh, nullptr, &fe, &fp, &ma, ke, &va);
+        if (threadIdx.x == 0) store_feat(stat, fe, fp, flags);
+    } else {
+        rollout_steps<V_LAND, false, true, true>(st, 0, bo, a1, cu, n_knots, knot_steps,
+                                                 step_base, X, Y, Z, num_steps, p, flags, r,
+                                                 nullptr, sh, nullptr, nullptr, nullptr, &ma,
+                                                 ke, &va);
+    }
+
+    if (threadIdx.x == 0) {
+        if (flags & F_EQUIL)
+            for (int k = 0; k < 6; ++k) stat[ST_KE + k] = ke[k];
+        stat[ST_TIME] = r.t;
+        stat[ST_DIV] = r.div ? 1.f : 0.f;
+        stat[ST_DT] = r.dt;
+        stat[ST_INICM] = r.ini.x;
+        stat[ST_INICM + 1] = r.ini.y;
+        stat[ST_INICM + 2] = r.ini.z;
+        stat[ST_CAPT] = r.capt ? 1.f : 0.f;
+    }
+}
+
+template <bool FEAT>
+static int launch_vol(float* state, const float* body, int body_batched, float* stats,
+                      const float* a1, int a1_batched, const float* ctrl, int n_knots,
+                      int knot_steps, int step_base, int B, int X, int Y, int Z,
+                      int num_steps, const Params& p, int flags, const FeatParams& fp,
+                      const MatArgs& ma, int ss_batched, int bc_batched, const VolArgs& va,
+                      cudaStream_t stream) {
+    const int V = X * Y * Z;
+    const int threads = V >= MAX_THREADS ? MAX_THREADS : ((V + 31) / 32) * 32;
+    const size_t coll_floats = !(flags & F_COLL) ? 0
+                               : ma.n_surf > 0   ? (size_t)3 * V + 4 * ma.n_surf
+                                                 : (size_t)7 * V;
+    const size_t smem = ((size_t)BF * V + coll_floats) * sizeof(float);
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(fused_rollout_vol_kernel<FEAT>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    fused_rollout_vol_kernel<FEAT><<<B, threads, smem, stream>>>(
+        state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots, knot_steps,
+        step_base, X, Y, Z, num_steps, p, flags, fp, ma, ss_batched, bc_batched, va);
+    return (int)cudaGetLastError();
+}
+
 // scratch: (B, 6, V) floats of device memory, needed by the facet-drag
 // variant alone (flags F_FLUID | F_FLUID_MESH), else null. fparams: the
 // features' N_FEAT_PARAMS constants (ops/fused_rollout.py _feat_params).
@@ -235,6 +328,9 @@ static int launch_mat(float* state, const float* body, int body_batched, float* 
 // V) with n_pts = P, or null; bc, the BC channels (B or 1, 15, V), or null;
 // n_surf, the surface count of a compact pair table (S + 1, S), or 0;
 // mparams, its float constants (ops/fused_rollout.py _mat_params).
+// The volume instance's inputs: vscratch, (B, 9, V) floats of device
+// memory, and vparams (ops/fused_rollout.py _vol_params); null without the
+// volume bit.
 extern "C" int fused_rollout(float* state, const float* body, int body_batched,
                              float* stats, const float* a1, int a1_batched,
                              const float* ctrl, int n_knots, int knot_steps,
@@ -242,7 +338,8 @@ extern "C" int fused_rollout(float* state, const float* body, int body_batched,
                              int num_steps, const float* params, int flags,
                              float* scratch, const float* fparams, const float* ss,
                              int ss_batched, int n_pts, const float* bc, int bc_batched,
-                             int n_surf, const float* mparams, void* stream) {
+                             int n_surf, const float* mparams, float* vscratch,
+                             const float* vparams, void* stream) {
     Params p;
     memcpy(&p, params, sizeof(float) * N_PARAMS);
     const FeatParams fp = feat_params_from(fparams);
@@ -253,14 +350,27 @@ extern "C" int fused_rollout(float* state, const float* body, int body_batched,
     if (fp.n_src < 0 || fp.n_src > MAX_SRC || fp.n_win < 0 || fp.n_win > MAX_WIN)
         return (int)cudaErrorInvalidValue;
     const bool feat = (flags & F_FEAT) || fp.n_src > 0;
-    const bool mat = (flags & F_MAT) != 0;
-    // the material instance is the land variant's, and needs its tables
+    const bool mat = (flags & (F_MAT | F_VOL)) != 0;
+    // the material and volume instances are the land variant's, and need
+    // their tables
     if (mat && (variant != V_LAND || ((flags & F_MDL) && (ss == nullptr || n_pts < 2)) ||
                 ((flags & F_BC) && bc == nullptr) ||
                 ((flags & F_COMPACT) && (!(flags & F_COLL) || n_surf <= 0))))
         return (int)cudaErrorInvalidValue;
     const MatArgs ma = {nullptr, (flags & F_MDL) ? ss : nullptr, (flags & F_BC) ? bc : nullptr,
                         n_pts, (flags & F_COMPACT) ? n_surf : 0, mparams[0]};
+    if (flags & F_VOL) {
+        if (vscratch == nullptr || vparams == nullptr) return (int)cudaErrorInvalidValue;
+        const VolArgs va = {vscratch, vparams[0], vparams[1], vparams[2]};
+        return feat ? launch_vol<true>(state, body, body_batched, stats, a1, a1_batched, ctrl,
+                                       n_knots, knot_steps, step_base, B, X, Y, Z, num_steps,
+                                       p, flags, fp, ma, ss_batched, bc_batched, va,
+                                       (cudaStream_t)stream)
+                    : launch_vol<false>(state, body, body_batched, stats, a1, a1_batched,
+                                        ctrl, n_knots, knot_steps, step_base, B, X, Y, Z,
+                                        num_steps, p, flags, fp, ma, ss_batched, bc_batched,
+                                        va, (cudaStream_t)stream);
+    }
     if (mat) {
         return feat ? launch_mat<true>(state, body, body_batched, stats, a1, a1_batched, ctrl,
                                        n_knots, knot_steps, step_base, B, X, Y, Z, num_steps,

@@ -76,6 +76,23 @@
 // MDL_DATA tables and the BC channels stay in device memory and are read
 // per voxel where a bond or a voxel needs them; the kinetic energy is one
 // more block reduction a step, through block_sum3's scratch.
+//
+// Volume effects are a fourth template parameter, VOL, instantiated on top
+// of the material instance in a kernel of its own (fused_rollout.cu,
+// fused_rollout_vol_kernel); with VOL false the step compiles to what it
+// was. They replace _make_kernel:1178-1322 and _bond_dir's vol_ctx path
+// (:440-506, :577), in core/step.py's order of operations: the bond's rest
+// length is L, its stress Eh (1 - u) e + Eh u TSavg with Eh and u the
+// harmonic means of the sides' values, less the thermal term, and its axial
+// force that stress times CSavg (state channels 47-52); the step's dt is
+// recomputed after the bond pass from a block-wide max of k_eff / m over the
+// robot's bonds (the damping reads the carried dt, everything after it the
+// new one, and the stats row's dt carries it across launches); the voxel
+// pass's Poisson coupling reads each voxel's bonds' strains and its -d
+// neighbours', and hands each bond owner its +d neighbour's transverse sums
+// and sections. Both exchanges go through 9 floats a voxel of scratch in
+// device memory, so shared memory does not grow: one block max and one more
+// barrier a step. The angular damping is a fixed 1/1.01.
 #pragma once
 #include <cuda_runtime.h>
 #include <string.h>
@@ -96,7 +113,9 @@
 #define S_LA1 26
 #define S_LA2 35
 #define S_MAXS 44
-#define S_DIFF 47  // channels [0, S_DIFF) carry the rollout; the rest are unused here
+#define S_DIFF 47  // channels [0, S_DIFF) carry the land rollout (B4's tape holds them)
+#define S_TSAVG 47  // volume effects: mean transverse strain sum per bond direction
+#define S_CSAVG 50  // ... and mean cross-section
 #define S_SOFF 53  // plastic strain offset per bond direction (material instance)
 #define B_OCC 0
 #define B_MASS 1
@@ -155,6 +174,8 @@
 #define B_FINAL_AD 77
 // material model channels of the body (the material instance's stress)
 #define B_EMOD 78
+#define B_POISSON 79
+#define B_MTPHASE 80  // material temperature phase (volume effects' thermal term)
 #define B_MATMODEL 81
 #define B_PLASTIC 82
 #define B_YIELD 83
@@ -200,6 +221,7 @@
 #define F_BC (1 << 24)
 #define F_COMPACT (1 << 25)
 #define F_MAT (F_NONLINEAR | F_MDL | F_PLASTIC | F_EQUIL | F_MAXVEL | F_BC | F_COMPACT)
+#define F_VOL (1 << 26)  // volume effects: the material instance's VOL kernel
 #define MAX_WIN 12  // window ring slots (ops/fused_rollout.py MAX_KERNEL_WINDOW)
 #define MAX_SRC 3
 
@@ -330,9 +352,14 @@ __device__ inline F3 block_sum3(F3 v, float* red) {
 
 #ifdef EVOSORO_HOST_EMULATION
 __device__ __forceinline__ float warp_min(float v) { return v; }  // one thread a block
+__device__ __forceinline__ float warp_max(float v) { return v; }
 #else
 __device__ __forceinline__ float warp_min(float v) {
     for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
     return v;
 }
 #endif
@@ -357,6 +384,37 @@ __device__ inline F3 block_min3(F3 v, float* red) {
     }
     __syncthreads();
     return m;
+}
+
+// block-wide maximum of one per-thread value, the same in every thread
+__device__ inline float block_max1(float v, float* red) {
+    v = warp_max(v);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    float m = red[0];
+    for (int w = 1; w < (int)((blockDim.x + 31) >> 5); ++w) m = fmaxf(m, red[w]);
+    __syncthreads();
+    return m;
+}
+
+// The volume instance's inputs of one robot: its scratch (VOL_SCR floats a
+// voxel: the strains of the three bonds it owns, then its transverse sums
+// and sections per bond axis) and the float constants of
+// ops/fused_rollout.py _vol_params
+#define VOL_SCR 9
+struct VolArgs {
+    float* scr;      // (VOL_SCR, V)
+    float dt_frac;   // DtFrac
+    float two_pi;    // 2 pi, the reference's truncated pi
+    float l2;        // L², rounded from the double product
+};
+
+// A side's volume-effects modulus E / ((1 - 2u)(1 + u)) (core/materials.py
+// poisson_bond_fields)
+__device__ __forceinline__ float side_eh(float e, float u) {
+    const float denom = (1.f - 2.f * u) * (1.f + u);
+    return denom != 0.f ? e / denom : e;
 }
 
 // The material instance's inputs of one robot (ops/fused_rollout.py
@@ -447,12 +505,16 @@ struct Bond {
 // voxel v; n = v + stride_d. MAT (the material instance): the stress comes
 // from the material models with `flags & F_NONLINEAR`, and with
 // `flags & F_PLASTIC` from plasticity's memory, whose new strain offset
-// goes to *soff.
-template <bool MAT = false>
+// goes to *soff. VOL (volume effects, with MAT): the Poisson-coupled
+// stress in their place, before plasticity, and the thermal term at the
+// clock vt = {t, temperature amplitude, period} after it; vo receives the
+// bond's Eh and CSavg.
+template <bool MAT = false, bool VOL = false>
 __device__ inline Bond bond_forward(const float* si, const float* bd, int v, int n,
                                     int d, int V, const Params& p, float dt,
                                     float dt_inv, const MatArgs* ma = nullptr, int flags = 0,
-                                    float* soff = nullptr) {
+                                    float* soff = nullptr, const float* vt = nullptr,
+                                    float* vo = nullptr) {
 #define SIN(k) (si + (size_t)(k) * V)
     Bond o;
     const F3 p1 = {SIN(S_POS + 0)[v], SIN(S_POS + 1)[v], SIN(S_POS + 2)[v]};
@@ -466,7 +528,8 @@ __device__ inline Bond bond_forward(const float* si, const float* bd, int v, int
     const Q q2 = {qb.w, qb3.x, qb3.y, qb3.z};
     const F3 ang1_rel = qrot_inv(q1, rel);
     const Q new_ang2 = qmul(qconj(q1), q2);
-    const float nom_dist = (SIN(S_SCALE)[v] + SIN(S_SCALE)[n]) * 0.5f;
+    // under volume effects the rest length is the lattice's
+    const float nom_dist = VOL ? p.L : (SIN(S_SCALE)[v] + SIN(S_SCALE)[n]) * 0.5f;
     const float rx = ang1_rel.x, ry = ang1_rel.y, rz = ang1_rel.z;
     const float small_turn = sdiv(fabsf(rz) + fabsf(ry), rx);
     const float extend_perc = sdiv(rx, nom_dist);
@@ -512,8 +575,21 @@ __device__ inline Bond bond_forward(const float* si, const float* bd, int v, int
     o.stiff = hom ? 0.5f * s_sum : E;
     float stress = o.stiff * strain;
     if constexpr (MAT) {
-        if (flags & F_NONLINEAR)  // no near-equal widening on this path
+        if constexpr (VOL) {
+            // Eh (1 - u) e + Eh u TSavg (VXS_BondInternal.cpp:200-222)
+            const float u1 = ma->bo[(size_t)B_POISSON * V + v];
+            const float u2 = ma->bo[(size_t)B_POISSON * V + n];
+            const float us = u1 + u2;
+            const float u = us != 0.f ? 2.f * (u1 * u2 / us) : 0.f;
+            const float e1h = side_eh(E1, u1), e2h = side_eh(E2, u2);
+            const float es = e1h + e2h;
+            const float eh = es != 0.f ? 2.f * (e1h * e2h / es) : 0.f;
+            stress = eh * (1.f - u) * strain + eh * u * SIN(S_TSAVG + d)[v];
+            vo[0] = eh;
+            vo[1] = SIN(S_CSAVG + d)[v];
+        } else if (flags & F_NONLINEAR) {  // no near-equal widening on this path
             stress = nonlinear_stress(*ma, v, n, V, strain, bd[(size_t)D_HOM * V] > 0.5f, p);
+        }
         if (flags & F_PLASTIC) {
             // new-territory strains follow the curve; inside it the stress
             // unloads linearly from the strain offset (:193-207)
@@ -523,13 +599,32 @@ __device__ inline Bond bond_forward(const float* si, const float* bd, int v, int
             if (!fresh) stress = E * (strain - so);
             *soff = fresh ? fmaxf(ms, strain) - sdiv(stress, E) : so;
         }
+        if constexpr (VOL) {
+            if (flags & F_TEMP) {
+                // less the sides' mean E CTE dT / (1 - 2u), dT from each
+                // material's temperature sinusoid (:284-298)
+                const float* bo = ma->bo;
+                const float tper = vt[2];
+                const float w = p.two_pi_f * vt[0] * sdiv(1.f, tper);
+                const float dT1 = tper != 0.f ? vt[1] * sinf(w + bo[(size_t)B_MTPHASE * V + v]) : 0.f;
+                const float dT2 = tper != 0.f ? vt[1] * sinf(w + bo[(size_t)B_MTPHASE * V + n]) : 0.f;
+                const float s1t = sdiv(bo[(size_t)B_EMOD * V + v] * bo[(size_t)B_CTE * V + v] * dT1,
+                                       1.f - 2.f * bo[(size_t)B_POISSON * V + v]);
+                const float s2t = sdiv(bo[(size_t)B_EMOD * V + n] * bo[(size_t)B_CTE * V + n] * dT2,
+                                       1.f - 2.f * bo[(size_t)B_POISSON * V + n]);
+                stress = stress - 0.5f * (s1t + s2t);
+            }
+        }
     }
     o.strain = strain;
 
-    // beam forces/moments, bond frame (:122-154)
+    // beam forces/moments, bond frame (:122-154); the axial force acts on
+    // L² or, under volume effects, on the sides' mean cross-section (:127)
+    float area = p.cs_area;
+    if constexpr (VOL) area = vo[1];
     const float a2c = bd[(size_t)D_A2 * V], b1 = bd[(size_t)D_B1 * V];
     const float b2 = bd[(size_t)D_B2 * V], b3 = bd[(size_t)D_B3 * V];
-    F3 f1 = {stress * p.cs_area, b1 * pos2.y - b2 * (ra1.z + ra2.z),
+    F3 f1 = {stress * area, b1 * pos2.y - b2 * (ra1.z + ra2.z),
              b1 * pos2.z + b2 * (ra1.y + ra2.y)};
     F3 f2 = {-f1.x, -f1.y, -f1.z};
     F3 m1 = {a2c * (ra1.x - ra2.x), b2 * pos2.z + b3 * (2.f * ra1.y + ra2.y),
@@ -1183,15 +1278,18 @@ __device__ inline void ballistic_rebase(float t, const float dv[6], float orig, 
 // (K1 only: slot_stride 0). MAT: the material instance (K1's land variant
 // only) with the inputs ma and the kinetic-energy ring ke (6 floats, the
 // same in every thread); with F_COMPACT, a1 is the compact table (S + 1, S)
-// and sp holds the S surface voxels' positions and scales.
-template <int VARIANT, bool FEAT = false, bool MAT = false>
+// and sp holds the S surface voxels' positions and scales. VOL (with MAT,
+// K1 only): volume effects, with the inputs va; r.dt is the dt carried in
+// and out.
+template <int VARIANT, bool FEAT = false, bool MAT = false, bool VOL = false>
 __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* bo,
                                     const float* a1, const float* cu_robot, int n_knots,
                                     int knot_steps, int step_base, int X, int Y, int Z,
                                     int num_steps, const Params& p, int flags, Robot& r,
                                     float* tape_t, float* sh, float* scr,
                                     Feat* fe = nullptr, const FeatParams* fp = nullptr,
-                                    const MatArgs* ma = nullptr, float* ke = nullptr) {
+                                    const MatArgs* ma = nullptr, float* ke = nullptr,
+                                    const VolArgs* va = nullptr) {
     __shared__ float red[3 * (MAX_THREADS / 32)];
     __shared__ int divflag[2];
 
@@ -1207,14 +1305,15 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
 
     float t = r.t;
     bool div = r.div;
-    const float dt = r.dt;
+    const float dt0 = r.dt;
+    float dt_c = r.dt;  // (volume effects) the dt of the last step taken
     F3 ini = r.ini;
     bool capt = r.capt;
     const float inv_m = r.inv_m;
     const float stop_t = r.stop_t;
     const float init_cm = r.init_cm;
     const float grav = r.grav;
-    const float dt_inv = r.dt_inv;
+    const float dt_inv0 = r.dt_inv;
 
     if (threadIdx.x < 2) divflag[threadIdx.x] = 0;
     if constexpr (FEAT) {
@@ -1229,6 +1328,14 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
     int i = 0;
     for (; i < num_steps; ++i) {
         const int i_glob = step_base + i;
+        // the step's dt: under volume effects the bond pass damps with the
+        // carried one and everything after it takes the one recomputed
+        float dt = dt0;
+        float dt_inv = dt_inv0;
+        if constexpr (VOL) {
+            dt = dt_c;
+            dt_inv = sdiv(1.f, dt_c);
+        }
         // the state is read and written within the launch: no read-only cache
         const float* si = st + (size_t)i * slot_stride;
         float* so = st + (size_t)(i + 1) * slot_stride;
@@ -1256,7 +1363,9 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
                                        flags, red);
             if (flags & F_TRACE) sample = feat_trace_due(*fe, *fp, t + dt, init_cm);
             if (div || t >= stop_t || fell) {
-                if (!sample) {
+                // under volume effects whether a sample is due waits for the
+                // step's own dt: the step runs dry to find it
+                if (!(sample || (VOL && (flags & F_TRACE)))) {
                     if (flags & F_TRACE)
                         feat_trace(*fe, *fp, p, t + dt, false, 0.f, 0.f, init_cm, flags);
                     feat_tail(*fe, *fp, i, num_steps);
@@ -1308,6 +1417,8 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
             pair_contact_block(sp, a1, V, fc, V, 0, V);
         }
         int diverging = 0;
+        float f2max = 0.f;  // (volume effects) this thread's largest k_eff / m
+        const float vt[3] = {t, r.tamp, r.tper};
         for (int v = threadIdx.x; v < V; v += T) {
             for (int d = 0; d < 3; ++d) {
                 const float* bd = bo + (size_t)(B_DIR + d * B_PER_DIR) * V + v;
@@ -1320,6 +1431,7 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
                         scr[(size_t)d * V + v] = 0.f;
                         scr[(size_t)(3 + d) * V + v] = 0.f;
                     }
+                    if constexpr (VOL) va->scr[(size_t)d * V + v] = 0.f;
                     for (int k = 0; k < 12; ++k) out[(size_t)k * V] = 0.f;
                     if (dry) continue;
                     for (int c = 0; c < 3; ++c) {
@@ -1334,8 +1446,19 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
                     continue;
                 }
                 float soff = 0.f;
-                const Bond bn = bond_forward<MAT>(si, bd, v, v + strides[d], d, V, p, dt, dt_inv,
-                                                  ma, flags, &soff);
+                float vo[2];  // (volume effects) the bond's Eh and CSavg
+                const Bond bn = bond_forward<MAT, VOL>(si, bd, v, v + strides[d], d, V, p, dt,
+                                                       dt_inv, ma, flags, &soff, vt, vo);
+                if constexpr (VOL) {
+                    // the strain the voxel pass couples (0 on a heterogeneous
+                    // bond), and k_eff = Eh (CS1 + CS2) / (2 (e L + L)) over
+                    // the lighter side's mass (core/step.py sim_step)
+                    va->scr[(size_t)d * V + v] = bd[(size_t)D_HOM * V] > 0.5f ? bn.strain : 0.f;
+                    const float eff_k = vo[0] * (vo[1] + vo[1]) / (2.f * (bn.strain * p.L + p.L));
+                    const float f2 = fmaxf(sdiv(eff_k, BCH(B_MASS)[v]),
+                                           sdiv(eff_k, BCH(B_MASS)[v + strides[d]]));
+                    f2max = fmaxf(f2max, f2);
+                }
                 if constexpr (MAT)
                     if ((flags & F_PLASTIC) && !dry) SOUT(S_SOFF + d)[v] = soff;
                 if (!dry) SOUT(S_MAXS + d)[v] = fmaxf(SCH(S_MAXS + d)[v], bn.strain);
@@ -1381,6 +1504,60 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
         if (diverging) atomicOr(&divflag[i & 1], 1);
         __syncthreads();
         const bool div_now = divflag[i & 1] != 0;
+
+        if constexpr (VOL) {
+            // ---- the step's dt, DtFrac / (2 pi max sqrt(k_eff / m)) ----
+            const float mfreq = sqrtf(block_max1(f2max, red));
+            if (mfreq > 0.f) dt = va->dt_frac / (va->two_pi * mfreq);
+            // ---- phase C: the voxel pass's Poisson coupling
+            // (VXS_Voxel.cpp:543-632; core/step.py _volume_effects_coupling):
+            // each voxel's strain per axis from its own bond and its -a
+            // neighbour's, a constrained axis counting as bonded on both
+            // sides; the transverse contraction on the free axes; the sums
+            // and sections per bond axis, to scratch for the bond owners ----
+            const float* sv = va->scr;
+            float* ax = va->scr + (size_t)3 * V;
+            for (int v = threadIdx.x; v < V; v += T) {
+                const int coord[3] = {v / (Y * Z), (v / Z) % Y, v % Z};
+                bool Tc[3];
+                float c0[3];
+                for (int a = 0; a < 3; ++a) {
+                    const float* mk = bo + (size_t)(B_DIR + a * B_PER_DIR + D_MASK) * V;
+                    const bool pd = mk[v] > 0.5f;
+                    const bool nd = coord[a] > 0 && mk[v - strides[a]] > 0.5f;
+                    const float sp = sv[(size_t)a * V + v];
+                    const float sn = coord[a] > 0 ? sv[(size_t)a * V + v - strides[a]] : 0.f;
+                    bool cons = false;
+                    if (flags & F_BC)
+                        cons = ma->bc[(size_t)a * V + v] > 0.5f || ma->bc[(size_t)(6 + a) * V + v] != 0.f;
+                    Tc[a] = (pd && nd) || ((pd || nd) && cons);
+                    const float sa = pd && nd ? 0.5f * (sp + sn) : (pd ? sp : (nd ? sn : 0.f));
+                    c0[a] = Tc[a] ? sa : 0.f;
+                }
+                const float mu = BCH(B_POISSON)[v];
+                // pow(1 + e, -mu) - 1 with core/step.py's pow and guard
+                auto pw = [mu](float e) { return powf(fmaxf(1.f + e, 1e-6f), -mu) - 1.f; };
+                const bool tx = Tc[0], ty = Tc[1], tz = Tc[2];
+                const float cx = (!tx && ty && tz) ? pw(c0[1] + c0[2])
+                                 : (!tx && !ty && tz) ? pw(c0[2])
+                                 : (!tx && ty && !tz) ? pw(c0[1]) : c0[0];
+                const float cy = (tx && !ty && tz) ? pw(c0[0] + c0[2])
+                                 : (!tx && !ty && tz) ? pw(c0[2])
+                                 : (tx && !ty && !tz) ? pw(c0[0]) : c0[1];
+                const float cz = (tx && ty && !tz) ? pw(c0[0] + c0[1])
+                                 : (!tx && ty && !tz) ? pw(c0[1])
+                                 : (tx && !ty && !tz) ? pw(c0[0]) : c0[2];
+                ax[v] = cy + cz;
+                ax[(size_t)V + v] = cx + cz;
+                ax[(size_t)2 * V + v] = cy + cx;
+                ax[(size_t)3 * V + v] = (1.f + cy) * (1.f + cz) * va->l2;
+                ax[(size_t)4 * V + v] = (1.f + cx) * (1.f + cz) * va->l2;
+                ax[(size_t)5 * V + v] = (1.f + cy) * (1.f + cx) * va->l2;
+            }
+            __syncthreads();
+            if constexpr (FEAT)
+                if (flags & F_TRACE) sample = feat_trace_due(*fe, *fp, t + dt, init_cm);
+        }
 
         // ---- phase B1 (facet drag only): each cell's thread sums its
         // voxel's forces and computes the mesh vertex at the cell's min
@@ -1537,10 +1714,16 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
 
             // angular integration and quaternion update (:202-215)
             const float iinv = BCH(B_INERTIA_INV)[v];
-            const float ang_fact = 1.f - p.ten_slow * iinv * BCH(B_2SQ_IEXSSS)[v] * dt;
-            F3 ang = {(SCH(S_ANG)[v] + tm.x * dt) * ang_fact,
-                      (SCH(S_ANG + 1)[v] + tm.y * dt) * ang_fact,
-                      (SCH(S_ANG + 2)[v] + tm.z * dt) * ang_fact};
+            F3 ang;
+            if constexpr (VOL) {  // a fixed angular damping (:204)
+                ang = {(SCH(S_ANG)[v] + tm.x * dt) / 1.01f, (SCH(S_ANG + 1)[v] + tm.y * dt) / 1.01f,
+                       (SCH(S_ANG + 2)[v] + tm.z * dt) / 1.01f};
+            } else {
+                const float ang_fact = 1.f - p.ten_slow * iinv * BCH(B_2SQ_IEXSSS)[v] * dt;
+                ang = {(SCH(S_ANG)[v] + tm.x * dt) * ang_fact,
+                       (SCH(S_ANG + 1)[v] + tm.y * dt) * ang_fact,
+                       (SCH(S_ANG + 2)[v] + tm.z * dt) * ang_fact};
+            }
             const Q qo = {SCH(S_QUAT)[v], SCH(S_QUAT + 1)[v], SCH(S_QUAT + 2)[v], SCH(S_QUAT + 3)[v]};
             const Q sp4 = qmul({0.f, ang.x * iinv, ang.y * iinv, ang.z * iinv}, qo);
             Q qn = {qo.w + 0.5f * sp4.w * dt, qo.x + 0.5f * sp4.x * dt,
@@ -1638,6 +1821,21 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
                 SOUT(S_QUAT + 2)[v] = qn.y; SOUT(S_QUAT + 3)[v] = qn.z;
                 SOUT(S_LIN)[v] = lin.x; SOUT(S_LIN + 1)[v] = lin.y; SOUT(S_LIN + 2)[v] = lin.z;
                 SOUT(S_ANG)[v] = ang.x; SOUT(S_ANG + 1)[v] = ang.y; SOUT(S_ANG + 2)[v] = ang.z;
+                if constexpr (VOL) {
+                    // next step's side means of each bond this voxel owns; the
+                    // bond pass of every thread has read the old ones
+                    const float* ax = va->scr + (size_t)3 * V;
+                    for (int d = 0; d < 3; ++d) {
+                        const bool m = BCH(B_DIR + d * B_PER_DIR + D_MASK)[v] > 0.5f;
+                        const int nb = v + strides[d];
+                        const float ts1 = m ? ax[(size_t)d * V + v] : 0.f;
+                        const float ts2 = m ? ax[(size_t)d * V + nb] : 0.f;
+                        const float cs1 = m ? ax[(size_t)(3 + d) * V + v] : va->l2;
+                        const float cs2 = m ? ax[(size_t)(3 + d) * V + nb] : va->l2;
+                        SOUT(S_TSAVG + d)[v] = 0.5f * (ts1 + ts2);
+                        SOUT(S_CSAVG + d)[v] = 0.5f * (cs1 + cs2);
+                    }
+                }
             }
             float new_scale = occ ? curr : nom;
             // MPC channel, after the clamps: the product and the sum round
@@ -1679,12 +1877,14 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
         }
         if (threadIdx.x == 0) divflag[(i + 1) & 1] = 0;
         t = t + dt;
+        if constexpr (VOL) dt_c = dt;
         div = div || div_now;
         __syncthreads();
     }
 #undef SCH
 #undef SOUT
 #undef BCH
+    if constexpr (VOL) r.dt = dt_c;
     r.t = t;
     r.div = div;
     r.ini = ini;

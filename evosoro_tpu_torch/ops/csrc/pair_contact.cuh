@@ -23,6 +23,20 @@
 // so nothing collides).
 #pragma once
 
+// A warp walks a row, 32 lanes along it; the host build (tests/cuda_host)
+// runs one thread a block, which walks every row and every column itself.
+#ifdef EVOSORO_HOST_EMULATION
+#define PAIR_LANE 0
+#define PAIR_WARP 0
+#define PAIR_NWARPS 1
+#define PAIR_LANES 1
+#else
+#define PAIR_LANE (threadIdx.x & 31)
+#define PAIR_WARP (threadIdx.x >> 5)
+#define PAIR_NWARPS (blockDim.x >> 5)
+#define PAIR_LANES 32
+#endif
+
 __device__ __forceinline__ float warp_sum(float v) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     return v;
@@ -35,9 +49,9 @@ __device__ inline void pair_contact_block(const float* sp,
                                           const float* __restrict__ a1, int V,
                                           float* out, int out_stride,
                                           int row0, int row1) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int nwarps = blockDim.x >> 5;
+    const int lane = PAIR_LANE;
+    const int warp = PAIR_WARP;
+    const int nwarps = PAIR_NWARPS;
     const float* px = sp;
     const float* py = sp + V;
     const float* pz = sp + 2 * V;
@@ -46,7 +60,7 @@ __device__ inline void pair_contact_block(const float* sp,
         const float xi = px[i], yi = py[i], zi = pz[i], si = ps[i];
         const float* row = a1 + (size_t)i * V;
         float fx = 0.f, fy = 0.f, fz = 0.f;
-        for (int j = lane; j < V; j += 32) {
+        for (int j = lane; j < V; j += PAIR_LANES) {
             const float a = row[j];
             if (a == 0.f) continue;
             const float dx = px[j] - xi;
@@ -82,9 +96,9 @@ __device__ inline void pair_contact_compact_block(const float* sp,
                                                   const float* __restrict__ a1s,
                                                   const float* __restrict__ idx, int S,
                                                   float* out, int out_stride) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int nwarps = blockDim.x >> 5;
+    const int lane = PAIR_LANE;
+    const int warp = PAIR_WARP;
+    const int nwarps = PAIR_NWARPS;
     const float* px = sp;
     const float* py = sp + S;
     const float* pz = sp + 2 * S;
@@ -93,7 +107,7 @@ __device__ inline void pair_contact_compact_block(const float* sp,
         const float xi = px[i], yi = py[i], zi = pz[i], si = ps[i];
         const float* row = a1s + (size_t)i * S;
         float fx = 0.f, fy = 0.f, fz = 0.f;
-        for (int j = lane; j < S; j += 32) {
+        for (int j = lane; j < S; j += PAIR_LANES) {
             const float a = row[j];
             if (a == 0.f) continue;
             const float dx = px[j] - xi;

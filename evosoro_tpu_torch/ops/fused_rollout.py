@@ -18,7 +18,10 @@ Hopper take its place on the evolution loop's envelope:
   solver and boundary options on land (bilinear and MDL_DATA stress with
   the stress-equalization loop, plasticity, the max-velocity clamp,
   equilibrium mode, boundary-condition regions) with the surface-compacted
-  contact pass, compiled as a third instance of the land variant;
+  contact pass, compiled as a third instance of the land variant, and
+  volume effects (the Poisson-coupled stress with its thermal term, the
+  per-step dt and the voxel pass's transverse coupling), a fourth, in a
+  kernel of its own beside the third;
 - B4 (`fused_bwd_call`, `csrc/fused_rollout_bwd.cu`): the reverse-mode
   segment, the adjoint of K1's step written by hand, which pulls a
   segment's end-state cotangent back to its start state and the control
@@ -72,7 +75,9 @@ _LP2 = 17  # 17..25  last_pos2[d*3 + c]
 _LA1 = 26  # 26..34
 _LA2 = 35  # 35..43
 _MAXS = 44  # 44..46
-_TSAVG = 47  # 47..49 volume-effects carry (not ported)
+# volume effects: each bond direction's mean transverse strain sum and
+# cross-section over its two sides, for the next step's stress
+_TSAVG = 47  # 47..49
 _CSAVG = 50  # 50..52
 _SOFF = 53  # 53..55 plastic strain offset
 # ballistic development's per-voxel fields, rebased every step
@@ -186,12 +191,18 @@ _K1_SMEM_FLOATS_COLL = 43
 # per-voxel floats of device-memory scratch a fluid-mesh launch needs: the
 # per-side strains sv1, sv2 of the three bonds a voxel owns
 _K1_MESH_SCRATCH = 6
+# ... and a volume launch: the strains of the three bonds a voxel owns, then
+# its transverse sums and cross-sections per bond axis (the voxel pass
+# hands them to the bond owners through device memory, so volume effects
+# add no shared memory)
+_K1_VOL_SCRATCH = 9
 _SMEM_BYTES = 232448  # a block's shared memory on Hopper, static and dynamic
 # K1's static shared memory as ptxas reports it: 112 bytes (the block
 # reductions' scratch and the divergence flags), 208 in the feature instance
 # (the window ring); the dynamic part gets what is left. Ceilings: 1350
 # cells with contact, 1612 without (the instance without features fits one
-# more, 1613)
+# more, 1613). Volume effects add none: their block max reuses the
+# reductions' scratch, and their exchanges go through device memory
 _K1_STATIC_SMEM = 208
 
 
@@ -239,6 +250,11 @@ def pack_state(state: SimState, dtype=torch.float32):
             chans[_LP2 + 3 * d + c] = f(state.last_pos2[:, d, ..., c])
             chans[_LA1 + 3 * d + c] = f(state.last_angle1[:, d, ..., c])
             chans[_LA2 + 3 * d + c] = f(state.last_angle2[:, d, ..., c])
+    if state.ts_sum is not None:
+        # the step reads only the two sides' means
+        for d in range(3):
+            chans[_TSAVG + d] = f(0.5 * (state.ts_sum[:, 0, d] + state.ts_sum[:, 1, d]))
+            chans[_CSAVG + d] = f(0.5 * (state.cs_area[:, 0, d] + state.cs_area[:, 1, d]))
     if state.strain_offset is not None:
         for d in range(3):
             chans[_SOFF + d] = f(state.strain_offset[:, d])
@@ -285,6 +301,11 @@ def unpack_state(packed, template: SimState, grid_shape) -> SimState:
     extra = {}
     if template.strain_offset is not None:
         extra["strain_offset"] = torch.stack([g(_SOFF + d) for d in range(3)], dim=1)
+    if template.ts_sum is not None:
+        # both sides get the mean, which is all the step reads
+        for name, base in (("ts_sum", _TSAVG), ("cs_area", _CSAVG)):
+            side = torch.stack([g(base + d) for d in range(3)], dim=1)
+            extra[name] = torch.stack([side, side], dim=1)
     if template.devo is not None:
         extra["devo"] = template.devo.replace(**{
             name: g(_DEVO_DYN + k) for k, name in enumerate(_DEVO_DYN_FIELDS)})
@@ -663,20 +684,19 @@ _K1_FLAG_BITS = dict(floor=1, sticky=2, gravity=4, temp=8, freeze_on=16,
                      falling=32768, ndbv=65536, window=131072, ballistic=262144,
                      nonlinear=1 << 19, mdl_data=1 << 20, plasticity=1 << 21,
                      equilibrium=1 << 22, max_vel=1 << 23, bc=1 << 24,
-                     collision_compact=1 << 25)
+                     collision_compact=1 << 25, volume=1 << 26)
 _K1_DEVO_FLAGS = ("use_init_size", "use_final_size", "use_growth_t",
                   "use_final_phase", "use_final_ad")
 # the fitness features: a launch with any of them (or a source) runs K1's
 # feature instance; those that sample the CoM/volume trace
 _K1_FEATURE_FLAGS = ("needle", "falling", "ndbv", "window", "ballistic")
 _K1_TRACE_FLAGS = ("ndbv", "window", "ballistic")
-# Voxelyze's material, solver and boundary options and the compact contact
-# pass: a launch with any of them runs K1's material instance, which the
-# land variant has (with and without the features)
+# Voxelyze's material, solver and boundary options, the compact contact pass
+# and volume effects: a launch with any of them runs K1's material instance,
+# which the land variant has (with and without the features; with volume
+# effects, an instance of its own)
 _K1_MAT_FLAGS = ("nonlinear", "mdl_data", "plasticity", "equilibrium", "max_vel", "bc",
-                 "collision_compact")
-# flags outside the envelope; each must be off
-_K1_REFUSED = ("volume",)
+                 "collision_compact", "volume")
 # trace-sample ring slots K1 carries per robot, and the sources it tracks
 MAX_KERNEL_WINDOW = 12
 MAX_KERNEL_SOURCES = 3
@@ -699,9 +719,6 @@ def _flag_bits(flags: dict) -> int:
 def check_envelope(flags: dict, scalars: dict):
     """Raise NotImplementedError for any flag outside K1's envelope (for
     CPU and CUDA tensors alike, before anything runs)."""
-    for k in _K1_REFUSED:
-        if flags.get(k):
-            raise NotImplementedError(f"fused rollout: '{k}' is not ported yet")
     # the material instance is the land variant's: in water or with
     # development these options raise by name (ROADMAP.md B.6)
     if flags.get("fluid") or any(flags.get(k) for k in _K1_DEVO_FLAGS):
@@ -899,12 +916,13 @@ FUSED_ROLLOUT_SOURCE_LAUNCHES = 0
 # K1 launches of the material instance, and those of them with the
 # material models (nonlinear stress, MDL_DATA tables, plasticity: B6c), the
 # solver options (max-velocity clamp, equilibrium mode: B6a), BC regions
-# (B6b) and the surface-compacted contact pass (B5)
+# (B6b), the surface-compacted contact pass (B5) and volume effects (B6d)
 FUSED_ROLLOUT_MATERIAL_LAUNCHES = 0
 FUSED_ROLLOUT_NONLINEAR_LAUNCHES = 0
 FUSED_ROLLOUT_SOLVER_LAUNCHES = 0
 FUSED_ROLLOUT_BC_LAUNCHES = 0
 FUSED_ROLLOUT_COMPACT_LAUNCHES = 0
+FUSED_ROLLOUT_VOLUME_LAUNCHES = 0
 
 
 def _k1_params(scalars: dict, prec: Precision) -> np.ndarray:
@@ -948,6 +966,17 @@ def _mat_params(scalars: dict) -> np.ndarray:
     max-velocity clamp's largest displacement a step, max_vox_vel_limit * L
     rounded from the double product as the plain version's tensor of it."""
     return np.asarray([scalars["max_vel_limit"] * scalars["L"]], dtype=np.float32)
+
+
+def _vol_params(scalars: dict) -> np.ndarray:
+    """The volume instance's float constants (csrc VolArgs): DtFrac, 2 pi
+    with the reference's truncated pi (VX_Sim.cpp:1725) and L², each the
+    float32 rounding of the double the eager step's Python expression
+    gives."""
+    from evosoro_tpu_torch.core.constants import REF_PI_DOUBLE
+
+    L = scalars["L"]
+    return np.asarray([scalars["dt_frac"], 2.0 * REF_PI_DOUBLE, L * L], dtype=np.float32)
 
 
 def _feat_params(scalars: dict, flags: dict) -> np.ndarray:
@@ -997,13 +1026,21 @@ def _unpack_body(body_packed, grid_shape, L, flags=None) -> VoxelBody:
                all_linear=not flags.get("nonlinear"))
     kw = {name: per_dir(off, bool if name in ("bond_mask", "bond_homogeneous") else None)
           for name, off in _PER_DIR_FIELDS}
+    # volume effects' bond fields, from the sides' moduli and Poisson ratios
+    from evosoro_tpu_torch.core.materials import poisson_bond_fields
+    from evosoro_tpu_torch.core.step import _nbr
+
+    poisson = g(_B_POISSON)
+    bond_u, bond_eh = poisson_bond_fields(
+        kw["bond_e1"], kw["bond_e2"], poisson.unsqueeze(-4).expand(kw["bond_e1"].shape),
+        torch.stack([_nbr(poisson, d) for d in range(3)], dim=-4))
     return VoxelBody(
         occ=g(_B_OCC) > 0.5, mat=g(_B_MAT).to(torch.int32), nom_pos=nom_pos,
         nominal_size=float(L), mass=g(_B_MASS), mass_inv=g(_B_MASS_INV),
         inertia=torch.where(inertia_inv != 0, 1.0 / torch.where(
             inertia_inv != 0, inertia_inv, 1.0), 0.0),
         inertia_inv=inertia_inv, first_moment=zeros, e_mod=g(_B_EMOD),
-        poisson=g(_B_POISSON), cte=g(_B_CTE), u_static=g(_B_US),
+        poisson=poisson, cte=g(_B_CTE), u_static=g(_B_US),
         u_dynamic=g(_B_UD), lin_stiffness=g(_B_LIN_STIFF),
         two_sq_mexs=g(_B_2SQ_MEXS), two_sq_iexsss=g(_B_2SQ_IEXSSS),
         phase_offset=g(_B_PHASE), final_phase_offset=g(_B_FINAL_PHASE),
@@ -1019,8 +1056,8 @@ def _unpack_body(body_packed, grid_shape, L, flags=None) -> VoxelBody:
         external_force=zeros[..., None].expand(lead + (X, Y, Z, 3)),
         external_disp=zeros[..., None].expand(lead + (X, Y, Z, 3)),
         external_tdisp=zeros[..., None].expand(lead + (X, Y, Z, 3)),
-        bond_e=kw["bond_e"], bond_a1=kw["bond_e"] * Lt, **mat, **{
-            k: v for k, v in kw.items() if k != "bond_e"},
+        bond_e=kw["bond_e"], bond_a1=kw["bond_e"] * Lt, bond_u=bond_u, bond_eh=bond_eh,
+        **mat, **{k: v for k, v in kw.items() if k != "bond_e"},
     )
 
 
@@ -1215,8 +1252,9 @@ def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
     eager `core.step.sim_step`, keep the stats row's bookkeeping as the
     kernel does (IniCM capture with the seed at global step 0, divergence
     latch, stop-time freeze, the features' carry, the kinetic-energy ring of
-    equilibrium mode), select each step's control knot by the global step,
-    and repack. Returns (state_out, stats_out)."""
+    equilibrium mode, under volume effects the dt the stats row carries in
+    and out), select each step's control knot by the global step, and
+    repack. Returns (state_out, stats_out)."""
     from evosoro_tpu_torch.core.step import freeze_where, sim_step
 
     check_envelope(flags, scalars)
@@ -1240,12 +1278,14 @@ def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
         table = collision_packed[0] if collision_packed.shape[0] == 1 else collision_packed
         body = body.replace(collision=CompactTable(table) if flags.get("collision_compact")
                             else table)
-    # unpack_state fills every packed field, the plastic strain offset
-    # included; the rest of the template gives the dtype
+    # unpack_state fills every packed field, the plastic strain offset and
+    # the volume carry included; the rest of the template gives the dtype
     zero = torch.zeros((B, 3, X, Y, Z), dtype=state_packed.dtype,
                        device=state_packed.device)
+    volume = bool(flags.get("volume"))
     template = SimState(**{f.name: None for f in dataclasses.fields(SimState)})
-    template = template.replace(pos=zero, strain_offset=zero)
+    template = template.replace(pos=zero, strain_offset=zero,
+                                ts_sum=zero if volume else None)
     state = unpack_state(state_packed, template, grid_shape)
 
     st = stats
@@ -1260,12 +1300,15 @@ def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
     equilibrium = bool(flags.get("equilibrium"))
     state = state.replace(time=t, diverged=div,
                           ke_history=st[:, _S_KE:_S_KE + 6].clone())
+    if volume:  # the first bond pass's dt, and each step's after it
+        state = state.replace(cur_dt=dt.clone())
 
     sim = SimParams(
         bond_damping_z=scalars["bond_damping_z"],
         col_damping_z=scalars["col_damping_z"],
         slow_damping_z=scalars["slow_damping_z"],
         stop_condition_value=scalars["sc_value"],
+        dt_frac=scalars["dt_frac"],
         init_cm_time=init_cm,
         min_temp_fact=st[:, _S_MINTF],
         mid_life_freeze_time=scalars["freeze"],
@@ -1274,6 +1317,7 @@ def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
         plasticity_enabled=bool(flags.get("plasticity")),
         max_velocity_enabled=bool(flags.get("max_vel")),
         equilibrium_mode=equilibrium,
+        volume_effects_enabled=volume,
     )
     env = EnvParams(
         grav_acc=st[:, _S_GRAV], temp_amplitude=st[:, _S_TAMP],
@@ -1324,7 +1368,7 @@ def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
             # JAX kernel does: integrate it without the divergence freeze
             new = sim_step(state.replace(diverged=torch.zeros_like(state.diverged)), body,
                            sim, env, dt, prec, control_offset=ctrl)
-            feats.after(state.time + dt, new, init_cm, inv_m)
+            feats.after(new.time, new, init_cm, inv_m)
         else:
             new = sim_step(state, body, sim, env, dt, prec, control_offset=ctrl)
         state = freeze_where(frozen, state, new)
@@ -1337,12 +1381,15 @@ def fused_rollout_plain(state_packed, body_packed, stats, collision_packed=None,
     out_stats[:, _S_CAPT] = capt.to(stats.dtype)
     if equilibrium:
         out_stats[:, _S_KE:_S_KE + 6] = state.ke_history
+    if volume:
+        out_stats[:, _S_DT] = state.cur_dt
     feats.store(out_stats)
     # channels the kernel never writes keep their input values
-    keep_to = _SOFF if flags.get("plasticity") else _DEVO_DYN
-    out_state[:, _TSAVG:keep_to] = state_packed[:, _TSAVG:keep_to]
-    if not ballistic:
-        out_state[:, _DEVO_DYN:] = state_packed[:, _DEVO_DYN:]
+    for written, (lo, hi) in ((volume, (_TSAVG, _SOFF)),
+                              (flags.get("plasticity"), (_SOFF, _DEVO_DYN)),
+                              (ballistic, (_DEVO_DYN, C_S))):
+        if not written:
+            out_state[:, lo:hi] = state_packed[:, lo:hi]
     return out_state, out_stats
 
 
@@ -1361,7 +1408,9 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
     device. Under flags["equilibrium"] the launch takes the mode's damping
     override (`equilibrium_scalars`) and the kinetic-energy ring rides
     stats channels 16-21; with plasticity the strain offset rides state
-    channels 53-55. Step i of the launch is the
+    channels 53-55. Under flags["volume"] the coupling carry rides state
+    channels 47-52 and the stats row's dt is the first bond pass's dt in and
+    the last step's out. Step i of the launch is the
     global step `seg_base + i` (`seg_base` an int, given exactly when
     flags["segmented"] is set); its knot is
     `min(global step * n_knots // knot_steps, n_knots - 1)` with
@@ -1448,6 +1497,7 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
         raise ValueError(f"V={V} voxels overflow K1's shared memory ({_SMEM_BYTES} bytes)")
     bits = _flag_bits(flags)
     mesh = bool(bits & _K1_FLAG_BITS["fluid_mesh"])
+    vol = bool(bits & _K1_FLAG_BITS["volume"])
     params = _k1_params(scalars, prec)
     fparams = _feat_params(scalars, flags)
     mparams = _mat_params(scalars)
@@ -1456,23 +1506,29 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
     # the facet-drag variant leaves each bond's per-side strains here
     scratch = torch.empty((B, _K1_MESH_SCRATCH, V), dtype=torch.float32,
                           device=state_packed.device) if mesh else None
+    # the volume instance's bond strains and voxel-pass sums
+    vscratch = torch.empty((B, _K1_VOL_SCRATCH, V), dtype=torch.float32,
+                           device=state_packed.device) if vol else None
+    vparams = _vol_params(scalars) if vol else None
     fn = build.library("fused_rollout")
+    first = (state_out.data_ptr(), body_packed.data_ptr(),
+             int(body_packed.shape[0] == B and B > 1), stats_out.data_ptr(),
+             collision_packed.data_ptr() if coll else None,
+             int(coll and collision_packed.shape[0] == B and B > 1),
+             control_packed.data_ptr() if n_knots else None, int(n_knots),
+             knot_steps, seg0, B, X, Y, Z, int(num_steps),
+             params.ctypes.data_as(ctypes.c_void_p), bits)
+    tables = (ss_packed.data_ptr() if n_pts else None,
+              int(n_pts > 0 and ss_packed.shape[0] == B and B > 1), n_pts,
+              bc_packed.data_ptr() if bc_packed is not None else None,
+              int(bc_packed is not None and bc_packed.shape[0] == B and B > 1),
+              int(n_surf or 0), mparams.ctypes.data_as(ctypes.c_void_p))
     with torch.cuda.device(state_packed.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(state_out.data_ptr(), body_packed.data_ptr(),
-                int(body_packed.shape[0] == B and B > 1), stats_out.data_ptr(),
-                collision_packed.data_ptr() if coll else None,
-                int(coll and collision_packed.shape[0] == B and B > 1),
-                control_packed.data_ptr() if n_knots else None, int(n_knots),
-                knot_steps, seg0, B, X, Y, Z, int(num_steps),
-                params.ctypes.data_as(ctypes.c_void_p), bits,
-                scratch.data_ptr() if mesh else None,
-                fparams.ctypes.data_as(ctypes.c_void_p),
-                ss_packed.data_ptr() if n_pts else None,
-                int(n_pts > 0 and ss_packed.shape[0] == B and B > 1), n_pts,
-                bc_packed.data_ptr() if bc_packed is not None else None,
-                int(bc_packed is not None and bc_packed.shape[0] == B and B > 1),
-                int(n_surf or 0), mparams.ctypes.data_as(ctypes.c_void_p), stream)
+        rc = fn(*first, scratch.data_ptr() if mesh else None,
+                fparams.ctypes.data_as(ctypes.c_void_p), *tables,
+                vscratch.data_ptr() if vol else None,
+                vparams.ctypes.data_as(ctypes.c_void_p) if vol else None, stream)
     build.check(rc, "fused_rollout")
     global FUSED_ROLLOUT_LAUNCHES, FUSED_ROLLOUT_CONTACT_LAUNCHES
     global FUSED_ROLLOUT_KNOT_LAUNCHES, FUSED_ROLLOUT_FLUID_LAUNCHES
@@ -1481,6 +1537,7 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
     global FUSED_ROLLOUT_SOURCE_LAUNCHES, FUSED_ROLLOUT_MATERIAL_LAUNCHES
     global FUSED_ROLLOUT_NONLINEAR_LAUNCHES, FUSED_ROLLOUT_SOLVER_LAUNCHES
     global FUSED_ROLLOUT_BC_LAUNCHES, FUSED_ROLLOUT_COMPACT_LAUNCHES
+    global FUSED_ROLLOUT_VOLUME_LAUNCHES
     FUSED_ROLLOUT_LAUNCHES += 1
     if any(bits & _K1_FLAG_BITS[k] for k in _K1_MAT_FLAGS):
         FUSED_ROLLOUT_MATERIAL_LAUNCHES += 1
@@ -1492,6 +1549,8 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
         FUSED_ROLLOUT_BC_LAUNCHES += 1
     if compact:
         FUSED_ROLLOUT_COMPACT_LAUNCHES += 1
+    if vol:
+        FUSED_ROLLOUT_VOLUME_LAUNCHES += 1
     if any(flags.get(k) for k in _K1_FEATURE_FLAGS) or scalars.get("sources"):
         FUSED_ROLLOUT_FEATURE_LAUNCHES += 1
     if scalars.get("sources"):
@@ -1662,7 +1721,10 @@ def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
     `EVOSORO_TPU_COLL_COMPACT=1` in the environment the contact pass runs
     surface-compacted (as the JAX package's switch, but whenever the surface
     has fewer voxels than the grid: S < V, where the JAX package compares
-    counts padded to 128 lanes). The stop condition is max sim time (through
+    counts padded to 128 lanes). Under volume effects the state must carry
+    the coupling carry (`init_state(volume_effects=True)`); its `cur_dt`, where
+    positive, is the first bond pass's dt, and the new state's is the last
+    step's. The stop condition is max sim time (through
     `stop_time`): the other types run on the eager rollout only
     (`core.rollout`). Returns (new_state, FastRolloutStats), with the
     sources' distances when the environment has sources."""
@@ -1679,6 +1741,9 @@ def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
         raise NotImplementedError(
             "configuration outside the fused rollout's envelope "
             "(ops.fused_rollout.supports)")
+    if sim.volume_effects_enabled and state.ts_sum is None:
+        raise ValueError("volume effects enabled but the state has no coupling carry; "
+                         "create it with init_state(body, volume_effects=True)")
     X, Y, Z = body.occ.shape[-3:]
     B = state.scale.shape[0]
     state_packed = pack_state(state)
@@ -1693,7 +1758,7 @@ def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
     ss_packed = pack_ss_tables(body).to(dev) if body.ss_strain_vox is not None else None
     bc_packed = pack_bc_tables(body).to(dev) if has_bc(body) else None
     if stats is None:
-        stats = make_stats(body, B, dt, sim, env, stop_time)
+        stats = _carried_dt(make_stats(body, B, dt, sim, env, stop_time), state, sim)
     if sim.equilibrium_mode and state.ke_history is not None:
         stats = stats.clone()
         stats[:, _S_KE:_S_KE + 6] = state.ke_history.to(stats.dtype)
@@ -1715,6 +1780,8 @@ def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
     if sim.equilibrium_mode:
         new_state = new_state.replace(
             ke_history=out_stats[:, _S_KE:_S_KE + 6].to(state.ke_history.dtype))
+    if sim.volume_effects_enabled and state.cur_dt is not None:
+        new_state = new_state.replace(cur_dt=out_stats[:, _S_DT].to(state.cur_dt.dtype))
     n_src = len(kernel_scalars(body.nominal_size, sim, env)["sources"])
     if n_src:
         cnt = out_stats[:, _S_SRC + 6:_S_SRC + 7]
@@ -1730,6 +1797,15 @@ def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
             win_prev=out_stats[:, _S_WPREV].to(dtype),
             win_count=out_stats[:, _S_WCNT].to(torch.int32)))
     return new_state, outs
+
+
+def _carried_dt(stats, state: SimState, sim: SimParams):
+    """`stats` with the state's carried dt, where positive, as the first
+    bond pass's dt of a volume-effects launch (the eager step's rule)."""
+    if sim.volume_effects_enabled and state.cur_dt is not None:
+        cur = state.cur_dt.to(stats.dtype).expand(stats.shape[0])
+        stats[:, _S_DT] = torch.where(cur > 0, cur, stats[:, _S_DT])
+    return stats
 
 
 def _ballistic(state: SimState, env: EnvParams) -> bool:
@@ -1760,9 +1836,9 @@ class FusedBatchRunner:
                 "configuration outside the fused rollout's envelope "
                 "(ops.fused_rollout.supports)")
         if dt is None:
-            dt = calc_max_dt(body) * sim.dt_frac
+            dt = calc_max_dt(body, sim.volume_effects_enabled) * sim.dt_frac
         if state is None:
-            state = init_state(body)
+            state = init_state(body, volume_effects=sim.volume_effects_enabled)
         X, Y, Z = body.occ.shape[-3:]
         self.grid_shape = (X, Y, Z)
         self.L = body.nominal_size
@@ -1777,7 +1853,7 @@ class FusedBatchRunner:
             self.collision_packed = torch.as_tensor(
                 pack_collision(body.collision, self.grid_shape),
                 device=self.state_packed.device)[None]
-        self.stats = make_stats(body, batch, dt, sim, env, stop_time)
+        self.stats = _carried_dt(make_stats(body, batch, dt, sim, env, stop_time), state, sim)
         from evosoro_tpu_torch.core.step import has_bc
 
         dev = self.state_packed.device

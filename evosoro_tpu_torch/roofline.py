@@ -7,8 +7,8 @@ rate. Beside it, the least time the card could take for a launch of each
 kernel (`bound`): the larger of its operations over the FP32 peak and its
 compulsory bytes over the memory rate, from counts of the work the launch's
 inputs need (`k1_work`, `b7_work`, `b8_work`, `b4_work`, `k2_work`,
-`b5_work`, `b6_work`, `fma_work`; `launch_work` picks K1's by the launch's
-flags).
+`b5_work`, `b6_work`, `b6d_work`, `fma_work`; `launch_work` picks K1's by
+the launch's flags).
 
 The step's operation count is static: 2187.028 per occupied voxel and step, the
 `flop_count` of ROOFLINE.json (a jaxpr walk of the JAX package's `sim_step`
@@ -66,6 +66,16 @@ on an S-voxel grid gives the same count, the one-hot gather and scatter
 products aside (on this card an index load, no operation), and the kernel
 runs K2's loop body; so the bound charges `PAIR_FLOPS_TESTED` for every
 nonzero entry of the compact table, as `k1_work` does for the dense one.
+
+Volume effects (`b6d_work`) are counted by the same walk of the JAX step
+with VolumeEffectsEnabled on (and its carry in the state) beyond the land
+step, with `EnvParams()`'s varying temperature as the thermal term's clock:
+194 per occupied voxel and step (the Poisson-coupled stress, the thermal
+term, k_eff of every bond, the voxel pass's coupling with its transverse
+contractions) and 19 a robot and step (the max, the square root and the
+division of the new dt); walks of 6³, 8³ and 10³ bodies fit that split
+exactly. Under volume effects the dt changes every step, so a launch's steps
+are counted from its step count (`volume_clock`), not from its clock.
 """
 
 from __future__ import annotations
@@ -106,6 +116,13 @@ PLASTIC_FLOPS_PER_VOXEL = 18.0
 MAX_VEL_FLOPS_PER_VOXEL = 14.0
 MAX_VEL_FLOPS_PER_STEP = 1.0  # a robot
 EQUILIBRIUM_FLOPS_PER_STEP = 5.0  # a robot
+VOLUME_FLOPS_PER_VOXEL = 194.0
+VOLUME_FLOPS_PER_STEP = 19.0  # a robot
+# what volume effects read beyond the land step: of the body Young's modulus,
+# Poisson's ratio and the material temperature phase; of the state the side
+# means of the transverse strain sums and cross-sections, read and written
+VOLUME_BODY_CHANNELS = 3
+VOLUME_STATE_CHANNELS = 6
 BC_CHANNELS = 15
 MATERIAL_BODY_CHANNELS = 4  # Young's modulus, model, plastic modulus, yield stress
 # pair_contact.cuh: operations for every nonzero table entry (difference,
@@ -374,14 +391,50 @@ def b6_work(body, stats, stats_out, flags, grid_shape, n_pts=0):
     return flops, nbytes
 
 
+def volume_clock(stats, stats_out, num_steps):
+    """`stats` with each robot's dt replaced by the mean dt of a volume
+    launch of `num_steps` steps, so that `steps_taken` counts its steps: a
+    robot that ends live (not diverged, short of its stop time) took them
+    all; one that froze, as many as its time span holds at the larger of its
+    first and last dt (a lower count)."""
+    t_in, t_out = stats[:, fr._S_TIME], stats_out[:, fr._S_TIME]
+    live = (stats_out[:, fr._S_DIV] < 0.5) & (t_out < stats_out[:, fr._S_STOP])
+    dt_max = torch.maximum(stats[:, fr._S_DT], stats_out[:, fr._S_DT])
+    steps = torch.where(live, torch.full_like(t_in, float(num_steps)),
+                        torch.floor((t_out - t_in) / dt_max))
+    out = stats.clone()
+    out[:, fr._S_DT] = torch.where(steps > 0, (t_out - t_in) / steps, stats[:, fr._S_DT])
+    return out
+
+
+def b6d_work(state, body, stats, stats_out, flags):
+    """(flops, bytes) volume effects add to one K1 launch (module
+    docstring): `VOLUME_FLOPS_PER_VOXEL` for every occupied voxel and
+    `VOLUME_FLOPS_PER_STEP` for every robot on every step (the stats under
+    `volume_clock`); bytes, the body's volume channels read (Young's modulus
+    counted once, with the nonlinear stress's) and the state's coupling
+    carry read and written."""
+    occupied, steps, _ = _feature_counts(body, stats, stats_out)
+    flops = float(((occupied * VOLUME_FLOPS_PER_VOXEL + VOLUME_FLOPS_PER_STEP) * steps).sum())
+    B, V = state.shape[0], state.shape[-1]
+    channels = VOLUME_BODY_CHANNELS - (1 if flags.get("nonlinear") else 0)
+    return flops, 4.0 * (body.shape[0] * channels * V + 2 * VOLUME_STATE_CHANNELS * B * V)
+
+
 def launch_work(state, body, stats, table, stats_out, controls=None, *,
-                flags, grid_shape, scalars=None, n_pts=0):
+                flags, grid_shape, scalars=None, n_pts=0, num_steps=None):
     """(flops, bytes) of one K1 launch, counted for the variant of the step
     its flags select: `b7_work` in a fluid, `b8_work` with development
     fields, else `k1_work` (with the compact contact pass `b5_work` in
     place of the dense one); and the fitness features' and the material
     instance's work on top (`b8b_work`, `b8c_work`, `b8d_work` with the
-    sources of `scalars`; `b6_work` with `n_pts` MDL_DATA points)."""
+    sources of `scalars`; `b6_work` with `n_pts` MDL_DATA points;
+    `b6d_work` under volume effects, whose launches need their `num_steps`:
+    `volume_clock`)."""
+    if flags.get("volume"):
+        if num_steps is None:
+            raise ValueError("a volume-effects launch is counted from its num_steps")
+        stats = volume_clock(stats, stats_out, num_steps)
     if flags.get("collision_compact"):
         work = k1_work(state, body, stats, None, stats_out, controls)
         b5 = b5_work(table, stats, stats_out)
@@ -401,8 +454,10 @@ def launch_work(state, body, stats, table, stats_out, controls=None, *,
     n_src = len((scalars or {}).get("sources", ()))
     if n_src:
         parts.append(b8d_work(body, stats, stats_out, n_src))
-    if any(flags.get(k) for k in fr._K1_MAT_FLAGS if k != "collision_compact"):
+    if any(flags.get(k) for k in fr._K1_MAT_FLAGS if k not in ("collision_compact", "volume")):
         parts.append(b6_work(body, stats, stats_out, flags, grid_shape, n_pts))
+    if flags.get("volume"):
+        parts.append(b6d_work(state, body, stats, stats_out, flags))
     return sum(p[0] for p in parts), sum(p[1] for p in parts)
 
 

@@ -5,7 +5,7 @@
 // build this with g++ and hold it against the plain PyTorch versions, so the
 // hand-written adjoint and the step's fluid and development variants are
 // checked where there is no card; and K1's material instance
-// (test_torch_materials.py).
+// (test_torch_materials.py) and its volume instance (test_torch_volume.py).
 #define EVOSORO_HOST_EMULATION
 #include <vector>
 
@@ -93,6 +93,58 @@ extern "C" void emu_fwd_mat(float* state, const float* body, int body_batched, f
         if (flags & F_EQUIL)
             for (int k = 0; k < 6; ++k) stat[ST_KE + k] = ke[k];
         stat[ST_TIME] = r.t; stat[ST_DIV] = r.div ? 1.f : 0.f;
+        stat[ST_INICM] = r.ini.x; stat[ST_INICM + 1] = r.ini.y; stat[ST_INICM + 2] = r.ini.z;
+        stat[ST_CAPT] = r.capt ? 1.f : 0.f;
+    }
+}
+// K1's volume instance (the material instance with VOL; the material
+// instance itself when the flags clear the volume bit), with the features
+// when a feature bit or a source is on, and with the dense pair pass when a1
+// is given (one thread walks every row)
+template <bool FEAT, bool VOL>
+static void emu_vol_robot(float* st, const float* bo, const float* a1, int X, int Y, int Z,
+                          int num_steps, const Params& p, int flags, Robot& r, float* sh,
+                          Feat* fe, const FeatParams* fp, const MatArgs* ma, float* ke,
+                          const VolArgs* va) {
+    rollout_steps<V_LAND, FEAT, true, VOL>(st, 0, bo, a1, nullptr, 0, 1, 0, X, Y, Z, num_steps,
+                                            p, flags, r, nullptr, sh, nullptr, fe, fp, ma, ke,
+                                            va);
+}
+extern "C" void emu_fwd_vol(float* state, const float* body, int body_batched, float* stats,
+                            const float* a1, int a1_batched, int n_surf, int B, int X, int Y,
+                            int Z, int num_steps, const float* params, int flags,
+                            const float* fparams, const float* ss, int ss_batched, int n_pts,
+                            const float* bc, int bc_batched, const float* mparams,
+                            const float* vparams) {
+    Params p; memcpy(&p, params, sizeof(float) * N_PARAMS);
+    const FeatParams fp = feat_params_from(fparams);
+    const bool feat = (flags & F_FEAT) || fp.n_src > 0;
+    const bool vol = (flags & F_VOL) != 0;
+    const int V = X * Y * Z;
+    const size_t tab = n_surf > 0 ? (size_t)(n_surf + 1) * n_surf : (size_t)V * V;
+    std::vector<float> sh((size_t)(BF + 7) * V), vscr((size_t)VOL_SCR * V);
+    for (int b = 0; b < B; ++b) {
+        float* stat = stats + (size_t)b * C_STAT;
+        const float* bo = body + (body_batched ? (size_t)b * C_B * V : 0);
+        const float* a1b = a1 ? a1 + (a1_batched ? (size_t)b * tab : 0) : nullptr;
+        MatArgs ma = {bo, ss ? ss + (ss_batched ? (size_t)b * (2 * n_pts + 3) * V : 0) : nullptr,
+                      bc ? bc + (bc_batched ? (size_t)b * 15 * V : 0) : nullptr, n_pts,
+                      (flags & F_COMPACT) ? n_surf : 0, mparams[0]};
+        const VolArgs va = {vscr.data(), vparams[0], vparams[1], vparams[2]};
+        float ke[6];
+        for (int k = 0; k < 6; ++k) ke[k] = stat[ST_KE + k];
+        Robot r = load_robot(stat);
+        Feat fe = load_feat(stat);
+        float* st = state + (size_t)b * C_S * V;
+        const auto run = feat ? (vol ? emu_vol_robot<true, true> : emu_vol_robot<true, false>)
+                              : (vol ? emu_vol_robot<false, true> : emu_vol_robot<false, false>);
+        run(st, bo, a1b, X, Y, Z, num_steps, p, flags, r, sh.data(), feat ? &fe : nullptr,
+            feat ? &fp : nullptr, &ma, ke, &va);
+        if (feat) store_feat(stat, fe, fp, flags);
+        if (flags & F_EQUIL)
+            for (int k = 0; k < 6; ++k) stat[ST_KE + k] = ke[k];
+        stat[ST_TIME] = r.t; stat[ST_DIV] = r.div ? 1.f : 0.f;
+        if (vol) stat[ST_DT] = r.dt;
         stat[ST_INICM] = r.ini.x; stat[ST_INICM + 1] = r.ini.y; stat[ST_INICM + 2] = r.ini.z;
         stat[ST_CAPT] = r.capt ? 1.f : 0.f;
     }

@@ -222,10 +222,14 @@ def test_sim_step_refuses_features_outside_envelope():
     from evosoro_tpu_torch.core import EnvParams, SimParams, init_state
 
     state = init_state(body)
-    for sim, env in ((SimParams(volume_effects_enabled=True), EnvParams()),
-                     (SimParams(), EnvParams(floor_limited=True))):
-        with pytest.raises(NotImplementedError):
-            sim_step(state, body, sim, env, 1e-5)
+    with pytest.raises(NotImplementedError):
+        sim_step(state, body, SimParams(), EnvParams(floor_limited=True), 1e-5)
+    # volume effects need the state's coupling carry, and run with it
+    vol = SimParams(volume_effects_enabled=True)
+    with pytest.raises(ValueError, match="coupling carry"):
+        sim_step(state, body, vol, EnvParams(), 1e-5)
+    stepped = sim_step(init_state(body, volume_effects=True), body, vol, EnvParams(), 1e-5)
+    assert bool(torch.isfinite(stepped.pos).all()) and float(stepped.cur_dt) > 0
     # a fluid environment, development fields, plasticity, the max-velocity
     # clamp and equilibrium mode are inside the envelope
     fluid = sim_step(state, body, SimParams(), EnvParams(fluid_environment=True), 1e-5)

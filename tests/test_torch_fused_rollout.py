@@ -163,14 +163,13 @@ def test_pair_contact_plain_matches_jax():
 @pytest.mark.parametrize("flag", ("volume", "nonlinear", "mdl_data", "plasticity",
                                   "equilibrium", "max_vel", "bc", "collision_compact"))
 def test_fused_call_refuses_flags_outside_envelope(flag, monkeypatch):
-    """Volume effects raise anywhere; the material instance's options (the
-    land variant's) raise by name in water."""
+    """The material instance's options (the land variant's), volume effects
+    among them, raise by name in water."""
     jb, sim, env, dt, state = _jax_setup(1, 3, 0)
     args, kw = _packed_call_args(jb, sim, env, dt, state)
     kw["flags"][flag] = True
-    if flag != "volume":
-        assert flag in fr._K1_MAT_FLAGS and flag not in fr._K1_REFUSED
-        kw["flags"]["fluid"] = True
+    assert flag in fr._K1_MAT_FLAGS
+    kw["flags"]["fluid"] = True
 
     def must_not_run(*a, **k):
         raise AssertionError("the plain version ran")

@@ -432,3 +432,43 @@ def test_material_instance_matches_plain_on_the_card(tmp_path):
     assert float((out_k[:, lin] - out_p[:, lin]).abs().max()) <= 1e-4 * top
     no_contact = run(args, kw, 1, collision=False, collision_compact=False)[0]
     assert float((no_contact[:, lin] - out_p[:, lin]).abs().max()) > 1e-2 * top
+
+
+@pytest.mark.cuda
+def test_volume_instance_matches_plain_on_the_card(tmp_path):
+    """K1's volume instance against its plain version at the tolerances of
+    tests/test_fused_rollout.py:284-327 (pos rtol 2e-4 atol 2e-8, the
+    coupling carry's side means, the stats row's dt and time): the JAX
+    package's volume parity design 8 x 4^3, the volume experiment's batch
+    (contact on) and the cantilever with volume effects, 25 steps each. The
+    guard, on the two actuated launches: the volume bit cleared leaves the
+    transverse sums at their start and fails."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; the CUDA kernels have no CPU mode")
+    from evosoro_tpu_torch import bench
+
+    pos, ts, cs = slice(fr._POS, fr._POS + 3), slice(fr._TSAVG, fr._TSAVG + 3), \
+        slice(fr._CSAVG, fr._CSAVG + 3)
+
+    def close(a, b, rtol, atol):
+        return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+    cant = bench.cantilever_workload(str(tmp_path / "cantilever.vxa"), batch=2,
+                                     device="cuda", volume=True)[:2]
+    for case, (args, kw) in enumerate((bench.volume_scenario_workload(8, device="cuda"),
+                                       bench.volume_workload(device="cuda"), cant)):
+        before = fr.FUSED_ROLLOUT_VOLUME_LAUNCHES
+        out_k, st_k = fr.fused_call(*args, num_steps=25, **kw)
+        torch.cuda.synchronize()
+        assert fr.FUSED_ROLLOUT_VOLUME_LAUNCHES == before + 1
+        out_p, st_p = fr.fused_rollout_plain(*args, num_steps=25, **kw)
+        assert close(out_k[:, pos], out_p[:, pos], 2e-4, 2e-8)
+        assert close(out_k[:, ts], out_p[:, ts], 2e-3, 1e-6)
+        assert close(out_k[:, cs], out_p[:, cs], 1e-4, 0.0)
+        for k in (fr._S_DT, fr._S_TIME):
+            assert close(st_k[:, k], st_p[:, k], 1e-6, 0.0)
+        assert float(out_p[:, ts].abs().max()) > 0
+        if case < 2:
+            off, _ = fr.fused_call(*args, num_steps=25,
+                                   **dict(kw, flags=dict(kw["flags"], volume=False)))
+            assert not close(off[:, ts], out_p[:, ts], 2e-3, 1e-6)

@@ -362,13 +362,15 @@ def test_supports_the_new_options_and_refuses_what_stays_outside():
     # equilibrium mode turns the clamp off, as the reference's override
     bits = fr._flag_bits(dict(flags, equilibrium=True, max_vel=True))
     assert bits & fr._K1_FLAG_BITS["equilibrium"] and not bits & fr._K1_FLAG_BITS["max_vel"]
-    # volume effects raise by name on every path
-    assert not fr.supports(body, SimParams(volume_effects_enabled=True), EnvParams())
+    # volume effects run on land, in the material instance, and need the
+    # state's coupling carry; in water they raise by name
+    vol = SimParams(volume_effects_enabled=True)
+    assert fr.supports(body, vol, EnvParams())
+    assert fr.launch_flags(body, vol, EnvParams())["volume"] and "volume" in fr._K1_MAT_FLAGS
     with pytest.raises(NotImplementedError, match="volume"):
-        fr.check_envelope(dict(flags, volume=True), {})
-    with pytest.raises(NotImplementedError, match="volume"):
-        sim_step(init_state(body), body, SimParams(volume_effects_enabled=True),
-                 EnvParams(), 1e-5)
+        fr.check_envelope({"volume": True, "fluid": True}, {})
+    with pytest.raises(ValueError, match="coupling carry"):
+        sim_step(init_state(body), body, vol, EnvParams(), 1e-5)
     # the material instance is the land variant's
     water = EnvParams(fluid_environment=True, gravity_enabled=False, floor_enabled=False)
     assert not fr.supports(body, SimParams(), water)

@@ -193,8 +193,9 @@ def test_rollout_refuses_what_is_not_ported(what):
     err = NotImplementedError
     if what == "stop_condition":  # the SC_* enum ends at 8
         kw, err = dict(stop_condition_type=9), ValueError
-    elif what == "volume":
-        sim = SimParams(volume_effects_enabled=True)
+    elif what == "volume":  # volume effects need the state's coupling carry
+        sim, kw, err = SimParams(volume_effects_enabled=True), dict(state=init_state(body)), \
+            ValueError
     else:
         kw, err = dict(control_sequence=torch.zeros(2, 5, 5, 5)), ValueError
     with pytest.raises(err):

@@ -559,3 +559,67 @@ def test_material_and_compact_work_follow_the_launch():
                                          grid_shape=(2, 2, 2))
     np.testing.assert_allclose(flops - base[0], 14 * 2 * roofline.PAIR_FLOPS_TESTED)
     assert nbytes - base[1] == 4.0 * 12
+
+
+def test_volume_operation_count_is_a_jaxpr_walk():
+    """Where `VOLUME_FLOPS_PER_VOXEL` and `VOLUME_FLOPS_PER_STEP` come from:
+    `tools/roofline.py`'s jaxpr walk of the JAX package's `sim_step` with
+    volume effects on (and their carry in the state) beyond the land step,
+    under `EnvParams()`'s varying temperature, on bench bodies of 6^3 and
+    8^3: 194 per voxel and 19 a robot fit both exactly."""
+    import jax
+
+    import evosoro_tpu.core.types as jt
+    from evosoro_tpu.core.materials import build_body, calc_max_dt, palette_from_list
+    from evosoro_tpu.core.rollout import init_state
+    from evosoro_tpu.core.step import sim_step
+    from tools.roofline import _count_jaxpr
+
+    def walk(n, vol):
+        rng = np.random.default_rng(0)
+        structure = rng.integers(1, 5, size=(n, n, n)).astype(np.int32)
+        body = build_body(structure, palette_from_list(jt.evosoro_default_palette()),
+                          phase_offset=rng.uniform(-1, 1, size=(n, n, n)))
+        sim = jt.SimParams(volume_effects_enabled=vol)
+        dt = float(calc_max_dt(body, vol)) * 0.9
+        counts = {"ew": 0, "trans": 0, "red": 0, "dot": 0}
+        _count_jaxpr(jax.make_jaxpr(lambda s: sim_step(s, body, sim, jt.EnvParams(), dt))(
+            init_state(body, volume_effects=vol)).jaxpr, counts)
+        return sum(counts.values())
+
+    for n in (6, 8):
+        np.testing.assert_allclose(
+            (walk(n, True) - walk(n, False)) / n ** 3,
+            roofline.VOLUME_FLOPS_PER_VOXEL + roofline.VOLUME_FLOPS_PER_STEP / n ** 3,
+            rtol=1e-12)
+
+
+def test_volume_work_follows_the_launch():
+    """A volume launch is counted from its step count (`volume_clock`): a
+    robot that ends live took them all, one that froze as many as its span
+    holds at its larger dt; `b6d_work` adds its operations and the carry's
+    and the body's volume channels."""
+    B, V = 2, 8
+    state = torch.zeros(B, fr.C_S, V)
+    body = torch.zeros(1, fr.C_B, V)
+    body[0, fr._B_OCC, :6] = 1.0
+    stats = torch.zeros(B, fr.C_STAT)
+    stats[:, fr._S_DT] = 0.5
+    stats[:, fr._S_STOP] = torch.tensor([float("inf"), 2.0])
+    out = stats.clone()
+    out[:, fr._S_TIME] = torch.tensor([4.0, 2.0])
+    out[:, fr._S_DT] = torch.tensor([0.4, 0.5])
+    flags = dict(volume=True)
+    with pytest.raises(ValueError, match="num_steps"):
+        roofline.launch_work(state, body, stats, None, out, flags=flags, grid_shape=(2, 2, 2))
+    clock = roofline.volume_clock(stats, out, 10)
+    assert roofline.steps_taken(clock, out).tolist() == [10.0, 4.0]
+    flops, nbytes = roofline.launch_work(state, body, stats, None, out, flags=flags,
+                                         grid_shape=(2, 2, 2), num_steps=10)
+    base = roofline.k1_work(state, body, clock, None, out)
+    per = 6 * roofline.VOLUME_FLOPS_PER_VOXEL + roofline.VOLUME_FLOPS_PER_STEP
+    np.testing.assert_allclose(flops - base[0], 14 * per)
+    assert nbytes - base[1] == 4.0 * (3 * V + 2 * 6 * B * V)
+    # with the nonlinear stress, Young's modulus is read once
+    _, nb = roofline.b6d_work(state, body, clock, out, dict(flags, nonlinear=True))
+    assert nb == 4.0 * (2 * V + 2 * 6 * B * V)
