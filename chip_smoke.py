@@ -13,7 +13,8 @@ development, both through K1's feature instance), the sampling-MPC
 benchmark of tools/bench_mpc.py (a cold CEM
 solve and a closed receding-horizon loop through K1's control-knot channel),
 and its gradient-MPC part (FusedSQPSolver: K1 segments forward, the
-reverse-mode segment kernel B4 backward).
+reverse-mode segment kernel B4 backward) on land, in water with the facet
+and with the voxel-face drag, and with growth.
 It measures the card's FP32 rate with the fma_peak micro-kernel, sets each
 kernel's time beside the least time the card could take, and measures the
 bench.py throughput workload. Every phase prints one JSON line; any failure
@@ -29,6 +30,13 @@ one JSON object of the digests and times: copied into a checkout of another
 commit (the mode uses only names the port has had since B4 came) and run
 there in the same call, it tells whether the two commits compute the same
 bits on the land path, and lets their times be read in turns.
+
+`python3 chip_smoke.py --diff` runs gradient MPC alone: B4 against its
+plain version on land (`phase_b4`) and in each of its fluid and development
+instances with their guards, beside the K1 launches of the same solves
+(`phase_b4_variants`), then `bench.sqp` on land
+and in each variant (`phase_sqp`, `phase_sqp_variants`); its kernels line
+holds B4's rows.
 
 `python3 chip_smoke.py --features` runs K1's fitness features alone: the
 comparisons and guards of `phase_k1_features`, the cost of the bookkeeping
@@ -1598,10 +1606,14 @@ def _b4_errors(torch, got, ref):
 
 
 def _b4_case(torch, np, fr, label, state, body, stats, ctrl, seg_base, kw, seed,
-             zero_cot=False, timed=False):
+             zero_cot=False, timed=False, guards=()):
     """B4 against `fused_bwd_plain` on one input, with the two guards in the
     data: a launch one step short and the controls' cotangent moved to the
-    neighbouring knot must both fail the comparison."""
+    neighbouring knot must both fail the comparison; and each of `guards`
+    (`_b4_guards`: a plain version with one term of the adjoint wrong) must
+    fail it too."""
+    from unittest import mock
+
     from evosoro_tpu_torch import roofline
 
     B, _, V = state.shape
@@ -1642,6 +1654,11 @@ def _b4_case(torch, np, fr, label, state, body, stats, ctrl, seg_base, kw, seed,
         rec["guard_neighbouring_knot"] = _b4_errors(torch, moved, ref)[0]
         ok = ok and rec["guard_one_step_short"] > B4_REL_TOL \
             and rec["guard_neighbouring_knot"] > B4_REL_TOL
+    for name, module, attr, fn in guards:
+        with mock.patch.object(module, attr, fn):
+            wrong = fr.fused_bwd_plain(state, body, stats, ctrl, seg_base, cot, **kw)
+        rec[f"guard_{name}"] = _b4_errors(torch, got, wrong)[0]
+        ok = ok and rec[f"guard_{name}"] > B4_REL_TOL
     if timed:
         rec["ms"] = _event_ms(torch, lambda: fr.fused_bwd_call(
             state, body, stats, ctrl, seg_base, cot, **kw), 5)
@@ -1654,7 +1671,12 @@ def _b4_case(torch, np, fr, label, state, body, stats, ctrl, seg_base, kw, seed,
         steps = torch.round((st_end[:, fr._S_TIME] - stats[:, fr._S_TIME])
                             / stats[:, fr._S_DT])
         rec["steps_taken"] = steps.tolist()
-        rec.update(roofline.bound(*roofline.b4_work(state, body, stats, ctrl, steps)))
+        flags = kw["flags"]
+        land = not (flags.get("fluid") or any(flags.get(k) for k in fr._K1_DEVO_FLAGS))
+        # (the land call keeps the arguments `--land` runs with in older trees)
+        variant = {} if land else dict(flags=flags, grid_shape=kw["grid_shape"])
+        rec.update(roofline.bound(*roofline.b4_work(state, body, stats, ctrl, steps,
+                                                    **variant)))
     rec["ok"] = ok
     emit(rec)
     assert ok, rec
@@ -1715,6 +1737,224 @@ def phase_b4(torch, np):
     return recs
 
 
+def _b4_guards(torch, model):
+    """The defects the B4 comparison must see in each variant, each a plain
+    version with one term of the adjoint wrong, as (name, module, attribute,
+    replacement) for `mock.patch.object`: with growth the clamps' cotangent
+    dropped (the scale update detached from the graph); in water the drag's
+    adjoint dropped (the drag force detached) and, with the facet drag, each
+    facet's vertex cotangent sent to its owner's own corner at that vertex
+    instead of to the voxels the vertex averages, the drag's value kept."""
+    from evosoro_tpu_torch.core import quaternion as qt
+    from evosoro_tpu_torch.core import step as step_mod
+    from evosoro_tpu_torch.envs import drag as drag_mod
+
+    if model == "devo":
+        scale_update = step_mod._scale_update
+
+        def clamp_dropped(state, body, sim, env, t):
+            scale, devo = scale_update(state, body, sim, env, t)
+            return scale.detach(), devo
+
+        return [("clamp_dropped", step_mod, "_scale_update", clamp_dropped)]
+    if model == "face":
+        face = step_mod._fluid_drag
+        return [("drag_dropped", step_mod, "_fluid_drag", lambda *a: face(*a).detach())]
+    mesh = drag_mod.mesh_drag_forces
+
+    def own_corner(pos, quat, scale, linmom, mass_inv, sys, c_drag, strain_pos=None,
+                   strain_neg=None, nominal_size=None):
+        assert sys.vert_vox.dim() == 2, "one design's tables"
+        B, X, Y, Z, _ = pos.shape
+        posf, quatf = pos.reshape(B, -1, 3), quat.reshape(B, -1, 4)
+        spf = strain_pos.reshape(B, 3, -1).transpose(1, 2)
+        snf = strain_neg.reshape(B, 3, -1).transpose(1, 2)
+
+        def coords(flat):
+            return torch.stack([flat // (Y * Z), (flat // Z) % Y, flat % Z], -1)
+
+        # the true vertices, and each vertex's lattice corner
+        sel = torch.where(sys.vert_sign > 0, spf[:, sys.vert_vox], snf[:, sys.vert_vox])
+        world = posf[:, sys.vert_vox] + qt.quat_rotate(
+            quatf[:, sys.vert_vox], sys.vert_sign * (0.5 * nominal_size) * (1.0 + sel))
+        vpos = (world * sys.vert_w[..., None]).sum(-2) / torch.clamp(
+            sys.vert_w.sum(-1), min=1.0)[..., None]
+        vcorner = coords(sys.vert_vox[:, 0]) + (sys.vert_sign[:, 0] > 0).long()
+        own = sys.tri_owner
+        tri = []
+        for j in range(3):
+            vid = sys.tri_verts[:, j]
+            sign = (2 * (vcorner[vid] - coords(own)) - 1).to(pos.dtype)
+            s = torch.where(sign > 0, spf[:, own], snf[:, own])
+            corner = posf[:, own] + qt.quat_rotate(quatf[:, own],
+                                                    sign * (0.5 * nominal_size) * (1.0 + s))
+            tri.append(vpos[:, vid].detach() + corner - corner.detach())
+        a, b, c = tri
+        n = torch.linalg.cross(b - a, c - a)
+        n_len = torch.sqrt(torch.clamp((n * n).sum(-1), min=1e-30))
+        n_hat = n / n_len[..., None]
+        vel = (linmom * mass_inv[..., None]).reshape(B, -1, 3)[:, own]
+        vn = (vel * n_hat).sum(-1)
+        cd = c_drag[:, None] if torch.is_tensor(c_drag) and c_drag.dim() > 0 else c_drag
+        mag = torch.where(sys.tri_mask & (vn > 0), cd * (0.5 * n_len) * vn * vn, 0.0)
+        out = torch.zeros_like(posf)
+        out.index_add_(1, own, -mag[..., None] * n_hat)
+        return out.reshape(pos.shape)
+
+    return [("drag_dropped", drag_mod, "mesh_drag_forces",
+             lambda *a, **k: mesh(*a, **k).detach()),
+            ("own_corner_only", drag_mod, "mesh_drag_forces", own_corner)]
+
+
+# B4's variants: (model, bench.sqp_workload's arguments, label, the K1
+# counter and the B4 counter of its launches, by phase_sqp_variants' names)
+B4_VARIANTS = (
+    ("mesh", dict(fluid="mesh"), "facet drag", "fused_rollout_mesh", "fused_bwd_mesh"),
+    ("face", dict(fluid="face"), "voxel-face drag", "fused_rollout_fluid", "fused_bwd_fluid"),
+    ("devo", dict(devo=True), "growth", "fused_rollout_devo", "fused_bwd_devo"))
+
+
+def phase_b4_variants(torch, np):
+    """B4's fluid and development instances against `fused_bwd_plain` on
+    the SQP solver's launch of each variant (`bench.sqp_workload`: 8 x 10^3
+    in its 11^3 shell with the facet and with the voxel-face drag, and the
+    growth design 8 x 5x5x4; 25 steps of a 200-step clock, 8 knots) from
+    rest and from the state K1 reaches 75 steps in under random controls
+    (timed), with a random cotangent; then each variant's guards
+    (`_b4_guards`) on the launch 75 steps in where they weigh: in water at
+    200 x the drag coefficient from momenta perturbed so that facets face
+    forward on every side, with growth under clamp bounds that keep the old
+    scale now and then. The K1 launches of the same solve are held against
+    the plain version at the variant's tolerances (the facet drag's
+    `MESH_TOL`): the 75 steps from rest in segmented mode with the knots,
+    and the 25-step segment at seg_base 75 from where they end, which with
+    its knots zeroed must fail the comparison. Returns
+    ({model: B4 records}, {model: K1 records})."""
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.core.rollout import init_state
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    B, K, S, total = 8, 8, 25, 200
+    out, k1 = {}, {}
+    for model, wkw, name, _, _ in B4_VARIANTS:
+        body, sim, env, dt = bench.sqp_workload(device="cuda", **wkw)
+        body_packed = fr.pack_body(body)
+        state0 = fr.pack_state_single(init_state(body))[None].expand(B, -1, -1).contiguous()
+        stats0 = fr.make_stats(body, B, dt, sim, env)
+        kw = dict(num_steps=S, grid_shape=tuple(body.occ.shape),
+                  scalars=fr.kernel_scalars(body.nominal_size, sim, env),
+                  flags=fr.launch_flags(body, sim, env, collision=False, segmented=True),
+                  n_knots=K, total_steps=total)
+        V = body.occ.numel()
+        ctrl = _controls(torch, np, B, K, V, seed=21)
+        label = "SQP launch %d x %s, %s" % (B, "x".join(map(str, body.occ.shape)), name)
+        recs = [_b4_case(torch, np, fr, label + ", from rest", state0, body_packed, stats0,
+                         ctrl, 0, kw, seed=5)]
+        k1_kw = {k: v for k, v in kw.items() if k != "num_steps"}
+        k1_kw["control_packed"] = ctrl
+        opts = dict(phase="k1_sqp_launch_vs_plain", tol=MESH_TOL if model == "mesh" else TOL,
+                    model=model, knots=K)
+        k1[model] = _k1_cases(torch, fr, label + ", from rest",
+                              (state0, body_packed, stats0, None), dict(k1_kw, seg_base=0),
+                              B, False, (75,), **opts)
+        st75, ss75 = fr.fused_call(state0, body_packed, stats0, None, control_packed=ctrl,
+                                   seg_base=0, **dict(kw, num_steps=75))
+        k1[model] += _k1_cases(torch, fr, label + ", 75 steps in",
+                               (st75, body_packed, ss75, None), dict(k1_kw, seg_base=75),
+                               B, False, (S,), **opts)
+        # guard: the segment with its knots zeroed must fail against the plain
+        # version with them (the knots reach the scale through the variant's
+        # fluid_scale or development_scale)
+        seg = (st75, body_packed, ss75, None)
+        out_z, st_z = fr.fused_call(*seg, num_steps=S, **dict(
+            k1_kw, seg_base=75, control_packed=torch.zeros_like(ctrl)))
+        out_p, st_p = fr.fused_rollout_plain(*seg, num_steps=S, **dict(k1_kw, seg_base=75))
+        passes, errs = _compare(torch, fr, out_z, st_z, out_p, st_p, opts["tol"])
+        rec = dict(phase="k1_sqp_launch_guard", workload=label + ", 75 steps in, knots zeroed",
+                   passes=passes, scale_err=errs["scale"], ok=not passes)
+        emit(rec)
+        assert rec["ok"], rec
+        recs.append(_b4_case(torch, np, fr, label + ", 75 steps in", st75, body_packed, ss75,
+                             ctrl, 75, kw, seed=6, timed=True))
+        gs, gss = st75.clone(), ss75.clone()
+        if model == "devo":
+            gss[:, fr._S_MINTF] = 0.9995
+            gss[:, fr._S_GAMP] = 5e-4
+            what = "clamp bounds 0.9995 L and 1.0005 L"
+        else:
+            gss[:, fr._S_DRAGC] = STRONG_DRAG
+            rng = np.random.default_rng(7)
+            occ = (body_packed[:, fr._B_OCC] > 0.5).float()
+            for a, b in ((fr._LIN, fr._LIN + 3), (fr._ANG, fr._ANG + 3)):
+                noise = torch.as_tensor(rng.standard_normal((B, 3, V)).astype(np.float32),
+                                        device="cuda")
+                gs[:, a:b] += 3 * noise * gs[:, a:b].abs().max() * occ[:, None]
+            what = "drag %g, momenta perturbed" % STRONG_DRAG
+        recs.append(_b4_case(torch, np, fr, label + ", 75 steps in, " + what, gs.contiguous(),
+                             body_packed, gss.contiguous(), ctrl, 75, kw, seed=7,
+                             guards=_b4_guards(torch, model)))
+        out[model] = recs
+    return out, k1
+
+
+def _sqp_checks(rec, launches):
+    """What a `bench.sqp` run must show: finite costs that fall, an accepted
+    step, controls inside the box, and 72 K1 and 32 B4 launches a solve
+    (a cold solve and 3 re-plans)."""
+    import math
+
+    trace = rec["cost_trace"]
+    assert all(math.isfinite(c) for c in trace + rec["replan_final_costs"]), rec
+    assert math.isfinite(rec["final_cost"]) and any(rec["accepted_trace"]), rec
+    assert rec["best_cost"] <= trace[0] and rec["final_cost"] < trace[0], rec
+    assert rec["max_abs_u"] <= rec["u_clip"] + 1e-7, rec
+    n_it, n_res = rec["num_iters"], rec["n_res"]
+    assert rec["k1_launches_per_solve"] == (2 * n_it + 1) * n_res == 72, rec
+    assert rec["b4_launches_per_solve"] == n_it * n_res == 32, rec
+    assert launches["fused_rollout"] == launches["fused_rollout_with_knots"] == 4 * 72
+    assert launches["fused_bwd"] == 4 * 32, launches
+
+
+def phase_sqp_variants(torch, b4_var):
+    """The gradient-MPC path in water and with growth at the bench_mpc width:
+    `bench.sqp(fluid="mesh")`, `(fluid="face")` and `(devo=True)` (a cold
+    `FusedSQPSolver.solve` and three re-plans, 200 steps in 8 segments, 8
+    knots, 4 iterations; `bench.sqp_workload`), every launch counter set to
+    0 just before each and read just after: each run's 4 x 72 K1 and 4 x 32
+    B4 launches are its variant's. Returns {model: launches}."""
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    counters = dict(fused_rollout="FUSED_ROLLOUT_LAUNCHES",
+                    fused_rollout_with_knots="FUSED_ROLLOUT_KNOT_LAUNCHES",
+                    fused_rollout_fluid="FUSED_ROLLOUT_FLUID_LAUNCHES",
+                    fused_rollout_mesh="FUSED_ROLLOUT_MESH_LAUNCHES",
+                    fused_rollout_devo="FUSED_ROLLOUT_DEVO_LAUNCHES",
+                    fused_bwd="FUSED_BWD_LAUNCHES", fused_bwd_fluid="FUSED_BWD_FLUID_LAUNCHES",
+                    fused_bwd_mesh="FUSED_BWD_MESH_LAUNCHES",
+                    fused_bwd_devo="FUSED_BWD_DEVO_LAUNCHES")
+    out = {}
+    for model, wkw, _, k1_key, b4_key in B4_VARIANTS:
+        for name in counters.values():
+            setattr(fr, name, 0)
+        rec = bench.sqp(device="cuda", **wkw)
+        launches = {k: getattr(fr, name) for k, name in counters.items()}
+        timed = next(r for r in b4_var[model] if "ms" in r)
+        k1_ms, b4_ms = timed["k1_ms"], timed["ms"]
+        rec.update(k1_ms_per_launch=k1_ms, b4_ms_per_launch=b4_ms,
+                   k1_share=rec["k1_launches_per_solve"] * k1_ms / rec["ms_per_solve"],
+                   b4_share=rec["b4_launches_per_solve"] * b4_ms / rec["ms_per_solve"])
+        emit(dict(phase="sqp", what="FusedSQPSolver: cold solve and re-plans, %s" % model,
+                  **rec))
+        emit(dict(phase="sqp_launches", model=model, **launches))
+        _sqp_checks(rec, launches)
+        assert launches[k1_key] == 4 * 72 and launches[b4_key] == 4 * 32, launches
+        if model == "face":
+            assert launches["fused_rollout_mesh"] == launches["fused_bwd_mesh"] == 0, launches
+        out[model] = launches
+    return out
+
+
 def phase_sqp(torch, b4_timed):
     """The gradient-MPC path at the bench_mpc width: `bench.sqp` (a cold
     `FusedSQPSolver.solve` and three re-plans on the 10^3 design, 200 steps
@@ -1743,16 +1983,7 @@ def phase_sqp(torch, b4_timed):
                b4_share=rec["b4_launches_per_solve"] * b4_ms / rec["ms_per_solve"])
     emit(dict(phase="sqp", what="FusedSQPSolver: cold solve and re-plans", **rec))
     emit(dict(phase="sqp_launches", **launches))
-    trace = rec["cost_trace"]
-    assert all(math.isfinite(c) for c in trace + rec["replan_final_costs"]), rec
-    assert math.isfinite(rec["final_cost"]) and any(rec["accepted_trace"]), rec
-    assert rec["best_cost"] <= trace[0] and rec["final_cost"] < trace[0], rec
-    assert rec["max_abs_u"] <= rec["u_clip"] + 1e-7, rec
-    n_it, n_res = rec["num_iters"], rec["n_res"]
-    assert rec["k1_launches_per_solve"] == (2 * n_it + 1) * n_res == 72, rec
-    assert rec["b4_launches_per_solve"] == n_it * n_res == 32, rec
-    assert launches["fused_rollout"] == launches["fused_rollout_with_knots"] == 4 * 72
-    assert launches["fused_bwd"] == 4 * 32, launches
+    _sqp_checks(rec, launches)
 
     # the plain path on the card, cut in depth: 20 and 25 steps of the 200
     body, sim, _, dt = bench.mpc_workload(device="cuda")
@@ -1933,6 +2164,49 @@ def phase_land(torch, np, card):
                         materials_1024x10_3x200_ms=mat_ms)))
 
 
+def _b4_rows(b4, b4_var, sqp_launches, var_launches, bound_keys):
+    """The kernels line's rows of B4: the land instance and the fluid and
+    development instances, each with its launches in the SQP phases."""
+    b4_timed = next(r for r in b4 if "ms" in r)
+    rows = [dict(name="fused_rollout_bwd (B4)", route="cuda",
+                 source="evosoro_tpu_torch/ops/csrc/fused_rollout_bwd.cu",
+                 replaces="evosoro_tpu/ops/fused_rollout.py:2745",
+                 launches=sqp_launches["fused_bwd"],
+                 **bound_keys(b4_timed),
+                 max_abs_err=max(r["max_abs_err"] for r in b4),
+                 worst_rel_err=max(r["worst_rel_err"] for r in b4),
+                 err_of=("cotangent of the controls, against autograd through the "
+                         "plain version: the SQP launch 8 x 10^3 x 25 steps, 8 knots, "
+                         "from rest and 75 steps in, floor and gravity off and on; "
+                         "4 x 6^3 with a body per robot; a zero cotangent. "
+                         "worst_rel_err: every channel group of both cotangents over "
+                         "the group's largest plain value"),
+                 ms=b4_timed["ms"], plain_ms=b4_timed["plain_ms"],
+                 ms_of="one launch of a solve: 8 x 10^3, 25 steps at seg_base 75, 8 knots")]
+    for model, _, name, _, b4_key in B4_VARIANTS:
+        recs = b4_var[model]
+        timed = next(r for r in recs if "ms" in r)
+        guards = {k: v for r in recs for k, v in r.items()
+                  if k.startswith("guard_") and k not in ("guard_one_step_short",
+                                                          "guard_neighbouring_knot")}
+        rows.append(dict(
+            name="fused_rollout_bwd (B4), %s" % name, route="cuda",
+            source="evosoro_tpu_torch/ops/csrc/fused_rollout_bwd.cu",
+            replaces="evosoro_tpu/ops/fused_rollout.py:2745",
+            launches=var_launches[model][b4_key],
+            launches_of="bench.sqp, %s: a cold solve and 3 re-plans" % name,
+            **bound_keys(timed),
+            max_abs_err=max(r["max_abs_err"] for r in recs),
+            worst_rel_err=max(r["worst_rel_err"] for r in recs), guards=guards,
+            err_of=("cotangent of the controls, against autograd through the plain "
+                    "version: the SQP launch %s x 25 steps, 8 knots, from rest and 75 "
+                    "steps in, and the guards' launch; worst_rel_err as the land row"
+                    % recs[0]["workload"].split(", ")[0][len("SQP launch "):]),
+            ms=timed["ms"], plain_ms=timed["plain_ms"],
+            ms_of="one launch of a solve: %s" % timed["workload"]))
+    return rows
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "evosoro_tpu_torch")):
         raise SystemExit("chip_smoke: run it from a checkout of the repository "
@@ -1945,6 +2219,21 @@ def main():
     phase_build()
     if sys.argv[1:] == ["--land"]:
         return phase_land(torch, np, card)
+    if sys.argv[1:] == ["--diff"]:
+        b4 = phase_b4(torch, np)
+        b4_var, k1_sqp = phase_b4_variants(torch, np)
+        sqp_launches = phase_sqp(torch, next(r for r in b4 if "ms" in r))
+        var_launches = phase_sqp_variants(torch, b4_var)
+
+        def bound_keys(rec):
+            return dict(bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None)
+
+        emit(dict(kernels=_b4_rows(b4, b4_var, sqp_launches, var_launches, bound_keys)))
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return None
     if sys.argv[1:] in (["--features"], ["--materials"], ["--volume"]):
         if sys.argv[1:] == ["--features"]:
             phase_k1_features(torch)
@@ -1978,7 +2267,9 @@ def main():
     mpc_launches, knot_timed, loop_recs = phase_mpc(torch, np)
     b4 = phase_b4(torch, np)
     b4_timed = next(r for r in b4 if "ms" in r)
+    b4_var, k1_sqp = phase_b4_variants(torch, np)
     sqp_launches = phase_sqp(torch, b4_timed)
+    var_launches = phase_sqp_variants(torch, b4_var)
     phase_throughput(torch, card)
     k1_timed = next(r for r in k1 if "ms" in r)
     vol_cases = vol["a"] + [vol["a_guards"], vol["a_knots"]] + vol["b"] + [
@@ -1986,6 +2277,7 @@ def main():
     fluid_timed = next(r for r in fluid["mesh"] if "ms" in r)
     devo_timed = next(r for r in devo if "ms" in r)
     knots += [knot_timed, *loop_recs]
+    sqp_k1 = [r for recs in k1_sqp.values() for r in recs]
 
     def at_measured_peak(rec):
         """A record's bound with the FP32 rate fma_peak measured in this run."""
@@ -2007,6 +2299,7 @@ def main():
              + grow["fused_rollout"] + featx["fused_rollout"] + balx["fused_rollout"]
              + matx["fused_rollout"] + replay["fused_rollout"]
              + mpc_launches["fused_rollout"] + sqp_launches["fused_rollout"]
+             + sum(v["fused_rollout"] for v in var_launches.values())
              + vol["replay_launches"]["fused_rollout"] + vol["evolution"]["fused_rollout"]
              + vol["mpc_launches"]["fused_rollout"],
              launches_evolution=launches["fused_rollout"],
@@ -2018,6 +2311,7 @@ def main():
              launches_replay=replay["fused_rollout"],
              launches_mpc=mpc_launches["fused_rollout"],
              launches_sqp=sqp_launches["fused_rollout"],
+             launches_sqp_water_growth=sum(v["fused_rollout"] for v in var_launches.values()),
              launches_volume=vol["replay_launches"]["fused_rollout"]
              + vol["evolution"]["fused_rollout"] + vol["mpc_launches"]["fused_rollout"],
              **bound_keys(k1_timed),
@@ -2044,64 +2338,66 @@ def main():
              source="evosoro_tpu_torch/ops/csrc/fused_rollout.cu",
              replaces="evosoro_tpu/ops/fused_rollout.py:1710",
              launches=mpc_launches["fused_rollout_with_knots"]
-             + sqp_launches["fused_rollout_with_knots"],
+             + sqp_launches["fused_rollout_with_knots"]
+             + sum(v["fused_rollout_with_knots"] for v in var_launches.values()),
              launches_evolution=launches["fused_rollout_with_knots"],
              launches_sqp=sqp_launches["fused_rollout_with_knots"],
+             launches_sqp_water_growth=sum(v["fused_rollout_with_knots"]
+                                           for v in var_launches.values()),
              **bound_keys(knot_timed),
-             max_abs_err=max(r["pos"] for r in knots),
+             max_abs_err=max(r["pos"] for r in knots + sqp_k1),
              err_of=("pos (m), bench 8 x 10^3 and evaluator batch 16 x 6^3, "
                      "K 1 and 4, 1/25 steps, contact off and on; the "
-                     "solve's launch, 128 x 10^3, 8 knots, 200 steps; and the "
+                     "solve's launch, 128 x 10^3, 8 knots, 200 steps; the "
                      "closed loop's plan (32 x 200 steps, 8 knots) and execute "
-                     "(1 x 100 steps, 4 knots) launches after a segment"),
+                     "(1 x 100 steps, 4 knots) launches after a segment; and the "
+                     "fused SQP solve's segmented launches in water (facet and "
+                     "voxel-face drag, 8 x 11^3) and with growth (8 x 5x5x4), 8 knots, "
+                     "75 steps from rest and 25 steps at seg_base 75"),
              ms=knot_timed["ms"], plain_ms=knot_timed["plain_ms"],
              ms_of="one launch of a cold solve: 128 x 10^3, 8 knots, 200 steps"),
-        dict(name="fused_rollout_bwd (B4)", route="cuda",
-             source="evosoro_tpu_torch/ops/csrc/fused_rollout_bwd.cu",
-             replaces="evosoro_tpu/ops/fused_rollout.py:2745",
-             launches=sqp_launches["fused_bwd"],
-             **bound_keys(b4_timed),
-             max_abs_err=max(r["max_abs_err"] for r in b4),
-             worst_rel_err=max(r["worst_rel_err"] for r in b4),
-             err_of=("cotangent of the controls, against autograd through the "
-                     "plain version: the SQP launch 8 x 10^3 x 25 steps, 8 knots, "
-                     "from rest and 75 steps in, floor and gravity off and on; "
-                     "4 x 6^3 with a body per robot; a zero cotangent. "
-                     "worst_rel_err: every channel group of both cotangents over "
-                     "the group's largest plain value"),
-             ms=b4_timed["ms"], plain_ms=b4_timed["plain_ms"],
-             ms_of="one launch of a solve: 8 x 10^3, 25 steps at seg_base 75, 8 knots"),
+        *_b4_rows(b4, b4_var, sqp_launches, var_launches, bound_keys),
         dict(name="K1 fluid branches (B7)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fused_rollout_common.cuh",
              replaces="evosoro_tpu/ops/fused_rollout.py:1373",
-             launches=swim["fused_rollout_fluid"],
+             launches=swim["fused_rollout_fluid"] + var_launches["mesh"]["fused_rollout_fluid"]
+             + var_launches["face"]["fused_rollout_fluid"],
              launches_of="two generations of the swimming experiment, every "
-             "launch with the facet drag (%d)" % swim["fused_rollout_mesh"],
+             "launch with the facet drag (%d); bench.sqp in water, facet and "
+             "voxel-face drag (%d, %d)" % (swim["fused_rollout_mesh"],
+                                          var_launches["mesh"]["fused_rollout_fluid"],
+                                          var_launches["face"]["fused_rollout_fluid"]),
              **bound_keys(fluid_timed),
-             max_abs_err=max(r["pos"] for r in fluid["mesh"] + fluid["face"]),
-             max_abs_err_mesh=max(r["pos"] for r in fluid["mesh"]),
-             max_abs_err_face=max(r["pos"] for r in fluid["face"]),
-             face_state_bit_equal=all(r["state_bit_equal"] for r in fluid["face"]),
+             max_abs_err=max(r["pos"] for r in fluid["mesh"] + fluid["face"]
+                             + k1_sqp["mesh"] + k1_sqp["face"]),
+             max_abs_err_mesh=max(r["pos"] for r in fluid["mesh"] + k1_sqp["mesh"]),
+             max_abs_err_face=max(r["pos"] for r in fluid["face"] + k1_sqp["face"]),
+             face_state_bit_equal=all(r["state_bit_equal"]
+                                      for r in fluid["face"] + k1_sqp["face"]),
              err_of=("pos (m) against the plain version, both drag models: bench "
                      "8 x 11^3 and the swimming evaluator batch (16 x 6^3 face, "
                      "16 x 7^3 mesh, a body per robot), 1/25/100 steps, contact "
-                     "off and on"),
+                     "off and on; the fused SQP solve's segmented launches, 8 x 11^3, "
+                     "8 knots, 75 steps from rest and 25 steps at seg_base 75"),
              ms=fluid_timed["ms"], plain_ms=fluid_timed["plain_ms"],
              ms_of="swimming evaluator batch %d x 7^3, facet drag, 25 steps, "
              "contact on" % fluid_timed["batch"]),
         dict(name="K1 growth ramps (B8a)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fused_rollout_common.cuh",
              replaces="evosoro_tpu/ops/fused_rollout.py:1628",
-             launches=grow["fused_rollout_devo"],
-             launches_of="two generations of the growth experiment",
+             launches=grow["fused_rollout_devo"] + var_launches["devo"]["fused_rollout_devo"],
+             launches_of="two generations of the growth experiment, and bench.sqp "
+             "with growth (%d)" % var_launches["devo"]["fused_rollout_devo"],
              **bound_keys(devo_timed),
-             max_abs_err=max(r["pos"] for r in devo),
-             max_abs_scale_err=max(r["scale"] for r in devo),
-             state_bit_equal=all(r["state_bit_equal"] for r in devo),
+             max_abs_err=max(r["pos"] for r in devo + k1_sqp["devo"]),
+             max_abs_scale_err=max(r["scale"] for r in devo + k1_sqp["devo"]),
+             state_bit_equal=all(r["state_bit_equal"] for r in devo + k1_sqp["devo"]),
              err_of=("pos (m) against the plain version: bench 8 x 10^3 with "
                      "random growth fields, without and with the mid-life freeze, "
                      "and the growth evaluator batch 16 x 5x5x4, 1/25/100 steps, "
-                     "contact off and on"),
+                     "contact off and on; the fused SQP solve's segmented launches "
+                     "with growth, 8 x 5x5x4, 8 knots, 75 steps from rest and 25 "
+                     "steps at seg_base 75"),
              ms=devo_timed["ms"], plain_ms=devo_timed["plain_ms"],
              ms_of="growth evaluator batch %d x 5x5x4, 25 steps, contact on"
              % devo_timed["batch"]),

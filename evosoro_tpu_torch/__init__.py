@@ -12,8 +12,8 @@ Ported so far: the evolution loop's evaluation (`evo`) on land, in water
 (`control.shooting`) and gradient MPC (`control.grad_optimize`,
 `control.sqp`, `ops.fused_diff`), whose fused solver differentiates the
 rollout with the reverse-mode segment kernel inside
-`ops.fused_rollout.diff_envelope_ok`: the fused kernel's envelope without
-self-collision.
+`ops.fused_rollout.diff_envelope_ok`: on land, in water and with
+development, without self-collision or the material options.
 """
 
 __version__ = "0.1.0"

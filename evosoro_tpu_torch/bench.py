@@ -23,7 +23,11 @@ Four workloads, all from the JAX package's own benchmarks and examples:
   the same design without floor and gravity, 200 plan steps in 8 segments,
   8 knots, 4 Gauss-Newton iterations: one cold solve and re-plans from its
   result with moving targets, through K1 forward and the reverse-mode
-  segment kernel B4 backward;
+  segment kernel B4 backward; and the same in water (the design in its
+  one-cell shell, drag coefficient 750, with the facet or the voxel-face
+  drag) and with growth (the growth experiment's 5×5×4 all-muscle design
+  on its floor, with development fields whose ramps run within the
+  horizon);
 - replay: the four designs an evosoro run archived in
   `basic_data/bestSoFar/fitOnly/` (6³, collision on, 5 s), each read with
   `load_vxa` and replayed whole through `fused_rollout`, with the dense and
@@ -798,15 +802,58 @@ def mpc(device="cuda", n=10, plan_steps=200, knots=8, num_iters=6, pop_size=128,
 # ---------------------------------------------------------------------------
 
 
+def sqp_workload(n=10, seed=0, device="cuda", fluid=None, devo=False):
+    """(body, sim, env, dt) of the fused-SQP benchmark: the bench design
+    with actuation and the CoM capture from time 0 (`mpc_workload`) without
+    floor and gravity; with `fluid="mesh"` or `"face"` the same design in
+    water as `packed_workload(fluid=)` puts it (its one-cell +X/+Y/+Z shell,
+    drag coefficient 750, with the facet or the voxel-face drag); with
+    `devo` the growth experiment's 5×5×4 all-muscle design in its
+    environment (floor and gravity, dt_frac 0.5, min_temp_fact 0.4, growth
+    amplitude 0.8) with random development fields (`growth_fields`: growth
+    starting within 50 steps and lasting 10-100, IniCM at step 30), so that
+    its ramps run within a 200-step horizon."""
+    palette = palette_from_list(evosoro_default_palette())
+    if devo:
+        rng = np.random.default_rng(seed)
+        structure = np.full(GROWTH_IND_SIZE, 3, np.int32)
+        phase = rng.uniform(-1, 1, size=GROWTH_IND_SIZE)
+        probe = build_body(structure, palette, phase_offset=phase, device=device)
+        sim = SimParams(dt_frac=0.5, min_temp_fact=0.4)
+        step = float(calc_max_dt(probe) * sim.dt_frac)
+        sim = SimParams(dt_frac=0.5, min_temp_fact=0.4, init_cm_time=30 * step)
+        body = build_body(structure, palette, phase_offset=phase, device=device,
+                          **growth_fields(GROWTH_IND_SIZE, step, seed))
+        return body, sim, EnvParams(growth_amplitude=0.8), step
+    if fluid is None:
+        body, sim, _, dt = mpc_workload(n, seed, device)
+        return body, sim, EnvParams(gravity_enabled=False, floor_enabled=False), dt
+    if fluid not in ("face", "mesh"):
+        raise ValueError(f"fluid must be 'face', 'mesh' or None, got {fluid!r}")
+    structure, phase = bench_design(n, seed)
+    shell = ((0, 1),) * 3
+    body = build_body(np.pad(structure, shell), palette, phase_offset=np.pad(phase, shell),
+                      device=device)
+    if fluid == "mesh":
+        from evosoro_tpu_torch.envs.drag import attach_mesh_drag
+
+        body = attach_mesh_drag(body)
+    sim = SimParams(init_cm_time=0.0)
+    env = EnvParams(fluid_environment=True, gravity_enabled=False, floor_enabled=False,
+                    aggregate_drag_coefficient=AGGREGATE_DRAG_COEF)
+    return body, sim, env, float(calc_max_dt(body) * sim.dt_frac)
+
+
 def sqp(device="cuda", n=10, plan_steps=200, knots=8, n_res=8, num_iters=4,
-        cg_iters=5, replans=3, seed=0):
+        cg_iters=5, replans=3, seed=0, fluid=None, devo=False):
     """The fused-SQP benchmark on `device`: one cold `FusedSQPSolver.solve`
     (target 0.4 lattice units of CoM-y travel) and `replans` warm re-plans
-    from its result with targets `0.4 + 0.01 r`, without floor and gravity
-    as in `tools/bench_mpc.py`. Returns the cold solve's cost traces and
-    launch counts, and milliseconds per re-plan."""
-    body, sim, _, dt = mpc_workload(n, seed, device)
-    env = EnvParams(gravity_enabled=False, floor_enabled=False)
+    from its result with targets `0.4 + 0.01 r`, on land without floor and
+    gravity as in `tools/bench_mpc.py`, in water (`fluid`) or with growth
+    (`devo`, on the growth experiment's floor): `sqp_workload`. Returns the
+    cold solve's cost traces and launch counts, and milliseconds per
+    re-plan."""
+    body, sim, env, dt = sqp_workload(n, seed, device, fluid=fluid, devo=devo)
     cfg = SQPConfig(num_iters=num_iters, cg_iters=cg_iters, n_res=n_res)
     solver = FusedSQPSolver(body, sim, env, plan_steps, knots, config=cfg,
                             dt=dt, n_res=n_res, device=device)
@@ -824,7 +871,8 @@ def sqp(device="cuda", n=10, plan_steps=200, knots=8, n_res=8, num_iters=4,
     replan_costs, ms, _ = _timed_ms(replan, device)
     solve_ms = ms / max(replans, 1)
     return dict(
-        n=n, plan_steps=plan_steps, knots=knots, n_res=n_res,
+        n=n, grid=list(body.occ.shape), fluid=fluid, devo=devo,
+        plan_steps=plan_steps, knots=knots, n_res=n_res,
         num_iters=num_iters, seg_steps=solver.seg_steps,
         k1_launches_per_solve=k1, b4_launches_per_solve=b4,
         cold_solve_ms=cold_ms, ms_per_solve=solve_ms, clock=clock,

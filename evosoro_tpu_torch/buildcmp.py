@@ -1,10 +1,12 @@
-"""Hold this checkout's K1 library against another checkout's, on the card.
+"""Hold this checkout's K1 and B4 libraries against another checkout's, on
+the card.
 
     python -m evosoro_tpu_torch.buildcmp OTHER_CHECKOUT
 
-Builds `fused_rollout` in both trees (`ops/build.py`), compares the machine
-code of every kernel function the two libraries hold (`cuobjdump -sass`,
-addresses stripped), then times the material instance on 1024 x 10^3 x 200
+Builds `fused_rollout` and `fused_rollout_bwd` in both trees
+(`ops/build.py`), compares the machine code of every kernel function the
+two trees' libraries hold (`cuobjdump -sass`, addresses stripped), then
+times the material instance on 1024 x 10^3 x 200
 steps through each library in one process, in turns on the same tensors
 (other, this, this, other, three times; `bench.time_call` each), and checks
 that both give the same bits. A process's own layout moves a launch's time
@@ -24,8 +26,9 @@ import subprocess
 import sys
 from pathlib import Path
 
-_BUILD = ("from evosoro_tpu_torch.ops import build; build.build_all(('fused_rollout',)); "
-          "print(build._lib_path('fused_rollout'))")
+LIBS = ("fused_rollout", "fused_rollout_bwd")
+_BUILD = ("from evosoro_tpu_torch.ops import build; build.build_all(%r); "
+          "[print(build._lib_path(n)) for n in %r]" % (LIBS, LIBS))
 
 
 def _sass(lib: str) -> dict:
@@ -51,14 +54,16 @@ def main(other: str) -> dict:
     from evosoro_tpu_torch.ops import fused_rollout as fr
 
     here = Path(__file__).resolve().parents[1]
-    libs = {}
+    paths = {}
     for name, root in (("this", here), ("other", Path(other).resolve())):
         r = subprocess.run([sys.executable, "-c", _BUILD], cwd=root, capture_output=True,
                            text=True, check=True)
-        libs[name] = r.stdout.strip().splitlines()[-1]
-    sass = {k: _sass(v) for k, v in libs.items()}
+        paths[name] = r.stdout.strip().splitlines()[-len(LIBS):]
+    libs = {k: v[0] for k, v in paths.items()}
+    # kernel function -> (instructions, digest), over both libraries of a tree
+    sass = {k: {f: d for lib in v for f, d in _sass(lib).items()} for k, v in paths.items()}
     shared = sorted(set(sass["this"]) & set(sass["other"]))
-    rec = dict(libraries=libs, kernels_compared=len(shared),
+    rec = dict(libraries=paths, kernels_compared=len(shared),
                kernels_differing=[k for k in shared if sass["this"][k] != sass["other"][k]],
                kernels_only_here=sorted(set(sass["this"]) - set(sass["other"])),
                kernels_only_there=sorted(set(sass["other"]) - set(sass["this"])))

@@ -19,9 +19,10 @@ rollout's actuation channel is optimized online by shooting.
 - `FusedSQPSolver`, `sqp_optimize_fused`: the same solve through the fused
   kernels: segments of K1 forward and the reverse-mode segment kernel B4
   backward. Its envelope is `ops.fused_rollout.diff_envelope_ok`: K1's
-  land envelope without self-collision, volume effects, plasticity and the
-  other material options, the fitness features, development, sources and
-  BC regions, as the JAX package's (volume effects raise ValueError there).
+  envelope on land, in water (voxel-face or facet drag) and with the
+  development ramps, without self-collision, volume effects, plasticity
+  and the other material options, the fitness features, sources and BC
+  regions (volume effects raise ValueError there, as in the JAX package).
 """
 
 from evosoro_tpu_torch.control.shooting import (  # noqa: F401

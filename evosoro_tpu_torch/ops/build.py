@@ -40,7 +40,8 @@ SIGNATURES = {
         _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P,
         _P, _I, _I, _P, _I, _I, _P, _P, _P, _P]),
     "fused_rollout_bwd": ("fused_rollout_bwd", [
-        _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P]),
+        _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P,
+        _P]),
     "fma_peak": ("fma_peak", [_P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _P]),
 }
 

@@ -8,9 +8,9 @@
 // step closure. Here the adjoint of the step is written out by hand below
 // (voxel_vjp for the integration phase, bond_vjp for the bond pass, with
 // the vjp of each quaternion helper), and the tape lies in device memory,
-// allocated by the host wrapper: (B, num_steps + 1, 48, V) floats, slot i
-// holding the 47 carried channels of the state step i starts from plus that
-// step's static-friction decisions. A block's shared memory is taken by the
+// allocated by the host wrapper: (B, num_steps + 1, 48, V) floats (54 with
+// the facet drag, below), slot i holding the 47 carried channels of the
+// state step i starts from plus that step's static-friction decisions. A block's shared memory is taken by the
 // bond forces (forward) and the force cotangents (reverse); at the widths
 // gradient MPC uses the tape of a launch fits the card's L2.
 //
@@ -49,9 +49,47 @@
 // Numerics: -fmad=false and no fast math, as K1, so the recompute equals
 // K1's forward bit for bit. The adjoint sums in its own order, so it agrees
 // with autograd to rounding, not bit for bit.
+//
+// reverse_segment is a template over K1's step variant. The land instance
+// (fused_rollout_bwd_kernel) compiles to the code it had before the others
+// came; the fluid and development instances (fused_rollout_bwd_var_kernel)
+// add, each under `if constexpr`:
+//   V_FLUID_FACE  the voxel-face drag's adjoint (cotangent to the momentum
+//                 through the velocity and to the old scale through the
+//                 face area scale^2), and the land_water actuation, which
+//                 does not read the old scale: the knot's cotangent only;
+//   V_FLUID_MESH  the facet drag's adjoint on the deformed surface mesh
+//                 (below) with the same actuation;
+//   V_DEVO        the development ramps: the clamps' "keep last" branch, as
+//                 on land; the clock, the ramps and the freeze carry none.
+// They replace evosoro_tpu/ops/fused_rollout.py, _make_kernel(bwd=True)'s
+// jax.vjp of the step closure through :1373-1469 and :1610-1705.
+//
+// The facet drag (V_FLUID_MESH). A voxel's drag reads the 8 mesh vertices
+// around it; a vertex is the mean of the coincident corners
+// pos + R(q) (+-L/2 (1 + strain)) of the occupied voxels around it, with
+// this step's per-side bond strains. The forward recompute tapes those
+// strains (6 channels more a slot, NT_MESH) and the reverse sweep adds
+// three passes and barriers before the bond pass, through 27 floats a voxel
+// of device scratch (shared memory stays at the land variant's budget):
+//   (a0) each cell rebuilds its vertex from the tape (mesh_vertex, as K1);
+//   (a)  besides the integration phase, each voxel pulls its force's
+//        cotangent through its 12 facets (facet_drag_vjp) to its velocity
+//        and to its 8 vertices, one 3-float slot a corner;
+//   (a2) each cell gathers its vertex's cotangent from the 8 voxels that
+//        read it and divides by its weight;
+//   (a3) each voxel gathers, from the 8 vertices it has a corner at, the
+//        cotangents of its position and quaternion and of the strains its
+//        corners read: its own bonds' near sides, and the far sides of the
+//        bonds below it, which it leaves for their owners;
+//   (b)  each bond adds its two sides' strain cotangents to its strain's.
+// Gather form throughout, no atomics. Nothing flows into a selection's
+// predicate (a face's exposure, v.n > 0).
 #include "fused_rollout_common.cuh"
 
 #define NT 48  // tape channels a slot: S_DIFF carried channels + the static flags
+#define NT_MESH (NT + 6)  // ... + the step's per-side bond strains (facet drag)
+#define B4_MESH_SCR 27    // scratch floats a voxel (facet drag): 3 + 24
 #define NB 8   // cotangent floats a bond sends to its other end: pos 3, quat 4, scale 1
 
 __device__ __forceinline__ void add3(F3& a, F3 b) { a.x += b.x; a.y += b.y; a.z += b.z; }
@@ -157,6 +195,97 @@ __device__ inline F3 angle_to_pos_x_vjp(F3 v, Q g, const Params& p) {
             c_nz * inv_norm + 2.f * v.z * c_norm2};
 }
 
+// vjp of qrot(q, f), through its two bilinear stages
+__device__ __forceinline__ void qrot_vjp(Q q, F3 f, F3 g, Q& cq, F3& cf) {
+    const float tw = f.x * q.x + f.y * q.y + f.z * q.z;
+    const float tx = f.x * q.w - f.y * q.z + f.z * q.y;
+    const float ty = f.x * q.z + f.y * q.w - f.z * q.x;
+    const float tz = -f.x * q.y + f.y * q.x + f.z * q.w;
+    const float ctw = g.x * q.x + g.y * q.y + g.z * q.z;
+    const float ctx = g.x * q.w + g.y * q.z - g.z * q.y;
+    const float cty = -g.x * q.z + g.y * q.w + g.z * q.x;
+    const float ctz = g.x * q.y - g.y * q.x + g.z * q.w;
+    cq.w += g.x * tx + g.y * ty + g.z * tz + ctx * f.x + cty * f.y + ctz * f.z;
+    cq.x += g.x * tw - g.y * tz + g.z * ty + ctw * f.x - cty * f.z + ctz * f.y;
+    cq.y += g.x * tz + g.y * tw - g.z * tx + ctw * f.y + ctx * f.z - ctz * f.x;
+    cq.z += -g.x * ty + g.y * tx + g.z * tw + ctw * f.z - ctx * f.y + cty * f.x;
+    cf.x += ctw * q.x + ctx * q.w + cty * q.z - ctz * q.y;
+    cf.y += ctw * q.y - ctx * q.z + cty * q.w + ctz * q.x;
+    cf.z += ctw * q.z + ctx * q.y - cty * q.x + ctz * q.w;
+}
+
+// vjp of facet_drag (fused_rollout_common.cuh) on voxel v: g, the cotangent
+// of the drag force. Adds the velocity's cotangent to *c_vel and writes the
+// cotangents of the 8 vertices it read to ck[k][3][V] (k = 4 cx + 2 cy + cz,
+// the vertex at cell v + (cx, cy, cz)). A facet facing away, and the guard
+// of the normal's length, pass nothing.
+__device__ inline void facet_drag_vjp(const float* vert, const float* occ, int v,
+                                      const int coord[3], int X, int Y, int Z, F3 vel,
+                                      float dragc, F3 g, F3& c_vel, float* ck) {
+    const int V = X * Y * Z;
+    const int dims[3] = {X, Y, Z};
+    const int strides[3] = {Y * Z, Z, 1};
+    F3 vt[8], cv[8];
+    for (int k = 0; k < 8; ++k) {
+        const int c = v + ((k >> 2) & 1) * strides[0] + ((k >> 1) & 1) * strides[1] + (k & 1);
+        vt[k] = {vert[c], vert[V + c], vert[2 * V + c]};
+        cv[k] = {0.f, 0.f, 0.f};
+    }
+    const int quads[6][4] = {{4, 6, 7, 5}, {0, 1, 3, 2}, {2, 3, 7, 6},
+                             {0, 4, 5, 1}, {1, 5, 7, 3}, {0, 2, 6, 4}};
+    for (int f = 0; f < 6; ++f) {
+        const int a = f >> 1;
+        const bool plus = !(f & 1);
+        const bool has_nbr = plus ? (coord[a] + 1 < dims[a] && occ[v + strides[a]] > 0.5f)
+                                  : (coord[a] > 0 && occ[v - strides[a]] > 0.5f);
+        if (has_nbr) continue;
+        for (int tri = 0; tri < 2; ++tri) {
+            const int ia = quads[f][0], ib = quads[f][1 + tri], ic = quads[f][2 + tri];
+            const F3 pa = vt[ia], pb = vt[ib], pc = vt[ic];
+            const F3 e1 = {pb.x - pa.x, pb.y - pa.y, pb.z - pa.z};
+            const F3 e2 = {pc.x - pa.x, pc.y - pa.y, pc.z - pa.z};
+            const F3 n = {e1.y * e2.z - e1.z * e2.y, e1.z * e2.x - e1.x * e2.z,
+                          e1.x * e2.y - e1.y * e2.x};
+            const float s = n.x * n.x + n.y * n.y + n.z * n.z;
+            const float n_len = sqrtf(fmaxf(s, 1e-30f));
+            const float area = 0.5f * n_len;
+            const F3 h = {n.x / n_len, n.y / n_len, n.z / n_len};
+            const float vn = vel.x * h.x + vel.y * h.y + vel.z * h.z;
+            if (!(vn > 0.f)) continue;
+            // force = -mag h, mag = C area vn^2
+            const float mag = dragc * area * vn * vn;
+            const float c_mag = -(g.x * h.x + g.y * h.y + g.z * h.z);
+            F3 c_h = {-mag * g.x, -mag * g.y, -mag * g.z};
+            const float c_area = c_mag * dragc * vn * vn;
+            const float c_vn = c_mag * dragc * area * 2.f * vn;
+            c_vel.x += c_vn * h.x; c_vel.y += c_vn * h.y; c_vel.z += c_vn * h.z;
+            c_h.x += c_vn * vel.x; c_h.y += c_vn * vel.y; c_h.z += c_vn * vel.z;
+            // h = n / |n|, area = |n| / 2
+            const float c_len = 0.5f * c_area
+                                - (c_h.x * n.x + c_h.y * n.y + c_h.z * n.z) / (n_len * n_len);
+            F3 c_n = {c_h.x / n_len, c_h.y / n_len, c_h.z / n_len};
+            if (s > 1e-30f) {
+                const float c_s2 = 2.f * (c_len * 0.5f / n_len);
+                c_n.x += n.x * c_s2; c_n.y += n.y * c_s2; c_n.z += n.z * c_s2;
+            }
+            // n = e1 x e2
+            const F3 c_e1 = {e2.y * c_n.z - e2.z * c_n.y, e2.z * c_n.x - e2.x * c_n.z,
+                             e2.x * c_n.y - e2.y * c_n.x};
+            const F3 c_e2 = {c_n.y * e1.z - c_n.z * e1.y, c_n.z * e1.x - c_n.x * e1.z,
+                             c_n.x * e1.y - c_n.y * e1.x};
+            add3(cv[ib], c_e1);
+            add3(cv[ic], c_e2);
+            cv[ia].x -= c_e1.x + c_e2.x; cv[ia].y -= c_e1.y + c_e2.y;
+            cv[ia].z -= c_e1.z + c_e2.z;
+        }
+    }
+    for (int k = 0; k < 8; ++k) {
+        ck[(size_t)(3 * k) * V + v] = cv[k].x;
+        ck[(size_t)(3 * k + 1) * V + v] = cv[k].y;
+        ck[(size_t)(3 * k + 2) * V + v] = cv[k].z;
+    }
+}
+
 // Cotangents one bond sends back: to its own voxel (p1, qa, s1), to the
 // other end (p2, qb, s2), and to the memory it read
 struct BondCot {
@@ -169,11 +298,13 @@ struct BondCot {
 // The adjoint of the bond pass for bond (v, d). bn: its forward pass on the
 // step's start state. gF1, gM1 (gF2, gM2): cotangents of the world-frame
 // force and moment it gives its own voxel (the other end); g_lp2, g_la1,
-// g_la2, g_maxs: cotangents of the memory it writes.
+// g_la2, g_maxs: cotangents of the memory it writes. g_strain (facet drag
+// only): the cotangent of its strain through the mesh's corners.
+template <int VARIANT = V_LAND>
 __device__ inline BondCot bond_vjp(const Bond& bn, const float* bd, int d, int V,
                                    const Params& p, float dt_inv, float maxs_old,
                                    F3 gF1, F3 gM1, F3 gF2, F3 gM2, F3 g_lp2, F3 g_la1,
-                                   F3 g_la2, float g_maxs) {
+                                   F3 g_la2, float g_maxs, float g_strain = 0.f) {
     const Q q0 = {0.f, 0.f, 0.f, 0.f};
     const F3 z3 = {0.f, 0.f, 0.f};
     // world frame -> bond frame: four vectors rotated by the same totrot
@@ -243,6 +374,7 @@ __device__ inline BondCot bond_vjp(const Bond& bn, const float* bd, int d, int V
 
     // strain: stress = stiff * strain, max-strain memory (ties in halves)
     float c_strain = bn.stiff * (p.cs_area * cfb.x);
+    if constexpr (VARIANT == V_FLUID_MESH) c_strain += g_strain;
     o.maxs = 0.f;
     if (bn.strain > maxs_old) c_strain += g_maxs;
     else if (bn.strain == maxs_old) { c_strain += 0.5f * g_maxs; o.maxs = 0.5f * g_maxs; }
@@ -287,18 +419,28 @@ __device__ inline BondCot bond_vjp(const Bond& bn, const float* bd, int d, int V
     return o;
 }
 
-// The whole launch for one robot. tape: (num_steps + 1, NT, V) floats;
-// tape_t: num_steps floats; cot: (C_S, V), the END state's cotangent on
-// entry and the START state's on return; cot_u: (K, V), zero on entry.
+// Tape channels a slot of variant VARIANT
+template <int VARIANT>
+__host__ __device__ constexpr int tape_channels() {
+    return VARIANT == V_FLUID_MESH ? NT_MESH : NT;
+}
+
+// The whole launch for one robot. tape: (num_steps + 1, tape_channels, V)
+// floats; tape_t: num_steps floats; cot: (C_S, V), the END state's cotangent
+// on entry and the START state's on return; cot_u: (K, V), zero on entry;
+// scr: (B4_MESH_SCR, V) floats of scratch (V_FLUID_MESH only).
+template <int VARIANT>
 __device__ inline void reverse_segment(const float* st0, const float* bo, const float* stat,
                                        const float* cu_robot, int n_knots, int knot_steps,
                                        int step_base, int X, int Y, int Z, int num_steps,
                                        const Params& p, int flags, float* tape,
-                                       float* tape_t, float* cot, float* cot_u, float* sh) {
+                                       float* tape_t, float* cot, float* cot_u, float* sh,
+                                       float* scr = nullptr) {
+    constexpr bool MESH = VARIANT == V_FLUID_MESH;
     const int V = X * Y * Z;
     const int T = blockDim.x;
     const int strides[3] = {Y * Z, Z, 1};
-    const size_t slot = (size_t)NT * V;
+    const size_t slot = (size_t)tape_channels<VARIANT>() * V;
 
     // ---- forward recompute into the tape ----
     for (int k = threadIdx.x; k < S_DIFF * V; k += T) tape[k] = st0[k];
@@ -308,13 +450,34 @@ __device__ inline void reverse_segment(const float* st0, const float* bo, const 
     __syncthreads();
     Robot r = load_robot(stat);
     const float dt = r.dt, dt_inv = r.dt_inv;
-    const int n_done = rollout_steps<V_LAND>(tape, slot, bo, nullptr, cu_robot, n_knots,
-                                             knot_steps, step_base, X, Y, Z, num_steps, p,
-                                             flags, r, tape_t, sh, nullptr);
+    int n_done = 0;
+    if constexpr (MESH) {
+        // a step a call, so that each step leaves its per-side strains in
+        // its own slot (K1's scratch channels), where the reverse sweep
+        // rebuilds the mesh from them
+        for (; n_done < num_steps; ++n_done) {
+            float* s_i = tape + (size_t)n_done * slot;
+            if (rollout_steps<VARIANT>(s_i, slot, bo, nullptr, cu_robot, n_knots, knot_steps,
+                                       step_base + n_done, X, Y, Z, 1, p, flags, r,
+                                       tape_t + n_done, sh, s_i + (size_t)NT * V) == 0)
+                break;
+        }
+    } else {
+        n_done = rollout_steps<VARIANT>(tape, slot, bo, nullptr, cu_robot, n_knots,
+                                        knot_steps, step_base, X, Y, Z, num_steps, p,
+                                        flags, r, tape_t, sh, nullptr);
+    }
 
     float* ctf = sh;           // [3][V] cotangent of each voxel's force sum
     float* ctm = sh + 3 * V;   // [3][V] ... and of its moment sum
     float* nbc = sh + 6 * V;   // [3][NB][V] what bond (v, d) sends to v + stride_d
+    // (facet drag) device scratch: the vertex field, then each vertex's
+    // cotangent over its weight; the corners' cotangents [8][3][V], then the
+    // strains' [6][V] (a voxel's own bonds' near sides, the bonds below it's
+    // far sides)
+    float* vfield = scr;
+    float* ck = MESH ? scr + (size_t)3 * V : nullptr;
+    const float half_l = 0.5f * p.L;
 
 #define SCH(k) (si + (size_t)(k) * V)
 #define BCH(k) (bo + (size_t)(k) * V)
@@ -326,6 +489,17 @@ __device__ inline void reverse_segment(const float* st0, const float* bo, const 
         const float* sn = tape + (size_t)(i + 1) * slot;  // the state it produced
         const float t = tape_t[i];
         float* cu_out = cot_u + (size_t)knot_of(step_base + i, n_knots, knot_steps) * V;
+
+        if constexpr (MESH) {
+            // (a0) the step's mesh, as K1's phase B1 built it
+            for (int v = threadIdx.x; v < V; v += T) {
+                const int coord[3] = {v / (Y * Z), (v / Z) % Y, v % Z};
+                const F3 vx = mesh_vertex(si, BCH(B_OCC), si + (size_t)NT * V, coord[0],
+                                          coord[1], coord[2], Y, Z, V, half_l);
+                vfield[v] = vx.x; vfield[V + v] = vx.y; vfield[2 * V + v] = vx.z;
+            }
+            __syncthreads();
+        }
 
         // (a) integration phase, per voxel
         for (int v = threadIdx.x; v < V; v += T) {
@@ -346,12 +520,25 @@ __device__ inline void reverse_segment(const float* st0, const float* bo, const 
             const float g_scale = COT(S_SCALE)[v];
 
             // actuation: the clamps' "keep last" branch is the old scale; the
-            // knot adds u * L for occupied voxels
+            // knot adds u * L for occupied voxels. The land_water actuation
+            // of a fluid does not read the old scale.
             float c_scale = 0.f;
-            bool kept_last;
-            actuation_scale(t, scale, BCH(B_AMPDAMP)[v], BCH(B_PHASE)[v], BCH(B_CTE)[v],
-                            r.tamp, r.tper, r.init_cm, r.min_tf, r.gamp, p, flags, &kept_last);
-            if (occ && kept_last) c_scale = g_scale;
+            if constexpr (VARIANT == V_LAND) {
+                bool kept_last;
+                actuation_scale(t, scale, BCH(B_AMPDAMP)[v], BCH(B_PHASE)[v], BCH(B_CTE)[v],
+                                r.tamp, r.tper, r.init_cm, r.min_tf, r.gamp, p, flags,
+                                &kept_last);
+                if (occ && kept_last) c_scale = g_scale;
+            } else if constexpr (VARIANT == V_DEVO) {
+                const float dv[6] = {BCH(B_INIT_SIZE)[v], BCH(B_FINAL_SIZE)[v],
+                                     BCH(B_GROWTH_T)[v], BCH(B_START_GT)[v],
+                                     BCH(B_FINAL_PHASE)[v], BCH(B_FINAL_AD)[v]};
+                bool kept_last;
+                development_scale(t, scale, BCH(B_AMPDAMP)[v], BCH(B_PHASE)[v], BCH(B_CTE)[v],
+                                  dv, r.tamp, r.tper, r.init_cm, r.min_tf, r.gamp, p, flags,
+                                  &kept_last);
+                if (occ && kept_last) c_scale = g_scale;
+            }
             if (occ) cu_out[v] += g_scale * p.L;
 
             // pos' = pos + lin' * (dt * minv)
@@ -430,6 +617,44 @@ __device__ inline void reverse_segment(const float* st0, const float* bo, const 
                     c_pos.z -= c_pen;
                 }
             }
+            if constexpr (VARIANT == V_FLUID_FACE) {
+                // the voxel-face drag, -+C scale^2 vd^2 on each exposed face
+                // that faces forward along axis d
+                const float velc[3] = {SCH(S_LIN)[v] * minv, SCH(S_LIN + 1)[v] * minv,
+                                       SCH(S_LIN + 2)[v] * minv};
+                const float ctfc[3] = {c_tf.x, c_tf.y, c_tf.z};
+                float* cvc[3] = {&c_vel.x, &c_vel.y, &c_vel.z};
+                const int coord[3] = {v / (Y * Z), (v / Z) % Y, v % Z};
+                const float ca = r.dragc * (scale * scale);
+                float c_ca = 0.f;
+                for (int d = 0; d < 3 && occ; ++d) {
+                    const float* mk = bo + (size_t)(B_DIR + d * B_PER_DIR + D_MASK) * V;
+                    const bool m_pos = mk[v] > 0.5f;
+                    const bool m_neg = coord[d] > 0 && mk[v - strides[d]] > 0.5f;
+                    const float vd = velc[d];
+                    if (!m_pos && vd > 0.f) {
+                        *cvc[d] -= ctfc[d] * (2.f * ca * vd);
+                        c_ca -= ctfc[d] * (vd * vd);
+                    }
+                    if (!m_neg && -vd > 0.f) {
+                        *cvc[d] += ctfc[d] * (2.f * ca * vd);
+                        c_ca += ctfc[d] * (vd * vd);
+                    }
+                }
+                c_scale += c_ca * r.dragc * 2.f * scale;
+            } else if constexpr (MESH) {
+                // the facet drag: to the velocity here, to the vertices
+                // through the scratch
+                const int coord[3] = {v / (Y * Z), (v / Z) % Y, v % Z};
+                if (occ && coord[0] + 1 < X && coord[1] + 1 < Y && coord[2] + 1 < Z) {
+                    const F3 vel = {SCH(S_LIN)[v] * minv, SCH(S_LIN + 1)[v] * minv,
+                                    SCH(S_LIN + 2)[v] * minv};
+                    facet_drag_vjp(vfield, BCH(B_OCC), v, coord, X, Y, Z, vel, r.dragc, c_tf,
+                                   c_vel, ck);
+                } else {
+                    for (int k = 0; k < 24; ++k) ck[(size_t)k * V + v] = 0.f;
+                }
+            }
             // tf = neg_slow * vel * tsm + (bond forces) [+ gravity], vel = lin * minv
             const float sd = p.neg_slow * tsm;
             c_vel.x += c_tf.x * sd; c_vel.y += c_tf.y * sd; c_vel.z += c_tf.z * sd;
@@ -445,6 +670,79 @@ __device__ inline void reverse_segment(const float* st0, const float* bo, const 
             ctm[v] = c_tm.x; ctm[V + v] = c_tm.y; ctm[2 * V + v] = c_tm.z;
         }
         __syncthreads();
+
+        if constexpr (MESH) {
+            // (a2) each vertex's cotangent, from the corner slots of the up
+            // to 8 voxels whose drag read it, over the vertex's weight (the
+            // occupied voxels it averages)
+            float* cvert = vfield;  // the vertex field is read no more
+            for (int c = threadIdx.x; c < V; c += T) {
+                const int c3[3] = {c / (Y * Z), (c / Z) % Y, c % Z};
+                F3 acc = {0.f, 0.f, 0.f};
+                float wsum = 0.f;
+                for (int k = 7; k >= 0; --k) {
+                    const int e[3] = {(k >> 2) & 1, (k >> 1) & 1, k & 1};
+                    if (c3[0] < e[0] || c3[1] < e[1] || c3[2] < e[2]) continue;
+                    const int u = c - (e[0] * strides[0] + e[1] * strides[1] + e[2]);
+                    acc.x += ck[(size_t)(3 * k) * V + u];
+                    acc.y += ck[(size_t)(3 * k + 1) * V + u];
+                    acc.z += ck[(size_t)(3 * k + 2) * V + u];
+                    if (BCH(B_OCC)[u] > 0.5f) wsum += 1.f;
+                }
+                const float w = fmaxf(wsum, 1.f);
+                cvert[c] = acc.x / w; cvert[V + c] = acc.y / w; cvert[2 * V + c] = acc.z / w;
+            }
+            __syncthreads();
+            // (a3) each occupied voxel's corners: pos + R(q) off, off[a] =
+            // +-L/2 (1 + strain); the strain of its own +a bond where the
+            // corner looks along +a, else the far side of the bond below it
+            const float* sv = si + (size_t)NT * V;
+            float* cs = ck;  // [6][V]: the corner slots are read no more
+            for (int u = threadIdx.x; u < V; u += T) {
+                float c_own[3] = {0.f, 0.f, 0.f}, c_below[3] = {0.f, 0.f, 0.f};
+                if (BCH(B_OCC)[u] > 0.5f) {
+                    const int u3[3] = {u / (Y * Z), (u / Z) % Y, u % Z};
+                    const int dims[3] = {X, Y, Z};
+                    const Q qu = {SCH(S_QUAT)[u], SCH(S_QUAT + 1)[u], SCH(S_QUAT + 2)[u],
+                                  SCH(S_QUAT + 3)[u]};
+                    F3 c_p = {0.f, 0.f, 0.f};
+                    Q c_q = {0.f, 0.f, 0.f, 0.f};
+                    for (int k = 0; k < 8; ++k) {
+                        const int e[3] = {(k >> 2) & 1, (k >> 1) & 1, k & 1};
+                        if (u3[0] + e[0] >= dims[0] || u3[1] + e[1] >= dims[1] ||
+                            u3[2] + e[2] >= dims[2])
+                            continue;
+                        const int c = u + e[0] * strides[0] + e[1] * strides[1] + e[2];
+                        const F3 g = {cvert[c], cvert[V + c], cvert[2 * V + c]};
+                        float off[3], sgn[3];
+                        for (int a = 0; a < 3; ++a) {
+                            sgn[a] = e[a] ? half_l : -half_l;
+                            const float strain =
+                                e[a] ? sv[(size_t)a * V + u]
+                                     : (u3[a] > 0 ? sv[(size_t)(3 + a) * V + u - strides[a]] : 0.f);
+                            off[a] = sgn[a] * (1.f + strain);
+                        }
+                        add3(c_p, g);
+                        F3 c_off = {0.f, 0.f, 0.f};
+                        qrot_vjp(qu, {off[0], off[1], off[2]}, g, c_q, c_off);
+                        const float co[3] = {c_off.x * sgn[0], c_off.y * sgn[1], c_off.z * sgn[2]};
+                        for (int a = 0; a < 3; ++a) {
+                            if (e[a]) c_own[a] += co[a];
+                            else if (u3[a] > 0) c_below[a] += co[a];
+                        }
+                    }
+                    COT(S_POS)[u] += c_p.x; COT(S_POS + 1)[u] += c_p.y;
+                    COT(S_POS + 2)[u] += c_p.z;
+                    COT(S_QUAT)[u] += c_q.w; COT(S_QUAT + 1)[u] += c_q.x;
+                    COT(S_QUAT + 2)[u] += c_q.y; COT(S_QUAT + 3)[u] += c_q.z;
+                }
+                for (int a = 0; a < 3; ++a) {
+                    cs[(size_t)a * V + u] = c_own[a];
+                    cs[(size_t)(3 + a) * V + u] = c_below[a];
+                }
+            }
+            __syncthreads();
+        }
 
         // (b) bond pass: tf += f1 (own) + f2 (from the lower neighbour),
         // tm -= m1 + m2 likewise
@@ -471,6 +769,19 @@ __device__ inline void reverse_segment(const float* st0, const float* bo, const 
                 }
                 const int n = v + strides[d];
                 const Bond bn = bond_forward(si, bd, v, n, d, V, p, dt, dt_inv);
+                float g_strain = 0.f;
+                if constexpr (MESH) {
+                    // the two sides' strains of the mesh's corners: the
+                    // linear fixed point of the stress equalization
+                    const float* cs = ck;
+                    const float c_s1 = cs[(size_t)d * V + v], c_s2 = cs[(size_t)(3 + d) * V + n];
+                    const float E1 = bd[(size_t)D_E1 * V], E2 = bd[(size_t)D_E2 * V];
+                    const float s_sum = E1 + E2;
+                    const bool hom = (bd[(size_t)D_HOM * V] > 0.5f) ||
+                                     fabsf(E1 - E2) <= p.near_eq * fabsf(s_sum);
+                    g_strain = hom ? c_s1 + c_s2
+                                   : 2.f * sdiv(E2, s_sum) * c_s1 + 2.f * sdiv(E1, s_sum) * c_s2;
+                }
                 const F3 gF1 = {ctf[v], ctf[V + v], ctf[2 * V + v]};
                 const F3 gF2 = {ctf[n], ctf[V + n], ctf[2 * V + n]};
                 const F3 gM1 = {-ctm[v], -ctm[V + v], -ctm[2 * V + v]};
@@ -478,9 +789,9 @@ __device__ inline void reverse_segment(const float* st0, const float* bo, const 
                 const F3 g_lp2 = {c_lp2[0], c_lp2[V], c_lp2[2 * V]};
                 const F3 g_la1 = {c_la1[0], c_la1[V], c_la1[2 * V]};
                 const F3 g_la2 = {c_la2[0], c_la2[V], c_la2[2 * V]};
-                const BondCot bc = bond_vjp(bn, bd, d, V, p, dt_inv, SCH(S_MAXS + d)[v], gF1,
-                                            gM1, gF2, gM2, g_lp2, g_la1, g_la2,
-                                            COT(S_MAXS + d)[v]);
+                const BondCot bc = bond_vjp<VARIANT>(bn, bd, d, V, p, dt_inv, SCH(S_MAXS + d)[v],
+                                                     gF1, gM1, gF2, gM2, g_lp2, g_la1, g_la2,
+                                                     COT(S_MAXS + d)[v], g_strain);
                 add3(own_p, bc.p1);
                 addq(own_q, bc.qa);
                 own_s += bc.s1;
@@ -532,39 +843,86 @@ fused_rollout_bwd_kernel(const float* __restrict__ state_all,
     extern __shared__ float sh[];
     const int V = X * Y * Z;
     const int b = blockIdx.x;
-    reverse_segment(state_all + (size_t)b * C_S * V,
-                    body_all + (body_batched ? (size_t)b * C_B * V : 0),
-                    stats_all + (size_t)b * C_STAT, ctrl_all + (size_t)b * n_knots * V,
-                    n_knots, knot_steps, step_base, X, Y, Z, num_steps, p, flags,
-                    tape_all + (size_t)b * (num_steps + 1) * NT * V,
-                    tape_t_all + (size_t)b * num_steps, cot_all + (size_t)b * C_S * V,
-                    cot_u_all + (size_t)b * n_knots * V, sh);
+    reverse_segment<V_LAND>(state_all + (size_t)b * C_S * V,
+                            body_all + (body_batched ? (size_t)b * C_B * V : 0),
+                            stats_all + (size_t)b * C_STAT, ctrl_all + (size_t)b * n_knots * V,
+                            n_knots, knot_steps, step_base, X, Y, Z, num_steps, p, flags,
+                            tape_all + (size_t)b * (num_steps + 1) * NT * V,
+                            tape_t_all + (size_t)b * num_steps, cot_all + (size_t)b * C_S * V,
+                            cot_u_all + (size_t)b * n_knots * V, sh);
+}
+
+// The fluid and development instances: a kernel of their own, so that the
+// land kernel's code is what it was
+template <int VARIANT>
+__global__ void __launch_bounds__(MAX_THREADS)
+fused_rollout_bwd_var_kernel(const float* __restrict__ state_all,
+                             const float* __restrict__ body_all, int body_batched,
+                             const float* __restrict__ stats_all,
+                             const float* __restrict__ ctrl_all, int n_knots, int knot_steps,
+                             int step_base, int X, int Y, int Z, int num_steps, Params p,
+                             int flags, float* tape_all, float* tape_t_all, float* cot_all,
+                             float* cot_u_all, float* scr_all) {
+    extern __shared__ float sh[];
+    const int V = X * Y * Z;
+    const int b = blockIdx.x;
+    reverse_segment<VARIANT>(
+        state_all + (size_t)b * C_S * V, body_all + (body_batched ? (size_t)b * C_B * V : 0),
+        stats_all + (size_t)b * C_STAT, ctrl_all + (size_t)b * n_knots * V, n_knots,
+        knot_steps, step_base, X, Y, Z, num_steps, p, flags,
+        tape_all + (size_t)b * (num_steps + 1) * tape_channels<VARIANT>() * V,
+        tape_t_all + (size_t)b * num_steps, cot_all + (size_t)b * C_S * V,
+        cot_u_all + (size_t)b * n_knots * V, sh,
+        scr_all ? scr_all + (size_t)b * B4_MESH_SCR * V : nullptr);
+}
+
+// lets `kernel` take `smem` bytes of dynamic shared memory
+template <typename K>
+static int allow_smem(K kernel, size_t smem) {
+    if (smem <= 48 * 1024) return 0;
+    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)smem);
 }
 
 // state (B, C_S, V), body (B or 1, C_B, V), stats (B, C_STAT), ctrl
-// (B, K, V): read only. tape (B, num_steps + 1, NT, V) and tape_t
-// (B, num_steps): scratch. cot (B, C_S, V): the END state's cotangent in,
-// the START state's out. cot_u (B, K, V): zeros in, the controls' cotangent
-// out.
+// (B, K, V): read only. tape (B, num_steps + 1, NT or NT_MESH, V) and
+// tape_t (B, num_steps): scratch; scr (B, B4_MESH_SCR, V) with the facet
+// drag, else null. cot (B, C_S, V): the END state's cotangent in, the START
+// state's out. cot_u (B, K, V): zeros in, the controls' cotangent out. The
+// flags pick the variant as K1's launcher does.
 extern "C" int fused_rollout_bwd(const float* state, const float* body, int body_batched,
                                  const float* stats, const float* ctrl, int n_knots,
                                  int knot_steps, int step_base, int B, int X, int Y, int Z,
                                  int num_steps, const float* params, int flags, float* tape,
-                                 float* tape_t, float* cot, float* cot_u, void* stream) {
+                                 float* tape_t, float* cot, float* cot_u, float* scr,
+                                 void* stream) {
     Params p;
     memcpy(&p, params, sizeof(float) * N_PARAMS);
     const int V = X * Y * Z;
     const int threads = V >= MAX_THREADS ? MAX_THREADS : ((V + 31) / 32) * 32;
     const size_t smem = (size_t)BF * V * sizeof(float);
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            fused_rollout_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (e != cudaSuccess) return (int)e;
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int variant = variant_of(flags);
+    if (variant == V_FLUID_MESH && scr == nullptr) return (int)cudaErrorInvalidValue;
+    int rc = 0;
+#define VAR_LAUNCH(VARIANT)                                                                   \
+    rc = allow_smem(fused_rollout_bwd_var_kernel<VARIANT>, smem);                            \
+    if (rc) return rc;                                                                        \
+    fused_rollout_bwd_var_kernel<VARIANT><<<B, threads, smem, st>>>(                          \
+        state, body, body_batched, stats, ctrl, n_knots, knot_steps, step_base, X, Y, Z,      \
+        num_steps, p, flags, tape, tape_t, cot, cot_u, scr)
+    switch (variant) {
+        case V_FLUID_FACE: VAR_LAUNCH(V_FLUID_FACE); break;
+        case V_FLUID_MESH: VAR_LAUNCH(V_FLUID_MESH); break;
+        case V_DEVO: VAR_LAUNCH(V_DEVO); break;
+        default:
+            rc = allow_smem(fused_rollout_bwd_kernel, smem);
+            if (rc) return rc;
+            fused_rollout_bwd_kernel<<<B, threads, smem, st>>>(
+                state, body, body_batched, stats, ctrl, n_knots, knot_steps, step_base, X, Y,
+                Z, num_steps, p, flags, tape, tape_t, cot, cot_u);
     }
-    fused_rollout_bwd_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-        state, body, body_batched, stats, ctrl, n_knots, knot_steps, step_base, X, Y, Z,
-        num_steps, p, flags, tape, tape_t, cot, cot_u);
+#undef VAR_LAUNCH
     return (int)cudaGetLastError();
 }
 #endif

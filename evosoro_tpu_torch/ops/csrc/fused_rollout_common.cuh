@@ -10,8 +10,9 @@
 // every step started from, which is what the reverse sweep needs.
 //
 // rollout_steps is a template over the step's variant, so that the land
-// step's machine code carries none of the others' registers:
-//   V_LAND        the evolution loop's envelope on land (K1 as before, B4);
+// step's machine code carries none of the others' registers (B4 recomputes
+// its segments with the variant K1 ran them in):
+//   V_LAND        the evolution loop's envelope on land;
 //   V_FLUID_FACE  a fluid environment with the voxel-face drag model;
 //   V_FLUID_MESH  a fluid environment with facet drag on the deformed
 //                 surface mesh, a corner-lattice stencil (below);
@@ -793,12 +794,14 @@ __device__ __forceinline__ float thermal_ctrl(float t, float ampdamp, float phas
 // mid-life freeze of its clock, final phase offset and amplitude damping,
 // size-capped actuation. dv: the body's development channels at this voxel
 // (initial size, final size, growth time, start of growth, final phase,
-// final damping).
+// final damping). *kept_last (B4's adjoint) says the clamps kept the old
+// scale.
 __device__ __forceinline__ float development_scale(float t, float scale, float ampdamp,
                                                    float phase, float cte,
                                                    const float dv[6], float tamp,
                                                    float tper, float init_cm, float min_tf,
-                                                   float gamp, const Params& p, int flags) {
+                                                   float gamp, const Params& p, int flags,
+                                                   bool* kept_last = nullptr) {
     const float nom = p.L;
     float prenatal = 0.f, dev_temp_fact = 0.f;
     if (flags & F_USE_INIT) {  // prenatal linear ramp (:237-238)
@@ -830,8 +833,10 @@ __device__ __forceinline__ float development_scale(float t, float scale, float a
         ctrl = ctrl * fminf(pos_sig, 0.5f) * 2.f;
     }
     float curr = ctrl * nom + grown;
-    if (curr < scale && curr < min_tf * nom) curr = scale;
-    if (curr > scale && curr > (1.f + gamp) * nom) curr = scale;
+    bool kept = false;
+    if (curr < scale && curr < min_tf * nom) { curr = scale; kept = true; }
+    if (curr > scale && curr > (1.f + gamp) * nom) { curr = scale; kept = true; }
+    if (kept_last) *kept_last = kept;
     return curr;
 }
 
@@ -1273,7 +1278,8 @@ __device__ inline void ballistic_rebase(float t, const float dv[6], float orig, 
 // steps it skips change nothing.
 //
 // sh: BF * V floats of shared memory (+ 7 * V with collision). scr: the
-// robot's 6 * V floats of scratch in device memory (V_FLUID_MESH only).
+// robot's 6 * V floats of scratch in device memory (V_FLUID_MESH only; B4
+// hands each step the six spare channels of its own tape slot).
 // FEAT: the fitness features run, on the carry fe with the constants fp
 // (K1 only: slot_stride 0). MAT: the material instance (K1's land variant
 // only) with the inputs ma and the kinetic-energy ring ke (6 floats, the

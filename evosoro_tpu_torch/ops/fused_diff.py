@@ -16,6 +16,12 @@ On CPU tensors the two wrappers run their plain versions (the eager step
 and torch autograd through it), so gradients mean the same on both devices:
 BPTT through `core.rollout`, the same float32 numerics and piecewise
 branches.
+
+The envelope is B4's (`fused_rollout.diff_envelope_ok`): on land, in water
+with either drag model, and with the development ramps. The flags come from
+the body and the environment as in the JAX package's `DiffRollout`: the
+facet drag when the body carries mesh tables in a fluid (which needs the
+grid's +X/+Y/+Z shell), the development flags from the body's fields.
 """
 
 from __future__ import annotations
@@ -64,6 +70,8 @@ class DiffRollout:
     def __init__(self, body: VoxelBody, sim: SimParams, env: EnvParams,
                  num_steps: int, num_knots: int, dt, batch: int, stop_time=None,
                  n_segs: int = 8, prec: Precision = DEFAULT_PRECISION):
+        # the flags first: a facet-drag body without its shell raises by name
+        flags = fr.launch_flags(body, sim, env, collision=False, segmented=True)
         if not fr.supports(body, sim, env):
             raise ValueError("configuration outside the fused envelope")
         X, Y, Z = body.occ.shape
@@ -79,8 +87,6 @@ class DiffRollout:
         self.body_packed = fr.pack_body(body)
         self.stats0 = fr.make_stats(body, batch, dt, sim, env, stop_time)
         scalars = fr.kernel_scalars(body.nominal_size, sim, env)
-        flags = dict(fr.kernel_env_flags(sim, env), **fr.body_flags(body),
-                     collision=False, segmented=True)
         if not fr.diff_envelope_ok(flags, scalars):
             raise ValueError(
                 "configuration outside the differentiable-kernel envelope "

@@ -1575,33 +1575,64 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
 # ---------------------------------------------------------------------------
 
 FUSED_BWD_LAUNCHES = 0
+# ... of them in water (either drag model), with the facet drag, with the
+# development ramps
+FUSED_BWD_FLUID_LAUNCHES = 0
+FUSED_BWD_MESH_LAUNCHES = 0
+FUSED_BWD_DEVO_LAUNCHES = 0
 
 # channels [0, _TSAVG) carry the rollout and its cotangent; B4's tape holds
-# them plus one channel of static-friction decisions (csrc: NT)
+# them plus one channel of static-friction decisions (csrc: NT), and with
+# the facet drag each step's six per-side bond strains (NT_MESH)
 _B4_TAPE_CHANNELS = _TSAVG + 1
+_B4_MESH_TAPE_CHANNELS = _B4_TAPE_CHANNELS + _K1_MESH_SCRATCH
+# device scratch of B4's facet-drag variant, floats a voxel (csrc: B4_MESH_SCR)
+_B4_MESH_SCRATCH = 27
 # flags outside the reverse-mode kernel's envelope (the JAX package's
-# `_diff_envelope_ok`); the rest of `check_envelope` applies as well
-_DIFF_REFUSED = ("volume", "equilibrium", "plasticity", "needle", "falling",
-                 "ndbv", "window", "ballistic", "collision", "mdl_data", "bc",
-                 "fluid", "fluid_mesh") + _K1_DEVO_FLAGS + (
-                     "nonlinear", "max_vel", "collision_compact")
+# `_diff_envelope_ok`), each with the reason; the rest of `check_envelope`
+# applies as well. The JAX kernel differentiates nonlinear materials and the
+# max-velocity clamp too: ROADMAP.md A.6b.
+_DIFF_REFUSED = dict(
+    volume="volume effects", equilibrium="equilibrium mode", plasticity="plasticity",
+    needle="the needle feature", falling="the fall-over latch",
+    ndbv="NormDistByVol", window="speed windows", ballistic="ballistic development",
+    collision="self-collision", collision_compact="the compact contact pass",
+    mdl_data="MDL_DATA materials", bc="BC regions",
+    nonlinear="nonlinear materials (ROADMAP.md A.6b)",
+    max_vel="the max-velocity clamp (ROADMAP.md A.6b)")
+
+
+def _diff_refusal(flags, scalars):
+    """The name of the first thing of a launch outside B4's envelope, or None."""
+    f = dict(flags)
+    for k, why in _DIFF_REFUSED.items():
+        if f.get(k):
+            return f"'{k}' ({why})"
+    if len(dict(scalars).get("sources", ())) != 0:
+        return "'sources' (environmental sources)"
+    return None
 
 
 def diff_envelope_ok(flags, scalars) -> bool:
     """True when the reverse-mode segment kernel covers the launch: the MPC
-    control envelope, without collision, volume effects, sources, fitness
-    features, a fluid environment, devo, or the material instance's options
-    (nonlinear materials, plasticity, the max-velocity clamp, equilibrium
-    mode, BC regions)."""
-    f, sc = dict(flags), dict(scalars)
-    return (not any(f.get(k) for k in _DIFF_REFUSED)
-            and len(sc.get("sources", ())) == 0)
+    control envelope on land, in water (voxel-face or facet drag) and with
+    the development ramps, without collision, volume effects, sources,
+    fitness features, or the material instance's options (nonlinear
+    materials, plasticity, the max-velocity clamp, equilibrium mode, BC
+    regions)."""
+    return _diff_refusal(flags, scalars) is None
+
+
+def b4_tape_channels(flags) -> int:
+    """Channels of a slot of B4's tape for a launch with these flags."""
+    return _B4_MESH_TAPE_CHANNELS if facet_drag(flags) else _B4_TAPE_CHANNELS
 
 
 def _check_bwd(flags, scalars, n_knots, seg_base, total_steps):
-    if not diff_envelope_ok(flags, scalars):
+    why = _diff_refusal(flags, scalars)
+    if why is not None:
         raise NotImplementedError(
-            "reverse-mode segment: configuration outside the differentiable "
+            f"reverse-mode segment: {why} is outside the differentiable "
             "envelope (ops.fused_rollout.diff_envelope_ok)")
     check_envelope(flags, scalars)
     if not n_knots:
@@ -1688,9 +1719,14 @@ def fused_bwd_call(state_packed, body_packed, stats, control_packed, seg_base,
     params = _k1_params(scalars, prec)
     S = int(num_steps)
     dev = state_packed.device
-    # scratch of the launch: the forward recompute's tape and step clocks
-    tape = torch.empty((B, S + 1, _B4_TAPE_CHANNELS, V), dtype=torch.float32, device=dev)
+    # scratch of the launch: the forward recompute's tape and step clocks,
+    # and the facet drag's vertex field and corner cotangents
+    tape = torch.empty((B, S + 1, b4_tape_channels(flags), V), dtype=torch.float32,
+                       device=dev)
     tape_t = torch.empty((B, max(S, 1)), dtype=torch.float32, device=dev)
+    mesh = bool(bits & _K1_FLAG_BITS["fluid_mesh"])
+    scratch = torch.empty((B, _B4_MESH_SCRATCH, V), dtype=torch.float32,
+                          device=dev) if mesh else None
     cot = cot_state.clone()  # pulled back in place
     cot_ctrl = torch.zeros_like(control_packed)
     fn = build.library("fused_rollout_bwd")
@@ -1701,10 +1737,17 @@ def fused_bwd_call(state_packed, body_packed, stats, control_packed, seg_base,
                 control_packed.data_ptr(), int(n_knots), knot_steps, seg0,
                 B, X, Y, Z, S, params.ctypes.data_as(ctypes.c_void_p), bits,
                 tape.data_ptr(), tape_t.data_ptr(), cot.data_ptr(),
-                cot_ctrl.data_ptr(), stream)
+                cot_ctrl.data_ptr(), scratch.data_ptr() if mesh else None, stream)
     build.check(rc, "fused_rollout_bwd")
-    global FUSED_BWD_LAUNCHES
+    global FUSED_BWD_LAUNCHES, FUSED_BWD_FLUID_LAUNCHES, FUSED_BWD_MESH_LAUNCHES
+    global FUSED_BWD_DEVO_LAUNCHES
     FUSED_BWD_LAUNCHES += 1
+    if bits & _K1_FLAG_BITS["fluid"]:
+        FUSED_BWD_FLUID_LAUNCHES += 1
+    if mesh:
+        FUSED_BWD_MESH_LAUNCHES += 1
+    if any(bits & _K1_FLAG_BITS[k] for k in _K1_DEVO_FLAGS):
+        FUSED_BWD_DEVO_LAUNCHES += 1
     return cot, cot_ctrl
 
 

@@ -6,7 +6,7 @@ the JAX tool's `measure_vpu_peak`) and returns the card's measured FP32
 rate. Beside it, the least time the card could take for a launch of each
 kernel (`bound`): the larger of its operations over the FP32 peak and its
 compulsory bytes over the memory rate, from counts of the work the launch's
-inputs need (`k1_work`, `b7_work`, `b8_work`, `b4_work`, `k2_work`,
+inputs need (`k1_work`, `b7_work`, `b8_work`, `b4_work` in each variant, `k2_work`,
 `b5_work`, `b6_work`, `b6d_work`, `fma_work`; `launch_work` picks K1's by
 the launch's flags).
 
@@ -67,6 +67,17 @@ products aside (on this card an index load, no operation), and the kernel
 runs K2's loop body; so the bound charges `PAIR_FLOPS_TESTED` for every
 nonzero entry of the compact table, as `k1_work` does for the dense one.
 
+The adjoint in water and with growth (`b4_work` on a fluid or development
+launch) is counted by the same walk of `jax.vjp` of the JAX step with the
+control offset, less the forward step, on the same bodies: 2659.005 per
+occupied voxel and step in water with the voxel-face drag, 2671.007 with
+the growth experiment's development fields; with the facet drag, over the
+four bodies of the forward count, exactly 2630.005 per grid voxel + 58 per
+surface triangle + 507 per surface vertex, whose vertex part a walk of the
+vjp of `mesh_drag_forces` with the tables cut to 4 and 2 slots splits into
+63 per corner slot and 3 per vertex; the bound counts the 63 for each live
+corner, as for the forward step.
+
 Volume effects (`b6d_work`) are counted by the same walk of the JAX step
 with VolumeEffectsEnabled on (and its carry in the state) beyond the land
 step, with `EnvParams()`'s varying temperature as the thermal term's clock:
@@ -100,6 +111,15 @@ MESH_FLOPS_PER_CORNER = 76.0  # one occupied voxel's corner at a vertex
 MESH_FLOPS_PER_VERTEX = 4.0
 MESH_TABLE_SLOTS = 8  # corner slots a vertex of the gather tables is padded to
 DEVO_STEP_FLOPS_PER_VOXEL = 2218.032
+# the adjoint of the step beyond the step, per occupied voxel (or, with the
+# facet drag, per surface triangle, corner and vertex), in water and with
+# development (module docstring)
+FLUID_FACE_ADJOINT_FLOPS_PER_VOXEL = 2659.005
+FLUID_MESH_ADJOINT_FLOPS_PER_VOXEL = 2630.005
+MESH_ADJOINT_FLOPS_PER_TRIANGLE = 58.0
+MESH_ADJOINT_FLOPS_PER_CORNER = 63.0
+MESH_ADJOINT_FLOPS_PER_VERTEX = 3.0
+DEVO_ADJOINT_FLOPS_PER_VOXEL = 2671.007
 # the fitness features, per occupied voxel (module docstring)
 TRACE_SAMPLE_FLOPS_PER_VOXEL = 11.004
 FALL_LATCH_FLOPS_PER_VOXEL = 8.0
@@ -511,24 +531,45 @@ def b8b_work(body, stats, stats_out):
             4.0 * 2 * 4 * stats.shape[0] * body.shape[-1])
 
 
-def b4_work(state, body, stats, controls, steps):
+def b4_work(state, body, stats, controls, steps, flags=None, grid_shape=None):
     """(flops, bytes) that one B4 launch on these packed tensors needs.
 
     `steps` (B,) are the steps each robot's segment really took (a frozen
     robot's skipped steps are the identity). Operations: for every occupied
-    voxel and step the forward recompute (`STEP_FLOPS_PER_VOXEL`) and the
-    adjoint of the step (`ADJOINT_FLOPS_PER_VOXEL`). Bytes: what the
-    function must move, whatever the kernel keeps in its tape: the start
-    state's carried channels and the end state's cotangent in, the start
-    state's cotangent out, the body channels the step reads, the stats rows,
-    the controls in and their cotangent out."""
+    voxel and step the forward recompute and the adjoint of the step, in
+    the variant the launch's `flags` select: on land `STEP_FLOPS_PER_VOXEL`
+    and `ADJOINT_FLOPS_PER_VOXEL`; in water with the voxel-face drag, or
+    with development fields, their own two counts; with the facet drag the
+    forward and adjoint counts a voxel and, for every step, the robot's
+    surface mesh's triangles, vertices and corners (`mesh_counts` on
+    `grid_shape`). Bytes: what the function must move, whatever the kernel
+    keeps in its tape or its scratch: the start state's carried channels
+    and the end state's cotangent in, the start state's cotangent out, the
+    body channels the step reads (with development the six fields more),
+    the stats rows, the controls in and their cotangent out."""
+    flags = flags or {}
     B, _, V = state.shape
     steps = torch.as_tensor(steps, dtype=torch.float32, device=state.device)
     occupied = (body[:, fr._B_OCC, :] > 0.5).sum(1).to(steps.dtype)  # (B or 1,)
-    flops = float((occupied * steps).sum()) * (
-        STEP_FLOPS_PER_VOXEL + ADJOINT_FLOPS_PER_VOXEL)
+    per_voxel = STEP_FLOPS_PER_VOXEL + ADJOINT_FLOPS_PER_VOXEL
+    per_step = torch.zeros_like(occupied)
+    body_channels = K1_BODY_CHANNELS
+    if fr.facet_drag(flags):
+        per_voxel = FLUID_MESH_STEP_FLOPS_PER_VOXEL + FLUID_MESH_ADJOINT_FLOPS_PER_VOXEL
+        X, Y, Z = grid_shape
+        tris, verts, corners = (c.to(steps.dtype) for c in mesh_counts(
+            body[:, fr._B_OCC, :].reshape(-1, X, Y, Z) > 0.5))
+        per_step = ((MESH_FLOPS_PER_TRIANGLE + MESH_ADJOINT_FLOPS_PER_TRIANGLE) * tris
+                    + (MESH_FLOPS_PER_VERTEX + MESH_ADJOINT_FLOPS_PER_VERTEX) * verts
+                    + (MESH_FLOPS_PER_CORNER + MESH_ADJOINT_FLOPS_PER_CORNER) * corners)
+    elif flags.get("fluid"):
+        per_voxel = FLUID_FACE_STEP_FLOPS_PER_VOXEL + FLUID_FACE_ADJOINT_FLOPS_PER_VOXEL
+    elif any(flags.get(k) for k in fr._K1_DEVO_FLAGS):
+        per_voxel = DEVO_STEP_FLOPS_PER_VOXEL + DEVO_ADJOINT_FLOPS_PER_VOXEL
+        body_channels += K1_DEVO_BODY_CHANNELS
+    flops = float(((occupied * per_voxel + per_step) * steps).sum())
     nbytes = 4.0 * (3 * B * K1_STATE_CHANNELS * V
-                    + body.shape[0] * K1_BODY_CHANNELS * V
+                    + body.shape[0] * body_channels * V
                     + stats.numel() + 2 * controls.numel())
     return flops, nbytes
 

@@ -149,18 +149,40 @@ extern "C" void emu_fwd_vol(float* state, const float* body, int body_batched, f
         stat[ST_CAPT] = r.capt ? 1.f : 0.f;
     }
 }
+template <int VARIANT>
+static void emu_bwd_variant(const float* state, const float* body, int body_batched,
+                            const float* stats, const float* ctrl, int n_knots, int knot_steps,
+                            int step_base, int B, int X, int Y, int Z, int num_steps,
+                            const Params& p, int flags, float* tape, float* tape_t, float* cot,
+                            float* cot_u) {
+    const int V = X * Y * Z;
+    std::vector<float> sh((size_t)BF * V), scr((size_t)B4_MESH_SCR * V);
+    const size_t nt = (size_t)tape_channels<VARIANT>();
+    for (int b = 0; b < B; ++b)
+        reverse_segment<VARIANT>(
+            state + (size_t)b * C_S * V, body + (body_batched ? (size_t)b * C_B * V : 0),
+            stats + (size_t)b * C_STAT, ctrl + (size_t)b * n_knots * V, n_knots, knot_steps,
+            step_base, X, Y, Z, num_steps, p, flags, tape + (size_t)b * (num_steps + 1) * nt * V,
+            tape_t + (size_t)b * num_steps, cot + (size_t)b * C_S * V,
+            cot_u + (size_t)b * n_knots * V, sh.data(),
+            VARIANT == V_FLUID_MESH ? scr.data() : nullptr);
+}
+// B4 in the variant the flags select; tape (B, num_steps + 1, NT or NT_MESH, V)
 extern "C" void emu_bwd(const float* state, const float* body, int body_batched,
                         const float* stats, const float* ctrl, int n_knots, int knot_steps,
                         int step_base, int B, int X, int Y, int Z, int num_steps,
                         const float* params, int flags, float* tape, float* tape_t, float* cot,
                         float* cot_u) {
     Params p; memcpy(&p, params, sizeof(float) * N_PARAMS);
-    const int V = X * Y * Z;
-    std::vector<float> sh((size_t)BF * V);
-    for (int b = 0; b < B; ++b)
-        reverse_segment(state + (size_t)b * C_S * V, body + (body_batched ? (size_t)b * C_B * V : 0),
-                        stats + (size_t)b * C_STAT, ctrl + (size_t)b * n_knots * V, n_knots, knot_steps,
-                        step_base, X, Y, Z, num_steps, p, flags,
-                        tape + (size_t)b * (num_steps + 1) * NT * V, tape_t + (size_t)b * num_steps,
-                        cot + (size_t)b * C_S * V, cot_u + (size_t)b * n_knots * V, sh.data());
+#define RUN(VARIANT)                                                                          \
+    emu_bwd_variant<VARIANT>(state, body, body_batched, stats, ctrl, n_knots, knot_steps,    \
+                             step_base, B, X, Y, Z, num_steps, p, flags, tape, tape_t, cot,  \
+                             cot_u)
+    switch (variant_of(flags)) {
+        case V_FLUID_FACE: RUN(V_FLUID_FACE); break;
+        case V_FLUID_MESH: RUN(V_FLUID_MESH); break;
+        case V_DEVO: RUN(V_DEVO); break;
+        default: RUN(V_LAND);
+    }
+#undef RUN
 }

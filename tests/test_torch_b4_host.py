@@ -86,7 +86,7 @@ def host_forward(lib, state, body, stats, ctrl, seg_base, kw):
 def host_backward(lib, state, body, stats, ctrl, seg_base, cot, kw):
     B, X, Y, Z, bits, params, batched = _launch_args(state, body, kw)
     S, V = kw["num_steps"], X * Y * Z
-    tape = torch.empty((B, S + 1, fr._B4_TAPE_CHANNELS, V))
+    tape = torch.empty((B, S + 1, fr.b4_tape_channels(kw["flags"]), V))
     tape_t = torch.empty((B, S))
     cs, cu = cot.clone(), torch.zeros_like(ctrl)
     lib.emu_bwd(state.data_ptr(), body.data_ptr(), batched, stats.data_ptr(),
@@ -244,3 +244,83 @@ def test_a_changed_header_renames_every_library(tmp_path, monkeypatch):
         f.write("// edited\n")
     after = {name: build._lib_path(name) for name in build.SIGNATURES}
     assert all(before[name] != after[name] for name in before)
+
+
+# water at 200 x the swimming experiment's drag coefficient (the drag's
+# adjoint weighs in 6 steps), from momenta perturbed so that facets face
+# forward on every side; development under clamp bounds that keep the old
+# scale now and then
+VARIANT_CASES = {"fluid_face": dict(model="face"), "fluid_mesh": dict(model="mesh"),
+                 "growth": dict(model="devo")}
+
+
+def _variant_case(model, B=3, n=3, S=6, K=3, total=48, pre=20):
+    """(state, body, stats, ctrl, seg_base, cot, kw) of one backward launch of
+    the bench design in water (`bench.packed_workload(fluid=)`: a 3^3 design
+    in its 4^3 shell) or with development fields (`devo=True`), `pre` steps
+    into a rollout under random controls."""
+    from evosoro_tpu_torch import bench
+
+    rng = np.random.default_rng(1)
+    fluid = None if model == "devo" else model
+    (state, body, stats, _), kw0, _ = bench.packed_workload(B, n=n, device="cpu",
+                                                            fluid=fluid, devo=fluid is None)
+    kw = dict(num_steps=S, grid_shape=kw0["grid_shape"], scalars=kw0["scalars"],
+              flags=dict(kw0["flags"], segmented=True), n_knots=K, total_steps=total)
+    stats = stats.clone()
+    if fluid:
+        stats[:, fr._S_DRAGC] = 1.5e5
+    else:
+        stats[:, fr._S_MINTF] = 0.9995
+        stats[:, fr._S_GAMP] = 5e-4
+    V = state.shape[2]
+    ctrl = torch.as_tensor(rng.uniform(-0.3, 0.3, size=(B, K, V)).astype(np.float32))
+    state, stats = fr.fused_rollout_plain(state, body, stats, None, control_packed=ctrl,
+                                          seg_base=0, **dict(kw, num_steps=pre))
+    if fluid:
+        occ = (body[:, fr._B_OCC] > 0.5).float()
+        state = state.clone()
+        for a, b in ((7, 10), (10, 13)):
+            noise = torch.as_tensor(rng.standard_normal((B, 3, V)).astype(np.float32))
+            state[:, a:b] += 3 * noise * state[:, a:b].abs().max() * occ[:, None]
+    cot = torch.as_tensor(rng.standard_normal((B, fr.C_S, V)).astype(np.float32))
+    return state.contiguous(), body, stats.contiguous(), ctrl, pre, cot, kw
+
+
+@pytest.mark.parametrize("name", list(VARIANT_CASES))
+def test_host_compiled_adjoint_in_water_and_with_growth(host_lib, name):
+    """B4's fluid and development instances (the voxel-face drag, the facet
+    drag with its mesh passes, the development clamps) against autograd
+    through the plain version, at the land cases' tolerance. What the check
+    can see: the plain version with the drag's force (or the scale update)
+    detached from the graph, which drops exactly the new adjoint, is far
+    outside it, and so is a launch one step short."""
+    from unittest import mock
+
+    from evosoro_tpu_torch.core import step as step_mod
+    from evosoro_tpu_torch.envs import drag as drag_mod
+
+    model = VARIANT_CASES[name]["model"]
+    state, body, stats, ctrl, seg_base, cot, kw = _variant_case(model)
+    assert fr.b4_tape_channels(kw["flags"]) == (54 if model == "mesh" else 48)
+    got = host_backward(host_lib, state, body, stats, ctrl, seg_base, cot, kw)
+    ref = fr.fused_bwd_plain(state, body, stats, ctrl, seg_base, cot, **kw)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert bool((got[0][:, fr._TSAVG:] == 0).all())
+    assert _worst(got, ref) <= REL_TOL
+    if model == "devo":
+        orig = step_mod._scale_update
+        target = (step_mod, "_scale_update",
+                  lambda *a: (orig(*a)[0].detach(), orig(*a)[1]))
+    elif model == "face":
+        orig = step_mod._fluid_drag
+        target = (step_mod, "_fluid_drag", lambda *a: orig(*a).detach())
+    else:
+        orig = drag_mod.mesh_drag_forces
+        target = (drag_mod, "mesh_drag_forces", lambda *a, **k: orig(*a, **k).detach())
+    with mock.patch.object(*target):
+        dropped = fr.fused_bwd_plain(state, body, stats, ctrl, seg_base, cot, **kw)
+    assert _worst(got, dropped) > 20 * REL_TOL
+    short = host_backward(host_lib, state, body, stats, ctrl, seg_base, cot,
+                          dict(kw, num_steps=kw["num_steps"] - 1))
+    assert _worst(short, ref) > 100 * REL_TOL

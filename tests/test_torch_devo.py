@@ -170,7 +170,9 @@ def test_ballistic_devo_and_fluid_devo_keep_their_rules():
     """In a fluid the development flags are inert (the land_water actuation
     bypasses them); ballistic development runs on land with an evolved
     final size and raises by name elsewhere (in a fluid the JAX kernel
-    rebases from ramps its actuation ignores, its eager step not at all)."""
+    rebases from ramps its actuation ignores, its eager step not at all).
+    The reverse-mode kernel differentiates development and water, not
+    ballistic development (as the JAX package's `_diff_envelope_ok`)."""
     flags = dict(fluid=True, use_init_size=True, use_final_size=True, temp_enabled=True)
     assert fr._flag_bits(flags) == fr._K1_FLAG_BITS["fluid"] | fr._K1_FLAG_BITS["temp_enabled"]
     assert fr._flag_bits(dict(flags, fluid=False)) & fr._K1_FLAG_BITS["use_init_size"]
@@ -182,8 +184,9 @@ def test_ballistic_devo_and_fluid_devo_keep_their_rules():
                 temp_enabled=True)
     fr.check_envelope(land, {"tb": 0.01})
     assert fr._flag_bits(land) & fr._K1_FLAG_BITS["ballistic"]
-    assert not fr.diff_envelope_ok(dict(use_final_size=True), {})
-    assert not fr.diff_envelope_ok(dict(fluid=True), {})
+    assert fr.diff_envelope_ok(dict(use_final_size=True), {})
+    assert fr.diff_envelope_ok(dict(fluid=True), {})
+    assert not fr.diff_envelope_ok(dict(use_final_size=True, ballistic=True), {})
 
 
 def _growing_walker(dtype=torch.float64):

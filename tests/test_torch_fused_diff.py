@@ -37,6 +37,7 @@ from evosoro_tpu.core.rollout import rollout as j_rollout
 from evosoro_tpu.core.types import EnvParams as JEnv
 from evosoro_tpu.core.types import SimParams as JSim
 from evosoro_tpu.core.types import evosoro_default_palette as j_default_palette
+from evosoro_tpu.envs.drag import attach_mesh_drag as j_attach_mesh_drag
 from evosoro_tpu.ops.fused_diff import DiffRollout as JDiffRollout
 from evosoro_tpu_torch import convert
 from evosoro_tpu_torch.core import EnvParams, SimParams, rollout
@@ -151,22 +152,70 @@ def test_diff_gradients_match_jax_backward_kernel():
     np.testing.assert_allclose(g_p.numpy().ravel(), gj, rtol=5e-3, atol=5e-4 * scale)
 
 
-@pytest.mark.parametrize("env_kw", [{}, dict(gravity_enabled=False, floor_enabled=False)],
-                         ids=["floor_gravity", "free"])
-def test_eager_bptt_float64_matches_jax_grad(env_kw):
+# water at 200 x the swimming experiment's drag coefficient, so that the
+# drag's derivative weighs in 12 steps
+WATER = dict(fluid_environment=True, gravity_enabled=False, floor_enabled=False,
+             aggregate_drag_coefficient=1.5e5)
+BPTT_CASES = {
+    "floor_gravity": {}, "free": dict(gravity_enabled=False, floor_enabled=False),
+    "fluid_face": WATER, "fluid_mesh": WATER, "growth": dict(growth_amplitude=0.3)}
+
+
+def _bptt_design(case, n):
+    """(state, body, sim, env, dt) in float64 of an eager BPTT case: the
+    `_make` design on land; in water with the voxel-face drag, or with the
+    facet drag in its +X/+Y/+Z shell; or with random development fields
+    whose ramps run within the case's 12 steps."""
+    if case in ("floor_gravity", "free", "fluid_face"):
+        _, state, jb, sim, env, dt = _make(n, 7, dtype=jnp.float64, **BPTT_CASES[case])
+        return state, jb, sim, env, dt
+    rng = np.random.default_rng(7)
+    structure = rng.integers(0, 5, size=(n, n, n)).astype(np.int32)
+    structure[n // 2, n // 2, 0] = 3
+    phase = rng.uniform(-1, 1, size=(n, n, n))
+    pal = j_palette(j_default_palette())
+    env = JEnv(**BPTT_CASES[case])
+    if case == "fluid_mesh":
+        shell = ((0, 1),) * 3
+        jb = j_attach_mesh_drag(j_build_body(np.pad(structure, shell), pal,
+                                             phase_offset=np.pad(phase, shell),
+                                             dtype=jnp.float64))
+        sim = JSim(init_cm_time=0.0)
+    else:
+        def u(lo, hi):
+            return rng.uniform(lo, hi, size=(n, n, n))
+
+        probe = j_build_body(structure, pal, dtype=jnp.float64)
+        step = float(j_calc_max_dt(probe)) * 0.9
+        jb = j_build_body(structure, pal, phase_offset=phase, dtype=jnp.float64,
+                          initial_voxel_size=u(0.006, 0.014),
+                          final_voxel_size=u(0.006, 0.014),
+                          growth_time=u(2 * step, 10 * step),
+                          start_growth_time=u(0, 5 * step))
+        sim = JSim(init_cm_time=4 * step, min_temp_fact=0.9)
+    dt = jnp.asarray(j_calc_max_dt(jb)) * jnp.asarray(sim.dt_frac)
+    return j_init_state(jb, dtype=jnp.float64), jb, sim, env, dt
+
+
+@pytest.mark.parametrize("case", list(BPTT_CASES))
+def test_eager_bptt_float64_matches_jax_grad(case):
     """(c) `torch.autograd.grad` through the eager `rollout` against
     `jax.grad` through the jnp `rollout`, both in float64, with controls:
-    the derivative of the plain version itself. Measured agreement 7e-14 of
-    the gradient's largest entry in both cases; held at 1e-9."""
+    the derivative of the plain version itself, on land, in water with
+    either drag model (a 3^3 design, in its 4^3 shell for the facet drag)
+    and with the development ramps. Measured agreement 7e-14 of the
+    gradient's largest entry on land; held at 1e-9."""
     n, steps, K = 3, 12, 3
-    _, state, jb, sim, env, dt = _make(n, 7, dtype=jnp.float64, **env_kw)
-    u0 = np.random.default_rng(3).uniform(-0.03, 0.03, size=(K, n, n, n))
+    state, jb, sim, env, dt = _bptt_design(case, n)
+    assert (jb.mesh_drag is not None) == (case == "fluid_mesh")
+    u0 = np.random.default_rng(3).uniform(-0.03, 0.03, size=(K,) + jb.occ.shape)
 
     def f_jax(u):
         return j_rollout(jb, sim, env, num_steps=steps, dt=dt, state=state,
                          control_sequence=u).final_cm[1]
 
-    g_j = np.asarray(jax.grad(f_jax)(jnp.asarray(u0)))
+    # jitted, so that a warm persistent compile cache spares the compile
+    g_j = np.asarray(jax.jit(jax.grad(f_jax))(jnp.asarray(u0)))
 
     body, psim, penv = _port(jb, sim, env, torch.float64)
     pstate = convert.state_from_numpy(_np(state), dtype=torch.float64)
@@ -279,20 +328,39 @@ def test_rest_state_gradients_are_finite_and_zero_cotangent_gives_zeros():
 
 
 def test_fused_bwd_call_refuses_what_is_outside_the_envelope():
-    """(f) Collision and every other flag outside `diff_envelope_ok` raise,
-    and so does a launch without knots or without the segmented mode."""
+    """(f) Every flag outside `diff_envelope_ok` raises NotImplementedError
+    naming it (nonlinear materials and the max-velocity clamp, which the JAX
+    kernel differentiates, name ROADMAP.md A.6b), and so do sources; a
+    launch without knots or without the segmented mode raises ValueError.
+    Water with either drag model and the development flags are inside the
+    envelope and run."""
     n, K = 3, 3
     _, _, dr, sp, _ = _both(n, 7, 12, K, 3)
     V = n ** 3
     ctrl = torch.zeros((B, K, V))
     cot = torch.zeros((B, fr.C_S, V))
     args = (sp, dr.body_packed, dr.stats0, ctrl, 0, cot)
-    for flag in fr._DIFF_REFUSED + ("fluid", "nonlinear"):
+    assert {"nonlinear", "max_vel", "collision", "collision_compact", "volume",
+            "equilibrium", "plasticity", "needle", "falling", "ndbv", "window",
+            "ballistic", "mdl_data", "bc"} == set(fr._DIFF_REFUSED)
+    for flag in fr._DIFF_REFUSED:
         kw = dict(dr._kw, flags=dict(dr._kw["flags"], **{flag: True}))
-        assert not fr.diff_envelope_ok(kw["flags"], kw["scalars"]) \
-            or flag in ("fluid", "nonlinear")
-        with pytest.raises(NotImplementedError):
+        assert not fr.diff_envelope_ok(kw["flags"], kw["scalars"])
+        match = f"'{flag}'.*A.6b" if flag in ("nonlinear", "max_vel") else f"'{flag}'"
+        with pytest.raises(NotImplementedError, match=match):
             fr.fused_bwd_call(*args, **kw)
+    with pytest.raises(NotImplementedError, match="'sources'"):
+        fr.fused_bwd_call(*args, **dict(dr._kw, scalars=dict(dr._kw["scalars"],
+                                                             sources=(1,))))
+    # inside now: water with the voxel-face or the facet drag, development
+    inside = [dict(fluid=True, gravity=False, floor=False),
+              dict(fluid=True, fluid_mesh=True, gravity=False, floor=False)]
+    inside += [{k: True} for k in fr._K1_DEVO_FLAGS]
+    for extra in inside:
+        flags = dict(dr._kw["flags"], **extra)
+        assert fr.diff_envelope_ok(flags, dr._kw["scalars"])
+        cs, cu = fr.fused_bwd_call(*args, **dict(dr._kw, flags=flags, num_steps=2))
+        assert bool(torch.isfinite(cs).all()) and bool(torch.isfinite(cu).all())
     assert not fr.diff_envelope_ok(dr._kw["flags"], dict(dr._kw["scalars"], sources=(1,)))
     assert fr.diff_envelope_ok(dr._kw["flags"], dr._kw["scalars"])
     with pytest.raises(ValueError):
@@ -312,3 +380,18 @@ def test_fused_bwd_call_refuses_what_is_outside_the_envelope():
         DiffRollout(body, SimParams(self_collisions_enabled=True,
                                     volume_effects_enabled=True), EnvParams(),
                     num_steps=12, num_knots=3, dt=1e-5, batch=B)
+    # a facet-drag body without its +X/+Y/+Z shell is refused by name, as
+    # `supports` refuses it; in its shell it is inside
+    from evosoro_tpu_torch.envs.drag import attach_mesh_drag
+
+    water = EnvParams(fluid_environment=True, gravity_enabled=False, floor_enabled=False)
+    with pytest.raises(ValueError, match="empty layer"):
+        DiffRollout(attach_mesh_drag(body), SimParams(), water, num_steps=12,
+                    num_knots=3, dt=1e-5, batch=B)
+    shelled = attach_mesh_drag(build_body(np.pad(np.full((3, 3, 3), 3, np.int32),
+                                                 ((0, 1),) * 3),
+                                          palette_from_list(evosoro_default_palette()),
+                                          device="cpu"))
+    dr_w = DiffRollout(shelled, SimParams(), water, num_steps=12, num_knots=3, dt=1e-5,
+                       batch=B)
+    assert fr.facet_drag(dr_w._kw["flags"])

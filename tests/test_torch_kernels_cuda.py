@@ -212,6 +212,63 @@ def test_reverse_mode_segment_matches_plain_on_the_card():
     assert (grads[0] - grads[1]).abs().max() <= 5e-3 * grads[1].abs().max() > 0
 
 
+@pytest.mark.cuda
+def test_reverse_mode_segment_in_water_and_with_growth_matches_plain_on_the_card():
+    """B4's fluid and development instances against `fused_bwd_plain` on
+    the bench design (4^3: in its 5^3 shell in water at 200 x the swimming
+    drag, with the facet and the voxel-face drag; with random development
+    fields), a segment in under random controls: every channel group within
+    2e-3 of the group's largest plain value, zeros for a zero cotangent; and
+    `DiffRollout`'s gradient on the card equals the plain path's on the CPU
+    (5e-3 of its largest entry)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; the CUDA kernels have no CPU mode")
+    from evosoro_tpu_torch.bench import packed_workload, sqp_workload
+    from evosoro_tpu_torch.core.rollout import init_state
+    from evosoro_tpu_torch.ops.fused_diff import DiffRollout
+
+    groups = dict(pos=(0, 3), quat=(3, 7), linmom=(7, 10), angmom=(10, 13),
+                  scale=(13, 14), memory=(17, 44), max_strain=(44, 47))
+    B, K, S, total = 4, 4, 10, 40
+    for model in ("mesh", "face", "devo"):
+        fluid = None if model == "devo" else model
+        (state, body, stats, _), kw0, _ = packed_workload(B, n=4, device="cuda", fluid=fluid,
+                                                          devo=fluid is None)
+        kw = dict(num_steps=S, grid_shape=kw0["grid_shape"], scalars=kw0["scalars"],
+                  flags=dict(kw0["flags"], segmented=True), n_knots=K, total_steps=total)
+        if fluid:
+            stats[:, fr._S_DRAGC] = 1.5e5
+        ctrl = _controls(B, K, state.shape[2], 10)
+        mid, mid_stats = fr.fused_call(state, body, stats, None, control_packed=ctrl,
+                                       seg_base=0, **dict(kw, num_steps=20))
+        g = torch.Generator().manual_seed(4)
+        cot = torch.randn(mid.shape, generator=g).cuda()
+        cot[:, fr._TSAVG:] = 0.0
+        before = (fr.FUSED_BWD_LAUNCHES, fr.FUSED_BWD_MESH_LAUNCHES, fr.FUSED_BWD_DEVO_LAUNCHES)
+        cs_k, cu_k = fr.fused_bwd_call(mid, body, mid_stats, ctrl, 20, cot, **kw)
+        after = (fr.FUSED_BWD_LAUNCHES, fr.FUSED_BWD_MESH_LAUNCHES, fr.FUSED_BWD_DEVO_LAUNCHES)
+        assert after == (before[0] + 1, before[1] + (model == "mesh"),
+                         before[2] + (model == "devo"))
+        cs_p, cu_p = fr.fused_bwd_plain(mid, body, mid_stats, ctrl, 20, cot, **kw)
+        for a, b in groups.values():
+            top = cs_p[:, a:b].abs().max()
+            assert (cs_k[:, a:b] - cs_p[:, a:b]).abs().max() <= 2e-3 * top, (model, a)
+        assert (cu_k - cu_p).abs().max() <= 2e-3 * cu_p.abs().max() > 0
+        zs, zu = fr.fused_bwd_call(mid, body, mid_stats, ctrl, 20, torch.zeros_like(cot), **kw)
+        assert bool((zs == 0).all()) and bool((zu == 0).all())
+
+        grads = []
+        for dev in ("cuda", "cpu"):
+            b, sm, env, step = sqp_workload(n=4, device=dev, fluid=fluid, devo=fluid is None)
+            dr = DiffRollout(b, sm, env, num_steps=24, num_knots=4, dt=step, batch=2,
+                             n_segs=3)
+            sp = fr.pack_state_single(init_state(b))[None].expand(2, -1, -1).contiguous()
+            u = _controls(2, 4, b.occ.numel(), 9).to(dev).requires_grad_(True)
+            cms, _, _ = dr(sp, dr.stats0, u)
+            grads.append(torch.autograd.grad(cms[-1].sum(), u)[0].cpu())
+        assert (grads[0] - grads[1]).abs().max() <= 5e-3 * grads[1].abs().max() > 0, model
+
+
 def _groups_within(out_k, out_p, tol):
     """Every named channel group of the packed state within its (rtol, atol)."""
     for name, (a, b) in dict(pos=(fr._POS, fr._POS + 3), quat=(fr._QUAT, fr._QUAT + 4),

@@ -203,6 +203,155 @@ def test_adjoint_operation_count_is_the_jaxpr_walk_of_the_steps_vjp():
                                roofline.ADJOINT_FLOPS_PER_VOXEL, rtol=1e-9)
 
 
+def test_b4_work_follows_the_variant():
+    """B4's count in water and with growth: the forward and adjoint counts
+    of the launch's variant for every occupied voxel and step, and with the
+    facet drag the robot's surface mesh on every step; development bodies'
+    six fields are read as well."""
+    B, V, grid, K = 2, 27, (3, 3, 3), 2
+    state = torch.zeros(B, fr.C_S, V)
+    body = torch.zeros(1, fr.C_B, V)
+    occ = torch.zeros(grid)
+    occ[:2, :2, :2] = 1.0  # 48 triangles, 26 vertices, 56 corners (as below)
+    body[0, fr._B_OCC] = occ.flatten()
+    stats = torch.zeros(B, fr.C_STAT)
+    ctrl = torch.zeros(B, K, V)
+    steps = [10, 4]
+    land = roofline.b4_work(state, body, stats, ctrl, steps)
+    assert roofline.b4_work(state, body, stats, ctrl, steps, flags={}, grid_shape=grid) == land
+    face = roofline.b4_work(state, body, stats, ctrl, steps, flags=dict(fluid=True),
+                            grid_shape=grid)
+    np.testing.assert_allclose(face[0], 14 * 8 * (roofline.FLUID_FACE_STEP_FLOPS_PER_VOXEL
+                                                  + roofline.FLUID_FACE_ADJOINT_FLOPS_PER_VOXEL))
+    assert face[1] == land[1]
+    mesh = roofline.b4_work(state, body, stats, ctrl, steps,
+                            flags=dict(fluid=True, fluid_mesh=True), grid_shape=grid)
+    np.testing.assert_allclose(mesh[0], 14 * (
+        8 * (roofline.FLUID_MESH_STEP_FLOPS_PER_VOXEL
+             + roofline.FLUID_MESH_ADJOINT_FLOPS_PER_VOXEL)
+        + 48 * (roofline.MESH_FLOPS_PER_TRIANGLE + roofline.MESH_ADJOINT_FLOPS_PER_TRIANGLE)
+        + 26 * (roofline.MESH_FLOPS_PER_VERTEX + roofline.MESH_ADJOINT_FLOPS_PER_VERTEX)
+        + 56 * (roofline.MESH_FLOPS_PER_CORNER + roofline.MESH_ADJOINT_FLOPS_PER_CORNER)))
+    assert mesh[1] == land[1]  # the tape and the mesh scratch are the kernel's own
+    # mesh tables on land are inert
+    assert roofline.b4_work(state, body, stats, ctrl, steps, flags=dict(fluid_mesh=True),
+                            grid_shape=grid) == land
+    devo = roofline.b4_work(state, body, stats, ctrl, steps,
+                            flags=dict(use_final_size=True), grid_shape=grid)
+    np.testing.assert_allclose(devo[0], 14 * 8 * (roofline.DEVO_STEP_FLOPS_PER_VOXEL
+                                                  + roofline.DEVO_ADJOINT_FLOPS_PER_VOXEL))
+    assert devo[1] == land[1] + 4.0 * 6 * V
+
+
+def test_adjoint_operation_counts_in_water_and_with_growth_are_jaxpr_walks():
+    """Where B4's counts in water and with growth come from: the walk of
+    `test_adjoint_operation_count_is_the_jaxpr_walk_of_the_steps_vjp` (the
+    jaxpr of `jax.vjp` of the JAX package's `sim_step` with the control
+    offset, less the forward step) on the bodies of
+    `test_fluid_and_development_operation_counts_are_jaxpr_walks`: in water
+    with the voxel-face drag, with the growth experiment's development
+    fields, and with the facet drag on three bodies with different surfaces,
+    whose counts fix the per-voxel, per-triangle and per-vertex constants
+    exactly, a fourth confirming them; the vertex constant is 8 corner slots
+    (a walk of the vjp of `mesh_drag_forces` with the tables cut to 4 and 2
+    slots) and a rest."""
+    import jax
+    import jax.numpy as jnp
+
+    from evosoro_tpu.core.materials import build_body, calc_max_dt, palette_from_list
+    from evosoro_tpu.core.rollout import init_state
+    from evosoro_tpu.core.step import sim_step
+    from evosoro_tpu.core.types import SimParams, evosoro_default_palette
+    from evosoro_tpu.envs import aquatic, growth_env
+    from evosoro_tpu.envs.drag import attach_mesh_drag, mesh_drag_forces
+    from tools.roofline import _count_jaxpr
+
+    def total(jaxpr):
+        counts = {"ew": 0, "trans": 0, "red": 0, "dot": 0}
+        _count_jaxpr(jaxpr.jaxpr, counts)
+        return sum(counts.values())
+
+    def zero_cot(out):
+        return jax.tree_util.tree_map(
+            lambda x: jnp.zeros(x.shape, x.dtype) if jnp.issubdtype(x.dtype, jnp.floating)
+            else np.zeros(x.shape, jax.dtypes.float0), out)
+
+    def adjoint(body, sim, env):
+        dt = float(calc_max_dt(body)) * float(sim.dt_frac)
+        state = init_state(body)
+        u = jnp.zeros(body.occ.shape, state.pos.dtype)
+
+        def step(s, c):
+            return sim_step(s, body, sim, env, dt, control_offset=c)
+
+        cot = zero_cot(jax.eval_shape(step, state, u))
+        both = total(jax.make_jaxpr(lambda s, c, ct: jax.vjp(step, s, c)[1](ct))(state, u, cot))
+        return both - total(jax.make_jaxpr(step)(state, u))
+
+    n = 10
+    rng = np.random.default_rng(0)
+    structure = rng.integers(1, 5, size=(n, n, n)).astype(np.int32)
+    phase = rng.uniform(-1, 1, size=(n, n, n))
+    palette = palette_from_list(evosoro_default_palette())
+    body = build_body(structure, palette, phase_offset=phase)
+    np.testing.assert_allclose(adjoint(body, SimParams(), aquatic()) / n ** 3,
+                               roofline.FLUID_FACE_ADJOINT_FLOPS_PER_VOXEL, rtol=1e-9)
+
+    def u(lo, hi):
+        return rng.uniform(lo, hi, size=(n, n, n))
+
+    grower = build_body(structure, palette, phase_offset=phase,
+                        initial_voxel_size=u(0.006, 0.014),
+                        final_voxel_size=u(0.006, 0.014), growth_time=u(1, 2),
+                        start_growth_time=u(0, 1))
+    np.testing.assert_allclose(
+        adjoint(grower, SimParams(min_temp_fact=0.4), growth_env()) / n ** 3,
+        roofline.DEVO_ADJOINT_FLOPS_PER_VOXEL, rtol=1e-9)
+
+    rows = []
+    for cut in ((None, (slice(2, 5), slice(2, 9), slice(9, 10)),
+                 (slice(4, 6), slice(4, 6), slice(4, 6)),
+                 (slice(0, 10), slice(3, 4), slice(3, 4)))):
+        s = structure.copy()
+        if cut is not None:
+            s[cut] = 0
+        swimmer = attach_mesh_drag(build_body(s, palette, phase_offset=phase))
+        tris, verts, _ = roofline.mesh_counts(torch.as_tensor(s > 0)[None])
+        rows.append(([n ** 3, int(tris), int(verts)], adjoint(swimmer, SimParams(), aquatic())))
+    fit = np.linalg.solve(np.array([r[0] for r in rows[:3]], float),
+                          np.array([r[1] for r in rows[:3]], float))
+    np.testing.assert_allclose(
+        fit, [roofline.FLUID_MESH_ADJOINT_FLOPS_PER_VOXEL,
+              roofline.MESH_ADJOINT_FLOPS_PER_TRIANGLE,
+              roofline.MESH_TABLE_SLOTS * roofline.MESH_ADJOINT_FLOPS_PER_CORNER
+              + roofline.MESH_ADJOINT_FLOPS_PER_VERTEX], rtol=1e-9)
+    np.testing.assert_allclose(np.dot(rows[3][0], fit), rows[3][1], rtol=1e-12)
+
+    tables = swimmer.mesh_drag
+    shape = s.shape
+
+    def drag_adjoint(slots):
+        cut = tables.replace(vert_vox=tables.vert_vox[:, :slots],
+                             vert_sign=tables.vert_sign[:, :slots],
+                             vert_w=tables.vert_w[:, :slots])
+        z = np.zeros
+
+        def f(pos, quat, lin, sp, sn):
+            return mesh_drag_forces(pos, quat, np.ones(shape), lin, np.ones(shape), cut,
+                                    750.0, strain_pos=sp, strain_neg=sn, nominal_size=0.01)
+
+        args = (z(shape + (3,)), z(shape + (4,)), z(shape + (3,)), z((3,) + shape),
+                z((3,) + shape))
+        cot = np.zeros(jax.eval_shape(f, *args).shape)
+        both = total(jax.make_jaxpr(lambda *a: jax.vjp(f, *a)[1](cot))(*args))
+        return both - total(jax.make_jaxpr(f)(*args))
+
+    n_verts = tables.vert_vox.shape[0]
+    per_slot = (drag_adjoint(8) - drag_adjoint(4)) / (4 * n_verts)
+    assert per_slot == (drag_adjoint(4) - drag_adjoint(2)) / (2 * n_verts)
+    assert per_slot == roofline.MESH_ADJOINT_FLOPS_PER_CORNER
+
+
 def test_mesh_counts_equal_the_gather_tables():
     """Triangles, vertices and live corner slots counted from the occupancy
     with tensor ops against the tables `build_mesh_drag` makes on the host."""
