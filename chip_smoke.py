@@ -49,6 +49,15 @@ path of the four fixture .vxa files and the cantilever (`phase_replay`),
 the comparisons and guards of `phase_k1_materials` with the costs of B5 and
 B6 on 1024 x 10^3, and two generations of the materials experiment.
 
+`python3 chip_smoke.py --big` runs bodies past one block's shared memory
+alone (`phase_big`, also part of the full run): K1's and B4's
+device-memory instances bit for bit against their shared-memory twins,
+against the plain versions at 12^3, 13^3 and 16^3 and on a 12^3 swimmer in
+its 13^3 shell, the guard of one buffer for every robot, their times, and
+the main paths at 12^3 (two generations of the basic experiment with
+contact, a cantilever's replay, a cold CEM solve, the fused SQP solve); its
+kernels line holds the two device-memory rows.
+
 `python3 chip_smoke.py --volume` runs volume effects alone
 (`phase_k1_volume`): K1's volume instance against its plain version with
 its three guards, the volume replay of an archived design and of the
@@ -691,19 +700,20 @@ def phase_k1_features(torch):
     assert rec["ok"] and rec["traces_max"] >= 3, rec
 
     # the shared-memory ceiling with contact: a 1350-cell body launches the
-    # feature instance (its static shared memory is the largest), 1351 is
-    # refused on the host
-    rec = dict(phase="k1_ceiling", launched=[], refused=[])
+    # feature instance (its static shared memory is the largest) in shared
+    # memory, 1351 its device-memory twin; both against the plain version
+    rec = dict(phase="k1_ceiling", device_launches={}, errs={})
     for V in (1350, 1351):
         a, k = _line_workload(torch, fr, V)
-        try:
-            fr.fused_call(*a, num_steps=1, **k)
-            torch.cuda.synchronize()
-            rec["launched"].append(V)
-        except ValueError:
-            rec["refused"].append(V)
+        g0 = fr.FUSED_ROLLOUT_GMEM_LAUNCHES
+        out_k, st_k = fr.fused_call(*a, num_steps=25, **k)
+        torch.cuda.synchronize()
+        rec["device_launches"][V] = fr.FUSED_ROLLOUT_GMEM_LAUNCHES - g0
+        ok, rec["errs"][V] = _compare(torch, fr, out_k, st_k,
+                                      *fr.fused_rollout_plain(*a, num_steps=25, **k))
+        assert ok, rec
     emit(rec)
-    assert rec["launched"] == [1350] and rec["refused"] == [1351], rec
+    assert rec["device_launches"] == {1350: 0, 1351: 1}, rec
 
     # each branch's launch, timed at 25 steps: the trace, needle and
     # fall-over bookkeeping without sources (B8c), the sources alone (B8d),
@@ -2207,6 +2217,412 @@ def _b4_rows(b4, b4_var, sqp_launches, var_launches, bound_keys):
     return rows
 
 
+# the 12^3 basic experiment's depth: its sim time cut from 5 s (and the
+# CoM capture from 1 s), so that two generations with contact take well
+# under a minute
+BIG_SIM_TIME, BIG_INIT_TIME = 0.5, 0.1
+
+
+def _device_instances(fr):
+    """A context in which K1 and B4 launch their device-memory instances at
+    any body size (`k1_instance` says "device")."""
+    from unittest import mock
+
+    return mock.patch.object(fr, "k1_instance", lambda *a, **k: "device")
+
+
+def _sqp_k1_launch(torch, np, fr, n=10, B=8, K=8, **wkw):
+    """K1's launch of the fused SQP solve on `bench.sqp_workload(n, **wkw)`
+    from rest: segmented mode on a 200-step clock, seg_base 0, `K` knots of
+    random controls. Returns (args, launch keywords without num_steps)."""
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.core.rollout import init_state
+
+    body, sim, env, dt = bench.sqp_workload(n=n, device="cuda", **wkw)
+    state0 = fr.pack_state_single(init_state(body))[None].expand(B, -1, -1).contiguous()
+    kw = dict(grid_shape=tuple(body.occ.shape),
+              scalars=fr.kernel_scalars(body.nominal_size, sim, env),
+              flags=fr.launch_flags(body, sim, env, collision=False, segmented=True),
+              n_knots=K, total_steps=200,
+              control_packed=_controls(torch, np, B, K, body.occ.numel(), seed=31),
+              seg_base=0)
+    return (state0, fr.pack_body(body), fr.make_stats(body, B, dt, sim, env), None), kw
+
+
+def _sqp_b4_launch(torch, np, fr, n=10, B=8, K=8, **wkw):
+    """B4's launch of the fused SQP solve on `bench.sqp_workload(n, **wkw)`:
+    25 steps of a 200-step clock from the state K1 reaches 75 steps in under
+    random controls (`_sqp_k1_launch`), with a random cotangent. Returns
+    (state, body, stats, controls, cotangent, launch keywords)."""
+    args, kw = _sqp_k1_launch(torch, np, fr, n, B, K, **wkw)
+    st75, ss75 = fr.fused_call(*args, num_steps=75, **kw)
+    cot = np.random.default_rng(32).standard_normal(st75.shape).astype(np.float32)
+    cot[:, fr._TSAVG:] = 0.0
+    ctrl = kw.pop("control_packed")
+    kw.pop("seg_base")
+    return (st75, args[1], ss75, ctrl, torch.as_tensor(cot, device="cuda"),
+            dict(kw, num_steps=25))
+
+
+def _keeping_launch(torch, fr, keep):
+    """A context in which `fr.fused_call` runs as before and a copy of the
+    inputs of its first call whose keywords satisfy `keep` is kept: yields
+    a list that then holds (args, keywords without num_steps, num_steps)."""
+    import contextlib
+
+    def copy(t):
+        return t.clone() if torch.is_tensor(t) else t
+
+    @contextlib.contextmanager
+    def context():
+        kept, real = [], fr.fused_call
+
+        def call(*a, **k):
+            if not kept and keep(k):
+                kept.append((tuple(copy(t) for t in a),
+                             {key: copy(v) for key, v in k.items() if key != "num_steps"},
+                             k["num_steps"]))
+            return real(*a, **k)
+
+        fr.fused_call = call
+        try:
+            yield kept
+        finally:
+            fr.fused_call = real
+
+    return context()
+
+
+def phase_big(torch, np):
+    """Bodies past one block's shared memory: K1's and B4's device-memory
+    instances (the robot's buffer in device memory, `k1_instance`).
+    (a) Each against its shared-memory twin on bodies both run (the twin
+    forced with `_device_instances`), every state
+    and stats channel bit for bit: K1 on the evaluator batch with contact,
+    the bench 10^3 design with and without contact, face and facet drag,
+    the growth ramps, the features, the material instance (MDL_DATA,
+    plasticity, the clamp), the compact contact pass, the volume instance,
+    the evaluator batch with 4 knots, the SQP solve's K1 launch (8 x 10^3,
+    segmented, 8 knots) from rest and at seg_base 75, and the cantilever
+    with its BC channels; B4 on the SQP launch (8 x 10^3 x 25 steps) on
+    land and in its three variants. (b) Against the plain versions at the
+    new sizes: the big-body batch (`bench.big_body_workload`: 32 robots,
+    30 % holes, a body and pair table per robot) at 12^3 and 13^3 with
+    contact, 8 x 16^3 without, a 12^3 swimmer in its 13^3 shell with the
+    facet drag and contact (K1's tolerances, `MESH_TOL` for the facet
+    drag), the SQP solve's K1 launch from rest at 12^3, and B4 on
+    8 x 12^3 x 25 steps against autograd (2e-3 a channel group), each launch
+    counted as a device-memory one; after (d), the main paths' own launches
+    (kept by `_keeping_launch`): the 12^3 cantilever's replay, the cold CEM
+    solve's first launch and the SQP solve's first segment past seg_base 0.
+    (c) The guard: one buffer for every
+    robot must fail. (d) Times with their bounds: K1 on 1024 x 12^3 x 200
+    without contact, the device-memory instance forced on 1024 x 10^3 x 200
+    against the shared one in turns; then the main paths at 12^3, every
+    launch counter set to 0 just before each and read just after: two
+    generations of the basic experiment at 12^3 with contact (pop 15, sim
+    time cut to BIG_SIM_TIME), the 12^3 cantilever's replay, a cold CEM
+    solve (`bench.mpc(n=12)`) and the fused SQP solve
+    (`bench.sqp(n=12)`). Returns the records the kernels line reads."""
+    import math
+    import tempfile
+    from unittest import mock
+
+    from evosoro_tpu_torch import bench, roofline
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    out = {}
+    # (a) device-memory against shared-memory instances, bit for bit
+    pairs = [("evaluator batch 16 x 6^3, contact on, staggered",
+              bench.evaluator_workload(collision=True, stagger=True, device="cuda"), 100),
+             ("bench 8 x 10^3", bench.packed_workload(8, device="cuda")[:2], 100),
+             ("bench 8 x 10^3, contact on",
+              bench.packed_workload(8, collision=True, device="cuda")[:2], 25),
+             ("bench 8 x 10^3 in 11^3, face drag",
+              bench.packed_workload(8, device="cuda", fluid="face")[:2], 100),
+             ("bench 8 x 10^3 in 11^3, facet drag",
+              bench.packed_workload(8, device="cuda", fluid="mesh")[:2], 100),
+             ("bench 8 x 10^3, growth ramps",
+              bench.packed_workload(8, device="cuda", devo=True)[:2], 100),
+             ("evaluator batch 16 x 6^3, features, windows of 4, 3 sources",
+              bench.feature_workload(n_win=4, n_src=3, device="cuda"), 240),
+             ("materials batch 16 x 6^3, MDL_DATA, plasticity, clamp, contact on",
+              bench.materials_workload(device="cuda"), 100),
+             ("bench 4 x 10^3, materials, compact contact pass",
+              bench.packed_workload(4, device="cuda", materials=True, collision=True,
+                                    compact=True)[:2], 25),
+             ("volume batch 16 x 6^3, contact on", bench.volume_workload(device="cuda"), 100)]
+    # control knots: the evaluator batch with 4 knots, and the fused SQP
+    # solve's K1 launches in segmented mode (8 knots), from rest and at
+    # seg_base 75 from where the first ends
+    ev_args, ev_kw = bench.evaluator_workload(collision=True, device="cuda")
+    B, _, V = ev_args[0].shape
+    pairs.append(("evaluator batch 16 x 6^3, contact on, 4 knots", (ev_args, dict(
+        ev_kw, control_packed=_controls(torch, np, B, 4, V, seed=4), n_knots=4)), 25))
+    sq_args, sq_kw = _sqp_k1_launch(torch, np, fr)
+    st75, ss75 = fr.fused_call(*sq_args, num_steps=75, **sq_kw)
+    pairs += [("SQP launch 8 x 10^3, segmented, 8 knots, from rest", (sq_args, sq_kw), 75),
+              ("SQP launch 8 x 10^3, segmented, 8 knots, seg_base 75",
+               ((st75, sq_args[1], ss75, None), dict(sq_kw, seg_base=75)), 25)]
+    # the BC channels: the cantilever read with load_vxa
+    with tempfile.TemporaryDirectory() as tmp:
+        cl_args, cl_kw, _ = bench.cantilever_workload(os.path.join(tmp, "cantilever.vxa"),
+                                                      batch=2, device="cuda")
+    pairs.append(("cantilever 2 x 10^3, BC channels (load_vxa)", (cl_args, cl_kw), 200))
+    recs = []
+    for label, (args, kw), steps in pairs:
+        g0 = fr.FUSED_ROLLOUT_GMEM_LAUNCHES
+        a = fr.fused_call(*args, num_steps=steps, **kw)
+        g1 = fr.FUSED_ROLLOUT_GMEM_LAUNCHES
+        with _device_instances(fr):
+            b = fr.fused_call(*args, num_steps=steps, **kw)
+        torch.cuda.synchronize()
+        rec = dict(phase="big_device_vs_shared", kernel="K1", workload=label, steps=steps,
+                   shared_launches=1 - (g1 - g0),
+                   device_launches=fr.FUSED_ROLLOUT_GMEM_LAUNCHES - g1,
+                   state_bit_equal=torch.equal(a[0], b[0]),
+                   stats_bit_equal=torch.equal(a[1], b[1]),
+                   moved=float((a[0][:, :3] - args[0][:, :3]).abs().max()))
+        rec["ok"] = rec["shared_launches"] == rec["device_launches"] == 1 \
+            and rec["state_bit_equal"] and rec["stats_bit_equal"] and rec["moved"] > 0
+        emit(rec)
+        assert rec["ok"], rec
+        recs.append(rec)
+    for model, wkw in (("land", {}), ("facet drag", dict(fluid="mesh")),
+                       ("voxel-face drag", dict(fluid="face")), ("growth", dict(devo=True))):
+        st, bo, ss, ctrl, cot, kw = _sqp_b4_launch(torch, np, fr, **wkw)
+        g0 = fr.FUSED_BWD_GMEM_LAUNCHES
+        a = fr.fused_bwd_call(st, bo, ss, ctrl, 75, cot, **kw)
+        assert fr.FUSED_BWD_GMEM_LAUNCHES == g0
+        with _device_instances(fr):
+            b = fr.fused_bwd_call(st, bo, ss, ctrl, 75, cot, **kw)
+        torch.cuda.synchronize()
+        rec = dict(phase="big_device_vs_shared", kernel="B4",
+                   workload="SQP launch 8 x %s, %s, 75 steps in" % (
+                       "x".join(map(str, kw["grid_shape"])), model), steps=25,
+                   device_launches=fr.FUSED_BWD_GMEM_LAUNCHES - g0,
+                   bit_equal=all(torch.equal(x, y) for x, y in zip(a, b)),
+                   nonzero=bool(a[1].abs().max() > 0))
+        rec["ok"] = rec["device_launches"] == 1 and rec["bit_equal"] and rec["nonzero"]
+        emit(rec)
+        assert rec["ok"], rec
+        recs.append(rec)
+    out["bit_equal"] = recs
+
+    # (b) against the plain versions at the new sizes
+    k1 = []
+    for n, coll, B in ((12, True, 32), (13, True, 32), (16, False, 8)):
+        args, kw, n_occ = bench.big_body_workload(B, n=n, collision=coll, device="cuda")
+        assert fr.k1_instance(n ** 3, coll) == "device"
+        k0, g0 = fr.FUSED_ROLLOUT_LAUNCHES, fr.FUSED_ROLLOUT_GMEM_LAUNCHES
+        k1 += _k1_cases(torch, fr, "big-body batch %d x %d^3, %d occupied, a body and pair "
+                        "table per robot" % (B, n, n_occ), args, kw, B, coll, (1, 100),
+                        time_at=100 if n < 16 else None, phase="big_vs_plain", n=n)
+        assert fr.FUSED_ROLLOUT_GMEM_LAUNCHES - g0 == fr.FUSED_ROLLOUT_LAUNCHES - k0 > 0
+        if n == 12:
+            big12 = (args, kw)
+    args, kw, _ = bench.big_body_workload(32, n=12, device="cuda", fluid=True)
+    k1 += _k1_cases(torch, fr, "big-body swimmer 32 x 12^3 in its 13^3 shell, facet drag",
+                    args, kw, 32, True, (100,), phase="big_vs_plain", tol=MESH_TOL, n=13,
+                    drag="facet")
+    sq_args, sq_kw = _sqp_k1_launch(torch, np, fr, n=12)
+    k1 += _k1_cases(torch, fr, "SQP launch 8 x 12^3, segmented, 8 knots, from rest", sq_args,
+                    sq_kw, 8, False, (75,), phase="big_vs_plain", n=12)
+    out["k1"] = k1
+    st, bo, ss, ctrl, cot, kw = _sqp_b4_launch(torch, np, fr, n=12)
+    b0 = fr.FUSED_BWD_GMEM_LAUNCHES
+    out["b4"] = _b4_case(torch, np, fr, "SQP launch 8 x 12^3, no floor, no gravity, 75 steps "
+                         "in", st, bo, ss, ctrl, 75, kw, seed=9, timed=True)
+    assert fr.FUSED_BWD_GMEM_LAUNCHES > b0
+
+    # (c) the guard: every robot handed robot 0's buffer
+    args, kw = big12
+    out_p, st_p = fr.fused_rollout_plain(*args, num_steps=25, **kw)
+    with mock.patch.object(fr, "_bond_buffer", lambda B, floats, device: torch.empty(
+            (1, floats), device=device).expand(B, -1)):
+        out_g, st_g = fr.fused_call(*args, num_steps=25, **kw)
+    torch.cuda.synchronize()
+    passes, errs = _compare(torch, fr, out_g, st_g, out_p, st_p)
+    rec = dict(phase="big_guard", workload="big-body batch 32 x 12^3, 25 steps, one buffer "
+               "for every robot", passes=passes, pos_err=errs["pos"], ok=not passes)
+    emit(rec)
+    assert rec["ok"], rec
+
+    # (d) times
+    args, kw, n_occ = bench.big_body_workload(1024, n=12, collision=False, device="cuda")
+    ms = bench.time_call(lambda: fr.fused_call(*args, num_steps=200, **kw), 2, 2)
+    _, st200 = fr.fused_call(*args, num_steps=200, **kw)
+    rec = dict(phase="big_time", workload="big-body batch 1024 x 12^3 x 200 steps, contact off",
+               ms=ms, voxel_steps_per_s=n_occ * 1024 * 200 / (ms * 1e-3),
+               **roofline.bound(*roofline.launch_work(*args, st200, flags=kw["flags"],
+                                                      grid_shape=kw["grid_shape"])))
+    emit(rec)
+    out["time_1024x12"] = rec
+    del args
+    args, kw, _ = bench.packed_workload(1024, device="cuda")
+    times = dict(shared=[], device=[])
+    for which in ("shared", "device", "device", "shared"):
+        def run():
+            return fr.fused_call(*args, num_steps=200, **kw)
+
+        if which == "device":
+            with _device_instances(fr):
+                times[which].append(bench.time_call(run, 2, 3))
+        else:
+            times[which].append(bench.time_call(run, 2, 3))
+    rec = dict(phase="big_time", workload="bench 1024 x 10^3 x 200 steps, the device-memory "
+               "instance forced against the shared one, in turns",
+               shared_ms=times["shared"], device_ms=times["device"],
+               device_over_shared=min(times["device"]) / min(times["shared"]))
+    emit(rec)
+    out["time_1024x10"] = rec
+    del args
+
+    counters = dict(fused_rollout="FUSED_ROLLOUT_LAUNCHES",
+                    fused_rollout_device="FUSED_ROLLOUT_GMEM_LAUNCHES",
+                    fused_rollout_with_contact="FUSED_ROLLOUT_CONTACT_LAUNCHES",
+                    fused_rollout_with_knots="FUSED_ROLLOUT_KNOT_LAUNCHES",
+                    fused_rollout_material="FUSED_ROLLOUT_MATERIAL_LAUNCHES",
+                    fused_bwd="FUSED_BWD_LAUNCHES", fused_bwd_device="FUSED_BWD_GMEM_LAUNCHES")
+
+    def zero():
+        for name in counters.values():
+            setattr(fr, name, 0)
+
+    def read():
+        return {k: getattr(fr, name) for k, name in counters.items()}
+
+    paths = {}
+    zero()
+    t0 = time.perf_counter()
+    records = bench.evolution(gens=2, pop_size=15, device="cuda", experiment="basic",
+                              size=(12, 12, 12), sim_time=BIG_SIM_TIME, init_time=BIG_INIT_TIME)
+    paths["evolution"] = read()
+    for r in records:
+        fits = r.pop("fitnesses")
+        r.update(phase="big_evolution", experiment="basic 12^3", sim_time=BIG_SIM_TIME,
+                 sim_time_cut_from=5.0, n_evaluated_valid=len([f for f in fits if f > -1e6]),
+                 all_finite=all(math.isfinite(f) for f in fits))
+        emit(r)
+        assert r["all_finite"] and r["n_evaluated_valid"] > 0 and r["k1_launches"] > 0, r
+    launches = paths["evolution"]
+    emit(dict(phase="big_evolution_launches", seconds=time.perf_counter() - t0, **launches))
+    assert launches["fused_rollout_device"] == launches["fused_rollout"] \
+        == launches["fused_rollout_with_contact"] > 0, launches
+
+    def first(k):
+        return True
+
+    zero()
+    with tempfile.TemporaryDirectory() as tmp, _keeping_launch(torch, fr, first) as kept_replay:
+        rec = bench.replay(bench.write_cantilever_vxa(os.path.join(tmp, "cantilever.vxa"),
+                                                      n=12))
+    paths["replay"] = read()
+    final = rec.pop("final_state")
+    rec.update(phase="big_replay", finite=bool(torch.isfinite(final.pos).all()))
+    emit(rec)
+    assert rec["finite"] and not rec["diverged"] and rec["voxels"] == 12 ** 3, rec
+    assert paths["replay"]["fused_rollout_device"] == paths["replay"]["fused_rollout"] \
+        == paths["replay"]["fused_rollout_material"] == rec["launches"], paths
+
+    zero()
+    with _keeping_launch(torch, fr, first) as kept_mpc:
+        mpc = bench.mpc(device="cuda", n=12)
+    paths["mpc"] = read()
+    for name, r in mpc.items():
+        emit(dict(phase="big_mpc", record=name, **r))
+    solve = mpc["solve"]
+    assert all(math.isfinite(c) for c in solve["best_cost_trace"]), solve
+    assert paths["mpc"]["fused_rollout_device"] == paths["mpc"]["fused_rollout"] > 0, paths
+
+    zero()
+    with _keeping_launch(torch, fr, lambda k: int(k.get("seg_base") or 0) > 0) as kept_sqp:
+        rec = bench.sqp(device="cuda", n=12)
+    paths["sqp"] = read()
+    emit(dict(phase="big_sqp", **rec))
+    _sqp_checks(rec, paths["sqp"])
+    assert paths["sqp"]["fused_rollout_device"] == 4 * 72, paths
+    assert paths["sqp"]["fused_bwd_device"] == 4 * 32, paths
+    emit(dict(phase="big_launches", **paths))
+    out["paths"] = paths
+
+    # the main paths' own launches against the plain version, after the
+    # counts were read: the replay's (BC channels and the clamp), the cold
+    # CEM solve's first (8 knots over 200 steps) and the SQP solve's first
+    # segment past seg_base 0
+    for label, kept, tol in (
+            ("12^3 cantilever's replay launch (BC channels, the clamp)", kept_replay,
+             _strictest("bc", "max_vel")),
+            ("cold CEM solve's first launch", kept_mpc, TOL),
+            ("fused SQP solve's first segment past seg_base 0", kept_sqp, TOL)):
+        (args, kw, steps), = kept
+        B = args[0].shape[0]
+        g0 = fr.FUSED_ROLLOUT_GMEM_LAUNCHES
+        out["k1"] += _k1_cases(torch, fr, "%s, %d x %s, %d steps%s%s" % (
+            label, B, "x".join(map(str, kw["grid_shape"])), steps,
+            ", %d knots" % kw["n_knots"] if kw.get("n_knots") else "",
+            "" if kw.get("seg_base") is None else ", seg_base %d" % int(kw["seg_base"])),
+            args, kw, B, bool(kw["flags"].get("collision")), (steps,), phase="big_vs_plain",
+            tol=tol, n=12)
+        assert fr.FUSED_ROLLOUT_GMEM_LAUNCHES == g0 + 1
+    return out
+
+
+def _big_rows(big, bound_keys):
+    """The kernels line's rows of K1's and B4's device-memory instances."""
+    timed = next(r for r in big["k1"] if "ms" in r and r["n"] == 12)
+    t13 = next(r for r in big["k1"] if "ms" in r and r["n"] == 13)
+    paths = big["paths"]
+    b4 = big["b4"]
+    return [
+        dict(name="fused_rollout (K1), device-memory instances", route="cuda",
+             source="evosoro_tpu_torch/ops/csrc/fused_rollout_gmem.cu",
+             replaces="evosoro_tpu/ops/fused_rollout.py:777",
+             launches=sum(p["fused_rollout_device"] for p in paths.values()),
+             launches_of="at 12^3: two generations of the basic experiment with contact "
+             "(%d), the cantilever's replay (%d), a cold CEM solve and its closed loop "
+             "(%d), a fused SQP solve and 3 re-plans (%d)" % tuple(
+                 paths[k]["fused_rollout_device"] for k in ("evolution", "replay", "mpc",
+                                                            "sqp")),
+             **bound_keys(timed),
+             max_abs_err=max(r["pos"] for r in big["k1"]),
+             not_state_bit_equal_to_plain=[r["workload"] for r in big["k1"]
+                                           if not r["state_bit_equal"]],
+             bit_equal_to_shared=all(r["state_bit_equal"] and r["stats_bit_equal"]
+                                     for r in big["bit_equal"] if r["kernel"] == "K1"),
+             err_of=("pos (m) against the plain version: the big-body batch 32 x 12^3 and "
+                     "32 x 13^3 with contact, 8 x 16^3 without, 1 and 100 steps; the "
+                     "12^3 swimmer in its 13^3 shell with the facet drag and contact, 100 "
+                     "steps (MESH_TOL); the SQP launch 8 x 12^3 from rest, 75 steps; the "
+                     "main paths' own launches: the 12^3 cantilever's replay whole, the "
+                     "cold CEM solve's first launch (128 x 12^3, 8 knots, 200 steps), the "
+                     "SQP solve's first 25-step segment past seg_base 0. Bit-equal to "
+                     "the shared instance (bit_equal_to_shared): 10 K1 workloads, the "
+                     "evaluator batch with 4 knots, the 10^3 SQP launch from rest and at "
+                     "seg_base 75 and the 10^3 cantilever with its BC channels"),
+             ms=timed["ms"], plain_ms=timed["plain_ms"],
+             ms_of="big-body batch 32 x 12^3 x 100 steps, contact on",
+             ms_32x13_3x100=t13["ms"], bound_ms_32x13_3x100=t13["bound_ms"],
+             ms_1024x12_3x200=big["time_1024x12"]["ms"],
+             bound_ms_1024x12_3x200=big["time_1024x12"]["bound_ms"],
+             ms_1024x10_3x200_device=min(big["time_1024x10"]["device_ms"]),
+             ms_1024x10_3x200_shared=min(big["time_1024x10"]["shared_ms"])),
+        dict(name="fused_rollout_bwd (B4), device-memory instance", route="cuda",
+             source="evosoro_tpu_torch/ops/csrc/fused_rollout_bwd.cu",
+             replaces="evosoro_tpu/ops/fused_rollout.py:2745",
+             launches=paths["sqp"]["fused_bwd_device"],
+             launches_of="bench.sqp(n=12): a cold solve and 3 re-plans",
+             **bound_keys(b4), max_abs_err=b4["max_abs_err"],
+             worst_rel_err=b4["worst_rel_err"],
+             bit_equal_to_shared=all(r["bit_equal"] for r in big["bit_equal"]
+                                     if r["kernel"] == "B4"),
+             err_of=("cotangent of the controls against autograd through the plain "
+                     "version, SQP launch 8 x 12^3 x 25 steps, 8 knots, 75 steps in; "
+                     "worst_rel_err as the land row"),
+             ms=b4["ms"], plain_ms=b4["plain_ms"],
+             ms_of="one launch of a solve: 8 x 12^3, 25 steps at seg_base 75, 8 knots")]
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "evosoro_tpu_torch")):
         raise SystemExit("chip_smoke: run it from a checkout of the repository "
@@ -2229,6 +2645,18 @@ def main():
             return dict(bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None)
 
         emit(dict(kernels=_b4_rows(b4, b4_var, sqp_launches, var_launches, bound_keys)))
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return None
+    if sys.argv[1:] == ["--big"]:
+        big = phase_big(torch, np)
+
+        def bound_keys(rec):
+            return dict(bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None)
+
+        emit(dict(kernels=_big_rows(big, bound_keys)))
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -2270,6 +2698,8 @@ def main():
     b4_var, k1_sqp = phase_b4_variants(torch, np)
     sqp_launches = phase_sqp(torch, b4_timed)
     var_launches = phase_sqp_variants(torch, b4_var)
+    big = phase_big(torch, np)
+    big_k1 = sum(p["fused_rollout"] for p in big["paths"].values())
     phase_throughput(torch, card)
     k1_timed = next(r for r in k1 if "ms" in r)
     vol_cases = vol["a"] + [vol["a_guards"], vol["a_knots"]] + vol["b"] + [
@@ -2301,7 +2731,7 @@ def main():
              + mpc_launches["fused_rollout"] + sqp_launches["fused_rollout"]
              + sum(v["fused_rollout"] for v in var_launches.values())
              + vol["replay_launches"]["fused_rollout"] + vol["evolution"]["fused_rollout"]
-             + vol["mpc_launches"]["fused_rollout"],
+             + vol["mpc_launches"]["fused_rollout"] + big_k1,
              launches_evolution=launches["fused_rollout"],
              launches_swimming=swim["fused_rollout"],
              launches_growth=grow["fused_rollout"],
@@ -2314,6 +2744,7 @@ def main():
              launches_sqp_water_growth=sum(v["fused_rollout"] for v in var_launches.values()),
              launches_volume=vol["replay_launches"]["fused_rollout"]
              + vol["evolution"]["fused_rollout"] + vol["mpc_launches"]["fused_rollout"],
+             launches_big_bodies=big_k1,
              **bound_keys(k1_timed),
              max_abs_err=max(r["pos"] for r in k1),
              err_of=("pos (m), evaluator batch %d x 6^3, 1/25/100 steps, "
@@ -2357,6 +2788,7 @@ def main():
              ms=knot_timed["ms"], plain_ms=knot_timed["plain_ms"],
              ms_of="one launch of a cold solve: 128 x 10^3, 8 knots, 200 steps"),
         *_b4_rows(b4, b4_var, sqp_launches, var_launches, bound_keys),
+        *_big_rows(big, bound_keys),
         dict(name="K1 fluid branches (B7)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fused_rollout_common.cuh",
              replaces="evosoro_tpu/ops/fused_rollout.py:1373",

@@ -233,6 +233,62 @@ def packed_workload(batch, n=10, collision=False, device="cuda", fluid=None,
     return (state, body_packed, stats, table), kw, int(body.occ.sum())
 
 
+def big_body_design(n=12, seed=2):
+    """(structure, phase offsets, the generator) of the JAX package's
+    big-body fallback benchmark (tools/bench_fallback.py:156-215): an n³
+    block of material ids 1..4 with 30 % of its cells empty and random phase
+    offsets, from `default_rng(seed)`."""
+    rng = np.random.default_rng(seed)
+    structure = rng.integers(1, 5, size=(n, n, n)).astype(np.int32)
+    structure[rng.random(structure.shape) < 0.3] = 0
+    return structure, rng.uniform(-1, 1, size=structure.shape), rng
+
+
+def big_body_workload(batch=32, n=12, collision=True, device="cuda", seed=2, fluid=False):
+    """The launch of tools/bench_fallback.py's `big_collision_fallback` on
+    the port: `batch` robots at rest on the `big_body_design` body (12³ with
+    contact: 1728 cells, past one block's shared memory), robot 0 with the
+    design's phase offsets and every other robot with its own (a body per
+    robot, so no two robots compute the same bits), a pair table per robot
+    with contact, `SimParams()` defaults. `fluid` puts the design in water
+    with the facet drag, in its (n+1)³ corner shell, as the swimming
+    experiment's evaluator does (drag coefficient 750, actuation from time
+    0, no floor or gravity). Returns ((state, body, stats, pair table),
+    launch keywords without num_steps, occupied voxels)."""
+    structure, phase, rng = big_body_design(n, seed)
+    phases = np.concatenate([phase[None], rng.uniform(-1, 1, size=(batch - 1,) + phase.shape)])
+    palette = palette_from_list(evosoro_default_palette())
+    sim = SimParams(self_collisions_enabled=collision)
+    env = EnvParams()
+    if fluid:
+        shell = ((0, 1),) * 3
+        structure = np.pad(structure, shell)
+        phases = np.pad(phases, ((0, 0),) + shell)
+        sim = SimParams(self_collisions_enabled=collision, init_cm_time=0.0)
+        env = EnvParams(fluid_environment=True, gravity_enabled=False, floor_enabled=False,
+                        aggregate_drag_coefficient=AGGREGATE_DRAG_COEF)
+    body = build_body(structure, palette, phase_offset=phases[0], device=device)
+    if fluid:
+        from evosoro_tpu_torch.envs.drag import attach_mesh_drag
+
+        body = attach_mesh_drag(body)
+    grid = tuple(body.occ.shape)
+    occ = torch.as_tensor(structure > 0, device=device).reshape(1, -1)
+    body_packed = fr.pack_body(body).expand(batch, -1, -1).clone()
+    body_packed[:, fr._B_PHASE] = torch.as_tensor(
+        phases.reshape(batch, -1), dtype=torch.float32, device=device) * occ
+    state = fr.pack_state_single(init_state(body))[None].expand(batch, -1, -1).contiguous()
+    stats = fr.make_stats(body, batch, calc_max_dt(body) * sim.dt_frac, sim, env)
+    table = None
+    if collision:
+        cs = build_collision_system(structure, body.e_mod.cpu().numpy(), 0.01)
+        table = torch.as_tensor(fr.pack_collision(cs, grid), device=device)[None]
+        table = table.expand(batch, -1, -1).contiguous()
+    kw = dict(grid_shape=grid, scalars=fr.kernel_scalars(body.nominal_size, sim, env),
+              flags=fr.launch_flags(body, sim, env, collision=collision))
+    return (state, body_packed, stats, table), kw, int(occ.sum())
+
+
 def volume_scenario_workload(batch=8, n=4, seed=0, device="cuda"):
     """The volume-effects design of the JAX package's on-chip parity run
     (tools/onchip_parity.py `_scenario_volume`): an n³ block of materials
@@ -893,10 +949,11 @@ BASIC_IND_SIZE = (6, 6, 6)  # examples/basic.py IND_SIZE
 
 class BasicGenotype(Genotype):
     """One CPPN whose four outputs form the material decision tree
-    (examples/basic.py MyGenotype)."""
+    (examples/basic.py MyGenotype), on a grid of `size` (examples/basic.py:
+    6³)."""
 
-    def __init__(self):
-        super().__init__(orig_size_xyz=BASIC_IND_SIZE)
+    def __init__(self, size=BASIC_IND_SIZE):
+        super().__init__(orig_size_xyz=tuple(size))
         names = ["shape", "muscleOrTissue", "muscleType", "tissueType"]
         self.add_network(CPPN(output_node_names=names))
         m = self.to_phenotype_mapping
@@ -934,9 +991,11 @@ class BasicPhenotype(Phenotype):
 
 
 def basic_experiment(pop_size=15, sim_time=5.0, init_time=1.0, dt_frac=0.9,
-                     seed=1):
+                     seed=1, size=BASIC_IND_SIZE):
     """(sim, env, pop) of examples/basic.py on the port: objectives
-    NormFinalDist (max), age, voxel count and muscle count (min)."""
+    NormFinalDist (max), age, voxel count and muscle count (min); `size`,
+    the genome's grid (12³: bodies past one block's shared memory, which K1
+    runs in its device-memory instances)."""
     random.seed(seed)
     np.random.seed(seed)
     sim = Sim(dt_frac=dt_frac, simulation_time=sim_time,
@@ -951,7 +1010,8 @@ def basic_experiment(pop_size=15, sim_time=5.0, init_time=1.0, dt_frac=0.9,
     objectives.add_objective(name="energy", maximize=False, tag=None,
                              node_func=partial(count_occurrences, keys=[3, 4]),
                              output_node_name="material")
-    pop = Population(objectives, BasicGenotype, BasicPhenotype, pop_size=pop_size)
+    pop = Population(objectives, partial(BasicGenotype, size), BasicPhenotype,
+                     pop_size=pop_size)
     return sim, env, pop
 
 

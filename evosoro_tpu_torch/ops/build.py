@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (`ops/csrc/*.cu`).
 
-Each source is compiled by `nvcc` into its own shared library with a plain
-C interface, loaded with ctypes. Nothing is built at import: a library is
+Each library is compiled by `nvcc` from its source (and the translation
+units of `EXTRA_SOURCES`) into a shared library with a plain C interface,
+loaded with ctypes. Nothing is built at import: a library is
 built at first use into `evosoro_tpu_torch/_build/` (listed in .gitignore),
 named by a hash of every file under `csrc/` (sources and the headers they
 include), so an edit to a kernel or to a shared header rebuilds it. `build_all`
@@ -38,12 +39,17 @@ SIGNATURES = {
     "pair_contact": ("pair_contact_forces", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "fused_rollout": ("fused_rollout", [
         _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P,
-        _P, _I, _I, _P, _I, _I, _P, _P, _P, _P]),
+        _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P]),
     "fused_rollout_bwd": ("fused_rollout_bwd", [
         _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P,
-        _P]),
+        _P, _I, _P]),
     "fma_peak": ("fma_peak", [_P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _P]),
 }
+
+# translation units a library links beside its own `<name>.cu`: K1's
+# device-memory instances compile apart from the shared-memory kernels, so
+# those keep their machine code
+EXTRA_SOURCES = {"fused_rollout": ("fused_rollout_gmem.cu",)}
 
 _libs: dict = {}
 
@@ -76,7 +82,8 @@ def build_all(names=tuple(SIGNATURES)) -> float:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = open(out.with_suffix(".log"), "w")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        sources = (f"{name}.cu",) + EXTRA_SOURCES.get(name, ())
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / f) for f in sources)]
         procs.append((name, out, tmp, log,
                       subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
     failed = []

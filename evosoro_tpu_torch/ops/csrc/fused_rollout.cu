@@ -54,7 +54,8 @@
 // collision on, the pair pass (pair_contact.cuh) walks each table row with
 // one dependent load a lane per iteration and dominates the step. Shared
 // memory caps V at 1613 cells (1612 in the feature instance, whose window
-// ring takes 96 bytes), 1350 with collision. Keeping the state
+// ring takes 96 bytes), 1350 with collision; past that the device-memory
+// instances (fused_rollout_gmem.cu) run the body. Keeping the state
 // resident on chip across steps and more warps per SM are the levers.
 //
 // Numerics: built with -fmad=false and without fast math, so every multiply
@@ -98,6 +99,10 @@
 // the land step, with per step one block max (the dt), one more barrier
 // (the voxel pass) and a pow for each free axis of a voxel; its block max
 // reuses the reductions' shared scratch.
+//
+// Bodies past one block's shared memory run the device-memory instances of
+// every kernel above (fused_rollout_gmem.cu), launched from this entry when
+// the host hands it a buffer.
 #include "fused_rollout_common.cuh"
 
 template <int VARIANT, bool FEAT>
@@ -321,6 +326,15 @@ static int launch_vol(float* state, const float* body, int body_batched, float* 
     return (int)cudaGetLastError();
 }
 
+// launches the device-memory instance the flags select (fused_rollout_gmem.cu,
+// a translation unit of its own in the same library)
+int launch_gmem(float* state, const float* body, int body_batched, float* stats,
+                const float* a1, int a1_batched, const float* ctrl, int n_knots, int knot_steps,
+                int step_base, int B, int X, int Y, int Z, int num_steps, const Params& p,
+                int flags, float* scratch, const FeatParams& fp, bool feat, const MatArgs* ma,
+                int ss_batched, int bc_batched, const VolArgs* va, float* gbuf, int gstride,
+                cudaStream_t st);
+
 // scratch: (B, 6, V) floats of device memory, needed by the facet-drag
 // variant alone (flags F_FLUID | F_FLUID_MESH), else null. fparams: the
 // features' N_FEAT_PARAMS constants (ops/fused_rollout.py _feat_params).
@@ -330,7 +344,8 @@ static int launch_vol(float* state, const float* body, int body_batched, float* 
 // mparams, its float constants (ops/fused_rollout.py _mat_params).
 // The volume instance's inputs: vscratch, (B, 9, V) floats of device
 // memory, and vparams (ops/fused_rollout.py _vol_params); null without the
-// volume bit.
+// volume bit. gbuf: null for the shared-memory instances; else the
+// device-memory instances run, robot b's bond buffer at gbuf + b * gstride.
 extern "C" int fused_rollout(float* state, const float* body, int body_batched,
                              float* stats, const float* a1, int a1_batched,
                              const float* ctrl, int n_knots, int knot_steps,
@@ -339,7 +354,7 @@ extern "C" int fused_rollout(float* state, const float* body, int body_batched,
                              float* scratch, const float* fparams, const float* ss,
                              int ss_batched, int n_pts, const float* bc, int bc_batched,
                              int n_surf, const float* mparams, float* vscratch,
-                             const float* vparams, void* stream) {
+                             const float* vparams, float* gbuf, int gstride, void* stream) {
     Params p;
     memcpy(&p, params, sizeof(float) * N_PARAMS);
     const FeatParams fp = feat_params_from(fparams);
@@ -359,8 +374,18 @@ extern "C" int fused_rollout(float* state, const float* body, int body_batched,
         return (int)cudaErrorInvalidValue;
     const MatArgs ma = {nullptr, (flags & F_MDL) ? ss : nullptr, (flags & F_BC) ? bc : nullptr,
                         n_pts, (flags & F_COMPACT) ? n_surf : 0, mparams[0]};
+    if ((flags & F_VOL) && (vscratch == nullptr || vparams == nullptr))
+        return (int)cudaErrorInvalidValue;
+    if (gbuf) {
+        const VolArgs va = (flags & F_VOL) ? VolArgs{vscratch, vparams[0], vparams[1], vparams[2]}
+                                           : VolArgs{nullptr, 0.f, 0.f, 0.f};
+        return launch_gmem(state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots,
+                           knot_steps, step_base, B, X, Y, Z, num_steps, p, flags, scratch, fp,
+                           feat, mat ? &ma : nullptr, ss_batched, bc_batched,
+                           (flags & F_VOL) ? &va : nullptr, gbuf, gstride,
+                           (cudaStream_t)stream);
+    }
     if (flags & F_VOL) {
-        if (vscratch == nullptr || vparams == nullptr) return (int)cudaErrorInvalidValue;
         const VolArgs va = {vscratch, vparams[0], vparams[1], vparams[2]};
         return feat ? launch_vol<true>(state, body, body_batched, stats, a1, a1_batched, ctrl,
                                        n_knots, knot_steps, step_base, B, X, Y, Z, num_steps,
@@ -398,3 +423,4 @@ extern "C" int fused_rollout(float* state, const float* body, int body_batched,
     }
 #undef LAUNCH
 }
+

@@ -29,6 +29,12 @@ Hopper take its place on the evolution loop's envelope:
 - K2 (`pair_contact_forces`, `csrc/pair_contact.cu`): the dense
   self-contact pass, a device routine of K1 that also has its own launch.
 
+Every K1 and B4 kernel has a device-memory twin that keeps the robot's
+buffer in device memory in place of one block's shared memory; the
+wrappers pick it by the body's shape (`k1_instance`), so bodies of any size
+run (the JAX kernel's VMEM takes a 13^3 body with contact, any body
+without).
+
 Each wrapper takes its kernel for CUDA tensors and its plain PyTorch
 version (`fused_rollout_plain`, `pair_contact_forces_plain`,
 `pair_contact_forces_compact_plain`, `fused_bwd_plain`) for CPU
@@ -202,19 +208,40 @@ _SMEM_BYTES = 232448  # a block's shared memory on Hopper, static and dynamic
 # (the window ring); the dynamic part gets what is left. Ceilings: 1350
 # cells with contact, 1612 without (the instance without features fits one
 # more, 1613). Volume effects add none: their block max reuses the
-# reductions' scratch, and their exchanges go through device memory
+# reductions' scratch, and their exchanges go through device memory. B4's
+# buffer is K1's without contact (36 floats a voxel), under the same rule
 _K1_STATIC_SMEM = 208
 
 
-def k1_fits(V: int, collision: bool, n_surf=None) -> bool:
-    """True when K1's shared memory holds a body of V grid cells; with
-    `n_surf`, the surface-compacted contact pass, which stages the S surface
-    voxels' positions and scales (4 floats each) in place of all V."""
+def k1_buffer_floats(V: int, collision: bool, n_surf=None) -> int:
+    """Floats of K1's per-robot buffer for a body of V grid cells: the bond
+    forces, and with contact the staged positions and scales and the contact
+    forces; with `n_surf`, the surface-compacted contact pass, which stages
+    the S surface voxels' positions and scales (4 floats each) in place of
+    all V."""
     if collision and n_surf is not None:
-        floats = (_K1_SMEM_FLOATS + 3) * V + 4 * int(n_surf)
-    else:
-        floats = (_K1_SMEM_FLOATS_COLL if collision else _K1_SMEM_FLOATS) * V
-    return floats * 4 + _K1_STATIC_SMEM <= _SMEM_BYTES
+        return (_K1_SMEM_FLOATS + 3) * V + 4 * int(n_surf)
+    return (_K1_SMEM_FLOATS_COLL if collision else _K1_SMEM_FLOATS) * V
+
+
+def k1_fits(V: int, collision: bool, n_surf=None) -> bool:
+    """True when K1's shared memory holds a body of V grid cells
+    (`k1_buffer_floats`) beside its static part."""
+    return k1_buffer_floats(V, collision, n_surf) * 4 + _K1_STATIC_SMEM <= _SMEM_BYTES
+
+
+def k1_instance(V: int, collision: bool, n_surf=None) -> str:
+    """Where K1 and B4 keep a robot's buffer for a body of V grid cells:
+    "shared" while one block's shared memory holds it (`k1_fits`), else
+    "device", the instances that keep it in device memory. B4 asks without
+    contact (its buffer is the bond forces' 36 floats a voxel)."""
+    return "shared" if k1_fits(V, collision, n_surf) else "device"
+
+
+def _bond_buffer(B: int, floats: int, device):
+    """The device-memory instances' (B, floats) buffer, a row a robot (the
+    kernel reads the row stride)."""
+    return torch.empty((B, floats), dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -761,8 +788,9 @@ def has_corner_shell(occ) -> bool:
 
 
 def supports(body: VoxelBody, sim: SimParams, env: EnvParams) -> bool:
-    """True when (body, sim, env) is inside K1's envelope and its shared
-    memory holds the body. A fluid body with mesh-drag tables needs an empty
+    """True when (body, sim, env) is inside K1's envelope, at any body size
+    (past one block's shared memory K1's device-memory instances run it,
+    `k1_instance`). A fluid body with mesh-drag tables needs an empty
     layer on its +X, +Y and +Z faces (pad the structure by one; the
     evaluator does). The features: at most MAX_KERNEL_SOURCES sources, at
     most MAX_KERNEL_WINDOW trace steps in a window, and a positive time
@@ -775,10 +803,7 @@ def supports(body: VoxelBody, sim: SimParams, env: EnvParams) -> bool:
         check_envelope(flags, kernel_scalars(body.nominal_size, sim, env))
     except (NotImplementedError, ValueError):
         return False
-    if env.floor_limited:
-        return False
-    V = int(np.prod(body.occ.shape[-3:]))
-    return k1_fits(V, bool(sim.self_collisions_enabled))
+    return not env.floor_limited
 
 
 # ---------------------------------------------------------------------------
@@ -923,6 +948,9 @@ FUSED_ROLLOUT_SOLVER_LAUNCHES = 0
 FUSED_ROLLOUT_BC_LAUNCHES = 0
 FUSED_ROLLOUT_COMPACT_LAUNCHES = 0
 FUSED_ROLLOUT_VOLUME_LAUNCHES = 0
+# K1 launches of the device-memory instances (the robot's buffer in device
+# memory: bodies past one block's shared memory, `k1_instance`)
+FUSED_ROLLOUT_GMEM_LAUNCHES = 0
 
 
 def _k1_params(scalars: dict, prec: Precision) -> np.ndarray:
@@ -1405,7 +1433,8 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
     optional controls (B, n_knots, V), and with flags["mdl_data"] the
     MDL_DATA tables (B or 1, 2P + 3, V) (`pack_ss_tables`), with flags["bc"]
     the BC channels (B or 1, 15, V) (`pack_bc_tables`), all float32 on one
-    device. Under flags["equilibrium"] the launch takes the mode's damping
+    device (or all float64 on the CPU, where the plain version runs). Under
+    flags["equilibrium"] the launch takes the mode's damping
     override (`equilibrium_scalars`) and the kinetic-energy ring rides
     stats channels 16-21; with plasticity the strain offset rides state
     channels 53-55. Under flags["volume"] the coupling carry rides state
@@ -1425,6 +1454,10 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
     the JAX kernel: the windows are those of a rollout made in one launch
     (the evaluator's), not of one split into segments. Under ballistic
     development state channels 56-59 carry the rebased fields.
+
+    Every instance has a twin that keeps the robot's buffer in device
+    memory, which runs where one block's shared memory does not hold the
+    body (`k1_instance`). Both compute the same bits.
     """
     check_envelope(flags, scalars)
     if flags.get("equilibrium"):
@@ -1476,12 +1509,15 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
     for name, t in (("MDL_DATA tables", ss_packed), ("BC channels", bc_packed)):
         if t is not None:
             tensors.append((name, t))
+    on_cpu = state_packed.device.type == "cpu"
+    dtype = state_packed.dtype if on_cpu and state_packed.dtype == torch.float64 \
+        else torch.float32
     for name, t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device != state_packed.device:
             raise ValueError(f"{name} is on {t.device}, state on {state_packed.device}")
-    if state_packed.device.type == "cpu":
+    if on_cpu:
         return fused_rollout_plain(
             state_packed, body_packed, stats, collision_packed,
             control_packed=control_packed, seg_base=seg_base,
@@ -1493,8 +1529,7 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
     for name, t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not k1_fits(V, coll, n_surf):
-        raise ValueError(f"V={V} voxels overflow K1's shared memory ({_SMEM_BYTES} bytes)")
+    gmem = k1_instance(V, coll, n_surf) == "device"
     bits = _flag_bits(flags)
     mesh = bool(bits & _K1_FLAG_BITS["fluid_mesh"])
     vol = bool(bits & _K1_FLAG_BITS["volume"])
@@ -1510,6 +1545,8 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
     vscratch = torch.empty((B, _K1_VOL_SCRATCH, V), dtype=torch.float32,
                            device=state_packed.device) if vol else None
     vparams = _vol_params(scalars) if vol else None
+    gbuf = _bond_buffer(B, k1_buffer_floats(V, coll, n_surf), state_packed.device) \
+        if gmem else None
     fn = build.library("fused_rollout")
     first = (state_out.data_ptr(), body_packed.data_ptr(),
              int(body_packed.shape[0] == B and B > 1), stats_out.data_ptr(),
@@ -1528,7 +1565,8 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
         rc = fn(*first, scratch.data_ptr() if mesh else None,
                 fparams.ctypes.data_as(ctypes.c_void_p), *tables,
                 vscratch.data_ptr() if vol else None,
-                vparams.ctypes.data_as(ctypes.c_void_p) if vol else None, stream)
+                vparams.ctypes.data_as(ctypes.c_void_p) if vol else None,
+                gbuf.data_ptr() if gmem else None, gbuf.stride(0) if gmem else 0, stream)
     build.check(rc, "fused_rollout")
     global FUSED_ROLLOUT_LAUNCHES, FUSED_ROLLOUT_CONTACT_LAUNCHES
     global FUSED_ROLLOUT_KNOT_LAUNCHES, FUSED_ROLLOUT_FLUID_LAUNCHES
@@ -1537,8 +1575,10 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
     global FUSED_ROLLOUT_SOURCE_LAUNCHES, FUSED_ROLLOUT_MATERIAL_LAUNCHES
     global FUSED_ROLLOUT_NONLINEAR_LAUNCHES, FUSED_ROLLOUT_SOLVER_LAUNCHES
     global FUSED_ROLLOUT_BC_LAUNCHES, FUSED_ROLLOUT_COMPACT_LAUNCHES
-    global FUSED_ROLLOUT_VOLUME_LAUNCHES
+    global FUSED_ROLLOUT_VOLUME_LAUNCHES, FUSED_ROLLOUT_GMEM_LAUNCHES
     FUSED_ROLLOUT_LAUNCHES += 1
+    if gmem:
+        FUSED_ROLLOUT_GMEM_LAUNCHES += 1
     if any(bits & _K1_FLAG_BITS[k] for k in _K1_MAT_FLAGS):
         FUSED_ROLLOUT_MATERIAL_LAUNCHES += 1
     if any(bits & _K1_FLAG_BITS[k] for k in ("nonlinear", "mdl_data", "plasticity")):
@@ -1580,6 +1620,8 @@ FUSED_BWD_LAUNCHES = 0
 FUSED_BWD_FLUID_LAUNCHES = 0
 FUSED_BWD_MESH_LAUNCHES = 0
 FUSED_BWD_DEVO_LAUNCHES = 0
+# ... of its device-memory instance (`k1_instance` without contact)
+FUSED_BWD_GMEM_LAUNCHES = 0
 
 # channels [0, _TSAVG) carry the rollout and its cotangent; B4's tape holds
 # them plus one channel of static-friction decisions (csrc: NT), and with
@@ -1682,7 +1724,9 @@ def fused_bwd_call(state_packed, body_packed, stats, control_packed, seg_base,
     (B, C_STAT), controls (B, n_knots, V), all float32 on one device.
     Returns (cot_state_in (B, C_S, V), channels `_TSAVG..C_S` zero;
     cot_ctrl (B, n_knots, V)). CUDA tensors launch B4; CPU tensors run
-    `fused_bwd_plain`. Flags outside `diff_envelope_ok` raise first."""
+    `fused_bwd_plain`. Flags outside `diff_envelope_ok` raise first. Past
+    one block's shared memory the device-memory instance runs
+    (`k1_instance` without contact)."""
     _check_bwd(flags, scalars, n_knots, seg_base, total_steps)
     seg0, knot_steps = _knot_clock(flags, num_steps, n_knots, control_packed,
                                    seg_base, total_steps)
@@ -1712,9 +1756,7 @@ def fused_bwd_call(state_packed, body_packed, stats, control_packed, seg_base,
     for name, t, _ in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if _K1_SMEM_FLOATS * 4 * V > _SMEM_BYTES:
-        raise ValueError(f"V={V} voxels overflow B4's shared memory "
-                         f"({_K1_SMEM_FLOATS * 4 * V} > {_SMEM_BYTES} bytes)")
+    gmem = k1_instance(V, False) == "device"
     bits = _flag_bits(flags)
     params = _k1_params(scalars, prec)
     S = int(num_steps)
@@ -1729,6 +1771,7 @@ def fused_bwd_call(state_packed, body_packed, stats, control_packed, seg_base,
                           device=dev) if mesh else None
     cot = cot_state.clone()  # pulled back in place
     cot_ctrl = torch.zeros_like(control_packed)
+    gbuf = _bond_buffer(B, k1_buffer_floats(V, False), dev) if gmem else None
     fn = build.library("fused_rollout_bwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -1737,11 +1780,14 @@ def fused_bwd_call(state_packed, body_packed, stats, control_packed, seg_base,
                 control_packed.data_ptr(), int(n_knots), knot_steps, seg0,
                 B, X, Y, Z, S, params.ctypes.data_as(ctypes.c_void_p), bits,
                 tape.data_ptr(), tape_t.data_ptr(), cot.data_ptr(),
-                cot_ctrl.data_ptr(), scratch.data_ptr() if mesh else None, stream)
+                cot_ctrl.data_ptr(), scratch.data_ptr() if mesh else None,
+                gbuf.data_ptr() if gmem else None, gbuf.stride(0) if gmem else 0, stream)
     build.check(rc, "fused_rollout_bwd")
     global FUSED_BWD_LAUNCHES, FUSED_BWD_FLUID_LAUNCHES, FUSED_BWD_MESH_LAUNCHES
-    global FUSED_BWD_DEVO_LAUNCHES
+    global FUSED_BWD_DEVO_LAUNCHES, FUSED_BWD_GMEM_LAUNCHES
     FUSED_BWD_LAUNCHES += 1
+    if gmem:
+        FUSED_BWD_GMEM_LAUNCHES += 1
     if bits & _K1_FLAG_BITS["fluid"]:
         FUSED_BWD_FLUID_LAUNCHES += 1
     if mesh:
@@ -1769,8 +1815,9 @@ def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
     positive, is the first bond pass's dt, and the new state's is the last
     step's. The stop condition is max sim time (through
     `stop_time`): the other types run on the eager rollout only
-    (`core.rollout`). Returns (new_state, FastRolloutStats), with the
-    sources' distances when the environment has sources."""
+    (`core.rollout`). A float64 state on the CPU runs the plain version in
+    float64. Returns (new_state, FastRolloutStats), with the sources'
+    distances when the environment has sources."""
     import os
 
     from evosoro_tpu_torch.core.step import has_bc
@@ -1789,19 +1836,24 @@ def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
                          "create it with init_state(body, volume_effects=True)")
     X, Y, Z = body.occ.shape[-3:]
     B = state.scale.shape[0]
-    state_packed = pack_state(state)
-    body_packed = pack_body(body)
+    # float32, as the kernels take it; a float64 state on the CPU runs the
+    # plain version in float64
+    dtype = torch.float64 if state.pos.device.type == "cpu" \
+        and state.pos.dtype == torch.float64 else torch.float32
+    state_packed = pack_state(state, dtype)
+    body_packed = pack_body(body, dtype)
     dev = state_packed.device
     collision_packed, compact = None, False
     if sim.self_collisions_enabled and body.collision is not None:
         n_surf = int(np.asarray(body.collision.surf_mask).sum())
         compact = os.environ.get("EVOSORO_TPU_COLL_COMPACT") == "1" and n_surf < X * Y * Z
         pack = pack_collision_compact if compact else pack_collision
-        collision_packed = torch.as_tensor(pack(body.collision, (X, Y, Z)), device=dev)[None]
-    ss_packed = pack_ss_tables(body).to(dev) if body.ss_strain_vox is not None else None
-    bc_packed = pack_bc_tables(body).to(dev) if has_bc(body) else None
+        collision_packed = torch.as_tensor(pack(body.collision, (X, Y, Z)), device=dev,
+                                           dtype=dtype)[None]
+    ss_packed = pack_ss_tables(body, dtype).to(dev) if body.ss_strain_vox is not None else None
+    bc_packed = pack_bc_tables(body, dtype).to(dev) if has_bc(body) else None
     if stats is None:
-        stats = _carried_dt(make_stats(body, B, dt, sim, env, stop_time), state, sim)
+        stats = _carried_dt(make_stats(body, B, dt, sim, env, stop_time, dtype), state, sim)
     if sim.equilibrium_mode and state.ke_history is not None:
         stats = stats.clone()
         stats[:, _S_KE:_S_KE + 6] = state.ke_history.to(stats.dtype)
@@ -1810,8 +1862,7 @@ def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
     n_knots, control_packed = 0, None
     if control_sequence is not None:
         n_knots = control_sequence.shape[1]
-        control_packed = _flat(control_sequence.to(torch.float32),
-                               (B, n_knots)).contiguous()
+        control_packed = _flat(control_sequence.to(dtype), (B, n_knots)).contiguous()
     out_state, out_stats = fused_call(
         state_packed, body_packed, stats, collision_packed,
         control_packed=control_packed, num_steps=num_steps,

@@ -78,6 +78,15 @@ vjp of `mesh_drag_forces` with the tables cut to 4 and 2 slots splits into
 63 per corner slot and 3 per vertex; the bound counts the 63 for each live
 corner, as for the forward step.
 
+Bodies past one block's shared memory (12^3, 13^3 and larger) are bound by
+the same counts: K1's and B4's device-memory instances do the work of the
+shared ones. Their compulsory bytes are the same inputs and outputs, with
+contact the dense (V, V) pair table among them (11.9 MB a robot at 12^3,
+19.3 MB at 13^3), read once: a kernel that keeps it nowhere reads it again
+every step, which is a design's traffic, as is the buffer the instance
+keeps in device memory (43 floats a voxel with contact); neither is
+compulsory.
+
 Volume effects (`b6d_work`) are counted by the same walk of the JAX step
 with VolumeEffectsEnabled on (and its carry in the state) beyond the land
 step, with `EnvParams()`'s varying temperature as the thermal term's clock:

@@ -242,7 +242,8 @@ def test_supports_the_shell_rule_and_the_shared_memory_rule():
 def test_a_ten_cubed_swimmer_in_its_shell_is_supported_with_contact():
     """11^3 = 1331 cells with the pair pass: 43 floats a cell of shared
     memory, 228 932 of the block's 232 448 bytes; the facet drag adds none.
-    One more layer does not fit with contact, and fits without."""
+    One more layer does not fit in shared memory with contact: K1's
+    device-memory instance runs it."""
     pal = palette_from_list(evosoro_default_palette())
     water = EnvParams(**FLUID_KW)
 
@@ -254,7 +255,9 @@ def test_a_ten_cubed_swimmer_in_its_shell_is_supported_with_contact():
     with_contact = SimParams(self_collisions_enabled=True)
     assert fr.supports(swimmer(10), with_contact, water)
     assert fr._K1_SMEM_FLOATS_COLL * 4 * 11 ** 3 <= fr._SMEM_BYTES
-    assert not fr.supports(swimmer(11), with_contact, water)
+    assert fr.k1_instance(11 ** 3, True) == "shared"
+    assert fr.k1_instance(12 ** 3, True) == "device"
+    assert fr.supports(swimmer(11), with_contact, water)
     assert fr.supports(swimmer(10), SimParams(), water)
     # the facet-drag bit needs the mesh tables and the fluid together
     flags = fr.launch_flags(swimmer(2), SimParams(), water, collision=False)

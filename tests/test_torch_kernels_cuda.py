@@ -529,3 +529,67 @@ def test_volume_instance_matches_plain_on_the_card(tmp_path):
             off, _ = fr.fused_call(*args, num_steps=25,
                                    **dict(kw, flags=dict(kw["flags"], volume=False)))
             assert not close(off[:, ts], out_p[:, ts], 2e-3, 1e-6)
+
+
+@pytest.mark.cuda
+def test_device_memory_instances_match_on_the_card():
+    """K1's and B4's device-memory instances: bit-equal to the shared-memory
+    instances on bodies both run (the evaluator batch with contact, the SQP
+    solve's K1 segment with knots and its B4 launch), the one past the shared ceiling (1351 cells with contact)
+    launched and held against the plain version, and a 12^3 batch with
+    contact at K1's tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; the CUDA kernels have no CPU mode")
+    from evosoro_tpu_torch.bench import big_body_workload, evaluator_workload, mpc_workload
+    from evosoro_tpu_torch.core.rollout import init_state
+    from evosoro_tpu_torch.core.types import EnvParams
+
+    from unittest import mock
+
+    def forced():
+        return mock.patch.object(fr, "k1_instance", lambda *a, **k: "device")
+
+    args, kw = evaluator_workload(collision=True, stagger=True, device="cuda")
+    g0 = fr.FUSED_ROLLOUT_GMEM_LAUNCHES
+    shared = fr.fused_call(*args, num_steps=100, **kw)
+    assert fr.FUSED_ROLLOUT_GMEM_LAUNCHES == g0
+    with forced():
+        device = fr.fused_call(*args, num_steps=100, **kw)
+    assert fr.FUSED_ROLLOUT_GMEM_LAUNCHES == g0 + 1
+    assert all(torch.equal(a, b) for a, b in zip(shared, device))
+
+    assert fr.k1_instance(1351, True) == "device"
+    args, kw, _ = big_body_workload(2, n=12, device="cuda")
+    for steps in (1, 25):
+        out_k, st_k = fr.fused_call(*args, num_steps=steps, **kw)
+        out_p, st_p = fr.fused_rollout_plain(*args, num_steps=steps, **kw)
+        torch.testing.assert_close(out_k[:, :fr._TSAVG], out_p[:, :fr._TSAVG],
+                                   rtol=2e-5, atol=1e-7)
+        torch.testing.assert_close(st_k, st_p, rtol=1e-5, atol=1e-7)
+    assert fr.FUSED_ROLLOUT_GMEM_LAUNCHES == g0 + 3
+
+    body, sim, _, dt = mpc_workload(device="cuda")
+    env = EnvParams(gravity_enabled=False, floor_enabled=False)
+    B, K = 4, 8
+    state = fr.pack_state_single(init_state(body))[None].expand(B, -1, -1).contiguous()
+    stats = fr.make_stats(body, B, dt, sim, env)
+    ctrl = _controls(B, K, body.occ.numel(), 5)
+    cot = torch.randn(state.shape, generator=torch.Generator().manual_seed(1)).cuda()
+    kw = dict(num_steps=25, grid_shape=tuple(body.occ.shape),
+              scalars=fr.kernel_scalars(body.nominal_size, sim, env),
+              flags=dict(fr.kernel_env_flags(sim, env), **fr.body_flags(body),
+                         collision=False, segmented=True), n_knots=K, total_steps=200)
+    # K1 with knots in segmented mode, mid-clock, as the SQP solve launches it
+    g1 = fr.FUSED_ROLLOUT_GMEM_LAUNCHES
+    seg = dict(control_packed=ctrl, seg_base=75, **kw)
+    a = fr.fused_call(state, fr.pack_body(body), stats, None, **seg)
+    with forced():
+        b = fr.fused_call(state, fr.pack_body(body), stats, None, **seg)
+    assert fr.FUSED_ROLLOUT_GMEM_LAUNCHES == g1 + 1
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    b0 = fr.FUSED_BWD_GMEM_LAUNCHES
+    a = fr.fused_bwd_call(state, fr.pack_body(body), stats, ctrl, 0, cot, **kw)
+    with forced():
+        b = fr.fused_bwd_call(state, fr.pack_body(body), stats, ctrl, 0, cot, **kw)
+    assert fr.FUSED_BWD_GMEM_LAUNCHES == b0 + 1
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
