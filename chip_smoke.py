@@ -14,7 +14,8 @@ benchmark of tools/bench_mpc.py (a cold CEM
 solve and a closed receding-horizon loop through K1's control-knot channel),
 and its gradient-MPC part (FusedSQPSolver: K1 segments forward, the
 reverse-mode segment kernel B4 backward) on land, in water with the facet
-and with the voxel-face drag, and with growth.
+and with the voxel-face drag, with growth, and on a bilinear palette with
+the max-velocity clamp.
 It measures the card's FP32 rate with the fma_peak micro-kernel, sets each
 kernel's time beside the least time the card could take, and measures the
 bench.py throughput workload. Every phase prints one JSON line; any failure
@@ -34,9 +35,10 @@ bits on the land path, and lets their times be read in turns.
 `python3 chip_smoke.py --diff` runs gradient MPC alone: B4 against its
 plain version on land (`phase_b4`) and in each of its fluid and development
 instances with their guards, beside the K1 launches of the same solves
-(`phase_b4_variants`), then `bench.sqp` on land
-and in each variant (`phase_sqp`, `phase_sqp_variants`); its kernels line
-holds B4's rows.
+(`phase_b4_variants`) and in its material instance on the bilinear palette
+with the max-velocity clamp (`phase_b4_materials`), then `bench.sqp` on
+land, in each variant and on materials (`phase_sqp`, `phase_sqp_variants`,
+`phase_sqp_materials`); its kernels line holds B4's rows.
 
 `python3 chip_smoke.py --features` runs K1's fitness features alone: the
 comparisons and guards of `phase_k1_features`, the cost of the bookkeeping
@@ -1682,7 +1684,8 @@ def _b4_case(torch, np, fr, label, state, body, stats, ctrl, seg_base, kw, seed,
                             / stats[:, fr._S_DT])
         rec["steps_taken"] = steps.tolist()
         flags = kw["flags"]
-        land = not (flags.get("fluid") or any(flags.get(k) for k in fr._K1_DEVO_FLAGS))
+        land = not (flags.get("fluid") or flags.get("nonlinear") or flags.get("max_vel")
+                    or any(flags.get(k) for k in fr._K1_DEVO_FLAGS))
         # (the land call keeps the arguments `--land` runs with in older trees)
         variant = {} if land else dict(flags=flags, grid_shape=kw["grid_shape"])
         rec.update(roofline.bound(*roofline.b4_work(state, body, stats, ctrl, steps,
@@ -1905,6 +1908,220 @@ def phase_b4_variants(torch, np):
                              guards=_b4_guards(torch, model)))
         out[model] = recs
     return out, k1
+
+
+def _material_guards(torch):
+    """The defects the comparison of B4's material instance must see, each a
+    plain version with one term of the adjoint wrong, as (name, module,
+    attribute, replacement) for `mock.patch.object`: the nonlinear stress's
+    slope replaced by the linear stiffness (its value kept), and the
+    max-velocity clamp's factor detached (its projection dropped)."""
+    from evosoro_tpu_torch.core import step as step_mod
+
+    nonlinear, clamp = step_mod._nonlinear_stress, step_mod._max_vel_clamp
+
+    def linear_slope(d, strain, body):
+        stress, sv1, sv2 = nonlinear(d, strain, body)
+        e1, e2 = body.bond_e1[..., d, :, :, :], body.bond_e2[..., d, :, :, :]
+        s_sum = e1 + e2
+        hom = body.bond_homogeneous[..., d, :, :, :] | (
+            torch.abs(e1 - e2) <= 0.0005 * torch.abs(s_sum))
+        stiff = torch.where(hom, 0.5 * s_sum, body.bond_e[..., d, :, :, :])
+        return stress.detach() + stiff * (strain - strain.detach()), sv1, sv2
+
+    def factor_detached(disp, limit):
+        out = clamp(disp, limit)
+        nz = disp != 0
+        return disp * torch.where(nz, out / torch.where(nz, disp, 1.0), 1.0).detach()
+
+    return [("linear_slope", step_mod, "_nonlinear_stress", linear_slope),
+            ("clamp_factor_detached", step_mod, "_max_vel_clamp", factor_detached)]
+
+
+def _material_branches(torch, fr, state, body, stats, ctrl, seg_base, kw):
+    """(bond-steps past a bilinear side's yield strain, voxel-steps the
+    clamp scaled back) of the plain version's forward run of a launch."""
+    from unittest import mock
+
+    from evosoro_tpu_torch.core import step as step_mod
+
+    nonlinear, clamp = step_mod._nonlinear_stress, step_mod._max_vel_clamp
+    counts = [0, 0]
+
+    def past(mm, ys, e, sv):
+        return (mm == 2) & (sv > step_mod._safe_div(ys, e))
+
+    def counted_stress(d, strain, b):
+        out = nonlinear(d, strain, b)
+        side = (b.mat_model_vox, b.yield_stress, b.e_mod)
+        yielded = past(*side, out[1]) | past(*(step_mod._nbr(a, d) for a in side), out[2])
+        counts[0] += int((yielded & b.bond_mask[..., d, :, :, :]).sum())
+        return out
+
+    def counted_clamp(disp, limit):
+        counts[1] += int((step_mod._safe_norm(*disp.unbind(-1)) > limit).sum())
+        return clamp(disp, limit)
+
+    with mock.patch.object(step_mod, "_nonlinear_stress", counted_stress), \
+            mock.patch.object(step_mod, "_max_vel_clamp", counted_clamp):
+        fr.fused_rollout_plain(state, body, stats, None, control_packed=ctrl,
+                               seg_base=seg_base, **kw)
+    return counts
+
+
+def _b4_tape(torch, fr, *args, **kw):
+    """(cotangents, tape) of one `fused_bwd_call` on the card: the tape its
+    forward recompute wrote, the first 4-d tensor the wrapper allocates."""
+    from unittest import mock
+
+    real, kept = torch.empty, []
+
+    def empty(*a, **k):
+        t = real(*a, **k)
+        if not kept and t.dim() == 4:
+            kept.append(t)
+        return t
+
+    with mock.patch.object(torch, "empty", empty):
+        out = fr.fused_bwd_call(*args, **kw)
+    torch.cuda.synchronize()
+    return out, kept[0]
+
+
+def phase_b4_materials(torch, np):
+    """B4's material instance (bilinear stress through the stress
+    equalization, the max-velocity clamp) against `fused_bwd_plain` on the
+    SQP solver's launch of `bench.sqp_workload(materials=True)` (8 x 10^3 on
+    the bilinear palette with the clamp, 25 steps of a 200-step clock, 8
+    knots), from rest and from the state K1's material instance reaches 75
+    steps in under random controls (timed), with a random cotangent; each
+    record counts the plain version's bond-steps past yield and clamped
+    voxel-steps, both > 0. Its guards: the slope replaced by the linear
+    stiffness, the clamp's factor detached (`_material_guards`) and a
+    launch one step short. B4's recomputed end state (the tape's last slot)
+    equals K1's material launch bit for bit. The device-memory twin, forced,
+    equals the shared instance bit for bit at 10^3, and at 12^3 (where it
+    runs by itself) is held against the plain version. Returns the records;
+    the timed one is the launch 75 steps in."""
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.core.rollout import init_state
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    B, K, S, total = 8, 8, 25, 200
+    recs = []
+    launches = {}
+    for n in (10, 12):
+        body, sim, env, dt = bench.sqp_workload(n=n, device="cuda", materials=True)
+        body_packed = fr.pack_body(body)
+        state0 = fr.pack_state_single(init_state(body))[None].expand(B, -1, -1).contiguous()
+        stats0 = fr.make_stats(body, B, dt, sim, env)
+        kw = dict(num_steps=S, grid_shape=tuple(body.occ.shape),
+                  scalars=fr.kernel_scalars(body.nominal_size, sim, env),
+                  flags=fr.launch_flags(body, sim, env, collision=False, segmented=True),
+                  n_knots=K, total_steps=total)
+        assert kw["flags"]["nonlinear"] and kw["flags"]["max_vel"], kw["flags"]
+        ctrl = _controls(torch, np, B, K, body.occ.numel(), seed=41)
+        label = "SQP launch %d x %d^3, bilinear palette, clamp" % (B, n)
+        st75, ss75 = fr.fused_call(state0, body_packed, stats0, None, control_packed=ctrl,
+                                   seg_base=0, **dict(kw, num_steps=75))
+        starts = [("from rest", state0, stats0, 0), ("75 steps in", st75, ss75, 75)]
+        if n == 12:
+            starts = starts[1:]
+        for where, st, ss, base in starts:
+            yielded, clamped = _material_branches(torch, fr, st, body_packed, ss, ctrl, base,
+                                                  kw)
+            m0, g0 = fr.FUSED_BWD_MATERIAL_LAUNCHES, fr.FUSED_BWD_GMEM_LAUNCHES
+            rec = _b4_case(torch, np, fr, "%s, %s" % (label, where), st, body_packed, ss, ctrl,
+                           base, kw, seed=8, timed=(n == 10 and base == 75),
+                           guards=_material_guards(torch) if n == 10 else ())
+            launches[(n, base)] = (fr.FUSED_BWD_MATERIAL_LAUNCHES - m0,
+                                   fr.FUSED_BWD_GMEM_LAUNCHES - g0)
+            rec.update(bond_steps_past_yield=yielded, voxel_steps_clamped=clamped)
+            assert yielded > 0 and clamped > 0, rec
+            if n == 12:  # the device-memory instance ran by itself
+                assert fr.k1_instance(body.occ.numel(), False) == "device"
+                assert launches[(n, base)][1] >= 1, launches
+            else:
+                # the recompute is K1's material launch, bit for bit; the twin,
+                # forced, computes the shared instance's bits
+                cot = torch.as_tensor(np.random.default_rng(8).standard_normal(
+                    st.shape).astype(np.float32), device="cuda")
+                cot[:, fr._TSAVG:] = 0.0
+                got, tape = _b4_tape(torch, fr, st, body_packed, ss, ctrl, base, cot, **kw)
+                end, _ = fr.fused_call(st, body_packed, ss, None, control_packed=ctrl,
+                                       seg_base=base, **kw)
+                rec["recompute_bit_equal_k1"] = torch.equal(tape[:, S, :fr._TSAVG],
+                                                            end[:, :fr._TSAVG])
+                with _device_instances(fr):
+                    twin = fr.fused_bwd_call(st, body_packed, ss, ctrl, base, cot, **kw)
+                torch.cuda.synchronize()
+                rec["twin_bit_equal"] = all(torch.equal(a, b) for a, b in zip(twin, got))
+                assert rec["recompute_bit_equal_k1"] and rec["twin_bit_equal"], rec
+            emit(dict(phase="b4_materials", workload=rec["workload"],
+                      bond_steps_past_yield=yielded, voxel_steps_clamped=clamped,
+                      material_launches=launches[(n, base)][0],
+                      device_memory_launches=launches[(n, base)][1],
+                      **{k: rec[k] for k in ("recompute_bit_equal_k1", "twin_bit_equal")
+                         if k in rec}))
+            recs.append(rec)
+    return recs
+
+
+def phase_sqp_materials(torch, b4_mat):
+    """The gradient-MPC path on the bilinear palette with the max-velocity
+    clamp: `bench.sqp(materials=True)` (a cold `FusedSQPSolver.solve` and
+    three re-plans, 200 steps in 8 segments, 8 knots, 4 iterations on 8 x
+    10^3), every launch counter set to 0 just before and read just after:
+    its 4 x 72 K1 launches are the material instance's, its 4 x 32 B4
+    launches B4's material instance. Returns the launches."""
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    counters = dict(fused_rollout="FUSED_ROLLOUT_LAUNCHES",
+                    fused_rollout_with_knots="FUSED_ROLLOUT_KNOT_LAUNCHES",
+                    fused_rollout_material="FUSED_ROLLOUT_MATERIAL_LAUNCHES",
+                    fused_bwd="FUSED_BWD_LAUNCHES",
+                    fused_bwd_material="FUSED_BWD_MATERIAL_LAUNCHES",
+                    fused_bwd_gmem="FUSED_BWD_GMEM_LAUNCHES")
+    for name in counters.values():
+        setattr(fr, name, 0)
+    rec = bench.sqp(device="cuda", materials=True)
+    launches = {k: getattr(fr, name) for k, name in counters.items()}
+    timed = next(r for r in b4_mat if "ms" in r)
+    k1_ms, b4_ms = timed["k1_ms"], timed["ms"]
+    rec.update(k1_ms_per_launch=k1_ms, b4_ms_per_launch=b4_ms,
+               k1_share=rec["k1_launches_per_solve"] * k1_ms / rec["ms_per_solve"],
+               b4_share=rec["b4_launches_per_solve"] * b4_ms / rec["ms_per_solve"])
+    emit(dict(phase="sqp", what="FusedSQPSolver: cold solve and re-plans, bilinear "
+              "palette with the max-velocity clamp", **rec))
+    emit(dict(phase="sqp_launches", model="materials", **launches))
+    _sqp_checks(rec, launches)
+    assert launches["fused_rollout_material"] == 4 * 72, launches
+    assert launches["fused_bwd_material"] == 4 * 32 and launches["fused_bwd_gmem"] == 0, launches
+    return launches
+
+
+def _b4_material_row(b4_mat, launches, bound_keys):
+    """The kernels line's row of B4's material instance."""
+    timed = next(r for r in b4_mat if "ms" in r)
+    guards = {k: v for r in b4_mat for k, v in r.items() if k.startswith("guard_")}
+    return dict(
+        name="fused_rollout_bwd (B4), material instance", route="cuda",
+        source="evosoro_tpu_torch/ops/csrc/fused_rollout_bwd_mat.cu",
+        replaces="evosoro_tpu/ops/fused_rollout.py:2745",
+        launches=launches["fused_bwd_material"],
+        launches_of="bench.sqp(materials=True): a cold solve and 3 re-plans",
+        **bound_keys(timed),
+        max_abs_err=max(r["max_abs_err"] for r in b4_mat),
+        worst_rel_err=max(r["worst_rel_err"] for r in b4_mat), guards=guards,
+        bond_steps_past_yield=min(r["bond_steps_past_yield"] for r in b4_mat),
+        voxel_steps_clamped=min(r["voxel_steps_clamped"] for r in b4_mat),
+        err_of=("cotangent of the controls, against autograd through the plain version: "
+                "the SQP launch 8 x 10^3 x 25 steps on the bilinear palette with the clamp, "
+                "8 knots, from rest and 75 steps in, and 8 x 12^3 75 steps in (the "
+                "device-memory twin); worst_rel_err as the land row"),
+        ms=timed["ms"], plain_ms=timed["plain_ms"],
+        ms_of="one launch of a solve: %s" % timed["workload"])
 
 
 def _sqp_checks(rec, launches):
@@ -2638,13 +2855,16 @@ def main():
     if sys.argv[1:] == ["--diff"]:
         b4 = phase_b4(torch, np)
         b4_var, k1_sqp = phase_b4_variants(torch, np)
+        b4_mat = phase_b4_materials(torch, np)
         sqp_launches = phase_sqp(torch, next(r for r in b4 if "ms" in r))
         var_launches = phase_sqp_variants(torch, b4_var)
+        mat_launches = phase_sqp_materials(torch, b4_mat)
 
         def bound_keys(rec):
             return dict(bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None)
 
-        emit(dict(kernels=_b4_rows(b4, b4_var, sqp_launches, var_launches, bound_keys)))
+        emit(dict(kernels=_b4_rows(b4, b4_var, sqp_launches, var_launches, bound_keys)
+                  + [_b4_material_row(b4_mat, mat_launches, bound_keys)]))
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -2696,8 +2916,10 @@ def main():
     b4 = phase_b4(torch, np)
     b4_timed = next(r for r in b4 if "ms" in r)
     b4_var, k1_sqp = phase_b4_variants(torch, np)
+    b4_mat = phase_b4_materials(torch, np)
     sqp_launches = phase_sqp(torch, b4_timed)
     var_launches = phase_sqp_variants(torch, b4_var)
+    mat_launches = phase_sqp_materials(torch, b4_mat)
     big = phase_big(torch, np)
     big_k1 = sum(p["fused_rollout"] for p in big["paths"].values())
     phase_throughput(torch, card)
@@ -2730,6 +2952,7 @@ def main():
              + matx["fused_rollout"] + replay["fused_rollout"]
              + mpc_launches["fused_rollout"] + sqp_launches["fused_rollout"]
              + sum(v["fused_rollout"] for v in var_launches.values())
+             + mat_launches["fused_rollout"]
              + vol["replay_launches"]["fused_rollout"] + vol["evolution"]["fused_rollout"]
              + vol["mpc_launches"]["fused_rollout"] + big_k1,
              launches_evolution=launches["fused_rollout"],
@@ -2742,6 +2965,7 @@ def main():
              launches_mpc=mpc_launches["fused_rollout"],
              launches_sqp=sqp_launches["fused_rollout"],
              launches_sqp_water_growth=sum(v["fused_rollout"] for v in var_launches.values()),
+             launches_sqp_materials=mat_launches["fused_rollout"],
              launches_volume=vol["replay_launches"]["fused_rollout"]
              + vol["evolution"]["fused_rollout"] + vol["mpc_launches"]["fused_rollout"],
              launches_big_bodies=big_k1,
@@ -2770,7 +2994,8 @@ def main():
              replaces="evosoro_tpu/ops/fused_rollout.py:1710",
              launches=mpc_launches["fused_rollout_with_knots"]
              + sqp_launches["fused_rollout_with_knots"]
-             + sum(v["fused_rollout_with_knots"] for v in var_launches.values()),
+             + sum(v["fused_rollout_with_knots"] for v in var_launches.values())
+             + mat_launches["fused_rollout_with_knots"],
              launches_evolution=launches["fused_rollout_with_knots"],
              launches_sqp=sqp_launches["fused_rollout_with_knots"],
              launches_sqp_water_growth=sum(v["fused_rollout_with_knots"]
@@ -2788,6 +3013,7 @@ def main():
              ms=knot_timed["ms"], plain_ms=knot_timed["plain_ms"],
              ms_of="one launch of a cold solve: 128 x 10^3, 8 knots, 200 steps"),
         *_b4_rows(b4, b4_var, sqp_launches, var_launches, bound_keys),
+        _b4_material_row(b4_mat, mat_launches, bound_keys),
         *_big_rows(big, bound_keys),
         dict(name="K1 fluid branches (B7)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fused_rollout_common.cuh",
@@ -2925,6 +3151,7 @@ def main():
              replaces="evosoro_tpu/ops/fused_rollout.py:372",
              launches=matx["fused_rollout_nonlinear"],
              launches_of="two generations of the materials experiment",
+             launches_sqp_materials=mat_launches["fused_rollout_material"],
              **bound_keys(mats["a"][0]),
              max_abs_err=max(r["pos"] for r in mats["a"] + [mats["a_features"]]),
              max_strain_offset_err=max(r["strain_offset_err"]

@@ -144,6 +144,16 @@ def materials_palette():
     return mats
 
 
+def bilinear_palette():
+    """`materials_palette` with the soft tissue (1) left linear: the
+    bilinear muscles (3, 4) alone, the palette the gradient-MPC benchmark
+    runs on materials (both packages' reverse-mode kernels refuse
+    MDL_DATA)."""
+    mats = materials_palette()
+    mats[0] = evosoro_default_palette()[0]
+    return mats
+
+
 def growth_fields(shape, dt, seed=0):
     """Random development fields for a body of `shape`, in units of the
     step `dt` so that a launch of 100 steps crosses every ramp: initial and
@@ -858,7 +868,7 @@ def mpc(device="cuda", n=10, plan_steps=200, knots=8, num_iters=6, pop_size=128,
 # ---------------------------------------------------------------------------
 
 
-def sqp_workload(n=10, seed=0, device="cuda", fluid=None, devo=False):
+def sqp_workload(n=10, seed=0, device="cuda", fluid=None, devo=False, materials=False):
     """(body, sim, env, dt) of the fused-SQP benchmark: the bench design
     with actuation and the CoM capture from time 0 (`mpc_workload`) without
     floor and gravity; with `fluid="mesh"` or `"face"` the same design in
@@ -868,8 +878,19 @@ def sqp_workload(n=10, seed=0, device="cuda", fluid=None, devo=False):
     environment (floor and gravity, dt_frac 0.5, min_temp_fact 0.4, growth
     amplitude 0.8) with random development fields (`growth_fields`: growth
     starting within 50 steps and lasting 10-100, IniCM at step 30), so that
-    its ramps run within a 200-step horizon."""
+    its ramps run within a 200-step horizon; with `materials` the design on
+    `bilinear_palette` with the max-velocity clamp at `MATERIALS_MAX_VEL`
+    (the planner of a robot on a custom palette, `Env(materials=...)`, or of
+    a .vxa file with MaxVelLimitEnabled), without floor and gravity."""
     palette = palette_from_list(evosoro_default_palette())
+    if materials:
+        structure, phase = bench_design(n, seed)
+        body = build_body(structure, palette_from_list(bilinear_palette()),
+                          phase_offset=phase, device=device)
+        sim = SimParams(init_cm_time=0.0, max_velocity_enabled=True,
+                        max_vox_vel_limit=MATERIALS_MAX_VEL)
+        env = EnvParams(gravity_enabled=False, floor_enabled=False)
+        return body, sim, env, float(calc_max_dt(body) * sim.dt_frac)
     if devo:
         rng = np.random.default_rng(seed)
         structure = np.full(GROWTH_IND_SIZE, 3, np.int32)
@@ -901,15 +922,17 @@ def sqp_workload(n=10, seed=0, device="cuda", fluid=None, devo=False):
 
 
 def sqp(device="cuda", n=10, plan_steps=200, knots=8, n_res=8, num_iters=4,
-        cg_iters=5, replans=3, seed=0, fluid=None, devo=False):
+        cg_iters=5, replans=3, seed=0, fluid=None, devo=False, materials=False):
     """The fused-SQP benchmark on `device`: one cold `FusedSQPSolver.solve`
     (target 0.4 lattice units of CoM-y travel) and `replans` warm re-plans
     from its result with targets `0.4 + 0.01 r`, on land without floor and
-    gravity as in `tools/bench_mpc.py`, in water (`fluid`) or with growth
-    (`devo`, on the growth experiment's floor): `sqp_workload`. Returns the
+    gravity as in `tools/bench_mpc.py`, in water (`fluid`), with growth
+    (`devo`, on the growth experiment's floor) or on the bilinear palette
+    with the max-velocity clamp (`materials`): `sqp_workload`. Returns the
     cold solve's cost traces and launch counts, and milliseconds per
     re-plan."""
-    body, sim, env, dt = sqp_workload(n, seed, device, fluid=fluid, devo=devo)
+    body, sim, env, dt = sqp_workload(n, seed, device, fluid=fluid, devo=devo,
+                                      materials=materials)
     cfg = SQPConfig(num_iters=num_iters, cg_iters=cg_iters, n_res=n_res)
     solver = FusedSQPSolver(body, sim, env, plan_steps, knots, config=cfg,
                             dt=dt, n_res=n_res, device=device)
@@ -927,7 +950,7 @@ def sqp(device="cuda", n=10, plan_steps=200, knots=8, n_res=8, num_iters=4,
     replan_costs, ms, _ = _timed_ms(replan, device)
     solve_ms = ms / max(replans, 1)
     return dict(
-        n=n, grid=list(body.occ.shape), fluid=fluid, devo=devo,
+        n=n, grid=list(body.occ.shape), fluid=fluid, devo=devo, materials=materials,
         plan_steps=plan_steps, knots=knots, n_res=n_res,
         num_iters=num_iters, seg_steps=solver.seg_steps,
         k1_launches_per_solve=k1, b4_launches_per_solve=b4,

@@ -5,7 +5,9 @@ the card.
 
 Builds `fused_rollout` and `fused_rollout_bwd` in both trees
 (`ops/build.py`), compares the machine code of every kernel function the
-two trees' libraries hold (`cuobjdump -sass`, addresses stripped), then
+two trees' libraries hold (`cuobjdump -sass`, addresses stripped) and
+checks that the functions only this tree holds are the ones `NEW_KERNELS`
+lists (B4's material instance and its device-memory twin), then
 times the material instance on 1024 x 10^3 x 200
 steps through each library in one process, in turns on the same tensors
 (other, this, this, other, three times; `bench.time_call` each), and checks
@@ -27,6 +29,8 @@ import sys
 from pathlib import Path
 
 LIBS = ("fused_rollout", "fused_rollout_bwd")
+# the kernel functions this tree adds to its parent's libraries
+NEW_KERNELS = ("fused_rollout_bwd_mat_kernel", "fused_rollout_bwd_mat_gmem_kernel")
 _BUILD = ("from evosoro_tpu_torch.ops import build; build.build_all(%r); "
           "[print(build._lib_path(n)) for n in %r]" % (LIBS, LIBS))
 
@@ -44,6 +48,12 @@ def _sass(lib: str) -> dict:
             cur.append(re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln).split(";")[0].strip())
     return {k: (len(v), hashlib.sha256("\n".join(v).encode()).hexdigest()[:12])
             for k, v in funcs.items()}
+
+
+def _name(mangled: str) -> str:
+    """A kernel's name from its mangled one, _Z<length><name><parameters>."""
+    m = re.match(r"_Z(\d+)", mangled)
+    return mangled[m.end():m.end() + int(m.group(1))] if m else mangled
 
 
 def main(other: str) -> dict:
@@ -67,6 +77,8 @@ def main(other: str) -> dict:
                kernels_differing=[k for k in shared if sass["this"][k] != sass["other"][k]],
                kernels_only_here=sorted(set(sass["this"]) - set(sass["other"])),
                kernels_only_there=sorted(set(sass["other"]) - set(sass["this"])))
+    rec["new_kernels_as_listed"] = {_name(f) for f in rec["kernels_only_here"]} \
+        == set(NEW_KERNELS)
 
     # the other tree's launcher signature, from its own build.py
     spec = importlib.util.spec_from_file_location(

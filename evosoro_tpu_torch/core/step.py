@@ -772,6 +772,15 @@ def _fluid_drag(state, body, env: EnvParams, vel):
 # The full step
 # ---------------------------------------------------------------------------
 
+def _max_vel_clamp(disp, limit):
+    """The per-step displacement clamp (reference: VXS_Voxel.cpp:188-192):
+    `disp` (..., 3) scaled back to length `limit` where it is longer."""
+    dmag = _safe_norm(*disp.unbind(-1))[..., None]
+    max_disp = torch.full_like(dmag, limit)
+    return disp * torch.where(dmag > max_disp,
+                              max_disp / torch.where(dmag > 0, dmag, 1.0), 1.0)
+
+
 def sim_step(
     state: SimState,
     body: VoxelBody,
@@ -889,11 +898,7 @@ def sim_step(
     linmom = linmom + total_force * _vec(dt)
     disp = linmom * (_vec(dt) * body.mass_inv[..., None])
     if sim.max_velocity_enabled:
-        # per-step displacement clamp (reference: VXS_Voxel.cpp:188-192)
-        dmag = _safe_norm(*disp.unbind(-1))[..., None]
-        max_disp = torch.full_like(dmag, sim.max_vox_vel_limit * body.nominal_size)
-        disp = disp * torch.where(dmag > max_disp,
-                                  max_disp / torch.where(dmag > 0, dmag, 1.0), 1.0)
+        disp = _max_vel_clamp(disp, sim.max_vox_vel_limit * body.nominal_size)
     pos = state.pos + disp
     # fixed translational DOFs sit at their prescribed place (:195-197)
     fixed = torch.stack([(body.dof_fixed & bit) != 0 for bit in (DOF_X, DOF_Y, DOF_Z)],

@@ -6,7 +6,8 @@ loaded with ctypes. Nothing is built at import: a library is
 built at first use into `evosoro_tpu_torch/_build/` (listed in .gitignore),
 named by a hash of every file under `csrc/` (sources and the headers they
 include), so an edit to a kernel or to a shared header rebuilds it. `build_all`
-starts one nvcc per source at once.
+starts one nvcc per translation unit at once, each into an object file, and
+links each library from its objects.
 
 Flags: `-gencode arch=compute_90a,code=sm_90a -O3`, no `--use_fast_math`
 (sinf, acosf, sqrtf and division stay IEEE-accurate) and `-fmad=false`:
@@ -29,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -42,14 +43,15 @@ SIGNATURES = {
         _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P]),
     "fused_rollout_bwd": ("fused_rollout_bwd", [
         _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P,
-        _P, _I, _P]),
+        _P, _P, _I, _P]),
     "fma_peak": ("fma_peak", [_P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _P]),
 }
 
 # translation units a library links beside its own `<name>.cu`: K1's
-# device-memory instances compile apart from the shared-memory kernels, so
-# those keep their machine code
-EXTRA_SOURCES = {"fused_rollout": ("fused_rollout_gmem.cu",)}
+# device-memory instances and B4's material instance compile apart from the
+# other kernels, so those keep their machine code
+EXTRA_SOURCES = {"fused_rollout": ("fused_rollout_gmem.cu",),
+                 "fused_rollout_bwd": ("fused_rollout_bwd_mat.cu",)}
 
 _libs: dict = {}
 
@@ -71,28 +73,42 @@ def _lib_path(name: str) -> Path:
 
 
 def build_all(names=tuple(SIGNATURES)) -> float:
-    """Compile every missing library, one nvcc process per source, all
-    started together. Returns the wall seconds; raises on any failure."""
+    """Compile every missing library: one nvcc process per translation unit,
+    all started together, then one link per library. Returns the wall
+    seconds; raises on any failure."""
     t0 = time.time()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
+    jobs = []  # (name, library path, [(object, log, process)])
     for name in names:
         out = _lib_path(name)
         if out.exists():
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        log = open(out.with_suffix(".log"), "w")
-        sources = (f"{name}.cu",) + EXTRA_SOURCES.get(name, ())
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / f) for f in sources)]
-        procs.append((name, out, tmp, log,
-                      subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+        units = []
+        for src in (f"{name}.cu",) + EXTRA_SOURCES.get(name, ()):
+            obj = out.with_suffix(f".{Path(src).stem}.{os.getpid()}.o")
+            log = obj.with_suffix(".log")
+            with open(log, "w") as f:
+                proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                                         str(CSRC / src)], stdout=f, stderr=subprocess.STDOUT)
+            units.append((obj, log, proc))
+        jobs.append((name, out, units))
     failed = []
-    for name, out, tmp, log, p in procs:
-        rc = p.wait()
-        log.close()
+    for name, out, units in jobs:
+        rc = max(proc.wait() for _, _, proc in units)
+        text = "".join(log.read_text() for _, log, _ in units)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        if rc == 0:
+            link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                                   *(str(obj) for obj, _, _ in units)],
+                                  capture_output=True, text=True)
+            text += link.stdout + link.stderr
+            rc = link.returncode
+        out.with_suffix(".log").write_text(text)
+        for obj, log, _ in units:
+            obj.unlink(missing_ok=True)
+            log.unlink(missing_ok=True)
         if rc != 0:
-            failed.append(f"{name}: nvcc exit {rc}\n"
-                          + out.with_suffix(".log").read_text()[-4000:])
+            failed.append(f"{name}: nvcc exit {rc}\n" + text[-4000:])
         else:
             os.replace(tmp, out)
     if failed:

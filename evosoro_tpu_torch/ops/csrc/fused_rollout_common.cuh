@@ -455,12 +455,27 @@ __device__ __forceinline__ float vox_mat_stress(float strain, float e, float mm,
     return out;
 }
 
+// The slope d(stress)/d(strain) of vox_mat_stress's linear and bilinear
+// curves, the branch torch autograd differentiates through core/step.py's
+// _vox_mat_stress: the plastic modulus past a bilinear material's yield
+// strain, else the elastic one. (MDL_DATA has none here: B4 refuses it.)
+__device__ __forceinline__ float vox_mat_slope(float strain, float e, float mm, float pm,
+                                               float ys) {
+    return (mm == 2.f && strain > sdiv(ys, e)) ? pm : e;
+}
+
 // The axial stress of bond (v, n) between voxels of any material model:
 // the per-side stress with the reference's 3-iteration stress-equalization
 // loop (VXS_BondInternal.cpp:237-253), or one side's curve on a homogeneous
-// bond.
+// bond. SLOPE (B4's material instance only): *dsde receives the stress's
+// derivative with respect to the strain, from one tangent carried forward
+// beside the loop's sv1, sv2, s1 and s2, by torch autograd's conventions on
+// the plain version: a selection passes to its chosen branch only and
+// nothing to the convergence test, sdiv's guard cuts where the plain
+// version's does, a homogeneous bond takes one side's curve.
+template <bool SLOPE = false>
 __device__ inline float nonlinear_stress(const MatArgs& ma, int v, int n, int V, float strain,
-                                         bool hom, const Params& p) {
+                                         bool hom, const Params& p, float* dsde = nullptr) {
     const float* bo = ma.bo;
     const float e1 = bo[(size_t)B_EMOD * V + v], e2 = bo[(size_t)B_EMOD * V + n];
     const float mm1 = bo[(size_t)B_MATMODEL * V + v], mm2 = bo[(size_t)B_MATMODEL * V + n];
@@ -469,21 +484,46 @@ __device__ inline float nonlinear_stress(const MatArgs& ma, int v, int n, int V,
     const float* ss1 = ma.ss ? ma.ss + v : nullptr;
     const float* ss2 = ma.ss ? ma.ss + n : nullptr;
     const int P = ma.n_pts;
-    if (hom) return vox_mat_stress(strain, e1, mm1, pm1, ys1, ss1, P, V);
+    if (hom) {
+        if constexpr (SLOPE) *dsde = vox_mat_slope(strain, e1, mm1, pm1, ys1);
+        return vox_mat_stress(strain, e1, mm1, pm1, ys1, ss1, P, V);
+    }
     float sv1 = strain, sv2 = strain;
     float s1 = vox_mat_stress(sv1, e1, mm1, pm1, ys1, ss1, P, V);
     float s2 = vox_mat_stress(sv2, e2, mm2, pm2, ys2, ss2, P, V);
+    // (SLOPE) d/d(strain) of sv1, sv2, s1, s2
+    float dv1 = 1.f, dv2 = 1.f, ds1 = 0.f, ds2 = 0.f;
+    if constexpr (SLOPE) {
+        ds1 = vox_mat_slope(sv1, e1, mm1, pm1, ys1);
+        ds2 = vox_mat_slope(sv2, e2, mm2, pm2, ys2);
+    }
     for (int it = 0; it < 3; ++it) {
         const float ssum = s1 + s2;
         if (!(fabsf(s1 - s2) <= p.near_eq * fabsf(ssum))) {
             const float n1 = 2.f * sdiv(s2, ssum) * sv1;
             const float n2 = 2.f * sdiv(s1, ssum) * sv2;
+            if constexpr (SLOPE) {
+                // d(a / ssum) = (da - (a / ssum) dssum) / ssum, 0 where ssum is
+                const float dsum = ds1 + ds2;
+                const float r1 = sdiv(s1, ssum), r2 = sdiv(s2, ssum);
+                const float dr1 = sdiv(ds1 - r1 * dsum, ssum);
+                const float dr2 = sdiv(ds2 - r2 * dsum, ssum);
+                const float nd1 = 2.f * (dr2 * sv1 + r2 * dv1);
+                const float nd2 = 2.f * (dr1 * sv2 + r1 * dv2);
+                dv1 = nd1;
+                dv2 = nd2;
+            }
             sv1 = n1;
             sv2 = n2;
         }
         s1 = vox_mat_stress(sv1, e1, mm1, pm1, ys1, ss1, P, V);
         s2 = vox_mat_stress(sv2, e2, mm2, pm2, ys2, ss2, P, V);
+        if constexpr (SLOPE) {
+            ds1 = vox_mat_slope(sv1, e1, mm1, pm1, ys1) * dv1;
+            ds2 = vox_mat_slope(sv2, e2, mm2, pm2, ys2) * dv2;
+        }
     }
+    if constexpr (SLOPE) *dsde = 0.5f * (ds1 + ds2);
     return 0.5f * (s1 + s2);
 }
 
@@ -495,7 +535,7 @@ struct Bond {
     F3 rel, ar;            // lattice-rotated p2 - p1, and the same in q1's frame
     Q q1, q2, na2;         // lattice-rotated quaternions, relative rotation
     Q p2ar, totrot, tq2;   // large-angle frame (p2ar, tq2 unset when small)
-    float nom_dist, length, strain, stiff;  // stress = stiff * strain
+    float nom_dist, length, strain, stiff;  // stiff: d stress / d strain
     bool small, changed, damped;
     F3 pos2, ra1, ra2;     // the bond's strain state
     F3 lp2, la1, la2;      // the damping memory it was read with
@@ -509,8 +549,10 @@ struct Bond {
 // goes to *soff. VOL (volume effects, with MAT): the Poisson-coupled
 // stress in their place, before plasticity, and the thermal term at the
 // clock vt = {t, temperature amplitude, period} after it; vo receives the
-// bond's Eh and CSavg.
-template <bool MAT = false, bool VOL = false>
+// bond's Eh and CSavg. SLOPE (with MAT, B4's material instance): with
+// `flags & F_NONLINEAR` the bond's stiff is the nonlinear stress's slope at
+// its strain, which the reverse sweep reads.
+template <bool MAT = false, bool VOL = false, bool SLOPE = false>
 __device__ inline Bond bond_forward(const float* si, const float* bd, int v, int n,
                                     int d, int V, const Params& p, float dt,
                                     float dt_inv, const MatArgs* ma = nullptr, int flags = 0,
@@ -589,7 +631,11 @@ __device__ inline Bond bond_forward(const float* si, const float* bd, int v, int
             vo[0] = eh;
             vo[1] = SIN(S_CSAVG + d)[v];
         } else if (flags & F_NONLINEAR) {  // no near-equal widening on this path
-            stress = nonlinear_stress(*ma, v, n, V, strain, bd[(size_t)D_HOM * V] > 0.5f, p);
+            if constexpr (SLOPE)
+                stress = nonlinear_stress<true>(*ma, v, n, V, strain,
+                                                bd[(size_t)D_HOM * V] > 0.5f, p, &o.stiff);
+            else
+                stress = nonlinear_stress(*ma, v, n, V, strain, bd[(size_t)D_HOM * V] > 0.5f, p);
         }
         if (flags & F_PLASTIC) {
             // new-territory strains follow the curve; inside it the stress

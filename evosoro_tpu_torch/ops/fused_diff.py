@@ -18,10 +18,17 @@ BPTT through `core.rollout`, the same float32 numerics and piecewise
 branches.
 
 The envelope is B4's (`fused_rollout.diff_envelope_ok`): on land, in water
-with either drag model, and with the development ramps. The flags come from
-the body and the environment as in the JAX package's `DiffRollout`: the
-facet drag when the body carries mesh tables in a fluid (which needs the
-grid's +X/+Y/+Z shell), the development flags from the body's fields.
+with either drag model, and with the development ramps; on land also with
+bilinear materials (a palette that is not all linear) and the max-velocity
+clamp (`SimParams.max_velocity_enabled`), through B4's material instance.
+The flags come from the body and the environment as in the JAX package's
+`DiffRollout`: the facet drag when the body carries mesh tables in a fluid
+(which needs the grid's +X/+Y/+Z shell), the development flags from the
+body's fields, `nonlinear` from the palette. Outside the envelope the
+constructor raises ValueError naming the flag, as the JAX package's does
+without the name; unlike the JAX package's, a body with MDL_DATA materials
+or BC regions is refused too (the JAX `DiffRollout` sets those two flags
+off and runs such a body as if it had neither).
 """
 
 from __future__ import annotations
@@ -87,9 +94,10 @@ class DiffRollout:
         self.body_packed = fr.pack_body(body)
         self.stats0 = fr.make_stats(body, batch, dt, sim, env, stop_time)
         scalars = fr.kernel_scalars(body.nominal_size, sim, env)
-        if not fr.diff_envelope_ok(flags, scalars):
+        why = fr._diff_refusal(flags, scalars)
+        if why is not None:
             raise ValueError(
-                "configuration outside the differentiable-kernel envelope "
+                f"configuration outside the differentiable-kernel envelope: {why} "
                 "(see fused_rollout.diff_envelope_ok)")
         self._kw = dict(num_steps=self.seg_steps, grid_shape=self.grid_shape,
                         scalars=scalars, flags=flags, n_knots=self.num_knots,

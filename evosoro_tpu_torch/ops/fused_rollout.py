@@ -747,7 +747,7 @@ def check_envelope(flags: dict, scalars: dict):
     """Raise NotImplementedError for any flag outside K1's envelope (for
     CPU and CUDA tensors alike, before anything runs)."""
     # the material instance is the land variant's: in water or with
-    # development these options raise by name (ROADMAP.md B.6)
+    # development these options raise by name (ROADMAP.md B.2)
     if flags.get("fluid") or any(flags.get(k) for k in _K1_DEVO_FLAGS):
         for k in _K1_MAT_FLAGS:
             if flags.get(k):
@@ -1622,6 +1622,8 @@ FUSED_BWD_MESH_LAUNCHES = 0
 FUSED_BWD_DEVO_LAUNCHES = 0
 # ... of its device-memory instance (`k1_instance` without contact)
 FUSED_BWD_GMEM_LAUNCHES = 0
+# ... of its material instance (nonlinear stress, the max-velocity clamp)
+FUSED_BWD_MATERIAL_LAUNCHES = 0
 
 # channels [0, _TSAVG) carry the rollout and its cotangent; B4's tape holds
 # them plus one channel of static-friction decisions (csrc: NT), and with
@@ -1632,16 +1634,14 @@ _B4_MESH_TAPE_CHANNELS = _B4_TAPE_CHANNELS + _K1_MESH_SCRATCH
 _B4_MESH_SCRATCH = 27
 # flags outside the reverse-mode kernel's envelope (the JAX package's
 # `_diff_envelope_ok`), each with the reason; the rest of `check_envelope`
-# applies as well. The JAX kernel differentiates nonlinear materials and the
-# max-velocity clamp too: ROADMAP.md A.6b.
+# applies as well, so nonlinear materials and the max-velocity clamp, which
+# B4's material instance differentiates, run on land only
 _DIFF_REFUSED = dict(
     volume="volume effects", equilibrium="equilibrium mode", plasticity="plasticity",
     needle="the needle feature", falling="the fall-over latch",
     ndbv="NormDistByVol", window="speed windows", ballistic="ballistic development",
     collision="self-collision", collision_compact="the compact contact pass",
-    mdl_data="MDL_DATA materials", bc="BC regions",
-    nonlinear="nonlinear materials (ROADMAP.md A.6b)",
-    max_vel="the max-velocity clamp (ROADMAP.md A.6b)")
+    mdl_data="MDL_DATA materials", bc="BC regions")
 
 
 def _diff_refusal(flags, scalars):
@@ -1658,10 +1658,11 @@ def _diff_refusal(flags, scalars):
 def diff_envelope_ok(flags, scalars) -> bool:
     """True when the reverse-mode segment kernel covers the launch: the MPC
     control envelope on land, in water (voxel-face or facet drag) and with
-    the development ramps, without collision, volume effects, sources,
-    fitness features, or the material instance's options (nonlinear
-    materials, plasticity, the max-velocity clamp, equilibrium mode, BC
-    regions)."""
+    the development ramps, and on land with bilinear materials and the
+    max-velocity clamp (B4's material instance); without collision, volume
+    effects, sources, fitness features, MDL_DATA materials, plasticity,
+    equilibrium mode or BC regions. `check_envelope` refuses the material
+    options in water and with development."""
     return _diff_refusal(flags, scalars) is None
 
 
@@ -1724,9 +1725,11 @@ def fused_bwd_call(state_packed, body_packed, stats, control_packed, seg_base,
     (B, C_STAT), controls (B, n_knots, V), all float32 on one device.
     Returns (cot_state_in (B, C_S, V), channels `_TSAVG..C_S` zero;
     cot_ctrl (B, n_knots, V)). CUDA tensors launch B4; CPU tensors run
-    `fused_bwd_plain`. Flags outside `diff_envelope_ok` raise first. Past
-    one block's shared memory the device-memory instance runs
-    (`k1_instance` without contact)."""
+    `fused_bwd_plain`. Flags outside `diff_envelope_ok` raise first. With
+    nonlinear materials or the max-velocity clamp the material instance
+    runs, whose recompute is K1's material instance. Past one block's
+    shared memory the device-memory instance runs (`k1_instance` without
+    contact)."""
     _check_bwd(flags, scalars, n_knots, seg_base, total_steps)
     seg0, knot_steps = _knot_clock(flags, num_steps, n_knots, control_packed,
                                    seg_base, total_steps)
@@ -1772,6 +1775,7 @@ def fused_bwd_call(state_packed, body_packed, stats, control_packed, seg_base,
     cot = cot_state.clone()  # pulled back in place
     cot_ctrl = torch.zeros_like(control_packed)
     gbuf = _bond_buffer(B, k1_buffer_floats(V, False), dev) if gmem else None
+    mparams = _mat_params(scalars)
     fn = build.library("fused_rollout_bwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -1781,13 +1785,16 @@ def fused_bwd_call(state_packed, body_packed, stats, control_packed, seg_base,
                 B, X, Y, Z, S, params.ctypes.data_as(ctypes.c_void_p), bits,
                 tape.data_ptr(), tape_t.data_ptr(), cot.data_ptr(),
                 cot_ctrl.data_ptr(), scratch.data_ptr() if mesh else None,
+                mparams.ctypes.data_as(ctypes.c_void_p),
                 gbuf.data_ptr() if gmem else None, gbuf.stride(0) if gmem else 0, stream)
     build.check(rc, "fused_rollout_bwd")
     global FUSED_BWD_LAUNCHES, FUSED_BWD_FLUID_LAUNCHES, FUSED_BWD_MESH_LAUNCHES
-    global FUSED_BWD_DEVO_LAUNCHES, FUSED_BWD_GMEM_LAUNCHES
+    global FUSED_BWD_DEVO_LAUNCHES, FUSED_BWD_GMEM_LAUNCHES, FUSED_BWD_MATERIAL_LAUNCHES
     FUSED_BWD_LAUNCHES += 1
     if gmem:
         FUSED_BWD_GMEM_LAUNCHES += 1
+    if bits & (_K1_FLAG_BITS["nonlinear"] | _K1_FLAG_BITS["max_vel"]):
+        FUSED_BWD_MATERIAL_LAUNCHES += 1
     if bits & _K1_FLAG_BITS["fluid"]:
         FUSED_BWD_FLUID_LAUNCHES += 1
     if mesh:

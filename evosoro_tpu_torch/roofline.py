@@ -6,7 +6,8 @@ the JAX tool's `measure_vpu_peak`) and returns the card's measured FP32
 rate. Beside it, the least time the card could take for a launch of each
 kernel (`bound`): the larger of its operations over the FP32 peak and its
 compulsory bytes over the memory rate, from counts of the work the launch's
-inputs need (`k1_work`, `b7_work`, `b8_work`, `b4_work` in each variant, `k2_work`,
+inputs need (`k1_work`, `b7_work`, `b8_work`, `b4_work` in each variant
+and its material instance, `k2_work`,
 `b5_work`, `b6_work`, `b6d_work`, `fma_work`; `launch_work` picks K1's by
 the launch's flags).
 
@@ -78,6 +79,17 @@ vjp of `mesh_drag_forces` with the tables cut to 4 and 2 slots splits into
 63 per corner slot and 3 per vertex; the bound counts the 63 for each live
 corner, as for the forward step.
 
+The adjoint on a bilinear palette and with the max-velocity clamp (`b4_work`
+on a land launch with `nonlinear` or `max_vel`, B4's material instance) is
+counted by the same walk of `jax.vjp` of the JAX step with the control
+offset, less the forward step, on the 10^3 bench body: beyond the land
+adjoint, 213 per occupied voxel and step for the nonlinear stress (the
+muscles of `bench.bilinear_palette`: bilinear, yielding at 2 % strain) and
+22 for the clamp, with no part a robot; the two add (235 with both), and a
+6^3 body gives the same. The launch also recomputes the forward step with
+the same options, so it adds the forward counts above (294, 14 and 1 a
+robot).
+
 Bodies past one block's shared memory (12^3, 13^3 and larger) are bound by
 the same counts: K1's and B4's device-memory instances do the work of the
 shared ones. Their compulsory bytes are the same inputs and outputs, with
@@ -129,6 +141,10 @@ MESH_ADJOINT_FLOPS_PER_TRIANGLE = 58.0
 MESH_ADJOINT_FLOPS_PER_CORNER = 63.0
 MESH_ADJOINT_FLOPS_PER_VERTEX = 3.0
 DEVO_ADJOINT_FLOPS_PER_VOXEL = 2671.007
+# ... and on land beyond the land adjoint, with a bilinear palette and with
+# the max-velocity clamp (module docstring)
+NONLINEAR_ADJOINT_FLOPS_PER_VOXEL = 213.0
+MAX_VEL_ADJOINT_FLOPS_PER_VOXEL = 22.0
 # the fitness features, per occupied voxel (module docstring)
 TRACE_SAMPLE_FLOPS_PER_VOXEL = 11.004
 FALL_LATCH_FLOPS_PER_VOXEL = 8.0
@@ -551,11 +567,14 @@ def b4_work(state, body, stats, controls, steps, flags=None, grid_shape=None):
     with development fields, their own two counts; with the facet drag the
     forward and adjoint counts a voxel and, for every step, the robot's
     surface mesh's triangles, vertices and corners (`mesh_counts` on
-    `grid_shape`). Bytes: what the function must move, whatever the kernel
-    keeps in its tape or its scratch: the start state's carried channels
-    and the end state's cotangent in, the start state's cotangent out, the
-    body channels the step reads (with development the six fields more),
-    the stats rows, the controls in and their cotangent out."""
+    `grid_shape`); on land with `nonlinear` or `max_vel` (the material
+    instance) the forward and adjoint counts of each option on top, and the
+    clamp's share a robot. Bytes: what the function must move, whatever the
+    kernel keeps in its tape or its scratch: the start state's carried
+    channels and the end state's cotangent in, the start state's cotangent
+    out, the body channels the step reads (with development the six fields
+    more, with nonlinear materials the four material channels), the stats
+    rows, the controls in and their cotangent out."""
     flags = flags or {}
     B, _, V = state.shape
     steps = torch.as_tensor(steps, dtype=torch.float32, device=state.device)
@@ -576,6 +595,13 @@ def b4_work(state, body, stats, controls, steps, flags=None, grid_shape=None):
     elif any(flags.get(k) for k in fr._K1_DEVO_FLAGS):
         per_voxel = DEVO_STEP_FLOPS_PER_VOXEL + DEVO_ADJOINT_FLOPS_PER_VOXEL
         body_channels += K1_DEVO_BODY_CHANNELS
+    else:
+        if flags.get("nonlinear"):
+            per_voxel += NONLINEAR_FLOPS_PER_VOXEL + NONLINEAR_ADJOINT_FLOPS_PER_VOXEL
+            body_channels += MATERIAL_BODY_CHANNELS
+        if flags.get("max_vel"):
+            per_voxel += MAX_VEL_FLOPS_PER_VOXEL + MAX_VEL_ADJOINT_FLOPS_PER_VOXEL
+            per_step = per_step + MAX_VEL_FLOPS_PER_STEP
     flops = float(((occupied * per_voxel + per_step) * steps).sum())
     nbytes = 4.0 * (3 * B * K1_STATE_CHANNELS * V
                     + body.shape[0] * body_channels * V

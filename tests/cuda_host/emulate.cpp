@@ -5,7 +5,8 @@
 // build this with g++ and hold it against the plain PyTorch versions, so the
 // hand-written adjoint and the step's fluid and development variants are
 // checked where there is no card; and K1's material instance
-// (test_torch_materials.py) and its volume instance (test_torch_volume.py).
+// (test_torch_materials.py), its volume instance (test_torch_volume.py) and
+// B4's material instance (test_torch_b4_host.py).
 #define EVOSORO_HOST_EMULATION
 #include <vector>
 
@@ -149,31 +150,42 @@ extern "C" void emu_fwd_vol(float* state, const float* body, int body_batched, f
         stat[ST_CAPT] = r.capt ? 1.f : 0.f;
     }
 }
-template <int VARIANT>
+template <int VARIANT, bool MAT = false>
 static void emu_bwd_variant(const float* state, const float* body, int body_batched,
                             const float* stats, const float* ctrl, int n_knots, int knot_steps,
                             int step_base, int B, int X, int Y, int Z, int num_steps,
                             const Params& p, int flags, float* tape, float* tape_t, float* cot,
-                            float* cot_u) {
+                            float* cot_u, float max_disp = 0.f) {
     const int V = X * Y * Z;
     std::vector<float> sh((size_t)BF * V), scr((size_t)B4_MESH_SCR * V);
     const size_t nt = (size_t)tape_channels<VARIANT>();
-    for (int b = 0; b < B; ++b)
-        reverse_segment<VARIANT>(
-            state + (size_t)b * C_S * V, body + (body_batched ? (size_t)b * C_B * V : 0),
+    for (int b = 0; b < B; ++b) {
+        const float* bo = body + (body_batched ? (size_t)b * C_B * V : 0);
+        const MatArgs ma = {bo, nullptr, nullptr, 0, 0, max_disp};
+        reverse_segment<VARIANT, MAT>(
+            state + (size_t)b * C_S * V, bo,
             stats + (size_t)b * C_STAT, ctrl + (size_t)b * n_knots * V, n_knots, knot_steps,
             step_base, X, Y, Z, num_steps, p, flags, tape + (size_t)b * (num_steps + 1) * nt * V,
             tape_t + (size_t)b * num_steps, cot + (size_t)b * C_S * V,
             cot_u + (size_t)b * n_knots * V, sh.data(),
-            VARIANT == V_FLUID_MESH ? scr.data() : nullptr);
+            VARIANT == V_FLUID_MESH ? scr.data() : nullptr, MAT ? &ma : nullptr);
+    }
 }
-// B4 in the variant the flags select; tape (B, num_steps + 1, NT or NT_MESH, V)
+// B4 in the variant the flags select, or its material instance when the
+// nonlinear or the clamp's bit is on (mparams: the clamp's largest
+// displacement a step); tape (B, num_steps + 1, NT or NT_MESH, V)
 extern "C" void emu_bwd(const float* state, const float* body, int body_batched,
                         const float* stats, const float* ctrl, int n_knots, int knot_steps,
                         int step_base, int B, int X, int Y, int Z, int num_steps,
                         const float* params, int flags, float* tape, float* tape_t, float* cot,
-                        float* cot_u) {
+                        float* cot_u, const float* mparams) {
     Params p; memcpy(&p, params, sizeof(float) * N_PARAMS);
+    if (flags & (F_NONLINEAR | F_MAXVEL)) {
+        emu_bwd_variant<V_LAND, true>(state, body, body_batched, stats, ctrl, n_knots,
+                                      knot_steps, step_base, B, X, Y, Z, num_steps, p, flags,
+                                      tape, tape_t, cot, cot_u, mparams[0]);
+        return;
+    }
 #define RUN(VARIANT)                                                                          \
     emu_bwd_variant<VARIANT>(state, body, body_batched, stats, ctrl, n_knots, knot_steps,    \
                              step_base, B, X, Y, Z, num_steps, p, flags, tape, tape_t, cot,  \

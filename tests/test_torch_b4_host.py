@@ -61,7 +61,7 @@ def host_lib(tmp_path_factory):
     assert r.returncode == 0, r.stderr[-4000:]
     lib = ctypes.CDLL(str(out))
     lib.emu_fwd.argtypes = [_P, _P, _I, _P, _P] + [_I] * 8 + [_P, _I, _P]
-    lib.emu_bwd.argtypes = [_P, _P, _I, _P, _P] + [_I] * 8 + [_P, _I, _P, _P, _P, _P]
+    lib.emu_bwd.argtypes = [_P, _P, _I, _P, _P] + [_I] * 8 + [_P, _I, _P, _P, _P, _P, _P]
     return lib
 
 
@@ -89,10 +89,11 @@ def host_backward(lib, state, body, stats, ctrl, seg_base, cot, kw):
     tape = torch.empty((B, S + 1, fr.b4_tape_channels(kw["flags"]), V))
     tape_t = torch.empty((B, S))
     cs, cu = cot.clone(), torch.zeros_like(ctrl)
+    mparams = fr._mat_params(kw["scalars"])
     lib.emu_bwd(state.data_ptr(), body.data_ptr(), batched, stats.data_ptr(),
                 ctrl.data_ptr(), kw["n_knots"], kw["total_steps"], seg_base, B, X, Y, Z,
                 S, params.ctypes.data, bits, tape.data_ptr(), tape_t.data_ptr(),
-                cs.data_ptr(), cu.data_ptr())
+                cs.data_ptr(), cu.data_ptr(), mparams.ctypes.data)
     return cs, cu
 
 
@@ -321,6 +322,120 @@ def test_host_compiled_adjoint_in_water_and_with_growth(host_lib, name):
     with mock.patch.object(*target):
         dropped = fr.fused_bwd_plain(state, body, stats, ctrl, seg_base, cot, **kw)
     assert _worst(got, dropped) > 20 * REL_TOL
+    short = host_backward(host_lib, state, body, stats, ctrl, seg_base, cot,
+                          dict(kw, num_steps=kw["num_steps"] - 1))
+    assert _worst(short, ref) > 100 * REL_TOL
+
+
+def _material_case(pre, B=3, n=4, S=6, K=4, total=48):
+    """(state, body, stats, ctrl, seg_base, cot, kw) of one backward launch of
+    the gradient-MPC benchmark on materials (`bench.sqp_workload(materials=
+    True)`: the bench design on the bilinear palette with the max-velocity
+    clamp, without floor and gravity) at 4^3, `pre` steps into a rollout
+    under random controls."""
+    from evosoro_tpu_torch import bench
+
+    rng = np.random.default_rng(2)
+    body, sim, env, dt = bench.sqp_workload(n=n, device="cpu", materials=True)
+    kw = dict(num_steps=S, grid_shape=(n, n, n),
+              scalars=fr.kernel_scalars(body.nominal_size, sim, env),
+              flags=fr.launch_flags(body, sim, env, collision=False, segmented=True),
+              n_knots=K, total_steps=total)
+    V = n ** 3
+    state = fr.pack_state_single(init_state(body))[None].expand(B, -1, -1).contiguous()
+    bp = fr.pack_body(body)
+    stats = fr.make_stats(body, B, dt, sim, env)
+    ctrl = torch.as_tensor(rng.uniform(-0.1, 0.1, size=(B, K, V)).astype(np.float32))
+    if pre:
+        state, stats = fr.fused_rollout_plain(state, bp, stats, None, control_packed=ctrl,
+                                              seg_base=0, **dict(kw, num_steps=pre))
+    cot = torch.as_tensor(rng.standard_normal((B, fr.C_S, V)).astype(np.float32))
+    return state.contiguous(), bp, stats.contiguous(), ctrl, pre, cot, kw
+
+
+def material_guards():
+    """The two defects the material instance's check must see, as plain
+    versions patched with `mock.patch.object`: the nonlinear stress's
+    slope replaced by the linear stiffness (the value kept), and the
+    max-velocity clamp's factor detached (the projection dropped)."""
+    from evosoro_tpu_torch.core import step as step_mod
+
+    nonlinear, clamp = step_mod._nonlinear_stress, step_mod._max_vel_clamp
+
+    def linear_slope(d, strain, body):
+        stress, sv1, sv2 = nonlinear(d, strain, body)
+        e1, e2 = body.bond_e1[..., d, :, :, :], body.bond_e2[..., d, :, :, :]
+        s_sum = e1 + e2
+        hom = body.bond_homogeneous[..., d, :, :, :] | (
+            torch.abs(e1 - e2) <= 0.0005 * torch.abs(s_sum))
+        stiff = torch.where(hom, 0.5 * s_sum, body.bond_e[..., d, :, :, :])
+        return stress.detach() + stiff * (strain - strain.detach()), sv1, sv2
+
+    def factor_detached(disp, limit):
+        out = clamp(disp, limit)
+        nz = disp != 0
+        return disp * torch.where(nz, out / torch.where(nz, disp, 1.0), 1.0).detach()
+
+    return [("linear_slope", step_mod, "_nonlinear_stress", linear_slope),
+            ("clamp_factor_detached", step_mod, "_max_vel_clamp", factor_detached)]
+
+
+def branch_counts(fn):
+    """(result of fn(), bond-steps past a bilinear side's yield strain,
+    voxel-steps the max-velocity clamp scaled back) of the plain version's
+    steps that `fn` runs."""
+    from unittest import mock
+
+    from evosoro_tpu_torch.core import step as step_mod
+
+    nonlinear, clamp = step_mod._nonlinear_stress, step_mod._max_vel_clamp
+    counts = [0, 0]
+
+    def past(mm, ys, e, sv):
+        return (mm == 2) & (sv > step_mod._safe_div(ys, e))
+
+    def counted_stress(d, strain, body):
+        out = nonlinear(d, strain, body)
+        nbr = step_mod._nbr
+        side = (body.mat_model_vox, body.yield_stress, body.e_mod)
+        yielded = past(*side, out[1]) | past(*(nbr(a, d) for a in side), out[2])
+        counts[0] += int((yielded & body.bond_mask[..., d, :, :, :]).sum())
+        return out
+
+    def counted_clamp(disp, limit):
+        counts[1] += int((step_mod._safe_norm(*disp.unbind(-1)) > limit).sum())
+        return clamp(disp, limit)
+
+    with mock.patch.object(step_mod, "_nonlinear_stress", counted_stress), \
+            mock.patch.object(step_mod, "_max_vel_clamp", counted_clamp):
+        out = fn()
+    return out, counts[0], counts[1]
+
+
+@pytest.mark.parametrize("pre", [0, 20], ids=["from_rest", "20_steps_in"])
+def test_host_compiled_material_adjoint_matches_autograd(host_lib, pre):
+    """B4's material instance (bilinear stress through the 3-iteration
+    stress equalization, the max-velocity clamp) against autograd through
+    the plain version, at the land cases' tolerance, with both branches
+    exercised (muscle bonds past their yield strain, clamped voxels). What
+    the check can see: the plain version with the stress's slope replaced
+    by the linear stiffness, or with the clamp's factor detached, is far
+    outside it, and so is a launch one step short."""
+    from unittest import mock
+
+    state, body, stats, ctrl, seg_base, cot, kw = _material_case(pre)
+    assert kw["flags"]["nonlinear"] and kw["flags"]["max_vel"]
+    got = host_backward(host_lib, state, body, stats, ctrl, seg_base, cot, kw)
+    ref, yielded, clamped = branch_counts(
+        lambda: fr.fused_bwd_plain(state, body, stats, ctrl, seg_base, cot, **kw))
+    assert yielded > 0 and clamped > 0
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert bool((got[0][:, fr._TSAVG:] == 0).all())
+    assert _worst(got, ref) <= REL_TOL
+    for _, module, attr, fn in material_guards():
+        with mock.patch.object(module, attr, fn):
+            wrong = fr.fused_bwd_plain(state, body, stats, ctrl, seg_base, cot, **kw)
+        assert _worst(got, wrong) > 20 * REL_TOL
     short = host_backward(host_lib, state, body, stats, ctrl, seg_base, cot,
                           dict(kw, num_steps=kw["num_steps"] - 1))
     assert _worst(short, ref) > 100 * REL_TOL

@@ -158,14 +158,17 @@ WATER = dict(fluid_environment=True, gravity_enabled=False, floor_enabled=False,
              aggregate_drag_coefficient=1.5e5)
 BPTT_CASES = {
     "floor_gravity": {}, "free": dict(gravity_enabled=False, floor_enabled=False),
-    "fluid_face": WATER, "fluid_mesh": WATER, "growth": dict(growth_amplitude=0.3)}
+    "fluid_face": WATER, "fluid_mesh": WATER, "growth": dict(growth_amplitude=0.3),
+    "materials": {}}
 
 
 def _bptt_design(case, n):
     """(state, body, sim, env, dt) in float64 of an eager BPTT case: the
     `_make` design on land; in water with the voxel-face drag, or with the
-    facet drag in its +X/+Y/+Z shell; or with random development fields
-    whose ramps run within the case's 12 steps."""
+    facet drag in its +X/+Y/+Z shell; with random development fields
+    whose ramps run within the case's 12 steps; or on the bilinear palette
+    with the max-velocity clamp (tests/test_torch_fused_diff_materials.py),
+    on the floor."""
     if case in ("floor_gravity", "free", "fluid_face"):
         _, state, jb, sim, env, dt = _make(n, 7, dtype=jnp.float64, **BPTT_CASES[case])
         return state, jb, sim, env, dt
@@ -175,7 +178,13 @@ def _bptt_design(case, n):
     phase = rng.uniform(-1, 1, size=(n, n, n))
     pal = j_palette(j_default_palette())
     env = JEnv(**BPTT_CASES[case])
-    if case == "fluid_mesh":
+    if case == "materials":
+        from test_torch_fused_diff_materials import MAX_VEL, j_bilinear_palette
+
+        jb = j_build_body(structure, j_palette(j_bilinear_palette()), phase_offset=phase,
+                          dtype=jnp.float64)
+        sim = JSim(init_cm_time=0.0, max_velocity_enabled=True, max_vox_vel_limit=MAX_VEL)
+    elif case == "fluid_mesh":
         shell = ((0, 1),) * 3
         jb = j_attach_mesh_drag(j_build_body(np.pad(structure, shell), pal,
                                              phase_offset=np.pad(phase, shell),
@@ -202,9 +211,11 @@ def test_eager_bptt_float64_matches_jax_grad(case):
     """(c) `torch.autograd.grad` through the eager `rollout` against
     `jax.grad` through the jnp `rollout`, both in float64, with controls:
     the derivative of the plain version itself, on land, in water with
-    either drag model (a 3^3 design, in its 4^3 shell for the facet drag)
-    and with the development ramps. Measured agreement 7e-14 of the
-    gradient's largest entry on land; held at 1e-9."""
+    either drag model (a 3^3 design, in its 4^3 shell for the facet drag),
+    with the development ramps, and on the bilinear palette with the
+    max-velocity clamp (muscle bonds past yield and clamped voxels in the
+    rollout). Measured agreement 7e-14 of the gradient's largest entry on
+    land; held at 1e-9."""
     n, steps, K = 3, 12, 3
     state, jb, sim, env, dt = _bptt_design(case, n)
     assert (jb.mesh_drag is not None) == (case == "fluid_mesh")
@@ -220,9 +231,19 @@ def test_eager_bptt_float64_matches_jax_grad(case):
     body, psim, penv = _port(jb, sim, env, torch.float64)
     pstate = convert.state_from_numpy(_np(state), dtype=torch.float64)
     u = torch.as_tensor(u0).requires_grad_(True)
-    res = rollout(body, psim, penv, num_steps=steps, dt=float(dt), state=pstate,
-                  control_sequence=u)
-    (g_p,) = torch.autograd.grad(res.final_cm[1], u)
+
+    def grad():
+        res = rollout(body, psim, penv, num_steps=steps, dt=float(dt), state=pstate,
+                      control_sequence=u)
+        return torch.autograd.grad(res.final_cm[1], u)[0]
+
+    if case == "materials":
+        from test_torch_b4_host import branch_counts
+
+        g_p, yielded, clamped = branch_counts(grad)
+        assert yielded > 0 and clamped > 0
+    else:
+        g_p = grad()
     scale = np.abs(g_j).max()
     assert scale > 0
     np.testing.assert_allclose(g_p.numpy(), g_j, rtol=0, atol=1e-9 * scale)
@@ -329,32 +350,32 @@ def test_rest_state_gradients_are_finite_and_zero_cotangent_gives_zeros():
 
 def test_fused_bwd_call_refuses_what_is_outside_the_envelope():
     """(f) Every flag outside `diff_envelope_ok` raises NotImplementedError
-    naming it (nonlinear materials and the max-velocity clamp, which the JAX
-    kernel differentiates, name ROADMAP.md A.6b), and so do sources; a
-    launch without knots or without the segmented mode raises ValueError.
-    Water with either drag model and the development flags are inside the
-    envelope and run."""
+    naming it, and so do sources; a launch without knots or without the
+    segmented mode raises ValueError. Water with either drag model, the
+    development flags, and on land nonlinear materials and the max-velocity
+    clamp (B4's material instance) are inside the envelope and run."""
     n, K = 3, 3
     _, _, dr, sp, _ = _both(n, 7, 12, K, 3)
     V = n ** 3
     ctrl = torch.zeros((B, K, V))
     cot = torch.zeros((B, fr.C_S, V))
     args = (sp, dr.body_packed, dr.stats0, ctrl, 0, cot)
-    assert {"nonlinear", "max_vel", "collision", "collision_compact", "volume",
+    assert {"collision", "collision_compact", "volume",
             "equilibrium", "plasticity", "needle", "falling", "ndbv", "window",
             "ballistic", "mdl_data", "bc"} == set(fr._DIFF_REFUSED)
     for flag in fr._DIFF_REFUSED:
         kw = dict(dr._kw, flags=dict(dr._kw["flags"], **{flag: True}))
         assert not fr.diff_envelope_ok(kw["flags"], kw["scalars"])
-        match = f"'{flag}'.*A.6b" if flag in ("nonlinear", "max_vel") else f"'{flag}'"
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(NotImplementedError, match=f"'{flag}'"):
             fr.fused_bwd_call(*args, **kw)
     with pytest.raises(NotImplementedError, match="'sources'"):
         fr.fused_bwd_call(*args, **dict(dr._kw, scalars=dict(dr._kw["scalars"],
                                                              sources=(1,))))
-    # inside now: water with the voxel-face or the facet drag, development
+    # inside now: water with the voxel-face or the facet drag, development,
+    # nonlinear materials and the clamp on land
     inside = [dict(fluid=True, gravity=False, floor=False),
-              dict(fluid=True, fluid_mesh=True, gravity=False, floor=False)]
+              dict(fluid=True, fluid_mesh=True, gravity=False, floor=False),
+              dict(nonlinear=True), dict(max_vel=True), dict(nonlinear=True, max_vel=True)]
     inside += [{k: True} for k in fr._K1_DEVO_FLAGS]
     for extra in inside:
         flags = dict(dr._kw["flags"], **extra)

@@ -269,6 +269,67 @@ def test_reverse_mode_segment_in_water_and_with_growth_matches_plain_on_the_card
         assert (grads[0] - grads[1]).abs().max() <= 5e-3 * grads[1].abs().max() > 0, model
 
 
+@pytest.mark.cuda
+def test_reverse_mode_segment_on_materials_matches_plain_on_the_card():
+    """B4's material instance (bilinear stress, the max-velocity clamp)
+    against `fused_bwd_plain` on `sqp_workload(n=4, materials=True)`, a
+    segment in under random controls: every channel group within 2e-3 of
+    the group's largest plain value, its counter counted; the device-memory
+    twin, forced, bit-equal; and `DiffRollout`'s gradient through three
+    segments equal to autograd through 24 steps of the plain version on the
+    card (2e-3 of its largest entry: on the card K1 computes the plain
+    version's bits, so both differentiate the same trajectory, its yield and
+    clamp decisions included)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; the CUDA kernels have no CPU mode")
+    from unittest import mock
+
+    from evosoro_tpu_torch.bench import sqp_workload
+    from evosoro_tpu_torch.core.rollout import init_state
+    from evosoro_tpu_torch.ops.fused_diff import DiffRollout
+
+    groups = dict(pos=(0, 3), quat=(3, 7), linmom=(7, 10), angmom=(10, 13),
+                  scale=(13, 14), memory=(17, 44), max_strain=(44, 47))
+    B, K, S, total = 4, 4, 10, 40
+    body, sim, env, dt = sqp_workload(n=4, device="cuda", materials=True)
+    kw = dict(num_steps=S, grid_shape=tuple(body.occ.shape),
+              scalars=fr.kernel_scalars(body.nominal_size, sim, env),
+              flags=fr.launch_flags(body, sim, env, collision=False, segmented=True),
+              n_knots=K, total_steps=total)
+    bp = fr.pack_body(body)
+    state = fr.pack_state_single(init_state(body))[None].expand(B, -1, -1).contiguous()
+    stats = fr.make_stats(body, B, dt, sim, env)
+    ctrl = _controls(B, K, state.shape[2], 10)
+    mid, mid_stats = fr.fused_call(state, bp, stats, None, control_packed=ctrl, seg_base=0,
+                                   **dict(kw, num_steps=20))
+    g = torch.Generator().manual_seed(4)
+    cot = torch.randn(mid.shape, generator=g).cuda()
+    cot[:, fr._TSAVG:] = 0.0
+    before = fr.FUSED_BWD_MATERIAL_LAUNCHES
+    cs_k, cu_k = fr.fused_bwd_call(mid, bp, mid_stats, ctrl, 20, cot, **kw)
+    assert fr.FUSED_BWD_MATERIAL_LAUNCHES == before + 1
+    cs_p, cu_p = fr.fused_bwd_plain(mid, bp, mid_stats, ctrl, 20, cot, **kw)
+    for a, b in groups.values():
+        top = cs_p[:, a:b].abs().max()
+        assert (cs_k[:, a:b] - cs_p[:, a:b]).abs().max() <= 2e-3 * top, a
+    assert (cu_k - cu_p).abs().max() <= 2e-3 * cu_p.abs().max() > 0
+    with mock.patch.object(fr, "k1_instance", lambda *a, **k: "device"):
+        twin = fr.fused_bwd_call(mid, bp, mid_stats, ctrl, 20, cot, **kw)
+    assert torch.equal(twin[0], cs_k) and torch.equal(twin[1], cu_k)
+
+    dr = DiffRollout(body, sim, env, num_steps=24, num_knots=4, dt=dt, batch=2, n_segs=3)
+    sp = fr.pack_state_single(init_state(body))[None].expand(2, -1, -1).contiguous()
+    u = _controls(2, 4, body.occ.numel(), 9).requires_grad_(True)
+    cms, _, _ = dr(sp, dr.stats0, u)
+    (g_k,) = torch.autograd.grad(cms[-1].sum(), u)
+    u_p = u.detach().clone().requires_grad_(True)
+    out, out_stats = fr.fused_rollout_plain(sp, dr.body_packed, dr.stats0, None,
+                                            control_packed=u_p, seg_base=0,
+                                            **dict(dr._kw, num_steps=24))
+    (g_p,) = torch.autograd.grad(dr.cm_y(out, out_stats).sum(), u_p)
+    assert (g_k - g_p).abs().max() <= 2e-3 * g_p.abs().max() > 0
+
+
 def _groups_within(out_k, out_p, tol):
     """Every named channel group of the packed state within its (rtol, atol)."""
     for name, (a, b) in dict(pos=(fr._POS, fr._POS + 3), quat=(fr._QUAT, fr._QUAT + 4),

@@ -386,9 +386,10 @@ def test_supports_the_new_options_and_refuses_what_stays_outside():
     with pytest.raises(NotImplementedError, match="stop condition"):
         fr.fused_rollout(batched, body, SimParams(), EnvParams(), 1, 1e-5,
                          stop_condition_type=pt.SC_MIN_KE)
-    # B4 keeps refusing every option of the material instance
+    # B4 refuses every option of the material instance but the two its own
+    # material instance differentiates on land
     for k in fr._K1_MAT_FLAGS:
-        assert not fr.diff_envelope_ok({k: True}, {})
+        assert fr.diff_envelope_ok({k: True}, {}) == (k in ("nonlinear", "max_vel"))
 
 
 def test_the_compact_switch_and_the_shared_memory_it_frees(monkeypatch):

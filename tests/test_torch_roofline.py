@@ -772,3 +772,96 @@ def test_volume_work_follows_the_launch():
     # with the nonlinear stress, Young's modulus is read once
     _, nb = roofline.b6d_work(state, body, clock, out, dict(flags, nonlinear=True))
     assert nb == 4.0 * (2 * V + 2 * 6 * B * V)
+
+
+def test_material_adjoint_operation_counts_are_jaxpr_walks():
+    """Where B4's material instance's counts come from: the walk of
+    `test_adjoint_operation_count_is_the_jaxpr_walk_of_the_steps_vjp` (the
+    jaxpr of `jax.vjp` of the JAX package's `sim_step` with the control
+    offset, less the forward step) on the 10^3 bench body, on the bilinear
+    palette (`bench.bilinear_palette`) and with the max-velocity clamp,
+    beyond the land adjoint: 213 and 22 per occupied voxel and step, with
+    the forward counts of `test_material_and_compact_operation_counts_are_
+    jaxpr_walks` beside them."""
+    import jax
+    import jax.numpy as jnp
+
+    import evosoro_tpu.core.types as jt
+    from evosoro_tpu.core.materials import build_body, calc_max_dt, palette_from_list
+    from evosoro_tpu.core.rollout import init_state
+    from evosoro_tpu.core.step import sim_step
+    from test_torch_fused_diff_materials import j_bilinear_palette
+    from tools.roofline import _count_jaxpr
+
+    n = 10
+    rng = np.random.default_rng(0)
+    structure = rng.integers(1, 5, size=(n, n, n)).astype(np.int32)
+    phase = rng.uniform(-1, 1, size=(n, n, n))
+
+    def total(jaxpr):
+        counts = {"ew": 0, "trans": 0, "red": 0, "dot": 0}
+        _count_jaxpr(jaxpr.jaxpr, counts)
+        return sum(counts.values())
+
+    def walks(mats, sim):
+        """(forward, adjoint) counts of the step with the control offset."""
+        body = build_body(structure, palette_from_list(mats), phase_offset=phase)
+        dt = float(calc_max_dt(body)) * 0.9
+        state = init_state(body)
+        u = jnp.zeros((n, n, n), state.pos.dtype)
+
+        def step(s, c):
+            return sim_step(s, body, sim, jt.EnvParams(), dt, control_offset=c)
+
+        out = jax.eval_shape(step, state, u)
+        cot = jax.tree_util.tree_map(
+            lambda x: jnp.zeros(x.shape, x.dtype) if jnp.issubdtype(x.dtype, jnp.floating)
+            else np.zeros(x.shape, jax.dtypes.float0), out)
+        forward = total(jax.make_jaxpr(step)(state, u))
+        both = total(jax.make_jaxpr(lambda s, c, ct: jax.vjp(step, s, c)[1](ct))(state, u,
+                                                                                 cot))
+        return forward, both - forward
+
+    V = n ** 3
+    linear = list(jt.evosoro_default_palette())
+    f0, a0 = walks(linear, jt.SimParams())
+    np.testing.assert_allclose(a0 / V, roofline.ADJOINT_FLOPS_PER_VOXEL, rtol=1e-9)
+    f1, a1 = walks(j_bilinear_palette(), jt.SimParams())
+    np.testing.assert_allclose((f1 - f0) / V, roofline.NONLINEAR_FLOPS_PER_VOXEL, rtol=1e-9)
+    assert a1 - a0 == roofline.NONLINEAR_ADJOINT_FLOPS_PER_VOXEL * V
+    f2, a2 = walks(linear, jt.SimParams(max_velocity_enabled=True))
+    assert f2 - f0 == roofline.MAX_VEL_FLOPS_PER_VOXEL * V + roofline.MAX_VEL_FLOPS_PER_STEP
+    assert a2 - a0 == roofline.MAX_VEL_ADJOINT_FLOPS_PER_VOXEL * V
+
+
+def test_b4_work_on_the_material_instance():
+    """B4's count on a bilinear palette and with the clamp: the forward and
+    adjoint counts of each option on top of the land ones for every
+    occupied voxel and step, the clamp's share a robot every step; the
+    nonlinear stress reads the four material channels of the body. In water
+    or with development the options are outside the envelope, and the
+    count is the variant's."""
+    B, V, K = 2, 8, 2
+    state = torch.zeros(B, fr.C_S, V)
+    body = torch.zeros(1, fr.C_B, V)
+    body[0, fr._B_OCC, :6] = 1.0
+    stats = torch.zeros(B, fr.C_STAT)
+    ctrl = torch.zeros(B, K, V)
+    steps = [10, 4]
+    land = roofline.b4_work(state, body, stats, ctrl, steps)
+    nl = roofline.b4_work(state, body, stats, ctrl, steps, flags=dict(nonlinear=True))
+    np.testing.assert_allclose(nl[0] - land[0], 14 * 6 * (
+        roofline.NONLINEAR_FLOPS_PER_VOXEL + roofline.NONLINEAR_ADJOINT_FLOPS_PER_VOXEL))
+    assert nl[1] - land[1] == 4.0 * roofline.MATERIAL_BODY_CHANNELS * V
+    mv = roofline.b4_work(state, body, stats, ctrl, steps, flags=dict(max_vel=True))
+    np.testing.assert_allclose(mv[0] - land[0], 14 * (
+        6 * (roofline.MAX_VEL_FLOPS_PER_VOXEL + roofline.MAX_VEL_ADJOINT_FLOPS_PER_VOXEL)
+        + roofline.MAX_VEL_FLOPS_PER_STEP))
+    assert mv[1] == land[1]
+    both = roofline.b4_work(state, body, stats, ctrl, steps,
+                            flags=dict(nonlinear=True, max_vel=True))
+    np.testing.assert_allclose(both[0] - land[0], (nl[0] - land[0]) + (mv[0] - land[0]))
+    assert roofline.b4_work(state, body, stats, ctrl, steps,
+                            flags=dict(nonlinear=True, fluid=True), grid_shape=(2, 2, 4)) \
+        == roofline.b4_work(state, body, stats, ctrl, steps, flags=dict(fluid=True),
+                            grid_shape=(2, 2, 4))
