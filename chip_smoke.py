@@ -60,6 +60,12 @@ the main paths at 12^3 (two generations of the basic experiment with
 contact, a cantilever's replay, a cold CEM solve, the fused SQP solve); its
 kernels line holds the two device-memory rows.
 
+`python3 chip_smoke.py --pair` runs the dense pair pass (B2) alone: K2
+against its plain version (`phase_k2`), then `phase_pair` (also part of the
+full run): two launches bit-equal to each other, the cull's guard, the
+tiles evaluated of all tiles at 6^3, 10^3 and 12^3, the contact workloads'
+times, and two generations of the basic experiment at 6^3 and at 12^3.
+
 `python3 chip_smoke.py --volume` runs volume effects alone
 (`phase_k1_volume`): K1's volume instance against its plain version with
 its three guards, the volume replay of an archived design and of the
@@ -256,6 +262,165 @@ def phase_k2(torch, np):
                     state[:, fr._SCALE].contiguous(), table)
 
 
+def _pair_guard_inputs(torch, np, fr):
+    """A 10^3 grid with material in x = 0-3 and x = 7-9 only, the second
+    part pushed to 1.3 cells from the first: its only touching pairs lie
+    across the gap, in tiles whose boxes are 1.3 cells apart. (pos, scale,
+    table) of one robot on the card."""
+    from evosoro_tpu_torch.core import build_body, evosoro_default_palette, palette_from_list
+    from evosoro_tpu_torch.core.collision import build_collision_system
+
+    rng = np.random.default_rng(3)
+    n = 10
+    structure = np.zeros((n, n, n), dtype=np.int32)
+    structure[:4] = rng.integers(1, 5, size=(4, n, n))
+    structure[7:] = rng.integers(1, 5, size=(3, n, n))
+    body = build_body(structure, palette_from_list(evosoro_default_palette()))
+    table = fr.pack_collision(build_collision_system(structure, body.e_mod.numpy(), 0.01),
+                              structure.shape)
+    pos = body.nom_pos.reshape(-1, 3).T.numpy().copy()
+    pos[0, np.arange(n ** 3) // n ** 2 >= 7] -= 0.027
+    pos = pos + rng.normal(0, 2e-4, pos.shape)
+    cuda = dict(dtype=torch.float32, device="cuda")
+    return (torch.as_tensor(pos[None], **cuda).contiguous(),
+            torch.full((1, n ** 3), 0.01, **cuda), torch.as_tensor(table[None], **cuda))
+
+
+def _tile_census(torch, fr, label, pos, scale, table):
+    """K2's tile counts on these inputs against the plain census."""
+    counts = torch.zeros(3, dtype=torch.int32, device="cuda")
+    fr.pair_contact_forces(pos, scale, table, counts=counts)
+    got = tuple(int(c) for c in counts.cpu())
+    want = fr.pair_tile_census_plain(pos.cpu(), scale.cpu(), table.cpu())
+    B, _, V = pos.shape
+    rec = dict(phase="pair_tiles", workload=label, batch=B, voxels=V,
+               groups=fr.pair_groups(V), tiles_total=sum(got), tiles_evaluated=got[0],
+               tiles_culled_by_distance=got[1], tiles_culled_statically=got[2],
+               evaluated_share=got[0] / sum(got), plain_census=list(want),
+               nonzero_entries=int((table != 0).sum()) * (B if table.shape[0] == 1 else 1),
+               equal=got == want)
+    emit(rec)
+    assert rec["equal"] and sum(got) == B * fr.pair_groups(V) ** 2, rec
+    return rec
+
+
+def phase_pair(torch, np, alone=False):
+    """The dense pair pass (B2, csrc/pair_contact.cuh) beyond its K2 and K1
+    comparisons: two launches bit-equal to each other (K1 on the evaluator
+    batch in shared memory and on the 12^3 batch in its device-memory twin,
+    K2), the cull's guard (a margin of -0.5 drops the touching pairs of
+    `_pair_guard_inputs`), the tiles evaluated of all tiles at 6^3, 10^3 and
+    12^3 after 100 steps (K2's counts against the plain census), and the
+    times of the contact workloads: one 6^3 robot a step with and without
+    contact, the evaluator batch 16 x 6^3 x 25, 1024 x 10^3 x 20, 32 x 12^3
+    and 32 x 13^3 x 100 steps, each beside its bound; `alone` (`--pair`)
+    adds two generations of the basic experiment at 6^3 and at 12^3 (0.5 s
+    of sim), which the full run times in `phase_evolution` and `phase_big`."""
+    import math
+    from unittest import mock
+
+    from evosoro_tpu_torch import bench, roofline
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    res = {}
+    # two launches, the same bits
+    args, kw = bench.evaluator_workload(collision=True, device="cuda")
+    big, big_kw, _ = bench.big_body_workload(8, n=12, device="cuda")
+    pos = _contact_positions(torch, np, args[0][:, fr._POS:fr._POS + 3], 0.4)
+    scale = args[0][:, fr._SCALE].contiguous()
+    runs = {"K1 evaluator batch 16 x 6^3, 25 steps": lambda: fr.fused_call(
+                *args, num_steps=25, **kw),
+            "K1 device-memory twin 8 x 12^3, 25 steps": lambda: fr.fused_call(
+                *big, num_steps=25, **big_kw),
+            "K2 evaluator batch 16 x 6^3 shrunk into contact": lambda: (
+                fr.pair_contact_forces(pos, scale, args[3]),)}
+    equal = {}
+    for label, run in runs.items():
+        a, b = run(), run()
+        equal[label] = all(torch.equal(x, y) for x, y in zip(a, b))
+    res["bit_equal"] = dict(phase="pair_bit_equal", runs=equal)
+    emit(res["bit_equal"])
+    assert all(equal.values()), equal
+
+    # the guard: a negative margin drops the pairs across the gap
+    gpos, gscale, gtab = _pair_guard_inputs(torch, np, fr)
+    ref = fr.pair_contact_forces_plain(gpos, gscale, gtab)
+    fmax = float(ref.abs().max())
+    err = float((fr.pair_contact_forces(gpos, gscale, gtab) - ref).abs().max())
+    with mock.patch.object(fr, "PAIR_CULL_MARGIN", -0.5):
+        bad = float((fr.pair_contact_forces(gpos, gscale, gtab) - ref).abs().max())
+    res["guard"] = dict(phase="pair_guard", max_abs_force=fmax, rel_err=err / fmax,
+                        rel_err_margin_minus_half=bad / fmax, tol=K2_REL_TOL,
+                        guard_ratio=bad / fmax / K2_REL_TOL)
+    emit(res["guard"])
+    assert fmax > 0 and err / fmax <= K2_REL_TOL, res["guard"]
+    assert bad / fmax >= GUARD_RATIO * K2_REL_TOL, res["guard"]
+
+    # tiles evaluated, from states 100 steps in
+    tiles = []
+    bench_args, bench_kw, _ = bench.packed_workload(8, collision=True, device="cuda")
+    for label, (a, k) in (("evaluator batch 16 x 6^3", (args, kw)),
+                          ("bench 8 x 10^3, shared table", (bench_args, bench_kw)),
+                          ("big-body batch 8 x 12^3", (big, big_kw))):
+        st, _ = fr.fused_call(*a, num_steps=100, **k)
+        tiles.append(_tile_census(torch, fr, label + ", 100 steps in",
+                                  st[:, fr._POS:fr._POS + 3].contiguous(),
+                                  st[:, fr._SCALE].contiguous(), a[3]))
+    res["tiles"] = tiles
+
+    # times, each beside its bound
+    def timed(label, a, k, steps, groups=3, reps=2, per_step=False):
+        ms = bench.time_call(lambda: fr.fused_call(*a, num_steps=steps, **k), groups, reps)
+        _, st_out = fr.fused_call(*a, num_steps=steps, **k)
+        rec = dict(phase="pair_time", workload=label, steps=steps, ms=ms,
+                   contact=a[3] is not None,
+                   **roofline.bound(*roofline.launch_work(
+                       *a, st_out, flags=k["flags"], grid_shape=k["grid_shape"])))
+        if per_step:
+            rec["us_a_step"] = 1e3 * ms / steps
+        emit(rec)
+        return rec
+
+    times = []
+    one = tuple(t[:1].contiguous() if t is not None else None for t in args)
+    args_nc, kw_nc = bench.evaluator_workload(collision=False, device="cuda")
+    one_nc = tuple(t[:1].contiguous() if t is not None else None for t in args_nc)
+    times.append(timed("one robot of the evaluator batch, 6^3, contact on", one, kw, 2000,
+                       per_step=True))
+    times.append(timed("one robot of the evaluator batch, 6^3, contact off", one_nc, kw_nc,
+                       2000, per_step=True))
+    times.append(timed("evaluator batch 16 x 6^3, contact on", args, kw, 25))
+    coll = bench.throughput(batch=1024, steps=20, collision=True, groups=3, reps=2)
+    emit(dict(phase="pair_time", workload="bench 1024 x 10^3, contact on", **coll))
+    times.append(coll)
+    for n in (12, 13):
+        a, k, _ = bench.big_body_workload(32, n=n, device="cuda")
+        times.append(timed("big-body batch 32 x %d^3, contact on" % n, a, k, 100, 2, 1))
+    res["times"] = times
+    res["contact_launches"] = res["k2_launches"] = None
+    if alone:
+        from evosoro_tpu_torch.bench import evolution
+
+        fr.FUSED_ROLLOUT_CONTACT_LAUNCHES = 0
+        fr.PAIR_CONTACT_LAUNCHES = 0
+        for label, settings in (("basic 6^3", {}),
+                                ("basic 12^3, 0.5 s of sim",
+                                 dict(size=(12, 12, 12), sim_time=BIG_SIM_TIME,
+                                      init_time=BIG_INIT_TIME))):
+            before = fr.FUSED_ROLLOUT_CONTACT_LAUNCHES
+            for r in evolution(gens=2, pop_size=15, device="cuda", experiment="basic",
+                               **settings):
+                fits = r.pop("fitnesses")
+                r.update(phase="pair_evolution", experiment=label,
+                         all_finite=all(math.isfinite(f) for f in fits))
+                emit(r)
+                assert r["all_finite"] and r["k1_launches"] > 0, r
+            assert fr.FUSED_ROLLOUT_CONTACT_LAUNCHES > before
+        res["contact_launches"] = fr.FUSED_ROLLOUT_CONTACT_LAUNCHES
+        res["k2_launches"] = fr.PAIR_CONTACT_LAUNCHES
+    return res
+
+
 def _compare(torch, fr, out_k, st_k, out_p, st_p, tol=TOL, need_small=True):
     def ch(x, a, b):
         return x[:, a:b, :]
@@ -284,6 +449,47 @@ def _compare(torch, fr, out_k, st_k, out_p, st_p, tol=TOL, need_small=True):
     return ok and (same_small or not need_small), errs
 
 
+def _kernel_row_sums(terms):
+    """sum_j terms[..., j] over the last axis, (n, 3, V, V) -> (n, 3, V), in
+    the order the dense pair pass sums a row (csrc/pair_contact.cuh): from
+    zero, one term at a time, ascending j. The pairs that do not touch give
+    zero terms, which leave a sum as it is, so each row's nonzero terms are
+    moved to the front in order and added in turn."""
+    import torch
+
+    n, C, V, _ = terms.shape
+    acc = torch.zeros((n * V, C), dtype=terms.dtype, device=terms.device)
+    live = (terms != 0).any(1).reshape(n * V, V)
+    rows = live.any(-1).nonzero().squeeze(1)
+    if rows.numel():
+        hot = live[rows]
+        rank = hot.to(torch.int32).cumsum(-1, dtype=torch.int32) - 1
+        K = int(rank[:, -1].max()) + 1
+        slot = torch.where(hot, rank, K).to(torch.int64)
+        for c in range(C):
+            packed = torch.zeros((rows.numel(), K + 1), dtype=terms.dtype, device=terms.device)
+            packed.scatter_(1, slot, terms[:, c].reshape(n * V, V)[rows])
+            col = torch.zeros_like(packed[:, 0])
+            for k in range(K):
+                col = col + packed[:, k]
+            acc[rows, c] = col
+    return acc.reshape(n, V, C).transpose(1, 2)
+
+
+def _plain(fr, *args, **kw):
+    """`fused_rollout_plain` as K1 is held to it: the same function, with
+    each row of the dense pair pass summed in the kernels' order
+    (`_kernel_row_sums`; the plain version's own `.sum(-1)` takes another
+    order, and with contact terms of ~4e4 N cancelling the momentum then
+    differs in the last bits)."""
+    from functools import partial
+    from unittest import mock
+
+    ordered = partial(fr.pair_contact_forces_plain, row_sum=_kernel_row_sums)
+    with mock.patch.object(fr, "pair_contact_forces_plain", ordered):
+        return fr.fused_rollout_plain(*args, **kw)
+
+
 def _k1_cases(torch, fr, label, args, kw, batch, coll, steps_list, time_at=None,
               phase="k1_vs_plain", tol=TOL, need_small=True, drift_only=True,
               **extra):
@@ -297,11 +503,7 @@ def _k1_cases(torch, fr, label, args, kw, batch, coll, steps_list, time_at=None,
         out_k, st_k = fr.fused_call(*args, num_steps=steps, **kw)
         torch.cuda.synchronize()
         assert fr.FUSED_ROLLOUT_LAUNCHES == before + 1
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        out_p, st_p = fr.fused_rollout_plain(*args, num_steps=steps, **kw)
-        b.record()
-        torch.cuda.synchronize()
+        out_p, st_p = _plain(fr, *args, num_steps=steps, **kw)
         ok, errs = _compare(torch, fr, out_k, st_k, out_p, st_p, tol, need_small)
         rec = dict(phase=phase, workload=label, batch=batch, steps=steps,
                    collision=coll, **extra, **errs)
@@ -315,7 +517,9 @@ def _k1_cases(torch, fr, label, args, kw, batch, coll, steps_list, time_at=None,
         if steps == time_at:
             rec["ms"] = _event_ms(
                 torch, lambda: fr.fused_call(*args, num_steps=steps, **kw), 5)
-            rec["plain_ms"] = a.elapsed_time(b)  # the comparison's own call
+            rec["plain_ms"] = _event_ms(  # the plain version as the port runs it
+                torch, lambda: fr.fused_rollout_plain(*args, num_steps=steps, **kw), 1,
+                warm=False)
             rec.update(roofline.bound(*roofline.launch_work(
                 *args, st_k, kw.get("control_packed"), flags=kw["flags"],
                 grid_shape=kw["grid_shape"])))
@@ -388,7 +592,7 @@ def _fluid_guards(torch, fr, label, model, args, kw, steps=100):
                ratio_needed=GUARD_RATIO, other_model_run=shelled)
     for name, cargs in (("experiment_drag", args), ("strong_drag", _with_drag(args, STRONG_DRAG))):
         out_k, st_k = fr.fused_call(*cargs, num_steps=steps, **kw)
-        out_p, st_p = fr.fused_rollout_plain(*cargs, num_steps=steps, **kw)
+        out_p, st_p = _plain(fr, *cargs, num_steps=steps, **kw)
         out_0, st_0 = fr.fused_call(*_with_drag(cargs, 0.0), num_steps=steps, **kw)
         torch.cuda.synchronize()
         # small_angle is held at the experiment's drag for both models
@@ -495,7 +699,7 @@ def phase_k1_devo(torch):
     def guard(label, args, kw):
         land = dict(kw, flags=dict(kw["flags"], **{k: False for k in fr._K1_DEVO_FLAGS}))
         out_l, st_l = fr.fused_call(*args, num_steps=100, **land)
-        out_p, st_p = fr.fused_rollout_plain(*args, num_steps=100, **kw)
+        out_p, st_p = _plain(fr, *args, num_steps=100, **kw)
         passes, errs = _compare(torch, fr, out_l, st_l, out_p, st_p)
         rec = dict(phase="k1_devo_guard", workload=label, steps=100,
                    flags_cleared_passes=passes, scale_diff=errs["scale"],
@@ -607,7 +811,7 @@ def phase_k1_features(torch):
         B = args[0].shape[0]
         for steps in (1, 240):
             out_k, st_k = fr.fused_call(*args, num_steps=steps, **kw)
-            out_p, st_p = fr.fused_rollout_plain(*args, num_steps=steps, **kw)
+            out_p, st_p = _plain(fr, *args, num_steps=steps, **kw)
             torch.cuda.synchronize()
             ok, errs = _compare(torch, fr, out_k, st_k, out_p, st_p)
             groups = _feat_compare(torch, st_k, st_p)
@@ -652,7 +856,7 @@ def phase_k1_features(torch):
     steps = 240
     b0 = fr.FUSED_ROLLOUT_BALLISTIC_LAUNCHES
     out_k, st_k = fr.fused_call(*args, num_steps=steps, **kw)
-    out_p, st_p = fr.fused_rollout_plain(*args, num_steps=steps, **kw)
+    out_p, st_p = _plain(fr, *args, num_steps=steps, **kw)
     off = dict(kw, flags=dict(kw["flags"], ballistic=False))
     out_0, _ = fr.fused_call(*args, num_steps=steps, **off)
     torch.cuda.synchronize()
@@ -687,7 +891,7 @@ def phase_k1_features(torch):
     kw_w = with_features(kw_w, sa_w, n_win=4, n_src=2, freeze=False)
     args_w = (st_w, bo_w, sa_w, tb_w)
     out_k, st_k = fr.fused_call(*args_w, num_steps=100, **kw_w)
-    out_p, st_p = fr.fused_rollout_plain(*args_w, num_steps=100, **kw_w)
+    out_p, st_p = _plain(fr, *args_w, num_steps=100, **kw_w)
     torch.cuda.synchronize()
     ok, errs = _compare(torch, fr, out_k, st_k, out_p, st_p, MESH_TOL)
     groups = _feat_compare(torch, st_k, st_p)
@@ -701,21 +905,21 @@ def phase_k1_features(torch):
     emit(rec)
     assert rec["ok"] and rec["traces_max"] >= 3, rec
 
-    # the shared-memory ceiling with contact: a 1350-cell body launches the
+    # the shared-memory ceiling with contact: a 1339-cell body launches the
     # feature instance (its static shared memory is the largest) in shared
-    # memory, 1351 its device-memory twin; both against the plain version
+    # memory, 1340 its device-memory twin; both against the plain version
     rec = dict(phase="k1_ceiling", device_launches={}, errs={})
-    for V in (1350, 1351):
+    for V in (1339, 1340):
         a, k = _line_workload(torch, fr, V)
         g0 = fr.FUSED_ROLLOUT_GMEM_LAUNCHES
         out_k, st_k = fr.fused_call(*a, num_steps=25, **k)
         torch.cuda.synchronize()
         rec["device_launches"][V] = fr.FUSED_ROLLOUT_GMEM_LAUNCHES - g0
         ok, rec["errs"][V] = _compare(torch, fr, out_k, st_k,
-                                      *fr.fused_rollout_plain(*a, num_steps=25, **k))
+                                      *_plain(fr, *a, num_steps=25, **k))
         assert ok, rec
     emit(rec)
-    assert rec["device_launches"] == {1350: 0, 1351: 1}, rec
+    assert rec["device_launches"] == {1339: 0, 1340: 1}, rec
 
     # each branch's launch, timed at 25 steps: the trace, needle and
     # fall-over bookkeeping without sources (B8c), the sources alone (B8d),
@@ -801,7 +1005,7 @@ def _mat_case(torch, fr, label, args, kw, steps, tol, guards, extra_check=None,
     out_k, st_k = fr.fused_call(*args, num_steps=steps, **kw)
     torch.cuda.synchronize()
     assert fr.FUSED_ROLLOUT_MATERIAL_LAUNCHES == before + 1
-    out_p, st_p = fr.fused_rollout_plain(*args, num_steps=steps, **kw)
+    out_p, st_p = _plain(fr, *args, num_steps=steps, **kw)
     torch.cuda.synchronize()
     ok, errs = _compare(torch, fr, out_k, st_k, out_p, st_p, tol)
     rec = dict(phase="k1_materials_vs_plain", workload=label, batch=args[0].shape[0],
@@ -1090,7 +1294,7 @@ def _vol_case(torch, fr, label, args, kw, steps, guards=(), extra_check=None,
     out_k, st_k = fr.fused_call(*args, num_steps=steps, **kw)
     torch.cuda.synchronize()
     assert fr.FUSED_ROLLOUT_VOLUME_LAUNCHES == before + 1
-    out_p, st_p = fr.fused_rollout_plain(*args, num_steps=steps, **kw)
+    out_p, st_p = _plain(fr, *args, num_steps=steps, **kw)
     torch.cuda.synchronize()
     ok, errs = _vol_check(torch, fr, out_k, st_k, out_p, st_p)
     rec = dict(phase="k1_volume_vs_plain", workload=label, batch=args[0].shape[0],
@@ -1098,7 +1302,7 @@ def _vol_case(torch, fr, label, args, kw, steps, guards=(), extra_check=None,
                **info, **errs)
     for name, checks, (fn_name, fn) in guards:
         with mock.patch.object(step_mod, fn_name, fn):
-            out_g, st_g = fr.fused_rollout_plain(*args, num_steps=steps, **kw)
+            out_g, st_g = _plain(fr, *args, num_steps=steps, **kw)
         _, g_errs = _vol_check(torch, fr, out_k, st_k, out_g, st_g)
         caught = not all(g_errs[c] for c in checks)
         rec[f"guard_{name}"] = {c: g_errs[c] for c in checks}
@@ -1429,8 +1633,8 @@ def phase_k1_segmented(torch, np):
         assert fr.FUSED_ROLLOUT_KNOT_LAUNCHES == before + 3
         st_p, ss_p = state, stats
         for base in (0, 8, 16):
-            st_p, ss_p = fr.fused_rollout_plain(st_p, body, ss_p, table, num_steps=8,
-                                                seg_base=base, **seg_kw)
+            st_p, ss_p = _plain(fr, st_p, body, ss_p, table, num_steps=8, seg_base=base,
+                                **seg_kw)
         ok, errs = _compare(torch, fr, st, ss, st_p, ss_p)
         rec = dict(phase="k1_segmented", workload=label, collision=coll,
                    chain_equals_whole=bool(torch.equal(st, whole)
@@ -1881,7 +2085,7 @@ def phase_b4_variants(torch, np):
         seg = (st75, body_packed, ss75, None)
         out_z, st_z = fr.fused_call(*seg, num_steps=S, **dict(
             k1_kw, seg_base=75, control_packed=torch.zeros_like(ctrl)))
-        out_p, st_p = fr.fused_rollout_plain(*seg, num_steps=S, **dict(k1_kw, seg_base=75))
+        out_p, st_p = _plain(fr, *seg, num_steps=S, **dict(k1_kw, seg_base=75))
         passes, errs = _compare(torch, fr, out_z, st_z, out_p, st_p, opts["tol"])
         rec = dict(phase="k1_sqp_launch_guard", workload=label + ", 75 steps in, knots zeroed",
                    passes=passes, scale_err=errs["scale"], ok=not passes)
@@ -2391,6 +2595,25 @@ def phase_land(torch, np, card):
                         materials_1024x10_3x200_ms=mat_ms)))
 
 
+def _k2_row(k2, pair, bound_keys, launches, k1_contact_launches):
+    """The kernels line's row of the dense pair pass: K2's own launch, the
+    K1 launches that ran the routine, and its tile counts."""
+    return dict(name="pair_contact_forces (K2)", route="cuda",
+                source="evosoro_tpu_torch/ops/csrc/pair_contact.cu",
+                replaces="evosoro_tpu/ops/fused_rollout.py:672",
+                launches=launches, runs_inside="fused_rollout (K1)",
+                **bound_keys(k2),
+                k1_launches_with_contact=k1_contact_launches,
+                max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
+                err_of="force (N), own launch, %s %s, table %s"
+                % (k2["workload"], k2["shape"], k2["table_shape"]),
+                ms_of="own launch, same input",
+                tiles_evaluated_of_total={r["workload"]: [r["tiles_evaluated"],
+                                                          r["tiles_total"]]
+                                          for r in pair["tiles"]},
+                guard_ratio=pair["guard"]["guard_ratio"])
+
+
 def _b4_rows(b4, b4_var, sqp_launches, var_launches, bound_keys):
     """The kernels line's rows of B4: the land instance and the fluid and
     development instances, each with its launches in the SQP phases."""
@@ -2654,7 +2877,7 @@ def phase_big(torch, np):
 
     # (c) the guard: every robot handed robot 0's buffer
     args, kw = big12
-    out_p, st_p = fr.fused_rollout_plain(*args, num_steps=25, **kw)
+    out_p, st_p = _plain(fr, *args, num_steps=25, **kw)
     with mock.patch.object(fr, "_bond_buffer", lambda B, floats, device: torch.empty(
             (1, floats), device=device).expand(B, -1)):
         out_g, st_g = fr.fused_call(*args, num_steps=25, **kw)
@@ -2870,6 +3093,20 @@ def main():
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return None
+    if sys.argv[1:] == ["--pair"]:
+        k2 = phase_k2(torch, np)
+        pair = phase_pair(torch, np, alone=True)
+
+        def bound_keys(rec):
+            return dict(bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None)
+
+        emit(dict(kernels=[_k2_row(k2, pair, bound_keys, pair["k2_launches"],
+                                   pair["contact_launches"])]))
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return None
     if sys.argv[1:] == ["--big"]:
         big = phase_big(torch, np)
 
@@ -2897,6 +3134,7 @@ def main():
                                      "count": torch.cuda.device_count()}})
         return None
     k2 = phase_k2(torch, np)
+    pair = phase_pair(torch, np)
     k1 = phase_k1(torch)
     knots = phase_k1_knots(torch, np, (1, 25))
     phase_k1_segmented(torch, np)
@@ -2977,18 +3215,9 @@ def main():
              ms=k1_timed["ms"], plain_ms=k1_timed["plain_ms"],
              ms_of="evaluator batch %d x 6^3, 25 steps, contact on"
              % k1_timed["batch"]),
-        dict(name="pair_contact_forces (K2)", route="cuda",
-             source="evosoro_tpu_torch/ops/csrc/pair_contact.cu",
-             replaces="evosoro_tpu/ops/fused_rollout.py:672",
-             launches=launches["pair_contact"] + mpc_launches["pair_contact"],
-             runs_inside="fused_rollout (K1)",
-             **bound_keys(k2),
-             k1_launches_with_contact=launches["fused_rollout_with_contact"]
-             + swim["fused_rollout_with_contact"] + grow["fused_rollout_with_contact"],
-             max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
-             err_of="force (N), own launch, %s %s, table %s"
-             % (k2["workload"], k2["shape"], k2["table_shape"]),
-             ms_of="own launch, same input"),
+        _k2_row(k2, pair, bound_keys, launches["pair_contact"] + mpc_launches["pair_contact"],
+                launches["fused_rollout_with_contact"] + swim["fused_rollout_with_contact"]
+                + grow["fused_rollout_with_contact"]),
         dict(name="K1 control knots + segments (B3)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fused_rollout.cu",
              replaces="evosoro_tpu/ops/fused_rollout.py:1710",

@@ -763,6 +763,37 @@ def throughput(batch=1024, steps=200, collision=False, plain=False,
                 bound_ms=least["bound_ms"], bound_by=least["bound_by"])
 
 
+def eager_step_ms(steps=10, repeats=3, device="cpu", row_sum=None):
+    """Milliseconds a step of the plain (eager) rollout takes on the
+    evaluator batch (16 x 6^3, `evaluator_workload`) with contact on and
+    off: the path the port's entry points run on the CPU. Wall clock, the
+    best of `repeats` calls of `steps` steps each. `row_sum`, when given,
+    replaces the dense pair pass's row sum (`fr.pair_contact_forces_plain`)
+    for the contact run.
+
+        python -c "from evosoro_tpu_torch import bench; print(bench.eager_step_ms())"
+    """
+    from unittest import mock
+
+    out = dict(device=device, steps=steps, workload="evaluator batch 16 x 6^3")
+    for coll in (True, False):
+        args, kw = evaluator_workload(collision=coll, device=device)
+        plain = fr.pair_contact_forces_plain
+        pair = plain if row_sum is None else partial(plain, row_sum=row_sum)
+        with mock.patch.object(fr, "pair_contact_forces_plain", pair):
+            best = float("inf")
+            for _ in range(repeats):
+                if device != "cpu":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fr.fused_rollout_plain(*args, num_steps=steps, **kw)
+                if device != "cpu":
+                    torch.cuda.synchronize()
+                best = min(best, time.perf_counter() - t0)
+        out["contact_ms" if coll else "no_contact_ms"] = 1e3 * best / steps
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Sampling MPC (tools/bench_mpc.py)
 # ---------------------------------------------------------------------------

@@ -1,20 +1,31 @@
-"""Hold this checkout's K1 and B4 libraries against another checkout's, on
-the card.
+"""Hold this checkout's kernel libraries against another checkout's, on the
+card.
 
     python -m evosoro_tpu_torch.buildcmp OTHER_CHECKOUT
 
-Builds `fused_rollout` and `fused_rollout_bwd` in both trees
-(`ops/build.py`), compares the machine code of every kernel function the
-two trees' libraries hold (`cuobjdump -sass`, addresses stripped) and
-checks that the functions only this tree holds are the ones `NEW_KERNELS`
-lists (B4's material instance and its device-memory twin), then
-times the material instance on 1024 x 10^3 x 200
-steps through each library in one process, in turns on the same tensors
-(other, this, this, other, three times; `bench.time_call` each), and checks
-that both give the same bits. A process's own layout moves a launch's time
-by up to ~1 % from one process to the next, so two libraries are timed in
-one. The other tree's launcher may lack trailing arguments that this one
-adds before the stream; they are dropped for it. Prints one JSON object.
+Builds `fused_rollout`, `fused_rollout_bwd` and `pair_contact` in both
+trees (`ops/build.py`) and compares the machine code of every kernel
+function the two trees' libraries hold (`cuobjdump -sass`, addresses
+stripped). A function whose parameters changed keeps its name and is
+compared under it; a kernel that gained a last template bit (K1's DENSE)
+is compared, with the bit off, with the other tree's instance of its other
+arguments. The report sorts the functions that differ into those that
+differ by design (`BY_DESIGN`: K1's kernels without the dense pair pass,
+which no longer hold the old row walk, K2's pass kernel, and B4's, whose
+recompute no longer holds it either) and the others, and checks that the
+functions only this tree holds are the ones `NEW_KERNELS` lists (K2's mask
+launch and K1's DENSE instances, which inline the pass of
+`ops/csrc/pair_contact.cuh`). A function that differs is held to the
+same bits by `chip_smoke.py --land`'s digests (K1 and B4 on land, the
+material instance) and `--diff`'s (B4's variants), run in both trees.
+Then it times the material instance
+on 1024 x 10^3 x 200 steps (no contact) through each `fused_rollout` in one
+process, in turns on the same tensors (other, this, this, other, three
+times; `bench.time_call` each), and checks that both give the same bits. A
+process's own layout moves a launch's time by up to ~1 % from one process
+to the next, so two libraries are timed in one. The other tree's launcher
+may lack trailing arguments that this one adds before the stream; they are
+dropped for it. Prints one JSON object.
 """
 
 from __future__ import annotations
@@ -28,9 +39,17 @@ import subprocess
 import sys
 from pathlib import Path
 
-LIBS = ("fused_rollout", "fused_rollout_bwd")
-# the kernel functions this tree adds to its parent's libraries
-NEW_KERNELS = ("fused_rollout_bwd_mat_kernel", "fused_rollout_bwd_mat_gmem_kernel")
+LIBS = ("fused_rollout", "fused_rollout_bwd", "pair_contact")
+K1_KERNELS = ("fused_rollout_kernel", "fused_rollout_mat_kernel", "fused_rollout_vol_kernel",
+              "fused_rollout_gmem_kernel", "fused_rollout_mat_gmem_kernel")
+# the kernel functions this tree adds to its parent's libraries: K2's mask
+# launch, and K1's DENSE instances (the names of K1's kernels)
+NEW_KERNELS = ("pair_mask_kernel",) + K1_KERNELS
+# the kernel functions whose machine code this tree changes on purpose: K1's
+# and B4's, which lost the old row walk, and K2's pass
+BY_DESIGN = K1_KERNELS + ("pair_contact_kernel", "fused_rollout_bwd_kernel",
+                          "fused_rollout_bwd_var_kernel", "fused_rollout_bwd_gmem_kernel",
+                          "fused_rollout_bwd_mat_kernel", "fused_rollout_bwd_mat_gmem_kernel")
 _BUILD = ("from evosoro_tpu_torch.ops import build; build.build_all(%r); "
           "[print(build._lib_path(n)) for n in %r]" % (LIBS, LIBS))
 
@@ -70,11 +89,29 @@ def main(other: str) -> dict:
                            text=True, check=True)
         paths[name] = r.stdout.strip().splitlines()[-len(LIBS):]
     libs = {k: v[0] for k, v in paths.items()}
-    # kernel function -> (instructions, digest), over both libraries of a tree
+    # kernel function -> (instructions, digest), over the libraries of a tree
     sass = {k: {f: d for lib in v for f, d in _sass(lib).items()} for k, v in paths.items()}
+    # a kernel that gained a last template bit, with the bit off, under the
+    # other tree's mangled name: I...Lb0EEv -> I...Ev
+    here = set(sass["this"]) - set(sass["other"])
+    there = set(sass["other"]) - set(sass["this"])
+    for f in sorted(here):
+        g = f.replace("Lb0EEv", "Ev", 1)
+        if g != f and g in there:
+            sass["this"][g] = sass["this"].pop(f)
+            there.discard(g)
+    # a function whose parameters changed, under its name in both trees
+    here = set(sass["this"]) - set(sass["other"])
+    for f in sorted(here):
+        same = [g for g in there if _name(g) == _name(f)]
+        if len(same) == 1 and sum(_name(g) == _name(f) for g in here) == 1:
+            sass["this"][_name(f)] = sass["this"].pop(f)
+            sass["other"][_name(f)] = sass["other"].pop(same[0])
     shared = sorted(set(sass["this"]) & set(sass["other"]))
-    rec = dict(libraries=paths, kernels_compared=len(shared),
-               kernels_differing=[k for k in shared if sass["this"][k] != sass["other"][k]],
+    differing = [k for k in shared if sass["this"][k] != sass["other"][k]]
+    rec = dict(libraries=paths, kernels_compared=len(shared), kernels_differing=differing,
+               differing_by_design=[k for k in differing if _name(k) in BY_DESIGN],
+               differing_otherwise=[k for k in differing if _name(k) not in BY_DESIGN],
                kernels_only_here=sorted(set(sass["this"]) - set(sass["other"])),
                kernels_only_there=sorted(set(sass["other"]) - set(sass["this"])))
     rec["new_kernels_as_listed"] = {_name(f) for f in rec["kernels_only_here"]} \

@@ -37,7 +37,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of each library's launcher: (name, argtypes)
 SIGNATURES = {
-    "pair_contact": ("pair_contact_forces", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "pair_contact": ("pair_contact_forces", [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P,
+                                             _P, _P]),
     "fused_rollout": ("fused_rollout", [
         _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P,
         _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P]),

@@ -38,8 +38,10 @@
 // neighbour lies in the same block. Per step: phase A computes each bond
 // (v, d) once and keeps its f1, m1 (for v) and f2, m2 (for v + stride_d) in
 // shared memory (36 floats a voxel); with collision on, positions and
-// scales are staged in shared memory and the pair pass writes its forces
-// there too (7 more floats a voxel). After a barrier, phase B sums the
+// scales are staged in shared memory (a float4 a voxel, padded to whole
+// 32-voxel groups) beside the pair pass's tile mask and boxes
+// (pair_contact.cuh), and the pass writes its forces there too (3 floats
+// a voxel; k1_buffer_floats). After a barrier, phase B sums the
 // forces of each voxel and integrates it in place. The CoM for the IniCM
 // capture and the divergence test are block reductions. Frozen robots leave
 // the loop.
@@ -51,12 +53,17 @@
 // on each SM, and a step takes ~40 us whether the batch's state fits in L2
 // (132 robots) or streams from HBM (1024 robots), so the chain of dependent
 // loads and barriers within a block sets the time, not the bytes. With
-// collision on, the pair pass (pair_contact.cuh) walks each table row with
-// one dependent load a lane per iteration and dominates the step. Shared
-// memory caps V at 1613 cells (1612 in the feature instance, whose window
-// ring takes 96 bytes), 1350 with collision; past that the device-memory
-// instances (fused_rollout_gmem.cu) run the body. Keeping the state
-// resident on chip across steps and more warps per SM are the levers.
+// collision on, the pair pass (pair_contact.cuh) reads the robot's table
+// once a launch for a static tile mask, culls 32 x 32 tiles by their
+// groups' boxes every step and walks the hot ones a row a lane, the next
+// tile's loads in flight. Every kernel has an instance with the pass
+// (DENSE, launched for contact on a dense table: k1_dense) and one
+// without, so launches without contact keep their registers (the pass
+// takes K1 to 205-255). Shared memory caps V at 1613 cells (1612 in the
+// feature instance, whose window ring takes 96 bytes), 1339 with
+// collision; past that the device-memory instances (fused_rollout_gmem.cu)
+// run the body. Keeping the state resident on chip across steps and more
+// warps per SM are the levers.
 //
 // Numerics: built with -fmad=false and without fast math, so every multiply
 // and add rounds as in PyTorch's eager ops and sinf/acosf/sqrtf/division
@@ -105,7 +112,7 @@
 // the host hands it a buffer.
 #include "fused_rollout_common.cuh"
 
-template <int VARIANT, bool FEAT>
+template <int VARIANT, bool FEAT, bool DENSE>
 __global__ void __launch_bounds__(MAX_THREADS)
 fused_rollout_kernel(float* state_all, const float* __restrict__ body_all,
                      int body_batched, float* stats_all,
@@ -127,12 +134,16 @@ fused_rollout_kernel(float* state_all, const float* __restrict__ body_all,
     Robot r = load_robot(stat);
     if constexpr (FEAT) {
         Feat fe = load_feat(stat);
-        rollout_steps<VARIANT, true>(st, 0, bo, a1, cu, n_knots, knot_steps, step_base, X, Y,
-                                     Z, num_steps, p, flags, r, nullptr, sh, scr, &fe, &fp);
+        rollout_steps<VARIANT, true, false, false, DENSE>(st, 0, bo, a1, cu, n_knots,
+                                                         knot_steps, step_base, X, Y, Z,
+                                                         num_steps, p, flags, r, nullptr, sh,
+                                                         scr, &fe, &fp);
         if (threadIdx.x == 0) store_feat(stat, fe, fp, flags);
     } else {
-        rollout_steps<VARIANT>(st, 0, bo, a1, cu, n_knots, knot_steps, step_base, X, Y, Z,
-                               num_steps, p, flags, r, nullptr, sh, scr);
+        rollout_steps<VARIANT, false, false, false, DENSE>(st, 0, bo, a1, cu, n_knots,
+                                                          knot_steps, step_base, X, Y, Z,
+                                                          num_steps, p, flags, r, nullptr, sh,
+                                                          scr);
     }
 
     if (threadIdx.x == 0) {
@@ -154,14 +165,15 @@ static int launch_variant(float* state, const float* body, int body_batched,
                           const FeatParams& fp, cudaStream_t stream) {
     const int V = X * Y * Z;
     const int threads = V >= MAX_THREADS ? MAX_THREADS : ((V + 31) / 32) * 32;
-    const size_t smem = (size_t)(BF + ((flags & F_COLL) ? 7 : 0)) * V * sizeof(float);
+    const size_t smem = k1_buffer_floats(V, (flags & F_COLL) != 0, 0) * sizeof(float);
+    const auto kernel = k1_dense(flags, a1) ? fused_rollout_kernel<VARIANT, FEAT, true>
+                                            : fused_rollout_kernel<VARIANT, FEAT, false>;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
-            fused_rollout_kernel<VARIANT, FEAT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    fused_rollout_kernel<VARIANT, FEAT><<<B, threads, smem, stream>>>(
+    kernel<<<B, threads, smem, stream>>>(
         state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots,
         knot_steps, step_base, X, Y, Z, num_steps, p, flags, scratch, fp);
     return (int)cudaGetLastError();
@@ -170,9 +182,13 @@ static int launch_variant(float* state, const float* body, int body_batched,
 // The material instance: the land variant with MAT, with and without the
 // features. Beside the land kernel's inputs it takes the robot's MDL_DATA
 // tables and BC channels (MatArgs), and its pair table may be the compact
-// (S + 1, S) one.
-template <bool FEAT>
-__global__ void __launch_bounds__(MAX_THREADS)
+// (S + 1, S) one. It and the volume kernel are built for one block an SM:
+// ptxas then keeps the step in registers (179 without the features and
+// contact, no spill) where its own target of 128 spilled 192 bytes:
+// 164.6-164.7 against 172.7-174.4 ms on 1024 x 10^3 x 200 without contact
+// (buildcmp, NVIDIA H100 80GB HBM3, 700 W).
+template <bool FEAT, bool DENSE>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
 fused_rollout_mat_kernel(float* state_all, const float* __restrict__ body_all,
                          int body_batched, float* stats_all,
                          const float* __restrict__ a1_all, int a1_batched,
@@ -198,14 +214,16 @@ fused_rollout_mat_kernel(float* state_all, const float* __restrict__ body_all,
     Robot r = load_robot(stat);
     if constexpr (FEAT) {
         Feat fe = load_feat(stat);
-        rollout_steps<V_LAND, true, true>(st, 0, bo, a1, cu, n_knots, knot_steps, step_base,
-                                          X, Y, Z, num_steps, p, flags, r, nullptr, sh,
-                                          nullptr, &fe, &fp, &ma, ke);
+        rollout_steps<V_LAND, true, true, false, DENSE>(st, 0, bo, a1, cu, n_knots,
+                                                        knot_steps, step_base, X, Y, Z,
+                                                        num_steps, p, flags, r, nullptr, sh,
+                                                        nullptr, &fe, &fp, &ma, ke);
         if (threadIdx.x == 0) store_feat(stat, fe, fp, flags);
     } else {
-        rollout_steps<V_LAND, false, true>(st, 0, bo, a1, cu, n_knots, knot_steps, step_base,
-                                           X, Y, Z, num_steps, p, flags, r, nullptr, sh,
-                                           nullptr, nullptr, nullptr, &ma, ke);
+        rollout_steps<V_LAND, false, true, false, DENSE>(st, 0, bo, a1, cu, n_knots,
+                                                         knot_steps, step_base, X, Y, Z,
+                                                         num_steps, p, flags, r, nullptr, sh,
+                                                         nullptr, nullptr, nullptr, &ma, ke);
     }
 
     if (threadIdx.x == 0) {
@@ -230,17 +248,15 @@ static int launch_mat(float* state, const float* body, int body_batched, float* 
     const int V = X * Y * Z;
     const int threads = V >= MAX_THREADS ? MAX_THREADS : ((V + 31) / 32) * 32;
     // the compact contact pass stages the S surface voxels in place of V
-    const size_t coll_floats = !(flags & F_COLL) ? 0
-                               : ma.n_surf > 0   ? (size_t)3 * V + 4 * ma.n_surf
-                                                 : (size_t)7 * V;
-    const size_t smem = ((size_t)BF * V + coll_floats) * sizeof(float);
+    const size_t smem = k1_buffer_floats(V, (flags & F_COLL) != 0, ma.n_surf) * sizeof(float);
+    const auto kernel = k1_dense(flags, a1) ? fused_rollout_mat_kernel<FEAT, true>
+                                            : fused_rollout_mat_kernel<FEAT, false>;
     if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(fused_rollout_mat_kernel<FEAT>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    fused_rollout_mat_kernel<FEAT><<<B, threads, smem, stream>>>(
+    kernel<<<B, threads, smem, stream>>>(
         state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots, knot_steps,
         step_base, X, Y, Z, num_steps, p, flags, fp, ma, ss_batched, bc_batched);
     return (int)cudaGetLastError();
@@ -249,8 +265,8 @@ static int launch_mat(float* state, const float* body, int body_batched, float* 
 // The material instance's kernel with VOL. Beside its inputs it takes the
 // volume constants and the (B, 9, V) scratch (VolArgs), and it writes the
 // last step's dt to the stats row.
-template <bool FEAT>
-__global__ void __launch_bounds__(MAX_THREADS)
+template <bool FEAT, bool DENSE>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
 fused_rollout_vol_kernel(float* state_all, const float* __restrict__ body_all,
                          int body_batched, float* stats_all,
                          const float* __restrict__ a1_all, int a1_batched,
@@ -277,15 +293,17 @@ fused_rollout_vol_kernel(float* state_all, const float* __restrict__ body_all,
     Robot r = load_robot(stat);
     if constexpr (FEAT) {
         Feat fe = load_feat(stat);
-        rollout_steps<V_LAND, true, true, true>(st, 0, bo, a1, cu, n_knots, knot_steps,
-                                                step_base, X, Y, Z, num_steps, p, flags, r,
-                                                nullptr, sh, nullptr, &fe, &fp, &ma, ke, &va);
+        rollout_steps<V_LAND, true, true, true, DENSE>(st, 0, bo, a1, cu, n_knots,
+                                                       knot_steps, step_base, X, Y, Z,
+                                                       num_steps, p, flags, r, nullptr, sh,
+                                                       nullptr, &fe, &fp, &ma, ke, &va);
         if (threadIdx.x == 0) store_feat(stat, fe, fp, flags);
     } else {
-        rollout_steps<V_LAND, false, true, true>(st, 0, bo, a1, cu, n_knots, knot_steps,
-                                                 step_base, X, Y, Z, num_steps, p, flags, r,
-                                                 nullptr, sh, nullptr, nullptr, nullptr, &ma,
-                                                 ke, &va);
+        rollout_steps<V_LAND, false, true, true, DENSE>(st, 0, bo, a1, cu, n_knots,
+                                                        knot_steps, step_base, X, Y, Z,
+                                                        num_steps, p, flags, r, nullptr, sh,
+                                                        nullptr, nullptr, nullptr, &ma, ke,
+                                                        &va);
     }
 
     if (threadIdx.x == 0) {
@@ -310,17 +328,15 @@ static int launch_vol(float* state, const float* body, int body_batched, float* 
                       cudaStream_t stream) {
     const int V = X * Y * Z;
     const int threads = V >= MAX_THREADS ? MAX_THREADS : ((V + 31) / 32) * 32;
-    const size_t coll_floats = !(flags & F_COLL) ? 0
-                               : ma.n_surf > 0   ? (size_t)3 * V + 4 * ma.n_surf
-                                                 : (size_t)7 * V;
-    const size_t smem = ((size_t)BF * V + coll_floats) * sizeof(float);
+    const size_t smem = k1_buffer_floats(V, (flags & F_COLL) != 0, ma.n_surf) * sizeof(float);
+    const auto kernel = k1_dense(flags, a1) ? fused_rollout_vol_kernel<FEAT, true>
+                                            : fused_rollout_vol_kernel<FEAT, false>;
     if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(fused_rollout_vol_kernel<FEAT>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    fused_rollout_vol_kernel<FEAT><<<B, threads, smem, stream>>>(
+    kernel<<<B, threads, smem, stream>>>(
         state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots, knot_steps,
         step_base, X, Y, Z, num_steps, p, flags, fp, ma, ss_batched, bc_batched, va);
     return (int)cudaGetLastError();

@@ -240,14 +240,34 @@ __host__ __device__ inline int variant_of(int flags) {
 #define MAX_THREADS 256
 #define BF 36  // shared floats per voxel for the bond forces
 
+// Floats of K1's per-robot buffer (dynamic shared memory, or a row of the
+// device-memory twins' buffer): the bond forces; with contact the contact
+// forces (3 a voxel) and the staged voxels: the S surface voxels' x, y, z,
+// s for the compact pass (n_surf > 0), else the dense pass's float4s and
+// tables (pair_contact.cuh), the whole rounded up to 16 bytes so a twin's
+// rows keep the float4s aligned. ops/fused_rollout.py k1_buffer_floats.
+static inline size_t k1_buffer_floats(int V, bool coll, int n_surf) {
+    if (!coll) return (size_t)BF * V;
+    if (n_surf > 0) return (size_t)(BF + 3) * V + 4 * (size_t)n_surf;
+    const size_t n = (size_t)(BF + 3) * V + pair_stage_floats(V) + pair_aux_floats(V);
+    return (n + 3) & ~(size_t)3;
+}
+
+// Whether a K1 launch runs the dense pair pass, and so its DENSE instance
+// (rollout_steps): contact on a V x V table, not the compact one
+static inline bool k1_dense(int flags, const float* a1) {
+    return (flags & F_COLL) && !(flags & F_COMPACT) && a1 != nullptr;
+}
+
 // float32 constants, each rounded on the host from the double the Python
 // expression gives (ops/fused_rollout.py _k1_params)
 struct Params {
     float L, cs_area, neg_slow, ten_slow, bondz, hbondz, col_damp;
     float sa_w, sish_w, sa_bend, hyst_bend, sa_ext, hyst_ext, sl_thresh;
     float sa_rad, anti, near_eq, sc_value, half_freeze, two_pi_f, freeze;
+    float pair_slack;  // 1 + the dense pair pass's cull margin (pair_contact.cuh)
 };
-#define N_PARAMS 21
+#define N_PARAMS 22
 
 struct Q { float w, x, y, z; };
 struct F3 { float x, y, z; };
@@ -1323,7 +1343,7 @@ __device__ inline void ballistic_rebase(float t, const float dv[6], float orig, 
 // is frozen (diverged, or past its stop time) leaves the loop, and the
 // steps it skips change nothing.
 //
-// sh: BF * V floats of shared memory (+ 7 * V with collision). scr: the
+// sh: k1_buffer_floats of shared memory (or device memory). scr: the
 // robot's 6 * V floats of scratch in device memory (V_FLUID_MESH only; B4
 // hands each step the six spare channels of its own tape slot).
 // FEAT: the fitness features run, on the carry fe with the constants fp
@@ -1332,8 +1352,11 @@ __device__ inline void ballistic_rebase(float t, const float dv[6], float orig, 
 // same in every thread); with F_COMPACT, a1 is the compact table (S + 1, S)
 // and sp holds the S surface voxels' positions and scales. VOL (with MAT,
 // K1 only): volume effects, with the inputs va; r.dt is the dt carried in
-// and out.
-template <int VARIANT, bool FEAT = false, bool MAT = false, bool VOL = false>
+// and out. DENSE (K1 only): contact through the dense pair pass on the V x V
+// table a1 (pair_contact.cuh); the host launches these instances for
+// contact without the compact table, so the others hold no pair pass.
+template <int VARIANT, bool FEAT = false, bool MAT = false, bool VOL = false,
+          bool DENSE = false>
 __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* bo,
                                     const float* a1, const float* cu_robot, int n_knots,
                                     int knot_steps, int step_base, int X, int Y, int Z,
@@ -1347,12 +1370,15 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
 
     const int V = X * Y * Z;
     const int T = blockDim.x;
-    const bool coll = (flags & F_COLL) != 0;
-    const bool compact = MAT && (flags & F_COMPACT);
+    const bool compact = MAT && !DENSE && (flags & F_COMPACT);
+    // contact forces, from the dense pass or the compact one (which the
+    // host launches only with F_COLL)
+    const bool coll = DENSE || compact;
     const int S = compact ? ma->n_surf : V;  // staged contact entries
     float* bf = sh;                       // [36][V] bond forces
-    float* sp = sh + BF * V;              // [4][S] staged pos/scale
-    float* fc = sp + 4 * S;               // [3][V] contact forces
+    float* sp = sh + BF * V;              // [4][S] staged pos/scale, or the dense float4s
+    float* aux = sp + (compact ? 4 * S : pair_stage_floats(V));  // the dense pass's tables
+    float* fc = aux + (DENSE ? pair_aux_floats(V) : 0);          // [3][V] contact forces
     const int strides[3] = {Y * Z, Z, 1};
 
     float t = r.t;
@@ -1371,7 +1397,16 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
     if constexpr (FEAT) {
         for (int k = threadIdx.x; k < 2 * MAX_WIN; k += blockDim.x) feat_ring()[k] = 0.f;
     }
+    if constexpr (DENSE) {
+        unsigned* tables = pair_mask(aux, pair_groups(V));  // the tile mask, active bits
+        for (int k = threadIdx.x; k < pair_table_words(V); k += T) tables[k] = 0u;
+    }
     __syncthreads();
+    // the dense pass's static tile mask, once a launch
+    if constexpr (DENSE) {
+        pair_tile_mask(a1, V, pair_mask(aux, pair_groups(V)), 0, V);
+        __syncthreads();
+    }
 
 #define SCH(k) (si + (size_t)(k) * V)
 #define SOUT(k) (so + (size_t)(k) * V)
@@ -1458,15 +1493,11 @@ __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* 
             }
             __syncthreads();
             pair_contact_compact_block(sp, a1 + S, a1, S, fc, V);
-        } else if (coll) {
-            for (int v = threadIdx.x; v < V; v += T) {
-                sp[v] = SCH(S_POS + 0)[v];
-                sp[V + v] = SCH(S_POS + 1)[v];
-                sp[2 * V + v] = SCH(S_POS + 2)[v];
-                sp[3 * V + v] = SCH(S_SCALE)[v];
-            }
+        } else if constexpr (DENSE) {
+            pair_stage(SCH(S_POS + 0), SCH(S_POS + 1), SCH(S_POS + 2), SCH(S_SCALE), V, sp, aux);
             __syncthreads();
-            pair_contact_block(sp, a1, V, fc, V, 0, V);
+            pair_contact_block(sp, a1, V, aux, fc, V, 0, pair_groups(V), nullptr, p.pair_slack,
+                               nullptr, PAIR_NWARPS);
         }
         int diverging = 0;
         float f2max = 0.f;  // (volume effects) this thread's largest k_eff / m

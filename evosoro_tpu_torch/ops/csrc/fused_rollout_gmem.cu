@@ -5,13 +5,14 @@
 // and this card's shared memory does not: the JAX kernel runs any body
 // without contact and up to 2304 lanes (a 13^3 body) with it
 // (`collision_batch_block`). Every kernel of fused_rollout.cu has a twin
-// here: fused_rollout_gmem_kernel<VARIANT, FEAT> (the land, face-drag,
+// here: fused_rollout_gmem_kernel<VARIANT, FEAT, DENSE> (the land, face-drag,
 // facet-drag and development variants, with and without the features) and
-// fused_rollout_mat_gmem_kernel<FEAT, VOL> (the material and volume
+// fused_rollout_mat_gmem_kernel<FEAT, VOL, DENSE> (the material and volume
 // instances). Each hands rollout_steps (fused_rollout_common.cuh) the
-// robot's slice of a (B, F, V) buffer in device memory in place of dynamic
-// shared memory, F = BF, + 7 with contact, + 3 and 4 S / V with the compact
-// pass: the same carve. The step is the same code on a generic pointer, so
+// robot's slice of a buffer in device memory (a row of k1_buffer_floats a
+// robot, a multiple of 4 floats so the pair pass's float4s stay aligned) in
+// place of dynamic shared memory: the same carve. The step is the same
+// code on a generic pointer, so
 // it computes the same bits; a barrier orders the block's global stores and
 // loads as it orders shared ones. The static shared memory (the
 // reductions' scratch, the window ring) stays on chip. The host picks the
@@ -24,9 +25,9 @@
 // every kernel of fused_rollout.cu compiles to what it was.
 //
 // Bound on this card: as the shared instance, the latency of a block's
-// step, now with the bond traffic through L2 (43 floats a voxel with
-// contact: 297 KB a 12^3 robot, 39 MB for the 132 robots of a wave, inside
-// the card's 50 MB; 378 KB and ~50 MB at 13^3). Forced on 1024 x 10^3 x
+// step, now with the bond traffic through L2 (43.3 floats a voxel with
+// contact: 300 KB a 12^3 robot, 40 MB for the 132 robots of a wave, inside
+// the card's 50 MB; 381 KB and ~50 MB at 13^3). Forced on 1024 x 10^3 x
 // 200 steps it takes 1.47 x the shared instance's time (89.1 against 60.6
 // ms, NVIDIA H100 80GB HBM3, 700 W): the price of the buffer's place. A
 // cluster of blocks sharing the robot through distributed shared memory
@@ -35,7 +36,7 @@
 
 // The device-memory instance of fused_rollout_kernel: robot b's bond
 // buffer is gbuf + b * gstride (gstride floats, at least F * V).
-template <int VARIANT, bool FEAT>
+template <int VARIANT, bool FEAT, bool DENSE>
 __global__ void __launch_bounds__(MAX_THREADS)
 fused_rollout_gmem_kernel(float* state_all, const float* __restrict__ body_all,
                           int body_batched, float* stats_all,
@@ -57,12 +58,16 @@ fused_rollout_gmem_kernel(float* state_all, const float* __restrict__ body_all,
     Robot r = load_robot(stat);
     if constexpr (FEAT) {
         Feat fe = load_feat(stat);
-        rollout_steps<VARIANT, true>(st, 0, bo, a1, cu, n_knots, knot_steps, step_base, X, Y,
-                                     Z, num_steps, p, flags, r, nullptr, buf, scr, &fe, &fp);
+        rollout_steps<VARIANT, true, false, false, DENSE>(st, 0, bo, a1, cu, n_knots,
+                                                         knot_steps, step_base, X, Y, Z,
+                                                         num_steps, p, flags, r, nullptr, buf,
+                                                         scr, &fe, &fp);
         if (threadIdx.x == 0) store_feat(stat, fe, fp, flags);
     } else {
-        rollout_steps<VARIANT>(st, 0, bo, a1, cu, n_knots, knot_steps, step_base, X, Y, Z,
-                               num_steps, p, flags, r, nullptr, buf, scr);
+        rollout_steps<VARIANT, false, false, false, DENSE>(st, 0, bo, a1, cu, n_knots,
+                                                          knot_steps, step_base, X, Y, Z,
+                                                          num_steps, p, flags, r, nullptr, buf,
+                                                          scr);
     }
 
     if (threadIdx.x == 0) {
@@ -77,7 +82,7 @@ fused_rollout_gmem_kernel(float* state_all, const float* __restrict__ body_all,
 
 // The device-memory instance of the material (VOL false) and volume (VOL
 // true) kernels.
-template <bool FEAT, bool VOL>
+template <bool FEAT, bool VOL, bool DENSE>
 __global__ void __launch_bounds__(MAX_THREADS)
 fused_rollout_mat_gmem_kernel(float* state_all, const float* __restrict__ body_all,
                               int body_batched, float* stats_all,
@@ -106,15 +111,17 @@ fused_rollout_mat_gmem_kernel(float* state_all, const float* __restrict__ body_a
     Robot r = load_robot(stat);
     if constexpr (FEAT) {
         Feat fe = load_feat(stat);
-        rollout_steps<V_LAND, true, true, VOL>(st, 0, bo, a1, cu, n_knots, knot_steps,
-                                               step_base, X, Y, Z, num_steps, p, flags, r,
-                                               nullptr, buf, nullptr, &fe, &fp, &ma, ke, &va);
+        rollout_steps<V_LAND, true, true, VOL, DENSE>(st, 0, bo, a1, cu, n_knots,
+                                                      knot_steps, step_base, X, Y, Z,
+                                                      num_steps, p, flags, r, nullptr, buf,
+                                                      nullptr, &fe, &fp, &ma, ke, &va);
         if (threadIdx.x == 0) store_feat(stat, fe, fp, flags);
     } else {
-        rollout_steps<V_LAND, false, true, VOL>(st, 0, bo, a1, cu, n_knots, knot_steps,
-                                                step_base, X, Y, Z, num_steps, p, flags, r,
-                                                nullptr, buf, nullptr, nullptr, nullptr, &ma,
-                                                ke, &va);
+        rollout_steps<V_LAND, false, true, VOL, DENSE>(st, 0, bo, a1, cu, n_knots,
+                                                       knot_steps, step_base, X, Y, Z,
+                                                       num_steps, p, flags, r, nullptr, buf,
+                                                       nullptr, nullptr, nullptr, &ma, ke,
+                                                       &va);
     }
 
     if (threadIdx.x == 0) {
@@ -140,15 +147,24 @@ int launch_gmem(float* state, const float* body, int body_batched, float* stats,
                 cudaStream_t st) {
     const int V = X * Y * Z;
     const int threads = V >= MAX_THREADS ? MAX_THREADS : ((V + 31) / 32) * 32;
+    const bool dense = k1_dense(flags, a1);
 #define MAT_GMEM(FEAT, VOL)                                                                   \
-    fused_rollout_mat_gmem_kernel<FEAT, VOL><<<B, threads, 0, st>>>(                         \
-        state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots, knot_steps,          \
-        step_base, X, Y, Z, num_steps, p, flags, fp, *ma, ss_batched, bc_batched, vargs, gbuf, \
-        gstride)
+    do {                                                                                      \
+        const auto k = dense ? fused_rollout_mat_gmem_kernel<FEAT, VOL, true>                \
+                             : fused_rollout_mat_gmem_kernel<FEAT, VOL, false>;              \
+        k<<<B, threads, 0, st>>>(state, body, body_batched, stats, a1, a1_batched, ctrl,     \
+                                 n_knots, knot_steps, step_base, X, Y, Z, num_steps, p,      \
+                                 flags, fp, *ma, ss_batched, bc_batched, vargs, gbuf,        \
+                                 gstride);                                                   \
+    } while (0)
 #define VAR_GMEM(VARIANT, FEAT)                                                               \
-    fused_rollout_gmem_kernel<VARIANT, FEAT><<<B, threads, 0, st>>>(                         \
-        state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots, knot_steps,          \
-        step_base, X, Y, Z, num_steps, p, flags, scratch, fp, gbuf, gstride)
+    do {                                                                                      \
+        const auto k = dense ? fused_rollout_gmem_kernel<VARIANT, FEAT, true>                \
+                             : fused_rollout_gmem_kernel<VARIANT, FEAT, false>;              \
+        k<<<B, threads, 0, st>>>(state, body, body_batched, stats, a1, a1_batched, ctrl,     \
+                                 n_knots, knot_steps, step_base, X, Y, Z, num_steps, p,      \
+                                 flags, scratch, fp, gbuf, gstride);                         \
+    } while (0)
 #define VARIANT_GMEM(VARIANT) \
     if (feat)                 \
         VAR_GMEM(VARIANT, true); \

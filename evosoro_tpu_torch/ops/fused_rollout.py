@@ -188,12 +188,13 @@ _PER_DIR_FIELDS = [
     ("d_b3i1", _D_DB3I1), ("d_b3i2", _D_DB3I2),
 ]
 
-# shared floats a voxel K1 needs (csrc/fused_rollout.cu: BF, + staging); the
-# fluid-mesh variant works inside the same 36 (its vertex field and the
-# force sums it carries across its extra barrier live in slots of the bond
-# buffer that only the voxel itself reads)
+# shared floats a voxel K1 needs for the bond forces (csrc/fused_rollout.cu:
+# BF); the fluid-mesh variant works inside the same 36 (its vertex field and
+# the force sums it carries across its extra barrier live in slots of the
+# bond buffer that only the voxel itself reads). Contact adds 3 a voxel for
+# its forces and the staged voxels: 4 floats a surface voxel with the
+# compact pass, else the dense pass's (csrc/pair_contact.cuh)
 _K1_SMEM_FLOATS = 36
-_K1_SMEM_FLOATS_COLL = 43
 # per-voxel floats of device-memory scratch a fluid-mesh launch needs: the
 # per-side strains sv1, sv2 of the three bonds a voxel owns
 _K1_MESH_SCRATCH = 6
@@ -205,23 +206,50 @@ _K1_VOL_SCRATCH = 9
 _SMEM_BYTES = 232448  # a block's shared memory on Hopper, static and dynamic
 # K1's static shared memory as ptxas reports it: 112 bytes (the block
 # reductions' scratch and the divergence flags), 208 in the feature instance
-# (the window ring); the dynamic part gets what is left. Ceilings: 1350
-# cells with contact, 1612 without (the instance without features fits one
-# more, 1613). Volume effects add none: their block max reuses the
+# (the window ring); the dynamic part gets what is left. Ceilings: 1339
+# cells with dense contact, 1612 without (the instance without features fits
+# one more, 1613). Volume effects add none: their block max reuses the
 # reductions' scratch, and their exchanges go through device memory. B4's
 # buffer is K1's without contact (36 floats a voxel), under the same rule
 _K1_STATIC_SMEM = 208
 
 
+def pair_groups(V: int) -> int:
+    """32-voxel groups of a body of V grid cells: the dense pair pass's row
+    and column groups (csrc/pair_contact.cuh pair_groups)."""
+    return (V + 31) // 32
+
+
+def pair_table_words(V: int) -> int:
+    """32-bit words of the dense pass's static tile mask (a word for each 32
+    column groups of a row group) and active-voxel bits (a word a group)
+    (csrc/pair_contact.cuh pair_table_words)."""
+    G = pair_groups(V)
+    return G * ((G + 31) // 32) + G
+
+
+def pair_pass_floats(V: int) -> int:
+    """Floats the dense pair pass keeps beside the bond forces
+    (csrc/pair_contact.cuh): the staged positions and scales, a float4 a
+    voxel padded to whole groups (128 a group), a box of 8 floats a group
+    and the tile mask and active bits (`pair_table_words`)."""
+    return 136 * pair_groups(V) + pair_table_words(V)
+
+
 def k1_buffer_floats(V: int, collision: bool, n_surf=None) -> int:
     """Floats of K1's per-robot buffer for a body of V grid cells: the bond
-    forces, and with contact the staged positions and scales and the contact
-    forces; with `n_surf`, the surface-compacted contact pass, which stages
-    the S surface voxels' positions and scales (4 floats each) in place of
-    all V."""
-    if collision and n_surf is not None:
+    forces, and with contact the contact forces and the staged voxels: with
+    `n_surf` the surface-compacted pass's S surface voxels (4 floats each),
+    else the dense pass's float4s and tables (`pair_pass_floats`), the
+    whole rounded up to a multiple of 4 so that each row of the
+    device-memory twins' buffer keeps the float4s aligned
+    (csrc/fused_rollout_common.cuh k1_buffer_floats)."""
+    if not collision:
+        return _K1_SMEM_FLOATS * V
+    if n_surf is not None:
         return (_K1_SMEM_FLOATS + 3) * V + 4 * int(n_surf)
-    return (_K1_SMEM_FLOATS_COLL if collision else _K1_SMEM_FLOATS) * V
+    n = (_K1_SMEM_FLOATS + 3) * V + pair_pass_floats(V)
+    return (n + 3) // 4 * 4
 
 
 def k1_fits(V: int, collision: bool, n_surf=None) -> bool:
@@ -813,13 +841,30 @@ def supports(body: VoxelBody, sim: SimParams, env: EnvParams) -> bool:
 # launches of K2's own kernel (K1 runs K2's routine inside its launch; those
 # are counted by FUSED_ROLLOUT_CONTACT_LAUNCHES)
 PAIR_CONTACT_LAUNCHES = 0
+# the dense pass's cull margin: a tile of the table is evaluated when its
+# row and column groups' boxes lie closer than 0.75 (smax_g + smax_h) (1 +
+# this), which keeps every touching pair (the argument heads
+# csrc/pair_contact.cuh). Its one source: K1 takes 1 + this in its
+# constants (`_k1_params`), K2 this as an argument
+PAIR_CULL_MARGIN = 1e-3
+# warps of a K2 pass block (csrc/pair_contact.cu K2_THREADS / 32)
+_K2_WARPS = 8
 
 
-def pair_contact_forces_plain(pos, scale, a1):
+def _k2_smem_bytes(V: int) -> int:
+    """Shared bytes of a K2 block: the pair pass's staging and tables and
+    the warps' partial sums (csrc/pair_contact.cu k2_smem)."""
+    return 4 * (pair_pass_floats(V) + _K2_WARPS * 96)
+
+
+def pair_contact_forces_plain(pos, scale, a1, row_sum=None):
     """Plain version of K2: a transliteration of the JAX package's
     `_pair_contact_forces` over a batch. pos (..., 3, V), scale (..., V),
     a1 (..., V, V) or (V, V) -> forces (..., 3, V) on each voxel. Large
-    batches are processed in chunks to bound the (V, V) temporaries."""
+    batches are processed in chunks to bound the (V, V) temporaries.
+    row_sum: sums the terms (n, 3, V, V) over their last axis, `.sum(-1)`
+    when None (chip_smoke.py passes the kernels' order, to hold K1's
+    contact steps to the plain version bit for bit)."""
     lead = pos.shape[:-2]
     V = pos.shape[-1]
     p = pos.reshape(-1, 3, V)
@@ -837,14 +882,50 @@ def pair_contact_forces_plain(pos, scale, a1):
         tt = nom * inv
         t_ = tab[lo:hi] if tab.shape[0] > 1 else tab
         mag = torch.where(tt > 1.0, t_ * (tt - 1.0), 0.0)
-        out[lo:hi] = -(mag[:, None] * diff).sum(-1)
+        terms = mag[:, None] * diff
+        out[lo:hi] = -(terms.sum(-1) if row_sum is None else row_sum(terms))
     return out.reshape(lead + (3, V))
 
 
-def pair_contact_forces(pos, scale, a1):
+def pair_tile_census_plain(pos, scale, a1, margin=PAIR_CULL_MARGIN):
+    """The dense pass's tile counts, summed over the batch, in float32 as
+    the routine computes them: (evaluated, culled by distance, culled
+    statically) 32 x 32 tiles of the table. pos (B, 3, V), scale (B, V), a1
+    (B or 1, V, V). Its tests are the routine's: the static mask (a nonzero
+    entry in the tile), the active voxels (a nonzero in their row or
+    column), each group's box over them and the gap against 0.75 (smax_g +
+    smax_h) (1 + margin) (csrc/pair_contact.cuh)."""
+    B, _, V = pos.shape
+    G = pair_groups(V)
+    pad = 32 * G - V
+    f32 = torch.float32
+    nz = torch.nn.functional.pad(a1.reshape(-1, V, V) != 0, (0, pad, 0, pad))
+    mask = nz.reshape(-1, G, 32, G, 32).any(4).any(2)  # (1 or B, G, G)
+    act = (nz.any(2) | nz.any(1)).reshape(-1, G, 32)  # row or column
+    p = torch.nn.functional.pad(pos.to(f32), (0, pad)).reshape(B, 3, G, 32)
+    s = torch.nn.functional.pad(scale.to(f32), (0, pad)).reshape(B, G, 32)
+    inf = torch.tensor(float("inf"), dtype=f32)
+    lo = torch.where(act[:, None], p, inf).amin(-1)  # (B, 3, G)
+    hi = torch.where(act[:, None], p, -inf).amax(-1)
+    smax = torch.where(act, s, torch.zeros((), dtype=f32)).amax(-1)  # (B, G)
+    zero = torch.zeros((), dtype=f32)
+    gap = torch.maximum(torch.maximum(lo[:, :, None, :] - hi[:, :, :, None],
+                                      lo[:, :, :, None] - hi[:, :, None, :]), zero)
+    gap2 = gap[:, 0] * gap[:, 0] + gap[:, 1] * gap[:, 1] + gap[:, 2] * gap[:, 2]
+    slack = torch.tensor(1.0, dtype=f32) + torch.tensor(margin, dtype=f32)
+    r = (0.75 * (smax[:, :, None] + smax[:, None, :])) * slack
+    near = gap2 < r * r  # (B, g, h)
+    mask = mask.expand(B, G, G)
+    return (int((mask & near).sum()), int((mask & ~near).sum()), int((~mask).sum()))
+
+
+def pair_contact_forces(pos, scale, a1, *, counts=None):
     """K2 wrapper. pos (B, 3, V), scale (B, V), a1 (B or 1, V, V), float32
     and contiguous -> forces (B, 3, V). CUDA tensors launch the kernel;
-    CPU tensors run `pair_contact_forces_plain`."""
+    CPU tensors run `pair_contact_forces_plain`. `counts`, an int32 tensor
+    of 3 on the card, receives the launch's tile counts added to it
+    (evaluated, culled by distance, culled statically; the
+    `pair_tile_census_plain` of these inputs)."""
     if pos.dim() != 3 or pos.shape[1] != 3:
         raise ValueError(f"pos must be (B, 3, V), got {tuple(pos.shape)}")
     B, _, V = pos.shape
@@ -858,20 +939,30 @@ def pair_contact_forces(pos, scale, a1):
         if t.device != pos.device:
             raise ValueError(f"{name} is on {t.device}, pos on {pos.device}")
     if pos.device.type == "cpu":
+        if counts is not None:
+            raise ValueError("tile counts come from the kernel: pair_tile_census_plain "
+                             "computes them on the CPU")
         return pair_contact_forces_plain(pos, scale, a1)
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
     for name, t in (("pos", pos), ("scale", scale), ("a1", a1)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if 16 * V > _SMEM_BYTES:
+    if counts is not None and (counts.dtype != torch.int32 or tuple(counts.shape) != (3,)
+                               or counts.device != pos.device):
+        raise ValueError("counts must be an int32 tensor of 3 on the inputs' device")
+    if _k2_smem_bytes(V) > _SMEM_BYTES:
         raise ValueError(f"V={V} voxels overflow K2's shared memory")
     out = torch.empty_like(pos)
+    # each table's tile mask and active bits, which the first launch ORs into
+    tables = torch.zeros((a1.shape[0], pair_table_words(V)), dtype=torch.int32,
+                         device=pos.device)
     fn = build.library("pair_contact")
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(pos.data_ptr(), scale.data_ptr(), a1.data_ptr(), out.data_ptr(),
-                B, V, int(a1.shape[0] == B and B > 1), stream)
+                B, V, int(a1.shape[0] == B and B > 1), PAIR_CULL_MARGIN, tables.data_ptr(),
+                counts.data_ptr() if counts is not None else None, stream)
     build.check(rc, "pair_contact_forces")
     global PAIR_CONTACT_LAUNCHES
     PAIR_CONTACT_LAUNCHES += 1
@@ -979,6 +1070,7 @@ def _k1_params(scalars: dict, prec: Precision) -> np.ndarray:
         0.5 * scalars["freeze"],
         2.0 * REF_PI_FLOAT,
         scalars["freeze"],
+        np.float32(1.0) + np.float32(PAIR_CULL_MARGIN),  # as K2's 1.f + margin
     ]
     return np.asarray(vals, dtype=np.float32)
 

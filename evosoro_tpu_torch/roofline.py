@@ -96,8 +96,16 @@ shared ones. Their compulsory bytes are the same inputs and outputs, with
 contact the dense (V, V) pair table among them (11.9 MB a robot at 12^3,
 19.3 MB at 13^3), read once: a kernel that keeps it nowhere reads it again
 every step, which is a design's traffic, as is the buffer the instance
-keeps in device memory (43 floats a voxel with contact); neither is
+keeps in device memory (~43.4 floats a voxel with contact); neither is
 compulsory.
+
+The dense pass's count is the function's work, whatever implements it:
+`PAIR_FLOPS_TESTED` for every nonzero entry of the table every step, and
+the table's bytes once a launch. The pass of `ops/csrc/pair_contact.cuh`
+skips 32 x 32 tiles that hold no nonzero entry or whose voxels lie too far
+apart to touch, and evaluates every pair of the others, zero entries
+included; `chip_smoke.py` prints the tiles it evaluates beside the bound
+(`fused_rollout.pair_tile_census_plain` counts them on the CPU).
 
 Volume effects (`b6d_work`) are counted by the same walk of the JAX step
 with VolumeEffectsEnabled on (and its carry in the state) beyond the land
@@ -170,8 +178,9 @@ VOLUME_BODY_CHANNELS = 3
 VOLUME_STATE_CHANNELS = 6
 BC_CHANNELS = 15
 MATERIAL_BODY_CHANNELS = 4  # Young's modulus, model, plastic modulus, yield stress
-# pair_contact.cuh: operations for every nonzero table entry (difference,
-# distance, rsqrt, overlap test), and more for a pair that touches
+# the dense pair pass: operations for every nonzero table entry
+# (difference, distance, rsqrt, overlap test), and more for a pair that
+# touches
 PAIR_FLOPS_TESTED = 14
 PAIR_FLOPS_TOUCHING = 8
 # channels of the packed state and body that the envelope's step reads

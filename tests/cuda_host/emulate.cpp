@@ -5,8 +5,10 @@
 // build this with g++ and hold it against the plain PyTorch versions, so the
 // hand-written adjoint and the step's fluid and development variants are
 // checked where there is no card; and K1's material instance
-// (test_torch_materials.py), its volume instance (test_torch_volume.py) and
-// B4's material instance (test_torch_b4_host.py).
+// (test_torch_materials.py), its volume instance (test_torch_volume.py),
+// B4's material instance (test_torch_b4_host.py) and the dense pair pass
+// of pair_contact.cuh, alone (emu_pair) and inside K1 (emu_fwd_contact;
+// tests/test_torch_pair_host.py).
 #define EVOSORO_HOST_EMULATION
 #include <vector>
 
@@ -15,18 +17,22 @@ template <int VARIANT, bool FEAT>
 static void emu_fwd_variant(float* state, const float* body, int body_batched, float* stats,
                             const float* ctrl, int n_knots, int knot_steps, int step_base,
                             int B, int X, int Y, int Z, int num_steps, const Params& p,
-                            int flags, const FeatParams& fp) {
+                            int flags, const FeatParams& fp, const float* a1 = nullptr,
+                            int a1_batched = 0) {
     const int V = X * Y * Z;
-    std::vector<float> sh((size_t)(BF + 7) * V), scr((size_t)6 * V);
+    std::vector<float> sh(k1_buffer_floats(V, true, 0)), scr((size_t)6 * V);
     for (int b = 0; b < B; ++b) {
         float* stat = stats + (size_t)b * C_STAT;
         Robot r = load_robot(stat);
         Feat fe = load_feat(stat);
-        rollout_steps<VARIANT, FEAT>(
-            state + (size_t)b * C_S * V, 0, body + (body_batched ? (size_t)b * C_B * V : 0),
-            nullptr,
+        // the dense pass's instance when handed a table with contact on (k1_dense)
+        const auto run = k1_dense(flags, a1) ? rollout_steps<VARIANT, FEAT, false, false, true>
+                                             : rollout_steps<VARIANT, FEAT>;
+        run(state + (size_t)b * C_S * V, 0, body + (body_batched ? (size_t)b * C_B * V : 0),
+            a1 ? a1 + (a1_batched ? (size_t)b * V * V : 0) : nullptr,
             n_knots ? ctrl + (size_t)b * n_knots * V : nullptr, n_knots, knot_steps, step_base,
-            X, Y, Z, num_steps, p, flags, r, nullptr, sh.data(), scr.data(), &fe, &fp);
+            X, Y, Z, num_steps, p, flags, r, nullptr, sh.data(), scr.data(), &fe, &fp, nullptr,
+            nullptr, nullptr);
         if (FEAT) store_feat(stat, fe, fp, flags);
         stat[ST_TIME] = r.t; stat[ST_DIV] = r.div ? 1.f : 0.f;
         stat[ST_INICM] = r.ini.x; stat[ST_INICM + 1] = r.ini.y; stat[ST_INICM + 2] = r.ini.z;
@@ -58,6 +64,63 @@ extern "C" void emu_fwd(float* state, const float* body, int body_batched, float
     }
 #undef RUN
 }
+// K1's step loop as emu_fwd, with the dense pair pass on the table a1 (B or
+// 1, V, V): the land variant, or the variant the flags select
+extern "C" void emu_fwd_contact(float* state, const float* body, int body_batched,
+                                float* stats, const float* ctrl, int n_knots, int knot_steps,
+                                int step_base, int B, int X, int Y, int Z, int num_steps,
+                                const float* params, int flags, const float* fparams,
+                                const float* a1, int a1_batched) {
+    Params p; memcpy(&p, params, sizeof(float) * N_PARAMS);
+    const FeatParams fp = feat_params_from(fparams);
+    const bool feat = (flags & F_FEAT) || fp.n_src > 0;
+#define RUN(VARIANT)                                                                          \
+    (feat ? emu_fwd_variant<VARIANT, true>(state, body, body_batched, stats, ctrl, n_knots,  \
+                                           knot_steps, step_base, B, X, Y, Z, num_steps, p,  \
+                                           flags, fp, a1, a1_batched)                        \
+          : emu_fwd_variant<VARIANT, false>(state, body, body_batched, stats, ctrl, n_knots, \
+                                            knot_steps, step_base, B, X, Y, Z, num_steps, p, \
+                                            flags, fp, a1, a1_batched))
+    switch (variant_of(flags)) {
+        case V_FLUID_FACE: RUN(V_FLUID_FACE); break;
+        case V_FLUID_MESH: RUN(V_FLUID_MESH); break;
+        case V_DEVO: RUN(V_DEVO); break;
+        default: RUN(V_LAND);
+    }
+#undef RUN
+}
+// K2's two launches (pair_contact.cu): a block for each table and row group
+// reads its rows into the table's tile mask and active bits; then a block
+// of 8 warps for each robot and 2 row groups copies them, stages the boxes
+// and runs the pass over its groups, their hot tiles split over its warps.
+// pos (B, 3, V), scale (B, V), a1 (B or 1, V, V), out (B, 3, V); margin:
+// the cull's; counts: null or 3 words of tile counts (evaluated, culled by
+// distance, culled statically), added to
+extern "C" void emu_pair(const float* pos, const float* scale, const float* a1, float* out,
+                         int B, int V, int a1_batched, float margin, unsigned* counts) {
+    const int warps = 8, per_block = 2;
+    const int G = pair_groups(V), n = pair_table_words(V), T = a1_batched ? B : 1;
+    std::vector<unsigned> tables((size_t)T * n, 0u);
+    for (int t = 0; t < T; ++t)
+        for (int g = 0; g < G; ++g)
+            pair_tile_mask(a1 + (size_t)t * V * V, V, tables.data() + (size_t)t * n, 32 * g,
+                           32 * g + 32 < V ? 32 * g + 32 : V);
+    std::vector<float> sh((size_t)pair_stage_floats(V) + pair_aux_floats(V) + warps * 96);
+    float* sp = sh.data();
+    float* aux = sp + pair_stage_floats(V);
+    float* partial = aux + pair_aux_floats(V);
+    for (int b = 0; b < B; ++b) {
+        const float* p = pos + (size_t)b * 3 * V;
+        for (int g0 = 0; g0 < G; g0 += per_block) {
+            memcpy(pair_mask(aux, G), tables.data() + (size_t)(a1_batched ? b : 0) * n,
+                   sizeof(unsigned) * n);
+            pair_stage(p, p + V, p + 2 * V, scale + (size_t)b * V, V, sp, aux);
+            pair_contact_block(sp, a1 + (a1_batched ? (size_t)b * V * V : 0), V, aux,
+                               out + (size_t)b * 3 * V, V, g0, g0 + per_block < G ? g0 + per_block : G,
+                               partial, 1.f + margin, counts, warps);
+        }
+    }
+}
 // K1's material instance (the land variant, with the features when a
 // feature bit or a source is on), without the pair pass: ss, the MDL_DATA
 // tables (B or 1, 2P + 3, V) or null; bc, the BC channels (B or 1, 15, V)
@@ -70,7 +133,7 @@ extern "C" void emu_fwd_mat(float* state, const float* body, int body_batched, f
     const FeatParams fp = feat_params_from(fparams);
     const bool feat = (flags & F_FEAT) || fp.n_src > 0;
     const int V = X * Y * Z;
-    std::vector<float> sh((size_t)(BF + 7) * V), scr((size_t)6 * V);
+    std::vector<float> sh(k1_buffer_floats(V, true, 0)), scr((size_t)6 * V);
     for (int b = 0; b < B; ++b) {
         float* stat = stats + (size_t)b * C_STAT;
         const float* bo = body + (body_batched ? (size_t)b * C_B * V : 0);
@@ -107,9 +170,10 @@ static void emu_vol_robot(float* st, const float* bo, const float* a1, int X, in
                           int num_steps, const Params& p, int flags, Robot& r, float* sh,
                           Feat* fe, const FeatParams* fp, const MatArgs* ma, float* ke,
                           const VolArgs* va) {
-    rollout_steps<V_LAND, FEAT, true, VOL>(st, 0, bo, a1, nullptr, 0, 1, 0, X, Y, Z, num_steps,
-                                            p, flags, r, nullptr, sh, nullptr, fe, fp, ma, ke,
-                                            va);
+    const auto run = k1_dense(flags, a1) ? rollout_steps<V_LAND, FEAT, true, VOL, true>
+                                         : rollout_steps<V_LAND, FEAT, true, VOL>;
+    run(st, 0, bo, a1, nullptr, 0, 1, 0, X, Y, Z, num_steps, p, flags, r, nullptr, sh, nullptr,
+        fe, fp, ma, ke, va);
 }
 extern "C" void emu_fwd_vol(float* state, const float* body, int body_batched, float* stats,
                             const float* a1, int a1_batched, int n_surf, int B, int X, int Y,
@@ -123,7 +187,7 @@ extern "C" void emu_fwd_vol(float* state, const float* body, int body_batched, f
     const bool vol = (flags & F_VOL) != 0;
     const int V = X * Y * Z;
     const size_t tab = n_surf > 0 ? (size_t)(n_surf + 1) * n_surf : (size_t)V * V;
-    std::vector<float> sh((size_t)(BF + 7) * V), vscr((size_t)VOL_SCR * V);
+    std::vector<float> sh(k1_buffer_floats(V, true, 0)), vscr((size_t)VOL_SCR * V);
     for (int b = 0; b < B; ++b) {
         float* stat = stats + (size_t)b * C_STAT;
         const float* bo = body + (body_batched ? (size_t)b * C_B * V : 0);

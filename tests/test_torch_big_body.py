@@ -77,20 +77,25 @@ def _shrunk(pos, factor):
 
 
 @pytest.mark.parametrize("V,coll,n_surf,want", [
-    (1350, True, None, "shared"), (1351, True, None, "device"),
+    (1339, True, None, "shared"), (1340, True, None, "device"),
     (1612, False, None, "shared"), (1613, False, None, "device"),
     (1400, True, 700, "shared"), (1400, True, 1400, "device"), (1400, True, None, "device"),
     (12 ** 3, False, None, "device"), (13 ** 3, True, None, "device"),
 ])
 def test_instance_choice_at_the_shared_ceilings(V, coll, n_surf, want):
-    """`k1_instance` is `k1_fits`'s complement: 43 floats a cell with
-    contact, 36 without, 39 and 4 a surface cell with the compact pass,
-    beside 208 bytes of static shared memory in 232448. B4 asks without
-    contact."""
+    """`k1_instance` is `k1_fits`'s complement: 36 floats a cell without
+    contact; with it 39, and 4 a surface cell with the compact pass, else
+    the dense pass's float4 a cell padded to whole 32-cell groups and its
+    tables, 9 floats and a mask word for each 32 groups a group, the whole
+    rounded up to 4 floats; beside 208 bytes of static shared memory in
+    232448. B4 asks without contact."""
     assert fr.k1_instance(V, coll, n_surf) == want
     assert (want == "shared") == fr.k1_fits(V, coll, n_surf)
+    G = (V + 31) // 32
+    dense = 39 * V + 128 * G + 9 * G + G * ((G + 31) // 32)
     assert fr.k1_buffer_floats(V, coll, n_surf) == (
-        (39 * V + 4 * n_surf) if (coll and n_surf) else (43 if coll else 36) * V)
+        (39 * V + 4 * n_surf) if (coll and n_surf) else
+        (dense + 3) // 4 * 4 if coll else 36 * V)
 
 
 @pytest.mark.parametrize("n", [12, 13])
@@ -178,7 +183,7 @@ def test_eager_rollout_at_12_cubed_with_contact_matches_jax(jax_12):
 
 def test_fused_rollout_at_12_cubed_with_contact_matches_jax(jax_12):
     """`fused_rollout` takes the 12^3 contact batch (1728 cells, past the
-    shared ceiling of 1350: K1's device-memory instance on the card) and on
+    shared ceiling of 1339: K1's device-memory instance on the card) and on
     CPU tensors in float64 lands within the tolerances of JAX's rollout;
     without the pair table the same rollout lands outside them."""
     jb, sim_kw, dt, states, ref = jax_12

@@ -254,7 +254,7 @@ def test_a_ten_cubed_swimmer_in_its_shell_is_supported_with_contact():
 
     with_contact = SimParams(self_collisions_enabled=True)
     assert fr.supports(swimmer(10), with_contact, water)
-    assert fr._K1_SMEM_FLOATS_COLL * 4 * 11 ** 3 <= fr._SMEM_BYTES
+    assert fr.k1_fits(11 ** 3, True)
     assert fr.k1_instance(11 ** 3, True) == "shared"
     assert fr.k1_instance(12 ** 3, True) == "device"
     assert fr.supports(swimmer(11), with_contact, water)

@@ -242,9 +242,10 @@ def test_feature_envelope_rules(case):
 def test_shared_memory_ceiling_counts_the_static_part():
     """K1's dynamic shared memory gets what its static part (reduction
     scratch, divergence flags, the feature instance's window ring: 208
-    bytes by ptxas's count) leaves of a block's 232448: 1350 cells with
-    contact (43 floats a cell), 1612 without (36); one more cell each is
-    refused on the host."""
-    assert fr.k1_fits(1350, True) and not fr.k1_fits(1351, True)
+    bytes by ptxas's count) leaves of a block's 232448: 1339 cells with
+    contact (39 floats a cell and the dense pair pass's staging and
+    tables), 1612 without (36); one more cell each is refused on the
+    host."""
+    assert fr.k1_fits(1339, True) and not fr.k1_fits(1340, True)
     assert fr.k1_fits(1612, False) and not fr.k1_fits(1613, False)
     assert fr.k1_fits(11 ** 3, True)  # the largest body a card reading exists for

@@ -422,6 +422,6 @@ def test_the_compact_switch_and_the_shared_memory_it_frees(monkeypatch):
     assert S < occ.size
     assert seen == [(False, (1, N ** 3, N ** 3)), (True, (1, S + 1, S))]
     torch.testing.assert_close(compact.pos, dense.pos, rtol=2e-5, atol=1e-9)
-    assert fr.k1_fits(1350, True) and not fr.k1_fits(1351, True)
+    assert fr.k1_fits(1339, True) and not fr.k1_fits(1340, True)
     assert fr.k1_fits(1400, True, n_surf=700) and not fr.k1_fits(1400, True)
     assert not fr.k1_fits(1400, True, n_surf=1400)
