@@ -66,6 +66,19 @@ full run): two launches bit-equal to each other, the cull's guard, the
 tiles evaluated of all tiles at 6^3, 10^3 and 12^3, the contact workloads'
 times, and two generations of the basic experiment at 6^3 and at 12^3.
 
+`python3 chip_smoke.py --step` runs K1's own step (B1) and its knot launch
+(B3) alone (`phase_step`, also part of the full run): K1 against its plain
+version on a cut batch of each instance, the one-robot 6^3 step with and
+without contact, 16 x 6^3 x 25, 1024 x 10^3 x 200 in the land, material,
+volume and both drag instances, the cold solve's 128 x 10^3 x 200 launch
+with 8 knots and the SQP segment, each with its block size and whether
+its state stayed resident; then two basic generations and a cold CEM
+solve with the counters zeroed; its kernels line holds B1's and B3's rows.
+`python3 chip_smoke.py --step --against CHECKOUT` times each of these in
+turns with another checkout's K1 (its parent's, unpacked into a directory
+that .gitignore lists), and with the state kept in device memory where it
+would stay resident.
+
 `python3 chip_smoke.py --volume` runs volume effects alone
 (`phase_k1_volume`): K1's volume instance against its plain version with
 its three guards, the volume replay of an archived design and of the
@@ -2542,6 +2555,248 @@ def phase_throughput(torch, card):
     return recs
 
 
+def phase_step(torch, np, alone=False, against=None):
+    """K1's own step (B1, csrc/k1_step.cuh: bond items over more warps, the
+    state resident in shared memory, sums in the old order) and its knot
+    launch (B3). (a) K1 against its plain version over 25 steps: the
+    evolution bodies, whose state stays resident (the evaluator batch
+    16 x 6^3 with contact at 512 threads, the materials evaluator batch
+    with contact, plasticity and the clamp at 384), and a cut batch (8
+    robots) of each 10^3 instance the times below run: the bench design on
+    land, on `materials_palette` with plasticity and the clamp, with volume
+    effects, in water with each drag model, the cold solve's launch with 8
+    knots, and the SQP solve's segmented launch at seg_base 75. (b)
+    The times: one 6^3 robot a step with and without contact (2000 steps),
+    the evaluator batch 16 x 6^3 x 25 with contact, with and without the
+    features, the materials and volume batches 16 x 6^3 x 25 with contact,
+    1024 x 10^3 x 20 with contact, 1024 x 10^3 x 200 in
+    the land, material, volume, face-drag and facet-drag instances, B3's
+    launch 128 x 10^3 x 200 with 8 knots (a cold CEM solve's) and the SQP
+    solve's K1 segment (8 x 10^3 x 25 at seg_base 75, 8 knots), each
+    beside its bound, its block size and whether its state stayed resident
+    (`fr.k1_launch_shape`). `alone` (`--step`) adds, with the counters
+    zeroed before and read after, two generations of the basic experiment
+    and a cold CEM solve, which the full run drives in `phase_evolution`
+    and `phase_mpc`. `against` (`--step --against CHECKOUT`) times every
+    workload of (b) and the two generations in turns with another
+    checkout's K1 (`buildcmp.in_turns`: parent, this, and where the state
+    stays resident this with it kept in device memory, the mapping alone;
+    then back), each arm's times in `turns`, and asserts that every arm
+    gives the same bits. Returns the records."""
+    import math
+
+    from evosoro_tpu_torch import bench, roofline
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    res = dict(cases=[], times=[])
+    arms = None
+    if against:
+        from evosoro_tpu_torch.buildcmp import in_turns, launchers
+
+        calls = launchers(against)
+        arms = {"parent": calls["other"], "this": calls["this"]}
+
+    def shape_of(kw, table=None):
+        n_surf = table.shape[-1] if kw["flags"].get("collision_compact") else None
+        return fr.k1_launch_shape(kw["grid_shape"], kw["flags"], kw["scalars"], n_surf)
+
+    def cut(args, kw, B=8):
+        a = tuple(t[:B].contiguous() if t is not None and t.shape[0] > 1 else t
+                  for t in args)
+        k = dict(kw)
+        if k.get("control_packed") is not None:
+            k["control_packed"] = k["control_packed"][:B].contiguous()
+        return a, k
+
+    # (a) each instance against its plain version
+    land = bench.packed_workload(1024, device="cuda")[:2]
+    mats = bench.packed_workload(1024, device="cuda", materials=True)[:2]
+    vol = bench.packed_workload(1024, device="cuda", volume=True)[:2]
+    face = bench.packed_workload(1024, device="cuda", fluid="face")[:2]
+    mesh = bench.packed_workload(1024, device="cuda", fluid="mesh")[:2]
+    runner_body, sim, env, dt = bench.mpc_workload(device="cuda")
+    runner = fr.FusedBatchRunner(runner_body, sim, env, batch=128, num_steps=200,
+                                 num_knots=8, dt=dt)
+    knots = ((runner.state_packed, runner.body_packed, runner.stats, None),
+             dict(runner.call_kwargs, control_packed=_controls(torch, np, 128, 8, 1000, 5)))
+    knots[1].pop("num_steps")
+    sqp_args, sqp_kw = _sqp_k1_launch(torch, np, fr)
+    st75, ss75 = fr.fused_call(*sqp_args, num_steps=75, **sqp_kw)
+    segment = ((st75, sqp_args[1], ss75, None), dict(sqp_kw, seg_base=75))
+    mat_tol = _strictest("nonlinear", "plasticity", "max_vel")
+    ev, ev_kw = bench.evaluator_workload(collision=True, device="cuda")
+    # the evolution bodies: state resident, 512 threads, and 384 with the
+    # pair pass and the material options
+    for label, (a, k), tol in (
+            ("evaluator batch 16 x 6^3, contact on", (ev, ev_kw), TOL),
+            ("materials evaluator batch 16 x 6^3, contact on",
+             bench.materials_workload(device="cuda"), mat_tol)):
+        res["cases"].append(_k1_cases(torch, fr, label, a, k, a[0].shape[0], True, (25,),
+                                      phase="step_vs_plain", tol=tol, **shape_of(k, a[3]))[0])
+    for label, (a, k), tol, extra in (
+            ("bench 10^3, land", land, TOL, {}),
+            ("bench 10^3, materials", mats, mat_tol, {}),
+            ("bench 10^3, volume effects", vol, VOL_TOL, {}),
+            ("bench 10^3 in its 11^3 shell, face drag", face, TOL, {}),
+            ("bench 10^3 in its 11^3 shell, facet drag", mesh, MESH_TOL, {}),
+            ("MPC solve launch 10^3", knots, TOL, dict(knots=8)),
+            ("SQP segment 10^3 at seg_base 75", segment, TOL, dict(knots=8))):
+        a8, k8 = cut(a, k)
+        rec = _k1_cases(torch, fr, label, a8, k8, 8, False, (25,), phase="step_vs_plain",
+                        tol=tol, need_small=tol is not MESH_TOL, **extra, **shape_of(k8))[0]
+        res["cases"].append(rec)
+
+    # (b) the times, each beside its bound
+    def timed(label, a, k, steps, groups=3, reps=2, per_step=False, **extra):
+        def run():
+            return fr.fused_call(*a, num_steps=steps, **k)
+
+        shape = shape_of(k, a[3])
+        if arms:
+            arm = dict(arms, **({"mapping_alone": (calls["this"], False)}
+                                if shape["resident"] else {}))
+            turns, same = in_turns(arm, lambda: bench.time_call(run, groups, reps), run, 2)
+            assert same, (label, turns)
+            ms = min(turns["this"])
+            extra = dict(extra, turns=turns, parent_ms=min(turns["parent"]),
+                         bit_equal_across_arms=same)
+        else:
+            ms = bench.time_call(run, groups, reps)
+        _, st_out = run()
+        ss = k.get("ss_packed")
+        rec = dict(phase="step_time", workload=label, batch=a[0].shape[0], steps=steps,
+                   ms=ms, contact=a[3] is not None, **shape, **extra,
+                   **roofline.bound(*roofline.launch_work(
+                       *a, st_out, k.get("control_packed"), flags=k["flags"],
+                       grid_shape=k["grid_shape"], scalars=k["scalars"],
+                       n_pts=0 if ss is None else (ss.shape[1] - 3) // 2,
+                       num_steps=steps)))
+        if per_step:
+            rec["us_a_step"] = 1e3 * ms / steps
+        rec["share_of_bound"] = rec["bound_ms"] / ms
+        emit(rec)
+        res["times"].append(rec)
+        return rec
+
+    ev_nc, ev_nc_kw = bench.evaluator_workload(collision=False, device="cuda")
+    one = tuple(t[:1].contiguous() if t is not None else None for t in ev)
+    one_nc = tuple(t[:1].contiguous() if t is not None else None for t in ev_nc)
+    timed("one robot of the evaluator batch, 6^3, contact on", one, ev_kw, 2000,
+          per_step=True)
+    timed("one robot of the evaluator batch, 6^3, contact off", one_nc, ev_nc_kw, 2000,
+          per_step=True)
+    res["evaluator"] = timed("evaluator batch 16 x 6^3, contact on", ev, ev_kw, 25)
+    res["evaluator"]["plain_ms"] = _event_ms(
+        torch, lambda: fr.fused_rollout_plain(*ev, num_steps=25, **ev_kw), 1, warm=False)
+    # the other evolution batches with contact: 384 threads, resident
+    timed("evaluator batch 16 x 6^3, contact on, features", ev,
+          bench.with_features(ev_kw, ev[2], n_win=4, n_src=1), 25)
+    timed("materials batch 16 x 6^3, contact on", *bench.materials_workload(device="cuda"), 25)
+    timed("volume batch 16 x 6^3, contact on", *bench.volume_workload(device="cuda"), 25)
+    timed("bench 1024 x 10^3 x 20, contact on",
+          *bench.packed_workload(1024, collision=True, device="cuda")[:2], 20)
+    for key, label, (a, k) in (("land", "land", land), ("materials", "materials", mats),
+                               ("volume", "volume effects", vol),
+                               ("face", "face drag, 11^3 shell", face),
+                               ("mesh", "facet drag, 11^3 shell", mesh)):
+        res[key] = timed("bench 1024 x 10^3 x 200, " + label, a, k, 200, 3, 3)
+    res["knots"] = timed("MPC solve launch 128 x 10^3 x 200, 8 knots", *knots, 200, 3, 3,
+                         knots=8)
+    res["knots"]["plain_ms"] = _event_ms(
+        torch, lambda: fr.fused_rollout_plain(*knots[0], num_steps=200, **knots[1]), 1,
+        warm=False)
+    res["segment"] = timed("SQP segment 8 x 10^3 x 25 at seg_base 75, 8 knots", *segment,
+                           25, 3, 5, knots=8)
+    res["launches"] = None
+    if alone:
+        from evosoro_tpu_torch.bench import evolution
+        from evosoro_tpu_torch.control import CEMConfig, cem_optimize_fused
+
+        if arms:  # each generation's seconds, in turns
+            turns, _ = in_turns(arms, lambda: [r["eval_s"] for r in evolution(
+                gens=2, pop_size=15, device="cuda", experiment="basic")], tuple, 1)
+            emit(dict(phase="step_evolution_turns", experiment="basic", eval_s=turns))
+        fr.FUSED_ROLLOUT_LAUNCHES = 0
+        fr.FUSED_ROLLOUT_CONTACT_LAUNCHES = 0
+        fr.FUSED_ROLLOUT_KNOT_LAUNCHES = 0
+        for r in evolution(gens=2, pop_size=15, device="cuda", experiment="basic"):
+            fits = r.pop("fitnesses")
+            r.update(phase="step_evolution", experiment="basic",
+                     all_finite=all(math.isfinite(f) for f in fits))
+            emit(r)
+            assert r["all_finite"] and r["k1_launches"] > 0, r
+        evo = dict(fused_rollout=fr.FUSED_ROLLOUT_LAUNCHES,
+                   fused_rollout_with_contact=fr.FUSED_ROLLOUT_CONTACT_LAUNCHES)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        before = fr.FUSED_ROLLOUT_LAUNCHES
+        u, info = cem_optimize_fused(gen, runner_body, sim, env, num_steps=200, num_knots=8,
+                                     config=CEMConfig(), dt=dt, device="cuda")
+        solve = dict(fused_rollout=fr.FUSED_ROLLOUT_LAUNCHES - before,
+                     fused_rollout_with_knots=fr.FUSED_ROLLOUT_KNOT_LAUNCHES,
+                     best_cost=float(info["best_cost"]),
+                     all_finite=bool(torch.isfinite(u).all()))
+        emit(dict(phase="step_launches", evolution=evo, cem_solve=solve))
+        assert evo["fused_rollout"] > 0 and evo["fused_rollout_with_contact"] > 0, evo
+        assert solve["fused_rollout_with_knots"] == solve["fused_rollout"] > 0, solve
+        assert solve["all_finite"] and math.isfinite(solve["best_cost"]), solve
+        res["launches"] = dict(evolution=evo, cem_solve=solve)
+    return res
+
+
+def _step_rows(step, bound_keys, k1_launches, knot_launches, k1_timed=None, knot_timed=None):
+    """The kernels line's rows of K1's own step (B1) and of its knot launch
+    (B3) from `phase_step`: the launches counted on the main paths, the
+    largest error against the plain version, the times of this slice's
+    workloads with their block sizes and resident flags beside their
+    bounds. The full run passes its own timed records of the evaluator
+    batch (`phase_k1`) and of the cold solve's launch (`phase_mpc`)."""
+    k1_timed = k1_timed or step["evaluator"]
+    knot_timed = knot_timed or step["knots"]
+    cases = step["cases"]
+    return [
+        dict(name="fused_rollout (K1)", route="cuda",
+             source="evosoro_tpu_torch/ops/csrc/k1_step.cuh",
+             replaces="evosoro_tpu/ops/fused_rollout.py:777",
+             launches=k1_launches, **bound_keys(k1_timed),
+             max_abs_err=max(r["pos"] for r in cases if "knots" not in r),
+             err_of=("pos (m) against the plain version over 25 steps: the 16 x 6^3 "
+                     "evaluator and materials batches with contact, and 8 robots of the "
+                     "bench 10^3 design on land, materials, volume effects, face and facet "
+                     "drag"),
+             ms=k1_timed["ms"], plain_ms=k1_timed["plain_ms"],
+             ms_of="evaluator batch 16 x 6^3, 25 steps, contact on",
+             **_step_extras(step)[0]),
+        dict(name="K1 control knots + segments (B3)", route="cuda",
+             source="evosoro_tpu_torch/ops/csrc/k1_step.cuh",
+             replaces="evosoro_tpu/ops/fused_rollout.py:1710",
+             launches=knot_launches, **bound_keys(knot_timed),
+             max_abs_err=max(r["pos"] for r in cases if "knots" in r),
+             err_of=("pos (m) against the plain version: 8 robots x 25 steps of the cold "
+                     "solve's launch and of the SQP segment at seg_base 75, 8 knots"),
+             ms=knot_timed["ms"], plain_ms=knot_timed["plain_ms"],
+             ms_of="one launch of a cold solve: 128 x 10^3, 8 knots, 200 steps",
+             **_step_extras(step)[1]),
+    ]
+
+
+def _step_extras(step):
+    """The keys `phase_step` adds to the B1 and B3 rows: every workload's
+    time with its bound, share, block size and resident flag, and the
+    ceiling of the share under -fmad=false (a multiply and an add issue
+    apart, where the bound counts fused multiply-adds)."""
+    def brief(rec):
+        return dict(ms=rec["ms"], bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+                    share_of_bound=rec["share_of_bound"], threads=rec["threads"],
+                    resident=rec["resident"], instance=rec["instance"])
+
+    ceiling = "50 % of the bound (-fmad=false)"
+    return (dict(step_times={r["workload"]: brief(r) for r in step["times"]},
+                 ceiling_of_share=ceiling),
+            dict(threads=step["knots"]["threads"], resident=step["knots"]["resident"],
+                 segment_ms=step["segment"]["ms"], segment_threads=step["segment"]["threads"],
+                 ceiling_of_share=ceiling))
+
+
 def _material_digests(torch):
     """The digests of K1's material instance without volume effects, kernel
     only: the materials evaluator batch with plasticity and the clamp (100
@@ -3093,6 +3348,21 @@ def main():
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return None
+    if sys.argv[1:2] == ["--step"] and sys.argv[2:3] in ([], ["--against"]):
+        step = phase_step(torch, np, alone=True, against=(sys.argv[3:] or [None])[0])
+
+        def bound_keys(rec):
+            return dict(bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None)
+
+        n = step["launches"]
+        emit(dict(kernels=_step_rows(
+            step, bound_keys, n["evolution"]["fused_rollout"] + n["cem_solve"]["fused_rollout"],
+            n["cem_solve"]["fused_rollout_with_knots"])))
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return None
     if sys.argv[1:] == ["--pair"]:
         k2 = phase_k2(torch, np)
         pair = phase_pair(torch, np, alone=True)
@@ -3136,6 +3406,7 @@ def main():
     k2 = phase_k2(torch, np)
     pair = phase_pair(torch, np)
     k1 = phase_k1(torch)
+    step = phase_step(torch, np)
     knots = phase_k1_knots(torch, np, (1, 25))
     phase_k1_segmented(torch, np)
     fluid = phase_k1_fluid(torch)
@@ -3214,7 +3485,7 @@ def main():
                      % k1_timed["batch"]),
              ms=k1_timed["ms"], plain_ms=k1_timed["plain_ms"],
              ms_of="evaluator batch %d x 6^3, 25 steps, contact on"
-             % k1_timed["batch"]),
+             % k1_timed["batch"], **_step_extras(step)[0]),
         _k2_row(k2, pair, bound_keys, launches["pair_contact"] + mpc_launches["pair_contact"],
                 launches["fused_rollout_with_contact"] + swim["fused_rollout_with_contact"]
                 + grow["fused_rollout_with_contact"]),
@@ -3240,7 +3511,8 @@ def main():
                      "voxel-face drag, 8 x 11^3) and with growth (8 x 5x5x4), 8 knots, "
                      "75 steps from rest and 25 steps at seg_base 75"),
              ms=knot_timed["ms"], plain_ms=knot_timed["plain_ms"],
-             ms_of="one launch of a cold solve: 128 x 10^3, 8 knots, 200 steps"),
+             ms_of="one launch of a cold solve: 128 x 10^3, 8 knots, 200 steps",
+             **_step_extras(step)[1]),
         *_b4_rows(b4, b4_var, sqp_launches, var_launches, bound_keys),
         _b4_material_row(b4_mat, mat_launches, bound_keys),
         *_big_rows(big, bound_keys),

@@ -41,7 +41,7 @@ SIGNATURES = {
                                              _P, _P]),
     "fused_rollout": ("fused_rollout", [
         _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P,
-        _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P]),
+        _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P]),
     "fused_rollout_bwd": ("fused_rollout_bwd", [
         _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P,
         _P, _P, _I, _P]),
@@ -49,9 +49,10 @@ SIGNATURES = {
 }
 
 # translation units a library links beside its own `<name>.cu`: K1's
-# device-memory instances and B4's material instance compile apart from the
-# other kernels, so those keep their machine code
-EXTRA_SOURCES = {"fused_rollout": ("fused_rollout_gmem.cu",),
+# device-memory instances, K1's kernels with the resident state and B4's
+# material instance compile apart from the other kernels, so those keep
+# their machine code and the units build side by side
+EXTRA_SOURCES = {"fused_rollout": ("fused_rollout_gmem.cu", "fused_rollout_res.cu"),
                  "fused_rollout_bwd": ("fused_rollout_bwd_mat.cu",)}
 
 _libs: dict = {}
@@ -148,6 +149,15 @@ def library(name: str):
         fn.restype = ctypes.c_int
         _libs[name] = (lib, fn)
     return _libs[name][1]
+
+
+def function(name: str, fn_name: str, argtypes):
+    """Another function of library `name`'s C interface (returning an int),
+    built if needed."""
+    library(name)
+    fn = getattr(_libs[name][0], fn_name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
 
 
 def check(rc: int, what: str):

@@ -33,26 +33,32 @@
 // voxels in flat x-major order and no padding: state (B, 64, V), body
 // (B or 1, 88, V), stats (B, 48), pair table (B or 1, V, V).
 //
-// Design: one block per robot, threads stride over its voxels, and the step
-// loop runs inside the kernel, so a rollout is one launch and every stencil
-// neighbour lies in the same block. Per step: phase A computes each bond
-// (v, d) once and keeps its f1, m1 (for v) and f2, m2 (for v + stride_d) in
+// Design: one block per robot, and the step loop runs inside the kernel,
+// so a rollout is one launch and every stencil neighbour lies in the same
+// block. Per step: phase A computes each bond (v, d) once, one bond item a
+// thread, and keeps its f1, m1 (for v) and f2, m2 (for v + stride_d) in
 // shared memory (36 floats a voxel); with collision on, positions and
 // scales are staged in shared memory (a float4 a voxel, padded to whole
 // 32-voxel groups) beside the pair pass's tile mask and boxes
 // (pair_contact.cuh), and the pass writes its forces there too (3 floats
-// a voxel; k1_buffer_floats). After a barrier, phase B sums the
-// forces of each voxel and integrates it in place. The CoM for the IniCM
-// capture and the divergence test are block reductions. Frozen robots leave
-// the loop.
+// a voxel; k1_buffer_floats). After a barrier, phase B sums the forces of
+// each voxel and integrates it in place, a voxel a thread. Where the buffer
+// and the robot's state fit one block's shared memory together (every
+// evolution body), the state stays there across the launch. The CoM for
+// the IniCM capture and the divergence test are block reductions, each in
+// the order a 256-thread block summed them. Frozen robots leave the loop.
+// The step itself is k1_step.cuh's k1_steps.
 //
-// Bound on this card: the latency of one block's step. The state (and the
-// body, when it is not shared) is read from and written to device memory
-// every step, ~0.4 KB a voxel-step, and only the bond forces stay on chip;
-// but at 10^3 voxels the 144 KB of shared memory leave one 256-thread block
-// on each SM, and a step takes ~40 us whether the batch's state fits in L2
-// (132 robots) or streams from HBM (1024 robots), so the chain of dependent
-// loads and barriers within a block sets the time, not the bytes. With
+// Bound on this card: the latency of one block's step. At 10^3 voxels the
+// 144 KB of bond forces leave one block on each SM, and a step took ~40 us
+// whether the batch's state fit in L2 (132 robots) or streamed from HBM
+// (1024 robots) with 256 threads: the chain of dependent loads and
+// barriers within a block set the time, not the bytes. So each kernel
+// takes as many threads as its registers allow (k1_bound, one block an
+// SM: 512 threads, 384 with the pair pass and the features or materials),
+// phase A runs its 3 V bonds one a thread, and
+// the state of bodies up to ~540 voxels (~580 without contact) never
+// leaves the SM during a launch (k1_step.cuh). With
 // collision on, the pair pass (pair_contact.cuh) reads the robot's table
 // once a launch for a static tile mask, culls 32 x 32 tiles by their
 // groups' boxes every step and walks the hot ones a row a lane, the next
@@ -62,8 +68,7 @@
 // takes K1 to 205-255). Shared memory caps V at 1613 cells (1612 in the
 // feature instance, whose window ring takes 96 bytes), 1339 with
 // collision; past that the device-memory instances (fused_rollout_gmem.cu)
-// run the body. Keeping the state resident on chip across steps and more
-// warps per SM are the levers.
+// run the body.
 //
 // Numerics: built with -fmad=false and without fast math, so every multiply
 // and add rounds as in PyTorch's eager ops and sinf/acosf/sqrtf/division
@@ -71,8 +76,9 @@
 // differences from the plain version on the card are the orders of the two
 // reductions (CoM, pair forces), which the stated tolerances absorb.
 //
-// The step loop itself (rollout_steps) lives in fused_rollout_common.cuh,
-// which the reverse-mode segment kernel (fused_rollout_bwd.cu) shares.
+// The step's device functions live in fused_rollout_common.cuh, which the
+// reverse-mode segment kernel (fused_rollout_bwd.cu) shares; its recompute
+// runs them in the old mapping (rollout_steps), K1 in k1_step.cuh's.
 //
 // The fitness features (sources, needle, fall-over latch, NormDistByVol,
 // speed windows, ballistic development; the JAX kernel's :912-946,
@@ -95,9 +101,9 @@
 // with MDL_DATA), the ring one block reduction a step.
 //
 // Volume effects (B6d: the JAX kernel's :1178-1322 and _bond_dir's vol_ctx
-// path :440-506, :577) compile into a kernel of their own,
-// fused_rollout_vol_kernel: the material instance's step with VOL, with and
-// without the features, so every other instance keeps its machine code.
+// path :440-506, :577) compile into the same kernel's VOL instances
+// (fused_rollout_mat_kernel<FEAT, VOL, ...>), so every other instance keeps
+// its machine code.
 // Per robot it takes a (9, V) scratch in device memory for the coupling's
 // two neighbour exchanges (each bond's strain to the voxel pass, each
 // voxel's transverse sums and sections back to the bond owners) and the
@@ -110,237 +116,16 @@
 // Bodies past one block's shared memory run the device-memory instances of
 // every kernel above (fused_rollout_gmem.cu), launched from this entry when
 // the host hands it a buffer.
-#include "fused_rollout_common.cuh"
+#include "fused_rollout_k1.cuh"
 
-template <int VARIANT, bool FEAT, bool DENSE>
-__global__ void __launch_bounds__(MAX_THREADS)
-fused_rollout_kernel(float* state_all, const float* __restrict__ body_all,
-                     int body_batched, float* stats_all,
-                     const float* __restrict__ a1_all, int a1_batched,
-                     const float* __restrict__ ctrl_all, int n_knots,
-                     int knot_steps, int step_base, int X, int Y, int Z,
-                     int num_steps, Params p, int flags, float* scratch_all,
-                     FeatParams fp) {
-    extern __shared__ float sh[];
-    const int V = X * Y * Z;
-    const int b = blockIdx.x;
-    float* st = state_all + (size_t)b * C_S * V;
-    const float* bo = body_all + (body_batched ? (size_t)b * C_B * V : 0);
-    float* stat = stats_all + (size_t)b * C_STAT;
-    const float* a1 = a1_all ? a1_all + (a1_batched ? (size_t)b * V * V : 0) : nullptr;
-    const float* cu = n_knots > 0 ? ctrl_all + (size_t)b * n_knots * V : nullptr;
-    float* scr = scratch_all ? scratch_all + (size_t)b * 6 * V : nullptr;
-
-    Robot r = load_robot(stat);
-    if constexpr (FEAT) {
-        Feat fe = load_feat(stat);
-        rollout_steps<VARIANT, true, false, false, DENSE>(st, 0, bo, a1, cu, n_knots,
-                                                         knot_steps, step_base, X, Y, Z,
-                                                         num_steps, p, flags, r, nullptr, sh,
-                                                         scr, &fe, &fp);
-        if (threadIdx.x == 0) store_feat(stat, fe, fp, flags);
-    } else {
-        rollout_steps<VARIANT, false, false, false, DENSE>(st, 0, bo, a1, cu, n_knots,
-                                                          knot_steps, step_base, X, Y, Z,
-                                                          num_steps, p, flags, r, nullptr, sh,
-                                                          scr);
-    }
-
-    if (threadIdx.x == 0) {
-        stat[ST_TIME] = r.t;
-        stat[ST_DIV] = r.div ? 1.f : 0.f;
-        stat[ST_INICM] = r.ini.x;
-        stat[ST_INICM + 1] = r.ini.y;
-        stat[ST_INICM + 2] = r.ini.z;
-        stat[ST_CAPT] = r.capt ? 1.f : 0.f;
-    }
-}
-
-template <int VARIANT, bool FEAT>
-static int launch_variant(float* state, const float* body, int body_batched,
-                          float* stats, const float* a1, int a1_batched,
-                          const float* ctrl, int n_knots, int knot_steps,
-                          int step_base, int B, int X, int Y, int Z, int num_steps,
-                          const Params& p, int flags, float* scratch,
-                          const FeatParams& fp, cudaStream_t stream) {
-    const int V = X * Y * Z;
-    const int threads = V >= MAX_THREADS ? MAX_THREADS : ((V + 31) / 32) * 32;
-    const size_t smem = k1_buffer_floats(V, (flags & F_COLL) != 0, 0) * sizeof(float);
-    const auto kernel = k1_dense(flags, a1) ? fused_rollout_kernel<VARIANT, FEAT, true>
-                                            : fused_rollout_kernel<VARIANT, FEAT, false>;
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    kernel<<<B, threads, smem, stream>>>(
-        state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots,
-        knot_steps, step_base, X, Y, Z, num_steps, p, flags, scratch, fp);
-    return (int)cudaGetLastError();
-}
-
-// The material instance: the land variant with MAT, with and without the
-// features. Beside the land kernel's inputs it takes the robot's MDL_DATA
-// tables and BC channels (MatArgs), and its pair table may be the compact
-// (S + 1, S) one. It and the volume kernel are built for one block an SM:
-// ptxas then keeps the step in registers (179 without the features and
-// contact, no spill) where its own target of 128 spilled 192 bytes:
-// 164.6-164.7 against 172.7-174.4 ms on 1024 x 10^3 x 200 without contact
-// (buildcmp, NVIDIA H100 80GB HBM3, 700 W).
-template <bool FEAT, bool DENSE>
-__global__ void __launch_bounds__(MAX_THREADS, 1)
-fused_rollout_mat_kernel(float* state_all, const float* __restrict__ body_all,
-                         int body_batched, float* stats_all,
-                         const float* __restrict__ a1_all, int a1_batched,
-                         const float* __restrict__ ctrl_all, int n_knots,
-                         int knot_steps, int step_base, int X, int Y, int Z,
-                         int num_steps, Params p, int flags, FeatParams fp, MatArgs ma,
-                         int ss_batched, int bc_batched) {
-    extern __shared__ float sh[];
-    const int V = X * Y * Z;
-    const int b = blockIdx.x;
-    float* st = state_all + (size_t)b * C_S * V;
-    const float* bo = body_all + (body_batched ? (size_t)b * C_B * V : 0);
-    float* stat = stats_all + (size_t)b * C_STAT;
-    const size_t tab = ma.n_surf > 0 ? (size_t)(ma.n_surf + 1) * ma.n_surf : (size_t)V * V;
-    const float* a1 = a1_all ? a1_all + (a1_batched ? (size_t)b * tab : 0) : nullptr;
-    const float* cu = n_knots > 0 ? ctrl_all + (size_t)b * n_knots * V : nullptr;
-    ma.bo = bo;
-    if (ma.ss) ma.ss += ss_batched ? (size_t)b * (2 * ma.n_pts + 3) * V : 0;
-    if (ma.bc) ma.bc += bc_batched ? (size_t)b * 15 * V : 0;
-    float ke[6];
-    for (int k = 0; k < 6; ++k) ke[k] = stat[ST_KE + k];
-
-    Robot r = load_robot(stat);
-    if constexpr (FEAT) {
-        Feat fe = load_feat(stat);
-        rollout_steps<V_LAND, true, true, false, DENSE>(st, 0, bo, a1, cu, n_knots,
-                                                        knot_steps, step_base, X, Y, Z,
-                                                        num_steps, p, flags, r, nullptr, sh,
-                                                        nullptr, &fe, &fp, &ma, ke);
-        if (threadIdx.x == 0) store_feat(stat, fe, fp, flags);
-    } else {
-        rollout_steps<V_LAND, false, true, false, DENSE>(st, 0, bo, a1, cu, n_knots,
-                                                         knot_steps, step_base, X, Y, Z,
-                                                         num_steps, p, flags, r, nullptr, sh,
-                                                         nullptr, nullptr, nullptr, &ma, ke);
-    }
-
-    if (threadIdx.x == 0) {
-        if (flags & F_EQUIL)
-            for (int k = 0; k < 6; ++k) stat[ST_KE + k] = ke[k];
-        stat[ST_TIME] = r.t;
-        stat[ST_DIV] = r.div ? 1.f : 0.f;
-        stat[ST_INICM] = r.ini.x;
-        stat[ST_INICM + 1] = r.ini.y;
-        stat[ST_INICM + 2] = r.ini.z;
-        stat[ST_CAPT] = r.capt ? 1.f : 0.f;
-    }
-}
-
-template <bool FEAT>
-static int launch_mat(float* state, const float* body, int body_batched, float* stats,
-                      const float* a1, int a1_batched, const float* ctrl, int n_knots,
-                      int knot_steps, int step_base, int B, int X, int Y, int Z,
-                      int num_steps, const Params& p, int flags, const FeatParams& fp,
-                      const MatArgs& ma, int ss_batched, int bc_batched,
-                      cudaStream_t stream) {
-    const int V = X * Y * Z;
-    const int threads = V >= MAX_THREADS ? MAX_THREADS : ((V + 31) / 32) * 32;
-    // the compact contact pass stages the S surface voxels in place of V
-    const size_t smem = k1_buffer_floats(V, (flags & F_COLL) != 0, ma.n_surf) * sizeof(float);
-    const auto kernel = k1_dense(flags, a1) ? fused_rollout_mat_kernel<FEAT, true>
-                                            : fused_rollout_mat_kernel<FEAT, false>;
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    kernel<<<B, threads, smem, stream>>>(
-        state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots, knot_steps,
-        step_base, X, Y, Z, num_steps, p, flags, fp, ma, ss_batched, bc_batched);
-    return (int)cudaGetLastError();
-}
-
-// The material instance's kernel with VOL. Beside its inputs it takes the
-// volume constants and the (B, 9, V) scratch (VolArgs), and it writes the
-// last step's dt to the stats row.
-template <bool FEAT, bool DENSE>
-__global__ void __launch_bounds__(MAX_THREADS, 1)
-fused_rollout_vol_kernel(float* state_all, const float* __restrict__ body_all,
-                         int body_batched, float* stats_all,
-                         const float* __restrict__ a1_all, int a1_batched,
-                         const float* __restrict__ ctrl_all, int n_knots,
-                         int knot_steps, int step_base, int X, int Y, int Z,
-                         int num_steps, Params p, int flags, FeatParams fp, MatArgs ma,
-                         int ss_batched, int bc_batched, VolArgs va) {
-    extern __shared__ float sh[];
-    const int V = X * Y * Z;
-    const int b = blockIdx.x;
-    float* st = state_all + (size_t)b * C_S * V;
-    const float* bo = body_all + (body_batched ? (size_t)b * C_B * V : 0);
-    float* stat = stats_all + (size_t)b * C_STAT;
-    const size_t tab = ma.n_surf > 0 ? (size_t)(ma.n_surf + 1) * ma.n_surf : (size_t)V * V;
-    const float* a1 = a1_all ? a1_all + (a1_batched ? (size_t)b * tab : 0) : nullptr;
-    const float* cu = n_knots > 0 ? ctrl_all + (size_t)b * n_knots * V : nullptr;
-    ma.bo = bo;
-    if (ma.ss) ma.ss += ss_batched ? (size_t)b * (2 * ma.n_pts + 3) * V : 0;
-    if (ma.bc) ma.bc += bc_batched ? (size_t)b * 15 * V : 0;
-    va.scr += (size_t)b * VOL_SCR * V;
-    float ke[6];
-    for (int k = 0; k < 6; ++k) ke[k] = stat[ST_KE + k];
-
-    Robot r = load_robot(stat);
-    if constexpr (FEAT) {
-        Feat fe = load_feat(stat);
-        rollout_steps<V_LAND, true, true, true, DENSE>(st, 0, bo, a1, cu, n_knots,
-                                                       knot_steps, step_base, X, Y, Z,
-                                                       num_steps, p, flags, r, nullptr, sh,
-                                                       nullptr, &fe, &fp, &ma, ke, &va);
-        if (threadIdx.x == 0) store_feat(stat, fe, fp, flags);
-    } else {
-        rollout_steps<V_LAND, false, true, true, DENSE>(st, 0, bo, a1, cu, n_knots,
-                                                        knot_steps, step_base, X, Y, Z,
-                                                        num_steps, p, flags, r, nullptr, sh,
-                                                        nullptr, nullptr, nullptr, &ma, ke,
-                                                        &va);
-    }
-
-    if (threadIdx.x == 0) {
-        if (flags & F_EQUIL)
-            for (int k = 0; k < 6; ++k) stat[ST_KE + k] = ke[k];
-        stat[ST_TIME] = r.t;
-        stat[ST_DIV] = r.div ? 1.f : 0.f;
-        stat[ST_DT] = r.dt;
-        stat[ST_INICM] = r.ini.x;
-        stat[ST_INICM + 1] = r.ini.y;
-        stat[ST_INICM + 2] = r.ini.z;
-        stat[ST_CAPT] = r.capt ? 1.f : 0.f;
-    }
-}
-
-template <bool FEAT>
-static int launch_vol(float* state, const float* body, int body_batched, float* stats,
-                      const float* a1, int a1_batched, const float* ctrl, int n_knots,
-                      int knot_steps, int step_base, int B, int X, int Y, int Z,
-                      int num_steps, const Params& p, int flags, const FeatParams& fp,
-                      const MatArgs& ma, int ss_batched, int bc_batched, const VolArgs& va,
-                      cudaStream_t stream) {
-    const int V = X * Y * Z;
-    const int threads = V >= MAX_THREADS ? MAX_THREADS : ((V + 31) / 32) * 32;
-    const size_t smem = k1_buffer_floats(V, (flags & F_COLL) != 0, ma.n_surf) * sizeof(float);
-    const auto kernel = k1_dense(flags, a1) ? fused_rollout_vol_kernel<FEAT, true>
-                                            : fused_rollout_vol_kernel<FEAT, false>;
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    kernel<<<B, threads, smem, stream>>>(
-        state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots, knot_steps,
-        step_base, X, Y, Z, num_steps, p, flags, fp, ma, ss_batched, bc_batched, va);
-    return (int)cudaGetLastError();
-}
+// launch_k1<true>: the kernels with the state resident in shared memory
+// (fused_rollout_res.cu, a translation unit of its own in the same library)
+int launch_res(float* state, const float* body, int body_batched, float* stats,
+               const float* a1, int a1_batched, const float* ctrl, int n_knots, int knot_steps,
+               int step_base, int B, int X, int Y, int Z, int num_steps, const Params& p,
+               int flags, float* scratch, const FeatParams& fp, bool feat, const MatArgs* ma,
+               int ss_batched, int bc_batched, const VolArgs* va, int threads,
+               cudaStream_t stream);
 
 // launches the device-memory instance the flags select (fused_rollout_gmem.cu,
 // a translation unit of its own in the same library)
@@ -349,7 +134,7 @@ int launch_gmem(float* state, const float* body, int body_batched, float* stats,
                 int step_base, int B, int X, int Y, int Z, int num_steps, const Params& p,
                 int flags, float* scratch, const FeatParams& fp, bool feat, const MatArgs* ma,
                 int ss_batched, int bc_batched, const VolArgs* va, float* gbuf, int gstride,
-                cudaStream_t st);
+                int threads, cudaStream_t st);
 
 // scratch: (B, 6, V) floats of device memory, needed by the facet-drag
 // variant alone (flags F_FLUID | F_FLUID_MESH), else null. fparams: the
@@ -362,6 +147,9 @@ int launch_gmem(float* state, const float* body, int body_batched, float* stats,
 // memory, and vparams (ops/fused_rollout.py _vol_params); null without the
 // volume bit. gbuf: null for the shared-memory instances; else the
 // device-memory instances run, robot b's bond buffer at gbuf + b * gstride.
+// resident: the state stays in shared memory across the launch
+// (ops/fused_rollout.py k1_resident; refused with gbuf). The block takes
+// k1_threads threads (k1_step.cuh), which fused_rollout_k1_threads reports.
 extern "C" int fused_rollout(float* state, const float* body, int body_batched,
                              float* stats, const float* a1, int a1_batched,
                              const float* ctrl, int n_knots, int knot_steps,
@@ -370,7 +158,8 @@ extern "C" int fused_rollout(float* state, const float* body, int body_batched,
                              float* scratch, const float* fparams, const float* ss,
                              int ss_batched, int n_pts, const float* bc, int bc_batched,
                              int n_surf, const float* mparams, float* vscratch,
-                             const float* vparams, float* gbuf, int gstride, void* stream) {
+                             const float* vparams, float* gbuf, int gstride, int resident,
+                             void* stream) {
     Params p;
     memcpy(&p, params, sizeof(float) * N_PARAMS);
     const FeatParams fp = feat_params_from(fparams);
@@ -392,51 +181,31 @@ extern "C" int fused_rollout(float* state, const float* body, int body_batched,
                         n_pts, (flags & F_COMPACT) ? n_surf : 0, mparams[0]};
     if ((flags & F_VOL) && (vscratch == nullptr || vparams == nullptr))
         return (int)cudaErrorInvalidValue;
-    if (gbuf) {
-        const VolArgs va = (flags & F_VOL) ? VolArgs{vscratch, vparams[0], vparams[1], vparams[2]}
-                                           : VolArgs{nullptr, 0.f, 0.f, 0.f};
+    // the state resident only on chip
+    if (resident && gbuf) return (int)cudaErrorInvalidValue;
+    const int threads = k1_threads(X * Y * Z, mat, k1_dense(flags, a1 != nullptr), feat);
+    const VolArgs va = (flags & F_VOL) ? VolArgs{vscratch, vparams[0], vparams[1], vparams[2]}
+                                       : VolArgs{nullptr, 0.f, 0.f, 0.f};
+    const MatArgs* mp = mat ? &ma : nullptr;
+    const VolArgs* vp = (flags & F_VOL) ? &va : nullptr;
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (gbuf)
         return launch_gmem(state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots,
                            knot_steps, step_base, B, X, Y, Z, num_steps, p, flags, scratch, fp,
-                           feat, mat ? &ma : nullptr, ss_batched, bc_batched,
-                           (flags & F_VOL) ? &va : nullptr, gbuf, gstride,
-                           (cudaStream_t)stream);
-    }
-    if (flags & F_VOL) {
-        const VolArgs va = {vscratch, vparams[0], vparams[1], vparams[2]};
-        return feat ? launch_vol<true>(state, body, body_batched, stats, a1, a1_batched, ctrl,
-                                       n_knots, knot_steps, step_base, B, X, Y, Z, num_steps,
-                                       p, flags, fp, ma, ss_batched, bc_batched, va,
-                                       (cudaStream_t)stream)
-                    : launch_vol<false>(state, body, body_batched, stats, a1, a1_batched,
-                                        ctrl, n_knots, knot_steps, step_base, B, X, Y, Z,
-                                        num_steps, p, flags, fp, ma, ss_batched, bc_batched,
-                                        va, (cudaStream_t)stream);
-    }
-    if (mat) {
-        return feat ? launch_mat<true>(state, body, body_batched, stats, a1, a1_batched, ctrl,
-                                       n_knots, knot_steps, step_base, B, X, Y, Z, num_steps,
-                                       p, flags, fp, ma, ss_batched, bc_batched,
-                                       (cudaStream_t)stream)
-                    : launch_mat<false>(state, body, body_batched, stats, a1, a1_batched,
-                                        ctrl, n_knots, knot_steps, step_base, B, X, Y, Z,
-                                        num_steps, p, flags, fp, ma, ss_batched, bc_batched,
-                                        (cudaStream_t)stream);
-    }
-#define LAUNCH(VARIANT)                                                                   \
-    (feat ? launch_variant<VARIANT, true>(state, body, body_batched, stats, a1, a1_batched, \
-                                          ctrl, n_knots, knot_steps, step_base, B, X, Y, Z,  \
-                                          num_steps, p, flags, scratch, fp,                  \
-                                          (cudaStream_t)stream)                              \
-          : launch_variant<VARIANT, false>(state, body, body_batched, stats, a1,             \
-                                           a1_batched, ctrl, n_knots, knot_steps, step_base, \
-                                           B, X, Y, Z, num_steps, p, flags, scratch, fp,     \
-                                           (cudaStream_t)stream))
-    switch (variant) {
-        case V_FLUID_FACE: return LAUNCH(V_FLUID_FACE);
-        case V_FLUID_MESH: return LAUNCH(V_FLUID_MESH);
-        case V_DEVO: return LAUNCH(V_DEVO);
-        default: return LAUNCH(V_LAND);
-    }
-#undef LAUNCH
+                           feat, mp, ss_batched, bc_batched, vp, gbuf, gstride, threads, s);
+    if (resident)
+        return launch_res(state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots,
+                          knot_steps, step_base, B, X, Y, Z, num_steps, p, flags, scratch, fp,
+                          feat, mp, ss_batched, bc_batched, vp, threads, s);
+    return launch_k1<false>(state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots,
+                            knot_steps, step_base, B, X, Y, Z, num_steps, p, flags, scratch,
+                            fp, feat, mp, ss_batched, bc_batched, vp, threads, s);
 }
 
+// The threads a block of the launch above takes with these V, flags, pair
+// table (a1 given or not) and feature constants: k1_threads
+extern "C" int fused_rollout_k1_threads(int V, int flags, int table, const float* fparams) {
+    const bool feat = (flags & F_FEAT) || feat_params_from(fparams).n_src > 0;
+    return k1_threads(V, (flags & (F_MAT | F_VOL)) != 0,
+                      k1_dense(flags, table != 0), feat);
+}

@@ -1,13 +1,16 @@
 // What the forward rollout kernel (fused_rollout.cu, K1) and the reverse-mode
 // segment kernel (fused_rollout_bwd.cu, B4) share: the packed channel maps,
 // the launch constants, the quaternion helpers, one bond's forward pass
-// (bond_forward) and the block-wide step loop (rollout_steps).
+// (bond_forward) and the block-wide step loop B4's recompute runs
+// (rollout_steps, the old mapping: a thread a voxel and its three bonds;
+// K1 runs k1_step.cuh's k1_steps, which computes the same bits, and the
+// g++ build holds the two against each other in every instance).
 //
 // rollout_steps reads step i's state from slot i of a buffer and writes the
-// new state to slot i + 1, `slot_stride` floats further on. K1 passes a
-// stride of 0, so the state is updated in place as before; B4 passes a tape
-// in device memory, so the forward recompute of a segment leaves the state
-// every step started from, which is what the reverse sweep needs.
+// new state to slot i + 1, `slot_stride` floats further on. B4 passes a
+// tape in device memory, so the forward recompute of a segment leaves the
+// state every step started from, which is what the reverse sweep needs; a
+// stride of 0 updates the state in place, as K1 did.
 //
 // rollout_steps is a template over the step's variant, so that the land
 // step's machine code carries none of the others' registers (B4 recomputes
@@ -79,9 +82,9 @@
 // more block reduction a step, through block_sum3's scratch.
 //
 // Volume effects are a fourth template parameter, VOL, instantiated on top
-// of the material instance in a kernel of its own (fused_rollout.cu,
-// fused_rollout_vol_kernel); with VOL false the step compiles to what it
-// was. They replace _make_kernel:1178-1322 and _bond_dir's vol_ctx path
+// of the material instance (fused_rollout_k1.cuh, fused_rollout_mat_kernel
+// with VOL); with VOL false the step compiles to what it was. They replace
+// _make_kernel:1178-1322 and _bond_dir's vol_ctx path
 // (:440-506, :577), in core/step.py's order of operations: the bond's rest
 // length is L, its stress Eh (1 - u) e + Eh u TSavg with Eh and u the
 // harmonic means of the sides' values, less the thermal term, and its axial
@@ -237,7 +240,7 @@ __host__ __device__ inline int variant_of(int flags) {
     return (flags & F_DEVO) ? V_DEVO : V_LAND;
 }
 
-#define MAX_THREADS 256
+#define MAX_THREADS 256  // B4's block; K1's: k1_step.cuh k1_bound
 #define BF 36  // shared floats per voxel for the bond forces
 
 // Floats of K1's per-robot buffer (dynamic shared memory, or a row of the
@@ -246,7 +249,7 @@ __host__ __device__ inline int variant_of(int flags) {
 // s for the compact pass (n_surf > 0), else the dense pass's float4s and
 // tables (pair_contact.cuh), the whole rounded up to 16 bytes so a twin's
 // rows keep the float4s aligned. ops/fused_rollout.py k1_buffer_floats.
-static inline size_t k1_buffer_floats(int V, bool coll, int n_surf) {
+__host__ __device__ inline size_t k1_buffer_floats(int V, bool coll, int n_surf) {
     if (!coll) return (size_t)BF * V;
     if (n_surf > 0) return (size_t)(BF + 3) * V + 4 * (size_t)n_surf;
     const size_t n = (size_t)(BF + 3) * V + pair_stage_floats(V) + pair_aux_floats(V);
@@ -255,8 +258,8 @@ static inline size_t k1_buffer_floats(int V, bool coll, int n_surf) {
 
 // Whether a K1 launch runs the dense pair pass, and so its DENSE instance
 // (rollout_steps): contact on a V x V table, not the compact one
-static inline bool k1_dense(int flags, const float* a1) {
-    return (flags & F_COLL) && !(flags & F_COMPACT) && a1 != nullptr;
+static inline bool k1_dense(int flags, bool table) {
+    return (flags & F_COLL) && !(flags & F_COMPACT) && table;
 }
 
 // float32 constants, each rounded on the host from the double the Python
@@ -415,6 +418,53 @@ __device__ inline float block_max1(float v, float* red) {
     __syncthreads();
     float m = red[0];
     for (int w = 1; w < (int)((blockDim.x + 31) >> 5); ++w) m = fmaxf(m, red[w]);
+    __syncthreads();
+    return m;
+}
+
+// block_sum3 and block_min3 over the partials of the block's first P
+// threads alone (P a multiple of 32, or 1 in the host build), folded over
+// P / 32 warps whatever blockDim.x is: K1's step (k1_step.cuh) keeps the
+// partition of voxels to partials that its 256-thread blocks had, so its
+// sums keep their bits at any block size. The others' partials are unread.
+__device__ inline F3 part_sum3(F3 v, float* red, int P) {
+    v.x = warp_sum(v.x);
+    v.y = warp_sum(v.y);
+    v.z = warp_sum(v.z);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0 && (int)threadIdx.x < P) {
+        red[3 * warp] = v.x;
+        red[3 * warp + 1] = v.y;
+        red[3 * warp + 2] = v.z;
+    }
+    __syncthreads();
+    F3 s = {0.f, 0.f, 0.f};
+    for (int w = 0; w < ((P + 31) >> 5); ++w) {
+        s.x += red[3 * w];
+        s.y += red[3 * w + 1];
+        s.z += red[3 * w + 2];
+    }
+    __syncthreads();
+    return s;
+}
+
+__device__ inline F3 part_min3(F3 v, float* red, int P) {
+    v.x = warp_min(v.x);
+    v.y = warp_min(v.y);
+    v.z = warp_min(v.z);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0 && (int)threadIdx.x < P) {
+        red[3 * warp] = v.x;
+        red[3 * warp + 1] = v.y;
+        red[3 * warp + 2] = v.z;
+    }
+    __syncthreads();
+    F3 m = {red[0], red[1], red[2]};
+    for (int w = 1; w < ((P + 31) >> 5); ++w) {
+        m.x = fminf(m.x, red[3 * w]);
+        m.y = fminf(m.y, red[3 * w + 1]);
+        m.z = fminf(m.z, red[3 * w + 2]);
+    }
     __syncthreads();
     return m;
 }
@@ -1148,11 +1198,15 @@ __device__ __forceinline__ float vol_norm(float dy, float v1, float v2, const Fe
 // from, in the JAX kernel's order: source distances (VX_Sim.cpp:2527-2558,
 // a history sample every 50 steps), end-of-life posterior Y (:1078-1082),
 // the needle's position at actuation onset (:1084-1088), the fall-over
-// latch (:1412-1419). Returns the latch.
+// latch (:1412-1419). Returns the latch. P: the threads whose partials the
+// reductions fold (part_sum3), each over voxels tid, tid + P, ...; by
+// default the whole block.
 __device__ inline bool feat_top(Feat& fe, const FeatParams& fp, const Params& p,
                                 const float* si, const float* bo, int V, int i, int i_glob,
-                                float t, float stop_t, float init_cm, int flags, float* red) {
-    const int T = blockDim.x;
+                                float t, float stop_t, float init_cm, int flags, float* red,
+                                int P = -1) {
+    const int T = P < 0 ? (int)blockDim.x : P;
+    const int v0 = (int)threadIdx.x < T ? (int)threadIdx.x : V;  // the others sum nothing
     const float* px = si + (size_t)S_POS * V;
     const float* py = px + V;
     const float* pz = py + V;
@@ -1172,7 +1226,7 @@ __device__ inline bool feat_top(Feat& fe, const FeatParams& fp, const Params& p,
                          c[2] + c[5] * sinf(c[8] * tau)};
             m[k] = 3.4e38f;
         }
-        for (int v = threadIdx.x; v < V; v += T) {
+        for (int v = v0; v < V; v += T) {
             if (!(occ[v] > 0.5f)) continue;
 #pragma unroll
             for (int k = 0; k < MAX_SRC; ++k) {
@@ -1181,7 +1235,7 @@ __device__ inline bool feat_top(Feat& fe, const FeatParams& fp, const Params& p,
                 m[k] = fminf(m[k], dx * dx + dy * dy + dz * dz);
             }
         }
-        const F3 mn = block_min3({m[0], m[1], m[2]}, red);
+        const F3 mn = part_min3({m[0], m[1], m[2]}, red, T);
         const float mk[MAX_SRC] = {mn.x, mn.y, mn.z};
         const bool hist = i % 50 == 0;  // UPDATE_SOURCES_HIST_EVERY
 #pragma unroll
@@ -1196,9 +1250,9 @@ __device__ inline bool feat_top(Feat& fe, const FeatParams& fp, const Params& p,
     if (fe.eolcap < 0.5f && t >= stop_t) {
         // min voxel y over non-obstacle voxels, lattice units
         float m = 3.4e38f;
-        for (int v = threadIdx.x; v < V; v += T)
+        for (int v = v0; v < V; v += T)
             if (occ[v] > 0.5f && fabsf(mat[v] - 5.f) > 0.5f) m = fminf(m, py[v] * fp.inv_l);
-        fe.eoly = block_min3({m, m, m}, red).x;
+        fe.eoly = part_min3({m, m, m}, red, T).x;
         fe.eolcap = 1.f;
     }
     if (flags & F_NEEDLE) {
@@ -1207,15 +1261,15 @@ __device__ inline bool feat_top(Feat& fe, const FeatParams& fp, const Params& p,
             // masked mean over the mat-7 voxels
             F3 part = {0.f, 0.f, 0.f};
             float n7 = 0.f;
-            for (int v = threadIdx.x; v < V; v += T) {
+            for (int v = v0; v < V; v += T) {
                 const float is7 = fabsf(mat[v] - 7.f) < 0.5f ? 1.f : 0.f;
                 part.x += is7 * px[v];
                 part.y += is7 * py[v];
                 part.z += is7 * pz[v];
                 n7 += is7;
             }
-            const F3 s = block_sum3(part, red);
-            const float n = fmaxf(block_sum3({n7, 0.f, 0.f}, red).x, 1.f);
+            const F3 s = part_sum3(part, red, T);
+            const float n = fmaxf(part_sum3({n7, 0.f, 0.f}, red, T).x, 1.f);
             fe.needle[0] = s.x / n;
             fe.needle[1] = s.y / n;
             fe.needle[2] = s.z / n;
@@ -1226,12 +1280,12 @@ __device__ inline bool feat_top(Feat& fe, const FeatParams& fp, const Params& p,
         // more mat-6 feet than other voxels touching the floor
         const float* scale = si + (size_t)S_SCALE * V;
         F3 cnt = {0.f, 0.f, 0.f};
-        for (int v = threadIdx.x; v < V; v += T) {
+        for (int v = v0; v < V; v += T) {
             if (!(0.5f * scale[v] - pz[v] > 0.f && occ[v] > 0.5f)) continue;
             cnt.x += 1.f;
             if (fabsf(mat[v] - 6.f) < 0.5f) cnt.y += 1.f;
         }
-        const F3 c = block_sum3(cnt, red);
+        const F3 c = part_sum3(cnt, red, T);
         if (c.y > c.x - c.y) fe.fell = 1.f;
     }
     return (flags & F_FALLING) && fe.fell > 0.5f;
@@ -1355,6 +1409,13 @@ __device__ inline void ballistic_rebase(float t, const float dv[6], float orig, 
 // and out. DENSE (K1 only): contact through the dense pair pass on the V x V
 // table a1 (pair_contact.cuh); the host launches these instances for
 // contact without the compact table, so the others hold no pair pass.
+//
+// K1 runs k1_steps (k1_step.cuh) instead: the same step with another
+// mapping of work to threads. Until B4's redesign retires this loop (the
+// next slice, ROADMAP B.3), a fix to the step's physics goes into both;
+// tests/test_torch_k1_host.py::test_new_step_loop_is_bit_equal_to_the_old
+// holds the two bit for bit in every K1 instance and fails where one of
+// them moves alone.
 template <int VARIANT, bool FEAT = false, bool MAT = false, bool VOL = false,
           bool DENSE = false>
 __device__ inline int rollout_steps(float* st, size_t slot_stride, const float* bo,

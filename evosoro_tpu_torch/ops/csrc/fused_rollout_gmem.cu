@@ -8,7 +8,7 @@
 // here: fused_rollout_gmem_kernel<VARIANT, FEAT, DENSE> (the land, face-drag,
 // facet-drag and development variants, with and without the features) and
 // fused_rollout_mat_gmem_kernel<FEAT, VOL, DENSE> (the material and volume
-// instances). Each hands rollout_steps (fused_rollout_common.cuh) the
+// instances). Each hands k1_steps (k1_step.cuh) the
 // robot's slice of a buffer in device memory (a row of k1_buffer_floats a
 // robot, a multiple of 4 floats so the pair pass's float4s stay aligned) in
 // place of dynamic shared memory: the same carve. The step is the same
@@ -31,13 +31,14 @@
 // 200 steps it takes 1.47 x the shared instance's time (89.1 against 60.6
 // ms, NVIDIA H100 80GB HBM3, 700 W): the price of the buffer's place. A
 // cluster of blocks sharing the robot through distributed shared memory
-// would keep it on chip.
-#include "fused_rollout_common.cuh"
+// would keep it on chip. The twins take the shared kernels' bond-item
+// mapping and block sizes (k1_bound), not their resident state.
+#include "k1_step.cuh"
 
 // The device-memory instance of fused_rollout_kernel: robot b's bond
 // buffer is gbuf + b * gstride (gstride floats, at least F * V).
 template <int VARIANT, bool FEAT, bool DENSE>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(k1_bound(false, DENSE, FEAT), 1)
 fused_rollout_gmem_kernel(float* state_all, const float* __restrict__ body_all,
                           int body_batched, float* stats_all,
                           const float* __restrict__ a1_all, int a1_batched,
@@ -58,16 +59,14 @@ fused_rollout_gmem_kernel(float* state_all, const float* __restrict__ body_all,
     Robot r = load_robot(stat);
     if constexpr (FEAT) {
         Feat fe = load_feat(stat);
-        rollout_steps<VARIANT, true, false, false, DENSE>(st, 0, bo, a1, cu, n_knots,
-                                                         knot_steps, step_base, X, Y, Z,
-                                                         num_steps, p, flags, r, nullptr, buf,
-                                                         scr, &fe, &fp);
+        k1_steps<VARIANT, true, false, false, DENSE>(st, bo, a1, cu, n_knots, knot_steps,
+                                                     step_base, X, Y, Z, num_steps, p, flags,
+                                                     r, buf, scr, &fe, &fp);
         if (threadIdx.x == 0) store_feat(stat, fe, fp, flags);
     } else {
-        rollout_steps<VARIANT, false, false, false, DENSE>(st, 0, bo, a1, cu, n_knots,
-                                                          knot_steps, step_base, X, Y, Z,
-                                                          num_steps, p, flags, r, nullptr, buf,
-                                                          scr);
+        k1_steps<VARIANT, false, false, false, DENSE>(st, bo, a1, cu, n_knots, knot_steps,
+                                                      step_base, X, Y, Z, num_steps, p, flags,
+                                                      r, buf, scr);
     }
 
     if (threadIdx.x == 0) {
@@ -83,7 +82,7 @@ fused_rollout_gmem_kernel(float* state_all, const float* __restrict__ body_all,
 // The device-memory instance of the material (VOL false) and volume (VOL
 // true) kernels.
 template <bool FEAT, bool VOL, bool DENSE>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(k1_bound(true, DENSE, FEAT), 1)
 fused_rollout_mat_gmem_kernel(float* state_all, const float* __restrict__ body_all,
                               int body_batched, float* stats_all,
                               const float* __restrict__ a1_all, int a1_batched,
@@ -111,17 +110,15 @@ fused_rollout_mat_gmem_kernel(float* state_all, const float* __restrict__ body_a
     Robot r = load_robot(stat);
     if constexpr (FEAT) {
         Feat fe = load_feat(stat);
-        rollout_steps<V_LAND, true, true, VOL, DENSE>(st, 0, bo, a1, cu, n_knots,
-                                                      knot_steps, step_base, X, Y, Z,
-                                                      num_steps, p, flags, r, nullptr, buf,
-                                                      nullptr, &fe, &fp, &ma, ke, &va);
+        k1_steps<V_LAND, true, true, VOL, DENSE>(st, bo, a1, cu, n_knots, knot_steps,
+                                                 step_base, X, Y, Z, num_steps, p, flags, r,
+                                                 buf, nullptr, &fe, &fp, &ma, ke, &va);
         if (threadIdx.x == 0) store_feat(stat, fe, fp, flags);
     } else {
-        rollout_steps<V_LAND, false, true, VOL, DENSE>(st, 0, bo, a1, cu, n_knots,
-                                                       knot_steps, step_base, X, Y, Z,
-                                                       num_steps, p, flags, r, nullptr, buf,
-                                                       nullptr, nullptr, nullptr, &ma, ke,
-                                                       &va);
+        k1_steps<V_LAND, false, true, VOL, DENSE>(st, bo, a1, cu, n_knots, knot_steps,
+                                                  step_base, X, Y, Z, num_steps, p, flags, r,
+                                                  buf, nullptr, nullptr, nullptr, &ma, ke,
+                                                  &va);
     }
 
     if (threadIdx.x == 0) {
@@ -144,10 +141,8 @@ int launch_gmem(float* state, const float* body, int body_batched, float* stats,
                 int step_base, int B, int X, int Y, int Z, int num_steps, const Params& p,
                 int flags, float* scratch, const FeatParams& fp, bool feat, const MatArgs* ma,
                 int ss_batched, int bc_batched, const VolArgs* va, float* gbuf, int gstride,
-                cudaStream_t st) {
-    const int V = X * Y * Z;
-    const int threads = V >= MAX_THREADS ? MAX_THREADS : ((V + 31) / 32) * 32;
-    const bool dense = k1_dense(flags, a1);
+                int threads, cudaStream_t st) {
+    const bool dense = k1_dense(flags, a1 != nullptr);
 #define MAT_GMEM(FEAT, VOL)                                                                   \
     do {                                                                                      \
         const auto k = dense ? fused_rollout_mat_gmem_kernel<FEAT, VOL, true>                \

@@ -266,6 +266,33 @@ def k1_instance(V: int, collision: bool, n_surf=None) -> str:
     return "shared" if k1_fits(V, collision, n_surf) else "device"
 
 
+def k1_resident(V: int, collision: bool, n_surf=None) -> bool:
+    """True when the robot's state (C_S x V floats) stays in K1's shared
+    memory across a launch: where it fits beside the buffer
+    (`k1_buffer_floats`) and the static part, about V <= 540 with contact
+    and V <= 580 without, every evolution body."""
+    return (k1_buffer_floats(V, collision, n_surf) + C_S * V) * 4 + _K1_STATIC_SMEM \
+        <= _SMEM_BYTES
+
+
+def k1_launch_shape(grid_shape, flags: dict, scalars: dict, n_surf=None) -> dict:
+    """How K1 runs a launch of these flags and scalars on this grid
+    (`n_surf`: the compact table's surface count): `instance` ("shared" or
+    "device", `k1_instance`), whether the state is `resident` in shared
+    memory (`k1_resident`, shared instances only) and the `threads` a block
+    that the launcher takes (csrc/k1_step.cuh `k1_threads`, asked of the
+    built library: this needs the CUDA toolkit)."""
+    V = int(np.prod(grid_shape))
+    coll = bool(flags.get("collision"))
+    instance = k1_instance(V, coll, n_surf)
+    threads = build.function("fused_rollout", "fused_rollout_k1_threads",
+                             [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    return dict(instance=instance,
+                threads=threads(V, _flag_bits(flags), int(coll),
+                                _feat_params(scalars, flags).ctypes.data_as(ctypes.c_void_p)),
+                resident=instance == "shared" and k1_resident(V, coll, n_surf))
+
+
 def _bond_buffer(B: int, floats: int, device):
     """The device-memory instances' (B, floats) buffer, a row a robot (the
     kernel reads the row stride)."""
@@ -1622,6 +1649,7 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     gmem = k1_instance(V, coll, n_surf) == "device"
+    resident = not gmem and k1_resident(V, coll, n_surf)
     bits = _flag_bits(flags)
     mesh = bool(bits & _K1_FLAG_BITS["fluid_mesh"])
     vol = bool(bits & _K1_FLAG_BITS["volume"])
@@ -1658,7 +1686,8 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
                 fparams.ctypes.data_as(ctypes.c_void_p), *tables,
                 vscratch.data_ptr() if vol else None,
                 vparams.ctypes.data_as(ctypes.c_void_p) if vol else None,
-                gbuf.data_ptr() if gmem else None, gbuf.stride(0) if gmem else 0, stream)
+                gbuf.data_ptr() if gmem else None, gbuf.stride(0) if gmem else 0,
+                int(resident), stream)
     build.check(rc, "fused_rollout")
     global FUSED_ROLLOUT_LAUNCHES, FUSED_ROLLOUT_CONTACT_LAUNCHES
     global FUSED_ROLLOUT_KNOT_LAUNCHES, FUSED_ROLLOUT_FLUID_LAUNCHES

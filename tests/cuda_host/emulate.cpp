@@ -8,11 +8,52 @@
 // (test_torch_materials.py), its volume instance (test_torch_volume.py),
 // B4's material instance (test_torch_b4_host.py) and the dense pair pass
 // of pair_contact.cuh, alone (emu_pair) and inside K1 (emu_fwd_contact;
-// tests/test_torch_pair_host.py).
+// tests/test_torch_pair_host.py). K1's entry points run k1_step.cuh's step
+// loop, or (emu_set_step) the old one B4 recomputes with, so the two can be
+// held bit for bit (tests/test_torch_k1_host.py).
 #define EVOSORO_HOST_EMULATION
 #include <vector>
 
 #include "fused_rollout_bwd.cu"
+#include "k1_step.cuh"
+
+// The step loop K1's entry points below run: 0, rollout_steps in place
+// (the old mapping, which B4's recompute keeps); 1, k1_steps on the state
+// in place; 2, k1_steps with the state resident past the buffer
+static int emu_step = 1;
+extern "C" void emu_set_step(int mode) { emu_step = mode; }
+
+// K1's block size and its kernels' bound (k1_step.cuh), as the card's
+// launcher takes them (tests/test_torch_big_body.py)
+extern "C" int emu_k1_threads(int V, int mat, int dense, int feat) {
+    return k1_threads(V, mat != 0, dense != 0, feat != 0);
+}
+extern "C" int emu_k1_bound(int mat, int dense, int feat) {
+    return k1_bound(mat != 0, dense != 0, feat != 0);
+}
+
+// floats of an emulated block's buffer: the largest K1 takes at V, and the
+// state's copy
+static size_t emu_buffer_floats(int V) { return k1_buffer_floats(V, true, 0) + (size_t)C_S * V; }
+
+template <int VARIANT, bool FEAT, bool MAT = false, bool VOL = false, bool DENSE = false>
+static void emu_steps(float* st, const float* bo, const float* a1, const float* cu, int n_knots,
+                      int knot_steps, int step_base, int X, int Y, int Z, int num_steps,
+                      const Params& p, int flags, Robot& r, float* sh, float* scr, Feat* fe,
+                      const FeatParams* fp, const MatArgs* ma, float* ke, const VolArgs* va) {
+    if (emu_step == 0)
+        rollout_steps<VARIANT, FEAT, MAT, VOL, DENSE>(st, 0, bo, a1, cu, n_knots, knot_steps,
+                                                      step_base, X, Y, Z, num_steps, p, flags,
+                                                      r, nullptr, sh, scr, fe, fp, ma, ke, va);
+    else if (emu_step == 1)
+        k1_steps<VARIANT, FEAT, MAT, VOL, DENSE, false>(st, bo, a1, cu, n_knots, knot_steps,
+                                                        step_base, X, Y, Z, num_steps, p, flags,
+                                                        r, sh, scr, fe, fp, ma, ke, va);
+    else
+        k1_steps<VARIANT, FEAT, MAT, VOL, DENSE, true>(st, bo, a1, cu, n_knots, knot_steps,
+                                                       step_base, X, Y, Z, num_steps, p, flags,
+                                                       r, sh, scr, fe, fp, ma, ke, va);
+}
 template <int VARIANT, bool FEAT>
 static void emu_fwd_variant(float* state, const float* body, int body_batched, float* stats,
                             const float* ctrl, int n_knots, int knot_steps, int step_base,
@@ -20,18 +61,19 @@ static void emu_fwd_variant(float* state, const float* body, int body_batched, f
                             int flags, const FeatParams& fp, const float* a1 = nullptr,
                             int a1_batched = 0) {
     const int V = X * Y * Z;
-    std::vector<float> sh(k1_buffer_floats(V, true, 0)), scr((size_t)6 * V);
+    std::vector<float> sh(emu_buffer_floats(V)), scr((size_t)6 * V);
     for (int b = 0; b < B; ++b) {
         float* stat = stats + (size_t)b * C_STAT;
         Robot r = load_robot(stat);
         Feat fe = load_feat(stat);
         // the dense pass's instance when handed a table with contact on (k1_dense)
-        const auto run = k1_dense(flags, a1) ? rollout_steps<VARIANT, FEAT, false, false, true>
-                                             : rollout_steps<VARIANT, FEAT>;
-        run(state + (size_t)b * C_S * V, 0, body + (body_batched ? (size_t)b * C_B * V : 0),
+        const auto run = k1_dense(flags, a1 != nullptr)
+                             ? emu_steps<VARIANT, FEAT, false, false, true>
+                             : emu_steps<VARIANT, FEAT>;
+        run(state + (size_t)b * C_S * V, body + (body_batched ? (size_t)b * C_B * V : 0),
             a1 ? a1 + (a1_batched ? (size_t)b * V * V : 0) : nullptr,
             n_knots ? ctrl + (size_t)b * n_knots * V : nullptr, n_knots, knot_steps, step_base,
-            X, Y, Z, num_steps, p, flags, r, nullptr, sh.data(), scr.data(), &fe, &fp, nullptr,
+            X, Y, Z, num_steps, p, flags, r, sh.data(), scr.data(), &fe, &fp, nullptr,
             nullptr, nullptr);
         if (FEAT) store_feat(stat, fe, fp, flags);
         stat[ST_TIME] = r.t; stat[ST_DIV] = r.div ? 1.f : 0.f;
@@ -133,7 +175,7 @@ extern "C" void emu_fwd_mat(float* state, const float* body, int body_batched, f
     const FeatParams fp = feat_params_from(fparams);
     const bool feat = (flags & F_FEAT) || fp.n_src > 0;
     const int V = X * Y * Z;
-    std::vector<float> sh(k1_buffer_floats(V, true, 0)), scr((size_t)6 * V);
+    std::vector<float> sh(emu_buffer_floats(V)), scr((size_t)6 * V);
     for (int b = 0; b < B; ++b) {
         float* stat = stats + (size_t)b * C_STAT;
         const float* bo = body + (body_batched ? (size_t)b * C_B * V : 0);
@@ -146,13 +188,13 @@ extern "C" void emu_fwd_mat(float* state, const float* body, int body_batched, f
         Feat fe = load_feat(stat);
         float* st = state + (size_t)b * C_S * V;
         if (feat)
-            rollout_steps<V_LAND, true, true>(st, 0, bo, nullptr, nullptr, 0, 1, 0, X, Y, Z,
-                                              num_steps, p, flags, r, nullptr, sh.data(),
-                                              scr.data(), &fe, &fp, &ma, ke);
+            emu_steps<V_LAND, true, true>(st, bo, nullptr, nullptr, 0, 1, 0, X, Y, Z, num_steps,
+                                          p, flags, r, sh.data(), scr.data(), &fe, &fp, &ma, ke,
+                                          nullptr);
         else
-            rollout_steps<V_LAND, false, true>(st, 0, bo, nullptr, nullptr, 0, 1, 0, X, Y, Z,
-                                               num_steps, p, flags, r, nullptr, sh.data(),
-                                               scr.data(), nullptr, nullptr, &ma, ke);
+            emu_steps<V_LAND, false, true>(st, bo, nullptr, nullptr, 0, 1, 0, X, Y, Z, num_steps,
+                                           p, flags, r, sh.data(), scr.data(), nullptr, nullptr,
+                                           &ma, ke, nullptr);
         if (feat) store_feat(stat, fe, fp, flags);
         if (flags & F_EQUIL)
             for (int k = 0; k < 6; ++k) stat[ST_KE + k] = ke[k];
@@ -170,10 +212,10 @@ static void emu_vol_robot(float* st, const float* bo, const float* a1, int X, in
                           int num_steps, const Params& p, int flags, Robot& r, float* sh,
                           Feat* fe, const FeatParams* fp, const MatArgs* ma, float* ke,
                           const VolArgs* va) {
-    const auto run = k1_dense(flags, a1) ? rollout_steps<V_LAND, FEAT, true, VOL, true>
-                                         : rollout_steps<V_LAND, FEAT, true, VOL>;
-    run(st, 0, bo, a1, nullptr, 0, 1, 0, X, Y, Z, num_steps, p, flags, r, nullptr, sh, nullptr,
-        fe, fp, ma, ke, va);
+    const auto run = k1_dense(flags, a1 != nullptr) ? emu_steps<V_LAND, FEAT, true, VOL, true>
+                                         : emu_steps<V_LAND, FEAT, true, VOL>;
+    run(st, bo, a1, nullptr, 0, 1, 0, X, Y, Z, num_steps, p, flags, r, sh, nullptr, fe, fp, ma,
+        ke, va);
 }
 extern "C" void emu_fwd_vol(float* state, const float* body, int body_batched, float* stats,
                             const float* a1, int a1_batched, int n_surf, int B, int X, int Y,
@@ -187,7 +229,7 @@ extern "C" void emu_fwd_vol(float* state, const float* body, int body_batched, f
     const bool vol = (flags & F_VOL) != 0;
     const int V = X * Y * Z;
     const size_t tab = n_surf > 0 ? (size_t)(n_surf + 1) * n_surf : (size_t)V * V;
-    std::vector<float> sh(k1_buffer_floats(V, true, 0)), vscr((size_t)VOL_SCR * V);
+    std::vector<float> sh(emu_buffer_floats(V)), vscr((size_t)VOL_SCR * V);
     for (int b = 0; b < B; ++b) {
         float* stat = stats + (size_t)b * C_STAT;
         const float* bo = body + (body_batched ? (size_t)b * C_B * V : 0);

@@ -98,6 +98,38 @@ def test_instance_choice_at_the_shared_ceilings(V, coll, n_surf, want):
         (dense + 3) // 4 * 4 if coll else 36 * V)
 
 
+@pytest.mark.parametrize("coll", [False, True])
+@pytest.mark.parametrize("shape", [(5, 5, 4), (6, 6, 6), (7, 7, 7), (8, 8, 8), (10, 10, 10),
+                                   (12, 12, 12)])
+def test_block_size_and_resident_state(host_lib, shape, coll):  # noqa: F811
+    """K1's block, as csrc/k1_step.cuh's `k1_threads` gives it to the
+    launcher (built here by g++): a thread a bond item (3 V rounded up to a
+    warp) up to the kernel's __launch_bounds__ (`k1_bound`, which the
+    kernels are built with), never fewer than the reductions' partition
+    (the old block, min(V rounded up, 256)) nor more than 1024. The state
+    stays resident in shared memory where it fits beside the buffer and the
+    static part in 232448 bytes (227 KB): through 8^3 with and without
+    contact (V <= 540 with it, 580 without), not at 10^3 or 12^3."""
+    import math
+
+    V = math.prod(shape)
+    for mat in (False, True):
+        for feat in (False, True):
+            T = host_lib.emu_k1_threads(V, mat, coll, feat)
+            bound = host_lib.emu_k1_bound(mat, coll, feat)
+            assert T % 32 == 0
+            assert min(256, (V + 31) // 32 * 32) <= T <= bound <= 1024
+            assert T == min(bound, (3 * V + 31) // 32 * 32)
+            # 384 only where the dense pass meets the features or materials
+            assert bound == (384 if coll and (mat or feat) else 512)
+    need = (fr.k1_buffer_floats(V, coll) + fr.C_S * V) * 4 + fr._K1_STATIC_SMEM
+    assert fr.k1_resident(V, coll) == (need <= 232448) == (V <= 512)
+    assert fr.k1_resident(540 if coll else 580, coll)
+    assert not fr.k1_resident(541 if coll else 581, coll)
+    if fr.k1_resident(V, coll):
+        assert fr.k1_instance(V, coll) == "shared"
+
+
 @pytest.mark.parametrize("n", [12, 13])
 def test_supports_big_bodies(n):
     """`supports()` is true at 12^3 and 13^3 with and without contact, and

@@ -379,3 +379,147 @@ def test_host_compiled_material_instance_matches_plain(host_lib, case, tmp_path)
         for out in (out_h, out_p):
             assert torch.equal(out[:, fr._POS:fr._POS + 3][:, :, pinned],
                                nom[:, pinned].expand(2, -1, -1))
+
+
+# K1's step loop (`csrc/k1_step.cuh`: bond items, the state resident in
+# shared memory, the reductions' fixed partition) against the one B4's
+# recompute keeps (`rollout_steps`, the old mapping), both built by g++
+# (`emu_set_step`: 0 the old loop, 1 the new one on the state in place, 2
+# with the state resident past the buffer). The new loop changes only which
+# thread does which piece of work and where the state lives, so the three
+# must agree bit for bit in every instance. One thread a block here: this
+# holds the bond-item indexing, the resident copy in and out and the
+# buffer's carve, not the thread mapping (the card's `chip_smoke.py --step`
+# and `--land` digests hold that).
+_MODES = (0, 1, 2)
+
+
+def _squeezed(args, factors=(0.6, 0.7)):
+    """The state with each robot's occupied voxels pulled toward their centre,
+    so far surface voxels touch and the pair pass has work."""
+    state, body, stats, table = args
+    occ = body[0, fr._B_OCC] > 0.5
+    state = state.clone()
+    for b in range(state.shape[0]):
+        p = state[b, fr._POS:fr._POS + 3]
+        c = p[:, occ].mean(1, keepdim=True)
+        f = factors[b % len(factors)]
+        state[b, fr._POS:fr._POS + 3] = torch.where(occ, c + f * (p - c), p)
+    return state, body, stats, table
+
+
+def _stirred(args, seed=3):
+    """The state with random momenta and small turns on every occupied voxel,
+    so that every channel of the pose and momenta moves within a few steps."""
+    state, body, stats, table = args
+    rng = np.random.default_rng(seed)
+    occ = body[:, fr._B_OCC] > 0.5
+    state = state.clone()
+    B, _, V = state.shape
+    for ch, sd in ((fr._LIN, 1e-4), (fr._ANG, 1e-6)):
+        kick = torch.as_tensor(rng.normal(0, sd, size=(B, 3, V)), dtype=torch.float32)
+        state[:, ch:ch + 3] = state[:, ch:ch + 3] + torch.where(occ[:, None], kick, 0.0)
+    q = torch.cat([torch.ones((B, 1, V)), torch.as_tensor(
+        rng.normal(0, 2e-2, size=(B, 3, V)), dtype=torch.float32)], 1)
+    q = q / q.norm(dim=1, keepdim=True)
+    state[:, fr._QUAT:fr._QUAT + 4] = torch.where(occ[:, None], q, state[:, fr._QUAT:fr._QUAT + 4])
+    return state, body, stats, table
+
+
+def _host_any(lib, args, kw, steps):
+    """One emulated K1 launch through the entry its flags take: the material
+    and volume instances through `emu_fwd_vol` (with the dense or compact
+    pair table when given), contact through `emu_fwd_contact`, the rest
+    through `emu_fwd`."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    state, body, stats, table = args
+    B, X, Y, Z = state.shape[0], *kw["grid_shape"]
+    flags = kw["flags"]
+    if not any(flags.get(k) for k in fr._K1_MAT_FLAGS):
+        if table is None:
+            return _host(lib, args, kw, steps)
+        lib.emu_fwd_contact.argtypes = [P, P, I, P, P] + [I] * 8 + [P, I, P, P, I]
+        st, sa = state.clone(), stats.clone()
+        lib.emu_fwd_contact(st.data_ptr(), body.data_ptr(), int(body.shape[0] == B and B > 1),
+                            sa.data_ptr(), torch.zeros((B, 1, X * Y * Z)).data_ptr(), 0, steps,
+                            0, B, X, Y, Z, steps,
+                            fr._k1_params(kw["scalars"], fr.DEFAULT_PRECISION).ctypes.data,
+                            fr._flag_bits(flags), fr._feat_params(kw["scalars"], flags)
+                            .ctypes.data, table.data_ptr(), int(table.shape[0] == B and B > 1))
+        return st, sa
+    lib.emu_fwd_vol.argtypes = [P, P, I, P, P, I] + [I] * 6 + [P, I, P, P, I, I, P, I, P, P]
+    scalars = fr.equilibrium_scalars(kw["scalars"]) if flags.get("equilibrium") \
+        else kw["scalars"]
+    ss, bc = kw.get("ss_packed"), kw.get("bc_packed")
+
+    def batched(t):
+        return int(t is not None and t.shape[0] == B and B > 1)
+
+    st, sa = state.clone(), stats.clone()
+    lib.emu_fwd_vol(st.data_ptr(), body.data_ptr(), batched(body), sa.data_ptr(),
+                    table.data_ptr() if table is not None else None, batched(table),
+                    table.shape[-1] if flags.get("collision_compact") else 0, B, X, Y, Z, steps,
+                    fr._k1_params(scalars, fr.DEFAULT_PRECISION).ctypes.data,
+                    fr._flag_bits(flags), fr._feat_params(kw["scalars"], flags).ctypes.data,
+                    ss.data_ptr() if ss is not None else None, batched(ss),
+                    (ss.shape[1] - 3) // 2 if ss is not None else 0,
+                    bc.data_ptr() if bc is not None else None, batched(bc),
+                    fr._mat_params(kw["scalars"]).ctypes.data,
+                    fr._vol_params(kw["scalars"]).ctypes.data)
+    return st, sa
+
+
+def _step_case(case):
+    """(args, kw) of each instance at 3^3-5^3, two robots."""
+    if case == "land":
+        args, kw, _ = bench.packed_workload(2, n=4, device="cpu")
+    elif case == "land_contact":
+        args, kw, _ = bench.packed_workload(2, n=5, collision=True, device="cpu")
+        args = _squeezed(args)
+    elif case in ("face", "facet"):
+        args, kw, _ = bench.packed_workload(2, n=3, device="cpu",
+                                            fluid="face" if case == "face" else "mesh")
+    elif case == "development":
+        args, kw, _ = bench.packed_workload(2, n=4, device="cpu", devo=True, freeze=True)
+    elif case == "features":
+        args, kw, _ = bench.packed_workload(2, n=4, collision=True, device="cpu")
+        kw = bench.with_features(kw, args[2], n_win=4, n_src=3, freeze=True)
+        args = _squeezed(args)
+    elif case == "material":
+        args, kw, _ = bench.packed_workload(2, n=4, device="cpu", materials=True)
+    elif case == "equilibrium":
+        args, kw = _equilibrium_moving(B=2)
+    elif case == "compact":
+        args, kw, _ = bench.packed_workload(2, n=5, collision=True, compact=True,
+                                            device="cpu")
+        args = _squeezed(args)
+    else:
+        args, kw, _ = bench.packed_workload(2, n=4, collision=True, device="cpu", volume=True)
+        args = _squeezed(args, (0.75, 0.8))
+    return _stirred(args), kw
+
+
+@pytest.mark.parametrize("case", ["land", "land_contact", "face", "facet", "development",
+                                  "features", "material", "equilibrium", "compact",
+                                  "volume"])
+def test_new_step_loop_is_bit_equal_to_the_old(host_lib, case):  # noqa: F811
+    """Each instance over 25 steps through the old loop, the new one and the
+    new one with the resident state: state and stats equal bit for bit, and
+    the launch moved every robot (a loop that skipped its steps would agree
+    with nothing)."""
+    args, kw = _step_case(case)
+    X, Y, Z = kw["grid_shape"]
+    assert X * Y * Z <= 6 ** 3
+    runs = []
+    try:
+        for mode in _MODES:
+            host_lib.emu_set_step(mode)
+            runs.append(_host_any(host_lib, args, kw, 25))
+    finally:
+        host_lib.emu_set_step(1)
+    state = args[0]
+    moved = (runs[0][0] != state).any(2)
+    assert bool(moved[:, fr._POS:fr._SCALE].all())  # pose and momenta, every channel
+    for st, sa in runs[1:]:
+        assert torch.equal(st, runs[0][0])
+        assert torch.equal(sa, runs[0][1])

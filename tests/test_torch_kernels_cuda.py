@@ -388,8 +388,8 @@ def test_fluid_variants_match_plain_on_the_card():
     step's for quat, and at rtol 1e-4, atol 5e-5 for linmom (the two part by
     9.3e-6 at the high coefficient on an H100). A launch without drag and
     the other model on the same grid must fail them at the high coefficient.
-    Two block sizes are covered: 256 threads (1331 and 343 cells) and, with a
-    3^3 design in its 4^3 shell, 64."""
+    Two block sizes are covered: 512 threads (1331 and 343 cells; K1's
+    `k1_threads`) and, with a 3^3 design in its 4^3 shell, 192."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card; the CUDA kernels have no CPU mode")
     from evosoro_tpu_torch.bench import evaluator_workload, packed_workload
