@@ -38,7 +38,13 @@ instances with their guards, beside the K1 launches of the same solves
 (`phase_b4_variants`) and in its material instance on the bilinear palette
 with the max-velocity clamp (`phase_b4_materials`), then `bench.sqp` on
 land, in each variant and on materials (`phase_sqp`, `phase_sqp_variants`,
-`phase_sqp_materials`); its kernels line holds B4's rows.
+`phase_sqp_materials`); its kernels line holds B4's rows, each with its
+launch shape (blocks a robot, threads, shared-memory or device-memory
+instance). `python3 chip_smoke.py --diff --against CHECKOUT` times B4 in
+turns with another checkout's (`phase_b4_against`): the SQP launch of each
+instance, one re-plan of each `bench.sqp` variant, and the split of the
+land launch between its recompute and its reverse sweep, each arm's bits
+held equal.
 
 `python3 chip_smoke.py --features` runs K1's fitness features alone: the
 comparisons and guards of `phase_k1_features`, the cost of the bookkeeping
@@ -1889,6 +1895,10 @@ def _b4_case(torch, np, fr, label, state, body, stats, ctrl, seg_base, kw, seed,
         rec[f"guard_{name}"] = _b4_errors(torch, got, wrong)[0]
         ok = ok and rec[f"guard_{name}"] > B4_REL_TOL
     if timed:
+        # blocks a robot, threads a block, where the buffer and slabs lie
+        # (`--land` runs in older trees too, which lack the cluster)
+        if hasattr(fr, "b4_launch_shape"):
+            rec["launch_shape"] = fr.b4_launch_shape(B, kw["grid_shape"], kw["flags"])
         rec["ms"] = _event_ms(torch, lambda: fr.fused_bwd_call(
             state, body, stats, ctrl, seg_base, cot, **kw), 5)
         rec["plain_ms"] = _event_ms(torch, lambda: fr.fused_bwd_plain(
@@ -1964,6 +1974,87 @@ def phase_b4(torch, np):
                                seg_base=0, **kw)
     recs.append(_b4_case(torch, np, fr, "evaluator designs 4 x 6^3, a body per robot",
                          st25, bodies, ss25, ctrl, 25, kw, seed=4))
+    return recs
+
+
+def phase_b4_against(torch, np, against):
+    """B4 in turns with checkout `against`'s (`--diff --against`), through
+    `buildcmp.in_turns` on B4's library: the arms are the other tree's B4,
+    this one with a block a robot (C = 1, `b4_launch_shape` asked for one)
+    and this one as it launches, in order and back, twice. The workloads
+    are the SQP solve's B4 launch (`buildcmp.sqp_b4_launch`: 25 steps at
+    seg_base 75, 8 knots, 8 robots) on land, in water with each drag model
+    (11^3 with the shell), with growth (5x5x4), on the bilinear palette with
+    the clamp (10^3) and on land at 12^3 (the device-memory twin), and the
+    land launch at 32 x 10^3 and 16 x 11^3 (clusters of which the card must
+    hold the whole batch at once) and at 133 x 11^3 (a block a robot, its
+    slabs in device memory beside the recompute's buffer in shared memory),
+    each with this tree's launch shape and with the assertion that every arm
+    gives the same bits; then one re-plan of each `bench.sqp` variant (a
+    cold solve and one re-plan a turn; ms a re-plan), and the land launch's
+    split between its recompute and its reverse sweep (`buildcmp.b4_split`)
+    in this tree and in the other where its B4 has `b4_recompute`. Returns
+    the records."""
+    from pathlib import Path
+    from unittest import mock
+
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.buildcmp import b4_split, in_turns, launchers, sqp_b4_launch
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    shape = fr.b4_launch_shape
+
+    def one_block():
+        return mock.patch.object(fr, "b4_launch_shape",
+                                 lambda B, grid, flags, cluster=0: shape(B, grid, flags, 1))
+
+    calls = launchers(against, name="fused_rollout_bwd")
+    arms = {"parent": calls["other"], "this_one_block": (calls["this"], one_block),
+            "this": calls["this"]}
+    recs = []
+    for label, wkw in (("land 8 x 10^3", {}), ("face drag 8 x 11^3", dict(fluid="face")),
+                       ("facet drag 8 x 11^3", dict(fluid="mesh")),
+                       ("growth 8 x 5x5x4", dict(devo=True)),
+                       ("materials 8 x 10^3", dict(materials=True)),
+                       ("land 8 x 12^3", dict(n=12)), ("land 32 x 10^3", dict(B=32)),
+                       ("land 16 x 11^3", dict(n=11, B=16)),
+                       ("land 133 x 11^3", dict(n=11, B=133))):
+        st, body, stats, ctrl, cot, kw = sqp_b4_launch(**wkw)
+
+        def run():
+            return fr.fused_bwd_call(st, body, stats, ctrl, 75, cot, **kw)
+
+        times, same = in_turns(arms, lambda: bench.time_call(run, 3, 5), run, 2,
+                               lib="fused_rollout_bwd")
+        B = st.shape[0]
+        grid, flags = kw["grid_shape"], kw["flags"]
+        t0 = time.perf_counter()
+        for _ in range(100):
+            shape(B, grid, flags)
+        rec = dict(phase="b4_turns", workload=label, steps=25, turns=times,
+                   **{arm + "_ms": min(t) for arm, t in times.items()},
+                   bit_equal_across_arms=same, this_shape=shape(B, grid, flags),
+                   one_block_shape=shape(B, grid, flags, 1),
+                   shape_query_us=(time.perf_counter() - t0) * 1e4)
+        emit(rec)
+        assert same, rec
+        recs.append(rec)
+        del st, body, stats, ctrl, cot
+    roots = {"this": HERE}
+    if "b4_recompute" in (Path(against) / "evosoro_tpu_torch" / "ops" / "csrc"
+                          / "fused_rollout_bwd.cuh").read_text():
+        roots = {"parent": against, **roots}
+    split = dict(phase="b4_split", workload="land 8 x 10^3", **b4_split(roots))
+    emit(split)
+    recs.append(split)
+    for label, skw in (("land", {}), ("facet drag", dict(fluid="mesh")),
+                       ("face drag", dict(fluid="face")), ("growth", dict(devo=True)),
+                       ("materials", dict(materials=True)), ("land 12^3", dict(n=12))):
+        times, _ = in_turns(arms, lambda: bench.sqp(device="cuda", replans=1, **skw)[
+            "ms_per_solve"], tuple, 1, lib="fused_rollout_bwd")
+        rec = dict(phase="sqp_replan_turns", workload=label, ms_per_replan=times)
+        emit(rec)
+        recs.append(rec)
     return recs
 
 
@@ -2256,7 +2347,8 @@ def phase_b4_materials(torch, np):
             rec.update(bond_steps_past_yield=yielded, voxel_steps_clamped=clamped)
             assert yielded > 0 and clamped > 0, rec
             if n == 12:  # the device-memory instance ran by itself
-                assert fr.k1_instance(body.occ.numel(), False) == "device"
+                assert fr.b4_launch_shape(B, kw["grid_shape"], kw["flags"])["instance"] \
+                    == "device"
                 assert launches[(n, base)][1] >= 1, launches
             else:
                 # the recompute is K1's material launch, bit for bit; the twin,
@@ -2337,7 +2429,7 @@ def _b4_material_row(b4_mat, launches, bound_keys):
                 "the SQP launch 8 x 10^3 x 25 steps on the bilinear palette with the clamp, "
                 "8 knots, from rest and 75 steps in, and 8 x 12^3 75 steps in (the "
                 "device-memory twin); worst_rel_err as the land row"),
-        ms=timed["ms"], plain_ms=timed["plain_ms"],
+        ms=timed["ms"], plain_ms=timed["plain_ms"], launch_shape=timed["launch_shape"],
         ms_of="one launch of a solve: %s" % timed["workload"])
 
 
@@ -2586,6 +2678,7 @@ def phase_step(torch, np, alone=False, against=None):
     import math
 
     from evosoro_tpu_torch import bench, roofline
+    from evosoro_tpu_torch.buildcmp import sqp_k1_launch
     from evosoro_tpu_torch.ops import fused_rollout as fr
 
     res = dict(cases=[], times=[])
@@ -2620,7 +2713,7 @@ def phase_step(torch, np, alone=False, against=None):
     knots = ((runner.state_packed, runner.body_packed, runner.stats, None),
              dict(runner.call_kwargs, control_packed=_controls(torch, np, 128, 8, 1000, 5)))
     knots[1].pop("num_steps")
-    sqp_args, sqp_kw = _sqp_k1_launch(torch, np, fr)
+    sqp_args, sqp_kw = sqp_k1_launch()
     st75, ss75 = fr.fused_call(*sqp_args, num_steps=75, **sqp_kw)
     segment = ((st75, sqp_args[1], ss75, None), dict(sqp_kw, seg_base=75))
     mat_tol = _strictest("nonlinear", "plasticity", "max_vel")
@@ -2887,6 +2980,7 @@ def _b4_rows(b4, b4_var, sqp_launches, var_launches, bound_keys):
                          "worst_rel_err: every channel group of both cotangents over "
                          "the group's largest plain value"),
                  ms=b4_timed["ms"], plain_ms=b4_timed["plain_ms"],
+                 launch_shape=b4_timed["launch_shape"],
                  ms_of="one launch of a solve: 8 x 10^3, 25 steps at seg_base 75, 8 knots")]
     for model, _, name, _, b4_key in B4_VARIANTS:
         recs = b4_var[model]
@@ -2907,7 +3001,7 @@ def _b4_rows(b4, b4_var, sqp_launches, var_launches, bound_keys):
                     "version: the SQP launch %s x 25 steps, 8 knots, from rest and 75 "
                     "steps in, and the guards' launch; worst_rel_err as the land row"
                     % recs[0]["workload"].split(", ")[0][len("SQP launch "):]),
-            ms=timed["ms"], plain_ms=timed["plain_ms"],
+            ms=timed["ms"], plain_ms=timed["plain_ms"], launch_shape=timed["launch_shape"],
             ms_of="one launch of a solve: %s" % timed["workload"]))
     return rows
 
@@ -2924,39 +3018,6 @@ def _device_instances(fr):
     from unittest import mock
 
     return mock.patch.object(fr, "k1_instance", lambda *a, **k: "device")
-
-
-def _sqp_k1_launch(torch, np, fr, n=10, B=8, K=8, **wkw):
-    """K1's launch of the fused SQP solve on `bench.sqp_workload(n, **wkw)`
-    from rest: segmented mode on a 200-step clock, seg_base 0, `K` knots of
-    random controls. Returns (args, launch keywords without num_steps)."""
-    from evosoro_tpu_torch import bench
-    from evosoro_tpu_torch.core.rollout import init_state
-
-    body, sim, env, dt = bench.sqp_workload(n=n, device="cuda", **wkw)
-    state0 = fr.pack_state_single(init_state(body))[None].expand(B, -1, -1).contiguous()
-    kw = dict(grid_shape=tuple(body.occ.shape),
-              scalars=fr.kernel_scalars(body.nominal_size, sim, env),
-              flags=fr.launch_flags(body, sim, env, collision=False, segmented=True),
-              n_knots=K, total_steps=200,
-              control_packed=_controls(torch, np, B, K, body.occ.numel(), seed=31),
-              seg_base=0)
-    return (state0, fr.pack_body(body), fr.make_stats(body, B, dt, sim, env), None), kw
-
-
-def _sqp_b4_launch(torch, np, fr, n=10, B=8, K=8, **wkw):
-    """B4's launch of the fused SQP solve on `bench.sqp_workload(n, **wkw)`:
-    25 steps of a 200-step clock from the state K1 reaches 75 steps in under
-    random controls (`_sqp_k1_launch`), with a random cotangent. Returns
-    (state, body, stats, controls, cotangent, launch keywords)."""
-    args, kw = _sqp_k1_launch(torch, np, fr, n, B, K, **wkw)
-    st75, ss75 = fr.fused_call(*args, num_steps=75, **kw)
-    cot = np.random.default_rng(32).standard_normal(st75.shape).astype(np.float32)
-    cot[:, fr._TSAVG:] = 0.0
-    ctrl = kw.pop("control_packed")
-    kw.pop("seg_base")
-    return (st75, args[1], ss75, ctrl, torch.as_tensor(cot, device="cuda"),
-            dict(kw, num_steps=25))
 
 
 def _keeping_launch(torch, fr, keep):
@@ -3024,6 +3085,7 @@ def phase_big(torch, np):
     from unittest import mock
 
     from evosoro_tpu_torch import bench, roofline
+    from evosoro_tpu_torch.buildcmp import sqp_b4_launch, sqp_k1_launch
     from evosoro_tpu_torch.ops import fused_rollout as fr
 
     out = {}
@@ -3054,7 +3116,7 @@ def phase_big(torch, np):
     B, _, V = ev_args[0].shape
     pairs.append(("evaluator batch 16 x 6^3, contact on, 4 knots", (ev_args, dict(
         ev_kw, control_packed=_controls(torch, np, B, 4, V, seed=4), n_knots=4)), 25))
-    sq_args, sq_kw = _sqp_k1_launch(torch, np, fr)
+    sq_args, sq_kw = sqp_k1_launch()
     st75, ss75 = fr.fused_call(*sq_args, num_steps=75, **sq_kw)
     pairs += [("SQP launch 8 x 10^3, segmented, 8 knots, from rest", (sq_args, sq_kw), 75),
               ("SQP launch 8 x 10^3, segmented, 8 knots, seg_base 75",
@@ -3085,7 +3147,7 @@ def phase_big(torch, np):
         recs.append(rec)
     for model, wkw in (("land", {}), ("facet drag", dict(fluid="mesh")),
                        ("voxel-face drag", dict(fluid="face")), ("growth", dict(devo=True))):
-        st, bo, ss, ctrl, cot, kw = _sqp_b4_launch(torch, np, fr, **wkw)
+        st, bo, ss, ctrl, cot, kw = sqp_b4_launch(**wkw)
         g0 = fr.FUSED_BWD_GMEM_LAUNCHES
         a = fr.fused_bwd_call(st, bo, ss, ctrl, 75, cot, **kw)
         assert fr.FUSED_BWD_GMEM_LAUNCHES == g0
@@ -3120,11 +3182,11 @@ def phase_big(torch, np):
     k1 += _k1_cases(torch, fr, "big-body swimmer 32 x 12^3 in its 13^3 shell, facet drag",
                     args, kw, 32, True, (100,), phase="big_vs_plain", tol=MESH_TOL, n=13,
                     drag="facet")
-    sq_args, sq_kw = _sqp_k1_launch(torch, np, fr, n=12)
+    sq_args, sq_kw = sqp_k1_launch(n=12)
     k1 += _k1_cases(torch, fr, "SQP launch 8 x 12^3, segmented, 8 knots, from rest", sq_args,
                     sq_kw, 8, False, (75,), phase="big_vs_plain", n=12)
     out["k1"] = k1
-    st, bo, ss, ctrl, cot, kw = _sqp_b4_launch(torch, np, fr, n=12)
+    st, bo, ss, ctrl, cot, kw = sqp_b4_launch(n=12)
     b0 = fr.FUSED_BWD_GMEM_LAUNCHES
     out["b4"] = _b4_case(torch, np, fr, "SQP launch 8 x 12^3, no floor, no gravity, 75 steps "
                          "in", st, bo, ss, ctrl, 75, kw, seed=9, timed=True)
@@ -3330,6 +3392,13 @@ def main():
     phase_build()
     if sys.argv[1:] == ["--land"]:
         return phase_land(torch, np, card)
+    if sys.argv[1:3] == ["--diff", "--against"] and len(sys.argv) == 4:
+        phase_b4_against(torch, np, sys.argv[3])
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return None
     if sys.argv[1:] == ["--diff"]:
         b4 = phase_b4(torch, np)
         b4_var, k1_sqp = phase_b4_variants(torch, np)

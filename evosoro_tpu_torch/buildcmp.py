@@ -7,32 +7,31 @@ Builds `fused_rollout`, `fused_rollout_bwd` and `pair_contact` in both
 trees (`ops/build.py`) and compares the machine code of every kernel
 function the two trees' libraries hold (`cuobjdump -sass`, addresses
 stripped). A function whose parameters changed keeps its name and is
-compared under it; a kernel that gained a last template bit (K1's DENSE)
-is compared, with the bit off, with the other tree's instance of its other
-arguments (K1's kernels gained RES, the resident state, last). The report
-sorts the functions that differ into those that differ by design
-(`BY_DESIGN`: K1's kernels, which run `ops/csrc/k1_step.cuh`'s step) and
-the others, checks that the functions only this tree holds are the ones
-`NEW_KERNELS` lists (K1's kernels with the resident state, and its
-material kernel, which took the volume instances in as `VOL`: the other
-tree's `fused_rollout_vol_kernel` is only there), and that every kernel of
-B4 and K2 is compared and unchanged (`b4_k2_unchanged`). A function that
-differs is held to the same bits by `chip_smoke.py --land`'s digests (K1
-and B4 on land, the material instance) and `--diff`'s (B4's variants),
-run in both trees.
-Then it times the material instance
-on 1024 x 10^3 x 200 steps (no contact) through each `fused_rollout` in one
-process, in turns on the same tensors (other, this, this, other, three
-times; `bench.time_call` each), and checks that both give the same bits;
-the same, twice over, for K1's device-memory twins (`bench.big_body_workload`:
-1024 x 12^3 x 200 without contact, 32 x 12^3 and 32 x 13^3 x 100 with it)
-and for the 12^3 fused-SQP re-plan (`bench.sqp(n=12)`, whose K1 segments
-run the twins). A process's own layout moves a launch's time by up to ~1 %
-from one process to the next, so two libraries are timed in one. The other
-tree's launcher may lack trailing arguments that this one adds before the
-stream; they are dropped for it. It also reports the registers and spills
-ptxas gave every K1 and B4 kernel in both trees (`ptxas`). Prints one JSON
-object.
+compared under it; a kernel that gained a last template bit is compared,
+with the bit off, with the other tree's instance of its other arguments.
+The report sorts the functions that differ into those that differ by
+design (`BY_DESIGN`: B4's kernels, which run the recompute on K1's step
+loop and the reverse sweep on bond items over a cluster) and the others,
+checks that the functions only one tree holds are B4's (this tree's B4
+kernels are templates over the variant and the device-memory bit, the
+other's were separate kernels), and that every kernel of K1 and K2 is
+compared and unchanged (`k1_k2_unchanged`). It also reports the registers
+and spills ptxas gave every K1 and B4 kernel in both trees (`ptxas`).
+Prints one JSON object.
+
+    python -m evosoro_tpu_torch.buildcmp --b4-split ARM=CHECKOUT ...
+
+times a land B4 launch whole and its forward recompute alone in each
+checkout, in turns (`b4_split`; a checkout whose B4 has `b4_recompute`),
+and prints one JSON object.
+
+`launchers` and `in_turns` serve `chip_smoke.py --step --against` and
+`--diff --against`, which time a kernel through both trees' libraries in
+one process (a process's own layout moves a launch's time by up to ~1 %
+from one process to the next). The other tree's launcher may lack
+trailing arguments that this one adds before the stream; they are dropped
+for it. `sqp_k1_launch` and `sqp_b4_launch` build the fused SQP solve's K1
+and B4 launches that those comparisons and `chip_smoke.py` time.
 """
 
 from __future__ import annotations
@@ -47,13 +46,11 @@ import sys
 from pathlib import Path
 
 LIBS = ("fused_rollout", "fused_rollout_bwd", "pair_contact")
-K1_KERNELS = ("fused_rollout_kernel", "fused_rollout_mat_kernel", "fused_rollout_vol_kernel",
-              "fused_rollout_gmem_kernel", "fused_rollout_mat_gmem_kernel")
-# the kernel functions this tree adds to its parent's libraries: K1's
-# instances with the resident state and its merged material kernel
-NEW_KERNELS = ("fused_rollout_kernel", "fused_rollout_mat_kernel")
-# the kernel functions whose machine code this tree changes on purpose: K1's
-BY_DESIGN = K1_KERNELS
+# the kernel functions whose machine code this tree changes on purpose:
+# B4's, in this tree and in the other (which had one kernel a variant)
+BY_DESIGN = ("fused_rollout_bwd_kernel", "fused_rollout_bwd_var_kernel",
+             "fused_rollout_bwd_gmem_kernel", "fused_rollout_bwd_mat_kernel",
+             "fused_rollout_bwd_mat_gmem_kernel")
 _BUILD = ("from evosoro_tpu_torch.ops import build; build.build_all(%r); "
           "[print(build._lib_path(n)) for n in %r]" % (LIBS, LIBS))
 
@@ -119,32 +116,34 @@ def _built(root) -> list:
     return r.stdout.strip().splitlines()[-len(LIBS):]
 
 
-def launchers(other: str, lib=None) -> dict:
-    """K1's launchers {"this": ..., "other": ...}: this tree's and checkout
-    `other`'s (its `fused_rollout` library `lib`, built there if not given),
-    the other called with its own signature (its build.py): it may lack
-    trailing arguments that this one adds before the stream."""
+def launchers(other: str, lib=None, name="fused_rollout") -> dict:
+    """The launchers of library `name` (K1's unless given) {"this": ...,
+    "other": ...}: this tree's and checkout `other`'s (its library `lib`,
+    built there if not given), the other called with its own signature (its
+    build.py): it may lack trailing arguments that this one adds before the
+    stream."""
     from evosoro_tpu_torch.ops import build
 
-    lib = lib or _built(Path(other).resolve())[0]
+    lib = lib or _built(Path(other).resolve())[LIBS.index(name)]
     spec = importlib.util.spec_from_file_location(
         "other_build", Path(other) / "evosoro_tpu_torch" / "ops" / "build.py")
     other_build = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(other_build)
-    argtypes = other_build.SIGNATURES["fused_rollout"][1]
-    ofn = ctypes.CDLL(lib).fused_rollout
+    argtypes = other_build.SIGNATURES[name][1]
+    ofn = getattr(ctypes.CDLL(lib), name)
     ofn.argtypes, ofn.restype = argtypes, ctypes.c_int
     n = len(argtypes)
-    return {"this": build.library("fused_rollout"),
-            "other": lambda *a: ofn(*a[:n - 1], a[-1])}
+    return {"this": build.library(name), "other": lambda *a: ofn(*a[:n - 1], a[-1])}
 
 
-def in_turns(arms: dict, timed, run, rounds=3):
-    """{arm: [ms, ...]} of `timed()` through each arm's K1 launcher in
-    turns, the arms in order and back (other, this, this, other) x rounds,
-    and whether `run()` gave every arm the same bits. An arm is a launcher
-    (`launchers`), or (launcher, False) to run it with the robot's state
-    kept in device memory (`fused_rollout.k1_resident` false)."""
+def in_turns(arms: dict, timed, run, rounds=3, lib="fused_rollout"):
+    """{arm: [ms, ...]} of `timed()` through each arm's launcher of library
+    `lib` in turns, the arms in order and back (other, this, this, other) x
+    rounds, and whether `run()` gave every arm the same bits. An arm is a
+    launcher (`launchers`), or (launcher, False) to run K1
+    with the robot's state kept in device memory (`fused_rollout.k1_resident`
+    false), or (launcher, context) to run it inside `context()`. The
+    library's other functions (its launch shapes) stay this tree's."""
     from unittest import mock
 
     import torch
@@ -152,26 +151,198 @@ def in_turns(arms: dict, timed, run, rounds=3):
     from evosoro_tpu_torch.ops import build
     from evosoro_tpu_torch.ops import fused_rollout as fr
 
+    build.library(lib)
+    own = build._libs[lib]
     times, outs = {k: [] for k in arms}, {}
-    for name in (list(arms) + list(arms)[::-1]) * rounds:
-        fn, resident = arms[name] if isinstance(arms[name], tuple) else (arms[name], True)
-        build._libs["fused_rollout"] = (None, fn)
-        with mock.patch.object(fr, "k1_resident", fr.k1_resident if resident
-                               else (lambda *a, **k: False)):
-            times[name].append(timed())
-            outs.setdefault(name, run())
-    build._libs.pop("fused_rollout")
+    try:
+        for name in (list(arms) + list(arms)[::-1]) * rounds:
+            fn, opt = arms[name] if isinstance(arms[name], tuple) else (arms[name], True)
+            build._libs[lib] = (own[0], fn)
+            ctx = opt() if callable(opt) else mock.patch.object(
+                fr, "k1_resident", fr.k1_resident if opt else (lambda *a, **k: False))
+            with ctx:
+                times[name].append(timed())
+                outs.setdefault(name, run())
+    finally:
+        build._libs[lib] = own
     first = next(iter(outs.values()))
     return times, all(torch.equal(a, b) for o in outs.values() for a, b in zip(o, first))
 
 
+# B4's forward recompute alone, built against a checkout's csrc
+# (`b4_split`): the land recompute into the tape as that tree's
+# reverse_segment runs it (b4_recompute), under that tree's B4 bound and
+# block size. The reverse sweep is left out, so its registers do not weigh
+# on the recompute here as they do in B4's kernel.
+_PROBE = r"""
+#include "fused_rollout_bwd.cuh"
+__global__ void __launch_bounds__(B4_BOUND)
+b4_recompute_probe_kernel(const float* __restrict__ state_all,
+                          const float* __restrict__ body_all, int body_batched,
+                          const float* __restrict__ stats_all,
+                          const float* __restrict__ ctrl_all, int n_knots, int knot_steps,
+                          int step_base, int X, int Y, int Z, int num_steps, Params p,
+                          int flags, float* tape_all, float* tape_t_all) {
+    extern __shared__ float sh[];
+    __shared__ int taken;
+    const int V = X * Y * Z;
+    const int b = blockIdx.x;
+    Robot r = load_robot(stats_all + (size_t)b * C_STAT);
+    b4_recompute<V_LAND>(state_all + (size_t)b * C_S * V,
+                         body_all + (body_batched ? (size_t)b * C_B * V : 0),
+                         ctrl_all + (size_t)b * n_knots * V, n_knots, knot_steps, step_base, X,
+                         Y, Z, num_steps, p, flags, r,
+                         tape_all + (size_t)b * (num_steps + 1) * NT * V,
+                         tape_t_all + (size_t)b * num_steps, sh, &taken);
+}
+extern "C" int b4_recompute_probe(const float* state, const float* body, int body_batched,
+                                  const float* stats, const float* ctrl, int n_knots,
+                                  int knot_steps, int step_base, int B, int X, int Y, int Z,
+                                  int num_steps, const float* params, int flags, float* tape,
+                                  float* tape_t, void* stream) {
+    Params p;
+    memcpy(&p, params, sizeof(float) * N_PARAMS);
+    const int V = X * Y * Z;
+    const size_t smem = (size_t)BF * V * sizeof(float);
+    int rc = (int)cudaFuncSetAttribute(b4_recompute_probe_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc) return rc;
+    b4_recompute_probe_kernel<<<B, b4_threads(V), smem, (cudaStream_t)stream>>>(
+        state, body, body_batched, stats, ctrl, n_knots, knot_steps, step_base, X, Y, Z,
+        num_steps, p, flags, tape, tape_t);
+    return (int)cudaGetLastError();
+}
+"""
+
+
+def _probe(root):
+    """The B4 recompute probe (`_PROBE`) of checkout `root`, built there
+    with its build flags into its `_build/`, as a ctypes function."""
+    root = Path(root).resolve()
+    spec = importlib.util.spec_from_file_location(
+        "probe_build", root / "evosoro_tpu_torch" / "ops" / "build.py")
+    b = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(b)
+    b.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = b.BUILD_DIR / "b4_recompute_probe.cu"
+    src.write_text(_PROBE)
+    lib = b.BUILD_DIR / "libb4_recompute_probe.so"
+    subprocess.run([b._nvcc(), *b.NVCC_FLAGS, "-shared", "-I", str(b.CSRC), "-o", str(lib),
+                    str(src)], check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(str(lib)).b4_recompute_probe
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes, fn.restype = [P, P, I, P, P] + [I] * 8 + [P, I, P, P, P], ctypes.c_int
+    return fn
+
+
+def sqp_k1_launch(n=10, B=8, K=8, **wkw):
+    """K1's launch of the fused SQP solve on `bench.sqp_workload(n, **wkw)`
+    from rest: segmented mode on a 200-step clock, seg_base 0, `K` knots of
+    random controls (uniform in +-0.05, seed 31, different for every
+    robot). Returns (args, launch keywords without num_steps)."""
+    import numpy as np
+    import torch
+
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.core.rollout import init_state
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    body, sim, env, dt = bench.sqp_workload(n=n, device="cuda", **wkw)
+    V = body.occ.numel()
+    state0 = fr.pack_state_single(init_state(body))[None].expand(B, -1, -1).contiguous()
+    ctrl = torch.as_tensor(np.random.default_rng(31).uniform(
+        -0.05, 0.05, size=(B, K, V)).astype(np.float32), device="cuda")
+    kw = dict(grid_shape=tuple(body.occ.shape),
+              scalars=fr.kernel_scalars(body.nominal_size, sim, env),
+              flags=fr.launch_flags(body, sim, env, collision=False, segmented=True),
+              n_knots=K, total_steps=200, control_packed=ctrl, seg_base=0)
+    return (state0, fr.pack_body(body), fr.make_stats(body, B, dt, sim, env), None), kw
+
+
+def sqp_b4_launch(n=10, B=8, K=8, **wkw):
+    """B4's launch of the fused SQP solve on `bench.sqp_workload(n, **wkw)`:
+    25 steps of a 200-step clock from the state K1 reaches 75 steps into
+    `sqp_k1_launch`, with a random cotangent (seed 32). Returns (state,
+    body, stats, controls, cotangent, launch keywords)."""
+    import numpy as np
+    import torch
+
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    args, kw = sqp_k1_launch(n, B, K, **wkw)
+    st75, ss75 = fr.fused_call(*args, num_steps=75, **kw)
+    ctrl = kw.pop("control_packed")
+    kw.pop("seg_base")
+    cot = np.random.default_rng(32).standard_normal(st75.shape).astype(np.float32)
+    cot[:, fr._TSAVG:] = 0.0
+    return (st75, args[1], ss75, ctrl, torch.as_tensor(cot, device="cuda"),
+            dict(kw, num_steps=25))
+
+
+def b4_split(roots: dict, launch=None, rounds=2) -> dict:
+    """How a land B4 launch divides between its forward recompute and its
+    reverse sweep, in each checkout of `roots` ({arm: path}): B4's launch
+    (`sqp_b4_launch` unless given) whole through that tree's
+    `fused_rollout_bwd` library, and the recompute alone (`_probe`), each
+    timed with CUDA events, the arms in turns (in order and back) x
+    `rounds`. The sweep is the difference. Returns {arm: {"whole_ms",
+    "recompute_ms", "sweep_ms", "recompute_share"}} (best of each arm's
+    turns), and "turns" with every reading."""
+    import torch
+
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.ops import build
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    st, body, stats, ctrl, cot, kw = launch or sqp_b4_launch()
+    B, _, V = st.shape
+    X, Y, Z = kw["grid_shape"]
+    S = kw["num_steps"]
+    seg0, knot_steps = fr._knot_clock(kw["flags"], S, kw["n_knots"], ctrl, 75, 200)
+    params = fr._k1_params(kw["scalars"], fr.DEFAULT_PRECISION)
+    bits = fr._flag_bits(kw["flags"])
+    tape = torch.empty((B, S + 1, fr.b4_tape_channels(kw["flags"]), V), device="cuda")
+    tape_t = torch.empty((B, S), device="cuda")
+    build.library("fused_rollout_bwd")
+    own = build._libs["fused_rollout_bwd"]  # this tree's launch shapes stay in use
+    arms = {}
+    for arm, root in roots.items():
+        probe = _probe(root)
+        bwd = launchers(root, name="fused_rollout_bwd")["other"]
+
+        def recompute(probe=probe):
+            rc = probe(st.data_ptr(), body.data_ptr(), 0, stats.data_ptr(), ctrl.data_ptr(),
+                       kw["n_knots"], knot_steps, seg0, B, X, Y, Z, S,
+                       params.ctypes.data_as(ctypes.c_void_p), bits, tape.data_ptr(),
+                       tape_t.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            build.check(rc, "b4_recompute_probe")
+
+        def whole(bwd=bwd):
+            build._libs["fused_rollout_bwd"] = (own[0], bwd)
+            try:
+                fr.fused_bwd_call(st, body, stats, ctrl, 75, cot, **kw)
+            finally:
+                build._libs["fused_rollout_bwd"] = own
+
+        arms[arm] = (recompute, whole)
+    turns = {a: {"whole_ms": [], "recompute_ms": []} for a in arms}
+    for arm in (list(arms) + list(arms)[::-1]) * rounds:
+        recompute, whole = arms[arm]
+        turns[arm]["recompute_ms"].append(bench.time_call(recompute, 3, 20))
+        turns[arm]["whole_ms"].append(bench.time_call(whole, 3, 20))
+    out = {}
+    for arm, t in turns.items():
+        w, r = min(t["whole_ms"]), min(t["recompute_ms"])
+        out[arm] = dict(whole_ms=w, recompute_ms=r, sweep_ms=w - r, recompute_share=r / w)
+    out["turns"] = turns
+    return out
+
+
 def main(other: str) -> dict:
     from evosoro_tpu_torch import bench
-    from evosoro_tpu_torch.ops import fused_rollout as fr
 
     paths = {"this": _built(Path(__file__).resolve().parents[1]),
              "other": _built(Path(other).resolve())}
-    libs = {k: v[0] for k, v in paths.items()}
     # kernel function -> (instructions, digest), over the libraries of a tree
     sass = {k: {f: d for lib in v for f, d in _sass(lib).items()} for k, v in paths.items()}
     # a kernel that gained a last template bit, with the bit off, under the
@@ -197,43 +368,24 @@ def main(other: str) -> dict:
                differing_otherwise=[k for k in differing if _name(k) not in BY_DESIGN],
                kernels_only_here=sorted(set(sass["this"]) - set(sass["other"])),
                kernels_only_there=sorted(set(sass["other"]) - set(sass["this"])))
-    rec["new_kernels_as_listed"] = {_name(f) for f in rec["kernels_only_here"]} \
-        == set(NEW_KERNELS)
-    # B4's and K2's kernels: every one compared, none differing
-    others = [k for k in set(sass["this"]) | set(sass["other"]) if _name(k) not in K1_KERNELS]
-    rec["b4_k2_compared"] = sorted(_name(k) for k in others)
-    rec["b4_k2_unchanged"] = bool(others) and all(
+    # the functions one tree holds alone are B4's; K1's and K2's: every
+    # one compared, none differing
+    rec["only_b4_renamed"] = all(_name(f) in BY_DESIGN for f in
+                                 rec["kernels_only_here"] + rec["kernels_only_there"])
+    others = [k for k in set(sass["this"]) | set(sass["other"]) if _name(k) not in BY_DESIGN]
+    rec["k1_k2_compared"] = sorted(_name(k) for k in others)
+    rec["k1_k2_unchanged"] = bool(others) and all(
         k in shared and k not in differing for k in others)
-
-    calls = launchers(other, libs["other"])
-    arms = {"other": calls["other"], "this": calls["this"]}
-
-    def launch(args, kw, steps, groups=2, reps=3):
-        def run():
-            return fr.fused_call(*args, num_steps=steps, **kw)
-
-        return lambda: bench.time_call(run, groups, reps), run
-
-    args, kw, _ = bench.packed_workload(1024, device="cuda", materials=True)
-    times, same = in_turns(arms, *launch(args, kw, 200))
-    rec.update(card=bench.card_info(), material_1024x10_3x200_ms=times, outputs_bit_equal=same)
-    # the device-memory twins (bodies past shared memory) and the 12^3 SQP
-    # solve, whose K1 segments run them
-    twins = {}
-    for label, (batch, n, coll, steps) in {
-            "1024 x 12^3 x 200, contact off": (1024, 12, False, 200),
-            "32 x 12^3 x 100, contact on": (32, 12, True, 100),
-            "32 x 13^3 x 100, contact on": (32, 13, True, 100)}.items():
-        args, kw, _ = bench.big_body_workload(batch, n=n, collision=coll, device="cuda")
-        twins[label] = dict(zip(("ms", "outputs_bit_equal"),
-                                in_turns(arms, *launch(args, kw, steps, reps=2), rounds=2)))
-        del args
-    twins["SQP re-plan at 12^3 (ms per re-plan)"] = dict(
-        ms=in_turns(arms, lambda: bench.sqp(device="cuda", n=12)["ms_per_solve"], tuple, 2)[0])
-    rec.update(device_memory_twins=twins, ptxas=_ptxas_tables(paths))
+    rec.update(card=bench.card_info(), ptxas=_ptxas_tables(paths))
     print(json.dumps(rec), flush=True)
     return rec
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    if sys.argv[1] == "--b4-split":  # --b4-split ARM=CHECKOUT ...
+        from evosoro_tpu_torch import bench
+
+        split = b4_split(dict(a.split("=", 1) for a in sys.argv[2:]))
+        print(json.dumps(dict(b4_split=split, card=bench.card_info())), flush=True)
+    else:
+        main(sys.argv[1])

@@ -44,13 +44,13 @@ SIGNATURES = {
         _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P]),
     "fused_rollout_bwd": ("fused_rollout_bwd", [
         _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P,
-        _P, _P, _I, _P]),
+        _P, _P, _I, _P, _I, _P]),
     "fma_peak": ("fma_peak", [_P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _P]),
 }
 
 # translation units a library links beside its own `<name>.cu`: K1's
 # device-memory instances, K1's kernels with the resident state and B4's
-# material instance compile apart from the other kernels, so those keep
+# material instance compile apart from the other kernels, so K1's keep
 # their machine code and the units build side by side
 EXTRA_SOURCES = {"fused_rollout": ("fused_rollout_gmem.cu", "fused_rollout_res.cu"),
                  "fused_rollout_bwd": ("fused_rollout_bwd_mat.cu",)}

@@ -77,8 +77,8 @@
 // reductions (CoM, pair forces), which the stated tolerances absorb.
 //
 // The step's device functions live in fused_rollout_common.cuh, which the
-// reverse-mode segment kernel (fused_rollout_bwd.cu) shares; its recompute
-// runs them in the old mapping (rollout_steps), K1 in k1_step.cuh's.
+// reverse-mode segment kernel (fused_rollout_bwd.cu) shares; both run
+// k1_step.cuh's step loop, B4's recompute in its tape form.
 //
 // The fitness features (sources, needle, fall-over latch, NormDistByVol,
 // speed windows, ballistic development; the JAX kernel's :912-946,

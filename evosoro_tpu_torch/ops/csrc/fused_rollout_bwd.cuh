@@ -6,32 +6,44 @@
 // launched by _fused_bwd_call. That kernel recomputes the segment into a
 // tape in on-chip memory and gets each step's adjoint from jax.vjp of the
 // step closure. Here the adjoint of the step is written out by hand below
-// (voxel_vjp for the integration phase, bond_vjp for the bond pass, with
+// (pass (a) for the integration phase, bond_vjp for the bond pass, with
 // the vjp of each quaternion helper), and the tape lies in device memory,
 // allocated by the host wrapper: (B, num_steps + 1, 48, V) floats (54 with
 // the facet drag, below), slot i holding the 47 carried channels of the
-// state step i starts from plus that step's static-friction decisions. A block's shared memory is taken by the
-// bond forces (forward) and the force cotangents (reverse); at the widths
-// gradient MPC uses the tape of a launch fits the card's L2.
+// state step i starts from plus that step's static-friction decisions; at
+// the widths gradient MPC uses the tape of a launch fits the card's L2.
 //
-// One block per robot, as K1. The block
-//   1. recomputes the segment forward with K1's own step loop
-//      (rollout_steps of fused_rollout_common.cuh, out of place, one tape
-//      slot a step), so every predicate below is decided on the very values
-//      the forward launch saw;
-//   2. walks the steps back. Per step: each voxel's thread pulls the new
-//      state's cotangent through the integration phase (voxel_vjp), which
-//      gives the cotangent of the voxel's force and moment sums; a barrier;
-//      each bond (v, d) pulls the force cotangents of its two ends and the
-//      cotangent of its damping memory through the bond pass (bond_vjp); a
-//      barrier; each voxel adds what its three lower neighbours' bonds
-//      sent it.
-// The neighbour scatter is in gather form, like K1's force sum: a bond adds
-// the cotangent of its own voxel (position, quaternion, scale: 8 floats) in
-// place and leaves the other end's 8 floats in shared memory, one slab a
-// direction (24 floats a voxel), which the neighbour reads after the
-// barrier. No atomics: the result does not depend on the schedule. Shared
-// memory: max(36 forward, 6 + 24 reverse) floats a voxel, K1's budget.
+// A robot runs on a thread-block cluster of C blocks (b4_planes: up to 8,
+// as many as let the card hold the whole batch at once, else one block),
+// block k owning a run of x-planes and the bonds whose lower end lies in
+// them. The cluster
+//   1. recomputes the segment forward on its first block (rank 0) with
+//      K1's own step loop in its tape form (b4_recompute: k1_steps<...,
+//      TAPE>, one slot a step, out of place), so every predicate below is
+//      decided on the very values the forward launch saw; the other blocks
+//      wait at a cluster barrier;
+//   2. walks the steps back. Per step: (a) each voxel's thread pulls the
+//      new state's cotangent through the integration phase, which gives the
+//      cotangent of the voxel's force and moment sums; a barrier; (b) each
+//      bond item (v, d), a thread each and d-major as K1's bond pass, pulls
+//      the force cotangents of its two ends and the cotangent of its
+//      damping memory through the bond pass (bond_forward again, then
+//      bond_vjp); a barrier; (c) each voxel adds what its own three bonds
+//      and then what its three lower neighbours' bonds sent it.
+// The scatter is in gather form, like K1's force sum: a bond leaves the
+// cotangents of its own voxel and of its other end (position, quaternion,
+// scale: 8 floats each) in its block's slab, a row a direction (48 floats a
+// voxel), beside the voxel's force and moment cotangents (6). Pass (c) sums
+// a voxel's own three rows over d from zero and adds the sum at once, then
+// the neighbours' rows: the parent's one-thread-a-voxel order, so every bit
+// is kept. No atomics: the result does not depend on the schedule. A bond
+// along x from a block's last plane reads its far end's cotangents, and the
+// voxels of a block's first plane read their lower neighbours' rows, in the
+// next and the previous block's slab through distributed shared memory
+// (map_shared_rank); cluster barriers take the block barriers' place. A
+// slab lives in shared memory (after the recompute's buffer, which it may
+// overlay) or, where a block's does not fit, in device memory
+// (fused_rollout_bwd.cu b4_shape).
 //
 // Branch conventions are those of torch autograd on core/step.py, the plain
 // version: a selection passes the cotangent to the chosen branch only and
@@ -42,18 +54,20 @@
 // clock, the divergence latch, IniCM and the capture flag carry no
 // gradient. Channels 47..63 of the state cotangent come back zero.
 //
-// Bound on this card: as K1, the latency of one block's step; the reverse
-// step does about twice the arithmetic of the forward one and reads the
-// tape from L2. 8 robots are 8 blocks on 132 SMs.
+// Bound on this card: the latency of a step, as K1. The reverse step does
+// about twice the arithmetic of the forward one, reads the tape from L2 and
+// recomputes each bond's forward pass; bond items put 3 V threads on it,
+// and a cluster spreads one robot's sweep over C SMs, where a launch of the
+// SQP solve's 8 robots would leave 124 of 132 SMs idle. The recompute stays
+// on one block and is K1's time.
 //
 // Numerics: -fmad=false and no fast math, as K1, so the recompute equals
 // K1's forward bit for bit. The adjoint sums in its own order, so it agrees
-// with autograd to rounding, not bit for bit.
+// with autograd to rounding, not bit for bit; its order does not depend on
+// the block size or on C.
 //
-// reverse_segment is a template over K1's step variant. The land instance
-// (fused_rollout_bwd_kernel) compiles to the code it had before the others
-// came; the fluid and development instances (fused_rollout_bwd_var_kernel)
-// add, each under `if constexpr`:
+// reverse_segment is a template over K1's step variant. The fluid and
+// development instances add, each under `if constexpr`:
 //   V_FLUID_FACE  the voxel-face drag's adjoint (cotangent to the momentum
 //                 through the velocity and to the old scale through the
 //                 face area scale^2), and the land_water actuation, which
@@ -70,8 +84,8 @@
 // pos + R(q) (+-L/2 (1 + strain)) of the occupied voxels around it, with
 // this step's per-side bond strains. The forward recompute tapes those
 // strains (6 channels more a slot, NT_MESH) and the reverse sweep adds
-// three passes and barriers before the bond pass, through 27 floats a voxel
-// of device scratch (shared memory stays at the land variant's budget):
+// three passes and cluster barriers before the bond pass, through 27
+// floats a voxel of device scratch (the slabs stay the land variant's):
 //   (a0) each cell rebuilds its vertex from the tape (mesh_vertex, as K1);
 //   (a)  besides the integration phase, each voxel pulls its force's
 //        cotangent through its 12 facets (facet_drag_vjp) to its velocity
@@ -92,7 +106,7 @@
 // the max-velocity clamp, as _make_kernel(bwd=True)'s jax.vjp does through
 // _bond_dir's nonlinear branch (:513-541, with _vox_mat_stress_k :370-404)
 // and the displacement clamp (:1519-1530). The recompute is K1's material
-// instance itself (rollout_steps with MAT), so every predicate is decided on
+// instance itself (k1_steps with MAT), so every predicate is decided on
 // the bits K1's material launch saw. The bond pass takes the stress's slope
 // at the bond's strain from bond_forward<..., SLOPE> (a tangent carried
 // forward beside the 3-iteration stress equalization, in place of the
@@ -103,7 +117,11 @@
 // MDL_DATA, plasticity, equilibrium mode and BC regions stay outside the
 // envelope, as the JAX package's _diff_envelope_ok has it.
 #pragma once
-#include "fused_rollout_common.cuh"
+#include "k1_step.cuh"
+#ifndef EVOSORO_HOST_EMULATION
+#include <cooperative_groups.h>
+#endif
+namespace cg = cooperative_groups;
 
 #define NT 48  // tape channels a slot: S_DIFF carried channels + the static flags
 #define NT_MESH (NT + 6)  // ... + the step's per-side bond strains (facet drag)
@@ -458,61 +476,155 @@ __host__ __device__ constexpr int tape_channels() {
     return VARIANT == V_FLUID_MESH ? NT_MESH : NT;
 }
 
-// The whole launch for one robot. tape: (num_steps + 1, tape_channels, V)
-// floats; tape_t: num_steps floats; cot: (C_S, V), the END state's cotangent
-// on entry and the START state's on return; cot_u: (K, V), zero on entry;
-// scr: (B4_MESH_SCR, V) floats of scratch (V_FLUID_MESH only). MAT (the
-// land variant only): the material instance, with the robot's inputs ma.
+// B4's block: its kernels' __launch_bounds__(B4_BOUND, 1), the fastest of
+// 256, 384 and 512 threads in every instance on the card but growth (1-2 %
+// behind 384), 128 registers with 8-152 bytes of spills (PERF.md §6).
+// A launch takes min(B4_BOUND, 3 V rounded up to a warp): the recompute's
+// bond items, never fewer than the reductions' partition (k1_red_threads).
+#define B4_BOUND 512
+static_assert(B4_BOUND >= K1_RED_THREADS && B4_BOUND <= 768, "k1_steps' reductions");
+__host__ __device__ inline int b4_threads(int V) {
+    return B4_BOUND < (3 * V + 31) / 32 * 32 ? B4_BOUND : (3 * V + 31) / 32 * 32;
+}
+
+// The reverse sweep's floats a voxel, in a slab a block: the force and
+// moment cotangents (ctf, ctm: 3 + 3), what each bond (v, d) sends to
+// v + stride_d (nbc: 3 NB) and to v itself (own: 3 NB)
+#define B4_SLAB (6 + 6 * NB)
+// the kernels' static shared memory is below this (k1_steps' reductions and
+// flags, the step count); ops/fused_rollout.py _K1_STATIC_SMEM
+#define B4_STATIC_SMEM 208
+#define B4_MAX_CLUSTER 8  // blocks a robot: the portable cluster size
+
+// x-planes a block of a robot's cluster owns (the last block may own
+// fewer), so C = ceil(X / planes) blocks a robot. One block (all X planes)
+// when a block takes a step's 3 V bond items in one go; else the most
+// blocks, up to B4_MAX_CLUSTER, for which the card holds all B clusters at
+// once (at_once(C, planes): cudaOccupancyMaxActiveClusters of that shape),
+// so that the launch is one wave; one block where no cluster shape is.
+// `cluster` > 0 asks for that many blocks (ceil(X / ceil(X / cluster))).
+template <class F>
+inline int b4_planes(int B, int X, int Y, int Z, int threads, int cluster, F at_once) {
+    if (cluster > 0) {
+        const int c = cluster > X ? X : cluster;
+        return (X + c - 1) / c;
+    }
+    if (3 * X * Y * Z <= threads) return X;
+    for (int c = B4_MAX_CLUSTER < X ? B4_MAX_CLUSTER : X; c >= 2; --c) {
+        const int planes = (X + c - 1) / c;
+        if (at_once((X + planes - 1) / planes, planes) >= B) return planes;
+    }
+    return X;
+}
+
+// The forward recompute of a segment into the tape, by the whole block:
+// the state it starts from into slot 0, then K1's own step loop in its
+// tape form (k1_steps<..., TAPE>), so every predicate below is decided on
+// the very values the forward launch saw; the material instance (MAT) with
+// the robot's inputs ma, the facet drag with its per-side strains in the
+// slots' own channels past NT. buf: K1's buffer (k1_buffer_floats without
+// contact). Thread 0 leaves the count of steps taken in *taken.
+template <int VARIANT, bool MAT = false>
+__device__ inline void b4_recompute(const float* st0, const float* bo, const float* cu_robot,
+                                    int n_knots, int knot_steps, int step_base, int X, int Y,
+                                    int Z, int num_steps, const Params& p, int flags, Robot& r,
+                                    float* tape, float* tape_t, float* buf, int* taken,
+                                    const MatArgs* ma = nullptr) {
+    const int V = X * Y * Z;
+    const size_t slot = (size_t)tape_channels<VARIANT>() * V;
+    for (int k = threadIdx.x; k < S_DIFF * V; k += blockDim.x) tape[k] = st0[k];
+    __syncthreads();
+    if constexpr (MAT) {
+        // equilibrium mode is outside the envelope: the ring is never read
+        float ke[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        k1_steps<V_LAND, false, true, false, false, false, true>(
+            tape, bo, nullptr, cu_robot, n_knots, knot_steps, step_base, X, Y, Z, num_steps, p,
+            flags, r, buf, nullptr, nullptr, nullptr, ma, ke, nullptr,
+            K1Tape{slot, tape_t, taken});
+    } else {
+        k1_steps<VARIANT, false, false, false, false, false, true>(
+            tape, bo, nullptr, cu_robot, n_knots, knot_steps, step_base, X, Y, Z, num_steps, p,
+            flags, r, buf, VARIANT == V_FLUID_MESH ? tape + (size_t)NT * V : nullptr, nullptr,
+            nullptr, nullptr, nullptr, nullptr, K1Tape{slot, tape_t, taken});
+    }
+}
+
+// One robot's cluster: C blocks, each owning `planes` x-planes (block k
+// planes [k planes, (k + 1) planes) clipped to X) and the bonds whose lower
+// end lies in them. slab: with stride 0, this block's slab in shared memory
+// (the others' through map_shared_rank); else rank 0's in device memory,
+// rank k's `stride` floats on. On the host, where one thread stands for the
+// whole cluster, the slabs lie in one array (stride > 0) and every rank's
+// share of a pass runs in turn (each_rank).
+struct B4Part {
+    int C, planes, rank;
+    float* slab;
+    size_t stride;
+};
+
+__device__ inline float* b4_slab(const B4Part& pt, int k) {
+    if (pt.stride) return pt.slab + (size_t)k * pt.stride;
+    if (k == pt.rank) return pt.slab;
+    return cg::this_cluster().map_shared_rank(pt.slab, k);
+}
+
+// f(k) for the ranks this thread works for: its own block's on the card,
+// all of them in turn on the host
+template <class F>
+__device__ inline void each_rank(const B4Part& pt, F f) {
+#ifdef EVOSORO_HOST_EMULATION
+    for (int k = 0; k < pt.C; ++k) f(k);
+#else
+    f(pt.rank);
+#endif
+}
+
+// the barrier between two passes: the cluster's (it orders shared and
+// device memory across its blocks), or the block's alone
+__device__ inline void b4_sync(const B4Part& pt) {
+    if (pt.C > 1) cg::this_cluster().sync();
+    else __syncthreads();
+}
+
+// The whole launch for one robot, run by the blocks of its cluster (pt).
+// tape: (num_steps + 1, tape_channels, V) floats; tape_t: num_steps floats;
+// cot: (C_S, V), the END state's cotangent on entry and the START state's
+// on return; cot_u: (K, V), zero on entry; buf: the recompute's K1 buffer
+// (rank 0 only; the slabs may lie in it, which the recompute no longer
+// needs once it has finished); scr: (B4_MESH_SCR, V) floats of scratch
+// (V_FLUID_MESH only). MAT (the land variant only): the material instance,
+// with the robot's inputs ma.
 template <int VARIANT, bool MAT = false>
 __device__ inline void reverse_segment(const float* st0, const float* bo, const float* stat,
                                        const float* cu_robot, int n_knots, int knot_steps,
                                        int step_base, int X, int Y, int Z, int num_steps,
                                        const Params& p, int flags, float* tape,
-                                       float* tape_t, float* cot, float* cot_u, float* sh,
-                                       float* scr = nullptr, const MatArgs* ma = nullptr) {
+                                       float* tape_t, float* cot, float* cot_u, float* buf,
+                                       const B4Part& pt, float* scr = nullptr,
+                                       const MatArgs* ma = nullptr) {
     constexpr bool MESH = VARIANT == V_FLUID_MESH;
+    __shared__ int n_sh;  // rank 0's count of steps taken
     const int V = X * Y * Z;
+    const int YZ = Y * Z;
     const int T = blockDim.x;
-    const int strides[3] = {Y * Z, Z, 1};
+    const int strides[3] = {YZ, Z, 1};
     const size_t slot = (size_t)tape_channels<VARIANT>() * V;
+    const int Vs = pt.planes * YZ;  // a slab's voxels
 
-    // ---- forward recompute into the tape ----
-    for (int k = threadIdx.x; k < S_DIFF * V; k += T) tape[k] = st0[k];
-    // small_angle and the channels outside the rollout carry no gradient
-    for (int k = threadIdx.x; k < (C_S - S_DIFF) * V; k += T) cot[(size_t)S_DIFF * V + k] = 0.f;
-    for (int k = threadIdx.x; k < 3 * V; k += T) cot[(size_t)S_SMALL * V + k] = 0.f;
-    __syncthreads();
+    // ---- forward recompute into the tape, on rank 0; the others wait ----
     Robot r = load_robot(stat);
     const float dt = r.dt, dt_inv = r.dt_inv;
-    int n_done = 0;
-    if constexpr (MESH) {
-        // a step a call, so that each step leaves its per-side strains in
-        // its own slot (K1's scratch channels), where the reverse sweep
-        // rebuilds the mesh from them
-        for (; n_done < num_steps; ++n_done) {
-            float* s_i = tape + (size_t)n_done * slot;
-            if (rollout_steps<VARIANT>(s_i, slot, bo, nullptr, cu_robot, n_knots, knot_steps,
-                                       step_base + n_done, X, Y, Z, 1, p, flags, r,
-                                       tape_t + n_done, sh, s_i + (size_t)NT * V) == 0)
-                break;
-        }
-    } else if constexpr (MAT) {
-        // K1's material instance; equilibrium mode is outside the envelope,
-        // so the kinetic-energy ring is never read
-        float ke[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        n_done = rollout_steps<V_LAND, false, true>(tape, slot, bo, nullptr, cu_robot, n_knots,
-                                                    knot_steps, step_base, X, Y, Z, num_steps,
-                                                    p, flags, r, tape_t, sh, nullptr, nullptr,
-                                                    nullptr, ma, ke);
-    } else {
-        n_done = rollout_steps<VARIANT>(tape, slot, bo, nullptr, cu_robot, n_knots,
-                                        knot_steps, step_base, X, Y, Z, num_steps, p,
-                                        flags, r, tape_t, sh, nullptr);
+    if (pt.rank == 0) {
+        // small_angle and the channels outside the rollout carry no gradient
+        for (int k = threadIdx.x; k < (C_S - S_DIFF) * V; k += T)
+            cot[(size_t)S_DIFF * V + k] = 0.f;
+        for (int k = threadIdx.x; k < 3 * V; k += T) cot[(size_t)S_SMALL * V + k] = 0.f;
+        b4_recompute<VARIANT, MAT>(st0, bo, cu_robot, n_knots, knot_steps, step_base, X, Y, Z,
+                                   num_steps, p, flags, r, tape, tape_t, buf, &n_sh, ma);
     }
+    b4_sync(pt);
+    const int n_done = pt.C > 1 ? *cg::this_cluster().map_shared_rank(&n_sh, 0) : n_sh;
 
-    float* ctf = sh;           // [3][V] cotangent of each voxel's force sum
-    float* ctm = sh + 3 * V;   // [3][V] ... and of its moment sum
-    float* nbc = sh + 6 * V;   // [3][NB][V] what bond (v, d) sends to v + stride_d
     // (facet drag) device scratch: the vertex field, then each vertex's
     // cotangent over its weight; the corners' cotangents [8][3][V], then the
     // strains' [6][V] (a voxel's own bonds' near sides, the bonds below it's
@@ -520,6 +632,9 @@ __device__ inline void reverse_segment(const float* st0, const float* bo, const 
     float* vfield = scr;
     float* ck = MESH ? scr + (size_t)3 * V : nullptr;
     const float half_l = 0.5f * p.L;
+    // rank rk's voxels [first(rk), last(rk))
+    const auto first = [&](int rk) { return rk * pt.planes * YZ; };
+    const auto last = [&](int rk) { return min((rk + 1) * pt.planes, X) * YZ; };
 
 #define SCH(k) (si + (size_t)(k) * V)
 #define BCH(k) (bo + (size_t)(k) * V)
@@ -534,284 +649,307 @@ __device__ inline void reverse_segment(const float* st0, const float* bo, const 
 
         if constexpr (MESH) {
             // (a0) the step's mesh, as K1's phase B1 built it
-            for (int v = threadIdx.x; v < V; v += T) {
-                const int coord[3] = {v / (Y * Z), (v / Z) % Y, v % Z};
-                const F3 vx = mesh_vertex(si, BCH(B_OCC), si + (size_t)NT * V, coord[0],
-                                          coord[1], coord[2], Y, Z, V, half_l);
-                vfield[v] = vx.x; vfield[V + v] = vx.y; vfield[2 * V + v] = vx.z;
-            }
-            __syncthreads();
+            each_rank(pt, [&](int rk) {
+                for (int v = first(rk) + threadIdx.x; v < last(rk); v += T) {
+                    const int coord[3] = {v / YZ, (v / Z) % Y, v % Z};
+                    const F3 vx = mesh_vertex(si, BCH(B_OCC), si + (size_t)NT * V, coord[0],
+                                              coord[1], coord[2], Y, Z, V, half_l);
+                    vfield[v] = vx.x; vfield[V + v] = vx.y; vfield[2 * V + v] = vx.z;
+                }
+            });
+            b4_sync(pt);
         }
 
-        // (a) integration phase, per voxel
-        for (int v = threadIdx.x; v < V; v += T) {
-            const bool occ = BCH(B_OCC)[v] > 0.5f;
-            const float mass = BCH(B_MASS)[v];
-            const float minv = BCH(B_MASS_INV)[v];
-            const float tsm = BCH(B_2SQ_MEXS)[v];
-            const float iinv = BCH(B_INERTIA_INV)[v];
-            const float ang_fact = 1.f - p.ten_slow * iinv * BCH(B_2SQ_IEXSSS)[v] * dt;
-            const float scale = SCH(S_SCALE)[v];
-            const F3 z3 = {0.f, 0.f, 0.f};
-            // empty cells are reset to constants: their cotangents stop here
-            const F3 g_pos = occ ? F3{COT(S_POS)[v], COT(S_POS + 1)[v], COT(S_POS + 2)[v]} : z3;
-            F3 g_lin = occ ? F3{COT(S_LIN)[v], COT(S_LIN + 1)[v], COT(S_LIN + 2)[v]} : z3;
-            F3 c_angp = occ ? F3{COT(S_ANG)[v], COT(S_ANG + 1)[v], COT(S_ANG + 2)[v]} : z3;
-            const Q g_q = {COT(S_QUAT)[v], COT(S_QUAT + 1)[v], COT(S_QUAT + 2)[v],
-                           COT(S_QUAT + 3)[v]};
-            const float g_scale = COT(S_SCALE)[v];
+        // (a) integration phase, a voxel a thread
+        each_rank(pt, [&](int rk) {
+            float* ctf = b4_slab(pt, rk);  // [3][Vs] cotangent of each voxel's force sum
+            float* ctm = ctf + 3 * Vs;    // [3][Vs] ... and of its moment sum
+            const int v0 = first(rk);
+            for (int v = v0 + threadIdx.x; v < last(rk); v += T) {
+                const int lv = v - v0;
+                const bool occ = BCH(B_OCC)[v] > 0.5f;
+                const float mass = BCH(B_MASS)[v];
+                const float minv = BCH(B_MASS_INV)[v];
+                const float tsm = BCH(B_2SQ_MEXS)[v];
+                const float iinv = BCH(B_INERTIA_INV)[v];
+                const float ang_fact = 1.f - p.ten_slow * iinv * BCH(B_2SQ_IEXSSS)[v] * dt;
+                const float scale = SCH(S_SCALE)[v];
+                const F3 z3 = {0.f, 0.f, 0.f};
+                // empty cells are reset to constants: their cotangents stop here
+                const F3 g_pos = occ ? F3{COT(S_POS)[v], COT(S_POS + 1)[v], COT(S_POS + 2)[v]} : z3;
+                F3 g_lin = occ ? F3{COT(S_LIN)[v], COT(S_LIN + 1)[v], COT(S_LIN + 2)[v]} : z3;
+                F3 c_angp = occ ? F3{COT(S_ANG)[v], COT(S_ANG + 1)[v], COT(S_ANG + 2)[v]} : z3;
+                const Q g_q = {COT(S_QUAT)[v], COT(S_QUAT + 1)[v], COT(S_QUAT + 2)[v],
+                               COT(S_QUAT + 3)[v]};
+                const float g_scale = COT(S_SCALE)[v];
 
-            // actuation: the clamps' "keep last" branch is the old scale; the
-            // knot adds u * L for occupied voxels. The land_water actuation
-            // of a fluid does not read the old scale.
-            float c_scale = 0.f;
-            if constexpr (VARIANT == V_LAND) {
-                bool kept_last;
-                actuation_scale(t, scale, BCH(B_AMPDAMP)[v], BCH(B_PHASE)[v], BCH(B_CTE)[v],
-                                r.tamp, r.tper, r.init_cm, r.min_tf, r.gamp, p, flags,
-                                &kept_last);
-                if (occ && kept_last) c_scale = g_scale;
-            } else if constexpr (VARIANT == V_DEVO) {
-                const float dv[6] = {BCH(B_INIT_SIZE)[v], BCH(B_FINAL_SIZE)[v],
-                                     BCH(B_GROWTH_T)[v], BCH(B_START_GT)[v],
-                                     BCH(B_FINAL_PHASE)[v], BCH(B_FINAL_AD)[v]};
-                bool kept_last;
-                development_scale(t, scale, BCH(B_AMPDAMP)[v], BCH(B_PHASE)[v], BCH(B_CTE)[v],
-                                  dv, r.tamp, r.tper, r.init_cm, r.min_tf, r.gamp, p, flags,
-                                  &kept_last);
-                if (occ && kept_last) c_scale = g_scale;
-            }
-            if (occ) cu_out[v] += g_scale * p.L;
-
-            // pos' = pos + lin' * (dt * minv)
-            F3 c_pos = g_pos;
-            const float dtm = dt * minv;
-            if constexpr (MAT) {
-                // (the clamp) pos' = pos + dp * back, dp = lin' * dtm
-                F3 g_dp = g_pos;
-                if ((flags & F_MAXVEL) && occ)
-                    g_dp = max_vel_clamp_vjp({sn[(size_t)S_LIN * V + v] * dtm,
-                                              sn[(size_t)(S_LIN + 1) * V + v] * dtm,
-                                              sn[(size_t)(S_LIN + 2) * V + v] * dtm},
-                                             ma->max_disp, g_pos);
-                g_lin.x += g_dp.x * dtm; g_lin.y += g_dp.y * dtm; g_lin.z += g_dp.z * dtm;
-            } else {
-                g_lin.x += g_pos.x * dtm; g_lin.y += g_pos.y * dtm; g_lin.z += g_pos.z * dtm;
-            }
-
-            // quaternion update: qn = normalize(qo + 0.5 * (0, ang' * iinv) * qo * dt),
-            // snapped to the identity at w >= 1 (which cuts the cotangent)
-            const F3 angp = occ ? F3{sn[(size_t)S_ANG * V + v], sn[(size_t)(S_ANG + 1) * V + v],
-                                     sn[(size_t)(S_ANG + 2) * V + v]}
-                                : F3{SCH(S_ANG)[v] * ang_fact, SCH(S_ANG + 1)[v] * ang_fact,
-                                     SCH(S_ANG + 2)[v] * ang_fact};
-            const Q qo = {SCH(S_QUAT)[v], SCH(S_QUAT + 1)[v], SCH(S_QUAT + 2)[v], SCH(S_QUAT + 3)[v]};
-            const Q av4 = {0.f, angp.x * iinv, angp.y * iinv, angp.z * iinv};
-            const Q sp4 = qmul(av4, qo);
-            const Q qr = {qo.w + 0.5f * sp4.w * dt, qo.x + 0.5f * sp4.x * dt,
-                          qo.y + 0.5f * sp4.y * dt, qo.z + 0.5f * sp4.z * dt};
-            const float l2 = qr.w * qr.w + qr.x * qr.x + qr.y * qr.y + qr.z * qr.z;
-            const float li = l2 > 0.f ? 1.f / sqrtf(l2) : 1.f;
-            Q c_qo = {0.f, 0.f, 0.f, 0.f};
-            if (!(qr.w * li >= 1.f)) {
-                Q c_qr = {g_q.w * li, g_q.x * li, g_q.y * li, g_q.z * li};
-                if (l2 > 0.f) {
-                    const float c_li = g_q.w * qr.w + g_q.x * qr.x + g_q.y * qr.y + g_q.z * qr.z;
-                    const float c_l2 = c_li * (-0.5f * li / l2);
-                    c_qr.w += 2.f * qr.w * c_l2; c_qr.x += 2.f * qr.x * c_l2;
-                    c_qr.y += 2.f * qr.y * c_l2; c_qr.z += 2.f * qr.z * c_l2;
+                // actuation: the clamps' "keep last" branch is the old scale; the
+                // knot adds u * L for occupied voxels. The land_water actuation
+                // of a fluid does not read the old scale.
+                float c_scale = 0.f;
+                if constexpr (VARIANT == V_LAND) {
+                    bool kept_last;
+                    actuation_scale(t, scale, BCH(B_AMPDAMP)[v], BCH(B_PHASE)[v], BCH(B_CTE)[v],
+                                    r.tamp, r.tper, r.init_cm, r.min_tf, r.gamp, p, flags,
+                                    &kept_last);
+                    if (occ && kept_last) c_scale = g_scale;
+                } else if constexpr (VARIANT == V_DEVO) {
+                    const float dv[6] = {BCH(B_INIT_SIZE)[v], BCH(B_FINAL_SIZE)[v],
+                                         BCH(B_GROWTH_T)[v], BCH(B_START_GT)[v],
+                                         BCH(B_FINAL_PHASE)[v], BCH(B_FINAL_AD)[v]};
+                    bool kept_last;
+                    development_scale(t, scale, BCH(B_AMPDAMP)[v], BCH(B_PHASE)[v], BCH(B_CTE)[v],
+                                      dv, r.tamp, r.tper, r.init_cm, r.min_tf, r.gamp, p, flags,
+                                      &kept_last);
+                    if (occ && kept_last) c_scale = g_scale;
                 }
-                c_qo = c_qr;
-                const float hdt = 0.5f * dt;
-                const Q c_sp4 = {c_qr.w * hdt, c_qr.x * hdt, c_qr.y * hdt, c_qr.z * hdt};
-                Q c_av4 = {0.f, 0.f, 0.f, 0.f};
-                qmul_vjp(av4, qo, c_sp4, c_av4, c_qo);
-                c_angp.x += c_av4.x * iinv; c_angp.y += c_av4.y * iinv; c_angp.z += c_av4.z * iinv;
-            }
+                if (occ) cu_out[v] += g_scale * p.L;
 
-            // ang' = (ang + tm * dt) * ang_fact
-            const F3 c_ang = {c_angp.x * ang_fact, c_angp.y * ang_fact, c_angp.z * ang_fact};
-            const F3 c_tm = occ ? F3{c_ang.x * dt, c_ang.y * dt, c_ang.z * dt} : z3;
+                // pos' = pos + lin' * (dt * minv)
+                F3 c_pos = g_pos;
+                const float dtm = dt * minv;
+                if constexpr (MAT) {
+                    // (the clamp) pos' = pos + dp * back, dp = lin' * dtm
+                    F3 g_dp = g_pos;
+                    if ((flags & F_MAXVEL) && occ)
+                        g_dp = max_vel_clamp_vjp({sn[(size_t)S_LIN * V + v] * dtm,
+                                                  sn[(size_t)(S_LIN + 1) * V + v] * dtm,
+                                                  sn[(size_t)(S_LIN + 2) * V + v] * dtm},
+                                                 ma->max_disp, g_pos);
+                    g_lin.x += g_dp.x * dtm; g_lin.y += g_dp.y * dtm; g_lin.z += g_dp.z * dtm;
+                } else {
+                    g_lin.x += g_pos.x * dtm; g_lin.y += g_pos.y * dtm; g_lin.z += g_pos.z * dtm;
+                }
 
-            // lin' = lin (after the floor's zeroing) + tf * dt
-            F3 c_lin = g_lin;
-            F3 c_tf = occ ? F3{g_lin.x * dt, g_lin.y * dt, g_lin.z * dt} : z3;
-            F3 c_vel = z3;
-            if (flags & F_FLOOR) {
-                const F3 vel = {SCH(S_LIN)[v] * minv, SCH(S_LIN + 1)[v] * minv,
-                                SCH(S_LIN + 2)[v] * minv};
-                const float kstiff = BCH(B_LIN_STIFF)[v], ud = BCH(B_UD)[v];
-                const Floor fl = floor_state(scale, SCH(S_POS + 2)[v], vel, kstiff, ud, mass,
-                                             dt, flags);
-                const bool static_flag = SCH(S_DIFF)[v] > 0.5f;
-                const float c_fz = c_tf.z;
-                float c_fx = c_tf.x, c_fy = c_tf.y;
-                if (static_flag) { c_fx = 0.f; c_fy = 0.f; c_tf.x = 0.f; c_tf.y = 0.f; }
-                if (fl.stick || (fl.moving && !fl.keeps_moving)) { c_lin.x = 0.f; c_lin.y = 0.f; }
-                float c_nf = 0.f;
-                if (fl.moving && fl.keeps_moving) {
-                    // fx = -vel.x * inv_sv * dyn_fric, inv_sv = 1 / |vel.xy|
-                    c_vel.x -= c_fx * fl.dyn_fric * fl.inv_sv;
-                    c_vel.y -= c_fy * fl.dyn_fric * fl.inv_sv;
-                    const float c_inv_sv = -(c_fx * vel.x + c_fy * vel.y) * fl.dyn_fric;
-                    const float c_dyn = -(c_fx * vel.x + c_fy * vel.y) * fl.inv_sv;
-                    const float c_sv = -c_inv_sv * fl.inv_sv * fl.inv_sv;
-                    const float c_sv2 = c_sv * 0.5f / fl.surface_vel;
-                    c_vel.x += 2.f * vel.x * c_sv2;
-                    c_vel.y += 2.f * vel.y * c_sv2;
-                    c_nf += c_dyn * ud;
-                }
-                if (fl.contact) {
-                    // fz = normal_force - col_damp * tsm * vel.z; pen = scale / 2 - pos.z
-                    c_nf += c_fz;
-                    c_vel.z -= c_fz * (p.col_damp * tsm);
-                    const float c_pen = c_nf * kstiff;
-                    c_scale += 0.5f * c_pen;
-                    c_pos.z -= c_pen;
-                }
-            }
-            if constexpr (VARIANT == V_FLUID_FACE) {
-                // the voxel-face drag, -+C scale^2 vd^2 on each exposed face
-                // that faces forward along axis d
-                const float velc[3] = {SCH(S_LIN)[v] * minv, SCH(S_LIN + 1)[v] * minv,
-                                       SCH(S_LIN + 2)[v] * minv};
-                const float ctfc[3] = {c_tf.x, c_tf.y, c_tf.z};
-                float* cvc[3] = {&c_vel.x, &c_vel.y, &c_vel.z};
-                const int coord[3] = {v / (Y * Z), (v / Z) % Y, v % Z};
-                const float ca = r.dragc * (scale * scale);
-                float c_ca = 0.f;
-                for (int d = 0; d < 3 && occ; ++d) {
-                    const float* mk = bo + (size_t)(B_DIR + d * B_PER_DIR + D_MASK) * V;
-                    const bool m_pos = mk[v] > 0.5f;
-                    const bool m_neg = coord[d] > 0 && mk[v - strides[d]] > 0.5f;
-                    const float vd = velc[d];
-                    if (!m_pos && vd > 0.f) {
-                        *cvc[d] -= ctfc[d] * (2.f * ca * vd);
-                        c_ca -= ctfc[d] * (vd * vd);
+                // quaternion update: qn = normalize(qo + 0.5 * (0, ang' * iinv) * qo * dt),
+                // snapped to the identity at w >= 1 (which cuts the cotangent)
+                const F3 angp = occ ? F3{sn[(size_t)S_ANG * V + v], sn[(size_t)(S_ANG + 1) * V + v],
+                                         sn[(size_t)(S_ANG + 2) * V + v]}
+                                    : F3{SCH(S_ANG)[v] * ang_fact, SCH(S_ANG + 1)[v] * ang_fact,
+                                         SCH(S_ANG + 2)[v] * ang_fact};
+                const Q qo = {SCH(S_QUAT)[v], SCH(S_QUAT + 1)[v], SCH(S_QUAT + 2)[v], SCH(S_QUAT + 3)[v]};
+                const Q av4 = {0.f, angp.x * iinv, angp.y * iinv, angp.z * iinv};
+                const Q sp4 = qmul(av4, qo);
+                const Q qr = {qo.w + 0.5f * sp4.w * dt, qo.x + 0.5f * sp4.x * dt,
+                              qo.y + 0.5f * sp4.y * dt, qo.z + 0.5f * sp4.z * dt};
+                const float l2 = qr.w * qr.w + qr.x * qr.x + qr.y * qr.y + qr.z * qr.z;
+                const float li = l2 > 0.f ? 1.f / sqrtf(l2) : 1.f;
+                Q c_qo = {0.f, 0.f, 0.f, 0.f};
+                if (!(qr.w * li >= 1.f)) {
+                    Q c_qr = {g_q.w * li, g_q.x * li, g_q.y * li, g_q.z * li};
+                    if (l2 > 0.f) {
+                        const float c_li = g_q.w * qr.w + g_q.x * qr.x + g_q.y * qr.y + g_q.z * qr.z;
+                        const float c_l2 = c_li * (-0.5f * li / l2);
+                        c_qr.w += 2.f * qr.w * c_l2; c_qr.x += 2.f * qr.x * c_l2;
+                        c_qr.y += 2.f * qr.y * c_l2; c_qr.z += 2.f * qr.z * c_l2;
                     }
-                    if (!m_neg && -vd > 0.f) {
-                        *cvc[d] += ctfc[d] * (2.f * ca * vd);
-                        c_ca += ctfc[d] * (vd * vd);
-                    }
+                    c_qo = c_qr;
+                    const float hdt = 0.5f * dt;
+                    const Q c_sp4 = {c_qr.w * hdt, c_qr.x * hdt, c_qr.y * hdt, c_qr.z * hdt};
+                    Q c_av4 = {0.f, 0.f, 0.f, 0.f};
+                    qmul_vjp(av4, qo, c_sp4, c_av4, c_qo);
+                    c_angp.x += c_av4.x * iinv; c_angp.y += c_av4.y * iinv; c_angp.z += c_av4.z * iinv;
                 }
-                c_scale += c_ca * r.dragc * 2.f * scale;
-            } else if constexpr (MESH) {
-                // the facet drag: to the velocity here, to the vertices
-                // through the scratch
-                const int coord[3] = {v / (Y * Z), (v / Z) % Y, v % Z};
-                if (occ && coord[0] + 1 < X && coord[1] + 1 < Y && coord[2] + 1 < Z) {
+
+                // ang' = (ang + tm * dt) * ang_fact
+                const F3 c_ang = {c_angp.x * ang_fact, c_angp.y * ang_fact, c_angp.z * ang_fact};
+                const F3 c_tm = occ ? F3{c_ang.x * dt, c_ang.y * dt, c_ang.z * dt} : z3;
+
+                // lin' = lin (after the floor's zeroing) + tf * dt
+                F3 c_lin = g_lin;
+                F3 c_tf = occ ? F3{g_lin.x * dt, g_lin.y * dt, g_lin.z * dt} : z3;
+                F3 c_vel = z3;
+                if (flags & F_FLOOR) {
                     const F3 vel = {SCH(S_LIN)[v] * minv, SCH(S_LIN + 1)[v] * minv,
                                     SCH(S_LIN + 2)[v] * minv};
-                    facet_drag_vjp(vfield, BCH(B_OCC), v, coord, X, Y, Z, vel, r.dragc, c_tf,
-                                   c_vel, ck);
-                } else {
-                    for (int k = 0; k < 24; ++k) ck[(size_t)k * V + v] = 0.f;
+                    const float kstiff = BCH(B_LIN_STIFF)[v], ud = BCH(B_UD)[v];
+                    const Floor fl = floor_state(scale, SCH(S_POS + 2)[v], vel, kstiff, ud, mass,
+                                                 dt, flags);
+                    const bool static_flag = SCH(S_DIFF)[v] > 0.5f;
+                    const float c_fz = c_tf.z;
+                    float c_fx = c_tf.x, c_fy = c_tf.y;
+                    if (static_flag) { c_fx = 0.f; c_fy = 0.f; c_tf.x = 0.f; c_tf.y = 0.f; }
+                    if (fl.stick || (fl.moving && !fl.keeps_moving)) { c_lin.x = 0.f; c_lin.y = 0.f; }
+                    float c_nf = 0.f;
+                    if (fl.moving && fl.keeps_moving) {
+                        // fx = -vel.x * inv_sv * dyn_fric, inv_sv = 1 / |vel.xy|
+                        c_vel.x -= c_fx * fl.dyn_fric * fl.inv_sv;
+                        c_vel.y -= c_fy * fl.dyn_fric * fl.inv_sv;
+                        const float c_inv_sv = -(c_fx * vel.x + c_fy * vel.y) * fl.dyn_fric;
+                        const float c_dyn = -(c_fx * vel.x + c_fy * vel.y) * fl.inv_sv;
+                        const float c_sv = -c_inv_sv * fl.inv_sv * fl.inv_sv;
+                        const float c_sv2 = c_sv * 0.5f / fl.surface_vel;
+                        c_vel.x += 2.f * vel.x * c_sv2;
+                        c_vel.y += 2.f * vel.y * c_sv2;
+                        c_nf += c_dyn * ud;
+                    }
+                    if (fl.contact) {
+                        // fz = normal_force - col_damp * tsm * vel.z; pen = scale / 2 - pos.z
+                        c_nf += c_fz;
+                        c_vel.z -= c_fz * (p.col_damp * tsm);
+                        const float c_pen = c_nf * kstiff;
+                        c_scale += 0.5f * c_pen;
+                        c_pos.z -= c_pen;
+                    }
                 }
-            }
-            // tf = neg_slow * vel * tsm + (bond forces) [+ gravity], vel = lin * minv
-            const float sd = p.neg_slow * tsm;
-            c_vel.x += c_tf.x * sd; c_vel.y += c_tf.y * sd; c_vel.z += c_tf.z * sd;
-            c_lin.x += c_vel.x * minv; c_lin.y += c_vel.y * minv; c_lin.z += c_vel.z * minv;
+                if constexpr (VARIANT == V_FLUID_FACE) {
+                    // the voxel-face drag, -+C scale^2 vd^2 on each exposed face
+                    // that faces forward along axis d
+                    const float velc[3] = {SCH(S_LIN)[v] * minv, SCH(S_LIN + 1)[v] * minv,
+                                           SCH(S_LIN + 2)[v] * minv};
+                    const float ctfc[3] = {c_tf.x, c_tf.y, c_tf.z};
+                    float* cvc[3] = {&c_vel.x, &c_vel.y, &c_vel.z};
+                    const int coord[3] = {v / (Y * Z), (v / Z) % Y, v % Z};
+                    const float ca = r.dragc * (scale * scale);
+                    float c_ca = 0.f;
+                    for (int d = 0; d < 3 && occ; ++d) {
+                        const float* mk = bo + (size_t)(B_DIR + d * B_PER_DIR + D_MASK) * V;
+                        const bool m_pos = mk[v] > 0.5f;
+                        const bool m_neg = coord[d] > 0 && mk[v - strides[d]] > 0.5f;
+                        const float vd = velc[d];
+                        if (!m_pos && vd > 0.f) {
+                            *cvc[d] -= ctfc[d] * (2.f * ca * vd);
+                            c_ca -= ctfc[d] * (vd * vd);
+                        }
+                        if (!m_neg && -vd > 0.f) {
+                            *cvc[d] += ctfc[d] * (2.f * ca * vd);
+                            c_ca += ctfc[d] * (vd * vd);
+                        }
+                    }
+                    c_scale += c_ca * r.dragc * 2.f * scale;
+                } else if constexpr (MESH) {
+                    // the facet drag: to the velocity here, to the vertices
+                    // through the scratch
+                    const int coord[3] = {v / (Y * Z), (v / Z) % Y, v % Z};
+                    if (occ && coord[0] + 1 < X && coord[1] + 1 < Y && coord[2] + 1 < Z) {
+                        const F3 vel = {SCH(S_LIN)[v] * minv, SCH(S_LIN + 1)[v] * minv,
+                                        SCH(S_LIN + 2)[v] * minv};
+                        facet_drag_vjp(vfield, BCH(B_OCC), v, coord, X, Y, Z, vel, r.dragc, c_tf,
+                                       c_vel, ck);
+                    } else {
+                        for (int k = 0; k < 24; ++k) ck[(size_t)k * V + v] = 0.f;
+                    }
+                }
+                // tf = neg_slow * vel * tsm + (bond forces) [+ gravity], vel = lin * minv
+                const float sd = p.neg_slow * tsm;
+                c_vel.x += c_tf.x * sd; c_vel.y += c_tf.y * sd; c_vel.z += c_tf.z * sd;
+                c_lin.x += c_vel.x * minv; c_lin.y += c_vel.y * minv; c_lin.z += c_vel.z * minv;
 
-            COT(S_POS)[v] = c_pos.x; COT(S_POS + 1)[v] = c_pos.y; COT(S_POS + 2)[v] = c_pos.z;
-            COT(S_QUAT)[v] = c_qo.w; COT(S_QUAT + 1)[v] = c_qo.x;
-            COT(S_QUAT + 2)[v] = c_qo.y; COT(S_QUAT + 3)[v] = c_qo.z;
-            COT(S_LIN)[v] = c_lin.x; COT(S_LIN + 1)[v] = c_lin.y; COT(S_LIN + 2)[v] = c_lin.z;
-            COT(S_ANG)[v] = c_ang.x; COT(S_ANG + 1)[v] = c_ang.y; COT(S_ANG + 2)[v] = c_ang.z;
-            COT(S_SCALE)[v] = c_scale;
-            ctf[v] = c_tf.x; ctf[V + v] = c_tf.y; ctf[2 * V + v] = c_tf.z;
-            ctm[v] = c_tm.x; ctm[V + v] = c_tm.y; ctm[2 * V + v] = c_tm.z;
-        }
-        __syncthreads();
+                COT(S_POS)[v] = c_pos.x; COT(S_POS + 1)[v] = c_pos.y; COT(S_POS + 2)[v] = c_pos.z;
+                COT(S_QUAT)[v] = c_qo.w; COT(S_QUAT + 1)[v] = c_qo.x;
+                COT(S_QUAT + 2)[v] = c_qo.y; COT(S_QUAT + 3)[v] = c_qo.z;
+                COT(S_LIN)[v] = c_lin.x; COT(S_LIN + 1)[v] = c_lin.y; COT(S_LIN + 2)[v] = c_lin.z;
+                COT(S_ANG)[v] = c_ang.x; COT(S_ANG + 1)[v] = c_ang.y; COT(S_ANG + 2)[v] = c_ang.z;
+                COT(S_SCALE)[v] = c_scale;
+                ctf[lv] = c_tf.x; ctf[Vs + lv] = c_tf.y; ctf[2 * Vs + lv] = c_tf.z;
+                ctm[lv] = c_tm.x; ctm[Vs + lv] = c_tm.y; ctm[2 * Vs + lv] = c_tm.z;
+            }
+        });
+        b4_sync(pt);
 
         if constexpr (MESH) {
             // (a2) each vertex's cotangent, from the corner slots of the up
             // to 8 voxels whose drag read it, over the vertex's weight (the
             // occupied voxels it averages)
             float* cvert = vfield;  // the vertex field is read no more
-            for (int c = threadIdx.x; c < V; c += T) {
-                const int c3[3] = {c / (Y * Z), (c / Z) % Y, c % Z};
-                F3 acc = {0.f, 0.f, 0.f};
-                float wsum = 0.f;
-                for (int k = 7; k >= 0; --k) {
-                    const int e[3] = {(k >> 2) & 1, (k >> 1) & 1, k & 1};
-                    if (c3[0] < e[0] || c3[1] < e[1] || c3[2] < e[2]) continue;
-                    const int u = c - (e[0] * strides[0] + e[1] * strides[1] + e[2]);
-                    acc.x += ck[(size_t)(3 * k) * V + u];
-                    acc.y += ck[(size_t)(3 * k + 1) * V + u];
-                    acc.z += ck[(size_t)(3 * k + 2) * V + u];
-                    if (BCH(B_OCC)[u] > 0.5f) wsum += 1.f;
+            each_rank(pt, [&](int rk) {
+                for (int c = first(rk) + threadIdx.x; c < last(rk); c += T) {
+                    const int c3[3] = {c / YZ, (c / Z) % Y, c % Z};
+                    F3 acc = {0.f, 0.f, 0.f};
+                    float wsum = 0.f;
+                    for (int kk = 7; kk >= 0; --kk) {
+                        const int e[3] = {(kk >> 2) & 1, (kk >> 1) & 1, kk & 1};
+                        if (c3[0] < e[0] || c3[1] < e[1] || c3[2] < e[2]) continue;
+                        const int u = c - (e[0] * strides[0] + e[1] * strides[1] + e[2]);
+                        acc.x += ck[(size_t)(3 * kk) * V + u];
+                        acc.y += ck[(size_t)(3 * kk + 1) * V + u];
+                        acc.z += ck[(size_t)(3 * kk + 2) * V + u];
+                        if (BCH(B_OCC)[u] > 0.5f) wsum += 1.f;
+                    }
+                    const float w = fmaxf(wsum, 1.f);
+                    cvert[c] = acc.x / w; cvert[V + c] = acc.y / w; cvert[2 * V + c] = acc.z / w;
                 }
-                const float w = fmaxf(wsum, 1.f);
-                cvert[c] = acc.x / w; cvert[V + c] = acc.y / w; cvert[2 * V + c] = acc.z / w;
-            }
-            __syncthreads();
+            });
+            b4_sync(pt);
             // (a3) each occupied voxel's corners: pos + R(q) off, off[a] =
             // +-L/2 (1 + strain); the strain of its own +a bond where the
             // corner looks along +a, else the far side of the bond below it
             const float* sv = si + (size_t)NT * V;
             float* cs = ck;  // [6][V]: the corner slots are read no more
-            for (int u = threadIdx.x; u < V; u += T) {
-                float c_own[3] = {0.f, 0.f, 0.f}, c_below[3] = {0.f, 0.f, 0.f};
-                if (BCH(B_OCC)[u] > 0.5f) {
-                    const int u3[3] = {u / (Y * Z), (u / Z) % Y, u % Z};
-                    const int dims[3] = {X, Y, Z};
-                    const Q qu = {SCH(S_QUAT)[u], SCH(S_QUAT + 1)[u], SCH(S_QUAT + 2)[u],
-                                  SCH(S_QUAT + 3)[u]};
-                    F3 c_p = {0.f, 0.f, 0.f};
-                    Q c_q = {0.f, 0.f, 0.f, 0.f};
-                    for (int k = 0; k < 8; ++k) {
-                        const int e[3] = {(k >> 2) & 1, (k >> 1) & 1, k & 1};
-                        if (u3[0] + e[0] >= dims[0] || u3[1] + e[1] >= dims[1] ||
-                            u3[2] + e[2] >= dims[2])
-                            continue;
-                        const int c = u + e[0] * strides[0] + e[1] * strides[1] + e[2];
-                        const F3 g = {cvert[c], cvert[V + c], cvert[2 * V + c]};
-                        float off[3], sgn[3];
-                        for (int a = 0; a < 3; ++a) {
-                            sgn[a] = e[a] ? half_l : -half_l;
-                            const float strain =
-                                e[a] ? sv[(size_t)a * V + u]
-                                     : (u3[a] > 0 ? sv[(size_t)(3 + a) * V + u - strides[a]] : 0.f);
-                            off[a] = sgn[a] * (1.f + strain);
+            each_rank(pt, [&](int rk) {
+                for (int u = first(rk) + threadIdx.x; u < last(rk); u += T) {
+                    float c_own[3] = {0.f, 0.f, 0.f}, c_below[3] = {0.f, 0.f, 0.f};
+                    if (BCH(B_OCC)[u] > 0.5f) {
+                        const int u3[3] = {u / (Y * Z), (u / Z) % Y, u % Z};
+                        const int dims[3] = {X, Y, Z};
+                        const Q qu = {SCH(S_QUAT)[u], SCH(S_QUAT + 1)[u], SCH(S_QUAT + 2)[u],
+                                      SCH(S_QUAT + 3)[u]};
+                        F3 c_p = {0.f, 0.f, 0.f};
+                        Q c_q = {0.f, 0.f, 0.f, 0.f};
+                        for (int k = 0; k < 8; ++k) {
+                            const int e[3] = {(k >> 2) & 1, (k >> 1) & 1, k & 1};
+                            if (u3[0] + e[0] >= dims[0] || u3[1] + e[1] >= dims[1] ||
+                                u3[2] + e[2] >= dims[2])
+                                continue;
+                            const int c = u + e[0] * strides[0] + e[1] * strides[1] + e[2];
+                            const F3 g = {cvert[c], cvert[V + c], cvert[2 * V + c]};
+                            float off[3], sgn[3];
+                            for (int a = 0; a < 3; ++a) {
+                                sgn[a] = e[a] ? half_l : -half_l;
+                                const float strain =
+                                    e[a] ? sv[(size_t)a * V + u]
+                                         : (u3[a] > 0 ? sv[(size_t)(3 + a) * V + u - strides[a]] : 0.f);
+                                off[a] = sgn[a] * (1.f + strain);
+                            }
+                            add3(c_p, g);
+                            F3 c_off = {0.f, 0.f, 0.f};
+                            qrot_vjp(qu, {off[0], off[1], off[2]}, g, c_q, c_off);
+                            const float co[3] = {c_off.x * sgn[0], c_off.y * sgn[1], c_off.z * sgn[2]};
+                            for (int a = 0; a < 3; ++a) {
+                                if (e[a]) c_own[a] += co[a];
+                                else if (u3[a] > 0) c_below[a] += co[a];
+                            }
                         }
-                        add3(c_p, g);
-                        F3 c_off = {0.f, 0.f, 0.f};
-                        qrot_vjp(qu, {off[0], off[1], off[2]}, g, c_q, c_off);
-                        const float co[3] = {c_off.x * sgn[0], c_off.y * sgn[1], c_off.z * sgn[2]};
-                        for (int a = 0; a < 3; ++a) {
-                            if (e[a]) c_own[a] += co[a];
-                            else if (u3[a] > 0) c_below[a] += co[a];
-                        }
+                        COT(S_POS)[u] += c_p.x; COT(S_POS + 1)[u] += c_p.y;
+                        COT(S_POS + 2)[u] += c_p.z;
+                        COT(S_QUAT)[u] += c_q.w; COT(S_QUAT + 1)[u] += c_q.x;
+                        COT(S_QUAT + 2)[u] += c_q.y; COT(S_QUAT + 3)[u] += c_q.z;
                     }
-                    COT(S_POS)[u] += c_p.x; COT(S_POS + 1)[u] += c_p.y;
-                    COT(S_POS + 2)[u] += c_p.z;
-                    COT(S_QUAT)[u] += c_q.w; COT(S_QUAT + 1)[u] += c_q.x;
-                    COT(S_QUAT + 2)[u] += c_q.y; COT(S_QUAT + 3)[u] += c_q.z;
+                    for (int a = 0; a < 3; ++a) {
+                        cs[(size_t)a * V + u] = c_own[a];
+                        cs[(size_t)(3 + a) * V + u] = c_below[a];
+                    }
                 }
-                for (int a = 0; a < 3; ++a) {
-                    cs[(size_t)a * V + u] = c_own[a];
-                    cs[(size_t)(3 + a) * V + u] = c_below[a];
-                }
-            }
-            __syncthreads();
+            });
+            b4_sync(pt);
         }
 
-        // (b) bond pass: tf += f1 (own) + f2 (from the lower neighbour),
-        // tm -= m1 + m2 likewise
-        for (int v = threadIdx.x; v < V; v += T) {
-            F3 own_p = {0.f, 0.f, 0.f};
-            Q own_q = {0.f, 0.f, 0.f, 0.f};
-            float own_s = 0.f;
-            for (int d = 0; d < 3; ++d) {
+        // (b) bond pass, a bond item (v, d) a thread, d-major (neighbouring
+        // threads, neighbouring voxels): tf += f1 (own) + f2 (from the lower
+        // neighbour), tm -= m1 + m2 likewise. Each bond leaves what it sends
+        // its own voxel in its own slab row and what it sends v + stride_d in
+        // nbc; a bond along x from a block's last plane reads its far end's
+        // cotangents in the next block's slab.
+        each_rank(pt, [&](int rk) {
+            float* sl = b4_slab(pt, rk);
+            const float* up = rk + 1 < pt.C ? b4_slab(pt, rk + 1) : nullptr;
+            const int v0 = first(rk), nv = last(rk) - v0;
+            for (int it = threadIdx.x; it < 3 * nv; it += T) {
+                const int d = it / nv;
+                const int lv = it - d * nv;
+                const int v = v0 + lv;
                 const float* bd = bo + (size_t)(B_DIR + d * B_PER_DIR) * V + v;
-                float* nb = nbc + (size_t)d * NB * V + v;
+                float* nb = sl + (size_t)(6 + d * NB) * Vs + lv;
+                float* ow = sl + (size_t)(6 + (3 + d) * NB) * Vs + lv;
                 float* c_lp2 = COT(S_LP2 + 3 * d) + v;
                 float* c_la1 = COT(S_LA1 + 3 * d) + v;
                 float* c_la2 = COT(S_LA2 + 3 * d) + v;
                 if (!(bd[(size_t)D_MASK * V] > 0.5f)) {
                     // no bond: its memory is reset to zeros every step
-                    for (int k = 0; k < NB; ++k) nb[(size_t)k * V] = 0.f;
+                    for (int c = 0; c < NB; ++c) {
+                        nb[(size_t)c * Vs] = 0.f;
+                        ow[(size_t)c * Vs] = 0.f;
+                    }
                     for (int c = 0; c < 3; ++c) {
                         c_lp2[(size_t)c * V] = 0.f;
                         c_la1[(size_t)c * V] = 0.f;
@@ -821,6 +959,8 @@ __device__ inline void reverse_segment(const float* st0, const float* bo, const 
                     continue;
                 }
                 const int n = v + strides[d];
+                const float* cn = lv + strides[d] < nv ? sl : up;  // n's slab
+                const int ln = lv + strides[d] < nv ? lv + strides[d] : lv + strides[d] - nv;
                 Bond bn;
                 if constexpr (MAT)  // stiff: the nonlinear stress's slope at the strain
                     bn = bond_forward<true, false, true>(si, bd, v, n, d, V, p, dt, dt_inv, ma,
@@ -840,61 +980,125 @@ __device__ inline void reverse_segment(const float* st0, const float* bo, const 
                     g_strain = hom ? c_s1 + c_s2
                                    : 2.f * sdiv(E2, s_sum) * c_s1 + 2.f * sdiv(E1, s_sum) * c_s2;
                 }
-                const F3 gF1 = {ctf[v], ctf[V + v], ctf[2 * V + v]};
-                const F3 gF2 = {ctf[n], ctf[V + n], ctf[2 * V + n]};
-                const F3 gM1 = {-ctm[v], -ctm[V + v], -ctm[2 * V + v]};
-                const F3 gM2 = {-ctm[n], -ctm[V + n], -ctm[2 * V + n]};
+                const float* ctm = sl + 3 * Vs;
+                const float* ctmn = cn + 3 * Vs;
+                const F3 gF1 = {sl[lv], sl[Vs + lv], sl[2 * Vs + lv]};
+                const F3 gF2 = {cn[ln], cn[Vs + ln], cn[2 * Vs + ln]};
+                const F3 gM1 = {-ctm[lv], -ctm[Vs + lv], -ctm[2 * Vs + lv]};
+                const F3 gM2 = {-ctmn[ln], -ctmn[Vs + ln], -ctmn[2 * Vs + ln]};
                 const F3 g_lp2 = {c_lp2[0], c_lp2[V], c_lp2[2 * V]};
                 const F3 g_la1 = {c_la1[0], c_la1[V], c_la1[2 * V]};
                 const F3 g_la2 = {c_la2[0], c_la2[V], c_la2[2 * V]};
                 const BondCot bc = bond_vjp<VARIANT>(bn, bd, d, V, p, dt_inv, SCH(S_MAXS + d)[v],
                                                      gF1, gM1, gF2, gM2, g_lp2, g_la1, g_la2,
                                                      COT(S_MAXS + d)[v], g_strain);
-                add3(own_p, bc.p1);
-                addq(own_q, bc.qa);
-                own_s += bc.s1;
-                nb[0] = bc.p2.x; nb[(size_t)V] = bc.p2.y; nb[(size_t)2 * V] = bc.p2.z;
-                nb[(size_t)3 * V] = bc.qb.w; nb[(size_t)4 * V] = bc.qb.x;
-                nb[(size_t)5 * V] = bc.qb.y; nb[(size_t)6 * V] = bc.qb.z;
-                nb[(size_t)7 * V] = bc.s2;
+                ow[0] = bc.p1.x; ow[(size_t)Vs] = bc.p1.y; ow[(size_t)2 * Vs] = bc.p1.z;
+                ow[(size_t)3 * Vs] = bc.qa.w; ow[(size_t)4 * Vs] = bc.qa.x;
+                ow[(size_t)5 * Vs] = bc.qa.y; ow[(size_t)6 * Vs] = bc.qa.z;
+                ow[(size_t)7 * Vs] = bc.s1;
+                nb[0] = bc.p2.x; nb[(size_t)Vs] = bc.p2.y; nb[(size_t)2 * Vs] = bc.p2.z;
+                nb[(size_t)3 * Vs] = bc.qb.w; nb[(size_t)4 * Vs] = bc.qb.x;
+                nb[(size_t)5 * Vs] = bc.qb.y; nb[(size_t)6 * Vs] = bc.qb.z;
+                nb[(size_t)7 * Vs] = bc.s2;
                 c_lp2[0] = bc.lp2.x; c_lp2[V] = bc.lp2.y; c_lp2[2 * V] = bc.lp2.z;
                 c_la1[0] = bc.la1.x; c_la1[V] = bc.la1.y; c_la1[2 * V] = bc.la1.z;
                 c_la2[0] = bc.la2.x; c_la2[V] = bc.la2.y; c_la2[2 * V] = bc.la2.z;
                 COT(S_MAXS + d)[v] = bc.maxs;
             }
-            COT(S_POS)[v] += own_p.x; COT(S_POS + 1)[v] += own_p.y; COT(S_POS + 2)[v] += own_p.z;
-            COT(S_QUAT)[v] += own_q.w; COT(S_QUAT + 1)[v] += own_q.x;
-            COT(S_QUAT + 2)[v] += own_q.y; COT(S_QUAT + 3)[v] += own_q.z;
-            COT(S_SCALE)[v] += own_s;
-        }
-        __syncthreads();
+        });
+        b4_sync(pt);
 
-        // (c) each voxel gathers what its lower neighbours' bonds sent it
-        for (int v = threadIdx.x; v < V; v += T) {
-            const int coord[3] = {v / (Y * Z), (v / Z) % Y, v % Z};
-            float acc[NB] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-            for (int d = 0; d < 3; ++d) {
-                if (coord[d] == 0) continue;
-                const float* nb = nbc + (size_t)d * NB * V + (v - strides[d]);
-                for (int k = 0; k < NB; ++k) acc[k] += nb[(size_t)k * V];
+        // (c) each voxel adds what its own three bonds sent it (summed over
+        // d from zero, then added at once: a masked bond's zeros change no
+        // bit of a sum that starts at +0), then what its lower neighbours'
+        // bonds sent it, a bond along x from the block below through that
+        // block's slab
+        each_rank(pt, [&](int rk) {
+            const float* sl = b4_slab(pt, rk);
+            const float* dn = rk > 0 ? b4_slab(pt, rk - 1) : nullptr;
+            const int v0 = first(rk);
+            for (int v = v0 + threadIdx.x; v < last(rk); v += T) {
+                const int lv = v - v0;
+                const int coord[3] = {v / YZ, (v / Z) % Y, v % Z};
+                float own[NB] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+                for (int d = 0; d < 3; ++d) {
+                    const float* ow = sl + (size_t)(6 + (3 + d) * NB) * Vs + lv;
+                    for (int c = 0; c < NB; ++c) own[c] += ow[(size_t)c * Vs];
+                }
+                for (int c = 0; c < 7; ++c) COT(S_POS + c)[v] += own[c];
+                COT(S_SCALE)[v] += own[7];
+                float acc[NB] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+                for (int d = 0; d < 3; ++d) {
+                    if (coord[d] == 0) continue;
+                    const int lu = lv - strides[d];
+                    // the lower block holds `planes` whole planes
+                    const float* nb = (lu >= 0 ? sl + lu : dn + lu + Vs) + (size_t)(6 + d * NB) * Vs;
+                    for (int c = 0; c < NB; ++c) acc[c] += nb[(size_t)c * Vs];
+                }
+                for (int c = 0; c < 7; ++c) COT(S_POS + c)[v] += acc[c];
+                COT(S_SCALE)[v] += acc[7];
             }
-            for (int k = 0; k < 7; ++k) COT(S_POS + k)[v] += acc[k];
-            COT(S_SCALE)[v] += acc[7];
-        }
+        });
         // the next step's pass (a) touches only ctf/ctm and each thread's
         // own voxels; its barrier orders pass (c) before the next pass (b)
     }
+    // no block leaves while another may still read its slab
+    b4_sync(pt);
 #undef SCH
 #undef BCH
 #undef COT
 }
 
 #ifndef EVOSORO_HOST_EMULATION
-// lets `kernel` take `smem` bytes of dynamic shared memory
-template <typename K>
-static int allow_smem(K kernel, size_t smem) {
-    if (smem <= 48 * 1024) return 0;
-    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)smem);
+// The body of every B4 kernel: robot blockIdx.x / C, rank blockIdx.x % C of
+// its cluster of C blocks, each owning `planes` x-planes. GMEM: the
+// recompute's buffer is the robot's row of gbuf (gstride floats apart) in
+// device memory, else dynamic shared memory. The slabs (`slab` floats a
+// block) lie in dynamic shared memory where sbuf is null, else in sbuf,
+// C slabs a robot.
+template <int VARIANT, bool MAT, bool GMEM>
+__device__ inline void b4_robot(const float* state_all, const float* body_all, int body_batched,
+                                const float* stats_all, const float* ctrl_all, int n_knots,
+                                int knot_steps, int step_base, int X, int Y, int Z,
+                                int num_steps, const Params& p, int flags, float* tape_all,
+                                float* tape_t_all, float* cot_all, float* cot_u_all,
+                                float* scr_all, float* gbuf, int gstride, float* sbuf, int C,
+                                int planes, int slab, MatArgs ma) {
+    extern __shared__ float sh[];
+    const int V = X * Y * Z;
+    const int b = blockIdx.x / C;
+    float* row = gbuf ? gbuf + (size_t)b * gstride : nullptr;
+    const B4Part pt = {C, planes, (int)(blockIdx.x % C),
+                       sbuf ? sbuf + (size_t)b * C * slab : sh, sbuf ? (size_t)slab : 0};
+    ma.bo = body_all + (body_batched ? (size_t)b * C_B * V : 0);
+    reverse_segment<VARIANT, MAT>(
+        state_all + (size_t)b * C_S * V, ma.bo, stats_all + (size_t)b * C_STAT,
+        ctrl_all + (size_t)b * n_knots * V, n_knots, knot_steps, step_base, X, Y, Z, num_steps,
+        p, flags, tape_all + (size_t)b * (num_steps + 1) * tape_channels<VARIANT>() * V,
+        tape_t_all + (size_t)b * num_steps, cot_all + (size_t)b * C_S * V,
+        cot_u_all + (size_t)b * n_knots * V, GMEM ? row : sh, pt,
+        scr_all ? scr_all + (size_t)b * B4_MESH_SCR * V : nullptr, MAT ? &ma : nullptr);
 }
+
+// The launch of one B4 kernel: B clusters of C blocks (a plain launch when
+// C is 1), in the shape b4_shape chose and checked (fused_rollout_bwd.cu).
+template <class... E, class... A>
+inline int b4_launch(void (*kernel)(E...), int B, int C, int threads, size_t smem,
+                     cudaStream_t st, A... args) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(B * C, 1, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute at[1];
+    at[0].id = cudaLaunchAttributeClusterDimension;
+    at[0].val.clusterDim.x = C;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = 1;
+    cfg.attrs = at;
+    cfg.numAttrs = C > 1 ? 1 : 0;
+    const int rc = (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+    return rc ? rc : (int)cudaGetLastError();
+}
+
 #endif

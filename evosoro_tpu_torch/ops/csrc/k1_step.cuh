@@ -1,9 +1,8 @@
-// K1's step loop for the H100: what rollout_steps (fused_rollout_common.cuh)
-// computes in place (slot_stride 0), in the same order of operations and
-// with every sum in the same order, so every output keeps its bits; only
-// which thread does which piece of work, and where the state lives during
-// a launch, differ. B4 recomputes its segments with rollout_steps, which
-// keeps the old mapping (and its machine code) until B4's own redesign.
+// K1's step loop for the H100, and B4's recompute (its TAPE form). It
+// computes the bits of the old mapping (a thread a voxel and its three
+// bonds, the sums over a 256-thread block), which is gone: only which
+// thread does which piece of work, and where the state lives during a
+// launch, differ.
 //
 // Bound on this card: the latency of one block's step (fused_rollout.cu).
 // A 256-thread block left 8 warps on an SM at 10^3 (the bond forces' 144 KB
@@ -48,7 +47,7 @@ __host__ __device__ constexpr int k1_bound(bool mat, bool dense, bool feat) {
 
 // The threads whose partials a reduction folds: the old mapping's block,
 // min(V rounded up to a warp, 256); one in the host build (one thread a
-// block), where rollout_steps folds over its one thread too
+// block)
 constexpr int K1_RED_THREADS = 256;
 static_assert(K1_DENSE_OPT_THREADS >= K1_RED_THREADS && K1_THREADS <= 1024,
               "a block holds the reductions' partition");
@@ -68,21 +67,53 @@ __host__ __device__ constexpr int k1_threads(int V, bool mat, bool dense, bool f
                                                                  : (3 * V + 31) / 32 * 32;
 }
 
+// B4's tape (k1_steps' TAPE form): slots `slot` floats apart, the steps'
+// clocks, and where thread 0 leaves the count of steps taken
+struct K1Tape {
+    size_t slot;
+    float* clock;
+    int* taken;
+};
+template <class T>
+__device__ inline const T& k1_tape(const T& t) { return t; }
+
 // The step loop of one robot, run by its whole block, in place on st (the
-// robot's C_S x V state in device memory); the arguments as rollout_steps'
-// with slot_stride 0 and no tape. RES: sh holds the state's copy past the
-// k1_buffer_floats of the buffer. A robot that is frozen leaves the loop.
+// robot's C_S x V state in device memory). r carries time, divergence
+// latch, IniCM and the capture flag in and out. A robot that is frozen
+// (diverged, or past its stop time) leaves the loop: the steps it skips
+// change nothing.
+//
+// sh: k1_buffer_floats of shared memory (or device memory); RES: the
+// state's copy past them. scr: the robot's 6 * V floats of scratch in
+// device memory (V_FLUID_MESH only). FEAT: the fitness features, on the
+// carry fe with the constants fp. MAT: the material instance (the land
+// variant only) with the inputs ma and the kinetic-energy ring ke (6
+// floats, the same in every thread); with F_COMPACT, a1 is the compact
+// table (S + 1, S). VOL (with MAT): volume effects, with the inputs va;
+// r.dt is the dt carried in and out. DENSE: contact through the dense pair
+// pass on the V x V table a1 (pair_contact.cuh).
+//
+// TAPE (B4's recompute; not with RES), with one K1Tape after the other
+// arguments: out of place. Step i reads slot i (st + i * slot) and writes
+// slot i + 1, so the state every step started from is kept; it also leaves
+// its clock in clock[i] and each voxel's static-friction decision in
+// channel S_DIFF of slot i, carries a masked bond's small-angle flag and a
+// changed bond's old damping memory into the new slot (in place they stay
+// where they are), and with the facet drag leaves its per-side strains
+// past scr + i * slot, in its own slot. Without TAPE the pack is empty and
+// every instance compiles to what it was before the tape came.
 template <int VARIANT, bool FEAT = false, bool MAT = false, bool VOL = false,
-          bool DENSE = false, bool RES = false>
+          bool DENSE = false, bool RES = false, bool TAPE = false, class... Tape>
 __device__ inline void k1_steps(float* st, const float* bo, const float* a1,
                                 const float* cu_robot, int n_knots, int knot_steps,
                                 int step_base, int X, int Y, int Z, int num_steps,
                                 const Params& p, int flags, Robot& r, float* sh, float* scr,
                                 Feat* fe = nullptr, const FeatParams* fp = nullptr,
                                 const MatArgs* ma = nullptr, float* ke = nullptr,
-                                const VolArgs* va = nullptr) {
+                                const VolArgs* va = nullptr, Tape... tape) {
     // the reductions' scratch holds a word for each of 24 warps (block_max1)
     static_assert(k1_bound(MAT, DENSE, FEAT) <= 768, "block_max1: a word of red a warp");
+    static_assert(!TAPE || (sizeof...(Tape) == 1 && !RES), "a K1Tape, in device memory");
     __shared__ float red[3 * (K1_RED_THREADS / 32)];
     __shared__ int divflag[2];
 
@@ -152,6 +183,10 @@ __device__ inline void k1_steps(float* st, const float* bo, const float* a1,
         // the state is read and written within the launch: no read-only cache
         const float* si = ss;
         float* so = ss;
+        if constexpr (TAPE) {
+            si = st + (size_t)i * k1_tape(tape...).slot;
+            so = st + (size_t)(i + 1) * k1_tape(tape...).slot;
+        }
         // ---- rollout bookkeeping from the previous step's positions ----
         const bool capture = !capt && (t > init_cm);
         const bool take = capture || (i_glob == 0 && !capt);
@@ -189,6 +224,8 @@ __device__ inline void k1_steps(float* st, const float* bo, const float* a1,
         } else {
             if (div || t >= stop_t) break;  // frozen: nothing changes any more
         }
+        if constexpr (TAPE)
+            if (threadIdx.x == 0) k1_tape(tape...).clock[i] = t;
 
         // equilibrium mode: the ring's test before this step's energy is
         // pushed (VX_Sim.cpp:1148-1155)
@@ -250,6 +287,7 @@ __device__ inline void k1_steps(float* st, const float* bo, const float* a1,
                 SOUT(S_MAXS + d)[v] = 0.f;
                 if constexpr (MAT)
                     if (flags & F_PLASTIC) SOUT(S_SOFF + d)[v] = 0.f;
+                if constexpr (TAPE) SOUT(S_SMALL + d)[v] = SCH(S_SMALL + d)[v];
                 return;
             }
             float soff = 0.f;
@@ -295,7 +333,15 @@ __device__ inline void k1_steps(float* st, const float* bo, const float* a1,
             if (dry) return;
 
             // the damping memory goes stale for one step on a hysteresis
-            // transition (AddDampForces is skipped, :344-347)
+            // transition (AddDampForces is skipped, :344-347); out of place
+            // the old memory is carried into the new slot
+            if constexpr (TAPE) {
+                if (bn.changed) {
+                    lp2p[0] = bn.lp2.x; lp2p[V] = bn.lp2.y; lp2p[2 * V] = bn.lp2.z;
+                    la1p[0] = bn.la1.x; la1p[V] = bn.la1.y; la1p[2 * V] = bn.la1.z;
+                    la2p[0] = bn.la2.x; la2p[V] = bn.la2.y; la2p[2 * V] = bn.la2.z;
+                }
+            }
             if (!bn.changed) {
                 lp2p[0] = bn.pos2.x; lp2p[V] = bn.pos2.y; lp2p[2 * V] = bn.pos2.z;
                 la1p[0] = bn.ra1.x; la1p[V] = bn.ra1.y; la1p[2 * V] = bn.ra1.z;
@@ -479,6 +525,10 @@ __device__ inline void k1_steps(float* st, const float* bo, const float* a1,
                 tf.y = static_flag ? 0.f : tf.y + fy;
                 tf.z = tf.z + fz;
             }
+            if constexpr (TAPE)
+                if (!dry)
+                    st[(size_t)i * k1_tape(tape...).slot + (size_t)S_DIFF * V + v] =
+                        static_flag ? 1.f : 0.f;
             if (!occ) { tf = {0.f, 0.f, 0.f}; tm = {0.f, 0.f, 0.f}; }
 
             // Euler step (VXS_Voxel.cpp:181-197)
@@ -683,6 +733,8 @@ __device__ inline void k1_steps(float* st, const float* bo, const float* a1,
             }
         }
         if (threadIdx.x == 0) divflag[(i + 1) & 1] = 0;
+        // (facet drag, out of place) the next step's strains in its own slot
+        if constexpr (TAPE && VARIANT == V_FLUID_MESH) scr += k1_tape(tape...).slot;
         t = t + dt;
         if constexpr (VOL) dt_c = dt;
         div = div || div_now;
@@ -700,4 +752,6 @@ __device__ inline void k1_steps(float* st, const float* bo, const float* a1,
     r.div = div;
     r.ini = ini;
     r.capt = capt;
+    if constexpr (TAPE)
+        if (threadIdx.x == 0) *k1_tape(tape...).taken = i;
 }

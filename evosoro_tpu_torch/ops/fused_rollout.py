@@ -31,9 +31,9 @@ Hopper take its place on the evolution loop's envelope:
 
 Every K1 and B4 kernel has a device-memory twin that keeps the robot's
 buffer in device memory in place of one block's shared memory; the
-wrappers pick it by the body's shape (`k1_instance`), so bodies of any size
-run (the JAX kernel's VMEM takes a 13^3 body with contact, any body
-without).
+wrappers pick it by the body's shape (`k1_instance`, `b4_launch_shape`),
+so bodies of any size run (the JAX kernel's VMEM takes a 13^3 body with
+contact, any body without).
 
 Each wrapper takes its kernel for CUDA tensors and its plain PyTorch
 version (`fused_rollout_plain`, `pair_contact_forces_plain`,
@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -210,7 +211,8 @@ _SMEM_BYTES = 232448  # a block's shared memory on Hopper, static and dynamic
 # cells with dense contact, 1612 without (the instance without features fits
 # one more, 1613). Volume effects add none: their block max reuses the
 # reductions' scratch, and their exchanges go through device memory. B4's
-# buffer is K1's without contact (36 floats a voxel), under the same rule
+# recompute takes K1's buffer without contact (36 floats a voxel) under the
+# same rule; its C entry places its reverse sweep's slabs (`b4_launch_shape`)
 _K1_STATIC_SMEM = 208
 
 
@@ -1741,7 +1743,7 @@ FUSED_BWD_LAUNCHES = 0
 FUSED_BWD_FLUID_LAUNCHES = 0
 FUSED_BWD_MESH_LAUNCHES = 0
 FUSED_BWD_DEVO_LAUNCHES = 0
-# ... of its device-memory instance (`k1_instance` without contact)
+# ... of its device-memory instance (`b4_launch_shape`)
 FUSED_BWD_GMEM_LAUNCHES = 0
 # ... of its material instance (nonlinear stress, the max-velocity clamp)
 FUSED_BWD_MATERIAL_LAUNCHES = 0
@@ -1785,6 +1787,42 @@ def diff_envelope_ok(flags, scalars) -> bool:
     equilibrium mode or BC regions. `check_envelope` refuses the material
     options in water and with development."""
     return _diff_refusal(flags, scalars) is None
+
+
+@functools.lru_cache(maxsize=256)
+def _b4_shape(B, X, Y, Z, bits, gmem, cluster, device):
+    """`fused_rollout_bwd_shape`'s out[8] on card `device`: a solver asks
+    for the same few shapes again and again, and each answer costs the C
+    entry several occupancy queries."""
+    out = (ctypes.c_int * 8)()
+    shape = build.function("fused_rollout_bwd", "fused_rollout_bwd_shape",
+                           [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    with torch.cuda.device(device):
+        build.check(shape(B, X, Y, Z, bits, int(gmem), cluster,
+                          ctypes.cast(out, ctypes.c_void_p)), "fused_rollout_bwd_shape")
+    return tuple(out)
+
+
+def b4_launch_shape(B: int, grid_shape, flags: dict, cluster: int = 0) -> dict:
+    """How B4 runs B robots on this grid on the current card, as its C
+    entry decides it (csrc/fused_rollout_bwd.cu `b4_shape`, asked of the
+    built library: this needs the CUDA toolkit): `cluster` blocks a robot
+    (a thread-block cluster, as many as let the card hold all B at once;
+    `cluster` > 0 asks for that many), each owning `planes` x-planes,
+    `threads` a block, `slab` floats of a block's reverse sweep, `smem`
+    bytes of dynamic shared memory a block, `clusters_at_once` the clusters
+    of that shape the card holds at once; the `instance`, "shared" where
+    one block's shared memory holds the recompute's buffer (K1's without
+    contact, `k1_instance`), else "device" (`buffer_floats` a robot in
+    device memory); `slabs`, "shared" or "device" (`slab_floats` a robot)."""
+    X, Y, Z = grid_shape
+    instance = k1_instance(X * Y * Z, False)
+    C, threads, planes, slab, buffer_floats, slab_floats, smem, at_once = _b4_shape(
+        B, X, Y, Z, _flag_bits(flags), instance == "device", cluster,
+        torch.cuda.current_device())
+    return dict(cluster=C, threads=threads, planes=planes, slab=slab, smem=smem,
+                clusters_at_once=at_once, instance=instance, buffer_floats=buffer_floats,
+                slabs="device" if slab_floats else "shared", slab_floats=slab_floats)
 
 
 def b4_tape_channels(flags) -> int:
@@ -1848,9 +1886,9 @@ def fused_bwd_call(state_packed, body_packed, stats, control_packed, seg_base,
     cot_ctrl (B, n_knots, V)). CUDA tensors launch B4; CPU tensors run
     `fused_bwd_plain`. Flags outside `diff_envelope_ok` raise first. With
     nonlinear materials or the max-velocity clamp the material instance
-    runs, whose recompute is K1's material instance. Past one block's
-    shared memory the device-memory instance runs (`k1_instance` without
-    contact)."""
+    runs, whose recompute is K1's material instance. Each robot runs on a
+    cluster of blocks, and past one block's shared memory the device-memory
+    instance runs (`b4_launch_shape`)."""
     _check_bwd(flags, scalars, n_knots, seg_base, total_steps)
     seg0, knot_steps = _knot_clock(flags, num_steps, n_knots, control_packed,
                                    seg_base, total_steps)
@@ -1880,7 +1918,9 @@ def fused_bwd_call(state_packed, body_packed, stats, control_packed, seg_base,
     for name, t, _ in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    gmem = k1_instance(V, False) == "device"
+    with torch.cuda.device(state_packed.device):
+        shape = b4_launch_shape(B, grid_shape, flags)
+    gmem = shape["instance"] == "device"
     bits = _flag_bits(flags)
     params = _k1_params(scalars, prec)
     S = int(num_steps)
@@ -1895,7 +1935,9 @@ def fused_bwd_call(state_packed, body_packed, stats, control_packed, seg_base,
                           device=dev) if mesh else None
     cot = cot_state.clone()  # pulled back in place
     cot_ctrl = torch.zeros_like(control_packed)
-    gbuf = _bond_buffer(B, k1_buffer_floats(V, False), dev) if gmem else None
+    gbuf = _bond_buffer(B, shape["buffer_floats"], dev) if gmem else None
+    sbuf = torch.empty((B, shape["slab_floats"]), dtype=torch.float32,
+                       device=dev) if shape["slab_floats"] else None
     mparams = _mat_params(scalars)
     fn = build.library("fused_rollout_bwd")
     with torch.cuda.device(dev):
@@ -1907,7 +1949,8 @@ def fused_bwd_call(state_packed, body_packed, stats, control_packed, seg_base,
                 tape.data_ptr(), tape_t.data_ptr(), cot.data_ptr(),
                 cot_ctrl.data_ptr(), scratch.data_ptr() if mesh else None,
                 mparams.ctypes.data_as(ctypes.c_void_p),
-                gbuf.data_ptr() if gmem else None, gbuf.stride(0) if gmem else 0, stream)
+                gbuf.data_ptr() if gmem else None, gbuf.stride(0) if gmem else 0,
+                sbuf.data_ptr() if sbuf is not None else None, shape["cluster"], stream)
     build.check(rc, "fused_rollout_bwd")
     global FUSED_BWD_LAUNCHES, FUSED_BWD_FLUID_LAUNCHES, FUSED_BWD_MESH_LAUNCHES
     global FUSED_BWD_DEVO_LAUNCHES, FUSED_BWD_GMEM_LAUNCHES, FUSED_BWD_MATERIAL_LAUNCHES

@@ -52,3 +52,14 @@ inline void warp_nonzero(unsigned (&bits)[U], L load) {
         for (int k = 0; k < U; ++k)
             if (load(l, k) != 0.f) bits[k] |= 1u << l;
 }
+// Thread-block clusters: a cluster of one block. B4 (ops/csrc/
+// fused_rollout_bwd.cuh) runs a robot's C blocks in turn itself, one pass
+// at a time, their slabs in one array, so these are never asked for more.
+namespace cooperative_groups {
+struct cluster_group {
+    void sync() const {}
+    template <class T>
+    T* map_shared_rank(T* p, unsigned) const { return p; }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups

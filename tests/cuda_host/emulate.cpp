@@ -9,19 +9,40 @@
 // B4's material instance (test_torch_b4_host.py) and the dense pair pass
 // of pair_contact.cuh, alone (emu_pair) and inside K1 (emu_fwd_contact;
 // tests/test_torch_pair_host.py). K1's entry points run k1_step.cuh's step
-// loop, or (emu_set_step) the old one B4 recomputes with, so the two can be
-// held bit for bit (tests/test_torch_k1_host.py).
+// loop in place, with the state resident, or (emu_set_step) in the tape form
+// B4 recomputes with, so the three can be held bit for bit
+// (tests/test_torch_k1_host.py). B4 (emu_bwd) runs a cluster of C blocks a
+// robot, one thread standing for all of them (fused_rollout_bwd.cuh
+// each_rank), so the split of the sweep over blocks is held here too.
 #define EVOSORO_HOST_EMULATION
 #include <vector>
 
 #include "fused_rollout_bwd.cu"
 #include "k1_step.cuh"
 
-// The step loop K1's entry points below run: 0, rollout_steps in place
-// (the old mapping, which B4's recompute keeps); 1, k1_steps on the state
-// in place; 2, k1_steps with the state resident past the buffer
+// The step loop K1's entry points below run: 0, k1_steps in its tape form
+// (B4's recompute) on a tape of whole-state slots, each first holding the
+// start state, the robot's state then taken from the slot of its last step;
+// 1, k1_steps on the state in place; 2, k1_steps with the state resident
+// past the buffer
 static int emu_step = 1;
 extern "C" void emu_set_step(int mode) { emu_step = mode; }
+// mode 0's clocks and steps taken, robot after robot, since the last call
+static std::vector<float> emu_clock;
+static std::vector<int> emu_taken;
+// copies them out: clock (robots x num_steps, unwritten past a robot's
+// steps taken), taken (robots); returns the robots
+extern "C" int emu_tape_clock(float* clock, int* taken, int num_steps) {
+    const int B = (int)emu_taken.size();
+    for (int b = 0; b < B; ++b) {
+        taken[b] = emu_taken[b];
+        for (int i = 0; i < emu_taken[b]; ++i)
+            clock[(size_t)b * num_steps + i] = emu_clock[(size_t)b * num_steps + i];
+    }
+    emu_clock.clear();
+    emu_taken.clear();
+    return B;
+}
 
 // K1's block size and its kernels' bound (k1_step.cuh), as the card's
 // launcher takes them (tests/test_torch_big_body.py)
@@ -41,11 +62,20 @@ static void emu_steps(float* st, const float* bo, const float* a1, const float* 
                       int knot_steps, int step_base, int X, int Y, int Z, int num_steps,
                       const Params& p, int flags, Robot& r, float* sh, float* scr, Feat* fe,
                       const FeatParams* fp, const MatArgs* ma, float* ke, const VolArgs* va) {
-    if (emu_step == 0)
-        rollout_steps<VARIANT, FEAT, MAT, VOL, DENSE>(st, 0, bo, a1, cu, n_knots, knot_steps,
-                                                      step_base, X, Y, Z, num_steps, p, flags,
-                                                      r, nullptr, sh, scr, fe, fp, ma, ke, va);
-    else if (emu_step == 1)
+    if (emu_step == 0) {
+        const int V = X * Y * Z;
+        const size_t slot = (size_t)C_S * V;
+        std::vector<float> tape((size_t)(num_steps + 1) * slot), sides(tape.size()),
+            clock(num_steps > 0 ? num_steps : 1);
+        for (int i = 0; i <= num_steps; ++i) memcpy(&tape[i * slot], st, slot * sizeof(float));
+        int n = 0;
+        k1_steps<VARIANT, FEAT, MAT, VOL, DENSE, false, true>(
+            tape.data(), bo, a1, cu, n_knots, knot_steps, step_base, X, Y, Z, num_steps, p,
+            flags, r, sh, sides.data(), fe, fp, ma, ke, va, K1Tape{slot, clock.data(), &n});
+        memcpy(st, &tape[(size_t)n * slot], slot * sizeof(float));
+        emu_clock.insert(emu_clock.end(), clock.begin(), clock.begin() + num_steps);
+        emu_taken.push_back(n);
+    } else if (emu_step == 1)
         k1_steps<VARIANT, FEAT, MAT, VOL, DENSE, false>(st, bo, a1, cu, n_knots, knot_steps,
                                                         step_base, X, Y, Z, num_steps, p, flags,
                                                         r, sh, scr, fe, fp, ma, ke, va);
@@ -256,15 +286,53 @@ extern "C" void emu_fwd_vol(float* state, const float* body, int body_batched, f
         stat[ST_CAPT] = r.capt ? 1.f : 0.f;
     }
 }
+// K1's material instance on land without the features and tables, with
+// control knots, from its own step base (B4's recompute's counterpart in
+// place; tests/test_torch_b4_host.py)
+extern "C" void emu_fwd_mat_knots(float* state, const float* body, int body_batched,
+                                  float* stats, const float* ctrl, int n_knots, int knot_steps,
+                                  int step_base, int B, int X, int Y, int Z, int num_steps,
+                                  const float* params, int flags, const float* mparams) {
+    Params p; memcpy(&p, params, sizeof(float) * N_PARAMS);
+    const int V = X * Y * Z;
+    std::vector<float> sh(emu_buffer_floats(V));
+    for (int b = 0; b < B; ++b) {
+        float* stat = stats + (size_t)b * C_STAT;
+        const float* bo = body + (body_batched ? (size_t)b * C_B * V : 0);
+        const MatArgs ma = {bo, nullptr, nullptr, 0, 0, mparams[0]};
+        float ke[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        Robot r = load_robot(stat);
+        emu_steps<V_LAND, false, true>(state + (size_t)b * C_S * V, bo, nullptr,
+                                       ctrl + (size_t)b * n_knots * V, n_knots, knot_steps,
+                                       step_base, X, Y, Z, num_steps, p, flags, r, sh.data(),
+                                       nullptr, nullptr, nullptr, &ma, ke, nullptr);
+        stat[ST_TIME] = r.t; stat[ST_DIV] = r.div ? 1.f : 0.f;
+        stat[ST_INICM] = r.ini.x; stat[ST_INICM + 1] = r.ini.y; stat[ST_INICM + 2] = r.ini.z;
+        stat[ST_CAPT] = r.capt ? 1.f : 0.f;
+    }
+}
+// B4's cluster rule (fused_rollout_bwd.cuh b4_planes): x-planes a block,
+// on a card that holds at_once[C] clusters of C blocks at once (C = 1..8)
+extern "C" int emu_b4_planes(int B, int X, int Y, int Z, int threads, int cluster,
+                             const int* at_once) {
+    return b4_planes(B, X, Y, Z, threads, cluster, [&](int C, int) { return at_once[C]; });
+}
+// One robot after the other, each as a cluster of C blocks owning `planes`
+// x-planes, their slabs in one array (one thread stands for every block:
+// each_rank)
 template <int VARIANT, bool MAT = false>
 static void emu_bwd_variant(const float* state, const float* body, int body_batched,
                             const float* stats, const float* ctrl, int n_knots, int knot_steps,
                             int step_base, int B, int X, int Y, int Z, int num_steps,
                             const Params& p, int flags, float* tape, float* tape_t, float* cot,
-                            float* cot_u, float max_disp = 0.f) {
+                            float* cot_u, int cluster, float max_disp = 0.f) {
     const int V = X * Y * Z;
-    std::vector<float> sh((size_t)BF * V), scr((size_t)B4_MESH_SCR * V);
+    const int planes = b4_planes(B, X, Y, Z, 1, cluster, [](int, int) { return 0; });
+    const int C = (X + planes - 1) / planes;
+    const size_t slab = (size_t)B4_SLAB * planes * Y * Z;
+    std::vector<float> buf((size_t)BF * V), slabs(C * slab), scr((size_t)B4_MESH_SCR * V);
     const size_t nt = (size_t)tape_channels<VARIANT>();
+    const B4Part pt = {C, planes, 0, slabs.data(), slab};
     for (int b = 0; b < B; ++b) {
         const float* bo = body + (body_batched ? (size_t)b * C_B * V : 0);
         const MatArgs ma = {bo, nullptr, nullptr, 0, 0, max_disp};
@@ -273,29 +341,30 @@ static void emu_bwd_variant(const float* state, const float* body, int body_batc
             stats + (size_t)b * C_STAT, ctrl + (size_t)b * n_knots * V, n_knots, knot_steps,
             step_base, X, Y, Z, num_steps, p, flags, tape + (size_t)b * (num_steps + 1) * nt * V,
             tape_t + (size_t)b * num_steps, cot + (size_t)b * C_S * V,
-            cot_u + (size_t)b * n_knots * V, sh.data(),
+            cot_u + (size_t)b * n_knots * V, buf.data(), pt,
             VARIANT == V_FLUID_MESH ? scr.data() : nullptr, MAT ? &ma : nullptr);
     }
 }
 // B4 in the variant the flags select, or its material instance when the
 // nonlinear or the clamp's bit is on (mparams: the clamp's largest
-// displacement a step); tape (B, num_steps + 1, NT or NT_MESH, V)
+// displacement a step); tape (B, num_steps + 1, NT or NT_MESH, V);
+// cluster: the blocks a robot (b4_planes)
 extern "C" void emu_bwd(const float* state, const float* body, int body_batched,
                         const float* stats, const float* ctrl, int n_knots, int knot_steps,
                         int step_base, int B, int X, int Y, int Z, int num_steps,
                         const float* params, int flags, float* tape, float* tape_t, float* cot,
-                        float* cot_u, const float* mparams) {
+                        float* cot_u, const float* mparams, int cluster) {
     Params p; memcpy(&p, params, sizeof(float) * N_PARAMS);
     if (flags & (F_NONLINEAR | F_MAXVEL)) {
         emu_bwd_variant<V_LAND, true>(state, body, body_batched, stats, ctrl, n_knots,
                                       knot_steps, step_base, B, X, Y, Z, num_steps, p, flags,
-                                      tape, tape_t, cot, cot_u, mparams[0]);
+                                      tape, tape_t, cot, cot_u, cluster, mparams[0]);
         return;
     }
 #define RUN(VARIANT)                                                                          \
     emu_bwd_variant<VARIANT>(state, body, body_batched, stats, ctrl, n_knots, knot_steps,    \
                              step_base, B, X, Y, Z, num_steps, p, flags, tape, tape_t, cot,  \
-                             cot_u)
+                             cot_u, cluster)
     switch (variant_of(flags)) {
         case V_FLUID_FACE: RUN(V_FLUID_FACE); break;
         case V_FLUID_MESH: RUN(V_FLUID_MESH); break;

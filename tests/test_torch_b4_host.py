@@ -61,7 +61,7 @@ def host_lib(tmp_path_factory):
     assert r.returncode == 0, r.stderr[-4000:]
     lib = ctypes.CDLL(str(out))
     lib.emu_fwd.argtypes = [_P, _P, _I, _P, _P] + [_I] * 8 + [_P, _I, _P]
-    lib.emu_bwd.argtypes = [_P, _P, _I, _P, _P] + [_I] * 8 + [_P, _I, _P, _P, _P, _P, _P]
+    lib.emu_bwd.argtypes = [_P, _P, _I, _P, _P] + [_I] * 8 + [_P, _I, _P, _P, _P, _P, _P, _I]
     return lib
 
 
@@ -83,7 +83,10 @@ def host_forward(lib, state, body, stats, ctrl, seg_base, kw):
     return st, sa
 
 
-def host_backward(lib, state, body, stats, ctrl, seg_base, cot, kw):
+def host_backward(lib, state, body, stats, ctrl, seg_base, cot, kw, cluster=1, tape_out=None):
+    """B4 built by g++ on these inputs, each robot a cluster of `cluster`
+    blocks (one thread standing for them all); with `tape_out` a list, the
+    recompute's tape and clocks are appended to it."""
     B, X, Y, Z, bits, params, batched = _launch_args(state, body, kw)
     S, V = kw["num_steps"], X * Y * Z
     tape = torch.empty((B, S + 1, fr.b4_tape_channels(kw["flags"]), V))
@@ -93,7 +96,9 @@ def host_backward(lib, state, body, stats, ctrl, seg_base, cot, kw):
     lib.emu_bwd(state.data_ptr(), body.data_ptr(), batched, stats.data_ptr(),
                 ctrl.data_ptr(), kw["n_knots"], kw["total_steps"], seg_base, B, X, Y, Z,
                 S, params.ctypes.data, bits, tape.data_ptr(), tape_t.data_ptr(),
-                cs.data_ptr(), cu.data_ptr(), mparams.ctypes.data)
+                cs.data_ptr(), cu.data_ptr(), mparams.ctypes.data, cluster)
+    if tape_out is not None:
+        tape_out += [tape, tape_t]
     return cs, cu
 
 
@@ -439,3 +444,96 @@ def test_host_compiled_material_adjoint_matches_autograd(host_lib, pre):
     short = host_backward(host_lib, state, body, stats, ctrl, seg_base, cot,
                           dict(kw, num_steps=kw["num_steps"] - 1))
     assert _worst(short, ref) > 100 * REL_TOL
+
+
+# B4's recompute (`b4_recompute`: K1's step loop in its tape form) against
+# K1's own in-place step built by g++ (`emu_fwd`, `emu_fwd_mat_knots`): the
+# land, voxel-face, facet-drag, development and material instances
+RECOMPUTE_CASES = {"land": lambda: _case(**CASES["holes_floor_gravity"]),
+                   "fluid_face": lambda: _variant_case("face"),
+                   "fluid_mesh": lambda: _variant_case("mesh"),
+                   "growth": lambda: _variant_case("devo"),
+                   "material": lambda: _material_case(20)}
+
+
+def _k1_in_place(lib, state, body, stats, ctrl, seg_base, kw):
+    """K1's in-place step built by g++ over kw's steps: the material instance
+    (with knots) when the nonlinear or the clamp's bit is on, else the
+    variant the flags select."""
+    if not any(kw["flags"].get(k) for k in ("nonlinear", "max_vel")):
+        return host_forward(lib, state, body, stats, ctrl, seg_base, kw)
+    B, X, Y, Z, bits, params, batched = _launch_args(state, body, kw)
+    lib.emu_fwd_mat_knots.argtypes = [_P, _P, _I, _P, _P] + [_I] * 8 + [_P, _I, _P]
+    st, sa = state.clone(), stats.clone()
+    lib.emu_fwd_mat_knots(st.data_ptr(), body.data_ptr(), batched, sa.data_ptr(),
+                          ctrl.data_ptr(), kw["n_knots"], kw["total_steps"], seg_base, B, X, Y,
+                          Z, kw["num_steps"], params.ctypes.data, bits,
+                          fr._mat_params(kw["scalars"]).ctypes.data)
+    return st, sa
+
+
+@pytest.mark.parametrize("name", list(RECOMPUTE_CASES))
+def test_b4_recompute_tape_equals_k1(host_lib, name):
+    """Every slot i of B4's recompute tape holds, bit for bit, the carried
+    channels of K1's in-place state after i steps of the same segment, and
+    its clock is K1's time after i steps; the segment moves every robot."""
+    state, body, stats, ctrl, seg_base, cot, kw = RECOMPUTE_CASES[name]()
+    tape = []
+    host_backward(host_lib, state, body, stats, ctrl, seg_base, cot, kw, tape_out=tape)
+    tape, tape_t = tape
+    S = kw["num_steps"]
+    assert tape.shape[1] == S + 1 and tape_t.shape[1] == S
+    for i in range(S + 1):
+        st, sa = (state, stats) if i == 0 else _k1_in_place(
+            host_lib, state, body, stats, ctrl, seg_base, dict(kw, num_steps=i))
+        assert torch.equal(tape[:, i, :fr._TSAVG], st[:, :fr._TSAVG]), (name, i)
+        if i < S:
+            assert torch.equal(tape_t[:, i], sa[:, fr._S_TIME]), (name, i)
+    assert bool((tape[:, S, fr._POS:fr._SCALE] != state[:, fr._POS:fr._SCALE]).any(2).all())
+
+
+@pytest.mark.parametrize("name", ["large_angles", "fluid_mesh", "material"])
+def test_b4_over_a_cluster_keeps_the_bits(host_lib, name):
+    """B4 with each robot's reverse sweep split over a cluster of 2, 3 and 4
+    blocks (x-planes a block: 2, 2, 1 at 4^3; the slabs of the blocks
+    apart, a bond along x across a block's face reading its far end in the
+    next block's slab, a voxel its lower neighbour's in the block below)
+    gives the bits of one block a robot."""
+    if name == "large_angles":
+        args = _case(**CASES[name])
+    elif name == "material":
+        args = _material_case(20)
+    else:
+        args = _variant_case("mesh")
+    one = host_backward(host_lib, *args)
+    assert float(one[1].abs().max()) > 0
+    for cluster in (2, 3, 4):
+        got = host_backward(host_lib, *args, cluster=cluster)
+        assert torch.equal(got[0], one[0]) and torch.equal(got[1], one[1]), (name, cluster)
+
+
+def test_b4_cluster_rule(host_lib):
+    """The x-planes a block of B4's cluster owns (`b4_planes`; the launch
+    takes ceil(X / planes) blocks a robot), on a card of 132 multiprocessors
+    in groups of 18, 18 and six of 16 that holds a block on each, so that
+    it holds sum(floor(g / C)) clusters of C blocks at once: the SQP solve's
+    8 robots at 10^3 take clusters of 5 blocks of 2 planes, 11^3 and 12^3 of
+    6, 13^3 of 7; at 10^3 17 robots still take 5 blocks, 25 take 4 of 3
+    planes and 33 take 3 of 4 (the largest cluster of which all fit at
+    once, so the launch is one wave), 66 take 2 blocks of 5 planes; a batch
+    that no cluster shape holds at once, a card that holds no cluster, a
+    body whose 3 V bond items one block takes at once, or a launch asking
+    for one block keeps a robot to one block; a launch asking for 4 blocks
+    at 10^3 gets 4 of 3 planes (the last 1), whatever the card holds."""
+    f = host_lib.emu_b4_planes
+    f.argtypes = [_I] * 6 + [_P]
+    groups = (18, 18) + (16,) * 6
+    card = (ctypes.c_int * 9)(*[0] + [sum(g // c for g in groups) for c in range(1, 9)])
+    none = (ctypes.c_int * 9)(*[0, 132] + [0] * 7)
+    assert [f(8, n, n, n, 512, 0, card) for n in (10, 11, 12, 13)] == [2, 2, 2, 2]
+    assert [f(B, 10, 10, 10, 512, 0, card) for B in (17, 25, 33, 66, 67, 133, 1024)] \
+        == [2, 3, 4, 5, 10, 10, 10]
+    assert f(8, 10, 10, 10, 512, 0, none) == 10
+    assert f(8, 5, 5, 4, 512, 0, card) == 5
+    assert f(8, 10, 10, 10, 512, 1, card) == 10
+    assert f(8, 10, 10, 10, 512, 4, none) == 3

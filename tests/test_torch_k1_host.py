@@ -382,15 +382,16 @@ def test_host_compiled_material_instance_matches_plain(host_lib, case, tmp_path)
 
 
 # K1's step loop (`csrc/k1_step.cuh`: bond items, the state resident in
-# shared memory, the reductions' fixed partition) against the one B4's
-# recompute keeps (`rollout_steps`, the old mapping), both built by g++
-# (`emu_set_step`: 0 the old loop, 1 the new one on the state in place, 2
-# with the state resident past the buffer). The new loop changes only which
-# thread does which piece of work and where the state lives, so the three
-# must agree bit for bit in every instance. One thread a block here: this
-# holds the bond-item indexing, the resident copy in and out and the
-# buffer's carve, not the thread mapping (the card's `chip_smoke.py --step`
-# and `--land` digests hold that).
+# shared memory, the reductions' fixed partition) in its three forms, built
+# by g++ (`emu_set_step`: 0 the tape form B4's recompute runs, out of place
+# into a tape of whole-state slots, the robot's state then the slot of its
+# last step; 1 in place; 2 with the state resident past the buffer). The
+# forms change only where a step reads and writes the state, so the three
+# must agree bit for bit in every instance, and the tape's clocks must be
+# the in-place run's. One thread a block here: this holds the bond-item
+# indexing, the tape's slots and carried channels, the resident copy in and
+# out and the buffer's carve, not the thread mapping (the card's
+# `chip_smoke.py --step` and `--land` digests hold that).
 _MODES = (0, 1, 2)
 
 
@@ -503,18 +504,31 @@ def _step_case(case):
                                   "features", "material", "equilibrium", "compact",
                                   "volume"])
 def test_new_step_loop_is_bit_equal_to_the_old(host_lib, case):  # noqa: F811
-    """Each instance over 25 steps through the old loop, the new one and the
-    new one with the resident state: state and stats equal bit for bit, and
-    the launch moved every robot (a loop that skipped its steps would agree
-    with nothing)."""
+    """Each instance over 25 steps through the step loop's tape form (the
+    tape's last slot), in place and with the resident state: state and
+    stats equal bit for bit, and the launch moved every robot (a loop that
+    skipped its steps would agree with nothing). The tape's clock of step
+    i (`tape_t`) is the in-place run's time after i steps, bit for bit, at
+    i = 0, 1, 12 and each robot's last step."""
     args, kw = _step_case(case)
     X, Y, Z = kw["grid_shape"]
     assert X * Y * Z <= 6 ** 3
     runs = []
+    B, steps = args[0].shape[0], 25
+    clock, taken = torch.zeros((B, steps)), torch.zeros(B, dtype=torch.int32)
+    host_lib.emu_tape_clock.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
     try:
         for mode in _MODES:
             host_lib.emu_set_step(mode)
-            runs.append(_host_any(host_lib, args, kw, 25))
+            runs.append(_host_any(host_lib, args, kw, steps))
+            if mode == 0:
+                assert host_lib.emu_tape_clock(clock.data_ptr(), taken.data_ptr(), steps) == B
+        host_lib.emu_set_step(1)
+        for i in sorted({0, 1, 12, *(int(n) - 1 for n in taken)}):
+            t_i = (_host_any(host_lib, args, kw, i)[1] if i else args[2])[:, fr._S_TIME]
+            for b in range(B):
+                if i < int(taken[b]):
+                    assert clock[b, i].item() == t_i[b].item(), (case, b, i)
     finally:
         host_lib.emu_set_step(1)
     state = args[0]

@@ -247,6 +247,44 @@ def test_reverse_mode_segment_matches_plain_on_the_card():
 
 
 @pytest.mark.cuda
+def test_reverse_mode_segment_over_a_cluster_keeps_one_blocks_bits():
+    """B4 with each robot's reverse sweep over a thread-block cluster (8
+    robots of 6^3: 6 blocks of one x-plane, `b4_launch_shape`) gives the
+    bits the same robots get with one block a robot, as they do inside a
+    batch of 136 (the 8 seventeen times over, more clusters than the card
+    holds at once), on land from rest and a segment in, and in water with
+    the facet drag (8 x 6^3 in its 7^3 shell: 7 blocks). Every batch of
+    10^3 robots from 8 to 133 launches in one wave: one block a robot, or
+    clusters of which the card holds all at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; the CUDA kernels have no CPU mode")
+    from evosoro_tpu_torch.bench import packed_workload
+
+    for n, fluid in ((6, None), (6, "mesh")):
+        (state, body, stats, _), kw0, _ = packed_workload(8, n=n, device="cuda", fluid=fluid)
+        V = state.shape[2]
+        kw = dict(num_steps=10, grid_shape=kw0["grid_shape"], scalars=kw0["scalars"],
+                  flags=dict(kw0["flags"], segmented=True), n_knots=4, total_steps=40)
+        assert fr.b4_launch_shape(8, kw["grid_shape"], kw["flags"])["cluster"] > 1
+        assert fr.b4_launch_shape(136, kw["grid_shape"], kw["flags"])["cluster"] == 1
+        ctrl = _controls(8, 4, V, 10)
+        g = torch.Generator().manual_seed(11)
+        cot = torch.randn(state.shape, generator=g).cuda()
+        cot[:, fr._TSAVG:] = 0.0
+        mid, mid_stats = fr.fused_call(state, body, stats, None, control_packed=ctrl,
+                                       seg_base=0, **kw)
+        for st, ss, base in ((state, stats, 0), (mid, mid_stats, 10)):
+            many = fr.fused_bwd_call(st, body, ss, ctrl, base, cot, **kw)
+            one = fr.fused_bwd_call(st.repeat(17, 1, 1), body, ss.repeat(17, 1),
+                                    ctrl.repeat(17, 1, 1), base, cot.repeat(17, 1, 1), **kw)
+            assert float(one[1].abs().max()) > 0
+            assert torch.equal(many[0], one[0][:8]) and torch.equal(many[1], one[1][:8])
+    for B in (8, 16, 17, 24, 25, 32, 33, 48, 66, 67, 133):
+        shape = fr.b4_launch_shape(B, (10, 10, 10), kw["flags"])
+        assert shape["cluster"] == 1 or shape["clusters_at_once"] >= B, (B, shape)
+
+
+@pytest.mark.cuda
 def test_reverse_mode_segment_in_water_and_with_growth_matches_plain_on_the_card():
     """B4's fluid and development instances against `fused_bwd_plain` on
     the bench design (4^3: in its 5^3 shell in water at 200 x the swimming
