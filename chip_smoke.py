@@ -66,6 +66,18 @@ the main paths at 12^3 (two generations of the basic experiment with
 contact, a cantilever's replay, a cold CEM solve, the fused SQP solve); its
 kernels line holds the two device-memory rows.
 
+`python3 chip_smoke.py --compact` runs the surface-compacted contact pass
+(B5) alone (`phase_compact`, `phase_compact_times`): K1's compact launch
+against its plain version in the kernels' order and bit for bit against
+the dense launch on the bench design (both in the material instance),
+each fixture and the 12^3 twins, the pass's own launch against the dense
+plain pass and the census's tiles, the cull's guard, the replay path with
+the compact switch, then the compact and dense launches' times and the
+compact instances' registers. `python3 chip_smoke.py --compact --against
+CHECKOUT [CHECKOUT ...]` times them in turns with other checkouts' K1,
+this tree's bits held equal across its turns, and holds the dense kernels
+whose machine code moved by design to the other trees' bits.
+
 `python3 chip_smoke.py --pair` runs the dense pair pass (B2) alone: K2
 against its plain version (`phase_k2`), then `phase_pair` (also part of the
 full run): two launches bit-equal to each other, the cull's guard, the
@@ -95,6 +107,7 @@ material instances.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -281,11 +294,11 @@ def phase_k2(torch, np):
                     state[:, fr._SCALE].contiguous(), table)
 
 
-def _pair_guard_inputs(torch, np, fr):
+def _pair_guard_inputs(torch, np, fr, compact=False):
     """A 10^3 grid with material in x = 0-3 and x = 7-9 only, the second
     part pushed to 1.3 cells from the first: its only touching pairs lie
     across the gap, in tiles whose boxes are 1.3 cells apart. (pos, scale,
-    table) of one robot on the card."""
+    table) of one robot on the card; `compact`: the compact table."""
     from evosoro_tpu_torch.core import build_body, evosoro_default_palette, palette_from_list
     from evosoro_tpu_torch.core.collision import build_collision_system
 
@@ -295,8 +308,8 @@ def _pair_guard_inputs(torch, np, fr):
     structure[:4] = rng.integers(1, 5, size=(4, n, n))
     structure[7:] = rng.integers(1, 5, size=(3, n, n))
     body = build_body(structure, palette_from_list(evosoro_default_palette()))
-    table = fr.pack_collision(build_collision_system(structure, body.e_mod.numpy(), 0.01),
-                              structure.shape)
+    pack = fr.pack_collision_compact if compact else fr.pack_collision
+    table = pack(build_collision_system(structure, body.e_mod.numpy(), 0.01), structure.shape)
     pos = body.nom_pos.reshape(-1, 3).T.numpy().copy()
     pos[0, np.arange(n ** 3) // n ** 2 >= 7] -= 0.027
     pos = pos + rng.normal(0, 2e-4, pos.shape)
@@ -497,16 +510,25 @@ def _kernel_row_sums(terms):
 
 def _plain(fr, *args, **kw):
     """`fused_rollout_plain` as K1 is held to it: the same function, with
-    each row of the dense pair pass summed in the kernels' order
-    (`_kernel_row_sums`; the plain version's own `.sum(-1)` takes another
-    order, and with contact terms of ~4e4 N cancelling the momentum then
-    differs in the last bits)."""
-    from functools import partial
+    each row of the pair pass, dense or compact, summed in the kernels'
+    order (`_kernel_row_sums`; the plain version's own `.sum(-1)` takes
+    another order, and with contact terms of ~4e4 N cancelling the momentum
+    then differs in the last bits)."""
     from unittest import mock
 
-    ordered = partial(fr.pair_contact_forces_plain, row_sum=_kernel_row_sums)
-    with mock.patch.object(fr, "pair_contact_forces_plain", ordered):
+    dense, compact = _ordered(fr)
+    with mock.patch.object(fr, "pair_contact_forces_plain", dense), \
+            mock.patch.object(fr, "pair_contact_forces_compact_plain", compact):
         return fr.fused_rollout_plain(*args, **kw)
+
+
+def _ordered(fr):
+    """The dense and the compact pair pass's plain versions with each row
+    summed in the kernels' order."""
+    from functools import partial
+
+    return (partial(fr.pair_contact_forces_plain, row_sum=_kernel_row_sums),
+            partial(fr.pair_contact_forces_compact_plain, row_sum=_kernel_row_sums))
 
 
 def _k1_cases(torch, fr, label, args, kw, batch, coll, steps_list, time_at=None,
@@ -1058,14 +1080,53 @@ def _mat_case(torch, fr, label, args, kw, steps, tol, guards, extra_check=None,
     return rec
 
 
+def _compact_pass_check(torch, fr, label, pos, scale, table_c, table_d):
+    """The compact pass's own launch (`fr.pair_contact_forces_compact`,
+    K1's pass alone) on these positions and scales: equal bit for bit to
+    its plain version and to the dense pass's (table `table_d`), each
+    summing a row in the kernels' order, and its tile counts equal to the
+    plain census over the index row. Returns the record."""
+    from evosoro_tpu_torch import roofline
+
+    dense, compact = _ordered(fr)
+    counts = torch.zeros(3, dtype=torch.int32, device="cuda")
+    before = fr.PAIR_CONTACT_COMPACT_LAUNCHES
+    f_k = fr.pair_contact_forces_compact(pos, scale, table_c, counts=counts)
+    torch.cuda.synchronize()
+    assert fr.PAIR_CONTACT_COMPACT_LAUNCHES == before + 1
+    f_p, f_d = compact(pos, scale, table_c), dense(pos, scale, table_d)
+    got = tuple(int(c) for c in counts.cpu())
+    want = fr.pair_tile_census_plain(pos.cpu(), scale.cpu(), table_c[:, 1:].cpu(),
+                                     idx=table_c[:, 0].cpu())
+    fmax = float(f_p.abs().max())
+    rec = dict(phase="compact_pass", workload=label, shape=list(pos.shape),
+               surface_voxels=table_c.shape[-1], max_abs_force=fmax,
+               max_abs_err=float((f_k - f_p).abs().max()),
+               equal_to_plain=bool(torch.equal(f_k, f_p)),
+               equal_to_dense_plain=bool(torch.equal(f_k, f_d)),
+               tiles=list(got), plain_census=list(want), tiles_equal=got == want,
+               ms=_event_ms(torch, lambda: fr.pair_contact_forces_compact(pos, scale, table_c),
+                            20),
+               plain_ms=_event_ms(torch, lambda: fr.pair_contact_forces_compact_plain(
+                   pos, scale, table_c), 5),
+               **roofline.bound(*roofline.b5_pass_work(pos, scale, table_c)))
+    rec["ok"] = (fmax > 0 and rec["equal_to_plain"] and rec["equal_to_dense_plain"]
+                 and rec["tiles_equal"])
+    emit(rec)
+    assert rec["ok"], rec
+    return rec
+
+
 def _compact_case(torch, np, fr, label, a_c, kw_c, a_d, kw_d, time_steps=None):
-    """K1's compact contact pass against its plain version and against the
-    dense pass, on launches `a_c` (compact table) and `a_d` (dense table)
-    of one design whose lattice is shrunk about its centre so that far
-    surface voxels touch: one step (its momenta carry the contact forces
-    times dt, and the launches differ only in the order of the pair sums),
-    held to K2's rule max |df| <= 1e-4 max |f|; contact off must fail.
-    Returns the record, with the dense comparison under `dense_vs_compact`."""
+    """K1's compact contact pass on launches `a_c` (compact table) and `a_d`
+    (dense table) of one design whose lattice is shrunk about its centre so
+    that far surface voxels touch: against its plain version in the
+    kernels' order, one step (its momenta carry the contact forces times
+    dt), held to K2's rule max |df| <= 1e-4 max |f| with the state's bits
+    reported, contact off failing; against the dense pass, the same launch
+    on the dense table, state and stats equal; and the pass's own launch on
+    the shrunk state (`_compact_pass_check`). Returns the record, with the
+    dense comparison under `dense_vs_compact` and the pass's under `pass`."""
     state = a_c[0].clone()
     state[:, fr._POS:fr._POS + 3] = _contact_positions(
         torch, np, state[:, fr._POS:fr._POS + 3], 0.5)
@@ -1085,15 +1146,20 @@ def _compact_case(torch, np, fr, label, a_c, kw_c, a_d, kw_d, time_steps=None):
                       a_c[:3] + (None,))],
                     force_check, time_steps=time_steps, surface_voxels=a_c[3].shape[-1])
     assert fr.FUSED_ROLLOUT_COMPACT_LAUNCHES > before
-    out_c, st_c = fr.fused_call(*a_c, num_steps=1, **kw_c)
-    out_d, st_d = fr.fused_call(*a_d, num_steps=1, **kw_d)
-    ok, errs = _compare(torch, fr, out_c, st_c, out_d, st_d, no_lin)
-    rec_cd = dict(phase="compact_vs_dense_k1", workload=label, steps=1, **errs)
-    ok &= force_check(rec_cd, out_c, st_c, out_d, st_d)
-    rec_cd["ok"] = ok
+    equal = {}
+    for steps in (1, 25):
+        out_c, st_c = fr.fused_call(*a_c, num_steps=steps, **kw_c)
+        out_d, st_d = fr.fused_call(*a_d, num_steps=steps, **kw_d)
+        equal[steps] = bool(torch.equal(out_c, out_d) and torch.equal(st_c, st_d))
+    rec_cd = dict(phase="compact_vs_dense_k1", workload=label, bit_equal_by_steps=equal,
+                  dense_instance="material" if any(
+                      kw_d["flags"].get(k) for k in fr._K1_MAT_FLAGS) else "land")
+    rec_cd["ok"] = all(equal.values())
     emit(rec_cd)
-    assert ok, rec_cd
-    return dict(rec, dense_vs_compact=rec_cd)
+    assert rec_cd["ok"], rec_cd
+    pass_rec = _compact_pass_check(torch, fr, label, state[:, fr._POS:fr._POS + 3].contiguous(),
+                                   state[:, fr._SCALE].contiguous(), a_c[3], a_d[3])
+    return dict(rec, dense_vs_compact=rec_cd, **{"pass": pass_rec})
 
 
 def phase_k1_materials(torch, np, replays):
@@ -1204,7 +1270,7 @@ def phase_k1_materials(torch, np, replays):
                           time_steps=25)
 
     # (d) the fixtures replayed whole, dense and compact (`phase_replay`'s run)
-    recs["d"] = []
+    recs["d"], recs["d_cases"] = [], []
     for path in bench.fixture_paths():
         name = os.path.basename(path)
         dense, compact = [r for r in replays if r["file"] == name]
@@ -1222,7 +1288,7 @@ def phase_k1_materials(torch, np, replays):
         fmax = float(f_d.abs().max())
         rel = float((f_d - f_c).abs().max()) / max(fmax, 1e-30)
         # K1's compact pass at this design's shapes against its plain
-        # version and the dense pass
+        # version and the dense pass (the land instance, as the file runs)
         k1 = _compact_case(torch, np, fr, "fixture %s shrunk into contact, compact contact"
                            % name, a_c, kw_c, a_d, kw_d)
         rec = dict(phase="replay", file=name, steps=dense["steps"],
@@ -1232,8 +1298,9 @@ def phase_k1_materials(torch, np, replays):
                    surface_voxels=dense["surface_voxels"], voxels=dense["voxels"],
                    contact_force_max=fmax, compact_vs_dense_rel=rel,
                    k1_momentum_rel_err=k1["momentum_rel_err"],
-                   k1_momentum_rel_err_vs_dense=k1["dense_vs_compact"]["momentum_rel_err"],
-                   tol=K2_REL_TOL)
+                   k1_state_bit_equal_to_plain=k1["state_bit_equal"],
+                   k1_bit_equal_to_dense=k1["dense_vs_compact"]["ok"],
+                   pass_bit_equal=k1["pass"]["ok"], tol=K2_REL_TOL)
         ok = (fmax > 0 and rel <= K2_REL_TOL and fit_rel <= K2_REL_TOL
               and not dense["diverged"] and not compact["diverged"]
               and all(np.isfinite([dense["fitness"], compact["fitness"]])))
@@ -1241,10 +1308,13 @@ def phase_k1_materials(torch, np, replays):
         emit(rec)
         assert ok, rec
         recs["d"].append(rec)
-    # the same on the bench 10^3 design (488 surface voxels), 4 robots,
+        recs["d_cases"].append(k1)
+    # the same on the bench 10^3 design (488 surface voxels) on
+    # `materials_palette`, 4 robots, both tables in the material instance,
     # timed at 25 steps from the same state
-    a_c, kw_c, _ = bench.packed_workload(4, collision=True, compact=True, device="cuda")
-    a_d, kw_d, _ = bench.packed_workload(4, collision=True, device="cuda")
+    a_c, kw_c, _ = bench.packed_workload(4, collision=True, compact=True, materials=True,
+                                         device="cuda")
+    a_d, kw_d, _ = bench.packed_workload(4, collision=True, materials=True, device="cuda")
     recs["b5"] = _compact_case(torch, np, fr, "bench 4 x 10^3 shrunk into contact, "
                                "compact contact", a_c, kw_c, a_d, kw_d, time_steps=25)
 
@@ -1270,6 +1340,240 @@ def phase_k1_materials(torch, np, replays):
     emit(rec)
     recs["cost"] = rec
     return recs
+
+
+def phase_compact(torch, np):
+    """The surface-compacted contact pass (B5, csrc/pair_contact.cuh over
+    the S surface voxels, in K1's material instance) alone: (a) the bench
+    design 4 x 10^3 on `materials_palette` shrunk into contact, K1's compact
+    launch against its plain version in the kernels' order and against the
+    dense launch in the material instance, bit for bit over 1 and 25 steps,
+    and the pass's own launch bit for bit with the dense plain pass, its
+    tile counts against the census (`_compact_case`, timed at 25 steps);
+    (b) the same on each fixture's lattice, the dense launch in the land
+    instance as the file runs; (c) the big-body batch 8 x 12^3 with contact
+    in the device-memory instances; (d) the guard: a cull margin of -0.5
+    drops the touching tiles of `_pair_guard_inputs` and misses K2's
+    tolerance by GUARD_RATIO; (e) the replay path with the compact switch
+    (the four fixtures through `bench.replay`), the counters zeroed just
+    before and read just after. Returns the records."""
+    from unittest import mock
+
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    res = {}
+    a_c, kw_c, _ = bench.packed_workload(4, collision=True, compact=True, materials=True,
+                                         device="cuda")
+    a_d, kw_d, _ = bench.packed_workload(4, collision=True, materials=True, device="cuda")
+    res["b5"] = _compact_case(torch, np, fr, "bench 4 x 10^3 shrunk into contact, "
+                              "compact contact", a_c, kw_c, a_d, kw_d, time_steps=25)
+    res["fixtures"] = []
+    for path in bench.fixture_paths():
+        a_d, kw_d = bench.replay_launch(path, batch=1, device="cuda")
+        a_c, kw_c = bench.replay_launch(path, batch=1, device="cuda", compact=True)
+        res["fixtures"].append(_compact_case(
+            torch, np, fr, "fixture %s shrunk into contact, compact contact"
+            % os.path.basename(path), a_c, kw_c, a_d, kw_d))
+    a_c, kw_c, _ = bench.big_body_workload(8, n=12, compact=True, device="cuda")
+    a_d, kw_d, _ = bench.big_body_workload(8, n=12, device="cuda")
+    res["big"] = _compact_case(torch, np, fr, "big-body batch 8 x 12^3 shrunk into contact, "
+                               "compact contact", a_c, kw_c, a_d, kw_d)
+
+    gpos, gscale, gtab = _pair_guard_inputs(torch, np, fr, compact=True)
+    ref = fr.pair_contact_forces_compact_plain(gpos, gscale, gtab)
+    fmax = float(ref.abs().max())
+    err = float((fr.pair_contact_forces_compact(gpos, gscale, gtab) - ref).abs().max())
+    with mock.patch.object(fr, "PAIR_CULL_MARGIN", -0.5):
+        bad = float((fr.pair_contact_forces_compact(gpos, gscale, gtab) - ref).abs().max())
+    res["guard"] = dict(phase="compact_guard", max_abs_force=fmax, rel_err=err / fmax,
+                        rel_err_margin_minus_half=bad / fmax, tol=K2_REL_TOL,
+                        guard_ratio=bad / fmax / K2_REL_TOL)
+    emit(res["guard"])
+    assert fmax > 0 and err / fmax <= K2_REL_TOL, res["guard"]
+    assert bad / fmax >= GUARD_RATIO * K2_REL_TOL, res["guard"]
+
+    counters = dict(fused_rollout="FUSED_ROLLOUT_LAUNCHES",
+                    compact="FUSED_ROLLOUT_COMPACT_LAUNCHES",
+                    contact="FUSED_ROLLOUT_CONTACT_LAUNCHES")
+    for name in counters.values():
+        setattr(fr, name, 0)
+    recs = [bench.replay(path, "cuda", compact=True) for path in bench.fixture_paths()]
+    launches = {k: getattr(fr, name) for k, name in counters.items()}
+    for r in recs:
+        r.pop("final_state")
+        emit(dict(r, phase="compact_replay_path"))
+        assert np.isfinite(r["fitness"]) and not r["diverged"], r
+    emit(dict(phase="compact_replay_launches", **launches))
+    assert launches["compact"] == len(recs) == 4, launches
+    res["launches"] = launches
+    return res
+
+
+def _b5_row(b5, fixtures, launches, bound_keys, **extra):
+    """The kernels line's row of the compact pass (B5): the launches on the
+    replay path with the compact switch, the largest error of K1's compact
+    launch against its plain version in the kernels' order over `b5` and
+    the `fixtures`' cases, whether every case equalled the dense launch and
+    whether the pass's own launch equalled its plain version and the dense
+    plain pass bit for bit with the census's tiles, and the time of `b5`'s
+    launch beside its bound."""
+    cases = [b5] + list(fixtures)
+    return dict(name="K1 surface-compacted contact pass (B5)", route="cuda",
+                source="evosoro_tpu_torch/ops/csrc/pair_contact.cuh",
+                replaces="evosoro_tpu/ops/fused_rollout.py:734",
+                launches=launches,
+                launches_of="the replay path: the four fixtures with the compact switch",
+                **bound_keys(b5),
+                max_abs_err=max(r["linmom"] for r in cases),
+                momentum_rel_err=max(r["momentum_rel_err"] for r in cases),
+                state_bit_equal_to_plain=all(r["state_bit_equal"] for r in cases),
+                bit_equal_to_dense=all(r["dense_vs_compact"]["ok"] for r in cases),
+                pass_bit_equal_and_census_tiles=all(r["pass"]["ok"] for r in cases),
+                pass_ms=b5["pass"]["ms"], pass_plain_ms=b5["pass"]["plain_ms"],
+                pass_bound_ms=b5["pass"]["bound_ms"], pass_tiles=b5["pass"]["tiles"],
+                err_of=("momentum (kg m/s) of K1 with the compact pass against its plain "
+                        "version in the kernels' order, 1 step from lattices shrunk into "
+                        "contact: bench 4 x 10^3 on materials_palette and each fixture"),
+                ms=b5["ms"], plain_ms=b5["plain_ms"],
+                ms_of="K1 launch with the compact pass, bench 4 x 10^3 on materials_palette "
+                "shrunk into contact, 25 steps", **extra)
+
+
+def _compact_registers():
+    """Registers and spills (ptxas: [registers, spill stores, spill loads])
+    of K1's material and volume instances in this tree's build: with the
+    dense pass (the third template argument), with the compact pass (the
+    fifth), with neither."""
+    from evosoro_tpu_torch.buildcmp import _ptxas_tables
+    from evosoro_tpu_torch.ops import build
+
+    table = _ptxas_tables({"this": [str(build._lib_path("fused_rollout"))]})["this"]
+    return {k: v for k, v in sorted(table.items()) if k.startswith("fused_rollout_mat")}
+
+
+def phase_compact_times(torch, np, against=()):
+    """The surface-compacted contact pass's times, each beside its bound and
+    its launch shape, and with `against` (`--compact --against CHECKOUT
+    ...`) in turns with other checkouts' K1 (`buildcmp.in_turns`: each
+    checkout, an arm named by its directory, then this, and back), the bits
+    of this tree's turns held equal: the bench
+    design 4 x 10^3 shrunk into contact, 25 steps; 1024 x 10^3 x 20 with
+    contact, compact and dense, on the land palette (the compact launch in
+    the material instance, the dense one in the land instance) and on
+    `materials_palette` (both in the material instance); each fixture's K1
+    launch over its whole stop time, compact and dense; the big-body batch
+    32 x 12^3 x 100 with contact (device-memory instances), compact and
+    dense; and the material instance without contact on 1024 x 10^3 x 200.
+    With `against`, the dense instances whose machine code moved by design
+    (features and volume effects: the volume batch, resident; 8 x 10^3,
+    shared and forced into the twin) run 25 steps in turns and every arm's
+    bits must be equal. Returns the records by workload."""
+    from evosoro_tpu_torch import bench, roofline
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    arms = None
+    if against:
+        from evosoro_tpu_torch.buildcmp import in_turns, launchers
+
+        calls = [launchers(c) for c in against]
+        arms = {os.path.basename(os.path.normpath(c)): f["other"] for c, f in zip(against, calls)}
+        arms["this"] = calls[0]["this"]
+    res = {}
+
+    def timed(key, label, a, k, steps, groups=3, reps=2):
+        def run():
+            return fr.fused_call(*a, num_steps=steps, **k)
+
+        compact = bool(k["flags"].get("collision_compact"))
+        n_surf = a[3].shape[-1] if compact else None
+        extra = {}
+        if arms:
+            turns, same = in_turns(arms, lambda: bench.time_call(run, groups, reps), run, 1,
+                                   across=("this",))
+            ms = min(turns["this"])
+            first = next(iter(arms))
+            extra = dict(turns=turns, parent_ms=min(turns[first]),
+                         this_over_parent=ms / min(turns[first]),
+                         bit_equal_across_this=same)
+            assert same, (label, turns)
+        else:
+            ms = bench.time_call(run, groups, reps)
+        _, st_out = run()
+        ss = k.get("ss_packed")
+        rec = dict(phase="compact_time", workload=label, batch=a[0].shape[0], steps=steps,
+                   ms=ms, contact=a[3] is not None, compact=compact, surface_voxels=n_surf,
+                   **fr.k1_launch_shape(k["grid_shape"], k["flags"], k["scalars"], n_surf),
+                   **extra,
+                   **roofline.bound(*roofline.launch_work(
+                       *a, st_out, flags=k["flags"], grid_shape=k["grid_shape"],
+                       scalars=k["scalars"], n_pts=0 if ss is None else (ss.shape[1] - 3) // 2,
+                       num_steps=steps)))
+        rec["share_of_bound"] = rec["bound_ms"] / ms
+        emit(rec)
+        res[key] = rec
+        return rec
+
+    a, k, _ = bench.packed_workload(4, collision=True, compact=True, device="cuda")
+    state = a[0].clone()
+    state[:, fr._POS:fr._POS + 3] = _contact_positions(
+        torch, np, state[:, fr._POS:fr._POS + 3], 0.5)
+    timed("bench4", "bench 4 x 10^3 shrunk into contact, compact, 25 steps",
+          (state,) + a[1:], k, 25, 3, 5)
+    for mats in (False, True):
+        for compact in (True, False):
+            a, k, _ = bench.packed_workload(1024, collision=True, compact=compact,
+                                            materials=mats, device="cuda")
+            timed("bench1024%s_%s" % ("_materials" if mats else "",
+                                      "compact" if compact else "dense"),
+                  "bench 1024 x 10^3 x 20, contact on, %s%s"
+                  % ("compact" if compact else "dense",
+                     ", materials_palette" if mats else ""), a, k, 20)
+    for i, path in enumerate(bench.fixture_paths()):
+        steps = bench.replay_setup(path, "cuda")[4]
+        for compact in (True, False):
+            a, k = bench.replay_launch(path, batch=1, device="cuda", compact=compact)
+            timed("fixture%d_%s" % (i, "compact" if compact else "dense"),
+                  "fixture %s, whole stop time, %s" % (
+                      os.path.basename(path), "compact" if compact else "dense"),
+                  a, k, steps, 2, 1)
+    for compact in (True, False):
+        a, k, _ = bench.big_body_workload(32, n=12, compact=compact, device="cuda")
+        timed("big12_%s" % ("compact" if compact else "dense"),
+              "big-body batch 32 x 12^3 x 100, contact on, %s"
+              % ("compact" if compact else "dense"), a, k, 100, 2, 1)
+        del a
+    a, k, _ = bench.packed_workload(1024, materials=True, device="cuda")
+    timed("materials_no_contact", "bench 1024 x 10^3 x 200, materials_palette, contact off",
+          a, k, 200, 3, 3)
+    if arms:
+        # the dense instances whose machine code moved by design
+        # (`buildcmp.BY_DESIGN`: features and volume effects with the dense
+        # pass, resident, shared and twin): every arm's bits equal
+        va, vk = bench.volume_workload(device="cuda", features=True)
+        ba, bk, _ = bench.packed_workload(8, collision=True, volume=True, device="cuda")
+        bk = bench.with_features(bk, ba[2], n_win=4, n_src=1)
+        moved = {}
+        for label, (a, k), ctx in (("volume batch 16 x 6^3, features, resident", (va, vk), None),
+                                   ("bench 8 x 10^3, volume, features", (ba, bk), None),
+                                   ("bench 8 x 10^3, volume, features, twin", (ba, bk),
+                                    _device_instances(fr))):
+            def run(a=a, k=k):
+                return fr.fused_call(*a, num_steps=25, **k)
+
+            with ctx or contextlib.nullcontext():
+                moved[label] = in_turns(arms, lambda: bench.time_call(run, 2, 2), run, 1)
+        res["moved"] = dict(phase="compact_moved_dense_kernels",
+                            bit_equal={k: v[1] for k, v in moved.items()},
+                            turns={k: v[0] for k, v in moved.items()})
+        emit(res["moved"])
+        assert all(res["moved"]["bit_equal"].values()), res["moved"]
+    ratios = {w: res[w + "_compact"]["ms"] / res[w + "_dense"]["ms"]
+              for w in ("bench1024", "bench1024_materials", "big12")}
+    res["summary"] = dict(phase="compact_summary", compact_over_dense=ratios,
+                          registers=_compact_registers())
+    emit(res["summary"])
+    return res
 
 
 def _vol_check(torch, fr, out_k, st_k, out_p, st_p, tol=VOL_TOL):
@@ -3432,6 +3736,23 @@ def main():
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return None
+    if sys.argv[1:2] == ["--compact"] and (len(sys.argv) == 2 or sys.argv[2:3] == ["--against"]
+                                           and len(sys.argv) > 3):
+        comp = phase_compact(torch, np)
+        times = phase_compact_times(torch, np, against=sys.argv[3:])
+
+        def bound_keys(rec):
+            return dict(bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None)
+
+        emit(dict(kernels=[_b5_row(
+            comp["b5"], comp["fixtures"] + [comp["big"]], comp["launches"]["compact"],
+            bound_keys, compact_over_dense=times["summary"]["compact_over_dense"],
+            guard_ratio=comp["guard"]["guard_ratio"])]))
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return None
     if sys.argv[1:] == ["--pair"]:
         k2 = phase_k2(torch, np)
         pair = phase_pair(torch, np, alone=True)
@@ -3669,30 +3990,10 @@ def main():
              "240 steps",
              ms=feat_timed["b8b"]["ms"], plain_ms=feat_timed["b8b"]["plain_ms"],
              ms_of="growth evaluator batch 16 x 5x5x4, 25 steps, contact on, windows of 4"),
-        dict(name="K1 surface-compacted contact pass (B5)", route="cuda",
-             source="evosoro_tpu_torch/ops/csrc/pair_contact.cuh",
-             replaces="evosoro_tpu/ops/fused_rollout.py:734",
-             launches=replay["compact"],
-             launches_of="the replay path: the four fixtures with the compact switch",
-             **bound_keys(mats["b5"]),
-             max_abs_err=mats["b5"]["linmom"],
-             momentum_rel_err=max([mats["b5"]["momentum_rel_err"]]
-                                  + [r["k1_momentum_rel_err"] for r in mats["d"]]),
-             momentum_rel_err_vs_dense=max(
-                 [mats["b5"]["dense_vs_compact"]["momentum_rel_err"]]
-                 + [r["k1_momentum_rel_err_vs_dense"] for r in mats["d"]]),
-             max_rel_force_err_vs_dense=max(r["compact_vs_dense_rel"] for r in mats["d"]),
-             err_of=("momentum (kg m/s) of K1 with the compact pass against its plain "
-                     "version, bench 4 x 10^3 shrunk into contact, 1 step; the relative "
-                     "momentum errors against the plain version and the dense K1 also "
-                     "over each fixture's lattice shrunk into contact; and the compact "
-                     "plain pass against the dense K2 there (max|df| / max|f|)"),
-             ms=mats["b5"]["ms"], plain_ms=mats["b5"]["plain_ms"],
-             ms_of="K1 launch with the compact pass, bench 4 x 10^3 shrunk into "
-             "contact, 25 steps",
-             compact_over_dense_1024x10_3x20=mats["cost"]["b5_compact_over_dense"],
-             compact_ms_1024x10_3x20=mats["cost"]["b5_compact_ms"],
-             dense_ms_1024x10_3x20=mats["cost"]["b5_dense_ms"]),
+        _b5_row(mats["b5"], mats["d_cases"], replay["compact"], bound_keys,
+                compact_over_dense_1024x10_3x20=mats["cost"]["b5_compact_over_dense"],
+                compact_ms_1024x10_3x20=mats["cost"]["b5_compact_ms"],
+                dense_ms_1024x10_3x20=mats["cost"]["b5_dense_ms"]),
         dict(name="K1 max-velocity clamp and equilibrium mode (B6a)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fused_rollout_common.cuh",
              replaces="evosoro_tpu/ops/fused_rollout.py:1519",

@@ -254,7 +254,8 @@ def big_body_design(n=12, seed=2):
     return structure, rng.uniform(-1, 1, size=structure.shape), rng
 
 
-def big_body_workload(batch=32, n=12, collision=True, device="cuda", seed=2, fluid=False):
+def big_body_workload(batch=32, n=12, collision=True, device="cuda", seed=2, fluid=False,
+                      compact=False):
     """The launch of tools/bench_fallback.py's `big_collision_fallback` on
     the port: `batch` robots at rest on the `big_body_design` body (12³ with
     contact: 1728 cells, past one block's shared memory), robot 0 with the
@@ -263,7 +264,8 @@ def big_body_workload(batch=32, n=12, collision=True, device="cuda", seed=2, flu
     with contact, `SimParams()` defaults. `fluid` puts the design in water
     with the facet drag, in its (n+1)³ corner shell, as the swimming
     experiment's evaluator does (drag coefficient 750, actuation from time
-    0, no floor or gravity). Returns ((state, body, stats, pair table),
+    0, no floor or gravity). `compact` gives the contact pass the
+    surface-compacted table. Returns ((state, body, stats, pair table),
     launch keywords without num_steps, occupied voxels)."""
     structure, phase, rng = big_body_design(n, seed)
     phases = np.concatenate([phase[None], rng.uniform(-1, 1, size=(batch - 1,) + phase.shape)])
@@ -292,10 +294,12 @@ def big_body_workload(batch=32, n=12, collision=True, device="cuda", seed=2, flu
     table = None
     if collision:
         cs = build_collision_system(structure, body.e_mod.cpu().numpy(), 0.01)
-        table = torch.as_tensor(fr.pack_collision(cs, grid), device=device)[None]
+        pack = fr.pack_collision_compact if compact else fr.pack_collision
+        table = torch.as_tensor(pack(cs, grid), device=device)[None]
         table = table.expand(batch, -1, -1).contiguous()
     kw = dict(grid_shape=grid, scalars=fr.kernel_scalars(body.nominal_size, sim, env),
-              flags=fr.launch_flags(body, sim, env, collision=collision))
+              flags=fr.launch_flags(body, sim, env, collision=collision,
+                                    collision_compact=collision and compact))
     return (state, body_packed, stats, table), kw, int(occ.sum())
 
 

@@ -10,14 +10,22 @@ stripped). A function whose parameters changed keeps its name and is
 compared under it; a kernel that gained a last template bit is compared,
 with the bit off, with the other tree's instance of its other arguments.
 The report sorts the functions that differ into those that differ by
-design (`BY_DESIGN`: B4's kernels, which run the recompute on K1's step
-loop and the reverse sweep on bond items over a cluster) and the others,
-checks that the functions only one tree holds are B4's (this tree's B4
-kernels are templates over the variant and the device-memory bit, the
-other's were separate kernels), and that every kernel of K1 and K2 is
-compared and unchanged (`k1_k2_unchanged`). It also reports the registers
-and spills ptxas gave every K1 and B4 kernel in both trees (`ptxas`).
-Prints one JSON object.
+design (`BY_DESIGN`: K1's material and volume instances without the dense
+pass, whose compact contact branch became instances of their own, the
+feature and volume instances with it, in which that branch lay dead, and
+B4's material instance, whose recompute runs the same step loop) and the
+others (with where each one's SASS first parts from the other tree's), checks that the functions only one tree holds change by design
+(this tree's compact instances and the compact pass's own launch), and
+that every other kernel of K1, B4 and K2 is compared and unchanged
+(`k1_k2_unchanged`). It also reports the registers and spills ptxas gave
+every K1 and B4 kernel in both trees (`ptxas`). Prints one JSON object.
+
+    python -m evosoro_tpu_torch.buildcmp --ptx OTHER_CHECKOUT [UNIT ...]
+
+compiles K1's translation units (or those named) of both trees to PTX and
+prints, for each kernel whose PTX differs, the lines that differ
+(`ptx_diff`), one JSON object: where a kernel's SASS moved, whether its
+source did.
 
     python -m evosoro_tpu_torch.buildcmp --b4-split ARM=CHECKOUT ...
 
@@ -46,17 +54,28 @@ import sys
 from pathlib import Path
 
 LIBS = ("fused_rollout", "fused_rollout_bwd", "pair_contact")
-# the kernel functions whose machine code this tree changes on purpose:
-# B4's, in this tree and in the other (which had one kernel a variant)
-BY_DESIGN = ("fused_rollout_bwd_kernel", "fused_rollout_bwd_var_kernel",
-             "fused_rollout_bwd_gmem_kernel", "fused_rollout_bwd_mat_kernel",
-             "fused_rollout_bwd_mat_gmem_kernel")
+# the kernel functions whose machine code this tree changes on purpose, by
+# name, with the template arguments of the instances that change (None:
+# every instance): K1's material and volume instances without the dense
+# pass, whose compact contact branch became instances of their own (the
+# last template bit, COMPACT, only in this tree); with the dense pass, the
+# feature and volume instances (FEAT, VOL, DENSE = 1, 1, 1), in which that
+# branch lay dead: without it the operands of one `and.pred` trade places
+# in their PTX (`--ptx`) and ptxas schedules them otherwise, the same bits
+# (`chip_smoke.py --compact --against`); B4's material
+# instance, whose recompute runs the same step loop; the compact pass's own
+# launch, new in this tree
+_MAT = lambda a: a[2] == "0" or a[:3] == ["1", "1", "1"]  # noqa: E731
+BY_DESIGN = {"fused_rollout_mat_kernel": _MAT, "fused_rollout_mat_gmem_kernel": _MAT,
+             "fused_rollout_bwd_mat_kernel": None, "fused_rollout_bwd_mat_gmem_kernel": None,
+             "pair_contact_compact_kernel": None}
 _BUILD = ("from evosoro_tpu_torch.ops import build; build.build_all(%r); "
           "[print(build._lib_path(n)) for n in %r]" % (LIBS, LIBS))
 
 
 def _sass(lib: str) -> dict:
-    """{kernel function: (instructions, sha256 of the SASS)} of a library."""
+    """{kernel function: (instructions, sha256 of the SASS, the SASS lines)}
+    of a library."""
     out = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", lib],
                          capture_output=True, text=True, check=True).stdout
     funcs, cur = {}, None
@@ -66,8 +85,16 @@ def _sass(lib: str) -> dict:
             cur = funcs.setdefault(m.group(1), [])
         elif cur is not None and "/*" in ln:
             cur.append(re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln).split(";")[0].strip())
-    return {k: (len(v), hashlib.sha256("\n".join(v).encode()).hexdigest()[:12])
+    return {k: (len(v), hashlib.sha256("\n".join(v).encode()).hexdigest()[:12], v)
             for k, v in funcs.items()}
+
+
+def _first_difference(a: list, b: list) -> dict:
+    """Where two functions' SASS lines first part: the index, each tree's
+    line there, and each tree's instruction count."""
+    i = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+    return dict(index=i, this=a[i] if i < len(a) else None, other=b[i] if i < len(b) else None,
+                instructions=[len(a), len(b)])
 
 
 def _name(mangled: str) -> str:
@@ -83,6 +110,16 @@ def _label(mangled: str) -> str:
     if not m:
         return name
     return name + "<" + ",".join(re.findall(r"L[ib](\d+)E", m.group(1))) + ">"
+
+
+def _by_design(mangled: str) -> bool:
+    """Whether a kernel function's machine code changes on purpose
+    (`BY_DESIGN`)."""
+    name = _name(mangled)
+    if name not in BY_DESIGN:
+        return False
+    rule, args = BY_DESIGN[name], _label(mangled)[len(name) + 1:-1].split(",")
+    return rule is None or len(args) < 3 or rule(args)
 
 
 def _ptxas_tables(paths: dict) -> dict:
@@ -136,10 +173,11 @@ def launchers(other: str, lib=None, name="fused_rollout") -> dict:
     return {"this": build.library(name), "other": lambda *a: ofn(*a[:n - 1], a[-1])}
 
 
-def in_turns(arms: dict, timed, run, rounds=3, lib="fused_rollout"):
+def in_turns(arms: dict, timed, run, rounds=3, lib="fused_rollout", across=None):
     """{arm: [ms, ...]} of `timed()` through each arm's launcher of library
     `lib` in turns, the arms in order and back (other, this, this, other) x
-    rounds, and whether `run()` gave every arm the same bits. An arm is a
+    rounds, and whether `run()` gave the same bits on every turn of every
+    arm (of the arms named in `across`, when given). An arm is a
     launcher (`launchers`), or (launcher, False) to run K1
     with the robot's state kept in device memory (`fused_rollout.k1_resident`
     false), or (launcher, context) to run it inside `context()`. The
@@ -153,7 +191,7 @@ def in_turns(arms: dict, timed, run, rounds=3, lib="fused_rollout"):
 
     build.library(lib)
     own = build._libs[lib]
-    times, outs = {k: [] for k in arms}, {}
+    times, outs = {k: [] for k in arms}, []
     try:
         for name in (list(arms) + list(arms)[::-1]) * rounds:
             fn, opt = arms[name] if isinstance(arms[name], tuple) else (arms[name], True)
@@ -162,11 +200,12 @@ def in_turns(arms: dict, timed, run, rounds=3, lib="fused_rollout"):
                 fr, "k1_resident", fr.k1_resident if opt else (lambda *a, **k: False))
             with ctx:
                 times[name].append(timed())
-                outs.setdefault(name, run())
+                out = run()
+                if across is None or name in across:
+                    outs.append(out)
     finally:
         build._libs[lib] = own
-    first = next(iter(outs.values()))
-    return times, all(torch.equal(a, b) for o in outs.values() for a, b in zip(o, first))
+    return times, all(torch.equal(a, b) for o in outs for a, b in zip(o, outs[0]))
 
 
 # B4's forward recompute alone, built against a checkout's csrc
@@ -338,6 +377,53 @@ def b4_split(roots: dict, launch=None, rounds=2) -> dict:
     return out
 
 
+def _ptx_kernels(root, unit: str) -> dict:
+    """{kernel: its PTX, mangled names stripped} of translation unit `unit`
+    of checkout `root`, compiled with that tree's flags (`nvcc -ptx`)."""
+    import tempfile
+
+    spec = importlib.util.spec_from_file_location(
+        "ptx_build", Path(root) / "evosoro_tpu_torch" / "ops" / "build.py")
+    b = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(b)
+    flags = [f for f in b.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "unit.ptx"
+        subprocess.run([b._nvcc(), *flags, "-ptx", "-o", str(out), str(b.CSRC / unit)],
+                       check=True, capture_output=True, text=True)
+        text = out.read_text()
+    kernels = {}
+    for m in re.finditer(r"\.entry (\w+)(.*?\n}\n)", text, re.S):
+        body = re.sub(r"_Z\w+", "SYM", m.group(2))
+        # labels and local frames are numbered by the function's place in the unit
+        body = re.sub(r"(\$L__BB|__local_depot)\d+", r"\1", body)
+        kernels[m.group(1)] = body
+    return kernels
+
+
+def ptx_diff(other: str, units=("fused_rollout.cu", "fused_rollout_res.cu",
+                                "fused_rollout_gmem.cu")) -> dict:
+    """The kernels of `units` whose PTX differs between this tree and
+    checkout `other` (a kernel that gained a last template bit compared,
+    with it off, under the other's name), each with the lines that differ
+    (at most 40, `-` the other tree's, `+` this one's)."""
+    import difflib
+
+    out = {}
+    for unit in units:
+        here = _ptx_kernels(Path(__file__).resolve().parents[1], unit)
+        there = _ptx_kernels(Path(other).resolve(), unit)
+        here = {f if f in there else f.replace("Lb0EEv", "Ev", 1): v for f, v in here.items()}
+        for name in sorted(set(here) & set(there)):
+            if here[name] != there[name]:
+                d = [ln for ln in difflib.unified_diff(there[name].splitlines(),
+                                                       here[name].splitlines(), n=0,
+                                                       lineterm="")
+                     if ln[:1] in "+-" and ln[:3] not in ("+++", "---")]
+                out[_label(name)] = dict(unit=unit, changed_lines=len(d), lines=d[:40])
+    return out
+
+
 def main(other: str) -> dict:
     from evosoro_tpu_torch import bench
 
@@ -362,18 +448,21 @@ def main(other: str) -> dict:
             sass["this"][_name(f)] = sass["this"].pop(f)
             sass["other"][_name(f)] = sass["other"].pop(same[0])
     shared = sorted(set(sass["this"]) & set(sass["other"]))
-    differing = [k for k in shared if sass["this"][k] != sass["other"][k]]
+    differing = [k for k in shared if sass["this"][k][:2] != sass["other"][k][:2]]
     rec = dict(libraries=paths, kernels_compared=len(shared), kernels_differing=differing,
-               differing_by_design=[k for k in differing if _name(k) in BY_DESIGN],
-               differing_otherwise=[k for k in differing if _name(k) not in BY_DESIGN],
+               differing_by_design=[_label(k) for k in differing if _by_design(k)],
+               differing_otherwise=[_label(k) for k in differing if not _by_design(k)],
                kernels_only_here=sorted(set(sass["this"]) - set(sass["other"])),
                kernels_only_there=sorted(set(sass["other"]) - set(sass["this"])))
-    # the functions one tree holds alone are B4's; K1's and K2's: every
-    # one compared, none differing
-    rec["only_b4_renamed"] = all(_name(f) in BY_DESIGN for f in
-                                 rec["kernels_only_here"] + rec["kernels_only_there"])
-    others = [k for k in set(sass["this"]) | set(sass["other"]) if _name(k) not in BY_DESIGN]
-    rec["k1_k2_compared"] = sorted(_name(k) for k in others)
+    # the functions one tree holds alone change by design; every other
+    # kernel of K1, B4 and K2: compared, none differing
+    rec["only_by_design"] = all(_by_design(f) for f in
+                                rec["kernels_only_here"] + rec["kernels_only_there"])
+    rec["first_difference_otherwise"] = {
+        _label(k): _first_difference(sass["this"][k][2], sass["other"][k][2])
+        for k in differing if not _by_design(k)}
+    others = [k for k in set(sass["this"]) | set(sass["other"]) if not _by_design(k)]
+    rec["k1_k2_compared"] = sorted(_label(k) for k in others)
     rec["k1_k2_unchanged"] = bool(others) and all(
         k in shared and k not in differing for k in others)
     rec.update(card=bench.card_info(), ptxas=_ptxas_tables(paths))
@@ -382,7 +471,10 @@ def main(other: str) -> dict:
 
 
 if __name__ == "__main__":
-    if sys.argv[1] == "--b4-split":  # --b4-split ARM=CHECKOUT ...
+    if sys.argv[1] == "--ptx":  # --ptx CHECKOUT [UNIT ...]
+        print(json.dumps(ptx_diff(sys.argv[2], *([tuple(sys.argv[3:])] if sys.argv[3:]
+                                                   else []))), flush=True)
+    elif sys.argv[1] == "--b4-split":  # --b4-split ARM=CHECKOUT ...
         from evosoro_tpu_torch import bench
 
         split = b4_split(dict(a.split("=", 1) for a in sys.argv[2:]))

@@ -49,11 +49,13 @@ SIGNATURES = {
 }
 
 # translation units a library links beside its own `<name>.cu`: K1's
-# device-memory instances, K1's kernels with the resident state and B4's
-# material instance compile apart from the other kernels, so K1's keep
-# their machine code and the units build side by side
+# device-memory instances, K1's kernels with the resident state, B4's
+# material instance and the compact pass's own launch compile apart from
+# the other kernels, so K1's and K2's keep their machine code and the units
+# build side by side
 EXTRA_SOURCES = {"fused_rollout": ("fused_rollout_gmem.cu", "fused_rollout_res.cu"),
-                 "fused_rollout_bwd": ("fused_rollout_bwd_mat.cu",)}
+                 "fused_rollout_bwd": ("fused_rollout_bwd_mat.cu",),
+                 "pair_contact": ("pair_contact_compact.cu",)}
 
 _libs: dict = {}
 

@@ -65,10 +65,11 @@
 // tile's loads in flight. Every kernel has an instance with the pass
 // (DENSE, launched for contact on a dense table: k1_dense) and one
 // without, so launches without contact keep their registers (the pass
-// takes K1 to 205-255). Shared memory caps V at 1613 cells (1612 in the
-// feature instance, whose window ring takes 96 bytes), 1339 with
-// collision; past that the device-memory instances (fused_rollout_gmem.cu)
-// run the body.
+// takes K1 to 205-255); the material instances have a third, the same pass
+// over the S surface voxels of a compact table (COMPACT: k1_compact).
+// Shared memory caps V at 1613 cells (1612 in the feature instance, whose
+// window ring takes 96 bytes), 1339 with collision; past that the
+// device-memory instances (fused_rollout_gmem.cu) run the body.
 //
 // Numerics: built with -fmad=false and without fast math, so every multiply
 // and add rounds as in PyTorch's eager ops and sinf/acosf/sqrtf/division
@@ -90,7 +91,8 @@
 // stress, plasticity, the max-velocity clamp, equilibrium mode, BC regions)
 // and the surface-compacted contact pass compile into a kernel of their own,
 // fused_rollout_mat_kernel: the land variant's step with the third template
-// parameter MAT, with and without the features (the JAX kernel's
+// parameter MAT (and the compact pass in its COMPACT instances), with and
+// without the features (the JAX kernel's
 // :372-404, :513-573, :907-910, :966-998, :1369-1371, :1519-1605, :734-774),
 // launched when any of them is on: the MDL_DATA tables (B or 1, 2P + 3, V)
 // and the BC channels (B or 1, 15, V) are read from device memory per voxel,
@@ -175,7 +177,7 @@ extern "C" int fused_rollout(float* state, const float* body, int body_batched,
     // their tables
     if (mat && (variant != V_LAND || ((flags & F_MDL) && (ss == nullptr || n_pts < 2)) ||
                 ((flags & F_BC) && bc == nullptr) ||
-                ((flags & F_COMPACT) && (!(flags & F_COLL) || n_surf <= 0))))
+                ((flags & F_COMPACT) && (!(flags & F_COLL) || n_surf <= 0 || a1 == nullptr))))
         return (int)cudaErrorInvalidValue;
     const MatArgs ma = {nullptr, (flags & F_MDL) ? ss : nullptr, (flags & F_BC) ? bc : nullptr,
                         n_pts, (flags & F_COMPACT) ? n_surf : 0, mparams[0]};
@@ -183,7 +185,8 @@ extern "C" int fused_rollout(float* state, const float* body, int body_batched,
         return (int)cudaErrorInvalidValue;
     // the state resident only on chip
     if (resident && gbuf) return (int)cudaErrorInvalidValue;
-    const int threads = k1_threads(X * Y * Z, mat, k1_dense(flags, a1 != nullptr), feat);
+    const int threads = k1_threads(
+        X * Y * Z, mat, k1_dense(flags, a1 != nullptr) || k1_compact(flags, a1 != nullptr), feat);
     const VolArgs va = (flags & F_VOL) ? VolArgs{vscratch, vparams[0], vparams[1], vparams[2]}
                                        : VolArgs{nullptr, 0.f, 0.f, 0.f};
     const MatArgs* mp = mat ? &ma : nullptr;
@@ -207,5 +210,5 @@ extern "C" int fused_rollout(float* state, const float* body, int body_batched,
 extern "C" int fused_rollout_k1_threads(int V, int flags, int table, const float* fparams) {
     const bool feat = (flags & F_FEAT) || feat_params_from(fparams).n_src > 0;
     return k1_threads(V, (flags & (F_MAT | F_VOL)) != 0,
-                      k1_dense(flags, table != 0), feat);
+                      k1_dense(flags, table != 0) || k1_compact(flags, table != 0), feat);
 }

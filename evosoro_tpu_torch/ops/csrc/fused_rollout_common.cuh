@@ -239,14 +239,15 @@ __host__ __device__ inline int variant_of(int flags) {
 
 // Floats of K1's per-robot buffer (dynamic shared memory, or a row of the
 // device-memory twins' buffer): the bond forces; with contact the contact
-// forces (3 a voxel) and the staged voxels: the S surface voxels' x, y, z,
-// s for the compact pass (n_surf > 0), else the dense pass's float4s and
-// tables (pair_contact.cuh), the whole rounded up to 16 bytes so a twin's
-// rows keep the float4s aligned. ops/fused_rollout.py k1_buffer_floats.
+// forces (3 a voxel) and the pair pass's staged float4s and tables
+// (pair_contact.cuh) over its entries, the S surface voxels for the compact
+// pass (n_surf > 0), else the V voxels, the whole rounded up to 16 bytes so
+// a twin's rows keep the float4s aligned. ops/fused_rollout.py
+// k1_buffer_floats.
 __host__ __device__ inline size_t k1_buffer_floats(int V, bool coll, int n_surf) {
     if (!coll) return (size_t)BF * V;
-    if (n_surf > 0) return (size_t)(BF + 3) * V + 4 * (size_t)n_surf;
-    const size_t n = (size_t)(BF + 3) * V + pair_stage_floats(V) + pair_aux_floats(V);
+    const int N = n_surf > 0 ? n_surf : V;
+    const size_t n = (size_t)(BF + 3) * V + pair_stage_floats(N) + pair_aux_floats(N);
     return (n + 3) & ~(size_t)3;
 }
 
@@ -254,6 +255,12 @@ __host__ __device__ inline size_t k1_buffer_floats(int V, bool coll, int n_surf)
 // (k1_steps): contact on a V x V table, not the compact one
 static inline bool k1_dense(int flags, bool table) {
     return (flags & F_COLL) && !(flags & F_COMPACT) && table;
+}
+
+// ... the compact pass, the material instances' COMPACT instance: contact
+// on the compact (S + 1, S) table
+static inline bool k1_compact(int flags, bool table) {
+    return (flags & F_COLL) && (flags & F_COMPACT) && table;
 }
 
 // float32 constants, each rounded on the host from the double the Python

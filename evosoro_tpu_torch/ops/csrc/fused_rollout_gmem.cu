@@ -7,8 +7,8 @@
 // (`collision_batch_block`). Every kernel of fused_rollout.cu has a twin
 // here: fused_rollout_gmem_kernel<VARIANT, FEAT, DENSE> (the land, face-drag,
 // facet-drag and development variants, with and without the features) and
-// fused_rollout_mat_gmem_kernel<FEAT, VOL, DENSE> (the material and volume
-// instances). Each hands k1_steps (k1_step.cuh) the
+// fused_rollout_mat_gmem_kernel<FEAT, VOL, DENSE, COMPACT> (the material and
+// volume instances). Each hands k1_steps (k1_step.cuh) the
 // robot's slice of a buffer in device memory (a row of k1_buffer_floats a
 // robot, a multiple of 4 floats so the pair pass's float4s stay aligned) in
 // place of dynamic shared memory: the same carve. The step is the same
@@ -80,9 +80,9 @@ fused_rollout_gmem_kernel(float* state_all, const float* __restrict__ body_all,
 }
 
 // The device-memory instance of the material (VOL false) and volume (VOL
-// true) kernels.
-template <bool FEAT, bool VOL, bool DENSE>
-__global__ void __launch_bounds__(k1_bound(true, DENSE, FEAT), 1)
+// true) kernels, with the dense pass (DENSE) or the compact one (COMPACT).
+template <bool FEAT, bool VOL, bool DENSE, bool COMPACT = false>
+__global__ void __launch_bounds__(k1_bound(true, DENSE || COMPACT, FEAT), 1)
 fused_rollout_mat_gmem_kernel(float* state_all, const float* __restrict__ body_all,
                               int body_batched, float* stats_all,
                               const float* __restrict__ a1_all, int a1_batched,
@@ -110,15 +110,14 @@ fused_rollout_mat_gmem_kernel(float* state_all, const float* __restrict__ body_a
     Robot r = load_robot(stat);
     if constexpr (FEAT) {
         Feat fe = load_feat(stat);
-        k1_steps<V_LAND, true, true, VOL, DENSE>(st, bo, a1, cu, n_knots, knot_steps,
-                                                 step_base, X, Y, Z, num_steps, p, flags, r,
-                                                 buf, nullptr, &fe, &fp, &ma, ke, &va);
+        k1_steps<V_LAND, true, true, VOL, DENSE, false, false, COMPACT>(
+            st, bo, a1, cu, n_knots, knot_steps, step_base, X, Y, Z, num_steps, p, flags, r, buf,
+            nullptr, &fe, &fp, &ma, ke, &va);
         if (threadIdx.x == 0) store_feat(stat, fe, fp, flags);
     } else {
-        k1_steps<V_LAND, false, true, VOL, DENSE>(st, bo, a1, cu, n_knots, knot_steps,
-                                                  step_base, X, Y, Z, num_steps, p, flags, r,
-                                                  buf, nullptr, nullptr, nullptr, &ma, ke,
-                                                  &va);
+        k1_steps<V_LAND, false, true, VOL, DENSE, false, false, COMPACT>(
+            st, bo, a1, cu, n_knots, knot_steps, step_base, X, Y, Z, num_steps, p, flags, r, buf,
+            nullptr, nullptr, nullptr, &ma, ke, &va);
     }
 
     if (threadIdx.x == 0) {
@@ -143,10 +142,12 @@ int launch_gmem(float* state, const float* body, int body_batched, float* stats,
                 int ss_batched, int bc_batched, const VolArgs* va, float* gbuf, int gstride,
                 int threads, cudaStream_t st) {
     const bool dense = k1_dense(flags, a1 != nullptr);
+    const bool compact = ma && k1_compact(flags, a1 != nullptr);
 #define MAT_GMEM(FEAT, VOL)                                                                   \
     do {                                                                                      \
-        const auto k = dense ? fused_rollout_mat_gmem_kernel<FEAT, VOL, true>                \
-                             : fused_rollout_mat_gmem_kernel<FEAT, VOL, false>;              \
+        const auto k = dense     ? fused_rollout_mat_gmem_kernel<FEAT, VOL, true>            \
+                       : compact ? fused_rollout_mat_gmem_kernel<FEAT, VOL, false, true>     \
+                                 : fused_rollout_mat_gmem_kernel<FEAT, VOL, false>;          \
         k<<<B, threads, 0, st>>>(state, body, body_batched, stats, a1, a1_batched, ctrl,     \
                                  n_knots, knot_steps, step_base, X, Y, Z, num_steps, p,      \
                                  flags, fp, *ma, ss_batched, bc_batched, vargs, gbuf,        \

@@ -53,10 +53,10 @@ fused_rollout_kernel(float* state_all, const float* __restrict__ body_all,
 // land variant's step with MAT, with and without the features. Beside the
 // land kernel's inputs they take the robot's MDL_DATA tables and BC
 // channels (MatArgs), the volume instance the volume constants and the (B,
-// 9, V) scratch (VolArgs), and its pair table may be the compact (S + 1, S)
-// one.
-template <bool FEAT, bool VOL, bool DENSE, bool RES>
-__global__ void __launch_bounds__(k1_bound(true, DENSE, FEAT), 1)
+// 9, V) scratch (VolArgs). Contact: the dense pass on a V x V table
+// (DENSE), or the compact pass on the compact (S + 1, S) one (COMPACT).
+template <bool FEAT, bool VOL, bool DENSE, bool RES, bool COMPACT = false>
+__global__ void __launch_bounds__(k1_bound(true, DENSE || COMPACT, FEAT), 1)
 fused_rollout_mat_kernel(float* state_all, const float* __restrict__ body_all,
                          int body_batched, float* stats_all,
                          const float* __restrict__ a1_all, int a1_batched,
@@ -83,15 +83,14 @@ fused_rollout_mat_kernel(float* state_all, const float* __restrict__ body_all,
     Robot r = load_robot(stat);
     if constexpr (FEAT) {
         Feat fe = load_feat(stat);
-        k1_steps<V_LAND, true, true, VOL, DENSE, RES>(st, bo, a1, cu, n_knots, knot_steps,
-                                                      step_base, X, Y, Z, num_steps, p, flags,
-                                                      r, sh, nullptr, &fe, &fp, &ma, ke, &va);
+        k1_steps<V_LAND, true, true, VOL, DENSE, RES, false, COMPACT>(
+            st, bo, a1, cu, n_knots, knot_steps, step_base, X, Y, Z, num_steps, p, flags, r, sh,
+            nullptr, &fe, &fp, &ma, ke, &va);
         if (threadIdx.x == 0) store_feat(stat, fe, fp, flags);
     } else {
-        k1_steps<V_LAND, false, true, VOL, DENSE, RES>(st, bo, a1, cu, n_knots, knot_steps,
-                                                       step_base, X, Y, Z, num_steps, p, flags,
-                                                       r, sh, nullptr, nullptr, nullptr, &ma,
-                                                       ke, &va);
+        k1_steps<V_LAND, false, true, VOL, DENSE, RES, false, COMPACT>(
+            st, bo, a1, cu, n_knots, knot_steps, step_base, X, Y, Z, num_steps, p, flags, r, sh,
+            nullptr, nullptr, nullptr, &ma, ke, &va);
     }
 
     if (threadIdx.x == 0) {
@@ -124,8 +123,9 @@ static int k1_allow_smem(K kernel, size_t smem) {
 
 // Launches the shared-memory kernel the flags select, with `threads`
 // threads a block (k1_threads, at most the kernel's k1_bound): the material
-// and volume instances when ma is given (va with volume effects), else the
-// variant's kernel.
+// and volume instances when ma is given (va with volume effects; their
+// COMPACT instance for contact on a compact table), else the variant's
+// kernel.
 template <bool RES>
 int launch_k1(float* state, const float* body, int body_batched, float* stats,
               const float* a1, int a1_batched, const float* ctrl, int n_knots, int knot_steps,
@@ -135,6 +135,7 @@ int launch_k1(float* state, const float* body, int body_batched, float* stats,
               cudaStream_t stream) {
     const int V = X * Y * Z;
     const bool dense = k1_dense(flags, a1 != nullptr);
+    const bool compact = ma && k1_compact(flags, a1 != nullptr);
     const size_t smem = k1_smem_bytes<RES>(V, flags, ma ? ma->n_surf : 0);
 #define K1_GO(KERNEL, ...)                                                                  \
     do {                                                                                    \
@@ -144,8 +145,9 @@ int launch_k1(float* state, const float* body, int body_batched, float* stats,
         k<<<B, threads, smem, stream>>>(__VA_ARGS__);                                       \
     } while (0)
 #define MAT_GO(FEAT, VOL)                                                                   \
-    K1_GO((dense ? fused_rollout_mat_kernel<FEAT, VOL, true, RES>                          \
-                 : fused_rollout_mat_kernel<FEAT, VOL, false, RES>),                       \
+    K1_GO((dense     ? fused_rollout_mat_kernel<FEAT, VOL, true, RES>                      \
+           : compact ? fused_rollout_mat_kernel<FEAT, VOL, false, RES, true>               \
+                     : fused_rollout_mat_kernel<FEAT, VOL, false, RES>),                   \
           state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots, knot_steps,      \
           step_base, X, Y, Z, num_steps, p, flags, fp, *ma, ss_batched, bc_batched, vargs)
 #define VAR_GO(VARIANT, FEAT)                                                               \

@@ -31,18 +31,21 @@
 // Threads a block of each K1 kernel can take: its __launch_bounds__(n, 1)
 // (ptxas: 65536 / n registers a thread), each the fastest of 256, 384 and
 // 512 on the card (PERF.md section 6): 512, 16 warps, but 384 for the
-// kernels with the dense pair pass and the features or the material
-// options. At 512 the kernels without contact take 107-128 registers (up to
-// 56 bytes of spills in four feature instances) and the land, water and
-// growth kernels with the pass 128 and 0-48 bytes of spills, and beat 256
-// and 384 threads; the feature instances with the pass spilled 52-220
-// bytes there and lost to the parent's kernels.
+// kernels with a pair pass (dense or compact) and the features or the
+// material options. At 512 the kernels without contact take 107-128
+// registers (up to 56 bytes of spills in four feature instances) and the
+// land, water and growth kernels with the pass 128 and 0-48 bytes of
+// spills, and beat 256 and 384 threads; the feature instances with the
+// pass spilled 52-220 bytes there and lost to the parent's kernels. The
+// compact instances at 512 won 2-12 % on 1024 robots and lost 19-28 % on
+// a one-robot replay (PERF.md section 6, PR 15).
 constexpr int K1_THREADS = 512;
 constexpr int K1_DENSE_OPT_THREADS = 384;
 // the __launch_bounds__ of a K1 kernel: the material and volume instances
-// (MAT), with the dense pair pass (DENSE), with the fitness features (FEAT)
-__host__ __device__ constexpr int k1_bound(bool mat, bool dense, bool feat) {
-    return dense && (mat || feat) ? K1_DENSE_OPT_THREADS : K1_THREADS;
+// (mat), with a pair pass (pass: the dense one or the compact one), with the
+// fitness features (feat)
+__host__ __device__ constexpr int k1_bound(bool mat, bool pass, bool feat) {
+    return pass && (mat || feat) ? K1_DENSE_OPT_THREADS : K1_THREADS;
 }
 
 // The threads whose partials a reduction folds: the old mapping's block,
@@ -62,9 +65,9 @@ __host__ __device__ inline int k1_red_threads(int V) {
 // K1's block for a body of V grid cells: a thread a bond item (3 V rounded
 // up to a warp) up to the kernel's bound, so never fewer threads than the
 // reductions' partition; the device-memory twins take the same
-__host__ __device__ constexpr int k1_threads(int V, bool mat, bool dense, bool feat) {
-    return k1_bound(mat, dense, feat) < (3 * V + 31) / 32 * 32 ? k1_bound(mat, dense, feat)
-                                                                 : (3 * V + 31) / 32 * 32;
+__host__ __device__ constexpr int k1_threads(int V, bool mat, bool pass, bool feat) {
+    return k1_bound(mat, pass, feat) < (3 * V + 31) / 32 * 32 ? k1_bound(mat, pass, feat)
+                                                                : (3 * V + 31) / 32 * 32;
 }
 
 // B4's tape (k1_steps' TAPE form): slots `slot` floats apart, the steps'
@@ -88,10 +91,12 @@ __device__ inline const T& k1_tape(const T& t) { return t; }
 // device memory (V_FLUID_MESH only). FEAT: the fitness features, on the
 // carry fe with the constants fp. MAT: the material instance (the land
 // variant only) with the inputs ma and the kinetic-energy ring ke (6
-// floats, the same in every thread); with F_COMPACT, a1 is the compact
-// table (S + 1, S). VOL (with MAT): volume effects, with the inputs va;
-// r.dt is the dt carried in and out. DENSE: contact through the dense pair
-// pass on the V x V table a1 (pair_contact.cuh).
+// floats, the same in every thread). VOL (with MAT): volume effects, with
+// the inputs va; r.dt is the dt carried in and out. DENSE: contact through
+// the dense pair pass on the V x V table a1 (pair_contact.cuh). COMPACT
+// (with MAT, not DENSE): contact through the same pass over the S =
+// ma->n_surf surface voxels of the compact table a1 (S + 1, S): its index
+// row, then the S x S table.
 //
 // TAPE (B4's recompute; not with RES), with one K1Tape after the other
 // arguments: out of place. Step i reads slot i (st + i * slot) and writes
@@ -103,7 +108,8 @@ __device__ inline const T& k1_tape(const T& t) { return t; }
 // past scr + i * slot, in its own slot. Without TAPE the pack is empty and
 // every instance compiles to what it was before the tape came.
 template <int VARIANT, bool FEAT = false, bool MAT = false, bool VOL = false,
-          bool DENSE = false, bool RES = false, bool TAPE = false, class... Tape>
+          bool DENSE = false, bool RES = false, bool TAPE = false, bool COMPACT = false,
+          class... Tape>
 __device__ inline void k1_steps(float* st, const float* bo, const float* a1,
                                 const float* cu_robot, int n_knots, int knot_steps,
                                 int step_base, int X, int Y, int Z, int num_steps,
@@ -112,28 +118,29 @@ __device__ inline void k1_steps(float* st, const float* bo, const float* a1,
                                 const MatArgs* ma = nullptr, float* ke = nullptr,
                                 const VolArgs* va = nullptr, Tape... tape) {
     // the reductions' scratch holds a word for each of 24 warps (block_max1)
-    static_assert(k1_bound(MAT, DENSE, FEAT) <= 768, "block_max1: a word of red a warp");
+    static_assert(k1_bound(MAT, DENSE || COMPACT, FEAT) <= 768,
+                  "block_max1: a word of red a warp");
     static_assert(!TAPE || (sizeof...(Tape) == 1 && !RES), "a K1Tape, in device memory");
+    static_assert(!COMPACT || (MAT && !DENSE), "the compact table's surface count rides MatArgs");
     __shared__ float red[3 * (K1_RED_THREADS / 32)];
     __shared__ int divflag[2];
 
     const int V = X * Y * Z;
     const int T = blockDim.x;
     const int P = k1_red_threads(V);  // the reductions' partition
-    const bool compact = MAT && !DENSE && (flags & F_COMPACT);
     // contact forces, from the dense pass or the compact one (which the
     // host launches only with F_COLL)
-    const bool coll = DENSE || compact;
-    const int S = compact ? ma->n_surf : V;  // staged contact entries
-    float* bf = sh;                       // [36][V] bond forces
-    float* sp = sh + BF * V;              // [4][S] staged pos/scale, or the dense float4s
-    float* aux = sp + (compact ? 4 * S : pair_stage_floats(V));  // the dense pass's tables
-    float* fc = aux + (DENSE ? pair_aux_floats(V) : 0);          // [3][V] contact forces
+    const bool coll = DENSE || COMPACT;
+    const int S = COMPACT ? ma->n_surf : V;  // the pass's entries
+    float* bf = sh;                          // [36][V] bond forces
+    float* sp = sh + BF * V;                 // the pass's float4s, an entry each
+    float* aux = sp + pair_stage_floats(S);  // its tables
+    float* fc = aux + (coll ? pair_aux_floats(S) : 0);  // [3][V] contact forces
     const int strides[3] = {Y * Z, Z, 1};
     // the state the steps read and write: the robot's own in device memory,
     // or (RES) its copy past the buffer, read in here and written back after
     float* const ss =
-        RES ? sh + k1_buffer_floats(V, (flags & F_COLL) != 0, compact ? S : 0) : st;
+        RES ? sh + k1_buffer_floats(V, (flags & F_COLL) != 0, COMPACT ? S : 0) : st;
 
     float t = r.t;
     bool div = r.div;
@@ -154,14 +161,15 @@ __device__ inline void k1_steps(float* st, const float* bo, const float* a1,
     if constexpr (FEAT) {
         for (int k = threadIdx.x; k < 2 * MAX_WIN; k += blockDim.x) feat_ring()[k] = 0.f;
     }
-    if constexpr (DENSE) {
-        unsigned* tables = pair_mask(aux, pair_groups(V));  // the tile mask, active bits
-        for (int k = threadIdx.x; k < pair_table_words(V); k += T) tables[k] = 0u;
+    if constexpr (DENSE || COMPACT) {
+        unsigned* tables = pair_mask(aux, pair_groups(S));  // the tile mask, active bits
+        for (int k = threadIdx.x; k < pair_table_words(S); k += T) tables[k] = 0u;
     }
     __syncthreads();
-    // the dense pass's static tile mask, once a launch
-    if constexpr (DENSE) {
-        pair_tile_mask(a1, V, pair_mask(aux, pair_groups(V)), 0, V);
+    // the pass's static tile mask, once a launch (the compact table's S x S
+    // entries past its index row)
+    if constexpr (DENSE || COMPACT) {
+        pair_tile_mask(a1 + (COMPACT ? S : 0), S, pair_mask(aux, pair_groups(S)), 0, S);
         __syncthreads();
     }
 
@@ -239,22 +247,19 @@ __device__ inline void k1_steps(float* st, const float* bo, const float* a1,
             cu = cu_robot + (size_t)knot_of(i_glob, n_knots, knot_steps) * V;
 
         // ---- phase A: bond pass (+ staging for the pair pass) ----
-        if (compact) {
-            // the surface voxels through the index row; the others feel none
+        if constexpr (COMPACT) {
+            // the surface voxels through the index row; the others feel -0,
+            // as the dense pass's zero rows give them
             for (int v = threadIdx.x; v < V; v += T) {
-                fc[v] = 0.f;
-                fc[V + v] = 0.f;
-                fc[2 * V + v] = 0.f;
+                fc[v] = -0.f;
+                fc[V + v] = -0.f;
+                fc[2 * V + v] = -0.f;
             }
-            for (int k = threadIdx.x; k < S; k += T) {
-                const int u = (int)a1[k];
-                sp[k] = SCH(S_POS + 0)[u];
-                sp[S + k] = SCH(S_POS + 1)[u];
-                sp[2 * S + k] = SCH(S_POS + 2)[u];
-                sp[3 * S + k] = SCH(S_SCALE)[u];
-            }
+            pair_stage<true>(SCH(S_POS + 0), SCH(S_POS + 1), SCH(S_POS + 2), SCH(S_SCALE), S,
+                             sp, aux, a1);
             __syncthreads();
-            pair_contact_compact_block(sp, a1 + S, a1, S, fc, V);
+            pair_contact_block<true>(sp, a1 + S, S, aux, fc, V, 0, pair_groups(S), nullptr,
+                                     p.pair_slack, nullptr, PAIR_NWARPS, a1);
         } else if constexpr (DENSE) {
             pair_stage(SCH(S_POS + 0), SCH(S_POS + 1), SCH(S_POS + 2), SCH(S_SCALE), V, sp, aux);
             __syncthreads();

@@ -1,8 +1,11 @@
-// Dense pair contact for one robot: the device routine shared by K2's own
-// launch (pair_contact.cu), by every K1 kernel that runs dense contact
-// (fused_rollout.cu) and by their device-memory twins (fused_rollout_gmem.cu).
+// Pair contact for one robot: the device routine shared by K2's own launch
+// (pair_contact.cu), by every K1 kernel that runs dense contact
+// (fused_rollout.cu) and by their device-memory twins (fused_rollout_gmem.cu),
+// and over the surface voxels alone by K1's compact instances and the
+// compact pass's own launch (pair_contact_compact.cu).
 //
-// Replaces: evosoro_tpu/ops/fused_rollout.py, _pair_contact_forces. The
+// Replaces: evosoro_tpu/ops/fused_rollout.py, _pair_contact_forces (and
+// _pair_contact_forces_compact, at the end of this note). The
 // force on voxel i is
 //   f_i = -sum_j a1_ij * (nom * rsqrt(d2) - 1) * (p_j - p_i)
 // wherever nom * rsqrt(d2) > 1, with nom = 0.75 (s_i + s_j). Zeros in the
@@ -63,13 +66,22 @@
 // a group; K1 charges them to its buffer (ops/fused_rollout.py
 // k1_buffer_floats).
 //
-// The surface-compacted pass (pair_contact_compact_block) replaces
-// _pair_contact_forces_compact: the same field over the S surface voxels
-// only, an (S, S) table in place of (V, V). On the TPU the gather and the
-// scatter are one-hot matrix products; here the caller stages the S entries
-// through the table's index row (an indexed load each) and each warp's lane
-// 0 writes its row's force to the owning voxel (the indices are distinct,
-// so nothing collides).
+// The surface-compacted pass replaces _pair_contact_forces_compact: the same
+// field over the S surface voxels only, an (S, S) table in place of (V, V)
+// (the compact table (S + 1, S): row 0 the surface voxels' flat indices as
+// floats, then the S x S stiffnesses). It is the pass above run over the S
+// entries in place of the V voxels: the same tile mask and active bits over
+// 32-entry groups of the surface order, the same cull and the same row
+// owners. Staging gathers each entry's voxel through the index row
+// (pair_stage<true>), and a row's force goes to its voxel (pair_contact_block
+// <true>; the indices are distinct, so nothing collides). On the TPU the
+// gather and the scatter are one-hot matrix products. The collision system
+// orders the surface as the flat x-major order (np.argwhere), so a row
+// meets its nonzero terms in the dense row's order, each by the same
+// arithmetic, and culled tiles and zero entries add exactly 0: where a warp
+// owns each of its groups (K1), the forces equal the dense pass's bit for
+// bit. The caller writes -0 to the voxels off the surface, as the dense
+// pass's zero rows give them. Bound: as the dense pass, over S^2 entries.
 #pragma once
 #include <string.h>
 
@@ -199,6 +211,17 @@ __device__ inline void pair_tile_mask(const float* __restrict__ a1, int V, unsig
     }
 }
 
+// the compact pass's index row, the one argument of its pack
+__device__ __forceinline__ const float* pair_idx(const float* idx) { return idx; }
+
+// a row's force, negated, to voxel o of out (c * out_stride + o)
+__device__ __forceinline__ void pair_put(float* out, int out_stride, int o, float fx, float fy,
+                                         float fz) {
+    out[o] = -fx;
+    out[out_stride + o] = -fy;
+    out[2 * out_stride + o] = -fz;
+}
+
 // a group's box while the warp folds it: lows, highs, the largest scale
 struct PairBox {
     float lx, ly, lz, hx, hy, hz, sm;
@@ -207,9 +230,13 @@ struct PairBox {
 // Stages the robot's positions and scales (x, y, z, s: V floats each) as
 // float4s in sp, zeros past V, and writes each group's box over its active
 // voxels to aux: {lo.x, lo.y, lo.z, smax}, {hi.x, hi.y, hi.z, 0}. The whole
-// block; a barrier before the pass.
+// block; a barrier before the pass. GATHER (the compact pass), with the
+// index row idx after the other arguments: V entries, entry v the voxel
+// idx[v] of the grid's x, y, z, s. Without GATHER the pack is empty, so
+// the dense instantiation holds nothing of the gather.
+template <bool GATHER = false, class... Idx>
 __device__ inline void pair_stage(const float* x, const float* y, const float* z,
-                                  const float* s, int V, float* sp, float* aux) {
+                                  const float* s, int V, float* sp, float* aux, Idx... idx) {
     const int G = pair_groups(V);
     float4* s4 = reinterpret_cast<float4*>(sp);
     float4* box = reinterpret_cast<float4*>(aux);
@@ -220,7 +247,14 @@ __device__ inline void pair_stage(const float* x, const float* y, const float* z
             [&](int l) {
                 const int v = 32 * g + l;
                 float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
-                if (v < V) q = make_float4(x[v], y[v], z[v], s[v]);
+                if constexpr (GATHER) {
+                    if (v < V) {
+                        const int u = (int)pair_idx(idx...)[v];
+                        q = make_float4(x[u], y[u], z[u], s[u]);
+                    }
+                } else {
+                    if (v < V) q = make_float4(x[v], y[v], z[v], s[v]);
+                }
                 s4[v] = q;
                 const bool on = v < V && ((act[g] >> l) & 1u);
                 return PairBox{on ? q.x : INFINITY, on ? q.y : INFINITY, on ? q.z : INFINITY,
@@ -377,11 +411,14 @@ __device__ inline void pair_row(const float4* s4, const float* __restrict__ a1, 
 // partial: null (a warp owns each of its groups), or split * (g1 - g0) * 96
 // floats where the block has at least twice as many warps as groups;
 // counts: null, or the three tile counts of pair_hot_word; nwarps: the
-// block's warps (the host build loops over them).
+// block's warps (the host build loops over them). SCATTER (the compact
+// pass), with the index row idx after the other arguments: V entries, row
+// i's force to voxel idx[i] of out; without it the pack is empty.
+template <bool SCATTER = false, class... Idx>
 __device__ inline void pair_contact_block(const float* sp, const float* __restrict__ a1, int V,
                                           const float* aux, float* out, int out_stride, int g0,
                                           int g1, float* partial, float slack,
-                                          unsigned* counts, int nwarps) {
+                                          unsigned* counts, int nwarps, Idx... idx) {
     const int G = pair_groups(V);
     const int W = pair_words(G);
     const int ng = g1 - g0;
@@ -407,9 +444,13 @@ __device__ inline void pair_contact_block(const float* sp, const float* __restri
                     partial[(u * 3 + 1) * 32 + lane] = fy;
                     partial[(u * 3 + 2) * 32 + lane] = fz;
                 } else if (i < V) {
-                    out[i] = -fx;
-                    out[out_stride + i] = -fy;
-                    out[2 * out_stride + i] = -fz;
+                    if constexpr (SCATTER) {
+                        pair_put(out, out_stride, (int)pair_idx(idx...)[i], fx, fy, fz);
+                    } else {
+                        out[i] = -fx;
+                        out[out_stride + i] = -fy;
+                        out[2 * out_stride + i] = -fz;
+                    }
                 }
             }
     if (split > 1) {
@@ -425,56 +466,13 @@ __device__ inline void pair_contact_block(const float* sp, const float* __restri
                 fy += q[32];
                 fz += q[64];
             }
-            out[i] = -fx;
-            out[out_stride + i] = -fy;
-            out[2 * out_stride + i] = -fz;
-        }
-    }
-}
-
-// sp: shared [4*S] = x[S], y[S], z[S], s[S] of the surface voxels; a1s: the
-// robot's S x S compact table, row-major; idx: its index row (S voxel
-// indices as floats); out[c * out_stride + idx[i]] receives force
-// component c on surface voxel i.
-__device__ inline void pair_contact_compact_block(const float* sp,
-                                                  const float* __restrict__ a1s,
-                                                  const float* __restrict__ idx, int S,
-                                                  float* out, int out_stride) {
-    const int lane = PAIR_LANE;
-    const int warp = PAIR_WARP;
-    const int nwarps = PAIR_NWARPS;
-    const float* px = sp;
-    const float* py = sp + S;
-    const float* pz = sp + 2 * S;
-    const float* ps = sp + 3 * S;
-    for (int i = warp; i < S; i += nwarps) {
-        const float xi = px[i], yi = py[i], zi = pz[i], si = ps[i];
-        const float* row = a1s + (size_t)i * S;
-        float fx = 0.f, fy = 0.f, fz = 0.f;
-        for (int j = lane; j < S; j += PAIR_LANES) {
-            const float a = row[j];
-            if (a == 0.f) continue;
-            const float dx = px[j] - xi;
-            const float dy = py[j] - yi;
-            const float dz = pz[j] - zi;
-            const float d2 = dx * dx + dy * dy + dz * dz;
-            const float inv = rsqrtf(fmaxf(d2, 1e-30f));
-            const float tt = (0.75f * (si + ps[j])) * inv;
-            if (tt > 1.f) {
-                const float mag = a * (tt - 1.f);
-                fx += mag * dx;
-                fy += mag * dy;
-                fz += mag * dz;
+            if constexpr (SCATTER) {
+                pair_put(out, out_stride, (int)pair_idx(idx...)[i], fx, fy, fz);
+            } else {
+                out[i] = -fx;
+                out[out_stride + i] = -fy;
+                out[2 * out_stride + i] = -fz;
             }
-        }
-        fx = warp_sum(fx);
-        fy = warp_sum(fy);
-        fz = warp_sum(fz);
-        if (lane == 0) {
-            const int u = (int)idx[i];
-            out[u] = -fx;
-            out[out_stride + u] = -fy;
-            out[2 * out_stride + u] = -fz;
         }
     }
 }

@@ -27,7 +27,9 @@ Hopper take its place on the evolution loop's envelope:
   segment's end-state cotangent back to its start state and the control
   knots (the JAX package's `_fused_bwd_call`);
 - K2 (`pair_contact_forces`, `csrc/pair_contact.cu`): the dense
-  self-contact pass, a device routine of K1 that also has its own launch.
+  self-contact pass, a device routine of K1 that also has its own launch;
+  the same routine over the surface voxels is the surface-compacted pass
+  (B5), whose own launch is `pair_contact_forces_compact`.
 
 Every K1 and B4 kernel has a device-memory twin that keeps the robot's
 buffer in device memory in place of one block's shared memory; the
@@ -193,8 +195,8 @@ _PER_DIR_FIELDS = [
 # BF); the fluid-mesh variant works inside the same 36 (its vertex field and
 # the force sums it carries across its extra barrier live in slots of the
 # bond buffer that only the voxel itself reads). Contact adds 3 a voxel for
-# its forces and the staged voxels: 4 floats a surface voxel with the
-# compact pass, else the dense pass's (csrc/pair_contact.cuh)
+# its forces and the pair pass's staging and tables (csrc/pair_contact.cuh)
+# over its entries: the surface voxels with the compact pass, else all
 _K1_SMEM_FLOATS = 36
 # per-voxel floats of device-memory scratch a fluid-mesh launch needs: the
 # per-side strains sv1, sv2 of the three bonds a voxel owns
@@ -231,26 +233,25 @@ def pair_table_words(V: int) -> int:
 
 
 def pair_pass_floats(V: int) -> int:
-    """Floats the dense pair pass keeps beside the bond forces
-    (csrc/pair_contact.cuh): the staged positions and scales, a float4 a
-    voxel padded to whole groups (128 a group), a box of 8 floats a group
-    and the tile mask and active bits (`pair_table_words`)."""
+    """Floats the pair pass keeps beside the bond forces over V entries
+    (csrc/pair_contact.cuh; the voxels, or the compact pass's surface
+    voxels): the staged positions and scales, a float4 an entry padded to
+    whole groups (128 a group), a box of 8 floats a group and the tile mask
+    and active bits (`pair_table_words`)."""
     return 136 * pair_groups(V) + pair_table_words(V)
 
 
 def k1_buffer_floats(V: int, collision: bool, n_surf=None) -> int:
     """Floats of K1's per-robot buffer for a body of V grid cells: the bond
-    forces, and with contact the contact forces and the staged voxels: with
-    `n_surf` the surface-compacted pass's S surface voxels (4 floats each),
-    else the dense pass's float4s and tables (`pair_pass_floats`), the
-    whole rounded up to a multiple of 4 so that each row of the
-    device-memory twins' buffer keeps the float4s aligned
-    (csrc/fused_rollout_common.cuh k1_buffer_floats)."""
+    forces, and with contact the contact forces and the pair pass's float4s
+    and tables (`pair_pass_floats`) over the surface-compacted pass's
+    `n_surf` surface voxels, or over the V voxels, the whole rounded up to
+    a multiple of 4 so that each row of the device-memory twins' buffer
+    keeps the float4s aligned (csrc/fused_rollout_common.cuh
+    k1_buffer_floats)."""
     if not collision:
         return _K1_SMEM_FLOATS * V
-    if n_surf is not None:
-        return (_K1_SMEM_FLOATS + 3) * V + 4 * int(n_surf)
-    n = (_K1_SMEM_FLOATS + 3) * V + pair_pass_floats(V)
+    n = (_K1_SMEM_FLOATS + 3) * V + pair_pass_floats(V if n_surf is None else int(n_surf))
     return (n + 3) // 4 * 4
 
 
@@ -916,14 +917,20 @@ def pair_contact_forces_plain(pos, scale, a1, row_sum=None):
     return out.reshape(lead + (3, V))
 
 
-def pair_tile_census_plain(pos, scale, a1, margin=PAIR_CULL_MARGIN):
-    """The dense pass's tile counts, summed over the batch, in float32 as
+def pair_tile_census_plain(pos, scale, a1, margin=PAIR_CULL_MARGIN, idx=None):
+    """The pair pass's tile counts, summed over the batch, in float32 as
     the routine computes them: (evaluated, culled by distance, culled
     statically) 32 x 32 tiles of the table. pos (B, 3, V), scale (B, V), a1
-    (B or 1, V, V). Its tests are the routine's: the static mask (a nonzero
-    entry in the tile), the active voxels (a nonzero in their row or
-    column), each group's box over them and the gap against 0.75 (smax_g +
-    smax_h) (1 + margin) (csrc/pair_contact.cuh)."""
+    (B or 1, V, V); or, for the compact pass, a1 its (B or 1, S, S)
+    stiffnesses and idx its (B or 1, S) index row (the surface voxels, in
+    the table's order). Its tests are the routine's: the static mask (a
+    nonzero entry in the tile), the active entries (a nonzero in their row
+    or column), each group's box over them and the gap against 0.75
+    (smax_g + smax_h) (1 + margin) (csrc/pair_contact.cuh)."""
+    if idx is not None:
+        ix = idx.long().expand(pos.shape[0], -1)
+        pos = torch.gather(pos, 2, ix[:, None, :].expand(-1, 3, -1))
+        scale = torch.gather(scale, 1, ix)
     B, _, V = pos.shape
     G = pair_groups(V)
     pad = 32 * G - V
@@ -1011,13 +1018,15 @@ class CompactTable:
     table: Any
 
 
-def pair_contact_forces_compact_plain(pos, scale, table):
+def pair_contact_forces_compact_plain(pos, scale, table, row_sum=None):
     """Plain version of K1's compact contact pass (the JAX package's
     `_pair_contact_forces_compact`): gather the S surface voxels' positions
     and scales through the index row of `table`, evaluate the (S, S) pair
     field `mag = a1 (0.75 (s_i + s_j) / dist - 1)` where positive, and scatter
-    `-sum_j mag (p_j - p_i)` back to the voxels. pos (..., 3, V), scale
-    (..., V), table (..., S + 1, S) or (S + 1, S) -> forces (..., 3, V)."""
+    `-sum_j mag (p_j - p_i)` back to the voxels; the others receive -0, as
+    the dense pass's zero rows give them. pos (..., 3, V), scale (..., V),
+    table (..., S + 1, S) or (S + 1, S) -> forces (..., 3, V). row_sum: as
+    `pair_contact_forces_plain`'s, over the (n, 3, S, S) terms."""
     lead = pos.shape[:-2]
     V = pos.shape[-1]
     p = pos.reshape(-1, 3, V)
@@ -1033,10 +1042,70 @@ def pair_contact_forces_compact_plain(pos, scale, table):
     inv = torch.rsqrt(torch.clamp(dist2, min=1e-30))
     tt = 0.75 * (ss[:, :, None] + ss[:, None, :]) * inv
     mag = torch.where(tt > 1.0, a1 * (tt - 1.0), 0.0)
-    fs = -(mag[:, None] * diff).sum(-1)  # (n, 3, S)
-    out = torch.zeros_like(p)
+    terms = mag[:, None] * diff
+    fs = -(terms.sum(-1) if row_sum is None else row_sum(terms))  # (n, 3, S)
+    out = torch.full_like(p, -0.0)
     out.scatter_(2, idx[:, None, :].expand(-1, 3, -1), fs)
     return out.reshape(lead + (3, V))
+
+
+# launches of the compact pass's own kernel (K1 runs the pass inside its
+# launch; those are counted by FUSED_ROLLOUT_COMPACT_LAUNCHES)
+PAIR_CONTACT_COMPACT_LAUNCHES = 0
+
+
+def pair_contact_forces_compact(pos, scale, table, *, counts=None):
+    """The compact pass's own launch (csrc/pair_contact_compact.cu: a block a
+    robot runs the pass as K1's step does). pos (B, 3, V), scale (B, V),
+    table (B or 1, S + 1, S) (`pack_collision_compact`), float32 and
+    contiguous -> forces (B, 3, V). CUDA tensors launch the kernel; CPU
+    tensors run `pair_contact_forces_compact_plain`. `counts`, an int32
+    tensor of 3 on the card, receives the launch's tile counts added to it
+    (evaluated, culled by distance, culled statically; the
+    `pair_tile_census_plain` of these inputs with the index row)."""
+    if pos.dim() != 3 or pos.shape[1] != 3:
+        raise ValueError(f"pos must be (B, 3, V), got {tuple(pos.shape)}")
+    B, _, V = pos.shape
+    if tuple(scale.shape) != (B, V):
+        raise ValueError(f"scale must be (B, V) = {(B, V)}, got {tuple(scale.shape)}")
+    S = table.shape[-1] if table.dim() == 3 else 0
+    if table.dim() != 3 or table.shape[0] not in (1, B) or table.shape[1] != S + 1 \
+            or not 0 < S <= V:
+        raise ValueError(f"table must be (B or 1, S + 1, S), 0 < S <= {V}, "
+                         f"got {tuple(table.shape)}")
+    for name, t in (("pos", pos), ("scale", scale), ("table", table)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != pos.device:
+            raise ValueError(f"{name} is on {t.device}, pos on {pos.device}")
+    if pos.device.type == "cpu":
+        if counts is not None:
+            raise ValueError("tile counts come from the kernel: pair_tile_census_plain "
+                             "computes them on the CPU")
+        return pair_contact_forces_compact_plain(pos, scale, table)
+    if pos.device.type != "cuda":
+        raise ValueError(f"unsupported device {pos.device}")
+    for name, t in (("pos", pos), ("scale", scale), ("table", table)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if counts is not None and (counts.dtype != torch.int32 or tuple(counts.shape) != (3,)
+                               or counts.device != pos.device):
+        raise ValueError("counts must be an int32 tensor of 3 on the inputs' device")
+    if 4 * pair_pass_floats(S) > _SMEM_BYTES:
+        raise ValueError(f"S={S} surface voxels overflow the pass's shared memory")
+    out = torch.empty_like(pos)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = build.function("pair_contact", "pair_contact_forces_compact",
+                        [P, P, P, P, I, I, I, I, ctypes.c_float, P, P])
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(pos.data_ptr(), scale.data_ptr(), table.data_ptr(), out.data_ptr(), B, V, S,
+                int(table.shape[0] == B and B > 1), PAIR_CULL_MARGIN,
+                counts.data_ptr() if counts is not None else None, stream)
+    build.check(rc, "pair_contact_forces_compact")
+    global PAIR_CONTACT_COMPACT_LAUNCHES
+    PAIR_CONTACT_COMPACT_LAUNCHES += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,7 @@ kernel (`bound`): the larger of its operations over the FP32 peak and its
 compulsory bytes over the memory rate, from counts of the work the launch's
 inputs need (`k1_work`, `b7_work`, `b8_work`, `b4_work` in each variant
 and its material instance, `k2_work`,
-`b5_work`, `b6_work`, `b6d_work`, `fma_work`; `launch_work` picks K1's by
+`b5_work`, `b5_pass_work`, `b6_work`, `b6d_work`, `fma_work`; `launch_work` picks K1's by
 the launch's flags).
 
 The step's operation count is static: 2187.028 per occupied voxel and step, the
@@ -616,6 +616,18 @@ def b4_work(state, body, stats, controls, steps, flags=None, grid_shape=None):
                     + body.shape[0] * body_channels * V
                     + stats.numel() + 2 * controls.numel())
     return flops, nbytes
+
+
+def b5_pass_work(pos, scale, table):
+    """(flops, bytes) that one launch of the compact pass's own kernel
+    (`pair_contact_forces_compact`) on these inputs needs, counted as
+    `k2_work` over the surface voxels: the tested pairs (nonzero entries of
+    the (S, S) table, for every robot) and the touching ones; bytes, the
+    positions and scales read, the table, the forces written."""
+    idx = table[:, 0].long().expand(pos.shape[0], -1)
+    ps = torch.gather(pos, 2, idx[:, None, :].expand(-1, 3, -1))
+    flops, _ = k2_work(ps, torch.gather(scale, 1, idx), table[:, 1:])
+    return flops, 4.0 * (pos.numel() + scale.numel() + table.numel() + pos.numel())
 
 
 def k2_work(pos, scale, a1):

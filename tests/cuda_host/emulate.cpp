@@ -6,9 +6,11 @@
 // hand-written adjoint and the step's fluid and development variants are
 // checked where there is no card; and K1's material instance
 // (test_torch_materials.py), its volume instance (test_torch_volume.py),
-// B4's material instance (test_torch_b4_host.py) and the dense pair pass
-// of pair_contact.cuh, alone (emu_pair) and inside K1 (emu_fwd_contact;
-// tests/test_torch_pair_host.py). K1's entry points run k1_step.cuh's step
+// B4's material instance (test_torch_b4_host.py) and the pair pass of
+// pair_contact.cuh, alone (emu_pair: K2; emu_pair_alone: K1's pass on a
+// dense or a compact table) and inside K1 (emu_fwd_contact, and emu_fwd_vol
+// with either table; tests/test_torch_pair_host.py,
+// tests/test_torch_compact_host.py). K1's entry points run k1_step.cuh's step
 // loop in place, with the state resident, or (emu_set_step) in the tape form
 // B4 recomputes with, so the three can be held bit for bit
 // (tests/test_torch_k1_host.py). B4 (emu_bwd) runs a cluster of C blocks a
@@ -19,6 +21,7 @@
 
 #include "fused_rollout_bwd.cu"
 #include "k1_step.cuh"
+#include "pair_contact_compact.cu"
 
 // The step loop K1's entry points below run: 0, k1_steps in its tape form
 // (B4's recompute) on a tape of whole-state slots, each first holding the
@@ -46,18 +49,19 @@ extern "C" int emu_tape_clock(float* clock, int* taken, int num_steps) {
 
 // K1's block size and its kernels' bound (k1_step.cuh), as the card's
 // launcher takes them (tests/test_torch_big_body.py)
-extern "C" int emu_k1_threads(int V, int mat, int dense, int feat) {
-    return k1_threads(V, mat != 0, dense != 0, feat != 0);
+extern "C" int emu_k1_threads(int V, int mat, int pass, int feat) {
+    return k1_threads(V, mat != 0, pass != 0, feat != 0);
 }
-extern "C" int emu_k1_bound(int mat, int dense, int feat) {
-    return k1_bound(mat != 0, dense != 0, feat != 0);
+extern "C" int emu_k1_bound(int mat, int pass, int feat) {
+    return k1_bound(mat != 0, pass != 0, feat != 0);
 }
 
 // floats of an emulated block's buffer: the largest K1 takes at V, and the
 // state's copy
 static size_t emu_buffer_floats(int V) { return k1_buffer_floats(V, true, 0) + (size_t)C_S * V; }
 
-template <int VARIANT, bool FEAT, bool MAT = false, bool VOL = false, bool DENSE = false>
+template <int VARIANT, bool FEAT, bool MAT = false, bool VOL = false, bool DENSE = false,
+          bool COMPACT = false>
 static void emu_steps(float* st, const float* bo, const float* a1, const float* cu, int n_knots,
                       int knot_steps, int step_base, int X, int Y, int Z, int num_steps,
                       const Params& p, int flags, Robot& r, float* sh, float* scr, Feat* fe,
@@ -69,20 +73,20 @@ static void emu_steps(float* st, const float* bo, const float* a1, const float* 
             clock(num_steps > 0 ? num_steps : 1);
         for (int i = 0; i <= num_steps; ++i) memcpy(&tape[i * slot], st, slot * sizeof(float));
         int n = 0;
-        k1_steps<VARIANT, FEAT, MAT, VOL, DENSE, false, true>(
+        k1_steps<VARIANT, FEAT, MAT, VOL, DENSE, false, true, COMPACT>(
             tape.data(), bo, a1, cu, n_knots, knot_steps, step_base, X, Y, Z, num_steps, p,
             flags, r, sh, sides.data(), fe, fp, ma, ke, va, K1Tape{slot, clock.data(), &n});
         memcpy(st, &tape[(size_t)n * slot], slot * sizeof(float));
         emu_clock.insert(emu_clock.end(), clock.begin(), clock.begin() + num_steps);
         emu_taken.push_back(n);
     } else if (emu_step == 1)
-        k1_steps<VARIANT, FEAT, MAT, VOL, DENSE, false>(st, bo, a1, cu, n_knots, knot_steps,
-                                                        step_base, X, Y, Z, num_steps, p, flags,
-                                                        r, sh, scr, fe, fp, ma, ke, va);
+        k1_steps<VARIANT, FEAT, MAT, VOL, DENSE, false, false, COMPACT>(
+            st, bo, a1, cu, n_knots, knot_steps, step_base, X, Y, Z, num_steps, p, flags, r, sh,
+            scr, fe, fp, ma, ke, va);
     else
-        k1_steps<VARIANT, FEAT, MAT, VOL, DENSE, true>(st, bo, a1, cu, n_knots, knot_steps,
-                                                       step_base, X, Y, Z, num_steps, p, flags,
-                                                       r, sh, scr, fe, fp, ma, ke, va);
+        k1_steps<VARIANT, FEAT, MAT, VOL, DENSE, true, false, COMPACT>(
+            st, bo, a1, cu, n_knots, knot_steps, step_base, X, Y, Z, num_steps, p, flags, r, sh,
+            scr, fe, fp, ma, ke, va);
 }
 template <int VARIANT, bool FEAT>
 static void emu_fwd_variant(float* state, const float* body, int body_batched, float* stats,
@@ -193,6 +197,24 @@ extern "C" void emu_pair(const float* pos, const float* scale, const float* a1, 
         }
     }
 }
+// K1's pair pass alone, as its step runs it (pair_contact_compact.cu
+// pair_pass_alone): on the compact tables (B or 1, S + 1, S) with S > 0
+// (the compact pass's own launch), else on the dense tables (B or 1, V, V);
+// a warp owns each of its row groups. pos (B, 3, V), scale (B, V), out (B,
+// 3, V); counts: null or 3 words of tile counts, added to
+extern "C" void emu_pair_alone(const float* pos, const float* scale, const float* table,
+                               float* out, int B, int V, int S, int table_batched, float margin,
+                               unsigned* counts) {
+    const int N = S > 0 ? S : V;
+    const size_t tab = S > 0 ? (size_t)(S + 1) * S : (size_t)V * V;
+    std::vector<float> sh((size_t)pair_stage_floats(N) + pair_aux_floats(N));
+    for (int b = 0; b < B; ++b) {
+        const auto run = S > 0 ? pair_pass_alone<true> : pair_pass_alone<false>;
+        run(pos + (size_t)b * 3 * V, scale + (size_t)b * V,
+            table + (table_batched ? (size_t)b * tab : 0), V, S, sh.data(),
+            out + (size_t)b * 3 * V, 1.f + margin, counts, 16);
+    }
+}
 // K1's material instance (the land variant, with the features when a
 // feature bit or a source is on), without the pair pass: ss, the MDL_DATA
 // tables (B or 1, 2P + 3, V) or null; bc, the BC channels (B or 1, 15, V)
@@ -235,15 +257,17 @@ extern "C" void emu_fwd_mat(float* state, const float* body, int body_batched, f
 }
 // K1's volume instance (the material instance with VOL; the material
 // instance itself when the flags clear the volume bit), with the features
-// when a feature bit or a source is on, and with the dense pair pass when a1
-// is given (one thread walks every row)
+// when a feature bit or a source is on, and with the dense pair pass, or the
+// compact one, when a1 is given (one thread walks every row)
 template <bool FEAT, bool VOL>
 static void emu_vol_robot(float* st, const float* bo, const float* a1, int X, int Y, int Z,
                           int num_steps, const Params& p, int flags, Robot& r, float* sh,
                           Feat* fe, const FeatParams* fp, const MatArgs* ma, float* ke,
                           const VolArgs* va) {
-    const auto run = k1_dense(flags, a1 != nullptr) ? emu_steps<V_LAND, FEAT, true, VOL, true>
-                                         : emu_steps<V_LAND, FEAT, true, VOL>;
+    const bool table = a1 != nullptr;
+    const auto run = k1_dense(flags, table)     ? emu_steps<V_LAND, FEAT, true, VOL, true>
+                     : k1_compact(flags, table) ? emu_steps<V_LAND, FEAT, true, VOL, false, true>
+                                                : emu_steps<V_LAND, FEAT, true, VOL>;
     run(st, bo, a1, nullptr, 0, 1, 0, X, Y, Z, num_steps, p, flags, r, sh, nullptr, fe, fp, ma,
         ke, va);
 }

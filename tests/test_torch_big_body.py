@@ -84,18 +84,17 @@ def _shrunk(pos, factor):
 ])
 def test_instance_choice_at_the_shared_ceilings(V, coll, n_surf, want):
     """`k1_instance` is `k1_fits`'s complement: 36 floats a cell without
-    contact; with it 39, and 4 a surface cell with the compact pass, else
-    the dense pass's float4 a cell padded to whole 32-cell groups and its
-    tables, 9 floats and a mask word for each 32 groups a group, the whole
-    rounded up to 4 floats; beside 208 bytes of static shared memory in
-    232448. B4 asks without contact."""
+    contact; with it 39, and the pair pass's float4 an entry (a cell, or a
+    surface cell with the compact pass) padded to whole 32-entry groups and
+    its tables, 9 floats and a mask word for each 32 groups a group, the
+    whole rounded up to 4 floats; beside 208 bytes of static shared memory
+    in 232448. B4 asks without contact."""
     assert fr.k1_instance(V, coll, n_surf) == want
     assert (want == "shared") == fr.k1_fits(V, coll, n_surf)
-    G = (V + 31) // 32
-    dense = 39 * V + 128 * G + 9 * G + G * ((G + 31) // 32)
+    G = ((n_surf or V) + 31) // 32
+    with_pass = 39 * V + 128 * G + 9 * G + G * ((G + 31) // 32)
     assert fr.k1_buffer_floats(V, coll, n_surf) == (
-        (39 * V + 4 * n_surf) if (coll and n_surf) else
-        (dense + 3) // 4 * 4 if coll else 36 * V)
+        (with_pass + 3) // 4 * 4 if coll else 36 * V)
 
 
 @pytest.mark.parametrize("coll", [False, True])

@@ -3,8 +3,8 @@
 Imports torch only, so it runs on a machine with a card and no JAX:
 `python -m pytest -m cuda tests/test_torch_kernels_cuda.py`. Elsewhere it
 skips: the kernels have no CPU mode. The plain version's dense pair pass
-sums each row here in the kernels' order (`_kernel_row_sums`), as
-chip_smoke.py holds K1 to it.
+and its compact pass sum each row here in the kernels' order
+(`_kernel_row_sums`), as chip_smoke.py holds K1 to them.
 """
 
 from functools import partial
@@ -43,6 +43,8 @@ def _kernel_row_sums(terms):
 def _kernel_row_order(monkeypatch):
     monkeypatch.setattr(fr, "pair_contact_forces_plain",
                         partial(fr.pair_contact_forces_plain, row_sum=_kernel_row_sums))
+    monkeypatch.setattr(fr, "pair_contact_forces_compact_plain",
+                        partial(fr.pair_contact_forces_compact_plain, row_sum=_kernel_row_sums))
 
 
 @pytest.mark.cuda
@@ -726,3 +728,49 @@ def test_device_memory_instances_match_on_the_card():
         b = fr.fused_bwd_call(state, fr.pack_body(body), stats, ctrl, 0, cot, **kw)
     assert fr.FUSED_BWD_GMEM_LAUNCHES == b0 + 1
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_compact_pass_equals_the_dense_pass_on_the_card():
+    """The surface-compacted contact pass (B5) on the bench design, 4 x 10^3
+    on `materials_palette`, its lattice shrunk into contact: K1 with the
+    compact table and with the dense one, both in the material instance,
+    give the same state and stats over 1 and 25 steps; the pass's own
+    launch equals its plain version and the dense plain pass bit for bit,
+    each summing a row in the kernels' order, and counts the census's tiles
+    over the index row; a cull margin of -0.5 drops the touching tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; the CUDA kernels have no CPU mode")
+    from unittest import mock
+
+    from evosoro_tpu_torch.bench import packed_workload
+
+    (state, body, stats, compact), kw_c, _ = packed_workload(
+        4, collision=True, compact=True, materials=True, device="cuda")
+    dense, kw_d = packed_workload(4, collision=True, materials=True, device="cuda")[:2]
+    dense = dense[3]
+    pos = state[:, fr._POS:fr._POS + 3]
+    g = torch.Generator().manual_seed(0)
+    state = state.clone()
+    centre = pos.mean(-1, keepdim=True)
+    state[:, fr._POS:fr._POS + 3] = centre + 0.5 * (pos - centre) + 5e-4 * torch.randn(
+        pos.shape, generator=g).cuda()
+    before = fr.FUSED_ROLLOUT_COMPACT_LAUNCHES
+    for steps in (1, 25):
+        out_c = fr.fused_call(state, body, stats, compact, num_steps=steps, **kw_c)
+        out_d = fr.fused_call(state, body, stats, dense, num_steps=steps, **kw_d)
+        assert all(torch.equal(a, b) for a, b in zip(out_c, out_d))
+    assert fr.FUSED_ROLLOUT_COMPACT_LAUNCHES == before + 2
+    pos = state[:, fr._POS:fr._POS + 3].contiguous()
+    scale = state[:, fr._SCALE].contiguous()
+    counts = torch.zeros(3, dtype=torch.int32, device="cuda")
+    f_k = fr.pair_contact_forces_compact(pos, scale, compact, counts=counts)
+    f_p = fr.pair_contact_forces_compact_plain(pos, scale, compact)
+    assert float(f_p.abs().max()) > 0
+    assert torch.equal(f_k, f_p) and torch.equal(f_k, fr.pair_contact_forces_plain(pos, scale,
+                                                                                  dense))
+    assert tuple(counts.tolist()) == fr.pair_tile_census_plain(
+        pos.cpu(), scale.cpu(), compact[:, 1:].cpu(), idx=compact[:, 0].cpu())
+    with mock.patch.object(fr, "PAIR_CULL_MARGIN", -0.5):
+        dropped = fr.pair_contact_forces_compact(pos, scale, compact)
+    assert float((dropped - f_p).abs().max()) > 2e-3 * float(f_p.abs().max())

@@ -394,8 +394,8 @@ def test_supports_the_new_options_and_refuses_what_stays_outside():
 
 def test_the_compact_switch_and_the_shared_memory_it_frees(monkeypatch):
     """`EVOSORO_TPU_COLL_COMPACT=1` runs the compact pass whenever the
-    surface has fewer voxels than the grid (S < V); the staging then counts
-    S entries of 4 floats in place of V."""
+    surface has fewer voxels than the grid (S < V); the pair pass's staging
+    and tables then count S entries in place of V."""
     _, body = _design(jnp.float32, nonlinear=False, bc=False)
     occ = body.occ.numpy()
     cs = build_collision_system(body.mat.numpy(), body.e_mod.numpy(), 0.01)
@@ -425,3 +425,8 @@ def test_the_compact_switch_and_the_shared_memory_it_frees(monkeypatch):
     assert fr.k1_fits(1339, True) and not fr.k1_fits(1340, True)
     assert fr.k1_fits(1400, True, n_surf=700) and not fr.k1_fits(1400, True)
     assert not fr.k1_fits(1400, True, n_surf=1400)
+    # 39 floats a cell, then 32-entry groups of S entries: 128 floats of
+    # staging, 9 of box and active bits and a mask word a group
+    assert fr.k1_buffer_floats(1000, True, n_surf=488) == 39 * 1000 + 16 * (128 + 9 + 1)
+    assert fr.k1_buffer_floats(1400, True, n_surf=700) == 39 * 1400 + 22 * (128 + 9 + 1)
+    assert fr.k1_buffer_floats(1000, True) == 39 * 1000 + 32 * (128 + 9 + 1)
