@@ -15,7 +15,8 @@ solve and a closed receding-horizon loop through K1's control-knot channel),
 and its gradient-MPC part (FusedSQPSolver: K1 segments forward, the
 reverse-mode segment kernel B4 backward) on land, in water with the facet
 and with the voxel-face drag, with growth, and on a bilinear palette with
-the max-velocity clamp.
+the max-velocity clamp (on land, in water and with growth), and two
+generations of the swimming twin of the materials experiment.
 It measures the card's FP32 rate with the fma_peak micro-kernel, sets each
 kernel's time beside the least time the card could take, and measures the
 bench.py throughput workload. Every phase prints one JSON line; any failure
@@ -96,6 +97,19 @@ solve with the counters zeroed; its kernels line holds B1's and B3's rows.
 turns with another checkout's K1 (its parent's, unpacked into a directory
 that .gitignore lists), and with the state kept in device memory where it
 would stay resident.
+
+`python3 chip_smoke.py --mat-variants` runs K1's and B4's material,
+compact-contact and volume instances in water and with growth alone
+(`phase_k1_mat_variants`, `phase_b4_mat_variants`, also part of the full
+run): each K1 instance (voxel-face drag, facet drag, growth; with and
+without volume effects and the features; without contact, dense and
+compact; shared and device-memory) against its plain version, the twins
+and the compact launch bit-equal to the shared and dense ones, each with
+its guards; B4's material instance of each variant against autograd with
+its recompute bit-equal to K1's launch; then the times of the 1024-robot
+workloads (`phase_mat_variants_times`), `bench.sqp(materials=True)` in each
+variant and two generations of the swimming-materials experiment, with the
+counters zeroed before and read after.
 
 `python3 chip_smoke.py --volume` runs volume effects alone
 (`phase_k1_volume`): K1's volume instance against its plain version with
@@ -212,9 +226,10 @@ def phase_build():
                     for ln in build.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
              for name in build.SIGNATURES}
-    # fused multiply-adds in each library's machine code: the rollout
-    # kernels are built without contraction, fma_peak names the instruction
-    ffma = {name: build.sass_count(name, "FFMA") for name in build.SIGNATURES}
+    # fused multiply-adds in fma_peak's machine code, which names the
+    # instruction (counting them in the rollout libraries, 150 kernels, took
+    # 90 s of the full run's limit)
+    ffma = {"fma_peak": build.sass_count("fma_peak", "FFMA")}
     emit(dict(phase="build", seconds=secs, ptxas=ptxas, sass_ffma=ffma))
     assert ffma["fma_peak"] >= 16, ffma
 
@@ -234,6 +249,22 @@ def _event_ms(torch, fn, reps, warm=True):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def _timed_once(torch, out, timed, fn):
+    """fn(), its milliseconds on the card appended to `out` when `timed`
+    (CUDA events around the one call, as `_event_ms(..., 1, warm=False)`)."""
+    if not timed:
+        return fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    res = fn()
+    b.record()
+    torch.cuda.synchronize()
+    out.append(a.elapsed_time(b))
+    return res
 
 
 def _contact_positions(torch, np, pos, shrink, seed=0):
@@ -544,7 +575,9 @@ def _k1_cases(torch, fr, label, args, kw, batch, coll, steps_list, time_at=None,
         out_k, st_k = fr.fused_call(*args, num_steps=steps, **kw)
         torch.cuda.synchronize()
         assert fr.FUSED_ROLLOUT_LAUNCHES == before + 1
-        out_p, st_p = _plain(fr, *args, num_steps=steps, **kw)
+        plain_ms = []  # without contact `_plain` is the plain version itself: timed once
+        out_p, st_p = _timed_once(torch, plain_ms, steps == time_at and not coll,
+                                  lambda: _plain(fr, *args, num_steps=steps, **kw))
         ok, errs = _compare(torch, fr, out_k, st_k, out_p, st_p, tol, need_small)
         rec = dict(phase=phase, workload=label, batch=batch, steps=steps,
                    collision=coll, **extra, **errs)
@@ -558,7 +591,8 @@ def _k1_cases(torch, fr, label, args, kw, batch, coll, steps_list, time_at=None,
         if steps == time_at:
             rec["ms"] = _event_ms(
                 torch, lambda: fr.fused_call(*args, num_steps=steps, **kw), 5)
-            rec["plain_ms"] = _event_ms(  # the plain version as the port runs it
+            rec["plain_ms"] = plain_ms[0] if plain_ms else _event_ms(
+                # the plain version as the port runs it
                 torch, lambda: fr.fused_rollout_plain(*args, num_steps=steps, **kw), 1,
                 warm=False)
             rec.update(roofline.bound(*roofline.launch_work(
@@ -693,7 +727,7 @@ def phase_k1_fluid(torch):
             assert kw["flags"]["fluid_mesh"] == (model == "mesh")
             label = "bench 10^3 in its 11^3 shell, shared body"
             recs[model] += _k1_cases(torch, fr, label, args, kw, 8, coll,
-                                     (1, 25, 100), **opts)
+                                     (1, 25), **opts)
             if coll:
                 recs[model] += _k1_cases(torch, fr, label, _with_drag(args, STRONG_DRAG),
                                          kw, 8, coll, (100,), **strong)
@@ -1851,6 +1885,499 @@ def phase_k1_volume(torch, np, replays=None):
     return recs
 
 
+# K1's and B4's material instances in water and with growth: the variants,
+# as (model, bench workload arguments, label); and the steps each launch is
+# held against its plain version over
+MV_STEPS = 15
+MAT_VARIANTS = (("face", dict(fluid="face"), "voxel-face drag"),
+                ("mesh", dict(fluid="mesh"), "facet drag"),
+                ("devo", dict(devo=True), "growth"))
+
+
+def _linear_sides(torch):
+    """A plain version whose facet drag reads the per-side strains of the
+    linear fixed point where the stress equalization's belong (the strains
+    K1's facet drag read before its material instances), as (module,
+    attribute, replacement) for `mock.patch.object`."""
+    from evosoro_tpu_torch.core import step as step_mod
+
+    nonlinear = step_mod._nonlinear_stress
+
+    def linear(d, strain, body):
+        stress, _, _ = nonlinear(d, strain, body)
+        e1, e2 = body.bond_e1[..., d, :, :, :], body.bond_e2[..., d, :, :, :]
+        s_sum = e1 + e2
+        hom = body.bond_homogeneous[..., d, :, :, :] | (
+            torch.abs(e1 - e2) <= 0.0005 * torch.abs(s_sum))
+        return (stress, torch.where(hom, strain, 2.0 * step_mod._safe_div(e2, s_sum) * strain),
+                torch.where(hom, strain, 2.0 * step_mod._safe_div(e1, s_sum) * strain))
+
+    return step_mod, "_nonlinear_stress", linear
+
+
+def _sides_slope_guard(torch):
+    """The defect B4's facet-drag adjoint on a bilinear palette must see:
+    a plain version whose per-side strains carry the linear fixed point's
+    derivative (2 E2 / (E1 + E2) of the bond strain on a heterogeneous
+    bond) in place of the 3-iteration stress equalization's, their values
+    kept, as (name, module, attribute, replacement) for
+    `mock.patch.object`."""
+    module, attr, linear = _linear_sides(torch)
+    nonlinear = getattr(module, attr)
+
+    def linear_slope(d, strain, body):
+        stress, sv1, sv2 = nonlinear(d, strain, body)
+        _, l1, l2 = linear(d, strain, body)
+        return stress, sv1.detach() + l1 - l1.detach(), sv2.detach() + l2 - l2.detach()
+
+    return ("sides_linear_slope", module, attr, linear_slope)
+
+
+def _matvar_workload(torch, np, model, opts, vol, contact, feat, B=4, n=6):
+    """One launch of K1's material instance of a variant: `B` robots of the
+    bench design at rest on `materials_palette` with plasticity and the
+    clamp at `bench.MATERIALS_MAX_VEL` (and volume effects with `vol`),
+    `contact` None, "dense" or
+    "compact", the features on with `feat`. Returns (args, kw, label)."""
+    from evosoro_tpu_torch import bench
+
+    args, kw, _ = bench.packed_workload(B, n=n, collision=contact is not None,
+                                        compact=contact == "compact", device="cuda",
+                                        materials=True, volume=vol, **opts)
+    # the clamp at the materials batch's limit, so that it acts
+    kw = dict(kw, scalars=dict(kw["scalars"], max_vel_limit=bench.MATERIALS_MAX_VEL))
+    if feat:
+        kw = bench.with_features(kw, args[2], n_win=4, n_src=1)
+    X = kw["grid_shape"][0]
+    label = "%s, %d x %d^3 on materials_palette%s, contact %s%s" % (
+        model, B, X, ", volume effects" if vol else "", contact or "off",
+        ", features" if feat else "")
+    return args, kw, label
+
+
+def phase_k1_mat_variants(torch, np):
+    """K1's material and volume instances in water and with growth
+    (csrc/fused_rollout_matvar.cuh) against the plain version. In each
+    variant (`MAT_VARIANTS`: voxel-face drag, facet drag, growth) the bench
+    design at rest (4 x 6^3, 7^3 with the fluids' shell) on
+    `materials_palette` (bilinear muscle, MDL_DATA tissue) with plasticity
+    and the max-velocity clamp, without and with volume effects, without
+    contact, with the dense pass and with the compact one, without and with
+    the features: MV_STEPS steps against the plain version (the material
+    gates of the land instance, `_strictest`; volume effects at
+    `_vol_check`'s), and the device-memory twin (forced) bit-equal to the
+    shared instance. The compact launch equals the dense one bit for bit on
+    the design's lattice shrunk into contact, over 1 and 25 steps. Guards
+    without contact: each material branch's bit off (nonlinear and
+    MDL_DATA, plasticity, the clamp) must fail the gates over 100 steps;
+    under volume effects the plain version without the thermal term
+    (`_vol_guards`), over 50; with the facet drag at STRONG_DRAG over 50
+    steps the kernel must pass the gates and
+    the no-drag launch fail them, and both the no-drag launch and a plain
+    version whose corners read the linear fixed point's per-side strains
+    (which differ from the material ones only past yield on heterogeneous
+    bonds) must part from the plain version by GUARD_RATIO times the
+    kernel's own momentum error. Returns the records by variant."""
+    from unittest import mock
+
+    from evosoro_tpu_torch import roofline
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    tol = _strictest("nonlinear", "plasticity", "max_vel")
+    soff = slice(fr._SOFF, fr._SOFF + 3)
+    out = {}
+    for model, opts, what in MAT_VARIANTS:
+        recs = []
+        m0 = (fr.FUSED_ROLLOUT_MATERIAL_LAUNCHES, fr.FUSED_ROLLOUT_VOLUME_LAUNCHES,
+              fr.FUSED_ROLLOUT_COMPACT_LAUNCHES)
+        v0 = dict(face=fr.FUSED_ROLLOUT_FLUID_LAUNCHES, mesh=fr.FUSED_ROLLOUT_MESH_LAUNCHES,
+                  devo=fr.FUSED_ROLLOUT_DEVO_LAUNCHES)[model]
+        for vol in (False, True):
+            for contact in (None, "dense", "compact"):
+                for feat in (False, True):
+                    args, kw, label = _matvar_workload(torch, np, model, opts, vol, contact,
+                                                       feat)
+                    assert fr.k1_launch_shape(kw["grid_shape"], kw["flags"], kw["scalars"],
+                                              args[3].shape[-1] if contact == "compact"
+                                              else None)["resident"] is False
+                    out_k, st_k = fr.fused_call(*args, num_steps=MV_STEPS, **kw)
+                    out_p, st_p = _plain(fr, *args, num_steps=MV_STEPS, **kw)
+                    torch.cuda.synchronize()
+                    if vol:
+                        ok, errs = _vol_check(torch, fr, out_k, st_k, out_p, st_p)
+                    else:
+                        ok, errs = _compare(torch, fr, out_k, st_k, out_p, st_p, tol)
+                        d = (out_k[:, soff] - out_p[:, soff]).abs()
+                        errs["strain_offset_err"] = float(d.max())
+                        ok &= bool((d <= 1e-7 + SOFF_RTOL * out_p[:, soff].abs()).all())
+                    with _device_instances(fr):
+                        out_g, st_g = fr.fused_call(*args, num_steps=MV_STEPS, **kw)
+                    torch.cuda.synchronize()
+                    twin = bool(torch.equal(out_g, out_k) and torch.equal(st_g, st_k))
+                    rec = dict(phase="k1_mat_variants_vs_plain", model=model, workload=label,
+                               steps=MV_STEPS, tol=dict(VOL_TOL, ts=VOL_TS, cs=VOL_CS)
+                               if vol else tol, twin_bit_equal=twin, **errs)
+                    rec["sha256"] = _digest("k1_mat_variants/" + label, out_k, st_k)
+                    if contact == "dense" and not (vol or feat):
+                        n_pts = (kw["ss_packed"].shape[1] - 3) // 2
+                        rec["ms"] = _event_ms(
+                            torch, lambda: fr.fused_call(*args, num_steps=MV_STEPS, **kw), 5)
+                        rec["plain_ms"] = _event_ms(torch, lambda: fr.fused_rollout_plain(
+                            *args, num_steps=MV_STEPS, **kw), 1, warm=False)
+                        rec.update(roofline.bound(*roofline.launch_work(
+                            *args, st_k, flags=kw["flags"], grid_shape=kw["grid_shape"],
+                            scalars=kw["scalars"], n_pts=n_pts)))
+                    if contact == "compact":
+                        # on the lattice shrunk into contact: the compact launch
+                        # equals the dense one, and contact moves the state
+                        a_d, kw_d, _ = _matvar_workload(torch, np, model, opts, vol, "dense",
+                                                        feat)
+                        state = args[0].clone()
+                        state[:, fr._POS:fr._POS + 3] = _contact_positions(
+                            torch, np, state[:, fr._POS:fr._POS + 3], 0.5)
+                        equal, moved = {}, 0.0
+                        for steps in (1, 25):
+                            o_c, s_c = fr.fused_call(state, *args[1:], num_steps=steps, **kw)
+                            o_d, s_d = fr.fused_call(state, *a_d[1:], num_steps=steps, **kw_d)
+                            equal[steps] = bool(torch.equal(o_c, o_d) and torch.equal(s_c, s_d))
+                        no_kw = dict(kw, flags=dict(kw["flags"], collision=False,
+                                                    collision_compact=False))
+                        o_n, _ = fr.fused_call(state, *args[1:3], None, num_steps=1, **no_kw)
+                        moved = float((o_n[:, fr._LIN:fr._LIN + 3]
+                                       - o_c[:, fr._LIN:fr._LIN + 3]).abs().max())
+                        rec.update(compact_bit_equal_dense=equal, contact_moves_linmom=moved)
+                        ok &= all(equal.values()) and moved > 0
+                    rec["ok"] = bool(ok and twin)
+                    emit(rec)
+                    assert rec["ok"], rec
+                    recs.append(rec)
+        # guards without contact: the material bits at 100 steps; the
+        # thermal term, whose fluid branch is new, at 50 (the other volume
+        # guards hold the code the land instance shares, phase_k1_volume)
+        for vol in (False, True):
+            args, kw, label = _matvar_workload(torch, np, model, opts, vol, None, False)
+            if vol:
+                recs.append(_vol_case(torch, fr, label + ", guards", args, kw, 50,
+                                      guards=[g for g in _vol_guards(torch)
+                                              if g[0] == "thermal_dropped"], model=model))
+                continue
+            off = lambda **f: dict(kw, flags=dict(kw["flags"], **f))  # noqa: E731
+            recs.append(_mat_case(
+                torch, fr, label + ", guards", args, kw, 100, tol,
+                [("nonlinear", dict(off(nonlinear=False, mdl_data=False), ss_packed=None)),
+                 ("plasticity", off(plasticity=False)), ("max_vel", off(max_vel=False))],
+                model=model))
+            if model == "mesh":
+                strong = _with_drag(args, STRONG_DRAG)
+                out_k, st_k = fr.fused_call(*strong, num_steps=50, **kw)
+                out_p, st_p = _plain(fr, *strong, num_steps=50, **kw)
+                out_0, st_0 = fr.fused_call(*_with_drag(strong, 0.0), num_steps=50, **kw)
+                module, attr, fn = _linear_sides(torch)
+                with mock.patch.object(module, attr, fn):
+                    out_l, _ = _plain(fr, *strong, num_steps=50, **kw)
+                torch.cuda.synchronize()
+                ok, errs = _compare(torch, fr, out_k, st_k, out_p, st_p, tol, False)
+                no_drag_passes, _ = _compare(torch, fr, out_0, st_0, out_p, st_p, tol, False)
+                lin = slice(fr._LIN, fr._LIN + 3)
+                err = float((out_k[:, lin] - out_p[:, lin]).abs().max())
+                rec = dict(phase="k1_mat_variants_mesh_guards", workload=label,
+                           drag=STRONG_DRAG, steps=50, kernel_vs_plain_ok=ok,
+                           kernel_linmom_err=err, kernel_pos_err=errs["pos"],
+                           no_drag_effect=float((out_0[:, lin] - out_p[:, lin]).abs().max()),
+                           no_drag_passes=no_drag_passes,
+                           linear_sides_effect=float((out_l[:, lin] - out_p[:, lin]).abs().max()),
+                           linear_sides_pos_effect=float(
+                               (out_l[:, :3] - out_p[:, :3]).abs().max()))
+                rec["ok"] = bool(ok and not no_drag_passes
+                                 and rec["no_drag_effect"] >= GUARD_RATIO * max(err, 1e-12)
+                                 and rec["linear_sides_effect"]
+                                 >= GUARD_RATIO * max(err, 1e-12))
+                emit(rec)
+                assert rec["ok"], rec
+                recs.append(rec)
+        launches = dict(
+            material=fr.FUSED_ROLLOUT_MATERIAL_LAUNCHES - m0[0],
+            volume=fr.FUSED_ROLLOUT_VOLUME_LAUNCHES - m0[1],
+            compact=fr.FUSED_ROLLOUT_COMPACT_LAUNCHES - m0[2],
+            variant=dict(face=fr.FUSED_ROLLOUT_FLUID_LAUNCHES, mesh=fr.FUSED_ROLLOUT_MESH_LAUNCHES,
+                         devo=fr.FUSED_ROLLOUT_DEVO_LAUNCHES)[model] - v0)
+        emit(dict(phase="k1_mat_variants_launches", model=model, **launches))
+        assert launches["material"] > 0 and launches["volume"] > 0 and launches["compact"] > 0
+        assert launches["variant"] >= launches["material"], launches
+        out[model] = recs
+    return out
+
+
+def phase_b4_mat_variants(torch, np):
+    """B4's material instance in water and with growth
+    (csrc/fused_rollout_bwd_matvar.cu) against `fused_bwd_plain` on the SQP
+    solver's launch of `bench.sqp_workload(materials=True, ...)` in each
+    variant (8 x 10^3 in its 11^3 shell in water, 8 x 5x5x4 with growth, on
+    the bilinear palette with the clamp, 25 steps of a 200-step clock, 8
+    knots): from rest; 75 steps in (timed), with the material instance's
+    guards (`_material_guards`), where the clamp acts; and 75 steps in
+    where the variant's guards weigh (`_b4_guards`: in water at STRONG_DRAG
+    from perturbed momenta, with growth under tight clamp bounds, as
+    `phase_b4_variants`; with the facet drag also the per-side strains'
+    slope of the linear fixed point, `_sides_slope_guard`, on bonds past
+    yield); each also with a launch one step short and the neighbouring
+    knot as guards, and each record with the plain version's bond-steps
+    past yield and clamped voxel-steps. B4's recomputed end state equals
+    K1's launch bit for bit, and the device-memory twin (forced) the shared
+    instance. K1's launches of the same solve are held against the plain
+    version at the material gates (`_strictest`; with the facet drag
+    `MESH_TOL`'s other channels): the 75 steps from rest and the 25-step
+    segment at seg_base 75, which with its knots zeroed must fail the
+    comparison. Returns ({model: B4 records}, {model: K1 records})."""
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.core.rollout import init_state
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    B, K, S, total = 8, 8, 25, 200
+    out, k1 = {}, {}
+    for model, opts, what in MAT_VARIANTS:
+        body, sim, env, dt = bench.sqp_workload(device="cuda", materials=True, **opts)
+        body_packed = fr.pack_body(body)
+        state0 = fr.pack_state_single(init_state(body))[None].expand(B, -1, -1).contiguous()
+        stats0 = fr.make_stats(body, B, dt, sim, env)
+        kw = dict(num_steps=S, grid_shape=tuple(body.occ.shape),
+                  scalars=fr.kernel_scalars(body.nominal_size, sim, env),
+                  flags=fr.launch_flags(body, sim, env, collision=False, segmented=True),
+                  n_knots=K, total_steps=total)
+        assert kw["flags"]["nonlinear"] and kw["flags"]["max_vel"], kw["flags"]
+        V = body.occ.numel()
+        ctrl = _controls(torch, np, B, K, V, seed=43)
+        label = "SQP launch %d x %s, %s, bilinear palette, clamp" % (
+            B, "x".join(map(str, kw["grid_shape"])), what)
+        k1_kw = {k: v for k, v in kw.items() if k != "num_steps"}
+        k1_kw["control_packed"] = ctrl
+        tol = _strictest("nonlinear", "max_vel")
+        k1_opts = dict(phase="k1_sqp_launch_vs_plain", model="materials " + model, knots=K,
+                       tol=dict(MESH_TOL, **tol) if model == "mesh" else tol)
+        k1[model] = _k1_cases(torch, fr, label + ", from rest",
+                              (state0, body_packed, stats0, None), dict(k1_kw, seg_base=0),
+                              B, False, (75,), **k1_opts)
+        st75, ss75 = fr.fused_call(state0, body_packed, stats0, None, control_packed=ctrl,
+                                   seg_base=0, **dict(kw, num_steps=75))
+        seg = (st75, body_packed, ss75, None)
+        k1[model] += _k1_cases(torch, fr, label + ", 75 steps in", seg,
+                               dict(k1_kw, seg_base=75), B, False, (S,), **k1_opts)
+        # guard: the segment with its knots zeroed must fail against the plain
+        # version with them
+        out_z, st_z = fr.fused_call(*seg, num_steps=S, **dict(
+            k1_kw, seg_base=75, control_packed=torch.zeros_like(ctrl)))
+        out_p, st_p = _plain(fr, *seg, num_steps=S, **dict(k1_kw, seg_base=75))
+        passes, errs = _compare(torch, fr, out_z, st_z, out_p, st_p, k1_opts["tol"])
+        rec = dict(phase="k1_sqp_launch_guard", workload=label + ", 75 steps in, knots zeroed",
+                   passes=passes, pos_err=errs["pos"], ok=not passes)
+        emit(rec)
+        assert rec["ok"], rec
+        gs, gss = st75.clone(), ss75.clone()
+        guards = _b4_guards(torch, model)
+        if model == "devo":
+            gss[:, fr._S_MINTF] = 0.9995
+            gss[:, fr._S_GAMP] = 5e-4
+            where_v = "75 steps in, clamp bounds 0.9995 L and 1.0005 L"
+        else:
+            gss[:, fr._S_DRAGC] = STRONG_DRAG
+            rng = np.random.default_rng(7)
+            occ = (body_packed[:, fr._B_OCC] > 0.5).float()
+            for a, b in ((fr._LIN, fr._LIN + 3), (fr._ANG, fr._ANG + 3)):
+                noise = torch.as_tensor(rng.standard_normal((B, 3, V)).astype(np.float32),
+                                        device="cuda")
+                gs[:, a:b] += 3 * noise * gs[:, a:b].abs().max() * occ[:, None]
+            where_v = "75 steps in, drag %g, momenta perturbed" % STRONG_DRAG
+            if model == "mesh":
+                guards = guards + [_sides_slope_guard(torch)]
+        recs = []
+        for where, st, ss, base, case_guards, seed in (
+                ("from rest", state0, stats0, 0, (), 9),
+                ("75 steps in", st75, ss75, 75, _material_guards(torch), 10),
+                (where_v, gs.contiguous(), gss.contiguous(), 75, guards, 11)):
+            yielded, clamped = _material_branches(torch, fr, st, body_packed, ss, ctrl, base,
+                                                  kw)
+            m0 = fr.FUSED_BWD_MATERIAL_LAUNCHES
+            rec = _b4_case(torch, np, fr, "%s, %s" % (label, where), st, body_packed, ss, ctrl,
+                           base, kw, seed=seed, timed=where == "75 steps in",
+                           guards=case_guards)
+            assert fr.FUSED_BWD_MATERIAL_LAUNCHES > m0
+            rec.update(model=model, bond_steps_past_yield=yielded, voxel_steps_clamped=clamped)
+            if case_guards is guards and model == "mesh":
+                # the slope guard weighs only past yield
+                assert yielded > 0, rec
+            if where == "75 steps in":
+                # the clamp's guard weighs where it acts
+                assert clamped > 0, rec
+                cot = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+                    st.shape).astype(np.float32), device="cuda")
+                cot[:, fr._TSAVG:] = 0.0
+                got, tape = _b4_tape(torch, fr, st, body_packed, ss, ctrl, base, cot, **kw)
+                end, _ = fr.fused_call(st, body_packed, ss, None, control_packed=ctrl,
+                                       seg_base=base, **kw)
+                with _device_instances(fr):
+                    twin = fr.fused_bwd_call(st, body_packed, ss, ctrl, base, cot, **kw)
+                torch.cuda.synchronize()
+                rec.update(recompute_bit_equal_k1=torch.equal(tape[:, S, :fr._TSAVG],
+                                                              end[:, :fr._TSAVG]),
+                           twin_bit_equal=all(torch.equal(a, b) for a, b in zip(twin, got)))
+                assert rec["recompute_bit_equal_k1"] and rec["twin_bit_equal"], rec
+            emit(dict(phase="b4_mat_variants", model=model, workload=rec["workload"],
+                      **{k: rec[k] for k in ("bond_steps_past_yield", "voxel_steps_clamped",
+                                             "recompute_bit_equal_k1", "twin_bit_equal")
+                         if k in rec}))
+            recs.append(rec)
+        out[model] = recs
+    return out, k1
+
+
+def phase_mat_variants_times(torch, np):
+    """K1's material instances in water and with growth on the workloads
+    of PERF.md section 6, each beside its plain version at the same batch
+    and grid (over 2 steps: the plain version runs ~10^4 x slower) and its
+    bound (`roofline.launch_work`): 1024 x 11^3 x 200 without contact on
+    `materials_palette` with the voxel-face and the facet drag, and the same
+    with volume effects; 1024 x 10^3 x 200 with growth, and with volume
+    effects; 1024 x 11^3 x 20 in water with contact, dense and compact
+    (the bench design, at rest). Returns the records."""
+    from evosoro_tpu_torch import bench, roofline
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    recs = []
+    cases = [(m, o, w, vol, None, 200) for vol in (False, True)
+             for m, o, w in MAT_VARIANTS]
+    cases += [(m, o, w, False, c, 20) for m, o, w in MAT_VARIANTS[:2]
+              for c in ("dense", "compact")]
+    for model, opts, what, vol, contact, steps in cases:
+        args, kw, _ = bench.packed_workload(1024, n=10, collision=contact is not None,
+                                            compact=contact == "compact", device="cuda",
+                                            materials=True, volume=vol, **opts)
+        ms = [_event_ms(torch, lambda: fr.fused_call(*args, num_steps=steps, **kw), 3)
+              for _ in range(2)]
+        plain_ms = _event_ms(torch, lambda: fr.fused_rollout_plain(
+            *args, num_steps=2, **kw), 1, warm=False)
+        _, st_n = fr.fused_call(*args, num_steps=steps, **kw)
+        ss = kw.get("ss_packed")
+        bound = roofline.bound(*roofline.launch_work(
+            *args, st_n, flags=kw["flags"], grid_shape=kw["grid_shape"],
+            scalars=kw["scalars"], n_pts=0 if ss is None else (ss.shape[1] - 3) // 2,
+            num_steps=steps))
+        rec = dict(phase="mat_variants_times", model=model,
+                   workload="1024 x %s x %d, %s on materials_palette%s, contact %s" % (
+                       "x".join(map(str, kw["grid_shape"])), steps, what,
+                       ", volume effects" if vol else "", contact or "off"),
+                   ms=min(ms), ms_all=ms, plain_ms=plain_ms, plain_steps=2,
+                   shape=fr.k1_launch_shape(kw["grid_shape"], kw["flags"], kw["scalars"],
+                                            args[3].shape[-1] if contact == "compact"
+                                            else None),
+                   **bound)
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        emit(rec)
+        recs.append(rec)
+    return recs
+
+
+def phase_sqp_mat_variants(torch, b4_mv):
+    """The gradient-MPC path on the bilinear palette with the max-velocity
+    clamp in water and with growth: `bench.sqp(materials=True, ...)` in
+    each variant (a cold solve and three re-plans), every launch counter
+    set to 0 just before and read just after: its 4 x 72 K1 launches are
+    the material instance's of the variant, its 4 x 32 B4 launches B4's.
+    Returns the launches by variant."""
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    counters = dict(fused_rollout="FUSED_ROLLOUT_LAUNCHES",
+                    fused_rollout_with_knots="FUSED_ROLLOUT_KNOT_LAUNCHES",
+                    fused_rollout_material="FUSED_ROLLOUT_MATERIAL_LAUNCHES",
+                    fused_rollout_fluid="FUSED_ROLLOUT_FLUID_LAUNCHES",
+                    fused_rollout_mesh="FUSED_ROLLOUT_MESH_LAUNCHES",
+                    fused_rollout_devo="FUSED_ROLLOUT_DEVO_LAUNCHES",
+                    fused_bwd="FUSED_BWD_LAUNCHES",
+                    fused_bwd_material="FUSED_BWD_MATERIAL_LAUNCHES",
+                    fused_bwd_fluid="FUSED_BWD_FLUID_LAUNCHES",
+                    fused_bwd_mesh="FUSED_BWD_MESH_LAUNCHES",
+                    fused_bwd_devo="FUSED_BWD_DEVO_LAUNCHES")
+    out = {}
+    for model, opts, what in MAT_VARIANTS:
+        for name in counters.values():
+            setattr(fr, name, 0)
+        rec = bench.sqp(device="cuda", materials=True, **opts)
+        launches = {k: getattr(fr, name) for k, name in counters.items()}
+        timed = next(r for r in b4_mv[model] if "ms" in r)
+        rec.update(b4_ms_per_launch=timed["ms"], k1_ms_per_launch=timed["k1_ms"],
+                   b4_share=rec["b4_launches_per_solve"] * timed["ms"] / rec["ms_per_solve"],
+                   k1_share=rec["k1_launches_per_solve"] * timed["k1_ms"]
+                   / rec["ms_per_solve"])
+        emit(dict(phase="sqp", what="FusedSQPSolver: cold solve and re-plans, bilinear "
+                  "palette with the max-velocity clamp, %s" % what, model=model, **rec))
+        emit(dict(phase="sqp_launches", model="materials " + model, **launches))
+        _sqp_checks(rec, launches)
+        key = dict(face="fluid", mesh="mesh", devo="devo")[model]
+        assert launches["fused_rollout_material"] == launches["fused_rollout_" + key] \
+            == 4 * 72, launches
+        assert launches["fused_bwd_material"] == launches["fused_bwd_" + key] == 4 * 32, launches
+        out[model] = dict(launches, ms_per_replan=rec["ms_per_solve"])
+    return out
+
+
+def _mat_variant_rows(k1_mv, k1_sqp_mv, b4_mv, sqp_mv, evo_mv, times, bound_keys):
+    """The kernels line's rows of K1's and B4's material instances in water
+    and with growth."""
+    k1_recs = [r for recs in k1_mv.values() for r in recs
+               if r["phase"] == "k1_mat_variants_vs_plain"]
+    k1_sqp_recs = [r for recs in k1_sqp_mv.values() for r in recs]
+    timed = next(r for r in k1_mv["mesh"] if "ms" in r)
+    k1_sqp = sum(v["fused_rollout_material"] for v in sqp_mv.values())
+    k1_evo = evo_mv["fused_rollout_material"]
+    b4_recs = [r for recs in b4_mv.values() for r in recs]
+    b4_timed = next(r for r in b4_mv["mesh"] if "ms" in r)
+    k1_row = dict(
+        name="fused_rollout_matvar (K1 material and volume instances in water and with growth)",
+        route="cuda", source="evosoro_tpu_torch/ops/csrc/fused_rollout_matvar.cuh",
+        replaces="evosoro_tpu/ops/fused_rollout.py:777",
+        launches=k1_evo + k1_sqp, launches_swimming_materials=k1_evo,
+        launches_sqp=k1_sqp,
+        launches_of="two generations of the swimming-materials experiment; bench.sqp on "
+        "the bilinear palette with the clamp with the facet drag, the voxel-face drag and "
+        "growth (a cold solve and 3 re-plans each)",
+        **bound_keys(timed),
+        max_abs_err=max(r["pos"] for r in k1_recs + k1_sqp_recs),
+        sqp_launch_state_bit_equal=all(r["state_bit_equal"] for r in k1_sqp_recs),
+        twins_bit_equal=all(r["twin_bit_equal"] for r in k1_recs),
+        compact_bit_equal_dense=all(all(r["compact_bit_equal_dense"].values())
+                                    for r in k1_recs if "compact_bit_equal_dense" in r),
+        err_of="pos (m) against the plain version: each variant (face, facet, growth) on "
+        "materials_palette with plasticity and the clamp, 4 x 6^3 (7^3 in water), without "
+        "and with volume effects, contact off, dense and compact, without and with the "
+        "features, %d steps; the fused SQP solve's segmented launches on the bilinear "
+        "palette with the clamp in each variant (8 x 11^3, 8 x 5x5x4), 8 knots, 75 steps "
+        "from rest and 25 steps at seg_base 75" % MV_STEPS,
+        ms=timed["ms"], plain_ms=timed["plain_ms"],
+        ms_of=timed["workload"] + ", %d steps" % MV_STEPS)
+    if times:
+        k1_row["times_1024"] = {r["workload"]: dict(ms=r["ms"], plain_ms_2_steps=r["plain_ms"],
+                                                   bound_ms=r["bound_ms"])
+                                for r in times}
+    b4_row = dict(
+        name="fused_rollout_bwd_matvar (B4 material instance in water and with growth)",
+        route="cuda", source="evosoro_tpu_torch/ops/csrc/fused_rollout_bwd_matvar.cu",
+        replaces="evosoro_tpu/ops/fused_rollout.py:2745",
+        launches=sum(v["fused_bwd_material"] for v in sqp_mv.values()),
+        launches_of="bench.sqp(materials=True) with the facet drag, the voxel-face drag and "
+        "growth: a cold solve and 3 re-plans each",
+        **bound_keys(b4_timed),
+        max_abs_err=max(r["max_abs_err"] for r in b4_recs),
+        worst_rel_err=max(r["worst_rel_err"] for r in b4_recs),
+        ms=b4_timed["ms"], plain_ms=b4_timed["plain_ms"],
+        launch_shape=b4_timed["launch_shape"], ms_of=b4_timed["workload"],
+        ms_by_variant={m: next(r for r in v if "ms" in r)["ms"] for m, v in b4_mv.items()},
+        ms_per_replan={m: v["ms_per_replan"] for m, v in sqp_mv.items()},
+        err_of="cotangent of the controls, against autograd through the plain version: the "
+        "SQP launch 8 x 25 steps, 8 knots, on the bilinear palette with the clamp, from rest, "
+        "75 steps in, and there at STRONG_DRAG or tight clamp bounds, in each variant")
+    return [k1_row, b4_row]
+
+
 def phase_replay(torch):
     """The replay path as a user drives it: `load_vxa` -> `fused_rollout`
     -> `locomotion_fitness`, the four fixtures (dense and with the compact
@@ -2166,7 +2693,9 @@ def _b4_case(torch, np, fr, label, state, body, stats, ctrl, seg_base, kw, seed,
     got = fr.fused_bwd_call(state, body, stats, ctrl, seg_base, cot, **kw)
     torch.cuda.synchronize()
     assert fr.FUSED_BWD_LAUNCHES == before + 1
-    ref = fr.fused_bwd_plain(state, body, stats, ctrl, seg_base, cot, **kw)
+    plain_ms = []  # the reference run is the timed plain version
+    ref = _timed_once(torch, plain_ms, timed,
+                      lambda: fr.fused_bwd_plain(state, body, stats, ctrl, seg_base, cot, **kw))
     torch.cuda.synchronize()
     worst, rel = _b4_errors(torch, got, ref)
     finite = all(bool(torch.isfinite(t).all()) for t in (*got, *ref))
@@ -2205,8 +2734,7 @@ def _b4_case(torch, np, fr, label, state, body, stats, ctrl, seg_base, kw, seed,
             rec["launch_shape"] = fr.b4_launch_shape(B, kw["grid_shape"], kw["flags"])
         rec["ms"] = _event_ms(torch, lambda: fr.fused_bwd_call(
             state, body, stats, ctrl, seg_base, cot, **kw), 5)
-        rec["plain_ms"] = _event_ms(torch, lambda: fr.fused_bwd_plain(
-            state, body, stats, ctrl, seg_base, cot, **kw), 1, warm=False)
+        rec["plain_ms"] = plain_ms[0]
         rec["k1_ms"] = _event_ms(torch, lambda: fr.fused_call(
             state, body, stats, None, control_packed=ctrl, seg_base=seg_base, **kw), 5)
         _, st_end = fr.fused_call(state, body, stats, None, control_packed=ctrl,
@@ -2444,8 +2972,9 @@ def phase_b4_variants(torch, np):
     the SQP solver's launch of each variant (`bench.sqp_workload`: 8 x 10^3
     in its 11^3 shell with the facet and with the voxel-face drag, and the
     growth design 8 x 5x5x4; 25 steps of a 200-step clock, 8 knots) from
-    rest and from the state K1 reaches 75 steps in under random controls
-    (timed), with a random cotangent; then each variant's guards
+    rest and from the
+    state K1 reaches 75 steps in under random controls (timed), with a
+    random cotangent; then each variant's guards
     (`_b4_guards`) on the launch 75 steps in where they weigh: in water at
     200 x the drag coefficient from momenta perturbed so that facets face
     forward on every side, with growth under clamp bounds that keep the old
@@ -2605,8 +3134,9 @@ def phase_b4_materials(torch, np):
     equalization, the max-velocity clamp) against `fused_bwd_plain` on the
     SQP solver's launch of `bench.sqp_workload(materials=True)` (8 x 10^3 on
     the bilinear palette with the clamp, 25 steps of a 200-step clock, 8
-    knots), from rest and from the state K1's material instance reaches 75
-    steps in under random controls (timed), with a random cotangent; each
+    knots), from rest
+    and from the state K1's material instance reaches 75 steps in under
+    random controls (timed), with a random cotangent; each
     record counts the plain version's bond-steps past yield and clamped
     voxel-steps, both > 0. Its guards: the slope replaced by the linear
     stiffness, the clamp's factor detached (`_material_guards`) and a
@@ -2731,8 +3261,8 @@ def _b4_material_row(b4_mat, launches, bound_keys):
         voxel_steps_clamped=min(r["voxel_steps_clamped"] for r in b4_mat),
         err_of=("cotangent of the controls, against autograd through the plain version: "
                 "the SQP launch 8 x 10^3 x 25 steps on the bilinear palette with the clamp, "
-                "8 knots, from rest and 75 steps in, and 8 x 12^3 75 steps in (the "
-                "device-memory twin); worst_rel_err as the land row"),
+                "8 knots, from rest and 75 steps in, and 8 x 12^3 75 steps in "
+                "(the device-memory twin); worst_rel_err as the land row"),
         ms=timed["ms"], plain_ms=timed["plain_ms"], launch_shape=timed["launch_shape"],
         ms_of="one launch of a solve: %s" % timed["workload"])
 
@@ -2800,7 +3330,7 @@ def phase_sqp(torch, b4_timed):
     `FusedSQPSolver.solve` and three re-plans on the 10^3 design, 200 steps
     in 8 segments, 8 knots, 4 iterations), then the plain path on the card
     at a cut depth: one `sqp_optimize` iteration through the eager rollout
-    (20 steps, 2 CG iterations) and two `grad_optimize` iterations at 25
+    (10 steps, 2 CG iterations) and two `grad_optimize` iterations at 25
     steps."""
     import math
     import time
@@ -2825,17 +3355,17 @@ def phase_sqp(torch, b4_timed):
     emit(dict(phase="sqp_launches", **launches))
     _sqp_checks(rec, launches)
 
-    # the plain path on the card, cut in depth: 20 and 25 steps of the 200
+    # the plain path on the card, cut in depth: 10 and 25 steps of the 200
     body, sim, _, dt = bench.mpc_workload(device="cuda")
     env = EnvParams(gravity_enabled=False, floor_enabled=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, info = sqp_optimize(body, sim, env, 20, 8, target=0.4,
+    _, info = sqp_optimize(body, sim, env, 10, 8, target=0.4,
                            config=SQPConfig(num_iters=1, cg_iters=2, n_res=8),
                            dt=dt, device="cuda")
     costs = info["cost_trace"].tolist() + [float(info["final_cost"])]
     emit(dict(phase="sqp", what="one sqp_optimize iteration, eager rollout, "
-              "forward- and reverse-mode products", steps=20, steps_cut_from=200,
+              "forward- and reverse-mode products", steps=10, steps_cut_from=200,
               cg_iters=2, seconds=time.perf_counter() - t0, costs=costs,
               accepted=info["accepted_trace"].tolist()))
     assert all(math.isfinite(c) for c in costs) and costs[-1] <= costs[0], costs
@@ -2852,11 +3382,12 @@ def phase_sqp(torch, b4_timed):
 
 
 def phase_evolution(torch, experiments=("basic", "swimming", "growth", "features",
-                                         "ballistic", "materials")):
+                                         "ballistic", "materials", "swimming_materials")):
     """Two generations each of the basic, swimming and growth experiments and
     of their feature twins (basic with NormDistByVol, the fall-over latch,
     speed windows and a source; growth with ballistic development), of the
-    materials experiment and of the volume experiment (basic with volume
+    materials experiment and its swimming twin (swimming_materials: the
+    facet drag on materials_palette), and of the volume experiment (basic with volume
     effects; each generation records whether a launch was made again for a
     robot short of its stop time), uncut, population 15, through
     `evaluate_all` on the card. Returns the launch counts by experiment."""
@@ -2895,7 +3426,7 @@ def phase_evolution(torch, experiments=("basic", "swimming", "growth", "features
             assert r["k1_launches"] > 0, r
             assert r["all_finite"], r
             assert valid, "every design was invalid or diverged"
-            if experiment == "swimming":
+            if experiment in ("swimming", "swimming_materials"):
                 assert r["k1_fluid_launches"] == r["k1_launches"], r
             if experiment in ("growth", "ballistic"):
                 assert r["k1_devo_launches"] == r["k1_launches"], r
@@ -2906,14 +3437,14 @@ def phase_evolution(torch, experiments=("basic", "swimming", "growth", "features
                 assert r["k1_ballistic_launches"] == r["k1_launches"], r
             # every launch of the custom palette took the material instance,
             # every launch of the volume experiment the volume instance
-            if experiment == "materials":
+            if experiment in ("materials", "swimming_materials"):
                 assert r["k1_material_launches"] == r["k1_launches"], r
             if experiment == "volume":
                 assert r["k1_volume_launches"] == r["k1_launches"], r
         # K2's routine runs inside K1's launches; its own kernel is not on the path
         assert launches["fused_rollout"] > 0, launches
         assert launches["fused_rollout_with_contact"] > 0, launches
-        if experiment == "swimming":  # the default drag model is the facet drag
+        if experiment in ("swimming", "swimming_materials"):  # the facet drag by default
             assert launches["fused_rollout_mesh"] == launches["fused_rollout_fluid"] \
                 == launches["fused_rollout"], launches
         elif experiment in ("growth", "ballistic"):
@@ -2923,9 +3454,10 @@ def phase_evolution(torch, experiments=("basic", "swimming", "growth", "features
         features = experiment in ("features", "ballistic")
         assert (launches["fused_rollout_features"] == launches["fused_rollout"]) == features
         assert (launches["fused_rollout_ballistic"] > 0) == (experiment == "ballistic")
-        materials = experiment in ("materials", "volume")
+        materials = experiment in ("materials", "volume", "swimming_materials")
         assert (launches["fused_rollout_material"] == launches["fused_rollout"]) == materials
-        assert (launches["fused_rollout_nonlinear"] > 0) == (experiment == "materials")
+        assert (launches["fused_rollout_nonlinear"] > 0) == (
+            experiment in ("materials", "swimming_materials"))
         assert (launches["fused_rollout_volume"] == launches["fused_rollout"]) \
             == (experiment == "volume")
         emit(dict(phase="evolution_launches", experiment=experiment, **launches))
@@ -3302,8 +3834,9 @@ def _b4_rows(b4, b4_var, sqp_launches, var_launches, bound_keys):
             max_abs_err=max(r["max_abs_err"] for r in recs),
             worst_rel_err=max(r["worst_rel_err"] for r in recs), guards=guards,
             err_of=("cotangent of the controls, against autograd through the plain "
-                    "version: the SQP launch %s x 25 steps, 8 knots, from rest and 75 "
-                    "steps in, and the guards' launch; worst_rel_err as the land row"
+                    "version: the SQP launch %s x 25 steps, 8 knots, from rest, 75 steps "
+                    "in, and the guards' launch; worst_rel_err as the "
+                    "land row"
                     % recs[0]["workload"].split(", ")[0][len("SQP launch "):]),
             ms=timed["ms"], plain_ms=timed["plain_ms"], launch_shape=timed["launch_shape"],
             ms_of="one launch of a solve: %s" % timed["workload"]))
@@ -3373,8 +3906,9 @@ def phase_big(torch, np):
     drag), the SQP solve's K1 launch from rest at 12^3, and B4 on
     8 x 12^3 x 25 steps against autograd (2e-3 a channel group), each launch
     counted as a device-memory one; after (d), the main paths' own launches
-    (kept by `_keeping_launch`): the 12^3 cantilever's replay, the cold CEM
-    solve's first launch and the SQP solve's first segment past seg_base 0.
+    (kept by `_keeping_launch`): the 12^3 cantilever's replay over its first
+    200 steps, the cold CEM solve's first launch and the SQP solve's first
+    segment past seg_base 0.
     (c) The guard: one buffer for every
     robot must fail. (d) Times with their bounds: K1 on 1024 x 12^3 x 200
     without contact, the device-memory instance forced on 1024 x 10^3 x 200
@@ -3611,12 +4145,15 @@ def phase_big(torch, np):
     # counts were read: the replay's (BC channels and the clamp), the cold
     # CEM solve's first (8 knots over 200 steps) and the SQP solve's first
     # segment past seg_base 0
+    # (the replay's launch over its first 200 steps, the CEM solve's over
+    # its first 100: the plain version's whole 781 took 34 s of the full run)
     for label, kept, tol in (
             ("12^3 cantilever's replay launch (BC channels, the clamp)", kept_replay,
              _strictest("bc", "max_vel")),
             ("cold CEM solve's first launch", kept_mpc, TOL),
             ("fused SQP solve's first segment past seg_base 0", kept_sqp, TOL)):
         (args, kw, steps), = kept
+        steps = min(steps, 200 if kept is kept_replay else 100)
         B = args[0].shape[0]
         g0 = fr.FUSED_ROLLOUT_GMEM_LAUNCHES
         out["k1"] += _k1_cases(torch, fr, "%s, %d x %s, %d steps%s%s" % (
@@ -3655,8 +4192,10 @@ def _big_rows(big, bound_keys):
                      "32 x 13^3 with contact, 8 x 16^3 without, 1 and 100 steps; the "
                      "12^3 swimmer in its 13^3 shell with the facet drag and contact, 100 "
                      "steps (MESH_TOL); the SQP launch 8 x 12^3 from rest, 75 steps; the "
-                     "main paths' own launches: the 12^3 cantilever's replay whole, the "
-                     "cold CEM solve's first launch (128 x 12^3, 8 knots, 200 steps), the "
+                     "main paths' own launches: the 12^3 cantilever's replay (its first "
+                     "200 steps), the "
+                     "cold CEM solve's first launch (128 x 12^3, 8 knots, its first 100 "
+                     "steps), the "
                      "SQP solve's first 25-step segment past seg_base 0. Bit-equal to "
                      "the shared instance (bit_equal_to_shared): 10 K1 workloads, the "
                      "evaluator batch with 4 knots, the 10^3 SQP launch from rest and at "
@@ -3779,6 +4318,23 @@ def main():
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return None
+    if sys.argv[1:] == ["--mat-variants"]:
+        k1_mv = phase_k1_mat_variants(torch, np)
+        times = phase_mat_variants_times(torch, np)
+        b4_mv, k1_sqp_mv = phase_b4_mat_variants(torch, np)
+        sqp_mv = phase_sqp_mat_variants(torch, b4_mv)
+        evo_mv = phase_evolution(torch, ("swimming_materials",))["swimming_materials"]
+
+        def bound_keys(rec):
+            return dict(bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None)
+
+        emit(dict(kernels=_mat_variant_rows(k1_mv, k1_sqp_mv, b4_mv, sqp_mv, evo_mv, times,
+                                                    bound_keys)))
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return None
     if sys.argv[1:] in (["--features"], ["--materials"], ["--volume"]):
         if sys.argv[1:] == ["--features"]:
             phase_k1_features(torch)
@@ -3805,12 +4361,14 @@ def main():
     replay, replays = phase_replay(torch)
     mats = phase_k1_materials(torch, np, replays)
     vol = phase_k1_volume(torch, np, replays)
+    k1_mv = phase_k1_mat_variants(torch, np)
     fma = phase_fp32_peak(torch)
     evo_launches = phase_evolution(torch)
     launches = evo_launches["basic"]
     swim, grow = evo_launches["swimming"], evo_launches["growth"]
     featx, balx = evo_launches["features"], evo_launches["ballistic"]
     matx = evo_launches["materials"]
+    swimx = evo_launches["swimming_materials"]
     mpc_launches, knot_timed, loop_recs = phase_mpc(torch, np)
     b4 = phase_b4(torch, np)
     b4_timed = next(r for r in b4 if "ms" in r)
@@ -3819,6 +4377,8 @@ def main():
     sqp_launches = phase_sqp(torch, b4_timed)
     var_launches = phase_sqp_variants(torch, b4_var)
     mat_launches = phase_sqp_materials(torch, b4_mat)
+    b4_mv, k1_sqp_mv = phase_b4_mat_variants(torch, np)
+    sqp_mv = phase_sqp_mat_variants(torch, b4_mv)
     big = phase_big(torch, np)
     big_k1 = sum(p["fused_rollout"] for p in big["paths"].values())
     phase_throughput(torch, card)
@@ -3853,7 +4413,8 @@ def main():
              + sum(v["fused_rollout"] for v in var_launches.values())
              + mat_launches["fused_rollout"]
              + vol["replay_launches"]["fused_rollout"] + vol["evolution"]["fused_rollout"]
-             + vol["mpc_launches"]["fused_rollout"] + big_k1,
+             + vol["mpc_launches"]["fused_rollout"] + big_k1 + swimx["fused_rollout"]
+             + sum(v["fused_rollout"] for v in sqp_mv.values()),
              launches_evolution=launches["fused_rollout"],
              launches_swimming=swim["fused_rollout"],
              launches_growth=grow["fused_rollout"],
@@ -3868,6 +4429,9 @@ def main():
              launches_volume=vol["replay_launches"]["fused_rollout"]
              + vol["evolution"]["fused_rollout"] + vol["mpc_launches"]["fused_rollout"],
              launches_big_bodies=big_k1,
+             launches_swimming_materials=swimx["fused_rollout"],
+             launches_sqp_materials_water_growth=sum(v["fused_rollout"]
+                                                     for v in sqp_mv.values()),
              **bound_keys(k1_timed),
              max_abs_err=max(r["pos"] for r in k1),
              err_of=("pos (m), evaluator batch %d x 6^3, 1/25/100 steps, "
@@ -3906,16 +4470,23 @@ def main():
         *_b4_rows(b4, b4_var, sqp_launches, var_launches, bound_keys),
         _b4_material_row(b4_mat, mat_launches, bound_keys),
         *_big_rows(big, bound_keys),
+        *_mat_variant_rows(k1_mv, k1_sqp_mv, b4_mv, sqp_mv, swimx, None, bound_keys),
         dict(name="K1 fluid branches (B7)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fused_rollout_common.cuh",
              replaces="evosoro_tpu/ops/fused_rollout.py:1373",
              launches=swim["fused_rollout_fluid"] + var_launches["mesh"]["fused_rollout_fluid"]
-             + var_launches["face"]["fused_rollout_fluid"],
+             + var_launches["face"]["fused_rollout_fluid"] + swimx["fused_rollout_fluid"]
+             + sqp_mv["mesh"]["fused_rollout_fluid"] + sqp_mv["face"]["fused_rollout_fluid"],
              launches_of="two generations of the swimming experiment, every "
              "launch with the facet drag (%d); bench.sqp in water, facet and "
-             "voxel-face drag (%d, %d)" % (swim["fused_rollout_mesh"],
-                                          var_launches["mesh"]["fused_rollout_fluid"],
-                                          var_launches["face"]["fused_rollout_fluid"]),
+             "voxel-face drag (%d, %d); two generations of the swimming-materials "
+             "experiment (%d); bench.sqp(materials=True) in water, facet and voxel-face "
+             "drag (%d, %d)" % (swim["fused_rollout_mesh"],
+                                var_launches["mesh"]["fused_rollout_fluid"],
+                                var_launches["face"]["fused_rollout_fluid"],
+                                swimx["fused_rollout_fluid"],
+                                sqp_mv["mesh"]["fused_rollout_fluid"],
+                                sqp_mv["face"]["fused_rollout_fluid"]),
              **bound_keys(fluid_timed),
              max_abs_err=max(r["pos"] for r in fluid["mesh"] + fluid["face"]
                              + k1_sqp["mesh"] + k1_sqp["face"]),
@@ -3934,9 +4505,12 @@ def main():
         dict(name="K1 growth ramps (B8a)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fused_rollout_common.cuh",
              replaces="evosoro_tpu/ops/fused_rollout.py:1628",
-             launches=grow["fused_rollout_devo"] + var_launches["devo"]["fused_rollout_devo"],
-             launches_of="two generations of the growth experiment, and bench.sqp "
-             "with growth (%d)" % var_launches["devo"]["fused_rollout_devo"],
+             launches=grow["fused_rollout_devo"] + var_launches["devo"]["fused_rollout_devo"]
+             + sqp_mv["devo"]["fused_rollout_devo"],
+             launches_of="two generations of the growth experiment, bench.sqp "
+             "with growth (%d) and bench.sqp(materials=True) with growth (%d)" % (
+                 var_launches["devo"]["fused_rollout_devo"],
+                 sqp_mv["devo"]["fused_rollout_devo"]),
              **bound_keys(devo_timed),
              max_abs_err=max(r["pos"] for r in devo + k1_sqp["devo"]),
              max_abs_scale_err=max(r["scale"] for r in devo + k1_sqp["devo"]),
@@ -4020,9 +4594,11 @@ def main():
         dict(name="K1 bilinear and MDL_DATA stress, plasticity (B6c)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fused_rollout_common.cuh",
              replaces="evosoro_tpu/ops/fused_rollout.py:372",
-             launches=matx["fused_rollout_nonlinear"],
-             launches_of="two generations of the materials experiment",
-             launches_sqp_materials=mat_launches["fused_rollout_material"],
+             launches=matx["fused_rollout_nonlinear"] + swimx["fused_rollout_nonlinear"],
+             launches_of="two generations of the materials experiment and of its "
+             "swimming twin (%d)" % swimx["fused_rollout_nonlinear"],
+             launches_sqp_materials=mat_launches["fused_rollout_material"]
+             + sum(v["fused_rollout_material"] for v in sqp_mv.values()),
              **bound_keys(mats["a"][0]),
              max_abs_err=max(r["pos"] for r in mats["a"] + [mats["a_features"]]),
              max_strain_offset_err=max(r["strain_offset_err"]

@@ -191,20 +191,23 @@ def packed_workload(batch, n=10, collision=False, device="cuda", fluid=None,
     for both, so the two models walk the same cells. `devo` gives
     the design random development fields (`growth_fields`) under a growth
     amplitude of 0.8, with IniCM time at 30 steps and, with `freeze`, a
-    mid-life freeze of 20 steps around step 85."""
+    mid-life freeze of 20 steps around step 85. The variants keep the
+    material, solver and volume options."""
     structure, phase = bench_design(n)
     palette = palette_from_list(materials_palette() if materials
                                 else evosoro_default_palette())
     body = build_body(structure, palette, phase_offset=phase, device=device)
-    sim = SimParams(self_collisions_enabled=collision, plasticity_enabled=materials,
-                    max_velocity_enabled=materials, equilibrium_mode=equilibrium,
-                    volume_effects_enabled=volume)
+    # the options every variant keeps
+    opts = dict(self_collisions_enabled=collision, plasticity_enabled=materials,
+                max_velocity_enabled=materials, equilibrium_mode=equilibrium,
+                volume_effects_enabled=volume)
+    sim = SimParams(**opts)
     env = EnvParams()
     dt = calc_max_dt(body, volume) * sim.dt_frac
     if fluid is not None:
         if fluid not in ("face", "mesh"):
             raise ValueError(f"fluid must be 'face', 'mesh' or None, got {fluid!r}")
-        sim = SimParams(self_collisions_enabled=collision, init_cm_time=0.0)
+        sim = SimParams(**opts, init_cm_time=0.0)
         env = EnvParams(fluid_environment=True, gravity_enabled=False,
                         floor_enabled=False,
                         aggregate_drag_coefficient=AGGREGATE_DRAG_COEF)
@@ -218,7 +221,7 @@ def packed_workload(batch, n=10, collision=False, device="cuda", fluid=None,
             body = attach_mesh_drag(body)
     elif devo:
         step = float(dt)
-        sim = SimParams(self_collisions_enabled=collision, init_cm_time=30 * step,
+        sim = SimParams(**opts, init_cm_time=30 * step,
                         stop_condition_value=200 * step, min_temp_fact=0.4,
                         mid_life_freeze_time=20 * step if freeze else 0.0)
         env = EnvParams(growth_amplitude=0.8)
@@ -916,16 +919,12 @@ def sqp_workload(n=10, seed=0, device="cuda", fluid=None, devo=False, materials=
     its ramps run within a 200-step horizon; with `materials` the design on
     `bilinear_palette` with the max-velocity clamp at `MATERIALS_MAX_VEL`
     (the planner of a robot on a custom palette, `Env(materials=...)`, or of
-    a .vxa file with MaxVelLimitEnabled), without floor and gravity."""
-    palette = palette_from_list(evosoro_default_palette())
-    if materials:
-        structure, phase = bench_design(n, seed)
-        body = build_body(structure, palette_from_list(bilinear_palette()),
-                          phase_offset=phase, device=device)
-        sim = SimParams(init_cm_time=0.0, max_velocity_enabled=True,
-                        max_vox_vel_limit=MATERIALS_MAX_VEL)
-        env = EnvParams(gravity_enabled=False, floor_enabled=False)
-        return body, sim, env, float(calc_max_dt(body) * sim.dt_frac)
+    a .vxa file with MaxVelLimitEnabled), without floor and gravity, or in
+    water or with growth as above, on that palette with the clamp."""
+    palette = palette_from_list(bilinear_palette() if materials
+                                else evosoro_default_palette())
+    clamp = dict(max_velocity_enabled=True, max_vox_vel_limit=MATERIALS_MAX_VEL) \
+        if materials else {}
     if devo:
         rng = np.random.default_rng(seed)
         structure = np.full(GROWTH_IND_SIZE, 3, np.int32)
@@ -933,10 +932,16 @@ def sqp_workload(n=10, seed=0, device="cuda", fluid=None, devo=False, materials=
         probe = build_body(structure, palette, phase_offset=phase, device=device)
         sim = SimParams(dt_frac=0.5, min_temp_fact=0.4)
         step = float(calc_max_dt(probe) * sim.dt_frac)
-        sim = SimParams(dt_frac=0.5, min_temp_fact=0.4, init_cm_time=30 * step)
+        sim = SimParams(dt_frac=0.5, min_temp_fact=0.4, init_cm_time=30 * step, **clamp)
         body = build_body(structure, palette, phase_offset=phase, device=device,
                           **growth_fields(GROWTH_IND_SIZE, step, seed))
         return body, sim, EnvParams(growth_amplitude=0.8), step
+    if fluid is None and materials:
+        structure, phase = bench_design(n, seed)
+        body = build_body(structure, palette, phase_offset=phase, device=device)
+        sim = SimParams(init_cm_time=0.0, **clamp)
+        env = EnvParams(gravity_enabled=False, floor_enabled=False)
+        return body, sim, env, float(calc_max_dt(body) * sim.dt_frac)
     if fluid is None:
         body, sim, _, dt = mpc_workload(n, seed, device)
         return body, sim, EnvParams(gravity_enabled=False, floor_enabled=False), dt
@@ -950,7 +955,7 @@ def sqp_workload(n=10, seed=0, device="cuda", fluid=None, devo=False, materials=
         from evosoro_tpu_torch.envs.drag import attach_mesh_drag
 
         body = attach_mesh_drag(body)
-    sim = SimParams(init_cm_time=0.0)
+    sim = SimParams(init_cm_time=0.0, **clamp)
     env = EnvParams(fluid_environment=True, gravity_enabled=False, floor_enabled=False,
                     aggregate_drag_coefficient=AGGREGATE_DRAG_COEF)
     return body, sim, env, float(calc_max_dt(body) * sim.dt_frac)
@@ -1185,6 +1190,20 @@ def materials_experiment(pop_size=15, sim_time=5.0, init_time=1.0, dt_frac=0.9,
     return sim, env, pop
 
 
+def swimming_materials_experiment(pop_size=15, sim_time=5.0, init_time=1.0, dt_frac=0.9,
+                                  seed=1, drag_model="mesh"):
+    """(sim, env, pop) of examples/swimming_basic.py on `materials_palette`
+    (`Env(materials=...)`), the swimming counterpart of
+    `materials_experiment`: bilinear muscles and MDL_DATA soft tissue in a
+    fluid, through K1's material instance of the drag model's variant;
+    fitness normAbsoluteDisplacement."""
+    sim, env, pop = swimming_experiment(pop_size=pop_size, sim_time=sim_time,
+                                        init_time=init_time, dt_frac=dt_frac, seed=seed,
+                                        drag_model=drag_model)
+    env.materials = materials_palette()
+    return sim, env, pop
+
+
 class VolumeSim(Sim):
     """A `Sim` whose SimParams turn on Voxelyze's VolumeEffectsEnabled: the
     stock `to_sim_params` sets no volume flag, in either package, so a
@@ -1209,7 +1228,8 @@ def volume_experiment(pop_size=15, sim_time=5.0, init_time=1.0, dt_frac=0.9, see
 EXPERIMENTS = dict(basic=basic_experiment, swimming=swimming_experiment,
                    growth=growth_experiment, features=features_experiment,
                    ballistic=ballistic_experiment, materials=materials_experiment,
-                   volume=volume_experiment)
+                   volume=volume_experiment,
+                   swimming_materials=swimming_materials_experiment)
 
 
 class RecordedEvaluation:

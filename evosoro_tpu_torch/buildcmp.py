@@ -10,12 +10,10 @@ stripped). A function whose parameters changed keeps its name and is
 compared under it; a kernel that gained a last template bit is compared,
 with the bit off, with the other tree's instance of its other arguments.
 The report sorts the functions that differ into those that differ by
-design (`BY_DESIGN`: K1's material and volume instances without the dense
-pass, whose compact contact branch became instances of their own, the
-feature and volume instances with it, in which that branch lay dead, and
-B4's material instance, whose recompute runs the same step loop) and the
+design (`BY_DESIGN`: none of the parent's kernels; it names K1's and B4's
+material instances in water and with growth, new in this tree) and the
 others (with where each one's SASS first parts from the other tree's), checks that the functions only one tree holds change by design
-(this tree's compact instances and the compact pass's own launch), and
+(this tree's new instances), and
 that every other kernel of K1, B4 and K2 is compared and unchanged
 (`k1_k2_unchanged`). It also reports the registers and spills ptxas gave
 every K1 and B4 kernel in both trees (`ptxas`). Prints one JSON object.
@@ -56,19 +54,11 @@ from pathlib import Path
 LIBS = ("fused_rollout", "fused_rollout_bwd", "pair_contact")
 # the kernel functions whose machine code this tree changes on purpose, by
 # name, with the template arguments of the instances that change (None:
-# every instance): K1's material and volume instances without the dense
-# pass, whose compact contact branch became instances of their own (the
-# last template bit, COMPACT, only in this tree); with the dense pass, the
-# feature and volume instances (FEAT, VOL, DENSE = 1, 1, 1), in which that
-# branch lay dead: without it the operands of one `and.pred` trade places
-# in their PTX (`--ptx`) and ptxas schedules them otherwise, the same bits
-# (`chip_smoke.py --compact --against`); B4's material
-# instance, whose recompute runs the same step loop; the compact pass's own
-# launch, new in this tree
-_MAT = lambda a: a[2] == "0" or a[:3] == ["1", "1", "1"]  # noqa: E731
-BY_DESIGN = {"fused_rollout_mat_kernel": _MAT, "fused_rollout_mat_gmem_kernel": _MAT,
-             "fused_rollout_bwd_mat_kernel": None, "fused_rollout_bwd_mat_gmem_kernel": None,
-             "pair_contact_compact_kernel": None}
+# every instance): K1's and B4's material instances in water and with
+# growth, new in this tree (csrc/fused_rollout_matvar.cuh,
+# fused_rollout_bwd_matvar.cu). Every kernel the parent holds keeps its
+# machine code.
+BY_DESIGN = {"fused_rollout_matvar_kernel": None, "fused_rollout_bwd_matvar_kernel": None}
 _BUILD = ("from evosoro_tpu_torch.ops import build; build.build_all(%r); "
           "[print(build._lib_path(n)) for n in %r]" % (LIBS, LIBS))
 

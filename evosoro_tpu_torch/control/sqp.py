@@ -31,7 +31,7 @@ projection (clip) after each step. Two solvers:
   the LM damping are device-side selections.
 
 The fused solver's envelope is `ops.fused_rollout.diff_envelope_ok`: on
-land, in water and with growth, and on land with bilinear materials and the
+land, in water and with growth, each also with bilinear materials and the
 max-velocity clamp; a body or option outside it raises by name.
 Entry points run on the card unless the caller passes `device="cpu"`.
 """

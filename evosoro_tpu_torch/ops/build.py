@@ -49,12 +49,17 @@ SIGNATURES = {
 }
 
 # translation units a library links beside its own `<name>.cu`: K1's
-# device-memory instances, K1's kernels with the resident state, B4's
-# material instance and the compact pass's own launch compile apart from
+# device-memory instances, K1's kernels with the resident state, K1's
+# material instances in water and with growth (each variant's shared and
+# device-memory kernels a unit each), B4's material instances and the
+# compact pass's own launch compile apart from
 # the other kernels, so K1's and K2's keep their machine code and the units
 # build side by side
-EXTRA_SOURCES = {"fused_rollout": ("fused_rollout_gmem.cu", "fused_rollout_res.cu"),
-                 "fused_rollout_bwd": ("fused_rollout_bwd_mat.cu",),
+EXTRA_SOURCES = {"fused_rollout": ("fused_rollout_gmem.cu", "fused_rollout_res.cu",
+                                   "fused_rollout_mat_face.cu", "fused_rollout_mat_face_gmem.cu",
+                                   "fused_rollout_mat_mesh.cu", "fused_rollout_mat_mesh_gmem.cu",
+                                   "fused_rollout_mat_devo.cu", "fused_rollout_mat_devo_gmem.cu"),
+                 "fused_rollout_bwd": ("fused_rollout_bwd_mat.cu", "fused_rollout_bwd_matvar.cu"),
                  "pair_contact": ("pair_contact_compact.cu",)}
 
 _libs: dict = {}

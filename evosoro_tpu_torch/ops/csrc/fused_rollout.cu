@@ -97,8 +97,11 @@
 // launched when any of them is on: the MDL_DATA tables (B or 1, 2P + 3, V)
 // and the BC channels (B or 1, 15, V) are read from device memory per voxel,
 // the kinetic-energy ring rides stats channels 16-21 and the strain offset
-// state channels 53-55. The host refuses them in water and with
-// development. Bound as the land step: the stress-equalization loop adds
+// state channels 53-55. In water and with development the same options run
+// in fused_rollout_matvar_kernel<VARIANT, ...> (fused_rollout_matvar.cuh,
+// six translation units of their own), where the facet drag's corners read
+// the per-side strains of the stress branch that ran. Bound as the land
+// step: the stress-equalization loop adds
 // 9 material-curve evaluations a bond (each a few loads of the point table
 // with MDL_DATA), the ring one block reduction a step.
 //
@@ -119,6 +122,7 @@
 // every kernel above (fused_rollout_gmem.cu), launched from this entry when
 // the host hands it a buffer.
 #include "fused_rollout_k1.cuh"
+#include "fused_rollout_matvar.cuh"
 
 // launch_k1<true>: the kernels with the state resident in shared memory
 // (fused_rollout_res.cu, a translation unit of its own in the same library)
@@ -138,6 +142,22 @@ int launch_gmem(float* state, const float* body, int body_batched, float* stats,
                 int ss_batched, int bc_batched, const VolArgs* va, float* gbuf, int gstride,
                 int threads, cudaStream_t st);
 
+// K1's material and volume instances in water and with growth
+// (fused_rollout_matvar.cuh), a launcher for each variant in shared memory
+// and for its device-memory twins, each in a translation unit of its own
+int launch_mat_face(K1_MATVAR_ARGS);
+int launch_mat_face_gmem(K1_MATVAR_ARGS);
+int launch_mat_mesh(K1_MATVAR_ARGS);
+int launch_mat_mesh_gmem(K1_MATVAR_ARGS);
+int launch_mat_devo(K1_MATVAR_ARGS);
+int launch_mat_devo_gmem(K1_MATVAR_ARGS);
+
+// The material and volume instances in water and with growth
+// (fused_rollout_matvar.cuh) have no resident-state half: a speed choice
+static bool k1_has_resident_half(int flags) {
+    return !((flags & (F_MAT | F_VOL)) && variant_of(flags) != V_LAND);
+}
+
 // scratch: (B, 6, V) floats of device memory, needed by the facet-drag
 // variant alone (flags F_FLUID | F_FLUID_MESH), else null. fparams: the
 // features' N_FEAT_PARAMS constants (ops/fused_rollout.py _feat_params).
@@ -150,8 +170,10 @@ int launch_gmem(float* state, const float* body, int body_batched, float* stats,
 // volume bit. gbuf: null for the shared-memory instances; else the
 // device-memory instances run, robot b's bond buffer at gbuf + b * gstride.
 // resident: the state stays in shared memory across the launch
-// (ops/fused_rollout.py k1_resident; refused with gbuf). The block takes
-// k1_threads threads (k1_step.cuh), which fused_rollout_k1_threads reports.
+// (ops/fused_rollout.py k1_resident; refused with gbuf), in the instances
+// that have a resident-state half (k1_has_resident_half; the others ignore
+// it). The block takes k1_threads threads (k1_step.cuh), which
+// fused_rollout_k1_threads reports.
 extern "C" int fused_rollout(float* state, const float* body, int body_batched,
                              float* stats, const float* a1, int a1_batched,
                              const float* ctrl, int n_knots, int knot_steps,
@@ -173,9 +195,8 @@ extern "C" int fused_rollout(float* state, const float* body, int body_batched,
         return (int)cudaErrorInvalidValue;
     const bool feat = (flags & F_FEAT) || fp.n_src > 0;
     const bool mat = (flags & (F_MAT | F_VOL)) != 0;
-    // the material and volume instances are the land variant's, and need
-    // their tables
-    if (mat && (variant != V_LAND || ((flags & F_MDL) && (ss == nullptr || n_pts < 2)) ||
+    // the material and volume instances need their tables
+    if (mat && (((flags & F_MDL) && (ss == nullptr || n_pts < 2)) ||
                 ((flags & F_BC) && bc == nullptr) ||
                 ((flags & F_COMPACT) && (!(flags & F_COLL) || n_surf <= 0 || a1 == nullptr))))
         return (int)cudaErrorInvalidValue;
@@ -192,17 +213,32 @@ extern "C" int fused_rollout(float* state, const float* body, int body_batched,
     const MatArgs* mp = mat ? &ma : nullptr;
     const VolArgs* vp = (flags & F_VOL) ? &va : nullptr;
     const cudaStream_t s = (cudaStream_t)stream;
+    if (mat && variant != V_LAND) {
+        const auto go = variant == V_FLUID_FACE ? (gbuf ? launch_mat_face_gmem : launch_mat_face)
+                        : variant == V_FLUID_MESH ? (gbuf ? launch_mat_mesh_gmem : launch_mat_mesh)
+                                                  : (gbuf ? launch_mat_devo_gmem : launch_mat_devo);
+        return go(state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots, knot_steps,
+                  step_base, B, X, Y, Z, num_steps, p, flags, scratch, fp, feat, mp, ss_batched,
+                  bc_batched, vp, gbuf, gstride, threads, s);
+    }
     if (gbuf)
         return launch_gmem(state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots,
                            knot_steps, step_base, B, X, Y, Z, num_steps, p, flags, scratch, fp,
                            feat, mp, ss_batched, bc_batched, vp, gbuf, gstride, threads, s);
-    if (resident)
+    if (resident && k1_has_resident_half(flags))
         return launch_res(state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots,
                           knot_steps, step_base, B, X, Y, Z, num_steps, p, flags, scratch, fp,
                           feat, mp, ss_batched, bc_batched, vp, threads, s);
     return launch_k1<false>(state, body, body_batched, stats, a1, a1_batched, ctrl, n_knots,
                             knot_steps, step_base, B, X, Y, Z, num_steps, p, flags, scratch,
                             fp, feat, mp, ss_batched, bc_batched, vp, threads, s);
+}
+
+// 1 where the launch above keeps the state resident when asked (the
+// instances with a resident-state half), else 0: ops/fused_rollout.py
+// k1_launch_shape reports it
+extern "C" int fused_rollout_k1_resident_half(int flags) {
+    return k1_has_resident_half(flags) ? 1 : 0;
 }
 
 // The threads a block of the launch above takes with these V, flags, pair

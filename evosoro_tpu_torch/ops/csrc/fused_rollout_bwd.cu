@@ -2,9 +2,9 @@
 // development instances and the device-memory twins of all of them. The
 // device code (the recompute, reverse_segment and the adjoint of the step)
 // lives in fused_rollout_bwd.cuh, with the kernel's description; the
-// material instance's kernels in fused_rollout_bwd_mat.cu, a translation
-// unit of their own linked into the same library, so the two build side by
-// side.
+// material instance's kernels in fused_rollout_bwd_mat.cu (land) and
+// fused_rollout_bwd_matvar.cu (water, growth), translation units of their
+// own linked into the same library, so they build side by side.
 #include "fused_rollout_bwd.cuh"
 
 #ifndef EVOSORO_HOST_EMULATION
@@ -36,11 +36,23 @@ int launch_bwd_mat(const float* state, const float* body, int body_batched, cons
                    int gstride, float* sbuf, int C, int threads, int planes, int slab,
                    size_t smem, cudaStream_t st);
 
-// B4's kernel for these flags: the material instance when the nonlinear or
-// the clamp's bit is on, else the variant's; the device-memory twin (gmem)
-// or the instance in shared memory
+// B4's material instance in water and with growth
+// (fused_rollout_bwd_matvar.cu): its kernel, and its launch
+const void* bwd_matvar_kernel(int variant, bool gmem);
+int launch_bwd_matvar(int variant, const float* state, const float* body, int body_batched,
+                      const float* stats, const float* ctrl, int n_knots, int knot_steps,
+                      int step_base, int B, int X, int Y, int Z, int num_steps, const Params& p,
+                      int flags, float* tape, float* tape_t, float* cot, float* cot_u,
+                      float* scr, float max_disp, float* gbuf, int gstride, float* sbuf, int C,
+                      int threads, int planes, int slab, size_t smem, cudaStream_t st);
+
+// B4's kernel for these flags: the material instance of the variant when
+// the nonlinear or the clamp's bit is on, else the variant's; the
+// device-memory twin (gmem) or the instance in shared memory
 static const void* b4_kernel(int flags, bool gmem) {
-    if (flags & (F_MAT | F_VOL)) return bwd_mat_kernel(gmem);
+    if (flags & (F_MAT | F_VOL))
+        return variant_of(flags) == V_LAND ? bwd_mat_kernel(gmem)
+                                           : bwd_matvar_kernel(variant_of(flags), gmem);
 #define BWD_K(VARIANT)                                                        \
     (gmem ? (const void*)fused_rollout_bwd_kernel<VARIANT, true>              \
           : (const void*)fused_rollout_bwd_kernel<VARIANT, false>)
@@ -141,7 +153,7 @@ extern "C" int fused_rollout_bwd_shape(int B, int X, int Y, int Z, int flags, in
 // drag, else null. cot (B, C_S, V): the END state's cotangent in, the START
 // state's out. cot_u (B, K, V): zeros in, the controls' cotangent out. The
 // flags pick the variant as K1's launcher does, and the material instance
-// when the nonlinear or the clamp's bit is on (the land variant only, with
+// when the nonlinear or the clamp's bit is on (in every variant, with
 // mparams: ops/fused_rollout.py _mat_params). gbuf: null for the
 // shared-memory kernels, whose dynamic shared memory holds the recompute's
 // buffer (BF * V floats); else the device-memory instance runs, robot b's
@@ -170,10 +182,14 @@ extern "C" int fused_rollout_bwd(const float* state, const float* body, int body
     if ((gbuf && (size_t)gstride < (size_t)BF * V) || (shape[5] > 0) != (sbuf != nullptr))
         return (int)cudaErrorInvalidValue;
     if (flags & (F_MAT | F_VOL)) {
-        // the material instance: nonlinear stress and the clamp on land
-        if (variant != V_LAND || (flags & (F_MAT | F_VOL) & ~(F_NONLINEAR | F_MAXVEL)) ||
-            mparams == nullptr)
+        // the material instance: nonlinear stress and the clamp
+        if ((flags & (F_MAT | F_VOL) & ~(F_NONLINEAR | F_MAXVEL)) || mparams == nullptr)
             return (int)cudaErrorInvalidValue;
+        if (variant != V_LAND)
+            return launch_bwd_matvar(variant, state, body, body_batched, stats, ctrl, n_knots,
+                                     knot_steps, step_base, B, X, Y, Z, num_steps, p, flags,
+                                     tape, tape_t, cot, cot_u, scr, mparams[0], gbuf, gstride,
+                                     sbuf, C, threads, planes, slab, smem, st);
         return launch_bwd_mat(state, body, body_batched, stats, ctrl, n_knots, knot_steps,
                               step_base, B, X, Y, Z, num_steps, p, flags, tape, tape_t, cot,
                               cot_u, mparams[0], gbuf, gstride, sbuf, C, threads, planes, slab,

@@ -100,9 +100,10 @@
 // Gather form throughout, no atomics. Nothing flows into a selection's
 // predicate (a face's exposure, v.n > 0).
 //
-// The material instance (MAT, the land variant; fused_rollout_bwd_mat_kernel
-// and its device-memory twin in fused_rollout_bwd_mat.cu, a translation unit
-// of their own) differentiates Voxelyze's bilinear stress and
+// The material instance (MAT; on land fused_rollout_bwd_mat_kernel and its
+// device-memory twin in fused_rollout_bwd_mat.cu, in water and with growth
+// fused_rollout_bwd_matvar_kernel in fused_rollout_bwd_matvar.cu,
+// translation units of their own) differentiates Voxelyze's bilinear stress and
 // the max-velocity clamp, as _make_kernel(bwd=True)'s jax.vjp does through
 // _bond_dir's nonlinear branch (:513-541, with _vox_mat_stress_k :370-404)
 // and the displacement clamp (:1519-1530). The recompute is K1's material
@@ -114,6 +115,13 @@
 // |dp| > max_disp, dp = lin' dt / m was scaled by back = max_disp / |dp|,
 // and the cotangent of dp is back (I - u u^T) g_pos with u = dp / |dp|.
 // lin' is already the next tape slot's, so the tape keeps its 48 channels.
+// With the facet drag the corners read the stress equalization's per-side
+// strains, which the recompute tapes as the linear instance's; the bond
+// pass pulls their cotangents back through the equalization's 3 iterations
+// with the tangents bond_forward<..., SLOPE, V_FLUID_MESH> carries beside
+// them. The fluid actuation and the development ramps' "keep last" branch
+// compose with the clamp's adjoint unchanged: the clamp acts on the
+// position, the actuation on the scale.
 // MDL_DATA, plasticity, equilibrium mode and BC regions stay outside the
 // envelope, as the JAX package's _diff_envelope_ok has it.
 #pragma once
@@ -537,10 +545,10 @@ __device__ inline void b4_recompute(const float* st0, const float* bo, const flo
     if constexpr (MAT) {
         // equilibrium mode is outside the envelope: the ring is never read
         float ke[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        k1_steps<V_LAND, false, true, false, false, false, true>(
+        k1_steps<VARIANT, false, true, false, false, false, true>(
             tape, bo, nullptr, cu_robot, n_knots, knot_steps, step_base, X, Y, Z, num_steps, p,
-            flags, r, buf, nullptr, nullptr, nullptr, ma, ke, nullptr,
-            K1Tape{slot, tape_t, taken});
+            flags, r, buf, VARIANT == V_FLUID_MESH ? tape + (size_t)NT * V : nullptr, nullptr,
+            nullptr, ma, ke, nullptr, K1Tape{slot, tape_t, taken});
     } else {
         k1_steps<VARIANT, false, false, false, false, false, true>(
             tape, bo, nullptr, cu_robot, n_knots, knot_steps, step_base, X, Y, Z, num_steps, p,
@@ -592,8 +600,8 @@ __device__ inline void b4_sync(const B4Part& pt) {
 // on return; cot_u: (K, V), zero on entry; buf: the recompute's K1 buffer
 // (rank 0 only; the slabs may lie in it, which the recompute no longer
 // needs once it has finished); scr: (B4_MESH_SCR, V) floats of scratch
-// (V_FLUID_MESH only). MAT (the land variant only): the material instance,
-// with the robot's inputs ma.
+// (V_FLUID_MESH only). MAT: the material instance, with the robot's inputs
+// ma.
 template <int VARIANT, bool MAT = false>
 __device__ inline void reverse_segment(const float* st0, const float* bo, const float* stat,
                                        const float* cu_robot, int n_knots, int knot_steps,
@@ -962,9 +970,13 @@ __device__ inline void reverse_segment(const float* st0, const float* bo, const 
                 const float* cn = lv + strides[d] < nv ? sl : up;  // n's slab
                 const int ln = lv + strides[d] < nv ? lv + strides[d] : lv + strides[d] - nv;
                 Bond bn;
+                // (the facet drag's material instance) the per-side strains
+                // of the stress equalization and their slopes
+                float sides[4];
                 if constexpr (MAT)  // stiff: the nonlinear stress's slope at the strain
-                    bn = bond_forward<true, false, true>(si, bd, v, n, d, V, p, dt, dt_inv, ma,
-                                                         flags);
+                    bn = bond_forward<true, false, true, VARIANT>(si, bd, v, n, d, V, p, dt,
+                                                                  dt_inv, ma, flags, nullptr,
+                                                                  nullptr, nullptr, sides);
                 else
                     bn = bond_forward(si, bd, v, n, d, V, p, dt, dt_inv);
                 float g_strain = 0.f;
@@ -979,6 +991,10 @@ __device__ inline void reverse_segment(const float* st0, const float* bo, const 
                                      fabsf(E1 - E2) <= p.near_eq * fabsf(s_sum);
                     g_strain = hom ? c_s1 + c_s2
                                    : 2.f * sdiv(E2, s_sum) * c_s1 + 2.f * sdiv(E1, s_sum) * c_s2;
+                    // with nonlinear materials: through the 3-iteration stress
+                    // equalization (the derivative of _bond_dir's sv1k, sv2k)
+                    if constexpr (MAT)
+                        if (flags & F_NONLINEAR) g_strain = c_s1 * sides[2] + c_s2 * sides[3];
                 }
                 const float* ctm = sl + 3 * Vs;
                 const float* ctmn = cn + 3 * Vs;

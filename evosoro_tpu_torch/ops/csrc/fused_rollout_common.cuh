@@ -500,10 +500,15 @@ __device__ __forceinline__ float vox_mat_slope(float strain, float e, float mm, 
 // beside the loop's sv1, sv2, s1 and s2, by torch autograd's conventions on
 // the plain version: a selection passes to its chosen branch only and
 // nothing to the convergence test, sdiv's guard cuts where the plain
-// version's does, a homogeneous bond takes one side's curve.
-template <bool SLOPE = false>
+// version's does, a homogeneous bond takes one side's curve. SIDES (the
+// facet drag's instances): sides receives the per-side strains the loop
+// ends on, sv1 and sv2 (the bond strain on a homogeneous bond: _bond_dir's
+// sv1k, sv2k, :541-545), and with SLOPE their derivatives with respect to
+// the strain.
+template <bool SLOPE = false, bool SIDES = false>
 __device__ inline float nonlinear_stress(const MatArgs& ma, int v, int n, int V, float strain,
-                                         bool hom, const Params& p, float* dsde = nullptr) {
+                                         bool hom, const Params& p, float* dsde = nullptr,
+                                         float* sides = nullptr) {
     const float* bo = ma.bo;
     const float e1 = bo[(size_t)B_EMOD * V + v], e2 = bo[(size_t)B_EMOD * V + n];
     const float mm1 = bo[(size_t)B_MATMODEL * V + v], mm2 = bo[(size_t)B_MATMODEL * V + n];
@@ -514,6 +519,12 @@ __device__ inline float nonlinear_stress(const MatArgs& ma, int v, int n, int V,
     const int P = ma.n_pts;
     if (hom) {
         if constexpr (SLOPE) *dsde = vox_mat_slope(strain, e1, mm1, pm1, ys1);
+        if constexpr (SIDES) {
+            sides[0] = strain;
+            sides[1] = strain;
+            sides[2] = 1.f;
+            sides[3] = 1.f;
+        }
         return vox_mat_stress(strain, e1, mm1, pm1, ys1, ss1, P, V);
     }
     float sv1 = strain, sv2 = strain;
@@ -552,6 +563,12 @@ __device__ inline float nonlinear_stress(const MatArgs& ma, int v, int n, int V,
         }
     }
     if constexpr (SLOPE) *dsde = 0.5f * (ds1 + ds2);
+    if constexpr (SIDES) {
+        sides[0] = sv1;
+        sides[1] = sv2;
+        sides[2] = dv1;
+        sides[3] = dv2;
+    }
     return 0.5f * (s1 + s2);
 }
 
@@ -579,13 +596,19 @@ struct Bond {
 // clock vt = {t, temperature amplitude, period} after it; vo receives the
 // bond's Eh and CSavg. SLOPE (with MAT, B4's material instance): with
 // `flags & F_NONLINEAR` the bond's stiff is the nonlinear stress's slope at
-// its strain, which the reverse sweep reads.
-template <bool MAT = false, bool VOL = false, bool SLOPE = false>
+// its strain, which the reverse sweep reads. VARIANT (with MAT): the step's
+// variant. Under V_FLUID_MESH, with `flags & F_NONLINEAR`, sides receives
+// the stress equalization's per-side strains, with SLOPE their slopes
+// (nonlinear_stress). In a fluid the volume effects' thermal term is on
+// with temp_enabled alone: a temperature that does not vary gives each
+// side dT = the amplitude (core/step.py _thermal_stress; on land and with
+// development the host refuses a fixed temperature).
+template <bool MAT = false, bool VOL = false, bool SLOPE = false, int VARIANT = V_LAND>
 __device__ inline Bond bond_forward(const float* si, const float* bd, int v, int n,
                                     int d, int V, const Params& p, float dt,
                                     float dt_inv, const MatArgs* ma = nullptr, int flags = 0,
                                     float* soff = nullptr, const float* vt = nullptr,
-                                    float* vo = nullptr) {
+                                    float* vo = nullptr, float* sides = nullptr) {
 #define SIN(k) (si + (size_t)(k) * V)
     Bond o;
     const F3 p1 = {SIN(S_POS + 0)[v], SIN(S_POS + 1)[v], SIN(S_POS + 2)[v]};
@@ -659,9 +682,13 @@ __device__ inline Bond bond_forward(const float* si, const float* bd, int v, int
             vo[0] = eh;
             vo[1] = SIN(S_CSAVG + d)[v];
         } else if (flags & F_NONLINEAR) {  // no near-equal widening on this path
+            constexpr bool SIDES = VARIANT == V_FLUID_MESH;
             if constexpr (SLOPE)
-                stress = nonlinear_stress<true>(*ma, v, n, V, strain,
-                                                bd[(size_t)D_HOM * V] > 0.5f, p, &o.stiff);
+                stress = nonlinear_stress<true, SIDES>(
+                    *ma, v, n, V, strain, bd[(size_t)D_HOM * V] > 0.5f, p, &o.stiff, sides);
+            else if constexpr (SIDES)
+                stress = nonlinear_stress<false, true>(
+                    *ma, v, n, V, strain, bd[(size_t)D_HOM * V] > 0.5f, p, nullptr, sides);
             else
                 stress = nonlinear_stress(*ma, v, n, V, strain, bd[(size_t)D_HOM * V] > 0.5f, p);
         }
@@ -674,7 +701,26 @@ __device__ inline Bond bond_forward(const float* si, const float* bd, int v, int
             if (!fresh) stress = E * (strain - so);
             *soff = fresh ? fmaxf(ms, strain) - sdiv(stress, E) : so;
         }
-        if constexpr (VOL) {
+        if constexpr (VOL && (VARIANT == V_FLUID_FACE || VARIANT == V_FLUID_MESH)) {
+            if (flags & F_TEMP_ENABLED) {
+                // less the sides' mean E CTE dT / (1 - 2u), dT from each
+                // material's temperature sinusoid, or the amplitude where
+                // the temperature does not vary (:284-298)
+                const float* bo = ma->bo;
+                float dT1 = vt[1], dT2 = vt[1];
+                if (flags & F_TEMP) {
+                    const float tper = vt[2];
+                    const float w = p.two_pi_f * vt[0] * sdiv(1.f, tper);
+                    dT1 = tper != 0.f ? vt[1] * sinf(w + bo[(size_t)B_MTPHASE * V + v]) : 0.f;
+                    dT2 = tper != 0.f ? vt[1] * sinf(w + bo[(size_t)B_MTPHASE * V + n]) : 0.f;
+                }
+                const float s1t = sdiv(bo[(size_t)B_EMOD * V + v] * bo[(size_t)B_CTE * V + v] * dT1,
+                                       1.f - 2.f * bo[(size_t)B_POISSON * V + v]);
+                const float s2t = sdiv(bo[(size_t)B_EMOD * V + n] * bo[(size_t)B_CTE * V + n] * dT2,
+                                       1.f - 2.f * bo[(size_t)B_POISSON * V + n]);
+                stress = stress - 0.5f * (s1t + s2t);
+            }
+        } else if constexpr (VOL) {
             if (flags & F_TEMP) {
                 // less the sides' mean E CTE dT / (1 - 2u), dT from each
                 // material's temperature sinusoid (:284-298)

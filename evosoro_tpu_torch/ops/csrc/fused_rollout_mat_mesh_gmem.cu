@@ -1,0 +1,6 @@
+// K1's material and volume instances with the facet drag (V_FLUID_MESH), their
+// device-memory twins: a translation unit of its own in the fused_rollout
+// library (fused_rollout_matvar.cuh).
+#include "fused_rollout_matvar.cuh"
+
+K1_MATVAR_UNIT(launch_mat_mesh_gmem, V_FLUID_MESH, true)

@@ -89,9 +89,9 @@ __device__ inline const T& k1_tape(const T& t) { return t; }
 // sh: k1_buffer_floats of shared memory (or device memory); RES: the
 // state's copy past them. scr: the robot's 6 * V floats of scratch in
 // device memory (V_FLUID_MESH only). FEAT: the fitness features, on the
-// carry fe with the constants fp. MAT: the material instance (the land
-// variant only) with the inputs ma and the kinetic-energy ring ke (6
-// floats, the same in every thread). VOL (with MAT): volume effects, with
+// carry fe with the constants fp. MAT: the material instance (of any
+// variant) with the inputs ma and the kinetic-energy ring ke (6 floats, the
+// same in every thread). VOL (with MAT): volume effects, with
 // the inputs va; r.dt is the dt carried in and out. DENSE: contact through
 // the dense pair pass on the V x V table a1 (pair_contact.cuh). COMPACT
 // (with MAT, not DENSE): contact through the same pass over the S =
@@ -297,8 +297,11 @@ __device__ inline void k1_steps(float* st, const float* bo, const float* a1,
             }
             float soff = 0.f;
             float vo[2];  // (volume effects) the bond's Eh and CSavg
-            const Bond bn = bond_forward<MAT, VOL>(si, bd, v, v + strides[d], d, V, p, dt,
-                                                   dt_inv, ma, flags, &soff, vt, vo);
+            // (the material instances of the facet drag) the per-side strains
+            // of the stress equalization
+            float sides[4];
+            const Bond bn = bond_forward<MAT, VOL, false, MAT ? VARIANT : V_LAND>(
+                si, bd, v, v + strides[d], d, V, p, dt, dt_inv, ma, flags, &soff, vt, vo, sides);
             if constexpr (VOL) {
                 // the strain the voxel pass couples (0 on a heterogeneous
                 // bond), and k_eff = Eh (CS1 + CS2) / (2 (e L + L)) over
@@ -324,6 +327,20 @@ __device__ inline void k1_steps(float* st, const float* bo, const float* a1,
                     hom ? bn.strain : 2.f * sdiv(E2, s_sum) * bn.strain;
                 scr[(size_t)(3 + d) * V + v] =
                     hom ? bn.strain : 2.f * sdiv(E1, s_sum) * bn.strain;
+                // the material instances: the strains of the stress branch
+                // that ran (_bond_dir :508-554). Under volume effects the
+                // bond strain on a homogeneous bond, 0 on a heterogeneous
+                // one, with no near-equal widening; with nonlinear materials
+                // the stress equalization's sides
+                if constexpr (MAT) {
+                    if (VOL || (flags & F_NONLINEAR)) {
+                        const float s1 = VOL ? (bd[(size_t)D_HOM * V] > 0.5f ? bn.strain : 0.f)
+                                             : sides[0];
+                        const float s2 = VOL ? s1 : sides[1];
+                        scr[(size_t)d * V + v] = s1;
+                        scr[(size_t)(3 + d) * V + v] = s2;
+                    }
+                }
             }
 
             // back to the world frame (:159-170)

@@ -18,9 +18,10 @@ BPTT through `core.rollout`, the same float32 numerics and piecewise
 branches.
 
 The envelope is B4's (`fused_rollout.diff_envelope_ok`): on land, in water
-with either drag model, and with the development ramps; on land also with
-bilinear materials (a palette that is not all linear) and the max-velocity
-clamp (`SimParams.max_velocity_enabled`), through B4's material instance.
+with either drag model, and with the development ramps; in each of them
+also with bilinear materials (a palette that is not all linear) and the
+max-velocity clamp (`SimParams.max_velocity_enabled`), through B4's
+material instance of that variant.
 The flags come from the body and the environment as in the JAX package's
 `DiffRollout`: the facet drag when the body carries mesh tables in a fluid
 (which needs the grid's +X/+Y/+Z shell), the development flags from the

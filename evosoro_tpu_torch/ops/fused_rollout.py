@@ -282,18 +282,24 @@ def k1_launch_shape(grid_shape, flags: dict, scalars: dict, n_surf=None) -> dict
     """How K1 runs a launch of these flags and scalars on this grid
     (`n_surf`: the compact table's surface count): `instance` ("shared" or
     "device", `k1_instance`), whether the state is `resident` in shared
-    memory (`k1_resident`, shared instances only) and the `threads` a block
-    that the launcher takes (csrc/k1_step.cuh `k1_threads`, asked of the
-    built library: this needs the CUDA toolkit)."""
+    memory (`k1_resident`, shared instances only, and only those with a
+    resident half: the material and volume instances in water and with
+    growth have none, a speed choice) and the `threads` a block that the
+    launcher takes (csrc/k1_step.cuh `k1_threads`); the last two asked of
+    the built library (csrc/fused_rollout.cu), which needs the CUDA
+    toolkit."""
     V = int(np.prod(grid_shape))
     coll = bool(flags.get("collision"))
     instance = k1_instance(V, coll, n_surf)
+    bits = _flag_bits(flags)
     threads = build.function("fused_rollout", "fused_rollout_k1_threads",
                              [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    half = build.function("fused_rollout", "fused_rollout_k1_resident_half", [ctypes.c_int])
     return dict(instance=instance,
-                threads=threads(V, _flag_bits(flags), int(coll),
+                threads=threads(V, bits, int(coll),
                                 _feat_params(scalars, flags).ctypes.data_as(ctypes.c_void_p)),
-                resident=instance == "shared" and k1_resident(V, coll, n_surf))
+                resident=instance == "shared" and bool(half(bits))
+                and k1_resident(V, coll, n_surf))
 
 
 def _bond_buffer(B: int, floats: int, device):
@@ -777,9 +783,9 @@ _K1_DEVO_FLAGS = ("use_init_size", "use_final_size", "use_growth_t",
 _K1_FEATURE_FLAGS = ("needle", "falling", "ndbv", "window", "ballistic")
 _K1_TRACE_FLAGS = ("ndbv", "window", "ballistic")
 # Voxelyze's material, solver and boundary options, the compact contact pass
-# and volume effects: a launch with any of them runs K1's material instance,
-# which the land variant has (with and without the features; with volume
-# effects, an instance of its own)
+# and volume effects: a launch with any of them runs K1's material instance
+# of its variant (with and without the features; with volume effects, an
+# instance of its own)
 _K1_MAT_FLAGS = ("nonlinear", "mdl_data", "plasticity", "equilibrium", "max_vel", "bc",
                  "collision_compact", "volume")
 # trace-sample ring slots K1 carries per robot, and the sources it tracks
@@ -803,14 +809,8 @@ def _flag_bits(flags: dict) -> int:
 
 def check_envelope(flags: dict, scalars: dict):
     """Raise NotImplementedError for any flag outside K1's envelope (for
-    CPU and CUDA tensors alike, before anything runs)."""
-    # the material instance is the land variant's: in water or with
-    # development these options raise by name (ROADMAP.md B.2)
-    if flags.get("fluid") or any(flags.get(k) for k in _K1_DEVO_FLAGS):
-        for k in _K1_MAT_FLAGS:
-            if flags.get(k):
-                raise NotImplementedError(
-                    f"fused rollout: '{k}' runs on land without development only")
+    CPU and CUDA tensors alike, before anything runs). The material and
+    volume options run in every variant."""
     # a fluid's actuation is gated on temp_enabled alone
     if flags.get("temp_enabled") and not flags.get("temp") and not flags.get("fluid"):
         raise NotImplementedError("fused rollout: a fixed (non-varying) "
@@ -1720,6 +1720,7 @@ def fused_call(state_packed, body_packed, stats, collision_packed=None, *,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     gmem = k1_instance(V, coll, n_surf) == "device"
+    # (the instances without a resident half ignore it: csrc/fused_rollout.cu)
     resident = not gmem and k1_resident(V, coll, n_surf)
     bits = _flag_bits(flags)
     mesh = bool(bits & _K1_FLAG_BITS["fluid_mesh"])
@@ -1826,8 +1827,8 @@ _B4_MESH_TAPE_CHANNELS = _B4_TAPE_CHANNELS + _K1_MESH_SCRATCH
 _B4_MESH_SCRATCH = 27
 # flags outside the reverse-mode kernel's envelope (the JAX package's
 # `_diff_envelope_ok`), each with the reason; the rest of `check_envelope`
-# applies as well, so nonlinear materials and the max-velocity clamp, which
-# B4's material instance differentiates, run on land only
+# applies as well. Nonlinear materials and the max-velocity clamp run in
+# B4's material instance of every variant
 _DIFF_REFUSED = dict(
     volume="volume effects", equilibrium="equilibrium mode", plasticity="plasticity",
     needle="the needle feature", falling="the fall-over latch",
@@ -1850,11 +1851,10 @@ def _diff_refusal(flags, scalars):
 def diff_envelope_ok(flags, scalars) -> bool:
     """True when the reverse-mode segment kernel covers the launch: the MPC
     control envelope on land, in water (voxel-face or facet drag) and with
-    the development ramps, and on land with bilinear materials and the
-    max-velocity clamp (B4's material instance); without collision, volume
-    effects, sources, fitness features, MDL_DATA materials, plasticity,
-    equilibrium mode or BC regions. `check_envelope` refuses the material
-    options in water and with development."""
+    the development ramps, each also with bilinear materials and the
+    max-velocity clamp (B4's material instance of the variant); without
+    collision, volume effects, sources, fitness features, MDL_DATA
+    materials, plasticity, equilibrium mode or BC regions."""
     return _diff_refusal(flags, scalars) is None
 
 

@@ -477,30 +477,33 @@ def b6d_work(state, body, stats, stats_out, flags):
 
 def launch_work(state, body, stats, table, stats_out, controls=None, *,
                 flags, grid_shape, scalars=None, n_pts=0, num_steps=None):
-    """(flops, bytes) of one K1 launch, counted for the variant of the step
-    its flags select: `b7_work` in a fluid, `b8_work` with development
-    fields, else `k1_work` (with the compact contact pass `b5_work` in
-    place of the dense one); and the fitness features' and the material
-    instance's work on top (`b8b_work`, `b8c_work`, `b8d_work` with the
-    sources of `scalars`; `b6_work` with `n_pts` MDL_DATA points;
-    `b6d_work` under volume effects, whose launches need their `num_steps`:
-    `volume_clock`)."""
+    """(flops, bytes) of one K1 launch, the sum of its variant's count and
+    its options' counts: the step of the variant its flags select,
+    `b7_work` in a fluid, `b8_work` with development fields, else `k1_work`
+    (with the compact contact pass `b5_work` in place of the dense one, in
+    any variant); and the fitness features' and the material instance's
+    work on top (`b8b_work`, `b8c_work`, `b8d_work` with the sources of
+    `scalars`; `b6_work` with `n_pts` MDL_DATA points; `b6d_work` under
+    volume effects, whose launches need their `num_steps`: `volume_clock`).
+    The options' counts are the same in every variant: the kernels run the
+    same walk of them (csrc/k1_step.cuh), and the facet drag's corners read
+    the per-side strains the stress equalization leaves anyway."""
     if flags.get("volume"):
         if num_steps is None:
             raise ValueError("a volume-effects launch is counted from its num_steps")
         stats = volume_clock(stats, stats_out, num_steps)
-    if flags.get("collision_compact"):
-        work = k1_work(state, body, stats, None, stats_out, controls)
-        b5 = b5_work(table, stats, stats_out)
-        work = (work[0] + b5[0], work[1] + b5[1])
-    elif flags.get("fluid"):
-        work = b7_work(state, body, stats, table, stats_out, grid_shape,
+    compact = bool(flags.get("collision_compact"))
+    dense = None if compact else table
+    if flags.get("fluid"):
+        work = b7_work(state, body, stats, dense, stats_out, grid_shape,
                        mesh=bool(flags.get("fluid_mesh")))
     elif any(flags.get(k) for k in fr._K1_DEVO_FLAGS):
-        work = b8_work(state, body, stats, table, stats_out)
+        work = b8_work(state, body, stats, dense, stats_out)
     else:
-        work = k1_work(state, body, stats, table, stats_out, controls)
+        work = k1_work(state, body, stats, dense, stats_out, controls)
     parts = [work]
+    if compact:
+        parts.append(b5_work(table, stats, stats_out))
     if any(flags.get(k) for k in fr._K1_FEATURE_FLAGS):
         parts.append(b8c_work(body, stats, stats_out, flags))
     if flags.get("ballistic"):
@@ -576,9 +579,9 @@ def b4_work(state, body, stats, controls, steps, flags=None, grid_shape=None):
     with development fields, their own two counts; with the facet drag the
     forward and adjoint counts a voxel and, for every step, the robot's
     surface mesh's triangles, vertices and corners (`mesh_counts` on
-    `grid_shape`); on land with `nonlinear` or `max_vel` (the material
-    instance) the forward and adjoint counts of each option on top, and the
-    clamp's share a robot. Bytes: what the function must move, whatever the
+    `grid_shape`); with `nonlinear` or `max_vel` (the material instance of
+    any variant) the forward and adjoint counts of each option on top, and
+    the clamp's share a robot. Bytes: what the function must move, whatever the
     kernel keeps in its tape or its scratch: the start state's carried
     channels and the end state's cotangent in, the start state's cotangent
     out, the body channels the step reads (with development the six fields
@@ -604,13 +607,13 @@ def b4_work(state, body, stats, controls, steps, flags=None, grid_shape=None):
     elif any(flags.get(k) for k in fr._K1_DEVO_FLAGS):
         per_voxel = DEVO_STEP_FLOPS_PER_VOXEL + DEVO_ADJOINT_FLOPS_PER_VOXEL
         body_channels += K1_DEVO_BODY_CHANNELS
-    else:
-        if flags.get("nonlinear"):
-            per_voxel += NONLINEAR_FLOPS_PER_VOXEL + NONLINEAR_ADJOINT_FLOPS_PER_VOXEL
-            body_channels += MATERIAL_BODY_CHANNELS
-        if flags.get("max_vel"):
-            per_voxel += MAX_VEL_FLOPS_PER_VOXEL + MAX_VEL_ADJOINT_FLOPS_PER_VOXEL
-            per_step = per_step + MAX_VEL_FLOPS_PER_STEP
+    # the material instance's options, on top of any variant's step
+    if flags.get("nonlinear"):
+        per_voxel += NONLINEAR_FLOPS_PER_VOXEL + NONLINEAR_ADJOINT_FLOPS_PER_VOXEL
+        body_channels += MATERIAL_BODY_CHANNELS
+    if flags.get("max_vel"):
+        per_voxel += MAX_VEL_FLOPS_PER_VOXEL + MAX_VEL_ADJOINT_FLOPS_PER_VOXEL
+        per_step = per_step + MAX_VEL_FLOPS_PER_STEP
     flops = float(((occupied * per_voxel + per_step) * steps).sum())
     nbytes = 4.0 * (3 * B * K1_STATE_CHANNELS * V
                     + body.shape[0] * body_channels * V

@@ -6,7 +6,8 @@
 // hand-written adjoint and the step's fluid and development variants are
 // checked where there is no card; and K1's material instance
 // (test_torch_materials.py), its volume instance (test_torch_volume.py),
-// B4's material instance (test_torch_b4_host.py) and the pair pass of
+// B4's material instance (test_torch_b4_host.py), each in every variant
+// (test_torch_mat_variants_host.py), and the pair pass of
 // pair_contact.cuh, alone (emu_pair: K2; emu_pair_alone: K1's pass on a
 // dense or a compact table) and inside K1 (emu_fwd_contact, and emu_fwd_vol
 // with either table; tests/test_torch_pair_host.py,
@@ -17,6 +18,7 @@
 // robot, one thread standing for all of them (fused_rollout_bwd.cuh
 // each_rank), so the split of the sweep over blocks is held here too.
 #define EVOSORO_HOST_EMULATION
+#include <cstdlib>
 #include <vector>
 
 #include "fused_rollout_bwd.cu"
@@ -83,10 +85,12 @@ static void emu_steps(float* st, const float* bo, const float* a1, const float* 
         k1_steps<VARIANT, FEAT, MAT, VOL, DENSE, false, false, COMPACT>(
             st, bo, a1, cu, n_knots, knot_steps, step_base, X, Y, Z, num_steps, p, flags, r, sh,
             scr, fe, fp, ma, ke, va);
-    else
+    else if constexpr (!MAT || VARIANT == V_LAND)
         k1_steps<VARIANT, FEAT, MAT, VOL, DENSE, true, false, COMPACT>(
             st, bo, a1, cu, n_knots, knot_steps, step_base, X, Y, Z, num_steps, p, flags, r, sh,
             scr, fe, fp, ma, ke, va);
+    else  // the material instances in water and with growth have no resident half
+        abort();
 }
 template <int VARIANT, bool FEAT>
 static void emu_fwd_variant(float* state, const float* body, int body_batched, float* stats,
@@ -215,15 +219,36 @@ extern "C" void emu_pair_alone(const float* pos, const float* scale, const float
             out + (size_t)b * 3 * V, 1.f + margin, counts, 16);
     }
 }
-// K1's material instance (the land variant, with the features when a
-// feature bit or a source is on), without the pair pass: ss, the MDL_DATA
-// tables (B or 1, 2P + 3, V) or null; bc, the BC channels (B or 1, 15, V)
-// or null; mparams, the clamp's largest displacement a step
-extern "C" void emu_fwd_mat(float* state, const float* body, int body_batched, float* stats,
-                            int B, int X, int Y, int Z, int num_steps, const float* params,
-                            int flags, const float* fparams, const float* ss, int ss_batched,
-                            int n_pts, const float* bc, int bc_batched, const float* mparams) {
-    Params p; memcpy(&p, params, sizeof(float) * N_PARAMS);
+// The variant the flags select, as the card's launchers pick it: RUN(V) is
+// expanded with V the variant's template argument
+#define EMU_BY_VARIANT(flags, RUN)                        \
+    switch (variant_of(flags)) {                          \
+        case V_FLUID_FACE: RUN(V_FLUID_FACE); break;      \
+        case V_FLUID_MESH: RUN(V_FLUID_MESH); break;      \
+        case V_DEVO: RUN(V_DEVO); break;                  \
+        default: RUN(V_LAND);                             \
+    }
+// ... for the material and volume instances. Their water and growth
+// variants build only with EMU_MAT_VARIANTS (the g++ build takes twice as
+// long with them, tests/test_torch_mat_variants_host.py); without it a
+// launch of theirs aborts.
+#ifdef EMU_MAT_VARIANTS
+#define EMU_MAT_BY_VARIANT(flags, RUN) EMU_BY_VARIANT(flags, RUN)
+#else
+#define EMU_MAT_BY_VARIANT(flags, RUN)           \
+    if (variant_of(flags) != V_LAND) abort();    \
+    RUN(V_LAND);
+#endif
+// K1's material instance in the variant the flags select (with the
+// features when a feature bit or a source is on), without the pair pass:
+// ss, the MDL_DATA tables (B or 1, 2P + 3, V) or null; bc, the BC channels
+// (B or 1, 15, V) or null; mparams, the clamp's largest displacement a step
+template <int VARIANT>
+static void emu_fwd_mat_variant(float* state, const float* body, int body_batched, float* stats,
+                                int B, int X, int Y, int Z, int num_steps, const Params& p,
+                                int flags, const float* fparams, const float* ss, int ss_batched,
+                                int n_pts, const float* bc, int bc_batched,
+                                const float* mparams) {
     const FeatParams fp = feat_params_from(fparams);
     const bool feat = (flags & F_FEAT) || fp.n_src > 0;
     const int V = X * Y * Z;
@@ -240,13 +265,13 @@ extern "C" void emu_fwd_mat(float* state, const float* body, int body_batched, f
         Feat fe = load_feat(stat);
         float* st = state + (size_t)b * C_S * V;
         if (feat)
-            emu_steps<V_LAND, true, true>(st, bo, nullptr, nullptr, 0, 1, 0, X, Y, Z, num_steps,
-                                          p, flags, r, sh.data(), scr.data(), &fe, &fp, &ma, ke,
-                                          nullptr);
+            emu_steps<VARIANT, true, true>(st, bo, nullptr, nullptr, 0, 1, 0, X, Y, Z,
+                                           num_steps, p, flags, r, sh.data(), scr.data(), &fe,
+                                           &fp, &ma, ke, nullptr);
         else
-            emu_steps<V_LAND, false, true>(st, bo, nullptr, nullptr, 0, 1, 0, X, Y, Z, num_steps,
-                                           p, flags, r, sh.data(), scr.data(), nullptr, nullptr,
-                                           &ma, ke, nullptr);
+            emu_steps<VARIANT, false, true>(st, bo, nullptr, nullptr, 0, 1, 0, X, Y, Z,
+                                            num_steps, p, flags, r, sh.data(), scr.data(),
+                                            nullptr, nullptr, &ma, ke, nullptr);
         if (feat) store_feat(stat, fe, fp, flags);
         if (flags & F_EQUIL)
             for (int k = 0; k < 6; ++k) stat[ST_KE + k] = ke[k];
@@ -255,35 +280,47 @@ extern "C" void emu_fwd_mat(float* state, const float* body, int body_batched, f
         stat[ST_CAPT] = r.capt ? 1.f : 0.f;
     }
 }
+extern "C" void emu_fwd_mat(float* state, const float* body, int body_batched, float* stats,
+                            int B, int X, int Y, int Z, int num_steps, const float* params,
+                            int flags, const float* fparams, const float* ss, int ss_batched,
+                            int n_pts, const float* bc, int bc_batched, const float* mparams) {
+    Params p; memcpy(&p, params, sizeof(float) * N_PARAMS);
+#define RUN(VARIANT)                                                                         \
+    emu_fwd_mat_variant<VARIANT>(state, body, body_batched, stats, B, X, Y, Z, num_steps, p, \
+                                 flags, fparams, ss, ss_batched, n_pts, bc, bc_batched, mparams)
+    EMU_MAT_BY_VARIANT(flags, RUN)
+#undef RUN
+}
 // K1's volume instance (the material instance with VOL; the material
-// instance itself when the flags clear the volume bit), with the features
-// when a feature bit or a source is on, and with the dense pair pass, or the
-// compact one, when a1 is given (one thread walks every row)
-template <bool FEAT, bool VOL>
+// instance itself when the flags clear the volume bit) in the variant the
+// flags select, with the features when a feature bit or a source is on, and
+// with the dense pair pass, or the compact one, when a1 is given (one
+// thread walks every row); scr, the facet drag's per-side strains
+template <int VARIANT, bool FEAT, bool VOL>
 static void emu_vol_robot(float* st, const float* bo, const float* a1, int X, int Y, int Z,
                           int num_steps, const Params& p, int flags, Robot& r, float* sh,
-                          Feat* fe, const FeatParams* fp, const MatArgs* ma, float* ke,
-                          const VolArgs* va) {
+                          float* scr, Feat* fe, const FeatParams* fp, const MatArgs* ma,
+                          float* ke, const VolArgs* va) {
     const bool table = a1 != nullptr;
-    const auto run = k1_dense(flags, table)     ? emu_steps<V_LAND, FEAT, true, VOL, true>
-                     : k1_compact(flags, table) ? emu_steps<V_LAND, FEAT, true, VOL, false, true>
-                                                : emu_steps<V_LAND, FEAT, true, VOL>;
-    run(st, bo, a1, nullptr, 0, 1, 0, X, Y, Z, num_steps, p, flags, r, sh, nullptr, fe, fp, ma,
-        ke, va);
+    const auto run = k1_dense(flags, table)     ? emu_steps<VARIANT, FEAT, true, VOL, true>
+                     : k1_compact(flags, table) ? emu_steps<VARIANT, FEAT, true, VOL, false, true>
+                                                : emu_steps<VARIANT, FEAT, true, VOL>;
+    run(st, bo, a1, nullptr, 0, 1, 0, X, Y, Z, num_steps, p, flags, r, sh, scr, fe, fp, ma, ke,
+        va);
 }
-extern "C" void emu_fwd_vol(float* state, const float* body, int body_batched, float* stats,
-                            const float* a1, int a1_batched, int n_surf, int B, int X, int Y,
-                            int Z, int num_steps, const float* params, int flags,
-                            const float* fparams, const float* ss, int ss_batched, int n_pts,
-                            const float* bc, int bc_batched, const float* mparams,
-                            const float* vparams) {
-    Params p; memcpy(&p, params, sizeof(float) * N_PARAMS);
+template <int VARIANT>
+static void emu_fwd_vol_variant(float* state, const float* body, int body_batched, float* stats,
+                                const float* a1, int a1_batched, int n_surf, int B, int X,
+                                int Y, int Z, int num_steps, const Params& p, int flags,
+                                const float* fparams, const float* ss, int ss_batched,
+                                int n_pts, const float* bc, int bc_batched,
+                                const float* mparams, const float* vparams) {
     const FeatParams fp = feat_params_from(fparams);
     const bool feat = (flags & F_FEAT) || fp.n_src > 0;
     const bool vol = (flags & F_VOL) != 0;
     const int V = X * Y * Z;
     const size_t tab = n_surf > 0 ? (size_t)(n_surf + 1) * n_surf : (size_t)V * V;
-    std::vector<float> sh(emu_buffer_floats(V)), vscr((size_t)VOL_SCR * V);
+    std::vector<float> sh(emu_buffer_floats(V)), vscr((size_t)VOL_SCR * V), scr((size_t)6 * V);
     for (int b = 0; b < B; ++b) {
         float* stat = stats + (size_t)b * C_STAT;
         const float* bo = body + (body_batched ? (size_t)b * C_B * V : 0);
@@ -297,9 +334,12 @@ extern "C" void emu_fwd_vol(float* state, const float* body, int body_batched, f
         Robot r = load_robot(stat);
         Feat fe = load_feat(stat);
         float* st = state + (size_t)b * C_S * V;
-        const auto run = feat ? (vol ? emu_vol_robot<true, true> : emu_vol_robot<true, false>)
-                              : (vol ? emu_vol_robot<false, true> : emu_vol_robot<false, false>);
-        run(st, bo, a1b, X, Y, Z, num_steps, p, flags, r, sh.data(), feat ? &fe : nullptr,
+        const auto run = feat ? (vol ? emu_vol_robot<VARIANT, true, true>
+                                     : emu_vol_robot<VARIANT, true, false>)
+                              : (vol ? emu_vol_robot<VARIANT, false, true>
+                                     : emu_vol_robot<VARIANT, false, false>);
+        run(st, bo, a1b, X, Y, Z, num_steps, p, flags, r, sh.data(),
+            VARIANT == V_FLUID_MESH ? scr.data() : nullptr, feat ? &fe : nullptr,
             feat ? &fp : nullptr, &ma, ke, &va);
         if (feat) store_feat(stat, fe, fp, flags);
         if (flags & F_EQUIL)
@@ -310,30 +350,58 @@ extern "C" void emu_fwd_vol(float* state, const float* body, int body_batched, f
         stat[ST_CAPT] = r.capt ? 1.f : 0.f;
     }
 }
-// K1's material instance on land without the features and tables, with
-// control knots, from its own step base (B4's recompute's counterpart in
-// place; tests/test_torch_b4_host.py)
-extern "C" void emu_fwd_mat_knots(float* state, const float* body, int body_batched,
-                                  float* stats, const float* ctrl, int n_knots, int knot_steps,
-                                  int step_base, int B, int X, int Y, int Z, int num_steps,
-                                  const float* params, int flags, const float* mparams) {
+extern "C" void emu_fwd_vol(float* state, const float* body, int body_batched, float* stats,
+                            const float* a1, int a1_batched, int n_surf, int B, int X, int Y,
+                            int Z, int num_steps, const float* params, int flags,
+                            const float* fparams, const float* ss, int ss_batched, int n_pts,
+                            const float* bc, int bc_batched, const float* mparams,
+                            const float* vparams) {
     Params p; memcpy(&p, params, sizeof(float) * N_PARAMS);
+#define RUN(VARIANT)                                                                          \
+    emu_fwd_vol_variant<VARIANT>(state, body, body_batched, stats, a1, a1_batched, n_surf, B, \
+                                 X, Y, Z, num_steps, p, flags, fparams, ss, ss_batched, n_pts, \
+                                 bc, bc_batched, mparams, vparams)
+    EMU_MAT_BY_VARIANT(flags, RUN)
+#undef RUN
+}
+// K1's material instance in the variant the flags select, without the
+// features and tables, with control knots, from its own step base (B4's
+// recompute's counterpart in place; tests/test_torch_b4_host.py)
+template <int VARIANT>
+static void emu_fwd_mat_knots_variant(float* state, const float* body, int body_batched,
+                                      float* stats, const float* ctrl, int n_knots,
+                                      int knot_steps, int step_base, int B, int X, int Y, int Z,
+                                      int num_steps, const Params& p, int flags,
+                                      const float* mparams) {
     const int V = X * Y * Z;
-    std::vector<float> sh(emu_buffer_floats(V));
+    std::vector<float> sh(emu_buffer_floats(V)), scr((size_t)6 * V);
     for (int b = 0; b < B; ++b) {
         float* stat = stats + (size_t)b * C_STAT;
         const float* bo = body + (body_batched ? (size_t)b * C_B * V : 0);
         const MatArgs ma = {bo, nullptr, nullptr, 0, 0, mparams[0]};
         float ke[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
         Robot r = load_robot(stat);
-        emu_steps<V_LAND, false, true>(state + (size_t)b * C_S * V, bo, nullptr,
-                                       ctrl + (size_t)b * n_knots * V, n_knots, knot_steps,
-                                       step_base, X, Y, Z, num_steps, p, flags, r, sh.data(),
-                                       nullptr, nullptr, nullptr, &ma, ke, nullptr);
+        emu_steps<VARIANT, false, true>(state + (size_t)b * C_S * V, bo, nullptr,
+                                        ctrl + (size_t)b * n_knots * V, n_knots, knot_steps,
+                                        step_base, X, Y, Z, num_steps, p, flags, r, sh.data(),
+                                        VARIANT == V_FLUID_MESH ? scr.data() : nullptr,
+                                        nullptr, nullptr, &ma, ke, nullptr);
         stat[ST_TIME] = r.t; stat[ST_DIV] = r.div ? 1.f : 0.f;
         stat[ST_INICM] = r.ini.x; stat[ST_INICM + 1] = r.ini.y; stat[ST_INICM + 2] = r.ini.z;
         stat[ST_CAPT] = r.capt ? 1.f : 0.f;
     }
+}
+extern "C" void emu_fwd_mat_knots(float* state, const float* body, int body_batched,
+                                  float* stats, const float* ctrl, int n_knots, int knot_steps,
+                                  int step_base, int B, int X, int Y, int Z, int num_steps,
+                                  const float* params, int flags, const float* mparams) {
+    Params p; memcpy(&p, params, sizeof(float) * N_PARAMS);
+#define RUN(VARIANT)                                                                          \
+    emu_fwd_mat_knots_variant<VARIANT>(state, body, body_batched, stats, ctrl, n_knots,      \
+                                       knot_steps, step_base, B, X, Y, Z, num_steps, p, flags, \
+                                       mparams)
+    EMU_MAT_BY_VARIANT(flags, RUN)
+#undef RUN
 }
 // B4's cluster rule (fused_rollout_bwd.cuh b4_planes): x-planes a block,
 // on a card that holds at_once[C] clusters of C blocks at once (C = 1..8)
@@ -369,8 +437,8 @@ static void emu_bwd_variant(const float* state, const float* body, int body_batc
             VARIANT == V_FLUID_MESH ? scr.data() : nullptr, MAT ? &ma : nullptr);
     }
 }
-// B4 in the variant the flags select, or its material instance when the
-// nonlinear or the clamp's bit is on (mparams: the clamp's largest
+// B4 in the variant the flags select, or that variant's material instance
+// when the nonlinear or the clamp's bit is on (mparams: the clamp's largest
 // displacement a step); tape (B, num_steps + 1, NT or NT_MESH, V);
 // cluster: the blocks a robot (b4_planes)
 extern "C" void emu_bwd(const float* state, const float* body, int body_batched,
@@ -380,20 +448,18 @@ extern "C" void emu_bwd(const float* state, const float* body, int body_batched,
                         float* cot_u, const float* mparams, int cluster) {
     Params p; memcpy(&p, params, sizeof(float) * N_PARAMS);
     if (flags & (F_NONLINEAR | F_MAXVEL)) {
-        emu_bwd_variant<V_LAND, true>(state, body, body_batched, stats, ctrl, n_knots,
-                                      knot_steps, step_base, B, X, Y, Z, num_steps, p, flags,
-                                      tape, tape_t, cot, cot_u, cluster, mparams[0]);
+#define RUN_MAT(VARIANT)                                                                       \
+    emu_bwd_variant<VARIANT, true>(state, body, body_batched, stats, ctrl, n_knots, knot_steps, \
+                                   step_base, B, X, Y, Z, num_steps, p, flags, tape, tape_t,  \
+                                   cot, cot_u, cluster, mparams[0])
+        EMU_MAT_BY_VARIANT(flags, RUN_MAT)
+#undef RUN_MAT
         return;
     }
 #define RUN(VARIANT)                                                                          \
     emu_bwd_variant<VARIANT>(state, body, body_batched, stats, ctrl, n_knots, knot_steps,    \
                              step_base, B, X, Y, Z, num_steps, p, flags, tape, tape_t, cot,  \
                              cot_u, cluster)
-    switch (variant_of(flags)) {
-        case V_FLUID_FACE: RUN(V_FLUID_FACE); break;
-        case V_FLUID_MESH: RUN(V_FLUID_MESH); break;
-        case V_DEVO: RUN(V_DEVO); break;
-        default: RUN(V_LAND);
-    }
+    EMU_BY_VARIANT(flags, RUN)
 #undef RUN
 }

@@ -237,8 +237,9 @@ def test_refusals_that_stay(case):
     outside B4's envelope: `fused_bwd_call` raises NotImplementedError naming
     each, and `DiffRollout` refuses an MDL_DATA body and a body with a BC
     region by name (the JAX `DiffRollout` sets both flags off and runs
-    them). Nonlinear materials and the clamp in water or with development
-    raise by name through `check_envelope`."""
+    them). Nonlinear materials and the clamp in water and with development
+    are inside the envelope (B4's material instance of each variant);
+    ballistic development in water stays outside, by name."""
     from evosoro_tpu_torch.core import build_body, palette_from_list
     from evosoro_tpu_torch.core.types import (
         DOF_ALL,
@@ -258,10 +259,15 @@ def test_refusals_that_stay(case):
         kw = dict(dr._kw, flags=dict(dr._kw["flags"], **{flag: True}))
         with pytest.raises(NotImplementedError, match=f"'{flag}'"):
             fr.fused_bwd_call(*args, **kw)
-    for extra in (dict(fluid=True), dict(use_final_size=True)):
+    for extra in (dict(fluid=True), dict(fluid=True, fluid_mesh=True),
+                  dict(use_final_size=True)):
         kw = dict(dr._kw, flags=dict(dr._kw["flags"], **extra))
-        with pytest.raises(NotImplementedError, match="'nonlinear'"):
-            fr.fused_bwd_call(*args, **kw)
+        assert fr.diff_envelope_ok(kw["flags"], kw["scalars"])
+        fr._check_bwd(kw["flags"], kw["scalars"], K, 0, kw["total_steps"])
+    kw = dict(dr._kw, flags=dict(dr._kw["flags"], fluid=True, use_final_size=True,
+                                 ballistic=True))
+    with pytest.raises(NotImplementedError, match="'ballistic'"):
+        fr.fused_bwd_call(*args, **kw)
     # an MDL_DATA tissue, and a pinned face
     tissue = Material(1, "tissue", mat_model=MDL_DATA, ss_strain=(0.0, 0.01, 0.05),
                       ss_stress=(0.0, 5e4, 1.6e5))

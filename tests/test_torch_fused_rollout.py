@@ -163,20 +163,30 @@ def test_pair_contact_plain_matches_jax():
 @pytest.mark.parametrize("flag", ("volume", "nonlinear", "mdl_data", "plasticity",
                                   "equilibrium", "max_vel", "bc", "collision_compact"))
 def test_fused_call_refuses_flags_outside_envelope(flag, monkeypatch):
-    """The material instance's options (the land variant's), volume effects
-    among them, raise by name in water."""
+    """The material instance's options, volume effects among them, run in
+    every variant: the envelope admits each in water and with development.
+    What stays outside it raises by name before anything runs: ballistic
+    development in water, and a fixed temperature on land, with the option
+    on."""
     jb, sim, env, dt, state = _jax_setup(1, 3, 0)
     args, kw = _packed_call_args(jb, sim, env, dt, state)
     kw["flags"][flag] = True
     assert flag in fr._K1_MAT_FLAGS
-    kw["flags"]["fluid"] = True
+    for other in (dict(fluid=True), dict(use_final_size=True), dict(fluid=True, fluid_mesh=True)):
+        fr.check_envelope(dict(kw["flags"], **other), kw["scalars"])
 
     def must_not_run(*a, **k):
         raise AssertionError("the plain version ran")
 
     monkeypatch.setattr(fr, "fused_rollout_plain", must_not_run)
-    with pytest.raises(NotImplementedError, match=flag):
-        fr.fused_call(*args, num_steps=1, **kw)
+    ballistic = dict(kw, flags=dict(kw["flags"], fluid=True, use_final_size=True,
+                                    ballistic=True, window=True, n_win=4),
+                     scalars=dict(kw["scalars"], tb=0.01))
+    with pytest.raises(NotImplementedError, match="ballistic"):
+        fr.fused_call(*args, num_steps=1, **ballistic)
+    fixed = dict(kw, flags=dict(kw["flags"], temp=False, temp_enabled=True))
+    with pytest.raises(NotImplementedError, match="fixed"):
+        fr.fused_call(*args, num_steps=1, **fixed)
 
 
 def test_cuda_requests_raise_without_a_card(monkeypatch):

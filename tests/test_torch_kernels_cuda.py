@@ -774,3 +774,69 @@ def test_compact_pass_equals_the_dense_pass_on_the_card():
     with mock.patch.object(fr, "PAIR_CULL_MARGIN", -0.5):
         dropped = fr.pair_contact_forces_compact(pos, scale, compact)
     assert float((dropped - f_p).abs().max()) > 2e-3 * float(f_p.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["face", "mesh", "devo"])
+def test_material_instances_in_water_and_with_growth_match_plain_on_the_card(model):
+    """K1's material and volume instances of each variant (the bench design
+    4 x 5^3 on `materials_palette` with plasticity and the clamp, 25 steps)
+    against the plain version at the material instance's gates, with the
+    dense pass on the lattice squeezed into contact and without, and the
+    compact launch bit-equal to the dense one; B4's material instance of
+    the variant (`sqp_workload(n=4, materials=True)`, a segment in under
+    random controls) within 2e-3 of autograd a channel group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; the CUDA kernels have no CPU mode")
+    from evosoro_tpu_torch.bench import MATERIALS_MAX_VEL, packed_workload, sqp_workload
+    from evosoro_tpu_torch.core.rollout import init_state
+
+    opts = dict(fluid=model) if model != "devo" else dict(devo=True)
+    for vol in (False, True):
+        runs = {}
+        for contact in (None, "dense", "compact"):
+            args, kw, _ = packed_workload(4, n=4, collision=contact is not None,
+                                          compact=contact == "compact", device="cuda",
+                                          materials=True, volume=vol, **opts)
+            kw = dict(kw, scalars=dict(kw["scalars"], max_vel_limit=MATERIALS_MAX_VEL))
+            state = args[0].clone()
+            if contact:
+                occ = args[1][0, fr._B_OCC] > 0.5
+                p = state[:, fr._POS:fr._POS + 3]
+                c = p[:, :, occ].mean(2, keepdim=True)
+                state[:, fr._POS:fr._POS + 3] = torch.where(occ, c + 0.6 * (p - c), p)
+            args = (state,) + args[1:]
+            out_k, st_k = fr.fused_call(*args, num_steps=25, **kw)
+            out_p, st_p = fr.fused_rollout_plain(*args, num_steps=25, **kw)
+            runs[contact] = (out_k, st_k)
+            torch.testing.assert_close(out_k[:, :3], out_p[:, :3], rtol=2e-4, atol=5e-8)
+            torch.testing.assert_close(st_k[:, fr._S_TIME], st_p[:, fr._S_TIME], rtol=1e-6,
+                                       atol=0.0)
+        assert torch.equal(runs["compact"][0], runs["dense"][0])
+        assert torch.equal(runs["compact"][1], runs["dense"][1])
+
+    groups = dict(pos=(0, 3), quat=(3, 7), linmom=(7, 10), angmom=(10, 13),
+                  scale=(13, 14), memory=(17, 44), max_strain=(44, 47))
+    B, K, S, total = 4, 4, 10, 40
+    body, sim, env, dt = sqp_workload(n=4, device="cuda", materials=True, **opts)
+    kw = dict(num_steps=S, grid_shape=tuple(body.occ.shape),
+              scalars=fr.kernel_scalars(body.nominal_size, sim, env),
+              flags=fr.launch_flags(body, sim, env, collision=False, segmented=True),
+              n_knots=K, total_steps=total)
+    bp = fr.pack_body(body)
+    state = fr.pack_state_single(init_state(body))[None].expand(B, -1, -1).contiguous()
+    stats = fr.make_stats(body, B, dt, sim, env)
+    ctrl = _controls(B, K, state.shape[2], 12)
+    mid, mid_stats = fr.fused_call(state, bp, stats, None, control_packed=ctrl, seg_base=0,
+                                   **dict(kw, num_steps=20))
+    g = torch.Generator().manual_seed(5)
+    cot = torch.randn(mid.shape, generator=g).cuda()
+    cot[:, fr._TSAVG:] = 0.0
+    before = fr.FUSED_BWD_MATERIAL_LAUNCHES
+    cs_k, cu_k = fr.fused_bwd_call(mid, bp, mid_stats, ctrl, 20, cot, **kw)
+    assert fr.FUSED_BWD_MATERIAL_LAUNCHES == before + 1
+    cs_p, cu_p = fr.fused_bwd_plain(mid, bp, mid_stats, ctrl, 20, cot, **kw)
+    for a, b in groups.values():
+        top = cs_p[:, a:b].abs().max()
+        assert (cs_k[:, a:b] - cs_p[:, a:b]).abs().max() <= 2e-3 * top, a
+    assert (cu_k - cu_p).abs().max() <= 2e-3 * cu_p.abs().max() > 0

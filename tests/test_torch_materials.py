@@ -362,21 +362,25 @@ def test_supports_the_new_options_and_refuses_what_stays_outside():
     # equilibrium mode turns the clamp off, as the reference's override
     bits = fr._flag_bits(dict(flags, equilibrium=True, max_vel=True))
     assert bits & fr._K1_FLAG_BITS["equilibrium"] and not bits & fr._K1_FLAG_BITS["max_vel"]
-    # volume effects run on land, in the material instance, and need the
-    # state's coupling carry; in water they raise by name
+    # volume effects run in the material instance, on land and in water,
+    # and need the state's coupling carry
     vol = SimParams(volume_effects_enabled=True)
     assert fr.supports(body, vol, EnvParams())
     assert fr.launch_flags(body, vol, EnvParams())["volume"] and "volume" in fr._K1_MAT_FLAGS
-    with pytest.raises(NotImplementedError, match="volume"):
-        fr.check_envelope({"volume": True, "fluid": True}, {})
+    fr.check_envelope({"volume": True, "fluid": True}, {})
     with pytest.raises(ValueError, match="coupling carry"):
         sim_step(init_state(body), body, vol, EnvParams(), 1e-5)
-    # the material instance is the land variant's
+    # the material instance runs in every variant; ballistic development in
+    # water and a fixed temperature on land stay outside, by name
     water = EnvParams(fluid_environment=True, gravity_enabled=False, floor_enabled=False)
-    assert not fr.supports(body, SimParams(), water)
+    assert fr.supports(body, SimParams(), water)
     for k in fr._K1_MAT_FLAGS:
-        with pytest.raises(NotImplementedError, match=k):
-            fr.check_envelope({k: True, "use_final_size": True}, {})
+        fr.check_envelope({k: True, "use_final_size": True}, {})
+        with pytest.raises(NotImplementedError, match="ballistic"):
+            fr.check_envelope({k: True, "fluid": True, "use_final_size": True,
+                               "ballistic": True}, {})
+        with pytest.raises(NotImplementedError, match="fixed"):
+            fr.check_envelope({k: True, "temp_enabled": True}, {})
     # a stop condition other than max sim time on the fused path
     state = init_state(body)
     batched = state.replace(**{f: getattr(state, f)[None] for f in (

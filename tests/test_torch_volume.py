@@ -411,11 +411,13 @@ def test_entry_points_carry_and_refuse_as_jax():
     with pytest.raises(ValueError, match="coupling carry"):
         fr.fused_rollout(batched, body, psim, penv, 1, 1e-5)
     assert fr.supports(body, psim, penv) and jfr.supports(jb, SIM, ENV)
-    # in water and with development, volume effects raise by name
+    # in water and with development volume effects run too; ballistic
+    # development in water stays outside, by name
     flags = fr.launch_flags(body, psim, penv)
     for other in (dict(fluid=True), dict(use_final_size=True)):
-        with pytest.raises(NotImplementedError, match="volume"):
-            fr.check_envelope(dict(flags, **other), {})
+        fr.check_envelope(dict(flags, **other), {})
+    with pytest.raises(NotImplementedError, match="ballistic"):
+        fr.check_envelope(dict(flags, fluid=True, use_final_size=True, ballistic=True), {})
     # the reverse-mode kernel refuses them, as the JAX package's does
     assert not fr.diff_envelope_ok(flags, {}) and not jfr._diff_envelope_ok(
         tuple(flags.items()), ())
