@@ -111,6 +111,14 @@ workloads (`phase_mat_variants_times`), `bench.sqp(materials=True)` in each
 variant and two generations of the swimming-materials experiment, with the
 counters zeroed before and read after.
 
+`python3 chip_smoke.py --eager` runs the eager-step evaluator alone
+(`phase_eager`, also part of the full run): the eager rollout on the card
+against itself on the CPU under the limited floor with contact, 4 sources
+and windows of 13 trace steps, with the whole floor as its guard; the
+eager step's time; two generations of the `limited_floor` experiment (the
+eager route, no kernel launched); a basic generation that must take K1;
+and the kernel-vs-eager selection agreement at a cut size.
+
 `python3 chip_smoke.py --volume` runs volume effects alone
 (`phase_k1_volume`): K1's volume instance against its plain version with
 its three guards, the volume replay of an archived design and of the
@@ -3465,6 +3473,208 @@ def phase_evolution(torch, experiments=("basic", "swimming", "growth", "features
     return all_launches
 
 
+# the eager phase (`--eager`): the limited floor's radius on a 4^3 grid (the
+# voxel centres lie 0.71, 1.58 or 2.12 lattice units from its centre, so
+# the corner columns start off it, none within 0.27 units of its edge), the
+# device-parity run's steps, four sources (K1 tracks 3), and the cuts that
+# keep the phase near 150 s. The eager step issues some 2500 kernel
+# launches from Python and takes 52-58 ms on an H100 whatever the batch
+# (4 x 4^3 to 64 x 6^3, contact on or off), so a phase's time is its step
+# count: 0.01 s of sim time puts the soft and the stiff (bone) designs of
+# the basic genome in one 256-step launch
+EAGER_RADIUS = 0.0185
+EAGER_PARITY_STEPS = 200
+EAGER_SOURCES = [dict(pos=(0.2, 0.03, 0.03), amp=(0.0, 0.05, 0.0), freq=(0.0, 0.5, 0.0),
+                      enabled=True),
+                 dict(pos=(-0.1, 0.0, 0.02), enabled=True),
+                 dict(pos=(0.0, 0.3, 0.0), amp=(0.02, 0.0, 0.0), freq=(1.0, 0.0, 0.0),
+                      enabled=True),
+                 dict(pos=(0.05, 0.05, 0.1), enabled=False)]
+EAGER_GEN = dict(pop_size=8, sim_time=0.01, init_time=0.002)
+EAGER_SELECT = dict(pop=16, size=6, sim_time=0.01, init_time=0.002)
+
+
+def _eager_case(torch, np, device, limited=True, dtype=None):
+    """(body, sim, env, dt) of the device-parity run: 4 random 4^3 designs
+    of soft materials and muscle (no bone, whose dt is ten times smaller),
+    each with its contact tables and its own actuation period, under the
+    limited floor (or the whole floor), with 4 sources and speed windows of
+    13 trace steps, built on the host in `dtype` (float32 by default) and
+    copied to `device`."""
+    dtype = dtype or torch.float32
+    from evosoro_tpu_torch.core.collision import build_collision_system, stack_collision_systems
+    from evosoro_tpu_torch.core.materials import (
+        build_body,
+        calc_max_dt,
+        palette_from_list,
+        stack_bodies,
+    )
+    from evosoro_tpu_torch.core.types import EnvParams, SimParams, evosoro_default_palette
+    from evosoro_tpu_torch.envs.sources import make_sources
+
+    rng = np.random.default_rng(23)
+    pal = palette_from_list(evosoro_default_palette())
+    bodies, systems = [], []
+    for _ in range(4):
+        s = rng.choice(np.array([0, 1, 3, 4], np.int32), size=(4, 4, 4))
+        s[1:3, 1:3, 0] = 3  # a muscle footing under the floor's centre
+        bodies.append(build_body(s, pal, phase_offset=rng.uniform(-1, 1, (4, 4, 4)),
+                                 dtype=dtype, device="cpu"))
+        systems.append(build_collision_system(s, pal.elastic_mod.numpy()[s], 0.01))
+    body = stack_bodies(bodies, device=device).replace(
+        collision=stack_collision_systems(systems, device=device, dtype=dtype))
+    sim = SimParams(init_cm_time=0.0, self_collisions_enabled=True)
+    env = EnvParams(temp_amplitude=39.0,
+                    temp_period=torch.tensor([0.01, 0.012, 0.015, 0.02], dtype=dtype,
+                                             device=device),
+                    floor_limited=limited, floor_radius=EAGER_RADIUS,
+                    num_trace_steps_in_window=13,
+                    sources=make_sources(EAGER_SOURCES).to(device))
+    return body, sim, env, calc_max_dt(body) * sim.dt_frac
+
+
+def _eager_step_ms(torch, device, pop=16, size=6, steps=20, collision=True):
+    """(ms a step of the eager evaluator, robots): `pop` valid basic designs
+    of size^3, contact on or off, timed over `steps` steps after a short
+    warm-up (the evaluator's own clock: its rollout and the copy back)."""
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.evo import evaluation
+
+    sim, env, p = bench.basic_experiment(pop_size=2 * pop, size=(size,) * 3)
+    if not collision:
+        sim.self_collisions_enabled = 0
+    inds = [i for i in p if i.phenotype.is_valid()][:pop]
+    all_fields, all_env, _ = evaluation._batch_fields(sim, env, inds)
+    fn, inputs = evaluation._eager_inputs(sim, env, inds[0].genotype.orig_size_xyz,
+                                          all_fields, all_env, steps, device)
+    fn(*inputs, num_steps=5)
+    torch.cuda.synchronize()
+    fn(*inputs, num_steps=steps)
+    return 1e3 * evaluation.LAST_DISPATCH_TIMING["launch_s"] / steps, len(inds)
+
+
+def phase_eager(torch, np, card):
+    """The eager-step evaluator on the card (JAX's second evaluator path).
+    (a) Device parity: `_eager_case` in float64 through
+    `core.rollout.rollout` on the card and on the CPU, EAGER_PARITY_STEPS
+    actuated steps, every state channel at TOL; the guard, the same run on
+    the whole floor, parts from the limited one by more than TOL. In
+    float32 the two devices' ulps (other sum orders and libm) grow past TOL
+    within 200 steps (friction's static test and the quaternion snap at w
+    >= 1 decide on the last bit; on an H100: 5.3e-6 m in pos, 4.3e-5 in
+    linmom before the actuation onset), as the two packages' do on the
+    CPU (ROADMAP section C), so the eager paths compare in float64; the
+    float32 run is held to the chaotic-drift band (DRIFT_BOUND_M on
+    positions, a 100-step band) over 50 steps. (b) The eager step's time a
+    step at 16 x 6^3 with and without contact. (c) Two generations of the `limited_floor`
+    experiment through `evaluate_all` on the card (EAGER_GEN: population
+    and sim time cut to fit the phase): every bucket takes the eager step,
+    the warning line is printed, and no kernel launches. (d) A generation
+    of the basic experiment, inside K1's envelope: every bucket takes K1,
+    whose launch counter moves. (e) The kernel-vs-eager selection agreement
+    (`evosoro_tpu_torch.selection_agreement`) at EAGER_SELECT, cut from
+    JAX's 32 x 10^3 x 5 s: information, not a gate. Returns K1's launches in
+    (d) and (e), with contact, for the kernels line."""
+    from unittest import mock
+
+    from evosoro_tpu_torch import bench, selection_agreement
+    from evosoro_tpu_torch.core.rollout import rollout
+    from evosoro_tpu_torch.evo import logging as evo_logging
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+
+    def run(device, limited=True, steps=EAGER_PARITY_STEPS, dtype=torch.float64):
+        body, sim, env, dt = _eager_case(torch, np, device, limited, dtype)
+        res = rollout(body, sim, env, num_steps=steps, dt=dt)
+        return {k: getattr(res.final_state, k).cpu() for k in TOL}
+
+    t0 = time.perf_counter()
+    card_state = run("cuda")
+    card_s = time.perf_counter() - t0
+    cpu_state, guard = run("cpu"), run("cuda", limited=False)
+    drift = float((run("cuda", steps=50, dtype=torch.float32)["pos"]
+                   - run("cpu", steps=50, dtype=torch.float32)["pos"]).abs().max())
+    errs, within, guard_out = {}, {}, {}
+    for k, (rtol, atol) in TOL.items():
+        a, b = card_state[k].double(), cpu_state[k].double()
+        errs[k] = float((a - b).abs().max())
+        within[k] = bool(torch.allclose(a, b, rtol=rtol, atol=atol))
+        g = guard[k].double()
+        guard_out[k] = not bool(torch.allclose(g, b, rtol=rtol, atol=atol))
+        errs["guard_" + k] = float((g - b).abs().max())
+    rec = dict(phase="eager_parity", case="4 x 4^3 in float64, limited floor r=%g m, contact, "
+               "4 sources, windows of 13, a period per robot" % EAGER_RADIUS,
+               steps=EAGER_PARITY_STEPS, card=card, card_s=card_s, within_tol=within,
+               guard_parts=guard_out, actuated_50_steps_float32_pos_drift_m=drift,
+               drift_bound_m=DRIFT_BOUND_M, **errs)
+    emit(rec)
+    assert all(within.values()), rec
+    assert guard_out["pos"], rec  # the limited floor moved the voxels
+    assert drift <= DRIFT_BOUND_M, rec
+
+    steps = {}
+    for coll in (True, False):
+        ms, n = _eager_step_ms(torch, "cuda", collision=coll)
+        steps["contact" if coll else "no_contact"] = dict(ms_per_step=ms, batch=n)
+    emit(dict(phase="eager_step_time", workload="eager evaluator, basic designs, 6^3",
+              card=card, **steps))
+
+    counters = ("FUSED_ROLLOUT_LAUNCHES", "FUSED_ROLLOUT_CONTACT_LAUNCHES")
+
+    def zero():
+        for name in counters:
+            setattr(fr, name, 0)
+
+    lines = []
+    real_message = evo_logging.PrintLog.message
+
+    def keep(self, content, timer_name=None):
+        lines.append(str(content))
+        return real_message(self, content, timer_name)
+
+    zero()
+    with mock.patch.object(evo_logging.PrintLog, "message", keep):
+        records = bench.evolution(gens=2, device="cuda", experiment="limited_floor",
+                                  **EAGER_GEN)
+    k1_limited = fr.FUSED_ROLLOUT_LAUNCHES
+    for r in records:
+        fits = r.pop("fitnesses")
+        steps_run = sum(b["num_steps"] for b in r["buckets"])
+        r.update(phase="eager_evolution", experiment="limited_floor", card=card,
+                 s_per_gen=r["eval_s"], steps_run=steps_run,
+                 eager_ms_per_step=1e3 * r["launch_s"] / max(1, steps_run),
+                 all_finite=all(np.isfinite(fits)), **EAGER_GEN)
+        emit(r)
+        assert r["used_fused"] is False and "limited floor" in r["eager_reason"], r
+        assert r["all_finite"], r
+    assert k1_limited == 0, k1_limited  # the eager step launches no kernel
+    assert any(line.startswith("WARNING: generation leaving the fused K1 path")
+               and "limited floor" in line for line in lines)
+
+    zero()
+    records = bench.evolution(gens=1, device="cuda", experiment="basic", **EAGER_GEN)
+    k1_inside = {name: getattr(fr, name) for name in counters}
+    for r in records:
+        r.pop("fitnesses")
+        emit(dict(r, phase="eager_phase_k1_generation", card=card))
+        assert r["used_fused"] is True and r["eager_reason"] is None, r
+    assert k1_inside["FUSED_ROLLOUT_LAUNCHES"] > 0, k1_inside
+
+    zero()
+    sel = selection_agreement.agreement(device="cuda", **EAGER_SELECT)
+    k1_select = {name: getattr(fr, name) for name in counters}
+    sel.update(phase="eager_selection_agreement", card=card,
+               cut="population %d of %d^3 for %g s of sim time from %g s, where the JAX "
+               "record (SELECTAGREE.json) has 32 of 10^3 for 5 s from 0.4 s" % (
+                   EAGER_SELECT["pop"], EAGER_SELECT["size"], EAGER_SELECT["sim_time"],
+                   EAGER_SELECT["init_time"]))
+    emit(sel)
+    assert k1_select["FUSED_ROLLOUT_LAUNCHES"] > 0, k1_select
+    return dict(
+        fused_rollout=k1_inside["FUSED_ROLLOUT_LAUNCHES"] + k1_select["FUSED_ROLLOUT_LAUNCHES"],
+        fused_rollout_with_contact=k1_inside["FUSED_ROLLOUT_CONTACT_LAUNCHES"]
+        + k1_select["FUSED_ROLLOUT_CONTACT_LAUNCHES"])
+
+
 def phase_throughput(torch, card):
     from evosoro_tpu_torch.bench import throughput
 
@@ -4335,6 +4545,13 @@ def main():
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return None
+    if sys.argv[1:] == ["--eager"]:
+        phase_eager(torch, np, card)
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return None
     if sys.argv[1:] in (["--features"], ["--materials"], ["--volume"]):
         if sys.argv[1:] == ["--features"]:
             phase_k1_features(torch)
@@ -4369,6 +4586,7 @@ def main():
     featx, balx = evo_launches["features"], evo_launches["ballistic"]
     matx = evo_launches["materials"]
     swimx = evo_launches["swimming_materials"]
+    eager = phase_eager(torch, np, card)
     mpc_launches, knot_timed, loop_recs = phase_mpc(torch, np)
     b4 = phase_b4(torch, np)
     b4_timed = next(r for r in b4 if "ms" in r)
@@ -4414,7 +4632,7 @@ def main():
              + mat_launches["fused_rollout"]
              + vol["replay_launches"]["fused_rollout"] + vol["evolution"]["fused_rollout"]
              + vol["mpc_launches"]["fused_rollout"] + big_k1 + swimx["fused_rollout"]
-             + sum(v["fused_rollout"] for v in sqp_mv.values()),
+             + sum(v["fused_rollout"] for v in sqp_mv.values()) + eager["fused_rollout"],
              launches_evolution=launches["fused_rollout"],
              launches_swimming=swim["fused_rollout"],
              launches_growth=grow["fused_rollout"],
@@ -4432,6 +4650,7 @@ def main():
              launches_swimming_materials=swimx["fused_rollout"],
              launches_sqp_materials_water_growth=sum(v["fused_rollout"]
                                                      for v in sqp_mv.values()),
+             launches_eager_phase=eager["fused_rollout"],
              **bound_keys(k1_timed),
              max_abs_err=max(r["pos"] for r in k1),
              err_of=("pos (m), evaluator batch %d x 6^3, 1/25/100 steps, "
@@ -4442,7 +4661,7 @@ def main():
              % k1_timed["batch"], **_step_extras(step)[0]),
         _k2_row(k2, pair, bound_keys, launches["pair_contact"] + mpc_launches["pair_contact"],
                 launches["fused_rollout_with_contact"] + swim["fused_rollout_with_contact"]
-                + grow["fused_rollout_with_contact"]),
+                + grow["fused_rollout_with_contact"] + eager["fused_rollout_with_contact"]),
         dict(name="K1 control knots + segments (B3)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fused_rollout.cu",
              replaces="evosoro_tpu/ops/fused_rollout.py:1710",

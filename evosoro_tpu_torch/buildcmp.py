@@ -10,10 +10,9 @@ stripped). A function whose parameters changed keeps its name and is
 compared under it; a kernel that gained a last template bit is compared,
 with the bit off, with the other tree's instance of its other arguments.
 The report sorts the functions that differ into those that differ by
-design (`BY_DESIGN`: none of the parent's kernels; it names K1's and B4's
-material instances in water and with growth, new in this tree) and the
-others (with where each one's SASS first parts from the other tree's), checks that the functions only one tree holds change by design
-(this tree's new instances), and
+design (`BY_DESIGN`: empty, this tree changes no kernel) and the others
+(with where each one's SASS first parts from the other tree's), checks
+that the functions only one tree holds change by design (none), and
 that every other kernel of K1, B4 and K2 is compared and unchanged
 (`k1_k2_unchanged`). It also reports the registers and spills ptxas gave
 every K1 and B4 kernel in both trees (`ptxas`). Prints one JSON object.
@@ -53,12 +52,9 @@ from pathlib import Path
 
 LIBS = ("fused_rollout", "fused_rollout_bwd", "pair_contact")
 # the kernel functions whose machine code this tree changes on purpose, by
-# name, with the template arguments of the instances that change (None:
-# every instance): K1's and B4's material instances in water and with
-# growth, new in this tree (csrc/fused_rollout_matvar.cuh,
-# fused_rollout_bwd_matvar.cu). Every kernel the parent holds keeps its
-# machine code.
-BY_DESIGN = {"fused_rollout_matvar_kernel": None, "fused_rollout_bwd_matvar_kernel": None}
+# name, with a rule on the template arguments of the instances that change
+# (None: every instance): none, this tree adds and changes no kernel.
+BY_DESIGN: dict = {}
 _BUILD = ("from evosoro_tpu_torch.ops import build; build.build_all(%r); "
           "[print(build._lib_path(n)) for n in %r]" % (LIBS, LIBS))
 

@@ -2,8 +2,10 @@
 
 The inputs are `evosoro_tpu` structs whose array leaves are numpy arrays
 (for example `jax.tree_util.tree_map(np.asarray, body)`); this module never
-imports JAX. Floating arrays become `dtype` tensors on `device`, boolean and
-integer arrays keep their kind, Python scalars and static flags stay as they
+imports JAX. Stacked environment params (one value a robot, as a vmapped
+evaluator holds them) come across as tensors of the batch shape. Floating
+arrays become `dtype` tensors on `device`, boolean and integer arrays keep
+their kind, Python scalars and static flags stay as they
 are; a body's collision and mesh-drag tables, its development fields, its
 MDL_DATA tables (`ss_*_vox`) and boundary conditions (`dof_fixed`,
 `external_*`) come across with it, and a state's plastic strain offset,
@@ -82,13 +84,16 @@ def mesh_drag_from_numpy(sys, device="cpu", dtype=torch.float32) -> MeshDragSyst
 
 
 def _params(cls, src):
+    """Python values stay; a 0-d array becomes a float, an array of a batch
+    shape (a leaf of stacked params, one value a robot) a tensor."""
     out = {}
     for f in dataclasses.fields(cls):
         v = getattr(src, f.name)
         if isinstance(v, (bool, int, float, str)) or v is None:
             out[f.name] = v
         else:
-            out[f.name] = float(np.asarray(v))
+            a = np.array(v)  # a copy: the source may be read-only
+            out[f.name] = float(a) if a.ndim == 0 else torch.as_tensor(a)
     return cls(**out)
 
 

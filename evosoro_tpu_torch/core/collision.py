@@ -8,7 +8,9 @@ part is precomputed on the host once per design (numpy, copied from the JAX
 package): the surface voxel list and the "nearby in the lattice" pair
 exclusion. `collision_forces` then evaluates the full masked S×S pair field
 every step, a superset of the reference's candidate list with identical
-physics.
+physics, for one design or for a batch of different designs whose tables
+are padded to one S and stacked (`pad_collision_system`,
+`stack_collision_systems`).
 
 Contact model (VXS_BondCollision.cpp:41-59): overlap when
 dist < 0.75·(s1+s2); repulsion F = a1·overlap along the centre line, no
@@ -161,23 +163,78 @@ def build_collision_system(
     )
 
 
+def pad_collision_system(cs: CollisionSystem, S: int) -> CollisionSystem:
+    """Zero-pad a CollisionSystem's surface dimension to S so that
+    different designs stack into one batch (pad entries are fully masked;
+    numpy, on the host)."""
+    S0 = cs.surf_idx.shape[0]
+    if S0 == S:
+        return cs
+    if S0 > S:
+        raise ValueError(f"cannot shrink collision system {S0} -> {S}")
+    pad = S - S0
+    return CollisionSystem(
+        surf_idx=np.pad(np.asarray(cs.surf_idx), ((0, pad), (0, 0))),
+        surf_mask=np.pad(np.asarray(cs.surf_mask), (0, pad)),
+        pair_a1=np.pad(np.asarray(cs.pair_a1), ((0, pad), (0, pad))),
+        allowed=np.pad(np.asarray(cs.allowed), ((0, pad), (0, pad))),
+    )
+
+
+def stack_collision_systems(systems, device=None, dtype=torch.float32) -> CollisionSystem:
+    """One CollisionSystem for a batch of designs: each padded to the
+    batch's largest surface count and stacked along a leading batch axis,
+    as tensors on `device` (copied once, not every step)."""
+    S = max(cs.surf_idx.shape[0] for cs in systems)
+    padded = [pad_collision_system(cs, S) for cs in systems]
+
+    def stack(name, **kw):
+        return torch.as_tensor(np.stack([np.asarray(getattr(cs, name)) for cs in padded]),
+                               device=device, **kw)
+
+    return CollisionSystem(surf_idx=stack("surf_idx", dtype=torch.int64),
+                           surf_mask=stack("surf_mask"),
+                           pair_a1=stack("pair_a1", dtype=dtype),
+                           allowed=stack("allowed"))
+
+
+def attach_collision_system(body, collision_horizon: float = 2.0,
+                            pad_to: int | None = None):
+    """Return `body` (one design) with its CollisionSystem built and
+    attached."""
+    cs = build_collision_system(
+        body.mat.cpu().numpy(),
+        body.e_mod.cpu().numpy(),
+        float(body.nominal_size),
+        collision_horizon=collision_horizon,
+        pad_to=pad_to,
+        dtype=body.nom_pos.cpu().numpy().dtype,
+    )
+    return body.replace(collision=cs)
+
+
 def collision_forces(pos, scale, colsys: CollisionSystem):
     """Dense (..., X, Y, Z, 3) contact force field for the current voxel
-    poses of one design (leading batch dims allowed).
+    poses. `colsys` holds one design's tables (S, ...) or a stack of them
+    with leading batch dimensions (..., S, ...), which the leading
+    dimensions of `pos` end with (`stack_collision_systems`).
 
     For each ordered surface pair (i, j): overlap = 0.75·(sᵢ+sⱼ) − |pⱼ−pᵢ|;
     force on i = −a1·overlap·(pⱼ−pᵢ)/|pⱼ−pᵢ| when overlap > 0
     (reference: VXS_BondCollision.cpp:41-59)."""
     dev = pos.device
-    idx = torch.as_tensor(np.asarray(colsys.surf_idx), dtype=torch.int64,
-                          device=dev)
-    allowed = torch.as_tensor(np.asarray(colsys.allowed), device=dev)
-    pair_a1 = torch.as_tensor(np.asarray(colsys.pair_a1), dtype=pos.dtype,
-                              device=dev)
-    surf_mask = torch.as_tensor(np.asarray(colsys.surf_mask), device=dev)
-    i0, i1, i2 = idx[:, 0], idx[:, 1], idx[:, 2]
-    ps = pos[..., i0, i1, i2, :]  # (..., S, 3)
-    sc = scale[..., i0, i1, i2]  # (..., S)
+    idx = torch.as_tensor(colsys.surf_idx, device=dev).to(torch.int64)
+    allowed = torch.as_tensor(colsys.allowed, device=dev)
+    pair_a1 = torch.as_tensor(colsys.pair_a1, device=dev).to(pos.dtype)
+    surf_mask = torch.as_tensor(colsys.surf_mask, device=dev)
+    X, Y, Z = pos.shape[-4:-1]
+    V, S = X * Y * Z, idx.shape[-2]
+    lead = tuple(pos.shape[:-4])
+    # each surface entry's flat voxel index, over the state's leading shape
+    flat = ((idx[..., 0] * Y + idx[..., 1]) * Z + idx[..., 2]).expand(lead + (S,))
+    ps = torch.gather(pos.reshape(lead + (V, 3)), -2,
+                      flat[..., None].expand(lead + (S, 3)))  # (..., S, 3)
+    sc = torch.gather(scale.reshape(lead + (V,)), -1, flat)  # (..., S)
 
     diff = ps[..., None, :, :] - ps[..., :, None, :]  # pⱼ − pᵢ at [i, j]
     dist2 = (diff * diff).sum(-1)
@@ -187,12 +244,12 @@ def collision_forces(pos, scale, colsys: CollisionSystem):
     active = allowed & (overlap > 0.0)
     mag = torch.where(active, pair_a1 * overlap / dist, 0.0)
     f = -(mag[..., None] * diff).sum(-2)  # (..., S, 3), force on i
-    f = torch.where(surf_mask[:, None], f, 0.0)
+    f = torch.where(surf_mask[..., None], f, 0.0)
 
-    # surface lattice coordinates are unique, so assignment is the scatter
-    # (pad entries repeat index 0 with zero force; keep only live rows)
-    live = torch.as_tensor(np.nonzero(np.asarray(colsys.surf_mask))[0],
-                           dtype=torch.int64, device=dev)
-    dense = torch.zeros_like(pos)
-    dense[..., i0[live], i1[live], i2[live], :] = f[..., live, :]
-    return dense
+    # surface lattice coordinates are unique within a design, so assignment
+    # is the scatter; pad entries (index 0 repeated, zero force) go to a
+    # slot past the grid that is dropped
+    dst = torch.where(surf_mask.expand(lead + (S,)), flat, V)
+    dense = pos.new_zeros(lead + (V + 1, 3)).scatter(
+        -2, dst[..., None].expand(lead + (S, 3)), f)
+    return dense[..., :V, :].reshape(pos.shape)

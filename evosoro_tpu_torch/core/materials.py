@@ -10,6 +10,8 @@ Replicates the derived quantities of the reference engine:
 
 from __future__ import annotations
 
+import dataclasses
+
 from typing import Sequence
 
 import numpy as np
@@ -320,6 +322,29 @@ def build_body(
         using_start_growth_time=start_growth_time is not None,
         **ss_fields,
     )
+
+
+def stack_bodies(bodies, device=None) -> VoxelBody:
+    """One VoxelBody for a batch of designs of one grid: every tensor field
+    stacked along a new leading axis on `device`. The Python fields (the
+    lattice pitch, the material and development switches) must agree; the
+    collision and mesh-drag tables are attached by the caller
+    (`core.collision.stack_collision_systems`,
+    `envs.drag.build_mesh_drag_batch`)."""
+    out = {}
+    for f in dataclasses.fields(VoxelBody):
+        vals = [getattr(b, f.name) for b in bodies]
+        if f.name in ("collision", "mesh_drag"):
+            out[f.name] = None
+        elif torch.is_tensor(vals[0]):
+            out[f.name] = torch.stack(vals).to(device)
+        elif vals[0] is None or all(v == vals[0] for v in vals):
+            if any((v is None) != (vals[0] is None) for v in vals):
+                raise ValueError(f"stack_bodies: {f.name} is set on some bodies only")
+            out[f.name] = vals[0]
+        else:
+            raise ValueError(f"stack_bodies: the bodies' {f.name} differ")
+    return VoxelBody(**out)
 
 
 def devo_params_from_vxa(raw: dict, sim, env, nominal_size, structure) -> dict:

@@ -34,8 +34,9 @@ _BIG = 1e5  # reference sentinel for "min over voxels" scans (VX_Sim.cpp:2603)
 
 def init_state(body: VoxelBody, dtype=None, volume_effects: bool = False,
                ballistic_devo: bool = False) -> SimState:
-    """Initial rest state of one robot (reference: VXS_Voxel.cpp:95-134
-    ResetVoxel), on the body's device.
+    """Initial rest state of one robot, or of a batch of them when the body
+    is a stack of designs (its leading dimensions) (reference:
+    VXS_Voxel.cpp:95-134 ResetVoxel), on the body's device.
 
     `volume_effects`: carry the Poisson coupling's per-side transverse
     strain sums (zeros) and cross-sections (L²) (reference:
@@ -46,23 +47,25 @@ def init_state(body: VoxelBody, dtype=None, volume_effects: bool = False,
     development can rebase the per-voxel development fields every step
     (reference: VXS_Voxel.cpp:342-381; see types.DevoState)."""
     X, Y, Z = body.occ.shape[-3:]
+    b = tuple(body.occ.shape[:-3])
+    grid = b + (X, Y, Z)
     dtype = dtype or body.nom_pos.dtype
     dev = body.nom_pos.device
-    nom = torch.full((X, Y, Z), body.nominal_size, dtype=dtype, device=dev)
+    nom = torch.full(grid, body.nominal_size, dtype=dtype, device=dev)
 
     def z(*shape):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+        return torch.zeros(b + shape, dtype=dtype, device=dev)
 
     vol = {}
     if volume_effects:
         L2 = body.nominal_size * body.nominal_size
         vol = dict(ts_sum=z(2, 3, X, Y, Z),
-                   cs_area=torch.full((2, 3, X, Y, Z), L2, dtype=dtype, device=dev),
+                   cs_area=torch.full(b + (2, 3, X, Y, Z), L2, dtype=dtype, device=dev),
                    cur_dt=z())
     devo = None
     if ballistic_devo:
         def f(a):
-            return torch.as_tensor(a, device=dev).to(dtype).expand(X, Y, Z).clone()
+            return torch.as_tensor(a, device=dev).to(dtype).expand(grid).clone()
 
         devo = DevoState(
             initial_voxel_size=f(body.initial_voxel_size),
@@ -71,28 +74,28 @@ def init_state(body: VoxelBody, dtype=None, volume_effects: bool = False,
             growth_time=f(body.growth_time),
             start_growth_time=f(body.start_growth_time),
             win_prev=z(), win_last=z(),
-            win_count=torch.zeros((), dtype=torch.int32, device=dev),
+            win_count=torch.zeros(b, dtype=torch.int32, device=dev),
         )
     return SimState(
         **vol,
         devo=devo,
         pos=body.nom_pos.to(dtype).clone(),
-        quat=q.quat_identity((X, Y, Z), dtype=dtype, device=dev),
+        quat=q.quat_identity(grid, dtype=dtype, device=dev),
         linmom=z(X, Y, Z, 3),
         angmom=z(X, Y, Z, 3),
         scale=nom,
         last_scale=nom.clone(),
-        small_angle=torch.ones((3, X, Y, Z), dtype=torch.bool, device=dev),
+        small_angle=torch.ones(b + (3, X, Y, Z), dtype=torch.bool, device=dev),
         last_pos2=z(3, X, Y, Z, 3),
         last_angle1=z(3, X, Y, Z, 3),
         last_angle2=z(3, X, Y, Z, 3),
         max_strain=z(3, X, Y, Z),
         strain_offset=z(3, X, Y, Z),
         time=z(),
-        diverged=torch.zeros((), dtype=torch.bool, device=dev),
+        diverged=torch.zeros(b, dtype=torch.bool, device=dev),
         # the reference clears energy histories to -1 sentinels
         # (VX_Sim.h:421 ClearHistories)
-        ke_history=torch.full((6,), -1.0, dtype=dtype, device=dev),
+        ke_history=torch.full(b + (6,), -1.0, dtype=dtype, device=dev),
         total_strain_e=z(),
         max_vox_vel=z(),
     )

@@ -23,7 +23,8 @@ voxel-face approximation, and its simpler actuation) and development
 size-capped actuation, and the ballistic rebase of a state's DevoState
 from its speed windows) and volume effects (the Poisson-coupled bond
 stress with its thermal term, the per-step dt and the voxel pass's
-transverse coupling). The limited floor raises NotImplementedError.
+transverse coupling) and the circular limited floor. Dt reduction across
+shards raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -140,13 +141,8 @@ def _from_nbrv(a, d):
 
 def _check_envelope(sim: SimParams, env: EnvParams, dt_reduce):
     """Raise NotImplementedError for every feature outside the port's step."""
-    refused = [
-        ("limited floor", env.floor_limited),
-        ("dt reduction across shards", dt_reduce is not None),
-    ]
-    for name, on in refused:
-        if on:
-            raise NotImplementedError(f"sim_step: {name} is not ported yet")
+    if dt_reduce is not None:
+        raise NotImplementedError("sim_step: dt reduction across shards is not ported yet")
 
 
 def has_bc(body: VoxelBody) -> bool:
@@ -535,6 +531,16 @@ def _floor_effect(state, body, sim: SimParams, env: EnvParams, vel,
     linmom = state.linmom
 
     pen = 0.5 * state.scale - pos[..., 2]
+    if env.floor_limited:
+        # the circular limited floor around the workspace's centre
+        # (reference: VXS_Voxel.cpp:677-700 insideLimitedFloor); X and Y from
+        # the grid's own axes, so that a batch of bodies works
+        X, Y = body.occ.shape[-3:-1]
+        dx = pos[..., 0] - body.nominal_size * X * 0.5
+        dy = pos[..., 1] - body.nominal_size * Y * 0.5
+        r = torch.sqrt(dx ** 2 + dy ** 2)
+        inside = (r <= _vox(env.floor_radius)) & (pos[..., 2] >= 0)
+        pen = torch.where(inside, pen, 0.0)
     pen = torch.where(pen > 0, pen, 0.0)
     contact = pen > 0
 
@@ -1037,8 +1043,10 @@ def freeze_where(frozen, old: SimState, new: SimState) -> SimState:
 
 def _collision(state: SimState, body: VoxelBody):
     """Contact forces from the body's collision tables: a CollisionSystem
-    (one design), or the fused path's dense (..., V, V) pair table or its
-    surface-compacted table (`ops.fused_rollout.CompactTable`)."""
+    of one design or a stack of them, one a robot
+    (`core.collision.stack_collision_systems`, the eager evaluator's), or
+    the fused path's dense (..., V, V) pair table or its surface-compacted
+    table (`ops.fused_rollout.CompactTable`)."""
     if isinstance(body.collision, CollisionSystem):
         return collision_forces(state.pos, state.scale, body.collision)
     from evosoro_tpu_torch.ops.fused_rollout import (

@@ -2,9 +2,9 @@
 
 The port of `evosoro_tpu.envs`: each preset is a constructor of `EnvParams`
 (reference: examples/basic.py:134, growth.py:98-99,
-swimming_basic.py:135-138). The boundary-condition region helpers are in
-`regions.py`. The circular limited floor (`limited_floor`) is not ported
-yet: the eager step refuses it.
+swimming_basic.py:135-138), the circular limited floor among them
+(`limited_floor`, which K1 does not run: the evaluator sends it to the eager
+step). The boundary-condition region helpers are in `regions.py`.
 """
 
 from __future__ import annotations
@@ -62,5 +62,22 @@ def aquatic(
         gravity_enabled=False,
         floor_enabled=False,
         aggregate_drag_coefficient=aggregate_drag_coefficient,
+        lattice_dim=lattice_dim,
+    )
+
+
+def limited_floor(
+    floor_radius: float,
+    frequency: float = 4.0,
+    temp_amp: float = 39.0,
+    lattice_dim: float = 0.01,
+) -> EnvParams:
+    """Circular limited floor (reference: VXS_Voxel.cpp:677-700
+    GetCurGroundPenetration's insideLimitedFloor test)."""
+    return EnvParams(
+        temp_amplitude=temp_amp,
+        temp_period=1.0 / frequency,
+        floor_limited=True,
+        floor_radius=floor_radius,
         lattice_dim=lattice_dim,
     )

@@ -28,13 +28,23 @@ counts are padded by 15 % and a launch is made again, at most twice and
 1.5 times as long, while a live robot ends short of the stop time (the JAX
 package's rule).
 
-Not ported yet: the jnp-scan fallback evaluator (`make_batched_evaluator`)
-and the tags only it fills, the multi-device sharding.
+A bucket that K1 does not run goes to the eager evaluator
+(`make_batched_evaluator`, the JAX package's second path): one eager-step
+rollout (`core.rollout.rollout`) over the bucket's bodies, each with its own
+dt, environment scalars and contact or facet-drag tables. The route is
+decided once per bucket, before anything runs: the eager step when K1's
+`supports()` is false for the bucket's first design (the limited floor,
+more than 3 sources, windows over 12 trace steps, ballistic development in
+a fluid, a fixed temperature on land) or when an objective tag that only
+the eager path fills is named; K1 otherwise. A K1 error raises; it never
+sends a generation to the eager step. An eager generation prints a warning
+line with its reasons. Not ported yet: the multi-device sharding.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import time
 
 import numpy as np
@@ -47,7 +57,7 @@ from evosoro_tpu_torch.core.materials import (
     palette_from_list,
 )
 from evosoro_tpu_torch.core.rollout import init_state, relaunch_until_stop
-from evosoro_tpu_torch.core.types import evosoro_default_palette
+from evosoro_tpu_torch.core.types import EnvParams, evosoro_default_palette
 from evosoro_tpu_torch.device import resolve_device
 from evosoro_tpu_torch.ops import fused_rollout as fr
 
@@ -65,11 +75,8 @@ _TAG_TO_FIELD = {
     "<Stiffness>": "stiffness",
 }
 
-# result-XML tags -> packed_metrics keys (reference: VX_SimGA.cpp:140-203).
-# The JAX package's other eight tags (<FinalDist>, <AnteriorDist>,
-# <PosteriorDist>, <AnteriorY>, <PosteriorY>, <NumTouchingFloor>,
-# <NumNonFeetTouchingFloor>, <Lifetime>) are filled only by its eager
-# evaluator, not ported yet: they raise by name
+# result-XML tags -> result keys (reference: VX_SimGA.cpp:140-203): those
+# of `packed_metrics`, which both paths fill
 _OBJECTIVE_TAG_TO_RESULT = {
     "<NormFinalDist>": "norm_final_dist",
     "<normAbsoluteDistance>": "norm_final_dist",
@@ -84,6 +91,20 @@ _OBJECTIVE_TAG_TO_RESULT = {
     "<PushDist>": "push_dist",
     "<WindowDist>": "norm_window_dist",
 }
+# the tags only the eager evaluator fills: K1's `packed_metrics` has no
+# field for them (neither has the JAX package's kernel path), so naming one
+# sends the generation to the eager step
+_EAGER_ONLY_TAGS = {
+    "<FinalDist>": "final_dist",
+    "<AnteriorDist>": "anterior_dist",
+    "<PosteriorDist>": "posterior_dist",
+    "<AnteriorY>": "anterior_y",
+    "<PosteriorY>": "posterior_y",
+    "<NumTouchingFloor>": "num_touching_floor",
+    "<NumNonFeetTouchingFloor>": "num_non_feet_touching_floor",
+    "<Lifetime>": "lifetime",
+}
+_OBJECTIVE_TAG_TO_RESULT.update(_EAGER_ONLY_TAGS)
 
 # phase timing of the most recent _dispatch_batch (host prep vs device time,
 # step buckets); read by the chip smoke run and the port's bench
@@ -226,6 +247,29 @@ def _ladder_steps(n: int) -> int:
     return base
 
 
+def _evaluator_flags(palette, field_names, sim_params, env_flags_src,
+                     with_collision, fluid_mesh):
+    """The flags of the fused evaluator's launches: the environment's, the
+    palette's material options and the development switches the genome's
+    fields turn on (ballistic development under speed windows with an
+    evolved final size)."""
+    return dict(
+        fr.kernel_env_flags(sim_params, env_flags_src),
+        nonlinear=bool((palette.mat_model >= 2).any()),
+        mdl_data=palette.ss_strain is not None,
+        bc=False,
+        fluid_mesh=bool(fluid_mesh),
+        use_init_size="initial_voxel_size" in field_names,
+        use_final_size="final_voxel_size" in field_names,
+        use_growth_t="growth_time" in field_names,
+        use_final_phase="final_phase_offset" in field_names,
+        use_final_ad="final_temp_amp_damp" in field_names,
+        ballistic=bool(int(env_flags_src.num_trace_steps_in_window) > 0
+                       and "final_voxel_size" in field_names),
+        collision=bool(with_collision),
+    )
+
+
 def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
                          lattice_dim, sim_params, env_flags_src,
                          with_collision=False, fluid_mesh=False, device=None):
@@ -246,21 +290,8 @@ def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
     has_mdl = palette.ss_strain is not None
     vol = bool(sim_params.volume_effects_enabled)
     scalars = fr.kernel_scalars(lattice_dim, sim_params, env_flags_src)
-    flags = dict(
-        fr.kernel_env_flags(sim_params, env_flags_src),
-        nonlinear=bool((palette.mat_model >= 2).any()),
-        mdl_data=has_mdl,
-        bc=False,
-        fluid_mesh=bool(fluid_mesh),
-        use_init_size="initial_voxel_size" in field_names,
-        use_final_size="final_voxel_size" in field_names,
-        use_growth_t="growth_time" in field_names,
-        use_final_phase="final_phase_offset" in field_names,
-        use_final_ad="final_temp_amp_damp" in field_names,
-        ballistic=bool(int(env_flags_src.num_trace_steps_in_window) > 0
-                       and "final_voxel_size" in field_names),
-        collision=bool(with_collision),
-    )
+    flags = _evaluator_flags(palette, field_names, sim_params, env_flags_src,
+                             with_collision, fluid_mesh)
     fr.check_envelope(flags, scalars)
     dt_frac = float(sim_params.dt_frac)
 
@@ -322,6 +353,109 @@ def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
     # plain version on exactly what the evaluator gives it
     fn.pack = pack
     fn.launch_kw = launch_kw
+    return fn
+
+
+# environment scalars that may differ between the individuals of one eager
+# rollout (an experiment's `env_kws`): those the eager step and rollout
+# broadcast per robot
+_PER_ROW_ENV = ("grav_acc", "temp_amplitude", "temp_period", "growth_amplitude",
+                "aggregate_drag_coefficient", "floor_radius")
+
+
+def _batch_env(envs, device):
+    """One EnvParams for a batch of individuals' EnvParams, as the JAX
+    package's eager evaluator stacks them (float32): a float scalar that
+    every individual shares becomes its float32 value, one that differs a
+    float32 tensor of the batch shape on `device` (only those of
+    `_PER_ROW_ENV`); switches, counts and sources must agree."""
+    out = {}
+    for f in dataclasses.fields(EnvParams):
+        vals = [getattr(e, f.name) for e in envs]
+        v0 = vals[0]
+        if f.name == "sources":
+            if any(v is not v0 for v in vals):
+                raise NotImplementedError("eager evaluator: environmental sources "
+                                          "that differ per individual")
+            out[f.name] = None if v0 is None else v0.to(device)
+        elif v0 is None or isinstance(v0, (bool, int, str)) or not np.isscalar(v0):
+            if any(v is not v0 and v != v0 for v in vals):
+                raise NotImplementedError(f"eager evaluator: {f.name} differs per individual")
+            out[f.name] = v0
+        else:
+            v32 = np.asarray(vals, dtype=np.float32)
+            if (v32 == v32[0]).all():
+                out[f.name] = float(v32[0])
+            elif f.name in _PER_ROW_ENV:
+                out[f.name] = torch.as_tensor(v32, device=device)
+            else:
+                raise NotImplementedError(f"eager evaluator: {f.name} differs per individual")
+    return EnvParams(**out)
+
+
+def make_batched_evaluator(palette, grid_shape, num_steps, field_names,
+                           env_fields, with_collision=False,
+                           with_mesh_drag=False, device=None):
+    """The eager evaluator: a batch of different designs through ONE eager
+    rollout (`core.rollout.rollout`, the torch step on `device`), each
+    individual with its own body, dt (`calc_max_dt(body) · dt_frac`, the
+    JAX package's rule), environment scalars and contact or facet-drag
+    tables. The JAX package's `make_batched_evaluator` vmaps its jnp
+    rollout; here the bodies are stacked along a leading batch axis, with
+    no pad rows (a torch launch compiles nothing per shape) and no cache of
+    built functions. `env_fields` is accepted for the JAX signature: the
+    scalars that differ are found from `env_batch` (`_PER_ROW_ENV`).
+
+    Returns `fn(structures, voxel_fields, sim, env_batch, stop_time,
+    colsys=None, meshdrag=None, num_steps=None)` -> dict of numpy arrays
+    with the JAX evaluator's keys; `env_batch` is a list of EnvParams, one
+    an individual, `colsys` a list of CollisionSystem (padded and stacked
+    here), `meshdrag` a MeshDragSystem with a leading batch axis
+    (`envs.drag.build_mesh_drag_batch`), `num_steps` overrides the step
+    count."""
+    from evosoro_tpu_torch.core.collision import stack_collision_systems
+    from evosoro_tpu_torch.core.materials import stack_bodies
+    from evosoro_tpu_torch.core.rollout import rollout
+
+    device = resolve_device(device)
+    default_steps = num_steps
+
+    def fn(structures, voxel_fields, sim, env_batch, stop_time, colsys=None,
+           meshdrag=None, num_steps=None):
+        t0 = time.time()
+        env = _batch_env(env_batch, device)
+        # bodies are built on the host and copied to the device once
+        body = stack_bodies([
+            build_body(structures[i], palette, lattice_dim=env.lattice_dim,
+                       **{k: voxel_fields[k][i] for k in field_names}, device="cpu")
+            for i in range(len(structures))], device=device)
+        if with_collision:
+            body = body.replace(collision=stack_collision_systems(colsys, device=device))
+        if with_mesh_drag:
+            body = body.replace(mesh_drag=meshdrag)
+        dt = calc_max_dt(body) * sim.dt_frac
+        t1 = time.time()
+        res = rollout(body, sim, env, num_steps=num_steps or default_steps, dt=dt,
+                      stop_time=stop_time)
+        out = dict(
+            norm_final_dist=res.norm_final_dist, final_dist_y=res.final_dist_y,
+            diverged=res.diverged, final_cm=res.final_cm, ini_cm=res.ini_cm,
+            final_time=res.final_state.time, final_dist=res.final_dist,
+            norm_regime_dist=res.norm_regime_dist,
+            norm_frozen_dist=res.norm_frozen_dist, anterior_dist=res.anterior_dist,
+            posterior_dist=res.posterior_dist, anterior_y=res.anterior_y,
+            posterior_y=res.posterior_y,
+            end_of_life_posterior_y=res.end_of_life_posterior_y,
+            fall_adj_post_y=res.fall_adj_post_y,
+            num_touching_floor=res.num_touching_floor,
+            num_non_feet_touching_floor=res.num_non_feet_touching_floor,
+            lifetime=res.lifetime, found_needle=res.found_needle,
+            push_dist=res.push_dist, norm_window_dist=res.norm_window_dist)
+        out = {k: v.cpu().numpy() for k, v in out.items()}  # waits for the device
+        LAST_DISPATCH_TIMING["pack_s"] = t1 - t0
+        LAST_DISPATCH_TIMING["launch_s"] = time.time() - t1
+        return out
+
     return fn
 
 
@@ -457,32 +591,27 @@ def _batch_fields(sim, env, inds):
     return all_fields, all_env, [_steps_for(f) for f in all_fields]
 
 
-def _launch_inputs(sim, env, grid, all_fields, all_env, num_steps, batch_pad,
-                   device):
-    """The fused evaluator of one launch and its host inputs: returns
-    (fn, inputs, padded batch size), with fn(*inputs) -> metrics."""
-    sim_params = sim.to_sim_params()
-    palette = palette_from_list(_experiment_palette(env))
-    L = env.lattice_dimension
+def _host_arrays(env, grid, all_fields, all_env, rows):
+    """The designs' structures and per-voxel fields as (rows, X, Y, Z)
+    arrays, rows past the individuals repeating row 0's design, on the
+    launch's grid (the facet drag's corner shell added in water). Returns
+    (structures, voxel_fields, field names, grid, whether the facet drag
+    runs)."""
     field_names = sorted(set().union(*[set(f) for f in all_fields]) - {"structure"})
     B = len(all_fields)
-    # batch padded UP the {1, 1.5}·2^k ladder in batch_pad units; pad rows
-    # reuse row 0's design and their results are discarded
-    Bp = _ladder_count(-(-B // batch_pad)) * batch_pad
-    structures = np.zeros((Bp,) + tuple(grid), dtype=np.int32)
+    structures = np.zeros((rows,) + tuple(grid), dtype=np.int32)
     voxel_fields = {
-        k: np.zeros((Bp,) + tuple(grid), dtype=np.float32) for k in field_names
+        k: np.zeros((rows,) + tuple(grid), dtype=np.float32) for k in field_names
     }
     for i, f in enumerate(all_fields):
         structures[i] = f["structure"]
         for k in field_names:
             if k in f:
                 voxel_fields[k][i] = f[k]
-    for i in range(B, Bp):
+    for i in range(B, rows):
         structures[i] = structures[0]
         for k in field_names:
             voxel_fields[k][i] = voxel_fields[k][0]
-    env_batch = all_env + [all_env[0]] * (Bp - B)
 
     grid, use_mesh_drag = _launch_grid(env, all_env, grid)
     if use_mesh_drag:
@@ -493,6 +622,43 @@ def _launch_inputs(sim, env, grid, all_fields, all_env, num_steps, batch_pad,
         shell = ((0, 0), (0, 1), (0, 1), (0, 1))
         structures = np.pad(structures, shell)
         voxel_fields = {k: np.pad(v, shell) for k, v in voxel_fields.items()}
+    return structures, voxel_fields, field_names, grid, use_mesh_drag
+
+
+def _collision_systems(palette, structures, voxel_fields, L, B):
+    """Each design's static contact tables (`build_collision_system`, with
+    build_body's per-voxel stiffness rule), rows past B reusing row 0's."""
+    from evosoro_tpu_torch.core.collision import build_collision_system
+
+    e_pal = palette.elastic_mod.numpy()
+    stiff = voxel_fields.get("stiffness")
+    systems = []
+    for i in range(len(structures)):
+        if i >= B:  # pad rows duplicate row 0's design
+            systems.append(systems[0])
+            continue
+        st_i = structures[i]
+        e_vox = e_pal[st_i]
+        if stiff is not None:
+            e_vox = np.where((stiff[i] > 0) & (st_i > 0), stiff[i], e_vox)
+        systems.append(build_collision_system(st_i, e_vox, L))
+    return systems
+
+
+def _launch_inputs(sim, env, grid, all_fields, all_env, num_steps, batch_pad,
+                   device):
+    """The fused evaluator of one launch and its host inputs: returns
+    (fn, inputs, padded batch size), with fn(*inputs) -> metrics."""
+    sim_params = sim.to_sim_params()
+    palette = palette_from_list(_experiment_palette(env))
+    L = env.lattice_dimension
+    B = len(all_fields)
+    # batch padded UP the {1, 1.5}·2^k ladder in batch_pad units; pad rows
+    # reuse row 0's design and their results are discarded
+    Bp = _ladder_count(-(-B // batch_pad)) * batch_pad
+    structures, voxel_fields, field_names, grid, use_mesh_drag = _host_arrays(
+        env, grid, all_fields, all_env, Bp)
+    env_batch = all_env + [all_env[0]] * (Bp - B)
 
     # self-collision: every reference experiment defaults SelfColEnabled=1
     # (base.py:24); the static tables are host-built per design and packed
@@ -500,22 +666,9 @@ def _launch_inputs(sim, env, grid, all_fields, all_env, num_steps, batch_pad,
     with_collision = bool(sim_params.self_collisions_enabled)
     collision_packed = None
     if with_collision:
-        from evosoro_tpu_torch.core.collision import build_collision_system
-
-        e_pal = palette.elastic_mod.numpy()
-        stiff = voxel_fields.get("stiffness")
-        tables = []
-        for i in range(Bp):
-            if i >= B:  # pad rows duplicate row 0's design
-                tables.append(tables[0])
-                continue
-            st_i = structures[i]
-            e_vox = e_pal[st_i]
-            if stiff is not None:
-                e_vox = np.where((stiff[i] > 0) & (st_i > 0), stiff[i], e_vox)
-            tables.append(fr.pack_collision(
-                build_collision_system(st_i, e_vox, L), tuple(grid)))
-        collision_packed = np.stack(tables)
+        collision_packed = np.stack([
+            fr.pack_collision(cs, tuple(grid))
+            for cs in _collision_systems(palette, structures, voxel_fields, L, B)])
 
     fn = make_fused_evaluator(
         palette, tuple(grid), num_steps, tuple(field_names), L, sim_params,
@@ -524,6 +677,62 @@ def _launch_inputs(sim, env, grid, all_fields, all_env, num_steps, batch_pad,
     inputs = (structures, voxel_fields, env_batch, float(sim.simulation_time),
               collision_packed)
     return fn, inputs, Bp
+
+
+def _eager_inputs(sim, env, grid, all_fields, all_env, num_steps, device):
+    """The eager evaluator of one bucket and its host inputs, one row an
+    individual: (fn, inputs) with fn(*inputs) -> metrics. In water the
+    facet drag's tables are built per design from the shelled grid, as the
+    JAX package's eager path builds them."""
+    sim_params = sim.to_sim_params()
+    palette = palette_from_list(_experiment_palette(env))
+    B = len(all_fields)
+    structures, voxel_fields, field_names, grid, use_mesh_drag = _host_arrays(
+        env, grid, all_fields, all_env, B)
+    with_collision = bool(sim_params.self_collisions_enabled)
+    colsys = meshdrag = None
+    if with_collision:
+        colsys = _collision_systems(palette, structures, voxel_fields,
+                                    env.lattice_dimension, B)
+    if use_mesh_drag:
+        from evosoro_tpu_torch.envs.drag import build_mesh_drag_batch
+
+        meshdrag = build_mesh_drag_batch(structures, device=resolve_device(device))
+    fn = make_batched_evaluator(
+        palette, tuple(grid), num_steps, tuple(field_names), ("all",),
+        with_collision=with_collision, with_mesh_drag=use_mesh_drag, device=device)
+    inputs = (structures, voxel_fields, sim_params, all_env,
+              float(sim.simulation_time), colsys, meshdrag)
+    return fn, inputs
+
+
+def _eager_reasons(sim, env, pop, grid, all_fields, all_env):
+    """Why a bucket goes to the eager evaluator, decided before anything
+    runs (a list of messages; empty for K1): the objective tags only the
+    eager path fills, and K1's refusal (`fr.refusal`) of the bucket's first
+    design, built on the host as the JAX package builds its probe."""
+    reasons = [f"objective tag {d['tag']} is filled only by the eager evaluator"
+               for d in pop.objective_dict.values() if d["tag"] in _EAGER_ONLY_TAGS]
+    palette = palette_from_list(_experiment_palette(env))
+    sim_params = sim.to_sim_params()
+    structures, voxel_fields, field_names, _, use_mesh_drag = _host_arrays(
+        env, grid, all_fields[:1], all_env[:1], 1)
+    probe = build_body(structures[0], palette, lattice_dim=env.lattice_dimension,
+                       **{k: voxel_fields[k][0] for k in field_names}, device="cpu")
+    why = fr.refusal(probe, sim_params, all_env[0])
+    if why is None:
+        # what the fused evaluator adds to the body's flags (ballistic
+        # development among them) goes through K1's envelope as well
+        try:
+            fr.check_envelope(
+                _evaluator_flags(palette, field_names, sim_params, all_env[0],
+                                 sim_params.self_collisions_enabled, use_mesh_drag),
+                fr.kernel_scalars(env.lattice_dimension, sim_params, all_env[0]))
+        except (NotImplementedError, ValueError) as e:
+            why = str(e)
+    if why is not None:
+        reasons.append(f"outside K1's envelope ({why})")
+    return reasons
 
 
 def evaluator_batch(sim, env, inds, batch_pad=8, device=None):
@@ -540,7 +749,10 @@ def evaluator_batch(sim, env, inds, batch_pad=8, device=None):
 
 
 def _dispatch_batch(sim, env, pop, inds, print_log, batch_pad=8, device=None,
-                    _bucketed=False):
+                    _bucketed=False, eager=False):
+    """Evaluate `inds` in launches of one step bucket each and assign their
+    objectives. Each bucket takes K1 or the eager evaluator (`eager=True`
+    asks for the eager evaluator for every bucket)."""
     _t0 = time.time()
     _tm = LAST_DISPATCH_TIMING
     _tm.clear()
@@ -548,7 +760,8 @@ def _dispatch_batch(sim, env, pop, inds, print_log, batch_pad=8, device=None,
     for rank, details in pop.objective_dict.items():
         tag = details["tag"]
         if tag is not None and tag not in _OBJECTIVE_TAG_TO_RESULT:
-            raise NotImplementedError(f"objective tag {tag} is not ported yet")
+            raise NotImplementedError(
+                f"objective tag {tag} is filled by neither evaluator path")
 
     all_fields, all_env, per_steps = _batch_fields(sim, env, inds)
     buckets = sorted(set(per_steps))
@@ -563,27 +776,42 @@ def _dispatch_batch(sim, env, pop, inds, print_log, batch_pad=8, device=None,
         merged = dict(host_prep_s=0.0, pack_s=0.0, launch_s=0.0, device_s=0.0,
                       batch=0, batch_padded=0, redispatches=0,
                       short_after_redispatch=0, short_final_times=[], short_ids=[],
-                      num_steps=max(per_steps), buckets=[])
+                      num_steps=max(per_steps), buckets=[], used_fused=True,
+                      eager_reason=None)
         for bval in buckets:
             group = [ind for ind, s in zip(inds, per_steps) if s == bval]
             for lo in range(0, len(group), n_slice):
                 chunk = group[lo:lo + n_slice]
-                _dispatch_batch(sim, env, pop, chunk, print_log,
-                                batch_pad=batch_pad, device=device, _bucketed=True)
+                _dispatch_batch(sim, env, pop, chunk, print_log, batch_pad=batch_pad,
+                                device=device, _bucketed=True, eager=eager)
                 for k in ("host_prep_s", "pack_s", "launch_s", "device_s", "batch",
                           "batch_padded", "redispatches", "short_after_redispatch",
                           "short_final_times", "short_ids"):
                     merged[k] += _tm.get(k, type(merged[k])())
                 merged["buckets"].append(dict(num_steps=bval, batch=len(chunk)))
+                merged["used_fused"] = merged["used_fused"] and _tm["used_fused"]
+                merged["eager_reason"] = merged["eager_reason"] or _tm["eager_reason"]
         _tm.clear()
         _tm.update(merged)
         return
 
     B = len(inds)
     num_steps = max(per_steps)
-    fn, inputs, Bp = _launch_inputs(sim, env, grid, all_fields, all_env, num_steps,
-                                    batch_pad, device)
-    _tm["host_prep_s"] = time.time() - _t0  # fields, step counts, pair tables
+    # the route, decided before anything runs; a K1 error raises
+    reasons = (["the caller asked for the eager evaluator"] if eager
+               else _eager_reasons(sim, env, pop, grid, all_fields, all_env))
+    if reasons:
+        print_log.message(
+            "WARNING: generation leaving the fused K1 path ({}); the eager torch "
+            "step runs it, at a lower rollout throughput".format("; ".join(reasons)))
+        fn, inputs = _eager_inputs(sim, env, grid, all_fields, all_env, num_steps, device)
+        Bp = B
+    else:
+        fn, inputs, Bp = _launch_inputs(sim, env, grid, all_fields, all_env, num_steps,
+                                        batch_pad, device)
+    _tm["used_fused"] = not reasons
+    _tm["eager_reason"] = "; ".join(reasons) or None
+    _tm["host_prep_s"] = time.time() - _t0  # fields, step counts, tables
     _td = time.time()
     if sim.to_sim_params().volume_effects_enabled:
         # the dt shrinks under compression: a live rollout short of the stop

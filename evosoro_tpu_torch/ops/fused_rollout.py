@@ -854,14 +854,22 @@ def supports(body: VoxelBody, sim: SimParams, env: EnvParams) -> bool:
     most MAX_KERNEL_WINDOW trace steps in a window, and a positive time
     between traces for windows and NormDistByVol (the JAX package's rule,
     which counts disabled sources too)."""
+    return refusal(body, sim, env) is None
+
+
+def refusal(body: VoxelBody, sim: SimParams, env: EnvParams):
+    """Why (body, sim, env) is outside K1's envelope, as a message, or None
+    when `supports()` is true."""
+    if env.floor_limited:
+        return "fused rollout: the limited floor is not a K1 feature"
     if env.sources is not None and env.sources.num_sources > MAX_KERNEL_SOURCES:
-        return False
+        return f"fused rollout: more than {MAX_KERNEL_SOURCES} environmental sources"
     try:
         flags = launch_flags(body, sim, env)  # raises without the shell
         check_envelope(flags, kernel_scalars(body.nominal_size, sim, env))
-    except (NotImplementedError, ValueError):
-        return False
-    return not env.floor_limited
+    except (NotImplementedError, ValueError) as e:
+        return str(e)
+    return None
 
 
 # ---------------------------------------------------------------------------

@@ -147,7 +147,16 @@ def _contact_event_design():
     return structure
 
 
-_CONFIGS = ("default", "sticky", "collision")
+_CONFIGS = ("default", "sticky", "collision", "limited")
+# the limited floor's radius for the 5^3 design: the voxel centres lie 0,
+# 1, 1.41, 2, 2.24 or 2.83 lattice units from the floor's centre, so the
+# outer ring starts off the floor and no centre lies within 0.2 units of
+# its edge (where an ulp would flip contact). It runs in float32 as its
+# siblings do: a voxel resting on the floor starts at penetration 0 exactly,
+# and in float64 the step at which contact sets in is decided by the last
+# bit (XLA contracts FMA, eager torch does not), which parts the two
+# packages' momenta by 5e-7 at step 3 with or without the limit
+LIMITED_RADIUS = 0.018
 
 
 def _setup(config):
@@ -163,7 +172,8 @@ def _setup(config):
         jb = j_build_body(structure, j_palette(j_default_palette()),
                           phase_offset=phase, dtype=jnp.float32)
         sim = JSim()
-        env = JEnv(sticky_floor=config == "sticky")
+        env = JEnv(sticky_floor=config == "sticky", floor_limited=config == "limited",
+                   floor_radius=LIMITED_RADIUS if config == "limited" else 0.0)
     dt = jnp.asarray(j_calc_max_dt(jb), jnp.float32) * jnp.asarray(sim.dt_frac, jnp.float32)
     state = jax.tree_util.tree_map(
         lambda x: jnp.broadcast_to(x, (2,) + x.shape), j_init_state(jb, dtype=jnp.float32))
@@ -213,6 +223,12 @@ def test_sim_step_matches_jax(jax_trajectories, config, steps):
     assert not s.diverged.any()
     if config == "collision" and steps == 25:
         assert float(ref.linmom[0, 3, 2, 2, 0]) > 0.0  # the voxel bounced
+    if config == "limited" and steps == 25:
+        # the floor holds the voxels over it and lets the outer ring sink
+        z = ref.pos[0, ..., 2]
+        occ = np.asarray(jb.occ)
+        assert z[1:4, 1:4, 0][occ[1:4, 1:4, 0]].min() > z[[0, 4]][:, :, 0][
+            occ[[0, 4]][:, :, 0]].min()
 
 
 def test_sim_step_refuses_features_outside_envelope():
@@ -222,8 +238,12 @@ def test_sim_step_refuses_features_outside_envelope():
     from evosoro_tpu_torch.core import EnvParams, SimParams, init_state
 
     state = init_state(body)
-    with pytest.raises(NotImplementedError):
-        sim_step(state, body, SimParams(), EnvParams(floor_limited=True), 1e-5)
+    # the limited floor steps; dt reduction across shards still raises
+    limited = sim_step(state, body, SimParams(),
+                       EnvParams(floor_limited=True, floor_radius=0.015), 1e-5)
+    assert bool(torch.isfinite(limited.pos).all())
+    with pytest.raises(NotImplementedError, match="dt reduction"):
+        sim_step(state, body, SimParams(), EnvParams(), 1e-5, dt_reduce=lambda d: d)
     # volume effects need the state's coupling carry, and run with it
     vol = SimParams(volume_effects_enabled=True)
     with pytest.raises(ValueError, match="coupling carry"):

@@ -19,6 +19,7 @@ from evosoro_tpu.core.rollout import init_state as j_init_state
 from evosoro_tpu.core.types import evosoro_default_palette as j_default_palette
 from evosoro_tpu.envs import aquatic as j_aquatic
 from evosoro_tpu.envs import growth_env as j_growth_env
+from evosoro_tpu.envs import limited_floor as j_limited_floor
 from evosoro_tpu.envs import terrestrial as j_terrestrial
 from evosoro_tpu.envs.drag import build_mesh_drag as j_build_mesh_drag
 from evosoro_tpu.envs.drag import mesh_drag_forces as j_mesh_drag_forces
@@ -184,10 +185,10 @@ def test_mesh_drag_opposes_motion():
 
 @pytest.mark.parametrize("preset,kw", [("terrestrial", dict(frequency=2.0, sticky_floor=True)),
                                        ("growth_env", dict(growth_amplitude=0.6)),
-                                       ("aquatic", dict(aggregate_drag_coefficient=300.0))])
+                                       ("aquatic", dict(aggregate_drag_coefficient=300.0)),
+                                       ("limited_floor", dict(floor_radius=0.02))])
 def test_env_presets_equal_jax(preset, kw):
     ours = getattr(envs, preset)(**kw)
     theirs = dict(terrestrial=j_terrestrial, growth_env=j_growth_env,
-                  aquatic=j_aquatic)[preset](**kw)
+                  aquatic=j_aquatic, limited_floor=j_limited_floor)[preset](**kw)
     assert convert.env_params_from_jax(theirs) == ours
-    assert not hasattr(envs, "limited_floor")  # waits for the limited-floor branch

@@ -298,33 +298,42 @@ def test_evaluator_batch_packs_each_design_in_its_row():
 
 
 @pytest.mark.parametrize("what", ["devo", "objective"])
-def test_dispatch_refuses_unported_genomes(what):
+def test_dispatch_refuses_unported_genomes(monkeypatch, what):
     """Ballistic development in a fluid (a final size evolved under speed
-    windows, in water) and the tags that only the JAX package's eager
-    evaluator fills still raise, by name."""
+    windows, in water): K1's dispatch (`evaluator_batch`) still refuses it
+    by name, and `evaluate_all` sends the generation to the eager step,
+    naming K1's refusal. An objective tag that neither evaluator path fills
+    still raises, by name, before anything is evaluated."""
+    monkeypatch.setattr(evaluation, "_ladder_steps", lambda n: 8)
     pop = _population(Genotype, Phenotype, Population, CPPN, ObjectiveDict,
                       make_material_tree,
-                      tag="<PosteriorY>" if what == "objective" else "<NormFinalDist>")
+                      tag="<NoSuchTag>" if what == "objective" else "<NormFinalDist>")
     env = Env()
-    if what == "devo":
-        for ind in pop:
-            ind.genotype.add_network(CPPN(output_node_names=["growth"]))
-            ind.genotype.to_phenotype_mapping.add_map(
-                name="growth", tag="<FinalVoxelSize>", output_type=float)
-            ind.genotype.express()
-        env.add_param("num_trace_steps_in_window", 4, "<NumTraceStepsInWindow>")
-        env.time_between_traces = 0.01
-        _water(env)
-    with pytest.raises(NotImplementedError,
-                       match="ballistic|window" if what == "devo" else "objective tag"):
-        evaluation.evaluate_all(Sim(simulation_time=0.01), env, pop, device="cpu")
+    if what == "objective":
+        with pytest.raises(NotImplementedError, match="objective tag <NoSuchTag>"):
+            evaluation.evaluate_all(Sim(simulation_time=0.01), env, pop, device="cpu")
+        assert "<NoSuchTag>" not in j_evaluation._OBJECTIVE_TAG_TO_RESULT
+        return
+    for ind in pop:
+        ind.genotype.add_network(CPPN(output_node_names=["growth"]))
+        ind.genotype.to_phenotype_mapping.add_map(
+            name="growth", tag="<FinalVoxelSize>", output_type=float)
+        ind.genotype.express()
+    env.add_param("num_trace_steps_in_window", 4, "<NumTraceStepsInWindow>")
+    env.time_between_traces = 0.01
+    _water(env)
+    with pytest.raises(NotImplementedError, match="ballistic"):
+        evaluation.evaluator_batch(Sim(simulation_time=0.01), env, list(pop), device="cpu")
+    evaluation.evaluate_all(Sim(simulation_time=0.01), env, pop, device="cpu")
+    timing = evaluation.LAST_DISPATCH_TIMING
+    assert timing["used_fused"] is False and "ballistic" in timing["eager_reason"]
 
 
 # the seven tags of the fitness features beside NormFinalDist (which
 # NormDistByVol turns into the trace sum): 12 tags with the five of before
 _FEATURE_TAGS = ("<NormRegimeDist>", "<NormFrozenDist>", "<EndOfLifePosteriorY>",
                  "<FallAdjPostY>", "<FoundNeedleInHaystack>", "<PushDist>", "<WindowDist>")
-# filled only by the JAX package's eager evaluator, not ported yet
+# filled only by the eager evaluator, in both packages
 _EAGER_ONLY_TAGS = ("<FinalDist>", "<AnteriorDist>", "<PosteriorDist>", "<AnteriorY>",
                     "<PosteriorY>", "<NumTouchingFloor>", "<NumNonFeetTouchingFloor>",
                     "<Lifetime>")
@@ -345,7 +354,7 @@ def _features_env(cls):
 
 
 def test_feature_tags_match_jax(monkeypatch):
-    """The port maps 12 objective tags: a population with mat-7 needles
+    """The port's K1 path fills 12 objective tags: a population with mat-7 needles
     among its tissues and mat-6 feet among its muscles, scored on
     NormFinalDist and on the seven feature tags at once, through both
     `evaluate_all`s, the JAX package's on its fused kernel in interpret mode
@@ -357,8 +366,11 @@ def test_feature_tags_match_jax(monkeypatch):
     experiment cases, with an atol of 5e-3 of its column's largest value:
     the plain version runs float32, JAX's kernel FMA-contracted, and
     NormDistByVol sums signed steps whose rounding follows their size, not
-    the sum's. The walking robots' distances stand far above that atol."""
-    assert len(evaluation._OBJECTIVE_TAG_TO_RESULT) == 12
+    the sum's. The walking robots' distances stand far above that atol. The
+    port maps JAX's 20 tags, the 8 that only the eager path fills among
+    them (tests/test_torch_eager_evaluation.py)."""
+    assert len(evaluation._OBJECTIVE_TAG_TO_RESULT) == 20
+    assert set(evaluation._OBJECTIVE_TAG_TO_RESULT) == set(j_evaluation._OBJECTIVE_TAG_TO_RESULT)
     for tag, name in evaluation._OBJECTIVE_TAG_TO_RESULT.items():
         assert j_evaluation._OBJECTIVE_TAG_TO_RESULT[tag] == name, tag
     monkeypatch.setenv("EVOSORO_TPU_FUSED_EVAL", "1")
@@ -394,15 +406,31 @@ def test_feature_tags_match_jax(monkeypatch):
 
 
 @pytest.mark.parametrize("tag", _EAGER_ONLY_TAGS)
-def test_eager_only_tags_raise_by_name(tag):
-    """The eight tags only the JAX package's eager evaluator fills raise,
-    naming the tag, before anything is evaluated."""
+def test_eager_only_tags_raise_by_name(monkeypatch, tag):
+    """Each of the eight tags only the eager path fills sends the generation
+    there: the evaluator raises a warning line that names the tag (as
+    `eager_reason` does), before anything is evaluated, and the tag is
+    filled for every individual, under JAX's result name."""
+    monkeypatch.setattr(evaluation, "_ladder_steps", lambda n: 8)
+    monkeypatch.setattr(evaluation.fr, "fused_call", None)  # K1 must not be reached
     pop = _population(Genotype, Phenotype, Population, CPPN, ObjectiveDict,
                       make_material_tree, tag=tag)
-    with pytest.raises(NotImplementedError, match=tag):
-        evaluation.evaluate_all(Sim(simulation_time=0.01), Env(), pop, device="cpu")
-    assert tag in j_evaluation._OBJECTIVE_TAG_TO_RESULT
-    assert tag not in evaluation._OBJECTIVE_TAG_TO_RESULT
+
+    class Log:
+        lines = []
+
+        def message(self, text):
+            self.lines.append(text)
+
+    log = Log()
+    evaluation.evaluate_all(Sim(simulation_time=0.01), Env(), pop, print_log=log,
+                            device="cpu")
+    warning = [line for line in log.lines if line.startswith("WARNING")]
+    assert warning and tag in warning[0]
+    assert tag in evaluation.LAST_DISPATCH_TIMING["eager_reason"]
+    assert evaluation.LAST_DISPATCH_TIMING["used_fused"] is False
+    assert all(np.isfinite(ind.fitness) for ind in pop)
+    assert evaluation._OBJECTIVE_TAG_TO_RESULT[tag] == j_evaluation._OBJECTIVE_TAG_TO_RESULT[tag]
 
 
 def test_step_ladders_match_jax():

@@ -22,6 +22,7 @@ largest entry), per channel group for the raw cotangents.
 """
 
 import importlib
+import os
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +41,7 @@ from evosoro_tpu.core.types import evosoro_default_palette as j_default_palette
 from evosoro_tpu.envs.drag import attach_mesh_drag as j_attach_mesh_drag
 from evosoro_tpu.ops.fused_diff import DiffRollout as JDiffRollout
 from evosoro_tpu_torch import convert
-from evosoro_tpu_torch.core import EnvParams, SimParams, rollout
+from evosoro_tpu_torch.core import EnvParams, SimParams, init_state, rollout
 from evosoro_tpu_torch.ops import fused_rollout as fr
 from evosoro_tpu_torch.ops.fused_diff import DiffRollout
 
@@ -122,31 +123,55 @@ def test_segmented_forward_matches_full_and_jax():
                                rtol=0, atol=2e-5)
 
 
+DIFF_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                            "diff_gradients_jax.npz")
+
+
+def diff_gradients_case():
+    """(batched JAX state, JAX body, sim, env, dt, steps, knots, segments,
+    controls) of test (b): the inputs of
+    tests/test_fused_diff.py::test_diff_gradients_match_jnp_bptt (3^3, 12
+    steps, 3 knots, 3 segments, floor and gravity on)."""
+    n, steps, K = 3, 12, 3
+    batched, _, jb, sim, env, dt = _make(n, 7)
+    u0 = np.random.default_rng(3).uniform(
+        -0.03, 0.03, size=(K, n, n, n)).astype(np.float32)
+    return batched, jb, sim, env, dt, steps, K, 3, u0
+
+
 def test_diff_gradients_match_jax_backward_kernel():
     """(b) d(final CoM-y)/d(control knots): the port (its `autograd.Function`
     over `fused_bwd_call`) against the JAX package (the backward Pallas
     kernel, interpret mode) on the inputs of
     tests/test_fused_diff.py::test_diff_gradients_match_jnp_bptt (3^3, 12
     steps, 3 knots, 3 segments, floor and gravity on), at that test's
-    tolerance."""
-    n, steps, K = 3, 12, 3
-    jdr, jsp, dr, sp, body = _both(n, 7, steps, K, 3)
-    u0 = np.random.default_rng(3).uniform(
-        -0.03, 0.03, size=(K, n, n, n)).astype(np.float32)
-
-    def f_jax(u):
-        u8 = jnp.broadcast_to(u[None], (B,) + u.shape)
-        cms, _, _ = jdr(jsp, jdr.stats0, jdr.pack_controls(u8))
-        return cms[-1, 0]
-
-    val_j, g_j = jax.value_and_grad(f_jax)(jnp.asarray(u0))
+    tolerance. The JAX side is stored in `fixtures/diff_gradients_jax.npz`
+    (written by `fixtures/make_diff_gradients_jax.py`; its backward kernel
+    took minutes to compile in interpret mode), beside the inputs its
+    kernels were given, which the port must pack from the same design (rtol
+    1e-6: the last bits of a host's float32 arithmetic); the port starts
+    from the stored packed state, as it started from JAX's before."""
+    _, jb, sim, env, dt, steps, K, n_segs, u0 = diff_gradients_case()
+    ref = dict(np.load(DIFF_FIXTURE))
+    np.testing.assert_array_equal(ref["u0"], u0)
+    np.testing.assert_allclose(float(dt), float(ref["dt"]), rtol=1e-12)
+    body, psim, penv = _port(jb, sim, env)
+    dr = DiffRollout(body, psim, penv, num_steps=steps, num_knots=K,
+                     dt=float(dt), batch=B, n_segs=n_segs)
+    np.testing.assert_allclose(dr.body_packed.numpy(), ref["body"], rtol=1e-6, atol=0)
+    np.testing.assert_allclose(dr.stats0.numpy(), ref["stats0"], rtol=1e-6, atol=0)
+    occ = body.occ.reshape(-1).numpy()
+    start = fr.pack_state_single(init_state(body))[None].expand(B, -1, -1).numpy()
+    np.testing.assert_allclose(start[:, :, occ], ref["start"][:, :, occ], rtol=1e-6, atol=0)
+    sp = torch.as_tensor(ref["start"]).contiguous()
 
     u = torch.as_tensor(u0).requires_grad_(True)
     cms, _, _ = dr(sp, dr.stats0,
                    dr.pack_controls(u[None].expand((B,) + u.shape)).contiguous())
     (g_p,) = torch.autograd.grad(cms[-1, 0], u)
-    np.testing.assert_allclose(float(cms[-1, 0].detach()), float(val_j), rtol=1e-5, atol=1e-9)
-    gj = np.asarray(g_j).ravel()
+    np.testing.assert_allclose(float(cms[-1, 0].detach()), float(ref["value"]), rtol=1e-5,
+                               atol=1e-9)
+    gj = ref["grad"].ravel()
     scale = np.abs(gj).max()
     assert scale > 0
     np.testing.assert_allclose(g_p.numpy().ravel(), gj, rtol=5e-3, atol=5e-4 * scale)

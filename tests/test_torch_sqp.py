@@ -7,10 +7,13 @@ pieces by their numbers: the forward-mode product Jv of the eager residual
 against `jax.jvp` in float64 (1e-9 of its largest entry; measured 1.4e-14),
 the Woodbury step against a dense solve of the same normal equations in
 float64 (1e-9), and one `FusedSQPSolver` iteration against the JAX solver
-(its kernels in interpret mode) in float32: the costs at rtol 1e-5, the
+(its kernels in interpret mode, stored in `fixtures/sqp_iteration_jax.npz`)
+in float32: the costs at rtol 1e-5, the
 step `u` at 5e-3 of its largest entry, the bound
 tests/test_fused_diff.py gives the Jacobian it is solved from.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -97,30 +100,51 @@ def test_sqp_fused_reduces_tracking_cost():
     _check_solve(u, info, cfg, (2, 3, 3, 2))
 
 
+SQP_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                           "sqp_iteration_jax.npz")
+
+
+def sqp_iteration_case():
+    """(JAX body, port body, dt, steps, knots, n_res, config, start controls)
+    of the one-iteration comparison: `_tiny` in float32, 8 steps, 2 knots, 4
+    residual points, from a random non-zero start."""
+    jb, body = _tiny(jnp.float32)
+    dt = float(j_calc_max_dt(jb)) * 0.9
+    u0 = np.random.default_rng(1).uniform(-0.02, 0.02, size=(2, 3, 3, 2)).astype(np.float32)
+    return jb, body, dt, 8, 2, 4, dict(num_iters=1, w_reg=1e-2), u0
+
+
 def test_fused_iteration_matches_jax_solver():
     """One Gauss-Newton iteration of `FusedSQPSolver` from a non-zero start
     against the JAX solver's (Pallas kernels in interpret mode): the cost
-    before and after the step, the accept decision and the step itself."""
-    jb, body = _tiny(jnp.float32)
-    dt = float(j_calc_max_dt(jb)) * 0.9
-    steps, K, n_res = 8, 2, 4
-    cfg = dict(num_iters=1, w_reg=1e-2)
-    u0 = np.random.default_rng(1).uniform(-0.02, 0.02, size=(K, 3, 3, 2)).astype(np.float32)
-    j_solver = j_sqp.FusedSQPSolver(jb, JSim(init_cm_time=0.0), JEnv(), steps, K,
-                                    config=j_sqp.SQPConfig(**cfg), dt=dt,
-                                    n_res=n_res, interpret=True)
-    ju, jinfo = j_solver.solve(target=0.05, init_u=jnp.asarray(u0))
+    before and after the step, the accept decision and the step itself. The
+    JAX solve is stored in `fixtures/sqp_iteration_jax.npz` (written by
+    `fixtures/make_sqp_iteration_jax.py`; its compile in interpret mode took
+    minutes), beside the inputs its kernels were given, which the port must
+    pack from the same design (rtol 1e-6: the last bits of a host's float32
+    arithmetic)."""
+    _, body, dt, steps, K, n_res, cfg, u0 = sqp_iteration_case()
+    ref = dict(np.load(SQP_FIXTURE))
+    np.testing.assert_array_equal(ref["u0"], u0)
+    np.testing.assert_allclose(dt, float(ref["dt"]), rtol=1e-12)
     solver = FusedSQPSolver(body, SimParams(init_cm_time=0.0), EnvParams(), steps, K,
                             config=SQPConfig(**cfg), dt=dt, n_res=n_res, device="cpu")
+    dr = solver._dr
+    np.testing.assert_allclose(dr.body_packed.numpy(), ref["body"], rtol=1e-6, atol=0)
+    # the port's batch is n_res rows, JAX's n_res padded to 8: the rows agree
+    n = dr.stats0.shape[0]
+    np.testing.assert_allclose(dr.stats0.numpy(), ref["stats0"][:n], rtol=1e-6, atol=0)
+    occ = body.occ.reshape(-1).numpy()
+    np.testing.assert_allclose(solver._sp0.numpy()[:, :, occ], ref["start"][:n, :, occ],
+                               rtol=1e-6, atol=0)
     u, info = solver.solve(target=0.05, init_u=torch.as_tensor(u0))
-    np.testing.assert_allclose(info["cost_trace"].numpy(),
-                               np.asarray(jinfo["cost_trace"]), rtol=1e-5)
+    np.testing.assert_allclose(info["cost_trace"].numpy(), ref["cost_trace"], rtol=1e-5)
     # after the step: the steps agree to 5e-3 of their size (below)
-    np.testing.assert_allclose(float(info["final_cost"]), float(jinfo["final_cost"]),
+    np.testing.assert_allclose(float(info["final_cost"]), float(ref["final_cost"]),
                                rtol=5e-4)
-    assert info["accepted_trace"].tolist() == np.asarray(jinfo["accepted_trace"]).tolist()
+    assert info["accepted_trace"].tolist() == ref["accepted_trace"].tolist()
     assert bool(info["accepted_trace"][0])
-    step_j = np.asarray(ju) - u0
+    step_j = ref["u"] - u0
     assert np.abs(step_j).max() > 0
     np.testing.assert_allclose(u.numpy() - u0, step_j, rtol=0,
                                atol=5e-3 * np.abs(step_j).max())
