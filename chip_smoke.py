@@ -119,6 +119,16 @@ eager step's time; two generations of the `limited_floor` experiment (the
 eager route, no kernel launched); a basic generation that must take K1;
 and the kernel-vs-eager selection agreement at a cut size.
 
+`python3 chip_smoke.py --parallel` runs the multi-device paths alone on the
+one card, a device list naming it more than once (`phase_parallel`, also
+part of the full run at `PARALLEL_CUT`): K1 sharded over four entries bit
+for bit against one launch, a generation over two entries bit for bit
+against one device, a sharded fused CEM solve and SQP multistart against
+the unsharded ones, a spatial rollout over four slabs in float64 against
+the one-slab eager rollout, and two processes on the card through
+torch.distributed with the gloo backend (NCCL refuses two ranks on one
+GPU), each rank's generation and two-slab rollout against one process.
+
 `python3 chip_smoke.py --volume` runs volume effects alone
 (`phase_k1_volume`): K1's volume instance against its plain version with
 its three guards, the volume replay of an archived design and of the
@@ -1703,7 +1713,7 @@ def _vol_guards(torch):
 
     return [("carry_fixed", ("ts_ok", "cs_ok"), ("_volume_effects_coupling", fixed_carry)),
             ("constant_dt", ("dt_ok", "time_ok"),
-             ("_volume_dt", lambda state, body, sim, bonds, L, dt: dt)),
+             ("_volume_dt", lambda state, body, sim, bonds, L, dt, dt_reduce=None: dt)),
             ("thermal_dropped", ("pos_ok",),
              ("_thermal_stress", lambda d, state, body, env: 0.0))]
 
@@ -3484,6 +3494,9 @@ def phase_evolution(torch, experiments=("basic", "swimming", "growth", "features
 # the basic genome in one 256-step launch
 EAGER_RADIUS = 0.0185
 EAGER_PARITY_STEPS = 200
+# the full run's cut of the eager phase's parity run, which makes room for
+# the parallel phase
+EAGER_CUT = dict(parity_steps=EAGER_PARITY_STEPS // 2)
 EAGER_SOURCES = [dict(pos=(0.2, 0.03, 0.03), amp=(0.0, 0.05, 0.0), freq=(0.0, 0.5, 0.0),
                       enabled=True),
                  dict(pos=(-0.1, 0.0, 0.02), enabled=True),
@@ -3553,10 +3566,11 @@ def _eager_step_ms(torch, device, pop=16, size=6, steps=20, collision=True):
     return 1e3 * evaluation.LAST_DISPATCH_TIMING["launch_s"] / steps, len(inds)
 
 
-def phase_eager(torch, np, card):
+def phase_eager(torch, np, card, parity_steps=EAGER_PARITY_STEPS):
     """The eager-step evaluator on the card (JAX's second evaluator path).
     (a) Device parity: `_eager_case` in float64 through
-    `core.rollout.rollout` on the card and on the CPU, EAGER_PARITY_STEPS
+    `core.rollout.rollout` on the card and on the CPU, `parity_steps` (the
+    full run cuts EAGER_PARITY_STEPS by half, `EAGER_CUT`)
     actuated steps, every state channel at TOL; the guard, the same run on
     the whole floor, parts from the limited one by more than TOL. In
     float32 the two devices' ulps (other sum orders and libm) grow past TOL
@@ -3582,7 +3596,7 @@ def phase_eager(torch, np, card):
     from evosoro_tpu_torch.evo import logging as evo_logging
     from evosoro_tpu_torch.ops import fused_rollout as fr
 
-    def run(device, limited=True, steps=EAGER_PARITY_STEPS, dtype=torch.float64):
+    def run(device, limited=True, steps=parity_steps, dtype=torch.float64):
         body, sim, env, dt = _eager_case(torch, np, device, limited, dtype)
         res = rollout(body, sim, env, num_steps=steps, dt=dt)
         return {k: getattr(res.final_state, k).cpu() for k in TOL}
@@ -3603,7 +3617,7 @@ def phase_eager(torch, np, card):
         errs["guard_" + k] = float((g - b).abs().max())
     rec = dict(phase="eager_parity", case="4 x 4^3 in float64, limited floor r=%g m, contact, "
                "4 sources, windows of 13, a period per robot" % EAGER_RADIUS,
-               steps=EAGER_PARITY_STEPS, card=card, card_s=card_s, within_tol=within,
+               steps=parity_steps, card=card, card_s=card_s, within_tol=within,
                guard_parts=guard_out, actuated_50_steps_float32_pos_drift_m=drift,
                drift_bound_m=DRIFT_BOUND_M, **errs)
     emit(rec)
@@ -3673,6 +3687,218 @@ def phase_eager(torch, np, card):
         fused_rollout=k1_inside["FUSED_ROLLOUT_LAUNCHES"] + k1_select["FUSED_ROLLOUT_LAUNCHES"],
         fused_rollout_with_contact=k1_inside["FUSED_ROLLOUT_CONTACT_LAUNCHES"]
         + k1_select["FUSED_ROLLOUT_CONTACT_LAUNCHES"])
+
+
+# the multi-device phase (`--parallel`): the basic generation as
+# `phase_eager`'s (EAGER_SELECT's size, cut to 0.01 s), the spatial body of
+# tests/test_spatial_sharding.py
+PARALLEL_GEN = dict(pop_size=16, size=6, sim_time=0.01, init_time=0.002)
+PARALLEL_SPATIAL_STEPS = 20
+# the full run's cut of it
+PARALLEL_CUT = dict(spatial_steps=10, sqp_steps=4)
+
+
+def _spatial_case(torch, np, device):
+    """tests/test_spatial_sharding.py's `_make`: 16 x 5 x 4, seed 0, a
+    connected spine, in float64; actuated from the first step (its CoM
+    captured there), so that the distance the fitness measures is motion:
+    with JAX's capture at 1 ms, 20 steps move the CoM by 2.6e-9 m, where
+    the sums' rounding is 1e-8 of it."""
+    from evosoro_tpu_torch.core import (SimParams, build_body, calc_max_dt,
+                                        evosoro_default_palette, palette_from_list)
+
+    X, Y, Z = 16, 5, 4
+    rng = np.random.default_rng(0)
+    structure = rng.integers(0, 5, size=(X, Y, Z)).astype(np.int32)
+    structure[:, Y // 2, 0] = 3
+    body = build_body(structure, palette_from_list(evosoro_default_palette()),
+                      phase_offset=rng.uniform(-1, 1, size=(X, Y, Z)),
+                      dtype=torch.float64, device=device)
+    sim = SimParams(init_cm_time=0.0)
+    return body, sim, float(calc_max_dt(body)) * sim.dt_frac
+
+
+def phase_parallel(torch, np, card, spatial_steps=PARALLEL_SPATIAL_STEPS, sqp_steps=6):
+    """The multi-device paths on the one card, a mesh naming it more than
+    once (`parallel.mesh`): (a) `sharded_fused_rollout` over 4 entries, 64 x
+    4^3 x 25 steps with contact, bit for bit against one launch of the same
+    batch (K1's results for a robot do not depend on the rest of its
+    launch), and K1 against its plain version at that shape; (b)
+    `evaluate_all(devices=[card] * 2)` on one basic generation, fitness bit
+    for bit against the one-device generation; (c) a fused CEM solve and
+    (d) a 4-start SQP multistart over two entries, equal to the unsharded
+    solves; (e) `spatial_rollout` of the 16 x 5 x 4 body over four slabs in
+    float64, interiors against the one-slab eager rollout at rtol 1e-12 and
+    the CoM fitness at rtol 1e-8 (tests/test_spatial_sharding.py:46-62);
+    (f) two processes on the card through `distributed_init(backend="gloo")`
+    (NCCL refuses two ranks on one GPU), splitting the generation and a
+    two-slab spatial rollout and all-gathering them, equal to one process
+    (`parallel.ranks`; a rank that fails fails the phase). K1's counters are
+    zeroed before each sharded run and read after it. Returns K1's launches
+    there and the K1-vs-plain record."""
+    from evosoro_tpu_torch import bench
+    from evosoro_tpu_torch.control.shooting import CEMConfig, cem_optimize_fused
+    from evosoro_tpu_torch.control.sqp import SQPConfig, sqp_optimize_multistart
+    from evosoro_tpu_torch.core import (EnvParams, SimParams, build_body, calc_max_dt,
+                                        evosoro_default_palette, init_state,
+                                        palette_from_list, rollout)
+    from evosoro_tpu_torch.core.collision import attach_collision_system
+    from evosoro_tpu_torch.evo import evaluation
+    from evosoro_tpu_torch.evo.logging import PrintLog
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+    from evosoro_tpu_torch.parallel import mesh as pm
+    from evosoro_tpu_torch.parallel import ranks
+    from evosoro_tpu_torch.parallel.spatial import spatial_rollout
+
+    dev = "cuda:0"
+    counters = ("FUSED_ROLLOUT_LAUNCHES", "FUSED_ROLLOUT_CONTACT_LAUNCHES")
+    launches = dict.fromkeys(counters, 0)
+
+    def sharded(fn):
+        """fn() with K1's counters zeroed before and read after, its
+        launches added to the phase's; (result, launches, seconds)."""
+        for name in counters:
+            setattr(fr, name, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {name: getattr(fr, name) for name in counters}
+        for name in counters:
+            launches[name] += got[name]
+        return out, got["FUSED_ROLLOUT_LAUNCHES"], secs
+
+    # (a) K1 over four entries of one card
+    _, body = bench.bench_body(n=4, device=dev)
+    body = attach_collision_system(body, 2.0)
+    sim, env = SimParams(init_cm_time=0.0, self_collisions_enabled=True), EnvParams()
+    dt = float(calc_max_dt(body)) * sim.dt_frac
+    g = torch.Generator(device=dev).manual_seed(3)
+    state = pm.tree_map(lambda t: t.expand((64,) + t.shape).clone(), init_state(body))
+    state = state.replace(pos=state.pos + 1e-4 * torch.randn(
+        state.pos.shape, generator=g, device=dev, dtype=state.pos.dtype))
+    # the one launch it is held against is a reference, not counted
+    one = fr.fused_rollout(state, body, sim, env, 25, dt)
+    (sh_state, sh_stats), n_a, sh_s = sharded(lambda: pm.sharded_fused_rollout(
+        state, body, sim, env, 25, dt, [dev] * 4))
+    equal = []
+    pm.tree_map(lambda x, y: equal.append(bool(torch.equal(x, y))),
+                (sh_state, sh_stats), one)
+    rec = dict(phase="parallel_sharded_k1", card=card, workload="bench 4^3 x 64, 25 steps, "
+               "contact on, 4 entries of one card", k1_launches=n_a, bit_equal=all(equal),
+               sharded_s=sh_s)
+    emit(rec)
+    assert rec["bit_equal"] and n_a == 4, rec
+    args, kw, _ = bench.packed_workload(64, n=4, collision=True, device=dev)
+    k1 = _k1_cases(torch, fr, "parallel phase: bench 4^3 x 64", args, kw, 64, True, (25,),
+                   time_at=25, phase="parallel_k1_vs_plain")[0]
+    # the same batch as four launches of 16 robots on the card's one stream
+    quarters = [tuple(t[i * 16:(i + 1) * 16].contiguous() if t.shape[0] == 64 else t
+                      for t in args[:3]) + (args[3],) for i in range(4)]
+    emit(dict(phase="parallel_k1_shard_time", card=card, ms_one_launch_64=k1["ms"],
+              ms_four_launches_16=_event_ms(torch, lambda: [
+                  fr.fused_call(*q, num_steps=25, **kw) for q in quarters], 5)))
+
+    # (b) one generation over two entries against one device
+    fits = {}
+    for key, kw2 in (("one", dict(device=dev)), ("mesh", dict(devices=[dev] * 2))):
+        gsim, genv, pop = bench.basic_experiment(
+            pop_size=PARALLEL_GEN["pop_size"], sim_time=PARALLEL_GEN["sim_time"],
+            init_time=PARALLEL_GEN["init_time"], size=(PARALLEL_GEN["size"],) * 3)
+        run = (lambda: evaluation.evaluate_all(gsim, genv, pop, print_log=PrintLog(), **kw2))
+        _, n_k1, secs = sharded(run) if key == "mesh" else (run(), 0, 0.0)
+        fits[key] = np.array([ind.fitness for ind in pop])
+        if key == "mesh":
+            rec = dict(phase="parallel_generation", card=card, **PARALLEL_GEN,
+                       n_shards=evaluation.LAST_DISPATCH_TIMING["n_shards"], k1_launches=n_k1,
+                       buckets=evaluation.LAST_DISPATCH_TIMING["buckets"], s_per_gen=secs)
+    rec.update(fitness_bit_equal=bool(np.array_equal(fits["one"], fits["mesh"])),
+               best=float(fits["one"].max()))
+    emit(rec)
+    assert rec["fitness_bit_equal"] and rec["n_shards"] == 2 and rec["k1_launches"] > 0, rec
+
+    # (c) the fused CEM solve over two entries
+    _, cbody = bench.bench_body(n=6, device=dev)
+    csim = SimParams(init_cm_time=0.0)
+    cem = {}
+    for key, mesh in (("one", None), ("mesh", [dev] * 2)):
+        def solve(mesh=mesh):
+            return cem_optimize_fused(torch.Generator(device=dev).manual_seed(0), cbody, csim,
+                                      EnvParams(), 50, 4, CEMConfig(num_iters=3, pop_size=64),
+                                      device=dev, mesh=mesh)
+        cem[key] = sharded(solve) if mesh else (solve(), 0, 0.0)
+    (u1, i1), (u2, i2) = cem["one"][0], cem["mesh"][0]
+    rec = dict(phase="parallel_cem", card=card, workload="bench 6^3, 64 candidates, 4 knots, "
+               "50 steps, 3 iterations, 2 entries", k1_launches=cem["mesh"][1],
+               best_u_bit_equal=bool(torch.equal(u1, u2)),
+               best_cost=i2["best_cost"], best_cost_equal=i1["best_cost"] == i2["best_cost"],
+               solve_s=cem["mesh"][2])
+    emit(rec)
+    assert rec["best_u_bit_equal"] and rec["best_cost_equal"] and rec["k1_launches"] == 6, rec
+
+    # (d) the SQP multistart, four starts over two entries
+    rng = np.random.default_rng(5)
+    sbody = build_body(rng.integers(1, 5, size=(3, 3, 3)).astype(np.int32),
+                       palette_from_list(evosoro_default_palette()),
+                       phase_offset=rng.uniform(-1, 1, size=(3, 3, 3)), device=dev)
+    cfg = SQPConfig(num_iters=1, cg_iters=2, n_res=2, w_reg=1e-2)
+    sqp = {}
+    for key, mesh in (("one", None), ("mesh", [dev] * 2)):
+        t0 = time.perf_counter()
+        sqp[key] = sqp_optimize_multistart(
+            torch.Generator(device=dev).manual_seed(0), sbody, SimParams(init_cm_time=0.0),
+            EnvParams(), sqp_steps, 2, n_starts=4, target=0.05, config=cfg, device=dev,
+            mesh=mesh)
+        torch.cuda.synchronize()
+        sqp[key + "_s"] = time.perf_counter() - t0
+    rec = dict(phase="parallel_sqp_multistart", card=card, workload="3^3, 4 starts, %d steps, "
+               "2 knots, 1 iteration, 2 entries" % sqp_steps,
+               u_bit_equal=bool(torch.equal(sqp["one"][0], sqp["mesh"][0])),
+               costs_equal=bool(torch.equal(sqp["one"][1]["all_costs"],
+                                            sqp["mesh"][1]["all_costs"])),
+               best_start=int(sqp["mesh"][1]["best_start"]), solve_s=sqp["mesh_s"])
+    emit(rec)
+    assert rec["u_bit_equal"] and rec["costs_equal"], rec
+
+    # (e) one robot's lattice over four slabs, in float64
+    sbody, ssim, sdt = _spatial_case(torch, np, dev)
+    t0 = time.perf_counter()
+    res = spatial_rollout(sbody, ssim, EnvParams(), spatial_steps, sdt, [dev] * 4)
+    torch.cuda.synchronize()
+    spatial_s = time.perf_counter() - t0
+    ref = rollout(sbody, ssim, EnvParams(), num_steps=spatial_steps, dt=sdt)
+    d = (res.final_state.pos - ref.final_state.pos).abs()
+    within = bool((d <= 1e-15 + 1e-12 * ref.final_state.pos.abs()).all())
+    qd = (res.final_state.quat - ref.final_state.quat).abs()
+    q_within = bool((qd <= 1e-15 + 1e-12 * ref.final_state.quat.abs()).all())
+    fd = abs(float(res.final_dist) - float(ref.final_dist))
+    rec = dict(phase="parallel_spatial", card=card, workload="16 x 5 x 4, float64, 4 slabs",
+               steps=spatial_steps, pos_err=float(d.max()), quat_err=float(qd.max()),
+               pos_within_rtol_1e_12=within, quat_within_rtol_1e_12=q_within,
+               final_dist=float(res.final_dist), final_dist_err=fd,
+               fitness_within_rtol_1e_8=fd <= 1e-8 * abs(float(ref.final_dist)) + 1e-16,
+               spatial_s=spatial_s)
+    emit(rec)
+    assert within and q_within and rec["fitness_within_rtol_1e_8"], rec
+    assert bool(res.diverged) == bool(ref.diverged), rec
+
+    # (f) two processes on the one card, gloo
+    t0 = time.perf_counter()
+    got = ranks.run_ranks(world=2, device=dev, backend="gloo", timeout=300,
+                          generation=PARALLEL_GEN)
+    ranks_s = time.perf_counter() - t0
+    one = ranks.workload(dev, PARALLEL_GEN, slabs=2)
+    rec = dict(phase="parallel_two_processes", card=card, backend="gloo", world=2,
+               generation=PARALLEL_GEN, n_shards=[r["n_shards"] for r in got],
+               fitness_equal=all(r["fitness"] == one["fitness"] for r in got),
+               spatial_equal=all(r["spatial_pos"] == one["spatial_pos"] for r in got),
+               ranks_s=ranks_s)
+    emit(rec)
+    assert rec["fitness_equal"] and rec["spatial_equal"] and rec["n_shards"] == [2, 2], rec
+    return dict(fused_rollout=launches["FUSED_ROLLOUT_LAUNCHES"],
+                fused_rollout_with_contact=launches["FUSED_ROLLOUT_CONTACT_LAUNCHES"],
+                k1=k1)
 
 
 def phase_throughput(torch, card):
@@ -4545,6 +4771,22 @@ def main():
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return None
+    if sys.argv[1:] == ["--parallel"]:
+        par = phase_parallel(torch, np, card)
+        k1 = par["k1"]
+        emit(dict(kernels=[dict(
+            name="fused_rollout (K1)", route="cuda",
+            source="evosoro_tpu_torch/ops/csrc/fused_rollout.cu",
+            replaces="evosoro_tpu/ops/fused_rollout.py:777",
+            launches=par["fused_rollout"], launches_of="the parallel phase's sharded runs",
+            bound_ms=k1["bound_ms"], bound_by=k1["bound_by"], library_ms=None,
+            max_abs_err=k1["pos"], err_of="pos (m), bench 4^3 x 64, 25 steps, contact on",
+            ms=k1["ms"], plain_ms=k1["plain_ms"], ms_of="bench 4^3 x 64, 25 steps, contact on")]))
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return None
     if sys.argv[1:] == ["--eager"]:
         phase_eager(torch, np, card)
         print(card, flush=True)
@@ -4586,7 +4828,8 @@ def main():
     featx, balx = evo_launches["features"], evo_launches["ballistic"]
     matx = evo_launches["materials"]
     swimx = evo_launches["swimming_materials"]
-    eager = phase_eager(torch, np, card)
+    eager = phase_eager(torch, np, card, **EAGER_CUT)
+    par = phase_parallel(torch, np, card, **PARALLEL_CUT)
     mpc_launches, knot_timed, loop_recs = phase_mpc(torch, np)
     b4 = phase_b4(torch, np)
     b4_timed = next(r for r in b4 if "ms" in r)
@@ -4632,7 +4875,8 @@ def main():
              + mat_launches["fused_rollout"]
              + vol["replay_launches"]["fused_rollout"] + vol["evolution"]["fused_rollout"]
              + vol["mpc_launches"]["fused_rollout"] + big_k1 + swimx["fused_rollout"]
-             + sum(v["fused_rollout"] for v in sqp_mv.values()) + eager["fused_rollout"],
+             + sum(v["fused_rollout"] for v in sqp_mv.values()) + eager["fused_rollout"]
+             + par["fused_rollout"],
              launches_evolution=launches["fused_rollout"],
              launches_swimming=swim["fused_rollout"],
              launches_growth=grow["fused_rollout"],
@@ -4651,6 +4895,7 @@ def main():
              launches_sqp_materials_water_growth=sum(v["fused_rollout"]
                                                      for v in sqp_mv.values()),
              launches_eager_phase=eager["fused_rollout"],
+             launches_parallel_phase=par["fused_rollout"],
              **bound_keys(k1_timed),
              max_abs_err=max(r["pos"] for r in k1),
              err_of=("pos (m), evaluator batch %d x 6^3, 1/25/100 steps, "
@@ -4661,7 +4906,8 @@ def main():
              % k1_timed["batch"], **_step_extras(step)[0]),
         _k2_row(k2, pair, bound_keys, launches["pair_contact"] + mpc_launches["pair_contact"],
                 launches["fused_rollout_with_contact"] + swim["fused_rollout_with_contact"]
-                + grow["fused_rollout_with_contact"] + eager["fused_rollout_with_contact"]),
+                + grow["fused_rollout_with_contact"] + eager["fused_rollout_with_contact"]
+                + par["fused_rollout_with_contact"]),
         dict(name="K1 control knots + segments (B3)", route="cuda",
              source="evosoro_tpu_torch/ops/csrc/fused_rollout.cu",
              replaces="evosoro_tpu/ops/fused_rollout.py:1710",

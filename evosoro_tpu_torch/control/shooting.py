@@ -217,6 +217,37 @@ def _fused_costs(packed, call_kwargs, L, us):
     return torch.where(m["diverged"], 1e9, -m["norm_final_dist"])
 
 
+def _sharded_costs(packed, call_kwargs, L, mesh, spans):
+    """`_fused_costs` with the candidates split over `mesh` (a
+    `parallel.mesh.Mesh`) in the row `spans`: one K1 launch a shard on its
+    device, each shard's packed rows (and the tables shared by every
+    candidate) copied there once, the launches issued before any cost is
+    read (`parallel.mesh.run_shards`); the costs gathered on the first
+    entry's device."""
+    from evosoro_tpu_torch.parallel.mesh import run_shards
+
+    P = packed[0].shape[0]
+
+    def part(t, lo, hi, d):
+        if t is None:
+            return None
+        return (t[lo:hi] if t.shape[0] == P else t).to(d).contiguous()
+
+    shards = {(lo, hi, d): (tuple(part(t, lo, hi, d) for t in packed),
+                            {key: part(v, lo, hi, d) if torch.is_tensor(v) else v
+                             for key, v in call_kwargs.items()})
+              for (lo, hi), d in zip(spans, mesh)}
+
+    def costs(us):
+        def one(lo, hi, d):
+            shard_packed, shard_kwargs = shards[lo, hi, d]
+            return _fused_costs(shard_packed, shard_kwargs, L, us[lo:hi].to(d))
+
+        return torch.cat(run_shards(one, spans, mesh, fetch=lambda c: c.to(mesh[0])))
+
+    return costs
+
+
 def plan_inputs(state, stats, pop: int):
     """The packed (state, stats) a closed-loop plan launches on: row 0 of the
     true state broadcast to `pop` candidates, with the CoM capture reset so
@@ -237,19 +268,29 @@ def make_fused_cem_solver(runner: fr.FusedBatchRunner, num_knots: int,
     arguments, so one solver serves any state of the same design. Returns
     `solve(generator, packed, mean0, std0) -> (best_u, best_cost,
     best_trace, mean_trace, mean, std)` with `packed = (state, body, stats,
-    pair table)`; everything returned is a tensor on the device."""
-    if mesh is not None:
-        raise NotImplementedError("sharding the candidates over several "
-                                  "cards is not ported yet")
+    pair table)`; everything returned is a tensor on the device.
+
+    `mesh` (a `parallel.mesh.Mesh` or a list of devices, which may repeat
+    one; the runner's device by default): the candidates are split over its
+    entries, one K1 launch a shard on its device, the costs gathered on the
+    first entry's device, where the sampling (from the caller's generator)
+    and the elite update run once; so the solve returns the unsharded
+    solve's `best_u` bit for bit. The batch must divide by the mesh's size.
+    The entries must be devices of the runner's type."""
+    from evosoro_tpu_torch.parallel.mesh import as_mesh, check_mesh, row_spans
+
     if (num_knots,) + tuple(grid_shape) != (runner.num_knots,) + runner.grid_shape:
         raise ValueError("the solver's knots and grid differ from the runner's")
     call_kwargs = dict(runner.call_kwargs)
     L, P = float(runner.L), runner.batch
+    device = runner.state_packed.device
+    mesh = check_mesh(as_mesh([device] if mesh is None else mesh), device)
+    spans = row_spans(P, len(mesh))
 
     def solve(generator, packed, mean0, std0):
+        costs = _sharded_costs(packed, call_kwargs, L, mesh, spans)
         final, best_trace, mean_trace = _cem_loop(
-            generator, lambda us: _fused_costs(packed, call_kwargs, L, us),
-            CEMState.initial(mean0, std0), P, config)
+            generator, costs, CEMState.initial(mean0, std0), P, config)
         return (final.best_u, final.best_cost, best_trace, mean_trace,
                 final.mean, final.std)
 
@@ -274,12 +315,22 @@ def cem_optimize_fused(
     production MPC solve. `config.num_iters` K1 launches of `pop_size`
     candidates, nothing waiting on the device until the solve returns.
     Same semantics as `cem_optimize`. Returns (best_u, info); `best_cost`
-    is a float."""
+    is a float. `mesh` spreads the candidate launches over devices
+    (`make_fused_cem_solver`), the population rounded up to a multiple of
+    8 x the mesh's size (the JAX package's quantum); `device` is where the
+    sampling and the elite update run, and the mesh's first entry
+    should be it."""
     device = resolve_device(device)
     _check_generator(generator, device)
     body = body.to(device)
+    pop = config.pop_size
+    if mesh is not None:
+        from evosoro_tpu_torch.parallel.mesh import as_mesh
+
+        quantum = 8 * len(as_mesh(mesh))
+        pop = -(-pop // quantum) * quantum
     runner = fr.FusedBatchRunner(
-        body, sim, env, batch=config.pop_size, num_steps=num_steps,
+        body, sim, env, batch=pop, num_steps=num_steps,
         num_knots=num_knots, dt=dt,
         state=None if state0 is None else state0.to(device),
         stop_time=stop_time)

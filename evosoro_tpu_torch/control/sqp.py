@@ -339,30 +339,37 @@ def sqp_optimize_multistart(generator, body: VoxelBody, sim: SimParams,
     `sqp_optimize` solves from perturbed initializations (the first start is
     the deterministic zero start), one after the other; returns the best
     (u, info) with all costs. `generator`: a `torch.Generator` on the
-    solve's device (where the JAX package takes a PRNG key)."""
-    if mesh is not None:
-        raise NotImplementedError("sharding the starts over several cards is "
-                                  "not ported yet")
+    solve's device (where the JAX package takes a PRNG key).
+
+    `mesh` (a `parallel.mesh.Mesh` or a list of devices of `device`'s type,
+    which may repeat one; `[device]` by default): the starts, drawn on
+    `device`, are split over its entries in contiguous blocks (n_starts
+    must divide by its size, as in the JAX package), each start solved on
+    its entry's device; the results are gathered on `device` and the best
+    start is chosen after the gather."""
     from evosoro_tpu_torch.control.shooting import _check_generator
+    from evosoro_tpu_torch.parallel.mesh import as_mesh, check_mesh, row_spans, run_shards
 
     device = resolve_device(device)
     _check_generator(generator, device)
+    mesh = check_mesh(as_mesh([device] if mesh is None else mesh), device)
+    spans = row_spans(n_starts, len(mesh))
     X, Y, Z = body.occ.shape
     dtype = body.nom_pos.dtype
     u0s = init_std * torch.randn((n_starts, num_knots, X, Y, Z),
                                  generator=generator, dtype=dtype, device=device)
     u0s[0] = 0.0
-    us, costs = [], []
-    for u0 in u0s:
-        u, info = sqp_optimize(body, sim, env, num_steps, num_knots,
-                               target=target, config=config, dt=dt, init_u=u0,
-                               device=device)
-        us.append(u)
-        costs.append(info["best_cost"])
-    costs = torch.stack(costs)
+
+    def solve(lo, hi, d):
+        return [sqp_optimize(body, sim, env, num_steps, num_knots, target=target,
+                             config=config, dt=dt, init_u=u0s[i], device=d)
+                for i in range(lo, hi)]
+
+    solved = [r for block in run_shards(solve, spans, mesh) for r in block]
+    us = torch.stack([u.to(device) for u, _ in solved])
+    costs = torch.stack([info["best_cost"].to(device) for _, info in solved])
     best = torch.argmin(costs)
-    return torch.stack(us)[best], dict(best_cost=costs[best], all_costs=costs,
-                                       best_start=best)
+    return us[best], dict(best_cost=costs[best], all_costs=costs, best_start=best)
 
 
 def locomotion_sqp(body: VoxelBody, sim: SimParams, env: EnvParams,

@@ -116,3 +116,17 @@ def env_params_from_jax(env) -> EnvParams:
             enabled=torch.as_tensor(np.asarray(s.enabled, bool)),
             source_type=torch.as_tensor(np.asarray(s.source_type, np.int32)))
     return _params(EnvParams, env.replace(sources=None)).replace(sources=sources)
+
+
+def spatial_result_from_numpy(res, device="cpu", dtype=torch.float32):
+    """A JAX `SpatialRolloutResult` (numpy leaves: its final state sharded
+    over a mesh comes across gathered, as `np.asarray` of a sharded array
+    gives it) as this port's `parallel.spatial.SpatialRolloutResult`. A
+    batch-sharded state (`parallel.mesh.shard_batch`'s leaves gathered the
+    same way) is `state_from_numpy`'s."""
+    from evosoro_tpu_torch.parallel.spatial import SpatialRolloutResult
+
+    return SpatialRolloutResult(
+        final_state=state_from_numpy(res.final_state, device, dtype),
+        **{k: _tensor(getattr(res, k), device, dtype)
+           for k in ("ini_cm", "final_cm", "final_dist", "final_dist_y", "diverged")})

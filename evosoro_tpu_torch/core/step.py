@@ -139,12 +139,6 @@ def _from_nbrv(a, d):
     return torch.roll(a, 1, dims=d - 4)
 
 
-def _check_envelope(sim: SimParams, env: EnvParams, dt_reduce):
-    """Raise NotImplementedError for every feature outside the port's step."""
-    if dt_reduce is not None:
-        raise NotImplementedError("sim_step: dt reduction across shards is not ported yet")
-
-
 def has_bc(body: VoxelBody) -> bool:
     """True when the body carries boundary conditions: a fixed degree of
     freedom, an external force or a prescribed displacement or rotation."""
@@ -235,11 +229,15 @@ def _thermal_stress(d, state: SimState, body: VoxelBody, env: EnvParams):
     return 0.5 * (s1t + s2t)
 
 
-def _volume_dt(state: SimState, body: VoxelBody, sim: SimParams, bonds, L, dt):
+def _volume_dt(state: SimState, body: VoxelBody, sim: SimParams, bonds, L, dt,
+               dt_reduce=None):
     """The dt volume effects recompute after the bond pass, per robot:
     DtFrac / (2 pi max sqrt(k_eff / m)) over its bonds, k_eff = Eh (CS1 +
     CS2) / (2 (e L + L)) with this step's strain and the carried sections
-    (VXS_Bond.h:34, VX_Sim.cpp:1792-1794); `dt` where no bond is stiff."""
+    (VXS_Bond.h:34, VX_Sim.cpp:1792-1794); `dt` where no bond is stiff.
+    `dt_reduce` maps the largest frequency before dt is taken from it: a
+    spatially-sharded step (`parallel.spatial`) gives the largest over the
+    slabs, so every slab steps by the same dt."""
     cs_sum = state.cs_area[..., 0, :, :, :, :] + state.cs_area[..., 1, :, :, :, :]
     strains = torch.stack([b["strain"] for b in bonds], dim=-4)
     eff_k = body.bond_eh * cs_sum / (2.0 * (strains * L + L))
@@ -248,6 +246,8 @@ def _volume_dt(state: SimState, body: VoxelBody, sim: SimParams, bonds, L, dt):
     f2 = torch.maximum(torch.where(body.bond_mask, _safe_div(eff_k, m1), 0.0),
                        torch.where(body.bond_mask, _safe_div(eff_k, m2), 0.0))
     max_freq = torch.sqrt(f2.flatten(-4).amax(-1))
+    if dt_reduce is not None:
+        max_freq = dt_reduce(max_freq)
     frac = torch.full_like(max_freq, sim.dt_frac)
     return torch.where(max_freq > 0, frac / (2.0 * REF_PI_DOUBLE * max_freq), dt)
 
@@ -804,8 +804,11 @@ def sim_step(
     scalars may be floats or tensors of the batch shape. `control_offset`
     is the MPC actuation channel: a (..., X, Y, Z) scale modulation, in
     fractions of the nominal size, added after the actuation clamps.
+    `dt_reduce`, under volume effects, maps the step's largest bond
+    frequency before its dt is taken from it (`parallel.spatial` gives the
+    largest over the slabs), where the JAX package applies it
+    (evosoro_tpu/core/step.py:844-847).
     """
-    _check_envelope(sim, env, dt_reduce)
     # equilibrium mode overrides the damping configuration for the whole run
     # (reference: EnableEquilibriumMode, VX_Sim.cpp:1351-1372: BondDampingZ
     # 0.1, SlowDampingZ 0, the max-velocity clamp off)
@@ -836,7 +839,7 @@ def sim_step(
     if vol:
         # everything from the Euler step on uses the recomputed dt, and the
         # voxel pass's coupling gives the next step's carry
-        dt = _volume_dt(state, body, sim, bonds, L, dt)
+        dt = _volume_dt(state, body, sim, bonds, L, dt, dt_reduce)
         new_ts_sum, new_cs_area = _volume_effects_coupling(bonds, body)
 
     diverged_now = state.diverged

@@ -38,7 +38,13 @@ more than 3 sources, windows over 12 trace steps, ballistic development in
 a fluid, a fixed temperature on land) or when an objective tag that only
 the eager path fills is named; K1 otherwise. A K1 error raises; it never
 sends a generation to the eager step. An eager generation prints a warning
-line with its reasons. Not ported yet: the multi-device sharding.
+line with its reasons.
+
+`evaluate_all(devices=[...])` splits each launch over several devices (a
+list may name one card more than once), one K1 launch (or one eager
+rollout) a shard, issued before any result is waited on; under an
+initialized process group the shards are every rank's, and the metrics are
+all-gathered so every rank assigns the whole generation's objectives.
 """
 
 from __future__ import annotations
@@ -60,6 +66,15 @@ from evosoro_tpu_torch.core.rollout import init_state, relaunch_until_stop
 from evosoro_tpu_torch.core.types import EnvParams, evosoro_default_palette
 from evosoro_tpu_torch.device import resolve_device
 from evosoro_tpu_torch.ops import fused_rollout as fr
+from evosoro_tpu_torch.parallel.mesh import (
+    as_mesh,
+    check_mesh,
+    process_split,
+    rank_shards,
+    row_spans,
+    run_shards,
+    tree_map,
+)
 
 # phenotype-map tags -> build_body kwargs (reference: VX_Object.h:183-258)
 _TAG_TO_FIELD = {
@@ -327,33 +342,51 @@ def make_fused_evaluator(palette, grid_shape, num_steps, field_names,
     launch_kw = dict(num_steps=num_steps, grid_shape=tuple(grid_shape),
                      scalars=scalars, flags=flags)
 
-    def fn(structures, voxel_fields, env_batch, stop_time,
-           collision_packed=None, num_steps=None):
+    def launch(structures, voxel_fields, env_batch, stop_time,
+               collision_packed=None, num_steps=None):
         t0 = time.time()
         sp, bp, rows, col, ss = pack(structures, voxel_fields, env_batch, stop_time,
                                      collision_packed)
-        t1 = time.time()
+        pack_s = time.time() - t0
         kw = launch_kw if num_steps is None else dict(launch_kw, num_steps=num_steps)
         out_state, out_stats = fr.fused_call(sp, bp, rows, col, ss_packed=ss, **kw)
-        m = fr.packed_metrics(
+        return fr.packed_metrics(
             out_state, bp, out_stats, lattice_dim, ndbv=flags["ndbv"],
             falling=flags["falling"], needle=flags["needle"], window=flags["window"],
             # the fall-over penalty uses the workspace's height: less the
             # corner shell's layer when the grid carries it
-            grid_z=grid_shape[2] - (1 if fluid_mesh else 0))
-        out = {k: v.cpu().numpy() for k, v in m.items()}  # waits for the device
-        # the host waits on the launch, so launch_s is the device's busy time
-        # plus one small copy back
-        LAST_DISPATCH_TIMING["pack_s"] = t1 - t0
-        LAST_DISPATCH_TIMING["launch_s"] = time.time() - t1
-        return out
+            grid_z=grid_shape[2] - (1 if fluid_mesh else 0)), pack_s
 
     # the packed tensors (state, body, stats, pair table, MDL_DATA tables or
     # None) and keywords of the launch, for holding the kernel against its
     # plain version on exactly what the evaluator gives it
-    fn.pack = pack
-    fn.launch_kw = launch_kw
+    return _waiting(launch, pack=pack, launch_kw=launch_kw)
+
+
+def _waiting(launch, **attrs):
+    """`fn(*inputs, num_steps=None)`: `launch` (which returns the metrics as
+    device tensors and its packing seconds, waiting on nothing) and the
+    wait for its results on the host, with the split in
+    LAST_DISPATCH_TIMING; `fn.launch` is `launch`."""
+
+    def fn(*inputs, num_steps=None):
+        t0 = time.time()
+        m, pack_s = launch(*inputs, num_steps=num_steps)
+        out = _to_host(m)  # waits for the device
+        # the host waits on the launch, so launch_s is the device's busy time
+        # plus one small copy back
+        LAST_DISPATCH_TIMING["pack_s"] = pack_s
+        LAST_DISPATCH_TIMING["launch_s"] = time.time() - t0 - pack_s
+        return out
+
+    fn.launch = launch
+    for k, v in attrs.items():
+        setattr(fn, k, v)
     return fn
+
+
+def _to_host(metrics: dict) -> dict:
+    return {k: v.cpu().numpy() for k, v in metrics.items()}
 
 
 # environment scalars that may differ between the individuals of one eager
@@ -420,8 +453,8 @@ def make_batched_evaluator(palette, grid_shape, num_steps, field_names,
     device = resolve_device(device)
     default_steps = num_steps
 
-    def fn(structures, voxel_fields, sim, env_batch, stop_time, colsys=None,
-           meshdrag=None, num_steps=None):
+    def launch(structures, voxel_fields, sim, env_batch, stop_time, colsys=None,
+               meshdrag=None, num_steps=None):
         t0 = time.time()
         env = _batch_env(env_batch, device)
         # bodies are built on the host and copied to the device once
@@ -434,7 +467,7 @@ def make_batched_evaluator(palette, grid_shape, num_steps, field_names,
         if with_mesh_drag:
             body = body.replace(mesh_drag=meshdrag)
         dt = calc_max_dt(body) * sim.dt_frac
-        t1 = time.time()
+        pack_s = time.time() - t0
         res = rollout(body, sim, env, num_steps=num_steps or default_steps, dt=dt,
                       stop_time=stop_time)
         out = dict(
@@ -451,12 +484,9 @@ def make_batched_evaluator(palette, grid_shape, num_steps, field_names,
             num_non_feet_touching_floor=res.num_non_feet_touching_floor,
             lifetime=res.lifetime, found_needle=res.found_needle,
             push_dist=res.push_dist, norm_window_dist=res.norm_window_dist)
-        out = {k: v.cpu().numpy() for k, v in out.items()}  # waits for the device
-        LAST_DISPATCH_TIMING["pack_s"] = t1 - t0
-        LAST_DISPATCH_TIMING["launch_s"] = time.time() - t1
-        return out
+        return out, pack_s
 
-    return fn
+    return _waiting(launch)
 
 
 def evaluate_all(
@@ -472,14 +502,25 @@ def evaluate_all(
     save_lineages=False,
     batch_pad=8,
     device=None,
+    devices=None,
 ):
     """Evaluate every unevaluated individual in `pop` in batched launches
     on `device`: the card when none is named (without a card that raises;
-    `device="cpu"` asks for the plain versions). Signature-compatible with the reference's evaluate_all
+    `device="cpu"` asks for the plain versions). `devices`, a list of
+    devices (which may repeat one) or a `parallel.mesh.Mesh`, splits each
+    launch into shards, one launch a device, by the JAX package's rule
+    (`n_shards = max(1, min(len(devices), B // batch_pad))`, the batch
+    padded in `batch_pad * n_shards` units); give `device` or `devices`,
+    not both. Under an initialized process group (`parallel.mesh.
+    distributed_init`) the shards are every rank's devices in rank order,
+    and every rank ends with the whole generation's objectives.
+    Signature-compatible with the reference's evaluate_all
     (tools/evaluation.py:18); `max_eval_time` / `time_to_try_again` are the
     reference's subprocess retry timers and are unused, as in the JAX
     package."""
-    device = resolve_device(device)
+    if device is not None and devices is not None:
+        raise ValueError("evaluate_all: give device= or devices=, not both")
+    devices = _devices(device if devices is None else devices)
     start = time.time()
     from evosoro_tpu_torch.evo.logging import PrintLog
 
@@ -504,7 +545,7 @@ def evaluate_all(
 
     if to_eval:
         _dispatch_batch(sim, env, pop, to_eval, print_log,
-                        batch_pad=batch_pad, device=device)
+                        batch_pad=batch_pad, device=devices)
 
     # bookkeeping identical to the reference path (evaluation.py:160-184)
     for ind in to_eval:
@@ -516,7 +557,9 @@ def evaluate_all(
         pop.total_evaluations += 1
         if ind.fitness > pop.best_fit_so_far:
             pop.best_fit_so_far = ind.fitness
-            if run_directory is not None:
+            # under a process group every rank holds the same objectives;
+            # rank 0 writes the archive
+            if run_directory is not None and process_split()[0] == 0:
                 _archive_best(sim, env, ind, run_directory, run_name, pop.gen)
 
     print_log.message(
@@ -645,17 +688,67 @@ def _collision_systems(palette, structures, voxel_fields, L, B):
     return systems
 
 
+def _devices(devices) -> list:
+    """A device, a list of them (a mesh, which may repeat a device) or None
+    (the card) as a list of torch devices of one type."""
+    if devices is None or isinstance(devices, (str, torch.device)):
+        return [resolve_device(devices)]
+    mesh = as_mesh(devices)
+    return list(check_mesh(mesh, mesh[0]))
+
+
+def _shards(devices, B: int, batch_pad: int) -> list:
+    """The (rank, device) pairs a launch of B robots is split over: every
+    rank's devices in rank order, as many as the batch fills with whole
+    `batch_pad` blocks (the JAX package's rule, `n_shards = max(1,
+    min(len(devices), B // batch_pad))`)."""
+    everyone = list(zip(*rank_shards(devices)))
+    return everyone[:max(1, min(len(everyone), B // batch_pad))]
+
+
+def _sharded(shards, spans, make, cut):
+    """A launch's fn over its shards (`parallel.mesh.run_shards`): shard k
+    runs the evaluator `make(device)` of its device on the rows `spans[k]`
+    of the inputs (`cut(inputs, lo, hi, device)`), every local shard's
+    launch issued before any result is waited on; the shards' metrics,
+    all-gathered under a process group, joined in shard order. A launch of
+    one shard in one process is its evaluator itself."""
+    rank, world = process_split()
+    if len(shards) == 1 and world == 1:
+        return make(shards[0][1])
+    owners, devices = zip(*shards)
+    evaluators = {d: make(d) for r, d in shards if r == rank}
+
+    def launch(*inputs, num_steps=None):
+        pack_s = []
+
+        def one(lo, hi, d):
+            m, p = evaluators[d].launch(*cut(inputs, lo, hi, d), num_steps=num_steps)
+            pack_s.append(p)
+            return m
+
+        parts = run_shards(one, spans, devices, owners if world > 1 else None,
+                           fetch=lambda m: {k: v.cpu() for k, v in m.items()})
+        return {key: torch.cat([m[key] for m in parts]) for key in parts[0]}, sum(pack_s)
+
+    return _waiting(launch)
+
+
 def _launch_inputs(sim, env, grid, all_fields, all_env, num_steps, batch_pad,
-                   device):
+                   devices):
     """The fused evaluator of one launch and its host inputs: returns
-    (fn, inputs, padded batch size), with fn(*inputs) -> metrics."""
+    (fn, inputs, padded batch size), with fn(*inputs) -> metrics. Over
+    several devices (or ranks) each shard is one K1 launch on its device."""
     sim_params = sim.to_sim_params()
     palette = palette_from_list(_experiment_palette(env))
     L = env.lattice_dimension
     B = len(all_fields)
-    # batch padded UP the {1, 1.5}·2^k ladder in batch_pad units; pad rows
-    # reuse row 0's design and their results are discarded
-    Bp = _ladder_count(-(-B // batch_pad)) * batch_pad
+    devices = _devices(devices)
+    shards = _shards(devices, B, batch_pad)
+    # batch padded UP the {1, 1.5}·2^k ladder in batch_pad x shards units;
+    # pad rows reuse row 0's design and their results are discarded
+    unit = batch_pad * len(shards)
+    Bp = _ladder_count(-(-B // unit)) * unit
     structures, voxel_fields, field_names, grid, use_mesh_drag = _host_arrays(
         env, grid, all_fields, all_env, Bp)
     env_batch = all_env + [all_env[0]] * (Bp - B)
@@ -670,23 +763,35 @@ def _launch_inputs(sim, env, grid, all_fields, all_env, num_steps, batch_pad,
             fr.pack_collision(cs, tuple(grid))
             for cs in _collision_systems(palette, structures, voxel_fields, L, B)])
 
-    fn = make_fused_evaluator(
-        palette, tuple(grid), num_steps, tuple(field_names), L, sim_params,
-        all_env[0], with_collision=with_collision, fluid_mesh=use_mesh_drag,
-        device=device)
+    def make(device):
+        return make_fused_evaluator(
+            palette, tuple(grid), num_steps, tuple(field_names), L, sim_params,
+            all_env[0], with_collision=with_collision, fluid_mesh=use_mesh_drag,
+            device=device)
+
+    def cut(inputs, lo, hi, device):
+        structures, voxel_fields, env_batch, stop_time, coll = inputs
+        return (structures[lo:hi], {k: v[lo:hi] for k, v in voxel_fields.items()},
+                env_batch[lo:hi], stop_time, None if coll is None else coll[lo:hi])
+
+    fn = _sharded(shards, row_spans(Bp, len(shards)), make, cut)
     inputs = (structures, voxel_fields, env_batch, float(sim.simulation_time),
               collision_packed)
     return fn, inputs, Bp
 
 
-def _eager_inputs(sim, env, grid, all_fields, all_env, num_steps, device):
+def _eager_inputs(sim, env, grid, all_fields, all_env, num_steps, devices,
+                  batch_pad=8):
     """The eager evaluator of one bucket and its host inputs, one row an
     individual: (fn, inputs) with fn(*inputs) -> metrics. In water the
     facet drag's tables are built per design from the shelled grid, as the
-    JAX package's eager path builds them."""
+    JAX package's eager path builds them. Over several devices (or ranks)
+    the rows are split as the K1 route splits them, without pad rows."""
     sim_params = sim.to_sim_params()
     palette = palette_from_list(_experiment_palette(env))
     B = len(all_fields)
+    devices = _devices(devices)
+    shards = _shards(devices, B, batch_pad)
     structures, voxel_fields, field_names, grid, use_mesh_drag = _host_arrays(
         env, grid, all_fields, all_env, B)
     with_collision = bool(sim_params.self_collisions_enabled)
@@ -697,10 +802,22 @@ def _eager_inputs(sim, env, grid, all_fields, all_env, num_steps, device):
     if use_mesh_drag:
         from evosoro_tpu_torch.envs.drag import build_mesh_drag_batch
 
-        meshdrag = build_mesh_drag_batch(structures, device=resolve_device(device))
-    fn = make_batched_evaluator(
-        palette, tuple(grid), num_steps, tuple(field_names), ("all",),
-        with_collision=with_collision, with_mesh_drag=use_mesh_drag, device=device)
+        meshdrag = build_mesh_drag_batch(structures, device=devices[0])
+
+    def make(device):
+        return make_batched_evaluator(
+            palette, tuple(grid), num_steps, tuple(field_names), ("all",),
+            with_collision=with_collision, with_mesh_drag=use_mesh_drag, device=device)
+
+    def cut(inputs, lo, hi, device):
+        structures, voxel_fields, sim_params, envs, stop_time, colsys, meshdrag = inputs
+        return (structures[lo:hi], {k: v[lo:hi] for k, v in voxel_fields.items()},
+                sim_params, envs[lo:hi], stop_time,
+                None if colsys is None else colsys[lo:hi],
+                None if meshdrag is None else tree_map(lambda t: t[lo:hi].to(device),
+                                                       meshdrag))
+
+    fn = _sharded(shards, row_spans(B, len(shards), exact=False), make, cut)
     inputs = (structures, voxel_fields, sim_params, all_env,
               float(sim.simulation_time), colsys, meshdrag)
     return fn, inputs
@@ -752,7 +869,8 @@ def _dispatch_batch(sim, env, pop, inds, print_log, batch_pad=8, device=None,
                     _bucketed=False, eager=False):
     """Evaluate `inds` in launches of one step bucket each and assign their
     objectives. Each bucket takes K1 or the eager evaluator (`eager=True`
-    asks for the eager evaluator for every bucket)."""
+    asks for the eager evaluator for every bucket). `device` is one device
+    or a list of them, over which each launch is sharded (`_shards`)."""
     _t0 = time.time()
     _tm = LAST_DISPATCH_TIMING
     _tm.clear()
@@ -777,7 +895,7 @@ def _dispatch_batch(sim, env, pop, inds, print_log, batch_pad=8, device=None,
                       batch=0, batch_padded=0, redispatches=0,
                       short_after_redispatch=0, short_final_times=[], short_ids=[],
                       num_steps=max(per_steps), buckets=[], used_fused=True,
-                      eager_reason=None)
+                      eager_reason=None, n_shards=1)
         for bval in buckets:
             group = [ind for ind, s in zip(inds, per_steps) if s == bval]
             for lo in range(0, len(group), n_slice):
@@ -791,6 +909,7 @@ def _dispatch_batch(sim, env, pop, inds, print_log, batch_pad=8, device=None,
                 merged["buckets"].append(dict(num_steps=bval, batch=len(chunk)))
                 merged["used_fused"] = merged["used_fused"] and _tm["used_fused"]
                 merged["eager_reason"] = merged["eager_reason"] or _tm["eager_reason"]
+                merged["n_shards"] = max(merged["n_shards"], _tm["n_shards"])
         _tm.clear()
         _tm.update(merged)
         return
@@ -804,12 +923,14 @@ def _dispatch_batch(sim, env, pop, inds, print_log, batch_pad=8, device=None,
         print_log.message(
             "WARNING: generation leaving the fused K1 path ({}); the eager torch "
             "step runs it, at a lower rollout throughput".format("; ".join(reasons)))
-        fn, inputs = _eager_inputs(sim, env, grid, all_fields, all_env, num_steps, device)
+        fn, inputs = _eager_inputs(sim, env, grid, all_fields, all_env, num_steps, device,
+                                   batch_pad)
         Bp = B
     else:
         fn, inputs, Bp = _launch_inputs(sim, env, grid, all_fields, all_env, num_steps,
                                         batch_pad, device)
     _tm["used_fused"] = not reasons
+    _tm["n_shards"] = len(_shards(_devices(device), B, batch_pad))
     _tm["eager_reason"] = "; ".join(reasons) or None
     _tm["host_prep_s"] = time.time() - _t0  # fields, step counts, tables
     _td = time.time()

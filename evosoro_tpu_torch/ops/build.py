@@ -17,7 +17,9 @@ multiply and add separately, so contraction into FMA is turned off.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -81,12 +83,33 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+@contextlib.contextmanager
+def build_lock(directory: Path = BUILD_DIR, name: str = ".build.lock"):
+    """Hold an exclusive file lock in `directory` (created if missing), so
+    that processes sharing a build directory (pytest workers, the ranks of
+    a distributed run) build one at a time and each finds what the one
+    before it built."""
+    directory.mkdir(parents=True, exist_ok=True)
+    with open(directory / name, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names=tuple(SIGNATURES)) -> float:
     """Compile every missing library: one nvcc process per translation unit,
-    all started together, then one link per library. Returns the wall
-    seconds; raises on any failure."""
+    all started together, then one link per library, under `build_lock`,
+    so another process never starts nvcc into the same directory at the
+    same time. Returns the wall seconds; raises on any failure."""
     t0 = time.time()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with build_lock():
+        _build_missing(names)
+    return time.time() - t0
+
+
+def _build_missing(names):
     jobs = []  # (name, library path, [(object, log, process)])
     for name in names:
         out = _lib_path(name)
@@ -122,7 +145,37 @@ def build_all(names=tuple(SIGNATURES)) -> float:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return time.time() - t0
+
+
+def gxx_library(name: str, sources, flags, inputs=(), directory: Path = BUILD_DIR,
+                timeout: float = 600) -> Path:
+    """A shared library built by g++ from `sources` with `flags`, at a path
+    named by a hash of the sources, of the files in `inputs` (headers they
+    include) and of the command line, built when missing under
+    `build_lock` (written to a temporary name and renamed into place).
+    Raises with g++'s message when the build fails, and when g++ runs past
+    `timeout` seconds."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"{name}: g++ not found")
+    h = hashlib.sha256()
+    for f in sorted({Path(p) for p in (*sources, *inputs)}):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(flags).encode())
+    out = Path(directory) / f"lib{name}-{h.hexdigest()[:12]}.so"
+    if out.exists():
+        return out
+    with build_lock(Path(directory)):
+        if not out.exists():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            r = subprocess.run([gxx, *flags, "-o", str(tmp), *map(str, sources)],
+                               capture_output=True, text=True, timeout=timeout)
+            if r.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"{name}: g++ exit {r.returncode}\n{r.stderr[-4000:]}")
+            os.replace(tmp, out)
+    return out
 
 
 def build_log(name: str) -> str:

@@ -18,7 +18,6 @@ float32 terms in different orders, and g++'s libm is not torch's).
 import ctypes
 import os
 import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -46,20 +45,29 @@ GROUPS = dict(pos=(0, 3), quat=(3, 7), linmom=(7, 10), angmom=(10, 13),
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """The kernels' sources built for the host into a shared library."""
-    gxx = shutil.which("g++")
-    if gxx is None:
+def emulation_library(*defines, opt="-O1"):
+    """`tests/cuda_host/emulate.cpp` (the kernels' sources with stand-ins for
+    the CUDA built-ins) built by g++ into a shared library. It is built once
+    for all test files and pytest workers: under `evosoro_tpu_torch/_build/
+    cuda_host/`, named by a hash of the sources (every file of
+    `tests/cuda_host/` and `ops/csrc/`) and of the command line, under a
+    file lock the workers share (`build.gxx_library`), g++ held to 120 s."""
+    if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernels' sources for the host")
-    out = tmp_path_factory.mktemp("cuda_host") / "libemulate.so"
-    cmd = [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-x", "c++", "-shared",
-           "-fPIC", "-DEVOSORO_HOST_EMULATION", "-I", os.path.join(HERE, "cuda_host"),
-           "-I", str(build.CSRC), "-o", str(out),
-           os.path.join(HERE, "cuda_host", "emulate.cpp")]
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, r.stderr[-4000:]
-    lib = ctypes.CDLL(str(out))
+    cuda_host = os.path.join(HERE, "cuda_host")
+    flags = ["-std=c++17", opt, "-ffp-contract=off", "-x", "c++", "-shared", "-fPIC",
+             "-DEVOSORO_HOST_EMULATION", *defines, "-I", cuda_host, "-I", str(build.CSRC)]
+    inputs = [os.path.join(cuda_host, f) for f in os.listdir(cuda_host)] + \
+        [str(f) for f in build.CSRC.iterdir()]
+    return ctypes.CDLL(str(build.gxx_library(
+        "emulate", [os.path.join(cuda_host, "emulate.cpp")], flags, inputs=inputs,
+        directory=build.BUILD_DIR / "cuda_host", timeout=120)))
+
+
+@pytest.fixture(scope="module")
+def host_lib():
+    """The kernels' sources built for the host into a shared library."""
+    lib = emulation_library()
     lib.emu_fwd.argtypes = [_P, _P, _I, _P, _P] + [_I] * 8 + [_P, _I, _P]
     lib.emu_bwd.argtypes = [_P, _P, _I, _P, _P] + [_I] * 8 + [_P, _I, _P, _P, _P, _P, _P, _I]
     return lib

@@ -167,7 +167,8 @@ def test_fused_solver_launches_once_per_iteration(monkeypatch):
     best_u, best_cost, best_trace, mean_trace, mean, std = out
     assert best_trace.shape == mean_trace.shape == (4,)
     assert float(best_cost) == float(best_trace[-1])
-    with pytest.raises(NotImplementedError):
+    # an object that is not a mesh is refused by name
+    with pytest.raises(TypeError, match="mesh must be .* not object"):
         make_fused_cem_solver(runner, 2, (3, 3, 2), cfg, mesh=object())
 
 

@@ -238,18 +238,26 @@ def test_sim_step_refuses_features_outside_envelope():
     from evosoro_tpu_torch.core import EnvParams, SimParams, init_state
 
     state = init_state(body)
-    # the limited floor steps; dt reduction across shards still raises
+    # the limited floor steps
     limited = sim_step(state, body, SimParams(),
                        EnvParams(floor_limited=True, floor_radius=0.015), 1e-5)
     assert bool(torch.isfinite(limited.pos).all())
-    with pytest.raises(NotImplementedError, match="dt reduction"):
-        sim_step(state, body, SimParams(), EnvParams(), 1e-5, dt_reduce=lambda d: d)
     # volume effects need the state's coupling carry, and run with it
     vol = SimParams(volume_effects_enabled=True)
     with pytest.raises(ValueError, match="coupling carry"):
         sim_step(state, body, vol, EnvParams(), 1e-5)
     stepped = sim_step(init_state(body, volume_effects=True), body, vol, EnvParams(), 1e-5)
     assert bool(torch.isfinite(stepped.pos).all()) and float(stepped.cur_dt) > 0
+    # dt reduction across shards is applied where the JAX package applies it
+    # (evosoro_tpu/core/step.py:844-847): to the largest bond frequency the
+    # volume-effects dt is taken from; without volume effects it is not called
+    seen = []
+    doubled = sim_step(init_state(body, volume_effects=True), body, vol, EnvParams(), 1e-5,
+                       dt_reduce=lambda f: seen.append(f) or 2 * f)
+    assert len(seen) == 1
+    torch.testing.assert_close(doubled.cur_dt, stepped.cur_dt / 2, rtol=1e-6, atol=0)
+    sim_step(state, body, SimParams(), EnvParams(), 1e-5, dt_reduce=seen.append)
+    assert len(seen) == 1
     # a fluid environment, development fields, plasticity, the max-velocity
     # clamp and equilibrium mode are inside the envelope
     fluid = sim_step(state, body, SimParams(), EnvParams(fluid_environment=True), 1e-5)
@@ -267,7 +275,11 @@ def test_import_leaves_jax_out():
             "evosoro_tpu_torch.roofline, evosoro_tpu_torch.device, "
             "evosoro_tpu_torch.envs, evosoro_tpu_torch.envs.drag, "
             "evosoro_tpu_torch.envs.sources, evosoro_tpu_torch.envs.regions, "
-            "evosoro_tpu_torch.io, evosoro_tpu_torch.io.vxa; "
+            "evosoro_tpu_torch.io, evosoro_tpu_torch.io.vxa, "
+            "evosoro_tpu_torch.native, evosoro_tpu_torch.core.shape, "
+            "evosoro_tpu_torch.io.mesh_io, evosoro_tpu_torch.viz.marching, "
+            "evosoro_tpu_torch.parallel.mesh, evosoro_tpu_torch.parallel.spatial, "
+            "evosoro_tpu_torch.parallel.ranks, evosoro_tpu_torch.graft_entry; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'evosoro_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -15,6 +15,7 @@ inputs, made with numpy from a seed.
 """
 
 import importlib
+import os
 import types
 
 import jax
@@ -22,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_outputs import stored
 
 from evosoro_tpu.core.materials import build_body as j_build_body
 from evosoro_tpu.core.materials import calc_max_dt as j_calc_max_dt
@@ -135,15 +137,39 @@ def test_eager_devo_step_matches_jax_in_float64(freeze, extras):
     assert not bool(s.diverged)
 
 
-def test_fused_devo_rollout_matches_jax_kernel():
+DEVO_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                            "devo_kernel_jax.npz")
+
+
+def devo_kernel_case():
+    """The JAX inputs of `test_fused_devo_rollout_matches_jax_kernel`: (body,
+    sim, env, dt, a batch of 2 at rest)."""
     jb = _growth_body(4, 7, jnp.float32, False)
     sim = JSim(init_cm_time=0.001, min_temp_fact=0.4)
     env = JEnv(growth_amplitude=0.8)
     dt = jnp.asarray(j_calc_max_dt(jb), jnp.float32) * jnp.asarray(sim.dt_frac, jnp.float32)
     state = j_init_state(jb, dtype=jnp.float32)
     batched = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (2,) + x.shape), state)
+    return jb, sim, env, dt, batched
+
+
+def devo_kernel_jax() -> tuple:
+    """(inputs, outputs) of the JAX kernel in interpret mode, 80 steps."""
+    jb, sim, env, dt, batched = case = devo_kernel_case()
     ref, _ = jfr.fused_rollout(batched, jb, sim, env, num_steps=80, dt=dt,
                                interpret=True, batch_block=2)
+    return case, dict(scale=ref.scale, pos=ref.pos)
+
+
+def test_fused_devo_rollout_matches_jax_kernel():
+    """The development variant's plain version against the JAX kernel in
+    interpret mode, 2 x 4^3 x 80 steps; the kernel's outputs are read from
+    `tests/fixtures/devo_kernel_jax.npz` (`make_devo_kernel_jax.py`: its
+    compile was most of this test's time) after checking that it ran on
+    these inputs."""
+    case = devo_kernel_case()
+    jb, sim, env, dt, batched = case
+    ref = stored(DEVO_FIXTURE, "growth", *case)
     body = convert.body_from_numpy(_np(jb))
     psim, penv = convert.sim_params_from_jax(sim), convert.env_params_from_jax(env)
     assert fr.supports(body, psim, penv)
@@ -152,10 +178,9 @@ def test_fused_devo_rollout_matches_jax_kernel():
     assert not flags["use_final_phase"] and not flags["use_final_ad"]
     out, stats = fr.fused_rollout(convert.state_from_numpy(_np(batched)), body, psim,
                                   penv, num_steps=80, dt=float(dt))
-    assert float(np.abs(np.asarray(ref.scale) - 0.01).max()) > 1e-3
-    np.testing.assert_allclose(out.scale.numpy(), np.asarray(ref.scale),
-                               rtol=2e-5, atol=1e-9)
-    np.testing.assert_allclose(out.pos.numpy(), np.asarray(ref.pos), rtol=5e-5, atol=1e-8)
+    assert float(np.abs(ref["scale"] - 0.01).max()) > 1e-3
+    np.testing.assert_allclose(out.scale.numpy(), ref["scale"], rtol=2e-5, atol=1e-9)
+    np.testing.assert_allclose(out.pos.numpy(), ref["pos"], rtol=5e-5, atol=1e-8)
     assert not bool(stats.diverged.any())
     # the development flags are what made it grow: the land step on the
     # same packed tensors only actuates

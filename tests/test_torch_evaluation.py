@@ -12,6 +12,7 @@ import random
 import numpy as np
 import pytest
 import torch
+from jax_outputs import stored
 
 from evosoro_tpu.core.types import EnvParams as JEnv
 from evosoro_tpu.core.types import SimParams as JSim
@@ -84,23 +85,72 @@ def _population(Genotype_, Phenotype_, Population_, CPPN_, Objectives_,
     return Population_(objectives, _Genotype, _Phenotype, pop_size=4)
 
 
-def test_evaluate_all_matches_jax(monkeypatch):
+EVALUATION_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                                  "evaluation_jax.npz")
+
+
+def _jax_settings(case):
+    """The JAX package's Sim and Env that `case` ("basic" or a key of
+    `_EXPERIMENTS`) is evaluated with."""
+    if case == "basic":
+        return JSimC(dt_frac=0.9, simulation_time=0.01, fitness_eval_init_time=0.002), JEnvC()
+    genome, water, drag_model, _ = _EXPERIMENTS[case]
+    sim_kw, env_of = _experiment_settings(genome, water, drag_model)
+    return JSimC(**sim_kw), env_of(JEnvC)
+
+
+def _settings_key(case):
+    """What JAX's stored evaluation of `case` depends on besides the
+    population (whose phenotypes the stored md5s pin): every setting of its
+    Sim and Env, as text."""
+    return repr([sorted(vars(o).items()) for o in _jax_settings(case)])
+
+
+def _jax_generation(case):
+    """JAX's evaluator (its eager path, `EVOSORO_TPU_FUSED_EVAL=0`) on the
+    population of `case`: each individual's phenotype md5 and fitness."""
+    old = os.environ.get("EVOSORO_TPU_FUSED_EVAL")
+    os.environ["EVOSORO_TPU_FUSED_EVAL"] = "0"
+    try:
+        if case == "basic":
+            pop_j = _population(JGenotype, JPhenotype, JPopulation, JCPPN, JObjectives,
+                                j_material_tree)
+        else:
+            pop_j = _experiment_population(_EXPERIMENTS[case][0], JGenotype, JPhenotype,
+                                           JPopulation, JCPPN, JObjectives, j_material_tree,
+                                           j_sigmoid)
+        j_evaluation.evaluate_all(*_jax_settings(case), pop_j)
+    finally:
+        if old is None:
+            os.environ.pop("EVOSORO_TPU_FUSED_EVAL")
+        else:
+            os.environ["EVOSORO_TPU_FUSED_EVAL"] = old
+    return dict(md5=np.array([i.md5 for i in pop_j]),
+                fitness=np.array([i.fitness for i in pop_j]))
+
+
+def _stored_generation(case):
+    """JAX's stored evaluation of `case` (`fixtures/evaluation_jax.npz`,
+    written by `fixtures/make_evaluation_jax.py`: JAX's evaluator took most
+    of these tests' time), after checking that it was computed with the
+    Sim and Env settings this test gives."""
+    return stored(EVALUATION_FIXTURE, case, _settings_key(case))
+
+
+def test_evaluate_all_matches_jax():
     """Collision on; 0.01 s of sim time keeps every design on the 256-step
-    floor of the step ladder."""
-    monkeypatch.setenv("EVOSORO_TPU_FUSED_EVAL", "0")
-    pop_j = _population(JGenotype, JPhenotype, JPopulation, JCPPN, JObjectives,
-                        j_material_tree)
-    j_evaluation.evaluate_all(
-        JSimC(dt_frac=0.9, simulation_time=0.01, fitness_eval_init_time=0.002),
-        JEnvC(), pop_j)
+    floor of the step ladder. JAX's fitness is read from
+    `fixtures/evaluation_jax.npz`; the port's population must have the
+    phenotypes JAX evaluated (their md5s)."""
+    ref = _stored_generation("basic")
     pop_p = _population(Genotype, Phenotype, Population, CPPN, ObjectiveDict,
                         make_material_tree)
     evaluation.evaluate_all(
         Sim(dt_frac=0.9, simulation_time=0.01, fitness_eval_init_time=0.002),
         Env(), pop_p, device="cpu")
     assert evaluation.LAST_DISPATCH_TIMING["num_steps"] == 256
-    assert [i.md5 for i in pop_p] == [i.md5 for i in pop_j]
-    fit_j = np.array([i.fitness for i in pop_j])
+    assert [i.md5 for i in pop_p] == ref["md5"].tolist()
+    fit_j = ref["fitness"]
     fit_p = np.array([i.fitness for i in pop_p])
     assert np.isfinite(fit_p).all() and np.abs(fit_p).max() > 0
     np.testing.assert_allclose(fit_p, fit_j, rtol=5e-3, atol=1e-5)
@@ -189,18 +239,10 @@ _EXPERIMENTS = {
 }
 
 
-@pytest.mark.parametrize("case", list(_EXPERIMENTS))
-def test_experiments_match_jax(monkeypatch, case):
-    """One population of each shipped experiment's genome through both
-    evaluators: the swimmers (examples/swimming_basic.py and
-    swimming_complex.py) under the default facet drag and under
-    `drag_model="voxel_face"`, and examples/growth.py's development genome.
-    0.01 s of sim time (one 256-step launch), actuation from 0.002 s at
-    400 Hz so that the swimmers get three strokes in; fitness at rtol 5e-3 as tests/test_evaluation.py:117. The port's launch
-    must carry the flags of the model asked for, and the shell only with the
-    facet drag."""
-    genome, water, drag_model, want = _EXPERIMENTS[case]
-    monkeypatch.setenv("EVOSORO_TPU_FUSED_EVAL", "0")
+def _experiment_settings(genome, water, drag_model):
+    """(Sim keywords, env factory) of an `_EXPERIMENTS` case: 0.01 s of sim
+    time, actuation from 0.002 s at 400 Hz (growth: its own dt fraction and
+    amplitude)."""
     sim_kw = dict(dt_frac=0.9, simulation_time=0.01, fitness_eval_init_time=0.002)
     env_kw = dict(temp_amp=64.0)
     if genome == "growth":
@@ -214,9 +256,24 @@ def test_experiments_match_jax(monkeypatch, case):
             env.add_param("growth_amplitude", 0.8, "<GrowthAmplitude>")
         return _water(env) if water else env
 
-    pop_j = _experiment_population(genome, JGenotype, JPhenotype, JPopulation, JCPPN,
-                                   JObjectives, j_material_tree, j_sigmoid)
-    j_evaluation.evaluate_all(JSimC(**sim_kw), env_of(JEnvC), pop_j)
+    return sim_kw, env_of
+
+
+@pytest.mark.parametrize("case", list(_EXPERIMENTS))
+def test_experiments_match_jax(monkeypatch, case):
+    """One population of each shipped experiment's genome through both
+    evaluators: the swimmers (examples/swimming_basic.py and
+    swimming_complex.py) under the default facet drag and under
+    `drag_model="voxel_face"`, and examples/growth.py's development genome.
+    0.01 s of sim time (one 256-step launch), actuation from 0.002 s at
+    400 Hz so that the swimmers get three strokes in; fitness at rtol 5e-3 as tests/test_evaluation.py:117. The port's launch
+    must carry the flags of the model asked for, and the shell only with the
+    facet drag. JAX's fitness is read from `fixtures/evaluation_jax.npz`
+    (`make_evaluation_jax.py`); the port's population must have the
+    phenotypes JAX evaluated (their md5s)."""
+    genome, water, drag_model, want = _EXPERIMENTS[case]
+    sim_kw, env_of = _experiment_settings(genome, water, drag_model)
+    ref = _stored_generation(case)
     pop_p = _experiment_population(genome, Genotype, Phenotype, Population, CPPN,
                                    ObjectiveDict, make_material_tree,
                                    rescaled_positive_sigmoid)
@@ -231,14 +288,14 @@ def test_experiments_match_jax(monkeypatch, case):
 
     monkeypatch.setattr(fr, "fused_call", recording)
     evaluation.evaluate_all(Sim(**sim_kw), env_of(Env), pop_p, device="cpu")
-    assert [i.md5 for i in pop_p] == [i.md5 for i in pop_j]
+    assert [i.md5 for i in pop_p] == ref["md5"].tolist()
     assert len(launches) == 1
     flags, grid = launches[0]
     for k, v in want.items():
         assert flags[k] == v, k
     base = (4, 4, 3) if genome == "growth" else IND_SIZE
     assert grid == (tuple(g + 1 for g in base) if want.get("fluid_mesh") else base)
-    fit_j = np.array([i.fitness for i in pop_j])
+    fit_j = ref["fitness"]
     fit_p = np.array([i.fitness for i in pop_p])
     assert np.isfinite(fit_p).all() and np.abs(fit_p).max() > 1e-4  # ten times atol
     np.testing.assert_allclose(fit_p, fit_j, rtol=5e-3, atol=1e-5)

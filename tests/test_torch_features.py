@@ -24,12 +24,14 @@ end-of-life posterior Y, speed windows and ballistic development
 """
 
 import importlib
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_outputs import stored
 
 from evosoro_tpu.core.materials import build_body as j_build_body
 from evosoro_tpu.core.materials import calc_max_dt as j_calc_max_dt
@@ -174,22 +176,37 @@ def test_needle_untouched_reports_zero():
     assert int(res.found_needle) == 0 and float(res.push_dist) == 0.0
 
 
-def _fused_both(jb, sim, env, steps, ballistic=False):
-    """JAX's kernel in interpret mode and the port's plain version on the
-    same batch of 8 robots (float32)."""
-    dt = float(j_calc_max_dt(jb)) * float(sim.dt_frac)
-    st = j_init_state(jb, ballistic_devo=ballistic)
-    batched = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (8,) + x.shape), st)
-    j_out, j_stats = jfr.fused_rollout(batched, jb, sim, env, num_steps=steps, dt=dt,
-                                      interpret=True,
-                                      stop_time=float(sim.stop_condition_value))
-    body = _port(jb, torch.float32)
-    pst = init_state(body, ballistic_devo=ballistic)
-    pst = _expand_state(pst, (8,), ())
-    out, stats = fr.fused_rollout(pst, body, convert.sim_params_from_jax(sim),
-                                  convert.env_params_from_jax(env), num_steps=steps,
-                                  dt=dt, stop_time=float(sim.stop_condition_value))
-    return j_out, j_stats, out, stats
+FEATURES_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                                "features_kernel_jax.npz")
+FEATURE_FIELDS = ("fell_over", "win_count", "cm_captured", "norm_dist_by_vol",
+                  "norm_frozen_dist_by_vol", "norm_window_dist", "win_prev_dist",
+                  "end_of_life_posterior_y", "source_min_dist", "source_avg_min_dist",
+                  "ini_needle")
+
+
+def features_kernel_case():
+    """The JAX inputs of `test_fused_features_match_jax_kernel`: (body, sim,
+    env, dt, a batch of 8 at rest with its ballistic-development carry)."""
+    jb = _walker({(0, 0, 0): 6, (1, 1, 1): 7}, dtype=jnp.float32, **GROW)
+    dt = float(j_calc_max_dt(jb)) * 0.9
+    sim = JSim(init_cm_time=3 * dt, stop_condition_value=30 * dt,
+               mid_life_freeze_time=10 * dt)
+    env = JEnv(needle_in_haystack=True, falling_prohibited=True, norm_dist_by_vol=True,
+               num_trace_steps_in_window=4, time_between_traces=2.5 * dt, sources=_sources(),
+               growth_amplitude=0.5, ballistic_slowdown_fact=1.0, max_slowdown_permitted=-0.5)
+    batched = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (8,) + x.shape),
+                                     j_init_state(jb, ballistic_devo=True))
+    return jb, sim, env, dt, batched
+
+
+def features_kernel_jax() -> tuple:
+    """(inputs, outputs) of the JAX kernel in interpret mode, 40 steps."""
+    jb, sim, env, dt, batched = case = features_kernel_case()
+    j_out, js = jfr.fused_rollout(batched, jb, sim, env, num_steps=40, dt=dt,
+                                  interpret=True, stop_time=float(sim.stop_condition_value))
+    return case, dict({f: getattr(js, f) for f in FEATURE_FIELDS}, pos=j_out.pos,
+                      final_voxel_size=j_out.devo.final_voxel_size,
+                      start_growth_time=j_out.devo.start_growth_time)
 
 
 def test_fused_features_match_jax_kernel():
@@ -198,39 +215,39 @@ def test_fused_features_match_jax_kernel():
     the frozen window, windows of 4 with ballistic development (every
     decrease of the windowed speed halts development), two sources (one
     swinging, a third disabled), 40 steps with a trace every 2.5 steps and
-    the stop time at step 30, so the frozen tail's sample is taken too."""
-    jb = _walker({(0, 0, 0): 6, (1, 1, 1): 7}, dtype=jnp.float32, **GROW)
-    dt = float(j_calc_max_dt(jb)) * 0.9
-    sim = JSim(init_cm_time=3 * dt, stop_condition_value=30 * dt,
-               mid_life_freeze_time=10 * dt)
-    env = JEnv(needle_in_haystack=True, falling_prohibited=True, norm_dist_by_vol=True,
-               num_trace_steps_in_window=4, time_between_traces=2.5 * dt, sources=_sources(),
-               growth_amplitude=0.5, ballistic_slowdown_fact=1.0, max_slowdown_permitted=-0.5)
+    the stop time at step 30, so the frozen tail's sample is taken too. The
+    port's plain version against the JAX kernel in interpret mode on the
+    same batch of 8 robots (float32), read from
+    `tests/fixtures/features_kernel_jax.npz` (`make_features_kernel_jax.py`:
+    its compile was most of this test's time) after checking that it ran on
+    these inputs."""
+    case = features_kernel_case()
+    jb, sim, env, dt, _ = case
+    js = stored(FEATURES_FIXTURE, "kernel", *case)
     assert jfr.supports(jb, sim, env)
-    assert fr.supports(_port(jb, torch.float32), convert.sim_params_from_jax(sim),
-                       convert.env_params_from_jax(env))
-    j_out, js, out, ps = _fused_both(jb, sim, env, 40, ballistic=True)
+    body = _port(jb, torch.float32)
+    psim, penv = convert.sim_params_from_jax(sim), convert.env_params_from_jax(env)
+    assert fr.supports(body, psim, penv)
+    pst = _expand_state(init_state(body, ballistic_devo=True), (8,), ())
+    out, ps = fr.fused_rollout(pst, body, psim, penv, num_steps=40, dt=dt,
+                               stop_time=float(sim.stop_condition_value))
     for f in ("fell_over", "win_count", "cm_captured"):
-        np.testing.assert_array_equal(getattr(ps, f).numpy(), np.asarray(getattr(js, f)),
-                                      err_msg=f)
+        np.testing.assert_array_equal(getattr(ps, f).numpy(), js[f], err_msg=f)
     for f in ("norm_dist_by_vol", "norm_frozen_dist_by_vol", "norm_window_dist",
               "win_prev_dist", "end_of_life_posterior_y", "source_min_dist",
               "source_avg_min_dist"):
-        np.testing.assert_allclose(getattr(ps, f).numpy(), np.asarray(getattr(js, f)),
-                                   err_msg=f, **METRIC)
-    np.testing.assert_allclose(ps.ini_needle.numpy(), np.asarray(js.ini_needle),
-                               rtol=1e-6, atol=1e-9)
+        np.testing.assert_allclose(getattr(ps, f).numpy(), js[f], err_msg=f, **METRIC)
+    np.testing.assert_allclose(ps.ini_needle.numpy(), js["ini_needle"], rtol=1e-6, atol=1e-9)
     assert int(ps.win_count[0]) >= 3 and float(ps.norm_frozen_dist_by_vol[0]) != 0.0
     assert ps.source_min_dist.shape == (8, 2)  # the disabled source is not tracked
     # the rebased development fields ride the state
     occ = np.asarray(jb.occ)
     for f in ("final_voxel_size", "start_growth_time"):
-        np.testing.assert_allclose(getattr(out.devo, f)[0].numpy()[occ],
-                                   np.asarray(getattr(j_out.devo, f)[0])[occ],
+        np.testing.assert_allclose(getattr(out.devo, f)[0].numpy()[occ], js[f][0][occ],
                                    rtol=2e-4, atol=1e-9, err_msg=f)
     assert (out.devo.start_growth_time[0].numpy()[occ] > 0).all()
     assert int(out.devo.win_count[0]) == int(ps.win_count[0])
-    np.testing.assert_allclose(out.pos.numpy(), np.asarray(j_out.pos), rtol=5e-5, atol=1e-7)
+    np.testing.assert_allclose(out.pos.numpy(), js["pos"], rtol=5e-5, atol=1e-7)
 
 
 def test_falling_latch_parity():

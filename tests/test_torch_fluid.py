@@ -17,12 +17,14 @@ Inputs are made with numpy from a seed and go through both packages:
 """
 
 import importlib
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_outputs import stored
 
 from evosoro_tpu.core.materials import build_body as j_build_body
 from evosoro_tpu.core.materials import calc_max_dt as j_calc_max_dt
@@ -141,6 +143,38 @@ def test_fluid_actuation_ignores_damping_devo_and_clamps():
                        init_state(plain).scale)
 
 
+FLUID_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                             "fluid_kernel_jax.npz")
+
+
+def fluid_kernel_case(model):
+    """The JAX inputs of `test_fused_fluid_rollout_matches_jax_kernel`: (body,
+    sim, env, dt, the batch of 2 at rest, the same batch fast-moving, the
+    thick water)."""
+    jb = _design(4, 13 if model == "mesh" else 11, model == "mesh", jnp.float32)
+    sim, env = JSim(init_cm_time=0.0), JEnv(**FLUID_KW)
+    dt = jnp.asarray(j_calc_max_dt(jb)) * jnp.asarray(sim.dt_frac)
+    batched = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (2,) + x.shape),
+                                     j_init_state(jb))
+    rng = np.random.default_rng(2)
+    moving = batched.replace(linmom=jnp.asarray(
+        rng.normal(0, 0.5, size=batched.linmom.shape).astype(np.float32))
+        * jb.occ[..., None])
+    return jb, sim, env, dt, batched, moving, env.replace(aggregate_drag_coefficient=1.5e5)
+
+
+def fluid_kernel_jax(model) -> tuple:
+    """(inputs, outputs) of the JAX kernel in interpret mode on the case: two
+    steps of the fast-moving batch in thick water and 100 from rest."""
+    jb, sim, env, dt, batched, moving, thick = case = fluid_kernel_case(model)
+    fast, _ = jfr.fused_rollout(moving, jb, sim, thick, num_steps=2, dt=dt,
+                                interpret=True, batch_block=2)
+    ref, ref_stats = jfr.fused_rollout(batched, jb, sim, env, num_steps=100, dt=dt,
+                                       interpret=True, batch_block=2)
+    return case, dict(fast_pos=fast.pos, fast_scale=fast.scale, fast_linmom=fast.linmom,
+                      pos=ref.pos, scale=ref.scale, linmom=ref.linmom, time=ref_stats.time)
+
+
 @pytest.mark.parametrize("model", ["face", "mesh"])
 def test_fused_fluid_rollout_matches_jax_kernel(model):
     """`fused_rollout` on CPU tensors against the JAX Pallas kernel in
@@ -151,52 +185,43 @@ def test_fused_fluid_rollout_matches_jax_kernel(model):
     two float32 paths part as on land (XLA contracts into FMA, eager torch
     does not, and the quaternion snap amplifies it: ROADMAP.md, section C):
     there positions are held inside the 5e-5 m drift band, the CoM's travel
-    at rtol 5e-3, the scale at rtol 1e-6."""
-    jb = _design(4, 13 if model == "mesh" else 11, model == "mesh", jnp.float32)
-    sim, env = JSim(init_cm_time=0.0), JEnv(**FLUID_KW)
+    at rtol 5e-3, the scale at rtol 1e-6. The kernel's outputs are read from
+    `tests/fixtures/fluid_kernel_jax.npz` (`make_fluid_kernel_jax.py`: its
+    compile in interpret mode was most of this test's time) after checking
+    that they were computed on these inputs."""
+    case = fluid_kernel_case(model)
+    jb, sim, env, dt, batched, moving, thick = case
+    ref = stored(FLUID_FIXTURE, model, *case)
     assert jfr.supports(jb, sim, env)
-    dt = jnp.asarray(j_calc_max_dt(jb)) * jnp.asarray(sim.dt_frac)
-    state = j_init_state(jb)
-    batched = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (2,) + x.shape), state)
     body = convert.body_from_numpy(_np(jb))
     psim, penv = convert.sim_params_from_jax(sim), convert.env_params_from_jax(env)
     assert fr.supports(body, psim, penv)
     assert fr.launch_flags(body, psim, penv)["fluid_mesh"] == (model == "mesh")
 
-    rng = np.random.default_rng(2)
-    moving = batched.replace(linmom=jnp.asarray(
-        rng.normal(0, 0.5, size=batched.linmom.shape).astype(np.float32))
-        * jb.occ[..., None])
-    thick = env.replace(aggregate_drag_coefficient=1.5e5)
     pthick = penv.replace(aggregate_drag_coefficient=1.5e5)
-    ref, _ = jfr.fused_rollout(moving, jb, sim, thick, num_steps=2, dt=dt,
-                               interpret=True, batch_block=2)
     out, _ = fr.fused_rollout(convert.state_from_numpy(_np(moving)), body, psim, pthick,
                               num_steps=2, dt=float(dt))
-    np.testing.assert_allclose(out.pos.numpy(), np.asarray(ref.pos), rtol=2e-5, atol=1e-8)
-    np.testing.assert_allclose(out.scale.numpy(), np.asarray(ref.scale), rtol=1e-6, atol=0)
-    np.testing.assert_allclose(out.linmom.numpy(), np.asarray(ref.linmom),
+    np.testing.assert_allclose(out.pos.numpy(), ref["fast_pos"], rtol=2e-5, atol=1e-8)
+    np.testing.assert_allclose(out.scale.numpy(), ref["fast_scale"], rtol=1e-6, atol=0)
+    np.testing.assert_allclose(out.linmom.numpy(), ref["fast_linmom"],
                                rtol=1e-3, atol=5e-5)
     # the drag did act: a launch without it fails the same tolerance
     calm, _ = fr.fused_rollout(convert.state_from_numpy(_np(moving)), body, psim,
                                penv.replace(aggregate_drag_coefficient=0.0),
                                num_steps=2, dt=float(dt))
-    assert not np.allclose(calm.linmom.numpy(), np.asarray(ref.linmom),
-                           rtol=1e-3, atol=5e-5)
+    assert not np.allclose(calm.linmom.numpy(), ref["fast_linmom"], rtol=1e-3, atol=5e-5)
 
-    ref, ref_stats = jfr.fused_rollout(batched, jb, sim, env, num_steps=100, dt=dt,
-                                       interpret=True, batch_block=2)
     ps = convert.state_from_numpy(_np(batched))
     out, stats = fr.fused_rollout(ps, body, psim, penv, num_steps=100, dt=float(dt))
-    assert float(np.abs(np.asarray(ref.linmom)).max()) > 0
-    assert float(np.abs(out.pos.numpy() - np.asarray(ref.pos)).max()) <= 5e-5
-    np.testing.assert_allclose(out.scale.numpy(), np.asarray(ref.scale), rtol=1e-6, atol=0)
+    assert float(np.abs(ref["linmom"]).max()) > 0
+    assert float(np.abs(out.pos.numpy() - ref["pos"]).max()) <= 5e-5
+    np.testing.assert_allclose(out.scale.numpy(), ref["scale"], rtol=1e-6, atol=0)
     mass = np.asarray(jb.mass)[None, ..., None]
     cm = lambda pos: (np.asarray(pos) * mass).sum((1, 2, 3)) / mass.sum()  # noqa: E731
     start = cm(np.asarray(batched.pos))
-    np.testing.assert_allclose(cm(out.pos.numpy()) - start, cm(ref.pos) - start,
+    np.testing.assert_allclose(cm(out.pos.numpy()) - start, cm(ref["pos"]) - start,
                                rtol=5e-3, atol=2e-7)
-    np.testing.assert_allclose(stats.time.numpy(), np.asarray(ref_stats.time), rtol=1e-6)
+    np.testing.assert_allclose(stats.time.numpy(), ref["time"], rtol=1e-6)
     assert not bool(stats.diverged.any())
     if model == "mesh":
         # the face model on the same body differs: the cheap model is not

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_outputs import inputs_digest
 
 from evosoro_tpu.core.materials import build_body as j_build_body
 from evosoro_tpu.core.materials import calc_max_dt as j_calc_max_dt
@@ -94,18 +95,70 @@ def _both(n, seed, steps, K, n_segs, **env_kw):
     return jdr, jsp, dr, sp, body
 
 
+KERNELS_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                               "fused_diff_kernels_jax.npz")
+SEGMENTED = dict(n=4, seed=5, steps=24, K=4, n_segs=3)
+BWD_CASES = {"rest_base0": (0, 0), "mid_base4": (4, 4)}
+BWD = dict(n=3, seed=7, total=12, K=3, S=4)
+
+
+def _ports_diff_rollout(n, seed, steps, K, n_segs):
+    """The port's DiffRollout on `_make`'s design, with the port's body."""
+    _, _, jb, sim, env, dt = _make(n, seed)
+    body, psim, penv = _port(jb, sim, env)
+    return DiffRollout(body, psim, penv, num_steps=steps, num_knots=K, dt=float(dt),
+                       batch=B, n_segs=n_segs), body
+
+
+def _stored_kernel_case(case, dr):
+    """JAX's stored kernel outputs of `case`, after checking that the port
+    packs the body and the stats rows JAX's kernels were given (rtol 1e-6:
+    the last bits of a host's float32 arithmetic)."""
+    with np.load(KERNELS_FIXTURE) as f:
+        ref = {k.split("/", 1)[1]: f[k] for k in f.files if k.startswith(case + "/")}
+    np.testing.assert_allclose(dr.body_packed.numpy(), ref["body"], rtol=1e-6, atol=0)
+    np.testing.assert_allclose(dr.stats0.numpy(), ref["stats0"], rtol=1e-6, atol=0)
+    return ref
+
+
+def segmented_jax_case() -> dict:
+    """JAX's side of test (a): its DiffRollout's packed start state and the
+    three segments' CoM trace and final state on the test's controls."""
+    c = SEGMENTED
+    jdr, jsp, _, _, _ = _both(c["n"], c["seed"], c["steps"], c["K"], c["n_segs"])
+    V = c["n"] ** 3
+    jcms, jsp_f, _ = jdr(jsp, jdr.stats0, jdr.pack_controls(jnp.asarray(_segmented_controls())))
+    return dict(body=np.asarray(jdr.body_packed)[..., :V], stats0=np.asarray(jdr.stats0),
+                start=np.asarray(jsp)[:, :, :V], cms=np.asarray(jcms),
+                final=np.asarray(jsp_f)[:, :, :V])
+
+
+def _segmented_controls():
+    c = SEGMENTED
+    return np.random.default_rng(2).uniform(
+        -0.05, 0.05, size=(B, c["K"]) + (c["n"],) * 3).astype(np.float32)
+
+
 def test_segmented_forward_matches_full_and_jax():
     """(a) Chaining 3 segments equals one 24-step launch of the port bit for
     bit (the same plain step underneath), and the boundary CoM trace follows
     the JAX DiffRollout's to 2e-6 m (a voxel is 0.01 m): the float32
     trajectories of the two packages part once the quaternion snap fires,
     by up to 2e-5 m in a voxel's position within 24 steps, less in the
-    mean."""
-    n, steps, K = 4, 24, 4
-    jdr, jsp, dr, sp, body = _both(n, 5, steps, K, 3)
+    mean. JAX's trace is read from `fixtures/fused_diff_kernels_jax.npz`
+    (`make_fused_diff_kernels_jax.py`: its forward kernel's compile in
+    interpret mode was most of this test's time), after checking the packed
+    body, stats rows and start state."""
+    c = SEGMENTED
+    n, steps = c["n"], c["steps"]
+    dr, body = _ports_diff_rollout(n, c["seed"], steps, c["K"], c["n_segs"])
+    ref = _stored_kernel_case("segmented", dr)
+    start = fr.pack_state_single(init_state(body))[None].expand(B, -1, -1).numpy()
+    occ = body.occ.reshape(-1).numpy()
+    np.testing.assert_allclose(start[:, :, occ], ref["start"][:, :, occ], rtol=1e-6, atol=0)
+    sp = torch.as_tensor(ref["start"]).contiguous()
     assert dr.total_steps == steps and dr.seg_steps == 8
-    u = np.random.default_rng(2).uniform(
-        -0.05, 0.05, size=(B, K, n, n, n)).astype(np.float32)
+    u = _segmented_controls()
     cms, sp_f, stats_f = dr(sp, dr.stats0, dr.pack_controls(torch.as_tensor(u)))
     whole, whole_stats = fr.fused_call(
         sp, dr.body_packed, dr.stats0, None,
@@ -117,10 +170,8 @@ def test_segmented_forward_matches_full_and_jax():
     assert torch.equal(cms[-1], dr.cm_y(whole, whole_stats))
     assert cms.shape == (3, B)
 
-    jcms, jsp_f, _ = jdr(jsp, jdr.stats0, jdr.pack_controls(jnp.asarray(u)))
-    np.testing.assert_allclose(cms.numpy(), np.asarray(jcms), rtol=0, atol=2e-6)
-    np.testing.assert_allclose(sp_f[:, 0].numpy(), np.asarray(jsp_f)[:, 0, :n ** 3],
-                               rtol=0, atol=2e-5)
+    np.testing.assert_allclose(cms.numpy(), ref["cms"], rtol=0, atol=2e-6)
+    np.testing.assert_allclose(sp_f[:, 0].numpy(), ref["final"][:, 0], rtol=0, atol=2e-5)
 
 
 DIFF_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
@@ -231,6 +282,27 @@ def _bptt_design(case, n):
     return j_init_state(jb, dtype=jnp.float64), jb, sim, env, dt
 
 
+BPTT_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                            "eager_bptt_jax.npz")
+BPTT_STEPS, BPTT_KNOTS = 12, 3
+
+
+def bptt_case(case, n=3):
+    """(state, body, sim, env, dt, u0) of an eager BPTT case, JAX's."""
+    state, jb, sim, env, dt = _bptt_design(case, n)
+    u0 = np.random.default_rng(3).uniform(-0.03, 0.03, size=(BPTT_KNOTS,) + jb.occ.shape)
+    return state, jb, sim, env, dt, u0
+
+
+def bptt_jax_grad(state, jb, sim, env, dt, u0):
+    """`jax.grad` of the last CoM-y through the jnp `rollout` by the knots."""
+    def f_jax(u):
+        return j_rollout(jb, sim, env, num_steps=BPTT_STEPS, dt=dt, state=state,
+                         control_sequence=u).final_cm[1]
+
+    return np.asarray(jax.jit(jax.grad(f_jax))(jnp.asarray(u0)))
+
+
 @pytest.mark.parametrize("case", list(BPTT_CASES))
 def test_eager_bptt_float64_matches_jax_grad(case):
     """(c) `torch.autograd.grad` through the eager `rollout` against
@@ -240,18 +312,17 @@ def test_eager_bptt_float64_matches_jax_grad(case):
     with the development ramps, and on the bilinear palette with the
     max-velocity clamp (muscle bonds past yield and clamped voxels in the
     rollout). Measured agreement 7e-14 of the gradient's largest entry on
-    land; held at 1e-9."""
-    n, steps, K = 3, 12, 3
-    state, jb, sim, env, dt = _bptt_design(case, n)
+    land; held at 1e-9. JAX's gradient is read from
+    `tests/fixtures/eager_bptt_jax.npz` (`make_eager_bptt_jax.py`, ~3 min:
+    JAX's trace and compile of each gradient were ~90 % of these cases'
+    time) after checking that it was taken on these inputs."""
+    steps = BPTT_STEPS
+    state, jb, sim, env, dt, u0 = bptt_case(case)
     assert (jb.mesh_drag is not None) == (case == "fluid_mesh")
-    u0 = np.random.default_rng(3).uniform(-0.03, 0.03, size=(K,) + jb.occ.shape)
-
-    def f_jax(u):
-        return j_rollout(jb, sim, env, num_steps=steps, dt=dt, state=state,
-                         control_sequence=u).final_cm[1]
-
-    # jitted, so that a warm persistent compile cache spares the compile
-    g_j = np.asarray(jax.jit(jax.grad(f_jax))(jnp.asarray(u0)))
+    with np.load(BPTT_FIXTURE) as f:
+        assert str(f[case + "/inputs"]) == inputs_digest(state, jb, sim, env, dt, u0), \
+            "the stored JAX gradient was taken on other inputs: rewrite the fixture"
+        g_j = f[case + "/grad"]
 
     body, psim, penv = _port(jb, sim, env, torch.float64)
     pstate = convert.state_from_numpy(_np(state), dtype=torch.float64)
@@ -272,6 +343,36 @@ def test_eager_bptt_float64_matches_jax_grad(case):
     scale = np.abs(g_j).max()
     assert scale > 0
     np.testing.assert_allclose(g_p.numpy(), g_j, rtol=0, atol=1e-9 * scale)
+
+
+def fused_bwd_jax_case(pre_steps, seg_base) -> dict:
+    """JAX's side of test (d): the backward kernel's inputs (the packed
+    state after `pre_steps` steps, the stats rows, the controls and a random
+    cotangent on all 47 carried channels) and its cotangents."""
+    c = BWD
+    n, K, S = c["n"], c["K"], c["S"]
+    jdr, jsp, _, _, _ = _both(n, c["seed"], c["total"], K, c["total"] // S)
+    V = n ** 3
+    rng = np.random.default_rng(9)
+    u = rng.uniform(-0.05, 0.05, size=(B, K, n, n, n)).astype(np.float32)
+    jctrl = jdr.pack_controls(jnp.asarray(u))
+    jstats = jdr.stats0
+    if not pre_steps:
+        jctrl = jnp.zeros_like(jctrl)
+        jstats = jstats.at[..., fr._S_TAMP].set(0.0).at[..., fr._S_GRAV].set(0.0)
+    for s in range(pre_steps // S):
+        jsp, jstats = jdr._seg(jsp, jstats, jctrl, jnp.asarray(s * S, jnp.float32))
+    cot = np.zeros((B, fr.C_S, jsp.shape[2]), np.float32)
+    cot[:, :fr._TSAVG, :V] = rng.standard_normal((B, fr._TSAVG, V))
+    # the JAX custom_vjp's backward is the Pallas backward kernel
+    _, vjp = jax.vjp(lambda s, c: jdr._seg(s, jstats, c, jnp.asarray(seg_base, jnp.float32))[0],
+                     jsp, jctrl)
+    j_cs, j_cu = (np.asarray(a) for a in vjp(jnp.asarray(cot)))
+    return dict(body=np.asarray(jdr.body_packed)[..., :V], stats0=np.asarray(jdr.stats0),
+                state=np.asarray(jsp)[:, :, :V],
+                stats=np.asarray(jstats).reshape(B, fr.C_STAT),
+                ctrl=np.asarray(jctrl)[:, :, :V], cot=cot[:, :, :V],
+                cs=j_cs[:, :, :V], cu=j_cu[:, :, :V])
 
 
 @pytest.mark.parametrize("pre_steps,seg_base", [(0, 0), (4, 4)],
@@ -303,32 +404,23 @@ def test_fused_bwd_call_matches_jax_kernel(pre_steps, seg_base):
     an empty cell and a missing bond feed nothing, and the JAX kernel
     carries their state through unchanged where the eager step (the port's
     plain version, like the jnp step) resets it to constants, so their own
-    cotangents differ by design."""
-    n, K, total, S = 3, 3, 12, 4
-    jdr, jsp, dr, sp, body = _both(n, 7, total, K, total // S)
+    cotangents differ by design. JAX's cotangents and the inputs its
+    kernel was given are read from `fixtures/fused_diff_kernels_jax.npz`
+    (`make_fused_diff_kernels_jax.py`), after checking that the port packs
+    the same body and stats rows."""
+    c = BWD
+    n, K = c["n"], c["K"]
     V = n ** 3
-    rng = np.random.default_rng(9)
-    u = rng.uniform(-0.05, 0.05, size=(B, K, n, n, n)).astype(np.float32)
-    jctrl = jdr.pack_controls(jnp.asarray(u))
-    jstats = jdr.stats0
-    if not pre_steps:
-        jctrl = jnp.zeros_like(jctrl)
-        jstats = jstats.at[..., fr._S_TAMP].set(0.0).at[..., fr._S_GRAV].set(0.0)
-    for s in range(pre_steps // S):
-        jsp, jstats = jdr._seg(jsp, jstats, jctrl, jnp.asarray(s * S, jnp.float32))
-    cot = np.zeros((B, fr.C_S, jsp.shape[2]), np.float32)
-    cot[:, :fr._TSAVG, :V] = rng.standard_normal((B, fr._TSAVG, V))
+    dr, body = _ports_diff_rollout(n, c["seed"], c["total"], K, c["total"] // c["S"])
+    case = next(k for k, v in BWD_CASES.items() if v == (pre_steps, seg_base))
+    ref = _stored_kernel_case(case, dr)
+    j_cs, j_cu = ref["cs"], ref["cu"]
 
-    # the JAX custom_vjp's backward is the Pallas backward kernel
-    _, vjp = jax.vjp(lambda s, c: jdr._seg(s, jstats, c, jnp.asarray(seg_base, jnp.float32))[0],
-                     jsp, jctrl)
-    j_cs, j_cu = (np.asarray(a) for a in vjp(jnp.asarray(cot)))
-
-    state = torch.as_tensor(np.array(jsp)[:, :, :V]).contiguous()
-    stats = torch.as_tensor(np.array(jstats).reshape(B, fr.C_STAT)).contiguous()
-    ctrl = torch.as_tensor(np.array(jctrl)[:, :, :V]).contiguous()
+    state = torch.as_tensor(ref["state"]).contiguous()
+    stats = torch.as_tensor(ref["stats"]).contiguous()
+    ctrl = torch.as_tensor(ref["ctrl"]).contiguous()
     p_cs, p_cu = fr.fused_bwd_call(state, dr.body_packed, stats, ctrl, seg_base,
-                                   torch.as_tensor(cot[:, :, :V]).contiguous(), **dr._kw)
+                                   torch.as_tensor(ref["cot"]).contiguous(), **dr._kw)
     assert p_cs.shape == (B, fr.C_S, V) and p_cu.shape == (B, K, V)
     assert bool((p_cs[:, fr._TSAVG:] == 0).all())
     occ = body.occ.reshape(-1).numpy()

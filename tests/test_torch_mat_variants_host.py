@@ -28,9 +28,6 @@ material instance:
 """
 
 import ctypes
-import os
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -40,6 +37,7 @@ from test_torch_b4_host import (
     _launch_args,
     _worst,
     branch_counts,
+    emulation_library,
     host_backward,
     material_guards,
 )
@@ -47,30 +45,18 @@ from test_torch_k1_host import _host_any, _mat_worst, _squeezed, _stirred
 
 from evosoro_tpu_torch import bench
 from evosoro_tpu_torch.core.rollout import init_state
-from evosoro_tpu_torch.ops import build
 from evosoro_tpu_torch.ops import fused_rollout as fr
 
 torch.set_num_threads(1)
-HERE = os.path.dirname(os.path.abspath(__file__))
 MODELS = ("face", "mesh", "devo")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @pytest.fixture(scope="module")
-def mv_lib(tmp_path_factory):
+def mv_lib():
     """The kernels' sources built for the host with the material instances
     of every variant."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to compile the kernels' sources for the host")
-    out = tmp_path_factory.mktemp("cuda_host_mv") / "libemulate_mv.so"
-    cmd = [gxx, "-std=c++17", "-O0", "-ffp-contract=off", "-x", "c++", "-shared", "-fPIC",
-           "-DEVOSORO_HOST_EMULATION", "-DEMU_MAT_VARIANTS",
-           "-I", os.path.join(HERE, "cuda_host"), "-I", str(build.CSRC), "-o", str(out),
-           os.path.join(HERE, "cuda_host", "emulate.cpp")]
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, r.stderr[-4000:]
-    lib = ctypes.CDLL(str(out))
+    lib = emulation_library("-DEMU_MAT_VARIANTS", opt="-O0")
     lib.emu_bwd.argtypes = [_P, _P, _I, _P, _P] + [_I] * 8 + [_P, _I, _P, _P, _P, _P, _P, _I]
     return lib
 

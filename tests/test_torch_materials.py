@@ -23,12 +23,14 @@ against the JAX package on the same inputs (numpy from a seed):
 """
 
 import importlib
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_outputs import stored
 
 import evosoro_tpu.core.types as jt
 from evosoro_tpu.core.collision import build_collision_system as j_build_cs
@@ -210,6 +212,27 @@ def _fused_inputs(dtype=jnp.float32):
     return jb, sim, env, batched
 
 
+MATERIALS_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                                 "materials_kernel_jax.npz")
+
+
+def materials_kernel_case():
+    """The JAX inputs of `test_fused_materials_match_jax_kernel`: (body, sim,
+    env, dt, the fast-moving batch)."""
+    jb, sim, env, batched = _fused_inputs()
+    dt = jnp.asarray(j_calc_max_dt(jb)) * jnp.asarray(sim.dt_frac)
+    return jb, sim, env, dt, _moving(batched, jb, scale=0.3)
+
+
+def materials_kernel_jax() -> tuple:
+    """(inputs, outputs) of the JAX kernel in interpret mode, two steps."""
+    jb, sim, env, dt, moving = case = materials_kernel_case()
+    ref, _ = jfr.fused_rollout(moving, jb, sim, env, num_steps=2, dt=dt,
+                               interpret=True, batch_block=2)
+    return case, dict(pos=ref.pos, linmom=ref.linmom, scale=ref.scale,
+                      strain_offset=ref.strain_offset)
+
+
 def test_fused_materials_match_jax_kernel():
     """One launch of two steps from a fast-moving state (momenta of 0.3,
     so the stress leaves the linear range, bonds go plastic and the clamp
@@ -217,45 +240,45 @@ def test_fused_materials_match_jax_kernel():
     at rtol 1e-4 with an atol of 1e-4 of its largest value (a bond that
     just left new territory carries an offset of rounding size, in which
     the two float32 paths differ by their ulps). Guards: without the clamp,
-    and on the linear palette, the port parts from the kernel."""
-    jb, sim, env, batched = _fused_inputs()
+    and on the linear palette, the port parts from the kernel. The kernel's
+    outputs are read from `tests/fixtures/materials_kernel_jax.npz`
+    (`make_materials_kernel_jax.py`: its compile in interpret mode was most
+    of this test's time) after checking that it ran on these inputs."""
+    case = materials_kernel_case()
+    jb, sim, env, dt, moving = case
+    ref = stored(MATERIALS_FIXTURE, "kernel", *case)
     body = convert.body_from_numpy(_np(jb))
     psim, penv = convert.sim_params_from_jax(sim), convert.env_params_from_jax(env)
     assert jfr.supports(jb, sim, env) and fr.supports(body, psim, penv)
     flags = fr.launch_flags(body, psim, penv)
     for k in ("nonlinear", "mdl_data", "bc", "plasticity", "max_vel"):
         assert flags[k], k
-    dt = jnp.asarray(j_calc_max_dt(jb)) * jnp.asarray(sim.dt_frac)
 
-    moving = _moving(batched, jb, scale=0.3)
-    ref, _ = jfr.fused_rollout(moving, jb, sim, env, num_steps=2, dt=dt,
-                               interpret=True, batch_block=2)
     out, _ = fr.fused_rollout(convert.state_from_numpy(_np(moving)), body, psim, penv,
                               num_steps=2, dt=float(dt))
-    np.testing.assert_allclose(out.pos.numpy(), np.asarray(ref.pos), rtol=2e-4, atol=5e-8)
-    np.testing.assert_allclose(out.linmom.numpy(), np.asarray(ref.linmom),
-                               rtol=1e-3, atol=1e-6)
-    np.testing.assert_allclose(out.scale.numpy(), np.asarray(ref.scale), rtol=1e-6, atol=0)
-    soff = np.asarray(ref.strain_offset)
+    np.testing.assert_allclose(out.pos.numpy(), ref["pos"], rtol=2e-4, atol=5e-8)
+    np.testing.assert_allclose(out.linmom.numpy(), ref["linmom"], rtol=1e-3, atol=1e-6)
+    np.testing.assert_allclose(out.scale.numpy(), ref["scale"], rtol=1e-6, atol=0)
+    soff = ref["strain_offset"]
     np.testing.assert_allclose(out.strain_offset.numpy(), soff, rtol=1e-4,
                                atol=1e-4 * np.abs(soff).max())
     occ0 = body.occ[0]
     pinned = (body.nom_pos[0] + body.external_disp[0])[occ0]
     assert torch.equal(out.pos[:, 0][:, occ0], pinned.expand(2, -1, -1))
-    np.testing.assert_array_equal(np.asarray(ref.pos)[:, 0][:, np.asarray(occ0)],
+    np.testing.assert_array_equal(ref["pos"][:, 0][:, np.asarray(occ0)],
                                   pinned.expand(2, -1, -1).numpy())
     # the clamp acted: a launch without it parts from the kernel
     free, _ = fr.fused_rollout(convert.state_from_numpy(_np(moving)), body,
                                psim.replace(max_velocity_enabled=False), penv,
                                num_steps=2, dt=float(dt))
-    assert not np.allclose(free.pos.numpy(), np.asarray(ref.pos), rtol=2e-4, atol=5e-8)
+    assert not np.allclose(free.pos.numpy(), ref["pos"], rtol=2e-4, atol=5e-8)
 
     assert float(out.strain_offset.abs().max()) > 1e-3  # plasticity acted
     # the linear palette on the same design is another body
     _, lin_body = _design(jnp.float32, nonlinear=False)
     linear, _ = fr.fused_rollout(convert.state_from_numpy(_np(moving)), lin_body, psim,
                                  penv, num_steps=2, dt=float(dt))
-    assert not np.allclose(linear.linmom.numpy(), np.asarray(ref.linmom), rtol=1e-3, atol=1e-6)
+    assert not np.allclose(linear.linmom.numpy(), ref["linmom"], rtol=1e-3, atol=1e-6)
 
 
 def _contact_inputs(seed=0, n=5):

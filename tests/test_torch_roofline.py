@@ -4,6 +4,7 @@ counts of work behind each kernel's bound. The kernel itself and the peak
 are measured on the card (tests/test_torch_kernels_cuda.py, chip_smoke.py).
 """
 
+import os
 from fractions import Fraction
 
 import numpy as np
@@ -243,92 +244,88 @@ def test_b4_work_follows_the_variant():
     assert devo[1] == land[1] + 4.0 * 6 * V
 
 
-def test_adjoint_operation_counts_in_water_and_with_growth_are_jaxpr_walks():
-    """Where B4's counts in water and with growth come from: the walk of
-    `test_adjoint_operation_count_is_the_jaxpr_walk_of_the_steps_vjp` (the
-    jaxpr of `jax.vjp` of the JAX package's `sim_step` with the control
-    offset, less the forward step) on the bodies of
-    `test_fluid_and_development_operation_counts_are_jaxpr_walks`: in water
-    with the voxel-face drag, with the growth experiment's development
-    fields, and with the facet drag on three bodies with different surfaces,
-    whose counts fix the per-voxel, per-triangle and per-vertex constants
-    exactly, a fourth confirming them; the vertex constant is 8 corner slots
-    (a walk of the vjp of `mesh_drag_forces` with the tables cut to 4 and 2
-    slots) and a rest."""
+WALKS_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                             "roofline_walks_jax.npz")
+
+
+def _walk_total(jaxpr):
+    from tools.roofline import _count_jaxpr
+
+    counts = {"ew": 0, "trans": 0, "red": 0, "dot": 0}
+    _count_jaxpr(jaxpr.jaxpr, counts)
+    return sum(counts.values())
+
+
+def _step_walks(body, sim, env, dt=None):
+    """(forward, adjoint) counts of the jaxpr of the JAX package's `sim_step`
+    with the control offset and of its `jax.vjp`, less the forward step."""
     import jax
     import jax.numpy as jnp
 
-    from evosoro_tpu.core.materials import build_body, calc_max_dt, palette_from_list
+    from evosoro_tpu.core.materials import calc_max_dt
     from evosoro_tpu.core.rollout import init_state
     from evosoro_tpu.core.step import sim_step
-    from evosoro_tpu.core.types import SimParams, evosoro_default_palette
-    from evosoro_tpu.envs import aquatic, growth_env
-    from evosoro_tpu.envs.drag import attach_mesh_drag, mesh_drag_forces
-    from tools.roofline import _count_jaxpr
 
-    def total(jaxpr):
-        counts = {"ew": 0, "trans": 0, "red": 0, "dot": 0}
-        _count_jaxpr(jaxpr.jaxpr, counts)
-        return sum(counts.values())
+    dt = float(calc_max_dt(body)) * float(sim.dt_frac) if dt is None else dt
+    state = init_state(body)
+    u = jnp.zeros(body.occ.shape, state.pos.dtype)
 
-    def zero_cot(out):
-        return jax.tree_util.tree_map(
-            lambda x: jnp.zeros(x.shape, x.dtype) if jnp.issubdtype(x.dtype, jnp.floating)
-            else np.zeros(x.shape, jax.dtypes.float0), out)
+    def step(s, c):
+        return sim_step(s, body, sim, env, dt, control_offset=c)
 
-    def adjoint(body, sim, env):
-        dt = float(calc_max_dt(body)) * float(sim.dt_frac)
-        state = init_state(body)
-        u = jnp.zeros(body.occ.shape, state.pos.dtype)
+    cot = jax.tree_util.tree_map(
+        lambda x: jnp.zeros(x.shape, x.dtype) if jnp.issubdtype(x.dtype, jnp.floating)
+        else np.zeros(x.shape, jax.dtypes.float0), jax.eval_shape(step, state, u))
+    forward = _walk_total(jax.make_jaxpr(step)(state, u))
+    both = _walk_total(jax.make_jaxpr(lambda s, c, ct: jax.vjp(step, s, c)[1](ct))(state, u, cot))
+    return forward, both - forward
 
-        def step(s, c):
-            return sim_step(s, body, sim, env, dt, control_offset=c)
 
-        cot = zero_cot(jax.eval_shape(step, state, u))
-        both = total(jax.make_jaxpr(lambda s, c, ct: jax.vjp(step, s, c)[1](ct))(state, u, cot))
-        return both - total(jax.make_jaxpr(step)(state, u))
-
+def water_growth_designs():
+    """The designs of the water and growth walks, from a seed: the 10^3
+    body's structure and phase, the growth fields, and the structures of the
+    four swimmers (their cuts)."""
     n = 10
     rng = np.random.default_rng(0)
     structure = rng.integers(1, 5, size=(n, n, n)).astype(np.int32)
     phase = rng.uniform(-1, 1, size=(n, n, n))
-    palette = palette_from_list(evosoro_default_palette())
-    body = build_body(structure, palette, phase_offset=phase)
-    np.testing.assert_allclose(adjoint(body, SimParams(), aquatic()) / n ** 3,
-                               roofline.FLUID_FACE_ADJOINT_FLOPS_PER_VOXEL, rtol=1e-9)
-
-    def u(lo, hi):
-        return rng.uniform(lo, hi, size=(n, n, n))
-
-    grower = build_body(structure, palette, phase_offset=phase,
-                        initial_voxel_size=u(0.006, 0.014),
-                        final_voxel_size=u(0.006, 0.014), growth_time=u(1, 2),
-                        start_growth_time=u(0, 1))
-    np.testing.assert_allclose(
-        adjoint(grower, SimParams(min_temp_fact=0.4), growth_env()) / n ** 3,
-        roofline.DEVO_ADJOINT_FLOPS_PER_VOXEL, rtol=1e-9)
-
-    rows = []
+    growth = [rng.uniform(lo, hi, size=(n, n, n))
+              for lo, hi in ((0.006, 0.014), (0.006, 0.014), (1, 2), (0, 1))]
+    swimmers = []
     for cut in ((None, (slice(2, 5), slice(2, 9), slice(9, 10)),
                  (slice(4, 6), slice(4, 6), slice(4, 6)),
                  (slice(0, 10), slice(3, 4), slice(3, 4)))):
         s = structure.copy()
         if cut is not None:
             s[cut] = 0
-        swimmer = attach_mesh_drag(build_body(s, palette, phase_offset=phase))
-        tris, verts, _ = roofline.mesh_counts(torch.as_tensor(s > 0)[None])
-        rows.append(([n ** 3, int(tris), int(verts)], adjoint(swimmer, SimParams(), aquatic())))
-    fit = np.linalg.solve(np.array([r[0] for r in rows[:3]], float),
-                          np.array([r[1] for r in rows[:3]], float))
-    np.testing.assert_allclose(
-        fit, [roofline.FLUID_MESH_ADJOINT_FLOPS_PER_VOXEL,
-              roofline.MESH_ADJOINT_FLOPS_PER_TRIANGLE,
-              roofline.MESH_TABLE_SLOTS * roofline.MESH_ADJOINT_FLOPS_PER_CORNER
-              + roofline.MESH_ADJOINT_FLOPS_PER_VERTEX], rtol=1e-9)
-    np.testing.assert_allclose(np.dot(rows[3][0], fit), rows[3][1], rtol=1e-12)
+        swimmers.append(s)
+    return structure, phase, growth, swimmers
 
-    tables = swimmer.mesh_drag
-    shape = s.shape
+
+def water_growth_walks() -> dict:
+    """The JAX side of `test_adjoint_operation_counts_in_water_and_with_
+    growth_are_jaxpr_walks`: the adjoint counts in water with the voxel-face
+    drag, with development, of the four swimmers with the facet drag, and of
+    the facet drag alone with its vertex tables cut to 8, 4 and 2 slots."""
+    import jax
+
+    from evosoro_tpu.core.materials import build_body, palette_from_list
+    from evosoro_tpu.core.types import SimParams, evosoro_default_palette
+    from evosoro_tpu.envs import aquatic, growth_env
+    from evosoro_tpu.envs.drag import attach_mesh_drag, mesh_drag_forces
+
+    structure, phase, growth, swimmers = water_growth_designs()
+    palette = palette_from_list(evosoro_default_palette())
+    body = build_body(structure, palette, phase_offset=phase)
+    out = dict(face=_step_walks(body, SimParams(), aquatic())[1])
+    grower = build_body(structure, palette, phase_offset=phase,
+                        initial_voxel_size=growth[0], final_voxel_size=growth[1],
+                        growth_time=growth[2], start_growth_time=growth[3])
+    out["devo"] = _step_walks(grower, SimParams(min_temp_fact=0.4), growth_env())[1]
+    out["mesh"] = [_step_walks(attach_mesh_drag(build_body(s, palette, phase_offset=phase)),
+                               SimParams(), aquatic())[1] for s in swimmers]
+    tables = attach_mesh_drag(build_body(swimmers[-1], palette, phase_offset=phase)).mesh_drag
+    shape = swimmers[-1].shape
 
     def drag_adjoint(slots):
         cut = tables.replace(vert_vox=tables.vert_vox[:, :slots],
@@ -343,12 +340,72 @@ def test_adjoint_operation_counts_in_water_and_with_growth_are_jaxpr_walks():
         args = (z(shape + (3,)), z(shape + (4,)), z(shape + (3,)), z((3,) + shape),
                 z((3,) + shape))
         cot = np.zeros(jax.eval_shape(f, *args).shape)
-        both = total(jax.make_jaxpr(lambda *a: jax.vjp(f, *a)[1](cot))(*args))
-        return both - total(jax.make_jaxpr(f)(*args))
+        both = _walk_total(jax.make_jaxpr(lambda *a: jax.vjp(f, *a)[1](cot))(*args))
+        return both - _walk_total(jax.make_jaxpr(f)(*args))
 
-    n_verts = tables.vert_vox.shape[0]
-    per_slot = (drag_adjoint(8) - drag_adjoint(4)) / (4 * n_verts)
-    assert per_slot == (drag_adjoint(4) - drag_adjoint(2)) / (2 * n_verts)
+    out["drag_slots"] = [drag_adjoint(k) for k in (8, 4, 2)]
+    out["n_verts"] = int(tables.vert_vox.shape[0])
+    return out
+
+
+def designs_digest(*designs) -> str:
+    """SHA-256 of the arrays a jaxpr walk was taken on."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in designs:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _stored_walks(case, *designs):
+    """The stored JAX walks of `case`, after checking that they were taken
+    on `designs`."""
+    with np.load(WALKS_FIXTURE) as f:
+        assert str(f[case + "/designs"]) == designs_digest(*designs), \
+            "the stored jaxpr walks were taken on other designs: rewrite the fixture"
+        return {k.split("/", 1)[1]: f[k] for k in f.files if k.startswith(case + "/")}
+
+
+def test_adjoint_operation_counts_in_water_and_with_growth_are_jaxpr_walks():
+    """Where B4's counts in water and with growth come from: the walk of
+    `test_adjoint_operation_count_is_the_jaxpr_walk_of_the_steps_vjp` (the
+    jaxpr of `jax.vjp` of the JAX package's `sim_step` with the control
+    offset, less the forward step) on the bodies of
+    `test_fluid_and_development_operation_counts_are_jaxpr_walks`: in water
+    with the voxel-face drag, with the growth experiment's development
+    fields, and with the facet drag on three bodies with different surfaces,
+    whose counts fix the per-voxel, per-triangle and per-vertex constants
+    exactly, a fourth confirming them; the vertex constant is 8 corner slots
+    (a walk of the vjp of `mesh_drag_forces` with the tables cut to 4 and 2
+    slots) and a rest. The walks are read from
+    `tests/fixtures/roofline_walks_jax.npz` (`make_roofline_walks_jax.py`,
+    ~1 min: they were all of this test's time) after checking that they
+    were taken on these designs."""
+    structure, phase, growth, swimmers = water_growth_designs()
+    walks = _stored_walks("water_growth", structure, phase, *growth, *swimmers)
+    n = structure.shape[0]
+    np.testing.assert_allclose(float(walks["face"]) / n ** 3,
+                               roofline.FLUID_FACE_ADJOINT_FLOPS_PER_VOXEL, rtol=1e-9)
+    np.testing.assert_allclose(float(walks["devo"]) / n ** 3,
+                               roofline.DEVO_ADJOINT_FLOPS_PER_VOXEL, rtol=1e-9)
+    rows = []
+    for s, adjoint in zip(swimmers, walks["mesh"]):
+        tris, verts, _ = roofline.mesh_counts(torch.as_tensor(s > 0)[None])
+        rows.append(([n ** 3, int(tris), int(verts)], float(adjoint)))
+    fit = np.linalg.solve(np.array([r[0] for r in rows[:3]], float),
+                          np.array([r[1] for r in rows[:3]], float))
+    np.testing.assert_allclose(
+        fit, [roofline.FLUID_MESH_ADJOINT_FLOPS_PER_VOXEL,
+              roofline.MESH_ADJOINT_FLOPS_PER_TRIANGLE,
+              roofline.MESH_TABLE_SLOTS * roofline.MESH_ADJOINT_FLOPS_PER_CORNER
+              + roofline.MESH_ADJOINT_FLOPS_PER_VERTEX], rtol=1e-9)
+    np.testing.assert_allclose(np.dot(rows[3][0], fit), rows[3][1], rtol=1e-12)
+
+    d8, d4, d2 = (int(x) for x in walks["drag_slots"])
+    n_verts = int(walks["n_verts"])
+    per_slot = (d8 - d4) / (4 * n_verts)
+    assert per_slot == (d4 - d2) / (2 * n_verts)
     assert per_slot == roofline.MESH_ADJOINT_FLOPS_PER_CORNER
 
 
@@ -774,6 +831,43 @@ def test_volume_work_follows_the_launch():
     assert nb == 4.0 * (2 * V + 2 * 6 * B * V)
 
 
+def material_designs():
+    """The 10^3 bench body's structure and phase of the material walks, and
+    the two palettes' parameters (evosoro's default and the bilinear one)."""
+    import dataclasses
+
+    import evosoro_tpu.core.types as jt
+    from test_torch_fused_diff_materials import j_bilinear_palette
+
+    n = 10
+    rng = np.random.default_rng(0)
+    structure = rng.integers(1, 5, size=(n, n, n)).astype(np.int32)
+    phase = rng.uniform(-1, 1, size=(n, n, n))
+    palettes = [list(jt.evosoro_default_palette()), list(j_bilinear_palette())]
+    params = np.array([[float(getattr(m, f.name)) for f in dataclasses.fields(m)
+                        if isinstance(getattr(m, f.name), (int, float))]
+                       for mats in palettes for m in mats])
+    return structure, phase, palettes, params
+
+
+def material_walks() -> dict:
+    """The JAX side of `test_material_adjoint_operation_counts_are_jaxpr_
+    walks`: (forward, adjoint) counts on the linear palette, the bilinear
+    one, and the linear one with the max-velocity clamp."""
+    import evosoro_tpu.core.types as jt
+    from evosoro_tpu.core.materials import build_body, calc_max_dt, palette_from_list
+
+    structure, phase, (linear, bilinear), _ = material_designs()
+
+    def walks(mats, sim):
+        body = build_body(structure, palette_from_list(mats), phase_offset=phase)
+        return _step_walks(body, sim, jt.EnvParams(), float(calc_max_dt(body)) * 0.9)
+
+    return dict(linear=walks(linear, jt.SimParams()),
+                bilinear=walks(bilinear, jt.SimParams()),
+                max_vel=walks(linear, jt.SimParams(max_velocity_enabled=True)))
+
+
 def test_material_adjoint_operation_counts_are_jaxpr_walks():
     """Where B4's material instance's counts come from: the walk of
     `test_adjoint_operation_count_is_the_jaxpr_walk_of_the_steps_vjp` (the
@@ -782,54 +876,18 @@ def test_material_adjoint_operation_counts_are_jaxpr_walks():
     palette (`bench.bilinear_palette`) and with the max-velocity clamp,
     beyond the land adjoint: 213 and 22 per occupied voxel and step, with
     the forward counts of `test_material_and_compact_operation_counts_are_
-    jaxpr_walks` beside them."""
-    import jax
-    import jax.numpy as jnp
-
-    import evosoro_tpu.core.types as jt
-    from evosoro_tpu.core.materials import build_body, calc_max_dt, palette_from_list
-    from evosoro_tpu.core.rollout import init_state
-    from evosoro_tpu.core.step import sim_step
-    from test_torch_fused_diff_materials import j_bilinear_palette
-    from tools.roofline import _count_jaxpr
-
-    n = 10
-    rng = np.random.default_rng(0)
-    structure = rng.integers(1, 5, size=(n, n, n)).astype(np.int32)
-    phase = rng.uniform(-1, 1, size=(n, n, n))
-
-    def total(jaxpr):
-        counts = {"ew": 0, "trans": 0, "red": 0, "dot": 0}
-        _count_jaxpr(jaxpr.jaxpr, counts)
-        return sum(counts.values())
-
-    def walks(mats, sim):
-        """(forward, adjoint) counts of the step with the control offset."""
-        body = build_body(structure, palette_from_list(mats), phase_offset=phase)
-        dt = float(calc_max_dt(body)) * 0.9
-        state = init_state(body)
-        u = jnp.zeros((n, n, n), state.pos.dtype)
-
-        def step(s, c):
-            return sim_step(s, body, sim, jt.EnvParams(), dt, control_offset=c)
-
-        out = jax.eval_shape(step, state, u)
-        cot = jax.tree_util.tree_map(
-            lambda x: jnp.zeros(x.shape, x.dtype) if jnp.issubdtype(x.dtype, jnp.floating)
-            else np.zeros(x.shape, jax.dtypes.float0), out)
-        forward = total(jax.make_jaxpr(step)(state, u))
-        both = total(jax.make_jaxpr(lambda s, c, ct: jax.vjp(step, s, c)[1](ct))(state, u,
-                                                                                 cot))
-        return forward, both - forward
-
-    V = n ** 3
-    linear = list(jt.evosoro_default_palette())
-    f0, a0 = walks(linear, jt.SimParams())
+    jaxpr_walks` beside them. The walks are read from
+    `tests/fixtures/roofline_walks_jax.npz` (`make_roofline_walks_jax.py`)
+    after checking that they were taken on these designs and palettes."""
+    structure, phase, _, params = material_designs()
+    walks = _stored_walks("materials", structure, phase, params)
+    V = structure.size
+    f0, a0 = (int(x) for x in walks["linear"])
     np.testing.assert_allclose(a0 / V, roofline.ADJOINT_FLOPS_PER_VOXEL, rtol=1e-9)
-    f1, a1 = walks(j_bilinear_palette(), jt.SimParams())
+    f1, a1 = (int(x) for x in walks["bilinear"])
     np.testing.assert_allclose((f1 - f0) / V, roofline.NONLINEAR_FLOPS_PER_VOXEL, rtol=1e-9)
     assert a1 - a0 == roofline.NONLINEAR_ADJOINT_FLOPS_PER_VOXEL * V
-    f2, a2 = walks(linear, jt.SimParams(max_velocity_enabled=True))
+    f2, a2 = (int(x) for x in walks["max_vel"])
     assert f2 - f0 == roofline.MAX_VEL_FLOPS_PER_VOXEL * V + roofline.MAX_VEL_FLOPS_PER_STEP
     assert a2 - a0 == roofline.MAX_VEL_ADJOINT_FLOPS_PER_VOXEL * V
 

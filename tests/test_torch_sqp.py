@@ -212,7 +212,8 @@ def test_multistart_and_pipeline_run_and_mesh_raises():
                                       target=0.05, config=cfg, dt=dt, device="cpu")
     assert tuple(u.shape) == (2, 3, 3, 2) and info["all_costs"].shape == (2,)
     assert float(info["best_cost"]) == float(info["all_costs"].min())
-    with pytest.raises(NotImplementedError):
+    # an object that is not a mesh is refused by name
+    with pytest.raises(TypeError, match="mesh must be .* not object"):
         sqp_optimize_multistart(gen, body, sim, EnvParams(), 8, 2, mesh=object(),
                                 device="cpu")
     with pytest.raises(TypeError):

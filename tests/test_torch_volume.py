@@ -32,12 +32,14 @@ import ctypes
 import dataclasses
 import importlib
 import math
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_outputs import stored
 from test_torch_b4_host import host_lib  # noqa: F401
 from test_torch_evaluation import _population
 
@@ -182,26 +184,78 @@ def test_batched_volume_step_takes_each_robots_own_dt():
     assert s.cur_dt.shape == (2,) and float(s.cur_dt[0]) < 0.5 * float(s.cur_dt[1])
 
 
-def test_fused_volume_matches_jax_kernel():
-    B, steps, Vp, V = 8, 80, 128, N ** 3
+VOLUME_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                              "volume_kernel_jax.npz")
+KERNEL_B, KERNEL_STEPS = 8, 80
+
+
+def volume_kernel_case():
+    """The JAX inputs of `test_fused_volume_matches_jax_kernel`: (body, dt,
+    the batch of 8 at rest with the coupling carry)."""
     jb = _design(jnp.float32)
-    body = convert.body_from_numpy(_np(jb))
-    psim, penv = convert.sim_params_from_jax(SIM), convert.env_params_from_jax(ENV)
-    assert jfr.supports(jb, SIM, ENV) and fr.supports(body, psim, penv)
     dt = float(jnp.asarray(j_calc_max_dt(jb, True)) * jnp.asarray(SIM.dt_frac))
-    jstate = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (B,) + x.shape),
+    jstate = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (KERNEL_B,) + x.shape),
                                     j_init_state(jb, volume_effects=True))
+    return jb, dt, jstate
+
+
+def volume_kernel_jax() -> tuple:
+    """(inputs, outputs) of the JAX kernel in interpret mode, 80 steps."""
+    jb, dt, jstate = case = volume_kernel_case()
     flags = dict(jfr.kernel_env_flags(SIM, ENV), nonlinear=False, mdl_data=False, bc=False,
                  collision=False, fluid_mesh=False, use_init_size=False, use_final_size=False,
                  use_growth_t=False, use_final_phase=False, use_final_ad=False,
                  ballistic=False)
     ref, ref_stats = jfr._fused_call(
-        jfr.pack_state(jstate, Vp), jfr.pack_body(jb, Vp),
-        jfr.make_stats(jb, B, dt, SIM, ENV, None, jnp.float32), None, None, None, None,
-        num_steps=steps, grid_shape=(N, N, N), batch_block=8, n_knots=0, interpret=True,
-        scalars=tuple(sorted(jfr.kernel_scalars(jb.nominal_size, SIM, ENV).items())),
+        jfr.pack_state(jstate, 128), jfr.pack_body(jb, 128),
+        jfr.make_stats(jb, KERNEL_B, dt, SIM, ENV, None, jnp.float32), None, None, None, None,
+        num_steps=KERNEL_STEPS, grid_shape=(N, N, N), batch_block=8, n_knots=0,
+        interpret=True, scalars=tuple(sorted(jfr.kernel_scalars(jb.nominal_size, SIM,
+                                                                 ENV).items())),
         flags=tuple(sorted(flags.items())), prec=jfr.DEFAULT_PRECISION)
-    ref, ref_stats = np.asarray(ref)[:, :, :V], np.asarray(ref_stats)
+    return case, dict(state=np.asarray(ref)[:, :, :N ** 3], stats=np.asarray(ref_stats))
+
+
+def staggered_case():
+    """The JAX inputs of `test_fused_volume_staggered_stops_match_jax_kernel`:
+    (body, dt, sim, stop times, stats rows, batch of 8)."""
+    B, steps = 8, 40
+    jb = _design(jnp.float32)
+    dt = float(jnp.asarray(j_calc_max_dt(jb, True)) * jnp.asarray(SIM.dt_frac))
+    sim = SIM.replace(init_cm_time=3 * dt, stop_condition_value=steps * dt)
+    stops = dt * (4.5 + 4 * np.arange(B))
+    jstats = jfr.make_stats(jb, B, dt, sim, ENV, None, jnp.float32)
+    jstats = jstats.at[:, jfr._S_STOP].set(jnp.asarray(stops, jnp.float32))
+    jstate = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (B,) + x.shape),
+                                    j_init_state(jb, volume_effects=True))
+    return jb, dt, sim, stops, jstats, jstate
+
+
+def staggered_jax() -> tuple:
+    """(inputs, outputs) of the JAX fused rollout in interpret mode, 40 steps
+    with a stop time per robot."""
+    jb, dt, sim, stops, jstats, jstate = case = staggered_case()
+    j_out, js = jfr.fused_rollout(jstate, jb, sim, ENV, num_steps=40, dt=dt,
+                                  interpret=True, stats=jstats)
+    return case, dict(time=js.time, cm_captured=js.cm_captured, diverged=js.diverged,
+                      ini_cm=js.ini_cm, pos=j_out.pos, ts_sum=j_out.ts_sum,
+                      cs_area=j_out.cs_area)
+
+
+def test_fused_volume_matches_jax_kernel():
+    """The volume instance's plain version against the JAX kernel in
+    interpret mode, 8 x 4^3 x 80 steps, read from
+    `tests/fixtures/volume_kernel_jax.npz` (`make_volume_kernel_jax.py`:
+    the kernel's compile was most of this test's time) after checking that
+    it ran on these inputs."""
+    B, steps, V = KERNEL_B, KERNEL_STEPS, N ** 3
+    case = volume_kernel_case()
+    jb, dt, jstate = case
+    stored_out = stored(VOLUME_FIXTURE, "kernel", *case)
+    ref, ref_stats = stored_out["state"], stored_out["stats"]
+    body = convert.body_from_numpy(_np(jb))
+    psim, penv = convert.sim_params_from_jax(SIM), convert.env_params_from_jax(ENV)
+    assert jfr.supports(jb, SIM, ENV) and fr.supports(body, psim, penv)
 
     state = convert.state_from_numpy(_np(jstate))
     pflags = fr.launch_flags(body, psim, penv, collision=False)
@@ -235,37 +289,31 @@ def test_fused_volume_staggered_stops_match_jax_kernel():
     (evosoro_tpu/ops/fused_rollout.py:1250) that its feature carry
     unpacks at :1124, so with any feature on it fails to trace; the next
     test holds the features' frozen-robot sample against the port's eager
-    trace instead."""
+    trace instead. The JAX rollout's outputs are read from
+    `tests/fixtures/volume_kernel_jax.npz` (`make_volume_kernel_jax.py`)
+    after checking that it ran on these inputs."""
     B, steps = 8, 40
-    jb = _design(jnp.float32)
+    case = staggered_case()
+    jb, dt, sim, stops, jstats, jstate = case
+    js = stored(VOLUME_FIXTURE, "staggered", *case)
     body = convert.body_from_numpy(_np(jb))
-    dt = float(jnp.asarray(j_calc_max_dt(jb, True)) * jnp.asarray(SIM.dt_frac))
-    sim = SIM.replace(init_cm_time=3 * dt, stop_condition_value=steps * dt)
     psim, penv = convert.sim_params_from_jax(sim), convert.env_params_from_jax(ENV)
-    stops = dt * (4.5 + 4 * np.arange(B))
-    jstats = jfr.make_stats(jb, B, dt, sim, ENV, None, jnp.float32)
-    jstats = jstats.at[:, jfr._S_STOP].set(jnp.asarray(stops, jnp.float32))
     pstats = fr.make_stats(body, B, dt, psim, penv)
     pstats[:, fr._S_STOP] = torch.as_tensor(stops, dtype=torch.float32)
     np.testing.assert_array_equal(pstats.numpy(), np.asarray(jstats))
-    jstate = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (B,) + x.shape),
-                                    j_init_state(jb, volume_effects=True))
-    j_out, js = jfr.fused_rollout(jstate, jb, sim, ENV, num_steps=steps, dt=dt,
-                                  interpret=True, stats=jstats)
     out, ps = fr.fused_rollout(convert.state_from_numpy(_np(jstate)), body, psim, penv,
                                steps, dt, stats=pstats)
     # every robot froze within the launch, each at its own time
     t = ps.time.numpy()
     assert (t >= stops).all() and (t < stops + dt).all() and len(set(t.tolist())) == B
-    np.testing.assert_allclose(t, np.asarray(js.time), rtol=1e-6)
+    np.testing.assert_allclose(t, js["time"], rtol=1e-6)
     assert len(set(out.cur_dt.numpy().tolist())) > B // 2  # each froze on its own dt
     for f in ("cm_captured", "diverged"):
-        np.testing.assert_array_equal(getattr(ps, f).numpy(), np.asarray(getattr(js, f)),
-                                      err_msg=f)
-    np.testing.assert_allclose(ps.ini_cm.numpy(), np.asarray(js.ini_cm), rtol=2e-4, atol=2e-8)
-    np.testing.assert_allclose(out.pos.numpy(), np.asarray(j_out.pos), rtol=2e-4, atol=2e-8)
+        np.testing.assert_array_equal(getattr(ps, f).numpy(), js[f], err_msg=f)
+    np.testing.assert_allclose(ps.ini_cm.numpy(), js["ini_cm"], rtol=2e-4, atol=2e-8)
+    np.testing.assert_allclose(out.pos.numpy(), js["pos"], rtol=2e-4, atol=2e-8)
     for name, rtol, atol in (("ts_sum", 2e-3, 1e-6), ("cs_area", 1e-4, 0.0)):
-        np.testing.assert_allclose(getattr(out, name).numpy(), np.asarray(getattr(j_out, name)),
+        np.testing.assert_allclose(getattr(out, name).numpy(), js[name],
                                    rtol=rtol, atol=atol, err_msg=name)
 
 

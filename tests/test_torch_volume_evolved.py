@@ -8,8 +8,11 @@ scores best (id 14, NormFinalDist ~18.5, eight times basic's best) and one
 whose recomputed dt collapses under compression (id 2, still short of its
 stop time after the evaluator's two relaunches). Each is replayed through
 `bench.replay` with K1's volume instance built for the host by g++
-(`emu_fwd_vol`) in place of the card's launch, and through JAX's jitted
-`rollout` in float64 at the port's step count:
+(`emu_fwd_vol`) in place of the card's launch, and held against JAX's jitted
+`rollout` in float64 at the port's step count, read from
+`tests/fixtures/volume_replays_jax.npz` (`make_volume_replays_jax.py`,
+~5 min: the jit and the 20000-step rollouts were 90 % of this file's
+time) after checking that JAX ran the same file, step count and dt:
 
 - the best design reaches its stop time in both, with the same step rule,
   the time at rtol 1e-4, the last step's dt (a max over that step's bonds,
@@ -22,20 +25,35 @@ stop time after the evaluator's two relaunches). Each is replayed through
   different times).
 """
 
-import jax
-import jax.numpy as jnp
+import os
+
 import numpy as np
 import pytest
 from test_torch_b4_host import host_lib  # noqa: F401
 from test_torch_volume import _host_vol
 
-from evosoro_tpu.core.collision import attach_collision_system
-from evosoro_tpu.core.rollout import init_state as j_init_state
-from evosoro_tpu.core.rollout import rollout as j_rollout
-from evosoro_tpu.io.vxa import load_vxa as j_load_vxa
 from evosoro_tpu_torch import bench
 from evosoro_tpu_torch.evo import evaluation
 from evosoro_tpu_torch.ops import fused_rollout as fr
+
+
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                       "volume_replays_jax.npz")
+
+
+def jax_reference(case, path, rec):
+    """JAX's stored float64 rollout of replay `case`, after checking that it
+    ran the file at `path` at the port's step count and dt."""
+    import hashlib
+
+    with np.load(FIXTURE) as f:
+        ref = {k.split("/", 1)[1]: f[k][()] for k in f.files if k.startswith(case + "/")}
+    with open(path, "rb") as f:
+        assert hashlib.sha256(f.read()).hexdigest() == str(ref["vxa_sha256"]), \
+            "the stored JAX rollout ran another file: rewrite the fixture"
+    assert rec["steps"] == int(ref["steps"]) and rec["dt"] == float(ref["dt"]), \
+        "the stored JAX rollout ran another step count or dt: rewrite the fixture"
+    return ref
 
 
 def _design_vxa(ind_id, directory):
@@ -57,21 +75,19 @@ def test_volume_design_replay_against_jax(host_lib, tmp_path, monkeypatch,  # no
         host_lib, args, kw, num_steps))
     rec = bench.replay(path, device="cpu")
 
-    doc = j_load_vxa(path)
+    from evosoro_tpu_torch.io.vxa import load_vxa
+
+    doc = load_vxa(path)
     assert doc.sim.volume_effects_enabled
-    jb = attach_collision_system(doc.build_body(dtype=jnp.float64),
-                                 float(doc.sim.collision_horizon))
     stop = float(doc.sim.stop_condition_value)
-    ref = jax.jit(lambda: j_rollout(jb, doc.sim, doc.env, num_steps=rec["steps"], dt=rec["dt"],
-                                    state=j_init_state(jb, volume_effects=True),
-                                    stop_time=stop))()
-    assert not rec["diverged"] and not bool(ref.diverged)
+    ref = jax_reference("best" if reaches_stop else "collapsing", path, rec)
+    assert not rec["diverged"] and not bool(ref["diverged"])
     if reaches_stop:
         assert rec["short"] == 0
-        np.testing.assert_allclose(rec["final_t"], float(ref.final_state.time), rtol=1e-4)
-        np.testing.assert_allclose(rec["dt_final"], float(ref.final_state.cur_dt), rtol=1e-3)
-        np.testing.assert_allclose(rec["fitness"], float(ref.norm_final_dist), rtol=5e-3)
+        np.testing.assert_allclose(rec["final_t"], float(ref["final_time"]), rtol=1e-4)
+        np.testing.assert_allclose(rec["dt_final"], float(ref["cur_dt"]), rtol=1e-3)
+        np.testing.assert_allclose(rec["fitness"], float(ref["norm_final_dist"]), rtol=5e-3)
         assert rec["fitness"] > 10.0
     else:
         assert rec["launches"] == 3 and rec["short"] == 1
-        assert rec["final_t"] < 0.999 * stop and float(ref.final_state.time) < 0.999 * stop
+        assert rec["final_t"] < 0.999 * stop and float(ref["final_time"]) < 0.999 * stop

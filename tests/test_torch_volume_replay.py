@@ -7,7 +7,9 @@ relaunched longer while it ends short of its stop time) with K1's volume
 instance built for the host by g++ (`emu_fwd_vol`) in place of the card's
 launch: the plain version takes ~20 ms a step here, the host build ~0.3 ms.
 The reference is the JAX package's jitted `rollout` in float64 on the same
-file, at the port's step counts:
+file, at the port's step counts, read from
+`tests/fixtures/volume_replays_jax.npz` (`make_volume_replays_jax.py`)
+after checking that JAX ran the same file, step count and dt:
 
 - the step rule: the 15 % pad of `num_steps_for` ends short of the stop
   time in both packages (the recomputed dt shrinks by more than 15 %), and
@@ -21,18 +23,13 @@ file, at the port's step counts:
   float64 reference.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 from test_torch_b4_host import host_lib  # noqa: F401
 from test_torch_volume import _host_vol
+from test_torch_volume_evolved import jax_reference
 
-from evosoro_tpu.core.collision import attach_collision_system
-from evosoro_tpu.core.rollout import init_state as j_init_state
-from evosoro_tpu.core.rollout import num_steps_for as j_num_steps_for
-from evosoro_tpu.core.rollout import rollout as j_rollout
-from evosoro_tpu.io.vxa import load_vxa as j_load_vxa
 from evosoro_tpu_torch import bench
+from evosoro_tpu_torch.io.vxa import load_vxa
 from evosoro_tpu_torch.ops import fused_rollout as fr
 
 
@@ -42,22 +39,13 @@ def test_volume_fixture_replay_matches_jax(host_lib, tmp_path, monkeypatch):  # 
         host_lib, args, kw, num_steps))
     rec = bench.replay(path, device="cpu")
 
-    doc = j_load_vxa(path)
-    jb = attach_collision_system(doc.build_body(dtype=jnp.float64),
-                                 float(doc.sim.collision_horizon))
-    stop = float(doc.sim.stop_condition_value)
-    first = j_num_steps_for(jb, doc.sim, rec["dt"])
+    stop = float(load_vxa(path).sim.stop_condition_value)
+    ref = jax_reference("fixture", path, rec)
+    first = int(ref["first_steps"])  # JAX's num_steps_for at the port's dt
     assert rec["steps"] == int(np.ceil(1.5 * first)) and rec["launches"] == 2
     assert rec["short"] == 0 and not rec["diverged"]
-
-    def run(n):
-        return jax.jit(lambda: j_rollout(jb, doc.sim, doc.env, num_steps=n, dt=rec["dt"],
-                                         state=j_init_state(jb, volume_effects=True),
-                                         stop_time=stop))()
-
-    assert float(run(first).final_state.time) < 0.999 * stop  # short in JAX too
-    ref = run(rec["steps"])
-    assert not bool(ref.diverged)
-    np.testing.assert_allclose(rec["final_t"], float(ref.final_state.time), rtol=1e-4)
-    np.testing.assert_allclose(rec["dt_final"], float(ref.final_state.cur_dt), rtol=1e-4)
-    np.testing.assert_allclose(rec["fitness"], float(ref.norm_final_dist), rtol=0.1)
+    assert float(ref["first_final_time"]) < 0.999 * stop  # short in JAX too
+    assert not bool(ref["diverged"])
+    np.testing.assert_allclose(rec["final_t"], float(ref["final_time"]), rtol=1e-4)
+    np.testing.assert_allclose(rec["dt_final"], float(ref["cur_dt"]), rtol=1e-4)
+    np.testing.assert_allclose(rec["fitness"], float(ref["norm_final_dist"]), rtol=0.1)
