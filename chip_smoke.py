@@ -129,6 +129,18 @@ the one-slab eager rollout, and two processes on the card through
 torch.distributed with the gloo backend (NCCL refuses two ranks on one
 GPU), each rank's generation and two-slab rollout against one process.
 
+`python3 chip_smoke.py --tools` runs the off-path tools alone
+(`phase_tools`, also part of the full run with its parity scenarios cut to
+25 steps): `record_trajectory` of examples/visualize.py's robot through K1,
+a launch a frame, bit for bit against one launch at three frame boundaries
+and against the eager route over its first 100 steps; the renderer's
+surface on the card against the CPU and the deformed mesh through
+`io.mesh_io`; `fea_solve` and `tensile_test` in float64 against the
+analytic beams; the sandbox's scripted REPL and a poke; and the 12 K1
+parity scenarios of `evosoro_tpu_torch.onchip_parity`, whose record the
+phase's line holds (`record`) and which is held to the committed
+ONCHIP_PARITY_TORCH.json.
+
 `python3 chip_smoke.py --volume` runs volume effects alone
 (`phase_k1_volume`): K1's volume instance against its plain version with
 its three guards, the volume replay of an archived design and of the
@@ -4659,6 +4671,264 @@ def _big_rows(big, bound_keys):
              ms_of="one launch of a solve: 8 x 12^3, 25 steps at seg_base 75, 8 knots")]
 
 
+# the off-path tools' phase (`--tools`): examples/visualize.py's default
+# robot, tests/test_fea.py's beams, tests/test_sandbox.py's sandbox and poke
+TOOLS_POKE = ((1, 1, 1), (200.0, 0.0, 0.0), 40)
+# the full run's cut of the K1 parity scenarios (onchip_parity.STEPS alone)
+TOOLS_CUT = dict(parity_steps=25)
+# the renderer's vertices on the card against the CPU: float32 sums of the
+# 8 corner poses in another order, a few ulps of a coordinate
+RENDER_RTOL = 1e-6
+
+
+def _visualize_robot(torch, np, device):
+    """examples/visualize.py's default robot: a random 6^3 design (seed 0)
+    with the renderer's surface mesh, 0.6 s of sim time, ~60 frames."""
+    from evosoro_tpu_torch.core import EnvParams, SimParams, build_body, calc_max_dt
+    from evosoro_tpu_torch.core import palette_from_list
+    from evosoro_tpu_torch.core.types import evosoro_default_palette
+    from evosoro_tpu_torch.envs.drag import attach_mesh_drag
+
+    rng = np.random.default_rng(0)
+    structure = rng.integers(0, 5, size=(6, 6, 6)).astype(np.int32)
+    structure[3, 3, 0] = 3
+    phase = rng.uniform(-1, 1, size=(6, 6, 6))
+    body = attach_mesh_drag(build_body(structure, palette_from_list(evosoro_default_palette()),
+                                       phase_offset=phase, device=device))
+    sim = SimParams(stop_condition_value=0.6, init_cm_time=0.1)
+    dt = calc_max_dt(body) * sim.dt_frac
+    num_steps = int(float(sim.stop_condition_value) / float(dt))
+    return body, sim, EnvParams(), dt, num_steps, max(1, num_steps // 60)
+
+
+def _tools_beam(torch, n, clamped, device):
+    """tests/test_fea.py's beam in float64: n voxels along x, E 1e6, 1 mm."""
+    import numpy as np
+
+    from evosoro_tpu_torch.core import Material, build_body, palette_from_list
+
+    structure = np.zeros((n, 1, 1), dtype=np.int32)
+    structure[:, 0, 0] = 1
+    fixed = np.zeros((n, 1, 1), dtype=np.int32)
+    if clamped:
+        fixed[0, 0, 0] = 63
+    return build_body(structure, palette_from_list([Material(1, elastic_mod=1e6, density=1e3)]),
+                      lattice_dim=0.001, dof_fixed=fixed, dtype=torch.float64, device=device)
+
+
+def _tools_sandbox(torch, np, device):
+    """tests/test_sandbox.py's sandbox: a 3x3x2 design, muscle under tissue."""
+    from evosoro_tpu_torch.core import EnvParams, SimParams, build_body, palette_from_list
+    from evosoro_tpu_torch.core.types import evosoro_default_palette
+    from evosoro_tpu_torch.viz.sandbox import InteractiveSandbox
+
+    rng = np.random.default_rng(3)
+    s = np.zeros((3, 3, 2), dtype=np.int32)
+    s[:, :, 0] = 3
+    s[:, :, 1] = 1
+    body = build_body(s, palette_from_list(evosoro_default_palette()),
+                      phase_offset=rng.uniform(-1, 1, size=s.shape), device=device)
+    return InteractiveSandbox(body, SimParams(init_cm_time=0.0), EnvParams())
+
+
+def phase_tools(torch, np, card, parity_steps=None, alone=False):
+    """The off-path tools on the card. (a) `record_trajectory` of
+    examples/visualize.py's default robot through K1 (one launch a frame,
+    the state and stats row carried over), its frames bit-equal to one K1
+    launch at three frame boundaries, its first 100 steps against the eager
+    route, a frame's launch against K1's plain version (the kernels line's
+    figures in `--tools`); (b) the renderer's vertices, triangles, owners
+    and face colours on the card against the CPU, the deformed mesh written
+    through `io.mesh_io` (the card's host has no matplotlib: no raster);
+    (c) `fea_solve` and `tensile_test` in float64 on tests/test_fea.py's
+    beams at its analytic tolerances; (d) the sandbox's scripted REPL and
+    the CoM shift of tests/test_sandbox.py's poke; (e) the 12 K1 parity
+    scenarios of `onchip_parity` (`parity_steps`; its line holds the whole
+    record, and alone the run is held to the committed
+    ONCHIP_PARITY_TORCH.json by the JAX tool's rule). The counts are zeroed
+    before (a)'s recording and (e) and read after them; returns K1's
+    launches there."""
+    import io
+    import tempfile
+
+    from evosoro_tpu_torch import onchip_parity
+    from evosoro_tpu_torch.analysis import fea_solve, tensile_test
+    from evosoro_tpu_torch.core import init_state
+    from evosoro_tpu_torch.io import mesh_io
+    from evosoro_tpu_torch.ops import fused_rollout as fr
+    from evosoro_tpu_torch.viz import render, trajectory
+    from evosoro_tpu_torch.viz.sandbox import repl
+
+    parity_steps = parity_steps or onchip_parity.STEPS
+
+    # (a) the trajectory, through K1
+    body, sim, env, dt, num_steps, every = _visualize_robot(torch, np, "cuda")
+    n_frames = max(1, num_steps // every)
+    fr.FUSED_ROLLOUT_LAUNCHES = 0
+    t0 = time.perf_counter()
+    traj = trajectory.record_trajectory(body, sim, env, num_steps, dt=dt, every=every)
+    torch.cuda.synchronize()
+    traj_s = time.perf_counter() - t0
+    traj_k1 = fr.FUSED_ROLLOUT_LAUNCHES
+    reason = trajectory.eager_reason(body, sim, env, init_state(body))
+    boundaries = sorted({1, n_frames // 2, n_frames - 1})
+    bit_equal = {}
+    for f in boundaries:
+        one = trajectory.K1Chain(body, sim, env, init_state(body), dt, num_steps).advance(
+            f * every)
+        bit_equal[f] = all(torch.equal(a, b[f]) for a, b in zip(
+            one.pose(), (traj.pos, traj.quat, traj.scale, traj.time)))
+    k1_100 = trajectory._record(body, sim, env, 100, dt, 10, init_state(body), None, "k1")
+    t1 = time.perf_counter()
+    eager_100 = trajectory._record(body, sim, env, 100, dt, 10, init_state(body), None,
+                                   "eager")
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t1
+    dpos = max(float((k1_100.pos - eager_100.pos).abs().max()),
+               float((k1_100.final_state.pos - eager_100.final_state.pos).abs().max()))
+    rec = dict(phase="tools_trajectory", card=card,
+               workload="examples/visualize.py's robot, 6^3 seed 0, 0.6 s: %d steps, every %d"
+               % (num_steps, every), frames=int(traj.pos.shape[0]), seconds=traj_s,
+               k1_launches=traj_k1, eager_reason=reason,
+               frames_finite=bool(torch.isfinite(traj.pos).all()),
+               bit_equal_to_one_launch_at_frames=bit_equal,
+               first_100_steps_max_abs_dpos_k1_vs_eager_m=dpos,
+               eager_100_steps_s=eager_s, drift_bound_m=DRIFT_BOUND_M)
+    emit(rec)
+    assert reason is None and traj_k1 == n_frames + int(num_steps > n_frames * every), rec
+    assert rec["frames_finite"] and all(bit_equal.values()), rec
+    assert dpos <= DRIFT_BOUND_M, rec
+    chain = trajectory.K1Chain(body, sim, env, init_state(body), dt, num_steps)
+    k1_rec = _k1_cases(torch, fr, "visualize.py robot 6^3, one frame's launch",
+                       (chain.state, chain.body_packed, chain.stats, chain.collision),
+                       chain.kw, 1, False, (every,), time_at=every,
+                       phase="tools_k1_vs_plain")[0]
+
+    # (b) the renderer's surface, card against CPU, and the mesh file
+    f = n_frames // 2
+    pose = (traj.pos[f], traj.quat[f], traj.scale[f])
+    cpu_body = body.to("cpu").replace(mesh_drag=body.mesh_drag.to("cpu"))
+    got = render.surface(body, pose)
+    want = render.surface(cpu_body, tuple(t.cpu() for t in pose))
+    with tempfile.TemporaryDirectory() as tmp:
+        stl = os.path.join(tmp, "final_state.stl")
+        verts, tris = mesh_io.export_deformed_mesh(stl, traj.final_state, body)
+        back_verts, back_tris = mesh_io.read_stl(stl)
+        stl_bytes = os.path.getsize(stl)
+    rec = dict(phase="tools_render", card=card, frame=f, triangles=int(got[1].shape[0]),
+               vertices_max_abs_err_m=float(np.abs(got[0] - want[0]).max()),
+               vertices_within_rtol=bool(np.allclose(got[0], want[0], rtol=RENDER_RTOL,
+                                                     atol=0.0)),
+               render_rtol=RENDER_RTOL,
+               tables_and_colours_equal=all(np.array_equal(a, b)
+                                            for a, b in zip(got[1:], want[1:])),
+               stl_bytes=stl_bytes, stl_triangles=int(len(tris)),
+               stl_read_back_triangles=int(len(back_tris)))
+    emit(rec)
+    assert rec["vertices_within_rtol"] and rec["tables_and_colours_equal"], rec
+    assert len(tris) > 0 and len(back_tris) == len(tris), rec
+
+    # (c) static FEA and the tensile test in float64 on the card
+    n, P = 10, 1e-4
+    ext = torch.zeros((n, 1, 1, 3), dtype=torch.float64)
+    ext[-1, 0, 0, 2] = -P
+    t0 = time.perf_counter()
+    sol = fea_solve(_tools_beam(torch, n, True, "cuda"), ext_force=ext, tol=1e-12)
+    cant_s = time.perf_counter() - t0
+    analytic = -P * (9e-3) ** 3 / (3.0 * 1e6 * 1e-12 / 12.0)
+    tip_err = abs(float(sol["displacement"][-1, 0, 0, 2]) - analytic) / abs(analytic)
+    ext = torch.zeros((6, 1, 1, 3), dtype=torch.float64)
+    ext[-1, 0, 0, 0] = 1e-3
+    t0 = time.perf_counter()
+    ax = fea_solve(_tools_beam(torch, 6, True, "cuda"), ext_force=ext, tol=1e-12)
+    axial_s = time.perf_counter() - t0
+    k = 1e6 * 1e-3 / 5
+    axial_err = abs(float(ax["displacement"][-1, 0, 0, 0]) - 1e-3 / k) / (1e-3 / k)
+    t0 = time.perf_counter()
+    ten = tensile_test(_tools_beam(torch, 6, False, "cuda"), axis=0,
+                       strains=np.array([0.005, 0.01]))
+    ten_s = time.perf_counter() - t0
+    mod = (ten["stress"] / ten["strain"]).cpu().numpy()
+    rec = dict(phase="tools_fea", card=card, dtype="float64",
+               cantilever=dict(voxels=n, cg_iterations=sol["iterations"], seconds=cant_s,
+                               tip_rel_err=tip_err, residual=float(sol["residual"])),
+               axial=dict(voxels=6, cg_iterations=ax["iterations"], seconds=axial_s,
+                          tip_rel_err=axial_err),
+               tensile=dict(voxels=6, cg_iterations=ten["iterations"], seconds=ten_s,
+                            modulus_rel_err=float(np.abs(mod / 1e6 - 1.0).max())))
+    emit(rec)
+    assert sol["displacement"].device.type == "cuda", rec
+    assert tip_err < 1e-6 and rec["cantilever"]["residual"] < 1e-10, rec
+    assert axial_err < 1e-8 and rec["tensile"]["modulus_rel_err"] < 1e-6, rec
+
+    # (d) the sandbox's scripted REPL, and the poke's CoM shift
+    sb = _tools_sandbox(torch, np, "cuda")
+    (x, y, z), (fx, fy, fz), dur = TOOLS_POKE
+    text = io.StringIO()
+    repl(sb, stdin=io.StringIO(f"i\ns 5\np {x} {y} {z} {fx} {fy} {fz} {dur}\ns 10\nc\ni\nz\nq\n"),
+         stdout=text)
+    text = text.getvalue()
+    plain = _tools_sandbox(torch, np, "cuda").step(5)
+    poked = _tools_sandbox(torch, np, "cuda").step(5)
+    poked.apply_force(*TOOLS_POKE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain.step(60)
+    torch.cuda.synchronize()
+    ms_per_step = 1e3 * (time.perf_counter() - t0) / 60
+    poked.step(60)
+    shift = float(poked.center_of_mass()[0] - plain.center_of_mass()[0])
+    rec = dict(phase="tools_sandbox", card=card, repl_lines=text.count("\n"),
+               repl_ok=all(s in text for s in ("t=", "poking", "pokes cleared", "reset."))
+               and "error" not in text, steps_after_reset=sb.steps_done,
+               poke_com_shift_x_m=shift, eager_ms_per_step=ms_per_step,
+               device=str(plain.state.pos.device))
+    emit(rec)
+    assert rec["repl_ok"] and sb.steps_done == 0 and shift > 1e-7, (rec, text)
+
+    # (e) K1 against the eager step, the 12 scenarios
+    fr.FUSED_ROLLOUT_LAUNCHES = 0
+    t0 = time.perf_counter()
+    par = onchip_parity.measure(steps=parity_steps, device="cuda")
+    par_k1 = fr.FUSED_ROLLOUT_LAUNCHES
+    bad = {k: v for k, v in par["scenarios"].items()
+           if not (np.isfinite(v["max_abs_pos_diff_m"]) and not v["diverged"]
+                   and v["max_abs_pos_diff_m"] < 0.01 * v["pos_span_m"])}
+    rec = dict(phase="tools_onchip_parity", card=card, steps=parity_steps,
+               seconds=time.perf_counter() - t0, k1_launches=par_k1, outside=bad,
+               max_abs_pos_diff_m=max(v["max_abs_pos_diff_m"]
+                                      for v in par["scenarios"].values()),
+               bit_equal=[k for k, v in par["scenarios"].items()
+                          if v["max_abs_pos_diff_m"] == 0.0], record=par)
+    if alone:
+        committed = os.path.join(HERE, "ONCHIP_PARITY_TORCH.json")
+        if os.path.exists(committed):
+            with open(committed) as fh:
+                rec["check_against_committed"] = onchip_parity.check(par, json.load(fh))
+    emit(rec)
+    assert not bad and par_k1 == len(onchip_parity.SCENARIOS), rec
+    assert not rec.get("check_against_committed"), rec
+    return dict(fused_rollout=traj_k1 + par_k1, trajectory=traj_k1, parity=par_k1,
+                k1=k1_rec)
+
+
+def _tools_row(tools, bound_keys):
+    """The kernels line's K1 row of `--tools`."""
+    k1 = tools["k1"]
+    return dict(
+        name="fused_rollout (K1)", route="cuda",
+        source="evosoro_tpu_torch/ops/csrc/fused_rollout.cu",
+        replaces="evosoro_tpu/ops/fused_rollout.py:777",
+        launches=tools["fused_rollout"],
+        launches_of="record_trajectory of examples/visualize.py's robot (%d) and the 12 "
+        "K1 parity scenarios (%d)" % (tools["trajectory"], tools["parity"]),
+        **bound_keys(k1), max_abs_err=k1["pos"],
+        err_of="pos (m) against the plain version: one frame's launch (%d steps) of the "
+        "visualize.py robot, 6^3" % k1["steps"],
+        ms=k1["ms"], plain_ms=k1["plain_ms"],
+        ms_of="one frame's launch, 1 x 6^3, %d steps" % k1["steps"])
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "evosoro_tpu_torch")):
         raise SystemExit("chip_smoke: run it from a checkout of the repository "
@@ -4787,6 +5057,18 @@ def main():
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return None
+    if sys.argv[1:] == ["--tools"]:
+        tools = phase_tools(torch, np, card, alone=True)
+
+        def bound_keys(rec):
+            return dict(bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None)
+
+        emit(dict(kernels=[_tools_row(tools, bound_keys)]))
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return None
     if sys.argv[1:] == ["--eager"]:
         phase_eager(torch, np, card)
         print(card, flush=True)
@@ -4830,6 +5112,7 @@ def main():
     swimx = evo_launches["swimming_materials"]
     eager = phase_eager(torch, np, card, **EAGER_CUT)
     par = phase_parallel(torch, np, card, **PARALLEL_CUT)
+    tools = phase_tools(torch, np, card, **TOOLS_CUT)
     mpc_launches, knot_timed, loop_recs = phase_mpc(torch, np)
     b4 = phase_b4(torch, np)
     b4_timed = next(r for r in b4 if "ms" in r)
@@ -4876,7 +5159,7 @@ def main():
              + vol["replay_launches"]["fused_rollout"] + vol["evolution"]["fused_rollout"]
              + vol["mpc_launches"]["fused_rollout"] + big_k1 + swimx["fused_rollout"]
              + sum(v["fused_rollout"] for v in sqp_mv.values()) + eager["fused_rollout"]
-             + par["fused_rollout"],
+             + par["fused_rollout"] + tools["fused_rollout"],
              launches_evolution=launches["fused_rollout"],
              launches_swimming=swim["fused_rollout"],
              launches_growth=grow["fused_rollout"],
@@ -4896,6 +5179,7 @@ def main():
                                                      for v in sqp_mv.values()),
              launches_eager_phase=eager["fused_rollout"],
              launches_parallel_phase=par["fused_rollout"],
+             launches_tools=tools["fused_rollout"],
              **bound_keys(k1_timed),
              max_abs_err=max(r["pos"] for r in k1),
              err_of=("pos (m), evaluator batch %d x 6^3, 1/25/100 steps, "

@@ -2066,9 +2066,6 @@ def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
     (`core.rollout`). A float64 state on the CPU runs the plain version in
     float64. Returns (new_state, FastRolloutStats), with the sources'
     distances when the environment has sources."""
-    import os
-
-    from evosoro_tpu_torch.core.step import has_bc
     from evosoro_tpu_torch.core.types import SC_MAX_SIM_TIME
 
     if stop_condition_type not in (None, SC_MAX_SIM_TIME):
@@ -2082,40 +2079,16 @@ def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
     if sim.volume_effects_enabled and state.ts_sum is None:
         raise ValueError("volume effects enabled but the state has no coupling carry; "
                          "create it with init_state(body, volume_effects=True)")
+    args, kw = launch_inputs(state, body, sim, env, dt, stop_time, stats, control_sequence)
+    out_state, out_stats = fused_call(*args, num_steps=num_steps, prec=prec, **kw)
+    return launch_outputs(out_state, out_stats, state, body, sim, env)
+
+
+def launch_outputs(out_state, out_stats, state: SimState, body: VoxelBody, sim: SimParams,
+                   env: EnvParams):
+    """(new_state, FastRolloutStats) of a `launch_inputs` launch that started
+    from the batched `state`."""
     X, Y, Z = body.occ.shape[-3:]
-    B = state.scale.shape[0]
-    # float32, as the kernels take it; a float64 state on the CPU runs the
-    # plain version in float64
-    dtype = torch.float64 if state.pos.device.type == "cpu" \
-        and state.pos.dtype == torch.float64 else torch.float32
-    state_packed = pack_state(state, dtype)
-    body_packed = pack_body(body, dtype)
-    dev = state_packed.device
-    collision_packed, compact = None, False
-    if sim.self_collisions_enabled and body.collision is not None:
-        n_surf = int(np.asarray(body.collision.surf_mask).sum())
-        compact = os.environ.get("EVOSORO_TPU_COLL_COMPACT") == "1" and n_surf < X * Y * Z
-        pack = pack_collision_compact if compact else pack_collision
-        collision_packed = torch.as_tensor(pack(body.collision, (X, Y, Z)), device=dev,
-                                           dtype=dtype)[None]
-    ss_packed = pack_ss_tables(body, dtype).to(dev) if body.ss_strain_vox is not None else None
-    bc_packed = pack_bc_tables(body, dtype).to(dev) if has_bc(body) else None
-    if stats is None:
-        stats = _carried_dt(make_stats(body, B, dt, sim, env, stop_time, dtype), state, sim)
-    if sim.equilibrium_mode and state.ke_history is not None:
-        stats = stats.clone()
-        stats[:, _S_KE:_S_KE + 6] = state.ke_history.to(stats.dtype)
-    flags = launch_flags(body, sim, env, collision=collision_packed is not None,
-                         collision_compact=compact, ballistic=_ballistic(state, env))
-    n_knots, control_packed = 0, None
-    if control_sequence is not None:
-        n_knots = control_sequence.shape[1]
-        control_packed = _flat(control_sequence.to(dtype), (B, n_knots)).contiguous()
-    out_state, out_stats = fused_call(
-        state_packed, body_packed, stats, collision_packed,
-        control_packed=control_packed, num_steps=num_steps,
-        grid_shape=(X, Y, Z), scalars=kernel_scalars(body.nominal_size, sim, env),
-        flags=flags, n_knots=n_knots, prec=prec, ss_packed=ss_packed, bc_packed=bc_packed)
     outs = stats_to_outputs(out_stats)
     new_state = unpack_state(out_state, state, (X, Y, Z)).replace(
         time=outs.time.to(state.time.dtype), diverged=outs.diverged)
@@ -2139,6 +2112,53 @@ def fused_rollout(state: SimState, body: VoxelBody, sim: SimParams,
             win_prev=out_stats[:, _S_WPREV].to(dtype),
             win_count=out_stats[:, _S_WCNT].to(torch.int32)))
     return new_state, outs
+
+
+def launch_inputs(state: SimState, body: VoxelBody, sim: SimParams, env: EnvParams, dt,
+                  stop_time=None, stats=None, control_sequence=None, **extra_flags):
+    """`fused_rollout`'s K1 launch for a batched state and one design, as
+    (args, kw) for `fused_call(*args, num_steps=..., **kw)`: the packed
+    state, body, stats row and pair table, then the grid, scalars, flags,
+    controls and tables. `extra_flags` join the launch's flags (`segmented`,
+    which then needs `seg_base` and `total_steps` in the call). Packed in
+    float32, as the kernels take it; a float64 state on the CPU packs in
+    float64, for the plain version."""
+    import os
+
+    from evosoro_tpu_torch.core.step import has_bc
+
+    X, Y, Z = body.occ.shape[-3:]
+    B = state.scale.shape[0]
+    dtype = torch.float64 if state.pos.device.type == "cpu" \
+        and state.pos.dtype == torch.float64 else torch.float32
+    state_packed = pack_state(state, dtype)
+    body_packed = pack_body(body, dtype)
+    dev = state_packed.device
+    collision_packed, compact = None, False
+    if sim.self_collisions_enabled and body.collision is not None:
+        n_surf = int(np.asarray(body.collision.surf_mask).sum())
+        compact = os.environ.get("EVOSORO_TPU_COLL_COMPACT") == "1" and n_surf < X * Y * Z
+        pack = pack_collision_compact if compact else pack_collision
+        collision_packed = torch.as_tensor(pack(body.collision, (X, Y, Z)), device=dev,
+                                           dtype=dtype)[None]
+    ss_packed = pack_ss_tables(body, dtype).to(dev) if body.ss_strain_vox is not None else None
+    bc_packed = pack_bc_tables(body, dtype).to(dev) if has_bc(body) else None
+    if stats is None:
+        stats = _carried_dt(make_stats(body, B, dt, sim, env, stop_time, dtype), state, sim)
+    if sim.equilibrium_mode and state.ke_history is not None:
+        stats = stats.clone()
+        stats[:, _S_KE:_S_KE + 6] = state.ke_history.to(stats.dtype)
+    flags = launch_flags(body, sim, env, collision=collision_packed is not None,
+                         collision_compact=compact, ballistic=_ballistic(state, env),
+                         **extra_flags)
+    n_knots, control_packed = 0, None
+    if control_sequence is not None:
+        n_knots = control_sequence.shape[1]
+        control_packed = _flat(control_sequence.to(dtype), (B, n_knots)).contiguous()
+    return (state_packed, body_packed, stats, collision_packed), dict(
+        control_packed=control_packed, grid_shape=(X, Y, Z),
+        scalars=kernel_scalars(body.nominal_size, sim, env), flags=flags,
+        n_knots=n_knots, ss_packed=ss_packed, bc_packed=bc_packed)
 
 
 def _carried_dt(stats, state: SimState, sim: SimParams):

@@ -279,10 +279,14 @@ def test_import_leaves_jax_out():
             "evosoro_tpu_torch.native, evosoro_tpu_torch.core.shape, "
             "evosoro_tpu_torch.io.mesh_io, evosoro_tpu_torch.viz.marching, "
             "evosoro_tpu_torch.parallel.mesh, evosoro_tpu_torch.parallel.spatial, "
-            "evosoro_tpu_torch.parallel.ranks, evosoro_tpu_torch.graft_entry; "
+            "evosoro_tpu_torch.parallel.ranks, evosoro_tpu_torch.graft_entry, "
+            "evosoro_tpu_torch.analysis, evosoro_tpu_torch.analysis.fea, "
+            "evosoro_tpu_torch.analysis.tensile, evosoro_tpu_torch.viz, "
+            "evosoro_tpu_torch.viz.render, evosoro_tpu_torch.viz.trajectory, "
+            "evosoro_tpu_torch.viz.sandbox, evosoro_tpu_torch.onchip_parity; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'evosoro_tpu')]; print(bad); "
-            "sys.exit(1 if bad else 0)")
+            "('jax', 'jaxlib', 'flax', 'optax', 'evosoro_tpu', 'matplotlib')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
